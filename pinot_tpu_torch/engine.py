@@ -1,0 +1,37 @@
+"""In-process query engine facade: PQL in, BrokerResponse out.
+
+Counterpart of pinot_tpu/engine.py: compile → optimize → per-segment
+execute on the device → broker reduce, all in one process.
+"""
+from __future__ import annotations
+
+import time
+from typing import Sequence
+
+from pinot_tpu_torch.common.device import resolve_device
+from pinot_tpu_torch.common.response import BrokerResponse
+from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+from pinot_tpu_torch.pql.parser import compile_pql
+from pinot_tpu_torch.query.executor import ServerQueryExecutor
+from pinot_tpu_torch.query.reduce import BrokerReduceService
+from pinot_tpu_torch.segment.loader import ImmutableSegment
+
+
+class QueryEngine:
+    def __init__(self, segments: Sequence[ImmutableSegment], device=None):
+        """`device`: where the segments' lanes live and the kernels run;
+        None means the card ("cuda"), which raises when there is none.
+        Pass device="cpu" to run the kernels' plain versions on the CPU."""
+        self.device = resolve_device(device)
+        self.segments = [seg.to(self.device) for seg in segments]
+        self.executor = ServerQueryExecutor()
+        self.optimizer = BrokerRequestOptimizer()
+        self.reducer = BrokerReduceService()
+
+    def query(self, pql: str) -> BrokerResponse:
+        t0 = time.perf_counter()
+        request = self.optimizer.optimize(compile_pql(pql))
+        block = self.executor.execute(request, self.segments)
+        resp = self.reducer.reduce(request, [block])
+        resp.time_used_ms = (time.perf_counter() - t0) * 1e3
+        return resp

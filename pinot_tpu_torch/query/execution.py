@@ -1,0 +1,225 @@
+"""Segment plan execution: run the device kernels, finish results host-side.
+
+Counterpart of pinot_tpu/query/execution.py. One dispatch per segment
+(K1 then K2 or K3, ops/kernels.py:run_segment_kernel) and one
+device→host pull: for a group-by only the non-empty groups cross, picked
+out on the device first, so a 2^21-slot table never crosses PCIe whole.
+The host finishers are the JAX package's (exact int64 shift-combine of
+part sums, dictId → value decode, mixed-radix key decode), reading the
+same output names.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.ops import kernels
+from pinot_tpu_torch.query.blocks import ExecutionStats, \
+    IntermediateResultsBlock
+
+
+def _count_filter_leaves(spec) -> int:
+    if spec is None or spec[0] in ("match_all", "empty"):
+        return 0
+    if spec[0] in ("and", "or"):
+        return sum(_count_filter_leaves(c) for c in spec[1])
+    return 1
+
+
+def gather_operands_for(segment, needed_cols) -> Dict[str, torch.Tensor]:
+    cols: Dict[str, torch.Tensor] = {}
+    for col, kind in needed_cols:
+        ds = segment.data_source(col)
+        if kind == "ids":
+            cols[f"{col}.ids"] = ds.device_dict_ids()
+        elif kind == "raw":
+            cols[f"{col}.raw"] = ds.device_raw_values()
+        elif kind == "parts":
+            cols[f"{col}.parts"] = ds.device_part_lanes()
+        elif kind == "vlane":
+            cols[f"{col}.vlane"] = ds.device_value_lane()
+        else:
+            raise ValueError(f"lane kind {kind}")
+    return cols
+
+
+def gather_operands(plan) -> Dict[str, torch.Tensor]:
+    return gather_operands_for(plan.segment, plan.needed_cols)
+
+
+def pull(outs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Device tensors → numpy in ONE device→host copy: every output is
+    viewed as int32 words, concatenated on the device, copied once, and
+    cut back into arrays of the original dtypes and shapes."""
+    if not outs:
+        return {}
+    names = list(outs)
+    flat = [outs[n].contiguous().reshape(-1) for n in names]
+    words = torch.cat([f.view(torch.int32) if f.numel() else
+                       f.new_empty(0, dtype=torch.int32) for f in flat])
+    host = words.cpu().numpy()
+    res: Dict[str, np.ndarray] = {}
+    pos = 0
+    for n, f in zip(names, flat):
+        nw = f.numel() * f.element_size() // 4
+        arr = host[pos:pos + nw].view(_np_dtype(f.dtype))
+        res[n] = arr.reshape(tuple(outs[n].shape))
+        pos += nw
+    return res
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return {torch.int32: np.dtype(np.int32),
+            torch.int64: np.dtype(np.int64),
+            torch.float32: np.dtype(np.float32),
+            torch.float64: np.dtype(np.float64)}[dtype]
+
+
+def execute_segment_plan(plan) -> IntermediateResultsBlock:
+    if plan.fast_path_result is not None:
+        return plan.fast_path_result
+    return _execute_segment_plan(plan)
+
+
+def _execute_segment_plan(plan) -> IntermediateResultsBlock:
+    segment = plan.segment
+    t0 = time.perf_counter()
+    cols = gather_operands(plan)
+    dev_outs = kernels.run_segment_kernel(
+        segment.padded_docs, plan.filter_spec, plan.agg_specs,
+        plan.group_spec, None, cols, tuple(plan.params),
+        segment.num_docs, segment.device)
+
+    blk = IntermediateResultsBlock()
+    if plan.group_spec is not None:
+        outs = pull(_nonempty_groups(dev_outs))
+        _finish_group_by(plan, outs, blk)
+    else:
+        outs = pull(dev_outs)
+        _finish_aggregation(plan, outs, blk)
+    matched = int(outs["stats.num_docs_matched"])
+
+    n_leaves = _count_filter_leaves(plan.filter_spec)
+    n_project = len({c for c, _ in plan.needed_cols})
+    blk.stats = ExecutionStats(
+        num_docs_scanned=matched,
+        num_entries_scanned_in_filter=n_leaves * segment.num_docs,
+        num_entries_scanned_post_filter=matched * max(n_project - n_leaves, 0),
+        num_segments_processed=1,
+        num_segments_matched=1 if matched else 0,
+        total_docs=segment.num_docs,
+        time_used_ms=(time.perf_counter() - t0) * 1e3)
+    return blk
+
+
+def _nonempty_groups(outs: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Select the groups with count > 0 on the device: `group.nz` holds
+    their keys, every per-group output keeps only those slots."""
+    count = outs["group.count"]
+    nz = torch.nonzero(count).reshape(-1)
+    sel: Dict[str, torch.Tensor] = {
+        "stats.num_docs_matched": outs["stats.num_docs_matched"],
+        "group.nz": nz.to(torch.int64),
+        "group.count": count[nz]}
+    for name, t in outs.items():
+        if name.startswith("gagg"):
+            sel[name] = t[..., nz]
+    return sel
+
+
+# ---------------------------------------------------------------------------
+
+
+def _finish_aggregation(plan, outs, blk) -> None:
+    inters: List = []
+    for i, (f, spec) in enumerate(zip(plan.functions, plan.agg_specs)):
+        fname, col, source, extra = spec
+        strategy = extra[0] if isinstance(extra, tuple) else None
+        if fname == "count":
+            inters.append(int(outs[f"agg{i}"]))
+        elif source == "sv" and fname in ("sum", "avg") and \
+                strategy == "parts":
+            cnt = int(outs[f"agg{i}.count"])
+            n_parts, min_v = plan.segment.data_source(col).int_part_info()
+            # [n_parts] fully device-reduced sums, exact int64 combine
+            arr = np.asarray(outs[f"agg{i}.parts"]).astype(
+                np.int64).reshape(-1, n_parts).sum(axis=0)
+            s = float(sum(int(arr[k]) << (7 * k)
+                          for k in range(n_parts)) + min_v * cnt)
+            inters.append(s if fname == "sum" else (s, cnt))
+        else:
+            raise ValueError(f"unexpected agg spec {spec}")
+    blk.agg_intermediates = inters
+
+
+def _decode_group_values(plan, nz: np.ndarray) -> List[np.ndarray]:
+    """Mixed-radix decode of group keys `nz` into per-column value arrays."""
+    gcols, strides, _g_pad, _specs, _kmax = plan.group_spec
+    value_cols = []
+    for (c, _gkind, _off, card), stride in zip(gcols, strides):
+        ids = (nz // stride) % card
+        value_cols.append(plan.segment.data_source(c).dictionary.decode(ids))
+    return value_cols
+
+
+def _assemble_group_map(plan, blk, value_cols, per_agg_arrays,
+                        n_groups: int) -> None:
+    group_map: Dict[Tuple, List] = {}
+    for row in range(n_groups):
+        key = tuple(_plain(vc[row]) for vc in value_cols)
+        inters: List = []
+        for kind, a, b in per_agg_arrays:
+            if kind == "count":
+                inters.append(int(a[row]))
+            elif kind == "sum":
+                inters.append(float(a[row]))
+            else:  # avg
+                inters.append((float(a[row]), int(b[row])))
+        group_map[key] = inters
+    blk.group_map = group_map
+
+
+def _finish_group_by(plan, outs, blk) -> None:
+    """`outs` holds the non-empty groups only (_nonempty_groups): their
+    keys in `group.nz`, their counts and sums in the JAX output names."""
+    gcols, strides, g_pad, agg_specs, kmax = plan.group_spec
+    nz = outs["group.nz"]
+    counts = outs["group.count"]
+    value_cols = _decode_group_values(plan, nz)
+
+    def _sum_array(i, spec):
+        """Exact f64 per-group sums from the device partials."""
+        fname, col, source, extra = spec
+        if extra[0] == "csums":
+            return np.asarray(outs[f"gagg{i}.csums"], dtype=np.float64)
+        arr = np.asarray(outs[f"gagg{i}.psums"]).astype(np.int64)
+        _, min_v = plan.segment.data_source(col).int_part_info()
+        shifts = np.left_shift(np.int64(1),
+                               7 * np.arange(arr.shape[0], dtype=np.int64))
+        totals = (arr * shifts[:, None]).sum(0)
+        totals = totals + np.int64(min_v) * counts.astype(np.int64)
+        return totals.astype(np.float64)
+
+    per_agg_arrays = []
+    for i, spec in enumerate(agg_specs):
+        fname = spec[0]
+        if fname == "count":
+            per_agg_arrays.append(("count", counts, None))
+        elif fname == "sum":
+            per_agg_arrays.append(("sum", _sum_array(i, spec), None))
+        elif fname == "avg":
+            per_agg_arrays.append(("avg", _sum_array(i, spec), counts))
+        else:
+            raise ValueError(fname)
+
+    _assemble_group_map(plan, blk, value_cols, per_agg_arrays, len(nz))
+
+
+def _plain(v):
+    if isinstance(v, np.generic):
+        return v.item()
+    return v

@@ -1,0 +1,378 @@
+"""Per-segment plan maker.
+
+Counterpart of pinot_tpu/query/plan.py for this slice: resolves the
+filter tree against each column's sorted dictionary host-side (so the
+card sees only integer compares and member bitsets), picks the device
+aggregation strategy, and builds the group-by spec.
+
+Supported here: dictionary single-value columns in filters (eq_id,
+neq_id, range_ids, in_ids, notin_ids, member), COUNT / SUM / AVG, and
+GROUP BY over dictionary single-value columns. Every other shape raises
+UnsupportedOnDevice; there is no host fallback in this slice.
+
+Design change from the JAX planner, on purpose: it picks TPU-shaped
+strategies (matrix-unit block compaction, adaptive min/max and histogram
+scouts, the kmax escalation ladder) because scatter is slow on the TPU.
+On Hopper, atomics into device memory are the natural primitive, so this
+planner always emits the dense direct-keyed group spec (kmax = 0), with
+`psums` for integer dictionaries and `csums` for raw / float columns, at
+any g_pad up to the groups limit. The spec tuples keep the JAX grammar.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re as _re
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from pinot_tpu_torch.common import expression as expr_mod
+from pinot_tpu_torch.common.request import BrokerRequest, FilterOperator, \
+    FilterQueryTree
+from pinot_tpu_torch.ops import kernels
+from pinot_tpu_torch.query.aggregation import AggregationFunction, \
+    make_functions
+from pinot_tpu_torch.query.blocks import ExecutionStats, \
+    IntermediateResultsBlock
+from pinot_tpu_torch.segment.loader import ImmutableSegment
+
+DEFAULT_NUM_GROUPS_LIMIT = 100_000     # parity: num.groups.limit
+IN_LIST_MEMBER_THRESHOLD = 16          # small IN → compare list, else
+                                       # member bitset
+
+
+class GroupsLimitExceeded(Exception):
+    pass
+
+
+class UnsupportedOnDevice(Exception):
+    """The query shape is not on this slice's device path."""
+
+
+# ---------------------------------------------------------------------------
+# Filter resolution: FilterQueryTree → (kernel spec, params)
+# ---------------------------------------------------------------------------
+
+MATCH_ALL = ("match_all",)
+EMPTY = ("empty",)
+
+
+def resolve_filter(tree: Optional[FilterQueryTree], segment: ImmutableSegment
+                   ) -> Tuple[tuple, List]:
+    if tree is None:
+        return MATCH_ALL, []
+    params: List = []
+    spec = _resolve(tree, segment, params)
+    return spec, params
+
+
+def _resolve(node: FilterQueryTree, segment: ImmutableSegment, params: List
+             ) -> tuple:
+    if node.operator in (FilterOperator.AND, FilterOperator.OR):
+        is_and = node.operator == FilterOperator.AND
+        children = []
+        for c in node.children:
+            sub_params: List = []
+            spec = _resolve(c, segment, sub_params)
+            if spec == EMPTY:
+                if is_and:
+                    return EMPTY
+                continue
+            if spec == MATCH_ALL:
+                if not is_and:
+                    return MATCH_ALL
+                continue
+            children.append((spec, sub_params))
+        if not children:
+            return MATCH_ALL if is_and else EMPTY
+        if len(children) == 1:
+            params.extend(children[0][1])
+            return children[0][0]
+        for _, p in children:
+            params.extend(p)
+        return ("and" if is_and else "or",
+                tuple(spec for spec, _ in children))
+    return _resolve_leaf(node, segment, params)
+
+
+def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
+                  params: List) -> tuple:
+    if expr_mod.is_expression(node.column):
+        raise UnsupportedOnDevice("expression filter")
+    cm = segment.data_source(node.column).metadata
+    if not (cm.has_dictionary and cm.single_value):
+        raise UnsupportedOnDevice(
+            f"filter over raw or multi-value column {node.column}")
+    dictionary = segment.data_source(node.column).dictionary
+    op = node.operator
+    card = dictionary.cardinality
+    card_pad = kernels.pow2_bucket(card + 1)
+
+    if op == FilterOperator.EQUALITY:
+        i = dictionary.index_of(node.values[0])
+        if i < 0:
+            return EMPTY
+        params.append(np.int32(i))
+        return ("pred", "eq_id", node.column, "sv", None)
+
+    if op == FilterOperator.NOT:
+        i = dictionary.index_of(node.values[0])
+        if i < 0:
+            return MATCH_ALL
+        params.append(np.int32(i))
+        return ("pred", "neq_id", node.column, "sv", None)
+
+    if op in (FilterOperator.IN, FilterOperator.NOT_IN):
+        ids = [dictionary.index_of(v) for v in node.values]
+        ids = sorted({i for i in ids if i >= 0})
+        negate = op == FilterOperator.NOT_IN
+        if not ids:
+            return MATCH_ALL if negate else EMPTY
+        if len(ids) <= IN_LIST_MEMBER_THRESHOLD:
+            k = kernels.pow2_bucket(len(ids), floor=1)
+            arr = np.full(k, -1, dtype=np.int32)
+            arr[: len(ids)] = ids
+            params.append(arr)
+            return ("pred", "notin_ids" if negate else "in_ids",
+                    node.column, "sv", k)
+        member = np.zeros(card_pad, dtype=bool)
+        member[ids] = True
+        if negate:
+            member = ~member
+            member[card:] = False   # padding ids never match
+        params.append(member)
+        return ("pred", "member", node.column, "sv", card_pad)
+
+    if op == FilterOperator.RANGE:
+        lo, hi = dictionary.range_to_id_interval(
+            node.lower, node.upper, node.lower_inclusive,
+            node.upper_inclusive)
+        if lo >= hi:
+            return EMPTY
+        if lo == 0 and hi >= card:
+            return MATCH_ALL
+        params.append(np.int32(lo))
+        params.append(np.int32(hi))
+        return ("pred", "range_ids", node.column, "sv", None)
+
+    if op == FilterOperator.REGEXP_LIKE:
+        # find() semantics over the dictionary → member bitset
+        pattern = _re.compile(node.values[0])
+        member = np.zeros(card_pad, dtype=bool)
+        for i in range(card):
+            if pattern.search(str(dictionary.get(i))):
+                member[i] = True
+        if not member.any():
+            return EMPTY
+        params.append(member)
+        return ("pred", "member", node.column, "sv", card_pad)
+
+    if op == FilterOperator.IS_NULL:
+        return EMPTY      # no null vector yet: nothing is null
+    if op == FilterOperator.IS_NOT_NULL:
+        return MATCH_ALL
+
+    raise UnsupportedOnDevice(f"filter operator {op}")
+
+
+# ---------------------------------------------------------------------------
+# Plan construction
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SegmentPlan:
+    segment: ImmutableSegment
+    request: BrokerRequest
+    # device kernel inputs (None when fast_path_result is set)
+    filter_spec: Optional[tuple] = None
+    params: Optional[List] = None
+    agg_specs: Tuple = ()
+    group_spec: Optional[tuple] = None
+    needed_cols: Tuple[Tuple[str, str], ...] = ()   # (column, lane-kind)
+    functions: List[AggregationFunction] = dataclasses.field(
+        default_factory=list)
+    fast_path_result: Optional[IntermediateResultsBlock] = None
+
+    def execute(self) -> IntermediateResultsBlock:
+        from pinot_tpu_torch.query import execution
+        return execution.execute_segment_plan(self)
+
+
+class InstancePlanMaker:
+    """Builds a SegmentPlan per segment for a BrokerRequest."""
+
+    def __init__(self, num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT):
+        self.num_groups_limit = num_groups_limit
+
+    def make_segment_plan(self, segment: ImmutableSegment,
+                          request: BrokerRequest) -> SegmentPlan:
+        if request.is_selection or request.vector is not None or \
+                request.join is not None or request.windows:
+            raise UnsupportedOnDevice(
+                "selection / vector / join / window queries")
+        if not request.is_aggregation:
+            raise UnsupportedOnDevice("query without aggregation")
+        plan = SegmentPlan(segment=segment, request=request)
+        plan.functions = make_functions(request.aggregations)
+
+        # fast path: no filter, metadata-answerable aggregations
+        if not request.is_group_by and request.filter is None and \
+                self._try_metadata_fast_path(plan, segment):
+            return plan
+
+        filter_spec, params = resolve_filter(request.filter, segment)
+        if filter_spec == EMPTY:
+            plan.fast_path_result = _empty_block(plan, segment)
+            return plan
+
+        # fast path: COUNT(*) on a pure match-all filter
+        if filter_spec == MATCH_ALL and not request.is_group_by and \
+                all(f.info.base == "COUNT" and not f.info.is_mv
+                    for f in plan.functions):
+            blk = IntermediateResultsBlock(
+                agg_intermediates=[segment.num_docs for _ in plan.functions])
+            _fill_stats(blk, segment, segment.num_docs, 0, 0)
+            plan.fast_path_result = blk
+            return plan
+
+        plan.filter_spec = filter_spec
+        plan.params = params
+
+        needed: Dict[Tuple[str, str], None] = {}
+        _collect_filter_cols(filter_spec, needed)
+        if request.is_group_by:
+            self._plan_group_by(plan, segment, request, needed)
+        else:
+            plan.agg_specs = tuple(
+                _agg_device_spec(f, segment, needed) for f in plan.functions)
+        plan.needed_cols = tuple(needed.keys())
+        return plan
+
+    # -- helpers -----------------------------------------------------------
+    def _try_metadata_fast_path(self, plan: SegmentPlan,
+                                segment: ImmutableSegment) -> bool:
+        inters: List = []
+        for f in plan.functions:
+            base = f.info.base
+            if base == "COUNT" and not f.info.is_mv:
+                inters.append(segment.num_docs)
+                continue
+            if base in ("MIN", "MAX", "MINMAXRANGE") and \
+                    segment.has_column(f.column):
+                cm = segment.data_source(f.column).metadata
+                if cm.has_dictionary and cm.single_value and \
+                        cm.data_type.is_numeric:
+                    mn, mx = float(cm.min_value), float(cm.max_value)
+                    inters.append(mn if base == "MIN" else
+                                  mx if base == "MAX" else (mn, mx))
+                    continue
+            return False
+        blk = IntermediateResultsBlock(agg_intermediates=inters)
+        _fill_stats(blk, segment, segment.num_docs, 0, 0)
+        plan.fast_path_result = blk
+        return True
+
+    def _plan_group_by(self, plan: SegmentPlan, segment: ImmutableSegment,
+                       request: BrokerRequest, needed: Dict) -> None:
+        gcols = []
+        cards = []
+        for c in request.group_by.columns:
+            if expr_mod.is_expression(c):
+                raise UnsupportedOnDevice("expression group key")
+            cm = segment.data_source(c).metadata
+            if not (cm.has_dictionary and cm.single_value):
+                raise UnsupportedOnDevice(
+                    f"group-by on raw or multi-value column {c}")
+            gcols.append((c, "ids", 0, cm.cardinality))
+            cards.append(cm.cardinality)
+            needed[(c, "ids")] = None
+        g = int(np.prod(cards, dtype=np.int64))
+        # per-query override (parity: the numGroupsLimit query option)
+        limit = self.num_groups_limit
+        opt = request.query_options.options.get("numGroupsLimit")
+        if opt is not None:
+            limit = int(opt)
+        if g > limit:
+            raise GroupsLimitExceeded(
+                f"{g} potential groups > limit {limit}")
+        strides = mixed_radix_strides(cards)
+        g_pad = kernels.pow2_bucket(g)
+        agg_specs = tuple(
+            _agg_device_spec(f, segment, needed, for_group=True)
+            for f in plan.functions)
+        plan.group_spec = (tuple(gcols), strides, g_pad, agg_specs, 0)
+
+
+def mixed_radix_strides(cards) -> tuple:
+    """Strides for the mixed-radix group key (last column fastest)."""
+    strides = []
+    acc = 1
+    for c in reversed(list(cards)):
+        strides.append(acc)
+        acc *= c
+    return tuple(reversed(strides))
+
+
+def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
+                     needed: Dict, for_group: bool = False) -> tuple:
+    base = f.info.base
+    if base == "COUNT" and not f.info.is_mv:
+        return ("count", "*", "none", None)
+    col = f.column
+    if expr_mod.is_expression(col) or f.info.is_mv:
+        raise UnsupportedOnDevice("expression or multi-value aggregation")
+    if base not in ("SUM", "AVG"):
+        raise UnsupportedOnDevice(f"{base} aggregation")
+    fname = base.lower()
+    cm = segment.data_source(col).metadata
+    if not cm.single_value:
+        raise UnsupportedOnDevice(f"aggregation over MV column {col}")
+    if not cm.has_dictionary:
+        if not for_group:
+            raise UnsupportedOnDevice(f"{fname} over raw column {col}")
+        if cm.data_type.np_dtype.kind not in "iuf":
+            raise UnsupportedOnDevice(f"{fname} over non-numeric {col}")
+        needed[(col, "raw")] = None
+        return (fname, col, "raw", ("csums",))
+    card_pad = kernels.pow2_bucket(cm.cardinality + 1)
+    is_int_dict = cm.data_type.np_dtype.kind in "iu"
+    if is_int_dict:
+        needed[(col, "parts")] = None
+        return (fname, col, "sv", ("psums" if for_group else "parts",
+                                   card_pad))
+    if not for_group:
+        raise UnsupportedOnDevice(f"{fname} over float dictionary {col}")
+    needed[(col, "vlane")] = None
+    return (fname, col, "sv", ("csums", card_pad))
+
+
+def _collect_filter_cols(spec: tuple, needed: Dict) -> None:
+    if spec[0] in ("and", "or"):
+        for c in spec[1]:
+            _collect_filter_cols(c, needed)
+    elif spec[0] == "pred":
+        needed[(spec[2], "ids")] = None
+
+
+def _empty_block(plan: SegmentPlan, segment: ImmutableSegment
+                 ) -> IntermediateResultsBlock:
+    blk = IntermediateResultsBlock()
+    if plan.request.is_group_by:
+        blk.group_map = {}
+    else:
+        blk.agg_intermediates = [None for _ in plan.functions]
+    _fill_stats(blk, segment, 0, 0, 0)
+    return blk
+
+
+def _fill_stats(blk: IntermediateResultsBlock, segment: ImmutableSegment,
+                docs_scanned: int, entries_filter: int, entries_post: int
+                ) -> None:
+    blk.stats = ExecutionStats(
+        num_docs_scanned=docs_scanned,
+        num_entries_scanned_in_filter=entries_filter,
+        num_entries_scanned_post_filter=entries_post,
+        num_segments_processed=1,
+        num_segments_matched=1 if docs_scanned else 0,
+        total_docs=segment.num_docs)

@@ -1,0 +1,209 @@
+"""Immutable segments: host arrays → device tensors.
+
+Counterpart of pinot_tpu/segment/loader.py. Each column's dictId lanes,
+bit-sliced part lanes and raw value lanes are pushed to the segment's
+device once, on first use, padded to a multiple of the kernel row block
+so every kernel sees the same static layout the JAX package uses:
+
+- id lanes use the narrow dtype from `min_id_dtype`; padding rows hold
+  id == cardinality;
+- part lanes are int8 [n_parts, P] (7 bits of value - min per lane);
+- raw lanes keep the host dtype;
+- value lanes decode a float dictionary to float64 [P].
+
+This slice has no residency ledger and no disk loader: segments are built
+in memory (tools/datagen.py:make_segment_from_arrays).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.common.device import resolve_device
+from pinot_tpu_torch.ops.kernels import BLOCK as PAD_BLOCK
+from pinot_tpu_torch.segment.dictionary import Dictionary
+from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
+
+
+def padded_size(n: int, block: int = PAD_BLOCK) -> int:
+    return max(block, ((n + block - 1) // block) * block)
+
+
+def min_id_dtype(max_value: int) -> np.dtype:
+    """Smallest signed dtype holding ids in [0, max_value] — the single
+    source of truth for id-lane narrowing. Kernels read each lane at its
+    own width and promote to int32 where they compute."""
+    return np.dtype(np.int8 if max_value <= 127 else
+                    np.int16 if max_value <= 32767 else np.int32)
+
+
+def int_part_info_for(values: np.ndarray) -> tuple:
+    """(n_parts, min_value) for the 7-bit bit-sliced integer sum encoding
+    of a sorted integer dictionary (value = min + sum_k part_k << 7k)."""
+    vals = np.asarray(values, dtype=np.int64)
+    min_v = int(vals[0]) if len(vals) else 0
+    max_off = (int(vals[-1]) - min_v) if len(vals) else 0
+    n_parts = -(-max(1, max_off.bit_length()) // 7)
+    return (n_parts, min_v)
+
+
+def int_part_table(values: np.ndarray, n_parts: int,
+                   min_v: int) -> np.ndarray:
+    """[n_parts, card + 1] int8 plane table (last column = all-zero pad
+    sentinel for id == cardinality row padding)."""
+    off = np.asarray(values, dtype=np.int64) - min_v
+    table = np.stack([(off >> (7 * k)) & 0x7F
+                      for k in range(n_parts)]).astype(np.int8)
+    return np.concatenate([table, np.zeros((n_parts, 1), np.int8)], axis=1)
+
+
+class DataSource:
+    """Column access for the planner and the kernels: dictionary, host
+    forward arrays, and the device lanes built from them."""
+
+    def __init__(self, metadata: ColumnMetadata,
+                 segment: Optional["ImmutableSegment"]):
+        self.metadata = metadata
+        self._segment = segment
+        self._lane_lock = threading.RLock()   # _device → int_part_info
+        self.dictionary: Optional[Dictionary] = None
+        self.dict_ids: Optional[np.ndarray] = None        # [num_docs]
+        self.raw_values: Optional[np.ndarray] = None      # no-dict columns
+        self._dev: Dict[str, torch.Tensor] = {}
+        self._part_info: Optional[tuple] = None
+
+    # -- device access -----------------------------------------------------
+    def device_dict_ids(self) -> torch.Tensor:
+        """Padded narrow dictIds; padding = cardinality (never matches)."""
+        return self._device("dict_ids", "ids")
+
+    def device_raw_values(self) -> torch.Tensor:
+        return self._device("raw_values", "raw")
+
+    def device_part_lanes(self) -> torch.Tensor:
+        """Bit-sliced int8 part lanes [n_parts, P] for exact integer sums."""
+        return self._device("part_lanes", "parts")
+
+    def device_value_lane(self) -> torch.Tensor:
+        """Decoded float64 dictionary-value lane [P] for float sums."""
+        return self._device("value_lane", "vlane")
+
+    def int_part_info(self) -> tuple:
+        """(n_parts, min_value): value = min_value + sum_k part_k << 7k."""
+        if self._part_info is None:
+            with self._lane_lock:
+                if self._part_info is None:
+                    self._part_info = int_part_info_for(
+                        self.dictionary.values)
+        return self._part_info
+
+    def host_operand(self, kind: str) -> np.ndarray:
+        """Padded host array for a lane kind ('ids'|'raw'|'parts'|'vlane'),
+        in exactly the layout of the device lane."""
+        if kind == "ids":
+            return self._pad_ids(self.dict_ids)
+        if kind == "raw":
+            arr = self.raw_values
+            out = np.zeros(padded_size(len(arr)), dtype=arr.dtype)
+            out[: len(arr)] = arr
+            return out
+        if kind == "parts":
+            n_parts, min_v = self.int_part_info()
+            table = int_part_table(self.dictionary.values, n_parts, min_v)
+            return table[:, self.host_operand("ids")]
+        if kind == "vlane":
+            vals = np.asarray(self.dictionary.values, dtype=np.float64)
+            vals = np.concatenate([vals, [0.0]])
+            return vals[self.host_operand("ids")]
+        raise ValueError(kind)
+
+    def _pad_ids(self, ids: np.ndarray) -> np.ndarray:
+        card = self.metadata.cardinality     # padding id == cardinality
+        out = np.full(padded_size(len(ids)), card, dtype=min_id_dtype(card))
+        out[: len(ids)] = ids
+        return out
+
+    def _device(self, key: str, kind: str) -> torch.Tensor:
+        lane = self._dev.get(key)
+        if lane is None:
+            with self._lane_lock:
+                lane = self._dev.get(key)
+                if lane is None:
+                    device = self._segment.device
+                    lane = torch.from_numpy(
+                        np.ascontiguousarray(self.host_operand(kind))
+                    ).to(device)
+                    self._dev[key] = lane
+        return lane
+
+    def release_device(self) -> None:
+        with self._lane_lock:
+            self._dev.clear()
+
+    def device_bytes(self) -> int:
+        """Bytes this column holds on its device now."""
+        return sum(t.numel() * t.element_size() for t in self._dev.values())
+
+
+class ImmutableSegment:
+    """A queryable immutable segment whose lanes live on one device."""
+
+    def __init__(self, metadata: SegmentMetadata,
+                 data_sources: Dict[str, DataSource], device=None):
+        self.metadata = metadata
+        self._data_sources = data_sources
+        for ds in data_sources.values():
+            if ds._segment is None:
+                ds._segment = self
+        self._device: Optional[torch.device] = \
+            None if device is None else resolve_device(device)
+
+    @property
+    def device(self) -> torch.device:
+        """The device the lanes live on; the card unless a caller moved
+        the segment elsewhere with `to`."""
+        if self._device is None:
+            self._device = resolve_device(None)
+        return self._device
+
+    def to(self, device) -> "ImmutableSegment":
+        """Bind the segment to `device`; lanes already uploaded to another
+        device are dropped and re-uploaded on next use."""
+        device = resolve_device(device)
+        if self._device != device:
+            for ds in self._data_sources.values():
+                ds.release_device()
+            self._device = device
+        return self
+
+    @property
+    def segment_name(self) -> str:
+        return self.metadata.segment_name
+
+    @property
+    def num_docs(self) -> int:
+        return self.metadata.total_docs
+
+    @property
+    def padded_docs(self) -> int:
+        return padded_size(self.metadata.total_docs)
+
+    @property
+    def column_names(self):
+        return list(self._data_sources.keys())
+
+    def data_source(self, column: str) -> DataSource:
+        try:
+            return self._data_sources[column]
+        except KeyError:
+            raise KeyError(f"column '{column}' not in segment "
+                           f"'{self.segment_name}'") from None
+
+    def has_column(self, column: str) -> bool:
+        return column in self._data_sources
+
+    def device_bytes(self) -> int:
+        return sum(ds.device_bytes() for ds in self._data_sources.values())

@@ -1,0 +1,147 @@
+"""Where an SSB query's time goes on the card.
+
+    python -m pinot_tpu_torch.tools.ssb_profile [--sf 10] [--segments 8]
+        [--repeats 5] [--seed 0] [--out FILE]
+
+Builds the SSB table at scale factor --sf on the card, runs each of the
+13 queries once to upload the lanes, then --repeats times with each host
+layer timed (planner, kernel dispatch, device→host pull, finish, combine
+and reduce) and once more under torch.profiler for the card's busy time.
+Prints one JSON line per query, and writes them all to --out if given:
+
+- wall_ms: the query's median host wall time, ending in a synchronize;
+- layers_ms: median host time per layer per query (all segments);
+- device_busy_ms: the sum of the card's kernel and copy time in the
+  profiled run, and device_idle_share = 1 - busy / that run's wall time;
+- kernels: device time per kernel name in the profiled run.
+
+Needs a CUDA card; it does not fall back to the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+class LayerTimer:
+    """Accumulates host wall time of wrapped functions by layer name."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(float)
+        self._undo = []
+
+    def wrap(self, owner, attr: str, layer: str) -> None:
+        orig = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.ms[layer] += (time.perf_counter() - t0) * 1e3
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def restore(self) -> None:
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sf", type=int, default=10)
+    ap.add_argument("--segments", type=int, default=8)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ssb_profile: no CUDA device", file=sys.stderr)
+        return 1
+
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.query import execution, plan
+    from pinot_tpu_torch.query import executor as executor_mod
+    from pinot_tpu_torch.query.reduce import BrokerReduceService
+    from pinot_tpu_torch.tools.datagen import make_ssb_segments
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS
+
+    table = make_ssb_segments(args.sf * 6_000_000, args.segments,
+                              seed=args.seed)
+    engine = QueryEngine(table.segments)
+    for pql in SSB_PQLS.values():
+        engine.query(pql)                    # lanes uploaded once
+    torch.cuda.synchronize()
+
+    timer = LayerTimer()
+    timer.wrap(plan.InstancePlanMaker, "make_segment_plan", "plan")
+    timer.wrap(execution.kernels, "run_segment_kernel", "dispatch")
+    timer.wrap(execution, "_nonempty_groups", "select_groups")
+    timer.wrap(execution, "pull", "pull")
+    timer.wrap(execution, "_finish_aggregation", "finish")
+    timer.wrap(execution, "_finish_group_by", "finish")
+    timer.wrap(executor_mod, "combine_blocks", "combine")
+    timer.wrap(BrokerReduceService, "reduce", "reduce")
+    device = torch.cuda.get_device_name(0)
+    rows = []
+    try:
+        for q, pql in SSB_PQLS.items():
+            walls, layers = [], collections.defaultdict(list)
+            for _ in range(args.repeats):
+                timer.ms.clear()
+                t0 = time.perf_counter()
+                engine.query(pql)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                for k, v in timer.ms.items():
+                    layers[k].append(v)
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                engine.query(pql)
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t0) * 1e3
+            per_kernel = collections.defaultdict(float)
+            for ev in prof.key_averages():
+                # kernels and copies only: a CPU op's device time repeats
+                # the time of the kernels it launched
+                if not str(ev.device_type).endswith("CUDA"):
+                    continue
+                dev_us = getattr(ev, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(ev, "self_cuda_time_total", 0)
+                if dev_us:
+                    per_kernel[ev.key] += dev_us / 1e3
+            busy = sum(per_kernel.values())
+            row = {"query": q, "device": device, "scale_factor": args.sf,
+                   "wall_ms": float(np.median(walls)),
+                   "layers_ms": {k: float(np.median(v))
+                                 for k, v in layers.items()},
+                   "profiled_wall_ms": prof_wall,
+                   "device_busy_ms": busy if busy else None,
+                   "device_idle_share": (1 - busy / prof_wall) if busy
+                   else None,
+                   "kernels": dict(sorted(per_kernel.items(),
+                                          key=lambda kv: -kv[1])[:8])}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    finally:
+        timer.restore()
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,3 +27,5 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests (tier-1 excludes)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips where there is none)")

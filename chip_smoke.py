@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Drive pinot_tpu_torch on one CUDA card: build, kernel check, SSB Q1.1-Q4.3.
+"""Drive pinot_tpu_torch on one CUDA card: build, kernel checks, SSB
+Q1.1-Q4.3 in memory, and baseballStats from disk under the QueryGenerator
+mix.
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
+                          [--bb-rows 10000000] [--bb-segments 4]
 
 Phases, each printed as one JSON line; any failure ends the run with a
 non-zero exit and no result line:
@@ -11,16 +14,33 @@ non-zero exit and no result line:
    all at once) into build/pinot_tpu_torch/<hash>/.
 3. data: the SSB lineorder table at scale factor --sf (6,000,000 rows per
    scale factor) in --segments segments, made from --seed.
-4. kernel check: every kernel against its plain PyTorch version on the
-   card, on the lanes and parameters the SSB plans give it on segment 0
+4. kernel check: K1-K3 against their plain PyTorch versions on the card,
+   on the lanes and parameters the SSB plans give them on segment 0
    (integer outputs equal, float64 sums within CSUMS_RTOL), timed with
-   CUDA events and an L2 flush before each launch, beside its bound.
+   CUDA events and an L2 flush before each launch, beside their bounds.
+   K3 runs on every group-by query, and where its table fits a block's
+   shared memory, also with the shared tables forced on and forced off.
 5. ssb: launch counts set to 0, the 13 queries run once through
    QueryEngine on the card and are checked against the numpy oracle, the
-   counts read (every kernel must have launched); then --repeats timed
-   runs per query give the p50.
+   counts read (K1-K3 must have launched); then --repeats timed runs per
+   query give the p50.
+6. bb_data: the baseballStats table (Apache Pinot's quickstart schema),
+   --bb-rows rows in --bb-segments segments, each written by the port's
+   SegmentCreator from its own seed into a directory under build/, then
+   loaded with QueryEngine.from_dirs on the card.
+7. bb_kernel_check: K1 (raw and MV programs), K2 (runs and hits part
+   lanes), K3 (sums and min / max), K4 and K5 against their plain versions
+   on segment 0's lanes (min / max, counts, part sums and histograms
+   equal; float64 sums within CSUMS_RTOL), timed; K3 as in phase 4.
+8. baseball: launch counts set to 0, the aggregation, group-by and HAVING
+   draws of the QueryGenerator mix (the reference seeds) and the fixed
+   queries run once and are checked against the vectorised oracle; the
+   group-by DISTINCTCOUNT draws must raise UnsupportedOnDevice; the
+   counts read (all five kernels must have launched); then --repeats
+   timed runs per query give the per-family p50.
 
-The last two lines are the kernels JSON line and
+The last three lines are the card's name and power limit, the kernels
+JSON line and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -28,8 +48,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,9 +123,73 @@ def group_operands(plan, cols):
     keys = [cols[f"{c}.ids"] for c, *_ in gcols]
     parts = [cols[f"{s[1]}.parts"] for s in gaggs if s[3] and
              s[3][0] == "psums"]
-    floats = [cols[f"{s[1]}.raw"].double() for s in gaggs if s[3] and
-              s[3][0] == "csums"]
-    return keys, strides, g_pad, parts, floats
+    floats = [cols[f"{s[1]}.{'vlane' if s[2] == 'sv' else 'raw'}"].double()
+              for s in gaggs if s[3] and s[3][0] == "csums"]
+    extremes = []
+    for fname, col, source, extra in gaggs:
+        whiches = {"min": ("min",), "max": ("max",),
+                   "minmaxrange": ("min", "max")}.get(fname, ())
+        for which in whiches:
+            kind = "ids" if source == "sv" else "raw"
+            extremes.append((kind, cols[f"{col}.{kind}"], which,
+                             extra[1] if kind == "ids" else 0))
+    return keys, strides, g_pad, parts, floats, extremes
+
+
+def k3_check(P, plan, cols, mask):
+    """K3 against its plain version on one group-by plan, with the
+    shared-memory tables as the wrapper chooses them and, where the table
+    fits a block's shared memory, forced on and forced off: (report, ms,
+    plain ms, bound)."""
+    from pinot_tpu_torch.ops import kernels as K
+    keys, strides, g_pad, parts, floats, ext = group_operands(plan, cols)
+    args = (mask, keys, strides, g_pad, parts, floats, ext)
+    ref = K.dense_group_aggregate_plain(*args)
+    n_l = sum(p.shape[0] for p in parts)
+    n_raw = sum(e[0] == "raw" for e in ext)
+    table = g_pad * (4 * (1 + n_l + len(ext) - n_raw) +
+                     8 * (len(floats) + n_raw))
+    smem_room = getattr(torch.cuda.get_device_properties(0),
+                        "shared_memory_per_block_optin", 227 << 10) - 2048
+    variants = {"default": K.K3_SMEM_SLOTS}
+    if table <= smem_room:
+        variants.update(smem_on=K.INT32_MAX, smem_off=0)
+    int_err, f_err, f_ok, ext_equal = 0, 0.0, True, True
+    for slots in variants.values():
+        got = K.dense_group_aggregate(*args, smem_slots=slots)
+        int_err = max([int_err] + [
+            int((a.long() - b.long()).abs().max()) for a, b in
+            ((got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3]))
+            if a.numel()])
+        # min / max are order-free: equal, sentinels and NaN-free data alike
+        ext_equal &= all(torch.equal(a, b) for a, b in zip(got[4], ref[4]))
+        if floats:
+            diff = (got[2] - ref[2]).abs()
+            f_err = max(f_err, float(diff.max()))
+            f_ok &= bool((diff <= CSUMS_RTOL *
+                          ref[2].abs().clamp_min(1.0)).all())
+    matched = int(mask.sum())
+    if int_err != 0 or not f_ok or not ext_equal:
+        raise AssertionError(f"dense_group_aggregate disagrees: int "
+                             f"{int_err}, csums {f_err}, extremes equal "
+                             f"{ext_equal}")
+    row_bytes = sum(k.element_size() for k in keys) + n_l + \
+        8 * len(floats) + sum(e[1].element_size() for e in ext)
+    ms = {v: time_ms(lambda: K.dense_group_aggregate(*args, smem_slots=s))
+          for v, s in variants.items()}
+    plain = time_ms(lambda: K.dense_group_aggregate_plain(*args))
+    b = bound(P + matched * row_bytes + table,
+              matched * (2 * len(keys) + 1 + n_l + len(floats) + len(ext)))
+    report = {"g_pad": g_pad, "table_bytes": table, "matched": matched,
+              "max_abs_err_int": int_err, "max_abs_err_csums": f_err,
+              "part_lanes": n_l, "float_lanes": len(floats),
+              "extremes": len(ext), "extremes_equal": ext_equal,
+              "csums_rtol": CSUMS_RTOL if floats else None,
+              "smem_slots": K.K3_SMEM_SLOTS, "ms": ms["default"],
+              "ms_smem_on": ms.get("smem_on"),
+              "ms_smem_off": ms.get("smem_off"), "plain_ms": plain,
+              "bound_ms": b[0], "bound_by": b[1]}
+    return report, max(int_err, f_err), ms["default"], plain, b
 
 
 def kernel_check(seg, pqls):
@@ -163,50 +249,19 @@ def kernel_check(seg, pqls):
         bound=bound(P + matched * L + 4 * (L + 1), P + matched * L),
         library_ms=None)
 
-    # K3 on Q2.1 (g_pad 8192) and Q4.3 (g_pad 2^21, one csums lane)
-    for q in ("q2.1", "q4.3"):
-        plan, cols = plan_operands(seg, pqls[q])
+    # K3 on every group-by (g_pad 256 to 2^21); Q4.3 (one csums lane)
+    # gives the kernels line its numbers
+    for q, pql in pqls.items():
+        plan, cols = plan_operands(seg, pql)
+        if plan.group_spec is None:
+            continue
         mask = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
-        matched = int(mask.sum())
-        keys, strides, g_pad, parts, floats = group_operands(plan, cols)
-        got = K.dense_group_aggregate(mask, keys, strides, g_pad, parts,
-                                      floats)
-        ref = K.dense_group_aggregate_plain(mask, keys, strides, g_pad,
-                                            parts, floats)
-        int_err = max(int((a.long() - b.long()).abs().max()) if a.numel()
-                      else 0 for a, b in ((got[0], ref[0]),
-                                          (got[1], ref[1]),
-                                          (got[3], ref[3])))
-        f_err, f_ok = 0.0, True
-        if floats:
-            diff = (got[2] - ref[2]).abs()
-            f_err = float(diff.max())
-            f_ok = bool((diff <= CSUMS_RTOL *
-                         ref[2].abs().clamp_min(1.0)).all())
-        report.append({"kernel": "dense_group_aggregate", "case": q,
-                       "g_pad": g_pad, "matched": matched,
-                       "max_abs_err_int": int_err,
-                       "max_abs_err_csums": f_err,
-                       "csums_rtol": CSUMS_RTOL if floats else None})
-        if int_err != 0 or not f_ok:
-            raise AssertionError(f"dense_group_aggregate disagrees on {q}: "
-                                 f"int {int_err}, csums {f_err}")
-        row_bytes = sum(k.element_size() for k in keys) + \
-            sum(p.shape[0] for p in parts) + 8 * len(floats)
-        n_l = sum(p.shape[0] for p in parts)
-        table = g_pad * (4 + 4 * n_l + 8 * len(floats))
-        ms = time_ms(lambda: K.dense_group_aggregate(
-            mask, keys, strides, g_pad, parts, floats))
-        plain = time_ms(lambda: K.dense_group_aggregate_plain(
-            mask, keys, strides, g_pad, parts, floats))
-        b = bound(P + matched * row_bytes + table,
-                  matched * (2 * len(keys) + 1 + n_l + len(floats)))
-        report[-1].update(ms=ms, plain_ms=plain, bound_ms=b[0],
-                          bound_by=b[1])
+        r, err, ms, plain, b = k3_check(P, plan, cols, mask)
+        report.append({"kernel": "dense_group_aggregate", "case": q, **r})
         if q == "q4.3":
             entries["dense_group_aggregate"] = dict(
-                max_abs_err=max(int_err, f_err), ms=ms, plain_ms=plain,
-                bound=b, library_ms=None)
+                max_abs_err=err, ms=ms, plain_ms=plain, bound=b,
+                library_ms=None)
     for r in report:
         emit({"phase": "kernel_check", **r})
     if k1_err or k2_err:
@@ -215,12 +270,240 @@ def kernel_check(seg, pqls):
     return entries
 
 
+#: baseballStats plans whose operands the kernel check takes
+BB_K1_PQLS = {
+    "raw": "SELECT COUNT(*) FROM baseballStats WHERE salary > 123456.78 "
+           "AND salary <= 987654.25 AND runs < 100",
+    "mv": "SELECT COUNT(*) FROM baseballStats WHERE position = 'SS' OR "
+          "position NOT IN ('P', 'C')",
+    "mixed": "SELECT COUNT(*) FROM baseballStats WHERE (teamID IN ('BOS', "
+             "'NYA') AND position = 'P') OR salary IN (1.5, 2.25) OR "
+             "hits > 240",
+}
+BB_K3_PQLS = {
+    "teamID x league": "SELECT COUNT(*), SUM(runs), AVG(salary), "
+                       "MIN(runs), MAX(salary), MINMAXRANGE(average) FROM "
+                       "baseballStats WHERE yearID >= 2000 GROUP BY "
+                       "teamID, league TOP 2000",
+    "playerName": "SELECT MIN(runs), MAX(salary), MINMAXRANGE(average), "
+                  "MIN(hits) FROM baseballStats WHERE position = 'C' "
+                  "GROUP BY playerName TOP 2000",
+}
+#: the mask and part lanes of the K2, K4 and K5 cases
+BB_AGG_PQL = "SELECT SUM(runs), AVG(hits) FROM baseballStats WHERE " \
+    "yearID >= 2000"
+
+
+def bb_kernel_check(seg):
+    """K1 raw / MV programs, K2, K3, K4 and K5 against their plain
+    versions on one baseballStats segment's lanes."""
+    from pinot_tpu_torch.ops import kernels as K
+    P, n = seg.padded_docs, seg.num_docs
+    report, entries = [], {}
+
+    for case, pql in BB_K1_PQLS.items():
+        plan, cols = plan_operands(seg, pql)
+        got = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
+        ref = K.filter_mask_plain(P, plan.filter_spec, cols, plan.params, n)
+        err = int((got.int() - ref.int()).abs().max())
+        lanes = [cols[k] for k in K.filter_lane_keys(plan.filter_spec)]
+        b = bound(sum(t.numel() * t.element_size() for t in lanes) + P,
+                  P * 2 * sum(t.numel() // P for t in lanes))
+        report.append({
+            "kernel": "filter_mask", "case": f"baseball {case}",
+            "matched": int(ref.sum()), "max_abs_err": err,
+            "ms": time_ms(lambda: K.filter_mask(
+                P, plan.filter_spec, cols, plan.params, n)),
+            "plain_ms": time_ms(lambda: K.filter_mask_plain(
+                P, plan.filter_spec, cols, plan.params, n)),
+            "bound_ms": b[0], "bound_by": b[1]})
+        if err:
+            raise AssertionError(f"filter_mask disagrees on {case}")
+
+    for case, pql in BB_K3_PQLS.items():
+        plan, cols = plan_operands(seg, pql)
+        mask = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
+        r, _err, _ms, _plain, _b = k3_check(P, plan, cols, mask)
+        report.append({"kernel": "dense_group_aggregate",
+                       "case": f"baseball {case}", **r})
+
+    plan, cols = plan_operands(seg, BB_AGG_PQL)
+    mask = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
+    matched = int(mask.sum())
+    parts = [cols["runs.parts"], cols["hits.parts"]]
+    L = sum(p.shape[0] for p in parts)
+    got = K.masked_part_sums(mask, parts)
+    ref = K.masked_part_sums_plain(mask, parts)
+    err = int((got.long() - ref.long()).abs().max())
+    b = bound(P + matched * L + 4 * (L + 1), P + matched * L)
+    report.append({
+        "kernel": "masked_part_sums", "case": "baseball runs, hits",
+        "part_lanes": L, "matched": matched, "max_abs_err": err,
+        "ms": time_ms(lambda: K.masked_part_sums(mask, parts)),
+        "plain_ms": time_ms(lambda: K.masked_part_sums_plain(mask, parts)),
+        "bound_ms": b[0], "bound_by": b[1]})
+    if err:
+        raise AssertionError("masked_part_sums disagrees on runs, hits")
+    lanes = {c: seg.data_source(c).device_dict_ids()
+             for c in ("teamID", "playerName", "average", "runs")}
+    lanes["salary"] = seg.data_source("salary").device_raw_values()
+    mask_f = mask.to(torch.float32)
+    for col in ("teamID", "playerName", "average"):
+        ids = lanes[col]
+        card_pad = K.pow2_bucket(seg.data_source(col).metadata.cardinality
+                                 + 1)
+        got = K.masked_histogram(mask, ids, card_pad)
+        ref = K.masked_histogram_plain(mask, ids, card_pad)
+        err = int((got.long() - ref.long()).abs().max())
+        ids_long = ids.long()
+        b = bound(P + matched * ids.element_size() + 4 * card_pad, matched)
+        r = {"kernel": "masked_histogram", "case": f"baseball {col}",
+             "card_pad": card_pad, "matched": matched, "max_abs_err": err,
+             "ms": time_ms(lambda: K.masked_histogram(mask, ids, card_pad)),
+             "plain_ms": time_ms(lambda: K.masked_histogram_plain(
+                 mask, ids, card_pad)),
+             "library_ms": time_ms(lambda: torch.bincount(
+                 ids_long, weights=mask_f, minlength=card_pad)),
+             "bound_ms": b[0], "bound_by": b[1]}
+        report.append(r)
+        if err:
+            raise AssertionError(f"masked_histogram disagrees on {col}")
+        if col == "teamID":
+            entries["masked_histogram"] = dict(
+                max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound=b, library_ms=r["library_ms"])
+
+    for case, kind, lane, card_pad, want_sum in (
+            ("salary", "raw", lanes["salary"], 0, True),
+            ("runs ids", "ids", lanes["runs"], K.pow2_bucket(
+                seg.data_source("runs").metadata.cardinality + 1), False)):
+        got = K.masked_reduce(mask, lane, kind, card_pad, want_sum)
+        ref = K.masked_reduce_plain(mask, lane, kind, card_pad, want_sum)
+        equal = all(got[k].dtype == ref[k].dtype and torch.equal(got[k],
+                                                                 ref[k])
+                    for k in ("min", "max", "count"))
+        s_err = float((got["sums"] - ref["sums"]).abs().max()) \
+            if want_sum else 0.0
+        s_ok = not want_sum or bool(
+            ((got["sums"] - ref["sums"]).abs() <=
+             CSUMS_RTOL * ref["sums"].abs().clamp_min(1.0)).all())
+        out_bytes = (P // K.BLOCK) * 8 * want_sum + 24
+        b = bound(P + matched * lane.element_size() + out_bytes,
+                  matched * (3 if want_sum else 2))
+        r = {"kernel": "masked_reduce", "case": f"baseball {case}",
+             "matched": matched, "min_max_count_equal": equal,
+             "max_abs_err_sums": s_err,
+             "sums_rtol": CSUMS_RTOL if want_sum else None,
+             "ms": time_ms(lambda: K.masked_reduce(mask, lane, kind,
+                                                   card_pad, want_sum)),
+             "plain_ms": time_ms(lambda: K.masked_reduce_plain(
+                 mask, lane, kind, card_pad, want_sum)),
+             "bound_ms": b[0], "bound_by": b[1]}
+        report.append(r)
+        if not equal or not s_ok:
+            raise AssertionError(f"masked_reduce disagrees on {case}")
+        if case == "salary":
+            entries["masked_reduce"] = dict(
+                max_abs_err=s_err, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound=b, library_ms=None)
+    for r in report:
+        emit({"phase": "bb_kernel_check", **r})
+    return entries
+
+
+def run_ssb(engine, oracle, repeats: int):
+    """The SSB path: counts from 0, the 13 queries once, checked; then the
+    timed repeats. Returns the path's launch counts."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, check
+    K.reset_launch_counts()
+    results = {}
+    for q, pql in SSB_PQLS.items():
+        t = time.perf_counter()
+        resp = engine.query(pql)
+        torch.cuda.synchronize()
+        results[q] = (resp, (time.perf_counter() - t) * 1e3)
+    launches = K.launch_counts()
+    for q, (resp, _first_ms) in results.items():
+        if resp.exceptions:
+            raise AssertionError(f"{q}: {resp.exceptions}")
+        check(q, canon_response(q, resp), oracle[q]())
+    for name in ("filter_mask", "masked_part_sums", "dense_group_aggregate"):
+        if not launches[name]:
+            raise AssertionError(f"{name} never launched on the SSB path: "
+                                 f"{launches}")
+    for q, pql in SSB_PQLS.items():
+        ts = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            engine.query(pql)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        emit({"phase": "ssb", "query": q, "check": "pass",
+              "first_ms": results[q][1], "p50_ms": float(np.median(ts)),
+              "samples_ms": ts})
+    return launches
+
+
+def run_baseball(engine, oracle, repeats: int):
+    """The baseballStats path: counts from 0, every draw once, checked
+    against the vectorised oracle; then the timed repeats. Returns the
+    path's launch counts."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.query.plan import UnsupportedOnDevice
+    from pinot_tpu_torch.tools import baseball
+    draws = list(baseball.all_draws(oracle))
+    K.reset_launch_counts()
+    answered, raised = [], 0
+    for family, draw in draws:
+        if draw.device_raises:
+            try:
+                engine.query(draw.pql)
+            except UnsupportedOnDevice:
+                raised += 1
+                continue
+            raise AssertionError(f"{draw.pql}: expected UnsupportedOnDevice")
+        resp = engine.query(draw.pql)
+        torch.cuda.synchronize()
+        answered.append((family, draw, resp))
+    launches = K.launch_counts()
+    for _family, draw, resp in answered:
+        baseball.check(resp, oracle, draw)
+    if not raised:
+        raise AssertionError("no group-by DISTINCTCOUNT draw raised")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the baseballStats "
+                             f"path: {launches}")
+    families = {}
+    for family, draw, _resp in answered:
+        ts = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            engine.query(draw.pql)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        families.setdefault(family, []).extend(ts)
+        emit({"phase": "baseball", "family": family, "pql": draw.pql,
+              "check": "pass", "matched": int(draw.mask.sum()),
+              "p50_ms": float(np.median(ts))})
+    emit({"phase": "baseball_summary", "queries_passed": len(answered),
+          "distinctcount_group_by_raised": raised,
+          "p50_ms_by_family": {f: float(np.median(ts))
+                               for f, ts in families.items()},
+          "device_table_bytes": sum(s.device_bytes()
+                                    for s in engine.segments),
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=int, default=10)
     ap.add_argument("--segments", type=int, default=8)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bb-rows", type=int, default=10_000_000)
+    ap.add_argument("--bb-segments", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -229,9 +512,9 @@ def main() -> int:
     from pinot_tpu_torch.engine import QueryEngine
     from pinot_tpu_torch.ops import build
     from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools import baseball
     from pinot_tpu_torch.tools.datagen import make_ssb_segments
-    from pinot_tpu_torch.tools.ssb import (SSB_PQLS, canon_response, check,
-                                           make_cpu_queries)
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS, make_cpu_queries
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -246,6 +529,7 @@ def main() -> int:
           "libs": {s: str(p) for s, p in libs.items()},
           "ptxas": build.BUILD_INFO.get("ptxas", {})})
 
+    # -- SSB, in memory ---------------------------------------------------
     rows = args.sf * ROWS_PER_SF
     t0 = time.perf_counter()
     table = make_ssb_segments(rows, args.segments, seed=args.seed)
@@ -255,47 +539,46 @@ def main() -> int:
           "segments": args.segments,
           "padded_rows_per_segment": table.segments[0].padded_docs,
           "seconds": time.perf_counter() - t0})
-
     entries = kernel_check(engine.segments[0], SSB_PQLS)
-
-    # the main path: every count from 0, one run of the 13 queries
-    K.reset_launch_counts()
-    results = {}
-    for q, pql in SSB_PQLS.items():
-        t = time.perf_counter()
-        resp = engine.query(pql)
-        torch.cuda.synchronize()
-        results[q] = (resp, (time.perf_counter() - t) * 1e3)
-    launches = K.launch_counts()
-    for q, (resp, first_ms) in results.items():
-        if resp.exceptions:
-            raise AssertionError(f"{q}: {resp.exceptions}")
-        check(q, canon_response(q, resp), oracle[q]())
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
-    device_bytes = sum(s.device_bytes() for s in engine.segments)
-    for q, pql in SSB_PQLS.items():
-        ts = []
-        for _ in range(args.repeats):
-            t = time.perf_counter()
-            engine.query(pql)
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
-        emit({"phase": "ssb", "query": q, "check": "pass",
-              "first_ms": results[q][1], "p50_ms": float(np.median(ts)),
-              "samples_ms": ts})
+    ssb_launches = run_ssb(engine, oracle, args.repeats)
     emit({"phase": "ssb_summary", "scale_factor": args.sf, "rows": rows,
-          "queries_passed": len(results), "device_table_bytes": device_bytes,
+          "queries_passed": len(SSB_PQLS),
+          "device_table_bytes": sum(s.device_bytes()
+                                    for s in engine.segments),
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches})
+          "launches": ssb_launches})
+    del engine, table, oracle
+    torch.cuda.empty_cache()
+
+    # -- baseballStats, from disk -----------------------------------------
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as base:
+        t0 = time.perf_counter()
+        dirs, cols = baseball.build_segment_dirs(
+            base, args.bb_rows, args.bb_segments, seed=args.seed)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = QueryEngine.from_dirs(dirs)              # on the card
+        load_s = time.perf_counter() - t0
+        emit({"phase": "bb_data", "rows": args.bb_rows,
+              "segments": args.bb_segments,
+              "padded_rows_per_segment": engine.segments[0].padded_docs,
+              "build_seconds": build_s, "load_seconds": load_s,
+              "disk_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                for d in dirs for f in os.listdir(d))})
+        oracle = baseball.Oracle(cols)
+        entries.update(bb_kernel_check(engine.segments[0]))
+        bb_launches = run_baseball(engine, oracle, args.repeats)
 
     print(smi, flush=True)
     line = []
     for name, info in K.KERNELS.items():
         e = entries[name]
         line.append({"name": name, "route": "cuda", "source": info.source,
-                     "replaces": info.replaces, "launches": launches[name],
+                     "replaces": info.replaces,
+                     "launches": ssb_launches[name] + bb_launches[name],
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],

@@ -14,7 +14,8 @@ from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
 from pinot_tpu_torch.pql.parser import compile_pql
 from pinot_tpu_torch.query.executor import ServerQueryExecutor
 from pinot_tpu_torch.query.reduce import BrokerReduceService
-from pinot_tpu_torch.segment.loader import ImmutableSegment
+from pinot_tpu_torch.segment.loader import ImmutableSegment, \
+    ImmutableSegmentLoader
 
 
 class QueryEngine:
@@ -27,6 +28,14 @@ class QueryEngine:
         self.executor = ServerQueryExecutor()
         self.optimizer = BrokerRequestOptimizer()
         self.reducer = BrokerReduceService()
+
+    @classmethod
+    def from_dirs(cls, segment_dirs: Sequence[str],
+                  device=None) -> "QueryEngine":
+        """Load each segment directory (ImmutableSegmentLoader.load) and
+        serve them; `device` as for the constructor."""
+        return cls([ImmutableSegmentLoader.load(d) for d in segment_dirs],
+                   device=device)
 
     def query(self, pql: str) -> BrokerResponse:
         t0 = time.perf_counter()

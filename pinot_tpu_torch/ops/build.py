@@ -23,7 +23,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pinot_tpu_torch"
-SOURCES = ("filter_mask.cu", "masked_part_sums.cu", "dense_group_aggregate.cu")
+SOURCES = ("filter_mask.cu", "masked_part_sums.cu", "dense_group_aggregate.cu",
+           "masked_histogram.cu", "masked_reduce.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,7 +97,8 @@ def build_all() -> Dict[str, Path]:
 
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of one source, building all of them first if
-    needed (so a process pays for one parallel build, not three)."""
+    needed (so a process pays for one parallel build, not one per
+    source)."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:

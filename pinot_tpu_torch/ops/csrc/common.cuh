@@ -10,14 +10,29 @@ namespace pinot {
 constexpr int kThreads = 256;          // threads per block, every kernel
 constexpr int kBlocksPerSm = 8;        // grid-stride grid: SMs x this
 
+// Element type of a lane, as ops/kernels.py:_ELEM codes it.
+enum Elem : int { kI8 = 0, kI16 = 1, kI32 = 2, kI64 = 3, kF32 = 4, kF64 = 5 };
+
 // Signed dictId lanes come at the width min_id_dtype chose (int8 / int16 /
 // int32); every kernel reads a lane at its own width and computes in int32.
-__device__ __forceinline__ int read_id(const void* lane, int elem_size,
-                                       long long row) {
-  switch (elem_size) {
-    case 1: return static_cast<const int8_t*>(lane)[row];
-    case 2: return static_cast<const int16_t*>(lane)[row];
+__device__ __forceinline__ int read_id(const void* lane, int elem, long long row) {
+  switch (elem) {
+    case kI8: return static_cast<const int8_t*>(lane)[row];
+    case kI16: return static_cast<const int16_t*>(lane)[row];
     default: return static_cast<const int32_t*>(lane)[row];
+  }
+}
+
+// Any lane's element as a float64: exact for every id, int32 and float32
+// value; int64 rounds as JAX's promotion to float64 does.
+__device__ __forceinline__ double read_value(const void* lane, int elem, long long row) {
+  switch (elem) {
+    case kI8: return static_cast<const int8_t*>(lane)[row];
+    case kI16: return static_cast<const int16_t*>(lane)[row];
+    case kI32: return static_cast<const int32_t*>(lane)[row];
+    case kI64: return static_cast<double>(static_cast<const long long*>(lane)[row]);
+    case kF32: return static_cast<const float*>(lane)[row];
+    default: return static_cast<const double*>(lane)[row];
   }
 }
 
@@ -48,6 +63,26 @@ inline int grid_for(long long rows) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   long long blocks = (rows + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  return static_cast<int>(blocks < 1 ? 1 : blocks);
+}
+
+// Grid-stride grid of one full wave of `kernel`: as many blocks as its
+// registers and `smem` bytes of dynamic shared memory let every SM hold
+// at once, at most kBlocksPerSm each. A fixed count above that leaves a
+// partial second wave, with most SMs idle at its end.
+template <typename Kernel>
+inline int grid_for(Kernel kernel, long long rows, size_t smem) {
+  int device = 0, sms = 132, per_sm = kBlocksPerSm;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
+  long long blocks = (rows + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sms) * per_sm;
   if (blocks > cap) blocks = cap;
   return static_cast<int>(blocks < 1 ? 1 : blocks);
 }

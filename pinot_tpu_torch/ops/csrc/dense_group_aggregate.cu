@@ -1,31 +1,45 @@
-// K3 dense_group_aggregate: per-group count, exact int32 part sums and
-// float64 sums over a dense mixed-radix group table.
+// K3 dense_group_aggregate: per-group count, exact int32 part sums,
+// float64 sums and min/max over a dense mixed-radix group table.
 //
 // Replaces pinot_tpu/ops/kernels.py:_group_key (:702, kind "ids"),
 // _dense_group_count (:402), _dense_group_part_sums (:407),
-// _dense_group_float_sums (:503) and the scatter fallback of
-// _group_outputs (:1330-1360) for count / sum / avg.
+// _dense_group_float_sums (:503), _dense_group_extreme (:529) and the
+// scatter fallback of _group_outputs (:1330-1390) for count / sum / avg /
+// min / max / minmaxrange.
 //
 // For every matched row: key = clip(sum_c ids_c * stride_c, 0, g_pad - 1)
 // in int32 (as at kernels.py:766-768), then
 //   count[key] += 1, psums[l][key] += parts_l[row], csums[j][key] += vals_j[row]
-// and the total match count.
+//   idmin[e][key] = min(., ids_e[row]), idmax[e][key] = max(., ids_e[row])
+//   rawmin[e][key] = min(., double(raw_e[row])), rawmax likewise
+// and the total match count. The id tables start at the sentinels the JAX
+// function uses (card_pad for min, -1 for max, :1361-1377), the raw ones at
+// +inf / -inf in float64, the JAX package's sum_dtype (:1378-1390). Min and
+// max do not depend on the order of the rows, so they equal JAX exactly; a
+// NaN value wins, as XLA's min and max propagate NaN.
 //
 // What bounds it: bytes, once the matched rows are few: one mask byte per
-// row, then for matched rows only their key ids, part bytes and float64
-// values, plus the group table written. With many matched rows landing in
-// few groups, contention on the atomics in device memory bounds it instead.
+// row, then for matched rows only their key ids, part bytes, values, plus
+// the group table written. With many matched rows landing in few groups,
+// contention on the atomics bounds it instead.
 //
 // What the design does about it: the TPU kernels built one-hot tiles for
-// the matrix unit because scatter is slow there; on Hopper an atomicAdd
-// into device memory is the natural primitive, so this kernel does one
-// pass over the rows and adds matched rows straight into the table
-// (int32 atomics for counts and part sums: exact, order-free; float64
-// atomicAdd for csums, native on sm_90: the order varies from run to
-// run, so float sums are held to a tolerance). Rows that do not match
-// cost one mask byte. The int32 bound holds because the planner keeps
-// P <= 2^24, so 127 * rows < 2^31. Privatising the table in shared
-// memory for small g_pad is later work.
+// the matrix unit because scatter is slow there; on Hopper an atomic is the
+// natural primitive, so this kernel does one pass over the rows and folds
+// matched rows straight into the table. When the table has at most
+// `smem_slots` slots (the caller's limit) and fits in a block's shared
+// memory, each block folds into its own copy there (shared atomics, so a
+// few hot groups no longer serialise on device memory) and merges it into
+// the device table at the end with one atomic per touched group.
+// Otherwise it folds into device memory directly. Int32 atomics make
+// counts and part sums exact; float64 atomicAdd (native on sm_90) makes
+// csums order-dependent, so they are held to a tolerance; Hopper has no
+// float64 atomicMin/Max, so those are compare-and-swap loops, skipped when
+// the stored value already wins. Rows that do not match cost one mask
+// byte. The int32 bound holds because the planner keeps P <= 2^24, so
+// 127 * rows < 2^31.
+
+#include <math.h>
 
 #include "common.cuh"
 
@@ -34,6 +48,9 @@ namespace {
 constexpr int kMaxKeys = 8;
 constexpr int kMaxParts = 16;
 constexpr int kMaxFloats = 8;
+constexpr int kMaxExt = 16;
+
+enum ExtMode : int { kIdMin = 0, kIdMax = 1, kRawMin = 2, kRawMax = 3 };
 
 struct KeyLanes {
   const void* ptr[kMaxKeys];
@@ -49,13 +66,89 @@ struct FloatLanes {
   const double* ptr[kMaxFloats];
 };
 
+struct ExtLanes {
+  const void* ptr[kMaxExt];
+  int elem[kMaxExt];
+  int mode[kMaxExt];
+  int init[kMaxExt];       // id tables: the sentinel the table starts at
+  int slot[kMaxExt];       // index among the id tables or among the raw ones
+  void* out[kMaxExt];      // int32 [g_pad] (id) or float64 [g_pad] (raw)
+};
+
+__host__ __device__ __forceinline__ bool is_raw(int mode) { return mode == kRawMin || mode == kRawMax; }
+
+// v replaces the stored value when it is smaller (is_min) or larger, or is
+// a NaN; a stored NaN is never replaced. Works on shared or device memory.
+__device__ __forceinline__ void atomic_extreme(double* addr, double v, bool is_min) {
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
+  unsigned long long old = *a;
+  while (true) {
+    const double cur = __longlong_as_double(old);
+    if (isnan(cur)) return;
+    if (!(isnan(v) || (is_min ? v < cur : v > cur))) return;
+    const unsigned long long seen = atomicCAS(a, old, __double_as_longlong(v));
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+__device__ __forceinline__ void atomic_extreme(int* addr, int v, bool is_min) {
+  if (is_min ? v < *addr : v > *addr) {
+    if (is_min) atomicMin(addr, v); else atomicMax(addr, v);
+  }
+}
+
 __global__ void dense_group_aggregate_kernel(
-    const uint8_t* __restrict__ mask, KeyLanes keys, int n_keys,
-    PartLanes parts, int n_parts, FloatLanes floats, int n_floats,
-    long long padded, int g_pad, int* __restrict__ count,
-    int* __restrict__ psums, double* __restrict__ csums,
-    int* __restrict__ matched) {
+    const uint8_t* __restrict__ mask, KeyLanes keys_p, int n_keys,
+    PartLanes parts_p, int n_parts, FloatLanes floats_p, int n_floats,
+    ExtLanes ext_p, int n_ext, int n_raw, long long padded, int g_pad, int use_smem,
+    int* __restrict__ count, int* __restrict__ psums,
+    double* __restrict__ csums, int* __restrict__ matched) {
+  extern __shared__ __align__(8) unsigned char smem[];
   __shared__ int scratch[32];
+  // the lane descriptors in shared memory: indexing the parameter structs
+  // by a loop counter makes every thread copy them to local memory
+  __shared__ KeyLanes keys;
+  __shared__ PartLanes parts;
+  __shared__ FloatLanes floats;
+  __shared__ ExtLanes ext;
+  if (threadIdx.x == 0) {
+    keys = keys_p;
+    parts = parts_p;
+    floats = floats_p;
+    ext = ext_p;
+  }
+  __syncthreads();
+
+  // table pointers: this block's shared copy, or the device tables
+  int* t_count = count;
+  int* t_psums = psums;
+  double* t_csums = csums;
+  int* t_idext = nullptr;       // shared only: [n_ext - n_raw][g_pad] int
+  double* t_rawext = nullptr;   // shared only: [n_raw][g_pad] double
+  if (use_smem) {
+    double* d = reinterpret_cast<double*>(smem);
+    t_csums = d;
+    t_rawext = d + static_cast<long long>(n_floats) * g_pad;
+    int* i = reinterpret_cast<int*>(t_rawext + static_cast<long long>(n_raw) * g_pad);
+    t_count = i;
+    t_psums = i + g_pad;
+    t_idext = t_psums + static_cast<long long>(n_parts) * g_pad;
+    for (int s = threadIdx.x; s < g_pad; s += blockDim.x) {
+      t_count[s] = 0;
+      for (int l = 0; l < n_parts; ++l) t_psums[l * g_pad + s] = 0;
+      for (int j = 0; j < n_floats; ++j) t_csums[j * g_pad + s] = 0.0;
+      for (int e = 0; e < n_ext; ++e) {
+        const int m = ext.mode[e], at = ext.slot[e] * g_pad + s;
+        if (is_raw(m))
+          t_rawext[at] = m == kRawMin ? INFINITY : -INFINITY;
+        else
+          t_idext[at] = ext.init[e];
+      }
+    }
+    __syncthreads();
+  }
+
   int local = 0;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -66,13 +159,46 @@ __global__ void dense_group_aggregate_kernel(
       key += pinot::read_id(keys.ptr[c], keys.elem[c], row) * keys.stride[c];
     key = min(max(key, 0), g_pad - 1);
     ++local;
-    atomicAdd(count + key, 1);
+    atomicAdd(t_count + key, 1);
     for (int l = 0; l < n_parts; ++l) {
       const int p = parts.ptr[l][row];
-      if (p != 0) atomicAdd(psums + static_cast<long long>(l) * g_pad + key, p);
+      if (p != 0) atomicAdd(t_psums + static_cast<long long>(l) * g_pad + key, p);
     }
     for (int j = 0; j < n_floats; ++j)
-      atomicAdd(csums + static_cast<long long>(j) * g_pad + key, floats.ptr[j][row]);
+      atomicAdd(t_csums + static_cast<long long>(j) * g_pad + key, floats.ptr[j][row]);
+    for (int e = 0; e < n_ext; ++e) {
+      const int m = ext.mode[e];
+      const long long slot = use_smem ? static_cast<long long>(ext.slot[e]) * g_pad + key : key;
+      if (is_raw(m)) {
+        double* t = use_smem ? t_rawext : static_cast<double*>(ext.out[e]);
+        atomic_extreme(t + slot, pinot::read_value(ext.ptr[e], ext.elem[e], row), m == kRawMin);
+      } else {
+        int* t = use_smem ? t_idext : static_cast<int*>(ext.out[e]);
+        atomic_extreme(t + slot, pinot::read_id(ext.ptr[e], ext.elem[e], row), m == kIdMin);
+      }
+    }
+  }
+
+  if (use_smem) {   // merge the groups this block touched
+    __syncthreads();
+    for (int s = threadIdx.x; s < g_pad; s += blockDim.x) {
+      const int c = t_count[s];
+      if (c == 0) continue;
+      atomicAdd(count + s, c);
+      for (int l = 0; l < n_parts; ++l) {
+        const int p = t_psums[l * g_pad + s];
+        if (p != 0) atomicAdd(psums + static_cast<long long>(l) * g_pad + s, p);
+      }
+      for (int j = 0; j < n_floats; ++j)
+        atomicAdd(csums + static_cast<long long>(j) * g_pad + s, t_csums[j * g_pad + s]);
+      for (int e = 0; e < n_ext; ++e) {
+        const int m = ext.mode[e], at = ext.slot[e] * g_pad + s;
+        if (is_raw(m))
+          atomic_extreme(static_cast<double*>(ext.out[e]) + s, t_rawext[at], m == kRawMin);
+        else
+          atomic_extreme(static_cast<int*>(ext.out[e]) + s, t_idext[at], m == kIdMin);
+      }
+    }
   }
   const int total = pinot::block_sum(local, scratch);
   if (threadIdx.x == 0 && total != 0) atomicAdd(matched, total);
@@ -84,10 +210,13 @@ extern "C" int pinot_dense_group_aggregate(
     const void* mask, const void* const* key_ptrs, const int* key_elems,
     const int* key_strides, int n_keys, const void* const* part_ptrs,
     int n_parts, const void* const* float_ptrs, int n_floats,
-    long long padded, int g_pad, void* count, void* psums, void* csums,
-    void* matched, void* stream) {
+    const void* const* ext_ptrs, const int* ext_elems, const int* ext_modes,
+    const int* ext_inits, void* const* ext_outs, int n_ext,
+    long long padded, int g_pad, int smem_slots, void* count, void* psums,
+    void* csums, void* matched, void* stream) {
   if (n_keys < 1 || n_keys > kMaxKeys || n_parts < 0 || n_parts > kMaxParts ||
-      n_floats < 0 || n_floats > kMaxFloats || g_pad < 1)
+      n_floats < 0 || n_floats > kMaxFloats || n_ext < 0 || n_ext > kMaxExt ||
+      g_pad < 1)
     return -1;
   KeyLanes keys{};
   for (int c = 0; c < n_keys; ++c) {
@@ -101,10 +230,39 @@ extern "C" int pinot_dense_group_aggregate(
   FloatLanes floats{};
   for (int j = 0; j < n_floats; ++j)
     floats.ptr[j] = static_cast<const double*>(float_ptrs[j]);
-  dense_group_aggregate_kernel<<<pinot::grid_for(padded), pinot::kThreads, 0,
+  ExtLanes ext{};
+  int n_raw = 0;
+  for (int e = 0; e < n_ext; ++e) {
+    ext.ptr[e] = ext_ptrs[e];
+    ext.elem[e] = ext_elems[e];
+    ext.mode[e] = ext_modes[e];
+    ext.init[e] = ext_inits[e];
+    ext.slot[e] = is_raw(ext_modes[e]) ? n_raw++ : e - n_raw;
+    ext.out[e] = ext_outs[e];
+  }
+  // the shared table: float64 csums and raw extremes, then int32 count,
+  // part sums and id extremes, g_pad slots each
+  const long long table_bytes = static_cast<long long>(g_pad) *
+      (8LL * (n_floats + n_raw) + 4LL * (1 + n_parts + n_ext - n_raw));
+  int device = 0, optin = 0;
+  cudaFuncAttributes attr{};
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncGetAttributes(&attr, dense_group_aggregate_kernel);
+  const long long smem_room = static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
+  const int use_smem = g_pad <= smem_slots && table_bytes <= smem_room ? 1 : 0;
+  const size_t smem = use_smem ? static_cast<size_t>(table_bytes) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        dense_group_aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const int grid = pinot::grid_for(dense_group_aggregate_kernel, padded, smem);
+  dense_group_aggregate_kernel<<<grid, pinot::kThreads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), keys, n_keys, parts, n_parts, floats,
-      n_floats, padded, g_pad, static_cast<int*>(count),
+      n_floats, ext, n_ext, n_raw, padded, g_pad, use_smem, static_cast<int*>(count),
       static_cast<int*>(psums), static_cast<double*>(csums),
       static_cast<int*>(matched));
   return static_cast<int>(cudaGetLastError());

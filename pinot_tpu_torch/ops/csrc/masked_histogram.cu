@@ -1,0 +1,77 @@
+// K4 masked_histogram: exact int32 counts of the dictIds of matched rows.
+//
+// Replaces pinot_tpu/ops/kernels.py:_histogram (:566), which takes
+// _mxu_histogram (:354, one-hot matrix products built from _cmp_onehot
+// :308 and _radix_onehots :324) up to DENSE_CARD_LIMIT and a scatter-add
+// above it: out[v] = number of rows with mask[row] != 0 and ids[row] == v,
+// for v in [0, card_pad). Ids outside that range count nowhere, as the
+// one-hot compare drops them. The planner uses it for DISTINCTCOUNT,
+// PERCENTILE and SUM / AVG over a float dictionary (the host finishes each
+// from the counts and the dictionary).
+//
+// What bounds it: bytes, one mask byte per row and one id for each matched
+// row, plus the table written; unless many matched rows share few ids, when
+// atomics on the same address serialise (teamID has 16 values).
+//
+// What the design does about it: the TPU built one-hot tiles for the
+// matrix unit; on Hopper the histogram is an atomic increment. When the
+// table fits in shared memory (card_pad <= 16384 counts, 64 KB), every
+// block counts into its own copy there with shared atomics and adds it to
+// the device table at the end, one atomic per non-zero bin per block. So
+// hot ids contend only inside a block, in shared memory. Above that, rows
+// add straight into the device table. Integer atomics: the counts are
+// exact and do not depend on the order.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxSmemBins = 16384;        // 64 KB of int32 counts
+
+__global__ void masked_histogram_kernel(const uint8_t* __restrict__ mask,
+                                        const void* __restrict__ ids,
+                                        int elem, long long padded,
+                                        int card_pad, int use_smem,
+                                        int* __restrict__ out) {
+  extern __shared__ int bins[];
+  int* table = out;
+  if (use_smem) {
+    for (int b = threadIdx.x; b < card_pad; b += blockDim.x) bins[b] = 0;
+    __syncthreads();
+    table = bins;
+  }
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       row < padded; row += step) {
+    if (!mask[row]) continue;
+    const int v = pinot::read_id(ids, elem, row);
+    if (v >= 0 && v < card_pad) atomicAdd(table + v, 1);
+  }
+  if (use_smem) {
+    __syncthreads();
+    for (int b = threadIdx.x; b < card_pad; b += blockDim.x)
+      if (bins[b] != 0) atomicAdd(out + b, bins[b]);
+  }
+}
+
+}  // namespace
+
+extern "C" int pinot_masked_histogram(const void* mask, const void* ids,
+                                      int elem, long long padded,
+                                      int card_pad, void* out, void* stream) {
+  if (card_pad < 1 || elem < pinot::kI8 || elem > pinot::kI32) return -1;
+  const int use_smem = card_pad <= kMaxSmemBins ? 1 : 0;
+  const size_t smem = use_smem ? static_cast<size_t>(card_pad) * sizeof(int) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        masked_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const int grid = pinot::grid_for(masked_histogram_kernel, padded, smem);
+  masked_histogram_kernel<<<grid, pinot::kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), ids, elem, padded, card_pad,
+      use_smem, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,186 @@
+// K5 masked_reduce: one lane and the row mask in one pass: the match
+// count, min and max, and the float64 sum of each 8192-row block.
+//
+// Replaces pinot_tpu/ops/kernels.py:_chunked_float_sum (:281) and the
+// id and raw min/max branches of _agg_outputs (:579-682):
+//   id lane (int8 / int16 / int32 dictIds): min = min(where(mask, ids,
+//     card_pad)), max = max(where(mask, ids, -1)), as int32 (:661-667);
+//   raw lane (int32 / int64 / float32 / float64): min = min(where(mask,
+//     vals, +inf)), max = max(where(mask, vals, -inf)) (:668-682). JAX
+//     promotes an integer lane to float64 there, and keeps a float lane's
+//     dtype; this kernel compares every raw value as a float64 (exact for
+//     float32, and rounding is monotonic, so the min of the rounded values
+//     is the rounded min) and writes the result in the JAX dtype. A
+//     matched NaN makes both NaN, as XLA's min and max propagate it;
+//   sums[b] = sum over matched rows of block b of double(vals[row]), one
+//     partial per 8192-row block (the JAX output, summed on the host).
+//
+// What bounds it: bytes: one mask byte and one lane element per row; the
+// outputs are P / 8192 doubles and a few scalars.
+//
+// What the design does about it: one thread block per 8192-row block, so
+// each partial is written by exactly one block with no atomics, and the
+// sum inside a block runs in a fixed order (each thread's 8 rows in
+// sequence, then a fixed shuffle tree, then the warps in order): the
+// partials are the same on every run. Threads read neighbouring rows, so
+// loads coalesce, and each thread issues its 8 mask loads together. Min
+// and max are folded per block, then into one device word each with an
+// integer atomicMax on an order-preserving 64-bit encoding of the value
+// (min as the complement); min and max do not depend on the order, so
+// they equal JAX bit for bit. The last block to finish
+// (a counter after a fence) decodes the words into the typed outputs and
+// the int32 count, so the result needs no second launch.
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kRows = 8192;        // the JAX package's BLOCK
+constexpr int kThreadsR = 1024;
+constexpr int kPerThread = kRows / kThreadsR;   // 8 rows per thread
+
+// state words (64-bit, zeroed by the wrapper): [0] max of ~enc(v), so 0
+// means "none yet", [1] max of enc(v), [2] match count, [3] NaN seen,
+// [4] blocks done
+
+// order-preserving map of a double onto uint64
+__device__ __forceinline__ unsigned long long enc(double v) {
+  const unsigned long long b = static_cast<unsigned long long>(__double_as_longlong(v));
+  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+}
+
+__device__ __forceinline__ double dec(unsigned long long e) {
+  const unsigned long long b = (e >> 63) ? (e & 0x7fffffffffffffffull) : ~e;
+  return __longlong_as_double(static_cast<long long>(b));
+}
+
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long warp_max_u(unsigned long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+__global__ void masked_reduce_kernel(const uint8_t* __restrict__ mask,
+                                     const void* __restrict__ lane, int elem,
+                                     int is_ids, int card_pad, int want_sum,
+                                     unsigned long long* __restrict__ state,
+                                     double* __restrict__ sums,
+                                     void* __restrict__ out_min,
+                                     void* __restrict__ out_max,
+                                     int* __restrict__ out_count) {
+  __shared__ double s_sum[kThreadsR / 32];
+  __shared__ unsigned long long s_lo[kThreadsR / 32], s_hi[kThreadsR / 32];
+  __shared__ int s_cnt[kThreadsR / 32], s_nan[kThreadsR / 32];
+  __shared__ bool s_last;
+
+  const long long base = static_cast<long long>(blockIdx.x) * kRows + threadIdx.x;
+  double sum = 0.0;
+  unsigned long long lo = 0ull, hi = 0ull;   // max of ~enc, max of enc
+  int cnt = 0, nan = 0;
+  uint8_t m[kPerThread];
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) m[k] = mask[base + k * kThreadsR];
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    if (!m[k]) continue;
+    const double v = pinot::read_value(lane, elem, base + k * kThreadsR);
+    ++cnt;
+    sum += v;
+    if (isnan(v)) {
+      nan = 1;
+    } else {
+      const unsigned long long e = enc(v);
+      lo = ~e > lo ? ~e : lo;
+      hi = e > hi ? e : hi;
+    }
+  }
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  sum = warp_sum_d(sum);
+  lo = warp_max_u(lo);
+  hi = warp_max_u(hi);
+  cnt = pinot::warp_sum(cnt);
+  nan = __any_sync(0xffffffffu, nan);
+  if (lane_id == 0) {
+    s_sum[warp] = sum;
+    s_lo[warp] = lo;
+    s_hi[warp] = hi;
+    s_cnt[warp] = cnt;
+    s_nan[warp] = nan;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double bs = 0.0;
+    unsigned long long blo = 0ull, bhi = 0ull;
+    int bc = 0, bn = 0;
+    for (int w = 0; w < kThreadsR / 32; ++w) {   // fixed order
+      bs += s_sum[w];
+      blo = s_lo[w] > blo ? s_lo[w] : blo;
+      bhi = s_hi[w] > bhi ? s_hi[w] : bhi;
+      bc += s_cnt[w];
+      bn |= s_nan[w];
+    }
+    if (want_sum) sums[blockIdx.x] = bs;
+    if (bc != 0) {
+      if (blo) atomicMax(state + 0, blo);
+      if (bhi) atomicMax(state + 1, bhi);
+      atomicAdd(state + 2, static_cast<unsigned long long>(bc));
+      if (bn) atomicOr(state + 3, 1ull);
+    }
+    __threadfence();
+    s_last = atomicAdd(state + 4, 1ull) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last || threadIdx.x != 0) return;
+
+  // the last block: decode the words into the typed outputs
+  __threadfence();
+  const unsigned long long w_lo = atomicAdd(state + 0, 0ull);
+  const unsigned long long w_hi = atomicAdd(state + 1, 0ull);
+  const bool any_nan = atomicAdd(state + 3, 0ull) != 0ull;
+  out_count[0] = static_cast<int>(atomicAdd(state + 2, 0ull));
+  if (is_ids) {
+    // no NaN in an id lane; the JAX sentinels bound the result, and stay
+    // when nothing matched
+    static_cast<int*>(out_min)[0] = w_lo ? min(static_cast<int>(dec(~w_lo)), card_pad) : card_pad;
+    static_cast<int*>(out_max)[0] = w_hi ? max(static_cast<int>(dec(w_hi)), -1) : -1;
+    return;
+  }
+  double mn = w_lo ? dec(~w_lo) : INFINITY;
+  double mx = w_hi ? dec(w_hi) : -INFINITY;
+  if (any_nan) mn = mx = NAN;
+  if (elem == pinot::kF32) {
+    static_cast<float*>(out_min)[0] = static_cast<float>(mn);
+    static_cast<float*>(out_max)[0] = static_cast<float>(mx);
+  } else {
+    static_cast<double*>(out_min)[0] = mn;
+    static_cast<double*>(out_max)[0] = mx;
+  }
+}
+
+}  // namespace
+
+extern "C" int pinot_masked_reduce(const void* mask, const void* lane, int elem,
+                                   int is_ids, int card_pad, int want_sum,
+                                   long long padded, void* state, void* sums,
+                                   void* out_min, void* out_max, void* out_count,
+                                   void* stream) {
+  if (padded <= 0 || padded % kRows != 0 || elem < pinot::kI8 || elem > pinot::kF64) return -1;
+  const long long blocks = padded / kRows;
+  masked_reduce_kernel<<<static_cast<unsigned>(blocks), kThreadsR, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), lane, elem, is_ids, card_pad, want_sum,
+      static_cast<unsigned long long*>(state), static_cast<double*>(sums), out_min,
+      out_max, static_cast<int*>(out_count));
+  return static_cast<int>(cudaGetLastError());
+}

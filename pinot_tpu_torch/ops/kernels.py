@@ -1,4 +1,5 @@
-"""Per-segment query kernels: filter mask, masked part sums, group tables.
+"""Per-segment query kernels: filter mask, masked sums, histograms, group
+tables.
 
 Counterpart of pinot_tpu/ops/kernels.py. The JAX package compiles a whole
 segment plan into one jitted XLA program; here the same plan runs as a
@@ -10,9 +11,15 @@ short fixed sequence of kernels written by hand for Hopper
 - K2 `masked_part_sums`: exact sums of bit-sliced part lanes + the match
   count (replaces `_part_sums` and the masked count);
 - K3 `dense_group_aggregate`: mixed-radix group key → per-group count,
-  int32 part sums and float64 sums (replaces `_group_key` kind "ids",
-  `_dense_group_count`, `_dense_group_part_sums`, `_dense_group_float_sums`
-  and the scatter fallback for count / sum / avg).
+  int32 part sums, float64 sums and min / max (replaces `_group_key` kind
+  "ids", `_dense_group_count`, `_dense_group_part_sums`,
+  `_dense_group_float_sums`, `_dense_group_extreme` and the scatter
+  fallback for count / sum / avg / min / max);
+- K4 `masked_histogram`: dictId counts of the matched rows (replaces
+  `_histogram` / `_mxu_histogram`);
+- K5 `masked_reduce`: one lane's match count, min / max and per-block
+  float64 sums (replaces `_chunked_float_sum` and the id / raw min-max
+  branches of `_agg_outputs`).
 
 Every wrapper checks its operands, allocates its outputs, and launches on
 the current stream. Beside each kernel is its plain PyTorch version: the
@@ -23,16 +30,31 @@ Spec grammar (hashable tuples, the JAX package's own; this slice takes the
 subset below, the planner raises UnsupportedOnDevice on the rest):
 
   filter: ("and", (child, ...)) | ("or", (child, ...)) | ("match_all",)
-        | ("empty",) | ("pred", kind, col, "sv", extra)
-          kind ∈ {eq_id, neq_id, range_ids, in_ids, notin_ids, member}
+        | ("empty",) | ("pred", kind, col, source, extra)
+          source "sv" ({col}.ids [P]) or "mv" ({col}.mv [P, W]):
+            kind ∈ {eq_id, neq_id, range_ids, in_ids, notin_ids, member}
+          source "raw" ({col}.raw [P], int32/int64/float32/float64):
+            kind ∈ {eq_raw, neq_raw, in_raw, notin_raw, range_raw}
   params: flat sequence consumed in depth-first pred order: eq/neq one
-          int32, range_ids (lo, hi) half-open, in/notin an int32 [k] list
-          padded with -1, member a bool [card_pad] table.
-  agg:    (fname, col, source, extra) with ("count", "*", "none", None) and
-          ("sum" | "avg", col, "sv", ("parts", card_pad)).
+          value, range_ids (lo, hi) half-open, range_raw (lo, hi) with
+          extra = (lo_inclusive, hi_inclusive), in/notin a [k] list (ids
+          padded with -1), member a bool [card_pad] table. Raw constants
+          compare in the lane's dtype (the planner casts them to it).
+  agg:    (fname, col, source, extra):
+          ("count", "*", "none", None);
+          ("sum" | "avg", col, "sv", ("parts", card_pad)) → K2;
+          (fname, col, "sv", ("hist", card_pad)) → K4, fname ∈ {sum, avg,
+            distinctcount, percentile};
+          ("sum" | "avg", col, "sv", ("vlane", card_pad)) → K5 sums;
+          ("min" | "max" | "minmaxrange", col, "sv", ("ids", card_pad))
+            → K5 over ids;
+          (fname, col, "raw", None) → K5 over the raw lane, fname ∈ {sum,
+            avg, min, max, minmaxrange}.
   group:  (cols=((name, "ids", 0, card), ...), strides, g_pad,
            aggs=(count | sum/avg with ("psums", card_pad) over sv parts, or
-                 ("csums",) over raw / ("csums", card_pad) over sv vlane),
+                 ("csums",) over raw / ("csums", card_pad) over sv vlane |
+                 min/max/minmaxrange with ("ids", card_pad) over sv ids, or
+                 None over raw),
            kmax=0)
 """
 from __future__ import annotations
@@ -47,6 +69,7 @@ import torch
 INT32_MAX = 2**31 - 1
 BLOCK = 8192                 # row block: padded segment lengths are multiples
 DENSE_ROWS_LIMIT = 1 << 24   # 127 * 2^24 < 2^31: int32 part sums stay exact
+DENSE_CARD_LIMIT = 32768     # the JAX planner's histogram cap for float SUM
 
 
 def pow2_bucket(n: int, floor: int = 8) -> int:
@@ -85,20 +108,28 @@ KERNELS: Dict[str, KernelInfo] = {
         "dense_group_aggregate",
         "pinot_tpu_torch/ops/csrc/dense_group_aggregate.cu",
         "pinot_tpu/ops/kernels.py:407"),
+    "masked_histogram": KernelInfo(
+        "masked_histogram", "pinot_tpu_torch/ops/csrc/masked_histogram.cu",
+        "pinot_tpu/ops/kernels.py:566"),
+    "masked_reduce": KernelInfo(
+        "masked_reduce", "pinot_tpu_torch/ops/csrc/masked_reduce.cu",
+        "pinot_tpu/ops/kernels.py:281"),
 }
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_PP = ctypes.POINTER(_P)
+_IP = ctypes.POINTER(_I)
 _ARGTYPES = {
-    "filter_mask": [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
-                    ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_longlong, _P, _P],
-    "masked_part_sums": [_P, ctypes.POINTER(_P), ctypes.c_int,
-                         ctypes.c_longlong, _P, _P],
+    "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _P],
+    "masked_part_sums": [_P, _PP, _I, _LL, _P, _P],
     "dense_group_aggregate": [
-        _P, ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(_P),
-        ctypes.c_int, ctypes.POINTER(_P), ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, _P, _P, _P, _P, _P],
+        _P, _PP, _IP, _IP, _I, _PP, _I, _PP, _I,
+        _PP, _IP, _IP, _IP, _PP, _I,
+        _LL, _I, _I, _P, _P, _P, _P, _P],
+    "masked_histogram": [_P, _P, _I, _LL, _I, _P, _P],
+    "masked_reduce": [_P, _P, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -140,21 +171,33 @@ def _ints(values: Sequence[int]):
     return (ctypes.c_int * len(values))(*[int(v) for v in values])
 
 
+#: element type codes shared with the .cu sources (pinot::Elem)
+_ELEM = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.int64: 3,
+         torch.float32: 4, torch.float64: 5}
+_ID_DTYPES = (torch.int8, torch.int16, torch.int32)
+_RAW_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
+
+
 def _check_lane(t: torch.Tensor, what: str, padded: int, device,
-                dtypes: Tuple[torch.dtype, ...]) -> None:
+                dtypes: Tuple[torch.dtype, ...], ndim: int = 1) -> None:
     if t.device != device:
         raise ValueError(f"{what} on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{what} has dtype {t.dtype}, expected one of "
                         f"{dtypes}")
-    if t.dim() != 1 or t.shape[0] != padded:
+    if t.dim() != ndim or t.shape[0] != padded:
         raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
-                         f"({padded},)")
+                         f"{ndim} dims of {padded} rows")
     if not t.is_contiguous():
         raise ValueError(f"{what} is not contiguous")
 
 
-_ID_DTYPES = (torch.int8, torch.int16, torch.int32)
+def _check_mask(mask: torch.Tensor) -> None:
+    _check_lane(mask, "mask", mask.shape[0], mask.device, (torch.uint8,))
+
+
+def _np_of(dtype: torch.dtype) -> np.dtype:
+    return np.dtype(str(dtype).replace("torch.", ""))
 
 
 # ---------------------------------------------------------------------------
@@ -163,37 +206,59 @@ _ID_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 _OP_TRUE, _OP_FALSE, _OP_AND, _OP_OR = 0, 1, 8, 9
 _LEAF_OPS = {"eq_id": 2, "neq_id": 3, "range_ids": 4, "in_ids": 5,
-             "notin_ids": 6, "member": 7}
+             "notin_ids": 6, "member": 7, "eq_raw": 10, "neq_raw": 11,
+             "range_raw": 12, "in_raw": 13, "notin_raw": 14}
+_RAW_KINDS = ("eq_raw", "neq_raw", "range_raw", "in_raw", "notin_raw")
+_NODE_WORDS = 6              # {op, lane, param offset, arg, elem, width}
 _MAX_FILTER_LANES = 16
 _MAX_STACK = 32
 
 
 def _leaf(spec) -> Tuple[str, str]:
+    """(kind, lane key) of a predicate node K1 evaluates."""
     _, kind, col, source, _extra = spec
-    if source != "sv" or kind not in _LEAF_OPS:
+    if kind not in _LEAF_OPS or source not in ("sv", "mv", "raw") or \
+            (source == "raw") != (kind in _RAW_KINDS):
         raise ValueError(f"predicate kind {kind} over {source} is not a "
                          "K1 filter_mask predicate")
-    return kind, f"{col}.ids"
+    return kind, f"{col}.{'ids' if source == 'sv' else source}"
 
 
-def compile_filter(filter_spec, params: Sequence
-                   ) -> Tuple[np.ndarray, int]:
+def _filter_lane_ok(t: torch.Tensor, key: str, padded: int, device) -> None:
+    if key.endswith(".raw"):
+        _check_lane(t, key, padded, device, _RAW_DTYPES)
+    else:
+        _check_lane(t, key, padded, device, _ID_DTYPES,
+                    2 if key.endswith(".mv") else 1)
+
+
+def _raw_words(values, dtype) -> List[int]:
+    """Raw constants in the lane's dtype as int32 words (low word first)."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=_np_of(dtype))
+                               .reshape(-1))
+    return arr.view("<i4").astype(np.int64).tolist()
+
+
+def compile_filter(filter_spec, params: Sequence,
+                   cols: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, int]:
     """Flatten a filter spec and its params into the K1 program.
 
-    Returns (buffer int32 [4 * n_nodes + n_param_words], n_nodes). Node =
-    {op, lane, param offset, arg}, lane indexing filter_lane_keys(spec);
-    the params follow the nodes, offsets count from their start.
+    Returns (buffer int32 [6 * n_nodes + n_param_words], n_nodes). Node =
+    {op, lane, param offset, arg, elem, width}, lane indexing
+    filter_lane_keys(spec), elem the lane's element type code, width its
+    values per row; the params follow the nodes, offsets count from their
+    start. Raw constants are cast to the lane's dtype.
     """
-    nodes: List[Tuple[int, int, int, int]] = []
+    nodes: List[Tuple[int, ...]] = []
     words: List[int] = []
     lanes = filter_lane_keys(filter_spec)
     plist = list(params)
     depth = max_depth = 0
 
     def emit(op: int, lane: int = 0, off: int = 0, arg: int = 0,
-             pops: int = 0) -> None:
+             elem: int = 0, width: int = 1, pops: int = 0) -> None:
         nonlocal depth, max_depth
-        nodes.append((op, lane, off, arg))
+        nodes.append((op, lane, off, arg, elem, width))
         depth += 1 - pops
         max_depth = max(max_depth, depth)
 
@@ -213,7 +278,9 @@ def compile_filter(filter_spec, params: Sequence
                  pops=len(kids))
         elif op == "pred":
             kind, key = _leaf(spec)
+            lane_t = cols[key]
             lane, off, arg = lanes.index(key), len(words), 0
+            width = lane_t.shape[1] if lane_t.dim() == 2 else 1
             if kind in ("eq_id", "neq_id"):
                 words.append(int(plist.pop(0)))
             elif kind == "range_ids":
@@ -223,14 +290,26 @@ def compile_filter(filter_spec, params: Sequence
                 vals = np.asarray(plist.pop(0), dtype=np.int64).ravel()
                 words.extend(int(v) for v in vals)
                 arg = len(vals)
-            else:                                      # member
+            elif kind == "member":
                 member = np.asarray(plist.pop(0), dtype=bool).ravel()
                 arg = len(member)
                 bits = np.packbits(member, bitorder="little")
                 bits = np.concatenate(
                     [bits, np.zeros(-len(bits) % 4, np.uint8)])
                 words.extend(bits.view("<u4").astype(np.int64).tolist())
-            emit(_LEAF_OPS[kind], lane, off, arg)
+            elif kind in ("eq_raw", "neq_raw"):
+                words.extend(_raw_words(plist.pop(0), lane_t.dtype))
+            elif kind == "range_raw":
+                lo_inc, hi_inc = spec[4]
+                words.extend(_raw_words([plist.pop(0), plist.pop(0)],
+                                        lane_t.dtype))
+                arg = int(bool(lo_inc)) | int(bool(hi_inc)) << 1
+            else:                                      # in_raw / notin_raw
+                vals = np.asarray(plist.pop(0)).ravel()
+                words.extend(_raw_words(vals, lane_t.dtype))
+                arg = len(vals)
+            emit(_LEAF_OPS[kind], lane, off, arg, _ELEM[lane_t.dtype],
+                 width)
         else:
             raise ValueError(f"unknown filter node {op}")
 
@@ -250,7 +329,8 @@ def compile_filter(filter_spec, params: Sequence
 
 
 def filter_lane_keys(filter_spec) -> List[str]:
-    """Lane keys ({col}.ids) the filter reads, in first-use order."""
+    """Lane keys ({col}.ids / .mv / .raw) the filter reads, in first-use
+    order."""
     keys: List[str] = []
 
     def walk(spec):
@@ -284,19 +364,19 @@ def filter_mask(padded: int, filter_spec, cols: Dict[str, torch.Tensor],
     keys = filter_lane_keys(filter_spec)
     device = _mask_device(keys, cols, device)
     for key in keys:
-        _check_lane(cols[key], key, padded, device, _ID_DTYPES)
+        _filter_lane_ok(cols[key], key, padded, device)
     if device.type == "cpu":
         return filter_mask_plain(padded, filter_spec, cols, params, num_docs,
                                  device)
-    buf, n_nodes = compile_filter(filter_spec, params)
+    buf, n_nodes = compile_filter(filter_spec, params, cols)
     lanes = [cols[k] for k in keys]
     # the one H2D copy, from pinned memory so the host does not wait
     prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
     out = torch.empty(padded, dtype=torch.uint8, device=device)
-    _launch("filter_mask", device, _ptrs(lanes),
-            _ints([t.element_size() for t in lanes]), len(lanes),
-            prog.data_ptr(), n_nodes, int(buf.shape[0]), padded,
-            int(num_docs), out.data_ptr())
+    general = any(not k.endswith(".ids") for k in keys)    # raw / MV
+    _launch("filter_mask", device, _ptrs(lanes), len(lanes),
+            prog.data_ptr(), n_nodes, int(buf.shape[0]), int(general),
+            padded, int(num_docs), out.data_ptr())
     return out
 
 
@@ -309,7 +389,8 @@ def filter_mask_plain(padded: int, filter_spec,
     plist = list(params)
 
     def as_t(v, dtype):
-        return torch.as_tensor(np.asarray(v), device=device).to(dtype)
+        return torch.as_tensor(np.asarray(v, dtype=_np_of(dtype)),
+                               device=device)
 
     def walk(spec) -> torch.Tensor:
         op = spec[0]
@@ -324,20 +405,32 @@ def filter_mask_plain(padded: int, filter_spec,
                 out = (out & m) if op == "and" else (out | m)
             return out
         kind, key = _leaf(spec)
-        lane = cols[key].to(torch.int32)
-        if kind == "eq_id":
-            return lane == int(plist.pop(0))
-        if kind == "neq_id":
-            return lane != int(plist.pop(0))
-        if kind == "range_ids":
-            lo, hi = int(plist.pop(0)), int(plist.pop(0))
-            return (lane >= lo) & (lane < hi)
-        if kind in ("in_ids", "notin_ids"):
-            vals = as_t(plist.pop(0), torch.int32)
-            hit = (lane[:, None] == vals[None, :]).any(-1)
-            return hit if kind == "in_ids" else ~hit
-        member = as_t(plist.pop(0), torch.bool)
-        return member[lane.clamp(0, member.shape[0] - 1).long()]
+        lane = cols[key]
+        if kind not in _RAW_KINDS:
+            lane = lane.to(torch.int32)
+        cdt = lane.dtype
+        if kind in ("eq_id", "eq_raw"):
+            m = lane == as_t(plist.pop(0), cdt)
+        elif kind in ("neq_id", "neq_raw"):
+            m = lane != as_t(plist.pop(0), cdt)
+        elif kind == "range_ids":
+            lo, hi = as_t(plist.pop(0), cdt), as_t(plist.pop(0), cdt)
+            m = (lane >= lo) & (lane < hi)
+        elif kind == "range_raw":
+            lo, hi = as_t(plist.pop(0), cdt), as_t(plist.pop(0), cdt)
+            lo_inc, hi_inc = spec[4]
+            m = ((lane >= lo) if lo_inc else (lane > lo)) & \
+                ((lane <= hi) if hi_inc else (lane < hi))
+        elif kind in ("in_ids", "notin_ids", "in_raw", "notin_raw"):
+            vals = as_t(plist.pop(0), cdt).reshape(-1)
+            hit = (lane[..., None] == vals).any(-1)
+            m = hit if kind in ("in_ids", "in_raw") else ~hit
+        else:                                          # member
+            member = as_t(plist.pop(0), torch.bool)
+            m = member[lane.clamp(0, member.shape[0] - 1).long()]
+        if m.dim() == 2:                               # MV: any entry
+            m = m.any(-1)
+        return m
 
     mask = walk(filter_spec) & valid
     return mask.to(torch.uint8)
@@ -366,7 +459,7 @@ def masked_part_sums(mask: torch.Tensor,
     """int32 [L + 1]: the masked sum of each int8 part lane (L = all rows
     of all the [n_parts, P] blocks, in order), then the match count."""
     padded, device = mask.shape[0], mask.device
-    _check_lane(mask, "mask", padded, device, (torch.uint8,))
+    _check_mask(mask)
     rows = _part_rows(part_lanes)
     for k, r in enumerate(rows):
         _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
@@ -400,22 +493,43 @@ def masked_part_sums_plain(mask: torch.Tensor,
 
 _MAX_KEYS = 8
 _MAX_FLOATS = 8
+_MAX_EXT = 16
+_EXT_MODES = {("ids", "min"): 0, ("ids", "max"): 1, ("raw", "min"): 2,
+              ("raw", "max"): 3}
+#: K3 folds into per-block shared-memory tables up to this many slots
+#: (when they fit), into the device table above it. Set from chip_smoke's
+#: K3 cases timed with the tables forced on and off (PERF.md): on the H100
+#: on won at 32 and 256 slots, tied at 1024 and lost 2.6-3.8x at 8192.
+K3_SMEM_SLOTS = 256
+
+
+def _ext_init(kind: str, which: str, card_pad: int):
+    """The value a min / max table starts at (the JAX sentinels)."""
+    if kind == "ids":
+        return card_pad if which == "min" else -1
+    return float("inf") if which == "min" else float("-inf")
 
 
 def dense_group_aggregate(mask: torch.Tensor,
                           key_lanes: Sequence[torch.Tensor],
                           strides: Sequence[int], g_pad: int,
                           part_lanes: Sequence[torch.Tensor] = (),
-                          float_lanes: Sequence[torch.Tensor] = ()
-                          ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor, torch.Tensor]:
+                          float_lanes: Sequence[torch.Tensor] = (),
+                          extremes: Sequence[tuple] = (),
+                          smem_slots: int = K3_SMEM_SLOTS):
     """Dense group table over key = clip(Σ ids_c · stride_c, 0, g_pad-1).
 
+    `extremes`: ((kind, lane, which, card_pad), ...), kind "ids" (an id
+    lane, int32 table starting at card_pad for min / -1 for max) or "raw"
+    (an int32/int64/float32/float64 lane, float64 table starting at
+    ±inf), which ∈ {"min", "max"}. `smem_slots`: the largest g_pad the
+    kernel folds in shared memory (0: never).
+
     Returns (count int32 [g_pad], psums int32 [L, g_pad], csums float64
-    [J, g_pad], matched int32 scalar), L = all part-lane rows, J = float
-    lanes (float64 [P] each)."""
+    [J, g_pad], matched int32 scalar, [one table per extreme]), L = all
+    part-lane rows, J = float lanes (float64 [P] each)."""
     padded, device = mask.shape[0], mask.device
-    _check_lane(mask, "mask", padded, device, (torch.uint8,))
+    _check_mask(mask)
     if not 1 <= len(key_lanes) <= _MAX_KEYS or \
             len(strides) != len(key_lanes):
         raise ValueError(f"{len(key_lanes)} key lanes / {len(strides)} "
@@ -427,33 +541,51 @@ def dense_group_aggregate(mask: torch.Tensor,
         _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
     for j, f in enumerate(float_lanes):
         _check_lane(f, f"float lane {j}", padded, device, (torch.float64,))
-    if len(rows) > _MAX_PARTS or len(float_lanes) > _MAX_FLOATS:
-        raise ValueError(f"{len(rows)} part / {len(float_lanes)} float "
-                         "lanes over the kernel's limits")
+    for e, (kind, lane, which, _cp) in enumerate(extremes):
+        if (kind, which) not in _EXT_MODES:
+            raise ValueError(f"extreme {e}: ({kind}, {which})")
+        _check_lane(lane, f"extreme lane {e}", padded, device,
+                    _ID_DTYPES if kind == "ids" else _RAW_DTYPES)
+    if len(rows) > _MAX_PARTS or len(float_lanes) > _MAX_FLOATS or \
+            len(extremes) > _MAX_EXT:
+        raise ValueError(f"{len(rows)} part / {len(float_lanes)} float / "
+                         f"{len(extremes)} extreme lanes over the kernel's "
+                         "limits")
     if not 1 <= g_pad <= INT32_MAX or padded > DENSE_ROWS_LIMIT:
         raise ValueError(f"g_pad {g_pad} / {padded} rows outside the dense "
                          "int32 regime")
     if device.type == "cpu":
         return dense_group_aggregate_plain(mask, key_lanes, strides, g_pad,
-                                           part_lanes, float_lanes)
+                                           part_lanes, float_lanes,
+                                           extremes)
     count = torch.zeros(g_pad, dtype=torch.int32, device=device)
     psums = torch.zeros(len(rows), g_pad, dtype=torch.int32, device=device)
     csums = torch.zeros(len(float_lanes), g_pad, dtype=torch.float64,
                         device=device)
     matched = torch.zeros((), dtype=torch.int32, device=device)
+    tables = [torch.full((g_pad,), _ext_init(kind, which, cp),
+                         dtype=torch.int32 if kind == "ids"
+                         else torch.float64, device=device)
+              for kind, _lane, which, cp in extremes]
     _launch("dense_group_aggregate", device, mask.data_ptr(),
-            _ptrs(key_lanes), _ints([t.element_size() for t in key_lanes]),
+            _ptrs(key_lanes), _ints([_ELEM[t.dtype] for t in key_lanes]),
             _ints(strides), len(key_lanes), _ptrs(rows), len(rows),
-            _ptrs(float_lanes), len(float_lanes), padded, int(g_pad),
-            count.data_ptr(), psums.data_ptr(), csums.data_ptr(),
-            matched.data_ptr())
-    return count, psums, csums, matched
+            _ptrs(float_lanes), len(float_lanes),
+            _ptrs([e[1] for e in extremes]),
+            _ints([_ELEM[e[1].dtype] for e in extremes]),
+            _ints([_EXT_MODES[(e[0], e[2])] for e in extremes]),
+            _ints([_ext_init(e[0], e[2], e[3]) if e[0] == "ids" else 0
+                   for e in extremes]),
+            _ptrs(tables), len(extremes), padded, int(g_pad),
+            int(smem_slots), count.data_ptr(), psums.data_ptr(),
+            csums.data_ptr(), matched.data_ptr())
+    return count, psums, csums, matched, tables
 
 
 def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
-                                part_lanes=(), float_lanes=()):
-    """Plain PyTorch K3: int32 key arithmetic, then index_add_ of the
-    matched rows."""
+                                part_lanes=(), float_lanes=(), extremes=()):
+    """Plain PyTorch K3: int32 key arithmetic, then index_add_ /
+    scatter_reduce_ of the matched rows."""
     m = mask.bool()
     device = mask.device
     key = torch.zeros(mask.shape[0], dtype=torch.int32, device=device)
@@ -470,7 +602,110 @@ def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
                         device=device)
     for j, f in enumerate(float_lanes):
         csums[j].index_add_(0, key, f[m].to(torch.float64))
-    return count, psums, csums, m.sum(dtype=torch.int32)
+    tables = []
+    for kind, lane, which, cp in extremes:
+        dtype = torch.int32 if kind == "ids" else torch.float64
+        t = torch.full((g_pad,), _ext_init(kind, which, cp), dtype=dtype,
+                       device=device)
+        t.scatter_reduce_(0, key, lane[m].to(dtype),
+                          "amin" if which == "min" else "amax")
+        tables.append(t)
+    return count, psums, csums, m.sum(dtype=torch.int32), tables
+
+
+# ---------------------------------------------------------------------------
+# K4 masked_histogram
+# ---------------------------------------------------------------------------
+
+
+def masked_histogram(mask: torch.Tensor, ids: torch.Tensor,
+                     card_pad: int) -> torch.Tensor:
+    """int32 [card_pad]: how many matched rows hold each dictId (ids
+    outside [0, card_pad) count nowhere)."""
+    padded, device = mask.shape[0], mask.device
+    _check_mask(mask)
+    _check_lane(ids, "id lane", padded, device, _ID_DTYPES)
+    if not 1 <= card_pad <= INT32_MAX:
+        raise ValueError(f"card_pad {card_pad}")
+    if device.type == "cpu":
+        return masked_histogram_plain(mask, ids, card_pad)
+    out = torch.zeros(card_pad, dtype=torch.int32, device=device)
+    _launch("masked_histogram", device, mask.data_ptr(), ids.data_ptr(),
+            _ELEM[ids.dtype], padded, int(card_pad), out.data_ptr())
+    return out
+
+
+def masked_histogram_plain(mask: torch.Tensor, ids: torch.Tensor,
+                           card_pad: int) -> torch.Tensor:
+    """Plain PyTorch K4: bincount over the matched ids."""
+    v = ids.to(torch.int64)
+    keep = mask.bool() & (v >= 0) & (v < card_pad)
+    return torch.bincount(v[keep], minlength=card_pad).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K5 masked_reduce
+# ---------------------------------------------------------------------------
+
+
+def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
+                  card_pad: int = 0, want_sum: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """One pass over `lane` under the mask.
+
+    kind "ids" (a dictId lane): {"min", "max"} int32 scalars with the JAX
+    sentinels (card_pad / -1 when nothing matched). kind "raw" (int32 /
+    int64 / float32 / float64): {"min", "max"} scalars in the JAX dtype
+    (float32 for a float32 lane, else float64; ±inf when nothing
+    matched). Both: "count" int32 scalar; with want_sum, "sums" float64
+    [P / 8192], the masked sum of each row block."""
+    padded, device = mask.shape[0], mask.device
+    _check_mask(mask)
+    if kind not in ("ids", "raw"):
+        raise ValueError(f"masked_reduce kind {kind}")
+    _check_lane(lane, f"{kind} lane", padded, device,
+                _ID_DTYPES if kind == "ids" else _RAW_DTYPES)
+    if padded % BLOCK:
+        raise ValueError(f"{padded} rows is not a multiple of {BLOCK}")
+    if device.type == "cpu":
+        return masked_reduce_plain(mask, lane, kind, card_pad, want_sum)
+    out_dt = torch.int32 if kind == "ids" else \
+        (torch.float32 if lane.dtype == torch.float32 else torch.float64)
+    state = torch.zeros(5, dtype=torch.int64, device=device)
+    out = {"min": torch.empty((), dtype=out_dt, device=device),
+           "max": torch.empty((), dtype=out_dt, device=device),
+           "count": torch.empty((), dtype=torch.int32, device=device)}
+    if want_sum:
+        out["sums"] = torch.empty(padded // BLOCK, dtype=torch.float64,
+                                  device=device)
+    _launch("masked_reduce", device, mask.data_ptr(), lane.data_ptr(),
+            _ELEM[lane.dtype], int(kind == "ids"), int(card_pad),
+            int(want_sum), padded, state.data_ptr(),
+            out["sums"].data_ptr() if want_sum else None,
+            out["min"].data_ptr(), out["max"].data_ptr(),
+            out["count"].data_ptr())
+    return out
+
+
+def masked_reduce_plain(mask: torch.Tensor, lane: torch.Tensor, kind: str,
+                        card_pad: int = 0, want_sum: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch K5: where + amin / amax, and a reshape-sum."""
+    m = mask.bool()
+    if kind == "ids":
+        v = lane.to(torch.int32)
+        lo_fill, hi_fill = card_pad, -1
+    else:
+        v = lane.to(torch.float32 if lane.dtype == torch.float32
+                    else torch.float64)
+        lo_fill, hi_fill = float("inf"), float("-inf")
+    out = {"min": torch.where(m, v, lo_fill).amin(),
+           "max": torch.where(m, v, hi_fill).amax(),
+           "count": m.sum(dtype=torch.int32)}
+    if want_sum:
+        out["sums"] = torch.where(m, lane.to(torch.float64), 0.0) \
+            .reshape(-1, BLOCK).sum(dim=1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -478,78 +713,150 @@ def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
 # ---------------------------------------------------------------------------
 
 
+def _strategy(spec):
+    extra = spec[3]
+    return extra[0] if isinstance(extra, tuple) else None
+
+
 def _is_parts_agg(spec) -> bool:
-    fname, _col, source, extra = spec
+    fname, _col, source, _extra = spec
     return fname in ("sum", "avg") and source == "sv" and \
-        isinstance(extra, tuple) and extra[0] == "parts"
+        _strategy(spec) == "parts"
+
+
+def _extremes_of(fname: str) -> Tuple[str, ...]:
+    return {"min": ("min",), "max": ("max",),
+            "minmaxrange": ("min", "max")}.get(fname, ())
 
 
 def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
                        select_spec, cols: Dict[str, torch.Tensor], params,
                        num_docs: int, device=None) -> Dict[str, torch.Tensor]:
-    """One segment plan: K1, then K2 (aggregation) or K3 (group-by).
+    """One segment plan: K1, then K3 (group-by), or K2, K4 and K5 as the
+    aggregations need them.
 
     Returns the device outputs under the JAX package's names
     (stats.num_docs_matched, agg{i}, agg{i}.parts, agg{i}.count,
-    group.count, gagg{i}.psums, gagg{i}.csums). `device` is used only
-    when no lane is read at all."""
+    agg{i}.vsum, agg{i}.min, agg{i}.max, group.count, gagg{i}.psums,
+    gagg{i}.csums, gagg{i}.min, gagg{i}.max). `device` is used only when
+    no lane is read at all."""
     if select_spec is not None:
         raise ValueError("selection is not a kernel of this slice")
     if cols:
         device = next(iter(cols.values())).device
     mask = filter_mask(padded, filter_spec, cols, params, num_docs, device)
-    outs: Dict[str, torch.Tensor] = {}
     if group_spec is not None:
-        gcols, strides, g_pad, gaggs, kmax = group_spec
-        if kmax:
-            raise ValueError("compacted group specs (kmax > 0) are a TPU "
-                             "strategy this port does not take")
-        for _c, gkind, _off, _card in gcols:
-            if gkind != "ids":
-                raise ValueError(f"group key kind {gkind}")
-        parts, slots, floats, fslots = [], {}, [], {}
-        for i, (fname, col, source, extra) in enumerate(gaggs):
-            if fname == "count":
-                continue
-            strategy = extra[0] if isinstance(extra, tuple) else None
-            if fname not in ("sum", "avg") or strategy not in ("psums",
-                                                               "csums"):
-                raise ValueError(f"group aggregation {fname}/{strategy}")
-            if strategy == "psums":
-                pl = cols[f"{col}.parts"]
-                slots[i] = (sum(p.shape[0] for p in parts), pl.shape[0])
-                parts.append(pl)
-            else:
-                lane = cols[f"{col}.vlane" if source == "sv"
-                            else f"{col}.raw"]
-                fslots[i] = len(floats)
-                floats.append(lane.to(sum_dtype()))
-        keys = [cols[f"{c}.ids"] for c, *_ in gcols]
-        count, psums, csums, matched = dense_group_aggregate(
-            mask, keys, strides, g_pad, parts, floats)
-        outs["stats.num_docs_matched"] = matched
-        outs["group.count"] = count
-        for i, (s0, n_p) in slots.items():
-            outs[f"gagg{i}.psums"] = psums[s0:s0 + n_p]
-        for i, j in fslots.items():
-            outs[f"gagg{i}.csums"] = csums[j]
-        return outs
-    parts = []
+        return _group_outputs(mask, group_spec, cols)
+    return _agg_outputs(mask, agg_specs, cols)
+
+
+def _group_outputs(mask, group_spec, cols) -> Dict[str, torch.Tensor]:
+    gcols, strides, g_pad, gaggs, kmax = group_spec
+    if kmax:
+        raise ValueError("compacted group specs (kmax > 0) are a TPU "
+                         "strategy this port does not take")
+    for _c, gkind, _off, _card in gcols:
+        if gkind != "ids":
+            raise ValueError(f"group key kind {gkind}")
+    parts, slots, floats, fslots, extremes, eslots = [], {}, [], {}, [], {}
+    for i, spec in enumerate(gaggs):
+        fname, col, source, extra = spec
+        strategy = _strategy(spec)
+        if fname == "count":
+            continue
+        if fname in ("sum", "avg") and strategy == "psums":
+            pl = cols[f"{col}.parts"]
+            slots[i] = (sum(p.shape[0] for p in parts), pl.shape[0])
+            parts.append(pl)
+        elif fname in ("sum", "avg") and strategy == "csums":
+            lane = cols[f"{col}.vlane" if source == "sv" else f"{col}.raw"]
+            fslots[i] = len(floats)
+            floats.append(lane.to(sum_dtype()))
+        elif _extremes_of(fname) and (
+                (source == "sv" and strategy == "ids") or
+                (source == "raw" and extra is None)):
+            kind = "ids" if source == "sv" else "raw"
+            card_pad = extra[1] if kind == "ids" else 0
+            for which in _extremes_of(fname):
+                eslots[(i, which)] = len(extremes)
+                extremes.append((kind, cols[f"{col}.{kind}"], which,
+                                 card_pad))
+        else:
+            raise ValueError(f"group aggregation spec {spec}")
+    keys = [cols[f"{c}.ids"] for c, *_ in gcols]
+    count, psums, csums, matched, tables = dense_group_aggregate(
+        mask, keys, strides, g_pad, parts, floats, extremes)
+    outs = {"stats.num_docs_matched": matched, "group.count": count}
+    for i, (s0, n_p) in slots.items():
+        outs[f"gagg{i}.psums"] = psums[s0:s0 + n_p]
+    for i, j in fslots.items():
+        outs[f"gagg{i}.csums"] = csums[j]
+    for (i, which), e in eslots.items():
+        outs[f"gagg{i}.{which}"] = tables[e]
+    return outs
+
+
+def _reduce_request(spec):
+    """(lane key, kind, card_pad, wants block sums) when K5 serves `spec`,
+    else None."""
+    fname, col, source, extra = spec
+    strategy = _strategy(spec)
+    if source == "sv" and strategy == "vlane":
+        return f"{col}.vlane", "raw", 0, True
+    if source == "raw" and extra is None and \
+            (fname in ("sum", "avg") or _extremes_of(fname)):
+        return f"{col}.raw", "raw", 0, fname in ("sum", "avg")
+    if source == "sv" and strategy == "ids" and _extremes_of(fname):
+        return f"{col}.ids", "ids", extra[1], False
+    return None
+
+
+def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
+    # one K5 per lane and one K4 per (id lane, card_pad), shared by the
+    # aggregations that read them; K2 runs for part lanes, or for the match
+    # count when no K5 gives it
+    reduce_args: Dict[str, tuple] = {}
     for spec in agg_specs:
-        if _is_parts_agg(spec):
-            parts.append(cols[f"{spec[1]}.parts"])
-        elif spec[0] != "count":
-            raise ValueError(f"aggregation spec {spec}")
-    sums = masked_part_sums(mask, parts)
-    count = sums[-1]
-    outs["stats.num_docs_matched"] = count
+        req = _reduce_request(spec)
+        if req is not None:
+            key, kind, card_pad, want = req
+            prev = reduce_args.get(key)
+            reduce_args[key] = (kind, card_pad, want or
+                                (prev is not None and prev[2]))
+    reduced = {key: masked_reduce(mask, cols[key], kind, card_pad, want)
+               for key, (kind, card_pad, want) in reduce_args.items()}
+    parts = [cols[f"{s[1]}.parts"] for s in agg_specs if _is_parts_agg(s)]
+    if parts or not reduced:
+        sums = masked_part_sums(mask, parts)
+        count = sums[-1]
+    else:
+        count = next(iter(reduced.values()))["count"]
+    outs = {"stats.num_docs_matched": count}
+    hists: Dict[Tuple[str, int], torch.Tensor] = {}
     off = 0
     for i, spec in enumerate(agg_specs):
-        if spec[0] == "count":
+        fname, col, source, extra = spec
+        req = _reduce_request(spec)
+        if fname == "count":
             outs[f"agg{i}"] = count
-        else:
-            n_p = cols[f"{spec[1]}.parts"].shape[0]
+        elif _is_parts_agg(spec):
+            n_p = cols[f"{col}.parts"].shape[0]
             outs[f"agg{i}.parts"] = sums[off:off + n_p]
             outs[f"agg{i}.count"] = count
             off += n_p
+        elif source == "sv" and _strategy(spec) == "hist":
+            hk = (col, extra[1])
+            if hk not in hists:
+                hists[hk] = masked_histogram(mask, cols[f"{col}.ids"],
+                                             extra[1])
+            outs[f"agg{i}"] = hists[hk]
+        elif req is not None:
+            r = reduced[req[0]]
+            if req[3]:
+                outs[f"agg{i}.vsum"] = r["sums"]
+                outs[f"agg{i}.count"] = r["count"]
+            for which in _extremes_of(fname):
+                outs[f"agg{i}.{which}"] = r[which]
+        else:
+            raise ValueError(f"aggregation spec {spec}")
     return outs

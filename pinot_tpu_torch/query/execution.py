@@ -1,12 +1,12 @@
 """Segment plan execution: run the device kernels, finish results host-side.
 
 Counterpart of pinot_tpu/query/execution.py. One dispatch per segment
-(K1 then K2 or K3, ops/kernels.py:run_segment_kernel) and one
+(K1, then K3, or K2 with K4 / K5: ops/kernels.py:run_segment_kernel) and one
 device→host pull: for a group-by only the non-empty groups cross, picked
 out on the device first, so a 2^21-slot table never crosses PCIe whole.
 The host finishers are the JAX package's (exact int64 shift-combine of
-part sums, dictId → value decode, mixed-radix key decode), reading the
-same output names.
+part sums, histogram and dictId → value decode, mixed-radix key decode),
+reading the same output names.
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ def gather_operands_for(segment, needed_cols) -> Dict[str, torch.Tensor]:
         ds = segment.data_source(col)
         if kind == "ids":
             cols[f"{col}.ids"] = ds.device_dict_ids()
+        elif kind == "mv":
+            cols[f"{col}.mv"] = ds.device_mv_dict_ids()
         elif kind == "raw":
             cols[f"{col}.raw"] = ds.device_raw_values()
         elif kind == "parts":
@@ -142,15 +144,46 @@ def _finish_aggregation(plan, outs, blk) -> None:
         if fname == "count":
             inters.append(int(outs[f"agg{i}"]))
         elif source == "sv" and fname in ("sum", "avg") and \
-                strategy == "parts":
+                strategy in ("parts", "vlane"):
             cnt = int(outs[f"agg{i}.count"])
-            n_parts, min_v = plan.segment.data_source(col).int_part_info()
-            # [n_parts] fully device-reduced sums, exact int64 combine
-            arr = np.asarray(outs[f"agg{i}.parts"]).astype(
-                np.int64).reshape(-1, n_parts).sum(axis=0)
-            s = float(sum(int(arr[k]) << (7 * k)
-                          for k in range(n_parts)) + min_v * cnt)
+            if strategy == "parts":
+                n_parts, min_v = plan.segment.data_source(col).int_part_info()
+                # [n_parts] fully device-reduced sums, exact int64 combine
+                arr = np.asarray(outs[f"agg{i}.parts"]).astype(
+                    np.int64).reshape(-1, n_parts).sum(axis=0)
+                s = float(sum(int(arr[k]) << (7 * k)
+                              for k in range(n_parts)) + min_v * cnt)
+            else:
+                s = float(np.asarray(outs[f"agg{i}.vsum"],
+                                     dtype=np.float64).sum())
             inters.append(s if fname == "sum" else (s, cnt))
+        elif source == "sv" and fname in ("sum", "avg", "percentile",
+                                          "distinctcount"):
+            # dictId histogram: the function finishes from the counts and
+            # the dictionary values
+            dict_vals = plan.segment.data_source(col).dictionary.values
+            inters.append(f.from_histogram(np.asarray(outs[f"agg{i}"]),
+                                           dict_vals))
+        elif source == "sv" and fname in ("min", "max", "minmaxrange"):
+            dict_vals = plan.segment.data_source(col).dictionary.values
+            mn = outs.get(f"agg{i}.min")
+            mx = outs.get(f"agg{i}.max")
+            inters.append(f.from_minmax_ids(
+                None if mn is None else int(mn),
+                None if mx is None else int(mx), dict_vals))
+        elif source == "raw":
+            if fname in ("sum", "avg"):
+                s = float(np.asarray(outs[f"agg{i}.vsum"],
+                                     dtype=np.float64).sum())
+                inters.append(s if fname == "sum" else
+                              (s, int(outs[f"agg{i}.count"])))
+            else:
+                mn = outs.get(f"agg{i}.min")
+                mx = outs.get(f"agg{i}.max")
+                mn = None if mn is None or not np.isfinite(mn) else float(mn)
+                mx = None if mx is None or not np.isfinite(mx) else float(mx)
+                inters.append(mn if fname == "min" else
+                              mx if fname == "max" else (mn, mx))
         else:
             raise ValueError(f"unexpected agg spec {spec}")
     blk.agg_intermediates = inters
@@ -166,6 +199,27 @@ def _decode_group_values(plan, nz: np.ndarray) -> List[np.ndarray]:
     return value_cols
 
 
+def _decode_extreme_ids(plan, spec, arr: np.ndarray, which: str
+                        ) -> np.ndarray:
+    """dictId-domain per-group extrema → float values (inf when empty);
+    raw-column extrema are values already."""
+    _fname, col, source, extra = spec
+    if source == "sv" and isinstance(extra, tuple) and extra[0] == "ids":
+        vals = plan.segment.data_source(col).dictionary.values
+        card = len(vals)
+        if which == "min":
+            valid = arr < card
+            sentinel = np.inf
+        else:
+            valid = arr >= 0
+            sentinel = -np.inf
+        out = np.full(len(arr), sentinel)
+        safe = np.clip(arr, 0, card - 1)
+        out[valid] = np.asarray(vals, dtype=np.float64)[safe][valid]
+        return out
+    return arr
+
+
 def _assemble_group_map(plan, blk, value_cols, per_agg_arrays,
                         n_groups: int) -> None:
     group_map: Dict[Tuple, List] = {}
@@ -177,8 +231,15 @@ def _assemble_group_map(plan, blk, value_cols, per_agg_arrays,
                 inters.append(int(a[row]))
             elif kind == "sum":
                 inters.append(float(a[row]))
-            else:  # avg
+            elif kind == "avg":
                 inters.append((float(a[row]), int(b[row])))
+            elif kind in ("min", "max"):
+                v = float(a[row])
+                inters.append(None if not np.isfinite(v) else v)
+            else:  # minmaxrange
+                mn, mx = float(a[row]), float(b[row])
+                inters.append((None if not np.isfinite(mn) else mn,
+                               None if not np.isfinite(mx) else mx))
         group_map[key] = inters
     blk.group_map = group_map
 
@@ -204,6 +265,11 @@ def _finish_group_by(plan, outs, blk) -> None:
         totals = totals + np.int64(min_v) * counts.astype(np.int64)
         return totals.astype(np.float64)
 
+    def _extreme_array(i, spec, which):
+        """Per-group min/max as float values (inf sentinels when empty)."""
+        return _decode_extreme_ids(plan, spec, outs[f"gagg{i}.{which}"],
+                                   which)
+
     per_agg_arrays = []
     for i, spec in enumerate(agg_specs):
         fname = spec[0]
@@ -213,6 +279,13 @@ def _finish_group_by(plan, outs, blk) -> None:
             per_agg_arrays.append(("sum", _sum_array(i, spec), None))
         elif fname == "avg":
             per_agg_arrays.append(("avg", _sum_array(i, spec), counts))
+        elif fname in ("min", "max"):
+            per_agg_arrays.append((fname, _extreme_array(i, spec, fname),
+                                   None))
+        elif fname == "minmaxrange":
+            per_agg_arrays.append(("minmaxrange",
+                                   _extreme_array(i, spec, "min"),
+                                   _extreme_array(i, spec, "max")))
         else:
             raise ValueError(fname)
 

@@ -5,10 +5,16 @@ filter tree against each column's sorted dictionary host-side (so the
 card sees only integer compares and member bitsets), picks the device
 aggregation strategy, and builds the group-by spec.
 
-Supported here: dictionary single-value columns in filters (eq_id,
-neq_id, range_ids, in_ids, notin_ids, member), COUNT / SUM / AVG, and
-GROUP BY over dictionary single-value columns. Every other shape raises
-UnsupportedOnDevice; there is no host fallback in this slice.
+Supported here: filters over dictionary single-value and multi-value
+columns (eq_id, neq_id, range_ids, in_ids, notin_ids, member) and over
+numeric raw columns (eq_raw, neq_raw, in_raw, notin_raw, range_raw);
+COUNT, SUM, AVG, MIN, MAX, MINMAXRANGE, DISTINCTCOUNT and PERCENTILE over
+single-value columns; GROUP BY over dictionary single-value columns with
+COUNT, SUM, AVG, MIN, MAX and MINMAXRANGE. Every other shape (expression,
+HLL and multi-value aggregations, DISTINCTCOUNT / PERCENTILE in a
+group-by, raw or multi-value group keys, selection) raises
+UnsupportedOnDevice; there is no host fallback in this slice. Star-tree
+cubes and the inverted-index COUNT fast path are not used yet.
 
 Design change from the JAX planner, on purpose: it picks TPU-shaped
 strategies (matrix-unit block compaction, adaptive min/max and histogram
@@ -99,11 +105,12 @@ def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
                   params: List) -> tuple:
     if expr_mod.is_expression(node.column):
         raise UnsupportedOnDevice("expression filter")
-    cm = segment.data_source(node.column).metadata
-    if not (cm.has_dictionary and cm.single_value):
-        raise UnsupportedOnDevice(
-            f"filter over raw or multi-value column {node.column}")
-    dictionary = segment.data_source(node.column).dictionary
+    ds = segment.data_source(node.column)
+    cm = ds.metadata
+    if not cm.has_dictionary:
+        return _resolve_raw_leaf(node, ds, params)
+    source = "sv" if cm.single_value else "mv"
+    dictionary = ds.dictionary
     op = node.operator
     card = dictionary.cardinality
     card_pad = kernels.pow2_bucket(card + 1)
@@ -113,14 +120,21 @@ def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
         if i < 0:
             return EMPTY
         params.append(np.int32(i))
-        return ("pred", "eq_id", node.column, "sv", None)
+        return ("pred", "eq_id", node.column, source, None)
 
     if op == FilterOperator.NOT:
         i = dictionary.index_of(node.values[0])
         if i < 0:
             return MATCH_ALL
+        if source == "mv":
+            # see NOT_IN: member vector keeps padding entries non-matching
+            member = np.zeros(card_pad, dtype=bool)
+            member[:card] = True
+            member[i] = False
+            params.append(member)
+            return ("pred", "member", node.column, source, card_pad)
         params.append(np.int32(i))
-        return ("pred", "neq_id", node.column, "sv", None)
+        return ("pred", "neq_id", node.column, source, None)
 
     if op in (FilterOperator.IN, FilterOperator.NOT_IN):
         ids = [dictionary.index_of(v) for v in node.values]
@@ -128,20 +142,29 @@ def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
         negate = op == FilterOperator.NOT_IN
         if not ids:
             return MATCH_ALL if negate else EMPTY
+        if negate and source == "mv":
+            # negated MV predicates go through a member vector: the padded
+            # id compare would let padding entries (id == card) satisfy
+            # the negation and match every doc
+            member = np.zeros(card_pad, dtype=bool)
+            member[:card] = True
+            member[ids] = False
+            params.append(member)
+            return ("pred", "member", node.column, source, card_pad)
         if len(ids) <= IN_LIST_MEMBER_THRESHOLD:
             k = kernels.pow2_bucket(len(ids), floor=1)
             arr = np.full(k, -1, dtype=np.int32)
             arr[: len(ids)] = ids
             params.append(arr)
             return ("pred", "notin_ids" if negate else "in_ids",
-                    node.column, "sv", k)
+                    node.column, source, k)
         member = np.zeros(card_pad, dtype=bool)
         member[ids] = True
         if negate:
             member = ~member
             member[card:] = False   # padding ids never match
         params.append(member)
-        return ("pred", "member", node.column, "sv", card_pad)
+        return ("pred", "member", node.column, source, card_pad)
 
     if op == FilterOperator.RANGE:
         lo, hi = dictionary.range_to_id_interval(
@@ -149,11 +172,11 @@ def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
             node.upper_inclusive)
         if lo >= hi:
             return EMPTY
-        if lo == 0 and hi >= card:
+        if lo == 0 and hi >= card and source == "sv":
             return MATCH_ALL
         params.append(np.int32(lo))
         params.append(np.int32(hi))
-        return ("pred", "range_ids", node.column, "sv", None)
+        return ("pred", "range_ids", node.column, source, None)
 
     if op == FilterOperator.REGEXP_LIKE:
         # find() semantics over the dictionary → member bitset
@@ -165,7 +188,7 @@ def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
         if not member.any():
             return EMPTY
         params.append(member)
-        return ("pred", "member", node.column, "sv", card_pad)
+        return ("pred", "member", node.column, source, card_pad)
 
     if op == FilterOperator.IS_NULL:
         return EMPTY      # no null vector yet: nothing is null
@@ -173,6 +196,45 @@ def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
         return MATCH_ALL
 
     raise UnsupportedOnDevice(f"filter operator {op}")
+
+
+def _resolve_raw_leaf(node: FilterQueryTree, ds, params: List) -> tuple:
+    """A predicate over a no-dictionary numeric column. Constants are cast
+    to the lane's dtype (`cv`), and the kernel compares in that dtype."""
+    dt = ds.metadata.data_type.np_dtype
+    if dt.kind not in "iuf":
+        raise UnsupportedOnDevice(
+            f"filter over non-numeric raw column {node.column}")
+    op = node.operator
+    col = node.column
+
+    def cv(v):
+        return dt.type(float(v)) if dt.kind == "f" else dt.type(int(str(v)))
+
+    if op == FilterOperator.EQUALITY:
+        params.append(cv(node.values[0]))
+        return ("pred", "eq_raw", col, "raw", None)
+    if op == FilterOperator.NOT:
+        params.append(cv(node.values[0]))
+        return ("pred", "neq_raw", col, "raw", None)
+    if op in (FilterOperator.IN, FilterOperator.NOT_IN):
+        vals = sorted({cv(v) for v in node.values})
+        k = kernels.pow2_bucket(len(vals), floor=1)
+        arr = np.full(k, vals[0], dtype=dt)
+        arr[: len(vals)] = vals
+        params.append(arr)
+        return ("pred", "notin_raw" if op == FilterOperator.NOT_IN
+                else "in_raw", col, "raw", k)
+    if op == FilterOperator.RANGE:
+        info = np.iinfo(dt) if dt.kind in "iu" else np.finfo(dt)
+        lo = cv(node.lower) if node.lower is not None else dt.type(info.min)
+        hi = cv(node.upper) if node.upper is not None else dt.type(info.max)
+        lo_inc = node.lower_inclusive if node.lower is not None else True
+        hi_inc = node.upper_inclusive if node.upper is not None else True
+        params.append(lo)
+        params.append(hi)
+        return ("pred", "range_raw", col, "raw", (lo_inc, hi_inc))
+    raise UnsupportedOnDevice(f"raw-column filter operator {op}")
 
 
 # ---------------------------------------------------------------------------
@@ -314,37 +376,68 @@ def mixed_radix_strides(cards) -> tuple:
     return tuple(reversed(strides))
 
 
+#: aggregation base → the JAX planner's device function name
+_DEVICE_FNAMES = {
+    "SUM": "sum", "MIN": "min", "MAX": "max", "AVG": "avg",
+    "MINMAXRANGE": "minmaxrange", "DISTINCTCOUNT": "distinctcount",
+    "PERCENTILE": "percentile", "PERCENTILEEST": "percentile",
+    "PERCENTILETDIGEST": "percentile"}
+
+
 def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
                      needed: Dict, for_group: bool = False) -> tuple:
+    """The JAX planner's device strategy for one aggregation
+    (pinot_tpu/query/plan.py:_agg_device_spec), with the dense group
+    table always taken (kmax = 0)."""
     base = f.info.base
     if base == "COUNT" and not f.info.is_mv:
         return ("count", "*", "none", None)
     col = f.column
     if expr_mod.is_expression(col) or f.info.is_mv:
         raise UnsupportedOnDevice("expression or multi-value aggregation")
-    if base not in ("SUM", "AVG"):
+    if base not in _DEVICE_FNAMES:
         raise UnsupportedOnDevice(f"{base} aggregation")
-    fname = base.lower()
+    fname = _DEVICE_FNAMES[base]
     cm = segment.data_source(col).metadata
     if not cm.single_value:
         raise UnsupportedOnDevice(f"aggregation over MV column {col}")
     if not cm.has_dictionary:
-        if not for_group:
-            raise UnsupportedOnDevice(f"{fname} over raw column {col}")
+        if fname in ("percentile", "distinctcount"):
+            raise UnsupportedOnDevice(f"{fname} over no-dictionary column")
         if cm.data_type.np_dtype.kind not in "iuf":
             raise UnsupportedOnDevice(f"{fname} over non-numeric {col}")
         needed[(col, "raw")] = None
-        return (fname, col, "raw", ("csums",))
+        if for_group and fname in ("sum", "avg"):
+            return (fname, col, "raw", ("csums",))
+        return (fname, col, "raw", None)
     card_pad = kernels.pow2_bucket(cm.cardinality + 1)
     is_int_dict = cm.data_type.np_dtype.kind in "iu"
-    if is_int_dict:
-        needed[(col, "parts")] = None
-        return (fname, col, "sv", ("psums" if for_group else "parts",
-                                   card_pad))
-    if not for_group:
-        raise UnsupportedOnDevice(f"{fname} over float dictionary {col}")
-    needed[(col, "vlane")] = None
-    return (fname, col, "sv", ("csums", card_pad))
+    if for_group:
+        if fname in ("distinctcount", "percentile"):
+            raise UnsupportedOnDevice(f"group-by with {fname} aggregation")
+        if fname in ("sum", "avg"):
+            if is_int_dict:
+                needed[(col, "parts")] = None
+                return (fname, col, "sv", ("psums", card_pad))
+            needed[(col, "vlane")] = None
+            return (fname, col, "sv", ("csums", card_pad))
+        needed[(col, "ids")] = None
+        return (fname, col, "sv", ("ids", card_pad))
+    if fname in ("sum", "avg"):
+        if is_int_dict:
+            needed[(col, "parts")] = None
+            return (fname, col, "sv", ("parts", card_pad))
+        # float dictionaries: histogram · dictionary on the host (exact)
+        # up to the JAX cap, else the decoded value lane's block sums
+        if card_pad <= kernels.DENSE_CARD_LIMIT:
+            needed[(col, "ids")] = None
+            return (fname, col, "sv", ("hist", card_pad))
+        needed[(col, "vlane")] = None
+        return (fname, col, "sv", ("vlane", card_pad))
+    needed[(col, "ids")] = None
+    if fname in ("distinctcount", "percentile"):
+        return (fname, col, "sv", ("hist", card_pad))
+    return (fname, col, "sv", ("ids", card_pad))
 
 
 def _collect_filter_cols(spec: tuple, needed: Dict) -> None:
@@ -352,7 +445,8 @@ def _collect_filter_cols(spec: tuple, needed: Dict) -> None:
         for c in spec[1]:
             _collect_filter_cols(c, needed)
     elif spec[0] == "pred":
-        needed[(spec[2], "ids")] = None
+        _, _kind, col, source, _extra = spec
+        needed[(col, {"sv": "ids", "mv": "mv", "raw": "raw"}[source])] = None
 
 
 def _empty_block(plan: SegmentPlan, segment: ImmutableSegment

@@ -8,11 +8,17 @@ so every kernel sees the same static layout the JAX package uses:
 - id lanes use the narrow dtype from `min_id_dtype`; padding rows hold
   id == cardinality;
 - part lanes are int8 [n_parts, P] (7 bits of value - min per lane);
-- raw lanes keep the host dtype;
+- MV lanes are narrow [P, W] dictIds (W = the column's most values per
+  row); padding entries and padding rows hold id == cardinality;
+- raw lanes keep the host dtype (int32 / int64 / float32 / float64);
 - value lanes decode a float dictionary to float64 [P].
 
-This slice has no residency ledger and no disk loader: segments are built
-in memory (tools/datagen.py:make_segment_from_arrays).
+Segments come from disk (`ImmutableSegmentLoader.load`, the directories
+segment/creator.py writes, or the JAX package's creator: the files are
+the same) or are built in memory (tools/datagen.py:
+make_segment_from_arrays). Not read yet: star-tree cubes, IVF indexes
+and VECTOR columns, chunked no-dictionary STRING / BYTES columns,
+schema-evolution default columns; there is no residency ledger.
 """
 from __future__ import annotations
 
@@ -22,9 +28,16 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.datatype import DataType
 from pinot_tpu_torch.common.device import resolve_device
 from pinot_tpu_torch.ops.kernels import BLOCK as PAD_BLOCK
+from pinot_tpu_torch.segment import format as fmt
+from pinot_tpu_torch.segment.bloom import BloomFilter
 from pinot_tpu_torch.segment.dictionary import Dictionary
+from pinot_tpu_torch.segment.fwd import (mv_to_padded, read_mv_fwd,
+                                         read_raw_fwd, read_sorted_fwd,
+                                         read_sv_fwd)
+from pinot_tpu_torch.segment.inverted import InvertedIndexReader
 from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
 
 
@@ -72,6 +85,10 @@ class DataSource:
         self.dictionary: Optional[Dictionary] = None
         self.dict_ids: Optional[np.ndarray] = None        # [num_docs]
         self.raw_values: Optional[np.ndarray] = None      # no-dict columns
+        self.mv_dict_ids: Optional[np.ndarray] = None     # int32 [docs, W]
+        self.sorted_ranges: Optional[np.ndarray] = None   # [card, 2]
+        self.inverted_index: Optional[InvertedIndexReader] = None
+        self.bloom_filter: Optional[BloomFilter] = None
         self._dev: Dict[str, torch.Tensor] = {}
         self._part_info: Optional[tuple] = None
 
@@ -80,7 +97,14 @@ class DataSource:
         """Padded narrow dictIds; padding = cardinality (never matches)."""
         return self._device("dict_ids", "ids")
 
+    def device_mv_dict_ids(self) -> torch.Tensor:
+        """Padded narrow MV dictIds [P, W]; padding entries and padding
+        rows hold id == cardinality."""
+        return self._device("mv_dict_ids", "mv")
+
     def device_raw_values(self) -> torch.Tensor:
+        """Padded raw values [P] in the host dtype (int32, int64, float32
+        or float64); padding rows hold 0."""
         return self._device("raw_values", "raw")
 
     def device_part_lanes(self) -> torch.Tensor:
@@ -101,12 +125,22 @@ class DataSource:
         return self._part_info
 
     def host_operand(self, kind: str) -> np.ndarray:
-        """Padded host array for a lane kind ('ids'|'raw'|'parts'|'vlane'),
-        in exactly the layout of the device lane."""
+        """Padded host array for a lane kind ('ids'|'mv'|'raw'|'parts'|
+        'vlane'), in exactly the layout of the device lane."""
         if kind == "ids":
             return self._pad_ids(self.dict_ids)
+        if kind == "mv":
+            arr = self.mv_dict_ids
+            card = self.metadata.cardinality
+            out = np.full((padded_size(arr.shape[0]), arr.shape[1]), card,
+                          dtype=min_id_dtype(card))
+            out[: arr.shape[0]] = arr
+            return out
         if kind == "raw":
             arr = self.raw_values
+            if arr.dtype.kind not in "iuf":
+                raise TypeError(f"column {self.metadata.name}: a raw "
+                                f"{arr.dtype} column has no device lane")
             out = np.zeros(padded_size(len(arr)), dtype=arr.dtype)
             out[: len(arr)] = arr
             return out
@@ -207,3 +241,47 @@ class ImmutableSegment:
 
     def device_bytes(self) -> int:
         return sum(ds.device_bytes() for ds in self._data_sources.values())
+
+
+class ImmutableSegmentLoader:
+    """load(segment_dir) → ImmutableSegment.
+
+    Counterpart of pinot_tpu/segment/loader.py:ImmutableSegmentLoader:
+    read metadata, then per column its dictionary, forward index (SV
+    bit-packed, sorted ranges, MV, raw) and inverted / bloom indexes.
+    Host arrays only: each device lane uploads on first use, to the
+    device the segment is bound to (QueryEngine binds it).
+    """
+
+    @staticmethod
+    def load(seg_dir: str, device=None) -> ImmutableSegment:
+        seg_dir = fmt.open_dir(seg_dir)      # v1 dir or v3 columns.psf
+        meta = SegmentMetadata.load(seg_dir)
+        sources: Dict[str, DataSource] = {}
+        for name, cm in meta.columns.items():
+            if cm.data_type == DataType.VECTOR or (
+                    not cm.has_dictionary and not cm.data_type.is_numeric):
+                raise NotImplementedError(
+                    f"column {name}: VECTOR and no-dictionary "
+                    f"{cm.data_type.name} columns are not in the port yet")
+            ds = DataSource(cm, None)
+            if not cm.has_dictionary:
+                ds.raw_values = read_raw_fwd(seg_dir, name)
+            else:
+                ds.dictionary = Dictionary.load(seg_dir, name, cm.data_type)
+                if cm.single_value:
+                    ds.dict_ids = read_sv_fwd(seg_dir, name,
+                                              cm.bits_per_element,
+                                              meta.total_docs)
+                    if cm.sorted:
+                        ds.sorted_ranges = read_sorted_fwd(seg_dir, name)
+                else:
+                    flat, offs = read_mv_fwd(seg_dir, name)
+                    ds.mv_dict_ids = mv_to_padded(flat, offs, cm.cardinality)
+                if cm.has_inverted_index:
+                    ds.inverted_index = InvertedIndexReader.load(
+                        seg_dir, name, meta.total_docs)
+                if cm.has_bloom_filter:
+                    ds.bloom_filter = BloomFilter.load(seg_dir, name)
+            sources[name] = ds
+        return ImmutableSegment(meta, sources, device)

@@ -1,0 +1,633 @@
+"""The baseballStats table, its QueryGenerator traffic and a vectorised
+oracle.
+
+Counterpart of the JAX package's randomized integration tier
+(tests/fixtures.py, tests/oracle.py and the `Gen` class of
+tests/test_query_generator.py, which mirror Pinot's QueryGenerator.java):
+
+- `make_schema` / `make_table_config`: Apache Pinot's quickstart
+  `baseballStats` table (STRING dimensions teamID, league, playerName; a
+  multi-value STRING position; INT runs, LONG hits, DOUBLE average,
+  FLOAT salary without a dictionary; INT time column yearID), inverted
+  indexes on teamID and league, a bloom filter on teamID;
+- `make_columns`: the same value pools and distributions as the fixture's
+  generator, drawn with whole-array numpy calls so that it reaches
+  millions of rows (the fixture draws `position` row by row);
+- `build_segment_dirs`: segments written by SegmentCreator, each from its
+  own seed, so each has its own dictionaries, as a Pinot server sees them;
+- `Gen` and the `*_draws` functions: the generator's aggregation,
+  group-by and HAVING families with the reference's seeds, each draw as
+  its PQL and the row mask it selects;
+- `Oracle`: the expected answers, computed with array compares, MV
+  membership over a padded value matrix, and `np.unique` + `np.add.at` /
+  `np.minimum.at` for group-bys. It shares no code with the planner or
+  the kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import random
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from pinot_tpu_torch.common.datatype import DataType
+from pinot_tpu_torch.common.schema import (Schema, TimeUnit, dimension,
+                                           metric, time_field)
+from pinot_tpu_torch.common.table_config import IndexingConfig, TableConfig
+
+TEAMS = ["ANA", "BAL", "BOS", "CHA", "CLE", "DET", "HOU", "KCA", "LAA",
+         "MIN", "NYA", "OAK", "SEA", "TBA", "TEX", "TOR"]
+LEAGUES = ["AL", "NL"]
+POSITIONS = ["P", "C", "1B", "2B", "3B", "SS", "LF", "CF", "RF", "DH"]
+PLAYERS = [f"player_{i:03d}" for i in range(997)]
+
+SEED = 20260730          # the reference's generator seed
+N_AGG, N_GROUP, N_HAVING = 14, 12, 6
+
+#: queries the draws may miss, one per device strategy
+FIXED_PQLS = {
+    "percentile90_runs": "SELECT PERCENTILE90(runs) FROM baseballStats "
+                         "WHERE yearID >= 2000",
+    "sum_average_hist": "SELECT SUM(average), AVG(average) FROM "
+                        "baseballStats WHERE league = 'AL'",
+    "minmaxrange_salary": "SELECT MINMAXRANGE(salary), MIN(salary), "
+                          "MAX(salary) FROM baseballStats WHERE "
+                          "position = 'SS'",
+    "in_salary": "SELECT COUNT(*), SUM(salary) FROM baseballStats WHERE "
+                 "salary IN ({values})",
+    "not_in_salary": "SELECT COUNT(*), MAX(salary) FROM baseballStats "
+                     "WHERE salary NOT IN ({values}) AND runs > 100",
+}
+
+
+def make_schema() -> Schema:
+    return Schema("baseballStats", [
+        dimension("teamID", DataType.STRING),
+        dimension("league", DataType.STRING),
+        dimension("playerName", DataType.STRING),
+        dimension("position", DataType.STRING, single_value=False),
+        metric("runs", DataType.INT),
+        metric("hits", DataType.LONG),
+        metric("average", DataType.DOUBLE),
+        metric("salary", DataType.FLOAT),
+        time_field("yearID", DataType.INT, TimeUnit.DAYS),
+    ])
+
+
+def make_table_config() -> TableConfig:
+    return TableConfig("baseballStats", indexing_config=IndexingConfig(
+        inverted_index_columns=["teamID", "league"],
+        bloom_filter_columns=["teamID"],
+        no_dictionary_columns=["salary"]))
+
+
+# ---------------------------------------------------------------------------
+# Columns in the oracle's form
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Categorical:
+    """A single-value string column as a sorted value pool and codes."""
+    pool: np.ndarray            # object [k], sorted
+    codes: np.ndarray           # int [n]
+
+    def __len__(self) -> int:
+        return len(self.codes)
+
+
+@dataclasses.dataclass
+class MultiValue:
+    """A multi-value string column: codes [n, W] into the pool, -1 where
+    a row has fewer than W values."""
+    pool: np.ndarray
+    codes: np.ndarray
+
+    def __len__(self) -> int:
+        return self.codes.shape[0]
+
+    def lists(self) -> List[list]:
+        """The rows as lists of values (the creator's MV input)."""
+        counts = (self.codes >= 0).sum(axis=1)
+        flat = self.pool[self.codes[self.codes >= 0]].tolist()
+        offs = np.concatenate([[0], np.cumsum(counts)]).tolist()
+        return [flat[offs[i]:offs[i + 1]] for i in range(len(counts))]
+
+
+def make_columns(n: int, seed: int = 0) -> Dict[str, object]:
+    """The fixture table's pools and distributions, vectorised: teamID,
+    league and playerName uniform over their pools, position 1 to 3
+    distinct positions in random order, runs in [0, 150), hits in
+    [0, 250), average uniform in [0, 1) at 3 decimals, salary uniform
+    float32 in [0, 1e6) at 2 decimals, yearID in [1990, 2020)."""
+    rng = np.random.default_rng(seed)
+    k = len(POSITIONS)
+    first = rng.integers(0, k, n)
+    second = (first + 1 + rng.integers(0, k - 1, n)) % k
+    lo, hi = np.minimum(first, second), np.maximum(first, second)
+    third = rng.integers(0, k - 2, n)          # skip the two taken
+    third = third + (third >= lo)
+    third = third + (third >= hi)
+    width = rng.integers(1, 4, n)
+    codes = np.stack([first, second, third], axis=1)
+    codes[np.arange(3)[None, :] >= width[:, None]] = -1
+    pos_pool = np.array(POSITIONS, dtype=object)
+    order = np.argsort(pos_pool)               # codes into the sorted pool
+    rank = np.empty(k, np.int64)
+    rank[order] = np.arange(k)
+    codes = np.where(codes >= 0, rank[np.maximum(codes, 0)], -1)
+    return {
+        "teamID": Categorical(np.array(TEAMS, dtype=object),
+                              rng.integers(0, len(TEAMS), n)),
+        "league": Categorical(np.array(LEAGUES, dtype=object),
+                              rng.integers(0, len(LEAGUES), n)),
+        "playerName": Categorical(np.array(PLAYERS, dtype=object),
+                                  rng.integers(0, len(PLAYERS), n)),
+        "position": MultiValue(pos_pool[order], codes),
+        "runs": rng.integers(0, 150, n).astype(np.int32),
+        "hits": rng.integers(0, 250, n).astype(np.int64),
+        "average": np.round(rng.random(n), 3),
+        "salary": (rng.random(n).astype(np.float32) * 1e6).round(2),
+        "yearID": rng.integers(1990, 2020, n).astype(np.int32),
+    }
+
+
+def from_fixture_columns(cols: Dict[str, object]) -> Dict[str, object]:
+    """Row-built columns (object arrays, lists of lists for MV) → the
+    oracle's form."""
+    out: Dict[str, object] = {}
+    for name, col in cols.items():
+        if isinstance(col, list):
+            pool = np.array(sorted({v for row in col for v in row}),
+                            dtype=object)
+            index = {v: i for i, v in enumerate(pool)}
+            width = max((len(row) for row in col), default=1)
+            codes = np.full((len(col), max(width, 1)), -1, np.int64)
+            for i, row in enumerate(col):
+                codes[i, :len(row)] = [index[v] for v in row]
+            out[name] = MultiValue(pool, codes)
+        elif np.asarray(col).dtype.kind == "O":
+            pool, codes = np.unique(np.asarray(col), return_inverse=True)
+            out[name] = Categorical(pool.astype(object), codes)
+        else:
+            out[name] = np.asarray(col)
+    return out
+
+
+def creator_columns(cols: Dict[str, object]) -> Dict[str, object]:
+    """The oracle's form → SegmentCreator's columnar input."""
+    from pinot_tpu_torch.segment.creator import DictionaryEncodedColumn
+    out: Dict[str, object] = {}
+    for name, col in cols.items():
+        if isinstance(col, Categorical):
+            out[name] = DictionaryEncodedColumn(col.pool, col.codes)
+        elif isinstance(col, MultiValue):
+            out[name] = col.lists()
+        else:
+            out[name] = col
+    return out
+
+
+def build_segment_dirs(base: str, rows: int, segments: int, seed: int = 0
+                       ) -> Tuple[List[str], Dict[str, object]]:
+    """`segments` segment directories under `base` holding `rows` rows in
+    all, segment i made from seed + i; returns (dirs, the whole table in
+    the oracle's form)."""
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    per = [rows // segments + (i < rows % segments) for i in range(segments)]
+    dirs, parts = [], []
+    for i, n in enumerate(per):
+        cols = make_columns(n, seed + i)
+        d = os.path.join(base, f"baseballStats_{i}")
+        SegmentCreator(make_schema(), make_table_config(),
+                       segment_name=f"baseballStats_{i}").build(
+            creator_columns(cols), d)
+        dirs.append(d)
+        parts.append(cols)
+    return dirs, concat_columns(parts)
+
+
+def concat_columns(parts: Sequence[Dict[str, object]]) -> Dict[str, object]:
+    """Tables in the oracle's form, one after another (codes re-based onto
+    the union of the pools)."""
+    out: Dict[str, object] = {}
+    for name, first in parts[0].items():
+        cols = [p[name] for p in parts]
+        if isinstance(first, (Categorical, MultiValue)):
+            pool = np.array(sorted({v for c in cols for v in c.pool}),
+                            dtype=object)
+            remapped = []
+            for c in cols:
+                lut = np.searchsorted(pool, c.pool)
+                codes = np.asarray(c.codes)
+                remapped.append(np.where(codes >= 0,
+                                         lut[np.maximum(codes, 0)], -1))
+            if isinstance(first, MultiValue):
+                w = max(r.shape[1] for r in remapped)
+                remapped = [np.pad(r, ((0, 0), (0, w - r.shape[1])),
+                                   constant_values=-1) for r in remapped]
+            out[name] = type(first)(pool, np.concatenate(remapped))
+        else:
+            out[name] = np.concatenate(cols)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The oracle
+# ---------------------------------------------------------------------------
+
+
+class Oracle:
+    """Expected answers over the whole table, from whole-array numpy."""
+
+    def __init__(self, cols: Dict[str, object]):
+        self.cols = cols
+        self.n = len(next(iter(cols.values())))
+        self._code_cache: Dict[str, np.ndarray] = {}
+
+    # -- masks -------------------------------------------------------------
+    def all(self) -> np.ndarray:
+        return np.ones(self.n, dtype=bool)
+
+    def _code(self, col: Categorical, value) -> int:
+        i = int(np.searchsorted(col.pool, value))
+        return i if i < len(col.pool) and col.pool[i] == value else -2
+
+    def isin(self, name: str, values) -> np.ndarray:
+        col = self.cols[name]
+        if isinstance(col, Categorical):
+            codes = [self._code(col, v) for v in values]
+            return np.isin(col.codes, codes)
+        if isinstance(col, MultiValue):
+            codes = [self._code(col, v) for v in values]
+            return np.isin(col.codes, codes).any(axis=1)
+        return np.isin(col, np.asarray(values, dtype=col.dtype))
+
+    def eq(self, name: str, value) -> np.ndarray:
+        return self.isin(name, [value])
+
+    def cmp(self, name: str, op: str, value) -> np.ndarray:
+        """Numeric compare in the column's own dtype."""
+        col = self.cols[name]
+        v = col.dtype.type(value)
+        return {">": col > v, ">=": col >= v, "<": col < v,
+                "<=": col <= v}[op]
+
+    # -- values ------------------------------------------------------------
+    def values(self, name: str, m: np.ndarray) -> np.ndarray:
+        col = self.cols[name]
+        if isinstance(col, Categorical):
+            return col.pool[col.codes[m]]
+        if isinstance(col, MultiValue):
+            codes = col.codes[m]
+            return col.pool[codes[codes >= 0]]
+        return col[m]
+
+    def _codes(self, name: str) -> np.ndarray:
+        """Per-row group codes of a single-value column."""
+        if name not in self._code_cache:
+            col = self.cols[name]
+            self._code_cache[name] = np.asarray(
+                col.codes if isinstance(col, Categorical) else
+                np.unique(col, return_inverse=True)[1], dtype=np.int64)
+        return self._code_cache[name]
+
+    def _key_values(self, name: str, rows: np.ndarray) -> np.ndarray:
+        col = self.cols[name]
+        if isinstance(col, Categorical):
+            return col.pool[col.codes[rows]]
+        return col[rows]
+
+    # -- aggregations ------------------------------------------------------
+    def aggregate(self, name: str, col: Optional[str], m: np.ndarray,
+                  q: int = 0):
+        """The final value of one aggregation over the rows of m (the
+        reference's conventions for an empty match)."""
+        if name == "count":
+            return int(m.sum())
+        v = self.values(col, m)
+        if name == "distinctcount":
+            return int(len(np.unique(v)))
+        v64 = v.astype(np.float64)
+        if name == "sum":
+            return float(v64.sum())
+        if len(v) == 0:
+            return float("inf") if name == "min" else float("-inf")
+        if name == "avg":
+            return float(v64.mean())
+        if name == "min":
+            return float(v.min())
+        if name == "max":
+            return float(v.max())
+        if name == "minmaxrange":
+            return float(v.max()) - float(v.min())
+        if name == "percentile":
+            s = np.sort(v64)
+            return float(s[min((len(s) * q) // 100, len(s) - 1)])
+        raise ValueError(name)
+
+    def group_by(self, dims: Sequence[str], m: np.ndarray,
+                 name: str, col: Optional[str]) -> Dict[tuple, object]:
+        """{group values: final value} over the matched rows."""
+        rows = np.nonzero(m)[0]
+        if len(rows) == 0:
+            return {}
+        key = np.zeros(len(rows), np.int64)
+        for d in dims:
+            codes = self._codes(d)
+            key = key * (int(codes.max()) + 1) + codes[rows]
+        uniq, first, inv = np.unique(key, return_index=True,
+                                     return_inverse=True)
+        g = len(uniq)
+        counts = np.bincount(inv, minlength=g)
+        keys = list(zip(*[self._key_values(d, rows[first]) for d in dims]))
+        if name == "count":
+            vals = counts
+        elif name == "distinctcount":
+            vc = self._codes(col)[rows]
+            pairs = np.unique(inv * (int(vc.max()) + 1) + vc)
+            vals = np.bincount(pairs // (int(vc.max()) + 1), minlength=g)
+        else:
+            v = self.cols[col][rows]
+            if name in ("sum", "avg"):
+                vals = np.zeros(g)
+                np.add.at(vals, inv, v.astype(np.float64))
+                if name == "avg":
+                    vals = vals / counts
+            else:
+                lo = np.full(g, np.inf)
+                hi = np.full(g, -np.inf)
+                np.minimum.at(lo, inv, v.astype(np.float64))
+                np.maximum.at(hi, inv, v.astype(np.float64))
+                vals = {"min": lo, "max": hi, "minmaxrange": hi - lo}[name]
+        return {k: (int(x) if name in ("count", "distinctcount")
+                    else float(x)) for k, x in zip(keys, vals)}
+
+
+# ---------------------------------------------------------------------------
+# The generator: tests/test_query_generator.py:Gen, draw for draw
+# ---------------------------------------------------------------------------
+
+#: (PQL, oracle name, column, tolerance) — tolerance "exact" or "float"
+AGGS = [
+    ("COUNT(*)", "count", None, "exact"),
+    ("SUM(runs)", "sum", "runs", "exact"),
+    ("SUM(hits)", "sum", "hits", "exact"),
+    ("SUM(salary)", "sum", "salary", "float"),
+    ("MIN(runs)", "min", "runs", "exact"),
+    ("MIN(average)", "min", "average", "exact"),
+    ("MAX(hits)", "max", "hits", "exact"),
+    ("MAX(salary)", "max", "salary", "exact"),
+    ("AVG(runs)", "avg", "runs", "float"),
+    ("AVG(hits)", "avg", "hits", "float"),
+    ("MINMAXRANGE(runs)", "minmaxrange", "runs", "exact"),
+    ("DISTINCTCOUNT(teamID)", "distinctcount", "teamID", "exact"),
+    ("DISTINCTCOUNT(yearID)", "distinctcount", "yearID", "exact"),
+    ("DISTINCTCOUNT(playerName)", "distinctcount", "playerName", "exact"),
+]
+FLOAT_RTOL = 1e-9        # float sums: float64 in another order
+
+
+class Gen:
+    """The reference generator's draws (same `random.Random` calls in the
+    same order), each predicate as its PQL and its vectorised mask."""
+
+    def __init__(self, rng: random.Random, oracle: Oracle):
+        self.rng = rng
+        self.oracle = oracle
+
+    def predicate(self) -> Tuple[str, np.ndarray]:
+        r, o = self.rng, self.oracle
+        kind = r.choice(["eq_team", "neq_league", "in_team", "not_in_team",
+                         "between_year", "range_year", "range_runs",
+                         "range_hits", "range_salary", "eq_player",
+                         "eq_position_mv"])
+        if kind == "eq_team":
+            v = r.choice(TEAMS)
+            return f"teamID = '{v}'", o.eq("teamID", v)
+        if kind == "neq_league":
+            v = r.choice(["AL", "NL"])
+            return f"league <> '{v}'", ~o.eq("league", v)
+        if kind == "in_team":
+            vs = r.sample(TEAMS, r.randint(2, 5))
+            lst = ", ".join(f"'{v}'" for v in vs)
+            return f"teamID IN ({lst})", o.isin("teamID", vs)
+        if kind == "not_in_team":
+            vs = r.sample(TEAMS, r.randint(2, 4))
+            lst = ", ".join(f"'{v}'" for v in vs)
+            return f"teamID NOT IN ({lst})", ~o.isin("teamID", vs)
+        if kind == "between_year":
+            a = r.randint(1990, 2015)
+            b = a + r.randint(0, 10)
+            return (f"yearID BETWEEN {a} AND {b}",
+                    o.cmp("yearID", ">=", a) & o.cmp("yearID", "<=", b))
+        if kind == "range_year":
+            v = r.randint(1992, 2018)
+            op = r.choice([">", ">=", "<", "<="])
+            return f"yearID {op} {v}", o.cmp("yearID", op, v)
+        if kind == "range_runs":
+            v = r.randint(5, 140)
+            op = r.choice([">", ">=", "<", "<="])
+            return f"runs {op} {v}", o.cmp("runs", op, v)
+        if kind == "range_hits":
+            v = r.randint(10, 240)
+            op = r.choice([">", "<"])
+            return f"hits {op} {v}", o.cmp("hits", op, v)
+        if kind == "range_salary":
+            v = round(r.uniform(1e4, 9e5), 2)
+            op = r.choice([">", "<"])
+            return f"salary {op} {v}", o.cmp("salary", op, v)
+        if kind == "eq_player":
+            v = f"player_{r.randint(0, 996):03d}"
+            return f"playerName = '{v}'", o.eq("playerName", v)
+        v = r.choice(["P", "C", "1B", "SS", "CF"])
+        return f"position = '{v}'", o.eq("position", v)
+
+    def where(self) -> Tuple[str, np.ndarray]:
+        """0-3 predicates joined by AND or OR; returns (sql, mask)."""
+        r = self.rng
+        k = r.randint(0, 3)
+        if k == 0:
+            return "", self.oracle.all()
+        preds = [self.predicate() for _ in range(k)]
+        joiner = r.choice([" AND ", " OR "])
+        masks = [p[1] for p in preds]
+        mask = np.logical_and.reduce(masks) if joiner == " AND " else \
+            np.logical_or.reduce(masks)
+        return " WHERE " + joiner.join(p[0] for p in preds), mask
+
+    def aggs(self):
+        return self.rng.sample(AGGS, self.rng.randint(1, 3))
+
+
+@dataclasses.dataclass(eq=False)
+class Draw:
+    family: str                  # aggregation | group_by | having
+    pql: str
+    mask: np.ndarray
+    aggs: list                   # entries of AGGS
+    dims: Tuple[str, ...] = ()
+    having: Optional[Tuple[str, int]] = None
+
+    @property
+    def device_raises(self) -> bool:
+        """Group-by DISTINCTCOUNT has no device path (the JAX planner's
+        UnsupportedOnDevice too)."""
+        return self.family == "group_by" and \
+            any(a[1] == "distinctcount" for a in self.aggs)
+
+
+def aggregation_draws(oracle: Oracle, n: int = N_AGG, seed: int = SEED
+                      ) -> Iterator[Draw]:
+    gen = Gen(random.Random(seed), oracle)
+    for _ in range(n):
+        where, m = gen.where()
+        aggs = gen.aggs()
+        pql = ("SELECT " + ", ".join(a[0] for a in aggs) +
+               " FROM baseballStats" + where)
+        yield Draw("aggregation", pql, m, aggs)
+
+
+def group_by_draws(oracle: Oracle, n: int = N_GROUP, seed: int = SEED + 1
+                   ) -> Iterator[Draw]:
+    gen = Gen(random.Random(seed), oracle)
+    for _ in range(n):
+        where, m = gen.where()
+        aggs = gen.aggs()
+        dims = gen.rng.sample(["teamID", "league", "yearID"],
+                              gen.rng.randint(1, 2))
+        pql = ("SELECT " + ", ".join(a[0] for a in aggs) +
+               " FROM baseballStats" + where +
+               " GROUP BY " + ", ".join(dims) + " TOP 2000")
+        yield Draw("group_by", pql, m, aggs, tuple(dims))
+
+
+def having_draws(oracle: Oracle, n: int = N_HAVING, seed: int = SEED + 3
+                 ) -> Iterator[Draw]:
+    gen = Gen(random.Random(seed), oracle)
+    for _ in range(n):
+        where, m = gen.where()
+        dims = gen.rng.sample(["teamID", "league"], 1)
+        thresh = gen.rng.randint(5, 200)
+        op = gen.rng.choice([">", "<="])
+        pql = ("SELECT COUNT(*) FROM baseballStats" + where +
+               " GROUP BY " + dims[0] +
+               f" HAVING COUNT(*) {op} {thresh} TOP 2000")
+        yield Draw("having", pql, m, [AGGS[0]], tuple(dims), (op, thresh))
+
+
+def fixed_draws(oracle: Oracle) -> Iterator[Draw]:
+    """FIXED_PQLS with their masks; the salary IN lists take values the
+    table holds, and one it does not."""
+    salary = oracle.cols["salary"]
+    picks = [float(salary[0]), float(salary[len(salary) // 2]), 0.5]
+    values = ", ".join(repr(v) for v in picks)
+    agg = {a[0]: a for a in AGGS}
+    extra = {
+        "percentile90_runs": ("PERCENTILE90(runs)", "percentile", "runs",
+                              "exact"),
+        "sum_average_hist": ("SUM(average)", "sum", "average", "float"),
+        "avg_average": ("AVG(average)", "avg", "average", "float"),
+        "mmr_salary": ("MINMAXRANGE(salary)", "minmaxrange", "salary",
+                       "exact"),
+        "min_salary": ("MIN(salary)", "min", "salary", "exact"),
+    }
+    in_mask = oracle.isin("salary", picks)
+    yield Draw("aggregation", FIXED_PQLS["percentile90_runs"],
+               oracle.cmp("yearID", ">=", 2000),
+               [extra["percentile90_runs"]])
+    yield Draw("aggregation", FIXED_PQLS["sum_average_hist"],
+               oracle.eq("league", "AL"),
+               [extra["sum_average_hist"], extra["avg_average"]])
+    yield Draw("aggregation", FIXED_PQLS["minmaxrange_salary"],
+               oracle.eq("position", "SS"),
+               [extra["mmr_salary"], extra["min_salary"],
+                agg["MAX(salary)"]])
+    yield Draw("aggregation", FIXED_PQLS["in_salary"].format(values=values),
+               in_mask, [agg["COUNT(*)"], agg["SUM(salary)"]])
+    yield Draw("aggregation",
+               FIXED_PQLS["not_in_salary"].format(values=values),
+               ~in_mask & oracle.cmp("runs", ">", 100),
+               [agg["COUNT(*)"], agg["MAX(salary)"]])
+
+
+def all_draws(oracle: Oracle) -> Iterator[Tuple[str, Draw]]:
+    """Every draw of the mix with its family for reporting: the draw's own,
+    or "fixed" for FIXED_PQLS."""
+    for gen in (aggregation_draws, group_by_draws, having_draws):
+        for draw in gen(oracle):
+            yield draw.family, draw
+    for draw in fixed_draws(oracle):
+        yield "fixed", draw
+
+
+# ---------------------------------------------------------------------------
+# Checking a response
+# ---------------------------------------------------------------------------
+
+
+def _percentile_q(pql_fn: str) -> int:
+    digits = "".join(ch for ch in pql_fn.split("(")[0] if ch.isdigit())
+    return int(digits) if digits else 0
+
+
+def _close(got: float, want: float, tol: str) -> bool:
+    if tol == "exact":
+        return got == want
+    return abs(got - want) <= FLOAT_RTOL * max(abs(want), 1e-300)
+
+
+def expected(oracle: Oracle, draw: Draw) -> list:
+    """Per aggregation: a value (aggregation family) or a {group: value}
+    dict (group_by / having)."""
+    out = []
+    for fn, name, col, _tol in draw.aggs:
+        q = _percentile_q(fn)
+        if draw.family == "aggregation":
+            out.append(oracle.aggregate(name, col, draw.mask, q))
+            continue
+        groups = oracle.group_by(draw.dims, draw.mask, name, col)
+        groups = {tuple(str(k) for k in key): v
+                  for key, v in groups.items()}
+        if draw.having is not None:
+            op, thresh = draw.having
+            groups = {k: v for k, v in groups.items()
+                      if (v > thresh if op == ">" else v <= thresh)}
+        out.append(groups)
+    return out
+
+
+def check(resp, oracle: Oracle, draw: Draw) -> None:
+    """Raise AssertionError unless `resp` answers `draw` as the oracle
+    does: counts, DISTINCTCOUNT, MIN / MAX / MINMAXRANGE, PERCENTILE and
+    integer sums exactly, float sums and averages within FLOAT_RTOL. As in
+    the reference's harness, an aggregation other than COUNT over no rows
+    is not compared (its empty-result sentinel has golden tests)."""
+    if resp.exceptions:
+        raise AssertionError(f"{draw.pql}: {resp.exceptions}")
+    want = expected(oracle, draw)
+    matched = int(draw.mask.sum())
+    for i, ((_fn, name, _col, tol), w) in enumerate(zip(draw.aggs, want)):
+        res = resp.aggregation_results[i]
+        if draw.family == "aggregation":
+            if name != "count" and matched == 0:
+                continue
+            got = float(res.value)
+            if name in ("count", "distinctcount"):
+                tol = "exact"
+            if not _close(got, float(w), tol):
+                raise AssertionError(f"{draw.pql}: agg {i} got {got}, "
+                                     f"want {w}")
+            continue
+        got = {tuple(str(k) for k in g["group"]): float(g["value"])
+               for g in res.group_by_result}
+        if set(got) != set(w):
+            raise AssertionError(f"{draw.pql}: agg {i} groups differ "
+                                 f"({len(got)} vs {len(w)})")
+        for key, v in w.items():
+            if not _close(got[key], float(v), tol):
+                raise AssertionError(f"{draw.pql}: agg {i} group {key} "
+                                     f"got {got[key]}, want {v}")
+

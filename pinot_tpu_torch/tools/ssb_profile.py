@@ -1,13 +1,18 @@
-"""Where an SSB query's time goes on the card.
+"""Where a query's time goes on the card.
 
     python -m pinot_tpu_torch.tools.ssb_profile [--sf 10] [--segments 8]
         [--repeats 5] [--seed 0] [--out FILE]
+        [--table baseball --bb-rows 10000000 --bb-segments 4]
 
-Builds the SSB table at scale factor --sf on the card, runs each of the
-13 queries once to upload the lanes, then --repeats times with each host
-layer timed (planner, kernel dispatch, device→host pull, finish, combine
-and reduce) and once more under torch.profiler for the card's busy time.
-Prints one JSON line per query, and writes them all to --out if given:
+Builds the SSB table at scale factor --sf on the card (or, with --table
+baseball, writes the baseballStats table to segment directories under
+build/ and loads them with QueryEngine.from_dirs), runs each query once
+to upload the lanes (the 13 SSB queries, or every draw of the
+QueryGenerator mix the device answers), then --repeats times with each
+host layer timed (planner, kernel dispatch, device→host pull, finish,
+combine and reduce) and once more under torch.profiler for the card's
+busy time. Prints one JSON line per query, and writes them all to --out
+if given:
 
 - wall_ms: the query's median host wall time, ending in a synchronize;
 - layers_ms: median host time per layer per query (all segments);
@@ -24,6 +29,7 @@ import collections
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,22 +68,52 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--table", choices=("ssb", "baseball"), default="ssb")
+    ap.add_argument("--bb-rows", type=int, default=10_000_000)
+    ap.add_argument("--bb-segments", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ssb_profile: no CUDA device", file=sys.stderr)
         return 1
+    if args.table == "ssb":
+        return profile(args, *_ssb_engine(args))
+    scratch = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))), "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as base:
+        return profile(args, *_baseball_engine(args, base))
 
+
+def _ssb_engine(args):
     from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.tools.datagen import make_ssb_segments
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS
+    table = make_ssb_segments(args.sf * 6_000_000, args.segments,
+                              seed=args.seed)
+    return QueryEngine(table.segments), dict(SSB_PQLS), \
+        {"scale_factor": args.sf}
+
+
+def _baseball_engine(args, base):
+    """baseballStats from disk; the queries are the mix's draws that the
+    device answers, named by family and position."""
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.tools import baseball
+    dirs, cols = baseball.build_segment_dirs(base, args.bb_rows,
+                                             args.bb_segments, args.seed)
+    pqls = {f"{family}{i}": draw.pql for i, (family, draw) in
+            enumerate(baseball.all_draws(baseball.Oracle(cols)))
+            if not draw.device_raises}
+    return QueryEngine.from_dirs(dirs), pqls, \
+        {"table": "baseballStats", "rows": args.bb_rows,
+         "segments": args.bb_segments}
+
+
+def profile(args, engine, pqls, tag) -> int:
     from pinot_tpu_torch.query import execution, plan
     from pinot_tpu_torch.query import executor as executor_mod
     from pinot_tpu_torch.query.reduce import BrokerReduceService
-    from pinot_tpu_torch.tools.datagen import make_ssb_segments
-    from pinot_tpu_torch.tools.ssb import SSB_PQLS
-
-    table = make_ssb_segments(args.sf * 6_000_000, args.segments,
-                              seed=args.seed)
-    engine = QueryEngine(table.segments)
-    for pql in SSB_PQLS.values():
+    for pql in pqls.values():
         engine.query(pql)                    # lanes uploaded once
     torch.cuda.synchronize()
 
@@ -93,7 +129,7 @@ def main() -> int:
     device = torch.cuda.get_device_name(0)
     rows = []
     try:
-        for q, pql in SSB_PQLS.items():
+        for q, pql in pqls.items():
             walls, layers = [], collections.defaultdict(list)
             for _ in range(args.repeats):
                 timer.ms.clear()
@@ -122,7 +158,7 @@ def main() -> int:
                 if dev_us:
                     per_kernel[ev.key] += dev_us / 1e3
             busy = sum(per_kernel.values())
-            row = {"query": q, "device": device, "scale_factor": args.sf,
+            row = {"query": q, "device": device, **tag,
                    "wall_ms": float(np.median(walls)),
                    "layers_ms": {k: float(np.median(v))
                                  for k, v in layers.items()},

@@ -35,6 +35,9 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch, pinot_tpu_torch.engine\n"
         "import pinot_tpu_torch.tools.datagen, pinot_tpu_torch.tools.ssb\n"
         "import pinot_tpu_torch.tools.ssb_profile\n"
+        "import pinot_tpu_torch.tools.baseball\n"
+        "import pinot_tpu_torch.segment.creator\n"
+        "import pinot_tpu_torch.segment.integrity\n"
         "import pinot_tpu_torch.ops.build\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
@@ -58,7 +61,7 @@ def test_sources_import_no_jax_and_no_pinot_tpu():
             for m in pat.finditer(f.read()):
                 offenders.append(f"{os.path.relpath(path, REPO)}: "
                                  f"{m.group(0).strip()}")
-    assert len(_port_sources()) > 20
+    assert len(_port_sources()) > 30
     assert offenders == []
 
 
@@ -75,3 +78,21 @@ def test_cuda_entry_point_raises_without_a_card():
     # a segment left on its default device asks for the card too
     with pytest.raises(RuntimeError, match="no CUDA device"):
         segs[0].data_source("d_year").device_dict_ids()
+
+
+def test_from_dirs_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the engine would run on it")
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
+    from pinot_tpu_torch.tools.baseball import build_segment_dirs
+    dirs, _cols = build_segment_dirs(str(tmp_path), 3000, 2, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QueryEngine.from_dirs(dirs)
+    # loading alone binds nothing; the first lane upload asks for the card
+    seg = ImmutableSegmentLoader.load(dirs[0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        seg.data_source("position").device_mv_dict_ids()
+    assert QueryEngine.from_dirs(dirs, device="cpu").query(
+        "SELECT COUNT(*) FROM baseballStats WHERE position = 'P'"
+    ).aggregation_results[0].value

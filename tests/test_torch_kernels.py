@@ -2,13 +2,17 @@
 
 Each kernel's plain PyTorch version (what the wrapper runs for a CPU
 tensor) is held to the JAX function on identical operands made from a
-seed with numpy: K1 filter_mask against kernels._eval_filter & valid,
-K2 masked_part_sums and K3 dense_group_aggregate against the jitted
-build_segment_kernel with kmax = 0. Integer outputs must be equal; float64
-group sums agree to rtol 1e-12 (both sides sum in float64, in different
-orders). K1's host-built program is also run through a numpy interpreter
-of the CUDA kernel's evaluation loop. Tests marked `cuda` hold each CUDA
-kernel to its plain version and skip where there is no card.
+seed with numpy: K1 filter_mask against kernels._eval_filter & valid
+(dictId kinds over SV and MV lanes, raw kinds over int32 / int64 /
+float32 / float64 lanes), and K2 masked_part_sums, K3
+dense_group_aggregate, K4 masked_histogram and K5 masked_reduce through
+run_segment_kernel against the jitted build_segment_kernel with kmax = 0.
+Integer outputs and min / max must be equal (min / max in the JAX dtype
+too); float64 sums agree to rtol 1e-12 (both sides sum in float64, in
+different orders). K1's host-built program is also run through a numpy
+interpreter of the CUDA kernel's evaluation loop. Tests marked `cuda`
+hold each CUDA kernel to its plain version and skip where there is no
+card.
 """
 from __future__ import annotations
 
@@ -25,9 +29,20 @@ from pinot_tpu_torch.segment.loader import int_part_table, min_id_dtype
 SHAPES = jk.CONTRACT_SHAPE_BUCKETS          # (8192, 16384)
 # column → cardinality; the id dtype follows min_id_dtype (int8/16/32)
 CARDS = {"a": 50, "b": 1000, "c": 40000, "g2": 2, "g3": 3, "g7": 7,
-         "big": 32768}
+         "big": 32768, "h15": 15}
 REV_VALUES = np.unique(np.random.default_rng(5).integers(100, 10_000, 600)
                        * 100).astype(np.int64)
+# raw lanes draw from small pools, so that equality and IN find rows
+_POOL_RNG = np.random.default_rng(9)
+RAW_POOLS = {
+    "ri32": np.unique(_POOL_RNG.integers(-5000, 5000, 64)).astype(np.int32),
+    "ri64": np.unique(_POOL_RNG.integers(-2**40, 2**40, 64)).astype(
+        np.int64),
+    "rf32": np.unique((_POOL_RNG.random(64) * 1e6).astype(np.float32)
+                      .round(2)),
+    "rf64": np.unique((_POOL_RNG.random(64) * 1e5).round(3)),
+}
+MV_CARDS = {"m1": (5, 1), "m3": (10, 3)}      # column → (card, W)
 
 
 def _lanes(P: int, num_docs: int, seed: int):
@@ -49,6 +64,17 @@ def _lanes(P: int, num_docs: int, seed: int):
     raw = np.zeros(P)
     raw[:num_docs] = (rng.random(num_docs) * 1e5).round(2)
     cols["x.raw"] = raw
+    for c, pool in RAW_POOLS.items():
+        lane = np.zeros(P, dtype=pool.dtype)
+        lane[:num_docs] = rng.choice(pool, num_docs)
+        cols[f"{c}.raw"] = lane
+    for c, (card, w) in MV_CARDS.items():
+        # 1..W entries per row, padding entries and padding rows == card
+        mv = np.full((P, w), card, dtype=min_id_dtype(card))
+        mv[:num_docs] = rng.integers(0, card, (num_docs, w))
+        width = rng.integers(1, w + 1, num_docs)
+        mv[:num_docs][np.arange(w)[None, :] >= width[:, None]] = card
+        cols[f"{c}.mv"] = mv
     return cols
 
 
@@ -65,6 +91,30 @@ def _pred(kind, col, extra=None):
 def _in_list(ids, k):
     arr = np.full(k, -1, np.int32)
     arr[: len(ids)] = ids
+    return arr
+
+
+def _raw(kind, col, extra=None):
+    return ("pred", kind, col, "raw", extra)
+
+
+def _mv(kind, col, extra=None):
+    return ("pred", kind, col, "mv", extra)
+
+
+def _near(col, i, step=0):
+    """Pool value i of a raw column, moved `step` representable values
+    up (+) or down (-) in the column's dtype."""
+    v = RAW_POOLS[col][i]
+    for _ in range(abs(step)):
+        v = np.nextafter(v, v.dtype.type(np.inf if step > 0 else -np.inf))
+    return v
+
+
+def _raw_list(col, idx, k):
+    pool = RAW_POOLS[col]
+    arr = np.full(k, pool[idx[0]], dtype=pool.dtype)
+    arr[: len(idx)] = pool[list(idx)]
     return arr
 
 
@@ -88,6 +138,47 @@ FILTERS = {
     "full_match": (_pred("range_ids", "a"), [np.int32(0), np.int32(50)]),
     "match_all": (("match_all",), []),
     "empty": (("empty",), []),
+    # raw kinds: constants in the lane's dtype, at and beside pool values
+    "eq_raw_i32": (_raw("eq_raw", "ri32"), [RAW_POOLS["ri32"][5]]),
+    "neq_raw_i64": (_raw("neq_raw", "ri64"), [RAW_POOLS["ri64"][7]]),
+    "eq_raw_f32_next": (_raw("eq_raw", "rf32"), [_near("rf32", 3, 1)]),
+    "eq_raw_f64": (_raw("eq_raw", "rf64"), [RAW_POOLS["rf64"][11]]),
+    "range_raw_f32_incl": (_raw("range_raw", "rf32", (True, True)),
+                           [_near("rf32", 10), _near("rf32", 40)]),
+    "range_raw_f32_excl": (_raw("range_raw", "rf32", (False, False)),
+                           [_near("rf32", 10), _near("rf32", 40)]),
+    "range_raw_f32_beside": (_raw("range_raw", "rf32", (True, False)),
+                             [_near("rf32", 10, 1), _near("rf32", 40, -1)]),
+    "range_raw_f64": (_raw("range_raw", "rf64", (False, True)),
+                      [_near("rf64", 3), _near("rf64", 50)]),
+    "range_raw_i32": (_raw("range_raw", "ri32", (True, False)),
+                      [_near("ri32", 0), _near("ri32", 20)]),
+    "range_raw_i64": (_raw("range_raw", "ri64", (False, True)),
+                      [_near("ri64", 30), _near("ri64", 63)]),
+    "in_raw_f32_k1": (_raw("in_raw", "rf32", 1), [_raw_list("rf32", [8],
+                                                             1)]),
+    "in_raw_i32_k4": (_raw("in_raw", "ri32", 4),
+                      [_raw_list("ri32", [1, 2, 40], 4)]),
+    "notin_raw_f64_k4": (_raw("notin_raw", "rf64", 4),
+                         [_raw_list("rf64", [0, 5, 9, 33], 4)]),
+    "notin_raw_i64_k1": (_raw("notin_raw", "ri64", 1),
+                         [_raw_list("ri64", [12], 1)]),
+    # MV kinds: any entry, padding entries (id == card) included
+    "eq_mv_w3": (_mv("eq_id", "m3"), [np.int32(4)]),
+    "neq_mv_w3": (_mv("neq_id", "m3"), [np.int32(4)]),
+    "range_mv_w3": (_mv("range_ids", "m3"), [np.int32(2), np.int32(5)]),
+    "in_mv_w1": (_mv("in_ids", "m1", 4), [_in_list([0, 3], 4)]),
+    "notin_mv_w3": (_mv("notin_ids", "m3", 1), [_in_list([7], 1)]),
+    "member_mv_w3": (_mv("member", "m3", 16), [_member(10, 4)]),
+    "mixed_nested": (("or", (("and", (_pred("eq_id", "a"),
+                                       _mv("eq_id", "m3"))),
+                              ("and", (_raw("range_raw", "rf32",
+                                            (True, False)),
+                                       _mv("notin_ids", "m1", 2))),
+                              _raw("in_raw", "ri64", 2))),
+                     [np.int32(3), np.int32(1), _near("rf32", 20),
+                      _near("rf32", 30), _in_list([2, 4], 2),
+                      _raw_list("ri64", [6, 7], 2)]),
 }
 NUM_DOCS = {"full": lambda P: P, "padded": lambda P: P - 777}
 
@@ -111,13 +202,16 @@ def _jax_filter(P, spec, cols, params, num_docs):
 
 def _interpret_program(P, spec, cols, params, num_docs) -> np.ndarray:
     """numpy mirror of filter_mask.cu's per-row loop over the program."""
-    buf, n_nodes = tk.compile_filter(spec, params)
+    tcols = _torch_cols(cols)
+    buf, n_nodes = tk.compile_filter(spec, params, tcols)
     lane_keys = tk.filter_lane_keys(spec)
-    nodes = buf[: 4 * n_nodes].reshape(n_nodes, 4)
-    prm = buf[4 * n_nodes:]
-    lanes = [cols[k].astype(np.int64) for k in lane_keys]
+    w = tk._NODE_WORDS
+    nodes = buf[: w * n_nodes].reshape(n_nodes, w)
+    prm = buf[w * n_nodes:]
+    elem_np = {code: tk._np_of(dt) for dt, code in tk._ELEM.items()}
+    ops = tk._LEAF_OPS
     stack = np.zeros(P, dtype=np.uint64)
-    for op, lane, off, arg in nodes.tolist():
+    for op, lane, off, arg, elem, width in nodes.tolist():
         if op in (tk._OP_AND, tk._OP_OR):
             m = np.uint64((1 << arg) - 1)
             kids = stack & m
@@ -127,22 +221,45 @@ def _interpret_program(P, spec, cols, params, num_docs) -> np.ndarray:
             bit = np.ones(P, bool)
         elif op == tk._OP_FALSE:
             bit = np.zeros(P, bool)
+        elif op >= ops["eq_raw"]:
+            dt = elem_np[elem]
+            v = cols[lane_keys[lane]]
+            assert v.dtype == dt and width == 1
+            nw = dt.itemsize // 4
+
+            def const(i, off=off, nw=nw, dt=dt):
+                return np.ascontiguousarray(
+                    prm[off + i * nw: off + (i + 1) * nw]).view(dt)[0]
+
+            if op == ops["eq_raw"]:
+                bit = v == const(0)
+            elif op == ops["neq_raw"]:
+                bit = v != const(0)
+            elif op == ops["range_raw"]:
+                lo, hi = const(0), const(1)
+                bit = ((v >= lo) if arg & 1 else (v > lo)) & \
+                    ((v <= hi) if arg & 2 else (v < hi))
+            else:
+                bit = np.isin(v, [const(i) for i in range(arg)])
+                if op == ops["notin_raw"]:
+                    bit = ~bit
         else:
-            v = lanes[lane]
-            if op == tk._LEAF_OPS["eq_id"]:
+            v = cols[lane_keys[lane]].astype(np.int64).reshape(P, width)
+            if op == ops["eq_id"]:
                 bit = v == prm[off]
-            elif op == tk._LEAF_OPS["neq_id"]:
+            elif op == ops["neq_id"]:
                 bit = v != prm[off]
-            elif op == tk._LEAF_OPS["range_ids"]:
+            elif op == ops["range_ids"]:
                 bit = (v >= prm[off]) & (v < prm[off + 1])
-            elif op in (tk._LEAF_OPS["in_ids"], tk._LEAF_OPS["notin_ids"]):
+            elif op in (ops["in_ids"], ops["notin_ids"]):
                 bit = np.isin(v, prm[off:off + arg])
-                if op == tk._LEAF_OPS["notin_ids"]:
+                if op == ops["notin_ids"]:
                     bit = ~bit
             else:
                 idx = np.clip(v, 0, arg - 1)
                 words = prm[off + (idx >> 5)].astype(np.uint32)
                 bit = ((words >> (idx & 31).astype(np.uint32)) & 1) == 1
+            bit = bit.any(axis=1)
         stack = (stack << np.uint64(1)) | bit.astype(np.uint64)
     out = (stack & np.uint64(1)).astype(np.uint8)
     out[num_docs:] = 0
@@ -171,11 +288,14 @@ def test_filter_mask_plain_matches_jax(P, docs, name):
 
 
 def test_compile_filter_limits():
+    cols = _torch_cols(_lanes(8192, 8192, seed=0))
     deep = ("and", tuple(_pred("eq_id", "a") for _ in range(32)))
     with pytest.raises(ValueError):
-        tk.compile_filter(deep, [np.int32(1)] * 32)
+        tk.compile_filter(deep, [np.int32(1)] * 32, cols)
     with pytest.raises(ValueError):
-        tk.compile_filter(("pred", "eq_raw", "x", "raw", None), [1.0])
+        tk.compile_filter(("pred", "eq_raw", "a", "sv", None), [1], cols)
+    with pytest.raises(ValueError):
+        tk.compile_filter(("pred", "vdoc", "x", "vdoc", None), [], cols)
 
 
 AGG_SPECS = (("count", "*", "none", None),
@@ -213,6 +333,16 @@ GROUP_AGGS = {
              ("sum", "r1", "sv", ("psums", 1024)),
              ("avg", "x", "raw", ("csums",)),
              ("sum", "r2", "sv", ("psums", 1024))),
+    # per-group min / max over ids (int32, card_pad / -1 sentinels) and
+    # raw lanes of every dtype (float64, ±inf sentinels)
+    "extremes": (("count", "*", "none", None),
+                 ("min", "a", "sv", ("ids", 64)),
+                 ("max", "b", "sv", ("ids", 1024)),
+                 ("minmaxrange", "c", "sv", ("ids", 65536)),
+                 ("minmaxrange", "rf32", "raw", None),
+                 ("min", "ri64", "raw", None),
+                 ("max", "ri32", "raw", None),
+                 ("minmaxrange", "rf64", "raw", None)),
 }
 
 
@@ -229,8 +359,8 @@ def _group_spec(g_pad, aggs):
 @pytest.mark.parametrize("g_pad", sorted(GROUPS))
 @pytest.mark.parametrize("aggs", sorted(GROUP_AGGS))
 def test_dense_group_aggregate_plain_matches_jax(P, g_pad, aggs):
-    spec, params = FILTERS["nested"] if aggs == "sums" else \
-        FILTERS["full_match"]
+    spec, params = FILTERS["full_match"] if aggs == "count" else \
+        FILTERS["nested"]
     num_docs = P - 777
     cols = _lanes(P, num_docs, seed=g_pad + P)
     group = _group_spec(g_pad, GROUP_AGGS[aggs])
@@ -246,6 +376,54 @@ def test_dense_group_aggregate_plain_matches_jax(P, g_pad, aggs):
             np.testing.assert_array_equal(got[k].numpy(), want[k],
                                           err_msg=k)
     assert int(got["group.count"].sum()) == int(want["stats.num_docs_matched"])
+
+
+# no-group aggregations of K4 (histograms) and K5 (min / max and block
+# sums): id lanes int8 (a, h15), int16 (b), int32 (c); raw lanes of every
+# dtype; the float64 value lane x takes the vlane strategy
+REDUCE_AGGS = (("count", "*", "none", None),
+               ("distinctcount", "h15", "sv", ("hist", 16)),
+               ("percentile", "b", "sv", ("hist", 1024)),
+               ("sum", "c", "sv", ("hist", 65536)),
+               ("min", "a", "sv", ("ids", 64)),
+               ("minmaxrange", "b", "sv", ("ids", 1024)),
+               ("max", "c", "sv", ("ids", 65536)),
+               ("sum", "rf32", "raw", None),
+               ("minmaxrange", "rf32", "raw", None),
+               ("avg", "rf64", "raw", None),
+               ("min", "rf64", "raw", None),
+               ("max", "ri32", "raw", None),
+               ("minmaxrange", "ri64", "raw", None),
+               ("avg", "ri64", "raw", None),
+               ("sum", "x", "sv", ("vlane", 1024)))
+
+
+@pytest.mark.parametrize("P", SHAPES)
+@pytest.mark.parametrize("name", ["nested", "empty_match", "full_match",
+                                  "mixed_nested"])
+def test_histogram_and_reduce_plain_match_jax(P, name):
+    spec, params = FILTERS[name]
+    num_docs = P - 777
+    cols = _lanes(P, num_docs, seed=23 + P)
+    cols["x.vlane"] = cols["x.raw"]
+    want = _jax_outs(P, spec, params, REDUCE_AGGS, None, cols, num_docs)
+    got = tk.run_segment_kernel(P, spec, REDUCE_AGGS, None, None,
+                                _torch_cols(cols), params, num_docs, "cpu")
+    assert set(got) == set(want)
+    for k in want:
+        g = got[k].numpy()
+        if k.endswith(".vsum"):
+            np.testing.assert_allclose(g, want[k], rtol=1e-12, atol=0,
+                                       err_msg=k)
+        else:
+            # min / max also in the JAX dtype; JAX sums a small histogram
+            # up to int64 under x64, the port keeps int32 counts
+            if k.endswith((".min", ".max")):
+                assert g.dtype == want[k].dtype, k
+            np.testing.assert_array_equal(g, want[k], err_msg=k)
+    if name == "empty_match":
+        assert int(got["agg4.min"]) == 64 and int(got["agg6.max"]) == -1
+        assert float(got["agg8.min"]) == np.inf
 
 
 def test_wrappers_reject_bad_operands():
@@ -299,10 +477,47 @@ def test_sums_cuda_match_plain(cuda_device, g_pad):
                        tk.masked_part_sums_plain(mask, parts))
     gcols, strides, _, _, _ = _group_spec(g_pad, ())
     keys = [cols[f"{c}.ids"] for c, *_ in gcols]
-    got = tk.dense_group_aggregate(mask, keys, strides, g_pad, parts,
-                                   [cols["x.raw"]])
+    ext = (("ids", cols["a.ids"], "min", 64), ("ids", cols["c.ids"], "max",
+                                                 65536),
+           ("raw", cols["rf32.raw"], "min", 0),
+           ("raw", cols["ri64.raw"], "max", 0))
     want = tk.dense_group_aggregate_plain(mask, keys, strides, g_pad, parts,
-                                          [cols["x.raw"]])
-    for a, b in ((got[0], want[0]), (got[1], want[1]), (got[3], want[3])):
-        assert torch.equal(a, b)
-    torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+                                          [cols["x.raw"]], ext)
+    # shared-memory tables never, as the wrapper chooses, and wherever
+    # they fit
+    for smem_slots in (0, tk.K3_SMEM_SLOTS, tk.INT32_MAX):
+        got = tk.dense_group_aggregate(mask, keys, strides, g_pad, parts,
+                                       [cols["x.raw"]], ext,
+                                       smem_slots=smem_slots)
+        for a, b in ((got[0], want[0]), (got[1], want[1]),
+                     (got[3], want[3]), *zip(got[4], want[4])):
+            assert torch.equal(a, b), smem_slots
+        torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nested", "empty_match", "full_match"])
+def test_histogram_and_reduce_cuda_match_plain(cuda_device, name):
+    P = SHAPES[-1]
+    spec, params = FILTERS[name]
+    cols = _torch_cols(_lanes(P, P - 777, seed=5), cuda_device)
+    mask = tk.filter_mask(P, spec, cols, params, P - 777, cuda_device)
+    # shared-memory tables up to 16384 bins (64 KB, opted in above 48
+    # KB), device-memory atomics above; ids >= card_pad count nowhere
+    for col, card_pad in (("h15", 16), ("b", 1024), ("c", 16384),
+                          ("c", 65536)):
+        assert torch.equal(
+            tk.masked_histogram(mask, cols[f"{col}.ids"], card_pad),
+            tk.masked_histogram_plain(mask, cols[f"{col}.ids"], card_pad))
+    for kind, key, card_pad in (("ids", "a.ids", 64), ("ids", "b.ids", 1024),
+                                ("raw", "rf32.raw", 0),
+                                ("raw", "rf64.raw", 0),
+                                ("raw", "ri32.raw", 0),
+                                ("raw", "ri64.raw", 0)):
+        got = tk.masked_reduce(mask, cols[key], kind, card_pad, True)
+        want = tk.masked_reduce_plain(mask, cols[key], kind, card_pad, True)
+        for k in ("min", "max", "count"):
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k]), (key, k)
+        torch.testing.assert_close(got["sums"], want["sums"], rtol=1e-12,
+                                   atol=0)

@@ -1,0 +1,191 @@
+"""The QueryGenerator mix over baseballStats: the port against the JAX
+engine and both oracles.
+
+Two segments from tests/fixtures.build_segment (seeds 11 and 12, 2,500
+rows each, their own dictionaries, as test_query_generator.py builds
+them) are loaded by both engines, the port's with
+QueryEngine.from_dirs(device="cpu"). The aggregation, group-by and HAVING
+families are drawn with the reference seeds by the port's copy of the
+generator (pinot_tpu_torch/tools/baseball.py), plus the fixed queries that
+reach the strategies the draws may miss. Every answer must equal the JAX
+engine's (counts, integer sums, MIN / MAX / MINMAXRANGE, PERCENTILE and
+DISTINCTCOUNT exactly; float sums and averages within rtol 1e-6, as in
+the port's SSB tests: the JAX compacted group path carries float lanes in
+float32) and meet the row-at-a-time tests/oracle.Oracle at the reference
+harness's tolerances. Group-by draws with DISTINCTCOUNT raise
+UnsupportedOnDevice in the port. A second test holds the port's
+vectorised oracle to tests/oracle.Oracle on the same table and draws.
+"""
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import pytest
+
+from fixtures import build_segment
+from oracle import Oracle as RowOracle
+from test_query_generator import SEED, Gen, _check_agg
+from pinot_tpu.engine import QueryEngine as JaxQueryEngine
+from pinot_tpu_torch.engine import QueryEngine
+from pinot_tpu_torch.query.plan import UnsupportedOnDevice
+from pinot_tpu_torch.tools import baseball
+
+N_PER_SEG = 2_500
+FLOAT_RTOL = 1e-6
+EXACT = ("count", "distinctcount", "min", "max", "minmaxrange",
+         "percentile")
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    dirs, parts = [], []
+    for seed in (11, 12):
+        d = str(tmp_path_factory.mktemp(f"seg{seed}"))
+        _seg, cols = build_segment(d, n=N_PER_SEG, seed=seed)
+        dirs.append(d)
+        parts.append(cols)
+    cols = {k: (parts[0][k] + parts[1][k]) if isinstance(parts[0][k], list)
+            else np.concatenate([parts[0][k], parts[1][k]])
+            for k in parts[0]}
+    jax_engine = JaxQueryEngine.from_dirs(dirs)
+    port = QueryEngine.from_dirs(dirs, device="cpu")
+    vec = baseball.Oracle(baseball.from_fixture_columns(cols))
+    return jax_engine, port, RowOracle(cols), vec
+
+
+def _exact(name, col):
+    return name in EXACT or (name == "sum" and col in ("runs", "hits"))
+
+
+def _same(got, want, exact, what):
+    g, w = float(got), float(want)
+    if exact:
+        assert g == w, what
+    else:
+        assert g == pytest.approx(w, rel=FLOAT_RTOL), what
+
+
+def _groups(res):
+    return {tuple(str(k) for k in g["group"]): g["value"]
+            for g in res.group_by_result}
+
+
+def _assert_like_jax(resp, jax_resp, draw):
+    assert not resp.exceptions and not jax_resp.exceptions, draw.pql
+    for i, (_fn, name, col, _tol) in enumerate(draw.aggs):
+        got, want = resp.aggregation_results[i], \
+            jax_resp.aggregation_results[i]
+        exact = _exact(name, col)
+        if draw.family == "aggregation":
+            _same(got.value, want.value, exact, (draw.pql, i))
+            continue
+        g, w = _groups(got), _groups(want)
+        assert set(g) == set(w), (draw.pql, i)
+        for key in w:
+            _same(g[key], w[key], exact, (draw.pql, i, key))
+
+
+def _assert_like_row_oracle(resp, row, draw):
+    """The reference harness's checks (test_query_generator.py)."""
+    m = draw.mask
+    for i, (_fn, name, col, tol) in enumerate(draw.aggs):
+        mode = "exact" if tol == "exact" else "approx"
+        if draw.family == "aggregation":
+            _check_agg(resp, i, row, name, col, mode, m, draw.pql, "port")
+            continue
+        want = row.group_by(list(draw.dims), m, (name, col)
+                            if name != "count" else ("count", None))
+        want = {tuple(str(k) for k in key): v for key, v in want.items()}
+        if draw.having is not None:
+            op, thresh = draw.having
+            want = {k: v for k, v in want.items()
+                    if (v > thresh if op == ">" else v <= thresh)}
+        got = _groups(resp.aggregation_results[i])
+        assert set(got) == set(want), (draw.pql, i)
+        for key, v in want.items():
+            if name == "count":
+                assert int(float(got[key])) == int(v), (draw.pql, key)
+            elif mode == "exact":
+                assert float(got[key]) == pytest.approx(v, rel=1e-9)
+            else:
+                assert float(got[key]) == pytest.approx(
+                    v, rel=1e-3, abs=1e-6), (draw.pql, key)
+
+
+@pytest.mark.parametrize("family", ["aggregation", "group_by", "having",
+                                    "fixed"])
+def test_querygen_family_matches_jax_and_oracles(setup, family):
+    jax_engine, port, row, vec = setup
+    draws = {"aggregation": baseball.aggregation_draws,
+             "group_by": baseball.group_by_draws,
+             "having": baseball.having_draws,
+             "fixed": baseball.fixed_draws}[family](vec)
+    answered = raised = 0
+    for draw in draws:
+        if draw.device_raises:
+            with pytest.raises(UnsupportedOnDevice):
+                port.query(draw.pql)
+            raised += 1
+            continue
+        resp = port.query(draw.pql)
+        _assert_like_jax(resp, jax_engine.query(draw.pql), draw)
+        if family != "fixed":
+            _assert_like_row_oracle(resp, row, draw)
+        baseball.check(resp, vec, draw)
+        answered += 1
+    assert answered >= {"aggregation": 14, "group_by": 6, "having": 6,
+                        "fixed": 5}[family]
+    if family == "group_by":
+        assert raised == 12 - answered and raised > 0
+
+
+@pytest.mark.parametrize("family", ["aggregation", "group_by", "having"])
+def test_vectorised_oracle_matches_row_oracle(setup, family):
+    _jax, _port, row, vec = setup
+    seed = {"aggregation": SEED, "group_by": SEED + 1,
+            "having": SEED + 3}[family]
+    ref = Gen(random.Random(seed), row)
+    draws = list({"aggregation": baseball.aggregation_draws,
+                  "group_by": baseball.group_by_draws,
+                  "having": baseball.having_draws}[family](vec))
+    for draw in draws:
+        # the reference generator, draw for draw: same PQL, same rows
+        where, m = ref.where()
+        if family == "having":
+            dims = ref.rng.sample(["teamID", "league"], 1)
+            thresh = ref.rng.randint(5, 200)
+            op = ref.rng.choice([">", "<="])
+            assert draw.pql == ("SELECT COUNT(*) FROM baseballStats" +
+                                where + " GROUP BY " + dims[0] +
+                                f" HAVING COUNT(*) {op} {thresh} TOP 2000")
+            aggs = [("COUNT(*)", "count", None, "exact")]
+        else:
+            aggs = ref.aggs()
+            assert [a[0] for a in aggs] == [a[0] for a in draw.aggs]
+            if family == "group_by":
+                dims = ref.rng.sample(["teamID", "league", "yearID"],
+                                      ref.rng.randint(1, 2))
+                assert list(draw.dims) == dims
+        assert where in draw.pql
+        np.testing.assert_array_equal(draw.mask, m, err_msg=draw.pql)
+        for (_fn, name, col, _tol), want in zip(
+                aggs, baseball.expected(vec, draw)):
+            if family == "aggregation":
+                ref_v = row.count(m) if name == "count" else \
+                    getattr(row, name)(col, m)
+                _same(want, ref_v, name != "sum" or col != "salary",
+                      (draw.pql, name))
+                continue
+            ref_g = row.group_by(list(draw.dims), m, (name, col)
+                                 if name != "count" else ("count", None))
+            ref_g = {tuple(str(k) for k in key): v
+                     for key, v in ref_g.items()}
+            if draw.having is not None:
+                op, thresh = draw.having
+                ref_g = {k: v for k, v in ref_g.items()
+                         if (v > thresh if op == ">" else v <= thresh)}
+            assert set(want) == set(ref_g), draw.pql
+            for key, v in ref_g.items():
+                assert float(want[key]) == pytest.approx(float(v),
+                                                         rel=1e-12), key

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive pinot_tpu_torch on one CUDA card: build, kernel checks, SSB
 Q1.1-Q4.3 in memory, and baseballStats from disk under the QueryGenerator
-mix.
+mix with its selections.
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
@@ -32,12 +32,24 @@ non-zero exit and no result line:
    lanes), K3 (sums and min / max), K4 and K5 against their plain versions
    on segment 0's lanes (min / max, counts, part sums and histograms
    equal; float64 sums within CSUMS_RTOL), timed; K3 as in phase 4.
-8. baseball: launch counts set to 0, the aggregation, group-by and HAVING
-   draws of the QueryGenerator mix (the reference seeds) and the fixed
-   queries run once and are checked against the vectorised oracle; the
-   group-by DISTINCTCOUNT draws must raise UnsupportedOnDevice; the
-   counts read (all five kernels must have launched); then --repeats
-   timed runs per query give the per-family p50.
+8. select_kernel_check: K6 against its plain version on segment 0's lanes
+   for each select kind (limit; order on runs, hits and on the heavily
+   tied league; ordertk on salary; ordermk on teamID, salary and on int64
+   / float64 lanes built for the check), at k = 16, 2048 and 65,536, under
+   the masks yearID >= 2000, match-all and empty: docids, count and every
+   gathered column bit-equal; timed beside its bound, the plain version
+   and, where one PyTorch call does the same (torch.nonzero for limit,
+   torch.topk on the masked int64 key (word, docid) for one key word),
+   that call.
+9. baseball: launch and path counts set to 0, the aggregation, group-by,
+   HAVING, selection and two-key ORDER BY draws of the QueryGenerator mix
+   (the reference seeds) and the fixed queries and selections run once
+   and are checked against the vectorised oracle; the host twin must have
+   answered exactly the group-by DISTINCTCOUNT draws, and the pruner and
+   a fast path must have served segments; the launch counts read (all
+   six kernels must have launched); then --repeats timed runs
+   per device-answered query give the per-family p50 (the host-answered
+   draws are timed by their one checked run: numpy takes seconds on them).
 
 The last three lines are the card's name and power limit, the kernels
 JSON line and
@@ -411,6 +423,113 @@ def bb_kernel_check(seg):
     return entries
 
 
+#: the select specs of the K6 check come from these plans (segment 0's
+#: lanes, with k and the mask varied)
+SELECT_PQLS = {
+    "limit": "SELECT playerName, salary, position FROM baseballStats "
+             "LIMIT 16",
+    "order runs, hits": "SELECT runs, hits, playerName FROM baseballStats "
+                        "ORDER BY runs DESC, hits DESC LIMIT 16",
+    "order league (ties)": "SELECT league, teamID FROM baseballStats "
+                           "ORDER BY league LIMIT 16",
+    "ordertk salary": "SELECT playerName, salary FROM baseballStats ORDER "
+                      "BY salary DESC LIMIT 16",
+    "ordermk teamID, salary": "SELECT teamID, yearID, salary FROM "
+                              "baseballStats ORDER BY teamID, salary "
+                              "LIMIT 16",
+}
+SELECT_KS = (16, 2048, 65536)
+
+
+def _select_library(spec, cols, mask, words):
+    """One PyTorch call computing the same docids where there is one:
+    torch.nonzero for limit, torch.topk over the int64 key (word, docid)
+    with masked rows at the top for one key word; else None."""
+    kind, k = spec[0], spec[1]
+    if kind == "limit":
+        return lambda: torch.nonzero(mask)[:k]
+    if len(words) != 1:
+        return None
+    doc = torch.arange(mask.shape[0], device=mask.device, dtype=torch.int64)
+    key = ((words[0].long() + 2**31) << 31) | doc
+    key = torch.where(mask.bool(), key, torch.iinfo(torch.int64).max)
+    return lambda: torch.topk(key, k, largest=False, sorted=True)
+
+
+def select_kernel_check(seg):
+    """K6 against its plain version on one baseballStats segment, every
+    select kind, k and mask; returns the kernels-line entry (ordertk on
+    salary, k = 2048, yearID >= 2000: the fixed query's kind)."""
+    from pinot_tpu_torch.ops import kernels as K
+    P, n = seg.padded_docs, seg.num_docs
+    device = seg.device
+    plan, mcols = plan_operands(seg, BB_AGG_PQL)        # yearID >= 2000
+    masks = {"yearID >= 2000": K.filter_mask(P, plan.filter_spec, mcols,
+                                             plan.params, n),
+             "match-all": K.filter_mask(P, ("match_all",), {}, [], n, device),
+             "empty": torch.zeros(P, dtype=torch.uint8, device=device)}
+    specs = {}
+    for case, pql in SELECT_PQLS.items():
+        plan, cols = plan_operands(seg, pql)
+        specs[case] = (plan.select_spec, cols)
+    # int64 and float64 key lanes built for the check: hits and average
+    # decoded from their dictionaries
+    wide = {}
+    for col, dtype in (("hits", np.int64), ("average", np.float64)):
+        ds = seg.data_source(col)
+        lane = np.zeros(P, dtype)
+        lane[:n] = np.asarray(ds.dictionary.values, dtype)[ds.dict_ids]
+        wide[f"{col}.raw"] = torch.from_numpy(lane).to(device)
+    specs["ordermk hits int64, average float64"] = (
+        ("ordermk", 16, (("hits", False, 0, "raw"),
+                         ("average", True, 0, "raw")),
+         (("hits", "raw"), ("average", "raw"))), wide)
+    report, entry = [], None
+    for case, (spec, cols) in specs.items():
+        words = K.select_key_words(spec, cols)
+        key_bytes = sum(cols[K.gather_lane_key(c, s)].element_size()
+                        for c, _asc, _cp, s in spec[2])
+        row_bytes = sum(cols[K.gather_lane_key(c, s)][0].numel() *
+                        cols[K.gather_lane_key(c, s)].element_size()
+                        for c, s in spec[3])
+        for mask_name, mask in masks.items():
+            matched = int(mask.sum())
+            for k in (k for k in SELECT_KS if k <= P):
+                sk = (spec[0], k, spec[2], spec[3])
+                got = K.masked_select(sk, cols, mask)
+                ref = K.selection_outputs_plain(sk, cols, mask)
+                equal = set(got) == set(ref) and all(
+                    got[x].dtype == ref[x].dtype and torch.equal(
+                        got[x].reshape(-1).view(torch.uint8),
+                        ref[x].reshape(-1).view(torch.uint8))
+                    for x in ref)
+                if not equal:
+                    raise AssertionError(f"masked_select disagrees: {case}, "
+                                         f"{mask_name}, k={k}")
+                lib = _select_library(sk, cols, mask, words)
+                b = bound(P + matched * key_bytes + k * (4 + 2 * row_bytes)
+                          + 4, 0)
+                r = {"kernel": "masked_select", "case": case,
+                     "kind": spec[0], "mask": mask_name, "k": k,
+                     "matched": matched, "key_words": len(words),
+                     "equal": equal, "max_abs_err": 0,
+                     "ms": time_ms(lambda: K.masked_select(sk, cols, mask),
+                                   reps=5),
+                     "plain_ms": time_ms(lambda: K.selection_outputs_plain(
+                         sk, cols, mask), reps=3, warmup=1),
+                     "library_ms": time_ms(lib, reps=5) if lib else None,
+                     "bound_ms": b[0], "bound_by": b[1]}
+                report.append(r)
+                if case == "ordertk salary" and k == 2048 and \
+                        mask_name == "yearID >= 2000":
+                    entry = dict(max_abs_err=0, ms=r["ms"],
+                                 plain_ms=r["plain_ms"], bound=b,
+                                 library_ms=r["library_ms"])
+    for r in report:
+        emit({"phase": "select_kernel_check", **r})
+    return {"masked_select": entry}
+
+
 def run_ssb(engine, oracle, repeats: int):
     """The SSB path: counts from 0, the 13 queries once, checked; then the
     timed repeats. Returns the path's launch counts."""
@@ -446,53 +565,61 @@ def run_ssb(engine, oracle, repeats: int):
 
 
 def run_baseball(engine, oracle, repeats: int):
-    """The baseballStats path: counts from 0, every draw once, checked
-    against the vectorised oracle; then the timed repeats. Returns the
-    path's launch counts."""
+    """The baseballStats path: launch and path counts from 0, every draw
+    once, checked against the vectorised oracle; then the timed repeats of
+    the device-answered draws. Returns the path's launch counts."""
     from pinot_tpu_torch.ops import kernels as K
-    from pinot_tpu_torch.query.plan import UnsupportedOnDevice
     from pinot_tpu_torch.tools import baseball
     draws = list(baseball.all_draws(oracle))
     K.reset_launch_counts()
-    answered, raised = [], 0
+    engine.executor.reset_path_counts()
+    answered = []
     for family, draw in draws:
-        if draw.device_raises:
-            try:
-                engine.query(draw.pql)
-            except UnsupportedOnDevice:
-                raised += 1
-                continue
-            raise AssertionError(f"{draw.pql}: expected UnsupportedOnDevice")
+        host_before = engine.executor.path_counts["host"]
+        t = time.perf_counter()
         resp = engine.query(draw.pql)
         torch.cuda.synchronize()
-        answered.append((family, draw, resp))
+        first_ms = (time.perf_counter() - t) * 1e3
+        on_host = engine.executor.path_counts["host"] > host_before
+        answered.append((family, draw, resp, first_ms, on_host))
     launches = K.launch_counts()
-    for _family, draw, resp in answered:
+    paths = dict(engine.executor.path_counts)
+    for _family, draw, resp, _ms, on_host in answered:
         baseball.check(resp, oracle, draw)
-    if not raised:
-        raise AssertionError("no group-by DISTINCTCOUNT draw raised")
+        if on_host != draw.host_answered:
+            raise AssertionError(f"{draw.pql}: answered on the host: "
+                                 f"{on_host}, expected {draw.host_answered}")
+    host_draws = [d for _f, d, _r, _m, h in answered if h]
+    if not host_draws or any(d.is_selection for d in host_draws):
+        raise AssertionError(f"host path answered {len(host_draws)} draws")
+    if not paths["pruned"] or not paths["fast"]:
+        raise AssertionError(f"the pruner or a fast path never ran: {paths}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the baseballStats "
                              f"path: {launches}")
     families = {}
-    for family, draw, _resp in answered:
-        ts = []
-        for _ in range(repeats):
-            t = time.perf_counter()
-            engine.query(draw.pql)
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
+    for family, draw, _resp, first_ms, on_host in answered:
+        if on_host:
+            ts = [first_ms]
+            family = f"{family}_host"
+        else:
+            ts = []
+            for _ in range(repeats):
+                t = time.perf_counter()
+                engine.query(draw.pql)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t) * 1e3)
         families.setdefault(family, []).extend(ts)
         emit({"phase": "baseball", "family": family, "pql": draw.pql,
               "check": "pass", "matched": int(draw.mask.sum()),
-              "p50_ms": float(np.median(ts))})
+              "host": on_host, "p50_ms": float(np.median(ts))})
     emit({"phase": "baseball_summary", "queries_passed": len(answered),
-          "distinctcount_group_by_raised": raised,
+          "host_answered": len(host_draws),
           "p50_ms_by_family": {f: float(np.median(ts))
                                for f, ts in families.items()},
           "device_table_bytes": sum(s.device_bytes()
                                     for s in engine.segments),
-          "launches": launches})
+          "segment_paths": paths, "launches": launches})
     return launches
 
 
@@ -570,6 +697,7 @@ def main() -> int:
                                 for d in dirs for f in os.listdir(d))})
         oracle = baseball.Oracle(cols)
         entries.update(bb_kernel_check(engine.segments[0]))
+        entries.update(select_kernel_check(engine.segments[0]))
         bb_launches = run_baseball(engine, oracle, args.repeats)
 
     print(smi, flush=True)

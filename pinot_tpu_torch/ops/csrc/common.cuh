@@ -36,6 +36,40 @@ __device__ __forceinline__ double read_value(const void* lane, int elem, long lo
   }
 }
 
+// A numeric lane's element as 1 or 2 int32 words whose lexicographic
+// (signed) order is the value order, bit for bit the words of
+// pinot_tpu/ops/kernels.py:_monotone_int32_keys: ids and int32 as they
+// are; float32 through its bits with a negative value's magnitude bits
+// flipped (-0.0 before +0.0, NaNs by bit pattern); int64 and float64 (its
+// bits mapped the same way) as the high word and the low word biased by
+// 2^31. Returns the number of words written to w.
+__device__ __forceinline__ int monotone_words(const void* lane, int elem, long long row,
+                                              int32_t* w) {
+  switch (elem) {
+    case kF32: {
+      const int32_t b = __float_as_int(static_cast<const float*>(lane)[row]);
+      w[0] = b ^ ((b >> 31) & 0x7fffffff);
+      return 1;
+    }
+    case kI64:
+    case kF64: {
+      long long b;
+      if (elem == kI64) {
+        b = static_cast<const long long*>(lane)[row];
+      } else {
+        b = __double_as_longlong(static_cast<const double*>(lane)[row]);
+        b ^= (b >> 63) & 0x7fffffffffffffffLL;
+      }
+      w[0] = static_cast<int32_t>(b >> 32);
+      w[1] = static_cast<int32_t>((b & 0xffffffffLL) - 0x80000000LL);
+      return 2;
+    }
+    default:
+      w[0] = read_id(lane, elem, row);
+      return 1;
+  }
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);

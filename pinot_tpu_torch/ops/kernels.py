@@ -19,7 +19,10 @@ short fixed sequence of kernels written by hand for Hopper
   `_histogram` / `_mxu_histogram`);
 - K5 `masked_reduce`: one lane's match count, min / max and per-block
   float64 sums (replaces `_chunked_float_sum` and the id / raw min-max
-  branches of `_agg_outputs`).
+  branches of `_agg_outputs`);
+- K6 `masked_select`: the first k matched rows by (key words, docid), the
+  match count and the gathered columns (replaces `_selection_outputs`
+  with `_monotone_int32_keys`, kinds limit / order / ordertk / ordermk).
 
 Every wrapper checks its operands, allocates its outputs, and launches on
 the current stream. Beside each kernel is its plain PyTorch version: the
@@ -27,7 +30,8 @@ wrapper uses it for a tensor that lies on the CPU, and only then. For a
 CUDA tensor the wrapper launches the kernel or raises.
 
 Spec grammar (hashable tuples, the JAX package's own; this slice takes the
-subset below, the planner raises UnsupportedOnDevice on the rest):
+subset below; the planner refuses the rest, with UnsupportedOnDevice
+where the JAX planner does and NotPorted where the port has no kernel):
 
   filter: ("and", (child, ...)) | ("or", (child, ...)) | ("match_all",)
         | ("empty",) | ("pred", kind, col, source, extra)
@@ -56,6 +60,10 @@ subset below, the planner raises UnsupportedOnDevice on the rest):
                  min/max/minmaxrange with ("ids", card_pad) over sv ids, or
                  None over raw),
            kmax=0)
+  select: (kind, k, order=((col, asc, card_pad, source), ...),
+           gather=((col, source), ...)), kind ∈ {limit, order, ordertk,
+           ordermk}, source "sv" ({col}.ids), "raw" ({col}.raw) or, for a
+           gathered column, "mv" ({col}.mv) → K6
 """
 from __future__ import annotations
 
@@ -114,6 +122,9 @@ KERNELS: Dict[str, KernelInfo] = {
     "masked_reduce": KernelInfo(
         "masked_reduce", "pinot_tpu_torch/ops/csrc/masked_reduce.cu",
         "pinot_tpu/ops/kernels.py:281"),
+    "masked_select": KernelInfo(
+        "masked_select", "pinot_tpu_torch/ops/csrc/masked_select.cu",
+        "pinot_tpu/ops/kernels.py:1479"),
 }
 
 _P = ctypes.c_void_p
@@ -130,6 +141,8 @@ _ARGTYPES = {
         _LL, _I, _I, _P, _P, _P, _P, _P],
     "masked_histogram": [_P, _P, _I, _LL, _I, _P, _P],
     "masked_reduce": [_P, _P, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P],
+    "masked_select": [_P, _LL, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
+                      _PP, _IP, _PP, _I, _P, _LL, _P, _P, _P],
 }
 
 
@@ -709,6 +722,196 @@ def masked_reduce_plain(mask: torch.Tensor, lane: torch.Tensor, kind: str,
 
 
 # ---------------------------------------------------------------------------
+# K6 masked_select
+# ---------------------------------------------------------------------------
+
+MAX_SELECT_K = 1 << 16           # the JAX planner's MAX_SELECTION_K
+_SELECT_KINDS = ("limit", "order", "ordertk", "ordermk")
+#: key-term modes shared with masked_select.cu
+_PACK, _ID, _MONO, _MONO_CLAMP = 0, 1, 2, 3
+_MAX_SELECT_TERMS = 8
+_MAX_SELECT_WORDS = 8
+_MAX_GATHERS = 32
+
+
+def monotone_keys_plain(lane: torch.Tensor, asc: bool) -> List[torch.Tensor]:
+    """A numeric lane → 1-2 int32 lanes whose lexicographic order is the
+    value order, bit for bit the JAX `_monotone_int32_keys`: ints as they
+    are, int64 / float64 split into hi and a biased lo word, floats through
+    their IEEE-754 bits with a negative value's magnitude bits flipped (so
+    -0.0 orders before +0.0 and NaNs by bit pattern). Descending flips
+    every bit of every word."""
+    dt = lane.dtype
+    if dt in _ID_DTYPES:
+        keys = [lane.to(torch.int32)]
+    elif dt == torch.float32:
+        b = lane.view(torch.int32)
+        keys = [b ^ ((b >> 31) & 0x7FFFFFFF)]
+    elif dt in (torch.int64, torch.float64):
+        b = lane.view(torch.int64)
+        if dt == torch.float64:
+            b = b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
+        keys = [(b >> 32).to(torch.int32),
+                ((b & 0xFFFFFFFF) - 0x80000000).to(torch.int32)]
+    else:
+        raise ValueError(f"unsupported order-by lane dtype {dt}")
+    return keys if asc else [~k for k in keys]
+
+
+def select_key_words(select_spec, cols: Dict[str, torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """The int32 key lanes a selection orders by, most significant first,
+    as the JAX `_selection_outputs` builds them; rows tie-break by docid."""
+    kind, _k, order, _gather = select_spec
+    if kind == "limit":
+        return []
+    if kind == "order":
+        # dictIds packed mixed-radix into one int32; DESC as card_pad-1-id
+        key = None
+        for col, asc, card_pad, _source in order:
+            ids = cols[f"{col}.ids"].to(torch.int32)
+            term = ids if asc else (card_pad - 1) - ids
+            key = term if key is None else key * card_pad + term
+        return [key]
+    if kind == "ordertk":
+        (col, asc, _cp, _source), = order
+        key = monotone_keys_plain(cols[f"{col}.raw"], asc)[0]
+        # INT32_MAX is the JAX masked-row sentinel: valid keys stop below
+        return [key.clamp_max(INT32_MAX - 1)]
+    if kind == "ordermk":
+        words = []
+        for col, asc, _cp, source in order:
+            if source == "sv":
+                ids = cols[f"{col}.ids"].to(torch.int32)
+                words.append(ids if asc else ~ids)
+            else:
+                words.extend(monotone_keys_plain(cols[f"{col}.raw"], asc))
+        return words
+    raise ValueError(f"select kind {kind} is not a K6 masked_select kind")
+
+
+_GATHER_LANES = {"sv": "ids", "raw": "raw", "mv": "mv"}
+
+
+def gather_lane_key(col: str, source: str) -> str:
+    """The lane key ({col}.ids / .raw / .mv) a select spec gathers."""
+    return f"{col}.{_GATHER_LANES[source]}"
+
+
+def selection_outputs_plain(select_spec, cols: Dict[str, torch.Tensor],
+                            mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch K6: the matched docids sorted by their key words with
+    stable sorts from the least significant word (docid order breaks the
+    last ties, as `lax.top_k` and the iota key of `lax.sort` do), the
+    first k kept, -1 after them; the match count; each gathered column at
+    max(docid, 0)."""
+    _kind, k, _order, gather_cols = select_spec
+    m = mask.bool()
+    idx = torch.nonzero(m).reshape(-1)
+    for word in reversed(select_key_words(select_spec, cols)):
+        idx = idx[torch.sort(word[idx], stable=True).indices]
+    docids = torch.full((k,), -1, dtype=torch.int32, device=mask.device)
+    top = idx[:k]
+    docids[:top.shape[0]] = top.to(torch.int32)
+    out = {"sel.docids": docids, "sel.count": m.sum(dtype=torch.int32)}
+    safe = docids.clamp_min(0).long()
+    for col, source in gather_cols:
+        out[f"sel.{col}"] = cols[gather_lane_key(col, source)][safe]
+    return out
+
+
+def _select_terms(select_spec, cols) -> List[Tuple[torch.Tensor, int, int,
+                                                   bool, int]]:
+    """K6's key terms: (lane, mode, card_pad, asc, key words it adds)."""
+    kind, _k, order, _gather = select_spec
+    if kind not in _SELECT_KINDS:
+        raise ValueError(f"select kind {kind} is not a K6 masked_select "
+                         "kind")
+    terms = []
+    for col, asc, card_pad, source in order:
+        if source == "sv" and kind in ("order", "ordermk"):
+            # "order" packs every term into one word
+            terms.append((cols[f"{col}.ids"],
+                          _PACK if kind == "order" else _ID,
+                          int(card_pad), bool(asc),
+                          int(kind == "ordermk" or not terms)))
+        elif source == "raw" and kind in ("ordertk", "ordermk"):
+            lane = cols[f"{col}.raw"]
+            if kind == "ordertk" and lane.element_size() != 4:
+                raise ValueError("ordertk takes one int32 / float32 lane")
+            terms.append((lane, _MONO_CLAMP if kind == "ordertk" else _MONO,
+                          0, bool(asc), lane.element_size() // 4))
+        else:
+            raise ValueError(f"order term ({col}, {source}) of a {kind} "
+                             "selection")
+    if kind == "ordertk" and len(terms) != 1:
+        raise ValueError("ordertk orders by exactly one raw lane")
+    return terms
+
+
+def select_scratch_words(padded: int, k: int, n_words: int) -> int:
+    """int32 words of scratch K6 needs, as masked_select.cu decides them
+    (its tile size and merge passes live there only)."""
+    from pinot_tpu_torch.ops import build
+    fn = build.load("masked_select.cu").pinot_masked_select_scratch_words
+    fn.argtypes = [_LL, _I, _I]
+    fn.restype = ctypes.c_longlong
+    return int(fn(padded, k, n_words))
+
+
+def masked_select(select_spec, cols: Dict[str, torch.Tensor],
+                  mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One segment's selection: {"sel.docids" int32 [k] (-1 after the
+    valid rows), "sel.count" int32 scalar, "sel.<col>" [k] or [k, W] in
+    the lane's dtype}, as the JAX `_selection_outputs` returns them."""
+    _kind, k, _order, gather_cols = select_spec
+    padded, device = mask.shape[0], mask.device
+    _check_mask(mask)
+    terms = _select_terms(select_spec, cols)
+    for lane, mode, *_ in terms:
+        _check_lane(lane, "order lane", padded, device,
+                    _ID_DTYPES if mode in (_PACK, _ID) else _RAW_DTYPES)
+    gathers = []
+    for col, source in gather_cols:
+        lane = cols[gather_lane_key(col, source)]
+        _check_lane(lane, f"gather lane {col}", padded, device,
+                    _RAW_DTYPES if source == "raw" else _ID_DTYPES,
+                    2 if source == "mv" else 1)
+        gathers.append(lane)
+    n_words = sum(t[4] for t in terms)
+    if not 1 <= k <= min(MAX_SELECT_K, padded):
+        raise ValueError(f"select k {k} outside [1, min({MAX_SELECT_K}, "
+                         f"{padded})]")
+    if len(terms) > _MAX_SELECT_TERMS or n_words > _MAX_SELECT_WORDS or \
+            len(gathers) > _MAX_GATHERS:
+        raise ValueError(f"{len(terms)} order terms / {n_words} key words "
+                         f"/ {len(gathers)} gathers over the kernel's "
+                         "limits")
+    if device.type == "cpu":
+        return selection_outputs_plain(select_spec, cols, mask)
+    scratch_words = select_scratch_words(padded, k, n_words)
+    scratch = torch.empty(scratch_words, dtype=torch.int32, device=device)
+    docids = torch.empty(k, dtype=torch.int32, device=device)
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    outs = [torch.empty((k,) + tuple(g.shape[1:]), dtype=g.dtype,
+                        device=device) for g in gathers]
+    _launch("masked_select", device, mask.data_ptr(), padded, int(k),
+            _ptrs([t[0] for t in terms]),
+            _ints([_ELEM[t[0].dtype] for t in terms]),
+            _ints([t[1] for t in terms]), _ints([t[2] for t in terms]),
+            _ints([int(t[3]) for t in terms]), len(terms), n_words,
+            _ptrs(gathers),
+            _ints([g.element_size() * (g.shape[1] if g.dim() == 2 else 1)
+                   for g in gathers]),
+            _ptrs(outs), len(gathers), scratch.data_ptr(), scratch_words,
+            docids.data_ptr(), count.data_ptr())
+    res = {"sel.docids": docids, "sel.count": count}
+    for (col, _source), o in zip(gather_cols, outs):
+        res[f"sel.{col}"] = o
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Whole-plan dispatch
 # ---------------------------------------------------------------------------
 
@@ -733,21 +936,26 @@ def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
                        select_spec, cols: Dict[str, torch.Tensor], params,
                        num_docs: int, device=None) -> Dict[str, torch.Tensor]:
     """One segment plan: K1, then K3 (group-by), or K2, K4 and K5 as the
-    aggregations need them.
+    aggregations need them, and K6 for a selection.
 
     Returns the device outputs under the JAX package's names
     (stats.num_docs_matched, agg{i}, agg{i}.parts, agg{i}.count,
     agg{i}.vsum, agg{i}.min, agg{i}.max, group.count, gagg{i}.psums,
-    gagg{i}.csums, gagg{i}.min, gagg{i}.max). `device` is used only when
-    no lane is read at all."""
-    if select_spec is not None:
-        raise ValueError("selection is not a kernel of this slice")
+    gagg{i}.csums, gagg{i}.min, gagg{i}.max, sel.docids, sel.count,
+    sel.<col>). `device` is used only when no lane is read at all."""
     if cols:
         device = next(iter(cols.values())).device
     mask = filter_mask(padded, filter_spec, cols, params, num_docs, device)
+    outs: Dict[str, torch.Tensor] = {}
     if group_spec is not None:
-        return _group_outputs(mask, group_spec, cols)
-    return _agg_outputs(mask, agg_specs, cols)
+        outs = _group_outputs(mask, group_spec, cols)
+    elif agg_specs or select_spec is None:
+        outs = _agg_outputs(mask, agg_specs, cols)
+    if select_spec is not None:
+        sel = masked_select(select_spec, cols, mask)
+        outs.setdefault("stats.num_docs_matched", sel["sel.count"])
+        outs.update(sel)
+    return outs
 
 
 def _group_outputs(mask, group_spec, cols) -> Dict[str, torch.Tensor]:

@@ -1,9 +1,11 @@
 """Segment plan execution: run the device kernels, finish results host-side.
 
 Counterpart of pinot_tpu/query/execution.py. One dispatch per segment
-(K1, then K3, or K2 with K4 / K5: ops/kernels.py:run_segment_kernel) and one
-device→host pull: for a group-by only the non-empty groups cross, picked
-out on the device first, so a 2^21-slot table never crosses PCIe whole.
+(K1, then K3, or K2 with K4 / K5, and K6 for a selection:
+ops/kernels.py:run_segment_kernel) and one device→host pull: for a
+group-by only the non-empty groups cross, picked out on the device first,
+so a 2^21-slot table never crosses PCIe whole; a selection's [k] docids
+and gathered columns cross in the same single copy.
 The host finishers are the JAX package's (exact int64 shift-combine of
 part sums, histogram and dictId → value decode, mixed-radix key decode),
 reading the same output names.
@@ -54,30 +56,26 @@ def gather_operands(plan) -> Dict[str, torch.Tensor]:
 
 def pull(outs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Device tensors → numpy in ONE device→host copy: every output is
-    viewed as int32 words, concatenated on the device, copied once, and
-    cut back into arrays of the original dtypes and shapes."""
+    viewed as bytes, the widest elements first (so each output starts at
+    a multiple of its element size), concatenated on the device, copied
+    once, and cut back into arrays of the original dtypes and shapes."""
     if not outs:
         return {}
-    names = list(outs)
-    flat = [outs[n].contiguous().reshape(-1) for n in names]
-    words = torch.cat([f.view(torch.int32) if f.numel() else
-                       f.new_empty(0, dtype=torch.int32) for f in flat])
-    host = words.cpu().numpy()
+    names = sorted(outs, key=lambda n: -outs[n].element_size())
+    flat = [outs[n].contiguous().reshape(-1).view(torch.uint8)
+            for n in names]
+    host = torch.cat(flat).cpu().numpy()
     res: Dict[str, np.ndarray] = {}
     pos = 0
     for n, f in zip(names, flat):
-        nw = f.numel() * f.element_size() // 4
-        arr = host[pos:pos + nw].view(_np_dtype(f.dtype))
+        arr = host[pos:pos + f.numel()].view(_np_dtype(outs[n].dtype))
         res[n] = arr.reshape(tuple(outs[n].shape))
-        pos += nw
+        pos += f.numel()
     return res
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    return {torch.int32: np.dtype(np.int32),
-            torch.int64: np.dtype(np.int64),
-            torch.float32: np.dtype(np.float32),
-            torch.float64: np.dtype(np.float64)}[dtype]
+    return np.dtype(str(dtype).replace("torch.", ""))
 
 
 def execute_segment_plan(plan) -> IntermediateResultsBlock:
@@ -92,7 +90,7 @@ def _execute_segment_plan(plan) -> IntermediateResultsBlock:
     cols = gather_operands(plan)
     dev_outs = kernels.run_segment_kernel(
         segment.padded_docs, plan.filter_spec, plan.agg_specs,
-        plan.group_spec, None, cols, tuple(plan.params),
+        plan.group_spec, plan.select_spec, cols, tuple(plan.params),
         segment.num_docs, segment.device)
 
     blk = IntermediateResultsBlock()
@@ -101,8 +99,11 @@ def _execute_segment_plan(plan) -> IntermediateResultsBlock:
         _finish_group_by(plan, outs, blk)
     else:
         outs = pull(dev_outs)
-        _finish_aggregation(plan, outs, blk)
+        if plan.agg_specs:
+            _finish_aggregation(plan, outs, blk)
     matched = int(outs["stats.num_docs_matched"])
+    if plan.select_spec is not None:
+        _finish_selection(plan, outs, blk)
 
     n_leaves = _count_filter_leaves(plan.filter_spec)
     n_project = len({c for c, _ in plan.needed_cols})
@@ -134,6 +135,37 @@ def _nonempty_groups(outs: Dict[str, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
+
+
+def _decode_gather_columns(segment, gather_cols, outs) -> List:
+    """Per-column decoded value arrays of a selection's gathered lanes."""
+    col_values = []
+    for col, source in gather_cols:
+        ds = segment.data_source(col)
+        lane = np.asarray(outs[f"sel.{col}"])
+        if source == "sv":
+            vals = ds.dictionary.decode(np.clip(lane, 0,
+                                                ds.metadata.cardinality - 1))
+        elif source == "raw":
+            vals = lane
+        else:  # mv: [k, W] padded ids
+            card = ds.metadata.cardinality
+            vals = [[_plain(ds.dictionary.get(i)) for i in row if i < card]
+                    for row in lane]
+        col_values.append(vals)
+    return col_values
+
+
+def _finish_selection(plan, outs, blk) -> None:
+    """Rows of the valid docids, in the kernel's order, decoded."""
+    _kind, _k, _order, gather_cols = plan.select_spec
+    docids = np.asarray(outs["sel.docids"])
+    valid = docids >= 0
+    col_values = _decode_gather_columns(plan.segment, gather_cols, outs)
+    blk.selection_rows = [tuple(_plain(cv[r]) for cv in col_values)
+                          for r in range(len(docids)) if valid[r]]
+    blk.selection_columns = [c for c, _ in gather_cols]
+    blk.selection_display_cols = plan.select_display
 
 
 def _finish_aggregation(plan, outs, blk) -> None:

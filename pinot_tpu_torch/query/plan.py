@@ -1,20 +1,35 @@
 """Per-segment plan maker.
 
-Counterpart of pinot_tpu/query/plan.py for this slice: resolves the
-filter tree against each column's sorted dictionary host-side (so the
-card sees only integer compares and member bitsets), picks the device
-aggregation strategy, and builds the group-by spec.
+Counterpart of pinot_tpu/query/plan.py for the port's slices so far:
+resolves the filter tree against each column's sorted dictionary
+host-side (so the card sees only integer compares and member bitsets),
+picks the device aggregation strategy, builds the group-by spec, and
+plans selections (LIMIT / ORDER BY) as the JAX planner does.
 
 Supported here: filters over dictionary single-value and multi-value
-columns (eq_id, neq_id, range_ids, in_ids, notin_ids, member) and over
-numeric raw columns (eq_raw, neq_raw, in_raw, notin_raw, range_raw);
-COUNT, SUM, AVG, MIN, MAX, MINMAXRANGE, DISTINCTCOUNT and PERCENTILE over
-single-value columns; GROUP BY over dictionary single-value columns with
-COUNT, SUM, AVG, MIN, MAX and MINMAXRANGE. Every other shape (expression,
-HLL and multi-value aggregations, DISTINCTCOUNT / PERCENTILE in a
-group-by, raw or multi-value group keys, selection) raises
-UnsupportedOnDevice; there is no host fallback in this slice. Star-tree
-cubes and the inverted-index COUNT fast path are not used yet.
+columns (eq_id, neq_id, range_ids, in_ids, notin_ids, member), over
+numeric raw columns (eq_raw, neq_raw, in_raw, notin_raw, range_raw) and
+single-column expressions over a dictionary column (a member bitset over
+the transformed dictionary); COUNT, SUM, AVG, MIN, MAX, MINMAXRANGE,
+DISTINCTCOUNT and PERCENTILE over single-value columns; GROUP BY over
+dictionary single-value columns with COUNT, SUM, AVG, MIN, MAX and
+MINMAXRANGE; selections with the JAX planner's select specs ("limit",
+"order", "ordertk", "ordermk"); the metadata, match-all and
+inverted-index / sorted-range COUNT fast paths. Star-tree cubes are not
+used yet.
+
+Two kinds of refusal. UnsupportedOnDevice is raised exactly where the
+JAX planner raises it (DISTINCTCOUNT / PERCENTILE in a group-by, order
+keys over MV columns, k > MAX_SELECTION_K, non-numeric raw columns, ...)
+and GroupsLimitExceeded where it does; the executor answers those
+segments on the host twin (query/host_exec.py), as the JAX executor
+does. NotPorted is raised for the shapes the JAX planner runs on its
+device and this port has no kernel for yet (MV, raw and expression group
+keys, HLL, expression and multi-value aggregations, vector, join and
+window requests); nothing catches it, so the query raises instead of
+moving the card's work to the host. A segment that meets both raises
+UnsupportedOnDevice, as the JAX planner would: port gaps are collected
+while planning and raised only once the plan is otherwise complete.
 
 Design change from the JAX planner, on purpose: it picks TPU-shaped
 strategies (matrix-unit block compaction, adaptive min/max and histogram
@@ -33,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from pinot_tpu_torch.common import expression as expr_mod
+from pinot_tpu_torch.common.datatype import DataType
 from pinot_tpu_torch.common.request import BrokerRequest, FilterOperator, \
     FilterQueryTree
 from pinot_tpu_torch.ops import kernels
@@ -45,6 +61,7 @@ from pinot_tpu_torch.segment.loader import ImmutableSegment
 DEFAULT_NUM_GROUPS_LIMIT = 100_000     # parity: num.groups.limit
 IN_LIST_MEMBER_THRESHOLD = 16          # small IN → compare list, else
                                        # member bitset
+MAX_SELECTION_K = 1 << 16
 
 
 class GroupsLimitExceeded(Exception):
@@ -52,7 +69,12 @@ class GroupsLimitExceeded(Exception):
 
 
 class UnsupportedOnDevice(Exception):
-    """The query shape is not on this slice's device path."""
+    """The JAX planner refuses this shape too: the host twin answers it."""
+
+
+class NotPorted(Exception):
+    """The JAX planner runs this shape on its device; the port has no
+    kernel for it yet. The executor does not catch it."""
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +123,41 @@ def _resolve(node: FilterQueryTree, segment: ImmutableSegment, params: List
     return _resolve_leaf(node, segment, params)
 
 
+def _resolve_expr_leaf(node: FilterQueryTree, segment: ImmutableSegment,
+                       params: List) -> tuple:
+    """An expression filter → a member bitset over the transformed
+    dictionary (the JAX planner's _resolve_expr_leaf): the transform runs
+    once over the cardinality-sized value table on the host, and the card
+    sees only K1's member gather."""
+    expr = expr_mod.parse_expression(node.column)
+    srcs = expr_mod.columns_of(expr)
+    if len(srcs) != 1:
+        raise UnsupportedOnDevice("multi-column expression filter")
+    src = srcs[0]
+    ds = segment.data_source(src)
+    cm = ds.metadata
+    if not (cm.has_dictionary and cm.single_value):
+        raise UnsupportedOnDevice(
+            f"expression over non-dictionary/MV column {src}")
+    vals = np.asarray(ds.dictionary.values)
+    tv = np.asarray(expr_mod.evaluate(expr, lambda c: vals),
+                    dtype=np.float64)
+    card = cm.cardinality
+    card_pad = kernels.pow2_bucket(card + 1)
+    member = np.zeros(card_pad, dtype=bool)
+    member[:card] = _pred_over_values(node, tv)
+    if not member.any():
+        return EMPTY
+    if member[:card].all():
+        return MATCH_ALL
+    params.append(member)
+    return ("pred", "member", src, "sv", card_pad)
+
+
 def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
                   params: List) -> tuple:
     if expr_mod.is_expression(node.column):
-        raise UnsupportedOnDevice("expression filter")
+        return _resolve_expr_leaf(node, segment, params)
     ds = segment.data_source(node.column)
     cm = ds.metadata
     if not cm.has_dictionary:
@@ -237,6 +290,37 @@ def _resolve_raw_leaf(node: FilterQueryTree, ds, params: List) -> tuple:
     raise UnsupportedOnDevice(f"raw-column filter operator {op}")
 
 
+def _pred_over_values(node: FilterQueryTree, tv: np.ndarray) -> np.ndarray:
+    """Apply a numeric predicate to an array of (transformed) values (the
+    host twin's expression leaves)."""
+    op = node.operator
+    if op == FilterOperator.IS_NULL:
+        return np.zeros(len(tv), dtype=bool)   # transforms never yield null
+    if op == FilterOperator.IS_NOT_NULL:
+        return np.ones(len(tv), dtype=bool)
+    if op == FilterOperator.REGEXP_LIKE:
+        pat = _re.compile(node.values[0])
+        return np.array([bool(pat.search(str(v))) for v in tv])
+    if op == FilterOperator.EQUALITY:
+        return tv == float(node.values[0])
+    if op == FilterOperator.NOT:
+        return tv != float(node.values[0])
+    if op == FilterOperator.IN:
+        return np.isin(tv, [float(v) for v in node.values])
+    if op == FilterOperator.NOT_IN:
+        return ~np.isin(tv, [float(v) for v in node.values])
+    if op == FilterOperator.RANGE:
+        m = np.ones(len(tv), dtype=bool)
+        if node.lower is not None:
+            lo = float(node.lower)
+            m &= (tv >= lo) if node.lower_inclusive else (tv > lo)
+        if node.upper is not None:
+            hi = float(node.upper)
+            m &= (tv <= hi) if node.upper_inclusive else (tv < hi)
+        return m
+    raise UnsupportedOnDevice(f"expression filter operator {op}")
+
+
 # ---------------------------------------------------------------------------
 # Plan construction
 # ---------------------------------------------------------------------------
@@ -251,6 +335,8 @@ class SegmentPlan:
     params: Optional[List] = None
     agg_specs: Tuple = ()
     group_spec: Optional[tuple] = None
+    select_spec: Optional[tuple] = None
+    select_display: Optional[int] = None   # leading display columns
     needed_cols: Tuple[Tuple[str, str], ...] = ()   # (column, lane-kind)
     functions: List[AggregationFunction] = dataclasses.field(
         default_factory=list)
@@ -269,17 +355,21 @@ class InstancePlanMaker:
 
     def make_segment_plan(self, segment: ImmutableSegment,
                           request: BrokerRequest) -> SegmentPlan:
-        if request.is_selection or request.vector is not None or \
-                request.join is not None or request.windows:
-            raise UnsupportedOnDevice(
-                "selection / vector / join / window queries")
-        if not request.is_aggregation:
-            raise UnsupportedOnDevice("query without aggregation")
+        if request.vector is not None or request.join is not None or \
+                request.windows:
+            raise NotPorted("vector / join / window queries")
+        if not request.is_aggregation and not request.is_selection:
+            raise NotPorted("query without aggregation or selection")
         plan = SegmentPlan(segment=segment, request=request)
-        plan.functions = make_functions(request.aggregations)
+        if request.is_aggregation:
+            plan.functions = make_functions(request.aggregations)
+        count_only = request.is_aggregation and not request.is_group_by \
+            and all(f.info.base == "COUNT" and not f.info.is_mv
+                    for f in plan.functions)
 
         # fast path: no filter, metadata-answerable aggregations
-        if not request.is_group_by and request.filter is None and \
+        if request.is_aggregation and not request.is_group_by and \
+                request.filter is None and \
                 self._try_metadata_fast_path(plan, segment):
             return plan
 
@@ -289,25 +379,41 @@ class InstancePlanMaker:
             return plan
 
         # fast path: COUNT(*) on a pure match-all filter
-        if filter_spec == MATCH_ALL and not request.is_group_by and \
-                all(f.info.base == "COUNT" and not f.info.is_mv
-                    for f in plan.functions):
+        if filter_spec == MATCH_ALL and count_only:
             blk = IntermediateResultsBlock(
                 agg_intermediates=[segment.num_docs for _ in plan.functions])
             _fill_stats(blk, segment, segment.num_docs, 0, 0)
             plan.fast_path_result = blk
             return plan
 
+        # fast path: COUNT(*) + single EQ/IN/range leaf answered by the
+        # inverted index or the sorted ranges
+        if count_only:
+            cnt = self._try_inverted_count(segment, filter_spec, params)
+            if cnt is not None:
+                blk = IntermediateResultsBlock(
+                    agg_intermediates=[cnt for _ in plan.functions])
+                _fill_stats(blk, segment, cnt, 0, 0)
+                plan.fast_path_result = blk
+                return plan
+
         plan.filter_spec = filter_spec
         plan.params = params
 
         needed: Dict[Tuple[str, str], None] = {}
+        gaps: List[str] = []
         _collect_filter_cols(filter_spec, needed)
         if request.is_group_by:
-            self._plan_group_by(plan, segment, request, needed)
-        else:
+            self._plan_group_by(plan, segment, request, needed, gaps)
+        elif request.is_aggregation:
             plan.agg_specs = tuple(
-                _agg_device_spec(f, segment, needed) for f in plan.functions)
+                _agg_device_spec(f, segment, needed, gaps)
+                for f in plan.functions)
+        if request.is_selection:
+            self._plan_selection(plan, segment, request, needed)
+        if gaps:
+            # raised last, so that every JAX refusal above wins
+            raise NotPorted("; ".join(gaps))
         plan.needed_cols = tuple(needed.keys())
         return plan
 
@@ -335,20 +441,79 @@ class InstancePlanMaker:
         plan.fast_path_result = blk
         return True
 
+    def _try_inverted_count(self, segment: ImmutableSegment, spec: tuple,
+                            params: List) -> Optional[int]:
+        if spec[0] != "pred":
+            return None
+        _, kind, col, source, _extra = spec
+        if source != "sv":
+            return None
+        ds = segment.data_source(col)
+        if ds.inverted_index is not None:
+            if kind == "eq_id":
+                return ds.inverted_index.count(int(params[0]))
+            if kind == "in_ids":
+                ids = [int(i) for i in np.asarray(params[0]) if i >= 0]
+                return sum(ds.inverted_index.count(i) for i in ids)
+            if kind == "range_ids":
+                return ds.inverted_index.count_range(int(params[0]),
+                                                     int(params[1]))
+        if ds.sorted_ranges is not None:
+            r = ds.sorted_ranges
+            if kind == "eq_id":
+                s, e = r[int(params[0])]
+                return int(e - s)
+            if kind == "range_ids":
+                lo, hi = int(params[0]), int(params[1])
+                return int(r[lo:hi, 1].sum() - r[lo:hi, 0].sum())
+        return None
+
     def _plan_group_by(self, plan: SegmentPlan, segment: ImmutableSegment,
-                       request: BrokerRequest, needed: Dict) -> None:
+                       request: BrokerRequest, needed: Dict,
+                       gaps: List[str]) -> None:
+        """Dictionary single-value keys only; every other key is either a
+        JAX refusal or a gap, with its card counted as the JAX planner
+        counts it so the groups limit decides as there."""
         gcols = []
         cards = []
         for c in request.group_by.columns:
             if expr_mod.is_expression(c):
-                raise UnsupportedOnDevice("expression group key")
+                expr = expr_mod.parse_expression(c)
+                srcs = expr_mod.columns_of(expr)
+                if len(srcs) != 1:
+                    raise UnsupportedOnDevice(
+                        "multi-column expression group key")
+                cm = segment.data_source(srcs[0]).metadata
+                if expr_mod.valuein_parts(expr) is not None:
+                    if not cm.has_dictionary or cm.single_value:
+                        raise UnsupportedOnDevice(
+                            "valuein group key needs a dict MV column")
+                elif not (cm.has_dictionary and cm.single_value):
+                    raise UnsupportedOnDevice(
+                        f"expression group key over non-dict/MV column "
+                        f"{srcs[0]}")
+                gaps.append(f"expression group key {c}")
+                cards.append(cm.cardinality)
+                continue
             cm = segment.data_source(c).metadata
-            if not (cm.has_dictionary and cm.single_value):
-                raise UnsupportedOnDevice(
-                    f"group-by on raw or multi-value column {c}")
-            gcols.append((c, "ids", 0, cm.cardinality))
-            cards.append(cm.cardinality)
-            needed[(c, "ids")] = None
+            if cm.has_dictionary and cm.single_value:
+                gcols.append((c, "ids", 0, cm.cardinality))
+                cards.append(cm.cardinality)
+                needed[(c, "ids")] = None
+                continue
+            if cm.has_dictionary:
+                gaps.append(f"group-by on multi-value column {c}")
+                cards.append(cm.cardinality)
+                continue
+            if cm.single_value and cm.data_type.np_dtype.kind in "iu" and \
+                    cm.min_value is not None and \
+                    -2**31 <= int(cm.min_value) and \
+                    int(cm.max_value) < 2**31:
+                gaps.append(f"group-by on raw column {c}")
+                cards.append(int(cm.max_value) - int(cm.min_value) + 1)
+                continue
+            raise UnsupportedOnDevice(
+                f"group-by on non-dictionary/MV column {c}")
         g = int(np.prod(cards, dtype=np.int64))
         # per-query override (parity: the numGroupsLimit query option)
         limit = self.num_groups_limit
@@ -361,9 +526,79 @@ class InstancePlanMaker:
         strides = mixed_radix_strides(cards)
         g_pad = kernels.pow2_bucket(g)
         agg_specs = tuple(
-            _agg_device_spec(f, segment, needed, for_group=True)
+            _agg_device_spec(f, segment, needed, gaps, for_group=True)
             for f in plan.functions)
         plan.group_spec = (tuple(gcols), strides, g_pad, agg_specs, 0)
+
+
+    def _plan_selection(self, plan: SegmentPlan, segment: ImmutableSegment,
+                        request: BrokerRequest, needed: Dict) -> None:
+        """The JAX planner's select spec (pinot_tpu/query/plan.py:
+        _plan_selection), refusals included."""
+        sel = request.selection
+        cols = selection_columns(segment, request)
+        plan.select_display = len(cols)
+        # ORDER BY columns outside the display list ride along at the end
+        # of each row so cross-segment merges can re-sort; the reducer
+        # trims them via selection_display_cols
+        extras = [ob.column for ob in (sel.order_by or [])
+                  if ob.column not in cols]
+        gather = []
+        for c in cols + extras:
+            ds = segment.data_source(c)
+            if ds.metadata.data_type == DataType.VECTOR:
+                raise UnsupportedOnDevice(
+                    f"selection over VECTOR column {c}")
+            if not ds.metadata.has_dictionary:
+                if ds.metadata.data_type.np_dtype.kind not in "iuf":
+                    raise UnsupportedOnDevice(
+                        f"selection over non-numeric raw column {c}")
+                gather.append((c, "raw"))
+                needed[(c, "raw")] = None
+            elif ds.metadata.single_value:
+                gather.append((c, "sv"))
+                needed[(c, "ids")] = None
+            else:
+                gather.append((c, "mv"))
+                needed[(c, "mv")] = None
+        k = sel.offset + sel.size
+        if k > MAX_SELECTION_K:
+            raise UnsupportedOnDevice(f"selection k={k} too large")
+        k = min(kernels.pow2_bucket(k, floor=1), segment.padded_docs)
+        if not sel.order_by:
+            plan.select_spec = ("limit", k, (), tuple(gather))
+            return
+        order = []
+        packed_bits = 0
+        all_dict = True
+        single_lane_raw = False
+        for ob in sel.order_by:
+            cm = segment.data_source(ob.column).metadata
+            if cm.has_dictionary and cm.single_value:
+                # sorted dictionary ⇒ id order == value order
+                card_pad = cm.cardinality + 1
+                packed_bits += int(np.ceil(np.log2(max(card_pad, 2))))
+                order.append((ob.column, ob.ascending, card_pad, "sv"))
+                needed[(ob.column, "ids")] = None
+                continue
+            if not cm.has_dictionary and cm.single_value and \
+                    cm.data_type.is_numeric:
+                all_dict = False
+                single_lane_raw = cm.data_type.np_dtype.itemsize <= 4
+                order.append((ob.column, ob.ascending, 0, "raw"))
+                needed[(ob.column, "raw")] = None
+                continue
+            raise UnsupportedOnDevice(
+                f"order-by on MV/non-numeric-raw column {ob.column}")
+        if all_dict and packed_bits <= 30:
+            # one packed int32 key
+            plan.select_spec = ("order", k, tuple(order), tuple(gather))
+        elif len(order) == 1 and single_lane_raw:
+            # a single raw int32 / float32 key through the monotone map
+            plan.select_spec = ("ordertk", k, tuple(order), tuple(gather))
+        else:
+            # per-column key words: wide packings, raw columns, mixes
+            plan.select_spec = ("ordermk", k, tuple(order), tuple(gather))
 
 
 def mixed_radix_strides(cards) -> tuple:
@@ -378,43 +613,67 @@ def mixed_radix_strides(cards) -> tuple:
 
 #: aggregation base → the JAX planner's device function name
 _DEVICE_FNAMES = {
-    "SUM": "sum", "MIN": "min", "MAX": "max", "AVG": "avg",
-    "MINMAXRANGE": "minmaxrange", "DISTINCTCOUNT": "distinctcount",
+    "COUNT": "count", "SUM": "sum", "MIN": "min", "MAX": "max",
+    "AVG": "avg", "MINMAXRANGE": "minmaxrange",
+    "DISTINCTCOUNT": "distinctcount", "DISTINCTCOUNTHLL": "distinctcount",
+    "FASTHLL": "distinctcount", "DISTINCTCOUNTRAWHLL": "distinctcount",
     "PERCENTILE": "percentile", "PERCENTILEEST": "percentile",
     "PERCENTILETDIGEST": "percentile"}
 
 
 def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
-                     needed: Dict, for_group: bool = False) -> tuple:
+                     needed: Dict, gaps: List[str],
+                     for_group: bool = False) -> Optional[tuple]:
     """The JAX planner's device strategy for one aggregation
     (pinot_tpu/query/plan.py:_agg_device_spec), with the dense group
-    table always taken (kmax = 0)."""
+    table always taken (kmax = 0). Its refusals raise UnsupportedOnDevice
+    in the same order; the shapes it runs on its device that the port has
+    no kernel for yet go into `gaps` (and return None)."""
     base = f.info.base
     if base == "COUNT" and not f.info.is_mv:
         return ("count", "*", "none", None)
     col = f.column
-    if expr_mod.is_expression(col) or f.info.is_mv:
-        raise UnsupportedOnDevice("expression or multi-value aggregation")
-    if base not in _DEVICE_FNAMES:
-        raise UnsupportedOnDevice(f"{base} aggregation")
+    if expr_mod.is_expression(col):
+        if f.info.is_mv:
+            raise UnsupportedOnDevice("MV expression aggregation")
+        if for_group:
+            raise UnsupportedOnDevice(
+                "expression metric inside group-by (host path)")
+        srcs = expr_mod.columns_of(col)
+        if len(srcs) != 1:
+            raise UnsupportedOnDevice("multi-column expression aggregation")
+        cm = segment.data_source(srcs[0]).metadata
+        if not (cm.has_dictionary and cm.single_value):
+            raise UnsupportedOnDevice(
+                f"expression over non-dictionary/MV column {srcs[0]}")
+        gaps.append(f"expression aggregation {f.name}({col})")
+        return None
     fname = _DEVICE_FNAMES[base]
     cm = segment.data_source(col).metadata
-    if not cm.single_value:
-        raise UnsupportedOnDevice(f"aggregation over MV column {col}")
     if not cm.has_dictionary:
         if fname in ("percentile", "distinctcount"):
             raise UnsupportedOnDevice(f"{fname} over no-dictionary column")
-        if cm.data_type.np_dtype.kind not in "iuf":
-            raise UnsupportedOnDevice(f"{fname} over non-numeric {col}")
+        if f.info.is_mv or cm.data_type.np_dtype.kind not in "iuf":
+            gaps.append(f"{base} over raw column {col}")
+            return None
         needed[(col, "raw")] = None
         if for_group and fname in ("sum", "avg"):
             return (fname, col, "raw", ("csums",))
         return (fname, col, "raw", None)
     card_pad = kernels.pow2_bucket(cm.cardinality + 1)
+    if not cm.single_value:
+        if for_group:
+            raise UnsupportedOnDevice("group-by over MV metric")
+        gaps.append(f"{base} over MV column {col}")
+        return None
+    if for_group and fname in ("distinctcount", "percentile"):
+        raise UnsupportedOnDevice(f"group-by with {fname} aggregation")
+    if f.info.is_mv or base in ("DISTINCTCOUNTHLL", "FASTHLL",
+                                "DISTINCTCOUNTRAWHLL"):
+        gaps.append(f"{f.name} aggregation")
+        return None
     is_int_dict = cm.data_type.np_dtype.kind in "iu"
     if for_group:
-        if fname in ("distinctcount", "percentile"):
-            raise UnsupportedOnDevice(f"group-by with {fname} aggregation")
         if fname in ("sum", "avg"):
             if is_int_dict:
                 needed[(col, "parts")] = None
@@ -449,13 +708,25 @@ def _collect_filter_cols(spec: tuple, needed: Dict) -> None:
         needed[(col, {"sv": "ids", "mv": "mv", "raw": "raw"}[source])] = None
 
 
+def selection_columns(segment: ImmutableSegment, request: BrokerRequest
+                      ) -> List[str]:
+    """Expand SELECT * to the segment's physical columns."""
+    cols = request.selection.columns
+    if cols == ["*"]:
+        return [c for c in segment.column_names if not c.startswith("$")]
+    return list(cols)
+
+
 def _empty_block(plan: SegmentPlan, segment: ImmutableSegment
                  ) -> IntermediateResultsBlock:
     blk = IntermediateResultsBlock()
     if plan.request.is_group_by:
         blk.group_map = {}
-    else:
+    elif plan.request.is_aggregation:
         blk.agg_intermediates = [None for _ in plan.functions]
+    if plan.request.is_selection:
+        blk.selection_rows = []
+        blk.selection_columns = selection_columns(segment, plan.request)
     _fill_stats(blk, segment, 0, 0, 0)
     return blk
 

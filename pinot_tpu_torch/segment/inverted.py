@@ -2,8 +2,8 @@
 
 Counterpart of pinot_tpu/segment/inverted.py, the writer and the loader's
 reader (parity: OffHeapBitmapInvertedIndexCreator and
-BitmapInvertedIndexReader.java). The port's planner does not read the
-postings yet (no inverted-index COUNT fast path, no bitmap filters).
+BitmapInvertedIndexReader.java). The port's planner reads the posting
+counts for the inverted-index COUNT fast path; it has no bitmap filters.
 """
 from __future__ import annotations
 
@@ -48,3 +48,13 @@ class InvertedIndexReader:
         docids = np.asarray(d.load_array(fmt.INV_DOCIDS.format(col=col)))
         offsets = np.asarray(d.load_array(fmt.INV_OFFSETS.format(col=col)))
         return cls(docids, offsets, num_docs)
+
+    def postings(self, dict_id: int) -> np.ndarray:
+        return self.docids[self.offsets[dict_id]:self.offsets[dict_id + 1]]
+
+    def count(self, dict_id: int) -> int:
+        return int(self.offsets[dict_id + 1] - self.offsets[dict_id])
+
+    def count_range(self, lo: int, hi: int) -> int:
+        """Total postings for dictIds in [lo, hi) — O(1) from offsets."""
+        return int(self.offsets[hi] - self.offsets[lo])

@@ -16,12 +16,15 @@ tests/test_query_generator.py, which mirror Pinot's QueryGenerator.java):
 - `build_segment_dirs`: segments written by SegmentCreator, each from its
   own seed, so each has its own dictionaries, as a Pinot server sees them;
 - `Gen` and the `*_draws` functions: the generator's aggregation,
-  group-by and HAVING families with the reference's seeds, each draw as
-  its PQL and the row mask it selects;
+  group-by, HAVING, selection and two-key ORDER BY families with the
+  reference's seeds, each draw as its PQL and the row mask it selects,
+  and fixed queries that reach the strategies the draws may miss (among
+  them one selection of each select kind);
 - `Oracle`: the expected answers, computed with array compares, MV
-  membership over a padded value matrix, and `np.unique` + `np.add.at` /
-  `np.minimum.at` for group-bys. It shares no code with the planner or
-  the kernels.
+  membership over a padded value matrix, `np.unique` + `np.add.at` /
+  `np.minimum.at` for group-bys, and for selections a hash of each row's
+  value codes (the matched multiset) and `np.lexsort` (the top-k order
+  keys). It shares no code with the planner or the kernels.
 """
 from __future__ import annotations
 
@@ -44,9 +47,10 @@ POSITIONS = ["P", "C", "1B", "2B", "3B", "SS", "LF", "CF", "RF", "DH"]
 PLAYERS = [f"player_{i:03d}" for i in range(997)]
 
 SEED = 20260730          # the reference's generator seed
-N_AGG, N_GROUP, N_HAVING = 14, 12, 6
+N_AGG, N_GROUP, N_HAVING, N_SEL, N_ORDER = 14, 12, 6, 12, 8
 
-#: queries the draws may miss, one per device strategy
+#: queries the draws may miss: one per device strategy, the inverted-index
+#: COUNT path and a query the pruner answers alone
 FIXED_PQLS = {
     "percentile90_runs": "SELECT PERCENTILE90(runs) FROM baseballStats "
                          "WHERE yearID >= 2000",
@@ -59,7 +63,32 @@ FIXED_PQLS = {
                  "salary IN ({values})",
     "not_in_salary": "SELECT COUNT(*), MAX(salary) FROM baseballStats "
                      "WHERE salary NOT IN ({values}) AND runs > 100",
+    # answered from the inverted index's postings, no kernel
+    "count_inverted": "SELECT COUNT(*) FROM baseballStats WHERE teamID IN "
+                      "('BOS', 'NYA')",
+    # every segment's yearID max is below: the pruner drops them all
+    "pruned_years": "SELECT COUNT(*), MAX(salary) FROM baseballStats WHERE "
+                    "yearID > 2025",
 }
+
+
+#: one selection per select kind, at full scale: ordertk (a raw float32
+#: key), ordermk (a dictionary and a raw key), limit (every column: the MV
+#: and raw gathers) and order (three packed dictionary keys, k = 2048,
+#: every row)
+FIXED_SELECTIONS = {
+    "ordertk_salary": ("SELECT playerName, salary FROM baseballStats WHERE "
+                       "league = 'NL' ORDER BY salary DESC LIMIT 100"),
+    "ordermk_team_salary": ("SELECT teamID, yearID, salary FROM "
+                            "baseballStats WHERE runs > 100 ORDER BY "
+                            "teamID, salary LIMIT 50"),
+    "limit_star": "SELECT * FROM baseballStats WHERE yearID = 2005 LIMIT 20",
+    "order_runs_hits_player": ("SELECT runs, hits, playerName FROM "
+                               "baseballStats ORDER BY runs DESC, hits DESC, "
+                               "playerName LIMIT 2000"),
+}
+ALL_COLUMNS = ("teamID", "league", "playerName", "position", "runs", "hits",
+               "average", "salary", "yearID")
 
 
 def make_schema() -> Schema:
@@ -239,6 +268,16 @@ def concat_columns(parts: Sequence[Dict[str, object]]) -> Dict[str, object]:
 # ---------------------------------------------------------------------------
 
 
+def _value_bits(arr: np.ndarray) -> np.ndarray:
+    """Exact int64 codes of numbers: integers as they are, floats by bits."""
+    arr = np.asarray(arr)
+    if arr.dtype == np.float32:
+        return arr.view(np.int32).astype(np.int64)
+    if arr.dtype == np.float64:
+        return arr.view(np.int64)
+    return arr.astype(np.int64)
+
+
 class Oracle:
     """Expected answers over the whole table, from whole-array numpy."""
 
@@ -299,6 +338,61 @@ class Oracle:
         if isinstance(col, Categorical):
             return col.pool[col.codes[rows]]
         return col[rows]
+
+    # -- selections --------------------------------------------------------
+    def row_codes(self, name: str) -> np.ndarray:
+        """int64 [n]: each row's value of `name` as an exact code (pool
+        code, integer value, float bits, or an MV row's codes mixed-radix)."""
+        col = self.cols[name]
+        if isinstance(col, Categorical):
+            return np.asarray(col.codes, np.int64)
+        if isinstance(col, MultiValue):
+            radix = len(col.pool) + 1
+            out = np.zeros(len(col), np.int64)
+            for j in range(col.codes.shape[1] - 1, -1, -1):
+                out = out * radix + (col.codes[:, j] + 1)
+            return out
+        return _value_bits(col)
+
+    def value_codes(self, name: str, values: Sequence) -> np.ndarray:
+        """The codes of row_codes for values as a response returns them."""
+        col = self.cols[name]
+        if isinstance(col, Categorical):
+            return np.array([self._code(col, v) for v in values], np.int64)
+        if isinstance(col, MultiValue):
+            radix = len(col.pool) + 1
+            out = np.zeros(len(values), np.int64)
+            for i, row in enumerate(values):
+                codes = [self._code(col, v) + 1 for v in row]
+                codes += [0] * (col.codes.shape[1] - len(codes))
+                for c in reversed(codes):
+                    out[i] = out[i] * radix + c
+            return out
+        return _value_bits(np.asarray(values, dtype=col.dtype))
+
+    def sort_keys(self, name: str) -> np.ndarray:
+        """Per-row values in their order: pool codes for strings (the pool
+        is sorted), float64 for numbers."""
+        col = self.cols[name]
+        if isinstance(col, Categorical):
+            return np.asarray(col.codes, np.int64)
+        return np.asarray(col, np.float64)
+
+    def value_sort_keys(self, name: str, values: Sequence) -> np.ndarray:
+        col = self.cols[name]
+        if isinstance(col, Categorical):
+            return np.array([self._code(col, v) for v in values], np.int64)
+        return np.asarray(values, np.float64)
+
+    def top_order_keys(self, m: np.ndarray, order: Sequence[Tuple[str, bool]],
+                       limit: int) -> List[np.ndarray]:
+        """The order-key values of the first `limit` matched rows by
+        `order` ((column, descending) pairs), one array per key."""
+        rows = np.nonzero(m)[0]
+        keys = [self.sort_keys(c)[rows] for c, _desc in order]
+        first = np.lexsort([-k if desc else k for k, (_c, desc)
+                            in reversed(list(zip(keys, order)))])[:limit]
+        return [k[first] for k in keys]
 
     # -- aggregations ------------------------------------------------------
     def aggregate(self, name: str, col: Optional[str], m: np.ndarray,
@@ -464,17 +558,24 @@ class Gen:
 
 @dataclasses.dataclass(eq=False)
 class Draw:
-    family: str                  # aggregation | group_by | having
-    pql: str
+    family: str                  # aggregation | group_by | having |
+    pql: str                     # selection | order_by
     mask: np.ndarray
     aggs: list                   # entries of AGGS
     dims: Tuple[str, ...] = ()
     having: Optional[Tuple[str, int]] = None
+    columns: Tuple[str, ...] = ()              # a selection's columns,
+    limit: int = 0                             # its LIMIT
+    order: Tuple[Tuple[str, bool], ...] = ()   # and (column, descending)
 
     @property
-    def device_raises(self) -> bool:
-        """Group-by DISTINCTCOUNT has no device path (the JAX planner's
-        UnsupportedOnDevice too)."""
+    def is_selection(self) -> bool:
+        return bool(self.columns)
+
+    @property
+    def host_answered(self) -> bool:
+        """Group-by DISTINCTCOUNT has no device path: the planner refuses
+        it (as the JAX planner does) and the host twin answers it."""
         return self.family == "group_by" and \
             any(a[1] == "distinctcount" for a in self.aggs)
 
@@ -518,6 +619,68 @@ def having_draws(oracle: Oracle, n: int = N_HAVING, seed: int = SEED + 3
         yield Draw("having", pql, m, [AGGS[0]], tuple(dims), (op, thresh))
 
 
+def selection_draws(oracle: Oracle, n: int = N_SEL, seed: int = SEED + 2
+                    ) -> Iterator[Draw]:
+    """The reference's random selection family: 1-3 columns, LIMIT 5-20,
+    half of them ORDER BY one numeric column."""
+    gen = Gen(random.Random(seed), oracle)
+    for _ in range(n):
+        where, m = gen.where()
+        cols = gen.rng.sample(["teamID", "runs", "hits", "yearID"],
+                              gen.rng.randint(1, 3))
+        limit = gen.rng.randint(5, 20)
+        order = ()
+        if gen.rng.random() < 0.5:
+            ocol = gen.rng.choice(["runs", "hits", "yearID"])
+            desc = gen.rng.random() < 0.5
+            if ocol not in cols:
+                cols = cols + [ocol]
+            order = ((ocol, desc),)
+        pql = "SELECT " + ", ".join(cols) + " FROM baseballStats" + where
+        if order:
+            pql += f" ORDER BY {ocol} {'DESC' if desc else 'ASC'}"
+        pql += f" LIMIT {limit}"
+        yield Draw("selection", pql, m, [], columns=tuple(cols),
+                   limit=limit, order=order)
+
+
+def order_by_draws(oracle: Oracle, n: int = N_ORDER, seed: int = SEED + 9
+                   ) -> Iterator[Draw]:
+    """The reference's random two-key ORDER BY family (mixed ASC / DESC,
+    LIMIT 5-15)."""
+    gen = Gen(random.Random(seed), oracle)
+    for _ in range(n):
+        where, m = gen.where()
+        o1, o2 = gen.rng.sample(["runs", "hits", "yearID"], 2)
+        d1 = gen.rng.random() < 0.5
+        d2 = gen.rng.random() < 0.5
+        limit = gen.rng.randint(5, 15)
+        pql = (f"SELECT {o1}, {o2} FROM baseballStats{where} "
+               f"ORDER BY {o1} {'DESC' if d1 else 'ASC'}, "
+               f"{o2} {'DESC' if d2 else 'ASC'} LIMIT {limit}")
+        yield Draw("order_by", pql, m, [], columns=(o1, o2), limit=limit,
+                   order=((o1, d1), (o2, d2)))
+
+
+def fixed_selection_draws(oracle: Oracle) -> Iterator[Draw]:
+    """FIXED_SELECTIONS with their masks, columns and order."""
+    o = oracle
+    specs = {
+        "ordertk_salary": (o.eq("league", "NL"), ("playerName", "salary"),
+                           100, (("salary", True),)),
+        "ordermk_team_salary": (o.cmp("runs", ">", 100),
+                                ("teamID", "yearID", "salary"), 50,
+                                (("teamID", False), ("salary", False))),
+        "limit_star": (o.eq("yearID", 2005), ALL_COLUMNS, 20, ()),
+        "order_runs_hits_player": (o.all(), ("runs", "hits", "playerName"),
+                                   2000, (("runs", True), ("hits", True),
+                                          ("playerName", False))),
+    }
+    for name, (m, cols, limit, order) in specs.items():
+        yield Draw("selection", FIXED_SELECTIONS[name], m, [],
+                   columns=cols, limit=limit, order=order)
+
+
 def fixed_draws(oracle: Oracle) -> Iterator[Draw]:
     """FIXED_PQLS with their masks; the salary IN lists take values the
     table holds, and one it does not."""
@@ -551,16 +714,24 @@ def fixed_draws(oracle: Oracle) -> Iterator[Draw]:
                FIXED_PQLS["not_in_salary"].format(values=values),
                ~in_mask & oracle.cmp("runs", ">", 100),
                [agg["COUNT(*)"], agg["MAX(salary)"]])
+    yield Draw("aggregation", FIXED_PQLS["count_inverted"],
+               oracle.isin("teamID", ["BOS", "NYA"]), [agg["COUNT(*)"]])
+    yield Draw("aggregation", FIXED_PQLS["pruned_years"],
+               oracle.cmp("yearID", ">", 2025),
+               [agg["COUNT(*)"], agg["MAX(salary)"]])
 
 
 def all_draws(oracle: Oracle) -> Iterator[Tuple[str, Draw]]:
     """Every draw of the mix with its family for reporting: the draw's own,
-    or "fixed" for FIXED_PQLS."""
-    for gen in (aggregation_draws, group_by_draws, having_draws):
+    "fixed" for FIXED_PQLS or "fixed_selection" for FIXED_SELECTIONS."""
+    for gen in (aggregation_draws, group_by_draws, having_draws,
+                selection_draws, order_by_draws):
         for draw in gen(oracle):
             yield draw.family, draw
     for draw in fixed_draws(oracle):
         yield "fixed", draw
+    for draw in fixed_selection_draws(oracle):
+        yield "fixed_selection", draw
 
 
 # ---------------------------------------------------------------------------
@@ -599,14 +770,63 @@ def expected(oracle: Oracle, draw: Draw) -> list:
     return out
 
 
+def _hash_rows(codes: Sequence[np.ndarray]) -> np.ndarray:
+    """uint64 hash of each row's tuple of int64 codes."""
+    h = np.zeros(len(codes[0]), np.uint64)
+    with np.errstate(over="ignore"):
+        for c in codes:
+            h = h * np.uint64(0x9E3779B97F4A7C15) + c.astype(np.uint64)
+            h ^= h >> np.uint64(29)
+    return h
+
+
+def check_selection(resp, oracle: Oracle, draw: Draw) -> None:
+    """The reference harness's selection checks: the row count is
+    min(LIMIT, matched), every row is in the matched rows' multiset, and
+    the rows' order-key values equal the oracle's top LIMIT."""
+    res = resp.selection_results
+    if res is None or list(res.columns) != list(draw.columns):
+        raise AssertionError(f"{draw.pql}: columns "
+                             f"{None if res is None else res.columns}")
+    rows = res.results
+    matched = int(draw.mask.sum())
+    if len(rows) != min(draw.limit, matched):
+        raise AssertionError(f"{draw.pql}: {len(rows)} rows, want "
+                             f"{min(draw.limit, matched)}")
+    if not rows:
+        return
+    cols = list(draw.columns)
+    got = _hash_rows([oracle.value_codes(c, [r[i] for r in rows])
+                      for i, c in enumerate(cols)])
+    have = _hash_rows([oracle.row_codes(c)[draw.mask] for c in cols])
+    uniq, counts = np.unique(have, return_counts=True)
+    g_uniq, g_counts = np.unique(got, return_counts=True)
+    pos = np.minimum(np.searchsorted(uniq, g_uniq), len(uniq) - 1)
+    if not ((uniq[pos] == g_uniq) & (counts[pos] >= g_counts)).all():
+        raise AssertionError(f"{draw.pql}: a row is not among the matched "
+                             "rows")
+    if draw.order:
+        want = oracle.top_order_keys(draw.mask, draw.order, draw.limit)
+        for (col, _desc), w in zip(draw.order, want):
+            i = cols.index(col)
+            g = oracle.value_sort_keys(col, [r[i] for r in rows])
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{draw.pql}: ORDER BY {col} values "
+                                     "differ from the oracle's top rows")
+
+
 def check(resp, oracle: Oracle, draw: Draw) -> None:
     """Raise AssertionError unless `resp` answers `draw` as the oracle
     does: counts, DISTINCTCOUNT, MIN / MAX / MINMAXRANGE, PERCENTILE and
     integer sums exactly, float sums and averages within FLOAT_RTOL. As in
     the reference's harness, an aggregation other than COUNT over no rows
-    is not compared (its empty-result sentinel has golden tests)."""
+    is not compared (its empty-result sentinel has golden tests).
+    Selections: check_selection."""
     if resp.exceptions:
         raise AssertionError(f"{draw.pql}: {resp.exceptions}")
+    if draw.is_selection:
+        check_selection(resp, oracle, draw)
+        return
     want = expected(oracle, draw)
     matched = int(draw.mask.sum())
     for i, ((_fn, name, _col, tol), w) in enumerate(zip(draw.aggs, want)):

@@ -8,11 +8,13 @@ Builds the SSB table at scale factor --sf on the card (or, with --table
 baseball, writes the baseballStats table to segment directories under
 build/ and loads them with QueryEngine.from_dirs), runs each query once
 to upload the lanes (the 13 SSB queries, or every draw of the
-QueryGenerator mix the device answers), then --repeats times with each
-host layer timed (planner, kernel dispatch, device→host pull, finish,
-combine and reduce) and once more under torch.profiler for the card's
-busy time. Prints one JSON line per query, and writes them all to --out
-if given:
+QueryGenerator mix: aggregations, group-bys, HAVING, selections and
+two-key ORDER BYs, the fixed queries and selections, and the group-by
+DISTINCTCOUNT draws that the host twin answers, family "host"), then
+--repeats times with each layer timed (pruner, planner, kernel dispatch,
+device→host pull, finish, host twin, combine and reduce) and once more
+under torch.profiler for the card's busy time. Prints one JSON line per
+query, and writes them all to --out if given:
 
 - wall_ms: the query's median host wall time, ending in a synchronize;
 - layers_ms: median host time per layer per query (all segments);
@@ -95,22 +97,22 @@ def _ssb_engine(args):
 
 
 def _baseball_engine(args, base):
-    """baseballStats from disk; the queries are the mix's draws that the
-    device answers, named by family and position."""
+    """baseballStats from disk; the queries are the mix's draws, named by
+    family ("host" for those the host twin answers) and position."""
     from pinot_tpu_torch.engine import QueryEngine
     from pinot_tpu_torch.tools import baseball
     dirs, cols = baseball.build_segment_dirs(base, args.bb_rows,
                                              args.bb_segments, args.seed)
-    pqls = {f"{family}{i}": draw.pql for i, (family, draw) in
-            enumerate(baseball.all_draws(baseball.Oracle(cols)))
-            if not draw.device_raises}
+    pqls = {f"{'host' if draw.host_answered else family}{i}": draw.pql
+            for i, (family, draw) in
+            enumerate(baseball.all_draws(baseball.Oracle(cols)))}
     return QueryEngine.from_dirs(dirs), pqls, \
         {"table": "baseballStats", "rows": args.bb_rows,
          "segments": args.bb_segments}
 
 
 def profile(args, engine, pqls, tag) -> int:
-    from pinot_tpu_torch.query import execution, plan
+    from pinot_tpu_torch.query import execution, host_exec, plan
     from pinot_tpu_torch.query import executor as executor_mod
     from pinot_tpu_torch.query.reduce import BrokerReduceService
     for pql in pqls.values():
@@ -118,12 +120,15 @@ def profile(args, engine, pqls, tag) -> int:
     torch.cuda.synchronize()
 
     timer = LayerTimer()
+    timer.wrap(executor_mod.SegmentPrunerService, "prune", "prune")
     timer.wrap(plan.InstancePlanMaker, "make_segment_plan", "plan")
     timer.wrap(execution.kernels, "run_segment_kernel", "dispatch")
     timer.wrap(execution, "_nonempty_groups", "select_groups")
     timer.wrap(execution, "pull", "pull")
     timer.wrap(execution, "_finish_aggregation", "finish")
     timer.wrap(execution, "_finish_group_by", "finish")
+    timer.wrap(execution, "_finish_selection", "finish")
+    timer.wrap(host_exec, "execute_host", "host")
     timer.wrap(executor_mod, "combine_blocks", "combine")
     timer.wrap(BrokerReduceService, "reduce", "reduce")
     device = torch.cuda.get_device_name(0)

@@ -6,7 +6,9 @@ cover the filter kinds SSB does not use (NOT IN, <>, member bitsets from
 long IN lists and REGEXP_LIKE, OR), the match-all and metadata fast
 paths, AVG and COUNT in group-by, float sums (csums) over a float
 dictionary and a raw column, raw-column filters, MIN / MAX / MINMAXRANGE
-with and without group-by, DISTINCTCOUNT and PERCENTILE. Integer results equal the JAX engine's;
+with and without group-by, DISTINCTCOUNT and PERCENTILE, and a group-by
+DISTINCTCOUNT that the planner refuses and the host twin answers.
+Integer results equal the JAX engine's;
 float sums are held to a float64 numpy oracle within rtol 1e-12 and to
 the JAX engine within rtol 1e-6 (its compacted group path carries float
 lanes in float32).
@@ -21,7 +23,10 @@ from pinot_tpu.engine import QueryEngine as JaxQueryEngine
 from pinot_tpu.tools.datagen import make_segment_from_arrays as jax_make
 from pinot_tpu_torch.common.datatype import DataType
 from pinot_tpu_torch.engine import QueryEngine
-from pinot_tpu_torch.query.plan import UnsupportedOnDevice
+from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+from pinot_tpu_torch.pql.parser import compile_pql
+from pinot_tpu_torch.query.plan import InstancePlanMaker, \
+    UnsupportedOnDevice
 from pinot_tpu_torch.tools.datagen import make_segment_from_arrays
 
 N = 6000
@@ -138,9 +143,16 @@ def test_float_group_sums_match_numpy(engines):
 
 
 def test_unsupported_shape_raises(engines):
-    port, _ = engines
-    # DISTINCTCOUNT inside a group-by has no device path (the JAX
-    # planner's UnsupportedOnDevice too); the port has no host twin yet
+    port, jax_engine = engines
+    # DISTINCTCOUNT inside a group-by has no device path: the planner
+    # raises (the JAX planner's UnsupportedOnDevice too), and the engine
+    # answers it on the host twin, as the JAX engine does
+    pql = "SELECT DISTINCTCOUNT(v) FROM t WHERE k1 = 1 GROUP BY k2 TOP 10"
+    request = BrokerRequestOptimizer().optimize(compile_pql(pql))
     with pytest.raises(UnsupportedOnDevice):
-        port.query("SELECT DISTINCTCOUNT(v) FROM t WHERE k1 = 1 "
-                   "GROUP BY k2 TOP 10")
+        InstancePlanMaker().make_segment_plan(port.segments[0], request)
+    port.executor.reset_path_counts()
+    got = _rows(port.query(pql))
+    assert port.executor.path_counts == {"pruned": 0, "fast": 0, "scan": 0,
+                                         "host": 2}
+    assert got == _rows(jax_engine.query(pql))

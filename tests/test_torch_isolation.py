@@ -39,6 +39,10 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.segment.creator\n"
         "import pinot_tpu_torch.segment.integrity\n"
         "import pinot_tpu_torch.ops.build\n"
+        "import pinot_tpu_torch.query.executor\n"
+        "import pinot_tpu_torch.query.host_exec\n"
+        "import pinot_tpu_torch.query.pruner\n"
+        "import pinot_tpu_torch.common.partition\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or\n"

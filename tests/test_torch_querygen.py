@@ -12,8 +12,9 @@ engine's (counts, integer sums, MIN / MAX / MINMAXRANGE, PERCENTILE and
 DISTINCTCOUNT exactly; float sums and averages within rtol 1e-6, as in
 the port's SSB tests: the JAX compacted group path carries float lanes in
 float32) and meet the row-at-a-time tests/oracle.Oracle at the reference
-harness's tolerances. Group-by draws with DISTINCTCOUNT raise
-UnsupportedOnDevice in the port. A second test holds the port's
+harness's tolerances. Group-by draws with DISTINCTCOUNT have no device
+path: the planner raises UnsupportedOnDevice and the port's host twin
+answers them, held to the same checks. A second test holds the port's
 vectorised oracle to tests/oracle.Oracle on the same table and draws.
 """
 from __future__ import annotations
@@ -28,7 +29,6 @@ from oracle import Oracle as RowOracle
 from test_query_generator import SEED, Gen, _check_agg
 from pinot_tpu.engine import QueryEngine as JaxQueryEngine
 from pinot_tpu_torch.engine import QueryEngine
-from pinot_tpu_torch.query.plan import UnsupportedOnDevice
 from pinot_tpu_torch.tools import baseball
 
 N_PER_SEG = 2_500
@@ -121,23 +121,23 @@ def test_querygen_family_matches_jax_and_oracles(setup, family):
              "group_by": baseball.group_by_draws,
              "having": baseball.having_draws,
              "fixed": baseball.fixed_draws}[family](vec)
-    answered = raised = 0
+    answered = on_host = 0
     for draw in draws:
-        if draw.device_raises:
-            with pytest.raises(UnsupportedOnDevice):
-                port.query(draw.pql)
-            raised += 1
-            continue
+        port.executor.reset_path_counts()
         resp = port.query(draw.pql)
+        host = port.executor.path_counts["host"]
+        # the host twin answers exactly the draws the planner refuses
+        assert host == (2 if draw.host_answered else 0), draw.pql
+        on_host += bool(host)
         _assert_like_jax(resp, jax_engine.query(draw.pql), draw)
         if family != "fixed":
             _assert_like_row_oracle(resp, row, draw)
         baseball.check(resp, vec, draw)
         answered += 1
-    assert answered >= {"aggregation": 14, "group_by": 6, "having": 6,
-                        "fixed": 5}[family]
+    assert answered == {"aggregation": 14, "group_by": 12, "having": 6,
+                        "fixed": 7}[family]
     if family == "group_by":
-        assert raised == 12 - answered and raised > 0
+        assert on_host > 0
 
 
 @pytest.mark.parametrize("family", ["aggregation", "group_by", "having"])

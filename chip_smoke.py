@@ -26,12 +26,22 @@ non-zero exit and no result line:
    query give the p50.
 6. bb_data: the baseballStats table (Apache Pinot's quickstart schema),
    --bb-rows rows in --bb-segments segments, each written by the port's
-   SegmentCreator from its own seed into a directory under build/, then
-   loaded with QueryEngine.from_dirs on the card.
+   SegmentCreator from its own seed into a directory under build/, the
+   raw-key table (baseball.RAW_KEY_ROWS rows in one segment, runs, hits
+   and salary without a dictionary) and the MV metric table
+   (baseball.MV_METRIC_ROWS rows in one segment, a multi-value INT
+   column), then loaded with QueryEngine.from_dirs on the card.
 7. bb_kernel_check: K1 (raw and MV programs), K2 (runs and hits part
-   lanes), K3 (sums and min / max), K4 and K5 against their plain versions
-   on segment 0's lanes (min / max, counts, part sums and histograms
-   equal; float64 sums within CSUMS_RTOL), timed; K3 as in phase 4.
+   lanes), K3 (sums and min / max; MV keys over position alone, position
+   x league and valuein(position, ...) x league with count, SUM(hits)
+   and MIN(runs); raw keys on the raw-key segment), K4 (ids, and MV
+   entries of position), K5 (ids, raw, and MV entries of position and of
+   an int16 MV lane built for the check) and K7 (HLL registers of
+   playerName and teamID) against their plain versions on segment 0's
+   lanes (min / max, counts, part sums, histograms and registers equal;
+   float64 sums within CSUMS_RTOL), timed beside their bounds and, where
+   one PyTorch call does the same, that call (torch.bincount for K4,
+   scatter_reduce amax for K7); K3 as in phase 4.
 8. select_kernel_check: K6 against its plain version on segment 0's lanes
    for each select kind (limit; order on runs, hits and on the heavily
    tied league; ordertk on salary; ordermk on teamID, salary and on int64
@@ -42,14 +52,22 @@ non-zero exit and no result line:
    torch.topk on the masked int64 key (word, docid) for one key word),
    that call.
 9. baseball: launch and path counts set to 0, the aggregation, group-by,
-   HAVING, selection and two-key ORDER BY draws of the QueryGenerator mix
-   (the reference seeds) and the fixed queries and selections run once
-   and are checked against the vectorised oracle; the host twin must have
-   answered exactly the group-by DISTINCTCOUNT draws, and the pruner and
-   a fast path must have served segments; the launch counts read (all
-   six kernels must have launched); then --repeats timed runs
-   per device-answered query give the per-family p50 (the host-answered
-   draws are timed by their one checked run: numpy takes seconds on them).
+   HAVING, selection, two-key ORDER BY and MV group-by draws of the
+   QueryGenerator mix (the reference seeds), the fixed queries and
+   selections, one query per device shape (HLL, MV and expression
+   aggregations, expression, MV and valuein keys), the raw-key table's
+   group-bys and the MV metric table's queries (MINMV ... PERCENTILE50MV,
+   COUNTMV, DISTINCTCOUNTMV, GROUP BY a numeric MV column) run once and
+   are checked against the vectorised oracles; the host twin must have answered exactly the draws the JAX
+   planner refuses (the 5 group-by DISTINCTCOUNT draws and
+   COUNTMV(valuein(...))), and the pruner and a fast path must have
+   served segments; the launch counts read (all seven kernels must have
+   launched); then --repeats timed runs per device-answered query give
+   the per-family p50 (the host-answered draws are timed by their one
+   checked run: numpy takes seconds on them).
+10. timing: wall seconds per phase and per part of phase 9 (first runs
+   on the card, first runs on the host twin, oracle checks, timed
+   repeats).
 
 The last three lines are the card's name and power limit, the kernels
 JSON line and
@@ -131,8 +149,11 @@ def plan_operands(seg, pql):
 
 
 def group_operands(plan, cols):
+    from pinot_tpu_torch.ops import kernels as K
     gcols, strides, g_pad, gaggs, _ = plan.group_spec
-    keys = [cols[f"{c}.ids"] for c, *_ in gcols]
+    params = list(plan.group_params)
+    device = next(iter(cols.values())).device
+    keys = [K.spec_group_key(g, cols, params, device) for g in gcols]
     parts = [cols[f"{s[1]}.parts"] for s in gaggs if s[3] and
              s[3][0] == "psums"]
     floats = [cols[f"{s[1]}.{'vlane' if s[2] == 'sv' else 'raw'}"].double()
@@ -157,6 +178,7 @@ def k3_check(P, plan, cols, mask):
     keys, strides, g_pad, parts, floats, ext = group_operands(plan, cols)
     args = (mask, keys, strides, g_pad, parts, floats, ext)
     ref = K.dense_group_aggregate_plain(*args)
+    combos = int(ref[0].sum())       # (doc, MV entry combination) pairs
     n_l = sum(p.shape[0] for p in parts)
     n_raw = sum(e[0] == "raw" for e in ext)
     table = g_pad * (4 * (1 + n_l + len(ext) - n_raw) +
@@ -185,14 +207,17 @@ def k3_check(P, plan, cols, mask):
         raise AssertionError(f"dense_group_aggregate disagrees: int "
                              f"{int_err}, csums {f_err}, extremes equal "
                              f"{ext_equal}")
-    row_bytes = sum(k.element_size() for k in keys) + n_l + \
+    # each input read once: the mask, the matched rows' key entries (a [W]
+    # row per MV key) and metric lanes; the table written once
+    row_bytes = sum(k.lane.element_size() * k.width for k in keys) + n_l + \
         8 * len(floats) + sum(e[1].element_size() for e in ext)
     ms = {v: time_ms(lambda: K.dense_group_aggregate(*args, smem_slots=s))
           for v, s in variants.items()}
     plain = time_ms(lambda: K.dense_group_aggregate_plain(*args))
     b = bound(P + matched * row_bytes + table,
-              matched * (2 * len(keys) + 1 + n_l + len(floats) + len(ext)))
-    report = {"g_pad": g_pad, "table_bytes": table, "matched": matched,
+              combos * (2 * len(keys) + 1 + n_l + len(floats) + len(ext)))
+    report = {"g_pad": g_pad, "key_kinds": [k.kind for k in keys],
+              "table_bytes": table, "matched": matched, "combos": combos,
               "max_abs_err_int": int_err, "max_abs_err_csums": f_err,
               "part_lanes": n_l, "float_lanes": len(floats),
               "extremes": len(ext), "extremes_equal": ext_equal,
@@ -300,15 +325,30 @@ BB_K3_PQLS = {
     "playerName": "SELECT MIN(runs), MAX(salary), MINMAXRANGE(average), "
                   "MIN(hits) FROM baseballStats WHERE position = 'C' "
                   "GROUP BY playerName TOP 2000",
+    # MV keys ("mvids", "mvin"): count, SUM(hits) part sums, MIN(runs)
+    "position": "SELECT COUNT(*), SUM(hits), MIN(runs) FROM baseballStats "
+                "WHERE yearID >= 2000 GROUP BY position TOP 100",
+    "position x league": "SELECT COUNT(*), SUM(hits), MIN(runs) FROM "
+                         "baseballStats WHERE yearID >= 2000 GROUP BY "
+                         "position, league TOP 100",
+    "valuein(position) x league": "SELECT COUNT(*), SUM(hits), MIN(runs) "
+                                  "FROM baseballStats WHERE yearID >= 2000 "
+                                  "GROUP BY valuein(position, 'P', 'C', "
+                                  "'SS', 'CF'), league TOP 100",
 }
+#: the raw-key segment's K3 case ("rawoff" over int64 hits)
+BB_RAW_K3_PQL = "SELECT COUNT(*), SUM(runs), MIN(hits) FROM baseballStats " \
+    "WHERE yearID >= 2000 GROUP BY hits, league TOP 1000"
 #: the mask and part lanes of the K2, K4 and K5 cases
 BB_AGG_PQL = "SELECT SUM(runs), AVG(hits) FROM baseballStats WHERE " \
     "yearID >= 2000"
 
 
-def bb_kernel_check(seg):
-    """K1 raw / MV programs, K2, K3, K4 and K5 against their plain
-    versions on one baseballStats segment's lanes."""
+def bb_kernel_check(seg, raw_seg):
+    """K1 raw / MV programs, K2, K3 (MV, valuein and, on the raw-key
+    segment, raw keys), K4 (ids and MV entries), K5 (ids, raw and MV
+    entries) and K7 against their plain versions on one baseballStats
+    segment's lanes."""
     from pinot_tpu_torch.ops import kernels as K
     P, n = seg.padded_docs, seg.num_docs
     report, entries = [], {}
@@ -332,10 +372,12 @@ def bb_kernel_check(seg):
         if err:
             raise AssertionError(f"filter_mask disagrees on {case}")
 
-    for case, pql in BB_K3_PQLS.items():
-        plan, cols = plan_operands(seg, pql)
-        mask = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
-        r, _err, _ms, _plain, _b = k3_check(P, plan, cols, mask)
+    for case, pql, s in [(c, q, seg) for c, q in BB_K3_PQLS.items()] + \
+            [("rawoff hits x league", BB_RAW_K3_PQL, raw_seg)]:
+        plan, cols = plan_operands(s, pql)
+        mask = K.filter_mask(s.padded_docs, plan.filter_spec, cols,
+                             plan.params, s.num_docs)
+        r, _err, _ms, _plain, _b = k3_check(s.padded_docs, plan, cols, mask)
         report.append({"kernel": "dense_group_aggregate",
                        "case": f"baseball {case}", **r})
 
@@ -418,9 +460,121 @@ def bb_kernel_check(seg):
             entries["masked_reduce"] = dict(
                 max_abs_err=s_err, ms=r["ms"], plain_ms=r["plain_ms"],
                 bound=b, library_ms=None)
+    report.extend(mv_kernel_check(seg, mask))
+    report.extend(hll_kernel_check(seg, mask, entries))
     for r in report:
         emit({"phase": "bb_kernel_check", **r})
     return entries
+
+
+def mv_lanes(seg):
+    """position's MV lane and an int16 MV lane built for the check:
+    playerName's ids, 1-3 entries per row like position (padding entries
+    hold the cardinality, 997)."""
+    P, n = seg.padded_docs, seg.num_docs
+    ds = seg.data_source("position")
+    card = ds.metadata.cardinality
+    pos = ds.device_mv_dict_ids()
+    rng = np.random.default_rng(7)
+    wide = np.full((P, 3), 997, np.int16)
+    wide[:n] = rng.integers(0, 997, (n, 3))
+    width = rng.integers(1, 4, n)
+    wide[:n][np.arange(3)[None, :] >= width[:, None]] = 997
+    return {"position": (pos, card),
+            "int16 x 3": (torch.from_numpy(wide).to(pos.device), 997)}
+
+
+def mv_kernel_check(seg, mask):
+    """K4 over MV entries (position) and K5's MV entry min / max
+    (position, and an int16 MV lane), against their plain versions."""
+    from pinot_tpu_torch.ops import kernels as K
+    P = seg.padded_docs
+    matched = int(mask.sum())
+    report = []
+    for case, (lane, card) in mv_lanes(seg).items():
+        card_pad = K.pow2_bucket(card + 1)
+        W, esize = lane.shape[1], lane.element_size()
+        if case == "position":
+            got = K.masked_entry_histogram(mask, lane, card_pad, card)
+            ref = K.masked_entry_histogram_plain(mask, lane, card_pad, card)
+            equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+            flat = lane.reshape(-1).long()
+            weight = (mask.bool()[:, None] & (lane < card)).reshape(-1) \
+                .to(torch.float32)
+            b = bound(P + matched * W * esize + 4 * card_pad + 4,
+                      matched * W)
+            report.append({
+                "kernel": "masked_histogram", "case": f"baseball MV {case}",
+                "card_pad": card_pad, "width": W, "matched": matched,
+                "entries": int(ref[1]), "equal": equal, "max_abs_err": 0,
+                "ms": time_ms(lambda: K.masked_entry_histogram(
+                    mask, lane, card_pad, card)),
+                "plain_ms": time_ms(lambda: K.masked_entry_histogram_plain(
+                    mask, lane, card_pad, card)),
+                "library_ms": time_ms(lambda: torch.bincount(
+                    flat, weights=weight, minlength=card_pad)),
+                "bound_ms": b[0], "bound_by": b[1]})
+            if not equal:
+                raise AssertionError("masked_histogram disagrees on MV "
+                                     "position")
+        got = K.masked_reduce(mask, lane, "ids", card_pad, card=card)
+        ref = K.masked_reduce_plain(mask, lane, "ids", card_pad, card=card)
+        equal = all(got[k].dtype == ref[k].dtype and torch.equal(got[k],
+                                                                 ref[k])
+                    for k in ("min", "max", "count"))
+        b = bound(P + matched * W * esize + 24, 2 * matched * W)
+        report.append({
+            "kernel": "masked_reduce", "case": f"baseball MV {case}",
+            "width": W, "matched": matched, "min_max_count_equal": equal,
+            "min": int(got["min"]), "max": int(got["max"]),
+            "ms": time_ms(lambda: K.masked_reduce(mask, lane, "ids",
+                                                  card_pad, card=card)),
+            "plain_ms": time_ms(lambda: K.masked_reduce_plain(
+                mask, lane, "ids", card_pad, card=card)),
+            "bound_ms": b[0], "bound_by": b[1]})
+        if not equal:
+            raise AssertionError(f"masked_reduce disagrees on MV {case}")
+    return report
+
+
+def hll_kernel_check(seg, mask, entries):
+    """K7 on playerName and teamID, after K4 on the same mask; the
+    kernels-line entry is playerName's."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
+    m = 1 << DEFAULT_LOG2M
+    report = []
+    for col in ("playerName", "teamID"):
+        ds = seg.data_source(col)
+        card = ds.metadata.cardinality
+        card_pad = K.pow2_bucket(card + 1)
+        hist = K.masked_histogram(mask, ds.device_dict_ids(), card_pad)
+        idx, rank = ds.device_hll_idx(), ds.device_hll_rank()
+        got = K.hll_registers(hist, idx, rank, m)
+        ref = K.hll_registers_plain(hist, idx, rank, m)
+        equal = torch.equal(got, ref)
+        idx_long = idx.long()
+        zeros = torch.zeros(m, dtype=torch.int32, device=hist.device)
+        b = bound(12 * card_pad + 4 * m, card_pad)
+        r = {"kernel": "hll_registers", "case": f"baseball {col}",
+             "card": card, "card_pad": card_pad, "registers": m,
+             "nonzero_registers": int((got > 0).sum()), "equal": equal,
+             "max_abs_err": int((got - ref).abs().max()),
+             "ms": time_ms(lambda: K.hll_registers(hist, idx, rank, m)),
+             "plain_ms": time_ms(lambda: K.hll_registers_plain(
+                 hist, idx, rank, m)),
+             "library_ms": time_ms(lambda: zeros.scatter_reduce(
+                 0, idx_long, torch.where(hist > 0, rank, 0), "amax")),
+             "bound_ms": b[0], "bound_by": b[1]}
+        report.append(r)
+        if not equal:
+            raise AssertionError(f"hll_registers disagrees on {col}")
+        if col == "playerName":
+            entries["hll_registers"] = dict(
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound=b,
+                library_ms=r["library_ms"])
+    return report
 
 
 #: the select specs of the K6 check come from these plans (segment 0's
@@ -564,63 +718,87 @@ def run_ssb(engine, oracle, repeats: int):
     return launches
 
 
-def run_baseball(engine, oracle, repeats: int):
+def run_baseball(tables, repeats: int):
     """The baseballStats path: launch and path counts from 0, every draw
-    once, checked against the vectorised oracle; then the timed repeats of
-    the device-answered draws. Returns the path's launch counts."""
+    of the mix once, and the raw-key and MV metric tables' queries on their
+    own engines, checked against the vectorised oracles; then the timed
+    repeats of the device-answered draws. `tables`: (engine, oracle,
+    (family, draw) pairs), baseballStats first. Returns the path's launch
+    counts and its seconds per part."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.tools import baseball
-    draws = list(baseball.all_draws(oracle))
+    draws = [(f, d, e, o) for e, o, pairs in tables for f, d in pairs]
+    seconds = {"device_first_runs": 0.0, "host_first_runs": 0.0}
     K.reset_launch_counts()
-    engine.executor.reset_path_counts()
+    for e, _o, _p in tables:
+        e.executor.reset_path_counts()
     answered = []
-    for family, draw in draws:
-        host_before = engine.executor.path_counts["host"]
+    for family, draw, eng, orc in draws:
+        host_before = eng.executor.path_counts["host"]
         t = time.perf_counter()
-        resp = engine.query(draw.pql)
+        resp = eng.query(draw.pql)
         torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t) * 1e3
-        on_host = engine.executor.path_counts["host"] > host_before
-        answered.append((family, draw, resp, first_ms, on_host))
+        first_s = time.perf_counter() - t
+        on_host = eng.executor.path_counts["host"] > host_before
+        seconds["host_first_runs" if on_host else "device_first_runs"] += \
+            first_s
+        answered.append((family, draw, eng, orc, resp, first_s * 1e3,
+                         on_host))
     launches = K.launch_counts()
-    paths = dict(engine.executor.path_counts)
-    for _family, draw, resp, _ms, on_host in answered:
-        baseball.check(resp, oracle, draw)
+    paths = [dict(e.executor.path_counts) for e, _o, _p in tables]
+    t = time.perf_counter()
+    for family, draw, _e, orc, resp, _ms, on_host in answered:
+        baseball.check(resp, orc, draw)
         if on_host != draw.host_answered:
             raise AssertionError(f"{draw.pql}: answered on the host: "
                                  f"{on_host}, expected {draw.host_answered}")
-    host_draws = [d for _f, d, _r, _m, h in answered if h]
-    if not host_draws or any(d.is_selection for d in host_draws):
-        raise AssertionError(f"host path answered {len(host_draws)} draws")
-    if not paths["pruned"] or not paths["fast"]:
-        raise AssertionError(f"the pruner or a fast path never ran: {paths}")
+    seconds["oracle_checks"] = time.perf_counter() - t
+    host_draws = [a[1] for a in answered if a[6]]
+    # exactly the draws the JAX planner refuses: the 5 group-by
+    # DISTINCTCOUNT draws and the MV expression aggregation
+    n_refused = sum(d.host_answered for _f, d, _e, _o in draws)
+    if len(host_draws) != n_refused or n_refused != 6 or \
+            any(d.is_selection for d in host_draws):
+        raise AssertionError(f"host path answered {len(host_draws)} draws, "
+                             f"expected the {n_refused} refused ones")
+    if not paths[0]["pruned"] or not paths[0]["fast"]:
+        raise AssertionError(f"the pruner or a fast path never ran: "
+                             f"{paths[0]}")
+    for p in paths[1:]:
+        if p["host"] or not p["scan"]:
+            raise AssertionError(f"a raw-key or MV metric query left the "
+                                 f"card: {p}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the baseballStats "
                              f"path: {launches}")
     families = {}
-    for family, draw, _resp, first_ms, on_host in answered:
+    t = time.perf_counter()
+    for family, draw, eng, _o, _resp, first_ms, on_host in answered:
         if on_host:
             ts = [first_ms]
             family = f"{family}_host"
         else:
             ts = []
             for _ in range(repeats):
-                t = time.perf_counter()
-                engine.query(draw.pql)
+                t0 = time.perf_counter()
+                eng.query(draw.pql)
                 torch.cuda.synchronize()
-                ts.append((time.perf_counter() - t) * 1e3)
+                ts.append((time.perf_counter() - t0) * 1e3)
         families.setdefault(family, []).extend(ts)
         emit({"phase": "baseball", "family": family, "pql": draw.pql,
               "check": "pass", "matched": int(draw.mask.sum()),
               "host": on_host, "p50_ms": float(np.median(ts))})
+    seconds["timed_repeats"] = time.perf_counter() - t
     emit({"phase": "baseball_summary", "queries_passed": len(answered),
           "host_answered": len(host_draws),
           "p50_ms_by_family": {f: float(np.median(ts))
                                for f, ts in families.items()},
           "device_table_bytes": sum(s.device_bytes()
-                                    for s in engine.segments),
-          "segment_paths": paths, "launches": launches})
-    return launches
+                                    for s in tables[0][0].segments),
+          "segment_paths": paths[0], "raw_key_segment_paths": paths[1],
+          "mv_metric_segment_paths": paths[2], "launches": launches,
+          "seconds": seconds})
+    return launches, seconds
 
 
 def main() -> int:
@@ -632,6 +810,7 @@ def main() -> int:
     ap.add_argument("--bb-rows", type=int, default=10_000_000)
     ap.add_argument("--bb-segments", type=int, default=4)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -648,10 +827,12 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    seconds = {}                    # wall seconds per phase, host clock
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds["build"] = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": seconds["build"],
           "dir": str(build.build_dir()),
           "libs": {s: str(p) for s, p in libs.items()},
           "ptxas": build.BUILD_INFO.get("ptxas", {})})
@@ -662,12 +843,17 @@ def main() -> int:
     table = make_ssb_segments(rows, args.segments, seed=args.seed)
     engine = QueryEngine(table.segments)                  # on the card
     oracle = make_cpu_queries(table.pools, table.ids, table.supplycost)
+    seconds["data"] = time.perf_counter() - t0
     emit({"phase": "data", "scale_factor": args.sf, "rows": rows,
           "segments": args.segments,
           "padded_rows_per_segment": table.segments[0].padded_docs,
-          "seconds": time.perf_counter() - t0})
+          "seconds": seconds["data"]})
+    t0 = time.perf_counter()
     entries = kernel_check(engine.segments[0], SSB_PQLS)
+    seconds["kernel_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ssb_launches = run_ssb(engine, oracle, args.repeats)
+    seconds["ssb"] = time.perf_counter() - t0
     emit({"phase": "ssb_summary", "scale_factor": args.sf, "rows": rows,
           "queries_passed": len(SSB_PQLS),
           "device_table_bytes": sum(s.device_bytes()
@@ -685,20 +871,58 @@ def main() -> int:
         t0 = time.perf_counter()
         dirs, cols = baseball.build_segment_dirs(
             base, args.bb_rows, args.bb_segments, seed=args.seed)
-        build_s = time.perf_counter() - t0
+        seconds["bb_data_build"] = time.perf_counter() - t0
+        # the raw-key table: runs, hits and salary without a dictionary
+        t0 = time.perf_counter()
+        raw_dir, raw_cols = baseball.build_raw_key_dir(
+            base, baseball.RAW_KEY_ROWS, seed=args.seed + args.bb_segments)
+        seconds["bb_data_raw_key_build"] = time.perf_counter() - t0
+        # the MV metric table: a numeric MV column
+        t0 = time.perf_counter()
+        mv_dir, mv_cols = baseball.build_mv_metric_dir(
+            base, baseball.MV_METRIC_ROWS,
+            seed=args.seed + args.bb_segments + 1)
+        seconds["bb_data_mv_metric_build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         engine = QueryEngine.from_dirs(dirs)              # on the card
-        load_s = time.perf_counter() - t0
+        raw_engine = QueryEngine.from_dirs([raw_dir])
+        mv_engine = QueryEngine.from_dirs([mv_dir])
+        seconds["bb_data_load"] = time.perf_counter() - t0
         emit({"phase": "bb_data", "rows": args.bb_rows,
               "segments": args.bb_segments,
               "padded_rows_per_segment": engine.segments[0].padded_docs,
-              "build_seconds": build_s, "load_seconds": load_s,
+              "raw_key_rows": baseball.RAW_KEY_ROWS,
+              "mv_metric_rows": baseball.MV_METRIC_ROWS,
+              "build_seconds": seconds["bb_data_build"],
+              "raw_key_build_seconds": seconds["bb_data_raw_key_build"],
+              "mv_metric_build_seconds": seconds["bb_data_mv_metric_build"],
+              "load_seconds": seconds["bb_data_load"],
               "disk_bytes": sum(os.path.getsize(os.path.join(d, f))
-                                for d in dirs for f in os.listdir(d))})
+                                for d in dirs + [raw_dir, mv_dir]
+                                for f in os.listdir(d))})
         oracle = baseball.Oracle(cols)
-        entries.update(bb_kernel_check(engine.segments[0]))
+        raw_oracle = baseball.Oracle(raw_cols)
+        mv_oracle = baseball.Oracle(mv_cols)
+        t0 = time.perf_counter()
+        entries.update(bb_kernel_check(engine.segments[0],
+                                       raw_engine.segments[0]))
+        seconds["bb_kernel_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         entries.update(select_kernel_check(engine.segments[0]))
-        bb_launches = run_baseball(engine, oracle, args.repeats)
+        seconds["select_kernel_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bb_launches, bb_seconds = run_baseball(
+            [(engine, oracle, list(baseball.all_draws(oracle))),
+             (raw_engine, raw_oracle,
+              [("raw_group_by", d) for d in
+               baseball.raw_key_draws(raw_oracle)]),
+             (mv_engine, mv_oracle,
+              [("mv_metric", d) for d in
+               baseball.mv_metric_draws(mv_oracle)])], args.repeats)
+        seconds["baseball"] = time.perf_counter() - t0
+        seconds.update({f"baseball_{k}": v for k, v in bb_seconds.items()})
+    emit({"phase": "timing", "seconds": seconds,
+          "total_seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)
     line = []

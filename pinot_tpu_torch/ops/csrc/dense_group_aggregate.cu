@@ -1,43 +1,60 @@
 // K3 dense_group_aggregate: per-group count, exact int32 part sums,
 // float64 sums and min/max over a dense mixed-radix group table.
 //
-// Replaces pinot_tpu/ops/kernels.py:_group_key (:702, kind "ids"),
+// Replaces pinot_tpu/ops/kernels.py:_group_key (:702, kinds "ids" and
+// "rawoff"), _expand_mv_group (:1220, kinds "mvids" and "mvin"),
 // _dense_group_count (:402), _dense_group_part_sums (:407),
 // _dense_group_float_sums (:503), _dense_group_extreme (:529) and the
 // scatter fallback of _group_outputs (:1330-1390) for count / sum / avg /
 // min / max / minmaxrange.
 //
-// For every matched row: key = clip(sum_c ids_c * stride_c, 0, g_pad - 1)
-// in int32 (as at kernels.py:766-768), then
+// Key terms, one per group column c, in int32 with two's-complement wrap
+// as XLA computes them (kernels.py:766-768):
+//   ids:    the dictId lane's id;
+//   rawoff: (raw - offset) in the lane's own width (int32 or int64),
+//           then narrowed to int32;
+//   mvids:  one entry of the doc's [W] MV row; padding entries (id >=
+//           cardinality) drop the combination;
+//   mvin:   as mvids, and an entry outside the member table drops it too.
+// A doc with MV keys contributes once per cross-combination of its MV
+// keys' entries (the reference's aggregateGroupByMV): the first MV key
+// walks fastest, as _expand_mv_group's mixed-radix entry index does, and
+// each key position keeps its own entry index, so the same column as two
+// keys gives the full cross product. For every surviving combination:
+// key = clip(sum_c term_c * stride_c, 0, g_pad - 1), then
 //   count[key] += 1, psums[l][key] += parts_l[row], csums[j][key] += vals_j[row]
 //   idmin[e][key] = min(., ids_e[row]), idmax[e][key] = max(., ids_e[row])
 //   rawmin[e][key] = min(., double(raw_e[row])), rawmax likewise
-// and the total match count. The id tables start at the sentinels the JAX
-// function uses (card_pad for min, -1 for max, :1361-1377), the raw ones at
-// +inf / -inf in float64, the JAX package's sum_dtype (:1378-1390). Min and
-// max do not depend on the order of the rows, so they equal JAX exactly; a
-// NaN value wins, as XLA's min and max propagate NaN.
+// and the matched count counts docs, once each. The id tables start at the
+// sentinels the JAX function uses (card_pad for min, -1 for max,
+// :1361-1377), the raw ones at +inf / -inf in float64, the JAX package's
+// sum_dtype (:1378-1390). Min and max do not depend on the order of the
+// rows, so they equal JAX exactly; a NaN value wins, as XLA's min and max
+// propagate NaN.
 //
 // What bounds it: bytes, once the matched rows are few: one mask byte per
-// row, then for matched rows only their key ids, part bytes, values, plus
-// the group table written. With many matched rows landing in few groups,
-// contention on the atomics bounds it instead.
+// row, then for matched rows only their key ids (a [W] row per MV key),
+// part bytes, values, plus the group table written. With many matched
+// rows landing in few groups, contention on the atomics bounds it instead.
 //
 // What the design does about it: the TPU kernels built one-hot tiles for
-// the matrix unit because scatter is slow there; on Hopper an atomic is the
-// natural primitive, so this kernel does one pass over the rows and folds
-// matched rows straight into the table. When the table has at most
-// `smem_slots` slots (the caller's limit) and fits in a block's shared
-// memory, each block folds into its own copy there (shared atomics, so a
-// few hot groups no longer serialise on device memory) and merges it into
-// the device table at the end with one atomic per touched group.
-// Otherwise it folds into device memory directly. Int32 atomics make
-// counts and part sums exact; float64 atomicAdd (native on sm_90) makes
-// csums order-dependent, so they are held to a tolerance; Hopper has no
-// float64 atomicMin/Max, so those are compare-and-swap loops, skipped when
-// the stored value already wins. Rows that do not match cost one mask
-// byte. The int32 bound holds because the planner keeps P <= 2^24, so
-// 127 * rows < 2^31.
+// the matrix unit because scatter is slow there, and expanded MV keys
+// into a [P * W] row space in device memory; on Hopper an atomic is the
+// natural primitive, so this kernel does one pass over the docs, walks
+// each matched doc's MV entries in registers (no expansion is written)
+// and folds every combination straight into the table. When the table has
+// at most `smem_slots` slots (the caller's limit) and fits in a block's
+// shared memory, each block folds into its own copy there (shared
+// atomics, so a few hot groups no longer serialise on device memory) and
+// merges it into the device table at the end with one atomic per touched
+// group. Otherwise it folds into device memory directly. Int32 atomics
+// make counts and part sums exact; float64 atomicAdd (native on sm_90)
+// makes csums order-dependent, so they are held to a tolerance; Hopper has
+// no float64 atomicMin/Max, so those are compare-and-swap loops, skipped
+// when the stored value already wins. Rows that do not match cost one
+// mask byte. The int32 part sums stay exact while 127 * P * W_total <
+// 2^31 (W_total: the product of the MV keys' widths); the wrapper
+// launches the kernel on row slices that small and adds their tables.
 
 #include <math.h>
 
@@ -50,12 +67,22 @@ constexpr int kMaxParts = 16;
 constexpr int kMaxFloats = 8;
 constexpr int kMaxExt = 16;
 
+constexpr int kMaxCombos = 1 << 16;    // W_total: entries walked per doc
+
 enum ExtMode : int { kIdMin = 0, kIdMax = 1, kRawMin = 2, kRawMax = 3 };
+// key kinds, as ops/kernels.py:_KEY_KINDS codes them
+enum KeyKind : int { kIds = 0, kRawOff = 1, kMvIds = 2, kMvIn = 3 };
 
 struct KeyLanes {
   const void* ptr[kMaxKeys];
+  const uint8_t* member[kMaxKeys];   // mvin: bool [mlen]
+  long long offset[kMaxKeys];        // rawoff: subtracted in the lane's width
   int elem[kMaxKeys];
   int stride[kMaxKeys];
+  int kind[kMaxKeys];
+  int width[kMaxKeys];               // MV: entries per row; else 1
+  int limit[kMaxKeys];               // MV: cardinality (padding ids >= it)
+  int mlen[kMaxKeys];
 };
 
 struct PartLanes {
@@ -98,9 +125,31 @@ __device__ __forceinline__ void atomic_extreme(int* addr, int v, bool is_min) {
   }
 }
 
+// int32 arithmetic that wraps as XLA's does (signed overflow is undefined
+// in C++, unsigned is not)
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wrap_mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// the single-value term of key c for one row (kinds ids and rawoff)
+__device__ __forceinline__ int sv_term(const KeyLanes& k, int c, long long row) {
+  if (k.kind[c] == kRawOff) {
+    if (k.elem[c] == pinot::kI64)
+      return static_cast<int>(static_cast<const long long*>(k.ptr[c])[row] - k.offset[c]);
+    return static_cast<int>(
+        static_cast<unsigned>(static_cast<const int*>(k.ptr[c])[row]) -
+        static_cast<unsigned>(k.offset[c]));
+  }
+  return pinot::read_id(k.ptr[c], k.elem[c], row);
+}
+
 __global__ void dense_group_aggregate_kernel(
-    const uint8_t* __restrict__ mask, KeyLanes keys_p, int n_keys,
-    PartLanes parts_p, int n_parts, FloatLanes floats_p, int n_floats,
+    const uint8_t* __restrict__ mask, KeyLanes keys_p, int n_keys, int n_mv,
+    int w_total, PartLanes parts_p, int n_parts, FloatLanes floats_p, int n_floats,
     ExtLanes ext_p, int n_ext, int n_raw, long long padded, int g_pad, int use_smem,
     int* __restrict__ count, int* __restrict__ psums,
     double* __restrict__ csums, int* __restrict__ matched) {
@@ -149,16 +198,9 @@ __global__ void dense_group_aggregate_kernel(
     __syncthreads();
   }
 
-  int local = 0;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       row < padded; row += step) {
-    if (!mask[row]) continue;
-    int key = 0;
-    for (int c = 0; c < n_keys; ++c)
-      key += pinot::read_id(keys.ptr[c], keys.elem[c], row) * keys.stride[c];
+  // fold one (row, group key) pair into the tables
+  auto fold = [&](long long row, int key) {
     key = min(max(key, 0), g_pad - 1);
-    ++local;
     atomicAdd(t_count + key, 1);
     for (int l = 0; l < n_parts; ++l) {
       const int p = parts.ptr[l][row];
@@ -176,6 +218,38 @@ __global__ void dense_group_aggregate_kernel(
         int* t = use_smem ? t_idext : static_cast<int*>(ext.out[e]);
         atomic_extreme(t + slot, pinot::read_id(ext.ptr[e], ext.elem[e], row), m == kIdMin);
       }
+    }
+  };
+
+  int local = 0;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       row < padded; row += step) {
+    if (!mask[row]) continue;
+    ++local;
+    int base = 0;                       // the single-value keys' part
+    for (int c = 0; c < n_keys; ++c)
+      if (keys.kind[c] == kIds || keys.kind[c] == kRawOff)
+        base = wrap_add(base, wrap_mul(sv_term(keys, c, row), keys.stride[c]));
+    if (n_mv == 0) {
+      fold(row, base);
+      continue;
+    }
+    // the cross product of the MV keys' entries, first MV key fastest
+    for (int t = 0; t < w_total; ++t) {
+      int key = base, rem = t;
+      bool keep = true;
+      for (int c = 0; c < n_keys && keep; ++c) {
+        const int kind = keys.kind[c];
+        if (kind != kMvIds && kind != kMvIn) continue;
+        const int w = keys.width[c];
+        const int id = pinot::read_id(keys.ptr[c], keys.elem[c], row * w + rem % w);
+        rem /= w;
+        keep = id < keys.limit[c] &&
+               (kind != kMvIn || keys.member[c][min(max(id, 0), keys.mlen[c] - 1)]);
+        key = wrap_add(key, wrap_mul(id, keys.stride[c]));
+      }
+      if (keep) fold(row, key);
     }
   }
 
@@ -208,7 +282,10 @@ __global__ void dense_group_aggregate_kernel(
 
 extern "C" int pinot_dense_group_aggregate(
     const void* mask, const void* const* key_ptrs, const int* key_elems,
-    const int* key_strides, int n_keys, const void* const* part_ptrs,
+    const int* key_strides, const int* key_kinds, const int* key_widths,
+    const int* key_limits, const long long* key_offsets,
+    const void* const* key_members, const int* key_mlens, int n_keys,
+    const void* const* part_ptrs,
     int n_parts, const void* const* float_ptrs, int n_floats,
     const void* const* ext_ptrs, const int* ext_elems, const int* ext_modes,
     const int* ext_inits, void* const* ext_outs, int n_ext,
@@ -219,10 +296,28 @@ extern "C" int pinot_dense_group_aggregate(
       g_pad < 1)
     return -1;
   KeyLanes keys{};
+  int n_mv = 0;
+  long long w_total = 1;
   for (int c = 0; c < n_keys; ++c) {
+    const int kind = key_kinds[c];
+    if (kind < kIds || kind > kMvIn) return -1;
     keys.ptr[c] = key_ptrs[c];
     keys.elem[c] = key_elems[c];
     keys.stride[c] = key_strides[c];
+    keys.kind[c] = kind;
+    keys.width[c] = key_widths[c];
+    keys.limit[c] = key_limits[c];
+    keys.offset[c] = key_offsets[c];
+    keys.member[c] = static_cast<const uint8_t*>(key_members[c]);
+    keys.mlen[c] = key_mlens[c];
+    if (kind == kMvIds || kind == kMvIn) {
+      if (key_widths[c] < 1 || (kind == kMvIn && (key_members[c] == nullptr ||
+                                                  key_mlens[c] < 1)))
+        return -1;
+      ++n_mv;
+      w_total *= key_widths[c];
+      if (w_total > kMaxCombos) return -1;
+    }
   }
   PartLanes parts{};
   for (int l = 0; l < n_parts; ++l)
@@ -261,7 +356,8 @@ extern "C" int pinot_dense_group_aggregate(
   const int grid = pinot::grid_for(dense_group_aggregate_kernel, padded, smem);
   dense_group_aggregate_kernel<<<grid, pinot::kThreads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), keys, n_keys, parts, n_parts, floats,
+      static_cast<const uint8_t*>(mask), keys, n_keys, n_mv, static_cast<int>(w_total),
+      parts, n_parts, floats,
       n_floats, ext, n_ext, n_raw, padded, g_pad, use_smem, static_cast<int*>(count),
       static_cast<int*>(psums), static_cast<double*>(csums),
       static_cast<int*>(matched));

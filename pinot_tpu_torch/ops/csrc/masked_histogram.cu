@@ -3,15 +3,23 @@
 // Replaces pinot_tpu/ops/kernels.py:_histogram (:566), which takes
 // _mxu_histogram (:354, one-hot matrix products built from _cmp_onehot
 // :308 and _radix_onehots :324) up to DENSE_CARD_LIMIT and a scatter-add
-// above it: out[v] = number of rows with mask[row] != 0 and ids[row] == v,
-// for v in [0, card_pad). Ids outside that range count nowhere, as the
-// one-hot compare drops them. The planner uses it for DISTINCTCOUNT,
-// PERCENTILE and SUM / AVG over a float dictionary (the host finishes each
-// from the counts and the dictionary).
+// above it, and the MV entry histogram of _agg_outputs (:638-652):
+// out[v] = number of entries e of rows with mask[row] != 0 and
+// ids[row, e] == v, for v in [0, limit), where a single-value lane has one
+// entry per row and limit = card_pad (ids outside count nowhere, as the
+// one-hot compare drops them), and an MV lane [P, W] has W with limit =
+// the cardinality (padding entries, id == cardinality, count nowhere, as
+// the JAX entry mask drops them). `total`, when given, receives the number
+// of entries counted: COUNTMV's answer, the JAX hist[:card].sum(). The
+// planner uses it for DISTINCTCOUNT, PERCENTILE, SUM / AVG over a float
+// dictionary, expression aggregations, the HLL registers' present set (K7
+// reads it) and the MV aggregations (the host finishes each from the
+// counts and the dictionary).
 //
-// What bounds it: bytes, one mask byte per row and one id for each matched
-// row, plus the table written; unless many matched rows share few ids, when
-// atomics on the same address serialise (teamID has 16 values).
+// What bounds it: bytes, one mask byte per row and one id (a [W] row for
+// MV) for each matched row, plus the table written; unless many matched
+// rows share few ids, when atomics on the same address serialise (teamID
+// has 16 values, position 10).
 //
 // What the design does about it: the TPU built one-hot tiles for the
 // matrix unit; on Hopper the histogram is an atomic increment. When the
@@ -30,39 +38,54 @@ constexpr int kMaxSmemBins = 16384;        // 64 KB of int32 counts
 
 __global__ void masked_histogram_kernel(const uint8_t* __restrict__ mask,
                                         const void* __restrict__ ids,
-                                        int elem, long long padded,
-                                        int card_pad, int use_smem,
-                                        int* __restrict__ out) {
+                                        int elem, long long padded, int width,
+                                        int limit, int card_pad, int use_smem,
+                                        int* __restrict__ out,
+                                        int* __restrict__ total) {
   extern __shared__ int bins[];
+  __shared__ int scratch[32];
   int* table = out;
   if (use_smem) {
     for (int b = threadIdx.x; b < card_pad; b += blockDim.x) bins[b] = 0;
     __syncthreads();
     table = bins;
   }
+  int local = 0;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        row < padded; row += step) {
     if (!mask[row]) continue;
-    const int v = pinot::read_id(ids, elem, row);
-    if (v >= 0 && v < card_pad) atomicAdd(table + v, 1);
+    for (int e = 0; e < width; ++e) {
+      const int v = pinot::read_id(ids, elem, row * width + e);
+      if (v >= 0 && v < limit) {
+        atomicAdd(table + v, 1);
+        ++local;
+      }
+    }
   }
   if (use_smem) {
     __syncthreads();
     for (int b = threadIdx.x; b < card_pad; b += blockDim.x)
       if (bins[b] != 0) atomicAdd(out + b, bins[b]);
   }
+  if (total != nullptr) {
+    const int n = pinot::block_sum(local, scratch);
+    if (threadIdx.x == 0 && n != 0) atomicAdd(total, n);
+  }
 }
 
 }  // namespace
 
 extern "C" int pinot_masked_histogram(const void* mask, const void* ids,
-                                      int elem, long long padded,
-                                      int card_pad, void* out, void* stream) {
-  if (card_pad < 1 || elem < pinot::kI8 || elem > pinot::kI32) return -1;
+                                      int elem, long long padded, int width,
+                                      int limit, int card_pad, void* out,
+                                      void* total, void* stream) {
+  if (card_pad < 1 || width < 1 || limit < 0 || limit > card_pad ||
+      elem < pinot::kI8 || elem > pinot::kI32)
+    return -1;
   const int use_smem = card_pad <= kMaxSmemBins ? 1 : 0;
   const size_t smem = use_smem ? static_cast<size_t>(card_pad) * sizeof(int) : 0;
-  if (smem > 48 * 1024) {
+  if (smem + sizeof(int) * 32 > 48 * 1024) {   // the static scratch counts too
     const cudaError_t rc = cudaFuncSetAttribute(
         masked_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -71,7 +94,7 @@ extern "C" int pinot_masked_histogram(const void* mask, const void* ids,
   const int grid = pinot::grid_for(masked_histogram_kernel, padded, smem);
   masked_histogram_kernel<<<grid, pinot::kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), ids, elem, padded, card_pad,
-      use_smem, static_cast<int*>(out));
+      static_cast<const uint8_t*>(mask), ids, elem, padded, width, limit,
+      card_pad, use_smem, static_cast<int*>(out), static_cast<int*>(total));
   return static_cast<int>(cudaGetLastError());
 }

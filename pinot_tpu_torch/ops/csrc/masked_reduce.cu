@@ -2,9 +2,11 @@
 // count, min and max, and the float64 sum of each 8192-row block.
 //
 // Replaces pinot_tpu/ops/kernels.py:_chunked_float_sum (:281) and the
-// id and raw min/max branches of _agg_outputs (:579-682):
+// id, MV and raw min/max branches of _agg_outputs (:579-682):
 //   id lane (int8 / int16 / int32 dictIds): min = min(where(mask, ids,
 //     card_pad)), max = max(where(mask, ids, -1)), as int32 (:661-667);
+//   MV id lane [P, W]: the same over the entries of matched rows that are
+//     not padding (id < cardinality, the JAX entry mask, :653-660);
 //   raw lane (int32 / int64 / float32 / float64): min = min(where(mask,
 //     vals, +inf)), max = max(where(mask, vals, -inf)) (:668-682). JAX
 //     promotes an integer lane to float64 there, and keeps a float lane's
@@ -15,8 +17,8 @@
 //   sums[b] = sum over matched rows of block b of double(vals[row]), one
 //     partial per 8192-row block (the JAX output, summed on the host).
 //
-// What bounds it: bytes: one mask byte and one lane element per row; the
-// outputs are P / 8192 doubles and a few scalars.
+// What bounds it: bytes: one mask byte and one lane element (a [W] row
+// for MV) per row; the outputs are P / 8192 doubles and a few scalars.
 //
 // What the design does about it: one thread block per 8192-row block, so
 // each partial is written by exactly one block with no atomics, and the
@@ -73,7 +75,8 @@ __device__ __forceinline__ unsigned long long warp_max_u(unsigned long long v) {
 
 __global__ void masked_reduce_kernel(const uint8_t* __restrict__ mask,
                                      const void* __restrict__ lane, int elem,
-                                     int is_ids, int card_pad, int want_sum,
+                                     int width, int limit, int is_ids,
+                                     int card_pad, int want_sum,
                                      unsigned long long* __restrict__ state,
                                      double* __restrict__ sums,
                                      void* __restrict__ out_min,
@@ -94,15 +97,19 @@ __global__ void masked_reduce_kernel(const uint8_t* __restrict__ mask,
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     if (!m[k]) continue;
-    const double v = pinot::read_value(lane, elem, base + k * kThreadsR);
     ++cnt;
-    sum += v;
-    if (isnan(v)) {
-      nan = 1;
-    } else {
-      const unsigned long long e = enc(v);
-      lo = ~e > lo ? ~e : lo;
-      hi = e > hi ? e : hi;
+    const long long row = base + k * kThreadsR;
+    for (int w = 0; w < width; ++w) {
+      const double v = pinot::read_value(lane, elem, row * width + w);
+      if (is_ids && v >= limit) continue;      // an MV padding entry
+      sum += v;
+      if (isnan(v)) {
+        nan = 1;
+      } else {
+        const unsigned long long e = enc(v);
+        lo = ~e > lo ? ~e : lo;
+        hi = e > hi ? e : hi;
+      }
     }
   }
   const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -171,15 +178,18 @@ __global__ void masked_reduce_kernel(const uint8_t* __restrict__ mask,
 }  // namespace
 
 extern "C" int pinot_masked_reduce(const void* mask, const void* lane, int elem,
-                                   int is_ids, int card_pad, int want_sum,
-                                   long long padded, void* state, void* sums,
-                                   void* out_min, void* out_max, void* out_count,
-                                   void* stream) {
-  if (padded <= 0 || padded % kRows != 0 || elem < pinot::kI8 || elem > pinot::kF64) return -1;
+                                   int width, int limit, int is_ids, int card_pad,
+                                   int want_sum, long long padded, void* state,
+                                   void* sums, void* out_min, void* out_max,
+                                   void* out_count, void* stream) {
+  if (padded <= 0 || padded % kRows != 0 || elem < pinot::kI8 || elem > pinot::kF64 ||
+      width < 1 || (width > 1 && (!is_ids || want_sum)))
+    return -1;
   const long long blocks = padded / kRows;
   masked_reduce_kernel<<<static_cast<unsigned>(blocks), kThreadsR, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), lane, elem, is_ids, card_pad, want_sum,
+      static_cast<const uint8_t*>(mask), lane, elem, width, limit, is_ids, card_pad,
+      want_sum,
       static_cast<unsigned long long*>(state), static_cast<double*>(sums), out_min,
       out_max, static_cast<int*>(out_count));
   return static_cast<int>(cudaGetLastError());

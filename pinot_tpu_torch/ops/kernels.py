@@ -11,18 +11,23 @@ short fixed sequence of kernels written by hand for Hopper
 - K2 `masked_part_sums`: exact sums of bit-sliced part lanes + the match
   count (replaces `_part_sums` and the masked count);
 - K3 `dense_group_aggregate`: mixed-radix group key → per-group count,
-  int32 part sums, float64 sums and min / max (replaces `_group_key` kind
-  "ids", `_dense_group_count`, `_dense_group_part_sums`,
+  int32 part sums, float64 sums and min / max (replaces `_group_key` kinds
+  "ids" and "rawoff", `_expand_mv_group` for kinds "mvids" / "mvin",
+  `_dense_group_count`, `_dense_group_part_sums`,
   `_dense_group_float_sums`, `_dense_group_extreme` and the scatter
   fallback for count / sum / avg / min / max);
-- K4 `masked_histogram`: dictId counts of the matched rows (replaces
-  `_histogram` / `_mxu_histogram`);
+- K4 `masked_histogram`: dictId counts of the matched rows, or of their
+  MV entries (replaces `_histogram` / `_mxu_histogram` and the MV
+  histogram branch of `_agg_outputs`);
 - K5 `masked_reduce`: one lane's match count, min / max and per-block
-  float64 sums (replaces `_chunked_float_sum` and the id / raw min-max
-  branches of `_agg_outputs`);
+  float64 sums (replaces `_chunked_float_sum` and the id / MV / raw
+  min-max branches of `_agg_outputs`);
 - K6 `masked_select`: the first k matched rows by (key words, docid), the
   match count and the gathered columns (replaces `_selection_outputs`
-  with `_monotone_int32_keys`, kinds limit / order / ordertk / ordermk).
+  with `_monotone_int32_keys`, kinds limit / order / ordertk / ordermk);
+- K7 `hll_registers`: HyperLogLog registers from K4's histogram and the
+  per-dictId (index, rank) tables (replaces the "hll" branch of
+  `_agg_outputs`).
 
 Every wrapper checks its operands, allocates its outputs, and launches on
 the current stream. Beside each kernel is its plain PyTorch version: the
@@ -48,18 +53,26 @@ where the JAX planner does and NotPorted where the port has no kernel):
           ("count", "*", "none", None);
           ("sum" | "avg", col, "sv", ("parts", card_pad)) → K2;
           (fname, col, "sv", ("hist", card_pad)) → K4, fname ∈ {sum, avg,
-            distinctcount, percentile};
+            distinctcount, percentile, hist (an expression over col)};
+          ("hll", col, "sv", ("hll", card_pad, m)) → K4, then K7 over the
+            {col}.hllidx / {col}.hllrank tables;
+          (fname, col, "mv", (card_pad, card)) over {col}.mv [P, W] → K4's
+            entry histogram, fname ∈ {sum, avg, percentile, distinctcount,
+            countmv}, or K5 over the entries, fname ∈ {min, max,
+            minmaxrange};
           ("sum" | "avg", col, "sv", ("vlane", card_pad)) → K5 sums;
           ("min" | "max" | "minmaxrange", col, "sv", ("ids", card_pad))
             → K5 over ids;
           (fname, col, "raw", None) → K5 over the raw lane, fname ∈ {sum,
             avg, min, max, minmaxrange}.
-  group:  (cols=((name, "ids", 0, card), ...), strides, g_pad,
+  group:  (cols=((name, kind, off, card), ...), strides, g_pad,
            aggs=(count | sum/avg with ("psums", card_pad) over sv parts, or
                  ("csums",) over raw / ("csums", card_pad) over sv vlane |
                  min/max/minmaxrange with ("ids", card_pad) over sv ids, or
                  None over raw),
-           kmax=0)
+           kmax=0); kind "ids" ({name}.ids), "rawoff" ({name}.raw minus
+          off), "mvids" ({name}.mv entries) or "mvin" (entries in a member
+          table popped from the params after the filter's, in key order)
   select: (kind, k, order=((col, asc, card_pad, source), ...),
            gather=((col, source), ...)), kind ∈ {limit, order, ordertk,
            ordermk}, source "sv" ({col}.ids), "raw" ({col}.raw) or, for a
@@ -69,7 +82,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,6 +138,9 @@ KERNELS: Dict[str, KernelInfo] = {
     "masked_select": KernelInfo(
         "masked_select", "pinot_tpu_torch/ops/csrc/masked_select.cu",
         "pinot_tpu/ops/kernels.py:1479"),
+    "hll_registers": KernelInfo(
+        "hll_registers", "pinot_tpu_torch/ops/csrc/hll_registers.cu",
+        "pinot_tpu/ops/kernels.py:620"),
 }
 
 _P = ctypes.c_void_p
@@ -132,17 +148,21 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _PP = ctypes.POINTER(_P)
 _IP = ctypes.POINTER(_I)
+_LLP = ctypes.POINTER(_LL)
 _ARGTYPES = {
     "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _P],
     "masked_part_sums": [_P, _PP, _I, _LL, _P, _P],
     "dense_group_aggregate": [
-        _P, _PP, _IP, _IP, _I, _PP, _I, _PP, _I,
+        _P, _PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _I,
+        _PP, _I, _PP, _I,
         _PP, _IP, _IP, _IP, _PP, _I,
         _LL, _I, _I, _P, _P, _P, _P, _P],
-    "masked_histogram": [_P, _P, _I, _LL, _I, _P, _P],
-    "masked_reduce": [_P, _P, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P],
+    "masked_histogram": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
+    "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P,
+                      _P, _P],
     "masked_select": [_P, _LL, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
                       _PP, _IP, _PP, _I, _P, _LL, _P, _P, _P],
+    "hll_registers": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -182,6 +202,10 @@ def _ptrs(tensors: Sequence[torch.Tensor]):
 
 def _ints(values: Sequence[int]):
     return (ctypes.c_int * len(values))(*[int(v) for v in values])
+
+
+def _longs(values: Sequence[int]):
+    return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
 
 
 #: element type codes shared with the .cu sources (pinot::Elem)
@@ -523,32 +547,109 @@ def _ext_init(kind: str, which: str, card_pad: int):
     return float("inf") if which == "min" else float("-inf")
 
 
-def dense_group_aggregate(mask: torch.Tensor,
-                          key_lanes: Sequence[torch.Tensor],
+#: group key kinds shared with dense_group_aggregate.cu (KeyKind)
+_KEY_KINDS = {"ids": 0, "rawoff": 1, "mvids": 2, "mvin": 3}
+_MV_KEY_KINDS = ("mvids", "mvin")
+#: K3 walks at most this many MV entry combinations per doc
+MAX_GROUP_COMBOS = 1 << 16
+
+
+@dataclasses.dataclass(eq=False)
+class GroupKey:
+    """One group column as K3 reads it (a bare tensor means kind "ids"):
+
+    - "ids": a dictId lane [P];
+    - "rawoff": an int32 / int64 raw lane [P]; the key is (value -
+      offset) in the lane's width, narrowed to int32;
+    - "mvids": an MV dictId lane [P, W]; entries >= card (the padding id,
+      the cardinality) drop the combination;
+    - "mvin": as "mvids", and entries whose `member` (bool [card_pad])
+      is False drop it too."""
+    kind: str
+    lane: torch.Tensor
+    card: int = 0
+    offset: int = 0
+    member: Optional[torch.Tensor] = None
+
+    @property
+    def width(self) -> int:
+        return self.lane.shape[1] if self.kind in _MV_KEY_KINDS else 1
+
+
+def _as_key(k) -> GroupKey:
+    return k if isinstance(k, GroupKey) else GroupKey("ids", k)
+
+
+def _check_key(key: GroupKey, c: int, padded: int, device) -> None:
+    what = f"key lane {c} ({key.kind})"
+    if key.kind not in _KEY_KINDS:
+        raise ValueError(f"group key kind {key.kind}")
+    if key.kind == "ids":
+        _check_lane(key.lane, what, padded, device, _ID_DTYPES)
+    elif key.kind == "rawoff":
+        _check_lane(key.lane, what, padded, device,
+                    (torch.int32, torch.int64))
+        info = torch.iinfo(key.lane.dtype)
+        if not info.min <= key.offset <= info.max:
+            raise ValueError(f"{what}: offset {key.offset} outside "
+                             f"{key.lane.dtype}")
+    else:
+        _check_lane(key.lane, what, padded, device, _ID_DTYPES, 2)
+        if key.lane.shape[1] < 1 or not 0 <= key.card <= INT32_MAX:
+            raise ValueError(f"{what}: width {key.lane.shape[1]}, card "
+                             f"{key.card}")
+    if key.kind == "mvin":
+        m = key.member
+        if m is None or m.device != device or m.dim() != 1 or \
+                m.shape[0] < 1 or m.dtype not in (torch.bool, torch.uint8) \
+                or not m.is_contiguous():
+            raise ValueError(f"{what}: the member table must be a "
+                             f"contiguous bool [card_pad] on {device}")
+
+
+def group_combos(key_lanes) -> int:
+    """W_total: the MV entry combinations K3 walks per doc."""
+    return int(np.prod([_as_key(k).width for k in key_lanes],
+                       dtype=np.int64))
+
+
+def k3_rows_per_launch(w_total: int) -> int:
+    """The rows one K3 launch takes: a doc adds up to W_total times, and
+    the launch's int32 counts and part sums stay exact while
+    127 * rows * W_total < 2^31, as over DENSE_ROWS_LIMIT single rows."""
+    return max(1, DENSE_ROWS_LIMIT // w_total)
+
+
+def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
                           strides: Sequence[int], g_pad: int,
                           part_lanes: Sequence[torch.Tensor] = (),
                           float_lanes: Sequence[torch.Tensor] = (),
                           extremes: Sequence[tuple] = (),
                           smem_slots: int = K3_SMEM_SLOTS):
-    """Dense group table over key = clip(Σ ids_c · stride_c, 0, g_pad-1).
+    """Dense group table over key = clip(Σ term_c · stride_c, 0, g_pad-1).
 
-    `extremes`: ((kind, lane, which, card_pad), ...), kind "ids" (an id
-    lane, int32 table starting at card_pad for min / -1 for max) or "raw"
-    (an int32/int64/float32/float64 lane, float64 table starting at
-    ±inf), which ∈ {"min", "max"}. `smem_slots`: the largest g_pad the
-    kernel folds in shared memory (0: never).
+    `key_lanes`: one GroupKey (or bare id lane) per group column. A doc
+    with MV keys adds its values once per surviving cross-combination of
+    their entries. `extremes`: ((kind, lane, which, card_pad), ...), kind
+    "ids" (an id lane, int32 table starting at card_pad for min / -1 for
+    max) or "raw" (an int32/int64/float32/float64 lane, float64 table
+    starting at ±inf), which ∈ {"min", "max"}. `smem_slots`: the largest
+    g_pad the kernel folds in shared memory (0: never).
 
     Returns (count int32 [g_pad], psums int32 [L, g_pad], csums float64
-    [J, g_pad], matched int32 scalar, [one table per extreme]), L = all
-    part-lane rows, J = float lanes (float64 [P] each)."""
+    [J, g_pad], matched int32 scalar (docs, once each), [one table per
+    extreme]), L = all part-lane rows, J = float lanes (float64 [P]
+    each). Past k3_rows_per_launch(W_total) rows, K3 runs once per slice
+    of that many rows and the slices' tables add up, counts and part sums
+    in int64."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
-    if not 1 <= len(key_lanes) <= _MAX_KEYS or \
-            len(strides) != len(key_lanes):
-        raise ValueError(f"{len(key_lanes)} key lanes / {len(strides)} "
+    keys = [_as_key(k) for k in key_lanes]
+    if not 1 <= len(keys) <= _MAX_KEYS or len(strides) != len(keys):
+        raise ValueError(f"{len(keys)} key lanes / {len(strides)} "
                          f"strides (1..{_MAX_KEYS} keys)")
-    for c, lane in enumerate(key_lanes):
-        _check_lane(lane, f"key lane {c}", padded, device, _ID_DTYPES)
+    for c, key in enumerate(keys):
+        _check_key(key, c, padded, device)
     rows = _part_rows(part_lanes)
     for k, r in enumerate(rows):
         _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
@@ -564,11 +665,18 @@ def dense_group_aggregate(mask: torch.Tensor,
         raise ValueError(f"{len(rows)} part / {len(float_lanes)} float / "
                          f"{len(extremes)} extreme lanes over the kernel's "
                          "limits")
-    if not 1 <= g_pad <= INT32_MAX or padded > DENSE_ROWS_LIMIT:
-        raise ValueError(f"g_pad {g_pad} / {padded} rows outside the dense "
-                         "int32 regime")
+    if not 1 <= g_pad <= INT32_MAX:
+        raise ValueError(f"g_pad {g_pad} outside the int32 table")
+    w_total = group_combos(keys)
+    if w_total > MAX_GROUP_COMBOS:
+        raise ValueError(f"{w_total} MV entry combinations per doc > "
+                         f"{MAX_GROUP_COMBOS}")
+    step = k3_rows_per_launch(w_total)
+    if padded > step:
+        return _k3_slices(mask, keys, strides, g_pad, rows, float_lanes,
+                          extremes, smem_slots, step)
     if device.type == "cpu":
-        return dense_group_aggregate_plain(mask, key_lanes, strides, g_pad,
+        return dense_group_aggregate_plain(mask, keys, strides, g_pad,
                                            part_lanes, float_lanes,
                                            extremes)
     count = torch.zeros(g_pad, dtype=torch.int32, device=device)
@@ -580,9 +688,17 @@ def dense_group_aggregate(mask: torch.Tensor,
                          dtype=torch.int32 if kind == "ids"
                          else torch.float64, device=device)
               for kind, _lane, which, cp in extremes]
+    members = [k.member if k.kind == "mvin" else None for k in keys]
     _launch("dense_group_aggregate", device, mask.data_ptr(),
-            _ptrs(key_lanes), _ints([_ELEM[t.dtype] for t in key_lanes]),
-            _ints(strides), len(key_lanes), _ptrs(rows), len(rows),
+            _ptrs([k.lane for k in keys]),
+            _ints([_ELEM[k.lane.dtype] for k in keys]), _ints(strides),
+            _ints([_KEY_KINDS[k.kind] for k in keys]),
+            _ints([k.width for k in keys]), _ints([k.card for k in keys]),
+            _longs([k.offset for k in keys]),
+            (_P * len(keys))(*[None if m is None else m.data_ptr()
+                               for m in members]),
+            _ints([0 if m is None else m.shape[0] for m in members]),
+            len(keys), _ptrs(rows), len(rows),
             _ptrs(float_lanes), len(float_lanes),
             _ptrs([e[1] for e in extremes]),
             _ints([_ELEM[e[1].dtype] for e in extremes]),
@@ -595,35 +711,93 @@ def dense_group_aggregate(mask: torch.Tensor,
     return count, psums, csums, matched, tables
 
 
+def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
+               smem_slots, step):
+    """K3 over row slices of `step` rows, the slices' tables added
+    (counts and part sums in int64, min / max tables by min / max)."""
+    outs = []
+    for s in range(0, mask.shape[0], step):
+        e = s + step
+        outs.append(dense_group_aggregate(
+            mask[s:e], [dataclasses.replace(k, lane=k.lane[s:e])
+                        for k in keys], strides, g_pad,
+            [r[s:e].unsqueeze(0) for r in rows],
+            [f[s:e] for f in float_lanes],
+            [(kind, lane[s:e], which, cp)
+             for kind, lane, which, cp in extremes], smem_slots))
+    count = sum(o[0].to(torch.int64) for o in outs)
+    psums = sum(o[1].to(torch.int64) for o in outs)
+    csums = sum(o[2] for o in outs)
+    matched = sum(o[3] for o in outs)
+    tables = []
+    for e, (_kind, _lane, which, _cp) in enumerate(extremes):
+        t = outs[0][4][e]
+        for o in outs[1:]:
+            t = (torch.minimum if which == "min" else torch.maximum)(
+                t, o[4][e])
+        tables.append(t)
+    return count, psums, csums, matched, tables
+
+
+def group_keys_plain(mask: torch.Tensor, key_lanes: Sequence,
+                     strides: Sequence[int], g_pad: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch of K3's key walk, as `_expand_mv_group` and
+    `_group_key` compute it: (row index, clipped int32 key) of every
+    matched (doc, MV entry combination) that survives, first MV key
+    fastest."""
+    keys = [_as_key(k) for k in key_lanes]
+    padded, device = mask.shape[0], mask.device
+    w_total = group_combos(keys)
+    keep = mask.bool()[:, None].expand(padded, w_total)
+    key = torch.zeros(padded, w_total, dtype=torch.int32, device=device)
+    radix = 1
+    for k, s in zip(keys, strides):
+        if k.kind in _MV_KEY_KINDS:
+            w = k.width
+            entry = (torch.arange(w_total, device=device) // radix) % w
+            radix *= w
+            ids = k.lane.to(torch.int32)[:, entry]           # [P, W_total]
+            keep = keep & (ids < k.card)
+            if k.kind == "mvin":
+                member = k.member.bool()
+                keep = keep & member[ids.clamp(0, member.shape[0] - 1)
+                                     .long()]
+        elif k.kind == "rawoff":
+            ids = (k.lane - k.offset).to(torch.int32)[:, None]
+        else:
+            ids = k.lane.to(torch.int32)[:, None]
+        key += ids * int(np.int32(s))
+    rows = torch.arange(padded, device=device)[:, None].expand(
+        padded, w_total)[keep]
+    return rows, key.clamp(0, g_pad - 1)[keep].long()
+
+
 def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
                                 part_lanes=(), float_lanes=(), extremes=()):
-    """Plain PyTorch K3: int32 key arithmetic, then index_add_ /
-    scatter_reduce_ of the matched rows."""
-    m = mask.bool()
+    """Plain PyTorch K3: the key walk (group_keys_plain), then
+    index_add_ / scatter_reduce_ of the surviving (row, key) pairs."""
     device = mask.device
-    key = torch.zeros(mask.shape[0], dtype=torch.int32, device=device)
-    for lane, s in zip(key_lanes, strides):
-        key += lane.to(torch.int32) * int(s)
-    key = key.clamp(0, g_pad - 1)[m].long()
+    rows, key = group_keys_plain(mask, key_lanes, strides, g_pad)
     count = torch.zeros(g_pad, dtype=torch.int32, device=device)
     count.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
-    rows = _part_rows(part_lanes)
-    psums = torch.zeros(len(rows), g_pad, dtype=torch.int32, device=device)
-    for k, r in enumerate(rows):
-        psums[k].index_add_(0, key, r[m].to(torch.int32))
+    prows = _part_rows(part_lanes)
+    psums = torch.zeros(len(prows), g_pad, dtype=torch.int32, device=device)
+    for k, r in enumerate(prows):
+        psums[k].index_add_(0, key, r[rows].to(torch.int32))
     csums = torch.zeros(len(float_lanes), g_pad, dtype=torch.float64,
                         device=device)
     for j, f in enumerate(float_lanes):
-        csums[j].index_add_(0, key, f[m].to(torch.float64))
+        csums[j].index_add_(0, key, f[rows].to(torch.float64))
     tables = []
     for kind, lane, which, cp in extremes:
         dtype = torch.int32 if kind == "ids" else torch.float64
         t = torch.full((g_pad,), _ext_init(kind, which, cp), dtype=dtype,
                        device=device)
-        t.scatter_reduce_(0, key, lane[m].to(dtype),
+        t.scatter_reduce_(0, key, lane[rows].to(dtype),
                           "amin" if which == "min" else "amax")
         tables.append(t)
-    return count, psums, csums, m.sum(dtype=torch.int32), tables
+    return count, psums, csums, mask.bool().sum(dtype=torch.int32), tables
 
 
 # ---------------------------------------------------------------------------
@@ -644,7 +818,8 @@ def masked_histogram(mask: torch.Tensor, ids: torch.Tensor,
         return masked_histogram_plain(mask, ids, card_pad)
     out = torch.zeros(card_pad, dtype=torch.int32, device=device)
     _launch("masked_histogram", device, mask.data_ptr(), ids.data_ptr(),
-            _ELEM[ids.dtype], padded, int(card_pad), out.data_ptr())
+            _ELEM[ids.dtype], padded, 1, int(card_pad), int(card_pad),
+            out.data_ptr(), None)
     return out
 
 
@@ -656,32 +831,73 @@ def masked_histogram_plain(mask: torch.Tensor, ids: torch.Tensor,
     return torch.bincount(v[keep], minlength=card_pad).to(torch.int32)
 
 
+def masked_entry_histogram(mask: torch.Tensor, mv: torch.Tensor,
+                           card_pad: int, card: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over an MV lane [P, W]: (int32 [card_pad] counts of the matched
+    rows' entries by dictId, int32 scalar count of those entries);
+    padding entries (id >= card) count nowhere."""
+    padded, device = mask.shape[0], mask.device
+    _check_mask(mask)
+    _check_lane(mv, "MV id lane", padded, device, _ID_DTYPES, 2)
+    if not 0 <= card < card_pad <= INT32_MAX:
+        raise ValueError(f"card {card} / card_pad {card_pad}")
+    if device.type == "cpu":
+        return masked_entry_histogram_plain(mask, mv, card_pad, card)
+    out = torch.zeros(card_pad, dtype=torch.int32, device=device)
+    total = torch.zeros((), dtype=torch.int32, device=device)
+    _launch("masked_histogram", device, mask.data_ptr(), mv.data_ptr(),
+            _ELEM[mv.dtype], padded, mv.shape[1], int(card), int(card_pad),
+            out.data_ptr(), total.data_ptr())
+    return out, total
+
+
+def masked_entry_histogram_plain(mask: torch.Tensor, mv: torch.Tensor,
+                                 card_pad: int, card: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K4 over MV entries: bincount of the valid entries of
+    the matched rows."""
+    v = mv.to(torch.int64)
+    keep = mask.bool()[:, None] & (v >= 0) & (v < card)
+    hist = torch.bincount(v[keep], minlength=card_pad).to(torch.int32)
+    return hist, keep.sum(dtype=torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # K5 masked_reduce
 # ---------------------------------------------------------------------------
 
 
 def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
-                  card_pad: int = 0, want_sum: bool = False
-                  ) -> Dict[str, torch.Tensor]:
+                  card_pad: int = 0, want_sum: bool = False,
+                  card: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One pass over `lane` under the mask.
 
     kind "ids" (a dictId lane): {"min", "max"} int32 scalars with the JAX
-    sentinels (card_pad / -1 when nothing matched). kind "raw" (int32 /
-    int64 / float32 / float64): {"min", "max"} scalars in the JAX dtype
-    (float32 for a float32 lane, else float64; ±inf when nothing
-    matched). Both: "count" int32 scalar; with want_sum, "sums" float64
-    [P / 8192], the masked sum of each row block."""
+    sentinels (card_pad / -1 when nothing matched); an MV id lane [P, W]
+    takes `card`, and only its entries below it (not padding) count. kind
+    "raw" (int32 / int64 / float32 / float64): {"min", "max"} scalars in
+    the JAX dtype (float32 for a float32 lane, else float64; ±inf when
+    nothing matched). Both: "count" int32 scalar, matched rows; with
+    want_sum (single-value lanes), "sums" float64 [P / 8192], the masked
+    sum of each row block."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
     if kind not in ("ids", "raw"):
         raise ValueError(f"masked_reduce kind {kind}")
+    is_mv = lane.dim() == 2
+    if is_mv and (kind != "ids" or want_sum or card is None or
+                  not 0 <= card <= card_pad):
+        raise ValueError("an MV lane takes kind 'ids' with its card and no "
+                         "sums")
     _check_lane(lane, f"{kind} lane", padded, device,
-                _ID_DTYPES if kind == "ids" else _RAW_DTYPES)
+                _ID_DTYPES if kind == "ids" else _RAW_DTYPES,
+                2 if is_mv else 1)
     if padded % BLOCK:
         raise ValueError(f"{padded} rows is not a multiple of {BLOCK}")
     if device.type == "cpu":
-        return masked_reduce_plain(mask, lane, kind, card_pad, want_sum)
+        return masked_reduce_plain(mask, lane, kind, card_pad, want_sum,
+                                   card)
     out_dt = torch.int32 if kind == "ids" else \
         (torch.float32 if lane.dtype == torch.float32 else torch.float64)
     state = torch.zeros(5, dtype=torch.int64, device=device)
@@ -692,8 +908,9 @@ def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
         out["sums"] = torch.empty(padded // BLOCK, dtype=torch.float64,
                                   device=device)
     _launch("masked_reduce", device, mask.data_ptr(), lane.data_ptr(),
-            _ELEM[lane.dtype], int(kind == "ids"), int(card_pad),
-            int(want_sum), padded, state.data_ptr(),
+            _ELEM[lane.dtype], lane.shape[1] if is_mv else 1,
+            int(card) if is_mv else INT32_MAX, int(kind == "ids"),
+            int(card_pad), int(want_sum), padded, state.data_ptr(),
             out["sums"].data_ptr() if want_sum else None,
             out["min"].data_ptr(), out["max"].data_ptr(),
             out["count"].data_ptr())
@@ -701,10 +918,14 @@ def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
 
 
 def masked_reduce_plain(mask: torch.Tensor, lane: torch.Tensor, kind: str,
-                        card_pad: int = 0, want_sum: bool = False
+                        card_pad: int = 0, want_sum: bool = False,
+                        card: Optional[int] = None
                         ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch K5: where + amin / amax, and a reshape-sum."""
     m = mask.bool()
+    count = m.sum(dtype=torch.int32)
+    if lane.dim() == 2:                  # MV ids: the valid entries
+        m = m[:, None] & (lane < card)
     if kind == "ids":
         v = lane.to(torch.int32)
         lo_fill, hi_fill = card_pad, -1
@@ -714,7 +935,7 @@ def masked_reduce_plain(mask: torch.Tensor, lane: torch.Tensor, kind: str,
         lo_fill, hi_fill = float("inf"), float("-inf")
     out = {"min": torch.where(m, v, lo_fill).amin(),
            "max": torch.where(m, v, hi_fill).amax(),
-           "count": m.sum(dtype=torch.int32)}
+           "count": count}
     if want_sum:
         out["sums"] = torch.where(m, lane.to(torch.float64), 0.0) \
             .reshape(-1, BLOCK).sum(dim=1)
@@ -912,6 +1133,42 @@ def masked_select(select_spec, cols: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# K7 hll_registers
+# ---------------------------------------------------------------------------
+
+MAX_HLL_REGISTERS = 8192         # hll_registers.cu keeps them in 32 KB
+
+
+def hll_registers(hist: torch.Tensor, idx: torch.Tensor, rank: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """int32 [m] HyperLogLog registers: reg[idx[d]] = max rank[d] over the
+    dictIds d with hist[d] > 0 (0 where none), as the JAX `_agg_outputs`
+    "hll" branch scatter-maxes them."""
+    device = hist.device
+    card_pad = hist.shape[0]
+    for name, t in (("hist", hist), ("hll index table", idx),
+                    ("hll rank table", rank)):
+        _check_lane(t, name, card_pad, device, (torch.int32,))
+    if not 1 <= m <= MAX_HLL_REGISTERS:
+        raise ValueError(f"{m} registers outside [1, {MAX_HLL_REGISTERS}]")
+    if device.type == "cpu":
+        return hll_registers_plain(hist, idx, rank, m)
+    out = torch.zeros(m, dtype=torch.int32, device=device)
+    _launch("hll_registers", device, hist.data_ptr(), idx.data_ptr(),
+            rank.data_ptr(), card_pad, int(m), out.data_ptr())
+    return out
+
+
+def hll_registers_plain(hist: torch.Tensor, idx: torch.Tensor,
+                        rank: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain PyTorch K7: scatter_reduce_ amax of the present ranks."""
+    vals = torch.where(hist > 0, rank, 0)
+    keep = (idx >= 0) & (idx < m)
+    out = torch.zeros(m, dtype=torch.int32, device=hist.device)
+    return out.scatter_reduce_(0, idx[keep].long(), vals[keep], "amax")
+
+
+# ---------------------------------------------------------------------------
 # Whole-plan dispatch
 # ---------------------------------------------------------------------------
 
@@ -934,23 +1191,29 @@ def _extremes_of(fname: str) -> Tuple[str, ...]:
 
 def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
                        select_spec, cols: Dict[str, torch.Tensor], params,
-                       num_docs: int, device=None) -> Dict[str, torch.Tensor]:
-    """One segment plan: K1, then K3 (group-by), or K2, K4 and K5 as the
-    aggregations need them, and K6 for a selection.
+                       num_docs: int, device=None, group_params=()
+                       ) -> Dict[str, torch.Tensor]:
+    """One segment plan: K1, then K3 (group-by), or K2, K4, K5 and K7 as
+    the aggregations need them, and K6 for a selection.
 
     Returns the device outputs under the JAX package's names
     (stats.num_docs_matched, agg{i}, agg{i}.parts, agg{i}.count,
-    agg{i}.vsum, agg{i}.min, agg{i}.max, group.count, gagg{i}.psums,
-    gagg{i}.csums, gagg{i}.min, gagg{i}.max, sel.docids, sel.count,
-    sel.<col>). `device` is used only when no lane is read at all."""
+    agg{i}.vsum, agg{i}.min, agg{i}.max, agg{i}.hll, group.count,
+    gagg{i}.psums, gagg{i}.csums, gagg{i}.min, gagg{i}.max, sel.docids,
+    sel.count, sel.<col>). `params`: the filter's; `group_params`: one
+    member table per "mvin" group key. `device` is used only when no lane
+    is read at all."""
     if cols:
         device = next(iter(cols.values())).device
     mask = filter_mask(padded, filter_spec, cols, params, num_docs, device)
+    rest = list(group_params)
     outs: Dict[str, torch.Tensor] = {}
     if group_spec is not None:
-        outs = _group_outputs(mask, group_spec, cols)
+        outs = _group_outputs(mask, group_spec, cols, rest)
     elif agg_specs or select_spec is None:
         outs = _agg_outputs(mask, agg_specs, cols)
+    if rest:
+        raise ValueError(f"{len(rest)} group params left unconsumed")
     if select_spec is not None:
         sel = masked_select(select_spec, cols, mask)
         outs.setdefault("stats.num_docs_matched", sel["sel.count"])
@@ -958,14 +1221,33 @@ def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
     return outs
 
 
-def _group_outputs(mask, group_spec, cols) -> Dict[str, torch.Tensor]:
+def spec_group_key(gcol, cols, params: List, device) -> GroupKey:
+    """The K3 key of one group column of a spec; "mvin" pops its member
+    table from `params`."""
+    c, gkind, off, card = gcol
+    if gkind == "ids":
+        return GroupKey("ids", cols[f"{c}.ids"])
+    if gkind == "rawoff":
+        return GroupKey("rawoff", cols[f"{c}.raw"], offset=int(off))
+    if gkind in _MV_KEY_KINDS:
+        member = None
+        if gkind == "mvin":
+            if not params:
+                raise ValueError(f"no member table for mvin key {c}")
+            member = torch.as_tensor(
+                np.ascontiguousarray(params.pop(0), dtype=bool)).to(device)
+        return GroupKey(gkind, cols[f"{c}.mv"], card=int(card),
+                        member=member)
+    raise ValueError(f"group key kind {gkind}")
+
+
+def _group_outputs(mask, group_spec, cols, params: List
+                   ) -> Dict[str, torch.Tensor]:
     gcols, strides, g_pad, gaggs, kmax = group_spec
     if kmax:
         raise ValueError("compacted group specs (kmax > 0) are a TPU "
                          "strategy this port does not take")
-    for _c, gkind, _off, _card in gcols:
-        if gkind != "ids":
-            raise ValueError(f"group key kind {gkind}")
+    keys = [spec_group_key(g, cols, params, mask.device) for g in gcols]
     parts, slots, floats, fslots, extremes, eslots = [], {}, [], {}, [], {}
     for i, spec in enumerate(gaggs):
         fname, col, source, extra = spec
@@ -991,7 +1273,6 @@ def _group_outputs(mask, group_spec, cols) -> Dict[str, torch.Tensor]:
                                  card_pad))
         else:
             raise ValueError(f"group aggregation spec {spec}")
-    keys = [cols[f"{c}.ids"] for c, *_ in gcols]
     count, psums, csums, matched, tables = dense_group_aggregate(
         mask, keys, strides, g_pad, parts, floats, extremes)
     outs = {"stats.num_docs_matched": matched, "group.count": count}
@@ -1005,34 +1286,42 @@ def _group_outputs(mask, group_spec, cols) -> Dict[str, torch.Tensor]:
 
 
 def _reduce_request(spec):
-    """(lane key, kind, card_pad, wants block sums) when K5 serves `spec`,
-    else None."""
+    """(lane key, kind, card_pad, wants block sums, MV card) when K5
+    serves `spec`, else None."""
     fname, col, source, extra = spec
     strategy = _strategy(spec)
     if source == "sv" and strategy == "vlane":
-        return f"{col}.vlane", "raw", 0, True
+        return f"{col}.vlane", "raw", 0, True, None
     if source == "raw" and extra is None and \
             (fname in ("sum", "avg") or _extremes_of(fname)):
-        return f"{col}.raw", "raw", 0, fname in ("sum", "avg")
+        return f"{col}.raw", "raw", 0, fname in ("sum", "avg"), None
     if source == "sv" and strategy == "ids" and _extremes_of(fname):
-        return f"{col}.ids", "ids", extra[1], False
+        return f"{col}.ids", "ids", extra[1], False, None
+    if source == "mv" and _extremes_of(fname):
+        card_pad, card = extra
+        return f"{col}.mv", "ids", card_pad, False, card
     return None
 
 
+#: MV aggregations K4's entry histogram serves
+_MV_HIST_FNAMES = ("sum", "avg", "percentile", "distinctcount", "countmv")
+
+
 def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
-    # one K5 per lane and one K4 per (id lane, card_pad), shared by the
+    # one K5 per lane and one K4 per (lane, card_pad), shared by the
     # aggregations that read them; K2 runs for part lanes, or for the match
-    # count when no K5 gives it
+    # count when no K5 gives it; K7 runs per HLL aggregation on its K4
     reduce_args: Dict[str, tuple] = {}
     for spec in agg_specs:
         req = _reduce_request(spec)
         if req is not None:
-            key, kind, card_pad, want = req
+            key, kind, card_pad, want, card = req
             prev = reduce_args.get(key)
             reduce_args[key] = (kind, card_pad, want or
-                                (prev is not None and prev[2]))
-    reduced = {key: masked_reduce(mask, cols[key], kind, card_pad, want)
-               for key, (kind, card_pad, want) in reduce_args.items()}
+                                (prev is not None and prev[2]), card)
+    reduced = {key: masked_reduce(mask, cols[key], kind, card_pad, want,
+                                  card)
+               for key, (kind, card_pad, want, card) in reduce_args.items()}
     parts = [cols[f"{s[1]}.parts"] for s in agg_specs if _is_parts_agg(s)]
     if parts or not reduced:
         sums = masked_part_sums(mask, parts)
@@ -1040,7 +1329,14 @@ def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
     else:
         count = next(iter(reduced.values()))["count"]
     outs = {"stats.num_docs_matched": count}
-    hists: Dict[Tuple[str, int], torch.Tensor] = {}
+    hists: Dict[tuple, torch.Tensor] = {}
+
+    def histogram(col: str, card_pad: int) -> torch.Tensor:
+        hk = (col, card_pad)
+        if hk not in hists:
+            hists[hk] = masked_histogram(mask, cols[f"{col}.ids"], card_pad)
+        return hists[hk]
+
     off = 0
     for i, spec in enumerate(agg_specs):
         fname, col, source, extra = spec
@@ -1053,11 +1349,20 @@ def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
             outs[f"agg{i}.count"] = count
             off += n_p
         elif source == "sv" and _strategy(spec) == "hist":
-            hk = (col, extra[1])
+            outs[f"agg{i}"] = histogram(col, extra[1])
+        elif fname == "hll" and source == "sv":
+            _strategy_name, card_pad, m = extra
+            outs[f"agg{i}.hll"] = hll_registers(
+                histogram(col, card_pad), cols[f"{col}.hllidx"],
+                cols[f"{col}.hllrank"], m)
+        elif source == "mv" and fname in _MV_HIST_FNAMES:
+            card_pad, card = extra
+            hk = (col, card_pad, "mv")
             if hk not in hists:
-                hists[hk] = masked_histogram(mask, cols[f"{col}.ids"],
-                                             extra[1])
-            outs[f"agg{i}"] = hists[hk]
+                hists[hk] = masked_entry_histogram(mask, cols[f"{col}.mv"],
+                                                   card_pad, card)
+            hist, total = hists[hk]
+            outs[f"agg{i}"] = total if fname == "countmv" else hist
         elif req is not None:
             r = reduced[req[0]]
             if req[3]:

@@ -1,7 +1,7 @@
 """Segment plan execution: run the device kernels, finish results host-side.
 
 Counterpart of pinot_tpu/query/execution.py. One dispatch per segment
-(K1, then K3, or K2 with K4 / K5, and K6 for a selection:
+(K1, then K3, or K2 with K4 / K5 / K7, and K6 for a selection:
 ops/kernels.py:run_segment_kernel) and one device→host pull: for a
 group-by only the non-empty groups cross, picked out on the device first,
 so a 2^21-slot table never crosses PCIe whole; a selection's [k] docids
@@ -18,6 +18,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common import expression as expr_mod
+from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M, HyperLogLog, \
+    union_serialized_hlls
 from pinot_tpu_torch.ops import kernels
 from pinot_tpu_torch.query.blocks import ExecutionStats, \
     IntermediateResultsBlock
@@ -45,6 +48,10 @@ def gather_operands_for(segment, needed_cols) -> Dict[str, torch.Tensor]:
             cols[f"{col}.parts"] = ds.device_part_lanes()
         elif kind == "vlane":
             cols[f"{col}.vlane"] = ds.device_value_lane()
+        elif kind == "hllidx":
+            cols[f"{col}.hllidx"] = ds.device_hll_idx()
+        elif kind == "hllrank":
+            cols[f"{col}.hllrank"] = ds.device_hll_rank()
         else:
             raise ValueError(f"lane kind {kind}")
     return cols
@@ -91,7 +98,7 @@ def _execute_segment_plan(plan) -> IntermediateResultsBlock:
     dev_outs = kernels.run_segment_kernel(
         segment.padded_docs, plan.filter_spec, plan.agg_specs,
         plan.group_spec, plan.select_spec, cols, tuple(plan.params),
-        segment.num_docs, segment.device)
+        segment.num_docs, segment.device, plan.group_params)
 
     blk = IntermediateResultsBlock()
     if plan.group_spec is not None:
@@ -173,8 +180,13 @@ def _finish_aggregation(plan, outs, blk) -> None:
     for i, (f, spec) in enumerate(zip(plan.functions, plan.agg_specs)):
         fname, col, source, extra = spec
         strategy = extra[0] if isinstance(extra, tuple) else None
-        if fname == "count":
+        if fname in ("count", "countmv"):
             inters.append(int(outs[f"agg{i}"]))
+        elif fname == "hll":
+            # K7's registers → the HyperLogLog intermediate every combine
+            # and reduce layer merges by register max
+            regs = np.asarray(outs[f"agg{i}.hll"]).astype(np.uint8)
+            inters.append(HyperLogLog(DEFAULT_LOG2M, regs))
         elif source == "sv" and fname in ("sum", "avg") and \
                 strategy in ("parts", "vlane"):
             cnt = int(outs[f"agg{i}.count"])
@@ -189,14 +201,32 @@ def _finish_aggregation(plan, outs, blk) -> None:
                 s = float(np.asarray(outs[f"agg{i}.vsum"],
                                      dtype=np.float64).sum())
             inters.append(s if fname == "sum" else (s, cnt))
-        elif source == "sv" and fname in ("sum", "avg", "percentile",
-                                          "distinctcount"):
-            # dictId histogram: the function finishes from the counts and
-            # the dictionary values
-            dict_vals = plan.segment.data_source(col).dictionary.values
-            inters.append(f.from_histogram(np.asarray(outs[f"agg{i}"]),
-                                           dict_vals))
-        elif source == "sv" and fname in ("min", "max", "minmaxrange"):
+        elif fname == "hist":
+            # expression aggregation: transform the dictionary value table
+            # (O(cardinality)) and finish from the device histogram
+            src_vals = np.asarray(
+                plan.segment.data_source(col).dictionary.values)
+            tv = np.asarray(expr_mod.evaluate(f.column, lambda _: src_vals))
+            inters.append(f.from_histogram(np.asarray(outs[f"agg{i}"]), tv))
+        elif source in ("sv", "mv") and fname in (
+                "sum", "avg", "percentile", "distinctcount"):
+            # dictId (or MV entry) histogram: the function finishes from
+            # the counts and the dictionary values
+            ds = plan.segment.data_source(col)
+            dict_vals = ds.dictionary.values
+            if f.info.base == "FASTHLL" and \
+                    getattr(ds.metadata, "derived_metric_type",
+                            None) == "HLL":
+                # derived serialized-HLL column: union the sketches of the
+                # present dictionary values
+                hist = np.asarray(outs[f"agg{i}"])[: len(dict_vals)]
+                inters.append(union_serialized_hlls(
+                    np.asarray(dict_vals)[np.nonzero(hist)[0]]))
+            else:
+                inters.append(f.from_histogram(np.asarray(outs[f"agg{i}"]),
+                                               dict_vals))
+        elif source in ("sv", "mv") and fname in ("min", "max",
+                                                  "minmaxrange"):
             dict_vals = plan.segment.data_source(col).dictionary.values
             mn = outs.get(f"agg{i}.min")
             mx = outs.get(f"agg{i}.max")
@@ -222,12 +252,22 @@ def _finish_aggregation(plan, outs, blk) -> None:
 
 
 def _decode_group_values(plan, nz: np.ndarray) -> List[np.ndarray]:
-    """Mixed-radix decode of group keys `nz` into per-column value arrays."""
+    """Mixed-radix decode of group keys `nz` into per-column value arrays:
+    expression keys through their transformed value table (collisions
+    merge in _assemble_group_map), rawoff keys as id + min, the others
+    through the dictionary."""
     gcols, strides, _g_pad, _specs, _kmax = plan.group_spec
+    vtables = plan.group_value_tables or (None,) * len(gcols)
     value_cols = []
-    for (c, _gkind, _off, card), stride in zip(gcols, strides):
+    for (c, gkind, off, card), stride, tv in zip(gcols, strides, vtables):
         ids = (nz // stride) % card
-        value_cols.append(plan.segment.data_source(c).dictionary.decode(ids))
+        if tv is not None:
+            value_cols.append(tv[ids])
+        elif gkind == "rawoff":
+            value_cols.append(ids.astype(np.int64) + off)
+        else:
+            value_cols.append(
+                plan.segment.data_source(c).dictionary.decode(ids))
     return value_cols
 
 
@@ -272,6 +312,12 @@ def _assemble_group_map(plan, blk, value_cols, per_agg_arrays,
                 mn, mx = float(a[row]), float(b[row])
                 inters.append((None if not np.isfinite(mn) else mn,
                                None if not np.isfinite(mx) else mx))
+        old = group_map.get(key)
+        if old is not None:
+            # expression keys can collide (a non-injective transform):
+            # merge as the cross-segment combine does
+            inters = [f.merge(o, v) for f, o, v in
+                      zip(plan.functions, old, inters)]
         group_map[key] = inters
     blk.group_map = group_map
 

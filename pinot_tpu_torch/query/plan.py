@@ -10,26 +10,27 @@ Supported here: filters over dictionary single-value and multi-value
 columns (eq_id, neq_id, range_ids, in_ids, notin_ids, member), over
 numeric raw columns (eq_raw, neq_raw, in_raw, notin_raw, range_raw) and
 single-column expressions over a dictionary column (a member bitset over
-the transformed dictionary); COUNT, SUM, AVG, MIN, MAX, MINMAXRANGE,
-DISTINCTCOUNT and PERCENTILE over single-value columns; GROUP BY over
-dictionary single-value columns with COUNT, SUM, AVG, MIN, MAX and
-MINMAXRANGE; selections with the JAX planner's select specs ("limit",
-"order", "ordertk", "ordermk"); the metadata, match-all and
+the transformed dictionary); every aggregation the JAX planner runs on
+its device: COUNT, SUM, AVG, MIN, MAX, MINMAXRANGE, DISTINCTCOUNT,
+PERCENTILE and FASTHLL over single-value columns, DISTINCTCOUNTHLL /
+DISTINCTCOUNTRAWHLL as device HLL registers, single-column expression
+aggregations (the source column's histogram) and the MV aggregations
+(the entry histogram, the entry min / max); GROUP BY over dictionary
+single-value, multi-value ("mvids"), valuein ("mvin"), raw integer
+("rawoff") and single-column expression keys with COUNT, SUM, AVG, MIN,
+MAX and MINMAXRANGE; selections with the JAX planner's select specs
+("limit", "order", "ordertk", "ordermk"); the metadata, match-all and
 inverted-index / sorted-range COUNT fast paths. Star-tree cubes are not
 used yet.
 
-Two kinds of refusal. UnsupportedOnDevice is raised exactly where the
-JAX planner raises it (DISTINCTCOUNT / PERCENTILE in a group-by, order
-keys over MV columns, k > MAX_SELECTION_K, non-numeric raw columns, ...)
-and GroupsLimitExceeded where it does; the executor answers those
-segments on the host twin (query/host_exec.py), as the JAX executor
-does. NotPorted is raised for the shapes the JAX planner runs on its
-device and this port has no kernel for yet (MV, raw and expression group
-keys, HLL, expression and multi-value aggregations, vector, join and
-window requests); nothing catches it, so the query raises instead of
-moving the card's work to the host. A segment that meets both raises
-UnsupportedOnDevice, as the JAX planner would: port gaps are collected
-while planning and raised only once the plan is otherwise complete.
+Refusals. UnsupportedOnDevice is raised exactly where the JAX planner
+raises it (DISTINCTCOUNT / PERCENTILE in a group-by, an MV metric in a
+group-by, MV expression aggregations such as COUNTMV(valuein(...)),
+order keys over MV columns, k > MAX_SELECTION_K, ...) and
+GroupsLimitExceeded where it does; the executor answers those segments
+on the host twin (query/host_exec.py), as the JAX executor does.
+NotPorted is raised for the requests the port has no path for yet
+(vector, join and window); nothing catches it.
 
 Design change from the JAX planner, on purpose: it picks TPU-shaped
 strategies (matrix-unit block compaction, adaptive min/max and histogram
@@ -73,8 +74,8 @@ class UnsupportedOnDevice(Exception):
 
 
 class NotPorted(Exception):
-    """The JAX planner runs this shape on its device; the port has no
-    kernel for it yet. The executor does not catch it."""
+    """A request the port has no path for yet (vector, join, window). The
+    executor does not catch it."""
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +336,12 @@ class SegmentPlan:
     params: Optional[List] = None
     agg_specs: Tuple = ()
     group_spec: Optional[tuple] = None
+    # one member table per "mvin" group key, in key order (the JAX planner
+    # appends them to params; here K1 takes params and K3 these)
+    group_params: List = dataclasses.field(default_factory=list)
+    # per group column: the transformed value table of an expression key
+    # (decoded on the host), else None
+    group_value_tables: Optional[tuple] = None
     select_spec: Optional[tuple] = None
     select_display: Optional[int] = None   # leading display columns
     needed_cols: Tuple[Tuple[str, str], ...] = ()   # (column, lane-kind)
@@ -401,19 +408,15 @@ class InstancePlanMaker:
         plan.params = params
 
         needed: Dict[Tuple[str, str], None] = {}
-        gaps: List[str] = []
         _collect_filter_cols(filter_spec, needed)
         if request.is_group_by:
-            self._plan_group_by(plan, segment, request, needed, gaps)
+            self._plan_group_by(plan, segment, request, needed)
         elif request.is_aggregation:
             plan.agg_specs = tuple(
-                _agg_device_spec(f, segment, needed, gaps)
+                _agg_device_spec(f, segment, needed)
                 for f in plan.functions)
         if request.is_selection:
             self._plan_selection(plan, segment, request, needed)
-        if gaps:
-            # raised last, so that every JAX refusal above wins
-            raise NotPorted("; ".join(gaps))
         plan.needed_cols = tuple(needed.keys())
         return plan
 
@@ -469,12 +472,14 @@ class InstancePlanMaker:
         return None
 
     def _plan_group_by(self, plan: SegmentPlan, segment: ImmutableSegment,
-                       request: BrokerRequest, needed: Dict,
-                       gaps: List[str]) -> None:
-        """Dictionary single-value keys only; every other key is either a
-        JAX refusal or a gap, with its card counted as the JAX planner
-        counts it so the groups limit decides as there."""
+                       request: BrokerRequest, needed: Dict) -> None:
+        """The JAX planner's group spec (pinot_tpu/query/plan.py:
+        _plan_group_by) with kmax = 0: key kinds "ids", "mvids", "mvin"
+        (its member table in plan.group_params) and "rawoff";
+        expression keys group by the source column's ids and decode
+        through their value table (plan.group_value_tables)."""
         gcols = []
+        value_tables = []
         cards = []
         for c in request.group_by.columns:
             if expr_mod.is_expression(c):
@@ -483,37 +488,65 @@ class InstancePlanMaker:
                 if len(srcs) != 1:
                     raise UnsupportedOnDevice(
                         "multi-column expression group key")
-                cm = segment.data_source(srcs[0]).metadata
-                if expr_mod.valuein_parts(expr) is not None:
+                src = srcs[0]
+                ds = segment.data_source(src)
+                cm = ds.metadata
+                vi = expr_mod.valuein_parts(expr)   # raises on malformed
+                if vi is not None:
+                    # an MV key restricted to the allowed values: K3
+                    # drops the other entries through a member table
                     if not cm.has_dictionary or cm.single_value:
                         raise UnsupportedOnDevice(
                             "valuein group key needs a dict MV column")
-                elif not (cm.has_dictionary and cm.single_value):
+                    card_pad = kernels.pow2_bucket(cm.cardinality + 1)
+                    member = np.zeros(card_pad, dtype=bool)
+                    ids = ds.dictionary.index_of_many(vi[1])
+                    member[ids[ids >= 0]] = True
+                    plan.group_params.append(member)
+                    gcols.append((src, "mvin", 0, cm.cardinality))
+                    value_tables.append(None)
+                    cards.append(cm.cardinality)
+                    needed[(src, "mv")] = None
+                    continue
+                if not (cm.has_dictionary and cm.single_value):
                     raise UnsupportedOnDevice(
                         f"expression group key over non-dict/MV column "
-                        f"{srcs[0]}")
-                gaps.append(f"expression group key {c}")
+                        f"{src}")
+                # group by the source column's ids; the transformed value
+                # table decodes them on the host, where the collisions of
+                # a non-injective transform merge
+                vals = np.asarray(ds.dictionary.values)
+                tv = np.asarray(expr_mod.evaluate(expr, lambda _: vals))
+                gcols.append((src, "ids", 0, cm.cardinality))
+                value_tables.append(tv)
                 cards.append(cm.cardinality)
+                needed[(src, "ids")] = None
                 continue
             cm = segment.data_source(c).metadata
-            if cm.has_dictionary and cm.single_value:
-                gcols.append((c, "ids", 0, cm.cardinality))
-                cards.append(cm.cardinality)
-                needed[(c, "ids")] = None
-                continue
             if cm.has_dictionary:
-                gaps.append(f"group-by on multi-value column {c}")
+                # MV: a doc adds once per entry combination (K3's walk)
+                kind = "ids" if cm.single_value else "mvids"
+                gcols.append((c, kind, 0, cm.cardinality))
+                value_tables.append(None)
                 cards.append(cm.cardinality)
+                needed[(c, "ids" if cm.single_value else "mv")] = None
                 continue
             if cm.single_value and cm.data_type.np_dtype.kind in "iu" and \
                     cm.min_value is not None and \
                     -2**31 <= int(cm.min_value) and \
                     int(cm.max_value) < 2**31:
-                gaps.append(f"group-by on raw column {c}")
-                cards.append(int(cm.max_value) - int(cm.min_value) + 1)
+                # no-dictionary integer key: value - min, bounded by the
+                # metadata range; the groups limit below refuses a range
+                # too wide for the table
+                span = int(cm.max_value) - int(cm.min_value) + 1
+                gcols.append((c, "rawoff", int(cm.min_value), span))
+                value_tables.append(None)
+                cards.append(span)
+                needed[(c, "raw")] = None
                 continue
             raise UnsupportedOnDevice(
                 f"group-by on non-dictionary/MV column {c}")
+        plan.group_value_tables = tuple(value_tables)
         g = int(np.prod(cards, dtype=np.int64))
         # per-query override (parity: the numGroupsLimit query option)
         limit = self.num_groups_limit
@@ -526,10 +559,9 @@ class InstancePlanMaker:
         strides = mixed_radix_strides(cards)
         g_pad = kernels.pow2_bucket(g)
         agg_specs = tuple(
-            _agg_device_spec(f, segment, needed, gaps, for_group=True)
+            _agg_device_spec(f, segment, needed, for_group=True)
             for f in plan.functions)
         plan.group_spec = (tuple(gcols), strides, g_pad, agg_specs, 0)
-
 
     def _plan_selection(self, plan: SegmentPlan, segment: ImmutableSegment,
                         request: BrokerRequest, needed: Dict) -> None:
@@ -622,18 +654,18 @@ _DEVICE_FNAMES = {
 
 
 def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
-                     needed: Dict, gaps: List[str],
-                     for_group: bool = False) -> Optional[tuple]:
+                     needed: Dict, for_group: bool = False) -> tuple:
     """The JAX planner's device strategy for one aggregation
     (pinot_tpu/query/plan.py:_agg_device_spec), with the dense group
-    table always taken (kmax = 0). Its refusals raise UnsupportedOnDevice
-    in the same order; the shapes it runs on its device that the port has
-    no kernel for yet go into `gaps` (and return None)."""
+    table always taken (kmax = 0), and its refusals (UnsupportedOnDevice)
+    in the same order."""
     base = f.info.base
     if base == "COUNT" and not f.info.is_mv:
         return ("count", "*", "none", None)
     col = f.column
     if expr_mod.is_expression(col):
+        # K4 counts the source column's ids; the host evaluates the
+        # transform over the dictionary and finishes from the counts
         if f.info.is_mv:
             raise UnsupportedOnDevice("MV expression aggregation")
         if for_group:
@@ -642,61 +674,67 @@ def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
         srcs = expr_mod.columns_of(col)
         if len(srcs) != 1:
             raise UnsupportedOnDevice("multi-column expression aggregation")
-        cm = segment.data_source(srcs[0]).metadata
+        src = srcs[0]
+        cm = segment.data_source(src).metadata
         if not (cm.has_dictionary and cm.single_value):
             raise UnsupportedOnDevice(
-                f"expression over non-dictionary/MV column {srcs[0]}")
-        gaps.append(f"expression aggregation {f.name}({col})")
-        return None
-    fname = _DEVICE_FNAMES[base]
+                f"expression over non-dictionary/MV column {src}")
+        card_pad = kernels.pow2_bucket(cm.cardinality + 1)
+        needed[(src, "ids")] = None
+        return ("hist", src, "sv", ("hist", card_pad))
+    fname = "countmv" if base == "COUNT" else _DEVICE_FNAMES[base]
     cm = segment.data_source(col).metadata
     if not cm.has_dictionary:
         if fname in ("percentile", "distinctcount"):
             raise UnsupportedOnDevice(f"{fname} over no-dictionary column")
-        if f.info.is_mv or cm.data_type.np_dtype.kind not in "iuf":
-            gaps.append(f"{base} over raw column {col}")
-            return None
         needed[(col, "raw")] = None
         if for_group and fname in ("sum", "avg"):
             return (fname, col, "raw", ("csums",))
         return (fname, col, "raw", None)
     card_pad = kernels.pow2_bucket(cm.cardinality + 1)
-    if not cm.single_value:
+    if cm.single_value:
+        is_int_dict = cm.data_type.np_dtype.kind in "iu"
         if for_group:
-            raise UnsupportedOnDevice("group-by over MV metric")
-        gaps.append(f"{base} over MV column {col}")
-        return None
-    if for_group and fname in ("distinctcount", "percentile"):
-        raise UnsupportedOnDevice(f"group-by with {fname} aggregation")
-    if f.info.is_mv or base in ("DISTINCTCOUNTHLL", "FASTHLL",
-                                "DISTINCTCOUNTRAWHLL"):
-        gaps.append(f"{f.name} aggregation")
-        return None
-    is_int_dict = cm.data_type.np_dtype.kind in "iu"
-    if for_group:
+            if fname in ("distinctcount", "percentile"):
+                raise UnsupportedOnDevice(
+                    f"group-by with {fname} aggregation")
+            if fname in ("sum", "avg"):
+                if is_int_dict:
+                    needed[(col, "parts")] = None
+                    return (fname, col, "sv", ("psums", card_pad))
+                needed[(col, "vlane")] = None
+                return (fname, col, "sv", ("csums", card_pad))
+            needed[(col, "ids")] = None
+            return (fname, col, "sv", ("ids", card_pad))
+        if base in ("DISTINCTCOUNTHLL", "DISTINCTCOUNTRAWHLL") and \
+                not f.info.is_mv:
+            # K4's histogram, then K7 scatter-maxes the present ids'
+            # (register, rank) tables: the host sketch's registers.
+            # FASTHLL keeps the histogram path, as in JAX.
+            from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
+            needed[(col, "ids")] = None
+            needed[(col, "hllidx")] = None
+            needed[(col, "hllrank")] = None
+            return ("hll", col, "sv", ("hll", card_pad, 1 << DEFAULT_LOG2M))
         if fname in ("sum", "avg"):
             if is_int_dict:
                 needed[(col, "parts")] = None
-                return (fname, col, "sv", ("psums", card_pad))
+                return (fname, col, "sv", ("parts", card_pad))
+            # float dictionaries: histogram · dictionary on the host (exact)
+            # up to the JAX cap, else the decoded value lane's block sums
+            if card_pad <= kernels.DENSE_CARD_LIMIT:
+                needed[(col, "ids")] = None
+                return (fname, col, "sv", ("hist", card_pad))
             needed[(col, "vlane")] = None
-            return (fname, col, "sv", ("csums", card_pad))
+            return (fname, col, "sv", ("vlane", card_pad))
         needed[(col, "ids")] = None
-        return (fname, col, "sv", ("ids", card_pad))
-    if fname in ("sum", "avg"):
-        if is_int_dict:
-            needed[(col, "parts")] = None
-            return (fname, col, "sv", ("parts", card_pad))
-        # float dictionaries: histogram · dictionary on the host (exact)
-        # up to the JAX cap, else the decoded value lane's block sums
-        if card_pad <= kernels.DENSE_CARD_LIMIT:
-            needed[(col, "ids")] = None
+        if fname in ("distinctcount", "percentile"):
             return (fname, col, "sv", ("hist", card_pad))
-        needed[(col, "vlane")] = None
-        return (fname, col, "sv", ("vlane", card_pad))
-    needed[(col, "ids")] = None
-    if fname in ("distinctcount", "percentile"):
-        return (fname, col, "sv", ("hist", card_pad))
-    return (fname, col, "sv", ("ids", card_pad))
+        return (fname, col, "sv", ("ids", card_pad))
+    needed[(col, "mv")] = None
+    if for_group:
+        raise UnsupportedOnDevice("group-by over MV metric")
+    return (fname, col, "mv", (card_pad, cm.cardinality))
 
 
 def _collect_filter_cols(spec: tuple, needed: Dict) -> None:

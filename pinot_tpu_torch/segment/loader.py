@@ -11,7 +11,9 @@ so every kernel sees the same static layout the JAX package uses:
 - MV lanes are narrow [P, W] dictIds (W = the column's most values per
   row); padding entries and padding rows hold id == cardinality;
 - raw lanes keep the host dtype (int32 / int64 / float32 / float64);
-- value lanes decode a float dictionary to float64 [P].
+- value lanes decode a float dictionary to float64 [P];
+- HLL tables are int32 [card_pad] per-dictId register index and rank
+  (`hll_tables_padded`), padded with (0, 0).
 
 Segments come from disk (`ImmutableSegmentLoader.load`, the directories
 segment/creator.py writes, or the JAX package's creator: the files are
@@ -63,6 +65,21 @@ def int_part_info_for(values: np.ndarray) -> tuple:
     return (n_parts, min_v)
 
 
+def hll_tables_padded(values: np.ndarray) -> tuple:
+    """(idx, rank) int32 [card_pad] HLL tables for a dictionary, padded
+    to the kernels' pow2 cardinality bucket with (0, 0) — rank 0 is the
+    register-max identity, so padding ids can never perturb a sketch."""
+    from pinot_tpu_torch.common.sketches import hll_tables
+    from pinot_tpu_torch.ops.kernels import pow2_bucket
+    idx, rank = hll_tables(np.asarray(values))
+    card_pad = pow2_bucket(len(idx) + 1)
+    out_i = np.zeros(card_pad, np.int32)
+    out_r = np.zeros(card_pad, np.int32)
+    out_i[: len(idx)] = idx
+    out_r[: len(rank)] = rank
+    return out_i, out_r
+
+
 def int_part_table(values: np.ndarray, n_parts: int,
                    min_v: int) -> np.ndarray:
     """[n_parts, card + 1] int8 plane table (last column = all-zero pad
@@ -91,6 +108,7 @@ class DataSource:
         self.bloom_filter: Optional[BloomFilter] = None
         self._dev: Dict[str, torch.Tensor] = {}
         self._part_info: Optional[tuple] = None
+        self._hll_tables: Optional[tuple] = None
 
     # -- device access -----------------------------------------------------
     def device_dict_ids(self) -> torch.Tensor:
@@ -115,6 +133,17 @@ class DataSource:
         """Decoded float64 dictionary-value lane [P] for float sums."""
         return self._device("value_lane", "vlane")
 
+    def device_hll_idx(self) -> torch.Tensor:
+        """Per-dictId HLL register-index table [card_pad] int32, built
+        from the dictionary values with the host HyperLogLog's own hashing
+        (sketches.hll_tables), so K7's registers equal the host sketch."""
+        return self._device("hll_idx", "hllidx")
+
+    def device_hll_rank(self) -> torch.Tensor:
+        """Per-dictId HLL rank table [card_pad] int32 (padding rank 0, the
+        register-max identity)."""
+        return self._device("hll_rank", "hllrank")
+
     def int_part_info(self) -> tuple:
         """(n_parts, min_value): value = min_value + sum_k part_k << 7k."""
         if self._part_info is None:
@@ -126,7 +155,8 @@ class DataSource:
 
     def host_operand(self, kind: str) -> np.ndarray:
         """Padded host array for a lane kind ('ids'|'mv'|'raw'|'parts'|
-        'vlane'), in exactly the layout of the device lane."""
+        'vlane'|'hllidx'|'hllrank'), in exactly the layout of the device
+        lane."""
         if kind == "ids":
             return self._pad_ids(self.dict_ids)
         if kind == "mv":
@@ -152,6 +182,13 @@ class DataSource:
             vals = np.asarray(self.dictionary.values, dtype=np.float64)
             vals = np.concatenate([vals, [0.0]])
             return vals[self.host_operand("ids")]
+        if kind in ("hllidx", "hllrank"):
+            if self._hll_tables is None:
+                with self._lane_lock:
+                    if self._hll_tables is None:
+                        self._hll_tables = hll_tables_padded(
+                            self.dictionary.values)
+            return self._hll_tables[0 if kind == "hllidx" else 1]
         raise ValueError(kind)
 
     def _pad_ids(self, ids: np.ndarray) -> np.ndarray:

@@ -15,16 +15,26 @@ tests/test_query_generator.py, which mirror Pinot's QueryGenerator.java):
   millions of rows (the fixture draws `position` row by row);
 - `build_segment_dirs`: segments written by SegmentCreator, each from its
   own seed, so each has its own dictionaries, as a Pinot server sees them;
+  `build_raw_key_dir`: one segment with runs, hits and salary written
+  without a dictionary (raw group keys); `build_mv_metric_dir`: the JAX
+  package's numeric-MV table (baseballStats has no numeric MV column,
+  which MINMV, SUMMV and the other MV aggregations need);
 - `Gen` and the `*_draws` functions: the generator's aggregation,
-  group-by, HAVING, selection and two-key ORDER BY families with the
-  reference's seeds, each draw as its PQL and the row mask it selects,
-  and fixed queries that reach the strategies the draws may miss (among
-  them one selection of each select kind);
+  group-by, HAVING, selection, two-key ORDER BY and MV group-by families
+  with the reference's seeds, each draw as its PQL and the row mask it
+  selects, fixed queries that reach the strategies the draws may miss
+  (among them one selection of each select kind and one query per device
+  shape of the planner: HLL, MV and expression aggregations, expression,
+  MV and valuein keys), the raw-key table's group-bys and the MV metric
+  table's aggregations and numeric MV key;
 - `Oracle`: the expected answers, computed with array compares, MV
-  membership over a padded value matrix, `np.unique` + `np.add.at` /
-  `np.minimum.at` for group-bys, and for selections a hash of each row's
-  value codes (the matched multiset) and `np.lexsort` (the top-k order
-  keys). It shares no code with the planner or the kernels.
+  membership over a padded value matrix, an MV key's entries expanded
+  with `np.nonzero` over the value matrix, `np.unique` + `np.add.at` /
+  `np.minimum.at` for group-bys, its own evaluation of the transforms,
+  and for selections a hash of each row's value codes (the matched
+  multiset) and `np.lexsort` (the top-k order keys). It shares no code
+  with the planner or the kernels; DISTINCTCOUNTHLL's expected estimate
+  is the host HyperLogLog's over the matched distinct values.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ PLAYERS = [f"player_{i:03d}" for i in range(997)]
 
 SEED = 20260730          # the reference's generator seed
 N_AGG, N_GROUP, N_HAVING, N_SEL, N_ORDER = 14, 12, 6, 12, 8
+N_MV_GROUP = 8
 
 #: queries the draws may miss: one per device strategy, the inverted-index
 #: COUNT path and a query the pruner answers alone
@@ -105,11 +116,11 @@ def make_schema() -> Schema:
     ])
 
 
-def make_table_config() -> TableConfig:
+def make_table_config(no_dict: Sequence[str] = ("salary",)) -> TableConfig:
     return TableConfig("baseballStats", indexing_config=IndexingConfig(
         inverted_index_columns=["teamID", "league"],
         bloom_filter_columns=["teamID"],
-        no_dictionary_columns=["salary"]))
+        no_dictionary_columns=list(no_dict)))
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +249,68 @@ def build_segment_dirs(base: str, rows: int, segments: int, seed: int = 0
     return dirs, concat_columns(parts)
 
 
+#: the raw-key table's no-dictionary columns (the JAX
+#: tests/test_device_coverage.py shape, with hits raw too): runs and hits
+#: group by value - min ("rawoff")
+RAW_KEY_NO_DICT = ("salary", "runs", "hits")
+#: the raw-key table's rows, in one segment
+RAW_KEY_ROWS = 2_500_000
+
+
+def build_raw_key_dir(base: str, rows: int, seed: int = 0
+                      ) -> Tuple[str, Dict[str, object]]:
+    """One segment of `rows` rows (the same schema and seed rule as
+    build_segment_dirs) with runs, hits and salary written without a
+    dictionary; returns (its directory, the table in the oracle's form)."""
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    cols = make_columns(rows, seed)
+    d = os.path.join(base, "baseballStats_raw")
+    SegmentCreator(make_schema(), make_table_config(RAW_KEY_NO_DICT),
+                   segment_name="baseballStats_raw").build(
+        creator_columns(cols), d)
+    return d, cols
+
+
+#: rows of the MV metric table, in one segment
+MV_METRIC_ROWS = 1_000_000
+
+
+def make_mv_metric_schema() -> Schema:
+    """The JAX package's numeric-MV table (tests/test_queries.py:
+    test_mv_metric_sum_in_group_by): a STRING key k, a multi-value INT
+    scores, an INT metric v."""
+    return Schema("mv", [dimension("k", DataType.STRING),
+                         dimension("scores", DataType.INT,
+                                   single_value=False),
+                         metric("v", DataType.INT)])
+
+
+def make_mv_metric_columns(n: int, seed: int = 0) -> Dict[str, object]:
+    """That table's distributions, vectorised: k uniform over a, b and c;
+    1 to 3 scores per row, each uniform in [0, 50) (repeats allowed, as
+    there); v uniform in [0, 100)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 50, (n, 3))
+    codes[np.arange(3)[None, :] >= rng.integers(1, 4, n)[:, None]] = -1
+    return {"k": Categorical(np.array(["a", "b", "c"], dtype=object),
+                             rng.integers(0, 3, n)),
+            "scores": MultiValue(np.arange(50, dtype=np.int32), codes),
+            "v": rng.integers(0, 100, n).astype(np.int32)}
+
+
+def build_mv_metric_dir(base: str, rows: int, seed: int = 0
+                        ) -> Tuple[str, Dict[str, object]]:
+    """One segment of the MV metric table, named after its seed; returns
+    (its directory, the table in the oracle's form)."""
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    cols = make_mv_metric_columns(rows, seed)
+    name = f"mv_{seed}"
+    d = os.path.join(base, name)
+    SegmentCreator(make_mv_metric_schema(), None, segment_name=name).build(
+        creator_columns(cols), d)
+    return d, cols
+
+
 def concat_columns(parts: Sequence[Dict[str, object]]) -> Dict[str, object]:
     """Tables in the oracle's form, one after another (codes re-based onto
     the union of the pools)."""
@@ -268,6 +341,18 @@ def concat_columns(parts: Sequence[Dict[str, object]]) -> Dict[str, object]:
 # ---------------------------------------------------------------------------
 
 
+#: the largest code space the oracle counts densely (np.bincount) instead
+#: of sorting (np.unique takes seconds over tens of millions of rows)
+DENSE_CODES = 1 << 22
+
+
+def _present(codes: np.ndarray, size: int) -> np.ndarray:
+    """The distinct values of non-negative int codes below `size`, sorted."""
+    if size <= DENSE_CODES:
+        return np.nonzero(np.bincount(codes, minlength=size))[0]
+    return np.unique(codes)
+
+
 def _value_bits(arr: np.ndarray) -> np.ndarray:
     """Exact int64 codes of numbers: integers as they are, floats by bits."""
     arr = np.asarray(arr)
@@ -296,12 +381,14 @@ class Oracle:
 
     def isin(self, name: str, values) -> np.ndarray:
         col = self.cols[name]
-        if isinstance(col, Categorical):
-            codes = [self._code(col, v) for v in values]
-            return np.isin(col.codes, codes)
-        if isinstance(col, MultiValue):
-            codes = [self._code(col, v) for v in values]
-            return np.isin(col.codes, codes).any(axis=1)
+        if isinstance(col, (Categorical, MultiValue)):
+            # a lookup table over the codes, shifted by one for MV padding
+            lut = np.zeros(len(col.pool) + 1, dtype=bool)
+            for v in values:
+                if self._code(col, v) >= 0:
+                    lut[self._code(col, v) + 1] = True
+            hit = lut[col.codes + 1]
+            return hit if isinstance(col, Categorical) else hit.any(axis=1)
         return np.isin(col, np.asarray(values, dtype=col.dtype))
 
     def eq(self, name: str, value) -> np.ndarray:
@@ -316,28 +403,97 @@ class Oracle:
 
     # -- values ------------------------------------------------------------
     def values(self, name: str, m: np.ndarray) -> np.ndarray:
+        """The matched rows' values of a column, an MV column's valid
+        entries (of a valuein's allowed values only), or a transform."""
+        coded = self._coded_values(name, m)
+        if coded is not None:
+            return coded[0][coded[1]]
+        return self.row_values(name)[m]
+
+    def _coded_values(self, name: str, m: np.ndarray
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """(pool, codes) of values(name, m) for a string or MV column (or
+        a valuein over one), else None: counting and distinct values work
+        on the codes (np.unique over millions of Python strings takes
+        seconds)."""
+        vi = _valuein(name)
+        col = self.cols.get(vi[0] if vi else name)
+        if isinstance(col, Categorical):
+            return col.pool, col.codes[m]
+        if not isinstance(col, MultiValue):
+            return None
+        codes = col.codes[m]
+        keep = codes >= 0
+        if vi is not None:
+            keep &= np.isin(col.pool, vi[1])[np.maximum(codes, 0)]
+        return col.pool, codes[keep]
+
+    def distinct_values(self, name: str, m: np.ndarray) -> np.ndarray:
+        """The distinct values of values(name, m)."""
+        coded = self._coded_values(name, m)
+        if coded is not None:
+            return coded[0][_present(coded[1], len(coded[0]))]
+        if name in self.cols:
+            pool, codes = self._codes(name)
+            return pool[_present(codes[m], len(pool))]
+        return np.unique(self.values(name, m))
+
+    def row_values(self, name: str) -> np.ndarray:
+        """Per-row values of a single-value column or of a transform over
+        numeric columns."""
+        if name not in self.cols:
+            return _transform(name, self.row_values)
         col = self.cols[name]
         if isinstance(col, Categorical):
-            return col.pool[col.codes[m]]
-        if isinstance(col, MultiValue):
-            codes = col.codes[m]
-            return col.pool[codes[codes >= 0]]
-        return col[m]
+            return col.pool[col.codes]
+        return col
 
-    def _codes(self, name: str) -> np.ndarray:
-        """Per-row group codes of a single-value column."""
+    def _codes(self, name: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(value pool, per-row int64 codes into it) of a single-value
+        column or transform; equal values share a code."""
         if name not in self._code_cache:
-            col = self.cols[name]
-            self._code_cache[name] = np.asarray(
-                col.codes if isinstance(col, Categorical) else
-                np.unique(col, return_inverse=True)[1], dtype=np.int64)
+            col = self.cols.get(name)
+            values = None if isinstance(col, Categorical) else \
+                self.row_values(name)
+            if values is None:
+                pool, codes = col.pool, col.codes
+            elif values.dtype.kind in "iu" and len(values) and \
+                    int(values.max()) - int(values.min()) < DENSE_CODES:
+                # integers over a small range: the range is the pool
+                lo = int(values.min())
+                pool = np.arange(lo, int(values.max()) + 1,
+                                 dtype=values.dtype)
+                codes = values.astype(np.int64) - lo
+            else:
+                pool, codes = np.unique(values, return_inverse=True)
+            self._code_cache[name] = (pool, np.asarray(codes, np.int64))
         return self._code_cache[name]
 
-    def _key_values(self, name: str, rows: np.ndarray) -> np.ndarray:
-        col = self.cols[name]
-        if isinstance(col, Categorical):
-            return col.pool[col.codes[rows]]
-        return col[rows]
+    def _expand(self, dims: Sequence[str], m: np.ndarray):
+        """The matched rows, repeated once per combination of their MV
+        keys' valid entries (a valuein key's allowed ones only), as the
+        reference's aggregateGroupByMV counts them: (row index, per dim
+        its value pool and codes into it)."""
+        rows = np.nonzero(m)[0]
+        pools, codes = [], []
+        for d in dims:
+            vi = _valuein(d)
+            col = self.cols.get(vi[0] if vi else d)
+            if isinstance(col, MultiValue):
+                entries = col.codes[rows]
+                keep = entries >= 0
+                if vi is not None:
+                    keep &= np.isin(col.pool, vi[1])[np.maximum(entries, 0)]
+                r_idx, e_idx = np.nonzero(keep)
+                rows = rows[r_idx]
+                codes = [c[r_idx] for c in codes]
+                codes.append(entries[r_idx, e_idx])
+                pools.append(col.pool)
+            else:
+                pool, all_codes = self._codes(d)
+                codes.append(all_codes[rows])
+                pools.append(pool)
+        return rows, pools, codes
 
     # -- selections --------------------------------------------------------
     def row_codes(self, name: str) -> np.ndarray:
@@ -390,8 +546,15 @@ class Oracle:
         `order` ((column, descending) pairs), one array per key."""
         rows = np.nonzero(m)[0]
         keys = [self.sort_keys(c)[rows] for c, _desc in order]
-        first = np.lexsort([-k if desc else k for k, (_c, desc)
-                            in reversed(list(zip(keys, order)))])[:limit]
+        signed = [-k if desc else k for k, (_c, desc) in zip(keys, order)]
+        if len(rows) > limit:
+            # the first `limit` rows all sort at or before the limit-th
+            # smallest first key: sort only those
+            kth = np.partition(signed[0], limit - 1)[limit - 1]
+            near = signed[0] <= kth
+            keys = [k[near] for k in keys]
+            signed = [k[near] for k in signed]
+        first = np.lexsort(signed[::-1])[:limit]
         return [k[first] for k in keys]
 
     # -- aggregations ------------------------------------------------------
@@ -401,9 +564,18 @@ class Oracle:
         reference's conventions for an empty match)."""
         if name == "count":
             return int(m.sum())
+        if name in ("distinctcount", "distinctcounthll"):
+            distinct = self.distinct_values(col, m)
+            if name == "distinctcount":
+                return len(distinct)
+            # the estimate of the matched value set's sketch: the
+            # reference's host HyperLogLog over the distinct values
+            from pinot_tpu_torch.common.sketches import HyperLogLog
+            return int(round(HyperLogLog.from_values(distinct)
+                             .cardinality()))
+        if name == "countmv":
+            return int(len(self._coded_values(col, m)[1]))
         v = self.values(col, m)
-        if name == "distinctcount":
-            return int(len(np.unique(v)))
         v64 = v.astype(np.float64)
         if name == "sum":
             return float(v64.sum())
@@ -424,27 +596,38 @@ class Oracle:
 
     def group_by(self, dims: Sequence[str], m: np.ndarray,
                  name: str, col: Optional[str]) -> Dict[tuple, object]:
-        """{group values: final value} over the matched rows."""
-        rows = np.nonzero(m)[0]
+        """{group values: final value} over the matched rows (MV keys
+        expand them, see _expand)."""
+        rows, pools, codes = self._expand(dims, m)
         if len(rows) == 0:
             return {}
         key = np.zeros(len(rows), np.int64)
-        for d in dims:
-            codes = self._codes(d)
-            key = key * (int(codes.max()) + 1) + codes[rows]
-        uniq, first, inv = np.unique(key, return_index=True,
-                                     return_inverse=True)
+        for pool, c in zip(pools, codes):
+            key = key * len(pool) + c
+        space = int(np.prod([len(p) for p in pools], dtype=np.int64))
+        if space <= DENSE_CODES:
+            uniq = _present(key, space)
+            slot = np.zeros(space, np.int64)
+            slot[uniq] = np.arange(len(uniq))
+            inv = slot[key]
+        else:
+            uniq, inv = np.unique(key, return_inverse=True)
         g = len(uniq)
         counts = np.bincount(inv, minlength=g)
-        keys = list(zip(*[self._key_values(d, rows[first]) for d in dims]))
+        dim_codes, rem = [], uniq
+        for pool in reversed(pools):            # the last key is fastest
+            dim_codes.append(rem % len(pool))
+            rem = rem // len(pool)
+        keys = list(zip(*[pool[c] for pool, c in
+                          zip(pools, reversed(dim_codes))]))
         if name == "count":
             vals = counts
         elif name == "distinctcount":
-            vc = self._codes(col)[rows]
-            pairs = np.unique(inv * (int(vc.max()) + 1) + vc)
-            vals = np.bincount(pairs // (int(vc.max()) + 1), minlength=g)
+            vpool, vc = self._codes(col)
+            pairs = _present(inv * len(vpool) + vc[rows], g * len(vpool))
+            vals = np.bincount(pairs // len(vpool), minlength=g)
         else:
-            v = self.cols[col][rows]
+            v = self.row_values(col)[rows]
             if name in ("sum", "avg"):
                 vals = np.zeros(g)
                 np.add.at(vals, inv, v.astype(np.float64))
@@ -458,6 +641,59 @@ class Oracle:
                 vals = {"min": lo, "max": hi, "minmaxrange": hi - lo}[name]
         return {k: (int(x) if name in ("count", "distinctcount")
                     else float(x)) for k, x in zip(keys, vals)}
+
+
+def _call(text: str) -> Tuple[str, List[str]]:
+    """'f(a, g(b, 1))' → ('f', ['a', 'g(b, 1)'])."""
+    i = text.index("(")
+    args, depth, cur = [], 0, ""
+    for ch in text[i + 1:text.rindex(")")]:
+        if ch == "," and depth == 0:
+            args.append(cur.strip())
+            cur = ""
+            continue
+        depth += (ch == "(") - (ch == ")")
+        cur += ch
+    args.append(cur.strip())
+    return text[:i].strip().lower(), args
+
+
+def _valuein(name: str) -> Optional[Tuple[str, List[str]]]:
+    """(column, allowed values) of 'valuein(col, 'a', ...)', else None."""
+    if not name.lower().startswith("valuein("):
+        return None
+    _f, args = _call(name)
+    return args[0], [a.strip("'") for a in args[1:]]
+
+
+def _transform(text: str, column) -> np.ndarray:
+    """The oracle's own evaluation of the transforms the mix uses: add /
+    sub / mult / div in float64 over columns and numbers, and
+    datetime_convert from and to '1:DAYS:EPOCH' at an 'N:DAYS'
+    granularity (days truncated to a multiple of N)."""
+    func, args = _call(text)
+
+    def arg(a):
+        if "(" in a:
+            return _transform(a, column)
+        try:
+            return float(a)
+        except ValueError:
+            return np.asarray(column(a), np.float64)
+
+    if func in ("add", "sub", "mult", "div"):
+        out = arg(args[0])
+        for a in args[1:]:
+            v = arg(a)
+            out = {"add": np.add, "sub": np.subtract, "mult": np.multiply,
+                   "div": np.divide}[func](out, v)
+        return out
+    if func == "datetime_convert" and args[1:3] == ["'1:DAYS:EPOCH'"] * 2:
+        n, unit = args[3].strip("'").split(":")
+        if unit == "DAYS":
+            days = np.asarray(column(args[0]), np.int64)
+            return days // int(n) * int(n)
+    raise ValueError(f"the oracle has no transform {text}")
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +803,7 @@ class Draw:
     columns: Tuple[str, ...] = ()              # a selection's columns,
     limit: int = 0                             # its LIMIT
     order: Tuple[Tuple[str, bool], ...] = ()   # and (column, descending)
+    host: bool = False           # a shape the JAX planner refuses
 
     @property
     def is_selection(self) -> bool:
@@ -574,10 +811,11 @@ class Draw:
 
     @property
     def host_answered(self) -> bool:
-        """Group-by DISTINCTCOUNT has no device path: the planner refuses
-        it (as the JAX planner does) and the host twin answers it."""
-        return self.family == "group_by" and \
-            any(a[1] == "distinctcount" for a in self.aggs)
+        """The planner refuses these (as the JAX planner does) and the
+        host twin answers them: group-by DISTINCTCOUNT, and the fixed
+        shapes marked `host` (an MV expression aggregation)."""
+        return self.host or (self.family == "group_by" and any(
+            a[1] == "distinctcount" for a in self.aggs))
 
 
 def aggregation_draws(oracle: Oracle, n: int = N_AGG, seed: int = SEED
@@ -662,6 +900,157 @@ def order_by_draws(oracle: Oracle, n: int = N_ORDER, seed: int = SEED + 9
                    order=((o1, d1), (o2, d2)))
 
 
+def mv_group_by_draws(oracle: Oracle, n: int = N_MV_GROUP,
+                      seed: int = SEED + 7) -> Iterator[Draw]:
+    """The reference's random MV group-by family
+    (tests/test_query_generator.py:test_random_mv_group_by_queries):
+    COUNT(*) and SUM(hits) grouped by position or by valuein(position,
+    2-5 of its values), half of them with league as a second key."""
+    gen = Gen(random.Random(seed), oracle)
+    pos = oracle.cols["position"]
+    all_pos = sorted(pos.pool[_present(pos.codes[pos.codes >= 0],
+                                       len(pos.pool))])
+    aggs = [AGGS[0], AGGS[2]]
+    for _ in range(n):
+        where, m = gen.where()
+        if gen.rng.random() < 0.5:
+            picks = gen.rng.sample(all_pos, gen.rng.randint(2, 5))
+            mvkey = "valuein(position, %s)" % \
+                ", ".join("'%s'" % p for p in picks)
+        else:
+            mvkey = "position"
+        extra_sv = gen.rng.choice([None, "league"])
+        dims = [mvkey] + ([extra_sv] if extra_sv else [])
+        pql = ("SELECT COUNT(*), SUM(hits) FROM baseballStats" + where +
+               " GROUP BY " + ", ".join(dims) + " TOP 5000")
+        yield Draw("group_by", pql, m, aggs, tuple(dims))
+
+
+#: one query per device shape of the aggregation / group-by planner that
+#: the generator's families miss: device HLL (K7), the MV entry histogram
+#: (K4), expression aggregations and keys (one with colliding keys), MV
+#: and valuein keys (K3), and an MV expression aggregation the JAX planner
+#: refuses (the host twin answers it)
+SHAPE_PQLS = {
+    "hll": "SELECT DISTINCTCOUNTHLL(playerName), DISTINCTCOUNTHLL(teamID) "
+           "FROM baseballStats WHERE yearID >= 2000",
+    "countmv": "SELECT COUNTMV(position), DISTINCTCOUNTMV(position) FROM "
+               "baseballStats WHERE league = 'NL'",
+    "expression_aggs": "SELECT SUM(mult(runs,2)), MIN(add(mult(runs,2),1)) "
+                       "FROM baseballStats WHERE teamID = 'BOS'",
+    "expression_key": "SELECT COUNT(*), SUM(runs) FROM baseballStats "
+                      "GROUP BY div(yearID,10) TOP 100",
+    "colliding_expression_key": (
+        "SELECT COUNT(*), SUM(hits) FROM baseballStats WHERE runs > 50 "
+        "GROUP BY datetime_convert(yearID,'1:DAYS:EPOCH','1:DAYS:EPOCH',"
+        "'5:DAYS') TOP 100"),
+    "position_league": "SELECT COUNT(*), SUM(runs), MIN(hits) FROM "
+                       "baseballStats WHERE yearID < 2005 GROUP BY "
+                       "position, league TOP 100",
+    "valuein_team": "SELECT COUNT(*), AVG(runs) FROM baseballStats GROUP BY "
+                    "valuein(position, 'P', 'C', 'SS'), teamID TOP 1000",
+    "countmv_valuein": "SELECT COUNTMV(valuein(position, 'P', 'C')) FROM "
+                       "baseballStats WHERE league = 'AL'",
+}
+
+
+def shape_draws(oracle: Oracle) -> Iterator[Draw]:
+    """SHAPE_PQLS with their masks and oracle aggregations."""
+    o = oracle
+    agg = {a[0]: a for a in AGGS}
+    q = SHAPE_PQLS
+    yield Draw("aggregation", q["hll"], o.cmp("yearID", ">=", 2000), [
+        ("DISTINCTCOUNTHLL(playerName)", "distinctcounthll", "playerName",
+         "exact"),
+        ("DISTINCTCOUNTHLL(teamID)", "distinctcounthll", "teamID",
+         "exact")])
+    yield Draw("aggregation", q["countmv"], o.eq("league", "NL"), [
+        ("COUNTMV(position)", "countmv", "position", "exact"),
+        ("DISTINCTCOUNTMV(position)", "distinctcount", "position",
+         "exact")])
+    yield Draw("aggregation", q["expression_aggs"], o.eq("teamID", "BOS"), [
+        ("SUM(mult(runs,2))", "sum", "mult(runs,2)", "exact"),
+        ("MIN(add(mult(runs,2),1))", "min", "add(mult(runs,2),1)",
+         "exact")])
+    yield Draw("group_by", q["expression_key"], o.all(),
+               [agg["COUNT(*)"], agg["SUM(runs)"]], ("div(yearID,10)",))
+    yield Draw("group_by", q["colliding_expression_key"],
+               o.cmp("runs", ">", 50), [agg["COUNT(*)"], agg["SUM(hits)"]],
+               ("datetime_convert(yearID,'1:DAYS:EPOCH','1:DAYS:EPOCH',"
+                "'5:DAYS')",))
+    yield Draw("group_by", q["position_league"], o.cmp("yearID", "<", 2005),
+               [agg["COUNT(*)"], agg["SUM(runs)"],
+                ("MIN(hits)", "min", "hits", "exact")],
+               ("position", "league"))
+    yield Draw("group_by", q["valuein_team"], o.all(),
+               [agg["COUNT(*)"], agg["AVG(runs)"]],
+               ("valuein(position, 'P', 'C', 'SS')", "teamID"))
+    yield Draw("aggregation", q["countmv_valuein"], o.eq("league", "AL"),
+               [("COUNTMV(valuein(position, 'P', 'C'))", "countmv",
+                 "valuein(position, 'P', 'C')", "exact")], host=True)
+
+
+#: group-bys over the raw-key table (build_raw_key_dir): runs spans 150
+#: values and hits 250, each keyed by value - min
+RAW_KEY_PQLS = {
+    "runs": "SELECT COUNT(*), SUM(salary) FROM baseballStats GROUP BY runs "
+            "TOP 200",
+    "hits_league": "SELECT COUNT(*), SUM(runs) FROM baseballStats WHERE "
+                   "yearID >= 2000 GROUP BY hits, league TOP 1000",
+    "runs_min_hits": "SELECT MIN(hits), MAX(runs) FROM baseballStats WHERE "
+                     "league = 'AL' GROUP BY runs TOP 200",
+}
+
+
+def raw_key_draws(oracle: Oracle) -> Iterator[Draw]:
+    """RAW_KEY_PQLS over the raw-key table's oracle."""
+    o = oracle
+    agg = {a[0]: a for a in AGGS}
+    yield Draw("group_by", RAW_KEY_PQLS["runs"], o.all(),
+               [agg["COUNT(*)"], agg["SUM(salary)"]], ("runs",))
+    yield Draw("group_by", RAW_KEY_PQLS["hits_league"],
+               o.cmp("yearID", ">=", 2000),
+               [agg["COUNT(*)"], agg["SUM(runs)"]], ("hits", "league"))
+    yield Draw("group_by", RAW_KEY_PQLS["runs_min_hits"],
+               o.eq("league", "AL"),
+               [("MIN(hits)", "min", "hits", "exact"),
+                ("MAX(runs)", "max", "runs", "exact")], ("runs",))
+
+
+#: the MV metric table's queries: every MV aggregation over a numeric MV
+#: column (K5's MV min / max, K4's entry histogram and their finishers)
+#: and a numeric MV group key
+MV_METRIC_PQLS = {
+    "aggs": "SELECT MINMV(scores), MAXMV(scores), MINMAXRANGEMV(scores), "
+            "SUMMV(scores), AVGMV(scores), PERCENTILE50MV(scores) FROM mv "
+            "WHERE k = 'a'",
+    "counts": "SELECT COUNTMV(scores), DISTINCTCOUNTMV(scores), COUNT(*) "
+              "FROM mv WHERE v >= 50",
+    "key": "SELECT COUNT(*), SUM(v) FROM mv WHERE k <> 'c' GROUP BY scores "
+           "TOP 100",
+}
+
+
+def mv_metric_draws(oracle: Oracle) -> Iterator[Draw]:
+    """MV_METRIC_PQLS over the MV metric table's oracle."""
+    o = oracle
+    q = MV_METRIC_PQLS
+    yield Draw("aggregation", q["aggs"], o.eq("k", "a"), [
+        ("MINMV(scores)", "min", "scores", "exact"),
+        ("MAXMV(scores)", "max", "scores", "exact"),
+        ("MINMAXRANGEMV(scores)", "minmaxrange", "scores", "exact"),
+        ("SUMMV(scores)", "sum", "scores", "exact"),
+        ("AVGMV(scores)", "avg", "scores", "float"),
+        ("PERCENTILE50MV(scores)", "percentile", "scores", "exact")])
+    yield Draw("aggregation", q["counts"], o.cmp("v", ">=", 50), [
+        ("COUNTMV(scores)", "countmv", "scores", "exact"),
+        ("DISTINCTCOUNTMV(scores)", "distinctcount", "scores", "exact"),
+        ("COUNT(*)", "count", None, "exact")])
+    yield Draw("group_by", q["key"], ~o.eq("k", "c"), [
+        ("COUNT(*)", "count", None, "exact"),
+        ("SUM(v)", "sum", "v", "exact")], ("scores",))
+
+
 def fixed_selection_draws(oracle: Oracle) -> Iterator[Draw]:
     """FIXED_SELECTIONS with their masks, columns and order."""
     o = oracle
@@ -723,15 +1112,22 @@ def fixed_draws(oracle: Oracle) -> Iterator[Draw]:
 
 def all_draws(oracle: Oracle) -> Iterator[Tuple[str, Draw]]:
     """Every draw of the mix with its family for reporting: the draw's own,
-    "fixed" for FIXED_PQLS or "fixed_selection" for FIXED_SELECTIONS."""
+    "mv_group_by" for the MV group-by family, "fixed" for FIXED_PQLS,
+    "fixed_selection" for FIXED_SELECTIONS or "shapes" for SHAPE_PQLS.
+    The raw-key table's draws (raw_key_draws) and the MV metric table's
+    (mv_metric_draws) need their own tables."""
     for gen in (aggregation_draws, group_by_draws, having_draws,
                 selection_draws, order_by_draws):
         for draw in gen(oracle):
             yield draw.family, draw
+    for draw in mv_group_by_draws(oracle):
+        yield "mv_group_by", draw
     for draw in fixed_draws(oracle):
         yield "fixed", draw
     for draw in fixed_selection_draws(oracle):
         yield "fixed_selection", draw
+    for draw in shape_draws(oracle):
+        yield "shapes", draw
 
 
 # ---------------------------------------------------------------------------
@@ -799,10 +1195,12 @@ def check_selection(resp, oracle: Oracle, draw: Draw) -> None:
     got = _hash_rows([oracle.value_codes(c, [r[i] for r in rows])
                       for i, c in enumerate(cols)])
     have = _hash_rows([oracle.row_codes(c)[draw.mask] for c in cols])
-    uniq, counts = np.unique(have, return_counts=True)
+    # how often each returned row's hash occurs among the matched rows
     g_uniq, g_counts = np.unique(got, return_counts=True)
-    pos = np.minimum(np.searchsorted(uniq, g_uniq), len(uniq) - 1)
-    if not ((uniq[pos] == g_uniq) & (counts[pos] >= g_counts)).all():
+    pos = np.minimum(np.searchsorted(g_uniq, have), len(g_uniq) - 1)
+    hit = g_uniq[pos] == have
+    counts = np.bincount(pos[hit], minlength=len(g_uniq))
+    if not (counts >= g_counts).all():
         raise AssertionError(f"{draw.pql}: a row is not among the matched "
                              "rows")
     if draw.order:

@@ -8,9 +8,11 @@ Builds the SSB table at scale factor --sf on the card (or, with --table
 baseball, writes the baseballStats table to segment directories under
 build/ and loads them with QueryEngine.from_dirs), runs each query once
 to upload the lanes (the 13 SSB queries, or every draw of the
-QueryGenerator mix: aggregations, group-bys, HAVING, selections and
-two-key ORDER BYs, the fixed queries and selections, and the group-by
-DISTINCTCOUNT draws that the host twin answers, family "host"), then
+QueryGenerator mix: aggregations, group-bys, HAVING, selections,
+two-key ORDER BYs and MV group-bys, the fixed queries and selections,
+one query per device shape, the draws that the host twin answers, family
+"host", the raw-key table's group-bys, family "raw_group_by", and the MV
+metric table's queries, family "mv_metric"), then
 --repeats times with each layer timed (pruner, planner, kernel dispatch,
 device→host pull, finish, host twin, combine and reduce) and once more
 under torch.profiler for the card's busy time. Prints one JSON line per
@@ -78,12 +80,20 @@ def main() -> int:
         print("ssb_profile: no CUDA device", file=sys.stderr)
         return 1
     if args.table == "ssb":
-        return profile(args, *_ssb_engine(args))
-    scratch = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), "build")
-    os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as base:
-        return profile(args, *_baseball_engine(args, base))
+        rows = profile(args, *_ssb_engine(args))
+    else:
+        scratch = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__)))), "build")
+        os.makedirs(scratch, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as base:
+            rows = profile(args, *_baseball_engine(args, base))
+            rows += profile(args, *_raw_key_engine(args, base))
+            rows += profile(args, *_mv_metric_engine(args, base))
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 0
 
 
 def _ssb_engine(args):
@@ -111,7 +121,34 @@ def _baseball_engine(args, base):
          "segments": args.bb_segments}
 
 
-def profile(args, engine, pqls, tag) -> int:
+def _raw_key_engine(args, base):
+    """The raw-key table (runs, hits, salary without a dictionary) and its
+    group-bys, family "raw_group_by"."""
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.tools import baseball
+    d, _cols = baseball.build_raw_key_dir(base, baseball.RAW_KEY_ROWS,
+                                          args.seed + args.bb_segments)
+    pqls = {f"raw_group_by{i}": pql
+            for i, pql in enumerate(baseball.RAW_KEY_PQLS.values())}
+    return QueryEngine.from_dirs([d]), pqls, \
+        {"table": "baseballStats (raw keys)", "rows": baseball.RAW_KEY_ROWS,
+         "segments": 1}
+
+
+def _mv_metric_engine(args, base):
+    """The MV metric table (a multi-value INT column) and its queries,
+    family "mv_metric"."""
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.tools import baseball
+    d, _cols = baseball.build_mv_metric_dir(
+        base, baseball.MV_METRIC_ROWS, args.seed + args.bb_segments + 1)
+    pqls = {f"mv_metric{i}": pql
+            for i, pql in enumerate(baseball.MV_METRIC_PQLS.values())}
+    return QueryEngine.from_dirs([d]), pqls, \
+        {"table": "mv", "rows": baseball.MV_METRIC_ROWS, "segments": 1}
+
+
+def profile(args, engine, pqls, tag) -> list:
     from pinot_tpu_torch.query import execution, host_exec, plan
     from pinot_tpu_torch.query import executor as executor_mod
     from pinot_tpu_torch.query.reduce import BrokerReduceService
@@ -177,11 +214,7 @@ def profile(args, engine, pqls, tag) -> int:
             print(json.dumps(row), flush=True)
     finally:
         timer.restore()
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(rows, f, indent=1)
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

@@ -11,9 +11,11 @@ each of the four partition functions (whose hashes equal the JAX
 package's value for value); and the executor takes the host twin only
 where the planner refuses a segment as the JAX planner does
 (UnsupportedOnDevice, GroupsLimitExceeded), never for a shape the JAX
-planner runs on its device and the port has not ported (NotPorted), and
-never when a kernel raises. An expression filter over a dictionary
-column runs on the device path, as in the JAX planner.
+planner runs on its device (MV, valuein and expression group keys, HLL,
+expression and MV aggregations all plan for the device and answer as the
+JAX engine does), and never when a kernel raises. An expression filter
+over a dictionary column runs on the device path, as in the JAX
+planner.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from pinot_tpu_torch.query import host_exec
 from pinot_tpu_torch.query.executor import ServerQueryExecutor
 from pinot_tpu_torch.query.plan import InstancePlanMaker, NotPorted, \
     UnsupportedOnDevice
+from pinot_tpu_torch.query.execution import execute_segment_plan
 from pinot_tpu_torch.query.pruner import SegmentPrunerService
 from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
 
@@ -80,6 +83,20 @@ HOST_PQLS = {
                            "GROUP BY teamID, league TOP 100",
     "group_mv_key": "SELECT COUNT(*), MAX(hits) FROM baseballStats WHERE "
                     "league = 'NL' GROUP BY position TOP 100",
+    # keys and DISTINCTCOUNT coded by dictIds (string and int
+    # dictionaries), by values (a float dictionary, an expression), and
+    # no matched rows
+    "group_int_keys": "SELECT DISTINCTCOUNT(yearID), DISTINCTCOUNT(teamID), "
+                      "MINMAXRANGE(runs) FROM baseballStats GROUP BY "
+                      "league, yearID TOP 1000",
+    "group_float_key": "SELECT COUNT(*), DISTINCTCOUNT(average) FROM "
+                       "baseballStats WHERE runs > 100 GROUP BY average "
+                       "TOP 5000",
+    "group_expression_key": "SELECT DISTINCTCOUNT(playerName) FROM "
+                            "baseballStats GROUP BY div(yearID, 10) TOP 100",
+    "group_no_rows": "SELECT DISTINCTCOUNT(teamID), COUNT(*) FROM "
+                     "baseballStats WHERE yearID > 2030 GROUP BY teamID "
+                     "TOP 100",
     "selection_order": "SELECT teamID, salary, position FROM baseballStats "
                        "WHERE league = 'AL' ORDER BY salary DESC, "
                        "playerName LIMIT 30",
@@ -218,8 +235,9 @@ def test_engine_refuses_vector_join_window(engines, monkeypatch):
     assert not called
 
 
-#: shapes the JAX planner runs on its device and the port has no kernel
-#: for yet: the query raises NotPorted and never reaches the host twin
+#: shapes the JAX planner runs on its device, which were port gaps
+#: (NotPorted) before K3's MV / rawoff keys, K4's entry histogram and K7:
+#: they plan for the device and never reach the host twin
 PORT_GAPS = {
     "mv_group_key": "SELECT COUNT(*) FROM baseballStats GROUP BY position "
                     "TOP 10",
@@ -259,20 +277,22 @@ def _answers(resp):
 
 @pytest.mark.parametrize("name", sorted(PORT_GAPS))
 def test_port_gaps_raise_without_host(engines, monkeypatch, name):
+    """The former gaps: planned for the device (no NotPorted, no host
+    twin) and answered as the JAX engine answers them."""
     jax_engine, port = engines
     pql = PORT_GAPS[name]
     _jreq, treq = _requests(pql)
-    with pytest.raises(NotPorted):
-        InstancePlanMaker().make_segment_plan(port.segments[0], treq)
+    plan = InstancePlanMaker().make_segment_plan(port.segments[0], treq)
+    assert plan.fast_path_result is None
+    execute_segment_plan(plan)
     called = []
     monkeypatch.setattr(host_exec, "execute_host",
                         lambda *a: called.append(a))
     port.executor.reset_path_counts()
-    with pytest.raises(NotPorted):
-        port.query(pql)
+    got = port.query(pql)
     assert not called and port.executor.path_counts["host"] == 0
-    # the JAX engine answers it (on its device path)
-    jax_engine.query(pql)
+    assert port.executor.path_counts["scan"] == len(YEAR_BANDS)
+    assert _answers(got) == _answers(jax_engine.query(pql))
 
 
 @pytest.mark.parametrize("name", sorted(HOST_REFUSALS))

@@ -12,7 +12,10 @@ too); float64 sums agree to rtol 1e-12 (both sides sum in float64, in
 different orders). K1's host-built program is also run through a numpy
 interpreter of the CUDA kernel's evaluation loop. Tests marked `cuda`
 hold each CUDA kernel to its plain version and skip where there is no
-card.
+card: K1-K5 as above, K3 over every group key kind (MV, valuein, raw),
+K4 and K5 over MV entries and K7's HLL registers. The lanes and cases of
+the last three are shared with test_torch_groupby_mv.py and
+test_torch_hll.py, which hold the plain versions to JAX.
 """
 from __future__ import annotations
 
@@ -521,3 +524,199 @@ def test_histogram_and_reduce_cuda_match_plain(cuda_device, name):
             assert torch.equal(got[k], want[k]), (key, k)
         torch.testing.assert_close(got["sums"], want["sums"], rtol=1e-12,
                                    atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Group key kinds (K3), MV entry histograms (K4) and min / max (K5), HLL
+# registers (K7): the lanes and cases test_torch_groupby_mv.py and
+# test_torch_hll.py hold against JAX, and the card tests below against the
+# plain versions
+# ---------------------------------------------------------------------------
+
+#: raw key lanes: int32 values in [-70, 80), int64 in [10^12, 10^12 + 300)
+RAW_KEYS = {"rk32": (np.int32, -70, 150), "rk64": (np.int64, 10**12, 300)}
+
+
+def _key_lanes(P: int, num_docs: int, seed: int):
+    """_lanes plus the raw key lanes and an int16 MV lane (card 1000,
+    W = 4)."""
+    cols = _lanes(P, num_docs, seed)
+    rng = np.random.default_rng(seed + 1)
+    for c, (dt, lo, span) in RAW_KEYS.items():
+        lane = np.zeros(P, dt)
+        lane[:num_docs] = lo + rng.integers(0, span, num_docs)
+        cols[f"{c}.raw"] = lane
+    mv = np.full((P, 4), 1000, np.int16)
+    mv[:num_docs] = rng.integers(0, 1000, (num_docs, 4))
+    width = rng.integers(0, 5, num_docs)          # rows with no entry too
+    mv[:num_docs][np.arange(4)[None, :] >= width[:, None]] = 1000
+    cols["m16.mv"] = mv
+    return cols
+
+
+#: group key columns of each K3 case: MV alone, MV x SV, valuein x SV, the
+#: same MV column as two keys (a full cross product), two MV columns, raw
+#: keys of both widths, and a raw x MV mix
+KEY_CASES = {
+    "mv": (("m3", "mvids", 0, 10),),
+    "mv_sv": (("m3", "mvids", 0, 10), ("g7", "ids", 0, 7)),
+    "mvin_sv": (("m3", "mvin", 0, 10), ("a", "ids", 0, 50)),
+    "mv_twice": (("m3", "mvids", 0, 10), ("m3", "mvin", 0, 10)),
+    "two_mv": (("m1", "mvids", 0, 5), ("m16", "mvids", 0, 1000)),
+    "rawoff32": (("rk32", "rawoff", -70, 150),),
+    "rawoff64_sv": (("rk64", "rawoff", 10**12, 300), ("g3", "ids", 0, 3)),
+    "rawoff_mv": (("rk32", "rawoff", -70, 150), ("m1", "mvids", 0, 5)),
+}
+KEY_AGGS = (("count", "*", "none", None),
+            ("sum", "r1", "sv", ("psums", 1024)),
+            ("avg", "x", "raw", ("csums",)),
+            ("min", "a", "sv", ("ids", 64)),
+            ("max", "rf64", "raw", None),
+            ("minmaxrange", "ri64", "raw", None))
+
+
+def key_case(name: str, seed: int = 0):
+    """(group spec, the member tables its mvin keys take, in key order)."""
+    from pinot_tpu.query.plan import mixed_radix_strides
+    gcols = KEY_CASES[name]
+    cards = [g[3] for g in gcols]
+    members = [_member(g[3], seed + i) for i, g in enumerate(gcols)
+               if g[1] == "mvin"]
+    return (gcols, mixed_radix_strides(cards),
+            jk.pow2_bucket(int(np.prod(cards))), KEY_AGGS, 0), members
+
+
+#: MV aggregations: the entry histogram (countmv, distinctcount, sum,
+#: percentile) and the entry min / max, over int8 (m1, m3) and int16 (m16)
+#: MV lanes
+MV_AGGS = (("count", "*", "none", None),
+           ("countmv", "m3", "mv", (16, 10)),
+           ("distinctcount", "m3", "mv", (16, 10)),
+           ("sum", "m1", "mv", (8, 5)),
+           ("percentile", "m16", "mv", (1024, 1000)),
+           ("countmv", "m16", "mv", (1024, 1000)),
+           ("min", "m3", "mv", (16, 10)),
+           ("max", "m1", "mv", (8, 5)),
+           ("minmaxrange", "m16", "mv", (1024, 1000)))
+
+
+def hll_lanes(cols, col: str, values):
+    """cols plus {col}.hllidx / {col}.hllrank for a dictionary of
+    `values` (the loader's tables)."""
+    from pinot_tpu_torch.segment.loader import hll_tables_padded
+    idx, rank = hll_tables_padded(np.asarray(values))
+    return {**cols, f"{col}.hllidx": idx, f"{col}.hllrank": rank}
+
+
+def _group_keys(spec, cols, members, device):
+    params = list(members)
+    return [tk.spec_group_key(g, cols, params, device) for g in spec[0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(KEY_CASES))
+def test_group_key_kinds_cuda_match_plain(cuda_device, case):
+    P = SHAPES[-1]
+    spec, params = FILTERS["nested"]
+    cols = _torch_cols(_key_lanes(P, P - 777, seed=6), cuda_device)
+    mask = tk.filter_mask(P, spec, cols, params, P - 777, cuda_device)
+    group, members = key_case(case, seed=7)
+    keys = _group_keys(group, cols, members, cuda_device)
+    parts = [cols["r1.parts"]]
+    ext = (("ids", cols["a.ids"], "min", 64),
+           ("raw", cols["rf64.raw"], "max", 0))
+    want = tk.dense_group_aggregate_plain(mask, keys, group[1], group[2],
+                                          parts, [cols["x.raw"]], ext)
+    for smem_slots in (0, tk.INT32_MAX):
+        got = tk.dense_group_aggregate(mask, keys, group[1], group[2],
+                                       parts, [cols["x.raw"]], ext,
+                                       smem_slots=smem_slots)
+        for a, b in ((got[0], want[0]), (got[1], want[1]),
+                     (got[3], want[3]), *zip(got[4], want[4])):
+            assert torch.equal(a, b), (case, smem_slots)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mv_sv", "mvin_sv", "rawoff32"])
+def test_k3_row_slices_cuda_match_plain(cuda_device, monkeypatch, case):
+    """K3 launched on row slices (a small DENSE_ROWS_LIMIT forces several)
+    equals its plain version in one pass: counts and part sums (int64
+    then), min / max tables exactly, float sums within rtol 1e-12."""
+    P = SHAPES[-1]
+    spec, params = FILTERS["nested"]
+    cols = _torch_cols(_key_lanes(P, P - 777, seed=9), cuda_device)
+    mask = tk.filter_mask(P, spec, cols, params, P - 777, cuda_device)
+    group, members = key_case(case, seed=4)
+    keys = _group_keys(group, cols, members, cuda_device)
+    parts = [cols["r1.parts"]]
+    ext = (("ids", cols["a.ids"], "min", 64),
+           ("raw", cols["rf64.raw"], "max", 0))
+    want = tk.dense_group_aggregate_plain(mask, keys, group[1], group[2],
+                                          parts, [cols["x.raw"]], ext)
+    monkeypatch.setattr(tk, "DENSE_ROWS_LIMIT", 1 << 12)
+    assert P // tk.k3_rows_per_launch(tk.group_combos(keys)) >= 4
+    before = tk.launch_counts()["dense_group_aggregate"]
+    got = tk.dense_group_aggregate(mask, keys, group[1], group[2], parts,
+                                   [cols["x.raw"]], ext)
+    assert tk.launch_counts()["dense_group_aggregate"] - before >= 4
+    for a, b in ((got[0], want[0]), (got[1], want[1]), (got[3], want[3])):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64)), case
+    for a, b in zip(got[4], want[4]):
+        assert torch.equal(a, b), case
+    torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_k3_past_the_psums_bound_cuda(cuda_device):
+    """Past 127 * P * W_total >= 2^31 on the card: K3 runs on row slices
+    and its int64 counts and part sums equal numpy's."""
+    P = SHAPES[0]
+    lanes = _key_lanes(P, P, seed=1)
+    cols = _torch_cols(lanes, cuda_device)
+    mask = tk.filter_mask(P, ("match_all",), cols, [], P, cuda_device)
+    w_big = 2**31 // (127 * P) + 1      # each doc's first entry, repeated
+    wide = tk.GroupKey("mvids", cols["m16.mv"][:, :1].repeat(1, w_big)
+                       .contiguous(), card=1000)
+    before = tk.launch_counts()["dense_group_aggregate"]
+    count, psums, _cs, matched, _t = tk.dense_group_aggregate(
+        mask, [wide], [1], 1024, [cols["r1.parts"]])
+    assert tk.launch_counts()["dense_group_aggregate"] - before == \
+        -(-P // tk.k3_rows_per_launch(w_big))
+    ids = lanes["m16.mv"][:, 0].astype(np.int64)
+    ok = ids < 1000
+    parts = lanes["r1.parts"].astype(np.int64)
+    np.testing.assert_array_equal(
+        count.cpu().numpy(), np.bincount(ids[ok], minlength=1024) * w_big)
+    np.testing.assert_array_equal(psums.cpu().numpy(), np.stack([
+        np.bincount(ids[ok], weights=p[ok], minlength=1024).astype(np.int64)
+        for p in parts]) * w_big)
+    assert int(matched) == P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nested", "empty_match", "full_match"])
+def test_mv_histogram_reduce_and_hll_cuda_match_plain(cuda_device, name):
+    P = SHAPES[-1]
+    spec, params = FILTERS[name]
+    cols = _key_lanes(P, P - 777, seed=8)
+    cols = hll_lanes(cols, "b", [f"v{i:04d}" for i in range(1000)])
+    cols = _torch_cols(cols, cuda_device)
+    mask = tk.filter_mask(P, spec, cols, params, P - 777, cuda_device)
+    for col, card_pad, card in (("m1", 8, 5), ("m3", 16, 10),
+                                ("m16", 1024, 1000)):
+        lane = cols[f"{col}.mv"]
+        got = tk.masked_entry_histogram(mask, lane, card_pad, card)
+        want = tk.masked_entry_histogram_plain(mask, lane, card_pad, card)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = tk.masked_reduce(mask, lane, "ids", card_pad, card=card)
+        want = tk.masked_reduce_plain(mask, lane, "ids", card_pad,
+                                      card=card)
+        for k in ("min", "max", "count"):
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k]), (col, k)
+    hist = tk.masked_histogram(mask, cols["b.ids"], 1024)
+    got = tk.hll_registers(hist, cols["b.hllidx"], cols["b.hllrank"], 4096)
+    want = tk.hll_registers_plain(hist, cols["b.hllidx"], cols["b.hllrank"],
+                                  4096)
+    assert torch.equal(got, want)

@@ -189,3 +189,131 @@ def test_vectorised_oracle_matches_row_oracle(setup, family):
             for key, v in ref_g.items():
                 assert float(want[key]) == pytest.approx(float(v),
                                                          rel=1e-12), key
+
+
+# ---------------------------------------------------------------------------
+# MV group-by family, the planner's device shapes, the raw-key table
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("family", ["mv_group_by", "shapes"])
+def test_mv_and_shape_families_match_jax_and_oracle(setup, family):
+    """The MV group-by family (8 draws, seed SEED + 7) and one query per
+    device shape (HLL, MV aggregations, expression aggregations and keys,
+    MV and valuein keys): equal to the JAX engine and the vectorised
+    oracle; only COUNTMV(valuein(...)), an MV expression aggregation the
+    JAX planner refuses too, reaches the host twin."""
+    jax_engine, port, _row, vec = setup
+    draws = {"mv_group_by": baseball.mv_group_by_draws,
+             "shapes": baseball.shape_draws}[family](vec)
+    answered = on_host = 0
+    for draw in draws:
+        port.executor.reset_path_counts()
+        resp = port.query(draw.pql)
+        host = port.executor.path_counts["host"]
+        assert host == (2 if draw.host_answered else 0), draw.pql
+        on_host += bool(host)
+        _assert_like_jax(resp, jax_engine.query(draw.pql), draw)
+        baseball.check(resp, vec, draw)
+        answered += 1
+    assert (answered, on_host) == {"mv_group_by": (8, 0),
+                                   "shapes": (8, 1)}[family]
+
+
+def test_mv_group_by_oracle_matches_reference_expansion(setup):
+    """The port's MV family, draw for draw the reference's (same PQL, same
+    rows), and its vectorised oracle equal to the reference's
+    row-at-a-time entry expansion (aggregateGroupByMV semantics)."""
+    _jax, _port, row, vec = setup
+    ref = Gen(random.Random(SEED + 7), row)
+    all_pos = sorted({v for lst in row.cols["position"] for v in lst})
+    for draw in baseball.mv_group_by_draws(vec):
+        where, m = ref.where()
+        allowed = None
+        if ref.rng.random() < 0.5:
+            picks = ref.rng.sample(all_pos, ref.rng.randint(2, 5))
+            mvkey = "valuein(position, %s)" % \
+                ", ".join("'%s'" % p for p in picks)
+            allowed = set(picks)
+        else:
+            mvkey = "position"
+        extra_sv = ref.rng.choice([None, "league"])
+        dims = [mvkey] + ([extra_sv] if extra_sv else [])
+        assert draw.pql == ("SELECT COUNT(*), SUM(hits) FROM baseballStats"
+                            + where + " GROUP BY " + ", ".join(dims) +
+                            " TOP 5000")
+        np.testing.assert_array_equal(draw.mask, m, err_msg=draw.pql)
+        exp = {}
+        for i, lst in enumerate(row.cols["position"]):
+            if not m[i]:
+                continue
+            for v in lst:
+                if allowed is not None and v not in allowed:
+                    continue
+                key = (v,) + ((str(row.cols["league"][i]),)
+                              if extra_sv else ())
+                e2 = exp.setdefault(key, [0, 0.0])
+                e2[0] += 1
+                e2[1] += float(row.cols["hits"][i])
+        want_cnt, want_sum = baseball.expected(vec, draw)
+        assert want_cnt == {k: v[0] for k, v in exp.items()}, draw.pql
+        assert want_sum == pytest.approx({k: v[1] for k, v in exp.items()},
+                                         rel=1e-12)
+
+
+@pytest.fixture(scope="module")
+def raw_setup(tmp_path_factory):
+    d, cols = baseball.build_raw_key_dir(
+        str(tmp_path_factory.mktemp("rawkeys")), 4_000, seed=17)
+    return (JaxQueryEngine.from_dirs([d]),
+            QueryEngine.from_dirs([d], device="cpu"), baseball.Oracle(cols))
+
+
+def test_raw_key_group_bys_match_jax_and_oracle(raw_setup):
+    """GROUP BY runs, hits x league and runs with MIN(hits) over the
+    raw-key table (runs, hits, salary without a dictionary): "rawoff"
+    keys on the device path, equal to the JAX engine and the oracle."""
+    jax_engine, port, vec = raw_setup
+    n = 0
+    for draw in baseball.raw_key_draws(vec):
+        port.executor.reset_path_counts()
+        resp = port.query(draw.pql)
+        assert port.executor.path_counts == {"pruned": 0, "fast": 0,
+                                             "scan": 1, "host": 0}
+        _assert_like_jax(resp, jax_engine.query(draw.pql), draw)
+        baseball.check(resp, vec, draw)
+        n += 1
+    assert n == 3
+    plan_keys = port.segments[0].data_source("runs").metadata
+    assert not plan_keys.has_dictionary
+
+
+@pytest.fixture(scope="module")
+def mv_metric_setup(tmp_path_factory):
+    dirs, parts = [], []
+    for i, seed in enumerate((31, 32)):
+        d, cols = baseball.build_mv_metric_dir(
+            str(tmp_path_factory.mktemp(f"mvmetric{i}")), 3_000, seed=seed)
+        dirs.append(d)
+        parts.append(cols)
+    return (JaxQueryEngine.from_dirs(dirs),
+            QueryEngine.from_dirs(dirs, device="cpu"),
+            baseball.Oracle(baseball.concat_columns(parts)))
+
+
+def test_mv_metric_aggregations_match_jax_and_oracle(mv_metric_setup):
+    """MINMV, MAXMV, MINMAXRANGEMV, SUMMV, AVGMV, PERCENTILE50MV, COUNTMV
+    and DISTINCTCOUNTMV over a numeric MV column, and GROUP BY that
+    column, over two segments with their own dictionaries: on the device
+    path, equal to the JAX engine and the oracle."""
+    jax_engine, port, vec = mv_metric_setup
+    n = 0
+    for draw in baseball.mv_metric_draws(vec):
+        port.executor.reset_path_counts()
+        resp = port.query(draw.pql)
+        assert port.executor.path_counts == {"pruned": 0, "fast": 0,
+                                             "scan": 2, "host": 0}
+        _assert_like_jax(resp, jax_engine.query(draw.pql), draw)
+        baseball.check(resp, vec, draw)
+        n += 1
+    assert n == 3

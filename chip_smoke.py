@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive pinot_tpu_torch on one CUDA card: build, kernel checks, SSB
 Q1.1-Q4.3 in memory, and baseballStats from disk under the QueryGenerator
-mix with its selections.
+mix with its selections, each table per segment and stacked (one launch
+per kernel over all segments).
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
@@ -65,12 +66,35 @@ non-zero exit and no result line:
    launched); then --repeats timed runs per device-answered query give
    the per-family p50 (the host-answered draws are timed by their one
    checked run: numpy takes seconds on them).
-10. timing: wall seconds per phase and per part of phase 9 (first runs
+10. stacked_kernel_check (after phase 5, on the SSB segments stacked
+   by parallel.ShardedQueryExecutor): the stacked K1 (mask and
+   per-segment matches, Q1.1), K2 (one exact row per segment), K3 (int64
+   part sums and csums over the whole stack, Q2.1, Q3.2, Q4.3), K6 (a top
+   k per segment, two selections over lineorder) and K4, K5 and K7 over
+   the stack's flat rows, each against its plain stacked version and
+   against S per-segment launches on the same lanes; timed as one stacked
+   launch, as S sequential launches and beside the stacked bound.
+11. ssb_stacked: the 13 queries through QueryEngine(segments,
+   mesh=make_mesh()): each must take the stacked route, launch each
+   kernel it uses once (counts set to 0 before each query, read after),
+   and give the numpy oracle's rows and the sequential port's; then the
+   timed repeats, p50 beside phase 5's.
+12. baseball_stacked: the baseballStats draws of phase 9 through a
+   stacked engine over the same 4 segments (their own dictionaries,
+   stacked through the union remap); counts set to 0 before, read after
+   (all seven kernels must launch); each answer must equal phase 9's,
+   which met the oracle (else the oracle judges it); routes counted:
+   stacked, fast_path and not_shardable (NotShardable, with the reasons),
+   host_twin (the planner's refusals: exactly the host-answered draws).
+13. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
    repeats).
 
-The last three lines are the card's name and power limit, the kernels
-JSON line and
+Phases 10-12 run right after the phase they build on (10 and 11 after
+5, 12 after 9). The last three lines are the card's name and power
+limit, the kernels JSON line (launches over all four paths; the stacked
+paths' launches, the stacked launch's time, S per-segment launches' time
+and the stacked bound beside them) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -107,21 +131,22 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, reps: int = 10, warmup: int = 2, spins: int = 1) -> float:
     """Mean device time of fn() over reps calls, L2 flushed before each.
 
-    A spin of about a millisecond on the card precedes each call, so the
-    host enqueues the call while the card is still busy and the events
-    bracket the device work, not the wrapper's Python. A call that waits
-    for the card itself (the plain versions' boolean indexing) still
-    counts its host time."""
+    A spin of about `spins` milliseconds on the card precedes each call,
+    so the host enqueues the call while the card is still busy and the
+    events bracket the device work, not the wrapper's Python (a call that
+    launches S kernels takes S spins). A call that waits for the card
+    itself (the plain versions' boolean indexing) still counts its host
+    time."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(SPIN_CYCLES * spins)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -335,6 +360,9 @@ BB_K3_PQLS = {
                                   "FROM baseballStats WHERE yearID >= 2000 "
                                   "GROUP BY valuein(position, 'P', 'C', "
                                   "'SS', 'CF'), league TOP 100",
+    # float64 sums alone (csums over the raw salary lane)
+    "teamID csums salary": "SELECT SUM(salary) FROM baseballStats WHERE "
+                           "yearID >= 2000 GROUP BY teamID TOP 100",
 }
 #: the raw-key segment's K3 case ("rawoff" over int64 hits)
 BB_RAW_K3_PQL = "SELECT COUNT(*), SUM(runs), MIN(hits) FROM baseballStats " \
@@ -684,9 +712,413 @@ def select_kernel_check(seg):
     return {"masked_select": entry}
 
 
+#: selections over the SSB stack for the stacked K6 check (SSB has none
+#: of its own): a packed dictId key ("order") and a float64 raw key
+#: ("ordermk", two words)
+SSB_SELECT_PQLS = {
+    "order lo_revenue": "SELECT c_city, s_city, lo_revenue FROM lineorder "
+                        "WHERE d_year = 1993 AND lo_discount BETWEEN 1 AND "
+                        "3 ORDER BY lo_revenue DESC LIMIT 100",
+    "ordermk lo_supplycost": "SELECT d_year, p_brand1, lo_supplycost FROM "
+                             "lineorder WHERE c_region = 'ASIA' AND "
+                             "s_region = 'ASIA' ORDER BY lo_supplycost DESC "
+                             "LIMIT 1000",
+}
+#: the stacked K3 cases: psums only, the widest c_city x s_city key, and
+#: the largest table (g_pad 2^21, psums and csums)
+STACKED_K3_QUERIES = ("q2.1", "q3.2", "q4.3")
+
+
+def stacked_kernel_check(st_engine, pqls):
+    """The stacked launches (one over all S segments) against their plain
+    stacked versions on the SSB stack, and against S per-segment launches
+    of the sequential path: K1 (mask and per-segment matches), K2 (one
+    row per segment), K3 (int64 part sums, csums, over the whole stack),
+    K6 (per-segment top k), and K4, K5, K7 over the flat rows. Each timed
+    as one stacked launch, as S sequential launches, and beside the
+    stacked launch's bound. Returns {kernel: stacked numbers}."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.execution import gather_operands_for
+    ex = st_engine.sharded
+    stack = ex.stack_for(st_engine.segments)
+    S, P = stack.n_real, stack.padded_docs
+    segs, docs = stack.segments, stack.device_num_docs()
+    report, out = [], {}
+
+    def operands(pql):
+        request = BrokerRequestOptimizer().optimize(compile_pql(pql))
+        plan = ex.plan_maker.make_segment_plan(stack.plan_segment(), request)
+        flat = K.flat_lanes(stack.gather(plan.needed_cols), S, P)
+        per = [gather_operands_for(sg, plan.needed_cols) for sg in segs]
+        mask, matched = K.filter_mask_stacked(P, S, plan.filter_spec, flat,
+                                              plan.params, docs)
+        return plan, flat, per, mask, matched
+
+    def seg_masks(mask):
+        return [mask[i * P:(i + 1) * P] for i in range(S)]
+
+    def record(name, case, equal, ms, seq_ms, plain_ms, b, **extra):
+        r = {"kernel": name, "case": case, "segments": S, "equal": equal,
+             "ms": ms, "s_sequential_ms": seq_ms, "plain_ms": plain_ms,
+             "bound_ms": b[0], "bound_by": b[1], **extra}
+        report.append(r)
+        emit({"phase": "stacked_kernel_check", **r})
+        if not equal:
+            raise AssertionError(f"stacked {name} disagrees on {case}")
+        out.setdefault(name, dict(ms=ms, s_sequential_ms=seq_ms,
+                                  plain_ms=plain_ms, bound_ms=b[0],
+                                  bound_by=b[1], case=case))
+
+    # K1 and K2 on Q1.1 (three id lanes, three part lanes)
+    plan, flat, per, mask, matched = operands(pqls["q1.1"])
+    ref_mask, ref_matched = K.filter_mask_stacked_plain(
+        P, S, plan.filter_spec, flat, plan.params, docs)
+    seq = [K.filter_mask(P, plan.filter_spec, c, plan.params, sg.num_docs)
+           for sg, c in zip(segs, per)]
+    equal = torch.equal(mask, ref_mask) and \
+        torch.equal(matched, ref_matched) and torch.equal(torch.cat(seq),
+                                                         mask)
+    keys = K.filter_lane_keys(plan.filter_spec)
+    n_match = int(matched.sum())
+    lane_bytes = sum(flat[k].numel() * flat[k].element_size() for k in keys)
+    record("filter_mask", "q1.1", equal,
+           time_ms(lambda: K.filter_mask_stacked(P, S, plan.filter_spec,
+                                                 flat, plan.params, docs)),
+           time_ms(lambda: [K.filter_mask(P, plan.filter_spec, c,
+                                          plan.params, sg.num_docs)
+                            for sg, c in zip(segs, per)], spins=S),
+           time_ms(lambda: K.filter_mask_stacked_plain(
+               P, S, plan.filter_spec, flat, plan.params, docs), reps=3),
+           bound(lane_bytes + S * P + 4 * S, S * P * 2 * len(keys)),
+           matched=n_match)
+    parts = [flat["lo_revenue.parts"]]
+    L = parts[0].shape[0]
+    got = K.masked_part_sums(mask, parts, seg_rows=P)
+    equal = torch.equal(got, K.masked_part_sums_plain(mask, parts, P)) and \
+        torch.equal(got, torch.stack([
+            K.masked_part_sums(m, [c["lo_revenue.parts"]])
+            for m, c in zip(seg_masks(mask), per)]))
+    record("masked_part_sums", "q1.1", equal,
+           time_ms(lambda: K.masked_part_sums(mask, parts, seg_rows=P)),
+           time_ms(lambda: [K.masked_part_sums(m, [c["lo_revenue.parts"]])
+                            for m, c in zip(seg_masks(mask), per)], spins=S),
+           time_ms(lambda: K.masked_part_sums_plain(mask, parts, P),
+                   reps=3),
+           bound(S * P + n_match * L + 4 * S * (L + 1), S * P + n_match * L),
+           matched=n_match, part_lanes=L,
+           total_parts_sum=int(got[:, :L].long().sum()))
+
+    # K3 over the whole stack: int64 part sums, float64 csums
+    for q in STACKED_K3_QUERIES:
+        plan, flat, per, mask, matched = operands(pqls[q])
+        keys, strides, g_pad, kparts, floats, ext = group_operands(plan,
+                                                                   flat)
+        args = (mask, keys, strides, g_pad, kparts, floats, ext)
+        got = K.dense_group_aggregate(*args, psums_wide=True)
+        ref = K.dense_group_aggregate_plain(*args, psums_wide=True)
+        seq_args = [(m,) + group_operands(plan, c) for m, c in
+                    zip(seg_masks(mask), per)]
+        seq = [K.dense_group_aggregate(*a) for a in seq_args]
+        ints_equal = all(torch.equal(a, b) for a, b in
+                         ((got[0], ref[0]), (got[1], ref[1]),
+                          (got[3], ref[3]))) and \
+            all(torch.equal(a, b) for a, b in zip(got[4], ref[4])) and \
+            torch.equal(got[1], sum(o[1].long() for o in seq)) and \
+            torch.equal(got[0], sum(o[0] for o in seq))
+        f_err, f_ok = 0.0, True
+        if floats:
+            diff = (got[2] - ref[2]).abs()
+            f_err = float(diff.max())
+            f_ok = bool((diff <= CSUMS_RTOL *
+                         ref[2].abs().clamp_min(1.0)).all())
+        n_l = sum(p.shape[0] for p in kparts)
+        n_match = int(matched.sum())
+        row_bytes = sum(k.lane.element_size() for k in keys) + n_l + \
+            8 * len(floats)
+        table = g_pad * (4 + 8 * n_l + 8 * len(floats))
+        record("dense_group_aggregate", q, ints_equal and f_ok,
+               time_ms(lambda: K.dense_group_aggregate(*args,
+                                                       psums_wide=True)),
+               time_ms(lambda: [K.dense_group_aggregate(*a)
+                                for a in seq_args], spins=S),
+               time_ms(lambda: K.dense_group_aggregate_plain(
+                   *args, psums_wide=True), reps=3),
+               bound(S * P + n_match * row_bytes + table,
+                     n_match * (2 * len(keys) + 1 + n_l + len(floats))),
+               matched=n_match, g_pad=g_pad, part_lanes=n_l,
+               float_lanes=len(floats), psums_table_bytes=8 * n_l * g_pad,
+               per_segment_psums_bytes=4 * S * n_l * g_pad,
+               max_abs_err_csums=f_err,
+               csums_rtol=CSUMS_RTOL if floats else None)
+
+    # K6: a top k per segment, [S, k]
+    for case, pql in SSB_SELECT_PQLS.items():
+        plan, flat, per, mask, matched = operands(pql)
+        spec = plan.select_spec
+        got = K.masked_select(spec, flat, mask, S)
+        ref = K.selection_outputs_plain(spec, flat, mask, S)
+        seq = [K.masked_select(spec, c, m)
+               for c, m in zip(per, seg_masks(mask))]
+
+        def same(a, b):
+            return a.dtype == b.dtype and torch.equal(
+                a.reshape(-1).view(torch.uint8), b.reshape(-1).view(
+                    torch.uint8))
+        equal = set(got) == set(ref) and all(
+            same(got[x], ref[x]) and same(got[x], torch.stack(
+                [o[x] for o in seq])) for x in ref)
+        words = K.select_key_words(spec, flat)
+        k = spec[1]
+        key_bytes = sum(flat[K.gather_lane_key(c, src)].element_size()
+                        for c, _asc, _cp, src in spec[2])
+        row_bytes = sum(flat[K.gather_lane_key(c, src)][0].numel() *
+                        flat[K.gather_lane_key(c, src)].element_size()
+                        for c, src in spec[3])
+        n_match = int(matched.sum())
+        record("masked_select", case, equal,
+               time_ms(lambda: K.masked_select(spec, flat, mask, S),
+                       reps=5),
+               time_ms(lambda: [K.masked_select(spec, c, m) for c, m in
+                                zip(per, seg_masks(mask))], reps=5,
+                       spins=S),
+               time_ms(lambda: K.selection_outputs_plain(spec, flat, mask,
+                                                         S), reps=2,
+                       warmup=1),
+               bound(S * P + n_match * key_bytes +
+                     S * k * (4 + 2 * row_bytes) + 4 * S, 0),
+               kind=spec[0], k=k, key_words=len(words), matched=n_match,
+               scratch_bytes=4 * K.select_scratch_words(P, k, len(words),
+                                                        S))
+
+    # K4, K7 and K5 over the flat rows of the stack (Q4.3's mask)
+    plan, flat, per, mask, matched = operands(pqls["q4.3"])
+    n_match = int(matched.sum())
+    ds0 = segs[0].data_source("c_city")
+    card_pad = K.pow2_bucket(ds0.metadata.cardinality + 1)
+    ids = K.flat_lanes({"c_city.ids": stack.lane("c_city", "ids")}, S,
+                       P)["c_city.ids"]
+    seg_ids = [sg.data_source("c_city").device_dict_ids() for sg in segs]
+    hist = K.masked_histogram(mask, ids, card_pad)
+    equal = torch.equal(hist, K.masked_histogram_plain(mask, ids,
+                                                       card_pad)) and \
+        torch.equal(hist, sum(K.masked_histogram(m, i, card_pad) for m, i in
+                              zip(seg_masks(mask), seg_ids)))
+    record("masked_histogram", "c_city, q4.3 mask", equal,
+           time_ms(lambda: K.masked_histogram(mask, ids, card_pad)),
+           time_ms(lambda: [K.masked_histogram(m, i, card_pad) for m, i in
+                            zip(seg_masks(mask), seg_ids)], spins=S),
+           time_ms(lambda: K.masked_histogram_plain(mask, ids, card_pad)),
+           bound(S * P + n_match * ids.element_size() + 4 * card_pad,
+                 n_match), matched=n_match, card_pad=card_pad)
+    from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
+    m = 1 << DEFAULT_LOG2M
+    idx, rank = stack.lane("c_city", "hllidx"), stack.lane("c_city",
+                                                           "hllrank")
+    regs = K.hll_registers(hist, idx, rank, m)
+    seg_regs = [K.hll_registers(K.masked_histogram(mm, i, card_pad),
+                                sg.data_source("c_city").device_hll_idx(),
+                                sg.data_source("c_city").device_hll_rank(),
+                                m)
+                for mm, i, sg in zip(seg_masks(mask), seg_ids, segs)]
+    equal = torch.equal(regs, K.hll_registers_plain(hist, idx, rank, m)) \
+        and torch.equal(regs, torch.stack(seg_regs).amax(dim=0))
+    record("hll_registers", "c_city, q4.3 mask", equal,
+           time_ms(lambda: K.hll_registers(hist, idx, rank, m)),
+           time_ms(lambda: [K.hll_registers(hist, idx, rank, m)
+                            for _ in range(S)], spins=S),
+           time_ms(lambda: K.hll_registers_plain(hist, idx, rank, m)),
+           bound(12 * card_pad + 4 * m, card_pad), registers=m)
+    lane = flat["lo_supplycost.raw"]
+    got = K.masked_reduce(mask, lane, "raw", 0, True)
+    ref = K.masked_reduce_plain(mask, lane, "raw", 0, True)
+    seg_lanes = [c["lo_supplycost.raw"] for c in per]
+    seq = [K.masked_reduce(mm, ln, "raw", 0, True)
+           for mm, ln in zip(seg_masks(mask), seg_lanes)]
+    # a block of the stacked launch sums the same 8192 rows in the same
+    # order as the per-segment launch: block sums equal bit for bit, and
+    # reshape to [S, P / 8192]
+    equal = all(torch.equal(got[x], ref[x]) for x in ("min", "max",
+                                                      "count")) and \
+        torch.equal(got["sums"].reshape(S, -1),
+                    torch.stack([o["sums"] for o in seq])) and \
+        bool(((got["sums"] - ref["sums"]).abs() <= CSUMS_RTOL *
+              ref["sums"].abs().clamp_min(1.0)).all()) and \
+        float(got["min"]) == min(float(o["min"]) for o in seq) and \
+        float(got["max"]) == max(float(o["max"]) for o in seq)
+    record("masked_reduce", "lo_supplycost, q4.3 mask", equal,
+           time_ms(lambda: K.masked_reduce(mask, lane, "raw", 0, True)),
+           time_ms(lambda: [K.masked_reduce(mm, ln, "raw", 0, True)
+                            for mm, ln in zip(seg_masks(mask), seg_lanes)],
+                   spins=S),
+           time_ms(lambda: K.masked_reduce_plain(mask, lane, "raw", 0,
+                                                 True)),
+           bound(S * P + n_match * 8 + (S * P // K.BLOCK) * 8 + 24,
+                 3 * n_match), matched=n_match)
+    return out
+
+
+def same_answer(a, b, rtol: float) -> bool:
+    """Two BrokerResponses give the same rows: equal groups, selection
+    rows and integers, floats within rtol."""
+    ja, jb = a.to_json(), b.to_json()
+    if bool(ja.get("exceptions")) or bool(jb.get("exceptions")) or \
+            ja.get("selectionResults") != jb.get("selectionResults"):
+        return False
+
+    def values(j):
+        out = {}
+        for agg in j.get("aggregationResults") or []:
+            rows = agg.get("groupByResult")
+            if rows is None:
+                out[(agg["function"], ())] = agg["value"]
+            else:
+                for g in rows:
+                    out[(agg["function"], tuple(g["group"]))] = g["value"]
+        return out
+    va, vb = values(ja), values(jb)
+    if va.keys() != vb.keys():
+        return False
+    for k, x in va.items():
+        y = vb[k]
+        try:
+            fx, fy = float(x), float(y)
+        except (TypeError, ValueError):
+            if x != y:
+                return False
+            continue
+        if not (fx == fy or abs(fx - fy) <= rtol * max(abs(fy), 1e-300)):
+            return False
+    return True
+
+
+def run_ssb_stacked(st_engine, seq_results, oracle, repeats: int):
+    """The stacked SSB path: per query, launch counts set to 0, the query
+    run once through the stacked engine, the counts read (each kernel the
+    query uses launched once) and its route (stacked) checked; the rows
+    checked against the numpy oracle and the sequential port's rows; then
+    the timed repeats. Returns the path's launch counts."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, check
+    total = dict.fromkeys(K.KERNELS, 0)
+    firsts = {}
+    for q, pql in SSB_PQLS.items():
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        resp = st_engine.query(pql)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        counts = K.launch_counts()
+        if st_engine.last_route != ("stacked", None):
+            raise AssertionError(f"{q} left the stacked path: "
+                                 f"{st_engine.last_route}")
+        if any(v > 1 for v in counts.values()) or \
+                not counts["filter_mask"]:
+            raise AssertionError(f"{q}: stacked launches {counts}")
+        for name, v in counts.items():
+            total[name] += v
+        if resp.exceptions:
+            raise AssertionError(f"{q}: {resp.exceptions}")
+        got = canon_response(q, resp)
+        check(q, got, oracle[q]())
+        want = seq_results[q]
+        if q.startswith("q1"):
+            same = got == want
+        else:
+            same = set(got) == set(want) and all(
+                got[k][0] == want[k][0] and all(
+                    abs(g - w) <= CSUMS_RTOL * max(abs(w), 1.0)
+                    for g, w in zip(got[k][1:], want[k][1:]))
+                for k in want)
+        if not same:
+            raise AssertionError(f"{q}: stacked rows differ from the "
+                                 "sequential port's")
+        firsts[q] = (first_ms, {k: v for k, v in counts.items() if v})
+    for q, pql in SSB_PQLS.items():
+        ts = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            st_engine.query(pql)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        emit({"phase": "ssb_stacked", "query": q, "check": "pass",
+              "route": "stacked", "first_ms": firsts[q][0],
+              "launches": firsts[q][1], "p50_ms": float(np.median(ts)),
+              "sequential_p50_ms": seq_results["p50_ms"][q],
+              "samples_ms": ts})
+    return total
+
+
+def run_baseball_stacked(st_engine, answered, oracle, repeats: int,
+                         seq_p50):
+    """The baseballStats mix through the stacked engine over the loaded
+    segments (their own dictionaries, stacked through the union remap):
+    launch counts set to 0, every draw once, the counts read; each answer
+    must equal the sequential port's, which met the oracle in phase
+    `baseball` (where they differ, the oracle judges the stacked one);
+    the routes counted; then the timed repeats of the stacked draws."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools import baseball
+    K.reset_launch_counts()
+    st_engine.route_counts.clear()
+    runs = []
+    for family, draw, seq_resp in answered:
+        t = time.perf_counter()
+        resp = st_engine.query(draw.pql)
+        torch.cuda.synchronize()
+        runs.append((family, draw, resp, (time.perf_counter() - t) * 1e3,
+                     st_engine.last_route, seq_resp))
+    launches = K.launch_counts()
+    routes, reasons, judged = {}, {}, 0
+    for family, draw, resp, _ms, (route, reason), seq_resp in runs:
+        label = route
+        if route == "NotShardable":
+            label = "fast_path" if reason.startswith("fast-path") else \
+                "not_shardable"
+            if label == "not_shardable":
+                reasons[reason] = reasons.get(reason, 0) + 1
+        elif route in ("UnsupportedOnDevice", "GroupsLimitExceeded"):
+            label = "host_twin"
+        routes[label] = routes.get(label, 0) + 1
+        if (label == "host_twin") != draw.host_answered:
+            raise AssertionError(f"{draw.pql}: route {route}, host twin "
+                                 f"expected {draw.host_answered}")
+        if not same_answer(resp, seq_resp, baseball.FLOAT_RTOL):
+            baseball.check(resp, oracle, draw)
+            judged += 1
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the stacked "
+                             f"baseballStats path: {launches}")
+    if not routes.get("stacked"):
+        raise AssertionError(f"no draw took the stacked route: {routes}")
+    families = {}
+    for family, draw, resp, first_ms, (route, _r), _s in runs:
+        if route != "stacked":
+            continue
+        ts = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            st_engine.query(draw.pql)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        families.setdefault(family, []).extend(ts)
+    emit({"phase": "baseball_stacked", "queries_passed": len(runs),
+          "routes": routes, "not_shardable_reasons": reasons,
+          "judged_by_oracle": judged,
+          "p50_ms_by_family": {f: float(np.median(ts))
+                               for f, ts in families.items()},
+          "sequential_p50_ms_by_family": seq_p50,
+          "stack_device_bytes": sum(
+              st.device_bytes() for st in st_engine.sharded._stacks.values()),
+          "launches": launches})
+    return launches
+
+
 def run_ssb(engine, oracle, repeats: int):
     """The SSB path: counts from 0, the 13 queries once, checked; then the
-    timed repeats. Returns the path's launch counts."""
+    timed repeats. Returns the path's launch counts and {query: canonical
+    rows, "p50_ms": {query: p50}}."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, check
     K.reset_launch_counts()
@@ -697,10 +1129,12 @@ def run_ssb(engine, oracle, repeats: int):
         torch.cuda.synchronize()
         results[q] = (resp, (time.perf_counter() - t) * 1e3)
     launches = K.launch_counts()
+    rows = {"p50_ms": {}}
     for q, (resp, _first_ms) in results.items():
         if resp.exceptions:
             raise AssertionError(f"{q}: {resp.exceptions}")
-        check(q, canon_response(q, resp), oracle[q]())
+        rows[q] = canon_response(q, resp)
+        check(q, rows[q], oracle[q]())
     for name in ("filter_mask", "masked_part_sums", "dense_group_aggregate"):
         if not launches[name]:
             raise AssertionError(f"{name} never launched on the SSB path: "
@@ -712,10 +1146,11 @@ def run_ssb(engine, oracle, repeats: int):
             engine.query(pql)
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t) * 1e3)
+        rows["p50_ms"][q] = float(np.median(ts))
         emit({"phase": "ssb", "query": q, "check": "pass",
-              "first_ms": results[q][1], "p50_ms": float(np.median(ts)),
+              "first_ms": results[q][1], "p50_ms": rows["p50_ms"][q],
               "samples_ms": ts})
-    return launches
+    return launches, rows
 
 
 def run_baseball(tables, repeats: int):
@@ -724,7 +1159,8 @@ def run_baseball(tables, repeats: int):
     own engines, checked against the vectorised oracles; then the timed
     repeats of the device-answered draws. `tables`: (engine, oracle,
     (family, draw) pairs), baseballStats first. Returns the path's launch
-    counts and its seconds per part."""
+    counts, its seconds per part, the (family, draw, response) of each
+    baseballStats draw and the p50 per family."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.tools import baseball
     draws = [(f, d, e, o) for e, o, pairs in tables for f, d in pairs]
@@ -789,16 +1225,18 @@ def run_baseball(tables, repeats: int):
               "check": "pass", "matched": int(draw.mask.sum()),
               "host": on_host, "p50_ms": float(np.median(ts))})
     seconds["timed_repeats"] = time.perf_counter() - t
+    p50 = {f: float(np.median(ts)) for f, ts in families.items()}
     emit({"phase": "baseball_summary", "queries_passed": len(answered),
           "host_answered": len(host_draws),
-          "p50_ms_by_family": {f: float(np.median(ts))
-                               for f, ts in families.items()},
+          "p50_ms_by_family": p50,
           "device_table_bytes": sum(s.device_bytes()
                                     for s in tables[0][0].segments),
           "segment_paths": paths[0], "raw_key_segment_paths": paths[1],
           "mv_metric_segment_paths": paths[2], "launches": launches,
           "seconds": seconds})
-    return launches, seconds
+    main_table = [(f, d, resp) for f, d, e, _o, resp, _ms, _h in answered
+                  if e is tables[0][0]]
+    return launches, seconds, main_table, p50
 
 
 def main() -> int:
@@ -818,6 +1256,8 @@ def main() -> int:
     from pinot_tpu_torch.engine import QueryEngine
     from pinot_tpu_torch.ops import build
     from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.pql.parser import compile_pql
     from pinot_tpu_torch.tools import baseball
     from pinot_tpu_torch.tools.datagen import make_ssb_segments
     from pinot_tpu_torch.tools.ssb import SSB_PQLS, make_cpu_queries
@@ -852,7 +1292,7 @@ def main() -> int:
     entries = kernel_check(engine.segments[0], SSB_PQLS)
     seconds["kernel_check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ssb_launches = run_ssb(engine, oracle, args.repeats)
+    ssb_launches, ssb_rows = run_ssb(engine, oracle, args.repeats)
     seconds["ssb"] = time.perf_counter() - t0
     emit({"phase": "ssb_summary", "scale_factor": args.sf, "rows": rows,
           "queries_passed": len(SSB_PQLS),
@@ -860,7 +1300,32 @@ def main() -> int:
                                     for s in engine.segments),
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "launches": ssb_launches})
-    del engine, table, oracle
+    # the same segments stacked: one launch per kernel over all of them
+    st_engine = QueryEngine(engine.segments, mesh=make_mesh())
+    t0 = time.perf_counter()
+    stack = st_engine.sharded.stack_for(st_engine.segments)
+    stack.gather(sorted({key for pql in SSB_PQLS.values() for key in
+                         st_engine.sharded.plan_maker.make_segment_plan(
+                             stack.plan_segment(), st_engine.optimizer
+                             .optimize(compile_pql(pql))).needed_cols}))
+    torch.cuda.synchronize()
+    seconds["ssb_stack"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stacked_entries = stacked_kernel_check(st_engine, SSB_PQLS)
+    seconds["stacked_kernel_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssb_st_launches = run_ssb_stacked(st_engine, ssb_rows, oracle,
+                                      args.repeats)
+    seconds["ssb_stacked"] = time.perf_counter() - t0
+    emit({"phase": "ssb_stacked_summary", "segments": stack.n_real,
+          "queries_passed": len(SSB_PQLS),
+          "stack_seconds": seconds["ssb_stack"],
+          "stack_device_bytes": stack.device_bytes(),
+          "segment_device_bytes": sum(s.device_bytes()
+                                      for s in engine.segments),
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "launches": ssb_st_launches})
+    del engine, st_engine, stack, table, oracle
     torch.cuda.empty_cache()
 
     # -- baseballStats, from disk -----------------------------------------
@@ -911,7 +1376,7 @@ def main() -> int:
         entries.update(select_kernel_check(engine.segments[0]))
         seconds["select_kernel_check"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        bb_launches, bb_seconds = run_baseball(
+        bb_launches, bb_seconds, bb_answered, bb_p50 = run_baseball(
             [(engine, oracle, list(baseball.all_draws(oracle))),
              (raw_engine, raw_oracle,
               [("raw_group_by", d) for d in
@@ -921,20 +1386,31 @@ def main() -> int:
                baseball.mv_metric_draws(mv_oracle)])], args.repeats)
         seconds["baseball"] = time.perf_counter() - t0
         seconds.update({f"baseball_{k}": v for k, v in bb_seconds.items()})
+        t0 = time.perf_counter()
+        bb_st_launches = run_baseball_stacked(
+            QueryEngine(engine.segments, mesh=make_mesh()), bb_answered,
+            oracle, args.repeats, bb_p50)
+        seconds["baseball_stacked"] = time.perf_counter() - t0
     emit({"phase": "timing", "seconds": seconds,
           "total_seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)
     line = []
     for name, info in K.KERNELS.items():
-        e = entries[name]
+        e, st = entries[name], stacked_entries[name]
         line.append({"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces,
-                     "launches": ssb_launches[name] + bb_launches[name],
+                     "launches": ssb_launches[name] + bb_launches[name] +
+                     ssb_st_launches[name] + bb_st_launches[name],
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
-                     "library_ms": e["library_ms"]})
+                     "library_ms": e["library_ms"],
+                     "stacked_launches": ssb_st_launches[name] +
+                     bb_st_launches[name],
+                     "stacked_ms": st["ms"],
+                     "stacked_s_sequential_ms": st["s_sequential_ms"],
+                     "stacked_bound_ms": st["bound_ms"]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -55,6 +55,16 @@
 // mask byte. The int32 part sums stay exact while 127 * P * W_total <
 // 2^31 (W_total: the product of the MV keys' widths); the wrapper
 // launches the kernel on row slices that small and adds their tables.
+//
+// Stacked segments (the counterpart of get_sharded_kernel in
+// pinot_tpu/parallel/sharded.py, whose psum / pmin / pmax combine the
+// per-segment tables): one launch over the S * P rows of the stack, so
+// counts, float64 sums and min / max combine by construction. The part
+// sums of a stack pass int32 (SSB sums 7-bit parts over 60M rows), so a
+// stacked launch takes `psums_wide`: the device table is int64 and is
+// folded with 64-bit integer atomics (exact, order-free); a block's shared
+// table stays int32 and is used only while 127 * (the rows one block
+// reads) * W_total < 2^31.
 
 #include <math.h>
 
@@ -151,8 +161,12 @@ __global__ void dense_group_aggregate_kernel(
     const uint8_t* __restrict__ mask, KeyLanes keys_p, int n_keys, int n_mv,
     int w_total, PartLanes parts_p, int n_parts, FloatLanes floats_p, int n_floats,
     ExtLanes ext_p, int n_ext, int n_raw, long long padded, int g_pad, int use_smem,
-    int* __restrict__ count, int* __restrict__ psums,
+    int psums_wide, int* __restrict__ count, void* __restrict__ psums_out,
     double* __restrict__ csums, int* __restrict__ matched) {
+  // int32 [L][g_pad] part sums, or int64 ones (psums_wide)
+  int* const psums = psums_wide ? nullptr : static_cast<int*>(psums_out);
+  unsigned long long* const psums64 =
+      psums_wide ? static_cast<unsigned long long*>(psums_out) : nullptr;
   extern __shared__ __align__(8) unsigned char smem[];
   __shared__ int scratch[32];
   // the lane descriptors in shared memory: indexing the parameter structs
@@ -204,7 +218,12 @@ __global__ void dense_group_aggregate_kernel(
     atomicAdd(t_count + key, 1);
     for (int l = 0; l < n_parts; ++l) {
       const int p = parts.ptr[l][row];
-      if (p != 0) atomicAdd(t_psums + static_cast<long long>(l) * g_pad + key, p);
+      if (p == 0) continue;
+      const long long at = static_cast<long long>(l) * g_pad + key;
+      if (psums64 && !use_smem)
+        atomicAdd(psums64 + at, static_cast<unsigned long long>(p));
+      else
+        atomicAdd(t_psums + at, p);
     }
     for (int j = 0; j < n_floats; ++j)
       atomicAdd(t_csums + static_cast<long long>(j) * g_pad + key, floats.ptr[j][row]);
@@ -261,7 +280,12 @@ __global__ void dense_group_aggregate_kernel(
       atomicAdd(count + s, c);
       for (int l = 0; l < n_parts; ++l) {
         const int p = t_psums[l * g_pad + s];
-        if (p != 0) atomicAdd(psums + static_cast<long long>(l) * g_pad + s, p);
+        if (p == 0) continue;
+        const long long at = static_cast<long long>(l) * g_pad + s;
+        if (psums64)
+          atomicAdd(psums64 + at, static_cast<unsigned long long>(static_cast<unsigned>(p)));
+        else
+          atomicAdd(psums + at, p);
       }
       for (int j = 0; j < n_floats; ++j)
         atomicAdd(csums + static_cast<long long>(j) * g_pad + s, t_csums[j * g_pad + s]);
@@ -289,8 +313,8 @@ extern "C" int pinot_dense_group_aggregate(
     int n_parts, const void* const* float_ptrs, int n_floats,
     const void* const* ext_ptrs, const int* ext_elems, const int* ext_modes,
     const int* ext_inits, void* const* ext_outs, int n_ext,
-    long long padded, int g_pad, int smem_slots, void* count, void* psums,
-    void* csums, void* matched, void* stream) {
+    long long padded, int g_pad, int smem_slots, int psums_wide, void* count,
+    void* psums, void* csums, void* matched, void* stream) {
   if (n_keys < 1 || n_keys > kMaxKeys || n_parts < 0 || n_parts > kMaxParts ||
       n_floats < 0 || n_floats > kMaxFloats || n_ext < 0 || n_ext > kMaxExt ||
       g_pad < 1)
@@ -345,7 +369,15 @@ extern "C" int pinot_dense_group_aggregate(
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncGetAttributes(&attr, dense_group_aggregate_kernel);
   const long long smem_room = static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
-  const int use_smem = g_pad <= smem_slots && table_bytes <= smem_room ? 1 : 0;
+  int use_smem = g_pad <= smem_slots && table_bytes <= smem_room ? 1 : 0;
+  if (use_smem && psums_wide && n_parts > 0) {
+    // a block's int32 shared part sums hold 127 * (its rows) * W_total
+    const int g = pinot::grid_for(dense_group_aggregate_kernel, padded,
+                                  static_cast<size_t>(table_bytes));
+    const long long chunk = static_cast<long long>(g) * pinot::kThreads;
+    const long long rows = (padded + chunk - 1) / chunk * pinot::kThreads;
+    if (127LL * rows * w_total >= (1LL << 31)) use_smem = 0;
+  }
   const size_t smem = use_smem ? static_cast<size_t>(table_bytes) : 0;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
@@ -358,8 +390,8 @@ extern "C" int pinot_dense_group_aggregate(
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), keys, n_keys, n_mv, static_cast<int>(w_total),
       parts, n_parts, floats,
-      n_floats, ext, n_ext, n_raw, padded, g_pad, use_smem, static_cast<int*>(count),
-      static_cast<int*>(psums), static_cast<double*>(csums),
+      n_floats, ext, n_ext, n_raw, padded, g_pad, use_smem, psums_wide,
+      static_cast<int*>(count), psums, static_cast<double*>(csums),
       static_cast<int*>(matched));
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,18 @@
 // on an SM; the host picks by the program, and the grid is one full wave
 // of whichever it launches.
 //
+// Stacked segments (the counterpart of the vmap in
+// pinot_tpu/parallel/sharded.py:get_sharded_kernel): the lanes hold S
+// segments of seg_rows rows each, back to back, and row r is live iff
+// r % seg_rows < seg_docs[r / seg_rows]. seg_matched[s] counts the
+// matched rows of segment s (the JAX `stats.seg_matched`). A block's rows
+// in one pass of the grid-stride loop never straddle two segments
+// (seg_rows is a multiple of the block), so the block sums its count and
+// adds it with one atomic when its rows move to the next segment. One
+// segment (seg_docs null: row r is live iff r < num_docs) runs an
+// instantiation without that bookkeeping, which cost the single-segment
+// filter 13% on the H100 (PERF.md).
+//
 // Program node: 6 int32 {op, lane, param offset, arg, elem, width}.
 // AND/OR pop `arg` bits (arg <= 31) and push one; leaves push one. `elem`
 // is the lane's element type (pinot::Elem in common.cuh), `width` its
@@ -142,13 +154,18 @@ __device__ __forceinline__ unsigned eval_leaf(const void* lane, int op, int elem
 
 // kGeneral = false: every leaf is a dictId leaf over an SV lane, the
 // common case, compiled without the raw and MV paths so that it keeps
-// few registers (a full wave of 8 blocks per SM).
-template <bool kGeneral>
+// few registers (a full wave of 8 blocks per SM). kStacked: segments of
+// seg_rows rows with seg_docs live rows each, matches counted into
+// seg_matched.
+template <bool kGeneral, bool kStacked>
 __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
                                    int n_nodes, int n_words, int staged,
-                                   long long padded, long long num_docs,
-                                   uint8_t* __restrict__ out) {
+                                   long long padded, long long seg_rows,
+                                   const int* __restrict__ seg_docs,
+                                   long long num_docs, uint8_t* __restrict__ out,
+                                   int* __restrict__ seg_matched) {
   extern __shared__ int smem[];
+  __shared__ int scratch[32];
   // lane pointers in shared memory: indexing the parameter struct by a
   // value read at run time makes every thread copy it to local memory
   __shared__ const void* s_lanes[kMaxLanes];
@@ -165,10 +182,32 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
   __syncthreads();
   const int* params = buf + kNodeWords * n_nodes;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       row < padded; row += step) {
+  long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the segment of this thread's row, its end and its live end; a division
+  // only when the rows move to another segment
+  long long seg = 0, seg_end = padded, live_end = num_docs;
+  int count = 0;
+  auto enter = [&]() {
+    seg = row / seg_rows;
+    seg_end = (seg + 1) * seg_rows;
+    live_end = seg * seg_rows + seg_docs[seg];
+  };
+  // block-uniform: every thread of the block calls it at the same point
+  auto flush = [&]() {
+    const int c = pinot::block_sum(count, scratch);
+    if (threadIdx.x == 0 && c != 0) atomicAdd(seg_matched + seg, c);
+    count = 0;
+  };
+  if constexpr (kStacked) enter();
+  for (; row < padded; row += step) {
+    if constexpr (kStacked) {
+      if (row >= seg_end) {
+        flush();
+        enter();
+      }
+    }
     unsigned stack = 0u;
-    if (row < num_docs) {
+    if (row < live_end) {
       for (int n = 0; n < n_nodes; ++n) {
         const int* node = buf + kNodeWords * n;
         const int op = node[0], arg = node[3];
@@ -193,25 +232,39 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
       }
     }
     out[row] = static_cast<uint8_t>(stack & 1u);
+    if constexpr (kStacked) count += static_cast<int>(stack & 1u);
   }
+  if constexpr (kStacked) flush();
 }
 
 }  // namespace
 
 // general: the program has a raw leaf or a leaf over an MV lane.
+// seg_docs: int32 [padded / seg_rows] live rows per segment, with
+// seg_matched int32 [padded / seg_rows], zeroed; or both null for one
+// segment of num_docs live rows.
 extern "C" int pinot_filter_mask(const void* const* lane_ptrs, int n_lanes,
                                  const int* prog, int n_nodes, int n_words,
                                  int general, long long padded,
-                                 long long num_docs, void* out, void* stream) {
-  if (n_lanes < 0 || n_lanes > kMaxLanes || n_nodes < 1) return -1;
+                                 long long seg_rows, const int* seg_docs,
+                                 long long num_docs, void* out,
+                                 int* seg_matched, void* stream) {
+  if (n_lanes < 0 || n_lanes > kMaxLanes || n_nodes < 1 || seg_rows < 1 ||
+      seg_rows % pinot::kThreads != 0 || padded % seg_rows != 0 ||
+      (seg_docs == nullptr) != (seg_matched == nullptr))
+    return -1;
   Lanes lanes{};
   for (int i = 0; i < n_lanes; ++i) lanes.ptr[i] = lane_ptrs[i];
   const int staged = n_words <= kMaxSmemWords ? 1 : 0;
   const size_t smem = staged ? static_cast<size_t>(n_words) * sizeof(int) : 0;
-  const auto kernel = general ? filter_mask_kernel<true> : filter_mask_kernel<false>;
+  const bool stacked = seg_docs != nullptr;
+  const auto kernel = general ? (stacked ? filter_mask_kernel<true, true>
+                                         : filter_mask_kernel<true, false>)
+                              : (stacked ? filter_mask_kernel<false, true>
+                                         : filter_mask_kernel<false, false>);
   kernel<<<pinot::grid_for(kernel, padded, smem), pinot::kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      lanes, prog, n_nodes, n_words, staged, padded, num_docs,
-      static_cast<uint8_t*>(out));
+      lanes, prog, n_nodes, n_words, staged, padded, seg_rows, seg_docs, num_docs,
+      static_cast<uint8_t*>(out), seg_matched);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,14 @@
 //    finds its own output element by a binary search over the two inputs
 //    (the co-rank), so no merge needs shared memory, at any k.
 // 3. Finish: the docids (sentinel -> -1) and every gather column.
+// Stacked segments (the counterpart of the vmap in
+// pinot_tpu/parallel/sharded.py:get_sharded_kernel, whose selection
+// outputs are all-gathered per segment): the lanes hold n_segs segments
+// of seg_rows rows each, back to back; every pass has a segment axis
+// (the tile pass's grid y, a leading index of the merges and of the
+// finish), docids count from each segment's first row, and the outputs
+// are [n_segs][k] per-segment top-k (the host merges them). One segment
+// is n_segs = 1.
 // Every launch runs on the caller's stream; the host function returns the
 // first non-zero cudaGetLastError. The tile size and the scratch size are
 // decided here only: the wrapper asks pinot_masked_select_scratch_words
@@ -110,7 +118,7 @@ __device__ __forceinline__ bool tile_less(const uint32_t* keys, int tile, int wi
 
 __global__ void __launch_bounds__(kSortThreads)
     select_tile_kernel(const uint8_t* __restrict__ mask, Terms terms_p, int n_terms,
-                       int n_words, long long padded, int tile, int keep,
+                       int n_words, long long seg_rows, int tile, int keep,
                        uint32_t* __restrict__ lists, int* __restrict__ count) {
   extern __shared__ uint32_t keys[];  // [width][tile], word-major
   // the term descriptors in shared memory: indexing the parameter struct
@@ -123,12 +131,14 @@ __global__ void __launch_bounds__(kSortThreads)
     n_matched = 0;
   }
   __syncthreads();
-  const long long base = static_cast<long long>(blockIdx.x) * tile;
+  const long long seg_lo = static_cast<long long>(blockIdx.y) * seg_rows;
+  const long long base = static_cast<long long>(blockIdx.x) * tile;  // in the segment
   const int lane = threadIdx.x & 31;
   // tile is a multiple of blockDim.x: every warp runs every iteration
   for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const long long row = base + i;
-    const bool hit = row < padded && mask[row] != 0;
+    const long long doc = base + i;
+    const long long row = seg_lo + doc;
+    const bool hit = doc < seg_rows && mask[row] != 0;
     const unsigned ballot = __ballot_sync(0xffffffffu, hit);
     int first = 0;
     if (lane == 0 && ballot) first = atomicAdd(&n_matched, __popc(ballot));
@@ -138,12 +148,12 @@ __global__ void __launch_bounds__(kSortThreads)
       uint32_t w[kMaxWords];
       key_words(terms, n_terms, row, w);
       for (int j = 0; j < n_words; ++j) keys[j * tile + pos] = w[j];
-      keys[n_words * tile + pos] = static_cast<uint32_t>(row);
+      keys[n_words * tile + pos] = static_cast<uint32_t>(doc);
     }
   }
   __syncthreads();
   const int c = n_matched;
-  if (threadIdx.x == 0 && c) atomicAdd(count, c);
+  if (threadIdx.x == 0 && c) atomicAdd(count + blockIdx.y, c);
   int size = c ? 1 : 0;  // sort the matched rows only, padded to a power of 2
   while (size < c) size <<= 1;
   for (int i = c + threadIdx.x; i < size; i += blockDim.x)
@@ -166,7 +176,8 @@ __global__ void __launch_bounds__(kSortThreads)
     }
   }
   __syncthreads();
-  uint32_t* dst = lists + static_cast<long long>(blockIdx.x) * keep * width;
+  uint32_t* dst = lists + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                              keep * width;
   for (int i = threadIdx.x; i < keep; i += blockDim.x)
     for (int w = 0; w < width; ++w)
       dst[static_cast<long long>(i) * width + w] = i < c ? keys[w * tile + i] : kSentinel;
@@ -179,17 +190,21 @@ __device__ __forceinline__ bool entry_le(const uint32_t* a, const uint32_t* b, i
   return true;
 }
 
-// Lists 2p and 2p+1 (len_in entries each; the last list of an odd count
-// merges with nothing) -> list p, its first len_out entries.
-__global__ void select_merge_kernel(const uint32_t* __restrict__ in, int n_lists, int len_in,
-                                    int len_out, int width, uint32_t* __restrict__ out) {
-  const long long total = static_cast<long long>((n_lists + 1) / 2) * len_out;
+// Each segment's lists 2p and 2p+1 (len_in entries each; the last list of
+// an odd count merges with nothing) -> its list p, the first len_out
+// entries. n_lists lists per segment, segment-major.
+__global__ void select_merge_kernel(const uint32_t* __restrict__ in, int n_segs, int n_lists,
+                                    int len_in, int len_out, int width,
+                                    uint32_t* __restrict__ out) {
+  const long long half = (n_lists + 1) / 2;
+  const long long total = n_segs * half * len_out;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < total;
        g += step) {
-    const int p = static_cast<int>(g / len_out);
+    const long long seg = g / (half * len_out);
+    const int p = static_cast<int>(g / len_out % half);
     const int i = static_cast<int>(g % len_out);
-    const uint32_t* A = in + static_cast<long long>(2 * p) * len_in * width;
+    const uint32_t* A = in + (seg * n_lists + 2 * p) * len_in * width;
     const uint32_t* B = A + static_cast<long long>(len_in) * width;
     const int len_a = len_in, len_b = 2 * p + 1 < n_lists ? len_in : 0;
     uint32_t* dst = out + g * width;
@@ -217,22 +232,29 @@ __global__ void select_merge_kernel(const uint32_t* __restrict__ in, int n_lists
   }
 }
 
-__global__ void select_finish_kernel(const uint32_t* __restrict__ list, int len, int width,
-                                     int k, Gathers gathers_p, int n_gathers,
+// Each segment's one list (len entries) -> its k docids and gathered rows.
+__global__ void select_finish_kernel(const uint32_t* __restrict__ lists, int n_segs,
+                                     long long seg_rows, int len, int width, int k,
+                                     Gathers gathers_p, int n_gathers,
                                      int* __restrict__ docids) {
   __shared__ Gathers gathers;
   if (threadIdx.x == 0) gathers = gathers_p;
   __syncthreads();
-  const int step = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < k; i += step) {
+  const long long total = static_cast<long long>(n_segs) * k;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; o < total;
+       o += step) {
+    const long long seg = o / k;
+    const int i = static_cast<int>(o % k);
+    const uint32_t* list = lists + seg * len * width;
     const uint32_t d = i < len ? list[static_cast<long long>(i) * width + width - 1] : kSentinel;
     const int doc = d == kSentinel ? -1 : static_cast<int>(d);
-    docids[i] = doc;
-    const long long safe = doc < 0 ? 0 : doc;
+    docids[o] = doc;
+    const long long safe = seg * seg_rows + (doc < 0 ? 0 : doc);
     for (int g = 0; g < n_gathers; ++g) {
       const int rb = gathers.row_bytes[g];
       const unsigned char* src = gathers.lane[g] + safe * rb;
-      unsigned char* dst = gathers.out[g] + static_cast<long long>(i) * rb;
+      unsigned char* dst = gathers.out[g] + o * rb;
       for (int b = 0; b < rb; ++b) dst[b] = src[b];
     }
   }
@@ -261,10 +283,12 @@ long long select_list_words(long long padded, int k, int tile, int width) {
 
 }  // namespace
 
-// int32 words of scratch pinot_masked_select needs: two list sets.
-extern "C" long long pinot_masked_select_scratch_words(long long padded, int k, int n_words) {
+// int32 words of scratch pinot_masked_select needs: two list sets, each
+// n_segs segments' lists.
+extern "C" long long pinot_masked_select_scratch_words(long long seg_rows, int k, int n_words,
+                                                       int n_segs) {
   const int width = n_words + 1;
-  return 2 * select_list_words(padded, k, select_tile_rows(width), width);
+  return 2LL * n_segs * select_list_words(seg_rows, k, select_tile_rows(width), width);
 }
 
 // Rows per tile for n_words key words (exported for the tests).
@@ -272,20 +296,24 @@ extern "C" int pinot_masked_select_tile_rows(int n_words) {
   return select_tile_rows(n_words + 1);
 }
 
+// The lanes hold n_segs segments of seg_rows rows; docids int32
+// [n_segs][k], count int32 [n_segs] (zeroed), gather outputs [n_segs][k]
+// rows.
 extern "C" int pinot_masked_select(
-    const void* mask, long long padded, int k, const void** term_lanes,
+    const void* mask, long long seg_rows, int n_segs, int k, const void** term_lanes,
     const int* term_elems, const int* term_modes, const int* term_card_pads,
     const int* term_asc, int n_terms, int n_words, const void** gather_lanes,
     const int* gather_row_bytes, void** gather_outs, int n_gathers, void* scratch,
     long long scratch_words, void* docids, void* count, void* stream) {
   if (n_terms < 0 || n_terms > kMaxTerms || n_words < 0 || n_words > kMaxWords ||
-      n_gathers < 0 || n_gathers > kMaxGathers || k < 1 || k > padded)
+      n_gathers < 0 || n_gathers > kMaxGathers || k < 1 || k > seg_rows || n_segs < 1 ||
+      n_segs > 65535)
     return -1;
   const int width = n_words + 1;
   const int tile = select_tile_rows(width);
-  const long long n_tiles = (padded + tile - 1) / tile;
+  const long long n_tiles = (seg_rows + tile - 1) / tile;
   const int keep = k < tile ? k : tile;
-  const long long list_words = select_list_words(padded, k, tile, width);
+  const long long list_words = n_segs * select_list_words(seg_rows, k, tile, width);
   if (n_tiles > 0x7fffffffLL || scratch_words < 2 * list_words) return -1;
   Terms terms = {};
   for (int i = 0; i < n_terms; ++i) {
@@ -309,17 +337,18 @@ extern "C" int pinot_masked_select(
   if (rc != cudaSuccess) return static_cast<int>(rc);
   uint32_t* src = static_cast<uint32_t*>(scratch);
   uint32_t* dst = src + list_words;
-  select_tile_kernel<<<static_cast<int>(n_tiles), kSortThreads, smem, s>>>(
-      static_cast<const uint8_t*>(mask), terms, n_terms, n_words, padded, tile, keep, src,
-      static_cast<int*>(count));
+  select_tile_kernel<<<dim3(static_cast<unsigned>(n_tiles), static_cast<unsigned>(n_segs)),
+                       kSortThreads, smem, s>>>(static_cast<const uint8_t*>(mask), terms,
+                                                n_terms, n_words, seg_rows, tile, keep, src,
+                                                static_cast<int*>(count));
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
   int n_lists = static_cast<int>(n_tiles), len = keep;
   while (n_lists > 1) {
     const int len_out = 2LL * len < k ? 2 * len : k;
-    const long long outs = static_cast<long long>((n_lists + 1) / 2) * len_out;
-    select_merge_kernel<<<pinot::grid_for(outs), pinot::kThreads, 0, s>>>(src, n_lists, len,
-                                                                          len_out, width, dst);
+    const long long outs = static_cast<long long>(n_segs) * ((n_lists + 1) / 2) * len_out;
+    select_merge_kernel<<<pinot::grid_for(outs), pinot::kThreads, 0, s>>>(
+        src, n_segs, n_lists, len, len_out, width, dst);
     rc = cudaGetLastError();
     if (rc != cudaSuccess) return static_cast<int>(rc);
     uint32_t* t = src;
@@ -328,7 +357,8 @@ extern "C" int pinot_masked_select(
     n_lists = (n_lists + 1) / 2;
     len = len_out;
   }
-  select_finish_kernel<<<pinot::grid_for(k), pinot::kThreads, 0, s>>>(
-      src, len, width, k, gathers, n_gathers, static_cast<int*>(docids));
+  select_finish_kernel<<<pinot::grid_for(static_cast<long long>(n_segs) * k), pinot::kThreads,
+                         0, s>>>(src, n_segs, seg_rows, len, width, k, gathers, n_gathers,
+                                 static_cast<int*>(docids));
   return static_cast<int>(cudaGetLastError());
 }

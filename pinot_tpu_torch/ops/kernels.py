@@ -150,17 +150,17 @@ _PP = ctypes.POINTER(_P)
 _IP = ctypes.POINTER(_I)
 _LLP = ctypes.POINTER(_LL)
 _ARGTYPES = {
-    "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _P],
-    "masked_part_sums": [_P, _PP, _I, _LL, _P, _P],
+    "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _P],
+    "masked_part_sums": [_P, _PP, _I, _LL, _LL, _P, _P],
     "dense_group_aggregate": [
         _P, _PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _I,
         _PP, _I, _PP, _I,
         _PP, _IP, _IP, _IP, _PP, _I,
-        _LL, _I, _I, _P, _P, _P, _P, _P],
+        _LL, _I, _I, _I, _P, _P, _P, _P, _P],
     "masked_histogram": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
     "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P,
                       _P, _P],
-    "masked_select": [_P, _LL, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
+    "masked_select": [_P, _LL, _I, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
                       _PP, _IP, _PP, _I, _P, _LL, _P, _P, _P],
     "hll_registers": [_P, _P, _P, _I, _I, _P, _P],
 }
@@ -405,16 +405,73 @@ def filter_mask(padded: int, filter_spec, cols: Dict[str, torch.Tensor],
     if device.type == "cpu":
         return filter_mask_plain(padded, filter_spec, cols, params, num_docs,
                                  device)
+    return _launch_filter(filter_spec, cols, params, keys, device, padded,
+                          padded, None, int(num_docs), None)
+
+
+def _launch_filter(filter_spec, cols, params, keys, device, rows: int,
+                   seg_rows: int, seg_docs: Optional[torch.Tensor],
+                   num_docs: int, matched: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """K1 over `rows` rows in segments of seg_rows: the uint8 mask, and
+    each segment's matches added into `matched` when given."""
     buf, n_nodes = compile_filter(filter_spec, params, cols)
     lanes = [cols[k] for k in keys]
     # the one H2D copy, from pinned memory so the host does not wait
     prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
-    out = torch.empty(padded, dtype=torch.uint8, device=device)
+    out = torch.empty(rows, dtype=torch.uint8, device=device)
     general = any(not k.endswith(".ids") for k in keys)    # raw / MV
     _launch("filter_mask", device, _ptrs(lanes), len(lanes),
             prog.data_ptr(), n_nodes, int(buf.shape[0]), int(general),
-            padded, int(num_docs), out.data_ptr())
+            rows, seg_rows, None if seg_docs is None else seg_docs.data_ptr(),
+            num_docs, out.data_ptr(),
+            None if matched is None else matched.data_ptr())
     return out
+
+
+def _check_seg_docs(seg_docs: torch.Tensor, n_segs: int, device) -> None:
+    if seg_docs.device != device or seg_docs.dtype != torch.int32 or \
+            seg_docs.shape != (n_segs,) or not seg_docs.is_contiguous():
+        raise ValueError(f"seg_docs must be a contiguous int32 [{n_segs}] "
+                         f"on {device}")
+
+
+def filter_mask_stacked(padded: int, n_segs: int, filter_spec,
+                        cols: Dict[str, torch.Tensor], params: Sequence,
+                        seg_docs: torch.Tensor, device=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over a stack of n_segs segments of `padded` rows each, the lanes
+    [n_segs * padded] (flat views of [S, P] stacks): (uint8 mask [S * P],
+    int32 [S] matched rows per segment). Row r is live iff r % padded <
+    seg_docs[r // padded] (`seg_docs`: int32 [S] on the lanes' device)."""
+    keys = filter_lane_keys(filter_spec)
+    device = _mask_device(keys, cols, device)
+    rows = n_segs * padded
+    for key in keys:
+        _filter_lane_ok(cols[key], key, rows, device)
+    _check_seg_docs(seg_docs, n_segs, device)
+    if padded % BLOCK:
+        raise ValueError(f"{padded} rows is not a multiple of {BLOCK}")
+    if device.type == "cpu":
+        return filter_mask_stacked_plain(padded, n_segs, filter_spec, cols,
+                                         params, seg_docs, device)
+    matched = torch.zeros(n_segs, dtype=torch.int32, device=device)
+    return _launch_filter(filter_spec, cols, params, keys, device, rows,
+                          padded, seg_docs, 0, matched), matched
+
+
+def filter_mask_stacked_plain(padded: int, n_segs: int, filter_spec,
+                              cols: Dict[str, torch.Tensor], params: Sequence,
+                              seg_docs: torch.Tensor, device=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch stacked K1: the filter tree over the flat lanes, each
+    segment's rows past its seg_docs masked off, and the per-segment row
+    sums."""
+    device = _mask_device(filter_lane_keys(filter_spec), cols, device)
+    row = torch.arange(padded, device=device)
+    valid = (row[None, :] < seg_docs.long()[:, None]).reshape(-1)
+    mask = _filter_plain(filter_spec, cols, params, valid, device)
+    return mask, mask.reshape(n_segs, padded).sum(dim=1, dtype=torch.int32)
 
 
 def filter_mask_plain(padded: int, filter_spec,
@@ -423,6 +480,12 @@ def filter_mask_plain(padded: int, filter_spec,
     """Plain PyTorch K1: the filter tree evaluated with tensor ops."""
     device = _mask_device(filter_lane_keys(filter_spec), cols, device)
     valid = torch.arange(padded, device=device) < int(num_docs)
+    return _filter_plain(filter_spec, cols, params, valid, device)
+
+
+def _filter_plain(filter_spec, cols, params, valid: torch.Tensor,
+                  device) -> torch.Tensor:
+    """The filter tree over the lanes with tensor ops, AND `valid`."""
     plist = list(params)
 
     def as_t(v, dtype):
@@ -492,9 +555,15 @@ def _part_rows(part_lanes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def masked_part_sums(mask: torch.Tensor,
-                     part_lanes: Sequence[torch.Tensor]) -> torch.Tensor:
+                     part_lanes: Sequence[torch.Tensor],
+                     seg_rows: Optional[int] = None) -> torch.Tensor:
     """int32 [L + 1]: the masked sum of each int8 part lane (L = all rows
-    of all the [n_parts, P] blocks, in order), then the match count."""
+    of all the [n_parts, P] blocks, in order), then the match count.
+
+    With `seg_rows` (stacked segments of that many rows each): int32
+    [P / seg_rows, L + 1], one such row per segment, each exact while 127
+    * seg_rows < 2^31 (the JAX `partsT` partials; the host adds the rows
+    in int64)."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
     rows = _part_rows(part_lanes)
@@ -502,26 +571,35 @@ def masked_part_sums(mask: torch.Tensor,
         _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
     if len(rows) > _MAX_PARTS:
         raise ValueError(f"{len(rows)} part lanes > {_MAX_PARTS}")
-    if 127 * padded >= 2**31:
-        raise ValueError(f"{padded} rows: int32 part sums could overflow "
+    per = padded if seg_rows is None else int(seg_rows)
+    if per < 1 or padded % per or per % 256:
+        raise ValueError(f"{padded} rows do not split into segments of "
+                         f"{per} (a multiple of 256)")
+    if 127 * per >= 2**31:
+        raise ValueError(f"{per} rows: int32 part sums could overflow "
                          "(127 * P >= 2^31)")
     if device.type == "cpu":
-        return masked_part_sums_plain(mask, part_lanes)
-    out = torch.zeros(len(rows) + 1, dtype=torch.int32, device=device)
-    _launch("masked_part_sums", device, mask.data_ptr(), _ptrs(rows),
-            len(rows), padded, out.data_ptr())
-    return out
+        out = masked_part_sums_plain(mask, part_lanes, per)
+    else:
+        out = torch.zeros(padded // per, len(rows) + 1, dtype=torch.int32,
+                          device=device)
+        _launch("masked_part_sums", device, mask.data_ptr(), _ptrs(rows),
+                len(rows), padded, per, out.data_ptr())
+    return out[0] if seg_rows is None else out
 
 
 def masked_part_sums_plain(mask: torch.Tensor,
-                           part_lanes: Sequence[torch.Tensor]
-                           ) -> torch.Tensor:
-    """Plain PyTorch K2: where + sum(dtype=int32)."""
-    m = mask.bool()
-    sums = [torch.where(m[None, :], pl, 0).sum(dim=1, dtype=torch.int32)
-            for pl in part_lanes]
-    count = m.sum(dtype=torch.int32).reshape(1)
-    return torch.cat(sums + [count])
+                           part_lanes: Sequence[torch.Tensor],
+                           seg_rows: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch K2: where + sum(dtype=int32); [L + 1], or [P /
+    seg_rows, L + 1] with seg_rows."""
+    per = mask.shape[0] if seg_rows is None else int(seg_rows)
+    m = mask.bool().reshape(-1, per)
+    sums = [torch.where(m[None], pl.reshape(pl.shape[0], -1, per), 0)
+            .sum(dim=2, dtype=torch.int32).T for pl in part_lanes]
+    count = m.sum(dim=1, dtype=torch.int32)[:, None]
+    out = torch.cat(sums + [count], dim=1)
+    return out[0] if seg_rows is None else out
 
 
 # ---------------------------------------------------------------------------
@@ -613,10 +691,13 @@ def group_combos(key_lanes) -> int:
                        dtype=np.int64))
 
 
-def k3_rows_per_launch(w_total: int) -> int:
+def k3_rows_per_launch(w_total: int, psums_wide: bool = False) -> int:
     """The rows one K3 launch takes: a doc adds up to W_total times, and
     the launch's int32 counts and part sums stay exact while
-    127 * rows * W_total < 2^31, as over DENSE_ROWS_LIMIT single rows."""
+    127 * rows * W_total < 2^31, as over DENSE_ROWS_LIMIT single rows;
+    with int64 part sums (psums_wide) only the int32 counts bound it."""
+    if psums_wide:
+        return max(1, INT32_MAX // w_total)
     return max(1, DENSE_ROWS_LIMIT // w_total)
 
 
@@ -625,7 +706,8 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
                           part_lanes: Sequence[torch.Tensor] = (),
                           float_lanes: Sequence[torch.Tensor] = (),
                           extremes: Sequence[tuple] = (),
-                          smem_slots: int = K3_SMEM_SLOTS):
+                          smem_slots: int = K3_SMEM_SLOTS,
+                          psums_wide: bool = False):
     """Dense group table over key = clip(Σ term_c · stride_c, 0, g_pad-1).
 
     `key_lanes`: one GroupKey (or bare id lane) per group column. A doc
@@ -641,7 +723,9 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     extreme]), L = all part-lane rows, J = float lanes (float64 [P]
     each). Past k3_rows_per_launch(W_total) rows, K3 runs once per slice
     of that many rows and the slices' tables add up, counts and part sums
-    in int64."""
+    in int64. `psums_wide` (a stack of segments in one launch): psums are
+    int64, folded exactly on the card, and only the int32 counts bound
+    the rows of a launch."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
     keys = [_as_key(k) for k in key_lanes]
@@ -671,16 +755,17 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     if w_total > MAX_GROUP_COMBOS:
         raise ValueError(f"{w_total} MV entry combinations per doc > "
                          f"{MAX_GROUP_COMBOS}")
-    step = k3_rows_per_launch(w_total)
+    step = k3_rows_per_launch(w_total, psums_wide)
     if padded > step:
         return _k3_slices(mask, keys, strides, g_pad, rows, float_lanes,
-                          extremes, smem_slots, step)
+                          extremes, smem_slots, step, psums_wide)
     if device.type == "cpu":
         return dense_group_aggregate_plain(mask, keys, strides, g_pad,
                                            part_lanes, float_lanes,
-                                           extremes)
+                                           extremes, psums_wide)
     count = torch.zeros(g_pad, dtype=torch.int32, device=device)
-    psums = torch.zeros(len(rows), g_pad, dtype=torch.int32, device=device)
+    psums = torch.zeros(len(rows), g_pad, dtype=torch.int64 if psums_wide
+                        else torch.int32, device=device)
     csums = torch.zeros(len(float_lanes), g_pad, dtype=torch.float64,
                         device=device)
     matched = torch.zeros((), dtype=torch.int32, device=device)
@@ -706,13 +791,13 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
             _ints([_ext_init(e[0], e[2], e[3]) if e[0] == "ids" else 0
                    for e in extremes]),
             _ptrs(tables), len(extremes), padded, int(g_pad),
-            int(smem_slots), count.data_ptr(), psums.data_ptr(),
-            csums.data_ptr(), matched.data_ptr())
+            int(smem_slots), int(psums_wide), count.data_ptr(),
+            psums.data_ptr(), csums.data_ptr(), matched.data_ptr())
     return count, psums, csums, matched, tables
 
 
 def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
-               smem_slots, step):
+               smem_slots, step, psums_wide=False):
     """K3 over row slices of `step` rows, the slices' tables added
     (counts and part sums in int64, min / max tables by min / max)."""
     outs = []
@@ -724,7 +809,8 @@ def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
             [r[s:e].unsqueeze(0) for r in rows],
             [f[s:e] for f in float_lanes],
             [(kind, lane[s:e], which, cp)
-             for kind, lane, which, cp in extremes], smem_slots))
+             for kind, lane, which, cp in extremes], smem_slots,
+            psums_wide))
     count = sum(o[0].to(torch.int64) for o in outs)
     psums = sum(o[1].to(torch.int64) for o in outs)
     csums = sum(o[2] for o in outs)
@@ -774,7 +860,8 @@ def group_keys_plain(mask: torch.Tensor, key_lanes: Sequence,
 
 
 def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
-                                part_lanes=(), float_lanes=(), extremes=()):
+                                part_lanes=(), float_lanes=(), extremes=(),
+                                psums_wide: bool = False):
     """Plain PyTorch K3: the key walk (group_keys_plain), then
     index_add_ / scatter_reduce_ of the surviving (row, key) pairs."""
     device = mask.device
@@ -782,9 +869,10 @@ def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
     count = torch.zeros(g_pad, dtype=torch.int32, device=device)
     count.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
     prows = _part_rows(part_lanes)
-    psums = torch.zeros(len(prows), g_pad, dtype=torch.int32, device=device)
+    pdt = torch.int64 if psums_wide else torch.int32
+    psums = torch.zeros(len(prows), g_pad, dtype=pdt, device=device)
     for k, r in enumerate(prows):
-        psums[k].index_add_(0, key, r[rows].to(torch.int32))
+        psums[k].index_add_(0, key, r[rows].to(pdt))
     csums = torch.zeros(len(float_lanes), g_pad, dtype=torch.float64,
                         device=device)
     for j, f in enumerate(float_lanes):
@@ -1020,12 +1108,22 @@ def gather_lane_key(col: str, source: str) -> str:
 
 
 def selection_outputs_plain(select_spec, cols: Dict[str, torch.Tensor],
-                            mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                            mask: torch.Tensor, n_segs: Optional[int] = None
+                            ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch K6: the matched docids sorted by their key words with
     stable sorts from the least significant word (docid order breaks the
     last ties, as `lax.top_k` and the iota key of `lax.sort` do), the
     first k kept, -1 after them; the match count; each gathered column at
-    max(docid, 0)."""
+    max(docid, 0). With n_segs: the same per segment of the flat lanes,
+    stacked on a leading segment axis."""
+    if n_segs is not None:
+        per = mask.shape[0] // n_segs
+        outs = [selection_outputs_plain(
+            select_spec, {n: t[s * per:(s + 1) * per] for n, t in
+                          cols.items() if t.shape[0] == mask.shape[0]},
+            mask[s * per:(s + 1) * per])
+            for s in range(n_segs)]
+        return {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
     _kind, k, _order, gather_cols = select_spec
     m = mask.bool()
     idx = torch.nonzero(m).reshape(-1)
@@ -1070,32 +1168,44 @@ def _select_terms(select_spec, cols) -> List[Tuple[torch.Tensor, int, int,
     return terms
 
 
-def select_scratch_words(padded: int, k: int, n_words: int) -> int:
-    """int32 words of scratch K6 needs, as masked_select.cu decides them
-    (its tile size and merge passes live there only)."""
+def select_scratch_words(padded: int, k: int, n_words: int,
+                         n_segs: int = 1) -> int:
+    """int32 words of scratch K6 needs for n_segs segments of `padded`
+    rows, as masked_select.cu decides them (its tile size and merge
+    passes live there only)."""
     from pinot_tpu_torch.ops import build
     fn = build.load("masked_select.cu").pinot_masked_select_scratch_words
-    fn.argtypes = [_LL, _I, _I]
+    fn.argtypes = [_LL, _I, _I, _I]
     fn.restype = ctypes.c_longlong
-    return int(fn(padded, k, n_words))
+    return int(fn(padded, k, n_words, n_segs))
 
 
 def masked_select(select_spec, cols: Dict[str, torch.Tensor],
-                  mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                  mask: torch.Tensor, n_segs: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
     """One segment's selection: {"sel.docids" int32 [k] (-1 after the
     valid rows), "sel.count" int32 scalar, "sel.<col>" [k] or [k, W] in
-    the lane's dtype}, as the JAX `_selection_outputs` returns them."""
+    the lane's dtype}, as the JAX `_selection_outputs` returns them.
+
+    With n_segs: the mask and lanes hold that many segments of equal
+    length back to back (flat views of [S, P] stacks), and each output
+    gains a leading segment axis: every segment's own top k, docids
+    counted from its first row, as the vmapped JAX function gives them."""
     _kind, k, _order, gather_cols = select_spec
-    padded, device = mask.shape[0], mask.device
+    rows, device = mask.shape[0], mask.device
+    segs = 1 if n_segs is None else n_segs
+    if segs < 1 or rows % segs:
+        raise ValueError(f"{rows} rows do not split into {segs} segments")
+    padded = rows // segs
     _check_mask(mask)
     terms = _select_terms(select_spec, cols)
     for lane, mode, *_ in terms:
-        _check_lane(lane, "order lane", padded, device,
+        _check_lane(lane, "order lane", rows, device,
                     _ID_DTYPES if mode in (_PACK, _ID) else _RAW_DTYPES)
     gathers = []
     for col, source in gather_cols:
         lane = cols[gather_lane_key(col, source)]
-        _check_lane(lane, f"gather lane {col}", padded, device,
+        _check_lane(lane, f"gather lane {col}", rows, device,
                     _RAW_DTYPES if source == "raw" else _ID_DTYPES,
                     2 if source == "mv" else 1)
         gathers.append(lane)
@@ -1109,14 +1219,15 @@ def masked_select(select_spec, cols: Dict[str, torch.Tensor],
                          f"/ {len(gathers)} gathers over the kernel's "
                          "limits")
     if device.type == "cpu":
-        return selection_outputs_plain(select_spec, cols, mask)
-    scratch_words = select_scratch_words(padded, k, n_words)
+        return selection_outputs_plain(select_spec, cols, mask, n_segs)
+    lead = () if n_segs is None else (n_segs,)
+    scratch_words = select_scratch_words(padded, k, n_words, segs)
     scratch = torch.empty(scratch_words, dtype=torch.int32, device=device)
-    docids = torch.empty(k, dtype=torch.int32, device=device)
-    count = torch.zeros((), dtype=torch.int32, device=device)
-    outs = [torch.empty((k,) + tuple(g.shape[1:]), dtype=g.dtype,
+    docids = torch.empty(lead + (k,), dtype=torch.int32, device=device)
+    count = torch.zeros(lead, dtype=torch.int32, device=device)
+    outs = [torch.empty(lead + (k,) + tuple(g.shape[1:]), dtype=g.dtype,
                         device=device) for g in gathers]
-    _launch("masked_select", device, mask.data_ptr(), padded, int(k),
+    _launch("masked_select", device, mask.data_ptr(), padded, segs, int(k),
             _ptrs([t[0] for t in terms]),
             _ints([_ELEM[t[0].dtype] for t in terms]),
             _ints([t[1] for t in terms]), _ints([t[2] for t in terms]),
@@ -1221,6 +1332,69 @@ def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
     return outs
 
 
+def flat_lanes(cols: Dict[str, torch.Tensor], n_segs: int, padded: int
+               ) -> Dict[str, torch.Tensor]:
+    """A stack's lanes as the kernels read them, views without copies:
+    row-scale lanes [S, P, ...] → [S * P, ...], part lanes [n_parts, S,
+    P] → [n_parts, S * P]; dictionary-scale tables (.hllidx, .hllrank)
+    as they are."""
+    out = {}
+    for key, t in cols.items():
+        if key.endswith((".hllidx", ".hllrank")):
+            out[key] = t
+        elif key.endswith(".parts"):
+            if t.shape[1:] != (n_segs, padded):
+                raise ValueError(f"{key} has shape {tuple(t.shape)}, "
+                                 f"expected [n_parts, {n_segs}, {padded}]")
+            out[key] = t.reshape(t.shape[0], n_segs * padded)
+        else:
+            if t.shape[:2] != (n_segs, padded):
+                raise ValueError(f"{key} has shape {tuple(t.shape)}, "
+                                 f"expected [{n_segs}, {padded}, ...]")
+            out[key] = t.reshape((n_segs * padded,) + tuple(t.shape[2:]))
+    return out
+
+
+def run_stacked_kernel(padded: int, n_segs: int, filter_spec, agg_specs,
+                       group_spec, select_spec, cols: Dict[str, torch.Tensor],
+                       params, seg_docs: torch.Tensor, group_params=()
+                       ) -> Dict[str, torch.Tensor]:
+    """One plan over a stack of n_segs segments of `padded` rows each,
+    every kernel launched once for the whole stack (the counterpart of
+    pinot_tpu/parallel/sharded.py:get_sharded_kernel, which vmaps the
+    segment kernel and combines with psum / pmin / pmax / all_gather).
+
+    `cols`: row-scale lanes [S, P, ...] and part lanes [n_parts, S, P],
+    contiguous (flat_lanes views them as [S * P]); HLL tables [card_pad].
+    `seg_docs`: int32 [S] live rows per segment, on the lanes' device.
+    Returns the JAX output names: stats.seg_matched [S]; the "sum",
+    "min" and "max" kinds combined over the stack (counts, histograms,
+    min / max, HLL registers, group count and min / max tables, and the
+    float64 gagg{i}.csums); the "stack" kinds with a leading segment axis
+    (agg{i}.parts [S, n_parts], agg{i}.vsum [S, P / 8192], sel.* [S, k,
+    ...]), except gagg{i}.psums, which K3 folds exactly into int64 [L,
+    g_pad] (the JAX per-segment tables summed over the segment axis)."""
+    flat = flat_lanes(cols, n_segs, padded)
+    device = seg_docs.device
+    mask, seg_matched = filter_mask_stacked(padded, n_segs, filter_spec,
+                                            flat, params, seg_docs, device)
+    rest = list(group_params)
+    outs: Dict[str, torch.Tensor] = {}
+    if group_spec is not None:
+        outs = _group_outputs(mask, group_spec, flat, rest, psums_wide=True)
+    elif agg_specs or select_spec is None:
+        outs = _agg_outputs(mask, agg_specs, flat, seg_rows=padded)
+    if rest:
+        raise ValueError(f"{len(rest)} group params left unconsumed")
+    if select_spec is not None:
+        sel = masked_select(select_spec, flat, mask, n_segs)
+        outs.setdefault("stats.num_docs_matched",
+                        seg_matched.sum(dtype=torch.int32))
+        outs.update(sel)
+    outs["stats.seg_matched"] = seg_matched
+    return outs
+
+
 def spec_group_key(gcol, cols, params: List, device) -> GroupKey:
     """The K3 key of one group column of a spec; "mvin" pops its member
     table from `params`."""
@@ -1241,8 +1415,8 @@ def spec_group_key(gcol, cols, params: List, device) -> GroupKey:
     raise ValueError(f"group key kind {gkind}")
 
 
-def _group_outputs(mask, group_spec, cols, params: List
-                   ) -> Dict[str, torch.Tensor]:
+def _group_outputs(mask, group_spec, cols, params: List,
+                   psums_wide: bool = False) -> Dict[str, torch.Tensor]:
     gcols, strides, g_pad, gaggs, kmax = group_spec
     if kmax:
         raise ValueError("compacted group specs (kmax > 0) are a TPU "
@@ -1274,7 +1448,8 @@ def _group_outputs(mask, group_spec, cols, params: List
         else:
             raise ValueError(f"group aggregation spec {spec}")
     count, psums, csums, matched, tables = dense_group_aggregate(
-        mask, keys, strides, g_pad, parts, floats, extremes)
+        mask, keys, strides, g_pad, parts, floats, extremes,
+        psums_wide=psums_wide)
     outs = {"stats.num_docs_matched": matched, "group.count": count}
     for i, (s0, n_p) in slots.items():
         outs[f"gagg{i}.psums"] = psums[s0:s0 + n_p]
@@ -1307,10 +1482,14 @@ def _reduce_request(spec):
 _MV_HIST_FNAMES = ("sum", "avg", "percentile", "distinctcount", "countmv")
 
 
-def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
+def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
+                 ) -> Dict[str, torch.Tensor]:
     # one K5 per lane and one K4 per (lane, card_pad), shared by the
     # aggregations that read them; K2 runs for part lanes, or for the match
-    # count when no K5 gives it; K7 runs per HLL aggregation on its K4
+    # count when no K5 gives it; K7 runs per HLL aggregation on its K4.
+    # seg_rows (a stack of segments of that many rows): K2 writes one row
+    # of part sums per segment and K5's block sums take a segment axis,
+    # the JAX "stack" outputs; everything else combines over the stack
     reduce_args: Dict[str, tuple] = {}
     for spec in agg_specs:
         req = _reduce_request(spec)
@@ -1324,8 +1503,12 @@ def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
                for key, (kind, card_pad, want, card) in reduce_args.items()}
     parts = [cols[f"{s[1]}.parts"] for s in agg_specs if _is_parts_agg(s)]
     if parts or not reduced:
-        sums = masked_part_sums(mask, parts)
-        count = sums[-1]
+        sums = masked_part_sums(mask, parts, seg_rows)
+        if seg_rows is None:
+            count = sums[-1]
+        else:                            # [S, L + 1]: combine the counts
+            count = sums[:, -1].sum(dtype=torch.int32)
+            sums = sums.T
     else:
         count = next(iter(reduced.values()))["count"]
     outs = {"stats.num_docs_matched": count}
@@ -1345,7 +1528,9 @@ def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
             outs[f"agg{i}"] = count
         elif _is_parts_agg(spec):
             n_p = cols[f"{col}.parts"].shape[0]
-            outs[f"agg{i}.parts"] = sums[off:off + n_p]
+            # [n_p], or [S, n_p] rows per segment over a stack
+            outs[f"agg{i}.parts"] = sums[off:off + n_p].T if seg_rows \
+                else sums[off:off + n_p]
             outs[f"agg{i}.count"] = count
             off += n_p
         elif source == "sv" and _strategy(spec) == "hist":
@@ -1366,7 +1551,8 @@ def _agg_outputs(mask, agg_specs, cols) -> Dict[str, torch.Tensor]:
         elif req is not None:
             r = reduced[req[0]]
             if req[3]:
-                outs[f"agg{i}.vsum"] = r["sums"]
+                outs[f"agg{i}.vsum"] = r["sums"] if seg_rows is None \
+                    else r["sums"].reshape(-1, seg_rows // BLOCK)
                 outs[f"agg{i}.count"] = r["count"]
             for which in _extremes_of(fname):
                 outs[f"agg{i}.{which}"] = r[which]

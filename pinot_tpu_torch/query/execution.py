@@ -128,16 +128,18 @@ def _execute_segment_plan(plan) -> IntermediateResultsBlock:
 def _nonempty_groups(outs: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """Select the groups with count > 0 on the device: `group.nz` holds
-    their keys, every per-group output keeps only those slots."""
+    their keys, every per-group output keeps only those slots; the stats
+    outputs pass as they are."""
     count = outs["group.count"]
     nz = torch.nonzero(count).reshape(-1)
     sel: Dict[str, torch.Tensor] = {
-        "stats.num_docs_matched": outs["stats.num_docs_matched"],
         "group.nz": nz.to(torch.int64),
         "group.count": count[nz]}
     for name, t in outs.items():
         if name.startswith("gagg"):
             sel[name] = t[..., nz]
+        elif name.startswith("stats."):
+            sel[name] = t
     return sel
 
 

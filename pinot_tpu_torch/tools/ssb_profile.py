@@ -1,7 +1,7 @@
 """Where a query's time goes on the card.
 
     python -m pinot_tpu_torch.tools.ssb_profile [--sf 10] [--segments 8]
-        [--repeats 5] [--seed 0] [--out FILE]
+        [--repeats 5] [--seed 0] [--out FILE] [--mesh]
         [--table baseball --bb-rows 10000000 --bb-segments 4]
 
 Builds the SSB table at scale factor --sf on the card (or, with --table
@@ -15,7 +15,11 @@ one query per device shape, the draws that the host twin answers, family
 metric table's queries, family "mv_metric"), then
 --repeats times with each layer timed (pruner, planner, kernel dispatch,
 device→host pull, finish, host twin, combine and reduce) and once more
-under torch.profiler for the card's busy time. Prints one JSON line per
+under torch.profiler for the card's busy time. With --mesh the engines
+take parallel.make_mesh(): a multi-segment query runs stacked, one
+launch per kernel over every segment (layers stack, plan, dispatch,
+select_groups, pull, finish, reduce; the sequential layers where a
+query falls back, its route in `route`). Prints one JSON line per
 query, and writes them all to --out if given:
 
 - wall_ms: the query's median host wall time, ending in a synchronize;
@@ -75,6 +79,8 @@ def main() -> int:
     ap.add_argument("--table", choices=("ssb", "baseball"), default="ssb")
     ap.add_argument("--bb-rows", type=int, default=10_000_000)
     ap.add_argument("--bb-segments", type=int, default=4)
+    ap.add_argument("--mesh", action="store_true",
+                    help="stack the segments (QueryEngine mesh=make_mesh())")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ssb_profile: no CUDA device", file=sys.stderr)
@@ -96,14 +102,19 @@ def main() -> int:
     return 0
 
 
+def _mesh(args):
+    from pinot_tpu_torch.parallel import make_mesh
+    return make_mesh() if args.mesh else None
+
+
 def _ssb_engine(args):
     from pinot_tpu_torch.engine import QueryEngine
     from pinot_tpu_torch.tools.datagen import make_ssb_segments
     from pinot_tpu_torch.tools.ssb import SSB_PQLS
     table = make_ssb_segments(args.sf * 6_000_000, args.segments,
                               seed=args.seed)
-    return QueryEngine(table.segments), dict(SSB_PQLS), \
-        {"scale_factor": args.sf}
+    return QueryEngine(table.segments, mesh=_mesh(args)), dict(SSB_PQLS), \
+        {"scale_factor": args.sf, "mesh": args.mesh}
 
 
 def _baseball_engine(args, base):
@@ -116,9 +127,9 @@ def _baseball_engine(args, base):
     pqls = {f"{'host' if draw.host_answered else family}{i}": draw.pql
             for i, (family, draw) in
             enumerate(baseball.all_draws(baseball.Oracle(cols)))}
-    return QueryEngine.from_dirs(dirs), pqls, \
+    return QueryEngine.from_dirs(dirs, mesh=_mesh(args)), pqls, \
         {"table": "baseballStats", "rows": args.bb_rows,
-         "segments": args.bb_segments}
+         "segments": args.bb_segments, "mesh": args.mesh}
 
 
 def _raw_key_engine(args, base):
@@ -149,6 +160,7 @@ def _mv_metric_engine(args, base):
 
 
 def profile(args, engine, pqls, tag) -> list:
+    from pinot_tpu_torch.parallel import sharded
     from pinot_tpu_torch.query import execution, host_exec, plan
     from pinot_tpu_torch.query import executor as executor_mod
     from pinot_tpu_torch.query.reduce import BrokerReduceService
@@ -160,6 +172,9 @@ def profile(args, engine, pqls, tag) -> list:
     timer.wrap(executor_mod.SegmentPrunerService, "prune", "prune")
     timer.wrap(plan.InstancePlanMaker, "make_segment_plan", "plan")
     timer.wrap(execution.kernels, "run_segment_kernel", "dispatch")
+    timer.wrap(execution.kernels, "run_stacked_kernel", "dispatch")
+    timer.wrap(sharded.ShardedQueryExecutor, "stack_for", "stack")
+    timer.wrap(sharded.StackedSegments, "gather", "stack")
     timer.wrap(execution, "_nonempty_groups", "select_groups")
     timer.wrap(execution, "pull", "pull")
     timer.wrap(execution, "_finish_aggregation", "finish")
@@ -201,6 +216,7 @@ def profile(args, engine, pqls, tag) -> list:
                     per_kernel[ev.key] += dev_us / 1e3
             busy = sum(per_kernel.values())
             row = {"query": q, "device": device, **tag,
+                   "route": engine.last_route[0],
                    "wall_ms": float(np.median(walls)),
                    "layers_ms": {k: float(np.median(v))
                                  for k, v in layers.items()},

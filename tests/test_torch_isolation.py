@@ -42,6 +42,7 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.query.executor\n"
         "import pinot_tpu_torch.query.host_exec\n"
         "import pinot_tpu_torch.query.pruner\n"
+        "import pinot_tpu_torch.parallel, pinot_tpu_torch.parallel.sharded\n"
         "import pinot_tpu_torch.common.partition\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
@@ -82,6 +83,16 @@ def test_cuda_entry_point_raises_without_a_card():
     # a segment left on its default device asks for the card too
     with pytest.raises(RuntimeError, match="no CUDA device"):
         segs[0].data_source("d_year").device_dict_ids()
+
+
+def test_make_mesh_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the mesh would hold it")
+    from pinot_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(["cuda"])
 
 
 def test_from_dirs_raises_without_a_card(tmp_path):

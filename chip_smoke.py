@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Drive pinot_tpu_torch on one CUDA card: build, kernel checks, SSB
-Q1.1-Q4.3 in memory, and baseballStats from disk under the QueryGenerator
-mix with its selections, each table per segment and stacked (one launch
+Q1.1-Q4.3 in memory, baseballStats from disk under the QueryGenerator
+mix with its selections, and VECTOR_SIMILARITY over the 10M x 128 vector
+table with IVF codebooks, each table per segment and stacked (one launch
 per kernel over all segments).
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
+                          [--vec-rows 10000000] [--vec-segments 4]
+                          [--vec-dim 128] [--vec-queries 5]
 
 Phases, each printed as one JSON line; any failure ends the run with a
 non-zero exit and no result line:
@@ -86,15 +89,41 @@ non-zero exit and no result line:
    which met the oracle (else the oracle judges it); routes counted:
    stacked, fast_path and not_shardable (NotShardable, with the reasons),
    host_twin (the planner's refusals: exactly the host-answered draws).
-13. timing: wall seconds per phase and per part of phase 9 (first runs
+13. vec_data: the vector table of tools/vecdata.py (the JAX package's
+   scripts/vec_ann_bench.py rung: --vec-rows rows of --vec-dim dims in
+   --vec-segments segments, drawn around 256 centres from seed 2016),
+   sealed by the port's SegmentCreator with a 256-centroid IVF codebook
+   a segment trained on the card (launch counts from 0: K10 and K11 must
+   launch), loaded with from_dirs and its lanes put on the card; build,
+   draw, train and load seconds, device and disk bytes.
+14. vector_kernel_check: K8 (both metrics), K6's vector kind, K9, K1's
+   ivf_probe node, K10 and K11 against their plain versions on segment
+   0's lanes, and K8, K6-vector, K9 and K1 over the stack against their
+   plain stacked versions and S per-segment launches (vector_kernel_check
+   says what must be equal); timed with the L2 flushed, beside their
+   bounds (bytes for K8, K6 and K9, operations for K10) and the nearest
+   PyTorch call (torch.mv, torch.topk, torch.topk of torch.mv, cdist with
+   argmin, index_add_).
+15. vector: per segment and stacked, launch counts from 0, --vec-queries
+   query vectors (drawn as the script draws them) under COSINE and DOT,
+   exact and at nprobe 1, 4 and 16, and one filtered exact query (WHERE
+   rid < 30% of the rows), each run once: every exact answer equal to the
+   chunked numpy oracle bit for bit, the stacked answers equal to the
+   per-segment ones, every query on the stacked route; per rung the p50
+   of --repeats timed runs, the scanned share (numDocsScanned / rows) and
+   recall@10 against the exact answer; some nprobe rung under COSINE must
+   reach recall@10 >= 0.95 scanning < 15% of the rows (the script's gate).
+16. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
    repeats).
 
 Phases 10-12 run right after the phase they build on (10 and 11 after
-5, 12 after 9). The last three lines are the card's name and power
-limit, the kernels JSON line (launches over all four paths; the stacked
-paths' launches, the stacked launch's time, S per-segment launches' time
-and the stacked bound beside them) and
+5, 12 after 9); 13-15 after 12. The last three lines are the card's name
+and power limit, the kernels JSON line (launches over every path: SSB
+and baseballStats per segment and stacked, the vector table's build, and
+its queries per segment and stacked; the stacked paths' launches, the
+stacked launch's time, S per-segment launches' time and the stacked
+bound beside them) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -117,6 +146,16 @@ CSUMS_RTOL = 1e-9               # f64 atomics add in a run-dependent order
 ROWS_PER_SF = 6_000_000
 L2_FLUSH_BYTES = 128 << 20      # > the 50 MB L2: each timed launch is cold
 SPIN_CYCLES = 2_000_000         # ~1 ms at H100 clocks
+
+
+#: the kernels of the SSB and baseballStats paths (K1-K7)
+TABLE_KERNELS = ("filter_mask", "masked_part_sums", "dense_group_aggregate",
+                 "masked_histogram", "masked_reduce", "masked_select",
+                 "hll_registers")
+#: the vector path's kernels (K8, K6's vector kind, K9, K10, K11)
+VECTOR_KERNELS = ("vector_scores", "masked_select_vector", "ivf_probe_select",
+                  "ivf_assign", "ivf_recenter")
+VEC_RECALL_GATE, VEC_SCAN_GATE = 0.95, 0.15   # scripts/vec_ann_bench.py
 
 
 def emit(obj) -> None:
@@ -1087,7 +1126,7 @@ def run_baseball_stacked(st_engine, answered, oracle, repeats: int,
         if not same_answer(resp, seq_resp, baseball.FLOAT_RTOL):
             baseball.check(resp, oracle, draw)
             judged += 1
-    if not all(launches.values()):
+    if not all(launches[name] for name in TABLE_KERNELS):
         raise AssertionError(f"a kernel never launched on the stacked "
                              f"baseballStats path: {launches}")
     if not routes.get("stacked"):
@@ -1204,7 +1243,7 @@ def run_baseball(tables, repeats: int):
         if p["host"] or not p["scan"]:
             raise AssertionError(f"a raw-key or MV metric query left the "
                                  f"card: {p}")
-    if not all(launches.values()):
+    if not all(launches[name] for name in TABLE_KERNELS):
         raise AssertionError(f"a kernel never launched on the baseballStats "
                              f"path: {launches}")
     families = {}
@@ -1239,6 +1278,426 @@ def run_baseball(tables, repeats: int):
     return launches, seconds, main_table, p50
 
 
+# ---------------------------------------------------------------------------
+# VECTOR_SIMILARITY: the JAX package's vector rung (tools/vecdata.py)
+# ---------------------------------------------------------------------------
+
+
+def vec_data(base, args):
+    """Phase vec_data: draw and seal the vector table with the port's
+    SegmentCreator (IVF codebooks trained on the card: K10 and K11, their
+    launches counted from 0), load it with from_dirs and put its lanes on
+    the card. Returns (engine, draws, launches)."""
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools import vecdata
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    dirs, draws, secs = vecdata.build_segment_dirs(
+        base, args.vec_rows, args.vec_segments, args.vec_dim)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    if not launches["ivf_assign"] or not launches["ivf_recenter"]:
+        raise AssertionError(f"IVF training left the card: {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = QueryEngine.from_dirs(dirs)                  # on the card
+    for seg in engine.segments:
+        ds = seg.data_source("emb")
+        for lane in (ds.device_vec_values, ds.device_ivf_assign,
+                     ds.device_ivf_centroids, ds.device_ivf_valid,
+                     seg.data_source("rid").device_dict_ids):
+            lane()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    emit({"phase": "vec_data", "rows": args.vec_rows,
+          "segments": args.vec_segments, "dim": args.vec_dim,
+          "centroids_per_segment": vecdata.CENTERS,
+          "train_iterations": vecdata.IVF_ITERATIONS,
+          "train_sample": vecdata.IVF_SAMPLE,
+          "padded_rows_per_segment": engine.segments[0].padded_docs,
+          "build_seconds": build_s, "draw_seconds": secs["draw"],
+          "seal_seconds": secs["seal"], "train_seconds": secs["train"],
+          "load_seconds": load_s,
+          "device_table_bytes": sum(s.device_bytes()
+                                    for s in engine.segments),
+          "disk_bytes": sum(os.path.getsize(os.path.join(d, f))
+                            for d in dirs for f in os.listdir(d)),
+          "launches": {k: v for k, v in launches.items() if v}})
+    return engine, draws, launches
+
+
+def _query(q, dim: int):
+    from pinot_tpu_torch.ops import kernels as K
+    qp = np.zeros(dim, np.float32)
+    qp[:len(q)] = q
+    return qp, np.float32(np.sqrt(K.vec_tree_sum_plain(qp * qp)))
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _score_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    d = (a.double() - b.double()).abs().nan_to_num(0.0, 0.0, 0.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _topk_equal(got, want) -> bool:
+    return all(torch.equal(got[k], want[k]) for k in want) and \
+        set(got) == set(want)
+
+
+def vector_kernel_check(engine, st_engine, q):
+    """Phase vector_kernel_check: K8, K6's vector kind, K9 (with K1's
+    ivf_probe node), K10 and K11 against their plain versions on segment
+    0's lanes, and K8, K6-vector, K9 and K1 over the stack against their
+    plain stacked versions and S per-segment launches. Bit-equal: K8's
+    scores, K6's docids / scores / count, K9's probe lists, K1's masks;
+    K10's assignments wherever the best two distances differ by more than
+    1e-3 of the best, its distances within 1e-3 + 1e-4 relative; K11's
+    counts equal, its centroids within 1e-5 and byte-identical run to
+    run. Returns ({kernel: numbers}, {kernel: stacked numbers})."""
+    from pinot_tpu_torch.ops import ivf_kernels as IK
+    from pinot_tpu_torch.ops import kernels as K
+    seg = engine.segments[0]
+    P, n = seg.padded_docs, seg.num_docs
+    ds = seg.data_source("emb")
+    mat, ivfa = ds.device_vec_values(), ds.device_ivf_assign()
+    cent, cvalid = ds.device_ivf_centroids(), ds.device_ivf_valid()
+    dim, n_cent = mat.shape[1], int(ds.ivf_centroids.shape[0])
+    c_pad = cent.shape[0]
+    qp, qn = _query(q, dim)
+    qt = torch.from_numpy(qp).to(mat.device)
+    entries, stacked, report = {}, {}, []
+
+    def record(name, case, equal, **numbers):
+        r = {"kernel": name, "case": case, "equal": bool(equal), **numbers}
+        report.append(r)
+        emit({"phase": "vector_kernel_check", **r})
+        if not equal:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on {case}: {r}")
+
+    # K8 on segment 0, both metrics
+    for metric in ("cosine", "dot"):
+        got = K.vector_scores(mat, qp, qn, metric)
+        ref = K.vector_scores_plain(mat, qp, qn, metric)
+        record("vector_scores", metric, _bits_equal(got, ref),
+               max_abs_err=_score_err(got, ref))
+    k8_bytes = P * dim * 4 + P * 4
+    entries["vector_scores"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: K.vector_scores(mat, qp, qn, "cosine")),
+        plain_ms=time_ms(lambda: K.vector_scores_plain(mat, qp, qn,
+                                                       "cosine"), reps=3),
+        bound=bound(k8_bytes, 4.0 * P * dim),
+        library_ms=time_ms(lambda: torch.mv(mat, qt)))
+
+    # K6's vector kind on K8's cosine scores, every valid row matched
+    mask = K.filter_mask(P, ("match_all",), {}, [], n, mat.device)
+    scores = K.vector_scores(mat, qp, qn, "cosine")
+    got = K.vector_topk(scores, mask, 16)
+    ref = K.vector_topk_plain(scores, mask, 16)
+    record("masked_select_vector", "cosine k=16", _topk_equal(got, ref),
+           count=int(got["sel.count"]))
+    masked = torch.where(mask.bool(), scores, float("-inf"))
+    entries["masked_select_vector"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: K.vector_topk(scores, mask, 16)),
+        plain_ms=time_ms(lambda: K.vector_topk_plain(scores, mask, 16),
+                         reps=3),
+        bound=bound(P + P * 4 + 16 * 8, P), library_ms=time_ms(
+            lambda: torch.topk(torch.where(mask.bool(), scores,
+                                           float("-inf")), 16)))
+    del masked
+
+    # K9 (nprobe 16) and K1's ivf_probe node (its K9 inside)
+    for metric in ("cosine", "dot"):
+        ids, ok = K.ivf_select_probes(cent, cvalid, qp, qn, metric, 16)
+        rids, rok = K.ivf_select_probes_plain(cent, cvalid, qp, qn, metric,
+                                              16)
+        record("ivf_probe_select", metric,
+               torch.equal(ids, rids) and torch.equal(ok, rok),
+               live_centroids=int(cvalid.sum()))
+    entries["ivf_probe_select"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: K.ivf_select_probes(cent, cvalid, qp, qn,
+                                               "cosine", 16)),
+        plain_ms=time_ms(lambda: K.ivf_select_probes_plain(
+            cent, cvalid, qp, qn, "cosine", 16), reps=3),
+        bound=bound(c_pad * dim * 4 + c_pad + 16 * 5, 4.0 * c_pad * dim),
+        library_ms=time_ms(lambda: torch.topk(torch.mv(cent, qt), 16)))
+    probe = ("pred", "ivf_probe", "emb", "ivf", (16, "cosine"))
+    pcols = {"emb.ivfa": ivfa, "emb.ivfc": cent, "emb.ivfv": cvalid}
+    got = K.filter_mask(P, probe, pcols, [qp, qn], n)
+    ref = K.filter_mask_plain(P, probe, pcols, [qp, qn], n)
+    record("filter_mask", "ivf_probe nprobe=16 (with its K9)",
+           torch.equal(got, ref), matched=int(ref.sum()),
+           ms=time_ms(lambda: K.filter_mask(P, probe, pcols, [qp, qn], n)),
+           plain_ms=time_ms(lambda: K.filter_mask_plain(
+               P, probe, pcols, [qp, qn], n), reps=3),
+           bound_ms=bound(P * ivfa.element_size() + P +
+                          c_pad * dim * 4, P * 16)[0])
+
+    # K10 over segment 0's rows against its codebook
+    data = mat[:n]
+    assign, dist = IK.ivf_assign(data, cent, n, n_cent)
+    ref_a, ref_d = IK.ivf_assign_plain(data, cent, n, n_cent)
+    d2 = (K.vec_tree_sum_plain(data * data)[:, None] -
+          2.0 * (data @ cent[:n_cent].T) +
+          K.vec_tree_sum_plain(cent[:n_cent] * cent[:n_cent])[None, :])
+    two = torch.topk(d2, 2, dim=1, largest=False).values
+    sure = (two[:, 1] - two[:, 0]) > 1e-3 * two[:, 0].abs().clamp_min(1.0)
+    del d2, two
+    mismatched = int(((assign != ref_a) & sure).sum())
+    record("ivf_assign", f"{n} rows x {n_cent} centroids", mismatched == 0 and
+           bool(torch.allclose(dist, ref_d, rtol=1e-4, atol=1e-3)),
+           mismatched_sure=mismatched, unsure_rows=int((~sure).sum()),
+           differ_unsure=int(((assign != ref_a) & ~sure).sum()),
+           max_abs_err=float((dist - ref_d).abs().max()))
+    flops = 2.0 * n * n_cent * dim
+    entries["ivf_assign"] = dict(
+        max_abs_err=float((dist - ref_d).abs().max()),
+        ms=time_ms(lambda: IK.ivf_assign(data, cent, n, n_cent), reps=5),
+        plain_ms=time_ms(lambda: IK.ivf_assign_plain(data, cent, n, n_cent),
+                         reps=3),
+        bound=bound(n * dim * 4 + n_cent * dim * 4 + n * 8, flops),
+        library_ms=time_ms(lambda: torch.cdist(data, cent[:n_cent])
+                           .argmin(dim=1), reps=3))
+
+    # K11 on a training sample's shape (its first rows, K10's cells)
+    m = min(65536, n)
+    sample = data[:m].contiguous()
+    a_s, _ = IK.ivf_assign(sample, cent, m, n_cent)
+    new_c, counts = IK.ivf_recenter(sample, a_s, m, cent)
+    again, _ = IK.ivf_recenter(sample, a_s, m, cent)
+    ref_c, ref_n = IK.ivf_recenter_plain(sample, a_s, m, cent)
+    err = float((new_c - ref_c).abs().max())
+    record("ivf_recenter", f"{m} rows x {c_pad} centroids",
+           torch.equal(counts, ref_n) and _bits_equal(new_c, again) and
+           bool(torch.allclose(new_c, ref_c, rtol=1e-5, atol=1e-5)),
+           max_abs_err=err, run_to_run_bytes_equal=_bits_equal(new_c, again))
+    entries["ivf_recenter"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: IK.ivf_recenter(sample, a_s, m, cent)),
+        plain_ms=time_ms(lambda: IK.ivf_recenter_plain(sample, a_s, m,
+                                                       cent), reps=3),
+        bound=bound(m * dim * 4 + m * 4 + 2 * c_pad * dim * 4 + c_pad * 4,
+                    1.0 * m * dim),
+        library_ms=time_ms(lambda: torch.zeros_like(cent).index_add_(
+            0, a_s.long(), sample)))
+
+    # the stack: one launch over all S segments against S launches
+    stack = st_engine.sharded.stack_for(st_engine.segments)
+    S = stack.n_real
+    keys = [("emb", "vec"), ("emb", "ivfa"), ("emb", "ivfc"), ("emb", "ivfv")]
+    flat = K.flat_lanes(stack.gather(keys), S, P)
+    segs, docs = stack.segments, stack.device_num_docs()
+    per = [{k: getattr(sg.data_source("emb"), f)() for k, f in
+            (("vec", "device_vec_values"), ("ivfa", "device_ivf_assign"),
+             ("ivfc", "device_ivf_centroids"), ("ivfv", "device_ivf_valid"))}
+           for sg in segs]
+    svec = flat["emb.vec"]
+    got = K.vector_scores(svec, qp, qn, "cosine")
+    seq = torch.cat([K.vector_scores(p["vec"], qp, qn, "cosine")
+                     for p in per])
+    equal = _bits_equal(got, K.vector_scores_plain(svec, qp, qn, "cosine")) \
+        and _bits_equal(got, seq)
+    b = bound(S * P * dim * 4 + S * P * 4, 4.0 * S * P * dim)
+    st = dict(ms=time_ms(lambda: K.vector_scores(svec, qp, qn, "cosine")),
+              s_sequential_ms=time_ms(lambda: [K.vector_scores(
+                  p["vec"], qp, qn, "cosine") for p in per], spins=S),
+              bound_ms=b[0])
+    record("vector_scores", f"stacked S={S}", equal, **st)
+    stacked["vector_scores"] = st
+    smask, _matched = K.filter_mask_stacked(P, S, ("match_all",), {}, [],
+                                            docs, mat.device)
+    got = K.vector_topk(got, smask, 16, n_segs=S)
+    equal = _topk_equal(got, K.vector_topk_plain(seq, smask, 16, n_segs=S))
+    seg_masks = [smask[i * P:(i + 1) * P] for i in range(S)]
+    seg_scores = [seq[i * P:(i + 1) * P] for i in range(S)]
+    equal = equal and all(
+        torch.equal(got["sel.docids"][i],
+                    K.vector_topk(seg_scores[i], seg_masks[i], 16)
+                    ["sel.docids"]) for i in range(S))
+    st = dict(ms=time_ms(lambda: K.vector_topk(seq, smask, 16, n_segs=S)),
+              s_sequential_ms=time_ms(lambda: [
+                  K.vector_topk(seg_scores[i], seg_masks[i], 16)
+                  for i in range(S)], spins=S),
+              bound_ms=bound(S * P * 5 + S * 16 * 8, S * P)[0])
+    record("masked_select_vector", f"stacked S={S}", equal, **st)
+    stacked["masked_select_vector"] = st
+    scent, scv = flat["emb.ivfc"], flat["emb.ivfv"]
+    ids, ok = K.ivf_select_probes(scent, scv, qp, qn, "cosine", 16)
+    rids, rok = K.ivf_select_probes_plain(scent, scv, qp, qn, "cosine", 16)
+    equal = torch.equal(ids, rids) and torch.equal(ok, rok) and all(
+        torch.equal(ids[i], K.ivf_select_probes(
+            p["ivfc"], p["ivfv"], qp, qn, "cosine", 16)[0])
+        for i, p in enumerate(per))
+    st = dict(ms=time_ms(lambda: K.ivf_select_probes(scent, scv, qp, qn,
+                                                     "cosine", 16)),
+              s_sequential_ms=time_ms(lambda: [K.ivf_select_probes(
+                  p["ivfc"], p["ivfv"], qp, qn, "cosine", 16) for p in per],
+                  spins=S),
+              bound_ms=bound(S * (c_pad * dim * 4 + c_pad + 80),
+                             4.0 * S * c_pad * dim)[0])
+    record("ivf_probe_select", f"stacked S={S}", equal, **st)
+    stacked["ivf_probe_select"] = st
+    got_m, got_n = K.filter_mask_stacked(P, S, probe, flat, [qp, qn], docs)
+    ref_m, ref_n = K.filter_mask_stacked_plain(P, S, probe, flat, [qp, qn],
+                                               docs)
+    record("filter_mask", f"ivf_probe stacked S={S}",
+           torch.equal(got_m, ref_m) and torch.equal(got_n, ref_n),
+           matched=int(ref_n.sum()))
+    for name in ("ivf_assign", "ivf_recenter"):
+        stacked[name] = dict(ms=None, s_sequential_ms=None, bound_ms=None)
+    return entries, stacked
+
+
+def _vec_pql(q, metric: str, nprobe: int, where: str = "") -> str:
+    qs = ", ".join(repr(float(x)) for x in q)
+    clause = f", nprobe={nprobe}" if nprobe else ""
+    from pinot_tpu_torch.tools import vecdata
+    return (f"SELECT rid, VECTOR_SIMILARITY(emb, [{qs}], {vecdata.K}, "
+            f"'{metric}'{clause}) FROM {vecdata.TABLE} {where}").strip()
+
+
+def run_vector(engine, st_engine, queries, args, repeats: int):
+    """Phase vector, per segment and stacked: counts set to 0, each query
+    vector under COSINE and DOT, exact and at nprobe 1, 4 and 16, and one
+    filtered exact query, run once; the counts read (K1, K8, K9 and K6's
+    vector kind must have launched) and the routes; every exact answer
+    equal to the chunked numpy oracle bit for bit (docids, segments,
+    scores), the stacked answers equal to the per-segment ones; per rung
+    the recall@10 against the exact answer and the share of rows scanned
+    (numDocsScanned); then the timed repeats (p50 per rung). The gate of
+    scripts/vec_ann_bench.py: some nprobe rung reaches recall@10 >= 0.95
+    (mean over the queries) while scanning < 15% of the rows. Returns the
+    launch counts per route."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools import vecdata
+    rows = sum(s.num_docs for s in engine.segments)
+    t0 = time.perf_counter()
+    oracle = vecdata.VecOracle([(s.segment_name,
+                                 s.data_source("emb").vec_values)
+                                for s in engine.segments])
+    cut = rows * 3 // 10                               # WHERE rid < cut
+    rid_masks = [s.data_source("rid").dictionary.values[
+        s.data_source("rid").dict_ids] < cut for s in engine.segments]
+    exact = {}
+    for qi, q in enumerate(queries):
+        for metric in ("COSINE", "DOT"):
+            exact[(qi, metric)] = oracle.topk(q, vecdata.K, metric)
+    exact_filtered = oracle.topk(queries[0], vecdata.K, "COSINE", rid_masks)
+    oracle_s = time.perf_counter() - t0
+    rungs = [("exact", 0)] + [(f"nprobe={p}", p) for p in vecdata.NPROBES]
+    launches_by_route, answers = {}, {}
+    for route, eng in (("per_segment", engine), ("stacked", st_engine)):
+        K.reset_launch_counts()
+        eng.executor.reset_path_counts()
+        eng.route_counts.clear()
+        runs = {}
+        for qi, q in enumerate(queries):
+            for metric in ("COSINE", "DOT"):
+                for rung, nprobe in rungs:
+                    t = time.perf_counter()
+                    resp = eng.query(_vec_pql(q, metric, nprobe))
+                    torch.cuda.synchronize()
+                    runs[(qi, metric, rung)] = (
+                        resp, (time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        fresp = eng.query(_vec_pql(queries[0], "COSINE", 0,
+                                   f"WHERE rid < {cut}"))
+        torch.cuda.synchronize()
+        filtered_ms = (time.perf_counter() - t) * 1e3
+        launches = K.launch_counts()
+        launches_by_route[route] = launches
+        if route == "stacked":
+            routes = dict(eng.route_counts)
+            paths = dict(eng.sharded.plan_maker.path_counts)
+            if routes != {"stacked": len(runs) + 1}:
+                raise AssertionError(f"vector queries left the stacked "
+                                     f"path: {routes}")
+        else:
+            routes = dict(eng.executor.path_counts)
+            paths = dict(eng.executor.plan_maker.path_counts)
+        for name in ("filter_mask", "vector_scores", "masked_select_vector",
+                     "ivf_probe_select"):
+            if not launches[name]:
+                raise AssertionError(f"{name} never launched on the {route} "
+                                     f"vector path: {launches}")
+        got_rows = {}
+        for key, (resp, _ms) in runs.items():
+            if resp.exceptions:
+                raise AssertionError(f"{route} {key}: {resp.exceptions}")
+            got_rows[key] = [(int(r[1]), r[2], float(r[3]))
+                             for r in resp.selection_results.results]
+        for (qi, metric), want in exact.items():
+            if got_rows[(qi, metric, "exact")] != want:
+                raise AssertionError(f"{route}: exact q{qi} {metric} differs "
+                                     "from the oracle")
+        fgot = [(int(r[1]), r[2], float(r[3]))
+                for r in fresp.selection_results.results]
+        if fgot != exact_filtered:
+            raise AssertionError(f"{route}: filtered query differs from the "
+                                 "oracle")
+        answers[route] = got_rows
+        stats = {}
+        for rung, nprobe in rungs:
+            for metric in ("COSINE", "DOT"):
+                rec, scan = [], []
+                for qi in range(len(queries)):
+                    resp, _ms = runs[(qi, metric, rung)]
+                    rec.append(vecdata.recall(
+                        [r[:2] for r in got_rows[(qi, metric, rung)]],
+                        [r[:2] for r in exact[(qi, metric)]]))
+                    scan.append(resp.num_docs_scanned / rows)
+                stats[f"{rung} {metric}"] = {
+                    "recall_at_10": float(np.mean(rec)),
+                    "recall_min": float(min(rec)),
+                    "scanned_share": float(np.mean(scan))}
+        firsts = {rung: float(np.median([ms for (qi, m, r), (_resp, ms)
+                                         in runs.items() if r == rung]))
+                  for rung, _n in rungs}
+        p50 = {}
+        for rung, nprobe in rungs:
+            ts = []
+            for _ in range(repeats):
+                for qi, q in enumerate(queries):
+                    for metric in ("COSINE", "DOT"):
+                        pql = _vec_pql(q, metric, nprobe)
+                        t = time.perf_counter()
+                        eng.query(pql)
+                        torch.cuda.synchronize()
+                        ts.append((time.perf_counter() - t) * 1e3)
+            p50[rung] = float(np.median(ts))
+        emit({"phase": "vector", "route": route, "rows": rows,
+              "queries": len(queries), "metrics": ["COSINE", "DOT"],
+              "exact_equal_oracle": True, "p50_ms": p50,
+              "first_run_median_ms": firsts, "rungs": stats,
+              "filtered": {"where": f"rid < {cut}", "ms": filtered_ms,
+                           "scanned_share": fresp.num_docs_scanned / rows,
+                           "equal_oracle": True},
+              "routes": routes, "ivf_paths": paths,
+              "oracle_seconds": oracle_s,
+              "launches": {k: v for k, v in launches.items() if v}})
+        if route == "stacked":
+            if got_rows != answers["per_segment"]:
+                raise AssertionError("stacked vector answers differ from "
+                                     "the per-segment ones")
+        gate = [r for r, s in stats.items() if r.endswith("COSINE") and
+                r != "exact COSINE" and s["recall_at_10"] >= VEC_RECALL_GATE
+                and s["scanned_share"] < VEC_SCAN_GATE]
+        if not gate:
+            raise AssertionError(f"{route}: no nprobe rung reaches recall@10 "
+                                 f">= {VEC_RECALL_GATE} scanning < "
+                                 f"{VEC_SCAN_GATE} of the rows: {stats}")
+    return launches_by_route
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=int, default=10)
@@ -1247,6 +1706,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bb-rows", type=int, default=10_000_000)
     ap.add_argument("--bb-segments", type=int, default=4)
+    ap.add_argument("--vec-rows", type=int, default=10_000_000)
+    ap.add_argument("--vec-segments", type=int, default=4)
+    ap.add_argument("--vec-dim", type=int, default=128)
+    ap.add_argument("--vec-queries", type=int, default=5)
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1391,6 +1854,34 @@ def main() -> int:
             QueryEngine(engine.segments, mesh=make_mesh()), bb_answered,
             oracle, args.repeats, bb_p50)
         seconds["baseball_stacked"] = time.perf_counter() - t0
+    del engine, raw_engine, mv_engine
+    torch.cuda.empty_cache()
+
+    # -- VECTOR_SIMILARITY, from disk -------------------------------------
+    with tempfile.TemporaryDirectory(dir=scratch) as base:
+        t0 = time.perf_counter()
+        vec_engine, draws, vec_build_launches = vec_data(base, args)
+        seconds["vec_data"] = time.perf_counter() - t0
+        vec_st_engine = QueryEngine(vec_engine.segments, mesh=make_mesh())
+        queries = draws.queries(args.vec_queries)
+        t0 = time.perf_counter()
+        vec_entries, vec_stacked = vector_kernel_check(
+            vec_engine, vec_st_engine, queries[0])
+        entries.update(vec_entries)
+        stacked_entries.update(vec_stacked)
+        seconds["vector_kernel_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vec_launches = run_vector(vec_engine, vec_st_engine, queries, args,
+                                  args.repeats)
+        seconds["vector"] = time.perf_counter() - t0
+        emit({"phase": "vector_summary", "rows": args.vec_rows,
+              "segment_device_bytes": sum(s.device_bytes()
+                                          for s in vec_engine.segments),
+              "stack_device_bytes": sum(
+                  st.device_bytes()
+                  for st in vec_st_engine.sharded._stacks.values()),
+              "peak_device_bytes": torch.cuda.max_memory_allocated()})
+        del vec_engine, vec_st_engine
     emit({"phase": "timing", "seconds": seconds,
           "total_seconds": time.perf_counter() - t_start})
 
@@ -1398,16 +1889,18 @@ def main() -> int:
     line = []
     for name, info in K.KERNELS.items():
         e, st = entries[name], stacked_entries[name]
+        st_launches = ssb_st_launches[name] + bb_st_launches[name] + \
+            vec_launches["stacked"][name]
         line.append({"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces,
                      "launches": ssb_launches[name] + bb_launches[name] +
-                     ssb_st_launches[name] + bb_st_launches[name],
+                     vec_build_launches[name] +
+                     vec_launches["per_segment"][name] + st_launches,
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
                      "library_ms": e["library_ms"],
-                     "stacked_launches": ssb_st_launches[name] +
-                     bb_st_launches[name],
+                     "stacked_launches": st_launches,
                      "stacked_ms": st["ms"],
                      "stacked_s_sequential_ms": st["s_sequential_ms"],
                      "stacked_bound_ms": st["bound_ms"]})

@@ -5,9 +5,10 @@ per-segment execute on the device (or on the host twin where the planner
 refuses a segment as the JAX planner does) → broker reduce, all in one
 process; or, with a mesh, one stacked execution over every segment
 (parallel/sharded.py), falling back to the per-segment path where the
-JAX engine does. Vector, join and window requests raise NotPorted here,
-before the executor: the port has no path for them yet, on the device
-or on the host.
+JAX engine does. VECTOR_SIMILARITY queries (exact or IVF-probed) take the
+same paths. Join and window requests raise NotPorted here, before the
+executor: the port has no path for them yet, on the device or on the
+host.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
 from pinot_tpu_torch.pql.parser import compile_pql
 from pinot_tpu_torch.query.executor import ServerQueryExecutor
 from pinot_tpu_torch.query.plan import GroupsLimitExceeded, NotPorted, \
-    UnsupportedOnDevice
+    UnsupportedOnDevice, preprocess_request
 from pinot_tpu_torch.query.reduce import BrokerReduceService
 from pinot_tpu_torch.segment.loader import ImmutableSegment, \
     ImmutableSegmentLoader
@@ -68,10 +69,11 @@ class QueryEngine:
     def query(self, pql: str) -> BrokerResponse:
         t0 = time.perf_counter()
         request = self.optimizer.optimize(compile_pql(pql))
-        if request.vector is not None or request.join is not None or \
-                request.windows:
-            raise NotPorted("vector / join / window queries are "
-                                      "not in the port yet")
+        if request.join is not None or request.windows:
+            raise NotPorted("join / window queries are not in the port yet")
+        # FASTHLL → its derived column, once, so that the reduce names
+        # the result after the rewritten column, as the JAX engine does
+        request = preprocess_request(self.segments, request)
         block = self._execute(request)
         resp = self.reducer.reduce(request, [block])
         resp.time_used_ms = (time.perf_counter() - t0) * 1e3

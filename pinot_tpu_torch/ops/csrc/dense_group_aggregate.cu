@@ -42,7 +42,10 @@
 // into a [P * W] row space in device memory; on Hopper an atomic is the
 // natural primitive, so this kernel does one pass over the docs, walks
 // each matched doc's MV entries in registers (no expansion is written)
-// and folds every combination straight into the table. When the table has
+// and folds every combination straight into the table (a doc with more
+// than kWalkCombos combinations is split into several work items, each
+// walking its own range of them, so no thread's walk grows without
+// bound; integer sums and min / max do not depend on the split). When the table has
 // at most `smem_slots` slots (the caller's limit) and fits in a block's
 // shared memory, each block folds into its own copy there (shared
 // atomics, so a few hot groups no longer serialise on device memory) and
@@ -77,7 +80,10 @@ constexpr int kMaxParts = 16;
 constexpr int kMaxFloats = 8;
 constexpr int kMaxExt = 16;
 
-constexpr int kMaxCombos = 1 << 16;    // W_total: entries walked per doc
+// one thread walks at most this many of a doc's MV entry combinations
+// (ops/kernels.py:MAX_GROUP_COMBOS); a doc with more is split into walks
+// of this length, each its own work item
+constexpr int kWalkCombos = 1 << 16;
 
 enum ExtMode : int { kIdMin = 0, kIdMax = 1, kRawMin = 2, kRawMax = 3 };
 // key kinds, as ops/kernels.py:_KEY_KINDS codes them
@@ -241,11 +247,17 @@ __global__ void dense_group_aggregate_kernel(
   };
 
   int local = 0;
+  // work items: one per row, or n_walks per row when a doc's walk is
+  // longer than kWalkCombos (item = row * n_walks + walk)
+  const int n_walks = (w_total + kWalkCombos - 1) / kWalkCombos;
+  const long long items = padded * n_walks;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       row < padded; row += step) {
+  for (long long item = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       item < items; item += step) {
+    const long long row = n_walks == 1 ? item : item / n_walks;
+    const int walk = n_walks == 1 ? 0 : static_cast<int>(item - row * n_walks);
     if (!mask[row]) continue;
-    ++local;
+    if (walk == 0) ++local;             // the doc counts once
     int base = 0;                       // the single-value keys' part
     for (int c = 0; c < n_keys; ++c)
       if (keys.kind[c] == kIds || keys.kind[c] == kRawOff)
@@ -254,8 +266,10 @@ __global__ void dense_group_aggregate_kernel(
       fold(row, base);
       continue;
     }
-    // the cross product of the MV keys' entries, first MV key fastest
-    for (int t = 0; t < w_total; ++t) {
+    // the cross product of the MV keys' entries, first MV key fastest;
+    // this item walks combinations [walk * kWalkCombos, +kWalkCombos)
+    const int t_end = min(w_total, (walk + 1) * kWalkCombos);
+    for (int t = walk * kWalkCombos; t < t_end; ++t) {
       int key = base, rem = t;
       bool keep = true;
       for (int c = 0; c < n_keys && keep; ++c) {
@@ -340,7 +354,7 @@ extern "C" int pinot_dense_group_aggregate(
         return -1;
       ++n_mv;
       w_total *= key_widths[c];
-      if (w_total > kMaxCombos) return -1;
+      if (127LL * w_total >= (1LL << 31)) return -1;   // one doc overflows
     }
   }
   PartLanes parts{};
@@ -376,7 +390,7 @@ extern "C" int pinot_dense_group_aggregate(
                                   static_cast<size_t>(table_bytes));
     const long long chunk = static_cast<long long>(g) * pinot::kThreads;
     const long long rows = (padded + chunk - 1) / chunk * pinot::kThreads;
-    if (127LL * rows * w_total >= (1LL << 31)) use_smem = 0;
+    if (127LL * rows * w_total >= (1LL << 31) || w_total > kWalkCombos) use_smem = 0;
   }
   const size_t smem = use_smem ? static_cast<size_t>(table_bytes) : 0;
   if (smem > 48 * 1024) {
@@ -385,7 +399,8 @@ extern "C" int pinot_dense_group_aggregate(
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  const int grid = pinot::grid_for(dense_group_aggregate_kernel, padded, smem);
+  const long long n_walks = (w_total + kWalkCombos - 1) / kWalkCombos;
+  const int grid = pinot::grid_for(dense_group_aggregate_kernel, padded * n_walks, smem);
   dense_group_aggregate_kernel<<<grid, pinot::kThreads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), keys, n_keys, n_mv, static_cast<int>(w_total),

@@ -4,8 +4,9 @@
 // (:82) for the dictId predicate kinds eq_id, neq_id, range_ids, in_ids,
 // notin_ids and member over single-value ([P]) and multi-value ([P, W])
 // id lanes, and the raw kinds eq_raw, neq_raw, in_raw, notin_raw and
-// range_raw over int32 / int64 / float32 / float64 value lanes, under
-// and/or nodes of any arity.
+// range_raw over int32 / int64 / float32 / float64 value lanes, and
+// ivf_probe (_eval_ivf_probe, :161: the row's IVF cell is in the probe
+// list K9 selected for its segment), under and/or nodes of any arity.
 //
 // Semantics kept from the JAX function:
 // - an MV leaf matches a row when ANY of its W entries matches, padding
@@ -53,6 +54,9 @@
 // constants take one int32 word (int32, float32) or two (int64, float64:
 // low word first) in the parameter area; a range_raw's `arg` holds
 // lo_inclusive | hi_inclusive << 1.
+// An ivf_probe node reads the row's assignment lane and two more entries
+// of the lane table, the probe ids and ok flags, whose indices are its two
+// parameter words.
 // The host checks that the stack never holds more than 32 bits.
 
 #include "common.cuh"
@@ -67,6 +71,7 @@ enum Op : int {
   kTrue = 0, kFalse = 1, kEq = 2, kNeq = 3, kRange = 4, kIn = 5,
   kNotIn = 6, kMember = 7, kAnd = 8, kOr = 9,
   kEqRaw = 10, kNeqRaw = 11, kRangeRaw = 12, kInRaw = 13, kNotInRaw = 14,
+  kIvfProbe = 15,
 };
 
 using pinot::kF32;
@@ -130,6 +135,21 @@ __device__ __forceinline__ unsigned eval_raw(int op, T v, const int* p, int arg)
       return op == kInRaw ? hit : (hit ^ 1u);
     }
   }
+}
+
+// ivf_probe: the row's coarse cell (its IVF assignment, a narrow id) is in
+// its segment's probe list and that slot is ok, the in_ids compare form of
+// _eval_ivf_probe (:161). p[0] and p[1] index the lane table: K9's probe
+// ids int32 [S][nprobe] and ok flags uint8 [S][nprobe]; arg = nprobe.
+__device__ __forceinline__ unsigned eval_probe(const void* const* lanes, const void* lane,
+                                               int elem, long long row, long long seg,
+                                               const int* p, int arg) {
+  const int a = read_id(lane, elem, row);
+  const int* ids = static_cast<const int*>(lanes[p[0]]) + seg * arg;
+  const uint8_t* ok = static_cast<const uint8_t*>(lanes[p[1]]) + seg * arg;
+  unsigned hit = 0u;
+  for (int i = 0; i < arg; ++i) hit |= static_cast<unsigned>(a == ids[i] && ok[i] != 0);
+  return hit;
 }
 
 __device__ __forceinline__ unsigned eval_leaf(const void* lane, int op, int elem,
@@ -224,7 +244,9 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
         } else {
           const void* lane = s_lanes[node[1]];
           if constexpr (kGeneral)
-            bit = eval_leaf(lane, op, node[4], node[5], row, params + node[2], arg);
+            bit = op == kIvfProbe
+                      ? eval_probe(s_lanes, lane, node[4], row, seg, params + node[2], arg)
+                      : eval_leaf(lane, op, node[4], node[5], row, params + node[2], arg);
           else
             bit = eval_id(op, read_id(lane, node[4], row), params + node[2], arg);
         }

@@ -24,8 +24,10 @@
 // straddle two output rows (seg_rows is a multiple of the block), so a
 // block adds its register sums with one atomic per output when its rows
 // move to the next output row. Exactness of int32: 7-bit lanes bound every
-// sum by 127 * seg_rows, and the wrapper refuses seg_rows with 127 *
-// seg_rows >= 2^31.
+// sum by 127 * seg_rows, and the wrapper splits a segment with 127 * rows
+// >= 2^31 into row ranges below that bound (ops/kernels.py:
+// part_sum_range), one output row each, as the JAX `_part_sums` returns
+// block partials for such a segment (:276-279).
 
 #include "common.cuh"
 

@@ -14,7 +14,14 @@
 // makes lax.sort do the same, so the docid word reproduces both. Outputs:
 // docids int32 [k], -1 after the valid rows; the match count; each gather
 // lane (dictIds, raw values or MV id rows, any element width) at
-// max(docid, 0), as the JAX function gathers at `safe`.
+// max(docid, 0), as the JAX function gathers at `safe`, or zeros after
+// the valid rows for a gather the caller flags (`zero_invalid`).
+//
+// The "vector" kind (replaces the vector branch of _selection_outputs,
+// :1482-1503) is the "ordertk" order over K8's f32 score lane, descending:
+// the word ~monotone(score) clamped below INT32_MAX is
+// ~max(monotone(score), -INT32_MAX), the JAX key, reversed; the scores
+// ride as a flagged gather (0 after the valid rows, as JAX writes them).
 //
 // What bounds it: bytes. One mask byte per row, the key lanes of the
 // matched rows, the k docids and gathered rows written; k <= 65,536 rows
@@ -74,6 +81,7 @@ struct Gathers {
   const unsigned char* lane[kMaxGathers];
   unsigned char* out[kMaxGathers];
   int row_bytes[kMaxGathers];
+  unsigned zero_invalid;     // bit g: gather g writes zeros after the valid rows
 };
 
 // The row's key words as the JAX function computes them, most significant
@@ -255,7 +263,8 @@ __global__ void select_finish_kernel(const uint32_t* __restrict__ lists, int n_s
       const int rb = gathers.row_bytes[g];
       const unsigned char* src = gathers.lane[g] + safe * rb;
       unsigned char* dst = gathers.out[g] + o * rb;
-      for (int b = 0; b < rb; ++b) dst[b] = src[b];
+      const bool zero = doc < 0 && ((gathers.zero_invalid >> g) & 1u);
+      for (int b = 0; b < rb; ++b) dst[b] = zero ? 0 : src[b];
     }
   }
 }
@@ -303,7 +312,8 @@ extern "C" int pinot_masked_select(
     const void* mask, long long seg_rows, int n_segs, int k, const void** term_lanes,
     const int* term_elems, const int* term_modes, const int* term_card_pads,
     const int* term_asc, int n_terms, int n_words, const void** gather_lanes,
-    const int* gather_row_bytes, void** gather_outs, int n_gathers, void* scratch,
+    const int* gather_row_bytes, void** gather_outs, int n_gathers, int zero_invalid,
+    void* scratch,
     long long scratch_words, void* docids, void* count, void* stream) {
   if (n_terms < 0 || n_terms > kMaxTerms || n_words < 0 || n_words > kMaxWords ||
       n_gathers < 0 || n_gathers > kMaxGathers || k < 1 || k > seg_rows || n_segs < 1 ||
@@ -324,6 +334,7 @@ extern "C" int pinot_masked_select(
     terms.asc[i] = term_asc[i];
   }
   Gathers gathers = {};
+  gathers.zero_invalid = static_cast<unsigned>(zero_invalid);
   for (int g = 0; g < n_gathers; ++g) {
     gathers.lane[g] = static_cast<const unsigned char*>(gather_lanes[g]);
     gathers.out[g] = static_cast<unsigned char*>(gather_outs[g]);

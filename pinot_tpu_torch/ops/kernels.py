@@ -115,6 +115,7 @@ class KernelInfo:
     source: str            # path in the repo
     replaces: str          # file:line of the JAX function
     launches: int = 0      # +1 per kernel launch, nowhere else
+    symbol: str = ""       # the C entry point, pinot_<name> by default
     _fn: object = None     # the loaded C entry point
 
 
@@ -141,6 +142,23 @@ KERNELS: Dict[str, KernelInfo] = {
     "hll_registers": KernelInfo(
         "hll_registers", "pinot_tpu_torch/ops/csrc/hll_registers.cu",
         "pinot_tpu/ops/kernels.py:620"),
+    "vector_scores": KernelInfo(
+        "vector_scores", "pinot_tpu_torch/ops/csrc/vector_scores.cu",
+        "pinot_tpu/ops/kernels.py:1430"),
+    # K6's vector kind: the masked_select kernel over K8's scores, counted
+    # apart from K6's other kinds
+    "masked_select_vector": KernelInfo(
+        "masked_select_vector", "pinot_tpu_torch/ops/csrc/masked_select.cu",
+        "pinot_tpu/ops/kernels.py:1482", symbol="pinot_masked_select"),
+    "ivf_probe_select": KernelInfo(
+        "ivf_probe_select", "pinot_tpu_torch/ops/csrc/vector_scores.cu",
+        "pinot_tpu/ops/kernels.py:140"),
+    "ivf_assign": KernelInfo(
+        "ivf_assign", "pinot_tpu_torch/ops/csrc/ivf_assign.cu",
+        "pinot_tpu/ops/ivf_kernels.py:26"),
+    "ivf_recenter": KernelInfo(
+        "ivf_recenter", "pinot_tpu_torch/ops/csrc/ivf_recenter.cu",
+        "pinot_tpu/ops/ivf_kernels.py:51"),
 }
 
 _P = ctypes.c_void_p
@@ -149,6 +167,7 @@ _LL = ctypes.c_longlong
 _PP = ctypes.POINTER(_P)
 _IP = ctypes.POINTER(_I)
 _LLP = ctypes.POINTER(_LL)
+_F = ctypes.c_float
 _ARGTYPES = {
     "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _P],
     "masked_part_sums": [_P, _PP, _I, _LL, _LL, _P, _P],
@@ -161,9 +180,14 @@ _ARGTYPES = {
     "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P,
                       _P, _P],
     "masked_select": [_P, _LL, _I, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
-                      _PP, _IP, _PP, _I, _P, _LL, _P, _P, _P],
+                      _PP, _IP, _PP, _I, _I, _P, _LL, _P, _P, _P],
     "hll_registers": [_P, _P, _P, _I, _I, _P, _P],
+    "vector_scores": [_P, _LL, _I, _P, _F, _I, _P, _P],
+    "ivf_probe_select": [_P, _P, _I, _I, _I, _P, _F, _I, _I, _P, _P, _P],
+    "ivf_assign": [_P, _LL, _I, _P, _I, _I, _LL, _P, _P, _P, _P],
+    "ivf_recenter": [_P, _P, _LL, _I, _P, _I, _P, _P, _P],
 }
+_ARGTYPES["masked_select_vector"] = _ARGTYPES["masked_select"]
 
 
 def reset_launch_counts() -> None:
@@ -179,7 +203,8 @@ def _c_entry(name: str):
     info = KERNELS[name]
     if info._fn is None:
         from pinot_tpu_torch.ops import build
-        fn = getattr(build.load(f"{name}.cu"), f"pinot_{name}")
+        lib = build.load(info.source.rsplit("/", 1)[-1])
+        fn = getattr(lib, info.symbol or f"pinot_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         info._fn = fn
@@ -244,7 +269,10 @@ def _np_of(dtype: torch.dtype) -> np.dtype:
 _OP_TRUE, _OP_FALSE, _OP_AND, _OP_OR = 0, 1, 8, 9
 _LEAF_OPS = {"eq_id": 2, "neq_id": 3, "range_ids": 4, "in_ids": 5,
              "notin_ids": 6, "member": 7, "eq_raw": 10, "neq_raw": 11,
-             "range_raw": 12, "in_raw": 13, "notin_raw": 14}
+             "range_raw": 12, "in_raw": 13, "notin_raw": 14,
+             "ivf_probe": 15}
+#: params each predicate kind takes (an ivf_probe: the query and its norm)
+_LEAF_PARAMS = {"range_ids": 2, "range_raw": 2, "ivf_probe": 2}
 _RAW_KINDS = ("eq_raw", "neq_raw", "range_raw", "in_raw", "notin_raw")
 _NODE_WORDS = 6              # {op, lane, param offset, arg, elem, width}
 _MAX_FILTER_LANES = 16
@@ -254,6 +282,8 @@ _MAX_STACK = 32
 def _leaf(spec) -> Tuple[str, str]:
     """(kind, lane key) of a predicate node K1 evaluates."""
     _, kind, col, source, _extra = spec
+    if source == "ivf" and kind == "ivf_probe":
+        return kind, f"{col}.ivfa"          # + {col}.ivfc / .ivfv for K9
     if kind not in _LEAF_OPS or source not in ("sv", "mv", "raw") or \
             (source == "raw") != (kind in _RAW_KINDS):
         raise ValueError(f"predicate kind {kind} over {source} is not a "
@@ -276,15 +306,30 @@ def _raw_words(values, dtype) -> List[int]:
     return arr.view("<i4").astype(np.int64).tolist()
 
 
+def filter_param_count(filter_spec) -> int:
+    """How many params a filter spec consumes (the rest of a plan's params
+    belong to its selection)."""
+    if filter_spec[0] in ("and", "or"):
+        return sum(filter_param_count(c) for c in filter_spec[1])
+    if filter_spec[0] == "pred":
+        return _LEAF_PARAMS.get(filter_spec[1], 1)
+    return 0
+
+
 def compile_filter(filter_spec, params: Sequence,
-                   cols: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, int]:
+                   cols: Dict[str, torch.Tensor],
+                   probe_lanes: Optional[List[torch.Tensor]] = None
+                   ) -> Tuple[np.ndarray, int]:
     """Flatten a filter spec and its params into the K1 program.
 
     Returns (buffer int32 [6 * n_nodes + n_param_words], n_nodes). Node =
     {op, lane, param offset, arg, elem, width}, lane indexing
     filter_lane_keys(spec), elem the lane's element type code, width its
     values per row; the params follow the nodes, offsets count from their
-    start. Raw constants are cast to the lane's dtype.
+    start. Raw constants are cast to the lane's dtype. An ivf_probe node
+    runs K9 on its codebook lanes here and appends the probe ids and ok
+    flags to `probe_lanes` (K1's lane table continues with them); its two
+    parameter words are their lane indices.
     """
     nodes: List[Tuple[int, ...]] = []
     words: List[int] = []
@@ -334,6 +379,19 @@ def compile_filter(filter_spec, params: Sequence,
                 bits = np.concatenate(
                     [bits, np.zeros(-len(bits) % 4, np.uint8)])
                 words.extend(bits.view("<u4").astype(np.int64).tolist())
+            elif kind == "ivf_probe":
+                if probe_lanes is None:
+                    raise ValueError("an ivf_probe filter needs probe_lanes")
+                q, q_norm = plist.pop(0), plist.pop(0)
+                nprobe, metric = spec[4]
+                col = spec[2]
+                ids, ok = ivf_select_probes(cols[f"{col}.ivfc"],
+                                            cols[f"{col}.ivfv"], q, q_norm,
+                                            metric, nprobe)
+                first = len(lanes) + len(probe_lanes)
+                probe_lanes.extend([ids, ok])
+                words.extend([first, first + 1])
+                arg = int(nprobe)
             elif kind in ("eq_raw", "neq_raw"):
                 words.extend(_raw_words(plist.pop(0), lane_t.dtype))
             elif kind == "range_raw":
@@ -356,8 +414,9 @@ def compile_filter(filter_spec, params: Sequence,
     if max_depth > _MAX_STACK:
         raise ValueError(f"filter needs a stack of {max_depth} > "
                          f"{_MAX_STACK}")
-    if len(lanes) > _MAX_FILTER_LANES:
-        raise ValueError(f"filter reads {len(lanes)} lanes > "
+    n_lanes = len(lanes) + len(probe_lanes or ())
+    if n_lanes > _MAX_FILTER_LANES:
+        raise ValueError(f"filter reads {n_lanes} lanes > "
                          f"{_MAX_FILTER_LANES}")
     buf = np.concatenate([np.asarray(nodes, np.int64).reshape(-1),
                           np.asarray(words, np.int64)])
@@ -415,8 +474,9 @@ def _launch_filter(filter_spec, cols, params, keys, device, rows: int,
                    ) -> torch.Tensor:
     """K1 over `rows` rows in segments of seg_rows: the uint8 mask, and
     each segment's matches added into `matched` when given."""
-    buf, n_nodes = compile_filter(filter_spec, params, cols)
-    lanes = [cols[k] for k in keys]
+    probes: List[torch.Tensor] = []
+    buf, n_nodes = compile_filter(filter_spec, params, cols, probes)
+    lanes = [cols[k] for k in keys] + probes
     # the one H2D copy, from pinned memory so the host does not wait
     prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
     out = torch.empty(rows, dtype=torch.uint8, device=device)
@@ -506,6 +566,8 @@ def _filter_plain(filter_spec, cols, params, valid: torch.Tensor,
             return out
         kind, key = _leaf(spec)
         lane = cols[key]
+        if kind == "ivf_probe":
+            return _probe_plain(spec, cols, plist.pop(0), plist.pop(0))
         if kind not in _RAW_KINDS:
             lane = lane.to(torch.int32)
         cdt = lane.dtype
@@ -536,6 +598,19 @@ def _filter_plain(filter_spec, cols, params, valid: torch.Tensor,
     return mask.to(torch.uint8)
 
 
+def _probe_plain(spec, cols, q, q_norm) -> torch.Tensor:
+    """An ivf_probe leaf: the row's assignment is one of its segment's ok
+    probe ids (one segment, or a stack: the probe list per segment)."""
+    _, _kind, col, _source, (nprobe, metric) = spec
+    ids, ok = ivf_select_probes(cols[f"{col}.ivfc"], cols[f"{col}.ivfv"], q,
+                                q_norm, metric, nprobe)
+    assign = cols[f"{col}.ivfa"].to(torch.int32)
+    segs = ids.shape[0] if ids.dim() == 2 else 1
+    a = assign.reshape(segs, -1, 1)
+    hit = (a == ids.reshape(segs, 1, -1)) & ok.reshape(segs, 1, -1)
+    return hit.any(-1).reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # K2 masked_part_sums
 # ---------------------------------------------------------------------------
@@ -554,16 +629,34 @@ def _part_rows(part_lanes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return rows
 
 
+def part_sum_range(rows: int) -> int:
+    """The rows of one K2 output row for a segment of `rows` rows: all of
+    them while 127 * rows < 2^31, else the largest multiple of BLOCK (of
+    256, K2's block, where `rows` is not a multiple of BLOCK) that
+    divides `rows` and stays below that bound (the JAX `_part_sums`
+    block partials, folded on the host in int64)."""
+    if 127 * rows < 2**31:
+        return rows
+    unit = BLOCK if rows % BLOCK == 0 else 256
+    if rows % unit:
+        raise ValueError(f"{rows} rows is not a multiple of 256")
+    units = rows // unit
+    per = max(b for b in range(1, (INT32_MAX // 127) // unit + 1)
+              if units % b == 0)
+    return per * unit
+
+
 def masked_part_sums(mask: torch.Tensor,
                      part_lanes: Sequence[torch.Tensor],
                      seg_rows: Optional[int] = None) -> torch.Tensor:
     """int32 [L + 1]: the masked sum of each int8 part lane (L = all rows
     of all the [n_parts, P] blocks, in order), then the match count.
 
-    With `seg_rows` (stacked segments of that many rows each): int32
-    [P / seg_rows, L + 1], one such row per segment, each exact while 127
-    * seg_rows < 2^31 (the JAX `partsT` partials; the host adds the rows
-    in int64)."""
+    With `seg_rows` (stacked segments of that many rows each), or when 127
+    * P passes 2^31: int32 [R, L + 1], one such row per range of
+    part_sum_range(segment rows) rows, segment by segment, each exact (the
+    JAX `partsT` / `_part_sums` partials; the host adds the rows in
+    int64)."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
     rows = _part_rows(part_lanes)
@@ -571,13 +664,11 @@ def masked_part_sums(mask: torch.Tensor,
         _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
     if len(rows) > _MAX_PARTS:
         raise ValueError(f"{len(rows)} part lanes > {_MAX_PARTS}")
-    per = padded if seg_rows is None else int(seg_rows)
-    if per < 1 or padded % per or per % 256:
+    seg = padded if seg_rows is None else int(seg_rows)
+    if seg < 1 or padded % seg or seg % 256:
         raise ValueError(f"{padded} rows do not split into segments of "
-                         f"{per} (a multiple of 256)")
-    if 127 * per >= 2**31:
-        raise ValueError(f"{per} rows: int32 part sums could overflow "
-                         "(127 * P >= 2^31)")
+                         f"{seg} (a multiple of 256)")
+    per = part_sum_range(seg)
     if device.type == "cpu":
         out = masked_part_sums_plain(mask, part_lanes, per)
     else:
@@ -585,7 +676,7 @@ def masked_part_sums(mask: torch.Tensor,
                           device=device)
         _launch("masked_part_sums", device, mask.data_ptr(), _ptrs(rows),
                 len(rows), padded, per, out.data_ptr())
-    return out[0] if seg_rows is None else out
+    return out[0] if seg_rows is None and per == padded else out
 
 
 def masked_part_sums_plain(mask: torch.Tensor,
@@ -628,8 +719,12 @@ def _ext_init(kind: str, which: str, card_pad: int):
 #: group key kinds shared with dense_group_aggregate.cu (KeyKind)
 _KEY_KINDS = {"ids": 0, "rawoff": 1, "mvids": 2, "mvin": 3}
 _MV_KEY_KINDS = ("mvids", "mvin")
-#: K3 walks at most this many MV entry combinations per doc
+#: one K3 thread walks at most this many MV entry combinations of a doc;
+#: a longer walk is split over several threads (dense_group_aggregate.cu)
 MAX_GROUP_COMBOS = 1 << 16
+#: combinations per doc above which even one row's int32 tables could
+#: overflow (127 * W_total >= 2^31)
+MAX_DOC_COMBOS = INT32_MAX // 127
 
 
 @dataclasses.dataclass(eq=False)
@@ -752,9 +847,9 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     if not 1 <= g_pad <= INT32_MAX:
         raise ValueError(f"g_pad {g_pad} outside the int32 table")
     w_total = group_combos(keys)
-    if w_total > MAX_GROUP_COMBOS:
+    if w_total > MAX_DOC_COMBOS:
         raise ValueError(f"{w_total} MV entry combinations per doc > "
-                         f"{MAX_GROUP_COMBOS}")
+                         f"{MAX_DOC_COMBOS}: int32 group tables overflow")
     step = k3_rows_per_launch(w_total, psums_wide)
     if padded > step:
         return _k3_slices(mask, keys, strides, g_pad, rows, float_lanes,
@@ -833,29 +928,31 @@ def group_keys_plain(mask: torch.Tensor, key_lanes: Sequence,
     matched (doc, MV entry combination) that survives, first MV key
     fastest."""
     keys = [_as_key(k) for k in key_lanes]
-    padded, device = mask.shape[0], mask.device
+    device = mask.device
     w_total = group_combos(keys)
-    keep = mask.bool()[:, None].expand(padded, w_total)
-    key = torch.zeros(padded, w_total, dtype=torch.int32, device=device)
+    # only matched docs expand: [matched, W_total], not [P, W_total]
+    docs = torch.nonzero(mask.bool()).reshape(-1)
+    n = docs.shape[0]
+    keep = torch.ones(n, w_total, dtype=torch.bool, device=device)
+    key = torch.zeros(n, w_total, dtype=torch.int32, device=device)
     radix = 1
     for k, s in zip(keys, strides):
         if k.kind in _MV_KEY_KINDS:
             w = k.width
             entry = (torch.arange(w_total, device=device) // radix) % w
             radix *= w
-            ids = k.lane.to(torch.int32)[:, entry]           # [P, W_total]
+            ids = k.lane[docs].to(torch.int32)[:, entry]     # [n, W_total]
             keep = keep & (ids < k.card)
             if k.kind == "mvin":
                 member = k.member.bool()
                 keep = keep & member[ids.clamp(0, member.shape[0] - 1)
                                      .long()]
         elif k.kind == "rawoff":
-            ids = (k.lane - k.offset).to(torch.int32)[:, None]
+            ids = (k.lane[docs] - k.offset).to(torch.int32)[:, None]
         else:
-            ids = k.lane.to(torch.int32)[:, None]
+            ids = k.lane[docs].to(torch.int32)[:, None]
         key += ids * int(np.int32(s))
-    rows = torch.arange(padded, device=device)[:, None].expand(
-        padded, w_total)[keep]
+    rows = docs[:, None].expand(n, w_total)[keep]
     return rows, key.clamp(0, g_pad - 1)[keep].long()
 
 
@@ -1181,16 +1278,83 @@ def select_scratch_words(padded: int, k: int, n_words: int,
 
 
 def masked_select(select_spec, cols: Dict[str, torch.Tensor],
-                  mask: torch.Tensor, n_segs: Optional[int] = None
+                  mask: torch.Tensor, n_segs: Optional[int] = None,
+                  vector_params: Optional[Sequence] = None
                   ) -> Dict[str, torch.Tensor]:
     """One segment's selection: {"sel.docids" int32 [k] (-1 after the
     valid rows), "sel.count" int32 scalar, "sel.<col>" [k] or [k, W] in
-    the lane's dtype}, as the JAX `_selection_outputs` returns them.
+    the lane's dtype}, as the JAX `_selection_outputs` returns them; the
+    "vector" kind adds "sel.scores" f32 [k] (0 after the valid rows) and
+    takes `vector_params` = (query f32 [dim_pad], its tree norm).
 
     With n_segs: the mask and lanes hold that many segments of equal
     length back to back (flat views of [S, P] stacks), and each output
     gains a leading segment axis: every segment's own top k, docids
     counted from its first row, as the vmapped JAX function gives them."""
+    if select_spec[0] == "vector":
+        return _vector_select(select_spec, cols, mask, n_segs,
+                              vector_params)
+    return _masked_select(select_spec, cols, mask, n_segs)
+
+
+def _vector_select(select_spec, cols, mask, n_segs, vector_params):
+    """The "vector" kind: K8 scores the rows, then K6 takes their top k
+    (vector_topk)."""
+    _kind, k, order, gather_cols = select_spec
+    if vector_params is None or len(vector_params) != 2:
+        raise ValueError("a vector selection takes its query vector and "
+                         "norm (vector_params)")
+    (col, metric, _dim_pad), = order
+    q, q_norm = vector_params
+    scores = vector_scores(cols[f"{col}.vec"], q, q_norm, metric)
+    return vector_topk(scores, mask, k, cols, gather_cols, n_segs)
+
+
+def _score_spec(k: int, gather_cols) -> tuple:
+    """K6's "ordertk" over the score lane, descending: the JAX key
+    (monotone int32 of the score, clamped to >= -INT32_MAX) reversed, ties
+    to the lower docid; the scores ride as the last gathered column."""
+    return ("ordertk", k, (("$score", False, 0, "raw"),),
+            tuple(gather_cols) + (("$score", "raw"),))
+
+
+def vector_topk(scores: torch.Tensor, mask: torch.Tensor, k: int,
+                cols: Optional[Dict[str, torch.Tensor]] = None,
+                gather_cols=(), n_segs: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """K6's "vector" kind over f32 scores [rows] (K8's): the top k
+    matched rows by score descending, then docid, per segment with
+    n_segs; "sel.scores" holds their scores, 0 after the valid rows, and
+    "sel.<col>" each gathered column."""
+    cols = dict(cols or {}, **{"$score.raw": scores})
+    out = _masked_select(_score_spec(k, gather_cols), cols, mask, n_segs,
+                         zero_invalid=("$score",),
+                         counter="masked_select_vector")
+    out["sel.scores"] = out.pop("sel.$score")
+    return out
+
+
+def vector_topk_plain(scores: torch.Tensor, mask: torch.Tensor, k: int,
+                      cols: Optional[Dict[str, torch.Tensor]] = None,
+                      gather_cols=(), n_segs: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch of K6's vector kind (selection_outputs_plain over
+    the score key, scores zeroed after the valid rows)."""
+    cols = dict(cols or {}, **{"$score.raw": scores})
+    out = selection_outputs_plain(_score_spec(k, gather_cols), cols, mask,
+                                  n_segs)
+    out["sel.scores"] = torch.where(out["sel.docids"] >= 0,
+                                    out.pop("sel.$score"), 0)
+    return out
+
+
+def _masked_select(select_spec, cols, mask, n_segs=None,
+                   zero_invalid: Sequence[str] = (),
+                   counter: str = "masked_select"
+                   ) -> Dict[str, torch.Tensor]:
+    """K6 for kinds limit / order / ordertk / ordermk; the gathered
+    columns named in `zero_invalid` hold zeros after the valid rows, and
+    the launch counts under `counter`."""
     _kind, k, _order, gather_cols = select_spec
     rows, device = mask.shape[0], mask.device
     segs = 1 if n_segs is None else n_segs
@@ -1219,7 +1383,11 @@ def masked_select(select_spec, cols: Dict[str, torch.Tensor],
                          f"/ {len(gathers)} gathers over the kernel's "
                          "limits")
     if device.type == "cpu":
-        return selection_outputs_plain(select_spec, cols, mask, n_segs)
+        out = selection_outputs_plain(select_spec, cols, mask, n_segs)
+        for col in zero_invalid:
+            out[f"sel.{col}"] = torch.where(out["sel.docids"] >= 0,
+                                            out[f"sel.{col}"], 0)
+        return out
     lead = () if n_segs is None else (n_segs,)
     scratch_words = select_scratch_words(padded, k, n_words, segs)
     scratch = torch.empty(scratch_words, dtype=torch.int32, device=device)
@@ -1227,7 +1395,9 @@ def masked_select(select_spec, cols: Dict[str, torch.Tensor],
     count = torch.zeros(lead, dtype=torch.int32, device=device)
     outs = [torch.empty(lead + (k,) + tuple(g.shape[1:]), dtype=g.dtype,
                         device=device) for g in gathers]
-    _launch("masked_select", device, mask.data_ptr(), padded, segs, int(k),
+    zero_bits = sum(1 << g for g, (col, _src) in enumerate(gather_cols)
+                    if col in zero_invalid)
+    _launch(counter, device, mask.data_ptr(), padded, segs, int(k),
             _ptrs([t[0] for t in terms]),
             _ints([_ELEM[t[0].dtype] for t in terms]),
             _ints([t[1] for t in terms]), _ints([t[2] for t in terms]),
@@ -1235,12 +1405,151 @@ def masked_select(select_spec, cols: Dict[str, torch.Tensor],
             _ptrs(gathers),
             _ints([g.element_size() * (g.shape[1] if g.dim() == 2 else 1)
                    for g in gathers]),
-            _ptrs(outs), len(gathers), scratch.data_ptr(), scratch_words,
-            docids.data_ptr(), count.data_ptr())
+            _ptrs(outs), len(gathers), ctypes.c_int32(zero_bits).value,
+            scratch.data_ptr(), scratch_words, docids.data_ptr(),
+            count.data_ptr())
     res = {"sel.docids": docids, "sel.count": count}
     for (col, _source), o in zip(gather_cols, outs):
         res[f"sel.{col}"] = o
     return res
+
+
+# ---------------------------------------------------------------------------
+# K8 vector_scores, K9 ivf_probe_select
+# ---------------------------------------------------------------------------
+
+MAX_VEC_DIM = 4096               # common/schema.py:MAX_VECTOR_DIMENSION
+MAX_CENTROIDS = 8192             # vector_scores.cu keeps K9's keys in 32 KB
+_METRICS = ("cosine", "dot")
+
+
+def vec_tree_sum_plain(x):
+    """The balanced pairwise f32 sum over the last (power-of-two) axis,
+    x[2i] + x[2i+1] level by level: pinot_tpu/ops/kernels.py:vec_tree_sum,
+    the vector subsystem's bit-exactness contract. Slicing and adds only,
+    so it takes a torch tensor or a numpy array (the planner's query
+    norm, the IVF numpy twins and the oracle pass float32 arrays)."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _query(q, dim_pad: int, device) -> torch.Tensor:
+    qt = torch.as_tensor(np.ascontiguousarray(q, dtype=np.float32)) \
+        if not isinstance(q, torch.Tensor) else q
+    if qt.dtype != torch.float32 or qt.shape != (dim_pad,):
+        raise ValueError(f"query vector must be float32 [{dim_pad}], got "
+                         f"{qt.dtype} {tuple(qt.shape)}")
+    return qt.to(device).contiguous()
+
+
+def _check_vec(mat: torch.Tensor, what: str, ndims: Tuple[int, ...]) -> int:
+    if mat.dtype != torch.float32 or mat.dim() not in ndims or \
+            not mat.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous float32 tensor of "
+                         f"{ndims} dims, got {mat.dtype} "
+                         f"{tuple(mat.shape)}")
+    dim_pad = mat.shape[-1]
+    if dim_pad < 1 or dim_pad & (dim_pad - 1) or dim_pad > MAX_VEC_DIM:
+        raise ValueError(f"{what}: width {dim_pad} is not a power of two "
+                         f"<= {MAX_VEC_DIM}")
+    if mat.device.type == "cuda" and mat.data_ptr() % 16:
+        raise ValueError(f"{what} is not 16-byte aligned")
+    return dim_pad
+
+
+def vector_scores(mat: torch.Tensor, q, q_norm, metric: str
+                  ) -> torch.Tensor:
+    """K8: f32 [rows] similarity of each row of `mat` (f32 [rows,
+    dim_pad], zero-padded) to the zero-padded query `q` (f32 [dim_pad]),
+    as pinot_tpu/ops/kernels.py:_vector_scores computes it, bit for bit:
+    "dot" = tree(mat * q); "cosine" = dot / (sqrt(tree(mat * mat)) *
+    q_norm), -inf where that denominator is not > 0."""
+    dim_pad = _check_vec(mat, "vector lane", (2,))
+    if metric not in _METRICS:
+        raise ValueError(f"metric {metric}")
+    device = mat.device
+    qt = _query(q, dim_pad, device)
+    if device.type == "cpu":
+        return vector_scores_plain(mat, qt, q_norm, metric)
+    out = torch.empty(mat.shape[0], dtype=torch.float32, device=device)
+    _launch("vector_scores", device, mat.data_ptr(), mat.shape[0], dim_pad,
+            qt.data_ptr(), float(np.float32(q_norm)),
+            int(metric == "cosine"), out.data_ptr())
+    return out
+
+
+def vector_scores_plain(mat: torch.Tensor, q, q_norm, metric: str
+                        ) -> torch.Tensor:
+    """Plain PyTorch K8: the products, the tree, the cosine quotient."""
+    qt = _query(q, mat.shape[-1], mat.device)
+    dot = vec_tree_sum_plain(mat * qt)
+    if metric != "cosine":
+        return dot
+    qn = torch.tensor(np.float32(q_norm), device=mat.device)
+    # the correctly rounded f32 root (XLA's and numpy's): torch's f32
+    # sqrt on the CPU is not, its float64 one rounded once to f32 is
+    norm = torch.sqrt(vec_tree_sum_plain(mat * mat).double()).float()
+    denom = norm * qn
+    return torch.where(denom > 0, dot / denom,
+                       torch.tensor(float("-inf"), device=mat.device))
+
+
+def score_keys_plain(scores: torch.Tensor) -> torch.Tensor:
+    """The monotone int32 key of f32 scores clamped to >= -INT32_MAX (the
+    JAX `_monotone_int32_keys` with INT32_MIN kept for masked rows)."""
+    return monotone_keys_plain(scores, True)[0].clamp_min(-INT32_MAX)
+
+
+def ivf_select_probes(centroids: torch.Tensor, cvalid: torch.Tensor, q,
+                      q_norm, metric: str, nprobe: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9: (probe ids int32 [..., nprobe], ok bool [..., nprobe]) of one
+    codebook (centroids f32 [C_pad, dim_pad], cvalid bool [C_pad]) or of a
+    stack of them ([S, C_pad, dim_pad], [S, C_pad]): the nprobe live
+    centroids of highest score, ties to the lower id, ok[i] = i < the
+    live count (pinot_tpu/ops/kernels.py:ivf_select_probes)."""
+    dim_pad = _check_vec(centroids, "codebook lane", (2, 3))
+    c_pad, device = centroids.shape[-2], centroids.device
+    if cvalid.device != device or cvalid.dtype != torch.bool or \
+            cvalid.shape != centroids.shape[:-1] or \
+            not cvalid.is_contiguous():
+        raise ValueError(f"cvalid must be a contiguous bool "
+                         f"{tuple(centroids.shape[:-1])} on {device}")
+    if metric not in _METRICS or not 1 <= nprobe <= c_pad or \
+            c_pad > MAX_CENTROIDS:
+        raise ValueError(f"metric {metric}, nprobe {nprobe}, C_pad {c_pad} "
+                         f"(nprobe <= C_pad <= {MAX_CENTROIDS})")
+    qt = _query(q, dim_pad, device)
+    if device.type == "cpu":
+        return ivf_select_probes_plain(centroids, cvalid, qt, q_norm,
+                                       metric, nprobe)
+    lead = tuple(centroids.shape[:-2])
+    ids = torch.empty(lead + (nprobe,), dtype=torch.int32, device=device)
+    ok = torch.empty(lead + (nprobe,), dtype=torch.bool, device=device)
+    _launch("ivf_probe_select", device, centroids.data_ptr(),
+            cvalid.data_ptr(), int(np.prod(lead, dtype=np.int64)), c_pad,
+            dim_pad, qt.data_ptr(), float(np.float32(q_norm)),
+            int(metric == "cosine"), int(nprobe), ids.data_ptr(),
+            ok.data_ptr())
+    return ids, ok
+
+
+def ivf_select_probes_plain(centroids: torch.Tensor, cvalid: torch.Tensor,
+                            q, q_norm, metric: str, nprobe: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K9: K8's scores of the centroids, their keys, a
+    stable sort by key descending (ties keep the lower id)."""
+    dim_pad = centroids.shape[-1]
+    score = vector_scores_plain(centroids.reshape(-1, dim_pad), q, q_norm,
+                                metric).reshape(centroids.shape[:-1])
+    key = torch.where(cvalid, score_keys_plain(score), -INT32_MAX - 1)
+    order = torch.sort(-key.to(torch.int64), dim=-1, stable=True).indices
+    ids = order[..., :nprobe].to(torch.int32)
+    live = cvalid.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    ok = torch.arange(nprobe, dtype=torch.int32,
+                      device=centroids.device) < live
+    return ids.contiguous(), ok.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -1316,7 +1625,8 @@ def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
     is read at all."""
     if cols:
         device = next(iter(cols.values())).device
-    mask = filter_mask(padded, filter_spec, cols, params, num_docs, device)
+    fparams, sparams = _split_params(filter_spec, select_spec, params)
+    mask = filter_mask(padded, filter_spec, cols, fparams, num_docs, device)
     rest = list(group_params)
     outs: Dict[str, torch.Tensor] = {}
     if group_spec is not None:
@@ -1326,10 +1636,24 @@ def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
     if rest:
         raise ValueError(f"{len(rest)} group params left unconsumed")
     if select_spec is not None:
-        sel = masked_select(select_spec, cols, mask)
+        sel = masked_select(select_spec, cols, mask, vector_params=sparams)
         outs.setdefault("stats.num_docs_matched", sel["sel.count"])
         outs.update(sel)
     return outs
+
+
+def _split_params(filter_spec, select_spec, params):
+    """(the filter's params, the vector selection's (query, norm) or
+    None): a plan's params list the filter's first, depth-first, then a
+    vector selection's two."""
+    plist = list(params)
+    n = filter_param_count(filter_spec)
+    fparams, sparams = plist[:n], plist[n:]
+    if select_spec is not None and select_spec[0] == "vector":
+        return fparams, sparams
+    if sparams:
+        raise ValueError(f"{len(sparams)} params left unconsumed")
+    return fparams, None
 
 
 def flat_lanes(cols: Dict[str, torch.Tensor], n_segs: int, padded: int
@@ -1340,8 +1664,8 @@ def flat_lanes(cols: Dict[str, torch.Tensor], n_segs: int, padded: int
     as they are."""
     out = {}
     for key, t in cols.items():
-        if key.endswith((".hllidx", ".hllrank")):
-            out[key] = t
+        if key.endswith((".hllidx", ".hllrank", ".ivfc", ".ivfv")):
+            out[key] = t                 # tables: per stack or per segment
         elif key.endswith(".parts"):
             if t.shape[1:] != (n_segs, padded):
                 raise ValueError(f"{key} has shape {tuple(t.shape)}, "
@@ -1376,8 +1700,9 @@ def run_stacked_kernel(padded: int, n_segs: int, filter_spec, agg_specs,
     g_pad] (the JAX per-segment tables summed over the segment axis)."""
     flat = flat_lanes(cols, n_segs, padded)
     device = seg_docs.device
+    fparams, sparams = _split_params(filter_spec, select_spec, params)
     mask, seg_matched = filter_mask_stacked(padded, n_segs, filter_spec,
-                                            flat, params, seg_docs, device)
+                                            flat, fparams, seg_docs, device)
     rest = list(group_params)
     outs: Dict[str, torch.Tensor] = {}
     if group_spec is not None:
@@ -1387,7 +1712,8 @@ def run_stacked_kernel(padded: int, n_segs: int, filter_spec, agg_specs,
     if rest:
         raise ValueError(f"{len(rest)} group params left unconsumed")
     if select_spec is not None:
-        sel = masked_select(select_spec, flat, mask, n_segs)
+        sel = masked_select(select_spec, flat, mask, n_segs,
+                            vector_params=sparams)
         outs.setdefault("stats.num_docs_matched",
                         seg_matched.sum(dtype=torch.int32))
         outs.update(sel)
@@ -1504,11 +1830,12 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
     parts = [cols[f"{s[1]}.parts"] for s in agg_specs if _is_parts_agg(s)]
     if parts or not reduced:
         sums = masked_part_sums(mask, parts, seg_rows)
-        if seg_rows is None:
-            count = sums[-1]
-        else:                            # [S, L + 1]: combine the counts
+        ranged = sums.dim() == 2
+        if ranged:                       # [R, L + 1]: combine the counts
             count = sums[:, -1].sum(dtype=torch.int32)
             sums = sums.T
+        else:
+            count = sums[-1]
     else:
         count = next(iter(reduced.values()))["count"]
     outs = {"stats.num_docs_matched": count}
@@ -1528,8 +1855,8 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
             outs[f"agg{i}"] = count
         elif _is_parts_agg(spec):
             n_p = cols[f"{col}.parts"].shape[0]
-            # [n_p], or [S, n_p] rows per segment over a stack
-            outs[f"agg{i}.parts"] = sums[off:off + n_p].T if seg_rows \
+            # [n_p], or [R, n_p] rows per segment or row range
+            outs[f"agg{i}.parts"] = sums[off:off + n_p].T if ranged \
                 else sums[off:off + n_p]
             outs[f"agg{i}.count"] = count
             off += n_p

@@ -27,10 +27,18 @@ sizes or lane shapes, raw group-key ranges that differ) and for
 fast-path plans (metadata, match-all and inverted-index COUNTs, empty
 filters), which the sequential executor serves per segment.
 
+Vector selections stack too: the embedding blocks as [S, P, dim_pad], an
+IVF index as its assignment lane [S, P], codebooks [S, C_pad, dim_pad]
+and validity [S, C_pad] (K9 selects each segment's probe list in one
+launch, K1 tests each row against its own segment's), and the host
+merges the per-segment top k by score (`_finish_vector`). A stack whose
+segments disagree on having an IVF index raises NotShardable (the
+sequential path decides index or exact scan per segment).
+
 The mesh is one device in this port (`make_mesh`); stacking over several
 cards (torch.distributed) is later work, as are the upsert validDocIds
-lane, vector selections and the IVF presence check, and the residency
-ledger: each raises NotPorted where the JAX code would need it.
+lane and the residency ledger: each raises NotPorted where the JAX code
+would need it.
 """
 from __future__ import annotations
 
@@ -50,8 +58,9 @@ from pinot_tpu_torch.query import combine as combine_mod
 from pinot_tpu_torch.query import execution
 from pinot_tpu_torch.query.blocks import ExecutionStats, \
     IntermediateResultsBlock
+from pinot_tpu_torch.common.request import VECTOR_RESULT_COLUMNS
 from pinot_tpu_torch.query.plan import InstancePlanMaker, NotPorted, \
-    SegmentPlan
+    SegmentPlan, preprocess_request
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.loader import (ImmutableSegment,
                                             hll_tables_padded,
@@ -436,6 +445,8 @@ class ShardedQueryExecutor:
                 segments: Sequence[ImmutableSegment]
                 ) -> IntermediateResultsBlock:
         t0 = time.perf_counter()
+        # FASTHLL derived rewrite, on a copy (the caller's request stays)
+        request = preprocess_request(segments, request)
         stack = self.stack_for(segments)
         # fast paths (metadata, match-all and inverted-index COUNTs, empty
         # filters) are per-segment host work in each segment's own id
@@ -475,9 +486,16 @@ class ShardedQueryExecutor:
             if needs_union else plan0
         if plan.fast_path_result is not None:
             raise NotShardable("fast-path plan; no device work to stack")
-        if request.vector is not None:
-            raise NotPorted("stacked vector selections and the IVF "
-                            "presence check come with the vector slice")
+        # the one plan either probes every segment or none: a stack whose
+        # segments disagree on having an IVF index would diverge from the
+        # sequential path's per-segment choice, so it falls back
+        vec = request.vector
+        if vec is not None and int(getattr(vec, "nprobe", 0) or 0) > 0:
+            presence = {s.data_source(vec.column).ivf_centroids is not None
+                        for s in stack.segments}
+            if len(presence) > 1:
+                raise NotShardable(
+                    "stacked segments disagree on IVF index presence")
         if any(getattr(s, "valid_doc_ids", None) is not None
                for s in stack.segments):
             raise NotPorted("the stacked upsert validDocIds lane comes "
@@ -520,8 +538,8 @@ class ShardedQueryExecutor:
         stack order (segments sorted by name): each segment's rows come
         ordered and limited, the merge re-sorts and trims."""
         if plan.select_spec[0] == "vector":
-            raise NotPorted("stacked vector selections come with the "
-                            "vector slice")
+            self._finish_vector(request, plan, stack, outs, blk)
+            return
         rows_all: List[tuple] = []
         columns = None
         decode_seg = stack.plan_segment()   # union-domain decode tables
@@ -543,3 +561,27 @@ class ShardedQueryExecutor:
         blk.selection_rows = rows_all[: sel.offset + sel.size]
         blk.selection_columns = columns
         blk.selection_display_cols = plan.select_display
+
+    def _finish_vector(self, request, plan, stack, outs, blk) -> None:
+        """Each segment's own top k (K6's segment axis), merged on the
+        host by score descending, then (segment name, docid): a row's
+        identity comes from its real segment, its gathered columns decode
+        through the union view (the stacked lanes' id domain)."""
+        decode_seg = stack.plan_segment()
+        columns = [c for c, _ in plan.select_spec[3]] + \
+            list(VECTOR_RESULT_COLUMNS)
+        rows_all: List[tuple] = []
+        for i, seg in enumerate(stack.segments):
+            sub = {k: v[i] for k, v in outs.items() if k.startswith("sel.")}
+            name, base = execution.vector_segment_identity(seg)
+            rows = execution.vector_result_rows(decode_seg, plan.select_spec,
+                                                sub, name, base)
+            if rows_all and rows:
+                rows_all = combine_mod.merge_selection_rows(
+                    request, columns, rows_all, rows)
+            elif rows:
+                rows_all = rows
+        sel = request.selection
+        blk.selection_rows = rows_all[: sel.offset + sel.size]
+        blk.selection_columns = columns
+        blk.selection_display_cols = None

@@ -1,7 +1,8 @@
 """Segment plan execution: run the device kernels, finish results host-side.
 
 Counterpart of pinot_tpu/query/execution.py. One dispatch per segment
-(K1, then K3, or K2 with K4 / K5 / K7, and K6 for a selection:
+(K1, then K3, or K2 with K4 / K5 / K7, and K6 for a selection; K9 ahead
+of K1 for an IVF probe and K8 ahead of K6 for a vector selection:
 ops/kernels.py:run_segment_kernel) and one device→host pull: for a
 group-by only the non-empty groups cross, picked out on the device first,
 so a 2^21-slot table never crosses PCIe whole; a selection's [k] docids
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.common import expression as expr_mod
+from pinot_tpu_torch.common.request import VECTOR_RESULT_COLUMNS
 from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M, HyperLogLog, \
     union_serialized_hlls
 from pinot_tpu_torch.ops import kernels
@@ -52,6 +54,14 @@ def gather_operands_for(segment, needed_cols) -> Dict[str, torch.Tensor]:
             cols[f"{col}.hllidx"] = ds.device_hll_idx()
         elif kind == "hllrank":
             cols[f"{col}.hllrank"] = ds.device_hll_rank()
+        elif kind == "vec":
+            cols[f"{col}.vec"] = ds.device_vec_values()
+        elif kind == "ivfa":
+            cols[f"{col}.ivfa"] = ds.device_ivf_assign()
+        elif kind == "ivfc":
+            cols[f"{col}.ivfc"] = ds.device_ivf_centroids()
+        elif kind == "ivfv":
+            cols[f"{col}.ivfv"] = ds.device_ivf_valid()
         else:
             raise ValueError(f"lane kind {kind}")
     return cols
@@ -110,7 +120,10 @@ def _execute_segment_plan(plan) -> IntermediateResultsBlock:
             _finish_aggregation(plan, outs, blk)
     matched = int(outs["stats.num_docs_matched"])
     if plan.select_spec is not None:
-        _finish_selection(plan, outs, blk)
+        if plan.select_spec[0] == "vector":
+            _finish_vector(plan, outs, blk)
+        else:
+            _finish_selection(plan, outs, blk)
 
     n_leaves = _count_filter_leaves(plan.filter_spec)
     n_project = len({c for c, _ in plan.needed_cols})
@@ -163,6 +176,42 @@ def _decode_gather_columns(segment, gather_cols, outs) -> List:
                     for row in lane]
         col_values.append(vals)
     return col_values
+
+
+def vector_segment_identity(segment) -> Tuple[str, int]:
+    """(logical segment name, docid base) of vector result rows
+    (pinot_tpu/query/execution.py:vector_segment_identity): a consuming
+    segment's `__frozen` / `__tail` views name one logical segment, the
+    tail's docids offset by its start."""
+    name = getattr(segment, "segment_name", "?")
+    for suffix in ("__frozen", "__tail"):
+        if name.endswith(suffix):
+            name = name[: -len(suffix)]
+    return name, int(getattr(segment, "start", 0) or 0)
+
+
+def vector_result_rows(decode_segment, select_spec, outs, seg_name: str,
+                       doc_base: int) -> List[tuple]:
+    """Rows (user columns..., $docId, $segmentName, $score) of one
+    segment's vector selection, in the kernel's order (score descending,
+    then docid). `decode_segment` gives the decode tables (the union view
+    on the stacked path); the name and base give the rows' identity."""
+    _kind, _k, _order, gather_cols = select_spec
+    docids = np.asarray(outs["sel.docids"])
+    scores = np.asarray(outs["sel.scores"])
+    col_values = _decode_gather_columns(decode_segment, gather_cols, outs)
+    return [tuple(_plain(cv[r]) for cv in col_values) +
+            (int(docids[r]) + doc_base, seg_name, float(scores[r]))
+            for r in range(len(docids)) if docids[r] >= 0]
+
+
+def _finish_vector(plan, outs, blk) -> None:
+    name, base = vector_segment_identity(plan.segment)
+    blk.selection_rows = vector_result_rows(plan.segment, plan.select_spec,
+                                            outs, name, base)
+    blk.selection_columns = [c for c, _ in plan.select_spec[3]] + \
+        list(VECTOR_RESULT_COLUMNS)
+    blk.selection_display_cols = None
 
 
 def _finish_selection(plan, outs, blk) -> None:

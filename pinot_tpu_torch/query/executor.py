@@ -22,12 +22,13 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
-from pinot_tpu_torch.common.request import BrokerRequest
+from pinot_tpu_torch.common.request import BrokerRequest, \
+    VECTOR_RESULT_COLUMNS
 from pinot_tpu_torch.query import host_exec
 from pinot_tpu_torch.query.blocks import IntermediateResultsBlock
 from pinot_tpu_torch.query.combine import combine_blocks
 from pinot_tpu_torch.query.plan import GroupsLimitExceeded, \
-    InstancePlanMaker, UnsupportedOnDevice
+    InstancePlanMaker, UnsupportedOnDevice, preprocess_request
 from pinot_tpu_torch.query.pruner import SegmentPrunerService
 from pinot_tpu_torch.segment.loader import ImmutableSegment
 
@@ -46,6 +47,8 @@ class ServerQueryExecutor:
     def execute(self, request: BrokerRequest,
                 segments: List[ImmutableSegment]) -> IntermediateResultsBlock:
         t0 = time.perf_counter()
+        # FASTHLL derived rewrite, on a copy (the caller's request stays)
+        request = preprocess_request(segments, request)
         selected = self.pruner.prune(segments, request)
         self.path_counts["pruned"] += len(segments) - len(selected)
         blocks = [self._execute_segment(seg, request) for seg in selected]
@@ -60,6 +63,8 @@ class ServerQueryExecutor:
             if request.is_selection:
                 blk.selection_rows = []
                 blk.selection_columns = list(request.selection.columns)
+                if request.vector is not None:
+                    blk.selection_columns += list(VECTOR_RESULT_COLUMNS)
         blk.stats.num_segments_pruned = len(segments) - len(selected)
         blk.stats.time_used_ms = (time.perf_counter() - t0) * 1e3
         return blk

@@ -8,10 +8,11 @@ small code spaces with np.bincount, where the JAX module sorts the
 decoded values (the same answers; seconds less per query over millions
 of rows). The executor reaches it only when the planner
 refuses a segment plan as the JAX planner does (UnsupportedOnDevice,
-GroupsLimitExceeded), never for a port gap (NotPorted). Left
-out of the copy until their slices come: the join probe and the vector
-top-k (QueryEngine refuses join, window and vector requests before the
-executor, so execute_host raises on them).
+GroupsLimitExceeded), never for a port gap (NotPorted). The vector
+top-k (`_vector_topk`, exact or IVF-probed through index/ivf.py's numpy
+twins) is the JAX module's. Left out of the copy until its slice comes:
+the join probe (QueryEngine refuses join and window requests before the
+executor, so execute_host raises on a join).
 
 Covers query shapes the device kernels don't (group cardinality over the
 groups limit, order-by keys too wide to pack, percentile over raw columns)
@@ -66,9 +67,8 @@ def _upsert_valid_mask(segment) -> Optional[np.ndarray]:
 
 def execute_host(segment: ImmutableSegment, request: BrokerRequest
                  ) -> IntermediateResultsBlock:
-    if request.vector is not None or request.join is not None:
-        raise ValueError("the port's host executor has no vector or join "
-                         "path yet")
+    if request.join is not None:
+        raise ValueError("the port's host executor has no join path yet")
     mask = _eval_filter(request.filter, segment)
     vm = _upsert_valid_mask(segment)
     if vm is not None:
@@ -84,7 +84,12 @@ def execute_host(segment: ImmutableSegment, request: BrokerRequest
         blk.agg_intermediates = [
             _aggregate(segment, f, mask) for f in make_functions(
                 request.aggregations)]
-    if request.is_selection:
+    if request.vector is not None:
+        # ANN probing narrows the candidate set inside _vector_topk; the
+        # returned count keeps the scanned-docs stats equal to the device
+        # path's fused-filter accounting
+        matched = _vector_topk(segment, request, mask, blk)
+    elif request.is_selection:
         _selection(segment, request, mask, blk)
 
     blk.stats = ExecutionStats(
@@ -594,6 +599,142 @@ def _group_by(segment: ImmutableSegment, request: BrokerRequest,
     blk.group_map = {
         group_keys[i]: [per_fn[fi][i] for fi in range(len(functions))]
         for i in range(g)}
+
+
+# ---------------------------------------------------------------------------
+# Vector similarity (exact filtered top-k: the oracle twin of the device
+# path's "vector" selection kind)
+# ---------------------------------------------------------------------------
+
+
+def _np_tree_sum(x: np.ndarray) -> np.ndarray:
+    """Balanced pairwise f32 sum over the last (pow2) axis — the host
+    half of the score exactness contract (kernels.vec_tree_sum): both
+    sides run the SAME sequence of IEEE f32 adds, so scores agree
+    bit-for-bit with the device kernel."""
+    x = np.asarray(x, np.float32)
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _np_vector_scores(mat: np.ndarray, query, metric: str) -> np.ndarray:
+    """float32 [n] similarity scores over pow2-dim-padded operands."""
+    dim = mat.shape[1]
+    dim_pad = 1
+    while dim_pad < max(dim, 1):
+        dim_pad *= 2
+    m = np.zeros((len(mat), dim_pad), np.float32)
+    m[:, :dim] = mat
+    q = np.zeros(dim_pad, np.float32)
+    q[:dim] = np.asarray(query, np.float32)
+    dot = _np_tree_sum(m * q[None, :])
+    if metric == "cosine":
+        q_norm = np.float32(np.sqrt(_np_tree_sum(q * q)))
+        if not q_norm > 0:
+            raise ValueError("COSINE similarity needs a non-zero, finite "
+                             "query vector")
+        denom = np.sqrt(_np_tree_sum(m * m)).astype(np.float32) * q_norm
+        with np.errstate(divide="ignore", invalid="ignore"):
+            scores = (dot / denom).astype(np.float32)
+        scores[~(denom > 0)] = -np.inf
+        return scores
+    return dot.astype(np.float32)
+
+
+def _vector_topk(segment: ImmutableSegment, request: BrokerRequest,
+                 mask: np.ndarray, blk: IntermediateResultsBlock) -> int:
+    from pinot_tpu_torch.common.datatype import DataType
+    from pinot_tpu_torch.common.request import VECTOR_RESULT_COLUMNS
+    v = request.vector
+    ds = segment.data_source(v.column)
+    cm = ds.metadata
+    if cm.data_type != DataType.VECTOR:
+        raise ValueError(
+            f"VECTOR_SIMILARITY over non-VECTOR column '{v.column}'")
+    if len(v.query) != cm.vector_dimension:
+        raise ValueError(
+            f"query vector has {len(v.query)} dimensions; column "
+            f"'{v.column}' stores {cm.vector_dimension}")
+    # wire-arrived requests bypass the parser/planner guards, so the
+    # host twin re-validates k and metric itself
+    if v.k <= 0:
+        raise ValueError(f"VECTOR_SIMILARITY k must be positive, "
+                         f"got {v.k}")
+    metric = v.metric.lower()
+    if metric == "mips":
+        metric = "dot"
+    if metric not in ("cosine", "dot"):
+        raise ValueError(f"unknown similarity metric '{v.metric}' "
+                         "(COSINE | DOT | MIPS)")
+    # ANN probe: nprobe>0 with a built IVF index narrows the candidate
+    # mask to rows whose coarse cell is in the query's top-nprobe list.
+    # The numpy twins in index/ivf.py select the SAME probe ids (same
+    # tree sums, monotone-int32 keys, tie-breaking) as the device pred,
+    # so host and device agree on the probed candidate set bit-exactly.
+    # Segments without an index (and consuming tails) stay exact.
+    nprobe = int(getattr(v, "nprobe", 0) or 0)
+    if nprobe > 0 and getattr(ds, "ivf_centroids", None) is not None \
+            and getattr(ds, "ivf_assignments", None) is not None:
+        from pinot_tpu_torch.index import ivf as ivf_mod
+        dim = cm.vector_dimension
+        q = np.zeros(ivf_mod.pad_dim(dim), np.float32)
+        q[:dim] = np.asarray(v.query, np.float32)
+        q_norm = np.float32(np.sqrt(_np_tree_sum(q * q)))
+        nprobe_eff = min(nprobe, ivf_mod.pad_centroids(
+            int(ds.ivf_centroids.shape[0])))
+        probed = ivf_mod.probe_mask_np(
+            np.asarray(ds.ivf_assignments, np.int32),
+            ds.host_operand("ivfc"), ds.host_operand("ivfv"),
+            q, q_norm, metric, nprobe_eff)
+        aligned = np.zeros(len(mask), bool)
+        aligned[: len(probed)] = probed[: len(mask)]
+        mask = mask & aligned
+    # score ONLY the filter's candidates: per-row scores are independent
+    # of which other rows are scored (the tree contract is per-row), so
+    # this is bit-identical to scoring everything at a fraction of the
+    # work on selective queries
+    docids = np.nonzero(mask)[0]
+    num_candidates = len(docids)
+    s = _np_vector_scores(ds.vec_values[docids], v.query, metric)
+    # rank: score desc, docid asc — lexsort's LAST key is primary, and
+    # stability gives equal scores ascending docids (the device kernel's
+    # top_k tie-break)
+    order = np.lexsort((docids, -s))[: v.k]
+    docids = docids[order]
+    s = s[order]
+
+    # consuming tail views report GLOBAL docids under the base segment
+    # name, so frozen+tail merges are indistinguishable from a
+    # whole-segment pass (same contract as the device finish)
+    from pinot_tpu_torch.query.execution import vector_segment_identity
+    name, base = vector_segment_identity(segment)
+
+    user_cols = list(request.selection.columns) if request.selection else []
+    decoded = {}
+    for c in user_cols:
+        cds = segment.data_source(c)
+        ccm = cds.metadata
+        if ccm.data_type == DataType.VECTOR:
+            decoded[c] = [[float(x) for x in row]
+                          for row in cds.vec_values[docids]]
+        elif not ccm.has_dictionary:
+            decoded[c] = cds.raw_values[docids]
+        elif ccm.single_value:
+            decoded[c] = cds.dictionary.values[cds.dict_ids[docids]]
+        else:
+            card = ccm.cardinality
+            decoded[c] = [
+                [_plain(cds.dictionary.get(i)) for i in row if i < card]
+                for row in cds.mv_dict_ids[docids]]
+    rows = []
+    for r in range(len(docids)):
+        rows.append(tuple(_plain(decoded[c][r]) for c in user_cols) +
+                    (int(docids[r]) + base, name, float(s[r])))
+    blk.selection_rows = rows
+    blk.selection_columns = user_cols + list(VECTOR_RESULT_COLUMNS)
+    blk.selection_display_cols = None
+    return num_candidates
 
 
 # ---------------------------------------------------------------------------

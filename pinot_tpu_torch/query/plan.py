@@ -19,9 +19,10 @@ aggregations (the source column's histogram) and the MV aggregations
 single-value, multi-value ("mvids"), valuein ("mvin"), raw integer
 ("rawoff") and single-column expression keys with COUNT, SUM, AVG, MIN,
 MAX and MINMAXRANGE; selections with the JAX planner's select specs
-("limit", "order", "ordertk", "ordermk"); the metadata, match-all and
-inverted-index / sorted-range COUNT fast paths. Star-tree cubes are not
-used yet.
+("limit", "order", "ordertk", "ordermk"); VECTOR_SIMILARITY top k
+("vector", exact or with an IVF "ivf_probe" filter predicate); the
+metadata, match-all and inverted-index / sorted-range COUNT fast paths.
+Star-tree cubes are not used yet.
 
 Refusals. UnsupportedOnDevice is raised exactly where the JAX planner
 raises it (DISTINCTCOUNT / PERCENTILE in a group-by, an MV metric in a
@@ -30,7 +31,7 @@ order keys over MV columns, k > MAX_SELECTION_K, ...) and
 GroupsLimitExceeded where it does; the executor answers those segments
 on the host twin (query/host_exec.py), as the JAX executor does.
 NotPorted is raised for the requests the port has no path for yet
-(vector, join and window); nothing catches it.
+(join and window); nothing catches it.
 
 Design change from the JAX planner, on purpose: it picks TPU-shaped
 strategies (matrix-unit block compaction, adaptive min/max and histogram
@@ -42,6 +43,8 @@ any g_pad up to the groups limit. The spec tuples keep the JAX grammar.
 """
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
 import re as _re
 from typing import Dict, List, Optional, Tuple
@@ -50,8 +53,8 @@ import numpy as np
 
 from pinot_tpu_torch.common import expression as expr_mod
 from pinot_tpu_torch.common.datatype import DataType
-from pinot_tpu_torch.common.request import BrokerRequest, FilterOperator, \
-    FilterQueryTree
+from pinot_tpu_torch.common.request import AggregationInfo, BrokerRequest, \
+    FilterOperator, FilterQueryTree, VECTOR_RESULT_COLUMNS
 from pinot_tpu_torch.ops import kernels
 from pinot_tpu_torch.query.aggregation import AggregationFunction, \
     make_functions
@@ -74,7 +77,7 @@ class UnsupportedOnDevice(Exception):
 
 
 class NotPorted(Exception):
-    """A request the port has no path for yet (vector, join, window). The
+    """A request the port has no path for yet (join, window). The
     executor does not catch it."""
 
 
@@ -161,6 +164,12 @@ def _resolve_leaf(node: FilterQueryTree, segment: ImmutableSegment,
         return _resolve_expr_leaf(node, segment, params)
     ds = segment.data_source(node.column)
     cm = ds.metadata
+    if cm.data_type == DataType.VECTOR:
+        # embeddings have no value order or equality a WHERE predicate
+        # could use; similarity is the VECTOR_SIMILARITY clause
+        raise ValueError(
+            f"column '{node.column}' is a VECTOR column — WHERE "
+            "predicates over embeddings are not supported")
     if not cm.has_dictionary:
         return _resolve_raw_leaf(node, ds, params)
     source = "sv" if cm.single_value else "mv"
@@ -354,17 +363,61 @@ class SegmentPlan:
         return execution.execute_segment_plan(self)
 
 
+def preprocess_request(segments, request):
+    """Rewrite FASTHLL(col) to the derived serialized-HLL column that the
+    segments' metadata records (pinot_tpu/query/plan.py:
+    preprocess_request; parity: BrokerRequestPreProcessor.preProcess).
+    Raises when the segments disagree on that column.
+
+    Returns the original request when nothing is rewritten, else a
+    shallow copy with fresh AggregationInfo entries: the caller's request
+    is never changed."""
+    if not request.aggregations:
+        return request
+    rewrites: Dict[int, str] = {}
+    for idx, agg in enumerate(request.aggregations):
+        if agg.function_name.upper() != "FASTHLL":
+            continue
+        derived = None
+        first_name = None
+        for i, seg in enumerate(segments):
+            md = getattr(seg, "metadata", None)
+            d = md.get_derived_column(agg.column, "HLL") \
+                if hasattr(md, "get_derived_column") else None
+            if i == 0:
+                derived, first_name = d, getattr(seg, "segment_name", "?")
+            elif d != derived:
+                raise RuntimeError(
+                    "Found inconsistency HLL derived column name. In "
+                    f"segment {first_name}: {derived}; in segment "
+                    f"{getattr(seg, 'segment_name', '?')}: {d}")
+        if derived is not None:
+            rewrites[idx] = derived
+    if not rewrites:
+        return request
+    out = copy.copy(request)
+    out.aggregations = [
+        AggregationInfo(a.function_name, rewrites[i]) if i in rewrites
+        else a
+        for i, a in enumerate(request.aggregations)]
+    return out
+
+
 class InstancePlanMaker:
     """Builds a SegmentPlan per segment for a BrokerRequest."""
 
     def __init__(self, num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT):
         self.num_groups_limit = num_groups_limit
+        # vector plans per segment since construction: "ivfProbe" (an
+        # indexed segment probed) or "ivfExactFallback" (nprobe asked of
+        # a segment without an index: an exact scan), the JAX planner's
+        # path counts
+        self.path_counts: collections.Counter = collections.Counter()
 
     def make_segment_plan(self, segment: ImmutableSegment,
                           request: BrokerRequest) -> SegmentPlan:
-        if request.vector is not None or request.join is not None or \
-                request.windows:
-            raise NotPorted("vector / join / window queries")
+        if request.join is not None or request.windows:
+            raise NotPorted("join / window queries")
         if not request.is_aggregation and not request.is_selection:
             raise NotPorted("query without aggregation or selection")
         plan = SegmentPlan(segment=segment, request=request)
@@ -415,7 +468,9 @@ class InstancePlanMaker:
             plan.agg_specs = tuple(
                 _agg_device_spec(f, segment, needed)
                 for f in plan.functions)
-        if request.is_selection:
+        if request.vector is not None:
+            self._plan_vector(plan, segment, request, needed)
+        elif request.is_selection:
             self._plan_selection(plan, segment, request, needed)
         plan.needed_cols = tuple(needed.keys())
         return plan
@@ -563,6 +618,92 @@ class InstancePlanMaker:
             for f in plan.functions)
         plan.group_spec = (tuple(gcols), strides, g_pad, agg_specs, 0)
 
+    def _plan_vector(self, plan: SegmentPlan, segment: ImmutableSegment,
+                     request: BrokerRequest, needed: Dict) -> None:
+        """A ranked vector selection (pinot_tpu/query/plan.py:_plan_vector):
+        the filtered top k of K8's scores, K6's "vector" kind. The WHERE
+        filter is already plan.filter_spec, so it narrows the candidates
+        before scores rank. With nprobe > 0 on a segment with an IVF
+        index, an "ivf_probe" predicate (K9's probe list, tested in K1)
+        ANDs in first, its (query, norm) params ahead of the filter's; a
+        segment without an index is scanned exactly."""
+        v = request.vector
+        ds = segment.data_source(v.column)
+        cm = ds.metadata
+        if cm.data_type != DataType.VECTOR:
+            raise ValueError(
+                f"VECTOR_SIMILARITY over non-VECTOR column '{v.column}'")
+        dim = cm.vector_dimension
+        q_raw = np.asarray(v.query, dtype=np.float32)
+        if q_raw.shape != (dim,):
+            raise ValueError(
+                f"query vector has {q_raw.shape[0] if q_raw.ndim == 1 else '?'}"
+                f" dimensions; column '{v.column}' stores {dim}")
+        if v.k <= 0:
+            raise ValueError(f"VECTOR_SIMILARITY k must be positive, "
+                             f"got {v.k}")
+        metric = v.metric.lower()
+        if metric == "mips":
+            metric = "dot"
+        if metric not in ("cosine", "dot"):
+            raise ValueError(f"unknown similarity metric '{v.metric}' "
+                             "(COSINE | DOT | MIPS)")
+        gather = []
+        for c in request.selection.columns if request.selection else []:
+            ccm = segment.data_source(c).metadata
+            if ccm.data_type == DataType.VECTOR:
+                raise UnsupportedOnDevice(
+                    f"selection of VECTOR column {c} (host path)")
+            if not ccm.has_dictionary:
+                if ccm.data_type.np_dtype.kind not in "iuf":
+                    raise UnsupportedOnDevice(
+                        f"selection over non-numeric raw column {c}")
+                gather.append((c, "raw"))
+                needed[(c, "raw")] = None
+            elif ccm.single_value:
+                gather.append((c, "sv"))
+                needed[(c, "ids")] = None
+            else:
+                gather.append((c, "mv"))
+                needed[(c, "mv")] = None
+        dim_pad = kernels.pow2_bucket(max(dim, 1), floor=1)
+        q = np.zeros(dim_pad, np.float32)
+        q[:dim] = q_raw
+        q_norm = np_vec_tree_norm(q)
+        if metric == "cosine" and not q_norm > 0:
+            raise ValueError("COSINE similarity needs a non-zero, finite "
+                             "query vector")
+        nprobe = int(getattr(v, "nprobe", 0) or 0)
+        if nprobe > 0:
+            if ds.ivf_centroids is not None and \
+                    ds.ivf_assignments is not None:
+                from pinot_tpu_torch.index import ivf as ivf_mod
+                # K9 ranks at most the padded codebook
+                nprobe_eff = min(nprobe,
+                                 ivf_mod.pad_centroids(ds.ivf_centroids.shape[0]))
+                pred = ("pred", "ivf_probe", v.column, "ivf",
+                        (nprobe_eff, metric))
+                plan.filter_spec = pred if plan.filter_spec == MATCH_ALL \
+                    else ("and", (pred, plan.filter_spec))
+                # the probe's operands precede the other filter params: it
+                # is the first AND child in depth-first order
+                plan.params = [q, np.float32(q_norm)] + plan.params
+                for lane in ("ivfa", "ivfc", "ivfv"):
+                    needed[(v.column, lane)] = None
+                self.path_counts["ivfProbe"] += 1
+            else:
+                # nprobe asked of a segment without an index: an exact
+                # scan keeps the answer right (ANN is best effort)
+                self.path_counts["ivfExactFallback"] += 1
+        k = min(kernels.pow2_bucket(v.k, floor=1), segment.padded_docs)
+        plan.select_spec = ("vector", k, ((v.column, metric, dim_pad),),
+                            tuple(gather))
+        plan.select_display = None
+        needed[(v.column, "vec")] = None
+        # the selection's operands follow the filter's (depth-first order)
+        plan.params.append(q)
+        plan.params.append(np.float32(q_norm))
+
     def _plan_selection(self, plan: SegmentPlan, segment: ImmutableSegment,
                         request: BrokerRequest, needed: Dict) -> None:
         """The JAX planner's select spec (pinot_tpu/query/plan.py:
@@ -633,6 +774,14 @@ class InstancePlanMaker:
             plan.select_spec = ("ordermk", k, tuple(order), tuple(gather))
 
 
+def np_vec_tree_norm(q: np.ndarray) -> np.float32:
+    """The f32 balanced-tree norm of a (power-of-two padded) query vector:
+    the q_norm operand K8 and K9 divide by, with the same tree as the
+    row norms (pinot_tpu/query/plan.py:np_vec_tree_norm)."""
+    qf = np.asarray(q, np.float32)
+    return np.float32(np.sqrt(kernels.vec_tree_sum_plain(qf * qf)))
+
+
 def mixed_radix_strides(cards) -> tuple:
     """Strides for the mixed-radix group key (last column fastest)."""
     strides = []
@@ -684,6 +833,10 @@ def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
         return ("hist", src, "sv", ("hist", card_pad))
     fname = "countmv" if base == "COUNT" else _DEVICE_FNAMES[base]
     cm = segment.data_source(col).metadata
+    if cm.data_type == DataType.VECTOR:
+        raise ValueError(
+            f"aggregation {base} over VECTOR column '{col}' is not "
+            "supported (use VECTOR_SIMILARITY for ranking)")
     if not cm.has_dictionary:
         if fname in ("percentile", "distinctcount"):
             raise UnsupportedOnDevice(f"{fname} over no-dictionary column")
@@ -743,6 +896,11 @@ def _collect_filter_cols(spec: tuple, needed: Dict) -> None:
             _collect_filter_cols(c, needed)
     elif spec[0] == "pred":
         _, _kind, col, source, _extra = spec
+        if source == "ivf":
+            # three lanes: assignments, padded codebook, validity
+            for lane in ("ivfa", "ivfc", "ivfv"):
+                needed[(col, lane)] = None
+            return
         needed[(col, {"sv": "ids", "mv": "mv", "raw": "raw"}[source])] = None
 
 
@@ -762,7 +920,11 @@ def _empty_block(plan: SegmentPlan, segment: ImmutableSegment
         blk.group_map = {}
     elif plan.request.is_aggregation:
         blk.agg_intermediates = [None for _ in plan.functions]
-    if plan.request.is_selection:
+    if plan.request.vector is not None:
+        blk.selection_rows = []
+        blk.selection_columns = list(plan.request.selection.columns) + \
+            list(VECTOR_RESULT_COLUMNS)
+    elif plan.request.is_selection:
         blk.selection_rows = []
         blk.selection_columns = selection_columns(segment, plan.request)
     _fill_stats(blk, segment, 0, 0, 0)

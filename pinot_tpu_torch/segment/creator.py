@@ -1,11 +1,14 @@
 """Segment builder: rows → immutable columnar segment directory.
 
 Counterpart of pinot_tpu/segment/creator.py. It writes the same files,
-byte for byte, apart from the creation time in metadata.json. Not in the
-port yet: star-tree cubes, derived HLL columns, column partition
-metadata, VECTOR columns and IVF indexes, chunked no-dictionary STRING /
-BYTES columns, fixed (table-wide) dictionaries and the v3 single-file
-layout; a schema or table config that asks for one raises.
+byte for byte, apart from the creation time in metadata.json, and, where
+the table config asks for an IVF index on a VECTOR column, the
+`{col}.ivf.*` files and the `ivf.*` custom keys: the codebook is trained
+on the card (index/ivf.py over K10 / K11), whose sums run in another
+order than XLA's. Not in the port yet: star-tree cubes, derived HLL
+columns, column partition metadata, chunked no-dictionary STRING / BYTES
+columns, fixed (table-wide) dictionaries and the v3 single-file layout;
+a schema or table config that asks for one raises.
 
 Parity: pinot-core/.../segment/creator/impl/SegmentIndexCreationDriverImpl.java
 (two-pass build: stats pass → dictionary creation → index pass → seal) and
@@ -31,7 +34,8 @@ from pinot_tpu_torch.segment.bloom import BloomFilter
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.fwd import (SVForwardIndexWriter,
                                          bits_required, write_mv_fwd,
-                                         write_raw_fwd, write_sorted_fwd)
+                                         write_raw_fwd, write_sorted_fwd,
+                                         write_vec_fwd)
 from pinot_tpu_torch.segment.inverted import InvertedIndexWriter
 from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
 
@@ -77,10 +81,19 @@ class SegmentCreator:
     """Builds one immutable segment from records."""
 
     def __init__(self, schema: Schema, table_config: Optional[TableConfig] = None,
-                 segment_name: Optional[str] = None):
+                 segment_name: Optional[str] = None,
+                 ivf_priors: Optional[Dict[str, object]] = None,
+                 device=None):
+        """`ivf_priors`: column → an IvfIndex whose codebook a rebuilt
+        segment keeps (the compaction path: rows are reassigned, the
+        trained baseline carried). `device`: where IVF codebooks train
+        and assign (None: the card; the tests pass "cpu")."""
         self.schema = schema
         self.table_config = table_config or TableConfig(schema.schema_name)
         self.segment_name = segment_name
+        self.ivf_priors = ivf_priors or {}
+        self.device = device
+        self.ivf_seconds = 0.0   # host wall time of IVF builds, all builds
 
     # -- input normalization ----------------------------------------------
     def _columnarize(self, rows: Iterable[dict]) -> Dict[str, list]:
@@ -114,12 +127,23 @@ class SegmentCreator:
         _check_supported(self.schema, idx_cfg)
         num_docs = None
         col_meta: Dict[str, ColumnMetadata] = {}
+        # IVF drift stats stamped into the metadata's custom map
+        ivf_custom: Dict[str, str] = {}
 
         for field in self.schema.fields:
             name = field.name
             if name not in columns:
                 raise ValueError(f"missing column {name}")
             raw = columns[name]
+            if field.data_type == DataType.VECTOR:
+                n = self._build_vector(field, raw, out_dir, ivf_custom,
+                                       col_meta)
+                if num_docs is None:
+                    num_docs = n
+                elif num_docs != n:
+                    raise ValueError(
+                        f"column {name} length {n} != {num_docs}")
+                continue
             encoded = isinstance(raw, DictionaryEncodedColumn) and \
                 field.single_value
             if encoded:
@@ -248,7 +272,8 @@ class SegmentCreator:
             total_docs=num_docs, columns=col_meta,
             time_column=time_col_name, time_unit=time_unit,
             start_time=start_t, end_time=end_t,
-            creation_time_ms=int(time.time() * 1000))
+            creation_time_ms=int(time.time() * 1000),
+            custom=ivf_custom)
         meta.save(out_dir)
         with open(os.path.join(out_dir, fmt.CREATION_META_FILE), "w") as f:
             json.dump({"creator": "pinot_tpu", "version": fmt.SEGMENT_VERSION},
@@ -259,12 +284,50 @@ class SegmentCreator:
         meta.crc = stamp_crc(out_dir)
         return meta
 
+    def _build_vector(self, field, raw, out_dir: str,
+                      ivf_custom: Dict[str, str],
+                      col_meta: Dict[str, ColumnMetadata]) -> int:
+        """A VECTOR column: the packed float32 forward block (no
+        dictionary, inverted or bloom index: embeddings are dense and all
+        but all-distinct), and at seal the IVF index the table config asks
+        for (tableIndexConfig.vectorIndexConfigs). Returns its rows."""
+        name = field.name
+        if isinstance(raw, np.ndarray) and raw.ndim == 2:
+            mat = np.asarray(raw, dtype=np.float32)
+            if mat.shape[1] != field.vector_dimension:
+                raise ValueError(
+                    f"column {name}: vector width {mat.shape[1]} "
+                    f"!= schema dimension {field.vector_dimension}")
+            # the columnar path bypasses field.convert: repeat its finite
+            # guard, so NaN / Inf reach neither a score nor a codebook
+            if mat.size and not np.isfinite(mat).all():
+                raise ValueError(f"column {name}: NaN/Inf embedding values")
+        else:
+            mat = np.stack([field.convert(v) for v in raw]) if len(raw) \
+                else np.zeros((0, field.vector_dimension), np.float32)
+        n = len(mat)
+        write_vec_fwd(out_dir, name, mat)
+        from pinot_tpu_torch.index import ivf as ivf_mod
+        ivf_cfg = ivf_mod.column_config(self.table_config, name)
+        if ivf_cfg is not None and n:
+            t0 = time.perf_counter()
+            index = ivf_mod.build_for_column(
+                mat, ivf_cfg, priors=self.ivf_priors.get(name),
+                device=self.device)
+            self.ivf_seconds += time.perf_counter() - t0
+            ivf_mod.write_index(out_dir, name, index)
+            ivf_mod.stamp_custom(ivf_custom, name, index.meta)
+        col_meta[name] = ColumnMetadata(
+            name=name, data_type=field.data_type, cardinality=n,
+            bits_per_element=32, has_dictionary=False,
+            total_number_of_entries=n,
+            vector_dimension=field.vector_dimension)
+        return n
+
 
 def _check_supported(schema: Schema, idx_cfg) -> None:
     """Raise on what the JAX creator builds and this one does not yet."""
     missing = []
-    if any(f.data_type == DataType.VECTOR for f in schema.fields):
-        missing.append("VECTOR columns")
     if idx_cfg.star_tree_configs:
         missing.append("star-tree cubes")
     if (idx_cfg.hll_config or {}).get("columnsToDerive"):

@@ -119,6 +119,24 @@ def read_raw_fwd(seg_dir, col: str) -> np.ndarray:
         fmt.SV_RAW_FWD.format(col=col)))
 
 
+# -- vector (fixed-width float32 embedding block) --------------------------
+
+def write_vec_fwd(seg_dir: str, col: str, mat: np.ndarray) -> None:
+    """Packed [num_docs, dimension] float32 forward block: the dense
+    layout K8 reads row-parallel (no dictionary: embeddings are all but
+    all-distinct, a dictionary would double the bytes for nothing)."""
+    mat = np.ascontiguousarray(mat, dtype=np.float32)
+    if mat.ndim != 2:
+        raise ValueError(f"vector fwd block for '{col}' must be 2-D, "
+                         f"got shape {mat.shape}")
+    np.save(os.path.join(seg_dir, fmt.VEC_FWD.format(col=col)), mat)
+
+
+def read_vec_fwd(seg_dir, col: str) -> np.ndarray:
+    return np.asarray(fmt.open_dir(seg_dir).load_array(
+        fmt.VEC_FWD.format(col=col)), dtype=np.float32)
+
+
 # -- multi-value -----------------------------------------------------------
 
 def write_mv_fwd(seg_dir: str, col: str, flat_ids: np.ndarray,

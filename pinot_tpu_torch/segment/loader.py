@@ -13,14 +13,20 @@ so every kernel sees the same static layout the JAX package uses:
 - raw lanes keep the host dtype (int32 / int64 / float32 / float64);
 - value lanes decode a float dictionary to float64 [P];
 - HLL tables are int32 [card_pad] per-dictId register index and rank
-  (`hll_tables_padded`), padded with (0, 0).
+  (`hll_tables_padded`), padded with (0, 0);
+- VECTOR columns are float32 [P, dim_pad] embedding blocks (`vec`), dim
+  padded to a power of two with zeros (an exact no-op in every tree
+  sum), padding rows zero; with an IVF index, its assignment lane
+  (`ivfa`, narrow ints, padding rows the never-probed sentinel
+  numCentroids), its codebook (`ivfc`, f32 [C_pad, dim_pad]) and the
+  centroids' liveness (`ivfv`, bool [C_pad]).
 
 Segments come from disk (`ImmutableSegmentLoader.load`, the directories
 segment/creator.py writes, or the JAX package's creator: the files are
 the same) or are built in memory (tools/datagen.py:
-make_segment_from_arrays). Not read yet: star-tree cubes, IVF indexes
-and VECTOR columns, chunked no-dictionary STRING / BYTES columns,
-schema-evolution default columns; there is no residency ledger.
+make_segment_from_arrays). Not read yet: star-tree cubes, chunked
+no-dictionary STRING / BYTES columns, schema-evolution default columns;
+there is no residency ledger.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from pinot_tpu_torch.segment.bloom import BloomFilter
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.fwd import (mv_to_padded, read_mv_fwd,
                                          read_raw_fwd, read_sorted_fwd,
-                                         read_sv_fwd)
+                                         read_sv_fwd, read_vec_fwd)
 from pinot_tpu_torch.segment.inverted import InvertedIndexReader
 from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
 
@@ -53,6 +59,13 @@ def min_id_dtype(max_value: int) -> np.dtype:
     own width and promote to int32 where they compute."""
     return np.dtype(np.int8 if max_value <= 127 else
                     np.int16 if max_value <= 32767 else np.int32)
+
+
+def vec_dim_pad(dim: int) -> int:
+    """Power-of-two vector width: the tree sums halve the dim axis
+    pairwise. Padding lanes are zero, an exact no-op in every sum."""
+    from pinot_tpu_torch.ops.kernels import pow2_bucket
+    return pow2_bucket(max(dim, 1), floor=1)
 
 
 def int_part_info_for(values: np.ndarray) -> tuple:
@@ -103,6 +116,11 @@ class DataSource:
         self.dict_ids: Optional[np.ndarray] = None        # [num_docs]
         self.raw_values: Optional[np.ndarray] = None      # no-dict columns
         self.mv_dict_ids: Optional[np.ndarray] = None     # int32 [docs, W]
+        self.vec_values: Optional[np.ndarray] = None      # f32 [docs, dim]
+        # IVF ANN index (VECTOR columns with a built index only)
+        self.ivf_centroids: Optional[np.ndarray] = None   # f32 [C, dim]
+        self.ivf_assignments: Optional[np.ndarray] = None  # i32 [docs]
+        self.ivf_meta: Optional[dict] = None
         self.sorted_ranges: Optional[np.ndarray] = None   # [card, 2]
         self.inverted_index: Optional[InvertedIndexReader] = None
         self.bloom_filter: Optional[BloomFilter] = None
@@ -133,6 +151,25 @@ class DataSource:
         """Decoded float64 dictionary-value lane [P] for float sums."""
         return self._device("value_lane", "vlane")
 
+    def device_vec_values(self) -> torch.Tensor:
+        """The float32 [P, dim_pad] embedding block; padding rows and
+        padding dims are zeros."""
+        return self._device("vec_values", "vec")
+
+    def device_ivf_assign(self) -> torch.Tensor:
+        """The narrow [P] coarse-cell lane (padding rows hold the
+        never-probed sentinel numCentroids)."""
+        return self._device("ivf_assign", "ivfa")
+
+    def device_ivf_centroids(self) -> torch.Tensor:
+        """The zero-padded codebook f32 [C_pad, dim_pad]."""
+        return self._device("ivf_centroids", "ivfc")
+
+    def device_ivf_valid(self) -> torch.Tensor:
+        """Centroid liveness bool [C_pad] (the live count rides as a lane,
+        not a param, so stacked plans stay shareable)."""
+        return self._device("ivf_valid", "ivfv")
+
     def device_hll_idx(self) -> torch.Tensor:
         """Per-dictId HLL register-index table [card_pad] int32, built
         from the dictionary values with the host HyperLogLog's own hashing
@@ -155,8 +192,8 @@ class DataSource:
 
     def host_operand(self, kind: str) -> np.ndarray:
         """Padded host array for a lane kind ('ids'|'mv'|'raw'|'parts'|
-        'vlane'|'hllidx'|'hllrank'), in exactly the layout of the device
-        lane."""
+        'vlane'|'hllidx'|'hllrank'|'vec'|'ivfa'|'ivfc'|'ivfv'), in exactly
+        the layout of the device lane."""
         if kind == "ids":
             return self._pad_ids(self.dict_ids)
         if kind == "mv":
@@ -182,6 +219,23 @@ class DataSource:
             vals = np.asarray(self.dictionary.values, dtype=np.float64)
             vals = np.concatenate([vals, [0.0]])
             return vals[self.host_operand("ids")]
+        if kind == "vec":
+            mat = self.vec_values
+            out = np.zeros((padded_size(len(mat)),
+                            vec_dim_pad(self.metadata.vector_dimension)),
+                           dtype=np.float32)
+            out[: len(mat), : mat.shape[1]] = mat
+            return out
+        if kind in ("ivfa", "ivfc", "ivfv"):
+            from pinot_tpu_torch.index import ivf
+            c = int(self.ivf_centroids.shape[0])
+            if kind == "ivfa":
+                return ivf.assignment_lane(
+                    self.ivf_assignments, c,
+                    padded_size(len(self.ivf_assignments)))
+            if kind == "ivfc":
+                return ivf.centroid_lane(self.ivf_centroids)
+            return ivf.validity_lane(self.ivf_assignments, c)
         if kind in ("hllidx", "hllrank"):
             if self._hll_tables is None:
                 with self._lane_lock:
@@ -285,7 +339,8 @@ class ImmutableSegmentLoader:
 
     Counterpart of pinot_tpu/segment/loader.py:ImmutableSegmentLoader:
     read metadata, then per column its dictionary, forward index (SV
-    bit-packed, sorted ranges, MV, raw) and inverted / bloom indexes.
+    bit-packed, sorted ranges, MV, raw, VECTOR block) and inverted /
+    bloom / IVF indexes.
     Host arrays only: each device lane uploads on first use, to the
     device the segment is bound to (QueryEngine binds it).
     """
@@ -296,12 +351,21 @@ class ImmutableSegmentLoader:
         meta = SegmentMetadata.load(seg_dir)
         sources: Dict[str, DataSource] = {}
         for name, cm in meta.columns.items():
-            if cm.data_type == DataType.VECTOR or (
-                    not cm.has_dictionary and not cm.data_type.is_numeric):
-                raise NotImplementedError(
-                    f"column {name}: VECTOR and no-dictionary "
-                    f"{cm.data_type.name} columns are not in the port yet")
             ds = DataSource(cm, None)
+            if cm.data_type == DataType.VECTOR:
+                ds.vec_values = read_vec_fwd(seg_dir, name)
+                from pinot_tpu_torch.index import ivf
+                index = ivf.load_index(seg_dir, name)
+                if index is not None:
+                    ds.ivf_centroids = index.centroids
+                    ds.ivf_assignments = index.assignments
+                    ds.ivf_meta = index.meta
+                sources[name] = ds
+                continue
+            if not cm.has_dictionary and not cm.data_type.is_numeric:
+                raise NotImplementedError(
+                    f"column {name}: no-dictionary {cm.data_type.name} "
+                    "columns are not in the port yet")
             if not cm.has_dictionary:
                 ds.raw_values = read_raw_fwd(seg_dir, name)
             else:

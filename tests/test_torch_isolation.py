@@ -44,6 +44,8 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.query.pruner\n"
         "import pinot_tpu_torch.parallel, pinot_tpu_torch.parallel.sharded\n"
         "import pinot_tpu_torch.common.partition\n"
+        "import pinot_tpu_torch.index.ivf, pinot_tpu_torch.ops.ivf_kernels\n"
+        "import pinot_tpu_torch.tools.vecdata\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or\n"

@@ -219,6 +219,8 @@ def test_masked_select_rejects_bad_operands(lanes):
     with pytest.raises(ValueError, match="select k"):
         tk.masked_select(("limit", P + 1, (), ()), cols, mask)
     with pytest.raises(ValueError, match="not a K6"):
+        tk.masked_select(("top", 4, (), ()), cols, mask)
+    with pytest.raises(ValueError, match="query vector"):
         tk.masked_select(("vector", 4, (), ()), cols, mask)
     with pytest.raises(ValueError, match="ordertk"):
         tk.masked_select(("ordertk", 4, (("ri64", True, 0, "raw"),), ()),

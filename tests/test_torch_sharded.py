@@ -241,12 +241,13 @@ def test_stacked_part_sums_stay_exact_per_segment():
     out = tk.masked_part_sums(mask, [parts], seg_rows=rows)
     assert out.shape == (n_segs, 3)
     assert (out[:, :2] == 127 * rows).all() and (out[:, 2] == rows).all()
-    # 16,909,824 rows: 127 * rows passes 2^31 as one segment, not as two
+    # 16,909,824 rows: 127 * rows passes 2^31 as one segment, not as two;
+    # one segment that long splits into exact row ranges (here its halves)
     half = 33027 * 256
     mask = torch.ones(2 * half, dtype=torch.uint8)
     parts = torch.full((1, 2 * half), 127, dtype=torch.int8)
-    with pytest.raises(ValueError, match="overflow"):
-        tk.masked_part_sums(mask, [parts])
+    out = tk.masked_part_sums(mask, [parts])
+    assert out.tolist() == [[127 * half, half]] * 2
     out = tk.masked_part_sums(mask, [parts], seg_rows=half)
     assert out.tolist() == [[127 * half, half]] * 2
 

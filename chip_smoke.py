@@ -2,13 +2,15 @@
 """Drive pinot_tpu_torch on one CUDA card: build, kernel checks, SSB
 Q1.1-Q4.3 in memory, baseballStats from disk under the QueryGenerator
 mix with its selections, and VECTOR_SIMILARITY over the 10M x 128 vector
-table with IVF codebooks, each table per segment and stacked (one launch
-per kernel over all segments).
+table with IVF codebooks, each table per segment, stacked (one launch
+per kernel over all segments) and in cross-query batches (one launch per
+kernel for up to 8 queries).
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
                           [--vec-rows 10000000] [--vec-segments 4]
                           [--vec-dim 128] [--vec-queries 5]
+                          [--batch-repeats 3]
 
 Phases, each printed as one JSON line; any failure ends the run with a
 non-zero exit and no result line:
@@ -113,23 +115,48 @@ non-zero exit and no result line:
    of --repeats timed runs, the scanned share (numDocsScanned / rows) and
    recall@10 against the exact answer; some nprobe rung under COSINE must
    reach recall@10 >= 0.95 scanning < 15% of the rows (the script's gate).
-16. timing: wall seconds per phase and per part of phase 9 (first runs
+16. batch_kernel_check (after 11, 12 and 15, on segment 0 of each
+   table): every batched kernel (run_segment_kernel_batched's member
+   axis) at 2, 5 and 8 members: K1 over the SSB Q1.1 family, the
+   baseballStats raw, MV and dictId families and the vecbench ivf_probe
+   node; K2, K4 (ids and MV entries), K5 (raw with block sums, ids, MV
+   entries), K6 (each kind of SELECT_PQLS) and K7 over the dictId
+   family's masks; K8 (both metrics), K9 and K6's vector kind over 8
+   query vectors. Each against its plain batched version (as the single
+   checks hold it), bit for bit against as many single launches, and
+   launched once a call; timed at 8 members with the L2 flushed beside
+   8 single launches, its bound and, for K8, torch.mm.
+17. batch: ServerQueryExecutor.execute_batch over each table's segments
+   (tools/ssb.py:q1_batches, tools/baseball.py:batch_draws, the 8 vector
+   queries under COSINE and DOT at every rung and queries[0] at rid <
+   10 / 20 / 30% of the rows), each member's block reduced by the
+   engine's reducer: every member equal to its own engine.query and to
+   the oracle (exact vector answers bit for bit; probed ones against
+   their own queries), and, launch counts from 0, each kernel of the
+   plan launched once per segment per batch of <= 8 members whose plans
+   share a signature (a mixed family: group-by members, a fast path);
+   then the p50 of --batch-repeats batched runs beside the sum of the
+   members' sequential p50s.
+18. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
    repeats).
 
 Phases 10-12 run right after the phase they build on (10 and 11 after
-5, 12 after 9); 13-15 after 12. The last three lines are the card's name
-and power limit, the kernels JSON line (launches over every path: SSB
-and baseballStats per segment and stacked, the vector table's build, and
-its queries per segment and stacked; the stacked paths' launches, the
-stacked launch's time, S per-segment launches' time and the stacked
-bound beside them) and
+5, 12 after 9); 13-15 after 12; 16 and 17 after each table's own phases.
+The last three lines are the card's name and power limit, the kernels
+JSON line (launches over every path: SSB and baseballStats per segment
+and stacked, the vector table's build, its queries per segment and
+stacked, and the batches; the stacked paths' launches, the stacked
+launch's time, S per-segment launches' time and the stacked bound beside
+them; for a batched kernel, its time at 8 members beside 8 single
+launches) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -1576,7 +1603,7 @@ def run_vector(engine, st_engine, queries, args, repeats: int):
     (numDocsScanned); then the timed repeats (p50 per rung). The gate of
     scripts/vec_ann_bench.py: some nprobe rung reaches recall@10 >= 0.95
     (mean over the queries) while scanning < 15% of the rows. Returns the
-    launch counts per route."""
+    launch counts per route, the oracle and its exact answers."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.tools import vecdata
     rows = sum(s.num_docs for s in engine.segments)
@@ -1695,7 +1722,508 @@ def run_vector(engine, st_engine, queries, args, repeats: int):
             raise AssertionError(f"{route}: no nprobe rung reaches recall@10 "
                                  f">= {VEC_RECALL_GATE} scanning < "
                                  f"{VEC_SCAN_GATE} of the rows: {stats}")
-    return launches_by_route
+    return launches_by_route, oracle, exact
+
+
+# ---------------------------------------------------------------------------
+# Cross-query batches: execute_batch, one launch per kernel for <= 8 members
+# ---------------------------------------------------------------------------
+
+BATCH_SIZES = (2, 5, 8)
+
+
+def _flat(out) -> list:
+    """A kernel's outputs as a flat list of tensors (a dict's in key
+    order)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return [t for o in out for t in _flat(o)]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
+               singles_of=None, expect=None, library=None):
+    """The batched form of kernel `name` on one case at each B of
+    BATCH_SIZES: batched(B), plain(B) and single(b) give outputs (tensors,
+    tuples or dicts). Held to its plain version, bit for bit (the outputs
+    at the indices of `rtol`, float64 block sums, within that relative
+    tolerance), and bit for bit to B single launches (the batched outputs
+    at `singles_of`, all by default); launched once per call (`expect`:
+    the launches one call makes, {name_batched: 1} by default). Timed at
+    B = 8 with the L2 flushed: the batched launch, 8 single launches, the
+    plain version and `library` beside the bound of nbytes(8) bytes and
+    ops(8) operations. Returns its report."""
+    from pinot_tpu_torch.ops import kernels as K
+    expect = expect or {f"{name}_batched": 1}
+    rtol = rtol or {}
+    err = 0.0
+    for B in BATCH_SIZES:
+        K.reset_launch_counts()
+        got = _flat(batched(B))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in K.launch_counts().items() if v}
+        if launched != expect:
+            raise AssertionError(f"{name} {case} B={B}: launches {launched}"
+                                 f", expected {expect}")
+        ref = _flat(plain(B))
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if i in rtol:
+                d = (g - r).abs()
+                err = max(err, float(d.max()))
+                ok = bool((d <= rtol[i] * r.abs().clamp_min(1.0)).all())
+            else:
+                ok = _same_bits(g, r)
+            if not ok:
+                raise AssertionError(f"{name} {case} B={B}: output {i} "
+                                     "differs from the plain version")
+        singles = [_flat(single(b)) for b in range(B)]
+        for j, i in enumerate(singles_of or range(len(got))):
+            if not _same_bits(got[i], torch.stack([s[j] for s in singles])):
+                raise AssertionError(f"{name} {case} B={B}: output {i} "
+                                     f"differs from {B} single launches")
+    b = bound(nbytes(8), ops(8))
+    report = {"kernel": f"{name}_batched", "case": case,
+              "batch_sizes": list(BATCH_SIZES), "max_abs_err": err,
+              "plain_equal": True, "singles_bit_equal": True,
+              "ms": time_ms(lambda: batched(8)),
+              "b_single_ms": time_ms(lambda: [single(i) for i in range(8)],
+                                     spins=8),
+              "plain_ms": time_ms(lambda: plain(8), reps=3, warmup=1),
+              "library_ms": time_ms(library) if library else None,
+              "bound_ms": b[0], "bound_by": b[1]}
+    emit({"phase": "batch_kernel_check", **report})
+    return report
+
+
+def _family_operands(seg, pqls):
+    """(filter spec, lanes, the members' filter params) of same-shape
+    plans on one segment."""
+    plans = [plan_operands(seg, pql) for pql in pqls]
+    spec = plans[0][0].filter_spec
+    if any(p.filter_spec != spec for p, _c in plans):
+        raise AssertionError(f"the family's filters differ: {pqls[0]}")
+    return spec, plans[0][1], [list(p.params) for p, _c in plans]
+
+
+def _filter_case(seg, case, pqls, expect=None):
+    """batch_case for K1 over a family's filter; returns (report, [8, P]
+    masks)."""
+    from pinot_tpu_torch.ops import kernels as K
+    P, n = seg.padded_docs, seg.num_docs
+    spec, cols, params = _family_operands(seg, pqls)
+    keys = K.filter_lane_keys(spec)
+    lane_bytes = sum(cols[k].numel() * cols[k].element_size() for k in keys)
+    widths = sum(cols[k].numel() // P for k in keys)
+    r = batch_case(
+        "filter_mask", case,
+        lambda B: K.filter_mask_batched(P, spec, cols, params[:B], n),
+        lambda B: K.filter_mask_batched_plain(P, spec, cols, params[:B], n),
+        lambda b: K.filter_mask(P, spec, cols, params[b], n),
+        lambda B: lane_bytes + B * P + 4 * B,
+        lambda B: B * P * 2 * widths, singles_of=(0,), expect=expect)
+    return r, K.filter_mask_batched(P, spec, cols, params, n)[0]
+
+
+def batch_kernel_check_ssb(seg):
+    """Phase batch_kernel_check on an SSB segment: K1 (dictId leaves) and
+    K2 over the Q1.1 family of the batch phase."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools.ssb import Q1_TEMPLATES, q1_batches
+    P = seg.padded_docs
+    pqls = [Q1_TEMPLATES["q1.1"].format(**lits)
+            for lits in q1_batches()["q1.1"]]
+    entries = {}
+    entries["filter_mask"], masks = _filter_case(seg, "ssb q1.1 family",
+                                                 pqls)
+    parts = [plan_operands(seg, pqls[0])[1]["lo_revenue.parts"]]
+    L = parts[0].shape[0]
+    union, matched = int(masks.any(0).sum()), int(masks.sum())
+    entries["masked_part_sums"] = batch_case(
+        "masked_part_sums", "ssb q1.1 family, lo_revenue",
+        lambda B: K.masked_part_sums_batched(masks[:B], parts),
+        lambda B: K.masked_part_sums_batched_plain(masks[:B], parts),
+        lambda b: K.masked_part_sums(masks[b], parts),
+        lambda B: B * P + union * L + 4 * B * (L + 1),
+        lambda B: B * P + matched * L)
+    return entries
+
+
+#: the baseballStats families of the batched K1 cases (8 members each)
+BB_BATCH_FILTERS = {
+    "raw": ["SELECT COUNT(*) FROM baseballStats WHERE salary > %d AND "
+            "runs < %d" % (s, r) for s, r in zip(
+                range(100000, 900000, 100000), range(40, 140, 12))],
+    "mv": ["SELECT COUNT(*) FROM baseballStats WHERE position = '%s' OR "
+           "position NOT IN ('P', 'C')" % p for p in
+           ("1B", "2B", "3B", "SS", "LF", "CF", "RF", "DH")],
+    "dictId": ["SELECT COUNT(*), SUM(hits) FROM baseballStats WHERE runs > "
+               "'%d'" % v for v in (10, 25, 40, 60, 75, 90, 110, 130)],
+}
+
+
+def batch_kernel_check_bb(seg):
+    """Phase batch_kernel_check on a baseballStats segment: K1 (raw, MV
+    and dictId programs), and over the dictId family's masks K2 (runs,
+    hits), K4 (teamID ids, position entries), K5 (salary with block sums,
+    runs ids, position entries), K6 (each kind of SELECT_PQLS) and K7
+    (playerName)."""
+    from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
+    from pinot_tpu_torch.ops import kernels as K
+    P = seg.padded_docs
+    entries = {}
+    for case in ("raw", "mv"):
+        _filter_case(seg, f"baseball {case} family",
+                     BB_BATCH_FILTERS[case])
+    _r, masks = _filter_case(seg, "baseball dictId family",
+                             BB_BATCH_FILTERS["dictId"])
+    union = masks.any(0)
+    n_union, matched = int(union.sum()), int(masks.sum())
+    cols = plan_operands(seg, BB_AGG_PQL)[1]
+    parts = [cols["runs.parts"], cols["hits.parts"]]
+    L = sum(p.shape[0] for p in parts)
+    batch_case("masked_part_sums", "baseball runs, hits",
+               lambda B: K.masked_part_sums_batched(masks[:B], parts),
+               lambda B: K.masked_part_sums_batched_plain(masks[:B], parts),
+               lambda b: K.masked_part_sums(masks[b], parts),
+               lambda B: B * P + n_union * L + 4 * B * (L + 1),
+               lambda B: B * P + matched * L)
+
+    ds = seg.data_source("teamID")
+    ids = ds.device_dict_ids()
+    card_pad = K.pow2_bucket(ds.metadata.cardinality + 1)
+    entries["masked_histogram"] = batch_case(
+        "masked_histogram", "baseball teamID",
+        lambda B: K.masked_histogram_batched(masks[:B], ids, card_pad),
+        lambda B: K.masked_histogram_batched_plain(masks[:B], ids, card_pad),
+        lambda b: K.masked_histogram(masks[b], ids, card_pad),
+        lambda B: B * P + n_union * ids.element_size() + 4 * B * card_pad,
+        lambda B: matched)
+    pos, pcard = mv_lanes(seg)["position"]
+    ppad = K.pow2_bucket(pcard + 1)
+    W = pos.shape[1]
+    batch_case(
+        "masked_histogram", "baseball MV position",
+        lambda B: K.masked_entry_histogram_batched(masks[:B], pos, ppad,
+                                                   pcard),
+        lambda B: K.masked_entry_histogram_batched_plain(masks[:B], pos,
+                                                         ppad, pcard),
+        lambda b: K.masked_entry_histogram(masks[b], pos, ppad, pcard),
+        lambda B: B * P + n_union * W * pos.element_size() + 4 * B * ppad,
+        lambda B: matched * W)
+
+    salary = seg.data_source("salary").device_raw_values()
+    runs = seg.data_source("runs")
+    for case, kind, lane, cp, want_sum, card in (
+            ("salary", "raw", salary, 0, True, None),
+            ("runs ids", "ids", runs.device_dict_ids(),
+             K.pow2_bucket(runs.metadata.cardinality + 1), False, None),
+            ("MV position", "ids", pos, ppad, False, pcard)):
+        width = lane.numel() // P
+        out_bytes = (P // K.BLOCK) * 8 * want_sum + 24
+        r = batch_case(
+            "masked_reduce", f"baseball {case}",
+            lambda B: K.masked_reduce_batched(masks[:B], lane, kind, cp,
+                                              want_sum, card),
+            lambda B: K.masked_reduce_batched_plain(masks[:B], lane, kind,
+                                                    cp, want_sum, card),
+            lambda b: K.masked_reduce(masks[b], lane, kind, cp, want_sum,
+                                      card),
+            lambda B: B * P + n_union * width * lane.element_size() +
+            B * out_bytes,
+            lambda B: matched * width * (3 if want_sum else 2),
+            rtol={3: CSUMS_RTOL} if want_sum else None)
+        if case == "salary":
+            entries["masked_reduce"] = r
+
+    for case, pql in SELECT_PQLS.items():
+        plan, scols = plan_operands(seg, pql)
+        spec = plan.select_spec
+        if case == "ordertk salary":
+            spec = (spec[0], 2048, spec[2], spec[3])
+        key_bytes = sum(scols[K.gather_lane_key(c, s)].element_size()
+                        for c, _asc, _cp, s in spec[2])
+        row_bytes = sum(scols[K.gather_lane_key(c, s)][0].numel() *
+                        scols[K.gather_lane_key(c, s)].element_size()
+                        for c, s in spec[3])
+        k = spec[1]
+        r = batch_case(
+            "masked_select", f"baseball {case}, k={k}",
+            lambda B: K.masked_select_batched(spec, scols, masks[:B]),
+            lambda B: K.selection_outputs_batched_plain(spec, scols,
+                                                        masks[:B]),
+            lambda b: K.masked_select(spec, scols, masks[b]),
+            lambda B: B * P + n_union * key_bytes +
+            B * (k * (4 + row_bytes) + 4),
+            lambda B: 0)
+        if case == "ordertk salary":
+            entries["masked_select"] = r
+
+    m = 1 << DEFAULT_LOG2M
+    pn = seg.data_source("playerName")
+    pn_pad = K.pow2_bucket(pn.metadata.cardinality + 1)
+    hists = K.masked_histogram_batched(masks, pn.device_dict_ids(), pn_pad)
+    idx, rank = pn.device_hll_idx(), pn.device_hll_rank()
+    entries["hll_registers"] = batch_case(
+        "hll_registers", "baseball playerName",
+        lambda B: K.hll_registers_batched(hists[:B], idx, rank, m),
+        lambda B: K.hll_registers_batched_plain(hists[:B], idx, rank, m),
+        lambda b: K.hll_registers(hists[b], idx, rank, m),
+        lambda B: 4 * B * pn_pad + 8 * pn_pad + 4 * B * m,
+        lambda B: B * pn_pad)
+    return entries
+
+
+def batch_kernel_check_vec(seg, queries):
+    """Phase batch_kernel_check on a vector segment, 8 query vectors: K8
+    under both metrics (beside torch.mm of the 8 queries), K9 at nprobe 4
+    and 16, K1's ivf_probe node (K9 in front) and K6's vector kind over
+    the 8 members' scores and probe masks."""
+    from pinot_tpu_torch.ops import kernels as K
+    P, n = seg.padded_docs, seg.num_docs
+    ds = seg.data_source("emb")
+    mat = ds.device_vec_values()
+    cent, cvalid = ds.device_ivf_centroids(), ds.device_ivf_valid()
+    dim = mat.shape[1]
+    qn = [_query(q, dim) for q in queries]
+    qs, norms = [q for q, _n in qn], [nm for _q, nm in qn]
+    qmat = torch.from_numpy(np.stack(qs)).to(mat.device)
+    entries = {}
+    for metric in ("cosine", "dot"):
+        r = batch_case(
+            "vector_scores", f"vecbench {metric}",
+            lambda B: K.vector_scores_batched(mat, qs[:B], norms[:B],
+                                              metric),
+            lambda B: K.vector_scores_batched_plain(mat, qs[:B], norms[:B],
+                                                    metric),
+            lambda b: K.vector_scores(mat, qs[b], norms[b], metric),
+            lambda B: mat.numel() * 4 + B * P * 4 + B * dim * 4,
+            lambda B: (2 * B + 2 * (metric == "cosine")) * P * dim,
+            library=lambda: torch.mm(mat, qmat.T))
+        if metric == "cosine":
+            entries["vector_scores"] = r
+    c_pad = cent.shape[0]
+    for nprobe in (4, 16):
+        r = batch_case(
+            "ivf_probe_select", f"vecbench nprobe={nprobe}",
+            lambda B: K.ivf_select_probes_batched(cent, cvalid, qs[:B],
+                                                  norms[:B], "cosine",
+                                                  nprobe),
+            lambda B: K.ivf_select_probes_batched_plain(
+                cent, cvalid, qs[:B], norms[:B], "cosine", nprobe),
+            lambda b: K.ivf_select_probes(cent, cvalid, qs[b], norms[b],
+                                          "cosine", nprobe),
+            lambda B: cent.numel() * 4 + c_pad + B * dim * 4 +
+            5 * B * nprobe,
+            lambda B: B * (2 * c_pad * dim + c_pad * c_pad))
+        if nprobe == 16:
+            entries["ivf_probe_select"] = r
+    spec = ("pred", "ivf_probe", "emb", "ivf", (16, "cosine"))
+    cols = {"emb.ivfa": ds.device_ivf_assign(), "emb.ivfc": cent,
+            "emb.ivfv": cvalid}
+    params = [[q, nm] for q, nm in qn]
+    assign = cols["emb.ivfa"]
+    batch_case(
+        "filter_mask", "vecbench ivf_probe nprobe=16",
+        lambda B: K.filter_mask_batched(P, spec, cols, params[:B], n),
+        lambda B: K.filter_mask_batched_plain(P, spec, cols, params[:B], n),
+        lambda b: K.filter_mask(P, spec, cols, params[b], n),
+        lambda B: assign.numel() * assign.element_size() + B * P + 4 * B,
+        lambda B: B * P * 2 * 16, singles_of=(0,),
+        expect={"filter_mask_batched": 1, "ivf_probe_select_batched": 1})
+    masks = K.filter_mask_batched(P, spec, cols, params, n)[0]
+    scores = K.vector_scores_batched(mat, qs, norms, "cosine")
+    rid = {"rid.ids": seg.data_source("rid").device_dict_ids()}
+    gather = (("rid", "sv"),)
+    union = int(masks.any(0).sum())
+    entries["masked_select_vector"] = batch_case(
+        "masked_select_vector", "vecbench cosine top 10 of the probed rows",
+        lambda B: K.vector_topk_batched(scores[:B], masks[:B], 10, rid,
+                                        gather),
+        lambda B: K.vector_topk_batched_plain(scores[:B], masks[:B], 10,
+                                              rid, gather),
+        lambda b: K.vector_topk(scores[b], masks[b], 10, rid, gather),
+        lambda B: B * P + union * 4 * B + B * 10 * 12,
+        lambda B: 0)
+    return entries
+
+
+def _member_rows(resp):
+    """A response's rows or values, and its scan statistics."""
+    if resp.selection_results is not None:
+        rows = resp.selection_results.results
+    else:
+        rows = [(a.value, a.group_by_result) for a in
+                resp.aggregation_results]
+    return rows, (resp.num_docs_scanned, resp.num_segments_processed,
+                  resp.num_segments_matched, resp.total_docs)
+
+
+def run_batch(table, engine, families, check, repeats: int):
+    """Phase batch on one table: for each family of PQLs (at most 8
+    same-shape members, or a "mixed" family), launch counts set to 0,
+    engine.executor.execute_batch over the engine's segments, each
+    member's block reduced by the engine's reducer; every member's
+    answer must equal its own engine.query and the oracle (check(family,
+    i, response)); and, but in a mixed family, each kernel the plan uses
+    launched once per segment per batch of <= 8 members: one member's
+    sequential launches, under the batched names. Then the p50 of
+    `repeats` batched runs against the sum of the members' sequential
+    p50s. Returns the launches of the batched runs."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.plan import batch_signature, \
+        preprocess_request
+    total = dict.fromkeys(K.KERNELS, 0)
+    for fam, pqls in families.items():
+        reqs = [preprocess_request(engine.segments, engine.optimizer
+                                   .optimize(compile_pql(p))) for p in pqls]
+
+        def batch():
+            blocks = engine.executor.execute_batch(reqs, engine.segments)
+            out = [engine.reducer.reduce(r, [b])
+                   for r, b in zip(reqs, blocks)]
+            torch.cuda.synchronize()
+            return out
+
+        K.reset_launch_counts()
+        engine.executor.reset_path_counts()
+        t = time.perf_counter()
+        resps = batch()
+        first_ms = (time.perf_counter() - t) * 1e3
+        launches = K.launch_counts()
+        paths = dict(engine.executor.path_counts)
+        for k, v in launches.items():
+            total[k] += v
+        K.reset_launch_counts()
+        engine.executor.reset_path_counts()
+        seq = [engine.query(p) for p in pqls]
+        torch.cuda.synchronize()
+        seq_launches = K.launch_counts()
+        seq_scans = engine.executor.path_counts["scan"]
+        for i, (pql, got, want) in enumerate(zip(pqls, resps, seq)):
+            if got.exceptions or want.exceptions:
+                raise AssertionError(f"{table} {fam} {i}: "
+                                     f"{got.exceptions or want.exceptions}")
+            if _member_rows(got) != _member_rows(want):
+                raise AssertionError(f"{table} {fam} member {i} differs "
+                                     f"from its own query: {pql[:120]}")
+            check(fam, i, got)
+        if fam != "mixed":
+            # on each segment, t >= 2 members whose plans share a compiled
+            # signature launch each of one plan's kernels once per chunk of
+            # <= 8; a plan of its own runs alone (the executor's grouping,
+            # its plans made again here)
+            chunks = alone = 0
+            for seg in engine.segments:
+                sigs = collections.Counter(
+                    batch_signature(engine.executor.plan_maker
+                                    .make_segment_plan(seg, r))
+                    for r in reqs if any(s is seg for s in
+                                         engine.executor.pruner.prune(
+                                             engine.segments, r)))
+                chunks += sum(-(-t // K.MAX_BATCH) for t in sigs.values()
+                              if t > 1)
+                alone += sum(t == 1 for t in sigs.values())
+            want = {}
+            for k, v in seq_launches.items():
+                if v:
+                    per_plan, rest = divmod(v, seq_scans)
+                    if rest:
+                        raise AssertionError(f"{table} {fam}: {k} launched "
+                                             f"{v} times over {seq_scans} "
+                                             "plans")
+                    if chunks:
+                        want[f"{k}_batched"] = per_plan * chunks
+                    if alone:
+                        want[k] = per_plan * alone
+            got_l = {k: v for k, v in launches.items() if v}
+            if got_l != want:
+                raise AssertionError(f"{table} {fam}: batched launches "
+                                     f"{got_l}, expected {want} (the "
+                                     f"members' own: {seq_launches})")
+        ts = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            batch()
+            ts.append((time.perf_counter() - t) * 1e3)
+        seq_p50 = []
+        for pql in pqls:
+            st = []
+            for _ in range(repeats):
+                t = time.perf_counter()
+                engine.query(pql)
+                torch.cuda.synchronize()
+                st.append((time.perf_counter() - t) * 1e3)
+            seq_p50.append(float(np.median(st)))
+        emit({"phase": "batch", "table": table, "family": fam,
+              "members": len(pqls), "check": "pass",
+              "first_ms": first_ms, "p50_ms": float(np.median(ts)),
+              "sequential_p50_sum_ms": float(np.sum(seq_p50)),
+              "sequential_p50_ms": seq_p50, "paths": paths,
+              "launches": {k: v for k, v in launches.items() if v}})
+    return total
+
+
+def ssb_batch_families(table):
+    """The SSB batch families (tools/ssb.py:q1_batches) and their
+    oracle."""
+    from pinot_tpu_torch.tools.ssb import Q1_TEMPLATES, canon_response, \
+        check, q1_batches, q1_revenue
+    lits = q1_batches()
+    families = {f: [Q1_TEMPLATES[f].format(**x) for x in ls]
+                for f, ls in lits.items()}
+
+    def check_member(fam, i, resp):
+        check(fam, canon_response(fam, resp),
+              q1_revenue(table.pools, table.ids, fam, lits[fam][i]))
+    return families, check_member
+
+
+def vec_batch_families(engine, queries, oracle, exact, rows):
+    """The vector batch families: the 8 query vectors under COSINE and
+    DOT, exact and at each nprobe, and queries[0] filtered at rid < 10,
+    20 and 30% of the rows; exact members are checked against the oracle
+    bit for bit (the probed ones against their own queries only, which
+    run_batch does)."""
+    from pinot_tpu_torch.tools import vecdata
+    # the oracle keeps the last query's dot trees: queries[0] (run_vector's
+    # last) first, then each new query under both metrics
+    cuts = [rows * p // 10 for p in (1, 2, 3)]
+    families = {"COSINE exact filtered": [
+        _vec_pql(queries[0], "COSINE", 0, f"WHERE rid < {c}") for c in cuts]}
+    want = {"COSINE exact filtered": [
+        oracle.topk(queries[0], vecdata.K, "COSINE", [
+            s.data_source("rid").dictionary.values[
+                s.data_source("rid").dict_ids] < c for s in engine.segments])
+        for c in cuts]}
+    exact = dict(exact)
+    for qi, q in enumerate(queries):
+        for metric in ("COSINE", "DOT"):
+            if (qi, metric) not in exact:
+                exact[(qi, metric)] = oracle.topk(q, vecdata.K, metric)
+    for metric in ("COSINE", "DOT"):
+        for nprobe in (0,) + vecdata.NPROBES:
+            fam = f"{metric} {'exact' if not nprobe else f'nprobe={nprobe}'}"
+            families[fam] = [_vec_pql(q, metric, nprobe) for q in queries]
+            if not nprobe:
+                want[fam] = [exact[(qi, metric)]
+                             for qi in range(len(queries))]
+
+    def check_member(fam, i, resp):
+        if fam in want:
+            got = [(int(r[1]), r[2], float(r[3]))
+                   for r in resp.selection_results.results]
+            if got != want[fam][i]:
+                raise AssertionError(f"vector batch {fam} member {i} "
+                                     "differs from the oracle")
+    return families, check_member
 
 
 def main() -> int:
@@ -1710,6 +2238,7 @@ def main() -> int:
     ap.add_argument("--vec-segments", type=int, default=4)
     ap.add_argument("--vec-dim", type=int, default=128)
     ap.add_argument("--vec-queries", type=int, default=5)
+    ap.add_argument("--batch-repeats", type=int, default=3)
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1788,6 +2317,15 @@ def main() -> int:
                                       for s in engine.segments),
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "launches": ssb_st_launches})
+    # cross-query batches over the same segments
+    t0 = time.perf_counter()
+    batch_entries = batch_kernel_check_ssb(engine.segments[0])
+    seconds["ssb_batch_kernel_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    families, check_member = ssb_batch_families(table)
+    batch_launches = run_batch("ssb", engine, families, check_member,
+                               args.batch_repeats)
+    seconds["ssb_batch"] = time.perf_counter() - t0
     del engine, st_engine, stack, table, oracle
     torch.cuda.empty_cache()
 
@@ -1854,6 +2392,19 @@ def main() -> int:
             QueryEngine(engine.segments, mesh=make_mesh()), bb_answered,
             oracle, args.repeats, bb_p50)
         seconds["baseball_stacked"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch_entries.update(batch_kernel_check_bb(engine.segments[0]))
+        seconds["bb_batch_kernel_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        draws = baseball.batch_draws(oracle)
+        launches = run_batch(
+            "baseball", engine, {f: [d.pql for d in ds]
+                                 for f, ds in draws.items()},
+            lambda f, i, resp: baseball.check(resp, oracle, draws[f][i]),
+            args.batch_repeats)
+        batch_launches = {k: v + launches[k]
+                          for k, v in batch_launches.items()}
+        seconds["baseball_batch"] = time.perf_counter() - t0
     del engine, raw_engine, mv_engine
     torch.cuda.empty_cache()
 
@@ -1871,9 +2422,25 @@ def main() -> int:
         stacked_entries.update(vec_stacked)
         seconds["vector_kernel_check"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        vec_launches = run_vector(vec_engine, vec_st_engine, queries, args,
-                                  args.repeats)
+        vec_launches, vec_oracle, vec_exact = run_vector(
+            vec_engine, vec_st_engine, queries, args, args.repeats)
         seconds["vector"] = time.perf_counter() - t0
+        # 8 members: the script's query vectors and more drawn after them
+        batch_queries = queries + draws.queries(
+            max(0, K.MAX_BATCH - len(queries)))
+        t0 = time.perf_counter()
+        batch_entries.update(batch_kernel_check_vec(vec_engine.segments[0],
+                                                    batch_queries))
+        seconds["vec_batch_kernel_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        families, check_member = vec_batch_families(
+            vec_engine, batch_queries, vec_oracle, vec_exact,
+            sum(s.num_docs for s in vec_engine.segments))
+        launches = run_batch("vecbench", vec_engine, families, check_member,
+                             args.batch_repeats)
+        batch_launches = {k: v + launches[k]
+                          for k, v in batch_launches.items()}
+        seconds["vector_batch"] = time.perf_counter() - t0
         emit({"phase": "vector_summary", "rows": args.vec_rows,
               "segment_device_bytes": sum(s.device_bytes()
                                           for s in vec_engine.segments),
@@ -1882,12 +2449,33 @@ def main() -> int:
                   for st in vec_st_engine.sharded._stacks.values()),
               "peak_device_bytes": torch.cuda.max_memory_allocated()})
         del vec_engine, vec_st_engine
+    unused = [k for k, v in batch_launches.items()
+              if k.endswith("_batched") and not v]
+    if unused:
+        raise AssertionError(f"batched kernels never launched by the batch "
+                             f"phases: {unused}")
     emit({"phase": "timing", "seconds": seconds,
           "total_seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)
     line = []
     for name, info in K.KERNELS.items():
+        if name.endswith("_batched"):
+            e = batch_entries[name[:-len("_batched")]]
+            line.append({"name": name, "route": "cuda",
+                         "source": info.source, "replaces": info.replaces,
+                         "launches": batch_launches[name],
+                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                         "plain_ms": e["plain_ms"],
+                         "bound_ms": e["bound_ms"],
+                         "bound_by": e["bound_by"],
+                         "library_ms": e["library_ms"],
+                         "batch_members": BATCH_SIZES[-1],
+                         "b_single_ms": e["b_single_ms"],
+                         "stacked_launches": None, "stacked_ms": None,
+                         "stacked_s_sequential_ms": None,
+                         "stacked_bound_ms": None})
+            continue
         e, st = entries[name], stacked_entries[name]
         st_launches = ssb_st_launches[name] + bb_st_launches[name] + \
             vec_launches["stacked"][name]
@@ -1895,7 +2483,8 @@ def main() -> int:
                      "replaces": info.replaces,
                      "launches": ssb_launches[name] + bb_launches[name] +
                      vec_build_launches[name] +
-                     vec_launches["per_segment"][name] + st_launches,
+                     vec_launches["per_segment"][name] + st_launches +
+                     batch_launches[name],
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],

@@ -58,6 +58,18 @@
 // of the lane table, the probe ids and ok flags, whose indices are its two
 // parameter words.
 // The host checks that the stack never holds more than 32 bits.
+//
+// Batched members (the counterpart of the vmap over a query axis in
+// pinot_tpu/ops/kernels.py:get_batched_segment_kernel, :1672): up to 8
+// queries of one compiled plan share the program's nodes and differ only
+// in their parameters; member b's parameter block follows member b - 1's.
+// One thread still evaluates one row, for every member: each leaf reads
+// its lane element once and compares it with each member's constants, and
+// each member keeps its own bit stack in a register. The outputs are one
+// mask row per member, [B][padded], and the members' match counts. An
+// ivf_probe leaf reads member b's probe ids and ok flags at row b of the
+// [B][nprobe] lanes that the batched K9 wrote (the member takes the place
+// of the segment of the stacked form).
 
 #include "common.cuh"
 
@@ -259,6 +271,146 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
   if constexpr (kStacked) flush();
 }
 
+
+constexpr int kMaxMembers = 8;
+
+// One leaf for every member: the lane element (a [width] row for an MV
+// lane) is read once; member b's constants are at p + b * pw.
+template <bool kGeneral>
+__device__ __forceinline__ void eval_leaf_members(const void* const* lanes, const void* lane,
+                                                  int op, int elem, int width, long long row,
+                                                  const int* p, int pw, int arg, int nb,
+                                                  unsigned* bits) {
+  if constexpr (kGeneral) {
+    if (op == kIvfProbe) {
+      const int a = read_id(lane, elem, row);
+#pragma unroll
+      for (int b = 0; b < kMaxMembers; ++b) {
+        if (b >= nb) break;
+        const int* ids = static_cast<const int*>(lanes[p[0]]) + b * arg;
+        const uint8_t* ok = static_cast<const uint8_t*>(lanes[p[1]]) + b * arg;
+        unsigned hit = 0u;
+        for (int i = 0; i < arg; ++i) hit |= static_cast<unsigned>(a == ids[i] && ok[i] != 0);
+        bits[b] = hit;
+      }
+      return;
+    }
+    if (op >= kEqRaw) {
+#define PINOT_RAW_MEMBERS(T)                                               \
+  {                                                                        \
+    const T v = static_cast<const T*>(lane)[row];                          \
+    _Pragma("unroll") for (int b = 0; b < kMaxMembers; ++b) {              \
+      if (b >= nb) break;                                                  \
+      bits[b] = eval_raw<T>(op, v, p + b * pw, arg);                       \
+    }                                                                      \
+    return;                                                                \
+  }
+      switch (elem) {
+        case kI32: PINOT_RAW_MEMBERS(int32_t)
+        case kI64: PINOT_RAW_MEMBERS(long long)
+        case kF32: PINOT_RAW_MEMBERS(float)
+        default: PINOT_RAW_MEMBERS(double)
+      }
+#undef PINOT_RAW_MEMBERS
+    }
+    if (width > 1) {
+      // dictId leaf over an MV lane: a member matches when any entry does
+#pragma unroll
+      for (int b = 0; b < kMaxMembers; ++b) bits[b] = 0u;
+      const long long base = row * width;
+      for (int j = 0; j < width; ++j) {
+        const int v = read_id(lane, elem, base + j);
+#pragma unroll
+        for (int b = 0; b < kMaxMembers; ++b) {
+          if (b >= nb) break;
+          bits[b] |= eval_id(op, v, p + b * pw, arg);
+        }
+      }
+      return;
+    }
+  }
+  const int v = read_id(lane, elem, row);
+#pragma unroll
+  for (int b = 0; b < kMaxMembers; ++b) {
+    if (b >= nb) break;
+    bits[b] = eval_id(op, v, p + b * pw, arg);
+  }
+}
+
+// nb members over one segment of num_docs live rows: member b's mask row
+// at out + b * padded, its matches added into matched[b].
+template <bool kGeneral>
+__global__ void filter_mask_batched_kernel(Lanes lanes, const int* __restrict__ prog,
+                                           int n_nodes, int n_words, int pw, int nb,
+                                           int staged, long long padded, long long num_docs,
+                                           uint8_t* __restrict__ out,
+                                           int* __restrict__ matched) {
+  extern __shared__ int smem[];
+  __shared__ int scratch[32];
+  __shared__ const void* s_lanes[kMaxLanes];
+  if (threadIdx.x < kMaxLanes) {
+#pragma unroll
+    for (int i = 0; i < kMaxLanes; ++i)
+      if (threadIdx.x == i) s_lanes[i] = lanes.ptr[i];
+  }
+  const int* buf = prog;
+  if (staged) {
+    for (int i = threadIdx.x; i < n_words; i += blockDim.x) smem[i] = prog[i];
+    buf = smem;
+  }
+  __syncthreads();
+  const int* params = buf + kNodeWords * n_nodes;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  int count[kMaxMembers];
+#pragma unroll
+  for (int b = 0; b < kMaxMembers; ++b) count[b] = 0;
+  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       row < padded; row += step) {
+    unsigned stack[kMaxMembers];
+#pragma unroll
+    for (int b = 0; b < kMaxMembers; ++b) stack[b] = 0u;
+    if (row < num_docs) {
+      for (int n = 0; n < n_nodes; ++n) {
+        const int* node = buf + kNodeWords * n;
+        const int op = node[0], arg = node[3];
+        if (op == kAnd || op == kOr) {
+          const unsigned m = (1u << arg) - 1u;
+#pragma unroll
+          for (int b = 0; b < kMaxMembers; ++b) {
+            const unsigned kids = stack[b] & m;
+            const unsigned bit = op == kAnd ? (kids == m) : (kids != 0u);
+            stack[b] = ((stack[b] >> arg) << 1) | bit;
+          }
+        } else if (op == kTrue || op == kFalse) {
+#pragma unroll
+          for (int b = 0; b < kMaxMembers; ++b) stack[b] = (stack[b] << 1) | (op == kTrue);
+        } else {
+          unsigned bits[kMaxMembers];
+          eval_leaf_members<kGeneral>(s_lanes, s_lanes[node[1]], op, node[4], node[5], row,
+                                      params + node[2], pw, arg, nb, bits);
+#pragma unroll
+          for (int b = 0; b < kMaxMembers; ++b)
+            if (b < nb) stack[b] = (stack[b] << 1) | bits[b];
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kMaxMembers; ++b) {
+      if (b < nb) {
+        out[b * padded + row] = static_cast<uint8_t>(stack[b] & 1u);
+        count[b] += static_cast<int>(stack[b] & 1u);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kMaxMembers; ++b) {
+    if (b < nb) {                       // uniform across the block
+      const int c = pinot::block_sum(count[b], scratch);
+      if (threadIdx.x == 0 && c != 0) atomicAdd(matched + b, c);
+    }
+  }
+}
+
 }  // namespace
 
 // general: the program has a raw leaf or a leaf over an MV lane.
@@ -288,5 +440,30 @@ extern "C" int pinot_filter_mask(const void* const* lane_ptrs, int n_lanes,
            static_cast<cudaStream_t>(stream)>>>(
       lanes, prog, n_nodes, n_words, staged, padded, seg_rows, seg_docs, num_docs,
       static_cast<uint8_t*>(out), seg_matched);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// prog: the nodes, then n_members parameter blocks of param_words words
+// each; out uint8 [n_members][padded], matched int32 [n_members], zeroed.
+extern "C" int pinot_filter_mask_batched(const void* const* lane_ptrs, int n_lanes,
+                                         const int* prog, int n_nodes, int param_words,
+                                         int n_members, int general, long long padded,
+                                         long long num_docs, void* out, int* matched,
+                                         void* stream) {
+  if (n_lanes < 0 || n_lanes > kMaxLanes || n_nodes < 1 || param_words < 0 ||
+      n_members < 1 || n_members > kMaxMembers || padded < 1)
+    return -1;
+  Lanes lanes{};
+  for (int i = 0; i < n_lanes; ++i) lanes.ptr[i] = lane_ptrs[i];
+  const long long words = static_cast<long long>(kNodeWords) * n_nodes +
+                          static_cast<long long>(param_words) * n_members;
+  const int staged = words <= kMaxSmemWords ? 1 : 0;
+  const size_t smem = staged ? static_cast<size_t>(words) * sizeof(int) : 0;
+  const auto kernel = general ? filter_mask_batched_kernel<true>
+                              : filter_mask_batched_kernel<false>;
+  kernel<<<pinot::grid_for(kernel, padded, smem), pinot::kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      lanes, prog, n_nodes, static_cast<int>(words), param_words, n_members, staged, padded,
+      num_docs, static_cast<uint8_t*>(out), matched);
   return static_cast<int>(cudaGetLastError());
 }

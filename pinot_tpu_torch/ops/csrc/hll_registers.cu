@@ -19,6 +19,11 @@
 // them with shared atomicMax, and merges the non-zero registers into the
 // zeroed device registers with one atomicMax each. Integer max does not
 // depend on the order, so the result is exact.
+//
+// Batched members (the vmap over a query axis of
+// pinot_tpu/ops/kernels.py:get_batched_segment_kernel, :1672): the grid's
+// y index is the member; block (x, b) reads member b's histogram row and
+// the shared tables, and writes member b's registers.
 
 #include "common.cuh"
 
@@ -33,6 +38,8 @@ __global__ void hll_registers_kernel(const int* __restrict__ hist,
                                      int card_pad, int m,
                                      int* __restrict__ out) {
   extern __shared__ int regs[];
+  hist += blockIdx.y * static_cast<long long>(card_pad);   // member blockIdx.y
+  out += blockIdx.y * static_cast<long long>(m);
   for (int r = threadIdx.x; r < m; r += blockDim.x) regs[r] = 0;
   __syncthreads();
   const int step = gridDim.x * blockDim.x;
@@ -46,18 +53,32 @@ __global__ void hll_registers_kernel(const int* __restrict__ hist,
     if (regs[r] > 0) atomicMax(out + r, regs[r]);
 }
 
-}  // namespace
-
-extern "C" int pinot_hll_registers(const void* hist, const void* idx,
-                                   const void* rank, int card_pad, int m,
-                                   void* out, void* stream) {
-  if (card_pad < 1 || m < 1 || m > kMaxRegisters) return -1;
+int launch(const void* hist, const void* idx, const void* rank, int card_pad,
+           int m, int n_members, void* out, void* stream) {
+  if (card_pad < 1 || m < 1 || m > kMaxRegisters || n_members < 1 ||
+      n_members > 65535)
+    return -1;
   long long blocks = (card_pad + pinot::kThreads - 1) / pinot::kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  hll_registers_kernel<<<static_cast<unsigned>(blocks), pinot::kThreads,
+  hll_registers_kernel<<<dim3(static_cast<unsigned>(blocks), n_members), pinot::kThreads,
                          static_cast<size_t>(m) * sizeof(int),
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(hist), static_cast<const int*>(idx),
       static_cast<const int*>(rank), card_pad, m, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int pinot_hll_registers(const void* hist, const void* idx,
+                                   const void* rank, int card_pad, int m,
+                                   void* out, void* stream) {
+  return launch(hist, idx, rank, card_pad, m, 1, out, stream);
+}
+
+// hist int32 [n_members][card_pad]; out int32 [n_members][m], zeroed.
+extern "C" int pinot_hll_registers_batched(const void* hist, const void* idx,
+                                           const void* rank, int card_pad, int m,
+                                           int n_members, void* out, void* stream) {
+  return launch(hist, idx, rank, card_pad, m, n_members, out, stream);
 }

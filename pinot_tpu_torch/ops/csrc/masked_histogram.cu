@@ -44,6 +44,9 @@ __global__ void masked_histogram_kernel(const uint8_t* __restrict__ mask,
                                         int* __restrict__ total) {
   extern __shared__ int bins[];
   __shared__ int scratch[32];
+  mask += blockIdx.y * padded;                       // member blockIdx.y
+  out += blockIdx.y * static_cast<long long>(card_pad);
+  if (total != nullptr) total += blockIdx.y;
   int* table = out;
   if (use_smem) {
     for (int b = threadIdx.x; b < card_pad; b += blockDim.x) bins[b] = 0;
@@ -74,14 +77,12 @@ __global__ void masked_histogram_kernel(const uint8_t* __restrict__ mask,
   }
 }
 
-}  // namespace
-
-extern "C" int pinot_masked_histogram(const void* mask, const void* ids,
-                                      int elem, long long padded, int width,
-                                      int limit, int card_pad, void* out,
-                                      void* total, void* stream) {
+int launch(const void* mask, const void* ids, int elem, long long padded,
+           int width, int limit, int card_pad, int n_members, void* out,
+           void* total, void* stream) {
   if (card_pad < 1 || width < 1 || limit < 0 || limit > card_pad ||
-      elem < pinot::kI8 || elem > pinot::kI32)
+      elem < pinot::kI8 || elem > pinot::kI32 || n_members < 1 ||
+      n_members > 65535)
     return -1;
   const int use_smem = card_pad <= kMaxSmemBins ? 1 : 0;
   const size_t smem = use_smem ? static_cast<size_t>(card_pad) * sizeof(int) : 0;
@@ -91,10 +92,32 @@ extern "C" int pinot_masked_histogram(const void* mask, const void* ids,
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  const int grid = pinot::grid_for(masked_histogram_kernel, padded, smem);
+  const int wave = pinot::grid_for(masked_histogram_kernel, padded, smem);
+  const dim3 grid((wave + n_members - 1) / n_members, n_members);
   masked_histogram_kernel<<<grid, pinot::kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), ids, elem, padded, width, limit,
       card_pad, use_smem, static_cast<int*>(out), static_cast<int*>(total));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int pinot_masked_histogram(const void* mask, const void* ids,
+                                      int elem, long long padded, int width,
+                                      int limit, int card_pad, void* out,
+                                      void* total, void* stream) {
+  return launch(mask, ids, elem, padded, width, limit, card_pad, 1, out,
+                total, stream);
+}
+
+// mask uint8 [n_members][padded]; out int32 [n_members][card_pad] and
+// total int32 [n_members] (or null), zeroed.
+extern "C" int pinot_masked_histogram_batched(const void* mask, const void* ids,
+                                              int elem, long long padded,
+                                              int width, int limit, int card_pad,
+                                              int n_members, void* out,
+                                              void* total, void* stream) {
+  return launch(mask, ids, elem, padded, width, limit, card_pad, n_members,
+                out, total, stream);
 }

@@ -28,6 +28,13 @@
 // >= 2^31 into row ranges below that bound (ops/kernels.py:
 // part_sum_range), one output row each, as the JAX `_part_sums` returns
 // block partials for such a segment (:276-279).
+//
+// Batched members (the vmap over a query axis of
+// pinot_tpu/ops/kernels.py:get_batched_segment_kernel, :1672): the grid's
+// y index is the member. Block (x, b) reads member b's mask row (mask + b
+// * padded) and the shared part lanes, and adds into member b's output
+// rows; each member keeps its exact row ranges. The x grid is one wave
+// split over the members, so the launch still fills the card once.
 
 #include "common.cuh"
 
@@ -48,6 +55,8 @@ __global__ void masked_part_sums_kernel(const uint8_t* __restrict__ mask,
                                         long long padded, long long seg_rows,
                                         int* __restrict__ out) {
   __shared__ int scratch[32];
+  mask += blockIdx.y * padded;                       // member blockIdx.y
+  out += blockIdx.y * (padded / seg_rows) * (n_parts + 1);
   int acc[kMaxParts];
 #pragma unroll
   for (int l = 0; l < kMaxParts; ++l) acc[l] = 0;
@@ -92,16 +101,12 @@ __global__ void masked_part_sums_kernel(const uint8_t* __restrict__ mask,
   flush();
 }
 
-}  // namespace
-
-// out: int32 [padded / seg_rows][n_parts + 1], zeroed.
-extern "C" int pinot_masked_part_sums(const void* mask,
-                                      const void* const* part_ptrs,
-                                      int n_parts, long long padded,
-                                      long long seg_rows, void* out,
-                                      void* stream) {
+int launch(const void* mask, const void* const* part_ptrs, int n_parts,
+           long long padded, long long seg_rows, int n_members, void* out,
+           void* stream) {
   if (n_parts < 0 || n_parts > kMaxParts || seg_rows < 1 ||
-      seg_rows % pinot::kThreads != 0 || padded % seg_rows != 0)
+      seg_rows % pinot::kThreads != 0 || padded % seg_rows != 0 ||
+      n_members < 1 || n_members > 65535)
     return -1;
   PartLanes parts{};
   for (int l = 0; l < n_parts; ++l)
@@ -110,9 +115,32 @@ extern "C" int pinot_masked_part_sums(const void* mask,
   // fixed 8 blocks per SM would leave a partial second wave
   const auto kernel = seg_rows < padded ? masked_part_sums_kernel<true>
                                         : masked_part_sums_kernel<false>;
-  kernel<<<pinot::grid_for(kernel, padded, 0), pinot::kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
+  const int wave = pinot::grid_for(kernel, padded, 0);
+  const dim3 grid((wave + n_members - 1) / n_members, n_members);
+  kernel<<<grid, pinot::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), parts, n_parts, padded, seg_rows,
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out: int32 [padded / seg_rows][n_parts + 1], zeroed.
+extern "C" int pinot_masked_part_sums(const void* mask,
+                                      const void* const* part_ptrs,
+                                      int n_parts, long long padded,
+                                      long long seg_rows, void* out,
+                                      void* stream) {
+  return launch(mask, part_ptrs, n_parts, padded, seg_rows, 1, out, stream);
+}
+
+// mask uint8 [n_members][padded]; out int32 [n_members][padded /
+// seg_rows][n_parts + 1], zeroed.
+extern "C" int pinot_masked_part_sums_batched(const void* mask,
+                                              const void* const* part_ptrs,
+                                              int n_parts, long long padded,
+                                              long long seg_rows, int n_members,
+                                              void* out, void* stream) {
+  return launch(mask, part_ptrs, n_parts, padded, seg_rows, n_members, out,
+                stream);
 }

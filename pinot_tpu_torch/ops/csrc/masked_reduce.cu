@@ -32,6 +32,13 @@
 // they equal JAX bit for bit. The last block to finish
 // (a counter after a fence) decodes the words into the typed outputs and
 // the int32 count, so the result needs no second launch.
+//
+// Batched members (the vmap over a query axis of
+// pinot_tpu/ops/kernels.py:get_batched_segment_kernel, :1672): the grid's
+// y index is the member. Block (x, b) reads row block x of member b's
+// mask and of the shared lane, with member b's state words and outputs;
+// its sum runs in the single launch's order, so every member's partials
+// are bit for bit those of its own launch.
 
 #include <math.h>
 
@@ -82,6 +89,16 @@ __global__ void masked_reduce_kernel(const uint8_t* __restrict__ mask,
                                      void* __restrict__ out_min,
                                      void* __restrict__ out_max,
                                      int* __restrict__ out_count) {
+  // member blockIdx.y: its mask row, state words and outputs
+  const long long member = blockIdx.y;
+  const long long padded = static_cast<long long>(gridDim.x) * kRows;
+  const int out_bytes = is_ids || elem == pinot::kF32 ? 4 : 8;
+  mask += member * padded;
+  state += member * 5;
+  if (want_sum) sums += member * gridDim.x;
+  out_min = static_cast<char*>(out_min) + member * out_bytes;
+  out_max = static_cast<char*>(out_max) + member * out_bytes;
+  out_count += member;
   __shared__ double s_sum[kThreadsR / 32];
   __shared__ unsigned long long s_lo[kThreadsR / 32], s_hi[kThreadsR / 32];
   __shared__ int s_cnt[kThreadsR / 32], s_nan[kThreadsR / 32];
@@ -175,6 +192,24 @@ __global__ void masked_reduce_kernel(const uint8_t* __restrict__ mask,
   }
 }
 
+int launch(const void* mask, const void* lane, int elem, int width, int limit,
+           int is_ids, int card_pad, int want_sum, long long padded, int n_members,
+           void* state, void* sums, void* out_min, void* out_max, void* out_count,
+           void* stream) {
+  if (padded <= 0 || padded % kRows != 0 || elem < pinot::kI8 || elem > pinot::kF64 ||
+      width < 1 || (width > 1 && (!is_ids || want_sum)) || n_members < 1 ||
+      n_members > 65535)
+    return -1;
+  const long long blocks = padded / kRows;
+  masked_reduce_kernel<<<dim3(static_cast<unsigned>(blocks), n_members), kThreadsR, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), lane, elem, width, limit, is_ids, card_pad,
+      want_sum,
+      static_cast<unsigned long long*>(state), static_cast<double*>(sums), out_min,
+      out_max, static_cast<int*>(out_count));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int pinot_masked_reduce(const void* mask, const void* lane, int elem,
@@ -182,15 +217,19 @@ extern "C" int pinot_masked_reduce(const void* mask, const void* lane, int elem,
                                    int want_sum, long long padded, void* state,
                                    void* sums, void* out_min, void* out_max,
                                    void* out_count, void* stream) {
-  if (padded <= 0 || padded % kRows != 0 || elem < pinot::kI8 || elem > pinot::kF64 ||
-      width < 1 || (width > 1 && (!is_ids || want_sum)))
-    return -1;
-  const long long blocks = padded / kRows;
-  masked_reduce_kernel<<<static_cast<unsigned>(blocks), kThreadsR, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), lane, elem, width, limit, is_ids, card_pad,
-      want_sum,
-      static_cast<unsigned long long*>(state), static_cast<double*>(sums), out_min,
-      out_max, static_cast<int*>(out_count));
-  return static_cast<int>(cudaGetLastError());
+  return launch(mask, lane, elem, width, limit, is_ids, card_pad, want_sum, padded, 1,
+                state, sums, out_min, out_max, out_count, stream);
+}
+
+// mask uint8 [n_members][padded]; state int64 [n_members][5], zeroed;
+// sums float64 [n_members][padded / 8192]; out_min / out_max / out_count
+// [n_members] each.
+extern "C" int pinot_masked_reduce_batched(const void* mask, const void* lane, int elem,
+                                           int width, int limit, int is_ids,
+                                           int card_pad, int want_sum, long long padded,
+                                           int n_members, void* state, void* sums,
+                                           void* out_min, void* out_max, void* out_count,
+                                           void* stream) {
+  return launch(mask, lane, elem, width, limit, is_ids, card_pad, want_sum, padded,
+                n_members, state, sums, out_min, out_max, out_count, stream);
 }

@@ -49,6 +49,13 @@
 // finish), docids count from each segment's first row, and the outputs
 // are [n_segs][k] per-segment top-k (the host merges them). One segment
 // is n_segs = 1.
+// Batched members (the vmap over a query axis of
+// pinot_tpu/ops/kernels.py:get_batched_segment_kernel, :1672) take the
+// same segment axis: member b's mask row is segment b, and each key or
+// gather lane has its own stride between segments, seg_rows for a stack,
+// 0 for a lane the members share (the segment's columns), padded for a
+// lane that is the member's own (K8's scores of the vector kind). Ties go
+// to the lower docid per member, as in the single launch.
 // Every launch runs on the caller's stream; the host function returns the
 // first non-zero cudaGetLastError. The tile size and the scratch size are
 // decided here only: the wrapper asks pinot_masked_select_scratch_words
@@ -71,6 +78,7 @@ enum Mode : int { kPack = 0, kId = 1, kMono = 2, kMonoClamp = 3 };
 
 struct Terms {
   const void* lane[kMaxTerms];
+  long long stride[kMaxTerms];   // rows between one segment's lane and the next
   int elem[kMaxTerms];
   int mode[kMaxTerms];
   int card_pad[kMaxTerms];
@@ -79,19 +87,21 @@ struct Terms {
 
 struct Gathers {
   const unsigned char* lane[kMaxGathers];
+  long long stride[kMaxGathers];
   unsigned char* out[kMaxGathers];
   int row_bytes[kMaxGathers];
   unsigned zero_invalid;     // bit g: gather g writes zeros after the valid rows
 };
 
-// The row's key words as the JAX function computes them, most significant
-// first, mapped to unsigned order.
-__device__ __forceinline__ void key_words(const Terms& t, int n_terms, long long row,
-                                          uint32_t* out) {
+// Document doc of segment seg: its key words as the JAX function computes
+// them, most significant first, mapped to unsigned order.
+__device__ __forceinline__ void key_words(const Terms& t, int n_terms, long long seg,
+                                          long long doc, uint32_t* out) {
   int32_t w[kMaxWords];
   int n = 0;
   for (int i = 0; i < n_terms; ++i) {
     const int mode = t.mode[i];
+    const long long row = seg * t.stride[i] + doc;
     if (mode == kPack) {
       // key = key * card_pad + (asc ? id : card_pad - 1 - id), int32 wrap
       const int id = pinot::read_id(t.lane[i], t.elem[i], row);
@@ -154,7 +164,7 @@ __global__ void __launch_bounds__(kSortThreads)
     if (hit) {
       const int pos = first + __popc(ballot & ((1u << lane) - 1u));
       uint32_t w[kMaxWords];
-      key_words(terms, n_terms, row, w);
+      key_words(terms, n_terms, blockIdx.y, doc, w);
       for (int j = 0; j < n_words; ++j) keys[j * tile + pos] = w[j];
       keys[n_words * tile + pos] = static_cast<uint32_t>(doc);
     }
@@ -258,10 +268,10 @@ __global__ void select_finish_kernel(const uint32_t* __restrict__ lists, int n_s
     const uint32_t d = i < len ? list[static_cast<long long>(i) * width + width - 1] : kSentinel;
     const int doc = d == kSentinel ? -1 : static_cast<int>(d);
     docids[o] = doc;
-    const long long safe = seg * seg_rows + (doc < 0 ? 0 : doc);
+    const long long safe = doc < 0 ? 0 : doc;
     for (int g = 0; g < n_gathers; ++g) {
       const int rb = gathers.row_bytes[g];
-      const unsigned char* src = gathers.lane[g] + safe * rb;
+      const unsigned char* src = gathers.lane[g] + (seg * gathers.stride[g] + safe) * rb;
       unsigned char* dst = gathers.out[g] + o * rb;
       const bool zero = doc < 0 && ((gathers.zero_invalid >> g) & 1u);
       for (int b = 0; b < rb; ++b) dst[b] = zero ? 0 : src[b];
@@ -305,16 +315,14 @@ extern "C" int pinot_masked_select_tile_rows(int n_words) {
   return select_tile_rows(n_words + 1);
 }
 
-// The lanes hold n_segs segments of seg_rows rows; docids int32
-// [n_segs][k], count int32 [n_segs] (zeroed), gather outputs [n_segs][k]
-// rows.
-extern "C" int pinot_masked_select(
-    const void* mask, long long seg_rows, int n_segs, int k, const void** term_lanes,
-    const int* term_elems, const int* term_modes, const int* term_card_pads,
-    const int* term_asc, int n_terms, int n_words, const void** gather_lanes,
-    const int* gather_row_bytes, void** gather_outs, int n_gathers, int zero_invalid,
-    void* scratch,
-    long long scratch_words, void* docids, void* count, void* stream) {
+namespace {
+
+int launch(const void* mask, long long seg_rows, int n_segs, int k, const void** term_lanes,
+           const long long* term_strides, const int* term_elems, const int* term_modes,
+           const int* term_card_pads, const int* term_asc, int n_terms, int n_words,
+           const void** gather_lanes, const long long* gather_strides,
+           const int* gather_row_bytes, void** gather_outs, int n_gathers, int zero_invalid,
+           void* scratch, long long scratch_words, void* docids, void* count, void* stream) {
   if (n_terms < 0 || n_terms > kMaxTerms || n_words < 0 || n_words > kMaxWords ||
       n_gathers < 0 || n_gathers > kMaxGathers || k < 1 || k > seg_rows || n_segs < 1 ||
       n_segs > 65535)
@@ -328,6 +336,7 @@ extern "C" int pinot_masked_select(
   Terms terms = {};
   for (int i = 0; i < n_terms; ++i) {
     terms.lane[i] = term_lanes[i];
+    terms.stride[i] = term_strides ? term_strides[i] : seg_rows;
     terms.elem[i] = term_elems[i];
     terms.mode[i] = term_modes[i];
     terms.card_pad[i] = term_card_pads[i];
@@ -337,6 +346,7 @@ extern "C" int pinot_masked_select(
   gathers.zero_invalid = static_cast<unsigned>(zero_invalid);
   for (int g = 0; g < n_gathers; ++g) {
     gathers.lane[g] = static_cast<const unsigned char*>(gather_lanes[g]);
+    gathers.stride[g] = gather_strides ? gather_strides[g] : seg_rows;
     gathers.out[g] = static_cast<unsigned char*>(gather_outs[g]);
     gathers.row_bytes[g] = gather_row_bytes[g];
   }
@@ -372,4 +382,40 @@ extern "C" int pinot_masked_select(
                          0, s>>>(src, n_segs, seg_rows, len, width, k, gathers, n_gathers,
                                  static_cast<int*>(docids));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The lanes hold n_segs segments of seg_rows rows; docids int32
+// [n_segs][k], count int32 [n_segs] (zeroed), gather outputs [n_segs][k]
+// rows.
+extern "C" int pinot_masked_select(
+    const void* mask, long long seg_rows, int n_segs, int k, const void** term_lanes,
+    const int* term_elems, const int* term_modes, const int* term_card_pads,
+    const int* term_asc, int n_terms, int n_words, const void** gather_lanes,
+    const int* gather_row_bytes, void** gather_outs, int n_gathers, int zero_invalid,
+    void* scratch,
+    long long scratch_words, void* docids, void* count, void* stream) {
+  return launch(mask, seg_rows, n_segs, k, term_lanes, nullptr, term_elems, term_modes,
+                term_card_pads, term_asc, n_terms, n_words, gather_lanes, nullptr,
+                gather_row_bytes, gather_outs, n_gathers, zero_invalid, scratch,
+                scratch_words, docids, count, stream);
+}
+
+// n_members members of one segment of `padded` rows: mask uint8
+// [n_members][padded]; each key and gather lane with its stride between
+// members (0: shared, padded: the member's own rows); docids int32
+// [n_members][k], count int32 [n_members] (zeroed), gather outputs
+// [n_members][k] rows.
+extern "C" int pinot_masked_select_batched(
+    const void* mask, long long padded, int n_members, int k, const void** term_lanes,
+    const long long* term_strides, const int* term_elems, const int* term_modes,
+    const int* term_card_pads, const int* term_asc, int n_terms, int n_words,
+    const void** gather_lanes, const long long* gather_strides, const int* gather_row_bytes,
+    void** gather_outs, int n_gathers, int zero_invalid, void* scratch,
+    long long scratch_words, void* docids, void* count, void* stream) {
+  return launch(mask, padded, n_members, k, term_lanes, term_strides, term_elems, term_modes,
+                term_card_pads, term_asc, n_terms, n_words, gather_lanes, gather_strides,
+                gather_row_bytes, gather_outs, n_gathers, zero_invalid, scratch,
+                scratch_words, docids, count, stream);
 }

@@ -160,6 +160,16 @@ KERNELS: Dict[str, KernelInfo] = {
         "ivf_recenter", "pinot_tpu_torch/ops/csrc/ivf_recenter.cu",
         "pinot_tpu/ops/ivf_kernels.py:51"),
 }
+#: the batched forms: one launch serves up to MAX_BATCH members of one
+#: plan (the vmap of get_batched_segment_kernel), counted apart
+for _name in ("filter_mask", "masked_part_sums", "masked_histogram",
+              "masked_reduce", "masked_select", "masked_select_vector",
+              "hll_registers", "vector_scores", "ivf_probe_select"):
+    KERNELS[f"{_name}_batched"] = KernelInfo(
+        f"{_name}_batched", KERNELS[_name].source,
+        "pinot_tpu/ops/kernels.py:1672",
+        symbol=f"{KERNELS[_name].symbol or 'pinot_' + _name}_batched")
+del _name
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -188,6 +198,24 @@ _ARGTYPES = {
     "ivf_recenter": [_P, _P, _LL, _I, _P, _I, _P, _P, _P],
 }
 _ARGTYPES["masked_select_vector"] = _ARGTYPES["masked_select"]
+_FP = ctypes.POINTER(_F)
+_ARGTYPES.update({
+    "filter_mask_batched": [_PP, _I, _P, _I, _I, _I, _I, _LL, _LL, _P, _P,
+                            _P],
+    "masked_part_sums_batched": [_P, _PP, _I, _LL, _LL, _I, _P, _P],
+    "masked_histogram_batched": [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P,
+                                 _P],
+    "masked_reduce_batched": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _P,
+                              _P, _P, _P, _P, _P],
+    "masked_select_batched": [_P, _LL, _I, _I, _PP, _LLP, _IP, _IP, _IP,
+                              _IP, _I, _I, _PP, _LLP, _IP, _PP, _I, _I, _P,
+                              _LL, _P, _P, _P],
+    "hll_registers_batched": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "vector_scores_batched": [_P, _LL, _I, _P, _FP, _I, _I, _P, _P],
+    "ivf_probe_select_batched": [_P, _P, _I, _I, _I, _P, _FP, _I, _I, _I,
+                                 _P, _P, _P],
+})
+_ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 
 
 def reset_launch_counts() -> None:
@@ -318,8 +346,8 @@ def filter_param_count(filter_spec) -> int:
 
 def compile_filter(filter_spec, params: Sequence,
                    cols: Dict[str, torch.Tensor],
-                   probe_lanes: Optional[List[torch.Tensor]] = None
-                   ) -> Tuple[np.ndarray, int]:
+                   probe_lanes: Optional[List[torch.Tensor]] = None,
+                   probe=None) -> Tuple[np.ndarray, int]:
     """Flatten a filter spec and its params into the K1 program.
 
     Returns (buffer int32 [6 * n_nodes + n_param_words], n_nodes). Node =
@@ -327,9 +355,10 @@ def compile_filter(filter_spec, params: Sequence,
     filter_lane_keys(spec), elem the lane's element type code, width its
     values per row; the params follow the nodes, offsets count from their
     start. Raw constants are cast to the lane's dtype. An ivf_probe node
-    runs K9 on its codebook lanes here and appends the probe ids and ok
-    flags to `probe_lanes` (K1's lane table continues with them); its two
-    parameter words are their lane indices.
+    runs K9 on its codebook lanes here (or takes `probe(spec, q, q_norm)`'s
+    lanes) and appends the probe ids and ok flags to `probe_lanes` (K1's
+    lane table continues with them); its two parameter words are their
+    lane indices.
     """
     nodes: List[Tuple[int, ...]] = []
     words: List[int] = []
@@ -385,9 +414,10 @@ def compile_filter(filter_spec, params: Sequence,
                 q, q_norm = plist.pop(0), plist.pop(0)
                 nprobe, metric = spec[4]
                 col = spec[2]
-                ids, ok = ivf_select_probes(cols[f"{col}.ivfc"],
-                                            cols[f"{col}.ivfv"], q, q_norm,
-                                            metric, nprobe)
+                ids, ok = probe(spec, q, q_norm) if probe else \
+                    ivf_select_probes(cols[f"{col}.ivfc"],
+                                      cols[f"{col}.ivfv"], q, q_norm,
+                                      metric, nprobe)
                 first = len(lanes) + len(probe_lanes)
                 probe_lanes.extend([ids, ok])
                 words.extend([first, first + 1])
@@ -520,6 +550,118 @@ def filter_mask_stacked(padded: int, n_segs: int, filter_spec,
                           padded, seg_docs, 0, matched), matched
 
 
+MAX_BATCH = 8        # members a batched launch serves (filter_mask.cu)
+
+
+def _check_masks(masks: torch.Tensor) -> Tuple[int, int]:
+    """(B, P) of a batch's masks, uint8 [B, P] with 1 <= B <= MAX_BATCH."""
+    if masks.dim() != 2 or not 1 <= masks.shape[0] <= MAX_BATCH:
+        raise ValueError(f"masks have shape {tuple(masks.shape)}, expected "
+                         f"[B <= {MAX_BATCH}, P]")
+    _check_lane(masks[0], "mask", masks.shape[1], masks.device,
+                (torch.uint8,))
+    if not masks.is_contiguous():
+        raise ValueError("masks are not contiguous")
+    return masks.shape[0], masks.shape[1]
+
+
+def _batched_probes(filter_spec, params_list, cols) -> List[tuple]:
+    """The batched K9's (ids [B, nprobe], ok [B, nprobe]) of each
+    ivf_probe node, depth first: one launch per node for every member."""
+    out, pos = [], 0
+
+    def walk(spec) -> None:
+        nonlocal pos
+        if spec[0] in ("and", "or"):
+            for c in spec[1]:
+                walk(c)
+        elif spec[0] == "pred":
+            if spec[1] == "ivf_probe":
+                col, (nprobe, metric) = spec[2], spec[4]
+                out.append(ivf_select_probes_batched(
+                    cols[f"{col}.ivfc"], cols[f"{col}.ivfv"],
+                    [p[pos] for p in params_list],
+                    [p[pos + 1] for p in params_list], metric, nprobe))
+            pos += filter_param_count(spec)
+
+    walk(filter_spec)
+    return out
+
+
+def compile_filter_batched(filter_spec, params_list,
+                           cols: Dict[str, torch.Tensor],
+                           probe_lanes: List[torch.Tensor]
+                           ) -> Tuple[np.ndarray, int, int]:
+    """The K1 program of B members of one plan: (buffer, n_nodes, words
+    per member). The nodes are the members' common ones, then each
+    member's parameter block, all of one length. An ivf_probe node runs
+    the batched K9 once for all the members; its lanes ([B, nprobe] ids
+    and ok flags, appended to `probe_lanes`) are indexed by the member in
+    the kernel. Raises ValueError where the members' programs differ (in
+    lists of other lengths)."""
+    probes = _batched_probes(filter_spec, params_list, cols)
+    bufs = []
+    for params in params_list:
+        lanes: List[torch.Tensor] = []
+        pending = iter(probes)
+        buf, n_nodes = compile_filter(filter_spec, params, cols, lanes,
+                                      probe=lambda *_: next(pending))
+        bufs.append(buf)
+    node_words = _NODE_WORDS * n_nodes
+    for buf in bufs[1:]:
+        if buf.shape != bufs[0].shape or \
+                not np.array_equal(buf[:node_words], bufs[0][:node_words]):
+            raise ValueError("the batch's filter programs differ: its "
+                             "members do not share one compiled spec")
+    probe_lanes.extend(lanes)
+    return (np.concatenate([bufs[0][:node_words]] +
+                           [b[node_words:] for b in bufs]), n_nodes,
+            int(bufs[0].shape[0]) - node_words)
+
+
+def filter_mask_batched(padded: int, filter_spec,
+                        cols: Dict[str, torch.Tensor], params_list,
+                        num_docs: int, device=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 for B <= MAX_BATCH members of one plan, one launch: (uint8
+    masks [B, padded], int32 [B] matched rows), member b's under
+    params_list[b]. Each lane element is read once for every member."""
+    keys = filter_lane_keys(filter_spec)
+    device = _mask_device(keys, cols, device)
+    n = len(params_list)
+    if not 1 <= n <= MAX_BATCH:
+        raise ValueError(f"{n} members outside [1, {MAX_BATCH}]")
+    for key in keys:
+        _filter_lane_ok(cols[key], key, padded, device)
+    if device.type == "cpu":
+        return filter_mask_batched_plain(padded, filter_spec, cols,
+                                         params_list, num_docs, device)
+    probes: List[torch.Tensor] = []
+    buf, n_nodes, words = compile_filter_batched(filter_spec, params_list,
+                                                 cols, probes)
+    lanes = [cols[k] for k in keys] + probes
+    prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
+    out = torch.empty(n, padded, dtype=torch.uint8, device=device)
+    matched = torch.zeros(n, dtype=torch.int32, device=device)
+    general = any(not k.endswith(".ids") for k in keys)    # raw / MV
+    _launch("filter_mask_batched", device, _ptrs(lanes), len(lanes),
+            prog.data_ptr(), n_nodes, words, n, int(general), padded,
+            int(num_docs), out.data_ptr(), matched.data_ptr())
+    return out, matched
+
+
+def filter_mask_batched_plain(padded: int, filter_spec,
+                              cols: Dict[str, torch.Tensor], params_list,
+                              num_docs: int, device=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch batched K1: each member's plain mask, stacked, and
+    its row sums."""
+    masks = torch.stack([filter_mask_plain(padded, filter_spec, cols, p,
+                                           num_docs, device)
+                         for p in params_list])
+    return masks, masks.sum(dim=1, dtype=torch.int32)
+
+
 def filter_mask_stacked_plain(padded: int, n_segs: int, filter_spec,
                               cols: Dict[str, torch.Tensor], params: Sequence,
                               seg_docs: torch.Tensor, device=None
@@ -629,6 +771,16 @@ def _part_rows(part_lanes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return rows
 
 
+def _part_lane_rows(part_lanes, padded: int, device) -> List[torch.Tensor]:
+    """The [P] rows of K2's part lanes, checked."""
+    rows = _part_rows(part_lanes)
+    for k, r in enumerate(rows):
+        _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
+    if len(rows) > _MAX_PARTS:
+        raise ValueError(f"{len(rows)} part lanes > {_MAX_PARTS}")
+    return rows
+
+
 def part_sum_range(rows: int) -> int:
     """The rows of one K2 output row for a segment of `rows` rows: all of
     them while 127 * rows < 2^31, else the largest multiple of BLOCK (of
@@ -659,11 +811,7 @@ def masked_part_sums(mask: torch.Tensor,
     int64)."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
-    rows = _part_rows(part_lanes)
-    for k, r in enumerate(rows):
-        _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
-    if len(rows) > _MAX_PARTS:
-        raise ValueError(f"{len(rows)} part lanes > {_MAX_PARTS}")
+    rows = _part_lane_rows(part_lanes, padded, device)
     seg = padded if seg_rows is None else int(seg_rows)
     if seg < 1 or padded % seg or seg % 256:
         raise ValueError(f"{padded} rows do not split into segments of "
@@ -691,6 +839,38 @@ def masked_part_sums_plain(mask: torch.Tensor,
     count = m.sum(dim=1, dtype=torch.int32)[:, None]
     out = torch.cat(sums + [count], dim=1)
     return out[0] if seg_rows is None else out
+
+
+def masked_part_sums_batched(masks: torch.Tensor,
+                             part_lanes: Sequence[torch.Tensor]
+                             ) -> torch.Tensor:
+    """K2 for B members, one launch: int32 [B, L + 1], member b's sums
+    under masks[b]; past 127 * P >= 2^31, [B, R, L + 1] with one exact row
+    per range of part_sum_range(P) rows, as masked_part_sums gives one
+    member."""
+    n, padded = _check_masks(masks)
+    device = masks.device
+    rows = _part_lane_rows(part_lanes, padded, device)
+    if padded % 256:
+        raise ValueError(f"{padded} rows is not a multiple of 256")
+    per = part_sum_range(padded)
+    if device.type == "cpu":
+        out = masked_part_sums_batched_plain(masks, part_lanes, per)
+    else:
+        out = torch.zeros(n, padded // per, len(rows) + 1,
+                          dtype=torch.int32, device=device)
+        _launch("masked_part_sums_batched", device, masks.data_ptr(),
+                _ptrs(rows), len(rows), padded, per, n, out.data_ptr())
+    return out[:, 0] if per == padded else out
+
+
+def masked_part_sums_batched_plain(masks: torch.Tensor,
+                                   part_lanes: Sequence[torch.Tensor],
+                                   seg_rows: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """Plain PyTorch batched K2: each member's plain sums, stacked."""
+    return torch.stack([masked_part_sums_plain(m, part_lanes, seg_rows)
+                        for m in masks])
 
 
 # ---------------------------------------------------------------------------
@@ -1048,6 +1228,64 @@ def masked_entry_histogram_plain(mask: torch.Tensor, mv: torch.Tensor,
     return hist, keep.sum(dtype=torch.int32)
 
 
+def masked_histogram_batched(masks: torch.Tensor, ids: torch.Tensor,
+                             card_pad: int) -> torch.Tensor:
+    """K4 for B members, one launch: int32 [B, card_pad], member b's
+    counts under masks[b]."""
+    n, padded = _check_masks(masks)
+    device = masks.device
+    _check_lane(ids, "id lane", padded, device, _ID_DTYPES)
+    if not 1 <= card_pad <= INT32_MAX:
+        raise ValueError(f"card_pad {card_pad}")
+    if device.type == "cpu":
+        return masked_histogram_batched_plain(masks, ids, card_pad)
+    out = torch.zeros(n, card_pad, dtype=torch.int32, device=device)
+    _launch("masked_histogram_batched", device, masks.data_ptr(),
+            ids.data_ptr(), _ELEM[ids.dtype], padded, 1, int(card_pad),
+            int(card_pad), n, out.data_ptr(), None)
+    return out
+
+
+def masked_histogram_batched_plain(masks: torch.Tensor, ids: torch.Tensor,
+                                   card_pad: int) -> torch.Tensor:
+    """Plain PyTorch batched K4: each member's bincount, stacked."""
+    return torch.stack([masked_histogram_plain(m, ids, card_pad)
+                        for m in masks])
+
+
+def masked_entry_histogram_batched(masks: torch.Tensor, mv: torch.Tensor,
+                                   card_pad: int, card: int
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over an MV lane for B members, one launch: (int32 [B, card_pad]
+    entry counts, int32 [B] entries counted)."""
+    n, padded = _check_masks(masks)
+    device = masks.device
+    _check_lane(mv, "MV id lane", padded, device, _ID_DTYPES, 2)
+    if not 0 <= card < card_pad <= INT32_MAX:
+        raise ValueError(f"card {card} / card_pad {card_pad}")
+    if device.type == "cpu":
+        return masked_entry_histogram_batched_plain(masks, mv, card_pad,
+                                                    card)
+    out = torch.zeros(n, card_pad, dtype=torch.int32, device=device)
+    total = torch.zeros(n, dtype=torch.int32, device=device)
+    _launch("masked_histogram_batched", device, masks.data_ptr(),
+            mv.data_ptr(), _ELEM[mv.dtype], padded, mv.shape[1], int(card),
+            int(card_pad), n, out.data_ptr(), total.data_ptr())
+    return out, total
+
+
+def masked_entry_histogram_batched_plain(masks: torch.Tensor,
+                                         mv: torch.Tensor, card_pad: int,
+                                         card: int
+                                         ) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Plain PyTorch batched K4 over MV entries, stacked per member."""
+    outs = [masked_entry_histogram_plain(m, mv, card_pad, card)
+            for m in masks]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1]
+                                                           for o in outs])
+
+
 # ---------------------------------------------------------------------------
 # K5 masked_reduce
 # ---------------------------------------------------------------------------
@@ -1068,18 +1306,8 @@ def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
     sum of each row block."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
-    if kind not in ("ids", "raw"):
-        raise ValueError(f"masked_reduce kind {kind}")
-    is_mv = lane.dim() == 2
-    if is_mv and (kind != "ids" or want_sum or card is None or
-                  not 0 <= card <= card_pad):
-        raise ValueError("an MV lane takes kind 'ids' with its card and no "
-                         "sums")
-    _check_lane(lane, f"{kind} lane", padded, device,
-                _ID_DTYPES if kind == "ids" else _RAW_DTYPES,
-                2 if is_mv else 1)
-    if padded % BLOCK:
-        raise ValueError(f"{padded} rows is not a multiple of {BLOCK}")
+    is_mv = _check_reduce(lane, kind, card_pad, want_sum, card, padded,
+                          device)
     if device.type == "cpu":
         return masked_reduce_plain(mask, lane, kind, card_pad, want_sum,
                                    card)
@@ -1100,6 +1328,24 @@ def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
             out["min"].data_ptr(), out["max"].data_ptr(),
             out["count"].data_ptr())
     return out
+
+
+def _check_reduce(lane, kind, card_pad, want_sum, card, padded: int,
+                  device) -> bool:
+    """K5's operands checked; True for an MV lane."""
+    if kind not in ("ids", "raw"):
+        raise ValueError(f"masked_reduce kind {kind}")
+    is_mv = lane.dim() == 2
+    if is_mv and (kind != "ids" or want_sum or card is None or
+                  not 0 <= card <= card_pad):
+        raise ValueError("an MV lane takes kind 'ids' with its card and no "
+                         "sums")
+    _check_lane(lane, f"{kind} lane", padded, device,
+                _ID_DTYPES if kind == "ids" else _RAW_DTYPES,
+                2 if is_mv else 1)
+    if padded % BLOCK:
+        raise ValueError(f"{padded} rows is not a multiple of {BLOCK}")
+    return is_mv
 
 
 def masked_reduce_plain(mask: torch.Tensor, lane: torch.Tensor, kind: str,
@@ -1125,6 +1371,51 @@ def masked_reduce_plain(mask: torch.Tensor, lane: torch.Tensor, kind: str,
         out["sums"] = torch.where(m, lane.to(torch.float64), 0.0) \
             .reshape(-1, BLOCK).sum(dim=1)
     return out
+
+
+def masked_reduce_batched(masks: torch.Tensor, lane: torch.Tensor,
+                          kind: str, card_pad: int = 0,
+                          want_sum: bool = False,
+                          card: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """K5 for B members, one launch: masked_reduce's outputs with a
+    leading member axis ("min", "max", "count" [B]; "sums" float64 [B, P
+    / 8192]), each member's block sums in its own launch's order."""
+    n, padded = _check_masks(masks)
+    device = masks.device
+    is_mv = _check_reduce(lane, kind, card_pad, want_sum, card, padded,
+                          device)
+    if device.type == "cpu":
+        return masked_reduce_batched_plain(masks, lane, kind, card_pad,
+                                           want_sum, card)
+    out_dt = torch.int32 if kind == "ids" else \
+        (torch.float32 if lane.dtype == torch.float32 else torch.float64)
+    state = torch.zeros(n, 5, dtype=torch.int64, device=device)
+    out = {"min": torch.empty(n, dtype=out_dt, device=device),
+           "max": torch.empty(n, dtype=out_dt, device=device),
+           "count": torch.empty(n, dtype=torch.int32, device=device)}
+    if want_sum:
+        out["sums"] = torch.empty(n, padded // BLOCK, dtype=torch.float64,
+                                  device=device)
+    _launch("masked_reduce_batched", device, masks.data_ptr(),
+            lane.data_ptr(), _ELEM[lane.dtype], lane.shape[1] if is_mv else 1,
+            int(card) if is_mv else INT32_MAX, int(kind == "ids"),
+            int(card_pad), int(want_sum), padded, n, state.data_ptr(),
+            out["sums"].data_ptr() if want_sum else None,
+            out["min"].data_ptr(), out["max"].data_ptr(),
+            out["count"].data_ptr())
+    return out
+
+
+def masked_reduce_batched_plain(masks: torch.Tensor, lane: torch.Tensor,
+                                kind: str, card_pad: int = 0,
+                                want_sum: bool = False,
+                                card: Optional[int] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch batched K5: each member's plain outputs, stacked."""
+    outs = [masked_reduce_plain(m, lane, kind, card_pad, want_sum, card)
+            for m in masks]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1350,26 +1641,44 @@ def vector_topk_plain(scores: torch.Tensor, mask: torch.Tensor, k: int,
 
 def _masked_select(select_spec, cols, mask, n_segs=None,
                    zero_invalid: Sequence[str] = (),
-                   counter: str = "masked_select"
+                   counter: str = "masked_select",
+                   member_keys: Optional[Sequence[str]] = None
                    ) -> Dict[str, torch.Tensor]:
     """K6 for kinds limit / order / ordertk / ordermk; the gathered
     columns named in `zero_invalid` hold zeros after the valid rows, and
-    the launch counts under `counter`."""
+    the launch counts under `counter`.
+
+    With `member_keys` (a batch of B members of one plan, one launch
+    counted under counter + "_batched"): `mask` is uint8 [B, P], one row
+    per member; the lanes named in member_keys are the members' own,
+    flat [B * P] (K8's scores), the others the segment's [P], shared;
+    every output gains a leading member axis."""
     _kind, k, _order, gather_cols = select_spec
-    rows, device = mask.shape[0], mask.device
-    segs = 1 if n_segs is None else n_segs
-    if segs < 1 or rows % segs:
-        raise ValueError(f"{rows} rows do not split into {segs} segments")
-    padded = rows // segs
-    _check_mask(mask)
+    device = mask.device
+    batched = member_keys is not None
+    if batched:
+        segs, padded = _check_masks(mask)
+        own = {id(cols[key]) for key in member_keys}
+    else:
+        segs = 1 if n_segs is None else n_segs
+        if segs < 1 or mask.shape[0] % segs:
+            raise ValueError(f"{mask.shape[0]} rows do not split into "
+                             f"{segs} segments")
+        padded = mask.shape[0] // segs
+        own = set()
+        _check_mask(mask)
+
+    def rows_of(lane) -> int:
+        return segs * padded if not batched or id(lane) in own else padded
+
     terms = _select_terms(select_spec, cols)
     for lane, mode, *_ in terms:
-        _check_lane(lane, "order lane", rows, device,
+        _check_lane(lane, "order lane", rows_of(lane), device,
                     _ID_DTYPES if mode in (_PACK, _ID) else _RAW_DTYPES)
     gathers = []
     for col, source in gather_cols:
         lane = cols[gather_lane_key(col, source)]
-        _check_lane(lane, f"gather lane {col}", rows, device,
+        _check_lane(lane, f"gather lane {col}", rows_of(lane), device,
                     _RAW_DTYPES if source == "raw" else _ID_DTYPES,
                     2 if source == "mv" else 1)
         gathers.append(lane)
@@ -1383,12 +1692,14 @@ def _masked_select(select_spec, cols, mask, n_segs=None,
                          f"/ {len(gathers)} gathers over the kernel's "
                          "limits")
     if device.type == "cpu":
-        out = selection_outputs_plain(select_spec, cols, mask, n_segs)
+        out = selection_outputs_batched_plain(
+            select_spec, cols, mask, member_keys) if batched else \
+            selection_outputs_plain(select_spec, cols, mask, n_segs)
         for col in zero_invalid:
             out[f"sel.{col}"] = torch.where(out["sel.docids"] >= 0,
                                             out[f"sel.{col}"], 0)
         return out
-    lead = () if n_segs is None else (n_segs,)
+    lead = (segs,) if batched or n_segs is not None else ()
     scratch_words = select_scratch_words(padded, k, n_words, segs)
     scratch = torch.empty(scratch_words, dtype=torch.int32, device=device)
     docids = torch.empty(lead + (k,), dtype=torch.int32, device=device)
@@ -1397,21 +1708,94 @@ def _masked_select(select_spec, cols, mask, n_segs=None,
                         device=device) for g in gathers]
     zero_bits = sum(1 << g for g, (col, _src) in enumerate(gather_cols)
                     if col in zero_invalid)
-    _launch(counter, device, mask.data_ptr(), padded, segs, int(k),
-            _ptrs([t[0] for t in terms]),
-            _ints([_ELEM[t[0].dtype] for t in terms]),
-            _ints([t[1] for t in terms]), _ints([t[2] for t in terms]),
-            _ints([int(t[3]) for t in terms]), len(terms), n_words,
-            _ptrs(gathers),
-            _ints([g.element_size() * (g.shape[1] if g.dim() == 2 else 1)
+    term_lanes = [t[0] for t in terms]
+    term_args = (_ints([_ELEM[t.dtype] for t in term_lanes]),
+                 _ints([t[1] for t in terms]), _ints([t[2] for t in terms]),
+                 _ints([int(t[3]) for t in terms]), len(terms), n_words)
+    tail = (_ints([g.element_size() * (g.shape[1] if g.dim() == 2 else 1)
                    for g in gathers]),
             _ptrs(outs), len(gathers), ctypes.c_int32(zero_bits).value,
             scratch.data_ptr(), scratch_words, docids.data_ptr(),
             count.data_ptr())
+    if batched:
+        def strides(lanes):          # rows between members: own P, shared 0
+            return _longs([padded if id(t) in own else 0 for t in lanes])
+        _launch(f"{counter}_batched", device, mask.data_ptr(), padded, segs,
+                int(k), _ptrs(term_lanes), strides(term_lanes), *term_args,
+                _ptrs(gathers), strides(gathers), *tail)
+    else:
+        _launch(counter, device, mask.data_ptr(), padded, segs, int(k),
+                _ptrs(term_lanes), *term_args, _ptrs(gathers), *tail)
     res = {"sel.docids": docids, "sel.count": count}
     for (col, _source), o in zip(gather_cols, outs):
         res[f"sel.{col}"] = o
     return res
+
+
+def selection_outputs_batched_plain(select_spec, cols: Dict[str,
+                                                            torch.Tensor],
+                                    masks: torch.Tensor,
+                                    member_keys: Sequence[str] = ()
+                                    ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch batched K6: each member's plain selection under its
+    mask row (its own rows of the member_keys lanes, flat [B * P]),
+    stacked."""
+    n, padded = masks.shape
+    outs = []
+    for b in range(n):
+        mcols = {key: t[b * padded:(b + 1) * padded] if key in member_keys
+                 else t for key, t in cols.items()}
+        outs.append(selection_outputs_plain(select_spec, mcols, masks[b]))
+    return {name: torch.stack([o[name] for o in outs]) for name in outs[0]}
+
+
+def masked_select_batched(select_spec, cols: Dict[str, torch.Tensor],
+                          masks: torch.Tensor,
+                          vector_params_list: Optional[Sequence] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """K6 for B members of one plan, one launch: masked_select's outputs
+    with a leading member axis, member b's under masks[b]; the "vector"
+    kind takes each member's (query, norm) in vector_params_list and runs
+    the batched K8 first."""
+    if select_spec[0] != "vector":
+        return _masked_select(select_spec, cols, masks, member_keys=())
+    _kind, k, order, gather_cols = select_spec
+    if vector_params_list is None or \
+            len(vector_params_list) != masks.shape[0] or \
+            any(p is None or len(p) != 2 for p in vector_params_list):
+        raise ValueError("a vector selection takes each member's query "
+                         "vector and norm (vector_params_list)")
+    (col, metric, _dim_pad), = order
+    scores = vector_scores_batched(cols[f"{col}.vec"],
+                                   [p[0] for p in vector_params_list],
+                                   [p[1] for p in vector_params_list],
+                                   metric)
+    return vector_topk_batched(scores, masks, k, cols, gather_cols)
+
+
+def vector_topk_batched(scores: torch.Tensor, masks: torch.Tensor, k: int,
+                        cols: Optional[Dict[str, torch.Tensor]] = None,
+                        gather_cols=()) -> Dict[str, torch.Tensor]:
+    """K6's "vector" kind for B members, one launch: member b's top k by
+    scores[b] (f32 [B, P], the batched K8's) under masks[b]."""
+    cols = dict(cols or {}, **{"$score.raw": scores.reshape(-1)})
+    out = _masked_select(_score_spec(k, gather_cols), cols, masks,
+                         zero_invalid=("$score",),
+                         counter="masked_select_vector",
+                         member_keys=("$score.raw",))
+    out["sel.scores"] = out.pop("sel.$score")
+    return out
+
+
+def vector_topk_batched_plain(scores: torch.Tensor, masks: torch.Tensor,
+                              k: int,
+                              cols: Optional[Dict[str, torch.Tensor]] = None,
+                              gather_cols=()) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch batched K6 vector kind: each member's plain top k,
+    stacked."""
+    outs = [vector_topk_plain(scores[b], masks[b], k, cols, gather_cols)
+            for b in range(masks.shape[0])]
+    return {name: torch.stack([o[name] for o in outs]) for name in outs[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1552,6 +1936,88 @@ def ivf_select_probes_plain(centroids: torch.Tensor, cvalid: torch.Tensor,
     return ids.contiguous(), ok.contiguous()
 
 
+def _queries(qs, q_norms, dim_pad: int, device
+             ) -> Tuple[torch.Tensor, List[float]]:
+    """B <= MAX_BATCH zero-padded queries as f32 [B, dim_pad] on `device`,
+    and their norms as float32 values."""
+    n = len(qs)
+    if not 1 <= n <= MAX_BATCH or len(q_norms) != n:
+        raise ValueError(f"{n} queries / {len(q_norms)} norms, expected "
+                         f"1..{MAX_BATCH} of each")
+    q = torch.stack([_query(x, dim_pad, device) for x in qs])
+    return q, [float(np.float32(v)) for v in q_norms]
+
+
+def vector_scores_batched(mat: torch.Tensor, qs, q_norms, metric: str
+                          ) -> torch.Tensor:
+    """K8 for B <= MAX_BATCH queries, one launch: f32 [B, rows], row b
+    bit for bit vector_scores(mat, qs[b], q_norms[b], metric). Each row
+    of `mat` is read once for every query, and under cosine its norm tree
+    runs once."""
+    dim_pad = _check_vec(mat, "vector lane", (2,))
+    if metric not in _METRICS:
+        raise ValueError(f"metric {metric}")
+    device = mat.device
+    q, norms = _queries(qs, q_norms, dim_pad, device)
+    if device.type == "cpu":
+        return vector_scores_batched_plain(mat, q, norms, metric)
+    out = torch.empty(q.shape[0], mat.shape[0], dtype=torch.float32,
+                      device=device)
+    _launch("vector_scores_batched", device, mat.data_ptr(), mat.shape[0],
+            dim_pad, q.data_ptr(), (_F * len(norms))(*norms), len(norms),
+            int(metric == "cosine"), out.data_ptr())
+    return out
+
+
+def vector_scores_batched_plain(mat: torch.Tensor, qs, q_norms,
+                                metric: str) -> torch.Tensor:
+    """Plain PyTorch batched K8: each query's plain scores, stacked."""
+    return torch.stack([vector_scores_plain(mat, q, qn, metric)
+                        for q, qn in zip(qs, q_norms)])
+
+
+def ivf_select_probes_batched(centroids: torch.Tensor, cvalid: torch.Tensor,
+                              qs, q_norms, metric: str, nprobe: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9 for B <= MAX_BATCH queries over one codebook (centroids f32
+    [C_pad, dim_pad], cvalid bool [C_pad]), one launch: (ids int32 [B,
+    nprobe], ok bool [B, nprobe]), row b ivf_select_probes(..., qs[b],
+    q_norms[b], ...)."""
+    dim_pad = _check_vec(centroids, "codebook lane", (2,))
+    c_pad, device = centroids.shape[0], centroids.device
+    if cvalid.device != device or cvalid.dtype != torch.bool or \
+            cvalid.shape != (c_pad,) or not cvalid.is_contiguous():
+        raise ValueError(f"cvalid must be a contiguous bool [{c_pad}] on "
+                         f"{device}")
+    if metric not in _METRICS or not 1 <= nprobe <= c_pad or \
+            c_pad > MAX_CENTROIDS:
+        raise ValueError(f"metric {metric}, nprobe {nprobe}, C_pad {c_pad} "
+                         f"(nprobe <= C_pad <= {MAX_CENTROIDS})")
+    q, norms = _queries(qs, q_norms, dim_pad, device)
+    if device.type == "cpu":
+        return ivf_select_probes_batched_plain(centroids, cvalid, q, norms,
+                                               metric, nprobe)
+    n = q.shape[0]
+    ids = torch.empty(n, nprobe, dtype=torch.int32, device=device)
+    ok = torch.empty(n, nprobe, dtype=torch.bool, device=device)
+    _launch("ivf_probe_select_batched", device, centroids.data_ptr(),
+            cvalid.data_ptr(), 1, c_pad, dim_pad, q.data_ptr(),
+            (_F * n)(*norms), n, int(metric == "cosine"), int(nprobe),
+            ids.data_ptr(), ok.data_ptr())
+    return ids, ok
+
+
+def ivf_select_probes_batched_plain(centroids: torch.Tensor,
+                                    cvalid: torch.Tensor, qs, q_norms,
+                                    metric: str, nprobe: int
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch batched K9: each query's plain probe list, stacked."""
+    outs = [ivf_select_probes_plain(centroids, cvalid, q, qn, metric,
+                                    nprobe) for q, qn in zip(qs, q_norms)]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1]
+                                                           for o in outs])
+
+
 # ---------------------------------------------------------------------------
 # K7 hll_registers
 # ---------------------------------------------------------------------------
@@ -1586,6 +2052,38 @@ def hll_registers_plain(hist: torch.Tensor, idx: torch.Tensor,
     keep = (idx >= 0) & (idx < m)
     out = torch.zeros(m, dtype=torch.int32, device=hist.device)
     return out.scatter_reduce_(0, idx[keep].long(), vals[keep], "amax")
+
+
+def hll_registers_batched(hists: torch.Tensor, idx: torch.Tensor,
+                          rank: torch.Tensor, m: int) -> torch.Tensor:
+    """K7 for B members, one launch: int32 [B, m], member b's registers
+    from its histogram row hists[b] (int32 [B, card_pad], K4's)."""
+    device = hists.device
+    if hists.dim() != 2 or not 1 <= hists.shape[0] <= MAX_BATCH:
+        raise ValueError(f"histograms have shape {tuple(hists.shape)}, "
+                         f"expected [B <= {MAX_BATCH}, card_pad]")
+    n, card_pad = hists.shape
+    for name, t in (("hist", hists[0]), ("hll index table", idx),
+                    ("hll rank table", rank)):
+        _check_lane(t, name, card_pad, device, (torch.int32,))
+    if not hists.is_contiguous():
+        raise ValueError("histograms are not contiguous")
+    if not 1 <= m <= MAX_HLL_REGISTERS:
+        raise ValueError(f"{m} registers outside [1, {MAX_HLL_REGISTERS}]")
+    if device.type == "cpu":
+        return hll_registers_batched_plain(hists, idx, rank, m)
+    out = torch.zeros(n, m, dtype=torch.int32, device=device)
+    _launch("hll_registers_batched", device, hists.data_ptr(),
+            idx.data_ptr(), rank.data_ptr(), card_pad, int(m), n,
+            out.data_ptr())
+    return out
+
+
+def hll_registers_batched_plain(hists: torch.Tensor, idx: torch.Tensor,
+                                rank: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain PyTorch batched K7: each member's registers, stacked."""
+    return torch.stack([hll_registers_plain(h, idx, rank, m)
+                        for h in hists])
 
 
 # ---------------------------------------------------------------------------
@@ -1721,6 +2219,86 @@ def run_stacked_kernel(padded: int, n_segs: int, filter_spec, agg_specs,
     return outs
 
 
+def stack_param_leaves(params_list) -> Tuple[np.ndarray, ...]:
+    """[(p0, p1, ...)] per member → one [B, ...] array per param leaf.
+
+    The port's param check (pinot_tpu/ops/kernels.py:stack_param_leaves):
+    one compiled spec gives every member params of one arity and one
+    shape each (lists are padded from the spec), so a mismatch means
+    plans of different specs were grouped, and raises ValueError before
+    any launch."""
+    n = len(params_list[0])
+    for ps in params_list:
+        if len(ps) != n:
+            raise ValueError("batched plans disagree on param arity")
+    leaves = []
+    for i in range(n):
+        vals = [np.asarray(ps[i]) for ps in params_list]
+        if any(v.shape != vals[0].shape for v in vals):
+            raise ValueError(f"batched plans disagree on the width of "
+                             f"param {i}: "
+                             f"{sorted({v.shape for v in vals})}")
+        leaves.append(np.stack(vals))
+    return tuple(leaves)
+
+
+def run_segment_kernel_batched(padded: int, filter_spec, agg_specs,
+                               select_spec, cols: Dict[str, torch.Tensor],
+                               params_list, num_docs: int, device=None
+                               ) -> Dict[str, torch.Tensor]:
+    """N same-spec plans over one segment (the counterpart of
+    pinot_tpu/ops/kernels.py:run_segment_kernel_batched, :1713): every
+    output of run_segment_kernel gains a leading member axis [N, ...],
+    member b's under params_list[b]. Group specs do not batch (their
+    plans run one by one, as in the JAX package).
+
+    Each kernel launches once per chunk of up to MAX_BATCH members (the
+    JAX server's MAX_BATCH_CHUNK): the lanes are read once per chunk for
+    all of its members. The chunks are not padded to a power of two, as
+    the JAX package's batch_bucket pads them: that bounds XLA compiles,
+    and a CUDA launch compiles nothing. Plans without params are one
+    program: run_segment_kernel runs once and every member reads its
+    outputs (views, no copies). Members whose params disagree in arity or
+    width raise ValueError before any launch (stack_param_leaves)."""
+    params_list = [tuple(p) for p in params_list]
+    if not params_list:
+        raise ValueError("no members")
+    stack_param_leaves(params_list)
+    n = len(params_list)
+    if not params_list[0]:
+        outs = run_segment_kernel(padded, filter_spec, agg_specs, None,
+                                  select_spec, cols, (), num_docs, device)
+        return {k: v.expand((n,) + tuple(v.shape)) for k, v in outs.items()}
+    chunks = [_run_batch_chunk(padded, filter_spec, tuple(agg_specs or ()),
+                               select_spec, cols, params_list[i:i + MAX_BATCH],
+                               num_docs, device)
+              for i in range(0, n, MAX_BATCH)]
+    if len(chunks) == 1:
+        return chunks[0]
+    return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+
+
+def _run_batch_chunk(padded, filter_spec, agg_specs, select_spec, cols,
+                     params_list, num_docs, device):
+    """K1, then K2 / K4 / K5 / K7 and K6 (K9 and K8 in front where the
+    plan probes or scores vectors), each launched once for the chunk."""
+    if cols:
+        device = next(iter(cols.values())).device
+    split = [_split_params(filter_spec, select_spec, p) for p in params_list]
+    masks, _matched = filter_mask_batched(padded, filter_spec, cols,
+                                          [f for f, _s in split], num_docs,
+                                          device)
+    outs: Dict[str, torch.Tensor] = {}
+    if agg_specs or select_spec is None:
+        outs = _agg_outputs(masks, agg_specs, cols)
+    if select_spec is not None:
+        sel = masked_select_batched(select_spec, cols, masks,
+                                    [sp for _f, sp in split])
+        outs.setdefault("stats.num_docs_matched", sel["sel.count"])
+        outs.update(sel)
+    return outs
+
+
 def spec_group_key(gcol, cols, params: List, device) -> GroupKey:
     """The K3 key of one group column of a spec; "mvin" pops its member
     table from `params`."""
@@ -1815,7 +2393,15 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
     # count when no K5 gives it; K7 runs per HLL aggregation on its K4.
     # seg_rows (a stack of segments of that many rows): K2 writes one row
     # of part sums per segment and K5's block sums take a segment axis,
-    # the JAX "stack" outputs; everything else combines over the stack
+    # the JAX "stack" outputs; everything else combines over the stack.
+    # A [B, P] mask (a batch's members): the batched launches, every
+    # output with a leading member axis
+    batched = mask.dim() == 2
+    reduce_fn = masked_reduce_batched if batched else masked_reduce
+    hist_fn = masked_histogram_batched if batched else masked_histogram
+    entry_fn = masked_entry_histogram_batched if batched else \
+        masked_entry_histogram
+    hll_fn = hll_registers_batched if batched else hll_registers
     reduce_args: Dict[str, tuple] = {}
     for spec in agg_specs:
         req = _reduce_request(spec)
@@ -1824,18 +2410,18 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
             prev = reduce_args.get(key)
             reduce_args[key] = (kind, card_pad, want or
                                 (prev is not None and prev[2]), card)
-    reduced = {key: masked_reduce(mask, cols[key], kind, card_pad, want,
-                                  card)
+    reduced = {key: reduce_fn(mask, cols[key], kind, card_pad, want, card)
                for key, (kind, card_pad, want, card) in reduce_args.items()}
     parts = [cols[f"{s[1]}.parts"] for s in agg_specs if _is_parts_agg(s)]
     if parts or not reduced:
-        sums = masked_part_sums(mask, parts, seg_rows)
-        ranged = sums.dim() == 2
-        if ranged:                       # [R, L + 1]: combine the counts
-            count = sums[:, -1].sum(dtype=torch.int32)
-            sums = sums.T
+        sums = masked_part_sums_batched(mask, parts) if batched else \
+            masked_part_sums(mask, parts, seg_rows)
+        ranged = sums.dim() == 2 + batched
+        if ranged:                       # [(B,) R, L + 1]: add the counts
+            count = sums[..., -1].sum(dim=-1, dtype=torch.int32)
+            sums = sums.transpose(-1, -2)
         else:
-            count = sums[-1]
+            count = sums[..., -1]
     else:
         count = next(iter(reduced.values()))["count"]
     outs = {"stats.num_docs_matched": count}
@@ -1844,7 +2430,7 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
     def histogram(col: str, card_pad: int) -> torch.Tensor:
         hk = (col, card_pad)
         if hk not in hists:
-            hists[hk] = masked_histogram(mask, cols[f"{col}.ids"], card_pad)
+            hists[hk] = hist_fn(mask, cols[f"{col}.ids"], card_pad)
         return hists[hk]
 
     off = 0
@@ -1855,24 +2441,25 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
             outs[f"agg{i}"] = count
         elif _is_parts_agg(spec):
             n_p = cols[f"{col}.parts"].shape[0]
-            # [n_p], or [R, n_p] rows per segment or row range
-            outs[f"agg{i}.parts"] = sums[off:off + n_p].T if ranged \
-                else sums[off:off + n_p]
+            # [(B,) n_p], or [(B,) R, n_p] rows per segment or row range
+            outs[f"agg{i}.parts"] = \
+                sums[..., off:off + n_p, :].transpose(-1, -2) if ranged \
+                else sums[..., off:off + n_p]
             outs[f"agg{i}.count"] = count
             off += n_p
         elif source == "sv" and _strategy(spec) == "hist":
             outs[f"agg{i}"] = histogram(col, extra[1])
         elif fname == "hll" and source == "sv":
             _strategy_name, card_pad, m = extra
-            outs[f"agg{i}.hll"] = hll_registers(
+            outs[f"agg{i}.hll"] = hll_fn(
                 histogram(col, card_pad), cols[f"{col}.hllidx"],
                 cols[f"{col}.hllrank"], m)
         elif source == "mv" and fname in _MV_HIST_FNAMES:
             card_pad, card = extra
             hk = (col, card_pad, "mv")
             if hk not in hists:
-                hists[hk] = masked_entry_histogram(mask, cols[f"{col}.mv"],
-                                                   card_pad, card)
+                hists[hk] = entry_fn(mask, cols[f"{col}.mv"], card_pad,
+                                     card)
             hist, total = hists[hk]
             outs[f"agg{i}"] = total if fname == "countmv" else hist
         elif req is not None:

@@ -9,7 +9,9 @@ so a 2^21-slot table never crosses PCIe whole; a selection's [k] docids
 and gathered columns cross in the same single copy.
 The host finishers are the JAX package's (exact int64 shift-combine of
 part sums, histogram and dictId → value decode, mixed-radix key decode),
-reading the same output names.
+reading the same output names. Plans of one segment that share a compiled
+spec run batched (execute_segment_plans_batched): one launch per kernel
+for up to 8 of them, and one pull.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ def _count_filter_leaves(spec) -> int:
         return 0
     if spec[0] in ("and", "or"):
         return sum(_count_filter_leaves(c) for c in spec[1])
+    if spec[0] == "pred" and spec[1] == "ivf_probe":
+        return 0      # engine-injected ANN probe, not a query leaf
     return 1
 
 
@@ -114,28 +118,71 @@ def _execute_segment_plan(plan) -> IntermediateResultsBlock:
     if plan.group_spec is not None:
         outs = pull(_nonempty_groups(dev_outs))
         _finish_group_by(plan, outs, blk)
+        matched = int(outs["stats.num_docs_matched"])
     else:
         outs = pull(dev_outs)
-        if plan.agg_specs:
-            _finish_aggregation(plan, outs, blk)
-    matched = int(outs["stats.num_docs_matched"])
+        matched = _finish_block(plan, outs, blk)
+    blk.stats = _segment_stats(plan, matched,
+                               (time.perf_counter() - t0) * 1e3)
+    return blk
+
+
+def execute_segment_plans_batched(plans) -> List[IntermediateResultsBlock]:
+    """N plans over ONE segment that share a batch_signature
+    (query/plan.py): each kernel launches once per chunk of up to 8
+    members (ops/kernels.py:run_segment_kernel_batched), the lanes
+    gathered once from the lead plan and read once per chunk, and every
+    member's outputs cross to the host in one pull. Each member's slice
+    goes through the sequential path's finishers, so batched and
+    sequential answers agree bit for bit; each member reports its own
+    matches and the batch's wall time, as
+    pinot_tpu/query/execution.py:execute_segment_plans_batched does."""
+    if len(plans) == 1:
+        return [execute_segment_plan(plans[0])]
+    lead = plans[0]
+    segment = lead.segment
+    t0 = time.perf_counter()
+    cols = gather_operands(lead)
+    outs_b = pull(kernels.run_segment_kernel_batched(
+        segment.padded_docs, lead.filter_spec, lead.agg_specs,
+        lead.select_spec, cols, [tuple(p.params) for p in plans],
+        segment.num_docs, segment.device))
+    elapsed_ms = (time.perf_counter() - t0) * 1e3
+    blocks = []
+    for b, plan in enumerate(plans):
+        blk = IntermediateResultsBlock()
+        matched = _finish_block(plan, {k: v[b] for k, v in outs_b.items()},
+                                blk)
+        blk.stats = _segment_stats(plan, matched, elapsed_ms)
+        blocks.append(blk)
+    return blocks
+
+
+def _finish_block(plan, outs, blk) -> int:
+    """A plan without group-by: its aggregations and selection finished
+    into `blk` from the pulled outputs; returns its matched rows."""
+    if plan.agg_specs:
+        _finish_aggregation(plan, outs, blk)
     if plan.select_spec is not None:
         if plan.select_spec[0] == "vector":
             _finish_vector(plan, outs, blk)
         else:
             _finish_selection(plan, outs, blk)
+    return int(outs["stats.num_docs_matched"])
 
+
+def _segment_stats(plan, matched: int, time_ms: float) -> ExecutionStats:
+    segment = plan.segment
     n_leaves = _count_filter_leaves(plan.filter_spec)
     n_project = len({c for c, _ in plan.needed_cols})
-    blk.stats = ExecutionStats(
+    return ExecutionStats(
         num_docs_scanned=matched,
         num_entries_scanned_in_filter=n_leaves * segment.num_docs,
         num_entries_scanned_post_filter=matched * max(n_project - n_leaves, 0),
         num_segments_processed=1,
         num_segments_matched=1 if matched else 0,
         total_docs=segment.num_docs,
-        time_used_ms=(time.perf_counter() - t0) * 1e3)
-    return blk
+        time_used_ms=time_ms)
 
 
 def _nonempty_groups(outs: Dict[str, torch.Tensor]

@@ -363,6 +363,20 @@ class SegmentPlan:
         return execution.execute_segment_plan(self)
 
 
+def batch_signature(plan: SegmentPlan) -> Optional[tuple]:
+    """The compiled-spec identity under which plans for one segment share
+    a batched launch (ops/kernels.py:run_segment_kernel_batched), or None
+    when the plan does not batch (pinot_tpu/query/plan.py:
+    batch_signature): fast paths never reach the card, and group-by plans
+    run one by one. Plans with equal signatures run the same kernels and
+    differ only in their params."""
+    if plan.fast_path_result is not None or plan.group_spec is not None:
+        return None
+    return (plan.segment.padded_docs, plan.filter_spec,
+            tuple(plan.agg_specs or ()), plan.select_spec,
+            tuple(plan.needed_cols))
+
+
 def preprocess_request(segments, request):
     """Rewrite FASTHLL(col) to the derived serialized-HLL column that the
     segments' metadata records (pinot_tpu/query/plan.py:

@@ -1130,6 +1130,60 @@ def all_draws(oracle: Oracle) -> Iterator[Tuple[str, Draw]]:
         yield "shapes", draw
 
 
+def batch_draws(oracle: Oracle) -> Dict[str, List[Draw]]:
+    """Families of same-shape queries with varied literals, for
+    execute_batch: the JAX tests' BATCH_PQLS (tests/test_batching.py:123),
+    a min / max / average family (K5 over raw and id lanes), a selection
+    family (ORDER BY salary, K6's ordertk), a DISTINCTCOUNTHLL family (K4
+    and K7), and a mixed batch: two of BATCH_PQLS, a member whose literal
+    no dictionary holds (a fast path) and two group-bys, which run one by
+    one."""
+    o = oracle
+    agg = {a[0]: a for a in AGGS}
+    count_hits = [agg["COUNT(*)"], agg["SUM(hits)"]]
+
+    def runs_over(v):
+        return Draw("aggregation", "SELECT COUNT(*), SUM(hits) FROM "
+                    f"baseballStats WHERE runs > '{v}'", o.cmp("runs", ">", v),
+                    count_hits)
+
+    hll = ("DISTINCTCOUNTHLL(playerName)", "distinctcounthll",
+           "playerName", "exact")
+    return {
+        "batch_pqls": [runs_over(v) for v in (10, 40, 75, 110, 130)],
+        "min_max": [
+            Draw("aggregation", "SELECT MIN(salary), AVG(salary), "
+                 "MINMAXRANGE(runs) FROM baseballStats WHERE yearID = "
+                 f"{y}", o.eq("yearID", y),
+                 [("MIN(salary)", "min", "salary", "exact"),
+                  ("AVG(salary)", "avg", "salary", "float"),
+                  ("MINMAXRANGE(runs)", "minmaxrange", "runs", "exact")])
+            for y in range(1995, 2003)],
+        "selection": [
+            Draw("selection", "SELECT playerName, salary FROM baseballStats "
+                 f"WHERE yearID = {y} ORDER BY salary DESC LIMIT 50",
+                 o.eq("yearID", y), [], columns=("playerName", "salary"),
+                 limit=50, order=(("salary", True),))
+            for y in range(2001, 2009)],
+        "hll": [Draw("aggregation", "SELECT DISTINCTCOUNTHLL(playerName), "
+                     f"COUNT(*) FROM baseballStats WHERE teamID = '{t}'",
+                     o.eq("teamID", t), [hll, agg["COUNT(*)"]])
+                for t in TEAMS[:8]],
+        "mixed": [
+            runs_over(10), runs_over(40),
+            Draw("aggregation", "SELECT COUNT(*), SUM(hits) FROM "
+                 "baseballStats WHERE teamID = 'ZZZ'", o.eq("teamID", "ZZZ"),
+                 count_hits),
+            Draw("group_by", "SELECT COUNT(*), SUM(hits) FROM baseballStats "
+                 "WHERE runs > 50 GROUP BY league TOP 100",
+                 o.cmp("runs", ">", 50), count_hits, ("league",)),
+            Draw("group_by", "SELECT COUNT(*), SUM(runs) FROM baseballStats "
+                 "WHERE yearID >= 2010 GROUP BY teamID TOP 100",
+                 o.cmp("yearID", ">=", 2010),
+                 [agg["COUNT(*)"], agg["SUM(runs)"]], ("teamID",))],
+    }
+
+
 # ---------------------------------------------------------------------------
 # Checking a response
 # ---------------------------------------------------------------------------

@@ -65,6 +65,79 @@ SSB_PQLS = {
 }
 
 
+#: Q1.1-Q1.3 with their literals as fields, and the benchmark's literals
+#: (SSB_PQLS); the batch families vary them (q1_batches)
+Q1_TEMPLATES = {
+    "q1.1": "SELECT SUM(lo_revenue) FROM lineorder WHERE d_year = {year} "
+            "AND lo_discount BETWEEN {dlo} AND {dhi} AND lo_quantity < {qty}",
+    "q1.2": "SELECT SUM(lo_revenue) FROM lineorder WHERE d_yearmonthnum = "
+            "{ym} AND lo_discount BETWEEN {dlo} AND {dhi} AND lo_quantity "
+            "BETWEEN {qlo} AND {qhi}",
+    "q1.3": "SELECT SUM(lo_revenue) FROM lineorder WHERE d_weeknuminyear = "
+            "{week} AND d_year = {year} AND lo_discount BETWEEN {dlo} AND "
+            "{dhi} AND lo_quantity BETWEEN {qlo} AND {qhi}",
+}
+Q1_LITERALS = {"q1.1": dict(year=1993, dlo=1, dhi=3, qty=25),
+               "q1.2": dict(ym=199401, dlo=4, dhi=6, qlo=26, qhi=35),
+               "q1.3": dict(week=6, year=1994, dlo=5, dhi=7, qlo=26,
+                            qhi=35)}
+
+
+def q1_batches():
+    """Three families of 8 same-shape Q1 queries, {flight: [literals]}:
+    Q1.1 in each d_year 1992-1998 and with lo_discount BETWEEN 4 AND 6,
+    Q1.2 in each d_yearmonthnum 199401-199408, Q1.3 in each
+    d_weeknuminyear 1-8."""
+    base = Q1_LITERALS
+    return {
+        "q1.1": [dict(base["q1.1"], year=y) for y in range(1992, 1999)] +
+                [dict(base["q1.1"], dlo=4, dhi=6)],
+        "q1.2": [dict(base["q1.2"], ym=199400 + m) for m in range(1, 9)],
+        "q1.3": [dict(base["q1.3"], week=w) for w in range(1, 9)],
+    }
+
+
+def q1_revenue(pools, ids, flight: str, lits: dict) -> float:
+    """The oracle of one Q1 flight at any literals: SUM(lo_revenue) over
+    the rows Q1_TEMPLATES[flight].format(**lits) keeps."""
+    def vid(col, value):
+        return _vid(pools, col, value)
+
+    d_lo, d_hi = _range_ids(pools, "lo_discount", lits["dlo"], lits["dhi"])
+    disc, qty = ids["lo_discount"], ids["lo_quantity"]
+    mask = (disc >= d_lo) & (disc < d_hi)
+    if flight == "q1.1":
+        mask &= (ids["d_year"] == vid("d_year", lits["year"])) & \
+            (qty < vid("lo_quantity", lits["qty"]))
+    else:
+        q_lo, q_hi = _range_ids(pools, "lo_quantity", lits["qlo"],
+                                lits["qhi"])
+        mask &= (qty >= q_lo) & (qty < q_hi)
+        if flight == "q1.2":
+            mask &= ids["d_yearmonthnum"] == vid("d_yearmonthnum",
+                                                 lits["ym"])
+        else:
+            mask &= (ids["d_weeknuminyear"] == vid("d_weeknuminyear",
+                                                   lits["week"])) & \
+                (ids["d_year"] == vid("d_year", lits["year"]))
+    h = np.bincount(ids["lo_revenue"][mask],
+                    minlength=len(pools["lo_revenue"]))
+    return float(h @ pools["lo_revenue"].astype(np.float64))
+
+
+def _vid(pools, col, value) -> int:
+    i = int(np.searchsorted(pools[col], value))
+    assert str(pools[col][i]) == str(value), (col, value)
+    return i
+
+
+def _range_ids(pools, col, lo, hi):
+    """[lo, hi] inclusive value range → [lo_id, hi_id) id interval."""
+    a = int(np.searchsorted(pools[col], lo, side="left"))
+    b = int(np.searchsorted(pools[col], hi, side="right"))
+    return a, b
+
+
 # ---------------------------------------------------------------------------
 # CPU baseline + oracle: vectorized numpy over id-domain columns
 # ---------------------------------------------------------------------------
@@ -76,18 +149,13 @@ def make_cpu_queries(pools, ids, supplycost):
     rev_vals = pools["lo_revenue"].astype(np.float64)
 
     def vid(col, value):
-        i = int(np.searchsorted(pools[col], value))
-        assert str(pools[col][i]) == str(value), (col, value)
-        return i
+        return _vid(pools, col, value)
 
     def vids(col, values):
         return np.array([vid(col, v) for v in values], np.int32)
 
     def rng_ids(col, lo, hi):
-        """[lo, hi] inclusive value range → [lo_id, hi_id) id interval."""
-        a = int(np.searchsorted(pools[col], lo, side="left"))
-        b = int(np.searchsorted(pools[col], hi, side="right"))
-        return a, b
+        return _range_ids(pools, col, lo, hi)
 
     def revenue_sum(mask):
         h = np.bincount(ids["lo_revenue"][mask],

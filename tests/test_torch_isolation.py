@@ -46,6 +46,9 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.common.partition\n"
         "import pinot_tpu_torch.index.ivf, pinot_tpu_torch.ops.ivf_kernels\n"
         "import pinot_tpu_torch.tools.vecdata\n"
+        "import pinot_tpu_torch.query.fingerprint\n"
+        "import pinot_tpu_torch.common.serde\n"
+        "import pinot_tpu_torch.server.scheduler\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or\n"

@@ -4,13 +4,16 @@ Q1.1-Q4.3 in memory, baseballStats from disk under the QueryGenerator
 mix with its selections, and VECTOR_SIMILARITY over the 10M x 128 vector
 table with IVF codebooks, each table per segment, stacked (one launch
 per kernel over all segments) and in cross-query batches (one launch per
-kernel for up to 8 queries).
+kernel for up to 8 queries); then the upsert table
+baseballStats_REALTIME, ingested, served while it consumes (frozen
+prefix on the card, tail on the host) and masked by validDocIds.
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
                           [--vec-rows 10000000] [--vec-segments 4]
                           [--vec-dim 128] [--vec-queries 5]
                           [--batch-repeats 3]
+                          [--rt-rows 5000000] [--rt-sealed 2]
 
 Phases, each printed as one JSON line; any failure ends the run with a
 non-zero exit and no result line:
@@ -26,6 +29,9 @@ non-zero exit and no result line:
    CUDA events and an L2 flush before each launch, beside their bounds.
    K3 runs on every group-by query, and where its table fits a block's
    shared memory, also with the shared tables forced on and forced off.
+   K1's vdoc node: Q1.1 ANDed with a liveness lane (a third of the rows
+   superseded), bit-equal in both instantiations, timed beside the same
+   K1 without the node and the general instantiation.
 5. ssb: launch counts set to 0, the 13 queries run once through
    QueryEngine on the card and are checked against the numpy oracle, the
    counts read (K1-K3 must have launched); then --repeats timed runs per
@@ -78,7 +84,8 @@ non-zero exit and no result line:
    k per segment, two selections over lineorder) and K4, K5 and K7 over
    the stack's flat rows, each against its plain stacked version and
    against S per-segment launches on the same lanes; timed as one stacked
-   launch, as S sequential launches and beside the stacked bound.
+   launch, as S sequential launches and beside the stacked bound; K1's
+   vdoc node over an [S, P] liveness lane the same way.
 11. ssb_stacked: the 13 queries through QueryEngine(segments,
    mesh=make_mesh()): each must take the stacked route, launch each
    kernel it uses once (counts set to 0 before each query, read after),
@@ -125,7 +132,9 @@ non-zero exit and no result line:
    query vectors. Each against its plain batched version (as the single
    checks hold it), bit for bit against as many single launches, and
    launched once a call; timed at 8 members with the L2 flushed beside
-   8 single launches, its bound and, for K8, torch.mm.
+   8 single launches, its bound and, for K8, torch.mm. K1's vdoc node on
+   the Q1.1 family over one shared liveness lane, and on a baseballStats
+   filter (one member).
 17. batch: ServerQueryExecutor.execute_batch over each table's segments
    (tools/ssb.py:q1_batches, tools/baseball.py:batch_draws, the 8 vector
    queries under COSINE and DOT at every rung and queries[0] at rid <
@@ -137,19 +146,42 @@ non-zero exit and no result line:
    share a signature (a mixed family: group-by members, a fast path);
    then the p50 of --batch-repeats batched runs beside the sum of the
    members' sequential p50s.
-18. timing: wall seconds per phase and per part of phase 9 (first runs
+18. realtime: the upsert table baseballStats_REALTIME (the quickstart
+   schema, rows from tools/baseball.make_columns, upsert FULL on
+   (playerName, yearID, teamID, league): 957,120 keys), ingested as the
+   LLC consumer does in fetch batches of 50,000 rows (index_rows, then
+   apply_batch); each segment seals at --rt-rows (Apache Pinot's default
+   flush threshold, 5,000,000): convert, seal, load on the card,
+   attach_or_fold. --rt-sealed segments seal; the consuming one is
+   checked after each of its last three freeze points (rebuild and lane
+   upload timed apart, two fetch batches of tail after each) and when
+   full: launch and path counts from 0, phase 9's aggregation, group-by,
+   selection and MV group-by families through QueryEngine over every
+   segment, each answer against the numpy oracle of the live rows (the
+   latest row per key); every K1 launch carries the vdoc node, the
+   frozen prefix runs the kernels and the host twin reads the tail
+   rows only (and the planner's refusals); p50 of --repeats per family,
+   vdoc uploads and bytes per query. Then it seals too; the sealed set
+   runs stacked (every device draw on the stacked route, one K1 with
+   the vdoc node over the [S, P] lane, answers the per-segment ones or
+   judged by the oracle) and in execute_batch over batch_draws (the
+   batched K1 with the shared lane). Ingest rows per second with and
+   without apply_batch.
+19. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
    repeats).
 
 Phases 10-12 run right after the phase they build on (10 and 11 after
-5, 12 after 9); 13-15 after 12; 16 and 17 after each table's own phases.
+5, 12 after 9); 13-15 after 12; 16 and 17 after each table's own phases;
+18 last.
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
 stacked, and the batches; the stacked paths' launches, the stacked
 launch's time, S per-segment launches' time and the stacked bound beside
 them; for a batched kernel, its time at 8 members beside 8 single
-launches) and
+launches; filter_mask[vdoc] and filter_mask_batched[vdoc], K1's launches
+with the vdoc node on the realtime path) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -376,6 +408,9 @@ def kernel_check(seg, pqls):
         plain_ms=time_ms(lambda: K.masked_part_sums_plain(mask, parts)),
         bound=bound(P + matched * L + 4 * (L + 1), P + matched * L),
         library_ms=None)
+    # K1's vdoc node: Q1.1 with an upsert bitmap
+    entries["filter_mask[vdoc]"] = vdoc_check(seg, plan, cols,
+                                              "ssb q1.1 with a bitmap", 1)
 
     # K3 on every group-by (g_pad 256 to 2^21); Q4.3 (one csums lane)
     # gives the kernels line its numbers
@@ -807,6 +842,8 @@ def stacked_kernel_check(st_engine, pqls):
     from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
     from pinot_tpu_torch.pql.parser import compile_pql
     from pinot_tpu_torch.query.execution import gather_operands_for
+    from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
+        with_valid_doc_mask
     ex = st_engine.sharded
     stack = ex.stack_for(st_engine.segments)
     S, P = stack.n_real, stack.padded_docs
@@ -859,6 +896,36 @@ def stacked_kernel_check(st_engine, pqls):
                P, S, plan.filter_spec, flat, plan.params, docs), reps=3),
            bound(lane_bytes + S * P + 4 * S, S * P * 2 * len(keys)),
            matched=n_match)
+    # K1's vdoc node over the stack's [S, P] liveness lane
+    vspec = with_valid_doc_mask(plan.filter_spec)
+    vkey = f"{VALID_DOC_COLUMN}.vdoc"
+    vflat = dict(flat, **{vkey: liveness_lane(
+        S * P, [sg.num_docs for sg in segs], 3)})
+    vper = [dict(c, **{vkey: vflat[vkey][i * P:(i + 1) * P]})
+            for i, c in enumerate(per)]
+    K.reset_launch_counts()
+    vmask, vmatched = K.filter_mask_stacked(P, S, vspec, vflat, plan.params,
+                                            docs)
+    torch.cuda.synchronize()
+    if K.launch_counts()["filter_mask[vdoc]"] != 1:
+        raise AssertionError("the stacked K1 launched without the vdoc node")
+    ref_mask, ref_matched = K.filter_mask_stacked_plain(
+        P, S, vspec, vflat, plan.params, docs)
+    equal = torch.equal(vmask, ref_mask) and \
+        torch.equal(vmatched, ref_matched) and torch.equal(torch.cat([
+            K.filter_mask(P, vspec, c, plan.params, sg.num_docs)
+            for sg, c in zip(segs, vper)]), vmask)
+    record("filter_mask[vdoc]", "q1.1 with a bitmap", equal,
+           time_ms(lambda: K.filter_mask_stacked(P, S, vspec, vflat,
+                                                 plan.params, docs)),
+           time_ms(lambda: [K.filter_mask(P, vspec, c, plan.params,
+                                          sg.num_docs)
+                            for sg, c in zip(segs, vper)], spins=S),
+           time_ms(lambda: K.filter_mask_stacked_plain(
+               P, S, vspec, vflat, plan.params, docs), reps=3),
+           bound(lane_bytes + 2 * S * P + 4 * S,
+                 S * P * 2 * (len(keys) + 1)),
+           matched=int(vmatched.sum()), unmasked_matched=n_match)
     parts = [flat["lo_revenue.parts"]]
     L = parts[0].shape[0]
     got = K.masked_part_sums(mask, parts, seg_rows=P)
@@ -1067,7 +1134,7 @@ def run_ssb_stacked(st_engine, seq_results, oracle, repeats: int):
     the timed repeats. Returns the path's launch counts."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, check
-    total = dict.fromkeys(K.KERNELS, 0)
+    total = dict.fromkeys(K.launch_counts(), 0)
     firsts = {}
     for q, pql in SSB_PQLS.items():
         K.reset_launch_counts()
@@ -1812,12 +1879,18 @@ def _family_operands(seg, pqls):
     return spec, plans[0][1], [list(p.params) for p, _c in plans]
 
 
-def _filter_case(seg, case, pqls, expect=None):
-    """batch_case for K1 over a family's filter; returns (report, [8, P]
+def _filter_case(seg, case, pqls, expect=None, live=None):
+    """batch_case for K1 over a family's filter (ANDed with the vdoc node
+    over the liveness lane `live`, where given); returns (report, [8, P]
     masks)."""
     from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
+        with_valid_doc_mask
     P, n = seg.padded_docs, seg.num_docs
     spec, cols, params = _family_operands(seg, pqls)
+    if live is not None:
+        spec = with_valid_doc_mask(spec)
+        cols = dict(cols, **{f"{VALID_DOC_COLUMN}.vdoc": live})
     keys = K.filter_lane_keys(spec)
     lane_bytes = sum(cols[k].numel() * cols[k].element_size() for k in keys)
     widths = sum(cols[k].numel() // P for k in keys)
@@ -1842,6 +1915,11 @@ def batch_kernel_check_ssb(seg):
     entries = {}
     entries["filter_mask"], masks = _filter_case(seg, "ssb q1.1 family",
                                                  pqls)
+    # K1's vdoc node: the family over one shared liveness lane
+    entries["filter_mask[vdoc]"], _m = _filter_case(
+        seg, "ssb q1.1 family with a bitmap", pqls,
+        expect={"filter_mask_batched": 1, "filter_mask_batched[vdoc]": 1},
+        live=liveness_lane(P, seg.num_docs, 2))
     parts = [plan_operands(seg, pqls[0])[1]["lo_revenue.parts"]]
     L = parts[0].shape[0]
     union, matched = int(masks.any(0).sum()), int(masks.sum())
@@ -1883,6 +1961,9 @@ def batch_kernel_check_bb(seg):
                      BB_BATCH_FILTERS[case])
     _r, masks = _filter_case(seg, "baseball dictId family",
                              BB_BATCH_FILTERS["dictId"])
+    # K1's vdoc node on a baseballStats filter (one member)
+    plan, cols = plan_operands(seg, BB_AGG_PQL)
+    vdoc_check(seg, plan, cols, "baseball yearID >= 2000 with a bitmap", 4)
     union = masks.any(0)
     n_union, matched = int(union.sum()), int(masks.sum())
     cols = plan_operands(seg, BB_AGG_PQL)[1]
@@ -2065,6 +2146,13 @@ def _member_rows(resp):
                   resp.num_segments_matched, resp.total_docs)
 
 
+def _batched_name(name: str) -> str:
+    """A launch count's name under the batched kernel: filter_mask →
+    filter_mask_batched, filter_mask[vdoc] → filter_mask_batched[vdoc]."""
+    base, bracket, node = name.partition("[")
+    return f"{base}_batched{bracket}{node}"
+
+
 def run_batch(table, engine, families, check, repeats: int):
     """Phase batch on one table: for each family of PQLs (at most 8
     same-shape members, or a "mixed" family), launch counts set to 0,
@@ -2080,7 +2168,7 @@ def run_batch(table, engine, families, check, repeats: int):
     from pinot_tpu_torch.pql.parser import compile_pql
     from pinot_tpu_torch.query.plan import batch_signature, \
         preprocess_request
-    total = dict.fromkeys(K.KERNELS, 0)
+    total = dict.fromkeys(K.launch_counts(), 0)
     for fam, pqls in families.items():
         reqs = [preprocess_request(engine.segments, engine.optimizer
                                    .optimize(compile_pql(p))) for p in pqls]
@@ -2140,7 +2228,7 @@ def run_batch(table, engine, families, check, repeats: int):
                                              f"{v} times over {seq_scans} "
                                              "plans")
                     if chunks:
-                        want[f"{k}_batched"] = per_plan * chunks
+                        want[_batched_name(k)] = per_plan * chunks
                     if alone:
                         want[k] = per_plan * alone
             got_l = {k: v for k, v in launches.items() if v}
@@ -2226,6 +2314,489 @@ def vec_batch_families(engine, queries, oracle, exact, rows):
     return families, check_member
 
 
+# ---------------------------------------------------------------------------
+# Realtime upserts: consuming segments and validDocIds (K1's vdoc node)
+# ---------------------------------------------------------------------------
+
+#: the upsert table's primary key: 997 x 30 x 16 x 2 = 957,120 keys
+RT_PK = ("playerName", "yearID", "teamID", "league")
+#: Apache Pinot's StreamConfig.DEFAULT_FLUSH_THRESHOLD_ROWS
+RT_FLUSH_ROWS = 5_000_000
+RT_FETCH_ROWS = 50_000              # rows per fetch batch of the consumer
+#: the consuming segment's freeze points checked (the frozen prefix
+#: doubles from MutableSegmentImpl.FREEZE_MIN_ROWS)
+RT_FREEZES = (1 << 20, 1 << 21, 1 << 22)
+RT_TAIL_BATCHES = 2                 # fetch batches indexed after a freeze
+RT_FAMILIES = ("aggregation", "group_by", "selection", "mv_group_by")
+
+
+def liveness_lane(n_rows: int, num_docs, seed: int) -> torch.Tensor:
+    """A uint8 liveness lane on the card: a third of each segment's rows
+    superseded, padding rows 0 (`num_docs`: the live rows of each of the
+    n_rows // P segments, or one int)."""
+    docs = [num_docs] if isinstance(num_docs, int) else list(num_docs)
+    P = n_rows // len(docs)
+    rng = np.random.default_rng(seed)
+    live = (rng.random(n_rows) >= 1 / 3).astype(np.uint8).reshape(-1, P)
+    for i, d in enumerate(docs):
+        live[i, d:] = 0
+    return torch.from_numpy(live.reshape(-1)).to("cuda")
+
+
+def vdoc_check(seg, plan, cols, case: str, seed: int):
+    """K1 with the vdoc node ANDed into a plan's filter (the planner's
+    with_valid_doc_mask) over a liveness lane: bit-equal to the plain
+    version in both instantiations; timed beside the same K1 without the
+    node, the general instantiation, the plain version and the bound (the
+    unmasked K1's bytes and one byte a row more). Returns its entry."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
+        with_valid_doc_mask
+    P, n = seg.padded_docs, seg.num_docs
+    spec = with_valid_doc_mask(plan.filter_spec)
+    cols = dict(cols)
+    cols[f"{VALID_DOC_COLUMN}.vdoc"] = liveness_lane(P, n, seed)
+    keys = K.filter_lane_keys(spec)
+    device = cols[keys[0]].device
+
+    def wide():
+        return K._launch_filter(spec, cols, plan.params, keys, device, P, P,
+                                None, n, None, general=True)
+
+    K.reset_launch_counts()
+    got = K.filter_mask(P, spec, cols, plan.params, n)
+    torch.cuda.synchronize()
+    if K.launch_counts()["filter_mask[vdoc]"] != 1:
+        raise AssertionError(f"vdoc {case}: the node was not launched")
+    ref = K.filter_mask_plain(P, spec, cols, plan.params, n)
+    err = max(int((got.int() - ref.int()).abs().max()),
+              int((wide().int() - ref.int()).abs().max()))
+    lane_bytes = sum(cols[k].numel() * cols[k].element_size() for k in keys)
+    b = bound(lane_bytes + P, P * 2 * len(keys))
+    r = {"kernel": "filter_mask[vdoc]", "case": case,
+         "matched": int(ref.sum()), "unmasked_matched": int(
+             K.filter_mask(P, plan.filter_spec, cols, plan.params,
+                           n).sum()),
+         "max_abs_err": err,
+         "ms": time_ms(lambda: K.filter_mask(P, spec, cols, plan.params, n)),
+         "ms_general": time_ms(wide),
+         "ms_without_node": time_ms(lambda: K.filter_mask(
+             P, plan.filter_spec, cols, plan.params, n)),
+         "plain_ms": time_ms(lambda: K.filter_mask_plain(
+             P, spec, cols, plan.params, n)),
+         "bound_ms": b[0], "bound_by": b[1], "bytes_over_unmasked": P}
+    emit({"phase": "kernel_check", **r})
+    if err:
+        raise AssertionError(f"filter_mask[vdoc] {case} disagrees: {err}")
+    return dict(max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound=b, library_ms=None)
+
+
+def _rt_rows(cols) -> list:
+    """A fetch batch's rows as the decoder hands them to the consumer:
+    one dict per row."""
+    from pinot_tpu_torch.tools import baseball
+    vals = {}
+    for name, c in cols.items():
+        if isinstance(c, baseball.Categorical):
+            vals[name] = c.pool[c.codes].tolist()
+        elif isinstance(c, baseball.MultiValue):
+            vals[name] = c.lists()
+        else:
+            vals[name] = c.tolist()
+    names = list(vals)
+    return [dict(zip(names, row)) for row in zip(*vals.values())]
+
+
+def _rt_key_codes(cols) -> np.ndarray:
+    """One int64 code per row for its primary key (RT_PK)."""
+    from pinot_tpu_torch.tools import baseball
+    year = cols["yearID"].astype(np.int64) - 1990
+    return ((cols["playerName"].codes.astype(np.int64) * 30 + year) *
+            len(baseball.TEAMS) + cols["teamID"].codes) * 2 + \
+        cols["league"].codes
+
+
+class RtTable:
+    """The upsert table's rows in ingestion order, for the oracle: the
+    columns in the oracle's form and the key code of every row."""
+
+    def __init__(self):
+        self.parts, self.keys = [], []
+
+    def add(self, cols) -> None:
+        self.parts.append(cols)
+        self.keys.append(_rt_key_codes(cols))
+
+    def live_oracle(self):
+        """The numpy oracle of the live rows: the latest row of each key
+        among the rows ingested so far."""
+        from pinot_tpu_torch.tools import baseball
+        keys = np.concatenate(self.keys)
+        _, last = np.unique(keys[::-1], return_index=True)
+        live = np.sort(len(keys) - 1 - last)
+        cols = baseball.concat_columns(self.parts)
+        self.parts = [cols]              # concatenated once
+        self.keys = [keys]
+        out = {}
+        for name, c in cols.items():
+            if isinstance(c, (baseball.Categorical, baseball.MultiValue)):
+                out[name] = type(c)(c.pool, c.codes[live])
+            else:
+                out[name] = c[live]
+        return baseball.Oracle(out), len(keys)
+
+
+def _rt_draws(oracle):
+    from pinot_tpu_torch.tools import baseball
+    gens = {"aggregation": baseball.aggregation_draws,
+            "group_by": baseball.group_by_draws,
+            "selection": baseball.selection_draws,
+            "mv_group_by": baseball.mv_group_by_draws}
+    return [(f, d) for f in RT_FAMILIES for d in gens[f](oracle)]
+
+
+def rt_checkpoint(label, engine, mutable, rt, repeats: int, extra=None):
+    """One check of the consuming table: launch and path counts from 0,
+    the phase-9 families once through QueryEngine over the sealed
+    segments and the consuming one, each answer against the live-row
+    oracle; every K1 launch carried the vdoc node, the frozen prefix ran
+    the kernels and only the tail (every query's, and nothing else but
+    the planner's refusals) the host twin. Then the p50 of `repeats`
+    timed runs per family. Returns the checkpoint's launch counts."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.tools import baseball
+    t0 = time.perf_counter()
+    oracle, ingested = rt.live_oracle()
+    oracle_s = time.perf_counter() - t0
+    draws = _rt_draws(oracle)
+    frozen = mutable._frozen
+    tail = mutable.num_docs - (frozen.num_docs if frozen is not None else 0)
+    segs = [s for s in engine.segments if s is not mutable]
+    lanes = [s for s in segs + [frozen] if s is not None]
+    vdoc_before = [(s.vdoc_uploads, s.vdoc_upload_bytes) for s in lanes]
+    K.reset_launch_counts()
+    ex = engine.executor
+    ex.reset_path_counts()
+    answered, first_query_uploads = [], None
+    for family, draw in draws:
+        host_before, tail_before = ex.path_counts["host"], ex.tail_docs
+        t = time.perf_counter()
+        resp = engine.query(draw.pql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if first_query_uploads is None:
+            first_query_uploads = [
+                (s.vdoc_uploads - u, s.vdoc_upload_bytes - b)
+                for s, (u, b) in zip(lanes, vdoc_before)]
+        # the tail is the host twin's on every query; a refused plan
+        # sends the other segments there too
+        on_host = ex.path_counts["host"] - host_before > (1 if tail else 0)
+        if on_host != draw.host_answered:
+            raise AssertionError(f"{label} {draw.pql}: host twin {on_host}, "
+                                 f"expected {draw.host_answered}")
+        if ex.tail_docs - tail_before != tail:
+            raise AssertionError(f"{label}: the host twin read "
+                                 f"{ex.tail_docs - tail_before} tail rows, "
+                                 f"the tail has {tail}")
+        answered.append((family, draw, resp, ms, on_host))
+    launches = K.launch_counts()
+    paths = dict(ex.path_counts)
+    uploads = [(s.vdoc_uploads - u, s.vdoc_upload_bytes - b)
+               for s, (u, b) in zip(lanes, vdoc_before)]
+    t = time.perf_counter()
+    for _f, draw, resp, _ms, _h in answered:
+        baseball.check(resp, oracle, draw)
+    check_s = time.perf_counter() - t
+    if not launches["filter_mask[vdoc]"] or \
+            launches["filter_mask[vdoc]"] != launches["filter_mask"]:
+        raise AssertionError(f"{label}: K1 launched {launches['filter_mask']}"
+                             f" times, {launches['filter_mask[vdoc]']} with "
+                             "the vdoc node")
+    if paths["scan"] < len(draws) - sum(h for *_x, h in answered):
+        raise AssertionError(f"{label}: paths {paths}")
+    families = {}
+    t = time.perf_counter()
+    for family, draw, _resp, first_ms, on_host in answered:
+        if on_host:
+            families.setdefault(f"{family}_host", []).append(first_ms)
+            continue
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            engine.query(draw.pql)
+            torch.cuda.synchronize()
+            families.setdefault(family, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    timed_s = time.perf_counter() - t
+    emit({"phase": "realtime", "check": label, "queries_passed": len(draws),
+          "rows_ingested": ingested, "live_rows": oracle.n,
+          "consuming_rows": mutable.num_docs,
+          "frozen_rows": frozen.num_docs if frozen is not None else 0,
+          "tail_rows": tail, "sealed_segments": len(segs),
+          "host_answered": sum(h for *_x, h in answered),
+          "p50_ms_by_family": {f: float(np.median(ts))
+                               for f, ts in families.items()},
+          "tail_host_ms_per_query": ex.tail_ms / len(draws),
+          "vdoc_uploads_first_query": sum(u for u, _b in
+                                          first_query_uploads),
+          "vdoc_bytes_first_query": sum(b for _u, b in first_query_uploads),
+          "vdoc_uploads_per_query": sum(u for u, _b in uploads) / len(draws),
+          "vdoc_bytes_per_query": sum(b for _u, b in uploads) / len(draws),
+          "paths": paths, "oracle_seconds": oracle_s,
+          "check_seconds": check_s, "timed_seconds": timed_s,
+          "launches": {k: v for k, v in launches.items() if v},
+          **(extra or {})})
+    return launches, answered, oracle
+
+
+def rt_freeze(mutable, engine, rt) -> dict:
+    """Cross a freeze point: the rebuild (MutableSegmentImpl.device_view,
+    host) and the upload of the lanes the families' plans read (the
+    first query after a freeze pays both), timed apart."""
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.execution import gather_operands
+    from pinot_tpu_torch.query.plan import GroupsLimitExceeded, \
+        UnsupportedOnDevice
+    freezes = mutable.freezes
+    t0 = time.perf_counter()
+    frozen, _tail = mutable.device_view()
+    rebuild_s = time.perf_counter() - t0
+    if mutable.freezes != freezes + 1:
+        raise AssertionError("no freeze at the freeze point")
+    oracle, _n = rt.live_oracle()
+    t0 = time.perf_counter()
+    planned = 0
+    for _f, draw in _rt_draws(oracle):
+        request = engine.optimizer.optimize(compile_pql(draw.pql))
+        try:
+            plan = engine.executor.plan_maker.make_segment_plan(frozen,
+                                                                request)
+        except (UnsupportedOnDevice, GroupsLimitExceeded):
+            continue             # the host twin answers these
+        if plan.fast_path_result is None:
+            gather_operands(plan)
+            planned += 1
+    torch.cuda.synchronize()
+    return {"freeze_rows": frozen.num_docs, "rebuild_seconds": rebuild_s,
+            "upload_seconds": time.perf_counter() - t0,
+            "frozen_device_bytes": frozen.device_bytes(),
+            "plans_uploaded": planned}
+
+
+def rt_freeze_points(rows: int) -> list:
+    """The last three freeze points of a consuming segment of `rows` rows
+    (1,048,576, 2,097,152 and 4,194,304 at 5,000,000)."""
+    from pinot_tpu_torch.realtime.mutable_segment import MutableSegmentImpl
+    points, f = [], MutableSegmentImpl.FREEZE_MIN_ROWS
+    while f < rows:
+        points.append(f)
+        f *= 2
+    return points[-len(RT_FREEZES):]
+
+
+def run_realtime(base, args):
+    """Phase realtime: the upsert table baseballStats_REALTIME ingested
+    the way the LLC consumer does (pinot_tpu/realtime/data_manager.py:
+    179-206): per fetch batch index_rows, then apply_batch with (key,
+    base + i); at --rt-rows rows convert, seal, load on the card and
+    attach_or_fold. --rt-sealed segments seal, then one consuming segment
+    is checked at its freeze points (RT_TAIL_BATCHES fetch batches after
+    each, so that a tail runs on the host twin) and when it is full; then
+    it seals too, and the sealed set runs stacked and in batches. Returns
+    (per-segment and stacked launches, batch launches, summary)."""
+    from pinot_tpu_torch.common.table_config import TableType, UpsertConfig
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.realtime import converter
+    from pinot_tpu_torch.realtime.mutable_segment import MutableSegmentImpl
+    from pinot_tpu_torch.realtime.segment_name import LLCSegmentName
+    from pinot_tpu_torch.realtime.upsert import TableUpsertMetadataManager
+    from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
+    from pinot_tpu_torch.tools import baseball
+    rows_per_seg = args.rt_rows
+    fetch = min(RT_FETCH_ROWS, max(1, rows_per_seg // 20))
+    schema = baseball.make_schema()
+    cfg = baseball.make_table_config()
+    cfg.table_type = TableType.REALTIME
+    cfg.upsert_config = UpsertConfig(mode="FULL",
+                                     primary_key_columns=list(RT_PK))
+    cfg.indexing_config.stream_configs = {
+        "realtime.segment.flush.threshold.size": str(rows_per_seg)}
+    mgr = TableUpsertMetadataManager(cfg.table_name_with_type,
+                                     cfg.upsert_config, schema,
+                                     os.path.join(base, "upsert"))
+    part = mgr.partition(0)
+    rt, sealed, freezes = RtTable(), [], []
+    seconds = collections.Counter()
+    launches = collections.Counter()
+    offset = batches = 0
+    for seq in range(args.rt_sealed + 1):
+        name = LLCSegmentName("baseballStats", 0, seq).name
+        mutable = MutableSegmentImpl(schema, cfg, name)
+        mutable.valid_doc_ids = part.register_consuming(seq)
+        consuming = seq == args.rt_sealed
+        points = rt_freeze_points(rows_per_seg) if consuming else []
+        check_at = None
+        while mutable.num_docs < rows_per_seg:
+            n = min(fetch, rows_per_seg - mutable.num_docs)
+            batches += 1
+            t0 = time.perf_counter()
+            cols = baseball.make_columns(n, seed=args.seed + 7919 * batches)
+            rows = _rt_rows(cols)
+            t1 = time.perf_counter()
+            keys = [mgr.key_of(r) for r in rows]
+            mutable.index_rows(rows)
+            t2 = time.perf_counter()
+            first = mutable.num_docs - len(rows)
+            offset += len(rows)
+            part.apply_batch(seq, [(k, first + i) for i, k in enumerate(keys)],
+                             offset)
+            t3 = time.perf_counter()
+            seconds["rows"] += t1 - t0
+            seconds["index"] += t2 - t1
+            seconds["apply"] += t3 - t2
+            rt.add(cols)
+            del rows, keys
+            frozen = mutable._frozen
+            if points and mutable.num_docs >= points[0] and (
+                    frozen is None or
+                    mutable.num_docs >= 2 * frozen.num_docs):
+                point = points.pop(0)
+                engine = QueryEngine(sealed + [mutable])
+                fr = rt_freeze(mutable, engine, rt)
+                fr["freeze_point"] = point
+                freezes.append(fr)
+                emit({"phase": "realtime_freeze", **fr})
+                check_at = (f"freeze {point}", fr,
+                            mutable.num_docs + RT_TAIL_BATCHES * fetch)
+            if check_at and (mutable.num_docs >= check_at[2] or
+                             mutable.num_docs >= rows_per_seg):
+                engine = QueryEngine(sealed + [mutable])
+                got, _a, _o = rt_checkpoint(check_at[0], engine, mutable, rt,
+                                            args.repeats)
+                launches.update(got)
+                check_at = None
+        if consuming:
+            engine = QueryEngine(sealed + [mutable])
+            got, _a, _o = rt_checkpoint(f"full {mutable.num_docs}", engine,
+                                        mutable, rt, args.repeats)
+            launches.update(got)
+        # the commit: convert, seal the key map, load on the card, attach
+        seg_dir = os.path.join(base, name)
+        t0 = time.perf_counter()
+        converter.convert(mutable, seg_dir, name)
+        t1 = time.perf_counter()
+        part.seal(seq, offset, mutable.num_docs)
+        t2 = time.perf_counter()
+        seg = ImmutableSegmentLoader.load(seg_dir).to("cuda")
+        t3 = time.perf_counter()
+        mgr.on_committed_segment(name, seg)
+        t4 = time.perf_counter()
+        if seg.valid_doc_ids is not mutable.valid_doc_ids:
+            raise AssertionError(f"{name}: the sealed segment did not take "
+                                 "the consuming segment's bitmap")
+        seconds["convert"] += t1 - t0
+        seconds["seal"] += t2 - t1
+        seconds["load"] += t3 - t2
+        seconds["attach"] += t4 - t3
+        emit({"phase": "realtime_seal", "segment": name,
+              "rows": seg.num_docs,
+              "superseded": seg.valid_doc_ids.num_invalid,
+              "convert_seconds": t1 - t0, "seal_seconds": t2 - t1,
+              "load_seconds": t3 - t2, "attach_seconds": t4 - t3,
+              "key_map_size": mgr.key_map_size()})
+        mutable.destroy()
+        sealed.append(seg)
+    rows = offset
+    ingest = {"rows": rows, "fetch_rows": fetch,
+              "rows_per_s_index": rows / seconds["index"],
+              "rows_per_s_index_apply": rows / (seconds["index"] +
+                                                seconds["apply"]),
+              "row_synthesis_seconds": seconds["rows"],
+              "index_seconds": seconds["index"],
+              "apply_seconds": seconds["apply"],
+              "convert_seconds": seconds["convert"],
+              "seal_seconds": seconds["seal"],
+              "load_seconds": seconds["load"],
+              "attach_seconds": seconds["attach"]}
+    emit({"phase": "realtime_ingest", **ingest})
+
+    # the sealed set, stacked: every query on the stacked route with the
+    # [S, P] liveness lane, every answer the per-segment one's
+    seq_engine = QueryEngine(sealed)
+    st_engine = QueryEngine(sealed, mesh=make_mesh())
+    oracle, _n = rt.live_oracle()
+    stack = st_engine.sharded.stack_for(st_engine.segments)
+    judged = 0
+    st_launches, routes = collections.Counter(), collections.Counter()
+    families = {}
+    for family, draw in _rt_draws(oracle):
+        K.reset_launch_counts()
+        resp = st_engine.query(draw.pql)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        route, reason = st_engine.last_route
+        # the planner's refusals go to the host twin, and a filter that
+        # folds to nothing has no device work to stack (a fast path);
+        # everything else stacks, with the vdoc node in its one K1
+        if route == "NotShardable" and reason.startswith("fast-path"):
+            route = "fast_path"
+        routes[route] += 1
+        if draw.host_answered != (route == "UnsupportedOnDevice") or \
+                route not in ("stacked", "fast_path",
+                              "UnsupportedOnDevice") or \
+                (route == "stacked" and (
+                    counts["filter_mask[vdoc]"] != 1 or
+                    counts["filter_mask"] != 1)):
+            raise AssertionError(f"{draw.pql}: route {route} ({reason}), "
+                                 f"launches {counts}")
+        st_launches.update(counts)
+        baseball.check(resp, oracle, draw)
+        if not same_answer(resp, seq_engine.query(draw.pql),
+                           baseball.FLOAT_RTOL):
+            judged += 1       # a selection's ties: the oracle judged it
+        if route == "stacked":
+            ts = []
+            for _ in range(args.repeats):
+                t0 = time.perf_counter()
+                st_engine.query(draw.pql)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            families.setdefault(family, []).extend(ts)
+    lane = stack.vdoc_lane()
+    if lane.shape != (len(sealed), stack.padded_docs) or \
+            int(lane.sum()) != oracle.n:
+        raise AssertionError(f"stacked liveness lane {tuple(lane.shape)} "
+                             f"holds {int(lane.sum())} live rows, the "
+                             f"oracle {oracle.n}")
+    emit({"phase": "realtime_stacked", "segments": len(sealed),
+          "queries_passed": sum(1 for _ in _rt_draws(oracle)),
+          "live_rows": oracle.n, "judged_by_oracle": judged,
+          "routes": dict(routes),
+          "vdoc_lane_shape": list(lane.shape),
+          "vdoc_uploads": stack.vdoc_uploads,
+          "vdoc_upload_bytes": stack.vdoc_upload_bytes,
+          "p50_ms_by_family": {f: float(np.median(ts))
+                               for f, ts in families.items()},
+          "launches": {k: v for k, v in st_launches.items() if v}})
+    launches.update(st_launches)
+    # cross-query batches over the sealed set: the shared liveness lane
+    draws = baseball.batch_draws(oracle)
+    batch = run_batch(
+        "realtime", seq_engine, {f: [d.pql for d in ds]
+                                 for f, ds in draws.items()},
+        lambda f, i, resp: baseball.check(resp, oracle, draws[f][i]),
+        args.batch_repeats)
+    if not batch["filter_mask_batched[vdoc]"]:
+        raise AssertionError("no batched K1 launch carried the vdoc node")
+    summary = {"ingest": ingest, "freezes": freezes,
+               "segments": len(sealed), "rows_per_segment": rows_per_seg,
+               "live_rows": oracle.n, "key_map_size": mgr.key_map_size()}
+    mgr.close()
+    return dict(launches), batch, summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=int, default=10)
@@ -2239,6 +2810,8 @@ def main() -> int:
     ap.add_argument("--vec-dim", type=int, default=128)
     ap.add_argument("--vec-queries", type=int, default=5)
     ap.add_argument("--batch-repeats", type=int, default=3)
+    ap.add_argument("--rt-rows", type=int, default=RT_FLUSH_ROWS)
+    ap.add_argument("--rt-sealed", type=int, default=2)
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2449,6 +3022,17 @@ def main() -> int:
                   for st in vec_st_engine.sharded._stacks.values()),
               "peak_device_bytes": torch.cuda.max_memory_allocated()})
         del vec_engine, vec_st_engine
+
+    # -- realtime upserts: baseballStats_REALTIME -------------------------
+    with tempfile.TemporaryDirectory(dir=scratch) as base:
+        t0 = time.perf_counter()
+        rt_launches, launches, rt_summary = run_realtime(base, args)
+        batch_launches = {k: v + launches[k]
+                          for k, v in batch_launches.items()}
+        seconds["realtime"] = time.perf_counter() - t0
+        emit({"phase": "realtime_summary", **rt_summary,
+              "seconds": seconds["realtime"],
+              "peak_device_bytes": torch.cuda.max_memory_allocated()})
     unused = [k for k, v in batch_launches.items()
               if k.endswith("_batched") and not v]
     if unused:
@@ -2484,7 +3068,7 @@ def main() -> int:
                      "launches": ssb_launches[name] + bb_launches[name] +
                      vec_build_launches[name] +
                      vec_launches["per_segment"][name] + st_launches +
-                     batch_launches[name],
+                     batch_launches[name] + rt_launches.get(name, 0),
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
@@ -2493,6 +3077,28 @@ def main() -> int:
                      "stacked_ms": st["ms"],
                      "stacked_s_sequential_ms": st["s_sequential_ms"],
                      "stacked_bound_ms": st["bound_ms"]})
+    # K1's vdoc node, counted apart: the realtime phase's launches (per
+    # segment, frozen prefixes and stacked; then batched)
+    source = K.KERNELS["filter_mask"].source
+    e, st = entries["filter_mask[vdoc]"], stacked_entries["filter_mask[vdoc]"]
+    line.append({"name": "filter_mask[vdoc]", "route": "cuda",
+                 "source": source, "replaces": "pinot_tpu/ops/kernels.py:112",
+                 "launches": rt_launches["filter_mask[vdoc]"],
+                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                 "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                 "bound_by": e["bound"][1], "library_ms": None,
+                 "stacked_ms": st["ms"],
+                 "stacked_s_sequential_ms": st["s_sequential_ms"],
+                 "stacked_bound_ms": st["bound_ms"]})
+    e = batch_entries["filter_mask[vdoc]"]
+    line.append({"name": "filter_mask_batched[vdoc]", "route": "cuda",
+                 "source": source, "replaces": "pinot_tpu/ops/kernels.py:112",
+                 "launches": batch_launches["filter_mask_batched[vdoc]"],
+                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                 "bound_by": e["bound_by"], "library_ms": None,
+                 "batch_members": BATCH_SIZES[-1],
+                 "b_single_ms": e["b_single_ms"]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -6,9 +6,13 @@ refuses a segment as the JAX planner does) → broker reduce, all in one
 process; or, with a mesh, one stacked execution over every segment
 (parallel/sharded.py), falling back to the per-segment path where the
 JAX engine does. VECTOR_SIMILARITY queries (exact or IVF-probed) take the
-same paths. Join and window requests raise NotPorted here, before the
-executor: the port has no path for them yet, on the device or on the
-host.
+same paths. A consuming segment (realtime/mutable_segment.py) may be one
+of the segments: its frozen prefix runs on the engine's device and its
+tail on the host twin; with a mesh, a set that holds one goes the
+per-segment way (NotShardable). Segments of an upsert table carry their
+ValidDocIds and are masked on every path. Join and window requests raise
+NotPorted here, before the executor: the port has no path for them yet,
+on the device or on the host.
 """
 from __future__ import annotations
 
@@ -24,13 +28,11 @@ from pinot_tpu_torch.query.executor import ServerQueryExecutor
 from pinot_tpu_torch.query.plan import GroupsLimitExceeded, NotPorted, \
     UnsupportedOnDevice, preprocess_request
 from pinot_tpu_torch.query.reduce import BrokerReduceService
-from pinot_tpu_torch.segment.loader import ImmutableSegment, \
-    ImmutableSegmentLoader
+from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
 
 
 class QueryEngine:
-    def __init__(self, segments: Sequence[ImmutableSegment], device=None,
-                 mesh=None):
+    def __init__(self, segments: Sequence, device=None, mesh=None):
         """`device`: where the segments' lanes live and the kernels run;
         None means the card ("cuda"), which raises when there is none.
         Pass device="cpu" to run the kernels' plain versions on the CPU.

@@ -6,7 +6,9 @@
 // id lanes, and the raw kinds eq_raw, neq_raw, in_raw, notin_raw and
 // range_raw over int32 / int64 / float32 / float64 value lanes, and
 // ivf_probe (_eval_ivf_probe, :161: the row's IVF cell is in the probe
-// list K9 selected for its segment), under and/or nodes of any arity.
+// list K9 selected for its segment), and vdoc (:112, the upsert
+// validDocIds leaf: the row's byte of the uint8 liveness lane), under
+// and/or nodes of any arity.
 //
 // Semantics kept from the JAX function:
 // - an MV leaf matches a row when ANY of its W entries matches, padding
@@ -56,7 +58,13 @@
 // lo_inclusive | hi_inclusive << 1.
 // An ivf_probe node reads the row's assignment lane and two more entries
 // of the lane table, the probe ids and ok flags, whose indices are its two
-// parameter words.
+// parameter words. A vdoc node takes no parameters: it reads one byte of
+// its uint8 lane (1 = live, 0 = superseded or padding) and pushes it. Both
+// instantiations take it, so an upsert-masked dictId filter keeps the
+// narrow one; it costs one more byte read per row. In the stacked form the
+// lane is the stack's [S][P] liveness, indexed by the same flat row; in
+// the batched form the one lane of the segment serves every member, read
+// once per row.
 // The host checks that the stack never holds more than 32 bits.
 //
 // Batched members (the counterpart of the vmap over a query axis in
@@ -83,7 +91,7 @@ enum Op : int {
   kTrue = 0, kFalse = 1, kEq = 2, kNeq = 3, kRange = 4, kIn = 5,
   kNotIn = 6, kMember = 7, kAnd = 8, kOr = 9,
   kEqRaw = 10, kNeqRaw = 11, kRangeRaw = 12, kInRaw = 13, kNotInRaw = 14,
-  kIvfProbe = 15,
+  kIvfProbe = 15, kVdoc = 16,
 };
 
 using pinot::kF32;
@@ -253,6 +261,8 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
           bit = 1u;
         } else if (op == kFalse) {
           bit = 0u;
+        } else if (op == kVdoc) {
+          bit = static_cast<const uint8_t*>(s_lanes[node[1]])[row] != 0 ? 1u : 0u;
         } else {
           const void* lane = s_lanes[node[1]];
           if constexpr (kGeneral)
@@ -384,6 +394,12 @@ __global__ void filter_mask_batched_kernel(Lanes lanes, const int* __restrict__ 
         } else if (op == kTrue || op == kFalse) {
 #pragma unroll
           for (int b = 0; b < kMaxMembers; ++b) stack[b] = (stack[b] << 1) | (op == kTrue);
+        } else if (op == kVdoc) {
+          // one read of the shared liveness lane for every member
+          const unsigned live =
+              static_cast<const uint8_t*>(s_lanes[node[1]])[row] != 0 ? 1u : 0u;
+#pragma unroll
+          for (int b = 0; b < kMaxMembers; ++b) stack[b] = (stack[b] << 1) | live;
         } else {
           unsigned bits[kMaxMembers];
           eval_leaf_members<kGeneral>(s_lanes, s_lanes[node[1]], op, node[4], node[5], row,

@@ -44,6 +44,8 @@ where the JAX planner does and NotPorted where the port has no kernel):
             kind ∈ {eq_id, neq_id, range_ids, in_ids, notin_ids, member}
           source "raw" ({col}.raw [P], int32/int64/float32/float64):
             kind ∈ {eq_raw, neq_raw, in_raw, notin_raw, range_raw}
+          source "vdoc" ({col}.vdoc, uint8 [P], 1 = live): kind vdoc, the
+            upsert liveness leaf (plan.py VALID_DOC_PRED), no params
   params: flat sequence consumed in depth-first pred order: eq/neq one
           value, range_ids (lo, hi) half-open, range_raw (lo, hi) with
           extra = (lo_inclusive, hi_inclusive), in/notin a [k] list (ids
@@ -117,6 +119,9 @@ class KernelInfo:
     launches: int = 0      # +1 per kernel launch, nowhere else
     symbol: str = ""       # the C entry point, pinot_<name> by default
     _fn: object = None     # the loaded C entry point
+    #: launches whose program holds a node of this kind ("vdoc" for K1),
+    #: reported as "<name>[<node>]"
+    node_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 KERNELS: Dict[str, KernelInfo] = {
@@ -218,13 +223,30 @@ _ARGTYPES.update({
 _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 
 
+#: K1's program nodes counted apart: the upsert liveness leaf
+KERNELS["filter_mask"].node_launches["vdoc"] = 0
+KERNELS["filter_mask_batched"].node_launches["vdoc"] = 0
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.node_launches = dict.fromkeys(k.node_launches, 0)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """{kernel: launches}, and {"<kernel>[<node>]": launches whose program
+    held the node} for the counted nodes."""
+    out = {name: k.launches for name, k in KERNELS.items()}
+    for name, k in KERNELS.items():
+        out.update({f"{name}[{node}]": n
+                    for node, n in k.node_launches.items()})
+    return out
+
+
+def _count_vdoc(name: str, keys) -> None:
+    if any(k.endswith(".vdoc") for k in keys):
+        KERNELS[name].node_launches["vdoc"] += 1
 
 
 def _c_entry(name: str):
@@ -298,9 +320,10 @@ _OP_TRUE, _OP_FALSE, _OP_AND, _OP_OR = 0, 1, 8, 9
 _LEAF_OPS = {"eq_id": 2, "neq_id": 3, "range_ids": 4, "in_ids": 5,
              "notin_ids": 6, "member": 7, "eq_raw": 10, "neq_raw": 11,
              "range_raw": 12, "in_raw": 13, "notin_raw": 14,
-             "ivf_probe": 15}
-#: params each predicate kind takes (an ivf_probe: the query and its norm)
-_LEAF_PARAMS = {"range_ids": 2, "range_raw": 2, "ivf_probe": 2}
+             "ivf_probe": 15, "vdoc": 16}
+#: params each predicate kind takes (an ivf_probe: the query and its norm;
+#: the vdoc liveness leaf none)
+_LEAF_PARAMS = {"range_ids": 2, "range_raw": 2, "ivf_probe": 2, "vdoc": 0}
 _RAW_KINDS = ("eq_raw", "neq_raw", "range_raw", "in_raw", "notin_raw")
 _NODE_WORDS = 6              # {op, lane, param offset, arg, elem, width}
 _MAX_FILTER_LANES = 16
@@ -312,6 +335,8 @@ def _leaf(spec) -> Tuple[str, str]:
     _, kind, col, source, _extra = spec
     if source == "ivf" and kind == "ivf_probe":
         return kind, f"{col}.ivfa"          # + {col}.ivfc / .ivfv for K9
+    if source == "vdoc" and kind == "vdoc":
+        return kind, f"{col}.vdoc"          # uint8 liveness, no params
     if kind not in _LEAF_OPS or source not in ("sv", "mv", "raw") or \
             (source == "raw") != (kind in _RAW_KINDS):
         raise ValueError(f"predicate kind {kind} over {source} is not a "
@@ -320,7 +345,9 @@ def _leaf(spec) -> Tuple[str, str]:
 
 
 def _filter_lane_ok(t: torch.Tensor, key: str, padded: int, device) -> None:
-    if key.endswith(".raw"):
+    if key.endswith(".vdoc"):
+        _check_lane(t, key, padded, device, (torch.uint8,))
+    elif key.endswith(".raw"):
         _check_lane(t, key, padded, device, _RAW_DTYPES)
     else:
         _check_lane(t, key, padded, device, _ID_DTYPES,
@@ -392,6 +419,10 @@ def compile_filter(filter_spec, params: Sequence,
             lane_t = cols[key]
             lane, off, arg = lanes.index(key), len(words), 0
             width = lane_t.shape[1] if lane_t.dim() == 2 else 1
+            if kind == "vdoc":
+                # the row's liveness byte, pushed as it is: no params
+                emit(_LEAF_OPS[kind], lane, off)
+                return
             if kind in ("eq_id", "neq_id"):
                 words.append(int(plist.pop(0)))
             elif kind == "range_ids":
@@ -472,6 +503,13 @@ def filter_lane_keys(filter_spec) -> List[str]:
     return keys
 
 
+def _general(keys) -> bool:
+    """True when K1 needs its general instantiation: a raw or MV leaf (or
+    a probe). DictId leaves over SV lanes and the vdoc leaf run in the
+    narrow one, which keeps fewer registers."""
+    return any(not k.endswith((".ids", ".vdoc")) for k in keys)
+
+
 def _mask_device(keys, cols, device) -> torch.device:
     if keys:
         return cols[keys[0]].device
@@ -500,22 +538,26 @@ def filter_mask(padded: int, filter_spec, cols: Dict[str, torch.Tensor],
 
 def _launch_filter(filter_spec, cols, params, keys, device, rows: int,
                    seg_rows: int, seg_docs: Optional[torch.Tensor],
-                   num_docs: int, matched: Optional[torch.Tensor]
-                   ) -> torch.Tensor:
+                   num_docs: int, matched: Optional[torch.Tensor],
+                   general: Optional[bool] = None) -> torch.Tensor:
     """K1 over `rows` rows in segments of seg_rows: the uint8 mask, and
-    each segment's matches added into `matched` when given."""
+    each segment's matches added into `matched` when given. `general`
+    picks the instantiation; None picks by the program (_general), the
+    only choice the query path makes."""
     probes: List[torch.Tensor] = []
     buf, n_nodes = compile_filter(filter_spec, params, cols, probes)
     lanes = [cols[k] for k in keys] + probes
     # the one H2D copy, from pinned memory so the host does not wait
     prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
     out = torch.empty(rows, dtype=torch.uint8, device=device)
-    general = any(not k.endswith(".ids") for k in keys)    # raw / MV
+    if general is None:
+        general = _general(keys)
     _launch("filter_mask", device, _ptrs(lanes), len(lanes),
             prog.data_ptr(), n_nodes, int(buf.shape[0]), int(general),
             rows, seg_rows, None if seg_docs is None else seg_docs.data_ptr(),
             num_docs, out.data_ptr(),
             None if matched is None else matched.data_ptr())
+    _count_vdoc("filter_mask", keys)
     return out
 
 
@@ -643,10 +685,10 @@ def filter_mask_batched(padded: int, filter_spec,
     prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
     out = torch.empty(n, padded, dtype=torch.uint8, device=device)
     matched = torch.zeros(n, dtype=torch.int32, device=device)
-    general = any(not k.endswith(".ids") for k in keys)    # raw / MV
     _launch("filter_mask_batched", device, _ptrs(lanes), len(lanes),
-            prog.data_ptr(), n_nodes, words, n, int(general), padded,
+            prog.data_ptr(), n_nodes, words, n, int(_general(keys)), padded,
             int(num_docs), out.data_ptr(), matched.data_ptr())
+    _count_vdoc("filter_mask_batched", keys)
     return out, matched
 
 
@@ -710,6 +752,8 @@ def _filter_plain(filter_spec, cols, params, valid: torch.Tensor,
         lane = cols[key]
         if kind == "ivf_probe":
             return _probe_plain(spec, cols, plist.pop(0), plist.pop(0))
+        if kind == "vdoc":
+            return lane.bool()
         if kind not in _RAW_KINDS:
             lane = lane.to(torch.int32)
         cdt = lane.dtype

@@ -35,10 +35,14 @@ merges the per-segment top k by score (`_finish_vector`). A stack whose
 segments disagree on having an IVF index raises NotShardable (the
 sequential path decides index or exact scan per segment).
 
+Upsert tables: when any stacked segment has superseded rows, the plan
+ANDs K1's vdoc leaf over the stack's [S, P] uint8 liveness lane
+(`StackedSegments.vdoc_lane`, rows rebuilt only for segments whose
+bitmap version moved), as the JAX stack does. A consuming segment in the
+set stays NotShardable.
+
 The mesh is one device in this port (`make_mesh`); stacking over several
-cards (torch.distributed) is later work, as are the upsert validDocIds
-lane and the residency ledger: each raises NotPorted where the JAX code
-would need it.
+cards (torch.distributed) is later work, as is the residency ledger.
 """
 from __future__ import annotations
 
@@ -59,8 +63,9 @@ from pinot_tpu_torch.query import execution
 from pinot_tpu_torch.query.blocks import ExecutionStats, \
     IntermediateResultsBlock
 from pinot_tpu_torch.common.request import VECTOR_RESULT_COLUMNS
-from pinot_tpu_torch.query.plan import InstancePlanMaker, NotPorted, \
-    SegmentPlan, preprocess_request
+from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
+    InstancePlanMaker, SegmentPlan, preprocess_request, upsert_mask_active, \
+    with_valid_doc_mask
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.loader import (ImmutableSegment,
                                             hll_tables_padded,
@@ -196,6 +201,14 @@ class _UnionViewSegment:
     def column_names(self):
         return self._base.column_names
 
+    @property
+    def valid_doc_ids(self):
+        """A bitmap with superseded rows from any segment of the stack, or
+        None: the union plan masks (and takes no fast path) when one
+        segment does."""
+        return next((s.valid_doc_ids for s in self._stack.segments
+                     if upsert_mask_active(s)), None)
+
     def has_column(self, column: str) -> bool:
         return self._base.has_column(column)
 
@@ -252,6 +265,12 @@ class StackedSegments:
         # col -> None (dictionaries shared) | _UnionColumn (remap needed)
         self._union: Dict[str, Optional[_UnionColumn]] = {}
         self._plan_segment: Optional[_UnionViewSegment] = None
+        # upsert liveness: (bitmap versions, [S, P] lane) and the host
+        # rows it was built from
+        self._vdoc: Optional[Tuple[tuple, torch.Tensor]] = None
+        self._vdoc_host: Optional[np.ndarray] = None
+        self.vdoc_uploads = 0
+        self.vdoc_upload_bytes = 0
 
     def union_column(self, col: str) -> Optional[_UnionColumn]:
         """None when every segment shares the column's dictionary; else
@@ -357,21 +376,54 @@ class StackedSegments:
             return union.f64_vals[ids]
         raise ValueError(kind)
 
+    def vdoc_lane(self) -> torch.Tensor:
+        """uint8 [S, P] upsert liveness of the stack (pinot_tpu/parallel/
+        sharded.py:vdoc_lane): a segment without a bitmap is live on its
+        rows, padding rows are 0. Keyed by every segment's bitmap version;
+        only the rows of segments whose version moved are rebuilt, then
+        the lane uploads whole (one new tensor, so a query that holds the
+        old one keeps its version)."""
+        versions = tuple(
+            vd.version if (vd := getattr(s, "valid_doc_ids", None))
+            is not None else -1 for s in self.segments)
+        with self._cache_lock:
+            cached = self._vdoc
+            if cached is not None and cached[0] == versions:
+                return cached[1]
+            old = None if cached is None else cached[0]
+            host = self._vdoc_host
+            if host is None:
+                host = np.zeros((self.n_real, self.padded_docs), np.uint8)
+                old = None
+            for i, s in enumerate(self.segments):
+                if old is not None and old[i] == versions[i]:
+                    continue
+                vd = getattr(s, "valid_doc_ids", None)
+                host[i] = 0
+                host[i, : s.num_docs] = 1 if vd is None else \
+                    vd.valid_mask(0, s.num_docs)
+            lane = torch.from_numpy(host.copy()).to(self.device)
+            self._vdoc_host = host
+            self._vdoc = (versions, lane)
+            self.vdoc_uploads += 1
+            self.vdoc_upload_bytes += host.nbytes
+            return lane
+
     def gather(self, needed_cols) -> Dict[str, torch.Tensor]:
         """{"<col>.<kind>": stacked lane}, the names the kernels read."""
         cols: Dict[str, torch.Tensor] = {}
         for col, kind in needed_cols:
-            if kind == "vdoc":
-                raise NotPorted("the stacked upsert validDocIds lane comes "
-                                "with the realtime slice")
-            cols[f"{col}.{kind}"] = self.lane(col, kind)
+            cols[f"{col}.{kind}"] = self.vdoc_lane() if kind == "vdoc" \
+                else self.lane(col, kind)
         return cols
 
     def device_bytes(self) -> int:
-        """Bytes the stack's lanes hold on its device now."""
+        """Bytes the stack's lanes hold on its device now, the vdoc lane
+        included."""
         with self._cache_lock:
             return sum(t.numel() * t.element_size()
-                       for t in self._lanes.values())
+                       for t in self._lanes.values()) + \
+                (0 if self._vdoc is None else self._vdoc[1].numel())
 
 
 # ---------------------------------------------------------------------------
@@ -496,10 +548,15 @@ class ShardedQueryExecutor:
             if len(presence) > 1:
                 raise NotShardable(
                     "stacked segments disagree on IVF index presence")
-        if any(getattr(s, "valid_doc_ids", None) is not None
-               for s in stack.segments):
-            raise NotPorted("the stacked upsert validDocIds lane comes "
-                            "with the realtime slice")
+        # upsert validDocIds: when ANY segment of the stack has superseded
+        # rows the leaf covers the whole stack (segment 0's plan alone
+        # would miss the others' masks); it takes no params
+        if any(upsert_mask_active(s) for s in stack.segments):
+            plan = dataclasses.replace(
+                plan, filter_spec=with_valid_doc_mask(plan.filter_spec))
+            if (VALID_DOC_COLUMN, "vdoc") not in plan.needed_cols:
+                plan.needed_cols = plan.needed_cols + (
+                    (VALID_DOC_COLUMN, "vdoc"),)
 
         cols = stack.gather(plan.needed_cols)
         dev_outs = kernels.run_stacked_kernel(

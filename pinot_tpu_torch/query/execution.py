@@ -35,14 +35,19 @@ def _count_filter_leaves(spec) -> int:
         return 0
     if spec[0] in ("and", "or"):
         return sum(_count_filter_leaves(c) for c in spec[1])
-    if spec[0] == "pred" and spec[1] == "ivf_probe":
-        return 0      # engine-injected ANN probe, not a query leaf
-    return 1
+    if spec[0] == "pred" and spec[1] in ("vdoc", "ivf_probe"):
+        return 0      # engine-injected (upsert mask, ANN probe), not a
+    return 1          # query leaf
 
 
 def gather_operands_for(segment, needed_cols) -> Dict[str, torch.Tensor]:
     cols: Dict[str, torch.Tensor] = {}
     for col, kind in needed_cols:
+        if kind == "vdoc":
+            # upsert validDocIds: the segment's own liveness lane, cached
+            # by the bitmap's version (loader.device_valid_lane)
+            cols[f"{col}.vdoc"] = segment.device_valid_lane()
+            continue
         ds = segment.data_source(col)
         if kind == "ids":
             cols[f"{col}.ids"] = ds.device_dict_ids()

@@ -10,6 +10,14 @@ planner's NotPorted (a shape the JAX planner runs on its device and the
 port has no kernel for yet), and nothing that plan.execute() raises (a
 build, a launch, a kernel). No star-tree or thread pool yet.
 
+A consuming segment (realtime/mutable_segment.py:MutableSegmentImpl) is
+one logical segment of two parts (pinot_tpu/query/executor.py:147-185):
+its frozen sorted prefix (an ImmutableSegment, rebuilt at doubling row
+counts) runs on the card like any segment, and the rows indexed since the
+freeze (a snapshot view) on the host twin. The two blocks count as one
+processed segment, and the query reports the consuming segments it saw
+and their freshness.
+
 `execute_batch` runs N requests of one shape (the coalescer's batch,
 server/scheduler.py) over one segment set: per segment, the members whose
 plans share a compiled signature (query/plan.py:batch_signature) run each
@@ -21,12 +29,14 @@ sequential ladder.
 the last `reset_path_counts()`, where it ended: "pruned" (the pruner
 dropped it), "fast" (a fast-path plan: metadata, match-all or
 inverted-index COUNT, or an empty filter), "scan" (the device kernels)
-or "host" (the host twin).
+or "host" (the host twin: a refused plan, a consuming segment's tail
+among them, as the JAX planner refuses a mutable segment); `tail_docs`
+and `tail_ms` add up the consuming tails' rows and host milliseconds.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.common.request import BrokerRequest, \
     VECTOR_RESULT_COLUMNS
@@ -46,10 +56,12 @@ class ServerQueryExecutor:
     def __init__(self, plan_maker: Optional[InstancePlanMaker] = None):
         self.plan_maker = plan_maker or InstancePlanMaker()
         self.pruner = SegmentPrunerService()
-        self.path_counts: Dict[str, int] = dict.fromkeys(PATHS, 0)
+        self.reset_path_counts()
 
     def reset_path_counts(self) -> None:
-        self.path_counts = dict.fromkeys(PATHS, 0)
+        self.path_counts: Dict[str, int] = dict.fromkeys(PATHS, 0)
+        self.tail_docs = 0
+        self.tail_ms = 0.0
 
     def execute(self, request: BrokerRequest,
                 segments: List[ImmutableSegment]) -> IntermediateResultsBlock:
@@ -58,11 +70,43 @@ class ServerQueryExecutor:
         request = preprocess_request(segments, request)
         selected = self.pruner.prune(segments, request)
         self.path_counts["pruned"] += len(segments) - len(selected)
-        blk = _combine(request, [self._execute_segment(seg, request)
-                                 for seg in selected])
+        blocks: List[IntermediateResultsBlock] = []
+        extra_parts = extra_matched = 0
+        for seg in selected:
+            seg_blocks, parts, matched = self._segment_work(seg, request)
+            blocks.extend(seg_blocks)
+            extra_parts += parts
+            extra_matched += matched
+        blk = _combine(request, blocks)
+        _finish_stats(blk, selected, extra_parts, extra_matched)
         blk.stats.num_segments_pruned = len(segments) - len(selected)
         blk.stats.time_used_ms = (time.perf_counter() - t0) * 1e3
         return blk
+
+    def _segment_work(self, seg, request: BrokerRequest
+                      ) -> Tuple[List[IntermediateResultsBlock], int, int]:
+        """ONE logical segment: (blocks, extra parts, extra matched). A
+        consuming segment gives its frozen prefix's block (the card) and
+        its tail's (the host twin); the pair counts as one segment,
+        matched when both halves matched."""
+        if not getattr(seg, "is_mutable", False):
+            return [self._execute_segment(seg, request)], 0, 0
+        frozen, tail = seg.device_view()
+        blocks: List[IntermediateResultsBlock] = []
+        fb = tb = None
+        if frozen is not None:
+            fb = self._execute_segment(frozen, request)
+            blocks.append(fb)
+        if tail.num_docs > 0 or frozen is None:
+            t0 = time.perf_counter()
+            tb = self._execute_segment(tail, request)   # the host twin
+            self.tail_ms += (time.perf_counter() - t0) * 1e3
+            self.tail_docs += tail.num_docs
+            blocks.append(tb)
+        if fb is not None and tb is not None:
+            return blocks, 1, int(bool(fb.stats.num_segments_matched and
+                                       tb.stats.num_segments_matched))
+        return blocks, 0, 0
 
     def _plan(self, segment: ImmutableSegment,
               request: BrokerRequest) -> Optional[SegmentPlan]:
@@ -125,7 +169,13 @@ class ServerQueryExecutor:
     def _batch_segment(self, seg: ImmutableSegment,
                        takers: List["_BatchMember"]) -> None:
         """One segment, many members: the plans whose compiled signatures
-        agree run batched; everything else runs the sequential ladder."""
+        agree run batched; everything else runs the sequential ladder. A
+        consuming segment's frozen prefix and tail run per member
+        (pinot_tpu/query/executor.py:370-376)."""
+        if getattr(seg, "is_mutable", False):
+            for m in takers:
+                m.add(*self._segment_work(seg, m.request))
+            return
         groups: Dict[tuple, list] = {}
         for m in takers:
             # the per-segment star-tree branch waits for the port's
@@ -133,7 +183,7 @@ class ServerQueryExecutor:
             plan = self._plan(seg, m.request)
             sig = None if plan is None else batch_signature(plan)
             if sig is None:
-                m.blocks.append(self._run_plan(plan, seg, m.request))
+                m.add([self._run_plan(plan, seg, m.request)], 0, 0)
             else:
                 groups.setdefault(sig, []).append((m, plan))
         for group in groups.values():
@@ -141,13 +191,13 @@ class ServerQueryExecutor:
                 [plan for _m, plan in group])
             self.path_counts["scan"] += len(group)
             for (m, _plan), blk in zip(group, blocks):
-                m.blocks.append(blk)
+                m.add([blk], 0, 0)
 
 
 class _BatchMember:
     """One request's blocks and segments in the batched execution loop."""
     __slots__ = ("request", "selected", "selected_ids", "num_pruned",
-                 "blocks", "executed")
+                 "blocks", "extra_parts", "extra_matched", "executed")
 
     def __init__(self, request: BrokerRequest, selected, num_total: int):
         self.request = request
@@ -155,12 +205,22 @@ class _BatchMember:
         self.selected_ids = {id(s) for s in selected}
         self.num_pruned = num_total - len(selected)
         self.blocks: List[IntermediateResultsBlock] = []
+        self.extra_parts = 0
+        self.extra_matched = 0
         self.executed = 0
+
+    def add(self, blocks: List[IntermediateResultsBlock], parts: int,
+            matched: int) -> None:
+        self.blocks.extend(blocks)
+        self.extra_parts += parts
+        self.extra_matched += matched
 
     def finish(self, t0: float) -> IntermediateResultsBlock:
         """Combine and stats, as ServerQueryExecutor.execute ends, with
         the truncation the deadline caused."""
         blk = _combine(self.request, self.blocks)
+        _finish_stats(blk, self.selected, self.extra_parts,
+                      self.extra_matched)
         if self.executed < len(self.selected):
             blk.exceptions.append(
                 "DeadlineExceededError: segment execution truncated at "
@@ -169,6 +229,20 @@ class _BatchMember:
         blk.stats.num_segments_pruned = self.num_pruned
         blk.stats.time_used_ms = (time.perf_counter() - t0) * 1e3
         return blk
+
+
+def _finish_stats(blk: IntermediateResultsBlock, selected, extra_parts: int,
+                  extra_matched: int) -> None:
+    """Frozen + tail pairs count as one processed segment, matched when
+    both halves matched; the consuming segments' count and the oldest of
+    their last-indexed times (minConsumingFreshnessTimeMs)."""
+    blk.stats.num_segments_processed -= extra_parts
+    blk.stats.num_segments_matched -= extra_matched
+    consuming_ts = [int(s.last_indexed_time_ms) for s in selected
+                    if getattr(s, "is_mutable", False)]
+    blk.stats.num_consuming_segments_processed = len(consuming_ts)
+    if consuming_ts:
+        blk.stats.min_consuming_freshness_ms = min(consuming_ts)
 
 
 def _combine(request: BrokerRequest,

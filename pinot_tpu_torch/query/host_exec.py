@@ -2,11 +2,13 @@
 
 Copy of pinot_tpu/query/host_exec.py with imports rebased onto
 pinot_tpu_torch, reading the loader's host arrays (dict_ids, raw_values,
-mv_dict_ids, dictionary). One change: the group-by codes string and
+mv_dict_ids, dictionary). Two changes: the group-by codes string and
 integer dictionary keys and DISTINCTCOUNT arguments by dictId and counts
 small code spaces with np.bincount, where the JAX module sorts the
 decoded values (the same answers; seconds less per query over millions
-of rows). The executor reaches it only when the planner
+of rows); and a selection's ORDER BY over a consuming segment's
+arrival-order dictionary ranks by value, where the JAX module orders by
+dictId and returns rows out of value order. The executor reaches it only when the planner
 refuses a segment plan as the JAX planner does (UnsupportedOnDevice,
 GroupsLimitExceeded), never for a port gap (NotPorted). The vector
 top-k (`_vector_topk`, exact or IVF-probed through index/ivf.py's numpy
@@ -760,6 +762,15 @@ def _selection(segment: ImmutableSegment, request: BrokerRequest,
                                  "VECTOR_SIMILARITY for ranked results)")
             if cm.has_dictionary and cm.single_value:
                 k = ds.dict_ids[docids].astype(np.int64)
+                if not getattr(ds.dictionary, "is_sorted", True):
+                    # a consuming segment's arrival-order dictionary:
+                    # order by the values' ranks, not by the ids (the
+                    # JAX twin orders by the ids here, out of value order)
+                    vals = np.asarray(ds.dictionary.values)
+                    rank = np.empty(len(vals), np.int64)
+                    rank[np.argsort(vals, kind="stable")] = \
+                        np.arange(len(vals))
+                    k = rank[k]
             elif not cm.has_dictionary:
                 k = ds.raw_values[docids]
             else:

@@ -88,6 +88,40 @@ class NotPorted(Exception):
 MATCH_ALL = ("match_all",)
 EMPTY = ("empty",)
 
+# -- upsert validDocIds masking (pinot_tpu/query/plan.py:60-96) ---------------
+# A segment of an upsert table carries a ValidDocIds bitmap
+# (realtime/upsert.py); its superseded rows are masked on every result
+# path. On the card the mask is one more K1 leaf over the segment's uint8
+# liveness lane ("$validDocIds.vdoc", loader.device_valid_lane), so every
+# kernel after K1 sees only live rows.
+
+VALID_DOC_COLUMN = "$validDocIds"
+VALID_DOC_PRED = ("pred", "vdoc", VALID_DOC_COLUMN, "vdoc", None)
+
+
+def upsert_mask_active(segment) -> bool:
+    """True when the segment has superseded rows to mask. A bitmap with
+    no invalidation plans without the leaf, and keeps the fast paths."""
+    vd = getattr(segment, "valid_doc_ids", None)
+    return vd is not None and vd.num_invalid > 0
+
+
+def has_valid_doc_mask(spec) -> bool:
+    if spec == VALID_DOC_PRED:
+        return True
+    return spec is not None and spec[0] == "and" and \
+        VALID_DOC_PRED in spec[1]
+
+
+def with_valid_doc_mask(spec):
+    """The filter spec ANDed with the validDocIds leaf. The leaf takes no
+    params, so the depth-first param order of the tree is unchanged."""
+    if spec == EMPTY or has_valid_doc_mask(spec):
+        return spec
+    if spec is None or spec == MATCH_ALL:
+        return VALID_DOC_PRED
+    return ("and", (VALID_DOC_PRED, spec))
+
 
 def resolve_filter(tree: Optional[FilterQueryTree], segment: ImmutableSegment
                    ) -> Tuple[tuple, List]:
@@ -434,16 +468,24 @@ class InstancePlanMaker:
             raise NotPorted("join / window queries")
         if not request.is_aggregation and not request.is_selection:
             raise NotPorted("query without aggregation or selection")
+        if getattr(segment, "is_mutable", False):
+            # arrival-order (unsorted) dictionaries break the sorted-id
+            # predicates: a consuming segment's rows go to the host twin
+            # (its frozen prefix is an ImmutableSegment and plans here)
+            raise UnsupportedOnDevice("mutable segment")
         plan = SegmentPlan(segment=segment, request=request)
         if request.is_aggregation:
             plan.functions = make_functions(request.aggregations)
+        # metadata counts and inverted-index counts include superseded
+        # rows: a masked segment takes none of the fast paths
+        masked = upsert_mask_active(segment)
         count_only = request.is_aggregation and not request.is_group_by \
-            and all(f.info.base == "COUNT" and not f.info.is_mv
-                    for f in plan.functions)
+            and not masked and all(f.info.base == "COUNT" and
+                                   not f.info.is_mv for f in plan.functions)
 
         # fast path: no filter, metadata-answerable aggregations
         if request.is_aggregation and not request.is_group_by and \
-                request.filter is None and \
+                request.filter is None and not masked and \
                 self._try_metadata_fast_path(plan, segment):
             return plan
 
@@ -471,6 +513,8 @@ class InstancePlanMaker:
                 plan.fast_path_result = blk
                 return plan
 
+        if masked:
+            filter_spec = with_valid_doc_mask(filter_spec)
         plan.filter_spec = filter_spec
         plan.params = params
 
@@ -915,7 +959,8 @@ def _collect_filter_cols(spec: tuple, needed: Dict) -> None:
             for lane in ("ivfa", "ivfc", "ivfv"):
                 needed[(col, lane)] = None
             return
-        needed[(col, {"sv": "ids", "mv": "mv", "raw": "raw"}[source])] = None
+        needed[(col, {"sv": "ids", "mv": "mv", "raw": "raw",
+                      "vdoc": "vdoc"}[source])] = None
 
 
 def selection_columns(segment: ImmutableSegment, request: BrokerRequest

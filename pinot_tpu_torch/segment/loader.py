@@ -14,6 +14,8 @@ so every kernel sees the same static layout the JAX package uses:
 - value lanes decode a float dictionary to float64 [P];
 - HLL tables are int32 [card_pad] per-dictId register index and rank
   (`hll_tables_padded`), padded with (0, 0);
+- the upsert liveness lane (`device_valid_lane`, where a ValidDocIds
+  bitmap is attached) is uint8 [P], 1 for a live row, padding rows 0;
 - VECTOR columns are float32 [P, dim_pad] embedding blocks (`vec`), dim
   padded to a power of two with zeros (an exact no-op in every tree
   sum), padding rows zero; with an IVF index, its assignment lane
@@ -31,7 +33,7 @@ there is no residency ledger.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -285,6 +287,13 @@ class ImmutableSegment:
                 ds._segment = self
         self._device: Optional[torch.device] = \
             None if device is None else resolve_device(device)
+        # primary-key upsert liveness (realtime/upsert.py:ValidDocIds),
+        # attached by the upsert manager or a consuming segment's freeze;
+        # its device lane is cached by the bitmap's version
+        self.valid_doc_ids = None
+        self._valid_dev: Optional[Tuple[int, torch.Tensor]] = None
+        self.vdoc_uploads = 0          # vdoc lane uploads since load
+        self.vdoc_upload_bytes = 0
 
     @property
     def device(self) -> torch.device:
@@ -301,6 +310,7 @@ class ImmutableSegment:
         if self._device != device:
             for ds in self._data_sources.values():
                 ds.release_device()
+            self._valid_dev = None
             self._device = device
         return self
 
@@ -330,8 +340,39 @@ class ImmutableSegment:
     def has_column(self, column: str) -> bool:
         return column in self._data_sources
 
+    def device_valid_lane(self) -> torch.Tensor:
+        """uint8 [P] upsert liveness lane (1 = live) on the segment's
+        device, uploaded again only when the bitmap's version moves.
+        Padding rows are 0. The version is read before the mask is
+        copied, so a bump in between leaves a lane at least as new as its
+        key (the next query re-uploads; a stale mask is never served
+        under a newer version). A query reads the lane once, so it sees
+        one version even while the bitmap changes under it."""
+        vd = self.valid_doc_ids
+        ver = vd.version
+        cached = self._valid_dev
+        if cached is None or cached[0] != ver:
+            host = np.zeros(self.padded_docs, dtype=np.uint8)
+            host[: self.num_docs] = vd.valid_mask(0, self.num_docs)
+            cached = (ver, torch.from_numpy(host).to(self.device))
+            self._valid_dev = cached
+            self.vdoc_uploads += 1
+            self.vdoc_upload_bytes += host.nbytes
+        return cached[1]
+
+    def destroy(self) -> None:
+        """Drop every device lane (the vdoc lane too); host arrays stay,
+        and the lanes upload again on next use."""
+        self._valid_dev = None
+        for ds in self._data_sources.values():
+            ds.release_device()
+
     def device_bytes(self) -> int:
-        return sum(ds.device_bytes() for ds in self._data_sources.values())
+        """Bytes this segment holds on its device now, the vdoc lane
+        included."""
+        cached = self._valid_dev
+        return sum(ds.device_bytes() for ds in self._data_sources.values()) \
+            + (0 if cached is None else cached[1].numel())
 
 
 class ImmutableSegmentLoader:

@@ -7,9 +7,8 @@ axis) key by key, for every case of pinot_tpu.ops.kernels.
 batched_contract_cases() at CONTRACT_SHAPE_BUCKETS and B in {2, 3, 5, 8},
 and for more plans of the same grammar (part sums, MV aggregations,
 histograms and min / max, each K6 kind). The contract cases' upsert
-`vdoc` leaf, a kind the port's K1 does not have yet, is given to the port
-as the equal predicate `eq_id 1` over the same liveness as an int8 lane
-(test_torch_vector._to_port). Integers are equal, float64 block sums agree
+`vdoc` leaf runs as K1's own vdoc node over the same liveness as the
+port's uint8 lane (test_torch_vector._to_port). Integers are equal, float64 block sums agree
 to rtol 1e-12 (both sides sum in float64, in other orders), and vector
 scores are bit-equal to the JAX contract run op by op. Each member also
 equals its own run_segment_kernel, bit for bit. Members whose params
@@ -674,8 +673,15 @@ def test_batched_kernels_cuda(cuda_device, name, n):
     torch.cuda.synchronize()
     launched = {k: v for k, v in tk.launch_counts().items() if v}
     # each launch of one member's plan is one batched launch per chunk
+    # ("filter_mask[vdoc]", a launch whose program holds the vdoc node,
+    # becomes "filter_mask_batched[vdoc]")
     chunks = -(-n // tk.MAX_BATCH)
-    assert launched == {f"{k}_batched": v * chunks
+
+    def batched_name(k):
+        base, bracket, node = k.partition("[")
+        return f"{base}_batched{bracket}{node}"
+
+    assert launched == {batched_name(k): v * chunks
                         for k, v in single.items()}, (launched, single)
     want = tk.run_segment_kernel_batched(P, filt, aggs, select, host,
                                          members, num_docs)

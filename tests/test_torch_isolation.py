@@ -49,6 +49,19 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.query.fingerprint\n"
         "import pinot_tpu_torch.common.serde\n"
         "import pinot_tpu_torch.server.scheduler\n"
+        "import pinot_tpu_torch.common.faults, pinot_tpu_torch.common.metrics\n"
+        "import pinot_tpu_torch.common.datatable\n"
+        "import pinot_tpu_torch.common.table_name\n"
+        "import pinot_tpu_torch.realtime.upsert\n"
+        "import pinot_tpu_torch.realtime.mutable_segment\n"
+        "import pinot_tpu_torch.realtime.converter\n"
+        "import pinot_tpu_torch.realtime.hlc, pinot_tpu_torch.realtime.registry\n"
+        "import pinot_tpu_torch.realtime.stream\n"
+        "import pinot_tpu_torch.realtime.stats_history\n"
+        "import pinot_tpu_torch.realtime.segment_name\n"
+        "import pinot_tpu_torch.ingestion.transformer\n"
+        "import pinot_tpu_torch.controller.property_store\n"
+        "import pinot_tpu_torch.server.data_manager\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or\n"

@@ -4,7 +4,8 @@ Each kernel's plain PyTorch version (what the wrapper runs for a CPU
 tensor) is held to the JAX function on identical operands made from a
 seed with numpy: K1 filter_mask against kernels._eval_filter & valid
 (dictId kinds over SV and MV lanes, raw kinds over int32 / int64 /
-float32 / float64 lanes), and K2 masked_part_sums, K3
+float32 / float64 lanes, the upsert `vdoc` liveness leaf over a bool
+lane in JAX and the same lane as uint8 in the port), and K2 masked_part_sums, K3
 dense_group_aggregate, K4 masked_histogram and K5 masked_reduce through
 run_segment_kernel against the jitted build_segment_kernel with kmax = 0.
 Integer outputs and min / max must be equal (min / max in the JAX dtype
@@ -78,6 +79,11 @@ def _lanes(P: int, num_docs: int, seed: int):
         width = rng.integers(1, w + 1, num_docs)
         mv[:num_docs][np.arange(w)[None, :] >= width[:, None]] = card
         cols[f"{c}.mv"] = mv
+    # upsert liveness (bool, as the JAX lane; uint8 in the port): 20% of
+    # the rows superseded, padding rows not live
+    live = np.random.default_rng(seed + 1).random(P) < 0.8
+    live[num_docs:] = False
+    cols[f"{VDOC[2]}.vdoc"] = live
     return cols
 
 
@@ -85,6 +91,10 @@ def _member(card: int, seed: int) -> np.ndarray:
     m = np.zeros(jk.pow2_bucket(card + 1), dtype=bool)
     m[:card] = np.random.default_rng(seed).random(card) < 0.3
     return m
+
+
+#: the planner's validDocIds leaf (pinot_tpu/query/plan.py VALID_DOC_PRED)
+VDOC = ("pred", "vdoc", "$validDocIds", "vdoc", None)
 
 
 def _pred(kind, col, extra=None):
@@ -182,6 +192,14 @@ FILTERS = {
                      [np.int32(3), np.int32(1), _near("rf32", 20),
                       _near("rf32", 30), _in_list([2, 4], 2),
                       _raw_list("ri64", [6, 7], 2)]),
+    # the upsert validDocIds leaf: alone, ANDed first into a dictId
+    # filter (the planner's with_valid_doc_mask) and into a mixed one
+    "vdoc": (VDOC, []),
+    "vdoc_and_eq": (("and", (VDOC, _pred("eq_id", "a"))), [np.int32(7)]),
+    "vdoc_mixed": (("and", (VDOC, ("or", (_raw("range_raw", "rf32",
+                                                (True, False)),
+                                           _mv("eq_id", "m3"))))),
+                   [_near("rf32", 10), _near("rf32", 40), np.int32(4)]),
 }
 NUM_DOCS = {"full": lambda P: P, "padded": lambda P: P - 777}
 
@@ -191,8 +209,10 @@ def _jax_cols(cols):
 
 
 def _torch_cols(cols, device="cpu"):
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in cols.items()}
+    """The port's lanes; the bool liveness lane as uint8."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.astype(np.uint8) if k.endswith(".vdoc") else v)).to(device)
+        for k, v in cols.items()}
 
 
 def _jax_filter(P, spec, cols, params, num_docs):
@@ -224,6 +244,8 @@ def _interpret_program(P, spec, cols, params, num_docs) -> np.ndarray:
             bit = np.ones(P, bool)
         elif op == tk._OP_FALSE:
             bit = np.zeros(P, bool)
+        elif op == ops["vdoc"]:
+            bit = cols[lane_keys[lane]] != 0
         elif op >= ops["eq_raw"]:
             dt = elem_np[elem]
             v = cols[lane_keys[lane]]
@@ -297,8 +319,14 @@ def test_compile_filter_limits():
         tk.compile_filter(deep, [np.int32(1)] * 32, cols)
     with pytest.raises(ValueError):
         tk.compile_filter(("pred", "eq_raw", "a", "sv", None), [1], cols)
+    # the vdoc leaf compiles to one parameter-free node over its lane;
+    # a kind K1 does not know still raises
+    buf, n_nodes = tk.compile_filter(VDOC, [], cols)
+    assert n_nodes == 1 and buf.shape == (tk._NODE_WORDS,)
+    assert buf[0] == tk._LEAF_OPS["vdoc"]
+    assert tk.filter_param_count(VDOC) == 0
     with pytest.raises(ValueError):
-        tk.compile_filter(("pred", "vdoc", "x", "vdoc", None), [], cols)
+        tk.compile_filter(("pred", "vdoc_id", "x", "sv", None), [1], cols)
 
 
 AGG_SPECS = (("count", "*", "none", None),

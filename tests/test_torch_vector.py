@@ -145,29 +145,12 @@ def _draw(dtype: str, shape, rng, key: str = ""):
 
 
 def _to_port(filt, cols: dict, params: list):
-    """The JAX case's filter for the port: a `vdoc` leaf becomes `eq_id 1`
-    over the liveness as an int8 lane (its param inserted where the leaf's
-    would be consumed, depth first)."""
-    cols = dict(cols)
-    out_params: list = []
-    plist = list(params)
-
-    def walk(spec):
-        if spec[0] in ("and", "or"):
-            return (spec[0], tuple(walk(c) for c in spec[1]))
-        if spec[0] != "pred":
-            return spec
-        _, kind, col, _source, _extra = spec
-        if kind == "vdoc":
-            cols[f"{col}.ids"] = cols.pop(f"{col}.vdoc").astype(np.int8)
-            out_params.append(np.int32(1))
-            return ("pred", "eq_id", col, "sv", None)
-        for _ in range(tk.filter_param_count(spec)):
-            out_params.append(plist.pop(0))
-        return spec
-
-    port_filt = walk(filt)
-    return port_filt, cols, out_params + plist
+    """The JAX case's operands for the port: its bool `vdoc` liveness lane
+    as the port's uint8 lane; the filter, vdoc leaf included, and the
+    params as they are."""
+    cols = {k: v.astype(np.uint8) if k.endswith(".vdoc") else v
+            for k, v in cols.items()}
+    return filt, cols, list(params)
 
 
 @pytest.mark.parametrize("name", ["select_vector_dot",

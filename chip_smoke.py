@@ -6,7 +6,9 @@ table with IVF codebooks, each table per segment, stacked (one launch
 per kernel over all segments) and in cross-query batches (one launch per
 kernel for up to 8 queries); then the upsert table
 baseballStats_REALTIME, ingested, served while it consumes (frozen
-prefix on the card, tail on the host) and masked by validDocIds.
+prefix on the card, tail on the host) and masked by validDocIds; and the
+multi-stage plane: joins of lineorderj x part and window functions, stage
+1 -> exchange -> stage 2 in process.
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
@@ -14,6 +16,8 @@ prefix on the card, tail on the host) and masked by validDocIds.
                           [--vec-dim 128] [--vec-queries 5]
                           [--batch-repeats 3]
                           [--rt-rows 5000000] [--rt-sealed 2]
+                          [--join-rows 60000000] [--join-segments 8]
+                          [--join-dim-rows 800000]
 
 Phases, each printed as one JSON line; any failure ends the run with a
 non-zero exit and no result line:
@@ -152,7 +156,8 @@ non-zero exit and no result line:
    LLC consumer does in fetch batches of 50,000 rows (index_rows, then
    apply_batch); each segment seals at --rt-rows (Apache Pinot's default
    flush threshold, 5,000,000): convert, seal, load on the card,
-   attach_or_fold. --rt-sealed segments seal; the consuming one is
+   attach_or_fold. --rt-sealed segments seal (2, the configuration's;
+   fewer is a depth cut named in the timing line); the consuming one is
    checked after each of its last three freeze points (rebuild and lane
    upload timed apart, two fetch batches of tail after each) and when
    full: launch and path counts from 0, phase 9's aggregation, group-by,
@@ -167,13 +172,50 @@ non-zero exit and no result line:
    judged by the oracle) and in execute_batch over batch_draws (the
    batched K1 with the shared lane). Ingest rows per second with and
    without apply_batch.
-19. timing: wall seconds per phase and per part of phase 9 (first runs
+19. join_data: the join tables of tools/datagen.py (make_join_rows from
+   --seed: SSB SF10 normalised, --join-rows lineorderj rows, --join-dim-rows
+   part rows, 1,000 brands, 10% fact keys without a dim row) built by the
+   port's SegmentCreator under build/: lineorderj in --join-segments
+   segments, its first two segments' rows again with lo_partkey raw (two
+   segments, a depth cut), part in one segment; loaded on the card; rows,
+   build and load seconds.
+20. join: J0 (no GROUP BY, the K2 path) and the single-join forms of SSB
+   flight 2, J2.1-J2.3. Launch counts from 0; per query, stage 1 (the
+   dim scan of stages/broker.py:dim_scan_request through the port's
+   executor on part, the capacity check, the DataTable published in an
+   ExchangeManager), then stage 2 (stages/join.py:build_context over the
+   source, attached) per segment, stacked (ShardedQueryExecutor) and, for
+   J0, J2.1 and J2.3, on the raw-key segments per segment and stacked;
+   every answer equal to join_oracle and to the host twin; K1 with its
+   join_raw node, K3 with jcode and jraw keys, K2 and K12
+   (radix_sort_join) must have launched, and the raw-key stacked path
+   must have launched the join_raw node and, grouped by a dim column,
+   the jraw key.
+   Then --repeats timed runs: stage 1 and stage 2 p50 per query and path.
+21. window: W1 (PARTITION BY d_year ORDER BY lo_revenue DESC, ROW_NUMBER
+   and SUM(lo_quantity)) and W2 (ORDER BY d_year, lo_revenue, no
+   partition) over a WHERE on lo_partkey chosen from the data to select
+   between 32,769 and 65,536 rows (n_pad 65,536): stage 1 (each fact
+   segment publishes its window_scan_request scan) -> execute_window_stage
+   on the card, launch counts from 0 (K12 radix_sort and K13 window_scan
+   must launch); bit-equal to the numpy twin over the same blocks, with
+   the rank / telescoping invariants of scripts/join_smoke.py:178-193;
+   p50 of --repeats, stage 1 and stage 2 apart.
+22. join_kernel_check: K1's member leaf (segment 0, J2.1's dim side) and
+   join_raw leaf (the first raw-key segment), K3's jcode and jraw keys (the
+   same), K12 as the join build (J2.1's dim keys with their codes) and on
+   W1's 65,536-row lanes, K13 on W1's sorted lanes, each against its
+   plain version on the card (masks, tables, permutations, row numbers
+   and sums bit-equal), timed with the L2 flushed beside its bound and
+   the nearest PyTorch call (a gather, torch.searchsorted, stable
+   torch.sort, torch.cumsum).
+23. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
-   repeats).
+   repeats), and the depth cuts made to stay inside the time limit.
 
 Phases 10-12 run right after the phase they build on (10 and 11 after
 5, 12 after 9); 13-15 after 12; 16 and 17 after each table's own phases;
-18 last.
+19-22 after 17; 18 last.
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -181,7 +223,9 @@ stacked, and the batches; the stacked paths' launches, the stacked
 launch's time, S per-segment launches' time and the stacked bound beside
 them; for a batched kernel, its time at 8 members beside 8 single
 launches; filter_mask[vdoc] and filter_mask_batched[vdoc], K1's launches
-with the vdoc node on the realtime path) and
+with the vdoc node on the realtime path; filter_mask[join_raw],
+dense_group_aggregate[jcode] and [jraw], the join phase's launches with
+those nodes; radix_sort_join, radix_sort and window_scan) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -292,11 +336,12 @@ def group_operands(plan, cols):
     return keys, strides, g_pad, parts, floats, extremes
 
 
-def k3_check(P, plan, cols, mask):
+def k3_check(P, plan, cols, mask, extra_bytes: int = 0):
     """K3 against its plain version on one group-by plan, with the
     shared-memory tables as the wrapper chooses them and, where the table
     fits a block's shared memory, forced on and forced off: (report, ms,
-    plain ms, bound)."""
+    plain ms, bound). `extra_bytes`: inputs the bound reads once beside
+    the lanes (a join key's code table or sorted keys)."""
     from pinot_tpu_torch.ops import kernels as K
     keys, strides, g_pad, parts, floats, ext = group_operands(plan, cols)
     args = (mask, keys, strides, g_pad, parts, floats, ext)
@@ -337,7 +382,7 @@ def k3_check(P, plan, cols, mask):
     ms = {v: time_ms(lambda: K.dense_group_aggregate(*args, smem_slots=s))
           for v, s in variants.items()}
     plain = time_ms(lambda: K.dense_group_aggregate_plain(*args))
-    b = bound(P + matched * row_bytes + table,
+    b = bound(P + matched * row_bytes + table + extra_bytes,
               combos * (2 * len(keys) + 1 + n_l + len(floats) + len(ext)))
     report = {"g_pad": g_pad, "key_kinds": [k.kind for k in keys],
               "table_bytes": table, "matched": matched, "combos": combos,
@@ -2322,6 +2367,10 @@ def vec_batch_families(engine, queries, oracle, exact, rows):
 RT_PK = ("playerName", "yearID", "teamID", "league")
 #: Apache Pinot's StreamConfig.DEFAULT_FLUSH_THRESHOLD_ROWS
 RT_FLUSH_ROWS = 5_000_000
+#: sealed segments of the realtime configuration (PERF.md §4: 3 x
+#: 5,000,000 rows); --rt-sealed below it is a depth cut that the timing
+#: line names
+RT_SEALED_FULL = 2
 RT_FETCH_ROWS = 50_000              # rows per fetch batch of the consumer
 #: the consuming segment's freeze points checked (the frozen prefix
 #: doubles from MutableSegmentImpl.FREEZE_MIN_ROWS)
@@ -2797,6 +2846,608 @@ def run_realtime(base, args):
     return dict(launches), batch, summary
 
 
+# ---------------------------------------------------------------------------
+# Multi-stage joins and windows: lineorderj x part (SSB SF10, normalised)
+# ---------------------------------------------------------------------------
+
+#: SSB SF10 (O'Neil et al., Star Schema Benchmark rev. 3, 2.2): LINEORDER
+#: 6,000,000 x SF rows, PART 200,000 x floor(1 + log2 SF)
+JOIN_FACT_ROWS = 60_000_000
+JOIN_DIM_ROWS = 800_000
+JOIN_SEGMENTS = 8
+_JOIN_FROM = ("FROM lineorderj JOIN part ON lineorderj.lo_partkey = "
+              "part.p_partkey")
+_JOIN_SELECT = "SELECT SUM(lineorderj.lo_revenue), COUNT(*) " + _JOIN_FROM
+#: the single-join forms of SSB flight 2 (the supplier join dropped: the
+#: engine takes one join) and a no-GROUP-BY query (the K2 path):
+#: {name: (pql, dim filter, fact filter, oracle group columns)}
+JOIN_QUERIES = {
+    "J0": (_JOIN_SELECT + " WHERE part.p_category = 'MFGR#12' AND "
+           "lineorderj.lo_quantity < 25",
+           lambda d: d["p_category"] == "MFGR#12",
+           lambda f: f["lo_quantity"] < 25, []),
+    "J2.1": (_JOIN_SELECT + " WHERE part.p_category = 'MFGR#12' GROUP BY "
+             "part.p_brand1, lineorderj.d_year TOP 5000",
+             lambda d: d["p_category"] == "MFGR#12", None,
+             ["part.p_brand1", "lineorderj.d_year"]),
+    "J2.2": (_JOIN_SELECT + " WHERE part.p_brand1 BETWEEN 'MFGR#2221' AND "
+             "'MFGR#2228' GROUP BY part.p_brand1, lineorderj.d_year TOP "
+             "5000",
+             lambda d: (d["p_brand1"] >= "MFGR#2221") &
+             (d["p_brand1"] <= "MFGR#2228"), None,
+             ["part.p_brand1", "lineorderj.d_year"]),
+    "J2.3": (_JOIN_SELECT + " WHERE part.p_brand1 = 'MFGR#2239' GROUP BY "
+             "lineorderj.d_year TOP 5000",
+             lambda d: d["p_brand1"] == "MFGR#2239", None,
+             ["lineorderj.d_year"]),
+}
+#: the queries of the raw-key segments (join_raw / jraw)
+RAW_KEY_JOIN_QUERIES = ("J0", "J2.1", "J2.3")
+#: the raw-key table: the first segments' rows again, lo_partkey raw (a
+#: depth cut of the 8; two, so the stacked path runs it)
+RAW_KEY_JOIN_SEGMENTS = 2
+#: the window scan selects between these many rows (n_pad = 65,536)
+WINDOW_ROWS = (32_769, 65_536)
+_WINDOW_COLS = "SELECT d_year, lo_quantity, "
+WINDOW_QUERIES = {
+    # scripts/join_smoke.py:161-165, at the cap
+    "W1": _WINDOW_COLS + "ROW_NUMBER() OVER (PARTITION BY d_year ORDER BY "
+          "lo_revenue DESC), SUM(lo_quantity) OVER (PARTITION BY d_year "
+          "ORDER BY lo_revenue DESC) FROM lineorderj WHERE {where} LIMIT "
+          "65536",
+    # two order keys, no PARTITION BY
+    "W2": _WINDOW_COLS + "ROW_NUMBER() OVER (ORDER BY d_year, lo_revenue), "
+          "SUM(lo_quantity) OVER (ORDER BY d_year, lo_revenue) FROM "
+          "lineorderj WHERE {where} LIMIT 65536",
+}
+#: the kernels of the join and window paths (K12, K13) and the K1 / K3
+#: nodes they add
+STAGE_KERNELS = ("radix_sort", "radix_sort_join", "window_scan")
+
+
+def join_data(base, args):
+    """The join tables from --seed, built by the port's SegmentCreator into
+    `base` and loaded on the card: lineorderj in --join-segments segments,
+    the rows of its first RAW_KEY_JOIN_SEGMENTS segments again with
+    lo_partkey raw (the JAX config of tests/test_stages.py:255-283, a depth
+    cut), and part in one segment. Returns (fact segments, raw-key
+    segments, dim segment, dim columns, fact columns, raw-key fact
+    columns, report)."""
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
+    from pinot_tpu_torch.tools import datagen
+    from pinot_tpu_torch.common.table_config import IndexingConfig, \
+        TableConfig
+    t0 = time.perf_counter()
+    dim, fact = datagen.make_join_rows(args.join_rows,
+                                       dim_rows=args.join_dim_rows,
+                                       seed=args.seed)
+    rows_s = time.perf_counter() - t0
+    fact_cfg, dim_cfg = datagen.join_table_configs()
+    per = -(-args.join_rows // args.join_segments)
+
+    def build(schema, cfg, cols, name):
+        d = os.path.join(base, name)
+        SegmentCreator(schema, cfg, segment_name=name).build(cols, d)
+        return d
+
+    t0 = time.perf_counter()
+    fact_dirs = [build(datagen.fact_join_schema(), fact_cfg,
+                       {k: v[i * per:(i + 1) * per] for k, v in fact.items()},
+                       f"factj_{i}") for i in range(args.join_segments)]
+    n_raw = min(RAW_KEY_JOIN_SEGMENTS, args.join_segments)
+    raw_fact = {k: v[:n_raw * per] for k, v in fact.items()}
+    raw_cfg = TableConfig("lineorderj", indexing_config=IndexingConfig(
+        no_dictionary_columns=["lo_partkey"]))
+    raw_dirs = [build(datagen.fact_join_schema(), raw_cfg,
+                      {k: v[i * per:(i + 1) * per]
+                       for k, v in raw_fact.items()}, f"factj_raw_{i}")
+                for i in range(n_raw)]
+    dim_dir = build(datagen.part_dim_schema(), dim_cfg, dim, "partd_0")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segs = [ImmutableSegmentLoader.load(d) for d in fact_dirs]   # the card
+    raw_segs = [ImmutableSegmentLoader.load(d) for d in raw_dirs]
+    dim_seg = ImmutableSegmentLoader.load(dim_dir)
+    load_s = time.perf_counter() - t0
+    report = {"phase": "join_data", "fact_rows": args.join_rows,
+              "fact_segments": len(segs), "dim_rows": args.join_dim_rows,
+              "raw_key_segments": len(raw_segs),
+              "raw_key_rows": sum(s.num_docs for s in raw_segs),
+              "padded_rows_per_segment": segs[0].padded_docs,
+              "lo_partkey_cardinality": [
+                  s.data_source("lo_partkey").metadata.cardinality
+                  for s in segs],
+              "rows_seconds": rows_s, "build_seconds": build_s,
+              "load_seconds": load_s,
+              "disk_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                for d in fact_dirs + raw_dirs + [dim_dir]
+                                for f in os.listdir(d))}
+    emit(report)
+    return segs, raw_segs, dim_seg, dim, fact, raw_fact, report
+
+
+def _sub(cols, mask):
+    return {k: v[mask] for k, v in cols.items()}
+
+
+def join_oracle_dict(dim, fact, dim_filter, fact_filter, group_cols,
+                     probe):
+    """join_oracle's answer as {group tuple of strings: value} for the
+    SUM and for the COUNT; `probe`: the table's join_probe, computed once
+    for every query."""
+    from pinot_tpu_torch.tools import datagen
+    if fact_filter is not None:
+        keep = fact_filter(fact)
+        fact, probe = _sub(fact, keep), (probe[0][keep], probe[1][keep])
+    o = datagen.join_oracle(dim, fact, dim_filter=dim_filter,
+                            group_cols=group_cols, probe=probe)
+    if not group_cols:
+        return [{(): float(o["sum_revenue"])}, {(): float(o["count"])}]
+    return [{tuple(str(x) for x in k): float(v[i])
+             for k, v in o["groups"].items()} for i in range(2)]
+
+
+def response_dict(resp, fi: int) -> dict:
+    """{group tuple: float value} of a response's aggregation fi."""
+    agg = resp.to_json()["aggregationResults"][fi]
+    if agg.get("groupByResult") is None:
+        return {(): float(agg["value"])}
+    return {tuple(str(x) for x in g["group"]): float(g["value"])
+            for g in agg["groupByResult"]}
+
+
+def stage1_publish(scan, segments, mgr, xid: str, server: str) -> dict:
+    """A stage-1 scan as a server runs it (pinot_tpu/server/instance.py:
+    599-640): the request through the port's executor, the DataTable
+    published, or a capacity error when the scan matched more rows than
+    the block holds. Returns the source descriptor."""
+    from pinot_tpu_torch.common.datatable import DataTable
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor
+    dt = DataTable.from_block(scan, ServerQueryExecutor().execute(
+        scan, segments))
+    if dt.exceptions:
+        raise AssertionError(f"stage-1 scan {xid}: {dt.exceptions}")
+    rows = dt.num_rows()
+    matched = int(dt.metadata.get("numDocsScanned", "0"))
+    if matched > rows:
+        raise AssertionError(f"stage-1 scan {xid} matched {matched} rows but "
+                             f"the exchange window holds {rows}")
+    mgr.put(xid, dt.to_bytes())
+    return {"server": server, "xkey": mgr.xkey, "id": xid, "rows": rows}
+
+
+def join_stage2(req, sources, segments, executor):
+    """Stage 2 on a fact server: the JoinContext from the exchanged
+    blocks, attached, the executor's block reduced."""
+    from pinot_tpu_torch.query.reduce import BrokerReduceService
+    from pinot_tpu_torch.query.stages import join as jmod
+    ctx = jmod.build_context(req.join, sources, jmod.fact_partition_info(
+        segments, req.join.fact_key))
+    r = jmod.attach(req, ctx, segments)
+    resp = BrokerReduceService().reduce(req, [executor.execute(r,
+                                                               segments)])
+    return resp, ctx, r
+
+
+def _join_k1_check(name, P, n, spec, cols, params, library):
+    """K1 over one join program (member or join_raw leaf) against its
+    plain version, timed beside the bound (the key lane read once, the
+    mask written once, the member bits or sorted keys read once) and the
+    nearest PyTorch call."""
+    from pinot_tpu_torch.ops import kernels as K
+    got = K.filter_mask(P, spec, cols, params, n)
+    ref = K.filter_mask_plain(P, spec, cols, params, n)
+    err = int((got.int() - ref.int()).abs().max())
+    keys = K.filter_lane_keys(spec)
+    probes = []
+    K.compile_filter(spec, params, cols, probes)
+    nbytes = sum(cols[k].numel() * cols[k].element_size() for k in keys) + \
+        P + sum(t.numel() * t.element_size() for t in probes) + \
+        sum(np.asarray(p).size // 8 for p in params
+            if isinstance(p, np.ndarray) and p.dtype == bool)
+    b = bound(nbytes, P * 18 * len(keys))
+    # a 2^21-entry member table takes the host milliseconds to pack into
+    # the program: a longer spin keeps that host work out of the events
+    r = {"kernel": "filter_mask", "case": name, "matched": int(ref.sum()),
+         "max_abs_err": err,
+         "ms": time_ms(lambda: K.filter_mask(P, spec, cols, params, n),
+                       spins=20),
+         "plain_ms": time_ms(lambda: K.filter_mask_plain(P, spec, cols,
+                                                         params, n)),
+         "library_ms": time_ms(library), "bound_ms": b[0], "bound_by": b[1]}
+    emit({"phase": "join_kernel_check", **r})
+    if err:
+        raise AssertionError(f"filter_mask {name} disagrees: {err}")
+    return dict(max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound=b, library_ms=r["library_ms"])
+
+
+def _join_plan(seg, req, ctx):
+    from pinot_tpu_torch.query.execution import gather_operands
+    from pinot_tpu_torch.query.plan import InstancePlanMaker
+    from pinot_tpu_torch.query.stages import join as jmod
+    plan = InstancePlanMaker().make_segment_plan(seg, jmod.attach(req, ctx,
+                                                                  [seg]))
+    return plan, gather_operands(plan)
+
+
+def join_kernel_check(seg, raw_seg, j21, window_case):
+    """K1 (member and join_raw leaves), K3 (jcode, jraw), K12 (the join's
+    dim side and the window's lanes) and K13 against their plain versions
+    on the card, on segment 0's lanes and the raw-key segment's with
+    J2.1's real dim side, and on W1's real window lanes; timed with the L2
+    flushed, beside their bounds and the nearest PyTorch call. Returns
+    {entry name: entry}."""
+    from pinot_tpu_torch.ops import kernels as K
+    req, ctx = j21
+    entries = {}
+    # K1: the member leaf (dictionary key) and the join_raw leaf (raw key)
+    plan, cols = _join_plan(seg, req, ctx)
+    ids = cols["lo_partkey.ids"]
+    device = ids.device
+    member = torch.from_numpy(np.asarray(plan.params[0])).to(device)
+    entries["filter_mask[member]"] = _join_k1_check(
+        "j2.1 member (dictionary key)", seg.padded_docs, seg.num_docs,
+        plan.filter_spec, cols, plan.params,
+        lambda: member[ids.long()])
+    raw_plan, raw_cols = _join_plan(raw_seg, req, ctx)
+    lane = raw_cols["lo_partkey.raw"]
+    sk = raw_plan.params[0].on(lane.device)[0]
+    entries["filter_mask[join_raw]"] = _join_k1_check(
+        "j2.1 join_raw (raw key)", raw_seg.padded_docs, raw_seg.num_docs,
+        raw_plan.filter_spec, raw_cols, raw_plan.params,
+        lambda: torch.searchsorted(sk, lane))
+    # K3: jcode on segment 0, jraw on the raw-key segment, J2.1's keys
+    for name, (p, c, sg) in {"jcode": (plan, cols, seg),
+                             "jraw": (raw_plan, raw_cols, raw_seg)}.items():
+        mask = K.filter_mask(sg.padded_docs, p.filter_spec, c, p.params,
+                             sg.num_docs)
+        keys = group_operands(p, c)[0]
+        jkey = keys[0]
+        if name == "jcode":
+            # a gather reads only the code entries of the matched rows'
+            # dictIds, 4 B each
+            touched = int(torch.unique(jkey.lane[mask.bool()]).numel())
+            tbytes = 4 * touched
+        else:
+            # the search reads the sorted dim keys and their codes
+            touched = jkey.table.numel()
+            tbytes = touched * (jkey.table.element_size() + 4)
+        r, err, ms, plain, b = k3_check(sg.padded_docs, p, c, mask,
+                                        extra_bytes=tbytes)
+        r["table_entries_read"] = touched
+        if name == "jcode":
+            lib = lambda: jkey.table[jkey.lane.long()]    # noqa: E731
+        else:
+            lib = lambda: torch.searchsorted(jkey.table, jkey.lane)  # noqa
+        r["library_ms"] = time_ms(lib)
+        emit({"phase": "join_kernel_check", "kernel": "dense_group_aggregate",
+              "case": f"j2.1 {name}", **r})
+        entries[f"dense_group_aggregate[{name}]"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound=b,
+            library_ms=r["library_ms"])
+    # K12 as the join build: J2.1's dim keys (int32) with their codes
+    keys_p, codes_p = ctx.padded_key_codes("p_brand1", np.int32)
+    kt = torch.from_numpy(keys_p).to(device)
+    ct = torch.from_numpy(codes_p).to(device)
+    got = K.radix_sort([kt], [ct], counter="radix_sort_join")
+    ref = K.radix_sort_plain([kt], [ct])
+    err = int(not (torch.equal(got[1][0], ref[1][0]) and
+                   torch.equal(got[2][0], ref[2][0])))
+    dp = kt.numel()
+    b = bound(dp * 8 + dp * 12, dp * 8 * 3)
+    r = {"kernel": "radix_sort_join", "case": "j2.1 dim side",
+         "rows": dp, "dim_rows": len(ctx.keys), "max_abs_err": err,
+         "ms": time_ms(lambda: K.radix_sort([kt], [ct],
+                                            counter="radix_sort_join")),
+         "plain_ms": time_ms(lambda: K.radix_sort_plain([kt], [ct])),
+         "library_ms": time_ms(lambda: torch.sort(kt, stable=True)),
+         "bound_ms": b[0], "bound_by": b[1]}
+    emit({"phase": "join_kernel_check", **r})
+    entries["radix_sort_join"] = dict(max_abs_err=err, ms=r["ms"],
+                                      plain_ms=r["plain_ms"], bound=b,
+                                      library_ms=r["library_ms"])
+    # K12 and K13 on W1's lanes (65,536 padded rows)
+    wreq, columns, n = window_case
+    from pinot_tpu_torch.query.stages import window as wmod
+    part, orders, sums = wmod.padded_lanes(
+        *wmod.window_lanes(wreq, columns, n), device)
+    n_pad = part.numel()
+    keys = [part] + orders
+    got = K.radix_sort(keys, sums, n)
+    ref = K.radix_sort_plain(keys, sums, n)
+    err = int(not all(torch.equal(a, b_) for a, b_ in
+                      zip([got[0]] + got[1] + got[2],
+                          [ref[0]] + ref[1] + ref[2])))
+    # one stable torch.sort of the (partition, order key) pair as int64
+    composite = (part.long() << 32) | (orders[0].long() & 0xFFFFFFFF)
+    # the key and value lanes read once, the permutation, sorted keys and
+    # values written once; a few operations a row and pass
+    b = bound(n_pad * 4 * (len(keys) + len(sums)) +
+              n_pad * 4 * (1 + len(keys) + len(sums)),
+              n_pad * 3 * 4 * len(keys))
+    r = {"kernel": "radix_sort", "case": "w1 lanes", "rows": n,
+         "n_pad": n_pad, "order_keys": len(orders), "sum_lanes": len(sums),
+         "max_abs_err": err,
+         "ms": time_ms(lambda: K.radix_sort(keys, sums, n)),
+         "plain_ms": time_ms(lambda: K.radix_sort_plain(keys, sums, n)),
+         "library_ms": time_ms(lambda: torch.sort(composite, stable=True)),
+         "bound_ms": b[0], "bound_by": b[1]}
+    emit({"phase": "join_kernel_check", **r})
+    entries["radix_sort"] = dict(max_abs_err=err, ms=r["ms"],
+                                 plain_ms=r["plain_ms"], bound=b,
+                                 library_ms=r["library_ms"])
+    sp, svals = got[1][0], got[2]
+    rn, run = K.window_scan(sp, svals)
+    rn_p, run_p = K.window_scan_plain(sp, svals)
+    err = int(not (torch.equal(rn, rn_p) and
+                   all(torch.equal(a, b_) for a, b_ in zip(run, run_p))))
+    b = bound(n_pad * 8 * (1 + len(svals)), n_pad * 4 * (1 + len(svals)))
+    r = {"kernel": "window_scan", "case": "w1 sorted lanes", "rows": n_pad,
+         "sum_lanes": len(svals), "max_abs_err": err,
+         "ms": time_ms(lambda: K.window_scan(sp, svals)),
+         "plain_ms": time_ms(lambda: K.window_scan_plain(sp, svals)),
+         "library_ms": time_ms(lambda: torch.cumsum(svals[0], 0)),
+         "bound_ms": b[0], "bound_by": b[1]}
+    emit({"phase": "join_kernel_check", **r})
+    entries["window_scan"] = dict(max_abs_err=err, ms=r["ms"],
+                                  plain_ms=r["plain_ms"], bound=b,
+                                  library_ms=r["library_ms"])
+    bad = {k: e["max_abs_err"] for k, e in entries.items()
+           if e["max_abs_err"]}
+    if bad:
+        raise AssertionError(f"join kernels disagree: {bad}")
+    return entries
+
+
+def run_join(segs, raw_segs, dim_seg, dim, fact, raw_fact, repeats: int):
+    """Stage 1 -> exchange -> stage 2 for J0 and J2.1-J2.3: launch counts
+    from 0, each query once per segment (8 segments), stacked and on the
+    raw-key segment, each answer equal to join_oracle and to the host
+    twin; then the timed repeats. Returns (launches, {query: (request,
+    context)}, timing report)."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.parallel.sharded import ShardedQueryExecutor
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query import host_exec
+    from pinot_tpu_torch.query.combine import combine_blocks
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query.reduce import BrokerReduceService
+    from pinot_tpu_torch.query.stages import broker as stages_broker
+    from pinot_tpu_torch.query.stages import exchange as xmod
+    mgr = xmod.ExchangeManager()
+    sharded = ShardedQueryExecutor(mesh=make_mesh())
+    paths = {"per_segment": (segs, ServerQueryExecutor()),
+             "stacked": (segs, sharded),
+             "raw_key": (raw_segs, ServerQueryExecutor()),
+             "raw_key_stacked": (raw_segs, sharded)}
+    contexts, checked, seconds = {}, {}, collections.Counter()
+    path_launches = {}
+    try:
+        K.reset_launch_counts()
+        for q, (pql, dim_filter, fact_filter, gcols) in JOIN_QUERIES.items():
+            req = compile_pql(pql)
+            t = time.perf_counter()
+            src = stage1_publish(stages_broker.dim_scan_request(req),
+                                 [dim_seg], mgr, f"{q}.0", "Server_dim")
+            seconds["stage1"] += time.perf_counter() - t
+            for path, (ss, ex) in paths.items():
+                if path.startswith("raw_key") and \
+                        q not in RAW_KEY_JOIN_QUERIES:
+                    continue
+                before = K.launch_counts()
+                t = time.perf_counter()
+                resp, ctx, r = join_stage2(req, [src], ss, ex)
+                torch.cuda.synchronize()
+                seconds["stage2"] += time.perf_counter() - t
+                path_launches[(q, path)] = {
+                    k: v - before.get(k, 0)
+                    for k, v in K.launch_counts().items()
+                    if v - before.get(k, 0)}
+                checked[(q, path)] = (resp, r, ss)
+                if path == "per_segment":
+                    contexts[q] = (req, ctx, src)
+        launches = K.launch_counts()
+        t = time.perf_counter()
+        from pinot_tpu_torch.tools import datagen
+        probes = {"fact": datagen.join_probe(dim, fact),
+                  "raw_key": datagen.join_probe(dim, raw_fact)}
+        wants, hosts = {}, {}        # per (query, table): one each
+        for (q, path), (resp, r, ss) in checked.items():
+            pql, dim_filter, fact_filter, gcols = JOIN_QUERIES[q]
+            if resp.exceptions:
+                raise AssertionError(f"{q} {path}: {resp.exceptions}")
+            table = "raw_key" if path.startswith("raw_key") else "fact"
+            if (q, table) not in wants:
+                wants[(q, table)] = join_oracle_dict(
+                    dim, raw_fact if table == "raw_key" else fact,
+                    dim_filter, fact_filter, gcols, probes[table])
+                hosts[(q, table)] = BrokerReduceService().reduce(
+                    r, [combine_blocks(r, [host_exec.execute_host(s, r)
+                                           for s in ss])])
+            want, host = wants[(q, table)], hosts[(q, table)]
+            for fi in range(2):
+                got = response_dict(resp, fi)
+                if got != want[fi] or response_dict(host, fi) != want[fi]:
+                    raise AssertionError(
+                        f"{q} {path}: aggregation {fi} differs from "
+                        f"join_oracle ({len(got)} / {len(want[fi])} groups)")
+            emit({"phase": "join", "query": q, "path": path,
+                  "check": "pass", "groups": len(response_dict(resp, 0)),
+                  "joined_rows": int(sum(response_dict(resp, 1).values())),
+                  "dim_rows": len(contexts[q][1].keys),
+                  "launches": path_launches[(q, path)]})
+        seconds["oracle_and_host_checks"] += time.perf_counter() - t
+        needed = ("filter_mask", "filter_mask[join_raw]",
+                  "dense_group_aggregate[jcode]",
+                  "dense_group_aggregate[jraw]", "radix_sort_join",
+                  "masked_part_sums")
+        missing = [k for k in needed if not launches[k]]
+        # the stacked raw-key path: join_raw over the stack's raw lane,
+        # and the jraw key where a dim column groups (J2.1)
+        missing += [f"{q} raw_key_stacked {k}" for q, k in (
+            ("J0", "filter_mask[join_raw]"),
+            ("J2.1", "filter_mask[join_raw]"),
+            ("J2.1", "dense_group_aggregate[jraw]"))
+            if not path_launches[(q, "raw_key_stacked")].get(k)]
+        if missing:
+            raise AssertionError(f"join kernels never launched: {missing} "
+                                 f"({launches})")
+        # the timed repeats: stage 1 and stage 2 apart, per query and path
+        p50 = {}
+        for q, (req, _ctx, _src) in contexts.items():
+            t1 = []
+            for i in range(repeats):
+                t = time.perf_counter()
+                src = stage1_publish(stages_broker.dim_scan_request(req),
+                                     [dim_seg], mgr, f"{q}.r{i}",
+                                     "Server_dim")
+                t1.append((time.perf_counter() - t) * 1e3)
+            p50[(q, "stage1")] = float(np.median(t1))
+            for path, (ss, ex) in paths.items():
+                if path.startswith("raw_key") and \
+                        q not in RAW_KEY_JOIN_QUERIES:
+                    continue
+                t2 = []
+                for _ in range(repeats):
+                    t = time.perf_counter()
+                    join_stage2(req, [src], ss, ex)
+                    torch.cuda.synchronize()
+                    t2.append((time.perf_counter() - t) * 1e3)
+                p50[(q, path)] = float(np.median(t2))
+                emit({"phase": "join", "query": q, "path": path,
+                      "stage1_p50_ms": p50[(q, "stage1")],
+                      "stage2_p50_ms": p50[(q, path)], "samples_ms": t2})
+        stack = sharded.stack_for(segs)
+        report = {"phase": "join_summary", "queries_passed": len(checked),
+                  "segment_device_bytes": sum(s.device_bytes() for s in segs),
+                  "raw_key_device_bytes": sum(s.device_bytes()
+                                              for s in raw_segs),
+                  "dim_device_bytes": dim_seg.device_bytes(),
+                  "stack_device_bytes": stack.device_bytes(),
+                  "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                  "seconds": dict(seconds), "launches": {
+                      k: v for k, v in launches.items() if v}}
+        emit(report)
+        return launches, {q: (req, ctx) for q, (req, ctx, _s) in
+                          contexts.items()}, report
+    finally:
+        mgr.close()
+
+
+def window_where(fact) -> tuple:
+    """A WHERE over lo_partkey that selects between WINDOW_ROWS rows of
+    the fact table (the window kernel's full width, n_pad 65,536): the
+    keys from the smallest present one up to the one where the count
+    first reaches the middle of that range. Returns (where, rows)."""
+    keys = fact["lo_partkey"]
+    counts = np.bincount(keys[keys >= 0])
+    cum = np.cumsum(counts)
+    b = int(np.searchsorted(cum, sum(WINDOW_ROWS) // 2))
+    a = int(np.nonzero(counts)[0][0])
+    rows = int(cum[b])
+    if not WINDOW_ROWS[0] <= rows <= WINDOW_ROWS[1]:
+        raise AssertionError(f"window WHERE selects {rows} rows")
+    return f"lo_partkey BETWEEN {a} AND {b}", rows
+
+
+def _window_invariants(blk, scanned: int, partitioned: bool) -> None:
+    """scripts/join_smoke.py:178-193: in output order, each partition's
+    row numbers count 1, 2, ... and its running sum telescopes by the
+    row's quantity (one partition over every row without PARTITION BY);
+    every scanned row comes back once."""
+    names = blk.selection_columns
+    cols = dict(zip(names, blk.selection_cols))
+    year, qty = np.asarray(cols["d_year"]), np.asarray(cols["lo_quantity"])
+    rn, run = np.asarray(cols[names[2]]), np.asarray(cols[names[3]])
+    seen = {}
+    for i in range(len(year)):
+        key = int(year[i]) if partitioned else 0
+        prev = seen.get(key)
+        ok = (rn[i] == 1 and run[i] == qty[i]) if prev is None else \
+            (rn[i] == prev[0] + 1 and run[i] == prev[1] + qty[i])
+        if not ok:
+            raise AssertionError(f"window invariants violated at row {i}")
+        seen[key] = (int(rn[i]), int(run[i]))
+    if sum(s[0] for s in seen.values()) != scanned or len(year) != scanned:
+        raise AssertionError(f"window returned {len(year)} rows of "
+                             f"{scanned} scanned")
+
+
+def run_window(segs, where: str, rows: int, repeats: int):
+    """W1 and W2: stage 1 (each fact segment a server publishing its
+    scan) -> exchange -> execute_window_stage on the card, launch counts
+    from 0; bit-equal to the numpy twin over the same blocks, with the
+    rank / telescoping invariants; then the timed repeats. Returns
+    (launches, W1's (request, columns, rows) for the kernel check)."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.stages import broker as stages_broker
+    from pinot_tpu_torch.query.stages import exchange as xmod
+    from pinot_tpu_torch.query.stages import join as jmod
+    from pinot_tpu_torch.query.stages import window as wmod
+    mgrs = [xmod.ExchangeManager() for _ in segs]
+    try:
+        def stage1(req, tag):
+            scan = stages_broker.window_scan_request(req, req)
+            return [stage1_publish(scan, [s], m, f"{tag}.{i}", f"Server_{i}")
+                    for i, (s, m) in enumerate(zip(segs, mgrs))]
+
+        results = {}
+        K.reset_launch_counts()
+        for w, pql in WINDOW_QUERIES.items():
+            req = compile_pql(pql.format(where=where))
+            sources = stage1(req, w)
+            blk = wmod.execute_window_stage(req, sources)
+            results[w] = (req, sources, blk)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        for name in ("radix_sort", "window_scan"):
+            if not launches[name]:
+                raise AssertionError(f"{name} never launched on the window "
+                                     f"path: {launches}")
+        case = None
+        for w, (req, sources, blk) in results.items():
+            host = wmod.execute_window_stage(req, sources, use_device=False)
+            for a, b in zip(blk.selection_cols, host.selection_cols):
+                if not np.array_equal(np.asarray(a), np.asarray(b)):
+                    raise AssertionError(f"{w}: the card's window differs "
+                                         "from the numpy twin")
+            if blk.selection_columns != host.selection_columns:
+                raise AssertionError(f"{w}: columns differ")
+            _window_invariants(blk, rows, bool(req.windows[0].partition_by))
+            if w == "W1":
+                cols = {}
+                for dt in xmod.fetch_blocks(sorted(
+                        sources, key=lambda s: (s["server"], s["id"])), None):
+                    for c, v in jmod.columns_of(dt).items():
+                        cols.setdefault(c, []).append(np.asarray(v))
+                case = (req, {c: np.concatenate(v) for c, v in cols.items()},
+                        rows)
+        p50 = {}
+        for w, (req, _sources, _blk) in results.items():
+            t1, t2 = [], []
+            for i in range(repeats):
+                t = time.perf_counter()
+                sources = stage1(req, f"{w}.r{i}")
+                t1.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                wmod.execute_window_stage(req, sources)
+                torch.cuda.synchronize()
+                t2.append((time.perf_counter() - t) * 1e3)
+            p50[w] = (float(np.median(t1)), float(np.median(t2)))
+            emit({"phase": "window", "query": w, "check": "pass",
+                  "where": where, "rows": rows, "stage1_p50_ms": p50[w][0],
+                  "stage2_p50_ms": p50[w][1], "stage1_samples_ms": t1,
+                  "stage2_samples_ms": t2})
+        return launches, case
+    finally:
+        for m in mgrs:
+            m.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=int, default=10)
@@ -2811,7 +3462,10 @@ def main() -> int:
     ap.add_argument("--vec-queries", type=int, default=5)
     ap.add_argument("--batch-repeats", type=int, default=3)
     ap.add_argument("--rt-rows", type=int, default=RT_FLUSH_ROWS)
-    ap.add_argument("--rt-sealed", type=int, default=2)
+    ap.add_argument("--rt-sealed", type=int, default=RT_SEALED_FULL)
+    ap.add_argument("--join-rows", type=int, default=JOIN_FACT_ROWS)
+    ap.add_argument("--join-segments", type=int, default=JOIN_SEGMENTS)
+    ap.add_argument("--join-dim-rows", type=int, default=JOIN_DIM_ROWS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3023,6 +3677,29 @@ def main() -> int:
               "peak_device_bytes": torch.cuda.max_memory_allocated()})
         del vec_engine, vec_st_engine
 
+    # -- multi-stage: lineorderj x part joins, window functions ----------
+    with tempfile.TemporaryDirectory(dir=scratch) as base:
+        t0 = time.perf_counter()
+        jsegs, raw_segs, dim_seg, dim, fact, raw_fact, _ = join_data(base,
+                                                                     args)
+        seconds["join_data"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        join_launches, join_ctxs, _ = run_join(jsegs, raw_segs, dim_seg,
+                                               dim, fact, raw_fact,
+                                               args.repeats)
+        seconds["join"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        where, wrows = window_where(fact)
+        window_launches, wcase = run_window(jsegs, where, wrows,
+                                            args.repeats)
+        seconds["window"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stage_entries = join_kernel_check(jsegs[0], raw_segs[0],
+                                          join_ctxs["J2.1"], wcase)
+        seconds["join_kernel_check"] = time.perf_counter() - t0
+        del jsegs, raw_segs, dim_seg, dim, fact, raw_fact, join_ctxs, wcase
+    torch.cuda.empty_cache()
+
     # -- realtime upserts: baseballStats_REALTIME -------------------------
     with tempfile.TemporaryDirectory(dir=scratch) as base:
         t0 = time.perf_counter()
@@ -3038,12 +3715,29 @@ def main() -> int:
     if unused:
         raise AssertionError(f"batched kernels never launched by the batch "
                              f"phases: {unused}")
+    cuts = []
+    if args.rt_sealed < RT_SEALED_FULL:
+        cuts.append(f"realtime: {args.rt_sealed} sealed segment(s) of "
+                    f"{args.rt_rows} rows before the consuming one, of "
+                    f"the configuration's {RT_SEALED_FULL}")
     emit({"phase": "timing", "seconds": seconds,
-          "total_seconds": time.perf_counter() - t_start})
+          "total_seconds": time.perf_counter() - t_start, "cuts": cuts})
 
     print(smi, flush=True)
     line = []
+    stage_launches = {k: join_launches.get(k, 0) + window_launches.get(k, 0)
+                      for k in set(join_launches) | set(window_launches)}
     for name, info in K.KERNELS.items():
+        if name in STAGE_KERNELS:
+            e = stage_entries[name]
+            line.append({"name": name, "route": "cuda",
+                         "source": info.source, "replaces": info.replaces,
+                         "launches": stage_launches[name],
+                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                         "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                         "bound_by": e["bound"][1],
+                         "library_ms": e["library_ms"]})
+            continue
         if name.endswith("_batched"):
             e = batch_entries[name[:-len("_batched")]]
             line.append({"name": name, "route": "cuda",
@@ -3068,7 +3762,8 @@ def main() -> int:
                      "launches": ssb_launches[name] + bb_launches[name] +
                      vec_build_launches[name] +
                      vec_launches["per_segment"][name] + st_launches +
-                     batch_launches[name] + rt_launches.get(name, 0),
+                     batch_launches[name] + rt_launches.get(name, 0) +
+                     stage_launches.get(name, 0),
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
@@ -3099,6 +3794,23 @@ def main() -> int:
                  "bound_by": e["bound_by"], "library_ms": None,
                  "batch_members": BATCH_SIZES[-1],
                  "b_single_ms": e["b_single_ms"]})
+    # the join nodes of K1 and K3, counted apart: the join phase's launches
+    source = {"filter_mask": K.KERNELS["filter_mask"].source,
+              "dense_group_aggregate":
+              K.KERNELS["dense_group_aggregate"].source}
+    for name, replaces in (
+            ("filter_mask[join_raw]", "pinot_tpu/ops/kernels.py:118"),
+            ("dense_group_aggregate[jcode]", "pinot_tpu/ops/kernels.py:740"),
+            ("dense_group_aggregate[jraw]", "pinot_tpu/ops/kernels.py:752")):
+        e = stage_entries[name]
+        line.append({"name": name, "route": "cuda",
+                     "source": source[name.split("[")[0]],
+                     "replaces": replaces,
+                     "launches": join_launches[name],
+                     "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                     "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                     "bound_by": e["bound"][1],
+                     "library_ms": e["library_ms"]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -10,9 +10,18 @@ same paths. A consuming segment (realtime/mutable_segment.py) may be one
 of the segments: its frozen prefix runs on the engine's device and its
 tail on the host twin; with a mesh, a set that holds one goes the
 per-segment way (NotShardable). Segments of an upsert table carry their
-ValidDocIds and are masked on every path. Join and window requests raise
-NotPorted here, before the executor: the port has no path for them yet,
-on the device or on the host.
+ValidDocIds and are masked on every path.
+
+Join and window queries are multi-stage, and this engine has no stage
+plane, as the JAX QueryEngine has none: it raises the typed
+StageCompileError the JAX server raises for a join dispatched without
+exchange sources. They run through the stage entry points: stage 1 with
+query/stages/broker.py's dim_scan_request / window_scan_request through
+ServerQueryExecutor, each DataTable published with
+stages/exchange.py:ExchangeManager.put; stage 2 with
+stages/join.py:build_context attached as request._join_ctx to a
+ServerQueryExecutor or ShardedQueryExecutor run, or with
+stages/window.py:execute_window_stage.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from pinot_tpu_torch.common.response import BrokerResponse
 from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
 from pinot_tpu_torch.pql.parser import compile_pql
 from pinot_tpu_torch.query.executor import ServerQueryExecutor
-from pinot_tpu_torch.query.plan import GroupsLimitExceeded, NotPorted, \
+from pinot_tpu_torch.query.plan import GroupsLimitExceeded, \
     UnsupportedOnDevice, preprocess_request
 from pinot_tpu_torch.query.reduce import BrokerReduceService
 from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
@@ -72,7 +81,13 @@ class QueryEngine:
         t0 = time.perf_counter()
         request = self.optimizer.optimize(compile_pql(pql))
         if request.join is not None or request.windows:
-            raise NotPorted("join / window queries are not in the port yet")
+            from pinot_tpu_torch.query.stages.errors import StageCompileError
+            what = "join" if request.join is not None else "window"
+            raise StageCompileError(
+                f"{what} query dispatched without exchange sources (stage-1 "
+                f"{'dim' if what == 'join' else 'window'} scan missing): run "
+                "it through query/stages (build_context or "
+                "execute_window_stage), not QueryEngine")
         # FASTHLL → its derived column, once, so that the reduce names
         # the result after the rewritten column, as the JAX engine does
         request = preprocess_request(self.segments, request)

@@ -70,6 +70,23 @@ __device__ __forceinline__ int monotone_words(const void* lane, int elem, long l
   }
 }
 
+// The first position of v in the ascending keys sk[0..n) whose element is
+// not less than v (jnp.searchsorted, side "left"), clipped to n - 1: the
+// probe of a raw-key join, which then tests sk[pos] == v. n <= 65,536, so
+// at most 17 steps; the keys are read from device memory and stay in L2.
+template <typename T>
+__device__ __forceinline__ int probe_position(const T* sk, int n, T v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sk[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < n ? lo : n - 1;
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);

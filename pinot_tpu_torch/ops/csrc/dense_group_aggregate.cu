@@ -1,8 +1,8 @@
 // K3 dense_group_aggregate: per-group count, exact int32 part sums,
 // float64 sums and min/max over a dense mixed-radix group table.
 //
-// Replaces pinot_tpu/ops/kernels.py:_group_key (:702, kinds "ids" and
-// "rawoff"), _expand_mv_group (:1220, kinds "mvids" and "mvin"),
+// Replaces pinot_tpu/ops/kernels.py:_group_key (:702, kinds "ids",
+// "rawoff", "jcode" (:740) and "jraw" (:752)), _expand_mv_group (:1220, kinds "mvids" and "mvin"),
 // _dense_group_count (:402), _dense_group_part_sums (:407),
 // _dense_group_float_sums (:503), _dense_group_extreme (:529) and the
 // scatter fallback of _group_outputs (:1330-1390) for count / sum / avg /
@@ -15,7 +15,21 @@
 //           then narrowed to int32;
 //   mvids:  one entry of the doc's [W] MV row; padding entries (id >=
 //           cardinality) drop the combination;
-//   mvin:   as mvids, and an entry outside the member table drops it too.
+//   mvin:   as mvids, and an entry outside the member table drops it too;
+//   jcode:  a join's dim group code of the row's fact-key dictId,
+//           code[clip(id, 0, len - 1)] from an int32 table over the fact
+//           key's dictionary (the planner's JoinContext.code_table_for);
+//   jraw:   a join's dim group code of the row's raw int32 / int64 key:
+//           the code beside the key's lower-bound position (clipped to
+//           Dp - 1) in the dim keys sorted by K12 with their codes. The
+//           padding repeats (largest key, its code), so a key found in
+//           the padding run reads the right code. Rows whose key has no
+//           dim row read some code: the join leaf of K1 masked them.
+//           Both join kinds read one more input per matched row than an
+//           ids key: a 4-byte gather from the code table (at most 8 MB at
+//           2^21 entries, mostly L2-resident) or a binary search of at
+//           most 17 probes of the sorted keys (<= 512 KB, in L2); the
+//           table and keys count once each in the bound below.
 // A doc with MV keys contributes once per cross-combination of its MV
 // keys' entries (the reference's aggregateGroupByMV): the first MV key
 // walks fastest, as _expand_mv_group's mixed-radix entry index does, and
@@ -87,11 +101,14 @@ constexpr int kWalkCombos = 1 << 16;
 
 enum ExtMode : int { kIdMin = 0, kIdMax = 1, kRawMin = 2, kRawMax = 3 };
 // key kinds, as ops/kernels.py:_KEY_KINDS codes them
-enum KeyKind : int { kIds = 0, kRawOff = 1, kMvIds = 2, kMvIn = 3 };
+enum KeyKind : int { kIds = 0, kRawOff = 1, kMvIds = 2, kMvIn = 3, kJCode = 4, kJRaw = 5 };
 
 struct KeyLanes {
   const void* ptr[kMaxKeys];
   const uint8_t* member[kMaxKeys];   // mvin: bool [mlen]
+  const void* table[kMaxKeys];       // jcode: int32 codes; jraw: sorted keys [tlen]
+  const int* codes[kMaxKeys];        // jraw: the sorted keys' int32 codes [tlen]
+  int tlen[kMaxKeys];
   long long offset[kMaxKeys];        // rawoff: subtracted in the lane's width
   int elem[kMaxKeys];
   int stride[kMaxKeys];
@@ -151,8 +168,25 @@ __device__ __forceinline__ int wrap_mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
 }
 
-// the single-value term of key c for one row (kinds ids and rawoff)
+__host__ __device__ __forceinline__ bool is_mv(int kind) { return kind == kMvIds || kind == kMvIn; }
+
+// the single-value term of key c for one row (kinds ids, rawoff, jcode and
+// jraw)
 __device__ __forceinline__ int sv_term(const KeyLanes& k, int c, long long row) {
+  if (k.kind[c] == kJCode) {
+    const int id = pinot::read_id(k.ptr[c], k.elem[c], row);
+    return static_cast<const int*>(k.table[c])[min(max(id, 0), k.tlen[c] - 1)];
+  }
+  if (k.kind[c] == kJRaw) {
+    int pos;
+    if (k.elem[c] == pinot::kI64)
+      pos = pinot::probe_position(static_cast<const long long*>(k.table[c]), k.tlen[c],
+                                  static_cast<const long long*>(k.ptr[c])[row]);
+    else
+      pos = pinot::probe_position(static_cast<const int*>(k.table[c]), k.tlen[c],
+                                  static_cast<const int*>(k.ptr[c])[row]);
+    return k.codes[c][pos];
+  }
   if (k.kind[c] == kRawOff) {
     if (k.elem[c] == pinot::kI64)
       return static_cast<int>(static_cast<const long long*>(k.ptr[c])[row] - k.offset[c]);
@@ -260,7 +294,7 @@ __global__ void dense_group_aggregate_kernel(
     if (walk == 0) ++local;             // the doc counts once
     int base = 0;                       // the single-value keys' part
     for (int c = 0; c < n_keys; ++c)
-      if (keys.kind[c] == kIds || keys.kind[c] == kRawOff)
+      if (!is_mv(keys.kind[c]))
         base = wrap_add(base, wrap_mul(sv_term(keys, c, row), keys.stride[c]));
     if (n_mv == 0) {
       fold(row, base);
@@ -274,7 +308,7 @@ __global__ void dense_group_aggregate_kernel(
       bool keep = true;
       for (int c = 0; c < n_keys && keep; ++c) {
         const int kind = keys.kind[c];
-        if (kind != kMvIds && kind != kMvIn) continue;
+        if (!is_mv(kind)) continue;
         const int w = keys.width[c];
         const int id = pinot::read_id(keys.ptr[c], keys.elem[c], row * w + rem % w);
         rem /= w;
@@ -322,7 +356,9 @@ extern "C" int pinot_dense_group_aggregate(
     const void* mask, const void* const* key_ptrs, const int* key_elems,
     const int* key_strides, const int* key_kinds, const int* key_widths,
     const int* key_limits, const long long* key_offsets,
-    const void* const* key_members, const int* key_mlens, int n_keys,
+    const void* const* key_members, const int* key_mlens,
+    const void* const* key_tables, const void* const* key_codes, const int* key_tlens,
+    int n_keys,
     const void* const* part_ptrs,
     int n_parts, const void* const* float_ptrs, int n_floats,
     const void* const* ext_ptrs, const int* ext_elems, const int* ext_modes,
@@ -338,7 +374,7 @@ extern "C" int pinot_dense_group_aggregate(
   long long w_total = 1;
   for (int c = 0; c < n_keys; ++c) {
     const int kind = key_kinds[c];
-    if (kind < kIds || kind > kMvIn) return -1;
+    if (kind < kIds || kind > kJRaw) return -1;
     keys.ptr[c] = key_ptrs[c];
     keys.elem[c] = key_elems[c];
     keys.stride[c] = key_strides[c];
@@ -348,7 +384,14 @@ extern "C" int pinot_dense_group_aggregate(
     keys.offset[c] = key_offsets[c];
     keys.member[c] = static_cast<const uint8_t*>(key_members[c]);
     keys.mlen[c] = key_mlens[c];
-    if (kind == kMvIds || kind == kMvIn) {
+    keys.table[c] = key_tables[c];
+    keys.codes[c] = static_cast<const int*>(key_codes[c]);
+    keys.tlen[c] = key_tlens[c];
+    if ((kind == kJCode || kind == kJRaw) &&
+        (key_tables[c] == nullptr || key_tlens[c] < 1 ||
+         (kind == kJRaw && key_codes[c] == nullptr)))
+      return -1;
+    if (is_mv(kind)) {
       if (key_widths[c] < 1 || (kind == kMvIn && (key_members[c] == nullptr ||
                                                   key_mlens[c] < 1)))
         return -1;

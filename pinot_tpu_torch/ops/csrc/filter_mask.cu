@@ -6,9 +6,10 @@
 // id lanes, and the raw kinds eq_raw, neq_raw, in_raw, notin_raw and
 // range_raw over int32 / int64 / float32 / float64 value lanes, and
 // ivf_probe (_eval_ivf_probe, :161: the row's IVF cell is in the probe
-// list K9 selected for its segment), and vdoc (:112, the upsert
-// validDocIds leaf: the row's byte of the uint8 liveness lane), under
-// and/or nodes of any arity.
+// list K9 selected for its segment), vdoc (:112, the upsert
+// validDocIds leaf: the row's byte of the uint8 liveness lane) and
+// join_raw (:118-130, the probe of a raw-key inner join: the row's key is
+// one of the dim side's keys), under and/or nodes of any arity.
 //
 // Semantics kept from the JAX function:
 // - an MV leaf matches a row when ANY of its W entries matches, padding
@@ -65,6 +66,16 @@
 // lane is the stack's [S][P] liveness, indexed by the same flat row; in
 // the batched form the one lane of the segment serves every member, read
 // once per row.
+// A join_raw node reads the row's int32 / int64 key and one more entry of
+// the lane table, the dim keys sorted ascending in the same type (K12
+// sorted them once for the query, where the JAX kernel sorts inside every
+// launch), whose index is its one parameter word; arg is their count Dp
+// (a power of two <= 65,536, padded by repeating the largest key). It
+// pushes sk[pos] == key at the key's lower-bound position pos clipped to
+// Dp - 1 (searchsorted): at most 17 probes of the keys, which stay in L2.
+// It is a raw leaf, so only the general instantiation takes it (the
+// narrow one keeps its registers); the batched kernel does not (a batch
+// member with the leaf runs alone).
 // The host checks that the stack never holds more than 32 bits.
 //
 // Batched members (the counterpart of the vmap over a query axis in
@@ -91,7 +102,7 @@ enum Op : int {
   kTrue = 0, kFalse = 1, kEq = 2, kNeq = 3, kRange = 4, kIn = 5,
   kNotIn = 6, kMember = 7, kAnd = 8, kOr = 9,
   kEqRaw = 10, kNeqRaw = 11, kRangeRaw = 12, kInRaw = 13, kNotInRaw = 14,
-  kIvfProbe = 15, kVdoc = 16,
+  kIvfProbe = 15, kVdoc = 16, kJoinRaw = 17,
 };
 
 using pinot::kF32;
@@ -170,6 +181,20 @@ __device__ __forceinline__ unsigned eval_probe(const void* const* lanes, const v
   unsigned hit = 0u;
   for (int i = 0; i < arg; ++i) hit |= static_cast<unsigned>(a == ids[i] && ok[i] != 0);
   return hit;
+}
+
+// join_raw: the row's key is among the dim side's sorted keys, the lane
+// p[0] of the lane table, arg of them
+__device__ __forceinline__ unsigned eval_join(const void* const* lanes, const void* lane,
+                                              int elem, long long row, const int* p, int arg) {
+  if (elem == kI64) {
+    const long long* sk = static_cast<const long long*>(lanes[p[0]]);
+    const long long v = static_cast<const long long*>(lane)[row];
+    return sk[pinot::probe_position(sk, arg, v)] == v;
+  }
+  const int32_t* sk = static_cast<const int32_t*>(lanes[p[0]]);
+  const int32_t v = static_cast<const int32_t*>(lane)[row];
+  return sk[pinot::probe_position(sk, arg, v)] == v;
 }
 
 __device__ __forceinline__ unsigned eval_leaf(const void* lane, int op, int elem,
@@ -268,6 +293,8 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
           if constexpr (kGeneral)
             bit = op == kIvfProbe
                       ? eval_probe(s_lanes, lane, node[4], row, seg, params + node[2], arg)
+                  : op == kJoinRaw
+                      ? eval_join(s_lanes, lane, node[4], row, params + node[2], arg)
                       : eval_leaf(lane, op, node[4], node[5], row, params + node[2], arg);
           else
             bit = eval_id(op, read_id(lane, node[4], row), params + node[2], arg);

@@ -27,7 +27,13 @@ short fixed sequence of kernels written by hand for Hopper
   with `_monotone_int32_keys`, kinds limit / order / ordertk / ordermk);
 - K7 `hll_registers`: HyperLogLog registers from K4's histogram and the
   per-dictId (index, rank) tables (replaces the "hll" branch of
-  `_agg_outputs`).
+  `_agg_outputs`);
+- K12 `radix_sort`: a stable sort of int32 / int64 key lanes carrying
+  int32 payload lanes (replaces the lax.sort of `build_window_kernel`, and
+  as `radix_sort_join` the sorts of a raw-key join's dim side in the
+  `join_raw` and `jraw` kinds);
+- K13 `window_scan`: row numbers and running sums over the sorted
+  partition lane (replaces the rest of `build_window_kernel`).
 
 Every wrapper checks its operands, allocates its outputs, and launches on
 the current stream. Beside each kernel is its plain PyTorch version: the
@@ -46,10 +52,13 @@ where the JAX planner does and NotPorted where the port has no kernel):
             kind ∈ {eq_raw, neq_raw, in_raw, notin_raw, range_raw}
           source "vdoc" ({col}.vdoc, uint8 [P], 1 = live): kind vdoc, the
             upsert liveness leaf (plan.py VALID_DOC_PRED), no params
+          source "raw" (int32 / int64 {col}.raw): kind join_raw, the probe
+            of a raw-key join against the dim side's keys
   params: flat sequence consumed in depth-first pred order: eq/neq one
           value, range_ids (lo, hi) half-open, range_raw (lo, hi) with
           extra = (lo_inclusive, hi_inclusive), in/notin a [k] list (ids
-          padded with -1), member a bool [card_pad] table. Raw constants
+          padded with -1), member a bool [card_pad] table, join_raw the
+          dim keys (a SortedKeys in the lane's dtype). Raw constants
           compare in the lane's dtype (the planner casts them to it).
   agg:    (fname, col, source, extra):
           ("count", "*", "none", None);
@@ -73,8 +82,11 @@ where the JAX planner does and NotPorted where the port has no kernel):
                  min/max/minmaxrange with ("ids", card_pad) over sv ids, or
                  None over raw),
            kmax=0); kind "ids" ({name}.ids), "rawoff" ({name}.raw minus
-          off), "mvids" ({name}.mv entries) or "mvin" (entries in a member
-          table popped from the params after the filter's, in key order)
+          off), "mvids" ({name}.mv entries), "mvin" (entries in a member
+          table popped from the group params, in key order), "jcode"
+          ({name}.ids through an int32 code table popped from the group
+          params) or "jraw" ({name}.raw probed in a SortedKeys with codes
+          popped from the group params)
   select: (kind, k, order=((col, asc, card_pad, source), ...),
            gather=((col, source), ...)), kind ∈ {limit, order, ordertk,
            ordermk}, source "sv" ({col}.ids), "raw" ({col}.raw) or, for a
@@ -84,6 +96,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -164,6 +177,17 @@ KERNELS: Dict[str, KernelInfo] = {
     "ivf_recenter": KernelInfo(
         "ivf_recenter", "pinot_tpu_torch/ops/csrc/ivf_recenter.cu",
         "pinot_tpu/ops/ivf_kernels.py:51"),
+    "radix_sort": KernelInfo(
+        "radix_sort", "pinot_tpu_torch/ops/csrc/sort_window.cu",
+        "pinot_tpu/ops/kernels.py:1584"),
+    # K12 as a raw-key join's dim-side build (the lax.sort of _eval_pred
+    # kind join_raw and of _group_key kind jraw), counted apart
+    "radix_sort_join": KernelInfo(
+        "radix_sort_join", "pinot_tpu_torch/ops/csrc/sort_window.cu",
+        "pinot_tpu/ops/kernels.py:127", symbol="pinot_radix_sort"),
+    "window_scan": KernelInfo(
+        "window_scan", "pinot_tpu_torch/ops/csrc/sort_window.cu",
+        "pinot_tpu/ops/kernels.py:1588"),
 }
 #: the batched forms: one launch serves up to MAX_BATCH members of one
 #: plan (the vmap of get_batched_segment_kernel), counted apart
@@ -187,7 +211,7 @@ _ARGTYPES = {
     "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _P],
     "masked_part_sums": [_P, _PP, _I, _LL, _LL, _P, _P],
     "dense_group_aggregate": [
-        _P, _PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _I,
+        _P, _PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _PP, _PP, _IP, _I,
         _PP, _I, _PP, _I,
         _PP, _IP, _IP, _IP, _PP, _I,
         _LL, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -201,7 +225,10 @@ _ARGTYPES = {
     "ivf_probe_select": [_P, _P, _I, _I, _I, _P, _F, _I, _I, _P, _P, _P],
     "ivf_assign": [_P, _LL, _I, _P, _I, _I, _LL, _P, _P, _P, _P],
     "ivf_recenter": [_P, _P, _LL, _I, _P, _I, _P, _P, _P],
+    "radix_sort": [_PP, _IP, _I, _PP, _I, _LL, _LL, _PP, _PP, _P, _P, _P],
+    "window_scan": [_P, _PP, _I, _LL, _P, _PP, _P],
 }
+_ARGTYPES["radix_sort_join"] = _ARGTYPES["radix_sort"]
 _ARGTYPES["masked_select_vector"] = _ARGTYPES["masked_select"]
 _FP = ctypes.POINTER(_F)
 _ARGTYPES.update({
@@ -223,9 +250,11 @@ _ARGTYPES.update({
 _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 
 
-#: K1's program nodes counted apart: the upsert liveness leaf
-KERNELS["filter_mask"].node_launches["vdoc"] = 0
+#: program nodes counted apart: K1's upsert liveness leaf and join probe,
+#: K3's join group keys
+KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0)
 KERNELS["filter_mask_batched"].node_launches["vdoc"] = 0
+KERNELS["dense_group_aggregate"].node_launches.update(jcode=0, jraw=0)
 
 
 def reset_launch_counts() -> None:
@@ -244,9 +273,20 @@ def launch_counts() -> Dict[str, int]:
     return out
 
 
-def _count_vdoc(name: str, keys) -> None:
+def _count_nodes(name: str, filter_spec, keys) -> None:
+    """One more launch of K1 `name` for each counted node its program
+    holds (the vdoc lane, a join_raw leaf)."""
+    nodes = KERNELS[name].node_launches
     if any(k.endswith(".vdoc") for k in keys):
-        KERNELS[name].node_launches["vdoc"] += 1
+        nodes["vdoc"] += 1
+    if "join_raw" in nodes and _has_leaf(filter_spec, "join_raw"):
+        nodes["join_raw"] += 1
+
+
+def _has_leaf(spec, kind: str) -> bool:
+    if spec[0] in ("and", "or"):
+        return any(_has_leaf(c, kind) for c in spec[1])
+    return spec[0] == "pred" and spec[1] == kind
 
 
 def _c_entry(name: str):
@@ -320,11 +360,12 @@ _OP_TRUE, _OP_FALSE, _OP_AND, _OP_OR = 0, 1, 8, 9
 _LEAF_OPS = {"eq_id": 2, "neq_id": 3, "range_ids": 4, "in_ids": 5,
              "notin_ids": 6, "member": 7, "eq_raw": 10, "neq_raw": 11,
              "range_raw": 12, "in_raw": 13, "notin_raw": 14,
-             "ivf_probe": 15, "vdoc": 16}
+             "ivf_probe": 15, "vdoc": 16, "join_raw": 17}
 #: params each predicate kind takes (an ivf_probe: the query and its norm;
 #: the vdoc liveness leaf none)
 _LEAF_PARAMS = {"range_ids": 2, "range_raw": 2, "ivf_probe": 2, "vdoc": 0}
-_RAW_KINDS = ("eq_raw", "neq_raw", "range_raw", "in_raw", "notin_raw")
+_RAW_KINDS = ("eq_raw", "neq_raw", "range_raw", "in_raw", "notin_raw",
+              "join_raw")
 _NODE_WORDS = 6              # {op, lane, param offset, arg, elem, width}
 _MAX_FILTER_LANES = 16
 _MAX_STACK = 32
@@ -385,7 +426,9 @@ def compile_filter(filter_spec, params: Sequence,
     runs K9 on its codebook lanes here (or takes `probe(spec, q, q_norm)`'s
     lanes) and appends the probe ids and ok flags to `probe_lanes` (K1's
     lane table continues with them); its two parameter words are their
-    lane indices.
+    lane indices. A join_raw node appends the dim keys sorted on the
+    lane's device (SortedKeys.on: K12 once per device) to `probe_lanes`;
+    its parameter word is their lane index.
     """
     nodes: List[Tuple[int, ...]] = []
     words: List[int] = []
@@ -453,6 +496,13 @@ def compile_filter(filter_spec, params: Sequence,
                 probe_lanes.extend([ids, ok])
                 words.extend([first, first + 1])
                 arg = int(nprobe)
+            elif kind == "join_raw":
+                if probe_lanes is None:
+                    raise ValueError("a join_raw filter needs probe_lanes")
+                sk = sorted_keys_for(plist.pop(0), lane_t)
+                words.append(len(lanes) + len(probe_lanes))
+                probe_lanes.append(sk)
+                arg = int(sk.shape[0])
             elif kind in ("eq_raw", "neq_raw"):
                 words.extend(_raw_words(plist.pop(0), lane_t.dtype))
             elif kind == "range_raw":
@@ -557,7 +607,7 @@ def _launch_filter(filter_spec, cols, params, keys, device, rows: int,
             rows, seg_rows, None if seg_docs is None else seg_docs.data_ptr(),
             num_docs, out.data_ptr(),
             None if matched is None else matched.data_ptr())
-    _count_vdoc("filter_mask", keys)
+    _count_nodes("filter_mask", filter_spec, keys)
     return out
 
 
@@ -673,6 +723,9 @@ def filter_mask_batched(padded: int, filter_spec,
     n = len(params_list)
     if not 1 <= n <= MAX_BATCH:
         raise ValueError(f"{n} members outside [1, {MAX_BATCH}]")
+    if _has_leaf(filter_spec, "join_raw"):
+        raise ValueError("the batched K1 does not take the join_raw leaf: "
+                         "such members run alone (plan.batch_signature)")
     for key in keys:
         _filter_lane_ok(cols[key], key, padded, device)
     if device.type == "cpu":
@@ -688,7 +741,7 @@ def filter_mask_batched(padded: int, filter_spec,
     _launch("filter_mask_batched", device, _ptrs(lanes), len(lanes),
             prog.data_ptr(), n_nodes, words, n, int(_general(keys)), padded,
             int(num_docs), out.data_ptr(), matched.data_ptr())
-    _count_vdoc("filter_mask_batched", keys)
+    _count_nodes("filter_mask_batched", filter_spec, keys)
     return out, matched
 
 
@@ -754,6 +807,10 @@ def _filter_plain(filter_spec, cols, params, valid: torch.Tensor,
             return _probe_plain(spec, cols, plist.pop(0), plist.pop(0))
         if kind == "vdoc":
             return lane.bool()
+        if kind == "join_raw":
+            sk = sorted_keys_for(plist.pop(0), lane, plain=True)
+            return sk[torch.searchsorted(sk, lane).clamp_max(
+                sk.shape[0] - 1)] == lane
         if kind not in _RAW_KINDS:
             lane = lane.to(torch.int32)
         cdt = lane.dtype
@@ -941,7 +998,8 @@ def _ext_init(kind: str, which: str, card_pad: int):
 
 
 #: group key kinds shared with dense_group_aggregate.cu (KeyKind)
-_KEY_KINDS = {"ids": 0, "rawoff": 1, "mvids": 2, "mvin": 3}
+_KEY_KINDS = {"ids": 0, "rawoff": 1, "mvids": 2, "mvin": 3, "jcode": 4,
+              "jraw": 5}
 _MV_KEY_KINDS = ("mvids", "mvin")
 #: one K3 thread walks at most this many MV entry combinations of a doc;
 #: a longer walk is split over several threads (dense_group_aggregate.cu)
@@ -961,12 +1019,24 @@ class GroupKey:
     - "mvids": an MV dictId lane [P, W]; entries >= card (the padding id,
       the cardinality) drop the combination;
     - "mvin": as "mvids", and entries whose `member` (bool [card_pad])
-      is False drop it too."""
+      is False drop it too;
+    - "jcode": a dictId lane [P] (a join's fact key); the key is
+      table[clip(id, 0, len - 1)], `table` the int32 dim group code of
+      each fact dictId;
+    - "jraw": an int32 / int64 raw lane [P] (a join's fact key); the key
+      is codes[clip(searchsorted(table, value), 0, len - 1)], `table` the
+      dim keys sorted ascending in the lane's dtype and `codes` their
+      int32 group codes, as K12 sorted them (SortedKeys.on); `probe` is
+      that SortedKeys, which the plain version sorts itself
+      (SortedKeys.plain)."""
     kind: str
     lane: torch.Tensor
     card: int = 0
     offset: int = 0
     member: Optional[torch.Tensor] = None
+    table: Optional[torch.Tensor] = None
+    codes: Optional[torch.Tensor] = None
+    probe: Optional["SortedKeys"] = None
 
     @property
     def width(self) -> int:
@@ -981,8 +1051,11 @@ def _check_key(key: GroupKey, c: int, padded: int, device) -> None:
     what = f"key lane {c} ({key.kind})"
     if key.kind not in _KEY_KINDS:
         raise ValueError(f"group key kind {key.kind}")
-    if key.kind == "ids":
+    if key.kind in ("ids", "jcode"):
         _check_lane(key.lane, what, padded, device, _ID_DTYPES)
+    elif key.kind == "jraw":
+        _check_lane(key.lane, what, padded, device,
+                    (torch.int32, torch.int64))
     elif key.kind == "rawoff":
         _check_lane(key.lane, what, padded, device,
                     (torch.int32, torch.int64))
@@ -1002,6 +1075,20 @@ def _check_key(key: GroupKey, c: int, padded: int, device) -> None:
                 or not m.is_contiguous():
             raise ValueError(f"{what}: the member table must be a "
                              f"contiguous bool [card_pad] on {device}")
+    if key.kind in ("jcode", "jraw"):
+        t = key.table
+        dtype = torch.int32 if key.kind == "jcode" else key.lane.dtype
+        if t is None or t.device != device or t.dim() != 1 or \
+                not 1 <= t.shape[0] <= INT32_MAX or t.dtype != dtype or \
+                not t.is_contiguous():
+            raise ValueError(f"{what}: the table must be a contiguous "
+                             f"{dtype} [len >= 1] on {device}")
+        c = key.codes
+        if key.kind == "jraw" and (
+                c is None or c.device != device or c.dtype != torch.int32
+                or c.shape != t.shape or not c.is_contiguous()):
+            raise ValueError(f"{what}: the codes must be a contiguous "
+                             f"int32 {tuple(t.shape)} on {device}")
 
 
 def group_combos(key_lanes) -> int:
@@ -1088,20 +1175,29 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     csums = torch.zeros(len(float_lanes), g_pad, dtype=torch.float64,
                         device=device)
     matched = torch.zeros((), dtype=torch.int32, device=device)
-    tables = [torch.full((g_pad,), _ext_init(kind, which, cp),
-                         dtype=torch.int32 if kind == "ids"
-                         else torch.float64, device=device)
-              for kind, _lane, which, cp in extremes]
     members = [k.member if k.kind == "mvin" else None for k in keys]
+    tables = [k.table if k.kind in ("jcode", "jraw") else None
+              for k in keys]
+    codes = [k.codes if k.kind == "jraw" else None for k in keys]
+
+    def ptrs_or_null(ts):
+        return (_P * len(ts))(*[None if t is None else t.data_ptr()
+                                for t in ts])
+
+    ext_tables = [torch.full((g_pad,), _ext_init(kind, which, cp),
+                             dtype=torch.int32 if kind == "ids"
+                             else torch.float64, device=device)
+                  for kind, _lane, which, cp in extremes]
     _launch("dense_group_aggregate", device, mask.data_ptr(),
             _ptrs([k.lane for k in keys]),
             _ints([_ELEM[k.lane.dtype] for k in keys]), _ints(strides),
             _ints([_KEY_KINDS[k.kind] for k in keys]),
             _ints([k.width for k in keys]), _ints([k.card for k in keys]),
             _longs([k.offset for k in keys]),
-            (_P * len(keys))(*[None if m is None else m.data_ptr()
-                               for m in members]),
+            ptrs_or_null(members),
             _ints([0 if m is None else m.shape[0] for m in members]),
+            ptrs_or_null(tables), ptrs_or_null(codes),
+            _ints([0 if t is None else t.shape[0] for t in tables]),
             len(keys), _ptrs(rows), len(rows),
             _ptrs(float_lanes), len(float_lanes),
             _ptrs([e[1] for e in extremes]),
@@ -1109,10 +1205,13 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
             _ints([_EXT_MODES[(e[0], e[2])] for e in extremes]),
             _ints([_ext_init(e[0], e[2], e[3]) if e[0] == "ids" else 0
                    for e in extremes]),
-            _ptrs(tables), len(extremes), padded, int(g_pad),
+            _ptrs(ext_tables), len(extremes), padded, int(g_pad),
             int(smem_slots), int(psums_wide), count.data_ptr(),
             psums.data_ptr(), csums.data_ptr(), matched.data_ptr())
-    return count, psums, csums, matched, tables
+    nodes = KERNELS["dense_group_aggregate"].node_launches
+    for kind in {k.kind for k in keys} & {"jcode", "jraw"}:
+        nodes[kind] += 1
+    return count, psums, csums, matched, ext_tables
 
 
 def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
@@ -1173,6 +1272,14 @@ def group_keys_plain(mask: torch.Tensor, key_lanes: Sequence,
                                      .long()]
         elif k.kind == "rawoff":
             ids = (k.lane[docs] - k.offset).to(torch.int32)[:, None]
+        elif k.kind == "jcode":
+            ids = k.table[k.lane[docs].to(torch.int64).clamp(
+                0, k.table.shape[0] - 1)][:, None]
+        elif k.kind == "jraw":
+            table, codes = k.probe.plain(device)
+            pos = torch.searchsorted(table, k.lane[docs]).clamp_max(
+                table.shape[0] - 1)
+            ids = codes[pos][:, None]
         else:
             ids = k.lane[docs].to(torch.int32)[:, None]
         key += ids * int(np.int32(s))
@@ -2131,6 +2238,202 @@ def hll_registers_batched_plain(hists: torch.Tensor, idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K12 radix_sort, K13 window_scan
+# ---------------------------------------------------------------------------
+
+MAX_SORT_KEYS = 8                # sort_window.cu: key lanes, payload lanes
+MAX_SORT_PAYLOADS = 8
+MAX_SCAN_LANES = 8               # sort_window.cu: value lanes a K13 launch
+
+
+def _check_sort_lanes(keys, payloads, n: int, device) -> None:
+    if not 1 <= len(keys) <= MAX_SORT_KEYS or \
+            len(payloads) > MAX_SORT_PAYLOADS:
+        raise ValueError(f"{len(keys)} key / {len(payloads)} payload lanes "
+                         f"(1..{MAX_SORT_KEYS} / ..{MAX_SORT_PAYLOADS})")
+    if not 1 <= n <= 1 << 30:
+        raise ValueError(f"{n} rows outside [1, 2^30]")
+    for i, k in enumerate(keys):
+        _check_lane(k, f"sort key {i}", n, device, (torch.int32, torch.int64))
+    for j, v in enumerate(payloads):
+        _check_lane(v, f"sort payload {j}", n, device, (torch.int32,))
+
+
+def radix_sort(keys: Sequence[torch.Tensor],
+               payloads: Sequence[torch.Tensor] = (),
+               valid_rows: Optional[int] = None,
+               counter: str = "radix_sort"
+               ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                          List[torch.Tensor]]:
+    """K12: a stable sort of n rows by int32 / int64 key lanes (most
+    significant first, signed order), rows at or past `valid_rows` after
+    every other row, ties in input order: (perm int32 [n], the input row
+    of each sorted position; the keys sorted; the int32 payload lanes
+    carried). The launch counts under `counter` ("radix_sort_join" for a
+    join's dim side)."""
+    keys, payloads = list(keys), list(payloads)
+    if not keys:
+        raise ValueError("radix_sort needs a key lane")
+    n, device = keys[0].shape[0], keys[0].device
+    _check_sort_lanes(keys, payloads, n, device)
+    valid = n if valid_rows is None else max(0, min(int(valid_rows), n))
+    if device.type == "cpu":
+        return radix_sort_plain(keys, payloads, valid)
+    perm = torch.empty(n, dtype=torch.int32, device=device)
+    key_outs = [torch.empty_like(k) for k in keys]
+    pay_outs = [torch.empty_like(v) for v in payloads]
+    from pinot_tpu_torch.ops import build
+    words_fn = build.load("sort_window.cu").pinot_radix_sort_scratch_words
+    words_fn.argtypes = [_LL, _I]
+    words_fn.restype = ctypes.c_longlong
+    # int64 elements: the scratch's first words hold 64-bit OR / AND masks
+    scratch = torch.empty((int(words_fn(n, len(keys))) + 1) // 2,
+                          dtype=torch.int64, device=device)
+    _launch(counter, device, _ptrs(keys), _ints([_ELEM[k.dtype] for k in keys]),
+            len(keys), _ptrs(payloads), len(payloads), n, valid,
+            _ptrs(key_outs), _ptrs(pay_outs), perm.data_ptr(),
+            scratch.data_ptr())
+    return perm, key_outs, pay_outs
+
+
+def radix_sort_plain(keys: Sequence[torch.Tensor],
+                     payloads: Sequence[torch.Tensor] = (),
+                     valid_rows: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                List[torch.Tensor]]:
+    """Plain PyTorch K12: chained stable torch.sort from the least
+    significant key, then by the at-or-past-valid_rows flag."""
+    n = keys[0].shape[0]
+    perm = torch.arange(n, device=keys[0].device)
+    for k in reversed(list(keys)):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    if valid_rows is not None and valid_rows < n:
+        perm = perm[torch.sort((perm >= valid_rows).to(torch.int32),
+                               stable=True).indices]
+    return (perm.to(torch.int32), [k[perm] for k in keys],
+            [v[perm] for v in payloads])
+
+
+class SortedKeys:
+    """A raw-key join's dim keys (and, for a jraw group key, their int32
+    group codes) as JoinContext pads them, sorted once on each device by
+    K12 (`radix_sort_join`) and cached: the K1 join_raw leaf and the K3
+    jraw key read the sorted arrays, where the JAX kernels sort inside
+    every launch. Padding repeats (largest key, its code), so the sort
+    need not be stable there."""
+
+    def __init__(self, keys, codes=None):
+        self.keys = np.ascontiguousarray(keys)
+        if self.keys.dtype.kind not in "iu" or self.keys.ndim != 1 or \
+                not len(self.keys):
+            raise ValueError("join keys must be a non-empty integer array")
+        self.codes = None if codes is None else \
+            np.ascontiguousarray(codes, dtype=np.int32)
+        self._on: Dict[str, tuple] = {}   # device -> (keys, codes)
+        self._lock = threading.Lock()
+
+    def _unsorted(self, dev) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        keys = torch.from_numpy(self.keys.astype(
+            np.int64 if self.keys.dtype.itemsize > 4 else np.int32)).to(dev)
+        return keys, [] if self.codes is None else \
+            [torch.from_numpy(self.codes).to(dev)]
+
+    def on(self, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(sorted keys, their codes or None) on `device`, sorted by K12
+        there once and cached."""
+        dev = torch.device(device)
+        with self._lock:
+            hit = self._on.get(str(dev))
+        if hit is not None:
+            return hit
+        keys, pay = self._unsorted(dev)
+        _perm, (sk,), sc = radix_sort([keys], pay,
+                                      counter="radix_sort_join")
+        out = (sk, sc[0] if sc else None)
+        with self._lock:
+            return self._on.setdefault(str(dev), out)
+
+    def plain(self, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(sorted keys, their codes or None) on `device` by a stable
+        torch.sort: the plain versions' own sort, apart from K12's."""
+        keys, pay = self._unsorted(torch.device(device))
+        sk, order = torch.sort(keys, stable=True)
+        return sk, (pay[0][order] if pay else None)
+
+
+def sorted_keys_for(probe: SortedKeys, lane: torch.Tensor,
+                    plain: bool = False) -> torch.Tensor:
+    """The sorted dim keys of a join_raw leaf over `lane`, on its device
+    and in its dtype: K12's cached sort, or with `plain` the plain
+    version's own (SortedKeys.plain)."""
+    sk = (probe.plain if plain else probe.on)(lane.device)[0]
+    if sk.dtype != lane.dtype:
+        raise ValueError(f"join keys {sk.dtype} do not match the fact key "
+                         f"lane's {lane.dtype}")
+    return sk
+
+
+def window_scan(sp: torch.Tensor, values: Sequence[torch.Tensor] = ()
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K13 over a sorted partition lane sp (int32 [n]) and value lanes in
+    the same order (int32 [n] each): (rn int32 [n], the 1-based row
+    number within its partition; each lane's running sum within its
+    partition, int32 with wraparound), as the JAX build_window_kernel
+    computes them."""
+    n, device = sp.shape[0], sp.device
+    _check_lane(sp, "partition lane", n, device, (torch.int32,))
+    for j, v in enumerate(values):
+        _check_lane(v, f"value lane {j}", n, device, (torch.int32,))
+    if not 1 <= n <= 1 << 30:
+        raise ValueError(f"{n} rows outside [1, 2^30]")
+    if device.type == "cpu":
+        return window_scan_plain(sp, values)
+    rn = torch.empty(n, dtype=torch.int32, device=device)
+    outs = [torch.empty_like(v) for v in values]
+    for lo in range(0, max(len(values), 1), MAX_SCAN_LANES):
+        chunk = list(values)[lo:lo + MAX_SCAN_LANES]
+        _launch("window_scan", device, sp.data_ptr(), _ptrs(chunk),
+                len(chunk), n, rn.data_ptr(),
+                _ptrs(outs[lo:lo + MAX_SCAN_LANES]))
+    return rn, outs
+
+
+def window_scan_plain(sp: torch.Tensor, values: Sequence[torch.Tensor] = ()
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain PyTorch K13: cummax of the starts, torch.cumsum in int64
+    rebased at each start, cast to int32."""
+    n = sp.shape[0]
+    iota = torch.arange(n, device=sp.device)
+    new = torch.ones(n, dtype=torch.bool, device=sp.device)
+    new[1:] = sp[1:] != sp[:-1]
+    starts = torch.cummax(torch.where(new, iota, 0), dim=0).values
+    rn = (iota - starts + 1).to(torch.int32)
+    outs = []
+    for v in values:
+        cs = torch.cumsum(v.to(torch.int64), dim=0)
+        base = cs[starts] - v[starts].to(torch.int64)
+        outs.append((cs - base).to(torch.int32))
+    return rn, outs
+
+
+def run_window_kernel(part: torch.Tensor, orders: Sequence[torch.Tensor],
+                      sums: Sequence[torch.Tensor], num_rows: int
+                      ) -> Dict[str, torch.Tensor]:
+    """The window of pinot_tpu/ops/kernels.py:run_window_kernel over int32
+    lanes [n_pad] (partition codes, monotone order keys, value lanes; the
+    first num_rows rows valid): K12 sorts by (valid, part, orders...)
+    carrying the value lanes, K13 numbers and sums. Returns "win.perm",
+    "win.rn" and "win.sum<j>", [n_pad] each, bit for bit the JAX
+    outputs (padding rows included)."""
+    perm, (sp, *_orders), svals = radix_sort(
+        [part] + list(orders), list(sums), num_rows)
+    rn, run = window_scan(sp, svals)
+    outs = {"win.perm": perm, "win.rn": rn}
+    outs.update({f"win.sum{j}": r for j, r in enumerate(run)})
+    return outs
+
+
+# ---------------------------------------------------------------------------
 # Whole-plan dispatch
 # ---------------------------------------------------------------------------
 
@@ -2345,10 +2648,22 @@ def _run_batch_chunk(padded, filter_spec, agg_specs, select_spec, cols,
 
 def spec_group_key(gcol, cols, params: List, device) -> GroupKey:
     """The K3 key of one group column of a spec; "mvin" pops its member
-    table from `params`."""
+    table from `params`, "jcode" its code table, "jraw" its SortedKeys
+    with codes (sorted on the lane's device by K12 once)."""
     c, gkind, off, card = gcol
     if gkind == "ids":
         return GroupKey("ids", cols[f"{c}.ids"])
+    if gkind in ("jcode", "jraw") and not params:
+        raise ValueError(f"no join table for {gkind} key {c}")
+    if gkind == "jcode":
+        table = torch.as_tensor(np.ascontiguousarray(
+            params.pop(0), dtype=np.int32)).to(device)
+        return GroupKey("jcode", cols[f"{c}.ids"], table=table)
+    if gkind == "jraw":
+        lane = cols[f"{c}.raw"]
+        probe = params.pop(0)
+        sk, codes = probe.on(lane.device)
+        return GroupKey("jraw", lane, table=sk, codes=codes, probe=probe)
     if gkind == "rawoff":
         return GroupKey("rawoff", cols[f"{c}.raw"], offset=int(off))
     if gkind in _MV_KEY_KINDS:

@@ -41,6 +41,15 @@ ANDs K1's vdoc leaf over the stack's [S, P] uint8 liveness lane
 bitmap version moved), as the JAX stack does. A consuming segment in the
 set stays NotShardable.
 
+Stage 2 of a join plans on the stack like any query (a request carrying
+its JoinContext as `_join_ctx`): for a dictionary fact key, on the union
+view where the segments' dictionaries differ, so the K1 member table and
+the K3 jcode table are built over the union dictionary (one values array
+per stack, which JoinContext._translate caches by identity); for a raw
+one, K1's join_raw leaf and K3's jraw key probe the stack's flat raw lane
+with the query's one sorted dim side (pinot_tpu/parallel/sharded.py
+plans joins the same way; tests/test_stages.py:211-252).
+
 The mesh is one device in this port (`make_mesh`); stacking over several
 cards (torch.distributed) is later work, as is the residency ledger.
 """

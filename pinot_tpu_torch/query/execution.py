@@ -357,8 +357,10 @@ def _finish_aggregation(plan, outs, blk) -> None:
 def _decode_group_values(plan, nz: np.ndarray) -> List[np.ndarray]:
     """Mixed-radix decode of group keys `nz` into per-column value arrays:
     expression keys through their transformed value table (collisions
-    merge in _assemble_group_map), rawoff keys as id + min, the others
-    through the dictionary."""
+    merge in _assemble_group_map), a join's jcode / jraw keys through the
+    dim value table (their codes are its indices already,
+    pinot_tpu/query/execution.py:329-333), rawoff keys as id + min, the
+    others through the dictionary."""
     gcols, strides, _g_pad, _specs, _kmax = plan.group_spec
     vtables = plan.group_value_tables or (None,) * len(gcols)
     value_cols = []

@@ -6,9 +6,13 @@ segment → combine → one result block with execution stats. The host twin
 (query/host_exec.py) is taken only when make_segment_plan raises
 UnsupportedOnDevice or GroupsLimitExceeded, the refusals the JAX planner
 makes too, before any kernel launches. Nothing else is caught: not the
-planner's NotPorted (a shape the JAX planner runs on its device and the
-port has no kernel for yet), and nothing that plan.execute() raises (a
+planner's NotPorted, not a join's StageCompileError (the fact key fails
+the integer-key contract), and nothing that plan.execute() raises (a
 build, a launch, a kernel). No star-tree or thread pool yet.
+
+Stage 2 of a join: the request carries its JoinContext as `_join_ctx`
+(query/stages/join.py:build_context); preprocess_request's copy keeps
+it, so every segment's plan and the host twin probe the same dim side.
 
 A consuming segment (realtime/mutable_segment.py:MutableSegmentImpl) is
 one logical segment of two parts (pinot_tpu/query/executor.py:147-185):
@@ -143,7 +147,9 @@ class ServerQueryExecutor:
         plan to a fast path), and members are grouped by their compiled
         signature, so a shape-key collision costs batching, never an
         answer. Group-by, fast-path and refused members run the sequential
-        ladder. `deadline`: a time.monotonic() instant; segments not begun
+        ladder, and so does a member whose filter holds a raw-key join's
+        join_raw leaf (the batched K1 does not take it), with the same
+        answer. `deadline`: a time.monotonic() instant; segments not begun
         by then are left out, and each member's block says so. Returns
         blocks aligned with `requests`."""
         # the trace and profile arguments wait for the port's obs layer

@@ -6,15 +6,16 @@ mv_dict_ids, dictionary). Two changes: the group-by codes string and
 integer dictionary keys and DISTINCTCOUNT arguments by dictId and counts
 small code spaces with np.bincount, where the JAX module sorts the
 decoded values (the same answers; seconds less per query over millions
-of rows); and a selection's ORDER BY over a consuming segment's
+of rows), a join's dim-side group key is coded through the dim column's
+sorted uniques in the same way; and a selection's ORDER BY over a consuming segment's
 arrival-order dictionary ranks by value, where the JAX module orders by
 dictId and returns rows out of value order. The executor reaches it only when the planner
 refuses a segment plan as the JAX planner does (UnsupportedOnDevice,
 GroupsLimitExceeded), never for a port gap (NotPorted). The vector
 top-k (`_vector_topk`, exact or IVF-probed through index/ivf.py's numpy
-twins) is the JAX module's. Left out of the copy until its slice comes:
-the join probe (QueryEngine refuses join and window requests before the
-executor, so execute_host raises on a join).
+twins) and the join probe (`_join_probe`, the twin of K1's join leaf,
+applied after the upsert mask, and the dim-qualified group keys read
+through the matched dim row) are the JAX module's.
 
 Covers query shapes the device kernels don't (group cardinality over the
 groups limit, order-by keys too wide to pack, percentile over raw columns)
@@ -69,19 +70,25 @@ def _upsert_valid_mask(segment) -> Optional[np.ndarray]:
 
 def execute_host(segment: ImmutableSegment, request: BrokerRequest
                  ) -> IntermediateResultsBlock:
-    if request.join is not None:
-        raise ValueError("the port's host executor has no join path yet")
     mask = _eval_filter(request.filter, segment)
     vm = _upsert_valid_mask(segment)
     if vm is not None:
         # superseded rows are masked BEFORE any aggregation/selection —
         # the host half of the host-vs-device upsert parity contract
         mask = mask & vm
+    dimrow = None
+    jctx = getattr(request, "_join_ctx", None)
+    if jctx is not None:
+        # inner-join probe (the twin of K1's join leaf): rows without a
+        # dim match mask out BEFORE aggregation, and after the vdoc mask,
+        # so dead upserted rows never join here either
+        hit, dimrow = _join_probe(segment, jctx)
+        mask = mask & hit
     blk = IntermediateResultsBlock()
     matched = int(mask.sum())
 
     if request.is_group_by:
-        _group_by(segment, request, mask, blk)
+        _group_by(segment, request, mask, blk, jctx=jctx, dimrow=dimrow)
     elif request.is_aggregation:
         blk.agg_intermediates = [
             _aggregate(segment, f, mask) for f in make_functions(
@@ -458,9 +465,33 @@ def _unique_codes(codes: np.ndarray, size: int
     return u, slot[codes]
 
 
+# ---------------------------------------------------------------------------
+# Join probe (host twin of the fused device join predicate)
+# ---------------------------------------------------------------------------
+
+
+def _join_probe(segment: ImmutableSegment, jctx):
+    """(hit mask [n], dim row index [n]) for the fact key column:
+    value-domain searchsorted against the JoinContext's dim keys, so
+    consuming (arrival-order-dictionary) segments probe exactly like
+    committed ones."""
+    from pinot_tpu_torch.query.plan import _join_key_source
+    n = segment.num_docs
+    if jctx.empty:
+        return np.zeros(n, dtype=bool), np.zeros(n, dtype=np.int64)
+    source, ds = _join_key_source(jctx, segment)
+    if source == "sv":
+        vals = np.asarray(ds.dictionary.values)[ds.dict_ids[:n]]
+    else:
+        vals = ds.raw_values[:n]
+    return jctx.probe_values(vals)
+
+
 def _group_by(segment: ImmutableSegment, request: BrokerRequest,
-              mask: np.ndarray, blk: IntermediateResultsBlock) -> None:
+              mask: np.ndarray, blk: IntermediateResultsBlock,
+              jctx=None, dimrow=None) -> None:
     gcols = request.group_by.columns
+    join = request.join if jctx is not None else None
     # MV keys expand the row space: one row per (doc, value) — and per
     # value combination when several keys are MV (reference cross-product
     # semantics, DefaultGroupByExecutor.aggregateGroupByMV). Scalar keys
@@ -468,6 +499,8 @@ def _group_by(segment: ImmutableSegment, request: BrokerRequest,
     row2doc = np.nonzero(mask)[0]
     mv_lanes: Dict[int, np.ndarray] = {}
     for idx, c in enumerate(gcols):
+        if join is not None and join.qualifies(c):
+            continue            # dim-side keys are scalar by contract
         src = _mv_group_source(segment, c)
         if src is None:
             continue
@@ -483,8 +516,16 @@ def _group_by(segment: ImmutableSegment, request: BrokerRequest,
     uniq_vals: List[np.ndarray] = []
     for idx, c in enumerate(gcols):
         lane = mv_lanes.get(idx)
-        coded = None if lane is not None else \
-            _dict_rows(segment, c, row2doc)
+        coded = None
+        if lane is None and join is not None and join.qualifies(c):
+            # dim-side group key: the matched dim row's code in the dim
+            # column's sorted uniques (JoinContext.group_coding), where the
+            # JAX module decodes the row values and sorts them: the same
+            # groups (the mask guarantees every surviving row has a row)
+            dcodes, duniq = jctx.group_coding(join.unqualify(c))
+            coded = (duniq, dcodes[dimrow[row2doc]].astype(np.int64))
+        elif lane is None:
+            coded = _dict_rows(segment, c, row2doc)
         if coded is not None:
             present, inv = _unique_codes(coded[1], len(coded[0]))
             u = coded[0][present]

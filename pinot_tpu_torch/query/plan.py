@@ -21,8 +21,12 @@ single-value, multi-value ("mvids"), valuein ("mvin"), raw integer
 MAX and MINMAXRANGE; selections with the JAX planner's select specs
 ("limit", "order", "ordertk", "ordermk"); VECTOR_SIMILARITY top k
 ("vector", exact or with an IVF "ivf_probe" filter predicate); the
-metadata, match-all and inverted-index / sorted-range COUNT fast paths.
-Star-tree cubes are not used yet.
+metadata, match-all and inverted-index / sorted-range COUNT fast paths;
+stage 2 of a join (a JoinContext attached as request._join_ctx, query/
+stages/join.py): the join match ANDs into K1 as a member leaf (a
+dictionary fact key) or a join_raw leaf (a raw one), and dim-qualified
+group keys plan as "jcode" / "jraw" K3 keys. Star-tree cubes are not used
+yet.
 
 Refusals. UnsupportedOnDevice is raised exactly where the JAX planner
 raises it (DISTINCTCOUNT / PERCENTILE in a group-by, an MV metric in a
@@ -30,8 +34,8 @@ group-by, MV expression aggregations such as COUNTMV(valuein(...)),
 order keys over MV columns, k > MAX_SELECTION_K, ...) and
 GroupsLimitExceeded where it does; the executor answers those segments
 on the host twin (query/host_exec.py), as the JAX executor does.
-NotPorted is raised for the requests the port has no path for yet
-(join and window); nothing catches it.
+NotPorted is raised for a request with neither aggregations nor a
+selection; nothing catches it.
 
 Design change from the JAX planner, on purpose: it picks TPU-shaped
 strategies (matrix-unit block compaction, adaptive min/max and histogram
@@ -77,8 +81,10 @@ class UnsupportedOnDevice(Exception):
 
 
 class NotPorted(Exception):
-    """A request the port has no path for yet (join, window). The
-    executor does not catch it."""
+    """A request or source the port has no path for yet (a request with
+    neither aggregations nor a selection, an exchange source outside
+    this process, the TCP stream connector). The executor does not catch
+    it."""
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +372,64 @@ def _pred_over_values(node: FilterQueryTree, tv: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Join resolution (stage 2 of the multi-stage engine,
+# pinot_tpu/query/plan.py:349-405)
+#
+# The dim side arrives as a JoinContext (query/stages/join.py): the
+# exchanged, already dim-filtered key / column arrays. A dictionary fact
+# key resolves on the host in O(cardinality): the join match becomes a
+# K1 member leaf over the fact key's dictIds, each dim group key a
+# "jcode" code table. A raw fact key probes on the card: K1's "join_raw"
+# leaf and K3's "jraw" key read the dim keys sorted once by K12 (the
+# JoinContext's SortedKeys). Either way the match ANDs into the filter
+# ahead of the upsert vdoc lane's plan, so a dead row never joins.
+# ---------------------------------------------------------------------------
+
+
+def _join_key_source(jctx, segment: ImmutableSegment):
+    """-> ("sv"|"raw", DataSource) for the fact key column, with the
+    integer-key contract enforced (typed StageCompileError)."""
+    from pinot_tpu_torch.query.stages.errors import StageCompileError
+    if not segment.has_column(jctx.fact_key):
+        raise StageCompileError(
+            f"join key column '{jctx.fact_key}' does not exist on the "
+            "fact table")
+    ds = segment.data_source(jctx.fact_key)
+    cm = ds.metadata
+    if not cm.single_value or cm.data_type.np_dtype.kind not in "iu":
+        raise StageCompileError(
+            f"join keys must be single-value INTEGER columns; fact key "
+            f"'{jctx.fact_key}' is {cm.data_type.name}"
+            f"{'' if cm.single_value else ' (multi-value)'}")
+    return ("sv" if cm.has_dictionary else "raw"), ds
+
+
+def _resolve_join_pred(jctx, segment: ImmutableSegment):
+    """(filter spec, params) for the join-match predicate: a member leaf
+    over the fact key's dictIds, or a join_raw leaf whose one param is
+    the JoinContext's SortedKeys in the fact key's dtype."""
+    if jctx.empty:
+        return EMPTY, []
+    source, ds = _join_key_source(jctx, segment)
+    cm = ds.metadata
+    if source == "sv":
+        member = jctx.member_for(np.asarray(ds.dictionary.values))
+        if not member.any():
+            return EMPTY, []
+        card_pad = kernels.pow2_bucket(cm.cardinality + 1)
+        memb = np.zeros(card_pad, dtype=bool)
+        memb[: cm.cardinality] = member
+        return ("pred", "member", jctx.fact_key, "sv", card_pad), [memb]
+    keys = jctx.sorted_keys(cm.data_type.np_dtype)
+    if keys is None:
+        # no dim key is representable in the fact dtype: nothing can
+        # match (the raw twin of the all-False member vector above)
+        return EMPTY, []
+    return ("pred", "join_raw", jctx.fact_key, "raw",
+            len(keys.keys)), [keys]
+
+
+# ---------------------------------------------------------------------------
 # Plan construction
 # ---------------------------------------------------------------------------
 
@@ -406,6 +470,9 @@ def batch_signature(plan: SegmentPlan) -> Optional[tuple]:
     differ only in their params."""
     if plan.fast_path_result is not None or plan.group_spec is not None:
         return None
+    if plan.filter_spec is not None and \
+            kernels._has_leaf(plan.filter_spec, "join_raw"):
+        return None       # the batched K1 does not take the join_raw leaf
     return (plan.segment.padded_docs, plan.filter_spec,
             tuple(plan.agg_specs or ()), plan.select_spec,
             tuple(plan.needed_cols))
@@ -464,8 +531,6 @@ class InstancePlanMaker:
 
     def make_segment_plan(self, segment: ImmutableSegment,
                           request: BrokerRequest) -> SegmentPlan:
-        if request.join is not None or request.windows:
-            raise NotPorted("join / window queries")
         if not request.is_aggregation and not request.is_selection:
             raise NotPorted("query without aggregation or selection")
         if getattr(segment, "is_mutable", False):
@@ -476,20 +541,35 @@ class InstancePlanMaker:
         plan = SegmentPlan(segment=segment, request=request)
         if request.is_aggregation:
             plan.functions = make_functions(request.aggregations)
-        # metadata counts and inverted-index counts include superseded
-        # rows: a masked segment takes none of the fast paths
+        # stage-2 join context (query/stages/join.py, attached to the
+        # request copy): the probe fuses into the filter, so every
+        # whole-segment shortcut below is off (they would count unjoined
+        # rows), as are they for a masked segment (metadata counts and
+        # inverted-index counts include superseded rows)
+        jctx = getattr(request, "_join_ctx", None)
         masked = upsert_mask_active(segment)
+        no_fast = masked or jctx is not None
         count_only = request.is_aggregation and not request.is_group_by \
-            and not masked and all(f.info.base == "COUNT" and
-                                   not f.info.is_mv for f in plan.functions)
+            and not no_fast and all(f.info.base == "COUNT" and
+                                    not f.info.is_mv for f in plan.functions)
 
         # fast path: no filter, metadata-answerable aggregations
         if request.is_aggregation and not request.is_group_by and \
-                request.filter is None and not masked and \
+                request.filter is None and not no_fast and \
                 self._try_metadata_fast_path(plan, segment):
             return plan
 
         filter_spec, params = resolve_filter(request.filter, segment)
+        if jctx is not None and filter_spec != EMPTY:
+            # the join-match predicate ANDs in FIRST (its params precede
+            # the original tree's in depth-first order)
+            jspec, jparams = _resolve_join_pred(jctx, segment)
+            if jspec == EMPTY:
+                filter_spec = EMPTY
+            elif jspec != MATCH_ALL:
+                params = jparams + params
+                filter_spec = jspec if filter_spec == MATCH_ALL else \
+                    ("and", (jspec, filter_spec))
         if filter_spec == EMPTY:
             plan.fast_path_result = _empty_block(plan, segment)
             return plan
@@ -588,13 +668,40 @@ class InstancePlanMaker:
                        request: BrokerRequest, needed: Dict) -> None:
         """The JAX planner's group spec (pinot_tpu/query/plan.py:
         _plan_group_by) with kmax = 0: key kinds "ids", "mvids", "mvin"
-        (its member table in plan.group_params) and "rawoff";
-        expression keys group by the source column's ids and decode
-        through their value table (plan.group_value_tables)."""
+        (its member table in plan.group_params), "rawoff", and a join's
+        dim-qualified keys, "jcode" (its code table in plan.group_params)
+        or "jraw" (its SortedKeys with codes there); expression and join
+        keys decode through their value table (plan.group_value_tables)."""
         gcols = []
         value_tables = []
         cards = []
+        jctx = getattr(request, "_join_ctx", None)
         for c in request.group_by.columns:
+            if jctx is not None and request.join is not None and \
+                    request.join.qualifies(c):
+                # dim-side group key: the fact key lane group-codes
+                # through the join translation (a jcode gather table for
+                # a dictionary key, a jraw probe for a raw one); decode
+                # goes through the dim value table
+                dcol = request.join.unqualify(c)
+                _codes, uniq = jctx.group_coding(dcol)
+                source, ds = _join_key_source(jctx, segment)
+                n = len(uniq)
+                if source == "sv":
+                    cm = ds.metadata
+                    card_pad = kernels.pow2_bucket(cm.cardinality + 1)
+                    plan.group_params.append(jctx.code_table_for(
+                        np.asarray(ds.dictionary.values), dcol, card_pad))
+                    gcols.append((jctx.fact_key, "jcode", 0, n))
+                    needed[(jctx.fact_key, "ids")] = None
+                else:
+                    plan.group_params.append(jctx.sorted_keys(
+                        ds.metadata.data_type.np_dtype, dcol))
+                    gcols.append((jctx.fact_key, "jraw", 0, n))
+                    needed[(jctx.fact_key, "raw")] = None
+                value_tables.append(uniq)
+                cards.append(n)
+                continue
             if expr_mod.is_expression(c):
                 expr = expr_mod.parse_expression(c)
                 srcs = expr_mod.columns_of(expr)

@@ -38,7 +38,7 @@ from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
 from pinot_tpu_torch.pql.parser import compile_pql
 from pinot_tpu_torch.query import host_exec
 from pinot_tpu_torch.query.executor import ServerQueryExecutor
-from pinot_tpu_torch.query.plan import InstancePlanMaker, NotPorted, \
+from pinot_tpu_torch.query.plan import InstancePlanMaker, \
     UnsupportedOnDevice
 from pinot_tpu_torch.query.execution import execute_segment_plan
 from pinot_tpu_torch.query.pruner import SegmentPrunerService
@@ -229,7 +229,10 @@ def test_engine_refuses_vector_join_window(engines, monkeypatch):
     called = []
     monkeypatch.setattr(host_exec, "execute_host",
                         lambda *a: called.append(a))
-    with pytest.raises(NotPorted):
+    # a window is multi-stage: QueryEngine has no stage plane (nor does
+    # the JAX one) and raises the typed stage error, before the executor
+    from pinot_tpu_torch.query.stages.errors import StageCompileError
+    with pytest.raises(StageCompileError):
         port.query("SELECT teamID, ROW_NUMBER() OVER (PARTITION BY teamID "
                    "ORDER BY runs) FROM baseballStats LIMIT 5")
     assert not called

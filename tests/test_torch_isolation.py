@@ -62,6 +62,11 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.ingestion.transformer\n"
         "import pinot_tpu_torch.controller.property_store\n"
         "import pinot_tpu_torch.server.data_manager\n"
+        "import pinot_tpu_torch.query.stages.errors\n"
+        "import pinot_tpu_torch.query.stages.exchange\n"
+        "import pinot_tpu_torch.query.stages.join\n"
+        "import pinot_tpu_torch.query.stages.window\n"
+        "import pinot_tpu_torch.query.stages.broker\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or\n"

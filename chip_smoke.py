@@ -15,7 +15,7 @@ multi-stage plane: joins of lineorderj x part and window functions, stage
                           [--vec-rows 10000000] [--vec-segments 4]
                           [--vec-dim 128] [--vec-queries 5]
                           [--batch-repeats 3]
-                          [--rt-rows 5000000] [--rt-sealed 2]
+                          [--rt-rows 5000000] [--rt-sealed 1]
                           [--join-rows 60000000] [--join-segments 8]
                           [--join-dim-rows 800000]
 
@@ -31,7 +31,8 @@ non-zero exit and no result line:
    on the lanes and parameters the SSB plans give them on segment 0
    (integer outputs equal, float64 sums within CSUMS_RTOL), timed with
    CUDA events and an L2 flush before each launch, beside their bounds.
-   K3 runs on every group-by query, and where its table fits a block's
+   K3 runs on every group-by query (planned with compaction off: its
+   dense direct-keyed route), and where its table fits a block's
    shared memory, also with the shared tables forced on and forced off.
    K1's vdoc node: Q1.1 ANDed with a liveness lane (a third of the rows
    superseded), bit-equal in both instantiations, timed beside the same
@@ -39,7 +40,8 @@ non-zero exit and no result line:
 5. ssb: launch counts set to 0, the 13 queries run once through
    QueryEngine on the card and are checked against the numpy oracle, the
    counts read (K1-K3 must have launched); then --repeats timed runs per
-   query give the p50.
+   query give the p50. A filtered group-by takes the planner's default,
+   the adaptive compacted route (phase 11b).
 6. bb_data: the baseballStats table (Apache Pinot's quickstart schema),
    --bb-rows rows in --bb-segments segments, each written by the port's
    SegmentCreator from its own seed into a directory under build/, the
@@ -95,6 +97,22 @@ non-zero exit and no result line:
    kernel it uses once (counts set to 0 before each query, read after),
    and give the numpy oracle's rows and the sequential port's; then the
    timed repeats, p50 beside phase 5's.
+11b. group_compact (after 11; the adaptive compacted group-by, the
+   planner's default): on segment 0, the final dispatch of SSB Q2.1
+   (idoff keys, dense compacted tables) and Q3.1 (idrank keys, the dense
+   regime) as the executor drives them; K3 over the remapped keys, K14
+   block_compact and K15 slot_tables against their plain versions
+   (integers equal, float64 sums within CSUMS_RTOL), timed with the L2
+   flushed beside their bounds and torch.nonzero + index_select (K14),
+   index_add_ (K15). Then SSB Q2.1-Q4.3, per segment and stacked, with
+   compaction on and off (a second engine whose executor is
+   ServerQueryExecutor(InstancePlanMaker(allow_group_compaction=False));
+   the stacked engine's plan maker swapped, so the stack is shared):
+   launch and route counts from 0, one checked run each (the oracle),
+   p50 of at most 3 timed runs; and the crowded case: the first 2
+   segments' rows sorted on d_yearmonthnum (a sortedColumn time
+   column), a one-month filter whose rows fill whole blocks, which must
+   escalate.
 12. baseball_stacked: the baseballStats draws of phase 9 through a
    stacked engine over the same 4 segments (their own dictionaries,
    stacked through the union remap); counts set to 0 before, read after
@@ -102,6 +120,17 @@ non-zero exit and no result line:
    which met the oracle (else the oracle judges it); routes counted:
    stacked, fast_path and not_shardable (NotShardable, with the reasons),
    host_twin (the planner's refusals: exactly the host-answered draws).
+12b. group_compact (after 12): on baseballStats segment 0, runs x hits
+   under a 0.05% filter (37,500 potential groups, the ranked layout:
+   K16 rank_slots by its bitmap and by K12's sort, as radix_sort_rank,
+   beside torch.unique) and playerName x runs x hits under
+   numGroupsLimit 40M (the sort route) as in 11b; then every device-answered draw of phase 9 that
+   groups under a WHERE and those two cases, on and off, per segment and
+   stacked, checked against the oracle. The group_compact_routes line
+   gives the route counts (scouts, hist rungs, idoff / idrank keys,
+   dense regime, compacted, ranked, sorted rung, escalations); each route
+   and each new kernel (K14, K15, K16, radix_sort_rank, K3's idoff and
+   idrank keys) must have been taken.
 13. vec_data: the vector table of tools/vecdata.py (the JAX package's
    scripts/vec_ann_bench.py rung: --vec-rows rows of --vec-dim dims in
    --vec-segments segments, drawn around 256 centres from seed 2016),
@@ -156,8 +185,9 @@ non-zero exit and no result line:
    LLC consumer does in fetch batches of 50,000 rows (index_rows, then
    apply_batch); each segment seals at --rt-rows (Apache Pinot's default
    flush threshold, 5,000,000): convert, seal, load on the card,
-   attach_or_fold. --rt-sealed segments seal (2, the configuration's;
-   fewer is a depth cut named in the timing line); the consuming one is
+   attach_or_fold. --rt-sealed segments seal (1 by default, a depth
+   cut named in the timing line that keeps the run inside its limit; 2
+   is the configuration's); the consuming one is
    checked after each of its last three freeze points (rebuild and lane
    upload timed apart, two fetch batches of tail after each) and when
    full: launch and path counts from 0, phase 9's aggregation, group-by,
@@ -214,8 +244,8 @@ non-zero exit and no result line:
    repeats), and the depth cuts made to stay inside the time limit.
 
 Phases 10-12 run right after the phase they build on (10 and 11 after
-5, 12 after 9); 13-15 after 12; 16 and 17 after each table's own phases;
-19-22 after 17; 18 last.
+5, 12 after 9; 11b after 11, 12b after 12); 13-15 after 12b; 16 and
+17 after each table's own phases; 19-22 after 17; 18 last.
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -225,7 +255,9 @@ them; for a batched kernel, its time at 8 members beside 8 single
 launches; filter_mask[vdoc] and filter_mask_batched[vdoc], K1's launches
 with the vdoc node on the realtime path; filter_mask[join_raw],
 dense_group_aggregate[jcode] and [jraw], the join phase's launches with
-those nodes; radix_sort_join, radix_sort and window_scan) and
+those nodes; radix_sort_join, radix_sort and window_scan; block_compact,
+slot_tables, rank_slots, radix_sort_rank, dense_group_aggregate[idoff]
+and [idrank], with the case their times come from) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -311,7 +343,9 @@ def plan_operands(seg, pql):
     from pinot_tpu_torch.query.execution import gather_operands
     from pinot_tpu_torch.query.plan import InstancePlanMaker
     request = BrokerRequestOptimizer().optimize(compile_pql(pql))
-    plan = InstancePlanMaker().make_segment_plan(seg, request)
+    # compaction off: the K3 checks time the dense direct-keyed route
+    plan = InstancePlanMaker(allow_group_compaction=False
+                             ).make_segment_plan(seg, request)
     return plan, gather_operands(plan)
 
 
@@ -888,16 +922,18 @@ def stacked_kernel_check(st_engine, pqls):
     from pinot_tpu_torch.pql.parser import compile_pql
     from pinot_tpu_torch.query.execution import gather_operands_for
     from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
-        with_valid_doc_mask
+        InstancePlanMaker, with_valid_doc_mask
     ex = st_engine.sharded
     stack = ex.stack_for(st_engine.segments)
     S, P = stack.n_real, stack.padded_docs
     segs, docs = stack.segments, stack.device_num_docs()
     report, out = [], {}
+    # compaction off: the stacked K3 times the dense direct-keyed route
+    maker = InstancePlanMaker(allow_group_compaction=False)
 
     def operands(pql):
         request = BrokerRequestOptimizer().optimize(compile_pql(pql))
-        plan = ex.plan_maker.make_segment_plan(stack.plan_segment(), request)
+        plan = maker.make_segment_plan(stack.plan_segment(), request)
         flat = K.flat_lanes(stack.gather(plan.needed_cols), S, P)
         per = [gather_operands_for(sg, plan.needed_cols) for sg in segs]
         mask, matched = K.filter_mask_stacked(P, S, plan.filter_spec, flat,
@@ -1174,10 +1210,12 @@ def same_answer(a, b, rtol: float) -> bool:
 def run_ssb_stacked(st_engine, seq_results, oracle, repeats: int):
     """The stacked SSB path: per query, launch counts set to 0, the query
     run once through the stacked engine, the counts read (each kernel the
-    query uses launched once) and its route (stacked) checked; the rows
+    query uses launched once a dispatch, whatever the number of segments)
+    and its route (stacked) checked; the rows
     checked against the numpy oracle and the sequential port's rows; then
     the timed repeats. Returns the path's launch counts."""
     from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.pql.parser import compile_pql
     from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, check
     total = dict.fromkeys(K.launch_counts(), 0)
     firsts = {}
@@ -1191,9 +1229,20 @@ def run_ssb_stacked(st_engine, seq_results, oracle, repeats: int):
         if st_engine.last_route != ("stacked", None):
             raise AssertionError(f"{q} left the stacked path: "
                                  f"{st_engine.last_route}")
-        if any(v > 1 for v in counts.values()) or \
-                not counts["filter_mask"]:
-            raise AssertionError(f"{q}: stacked launches {counts}")
+        # a group-by is several dispatches (the scouts, phase B and each
+        # kmax rung), each launching its kernels once over the whole
+        # stack, K5 and K4 once a group column in a scout
+        routes = K.group_route_counts
+        dispatches = 1 + routes["scout"] + routes["hist"] + \
+            routes["escalation"]
+        group_by = compile_pql(pql).group_by
+        n_keys = len(group_by.columns) if group_by else 1
+        limits = {"masked_reduce": dispatches * n_keys,
+                  "masked_histogram": dispatches * n_keys}
+        if any(v > limits.get(k, dispatches) for k, v in counts.items()) \
+                or not counts["filter_mask"]:
+            raise AssertionError(f"{q}: stacked launches {counts} over "
+                                 f"{dispatches} dispatches")
         for name, v in counts.items():
             total[name] += v
         if resp.exceptions:
@@ -1415,6 +1464,395 @@ def run_baseball(tables, repeats: int):
     main_table = [(f, d, resp) for f, d, e, _o, resp, _ms, _h in answered
                   if e is tables[0][0]]
     return launches, seconds, main_table, p50
+
+
+# ---------------------------------------------------------------------------
+# The compacted filtered group-by: K14, K15, K16, K3's remap keys
+# ---------------------------------------------------------------------------
+
+#: the kernels of the compacted group-by, with their own kernel-line
+#: entries (no stacked timing: the stacked form is the same launch over
+#: [S * P] rows); K12 as K16's sort route is radix_sort_rank
+COMPACT_KERNELS = ("block_compact", "slot_tables", "rank_slots",
+                   "radix_sort_rank")
+#: SSB cases of the kernel check: Q2.1 (idoff keys, dense compacted
+#: tables) and Q3.1 (idrank keys, the dense regime: K3)
+COMPACT_SSB_CASES = ("q2.1", "q3.1")
+#: baseballStats cases: runs x hits (150 x 250 = 37,500 potential groups,
+#: in (DENSE_G_LIMIT, 100,000]) under a 0.05% filter takes the ranked
+#: layout; playerName x runs x hits (37M potential groups, numGroupsLimit
+#: raised) under a 0.1% filter ranks past RANK_BITMAP_G_LIMIT: K16's sort
+#: route. The filters keep the groups to a few thousand: finishing them
+#: is host work that the on / off comparison repeats
+BB_COMPACT_PQLS = {
+    "ranked": "SELECT COUNT(*), SUM(salary), MIN(average), MAX(hits) FROM "
+              "baseballStats WHERE playerName = 'player_042' AND league = "
+              "'AL' GROUP BY runs, hits TOP 100000",
+    "ranked_sort": "SELECT COUNT(*), SUM(salary) FROM baseballStats WHERE "
+                   "yearID = 2005 AND teamID = 'BOS' AND league = 'AL' "
+                   "GROUP BY playerName, runs, hits TOP 100000 "
+                   "OPTION(numGroupsLimit=40000000)",
+}
+#: the crowded case: lineorder sorted on its time column (Pinot's
+#: sortedColumn), a one-month filter whose rows fill whole blocks
+CROWDED_PQL = ("SELECT SUM(lo_revenue), COUNT(*) FROM lineorder WHERE "
+               "d_yearmonth = 'Dec1997' GROUP BY c_nation, p_mfgr TOP 1000")
+CROWDED_SEGMENTS = 2
+#: timed runs a path of the on / off comparison takes at most (four
+#: paths a case)
+GROUP_COMPACT_REPEATS = 3
+
+
+def bb_compact_draws(oracle):
+    """The baseballStats cases of the group_compact phase: every device-
+    answered draw of the mix that groups under a WHERE, then the ranked
+    cases of BB_COMPACT_PQLS as draws the oracle checks."""
+    from pinot_tpu_torch.tools import baseball
+    aggs = {a[0]: a for a in baseball.AGGS}
+    draws = [d for _f, d in baseball.all_draws(oracle)
+             if d.dims and " WHERE " in d.pql and not d.host_answered]
+    al = oracle.eq("league", "AL")
+    draws.append(baseball.Draw(
+        "group_by", BB_COMPACT_PQLS["ranked"],
+        oracle.eq("playerName", "player_042") & al,
+        [aggs[a] for a in ("COUNT(*)", "SUM(salary)", "MIN(average)",
+                           "MAX(hits)")], dims=("runs", "hits")))
+    draws.append(baseball.Draw(
+        "group_by", BB_COMPACT_PQLS["ranked_sort"],
+        oracle.eq("yearID", 2005) & oracle.eq("teamID", "BOS") & al,
+        [aggs["COUNT(*)"], aggs["SUM(salary)"]],
+        dims=("playerName", "runs", "hits")))
+    return draws
+
+
+def final_group_dispatch(seg, plan, cols):
+    """Drive a plan's group-by on one segment as the executor does and
+    return the last dispatch's (group spec, extra params)."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.query.execution import pull_group_outputs
+    from pinot_tpu_torch.query.plan import drive_group_execution
+    last = {}
+
+    def run(aggs, gspec, extra=()):
+        if gspec is not None:
+            last.update(spec=gspec, extra=tuple(extra))
+        return pull_group_outputs(K.run_segment_kernel(
+            seg.padded_docs, plan.filter_spec, aggs, gspec, None, cols,
+            tuple(plan.params), seg.num_docs, seg.device,
+            tuple(plan.group_params) + tuple(extra) if gspec is not None
+            else ()))
+
+    drive_group_execution(run, plan.group_spec, seg.padded_docs,
+                          seg.num_docs)
+    return last["spec"], last["extra"]
+
+
+def _equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def compact_kernel_check(seg, cases):
+    """Per case (label, pql): the final dispatch's spec on segment 0, then
+    K3 over its remapped keys (every case), K14 (kmax > 0 below the sorted
+    rung), K16 (the ranked layout, its route as the wrapper picks it, and
+    the sort route forced for radix_sort_rank) and K15, each against its
+    plain version (integers equal, float64 sums within CSUMS_RTOL), timed
+    with the L2 flushed beside its bound and the nearest PyTorch call.
+    Returns {kernel or "dense_group_aggregate[<kind>]": entry}."""
+    from types import SimpleNamespace
+
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.execution import gather_operands
+    from pinot_tpu_torch.query.plan import InstancePlanMaker
+    P, n = seg.padded_docs, seg.num_docs
+    entries = {}
+    for label, pql in cases:
+        plan = InstancePlanMaker().make_segment_plan(
+            seg, BrokerRequestOptimizer().optimize(compile_pql(pql)))
+        cols = gather_operands(plan)
+        spec, extra = final_group_dispatch(seg, plan, cols)
+        gcols, strides, g_pad, gaggs, kmax = spec
+        mask = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
+        params = list(plan.group_params) + list(extra)
+        # K3 over the remapped keys (the dense regime's kernel, and the
+        # sorted rung's) where its table is dense
+        if g_pad <= K.DENSE_G_LIMIT:
+            fake = SimpleNamespace(group_spec=spec,
+                                   group_params=list(params))
+            r3, err3, ms3, plain3, b3 = k3_check(P, fake, cols, mask)
+            emit({"phase": "group_compact_check", "case": label,
+                  "kernel": "dense_group_aggregate", "kmax": kmax, **r3})
+            for kind in {g[1] for g in gcols} & {"idoff", "idrank"}:
+                entries.setdefault(f"dense_group_aggregate[{kind}]", dict(
+                    max_abs_err=err3, ms=ms3, plain_ms=plain3, bound=b3,
+                    library_ms=None, case=label))
+        if not kmax:
+            continue
+        keys = [K.spec_group_key(g, cols, list(params), seg.device)
+                for g in gcols]
+        lanes = K._group_lanes(gaggs, cols)
+        w = K.group_combos(keys)
+        t = P * w // K.CBLOCK
+        r = min(max(-(-min(kmax * w, P * w) // t), 8), K.CBLOCK)
+        if r > K.SORTED_RUNG_R:
+            continue
+        ids_lanes = [e[1] for e in lanes.extremes if e[0] == "ids"]
+        value_lanes = lanes.floats + [e[1] for e in lanes.extremes
+                                      if e[0] == "raw"]
+        a14 = (mask, keys, strides, g_pad, r, lanes.parts, value_lanes,
+               ids_lanes)
+        got, ref = K.block_compact(*a14), K.block_compact_plain(*a14)
+        ok14 = all(_equal(a, b) for a, b in zip(got, ref))
+        kc, parts_c, vals_c, ids_c, _ovf, _m = got
+        cap = t * r
+        taken = int((kc < g_pad).sum())
+        row_bytes = sum(k.lane.element_size() * k.width for k in keys) + \
+            sum(p.shape[0] for p in lanes.parts) + \
+            sum(v.element_size() for v in value_lanes + ids_lanes)
+        slot_bytes = 4 + parts_c.shape[0] + 8 * vals_c.shape[0] + \
+            4 * ids_c.shape[0]
+        idx_lanes = [k.lane for k in keys] + [
+            p for pl in lanes.parts for p in pl] + value_lanes + ids_lanes
+
+        def library14():
+            idx = torch.nonzero(mask).view(-1)
+            return [v.index_select(0, idx) for v in idx_lanes]
+
+        e14 = dict(max_abs_err=0 if ok14 else 1,
+                   ms=time_ms(lambda: K.block_compact(*a14)),
+                   plain_ms=time_ms(lambda: K.block_compact_plain(*a14),
+                                    reps=3),
+                   bound=bound(P + taken * row_bytes + cap * slot_bytes,
+                               P * w),
+                   library_ms=time_ms(library14), case=label)
+        emit({"phase": "group_compact_check", "case": label,
+              "kernel": "block_compact", "g_pad": g_pad, "kmax": kmax,
+              "r": r, "cap": cap, "slots_taken": taken,
+              "overflow": int(got[4]), "equal": ok14,
+              **{k: v for k, v in e14.items() if k != "bound"},
+              "bound_ms": e14["bound"][0], "bound_by": e14["bound"][1]})
+        if not ok14:
+            raise AssertionError(f"block_compact disagrees on {label}")
+        entries.setdefault("block_compact", e14)
+        ranked = g_pad > K.DENSE_G_LIMIT
+        if ranked:
+            routes = ["sort"] if g_pad > K.RANK_BITMAP_G_LIMIT else \
+                ["bitmap", "sort"]
+            ref16 = K.rank_slots_plain(kc, cap, g_pad)
+            for route in routes:
+                got16 = K.rank_slots(kc, cap, g_pad, route=route)
+                ok16 = all(_equal(a, b) for a, b in zip(got16, ref16))
+                e16 = dict(
+                    max_abs_err=0 if ok16 else 1,
+                    ms=time_ms(lambda: K.rank_slots(kc, cap, g_pad,
+                                                    route=route)),
+                    plain_ms=time_ms(lambda: K.rank_slots_plain(
+                        kc, cap, g_pad), reps=3),
+                    bound=bound(4 * cap * 3, cap),
+                    library_ms=time_ms(lambda: torch.unique(
+                        kc, return_inverse=True)), case=label, route=route)
+                emit({"phase": "group_compact_check", "case": label,
+                      "kernel": "rank_slots", "route": route,
+                      "g_pad": g_pad, "cap": cap,
+                      "distinct": int(got16[2].sum()), "equal": ok16,
+                      **{k: v for k, v in e16.items() if k != "bound"},
+                      "bound_ms": e16["bound"][0],
+                      "bound_by": e16["bound"][1]})
+                if not ok16:
+                    raise AssertionError(f"rank_slots ({route}) disagrees "
+                                         f"on {label}")
+                if route == "sort":
+                    # K12 alone on the keys, as the sort route runs it
+                    perm, (sk,), _ = K.radix_sort([kc],
+                                                  counter="radix_sort_rank")
+                    pperm, (psk,), _ = K.radix_sort_plain([kc])
+                    ok12 = _equal(perm, pperm) and _equal(sk, psk)
+                    entries["radix_sort_rank"] = dict(
+                        max_abs_err=0 if ok12 else 1,
+                        ms=time_ms(lambda: K.radix_sort(
+                            [kc], counter="radix_sort_rank")),
+                        plain_ms=time_ms(lambda: K.radix_sort_plain([kc])),
+                        bound=bound(4 * cap * 3, cap),
+                        library_ms=time_ms(lambda: torch.sort(
+                            kc, stable=True)), case=label)
+                    if not ok12:
+                        raise AssertionError("radix_sort_rank disagrees")
+                else:
+                    entries.setdefault("rank_slots", e16)
+            entries.setdefault("rank_slots", e16)
+            gslot, t_slots = got16[0], cap
+        else:
+            gslot, t_slots = kc, g_pad
+        ext15, n_id, n_raw = [], 0, len(lanes.floats)
+        for kind, _lane, which, card_pad in lanes.extremes:
+            if kind == "ids":
+                ext15.append(("ids", ids_c[n_id], which,
+                              card_pad if which == "min" else -1))
+                n_id += 1
+            else:
+                ext15.append(("raw", vals_c[n_raw], which, 0))
+                n_raw += 1
+        a15 = (gslot, t_slots, cap, parts_c, vals_c[:len(lanes.floats)],
+               ext15)
+        got15, ref15 = K.slot_tables(*a15), K.slot_tables_plain(*a15)
+        int_ok = _equal(got15[0], ref15[0]) and _equal(got15[1], ref15[1]) \
+            and all(_equal(a, b) for a, b in zip(got15[3], ref15[3]))
+        f_err = float((got15[2] - ref15[2]).abs().max()) \
+            if got15[2].numel() else 0.0
+        f_ok = bool(((got15[2] - ref15[2]).abs() <= CSUMS_RTOL *
+                     ref15[2].abs().clamp_min(1.0)).all())
+        n_l = parts_c.shape[0]
+        in_bytes = cap * (4 + n_l + 8 * len(lanes.floats) +
+                          sum(e[1].element_size() for e in ext15))
+        out_bytes = t_slots * (4 + got15[1].element_size() * got15[1].numel()
+                               // t_slots + 8 * len(lanes.floats) +
+                               sum(t.element_size() for t in got15[3]))
+        valid = gslot < t_slots
+
+        def library15():
+            g = torch.where(valid, gslot, t_slots).long()
+            return torch.zeros(t_slots + 1, dtype=torch.int32,
+                               device=gslot.device).index_add_(
+                0, g, parts_c[0].int() if n_l else valid.int())
+
+        e15 = dict(max_abs_err=f_err if int_ok else 1.0,
+                   ms=time_ms(lambda: K.slot_tables(*a15)),
+                   plain_ms=time_ms(lambda: K.slot_tables_plain(*a15),
+                                    reps=3),
+                   bound=bound(in_bytes + out_bytes, cap * (1 + n_l)),
+                   library_ms=time_ms(library15), case=label)
+        emit({"phase": "group_compact_check", "case": label,
+              "kernel": "slot_tables", "t_slots": t_slots, "cap": cap,
+              "layout": "ranked" if ranked else "dense",
+              "ints_equal": int_ok, "csums_max_abs_err": f_err,
+              "csums_rtol": CSUMS_RTOL,
+              **{k: v for k, v in e15.items() if k != "bound"},
+              "bound_ms": e15["bound"][0], "bound_by": e15["bound"][1]})
+        if not int_ok or not f_ok:
+            raise AssertionError(f"slot_tables disagrees on {label}")
+        entries.setdefault("slot_tables", e15)
+    return entries
+
+
+def sorted_ssb_segments(table, n_segs: int):
+    """The first n_segs SSB segments' rows sorted on d_yearmonthnum (a
+    table whose sortedColumn is its time column), built in memory."""
+    from pinot_tpu_torch.tools.datagen import SSB_TYPES, \
+        make_segment_from_arrays
+    from pinot_tpu_torch.common.datatype import DataType
+    per = table.segments[0].num_docs
+    segs, rows = [], []
+    for i in range(n_segs):
+        lo, hi = i * per, (i + 1) * per
+        order = np.argsort(table.ids["d_yearmonthnum"][lo:hi],
+                           kind="stable") + lo
+        rows.append(order)
+        segs.append(make_segment_from_arrays(
+            f"ssb_sorted_{i}", "lineorder",
+            {c: (SSB_TYPES[c], table.pools[c], table.ids[c][order])
+             for c in table.pools},
+            {"lo_supplycost": (DataType.DOUBLE, table.supplycost[order])}))
+    return segs, np.concatenate(rows)
+
+
+def crowded_expected(table, rows) -> dict:
+    """{(c_nation, p_mfgr): [revenue, count]} of CROWDED_PQL over `rows`."""
+    ids, pools = table.ids, table.pools
+    month = int(np.searchsorted(pools["d_yearmonth"], "Dec1997"))
+    r = rows[ids["d_yearmonth"][rows] == month]
+    nat = ids["c_nation"][r].astype(np.int64)
+    mfgr = ids["p_mfgr"][r].astype(np.int64)
+    n_m = len(pools["p_mfgr"])
+    key = nat * n_m + mfgr
+    rev = np.asarray(pools["lo_revenue"], np.float64)[ids["lo_revenue"][r]]
+    sums = np.bincount(key, weights=rev)
+    counts = np.bincount(key)
+    return {(str(pools["c_nation"][k // n_m]), str(pools["p_mfgr"][k % n_m])):
+            [float(sums[k]), float(counts[k])]
+            for k in np.nonzero(counts)[0]}
+
+
+def _groups_of(resp) -> dict:
+    out = {}
+    for fi, agg in enumerate(resp.aggregation_results):
+        for g in agg.group_by_result:
+            out.setdefault(tuple(str(x) for x in g["group"]), []).append(
+                float(g["value"]))
+    return out
+
+
+def run_group_compact(label, on_engine, off_engine, st_engine, cases,
+                      check, rtol: float, repeats: int):
+    """The end-to-end comparison of one table's filtered group-bys: per
+    case (name, pql), per segment (`on_engine`, the planner's default,
+    compaction on; `off_engine`, InstancePlanMaker(allow_group_compaction
+    =False)) and stacked (`st_engine` with either plan maker): launch
+    counts and route counts from 0, one run, checked (check(name,
+    response) raises unless it meets the oracle: the first path directly,
+    the others where they differ from it beyond `rtol`), the counts read;
+    then min(--repeats, GROUP_COMPACT_REPEATS) timed runs, p50 on beside
+    off. Returns the compaction-on runs' launch counts and route
+    counts."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.query.plan import InstancePlanMaker
+    on_maker = st_engine.sharded.plan_maker
+    off_maker = InstancePlanMaker(allow_group_compaction=False)
+    launches = dict.fromkeys(K.launch_counts(), 0)
+    routes = collections.Counter()
+    for name, pql in cases:
+        row = {"phase": "group_compact", "table": label, "case": name}
+        first = None
+        for path, engine, maker in (
+                ("per_segment_on", on_engine, None),
+                ("per_segment_off", off_engine, None),
+                ("stacked_on", st_engine, on_maker),
+                ("stacked_off", st_engine, off_maker)):
+            if maker is not None:
+                st_engine.sharded.plan_maker = maker
+            try:
+                K.reset_launch_counts()
+                resp = engine.query(pql)
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                got_routes = dict(K.group_route_counts)
+                if resp.exceptions:
+                    raise AssertionError(f"{label} {name} {path}: "
+                                         f"{resp.exceptions}")
+                # the first path meets the oracle; the others equal it or
+                # the oracle judges them too
+                if first is None:
+                    check(name, resp)
+                    first = resp
+                elif not same_answer(resp, first, rtol):
+                    check(name, resp)
+                if path.startswith("stacked") and \
+                        engine.last_route != ("stacked", None):
+                    raise AssertionError(f"{label} {name} left the stacked "
+                                         f"path: {engine.last_route}")
+                if path.endswith("_on"):
+                    for k, v in counts.items():
+                        launches[k] += v
+                    routes.update(got_routes)
+                elif got_routes:
+                    raise AssertionError(f"{label} {name} {path}: "
+                                         f"compaction off took {got_routes}")
+                ts = []
+                for _ in range(min(repeats, GROUP_COMPACT_REPEATS)):
+                    t = time.perf_counter()
+                    engine.query(pql)
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t) * 1e3)
+            finally:
+                st_engine.sharded.plan_maker = on_maker
+            row[f"{path}_p50_ms"] = float(np.median(ts))
+            row[f"{path}_routes"] = got_routes
+        emit(row)
+    emit({"phase": "group_compact_summary", "table": label,
+          "routes": dict(routes),
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches, routes
 
 
 # ---------------------------------------------------------------------------
@@ -2371,6 +2809,10 @@ RT_FLUSH_ROWS = 5_000_000
 #: 5,000,000 rows); --rt-sealed below it is a depth cut that the timing
 #: line names
 RT_SEALED_FULL = 2
+#: the sealed segments a run ingests by default: one, a depth cut, so
+#: that the whole script stays inside its time limit with the phases of
+#: the compacted group-by
+RT_SEALED_DEFAULT = 1
 RT_FETCH_ROWS = 50_000              # rows per fetch batch of the consumer
 #: the consuming segment's freeze points checked (the frozen prefix
 #: doubles from MutableSegmentImpl.FREEZE_MIN_ROWS)
@@ -2788,16 +3230,19 @@ def run_realtime(base, args):
         route, reason = st_engine.last_route
         # the planner's refusals go to the host twin, and a filter that
         # folds to nothing has no device work to stack (a fast path);
-        # everything else stacks, with the vdoc node in its one K1
+        # everything else stacks, with the vdoc node in its one K1 a
+        # dispatch (a group-by's scouts, phase B and kmax rungs)
         if route == "NotShardable" and reason.startswith("fast-path"):
             route = "fast_path"
         routes[route] += 1
+        g = K.group_route_counts
+        dispatches = 1 + g["scout"] + g["hist"] + g["escalation"]
         if draw.host_answered != (route == "UnsupportedOnDevice") or \
                 route not in ("stacked", "fast_path",
                               "UnsupportedOnDevice") or \
                 (route == "stacked" and (
-                    counts["filter_mask[vdoc]"] != 1 or
-                    counts["filter_mask"] != 1)):
+                    counts["filter_mask[vdoc]"] != dispatches or
+                    counts["filter_mask"] != dispatches)):
             raise AssertionError(f"{draw.pql}: route {route} ({reason}), "
                                  f"launches {counts}")
         st_launches.update(counts)
@@ -3280,18 +3725,25 @@ def run_join(segs, raw_segs, dim_seg, dim, fact, raw_fact, repeats: int):
                   "dim_rows": len(contexts[q][1].keys),
                   "launches": path_launches[(q, path)]})
         seconds["oracle_and_host_checks"] += time.perf_counter() - t
-        needed = ("filter_mask", "filter_mask[join_raw]",
-                  "dense_group_aggregate[jcode]",
-                  "dense_group_aggregate[jraw]", "radix_sort_join",
-                  "masked_part_sums")
-        missing = [k for k in needed if not launches[k]]
+        needed = ("filter_mask", "filter_mask[join_raw]", "[jcode]",
+                  "[jraw]", "radix_sort_join", "masked_part_sums")
+
+        def launched(counts, k):
+            # a join's group key is evaluated by K14 (the compacted route)
+            # or by K3 (the sorted rung, compaction off)
+            if k.startswith("["):
+                return counts.get(f"block_compact{k}", 0) + \
+                    counts.get(f"dense_group_aggregate{k}", 0)
+            return counts.get(k, 0)
+
+        missing = [k for k in needed if not launched(launches, k)]
         # the stacked raw-key path: join_raw over the stack's raw lane,
         # and the jraw key where a dim column groups (J2.1)
         missing += [f"{q} raw_key_stacked {k}" for q, k in (
             ("J0", "filter_mask[join_raw]"),
             ("J2.1", "filter_mask[join_raw]"),
-            ("J2.1", "dense_group_aggregate[jraw]"))
-            if not path_launches[(q, "raw_key_stacked")].get(k)]
+            ("J2.1", "[jraw]"))
+            if not launched(path_launches[(q, "raw_key_stacked")], k)]
         if missing:
             raise AssertionError(f"join kernels never launched: {missing} "
                                  f"({launches})")
@@ -3462,7 +3914,7 @@ def main() -> int:
     ap.add_argument("--vec-queries", type=int, default=5)
     ap.add_argument("--batch-repeats", type=int, default=3)
     ap.add_argument("--rt-rows", type=int, default=RT_FLUSH_ROWS)
-    ap.add_argument("--rt-sealed", type=int, default=RT_SEALED_FULL)
+    ap.add_argument("--rt-sealed", type=int, default=RT_SEALED_DEFAULT)
     ap.add_argument("--join-rows", type=int, default=JOIN_FACT_ROWS)
     ap.add_argument("--join-segments", type=int, default=JOIN_SEGMENTS)
     ap.add_argument("--join-dim-rows", type=int, default=JOIN_DIM_ROWS)
@@ -3479,7 +3931,11 @@ def main() -> int:
     from pinot_tpu_torch.pql.parser import compile_pql
     from pinot_tpu_torch.tools import baseball
     from pinot_tpu_torch.tools.datagen import make_ssb_segments
-    from pinot_tpu_torch.tools.ssb import SSB_PQLS, make_cpu_queries
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query.plan import InstancePlanMaker
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, \
+        make_cpu_queries
+    from pinot_tpu_torch.tools.ssb import check as check_ssb
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -3536,6 +3992,41 @@ def main() -> int:
     ssb_st_launches = run_ssb_stacked(st_engine, ssb_rows, oracle,
                                       args.repeats)
     seconds["ssb_stacked"] = time.perf_counter() - t0
+    # the compacted group-by: its kernels on segment 0, then compaction on
+    # beside off over SSB Q2.1-Q4.3 and the crowded sorted table
+    t0 = time.perf_counter()
+    compact_entries = compact_kernel_check(
+        engine.segments[0], [(q, SSB_PQLS[q]) for q in COMPACT_SSB_CASES])
+    seconds["group_compact_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    off_engine = QueryEngine(engine.segments)
+    off_engine.executor = ServerQueryExecutor(
+        InstancePlanMaker(allow_group_compaction=False))
+    gc_launches, gc_routes = run_group_compact(
+        "ssb", engine, off_engine, st_engine,
+        [(q, p) for q, p in SSB_PQLS.items() if not q.startswith("q1")],
+        lambda q, resp: check_ssb(q, canon_response(q, resp), oracle[q]()),
+        CSUMS_RTOL, args.repeats)
+    sorted_segs, sorted_rows = sorted_ssb_segments(table, CROWDED_SEGMENTS)
+    crowded = crowded_expected(table, sorted_rows)
+
+    def check_crowded(_name, resp):
+        if _groups_of(resp) != crowded:
+            raise AssertionError("the crowded group-by differs from its "
+                                 "numpy answer")
+
+    sorted_off = QueryEngine(sorted_segs)
+    sorted_off.executor = off_engine.executor
+    launches, routes = run_group_compact(
+        "ssb_sorted", QueryEngine(sorted_segs), sorted_off,
+        QueryEngine(sorted_segs, mesh=make_mesh()),
+        [("crowded", CROWDED_PQL)], check_crowded, 0.0, args.repeats)
+    if not routes["escalation"]:
+        raise AssertionError(f"the crowded filter never escalated: {routes}")
+    gc_launches = {k: v + launches[k] for k, v in gc_launches.items()}
+    gc_routes.update(routes)
+    del sorted_segs, sorted_off, off_engine
+    seconds["group_compact"] = time.perf_counter() - t0
     emit({"phase": "ssb_stacked_summary", "segments": stack.n_real,
           "queries_passed": len(SSB_PQLS),
           "stack_seconds": seconds["ssb_stack"],
@@ -3615,10 +4106,46 @@ def main() -> int:
         seconds["baseball"] = time.perf_counter() - t0
         seconds.update({f"baseball_{k}": v for k, v in bb_seconds.items()})
         t0 = time.perf_counter()
+        bb_st_engine = QueryEngine(engine.segments, mesh=make_mesh())
         bb_st_launches = run_baseball_stacked(
-            QueryEngine(engine.segments, mesh=make_mesh()), bb_answered,
-            oracle, args.repeats, bb_p50)
+            bb_st_engine, bb_answered, oracle, args.repeats, bb_p50)
         seconds["baseball_stacked"] = time.perf_counter() - t0
+        # the compacted group-by on baseballStats: the ranked layout (both
+        # K16 routes) on segment 0, then the filtered group-by draws and
+        # the ranked cases with compaction on beside off
+        t0 = time.perf_counter()
+        # K14 and K15 keep SSB Q2.1's entries (the SSB path's case); K16
+        # and its sort route come from here
+        for k, v in compact_kernel_check(
+                engine.segments[0], list(BB_COMPACT_PQLS.items())).items():
+            compact_entries.setdefault(k, v)
+        seconds["bb_group_compact_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bb_cases = bb_compact_draws(oracle)
+        off_engine = QueryEngine(engine.segments)
+        off_engine.executor = ServerQueryExecutor(
+            InstancePlanMaker(allow_group_compaction=False))
+        launches, routes = run_group_compact(
+            "baseball", engine, off_engine, bb_st_engine,
+            [(i, d.pql) for i, d in enumerate(bb_cases)],
+            lambda i, resp: baseball.check(resp, oracle, bb_cases[i]),
+            baseball.FLOAT_RTOL, args.repeats)
+        gc_launches = {k: v + launches[k] for k, v in gc_launches.items()}
+        gc_routes.update(routes)
+        del off_engine, bb_st_engine
+        seconds["bb_group_compact"] = time.perf_counter() - t0
+        missing = [k for k in ("block_compact", "slot_tables", "rank_slots",
+                               "radix_sort_rank",
+                               "dense_group_aggregate[idoff]",
+                               "dense_group_aggregate[idrank]")
+                   if not gc_launches[k]]
+        missing += [r for r in ("scout", "hist", "idoff", "idrank",
+                                "dense_regime", "compacted", "ranked",
+                                "sorted", "escalation") if not gc_routes[r]]
+        if missing:
+            raise AssertionError(f"the compacted group-by never took "
+                                 f"{missing}: {dict(gc_routes)}")
+        emit({"phase": "group_compact_routes", "routes": dict(gc_routes)})
         t0 = time.perf_counter()
         batch_entries.update(batch_kernel_check_bb(engine.segments[0]))
         seconds["bb_batch_kernel_check"] = time.perf_counter() - t0
@@ -3727,7 +4254,27 @@ def main() -> int:
     line = []
     stage_launches = {k: join_launches.get(k, 0) + window_launches.get(k, 0)
                       for k in set(join_launches) | set(window_launches)}
+
+    def path_launches(name: str) -> int:
+        """Launches of `name` on every path run with counts from 0."""
+        return (ssb_launches[name] + bb_launches[name] +
+                vec_build_launches[name] + vec_launches["per_segment"][name] +
+                ssb_st_launches[name] + bb_st_launches[name] +
+                vec_launches["stacked"][name] + batch_launches.get(name, 0) +
+                rt_launches.get(name, 0) + stage_launches.get(name, 0) +
+                gc_launches[name])
+
     for name, info in K.KERNELS.items():
+        if name in COMPACT_KERNELS:
+            e = compact_entries[name]
+            line.append({"name": name, "route": "cuda",
+                         "source": info.source, "replaces": info.replaces,
+                         "launches": path_launches(name),
+                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                         "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                         "bound_by": e["bound"][1],
+                         "library_ms": e["library_ms"], "case": e["case"]})
+            continue
         if name in STAGE_KERNELS:
             e = stage_entries[name]
             line.append({"name": name, "route": "cuda",
@@ -3759,11 +4306,7 @@ def main() -> int:
             vec_launches["stacked"][name]
         line.append({"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces,
-                     "launches": ssb_launches[name] + bb_launches[name] +
-                     vec_build_launches[name] +
-                     vec_launches["per_segment"][name] + st_launches +
-                     batch_launches[name] + rt_launches.get(name, 0) +
-                     stage_launches.get(name, 0),
+                     "launches": path_launches(name),
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
@@ -3811,8 +4354,21 @@ def main() -> int:
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
                      "library_ms": e["library_ms"]})
+    # K3's adaptive remap keys, counted apart: every path's launches
+    for remap, replaces in (("idoff", "pinot_tpu/ops/kernels.py:711"),
+                            ("idrank", "pinot_tpu/ops/kernels.py:720")):
+        name = f"dense_group_aggregate[{remap}]"
+        e = compact_entries[name]
+        line.append({"name": name, "route": "cuda",
+                     "source": source["dense_group_aggregate"],
+                     "replaces": replaces, "launches": path_launches(name),
+                     "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                     "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                     "bound_by": e["bound"][1], "library_ms": None,
+                     "case": e["case"]})
     emit({"kernels": line})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

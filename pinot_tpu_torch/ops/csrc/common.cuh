@@ -4,6 +4,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace pinot {
 
@@ -106,6 +107,27 @@ __device__ __forceinline__ int block_sum(int v, int* scratch) {
     v = warp_sum(v);
   }
   return v;
+}
+
+// v replaces the stored value when it is smaller (is_min) or larger, or is
+// a NaN; a stored NaN is never replaced. Works on shared or device memory.
+__device__ __forceinline__ void atomic_extreme(double* addr, double v, bool is_min) {
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
+  unsigned long long old = *a;
+  while (true) {
+    const double cur = __longlong_as_double(old);
+    if (isnan(cur)) return;
+    if (!(isnan(v) || (is_min ? v < cur : v > cur))) return;
+    const unsigned long long seen = atomicCAS(a, old, __double_as_longlong(v));
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+__device__ __forceinline__ void atomic_extreme(int* addr, int v, bool is_min) {
+  if (is_min ? v < *addr : v > *addr) {
+    if (is_min) atomicMin(addr, v); else atomicMax(addr, v);
+  }
 }
 
 inline int grid_for(long long rows) {

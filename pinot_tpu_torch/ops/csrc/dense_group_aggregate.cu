@@ -2,39 +2,23 @@
 // float64 sums and min/max over a dense mixed-radix group table.
 //
 // Replaces pinot_tpu/ops/kernels.py:_group_key (:702, kinds "ids",
-// "rawoff", "jcode" (:740) and "jraw" (:752)), _expand_mv_group (:1220, kinds "mvids" and "mvin"),
+// "rawoff", "idoff" (:711), "idrank" (:720), "jcode" (:740) and "jraw"
+// (:752)), _expand_mv_group (:1220, kinds "mvids" and "mvin"),
 // _dense_group_count (:402), _dense_group_part_sums (:407),
 // _dense_group_float_sums (:503), _dense_group_extreme (:529) and the
 // scatter fallback of _group_outputs (:1330-1390) for count / sum / avg /
 // min / max / minmaxrange.
 //
-// Key terms, one per group column c, in int32 with two's-complement wrap
-// as XLA computes them (kernels.py:766-768):
-//   ids:    the dictId lane's id;
-//   rawoff: (raw - offset) in the lane's own width (int32 or int64),
-//           then narrowed to int32;
-//   mvids:  one entry of the doc's [W] MV row; padding entries (id >=
-//           cardinality) drop the combination;
-//   mvin:   as mvids, and an entry outside the member table drops it too;
-//   jcode:  a join's dim group code of the row's fact-key dictId,
-//           code[clip(id, 0, len - 1)] from an int32 table over the fact
-//           key's dictionary (the planner's JoinContext.code_table_for);
-//   jraw:   a join's dim group code of the row's raw int32 / int64 key:
-//           the code beside the key's lower-bound position (clipped to
-//           Dp - 1) in the dim keys sorted by K12 with their codes. The
-//           padding repeats (largest key, its code), so a key found in
-//           the padding run reads the right code. Rows whose key has no
-//           dim row read some code: the join leaf of K1 masked them.
-//           Both join kinds read one more input per matched row than an
-//           ids key: a 4-byte gather from the code table (at most 8 MB at
-//           2^21 entries, mostly L2-resident) or a binary search of at
-//           most 17 probes of the sorted keys (<= 512 KB, in L2); the
-//           table and keys count once each in the bound below.
-// A doc with MV keys contributes once per cross-combination of its MV
-// keys' entries (the reference's aggregateGroupByMV): the first MV key
-// walks fastest, as _expand_mv_group's mixed-radix entry index does, and
-// each key position keeps its own entry index, so the same column as two
-// keys gives the full cross product. For every surviving combination:
+// The key of a row, and of each MV entry combination of a doc (a doc
+// contributes once per cross-combination of its MV keys' entries, the
+// reference's aggregateGroupByMV), is group_key.cuh's: kinds ids, rawoff,
+// mvids, mvin, jcode, jraw and the adaptive remaps idoff and idrank
+// (:711, :720). The join kinds read one more input per matched row than
+// an ids key: a 4-byte gather from the code table (at most 8 MB at 2^21
+// entries, mostly L2-resident) or a binary search of at most 17 probes of
+// the sorted keys (<= 512 KB, in L2); idrank one 4-byte gather from its
+// [card_pad] rank table. Tables count once each in the bound below.
+// For every surviving combination:
 // key = clip(sum_c term_c * stride_c, 0, g_pad - 1), then
 //   count[key] += 1, psums[l][key] += parts_l[row], csums[j][key] += vals_j[row]
 //   idmin[e][key] = min(., ids_e[row]), idmax[e][key] = max(., ids_e[row])
@@ -85,11 +69,13 @@
 
 #include <math.h>
 
-#include "common.cuh"
+#include "group_key.cuh"
 
 namespace {
 
-constexpr int kMaxKeys = 8;
+using pinot::KeyLanes;
+using pinot::atomic_extreme;
+
 constexpr int kMaxParts = 16;
 constexpr int kMaxFloats = 8;
 constexpr int kMaxExt = 16;
@@ -100,24 +86,6 @@ constexpr int kMaxExt = 16;
 constexpr int kWalkCombos = 1 << 16;
 
 enum ExtMode : int { kIdMin = 0, kIdMax = 1, kRawMin = 2, kRawMax = 3 };
-// key kinds, as ops/kernels.py:_KEY_KINDS codes them
-enum KeyKind : int { kIds = 0, kRawOff = 1, kMvIds = 2, kMvIn = 3, kJCode = 4, kJRaw = 5 };
-
-struct KeyLanes {
-  const void* ptr[kMaxKeys];
-  const uint8_t* member[kMaxKeys];   // mvin: bool [mlen]
-  const void* table[kMaxKeys];       // jcode: int32 codes; jraw: sorted keys [tlen]
-  const int* codes[kMaxKeys];        // jraw: the sorted keys' int32 codes [tlen]
-  int tlen[kMaxKeys];
-  long long offset[kMaxKeys];        // rawoff: subtracted in the lane's width
-  int elem[kMaxKeys];
-  int stride[kMaxKeys];
-  int kind[kMaxKeys];
-  int width[kMaxKeys];               // MV: entries per row; else 1
-  int limit[kMaxKeys];               // MV: cardinality (padding ids >= it)
-  int mlen[kMaxKeys];
-};
-
 struct PartLanes {
   const int8_t* ptr[kMaxParts];
 };
@@ -136,66 +104,6 @@ struct ExtLanes {
 };
 
 __host__ __device__ __forceinline__ bool is_raw(int mode) { return mode == kRawMin || mode == kRawMax; }
-
-// v replaces the stored value when it is smaller (is_min) or larger, or is
-// a NaN; a stored NaN is never replaced. Works on shared or device memory.
-__device__ __forceinline__ void atomic_extreme(double* addr, double v, bool is_min) {
-  unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
-  unsigned long long old = *a;
-  while (true) {
-    const double cur = __longlong_as_double(old);
-    if (isnan(cur)) return;
-    if (!(isnan(v) || (is_min ? v < cur : v > cur))) return;
-    const unsigned long long seen = atomicCAS(a, old, __double_as_longlong(v));
-    if (seen == old) return;
-    old = seen;
-  }
-}
-
-__device__ __forceinline__ void atomic_extreme(int* addr, int v, bool is_min) {
-  if (is_min ? v < *addr : v > *addr) {
-    if (is_min) atomicMin(addr, v); else atomicMax(addr, v);
-  }
-}
-
-// int32 arithmetic that wraps as XLA's does (signed overflow is undefined
-// in C++, unsigned is not)
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int wrap_mul(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
-
-__host__ __device__ __forceinline__ bool is_mv(int kind) { return kind == kMvIds || kind == kMvIn; }
-
-// the single-value term of key c for one row (kinds ids, rawoff, jcode and
-// jraw)
-__device__ __forceinline__ int sv_term(const KeyLanes& k, int c, long long row) {
-  if (k.kind[c] == kJCode) {
-    const int id = pinot::read_id(k.ptr[c], k.elem[c], row);
-    return static_cast<const int*>(k.table[c])[min(max(id, 0), k.tlen[c] - 1)];
-  }
-  if (k.kind[c] == kJRaw) {
-    int pos;
-    if (k.elem[c] == pinot::kI64)
-      pos = pinot::probe_position(static_cast<const long long*>(k.table[c]), k.tlen[c],
-                                  static_cast<const long long*>(k.ptr[c])[row]);
-    else
-      pos = pinot::probe_position(static_cast<const int*>(k.table[c]), k.tlen[c],
-                                  static_cast<const int*>(k.ptr[c])[row]);
-    return k.codes[c][pos];
-  }
-  if (k.kind[c] == kRawOff) {
-    if (k.elem[c] == pinot::kI64)
-      return static_cast<int>(static_cast<const long long*>(k.ptr[c])[row] - k.offset[c]);
-    return static_cast<int>(
-        static_cast<unsigned>(static_cast<const int*>(k.ptr[c])[row]) -
-        static_cast<unsigned>(k.offset[c]));
-  }
-  return pinot::read_id(k.ptr[c], k.elem[c], row);
-}
 
 __global__ void dense_group_aggregate_kernel(
     const uint8_t* __restrict__ mask, KeyLanes keys_p, int n_keys, int n_mv,
@@ -292,10 +200,7 @@ __global__ void dense_group_aggregate_kernel(
     const int walk = n_walks == 1 ? 0 : static_cast<int>(item - row * n_walks);
     if (!mask[row]) continue;
     if (walk == 0) ++local;             // the doc counts once
-    int base = 0;                       // the single-value keys' part
-    for (int c = 0; c < n_keys; ++c)
-      if (!is_mv(keys.kind[c]))
-        base = wrap_add(base, wrap_mul(sv_term(keys, c, row), keys.stride[c]));
+    const int base = pinot::sv_key(keys, n_keys, row);   // the single-value keys' part
     if (n_mv == 0) {
       fold(row, base);
       continue;
@@ -304,19 +209,8 @@ __global__ void dense_group_aggregate_kernel(
     // this item walks combinations [walk * kWalkCombos, +kWalkCombos)
     const int t_end = min(w_total, (walk + 1) * kWalkCombos);
     for (int t = walk * kWalkCombos; t < t_end; ++t) {
-      int key = base, rem = t;
-      bool keep = true;
-      for (int c = 0; c < n_keys && keep; ++c) {
-        const int kind = keys.kind[c];
-        if (!is_mv(kind)) continue;
-        const int w = keys.width[c];
-        const int id = pinot::read_id(keys.ptr[c], keys.elem[c], row * w + rem % w);
-        rem /= w;
-        keep = id < keys.limit[c] &&
-               (kind != kMvIn || keys.member[c][min(max(id, 0), keys.mlen[c] - 1)]);
-        key = wrap_add(key, wrap_mul(id, keys.stride[c]));
-      }
-      if (keep) fold(row, key);
+      int key = base;
+      if (pinot::mv_key(keys, n_keys, row, t, &key)) fold(row, key);
     }
   }
 
@@ -365,41 +259,16 @@ extern "C" int pinot_dense_group_aggregate(
     const int* ext_inits, void* const* ext_outs, int n_ext,
     long long padded, int g_pad, int smem_slots, int psums_wide, void* count,
     void* psums, void* csums, void* matched, void* stream) {
-  if (n_keys < 1 || n_keys > kMaxKeys || n_parts < 0 || n_parts > kMaxParts ||
-      n_floats < 0 || n_floats > kMaxFloats || n_ext < 0 || n_ext > kMaxExt ||
-      g_pad < 1)
+  if (n_parts < 0 || n_parts > kMaxParts || n_floats < 0 || n_floats > kMaxFloats ||
+      n_ext < 0 || n_ext > kMaxExt || g_pad < 1)
     return -1;
-  KeyLanes keys{};
+  KeyLanes keys;
   int n_mv = 0;
   long long w_total = 1;
-  for (int c = 0; c < n_keys; ++c) {
-    const int kind = key_kinds[c];
-    if (kind < kIds || kind > kJRaw) return -1;
-    keys.ptr[c] = key_ptrs[c];
-    keys.elem[c] = key_elems[c];
-    keys.stride[c] = key_strides[c];
-    keys.kind[c] = kind;
-    keys.width[c] = key_widths[c];
-    keys.limit[c] = key_limits[c];
-    keys.offset[c] = key_offsets[c];
-    keys.member[c] = static_cast<const uint8_t*>(key_members[c]);
-    keys.mlen[c] = key_mlens[c];
-    keys.table[c] = key_tables[c];
-    keys.codes[c] = static_cast<const int*>(key_codes[c]);
-    keys.tlen[c] = key_tlens[c];
-    if ((kind == kJCode || kind == kJRaw) &&
-        (key_tables[c] == nullptr || key_tlens[c] < 1 ||
-         (kind == kJRaw && key_codes[c] == nullptr)))
-      return -1;
-    if (is_mv(kind)) {
-      if (key_widths[c] < 1 || (kind == kMvIn && (key_members[c] == nullptr ||
-                                                  key_mlens[c] < 1)))
-        return -1;
-      ++n_mv;
-      w_total *= key_widths[c];
-      if (127LL * w_total >= (1LL << 31)) return -1;   // one doc overflows
-    }
-  }
+  if (!pinot::fill_key_lanes(&keys, n_keys, key_ptrs, key_elems, key_strides, key_kinds,
+                             key_widths, key_limits, key_offsets, key_members, key_mlens,
+                             key_tables, key_codes, key_tlens, &n_mv, &w_total))
+    return -1;
   PartLanes parts{};
   for (int l = 0; l < n_parts; ++l)
     parts.ptr[l] = static_cast<const int8_t*>(part_ptrs[l]);

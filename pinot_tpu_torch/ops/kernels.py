@@ -12,7 +12,8 @@ short fixed sequence of kernels written by hand for Hopper
   count (replaces `_part_sums` and the masked count);
 - K3 `dense_group_aggregate`: mixed-radix group key → per-group count,
   int32 part sums, float64 sums and min / max (replaces `_group_key` kinds
-  "ids" and "rawoff", `_expand_mv_group` for kinds "mvids" / "mvin",
+  "ids", "rawoff", "jcode", "jraw", "idoff" and "idrank",
+  `_expand_mv_group` for kinds "mvids" / "mvin",
   `_dense_group_count`, `_dense_group_part_sums`,
   `_dense_group_float_sums`, `_dense_group_extreme` and the scatter
   fallback for count / sum / avg / min / max);
@@ -33,7 +34,18 @@ short fixed sequence of kernels written by hand for Hopper
   as `radix_sort_join` the sorts of a raw-key join's dim side in the
   `join_raw` and `jraw` kinds);
 - K13 `window_scan`: row numbers and running sums over the sorted
-  partition lane (replaces the rest of `build_window_kernel`).
+  partition lane (replaces the rest of `build_window_kernel`);
+- K14 `block_compact`: a filtered group-by's matched rows moved to r
+  slots a 2,048-row block, in row order, with their group key and metric
+  values (replaces `_block_compact` and the lane registry of
+  `_group_outputs_compacted`);
+- K15 `slot_tables`: count, part sums, float64 sums and min / max over
+  the slots, by key (dense) or by rank (ranked) (replaces
+  `_slot_sum_tables` and the compacted scatter min / max);
+- K16 `rank_slots`: the ranked layout's dedup of the slots' keys into
+  ranks and the rkeys lane (replaces the sort and rank of
+  `_group_outputs_compacted`); past RANK_BITMAP_G_LIMIT keys through K12
+  (`radix_sort_rank`).
 
 Every wrapper checks its operands, allocates its outputs, and launches on
 the current stream. Beside each kernel is its plain PyTorch version: the
@@ -81,12 +93,17 @@ where the JAX planner does and NotPorted where the port has no kernel):
                  ("csums",) over raw / ("csums", card_pad) over sv vlane |
                  min/max/minmaxrange with ("ids", card_pad) over sv ids, or
                  None over raw),
-           kmax=0); kind "ids" ({name}.ids), "rawoff" ({name}.raw minus
+           kmax); kind "ids" ({name}.ids), "rawoff" ({name}.raw minus
           off), "mvids" ({name}.mv entries), "mvin" (entries in a member
           table popped from the group params, in key order), "jcode"
           ({name}.ids through an int32 code table popped from the group
-          params) or "jraw" ({name}.raw probed in a SortedKeys with codes
-          popped from the group params)
+          params), "jraw" ({name}.raw probed in a SortedKeys with codes
+          popped from the group params), "idoff" ({name}.ids minus an
+          int32 offset popped from the group params) or "idrank"
+          ({name}.ids through an int32 rank vector popped from them).
+          kmax = 0: K3's dense table; kmax > 0: the compacted route
+          (K14, then K15 into dense tables, or K16 and K15 into ranked
+          ones; K3 for the sorted rung), with group.overflow
   select: (kind, k, order=((col, asc, card_pad, source), ...),
            gather=((col, source), ...)), kind ∈ {limit, order, ordertk,
            ordermk}, source "sv" ({col}.ids), "raw" ({col}.raw) or, for a
@@ -94,6 +111,7 @@ where the JAX planner does and NotPorted where the port has no kernel):
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import threading
@@ -104,8 +122,18 @@ import torch
 
 INT32_MAX = 2**31 - 1
 BLOCK = 8192                 # row block: padded segment lengths are multiples
+CBLOCK = 2048                # block_compact's row block (the JAX CBLOCK)
+DENSE_G_LIMIT = 32768        # compacted tables: dense at most, ranked above
 DENSE_ROWS_LIMIT = 1 << 24   # 127 * 2^24 < 2^31: int32 part sums stay exact
 DENSE_CARD_LIMIT = 32768     # the JAX planner's histogram cap for float SUM
+#: slots a compaction block keeps (r) above which the JAX kernel leaves
+#: block compaction for its sorted rung
+SORTED_RUNG_R = 256
+#: K16 ranks by a presence bitmap of g_pad bits a segment up to this many
+#: keys (a 512 KB bitmap: its one-block scan stays well under the slots'
+#: own work at the caps the planner makes), by K12's sort of the cap keys
+#: above it (numGroupsLimit raised past 4M potential groups)
+RANK_BITMAP_G_LIMIT = 1 << 22
 
 
 def pow2_bucket(n: int, floor: int = 8) -> int:
@@ -188,6 +216,20 @@ KERNELS: Dict[str, KernelInfo] = {
     "window_scan": KernelInfo(
         "window_scan", "pinot_tpu_torch/ops/csrc/sort_window.cu",
         "pinot_tpu/ops/kernels.py:1588"),
+    "block_compact": KernelInfo(
+        "block_compact", "pinot_tpu_torch/ops/csrc/group_compact.cu",
+        "pinot_tpu/ops/kernels.py:785"),
+    "slot_tables": KernelInfo(
+        "slot_tables", "pinot_tpu_torch/ops/csrc/group_compact.cu",
+        "pinot_tpu/ops/kernels.py:835"),
+    "rank_slots": KernelInfo(
+        "rank_slots", "pinot_tpu_torch/ops/csrc/group_compact.cu",
+        "pinot_tpu/ops/kernels.py:1122"),
+    # K12 as K16's sort route (the lax.sort of the compacted keys of the
+    # ranked layout), counted apart
+    "radix_sort_rank": KernelInfo(
+        "radix_sort_rank", "pinot_tpu_torch/ops/csrc/sort_window.cu",
+        "pinot_tpu/ops/kernels.py:1124", symbol="pinot_radix_sort"),
 }
 #: the batched forms: one launch serves up to MAX_BATCH members of one
 #: plan (the vmap of get_batched_segment_kernel), counted apart
@@ -207,12 +249,14 @@ _PP = ctypes.POINTER(_P)
 _IP = ctypes.POINTER(_I)
 _LLP = ctypes.POINTER(_LL)
 _F = ctypes.c_float
+#: the key lanes of K3 and K14 (_key_args, group_key.cuh:fill_key_lanes)
+_KEY_ARGTYPES = [_PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _PP, _PP,
+                 _IP, _I]
 _ARGTYPES = {
     "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _P],
     "masked_part_sums": [_P, _PP, _I, _LL, _LL, _P, _P],
     "dense_group_aggregate": [
-        _P, _PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _PP, _PP, _IP, _I,
-        _PP, _I, _PP, _I,
+        _P, *_KEY_ARGTYPES, _PP, _I, _PP, _I,
         _PP, _IP, _IP, _IP, _PP, _I,
         _LL, _I, _I, _I, _P, _P, _P, _P, _P],
     "masked_histogram": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
@@ -228,7 +272,15 @@ _ARGTYPES = {
     "radix_sort": [_PP, _IP, _I, _PP, _I, _LL, _LL, _PP, _PP, _P, _P, _P],
     "window_scan": [_P, _PP, _I, _LL, _P, _PP, _P],
 }
+_ARGTYPES.update({
+    "block_compact": [_P, *_KEY_ARGTYPES, _PP, _I, _PP, _IP, _I, _PP, _IP,
+                      _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "slot_tables": [_P, _LL, _LL, _LL, _PP, _I, _PP, _I, _PP, _IP, _IP, _PP,
+                    _I, _I, _I, _I, _P, _P, _P, _P],
+    "rank_slots": [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+})
 _ARGTYPES["radix_sort_join"] = _ARGTYPES["radix_sort"]
+_ARGTYPES["radix_sort_rank"] = _ARGTYPES["radix_sort"]
 _ARGTYPES["masked_select_vector"] = _ARGTYPES["masked_select"]
 _FP = ctypes.POINTER(_F)
 _ARGTYPES.update({
@@ -254,13 +306,27 @@ _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 #: K3's join group keys
 KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0)
 KERNELS["filter_mask_batched"].node_launches["vdoc"] = 0
-KERNELS["dense_group_aggregate"].node_launches.update(jcode=0, jraw=0)
+KERNELS["dense_group_aggregate"].node_launches.update(
+    jcode=0, jraw=0, idoff=0, idrank=0)
+KERNELS["block_compact"].node_launches.update(
+    jcode=0, jraw=0, idoff=0, idrank=0)
+KERNELS["rank_slots"].node_launches["sort"] = 0
+
+
+#: the group-by route of each dispatch (query/plan.py:
+#: drive_group_execution and _group_outputs): "scout" (phase A's min /
+#: max), "hist" (phase A2's histograms), "idoff" / "idrank" (phase B specs
+#: holding such a key), "dense_regime" (phase B with kmax = 0),
+#: "compacted" (K14 + K15 into dense tables), "ranked" (K14 + K16 + K15),
+#: "sorted" (the sorted rung, K3), "escalation" (a kmax rung climbed)
+group_route_counts: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
         k.node_launches = dict.fromkeys(k.node_launches, 0)
+    group_route_counts.clear()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -999,7 +1065,9 @@ def _ext_init(kind: str, which: str, card_pad: int):
 
 #: group key kinds shared with dense_group_aggregate.cu (KeyKind)
 _KEY_KINDS = {"ids": 0, "rawoff": 1, "mvids": 2, "mvin": 3, "jcode": 4,
-              "jraw": 5}
+              "jraw": 5, "idoff": 6, "idrank": 7}
+#: key kinds whose lane is a dictId lane [P]
+_ID_KEY_KINDS = ("ids", "jcode", "idoff", "idrank")
 _MV_KEY_KINDS = ("mvids", "mvin")
 #: one K3 thread walks at most this many MV entry combinations of a doc;
 #: a longer walk is split over several threads (dense_group_aggregate.cu)
@@ -1028,7 +1096,12 @@ class GroupKey:
       dim keys sorted ascending in the lane's dtype and `codes` their
       int32 group codes, as K12 sorted them (SortedKeys.on); `probe` is
       that SortedKeys, which the plain version sorts itself
-      (SortedKeys.plain)."""
+      (SortedKeys.plain);
+    - "idoff": a dictId lane [P]; the key is id - offset in int32 (the
+      adaptive offset remap, `offset` the scout's smallest matched id);
+    - "idrank": a dictId lane [P]; the key is table[id] (the adaptive
+      rank remap, `table` an int32 [card_pad] rank of each present id),
+      0 for an id outside [0, len)."""
     kind: str
     lane: torch.Tensor
     card: int = 0
@@ -1051,8 +1124,10 @@ def _check_key(key: GroupKey, c: int, padded: int, device) -> None:
     what = f"key lane {c} ({key.kind})"
     if key.kind not in _KEY_KINDS:
         raise ValueError(f"group key kind {key.kind}")
-    if key.kind in ("ids", "jcode"):
+    if key.kind in _ID_KEY_KINDS:
         _check_lane(key.lane, what, padded, device, _ID_DTYPES)
+        if key.kind == "idoff" and not -2**31 <= key.offset <= INT32_MAX:
+            raise ValueError(f"{what}: offset {key.offset} outside int32")
     elif key.kind == "jraw":
         _check_lane(key.lane, what, padded, device,
                     (torch.int32, torch.int64))
@@ -1075,9 +1150,9 @@ def _check_key(key: GroupKey, c: int, padded: int, device) -> None:
                 or not m.is_contiguous():
             raise ValueError(f"{what}: the member table must be a "
                              f"contiguous bool [card_pad] on {device}")
-    if key.kind in ("jcode", "jraw"):
+    if key.kind in ("jcode", "jraw", "idrank"):
         t = key.table
-        dtype = torch.int32 if key.kind == "jcode" else key.lane.dtype
+        dtype = key.lane.dtype if key.kind == "jraw" else torch.int32
         if t is None or t.device != device or t.dim() != 1 or \
                 not 1 <= t.shape[0] <= INT32_MAX or t.dtype != dtype or \
                 not t.is_contiguous():
@@ -1113,7 +1188,8 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
                           float_lanes: Sequence[torch.Tensor] = (),
                           extremes: Sequence[tuple] = (),
                           smem_slots: int = K3_SMEM_SLOTS,
-                          psums_wide: bool = False):
+                          psums_wide: bool = False,
+                          chunk_psums: bool = False):
     """Dense group table over key = clip(Σ term_c · stride_c, 0, g_pad-1).
 
     `key_lanes`: one GroupKey (or bare id lane) per group column. A doc
@@ -1131,7 +1207,9 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     of that many rows and the slices' tables add up, counts and part sums
     in int64. `psums_wide` (a stack of segments in one launch): psums are
     int64, folded exactly on the card, and only the int32 counts bound
-    the rows of a launch."""
+    the rows of a launch. `chunk_psums`: past one launch's rows the
+    slices' int32 part sums come back apart, [C, L, g_pad] (the compacted
+    group-by's cpsums chunks), not added."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
     keys = [_as_key(k) for k in key_lanes]
@@ -1164,7 +1242,8 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     step = k3_rows_per_launch(w_total, psums_wide)
     if padded > step:
         return _k3_slices(mask, keys, strides, g_pad, rows, float_lanes,
-                          extremes, smem_slots, step, psums_wide)
+                          extremes, smem_slots, step, psums_wide,
+                          chunk_psums)
     if device.type == "cpu":
         return dense_group_aggregate_plain(mask, keys, strides, g_pad,
                                            part_lanes, float_lanes,
@@ -1175,30 +1254,12 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     csums = torch.zeros(len(float_lanes), g_pad, dtype=torch.float64,
                         device=device)
     matched = torch.zeros((), dtype=torch.int32, device=device)
-    members = [k.member if k.kind == "mvin" else None for k in keys]
-    tables = [k.table if k.kind in ("jcode", "jraw") else None
-              for k in keys]
-    codes = [k.codes if k.kind == "jraw" else None for k in keys]
-
-    def ptrs_or_null(ts):
-        return (_P * len(ts))(*[None if t is None else t.data_ptr()
-                                for t in ts])
-
     ext_tables = [torch.full((g_pad,), _ext_init(kind, which, cp),
                              dtype=torch.int32 if kind == "ids"
                              else torch.float64, device=device)
                   for kind, _lane, which, cp in extremes]
     _launch("dense_group_aggregate", device, mask.data_ptr(),
-            _ptrs([k.lane for k in keys]),
-            _ints([_ELEM[k.lane.dtype] for k in keys]), _ints(strides),
-            _ints([_KEY_KINDS[k.kind] for k in keys]),
-            _ints([k.width for k in keys]), _ints([k.card for k in keys]),
-            _longs([k.offset for k in keys]),
-            ptrs_or_null(members),
-            _ints([0 if m is None else m.shape[0] for m in members]),
-            ptrs_or_null(tables), ptrs_or_null(codes),
-            _ints([0 if t is None else t.shape[0] for t in tables]),
-            len(keys), _ptrs(rows), len(rows),
+            *_key_args(keys, strides), _ptrs(rows), len(rows),
             _ptrs(float_lanes), len(float_lanes),
             _ptrs([e[1] for e in extremes]),
             _ints([_ELEM[e[1].dtype] for e in extremes]),
@@ -1208,16 +1269,44 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
             _ptrs(ext_tables), len(extremes), padded, int(g_pad),
             int(smem_slots), int(psums_wide), count.data_ptr(),
             psums.data_ptr(), csums.data_ptr(), matched.data_ptr())
-    nodes = KERNELS["dense_group_aggregate"].node_launches
-    for kind in {k.kind for k in keys} & {"jcode", "jraw"}:
-        nodes[kind] += 1
+    _count_key_nodes("dense_group_aggregate", keys)
     return count, psums, csums, matched, ext_tables
 
 
+def _ptrs_or_null(ts):
+    return (_P * len(ts))(*[None if t is None else t.data_ptr() for t in ts])
+
+
+def _key_args(keys: Sequence[GroupKey], strides: Sequence[int]) -> tuple:
+    """The key lanes as K3's and K14's C entry points take them
+    (group_key.cuh:fill_key_lanes), through n_keys."""
+    members = [k.member if k.kind == "mvin" else None for k in keys]
+    tables = [k.table if k.kind in ("jcode", "jraw", "idrank") else None
+              for k in keys]
+    codes = [k.codes if k.kind == "jraw" else None for k in keys]
+    return (_ptrs([k.lane for k in keys]),
+            _ints([_ELEM[k.lane.dtype] for k in keys]), _ints(strides),
+            _ints([_KEY_KINDS[k.kind] for k in keys]),
+            _ints([k.width for k in keys]), _ints([k.card for k in keys]),
+            _longs([k.offset for k in keys]), _ptrs_or_null(members),
+            _ints([0 if m is None else m.shape[0] for m in members]),
+            _ptrs_or_null(tables), _ptrs_or_null(codes),
+            _ints([0 if t is None else t.shape[0] for t in tables]),
+            len(keys))
+
+
+def _count_key_nodes(name: str, keys: Sequence[GroupKey]) -> None:
+    """One more launch of `name` for each counted key kind it holds."""
+    nodes = KERNELS[name].node_launches
+    for kind in {k.kind for k in keys} & set(nodes):
+        nodes[kind] += 1
+
+
 def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
-               smem_slots, step, psums_wide=False):
+               smem_slots, step, psums_wide=False, chunk_psums=False):
     """K3 over row slices of `step` rows, the slices' tables added
-    (counts and part sums in int64, min / max tables by min / max)."""
+    (counts and part sums in int64, min / max tables by min / max), or
+    with `chunk_psums` the part sums stacked [C, L, g_pad]."""
     outs = []
     for s in range(0, mask.shape[0], step):
         e = s + step
@@ -1230,7 +1319,8 @@ def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
              for kind, lane, which, cp in extremes], smem_slots,
             psums_wide))
     count = sum(o[0].to(torch.int64) for o in outs)
-    psums = sum(o[1].to(torch.int64) for o in outs)
+    psums = torch.stack([o[1] for o in outs]) if chunk_psums else \
+        sum(o[1].to(torch.int64) for o in outs)
     csums = sum(o[2] for o in outs)
     matched = sum(o[3] for o in outs)
     tables = []
@@ -1244,12 +1334,13 @@ def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
 
 
 def group_keys_plain(mask: torch.Tensor, key_lanes: Sequence,
-                     strides: Sequence[int], g_pad: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     strides: Sequence[int], g_pad: int,
+                     with_index: bool = False) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch of K3's key walk, as `_expand_mv_group` and
     `_group_key` compute it: (row index, clipped int32 key) of every
     matched (doc, MV entry combination) that survives, first MV key
-    fastest."""
+    fastest, in row order; `with_index` adds each one's index in the
+    expanded row space (doc * W_total + combination)."""
     keys = [_as_key(k) for k in key_lanes]
     device = mask.device
     w_total = group_combos(keys)
@@ -1280,11 +1371,24 @@ def group_keys_plain(mask: torch.Tensor, key_lanes: Sequence,
             pos = torch.searchsorted(table, k.lane[docs]).clamp_max(
                 table.shape[0] - 1)
             ids = codes[pos][:, None]
+        elif k.kind == "idoff":
+            ids = (k.lane[docs].to(torch.int64) - k.offset).to(
+                torch.int32)[:, None]
+        elif k.kind == "idrank":
+            ids = k.lane[docs].to(torch.int64)
+            inside = (ids >= 0) & (ids < k.table.shape[0])
+            ids = torch.where(inside, k.table[ids.clamp(
+                0, k.table.shape[0] - 1)], 0)[:, None]
         else:
             ids = k.lane[docs].to(torch.int32)[:, None]
         key += ids * int(np.int32(s))
     rows = docs[:, None].expand(n, w_total)[keep]
-    return rows, key.clamp(0, g_pad - 1)[keep].long()
+    key = key.clamp(0, g_pad - 1)[keep].long()
+    if with_index:
+        combo = torch.arange(w_total, device=device)[None].expand(
+            n, w_total)[keep]
+        return rows, key, rows * w_total + combo
+    return rows, key
 
 
 def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
@@ -1314,6 +1418,293 @@ def dense_group_aggregate_plain(mask, key_lanes, strides, g_pad: int,
                           "amin" if which == "min" else "amax")
         tables.append(t)
     return count, psums, csums, mask.bool().sum(dtype=torch.int32), tables
+
+
+# ---------------------------------------------------------------------------
+# K14 block_compact, K15 slot_tables, K16 rank_slots (group_compact.cu)
+# ---------------------------------------------------------------------------
+
+_MAX_COMPACT_LANES = 16          # group_compact.cu: parts, values, ids
+
+
+def _check_compact_lanes(part_lanes, value_lanes, id_lanes, padded: int,
+                         device) -> List[torch.Tensor]:
+    rows = _part_rows(part_lanes)
+    for k, r in enumerate(rows):
+        _check_lane(r, f"part lane {k}", padded, device, (torch.int8,))
+    for j, v in enumerate(value_lanes):
+        _check_lane(v, f"value lane {j}", padded, device, _RAW_DTYPES)
+    for i, v in enumerate(id_lanes):
+        _check_lane(v, f"id lane {i}", padded, device, _ID_DTYPES)
+    if max(len(rows), len(value_lanes), len(id_lanes)) > _MAX_COMPACT_LANES:
+        raise ValueError(f"{len(rows)} part / {len(value_lanes)} value / "
+                         f"{len(id_lanes)} id lanes over the kernel's limit "
+                         f"of {_MAX_COMPACT_LANES} each")
+    return rows
+
+
+def block_compact(mask: torch.Tensor, key_lanes: Sequence,
+                  strides: Sequence[int], g_pad: int, r: int,
+                  part_lanes: Sequence[torch.Tensor] = (),
+                  value_lanes: Sequence[torch.Tensor] = (),
+                  id_lanes: Sequence[torch.Tensor] = ()):
+    """K14: the matched rows (MV keys: _expand_mv_group's P * W_total
+    expanded rows, walked and never written) in blocks of CBLOCK, each
+    block's first r matched rows in row order moved to its r slots.
+
+    Returns (keys int32 [cap], the clipped group key of each slot and
+    g_pad for an unused one; parts int8 [L, cap]; values float64 [V,
+    cap]; ids int32 [I, cap]; overflow int32 (1 when a block matched more
+    than r rows); matched int32, the docs matched, each once), cap =
+    P * W_total / CBLOCK * r, unused slots zero. A [S * P] stack's blocks
+    never straddle two segments (P is a multiple of BLOCK), so segment s
+    owns slots [s * cap / S, (s + 1) * cap / S)."""
+    padded, device = mask.shape[0], mask.device
+    _check_mask(mask)
+    keys = [_as_key(k) for k in key_lanes]
+    if not 1 <= len(keys) <= _MAX_KEYS or len(strides) != len(keys):
+        raise ValueError(f"{len(keys)} key lanes / {len(strides)} strides")
+    for c, key in enumerate(keys):
+        _check_key(key, c, padded, device)
+    rows = _check_compact_lanes(part_lanes, value_lanes, id_lanes, padded,
+                                device)
+    w_total = group_combos(keys)
+    n_rows = padded * w_total
+    if n_rows % CBLOCK or not 1 <= r <= CBLOCK or not 1 <= g_pad <= \
+            INT32_MAX or w_total > MAX_DOC_COMBOS:
+        raise ValueError(f"{n_rows} rows, r {r}, g_pad {g_pad}, "
+                         f"{w_total} combinations a doc")
+    if device.type == "cpu":
+        return block_compact_plain(mask, keys, strides, g_pad, r,
+                                   part_lanes, value_lanes, id_lanes)
+    cap = n_rows // CBLOCK * r
+    keys_out = torch.empty(cap, dtype=torch.int32, device=device)
+    parts = torch.empty(len(rows), cap, dtype=torch.int8, device=device)
+    vals = torch.empty(len(value_lanes), cap, dtype=torch.float64,
+                       device=device)
+    ids = torch.empty(len(id_lanes), cap, dtype=torch.int32, device=device)
+    flags = torch.zeros(2, dtype=torch.int32, device=device)
+    _launch("block_compact", device, mask.data_ptr(),
+            *_key_args(keys, strides), _ptrs(rows), len(rows),
+            _ptrs(value_lanes), _ints([_ELEM[v.dtype] for v in value_lanes]),
+            len(value_lanes), _ptrs(id_lanes),
+            _ints([_ELEM[v.dtype] for v in id_lanes]), len(id_lanes),
+            n_rows, int(g_pad), int(r), keys_out.data_ptr(),
+            parts.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            flags[0].data_ptr(), flags[1].data_ptr())
+    _count_key_nodes("block_compact", keys)
+    return keys_out, parts, vals, ids, flags[0], flags[1]
+
+
+def block_compact_plain(mask, key_lanes, strides, g_pad: int, r: int,
+                        part_lanes=(), value_lanes=(), id_lanes=()):
+    """Plain PyTorch K14: the key walk (group_keys_plain, in expanded row
+    order), each survivor's rank in its block from a bincount and a
+    cumsum, then the slots written by index."""
+    device = mask.device
+    keys = [_as_key(k) for k in key_lanes]
+    n_blocks = mask.shape[0] * group_combos(keys) // CBLOCK
+    cap = n_blocks * r
+    rows, key, e = group_keys_plain(mask, keys, strides, g_pad,
+                                    with_index=True)
+    block = e // CBLOCK
+    counts = torch.bincount(block, minlength=n_blocks)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(e.shape[0], device=device) - starts[block]
+    take = rank < r
+    slot, rows = block[take] * r + rank[take], rows[take]
+    keys_out = torch.full((cap,), g_pad, dtype=torch.int32, device=device)
+    keys_out[slot] = key[take].to(torch.int32)
+    prows = _part_rows(part_lanes)
+    parts = torch.zeros(len(prows), cap, dtype=torch.int8, device=device)
+    vals = torch.zeros(len(value_lanes), cap, dtype=torch.float64,
+                       device=device)
+    ids = torch.zeros(len(id_lanes), cap, dtype=torch.int32, device=device)
+    for k, p in enumerate(prows):
+        parts[k, slot] = p[rows]
+    for j, v in enumerate(value_lanes):
+        vals[j, slot] = v[rows].to(torch.float64)
+    for i, v in enumerate(id_lanes):
+        ids[i, slot] = v[rows].to(torch.int32)
+    return (keys_out, parts, vals, ids,
+            (counts > r).any().to(torch.int32),
+            mask.bool().sum(dtype=torch.int32))
+
+
+def _psums_chunks(cap: int, chunk_slots: int) -> int:
+    return -(-cap // chunk_slots)
+
+
+def slot_tables(gslot: torch.Tensor, t_slots: int, cap: int,
+                parts: torch.Tensor, sums: torch.Tensor,
+                extremes: Sequence[tuple] = (),
+                chunk_slots: Optional[int] = None, psums_wide: bool = False,
+                smem_slots: int = K3_SMEM_SLOTS):
+    """K15: tables over compacted slots. `gslot` int32 [n] addresses a
+    table slot (gslot >= t_slots drops it); `cap` is a segment's slots
+    (n a multiple of it); `parts` int8 [L, n] and `sums` float64 [J, n]
+    are K14's compacted lanes; `extremes`: ((kind, lane, which, init),
+    ...), kind "ids" (an int32 [n] lane, an int32 table starting at
+    `init`) or "raw" (a float64 [n] lane, a float64 table starting at
+    ±inf), which ∈ {"min", "max"}.
+
+    Returns (count int32 [t_slots], psums, csums float64 [J, t_slots],
+    [one table per extreme]): psums int32 [C, L, t_slots], one table per
+    `chunk_slots` (DENSE_ROWS_LIMIT) slots of each segment's cap, so that
+    each stays exact, or with `psums_wide` (a stack's dense table) int64
+    [L, t_slots]."""
+    n, device = gslot.shape[0], gslot.device
+    chunk_slots = DENSE_ROWS_LIMIT if chunk_slots is None else chunk_slots
+    _check_lane(gslot, "gslot", n, device, (torch.int32,))
+    if parts.shape[1:] != (n,) or sums.shape[1:] != (n,) or \
+            parts.dtype != torch.int8 or sums.dtype != torch.float64 or \
+            parts.device != device or sums.device != device:
+        raise ValueError(f"parts {tuple(parts.shape)} {parts.dtype} / sums "
+                         f"{tuple(sums.shape)} {sums.dtype} do not match "
+                         f"{n} int8 / float64 slots on {device}")
+    for e, (kind, lane, which, _init) in enumerate(extremes):
+        if (kind, which) not in _EXT_MODES:
+            raise ValueError(f"extreme {e}: ({kind}, {which})")
+        _check_lane(lane, f"extreme lane {e}", n, device,
+                    (torch.int32,) if kind == "ids" else (torch.float64,))
+    if max(parts.shape[0], sums.shape[0], len(extremes)) > \
+            _MAX_COMPACT_LANES or not 1 <= t_slots <= INT32_MAX or \
+            cap < 1 or n % cap or chunk_slots < 1:
+        raise ValueError(f"{parts.shape[0]} part / {sums.shape[0]} sum / "
+                         f"{len(extremes)} extreme lanes, t_slots {t_slots}, "
+                         f"cap {cap} of {n} slots")
+    if device.type == "cpu":
+        return slot_tables_plain(gslot, t_slots, cap, parts, sums, extremes,
+                                 chunk_slots, psums_wide)
+    n_parts = parts.shape[0]
+    count = torch.zeros(t_slots, dtype=torch.int32, device=device)
+    psums = torch.zeros((n_parts, t_slots) if psums_wide else
+                        (_psums_chunks(cap, chunk_slots), n_parts, t_slots),
+                        dtype=torch.int64 if psums_wide else torch.int32,
+                        device=device)
+    csums = torch.zeros(sums.shape[0], t_slots, dtype=torch.float64,
+                        device=device)
+    tables = [torch.full((t_slots,), init if kind == "ids" else
+                         _ext_init(kind, which, 0),
+                         dtype=torch.int32 if kind == "ids"
+                         else torch.float64, device=device)
+              for kind, _lane, which, init in extremes]
+    _launch("slot_tables", device, gslot.data_ptr(), n, int(cap),
+            int(chunk_slots), _ptrs(list(parts)), n_parts, _ptrs(list(sums)),
+            sums.shape[0], _ptrs([e[1] for e in extremes]),
+            _ints([_EXT_MODES[(e[0], e[2])] for e in extremes]),
+            _ints([e[3] if e[0] == "ids" else 0 for e in extremes]),
+            _ptrs(tables), len(extremes), int(t_slots), int(smem_slots),
+            int(psums_wide), count.data_ptr(), psums.data_ptr(),
+            csums.data_ptr())
+    return count, psums, csums, tables
+
+
+def slot_tables_plain(gslot, t_slots: int, cap: int, parts, sums,
+                      extremes=(), chunk_slots: Optional[int] = None,
+                      psums_wide: bool = False):
+    """Plain PyTorch K15: index_add_ and scatter_reduce_ over the valid
+    slots."""
+    device = gslot.device
+    chunk_slots = DENSE_ROWS_LIMIT if chunk_slots is None else chunk_slots
+    idx = torch.nonzero((gslot >= 0) & (gslot < t_slots)).reshape(-1)
+    g = gslot[idx].long()
+    count = torch.zeros(t_slots, dtype=torch.int32, device=device)
+    count.index_add_(0, g, torch.ones_like(g, dtype=torch.int32))
+    n_parts = parts.shape[0]
+    if psums_wide:
+        psums = torch.zeros(n_parts, t_slots, dtype=torch.int64,
+                            device=device)
+        for l in range(n_parts):
+            psums[l].index_add_(0, g, parts[l, idx].to(torch.int64))
+    else:
+        psums = torch.zeros(_psums_chunks(cap, chunk_slots), n_parts,
+                            t_slots, dtype=torch.int32, device=device)
+        chunk = (idx % cap) // chunk_slots
+        flat = psums.view(-1)
+        for l in range(n_parts):
+            flat.index_add_(0, (chunk * n_parts + l) * t_slots + g,
+                            parts[l, idx].to(torch.int32))
+    csums = torch.zeros(sums.shape[0], t_slots, dtype=torch.float64,
+                        device=device)
+    for j in range(sums.shape[0]):
+        csums[j].index_add_(0, g, sums[j, idx])
+    tables = []
+    for kind, lane, which, init in extremes:
+        t = torch.full((t_slots,), init if kind == "ids" else
+                       _ext_init(kind, which, 0),
+                       dtype=torch.int32 if kind == "ids" else torch.float64,
+                       device=device)
+        t.scatter_reduce_(0, g, lane[idx], "amin" if which == "min"
+                          else "amax")
+        tables.append(t)
+    return count, psums, csums, tables
+
+
+def rank_slots(kc: torch.Tensor, cap: int, g_pad: int,
+               route: Optional[str] = None):
+    """K16: the ranked layout's dedup over K14's keys (int32 [n], g_pad
+    where a slot is unused; n = S * cap, segment s owning slots [s * cap,
+    (s + 1) * cap)): (gslot int32 [n], s * cap + the rank of the slot's
+    key among its segment's distinct keys ascending, n for an unused
+    slot; rkeys int32 [S, cap], the distinct keys ascending, then g_pad;
+    n_distinct int32 [S]).
+
+    `route`: "bitmap" (a presence bitmap of g_pad bits a segment, scanned)
+    up to RANK_BITMAP_G_LIMIT keys, "sort" (K12 sorts each segment's keys,
+    counted as radix_sort_rank, then the new keys are numbered) above it,
+    where a bitmap of g_pad bits would outgrow the slots; None picks by
+    g_pad. A launch counts once under rank_slots, and under
+    rank_slots[sort] on the sort route."""
+    n, device = kc.shape[0], kc.device
+    _check_lane(kc, "keys", n, device, (torch.int32,))
+    if cap < 1 or n % cap or not 1 <= g_pad <= INT32_MAX - 1:
+        raise ValueError(f"{n} keys, cap {cap}, g_pad {g_pad}")
+    route = route or ("bitmap" if g_pad <= RANK_BITMAP_G_LIMIT else "sort")
+    if route not in ("bitmap", "sort"):
+        raise ValueError(f"rank route {route}")
+    if device.type == "cpu":
+        return rank_slots_plain(kc, cap, g_pad)
+    segs = n // cap
+    gslot = torch.empty(n, dtype=torch.int32, device=device)
+    rkeys = torch.empty(segs, cap, dtype=torch.int32, device=device)
+    n_distinct = torch.empty(segs, dtype=torch.int32, device=device)
+    bitmap = prefix = sk = perm = None
+    if route == "bitmap":
+        words = -(-g_pad // 32)
+        bitmap = torch.zeros(segs * words, dtype=torch.int32, device=device)
+        prefix = torch.empty(segs * words, dtype=torch.int32, device=device)
+    else:
+        lanes = [kc] if segs == 1 else [
+            torch.arange(segs, dtype=torch.int32, device=device
+                         ).repeat_interleave(cap), kc]
+        perm, sorted_keys, _ = radix_sort(lanes, counter="radix_sort_rank")
+        sk = sorted_keys[-1]
+    _launch("rank_slots", device, kc.data_ptr(), n, int(cap), int(g_pad),
+            *[None if t is None else t.data_ptr()
+              for t in (bitmap, prefix, sk, perm)],
+            gslot.data_ptr(), rkeys.data_ptr(), n_distinct.data_ptr())
+    if sk is not None:
+        KERNELS["rank_slots"].node_launches["sort"] += 1
+    return gslot, rkeys, n_distinct
+
+
+def rank_slots_plain(kc, cap: int, g_pad: int):
+    """Plain PyTorch K16: torch.unique per segment."""
+    n, device = kc.shape[0], kc.device
+    segs = n // cap
+    gslot = torch.full((n,), n, dtype=torch.int32, device=device)
+    rkeys = torch.full((segs, cap), g_pad, dtype=torch.int32, device=device)
+    n_distinct = torch.zeros(segs, dtype=torch.int32, device=device)
+    for s in range(segs):
+        k = kc[s * cap:(s + 1) * cap]
+        valid = (k >= 0) & (k < g_pad)
+        uniq, inverse = torch.unique(k[valid], return_inverse=True)
+        gslot[s * cap:(s + 1) * cap][valid] = (s * cap + inverse).to(
+            torch.int32)
+        rkeys[s, :uniq.shape[0]] = uniq
+        n_distinct[s] = uniq.shape[0]
+    return gslot, rkeys, n_distinct
 
 
 # ---------------------------------------------------------------------------
@@ -2551,7 +2942,8 @@ def run_stacked_kernel(padded: int, n_segs: int, filter_spec, agg_specs,
     rest = list(group_params)
     outs: Dict[str, torch.Tensor] = {}
     if group_spec is not None:
-        outs = _group_outputs(mask, group_spec, flat, rest, psums_wide=True)
+        outs = _group_outputs(mask, group_spec, flat, rest, n_segs,
+                              seg_matched)
     elif agg_specs or select_spec is None:
         outs = _agg_outputs(mask, agg_specs, flat, seg_rows=padded)
     if rest:
@@ -2647,14 +3039,24 @@ def _run_batch_chunk(padded, filter_spec, agg_specs, select_spec, cols,
 
 
 def spec_group_key(gcol, cols, params: List, device) -> GroupKey:
-    """The K3 key of one group column of a spec; "mvin" pops its member
-    table from `params`, "jcode" its code table, "jraw" its SortedKeys
-    with codes (sorted on the lane's device by K12 once)."""
+    """The K3 / K14 key of one group column of a spec, its runtime
+    operands popped from `params` in key order: "mvin" its member table,
+    "jcode" its code table, "jraw" its SortedKeys with codes (sorted on
+    the lane's device by K12 once), "idoff" its int32 offset and "idrank"
+    its int32 [card_pad] rank vector (the adaptive remaps' operands, which
+    the executor appends as the JAX one does)."""
     c, gkind, off, card = gcol
     if gkind == "ids":
         return GroupKey("ids", cols[f"{c}.ids"])
-    if gkind in ("jcode", "jraw") and not params:
-        raise ValueError(f"no join table for {gkind} key {c}")
+    if gkind in ("jcode", "jraw", "idoff", "idrank") and not params:
+        raise ValueError(f"no runtime operand for {gkind} key {c}")
+    if gkind == "idoff":
+        return GroupKey("idoff", cols[f"{c}.ids"],
+                        offset=int(np.int32(params.pop(0))))
+    if gkind == "idrank":
+        rank = torch.as_tensor(np.ascontiguousarray(
+            params.pop(0), dtype=np.int32)).to(device)
+        return GroupKey("idrank", cols[f"{c}.ids"], table=rank)
     if gkind == "jcode":
         table = torch.as_tensor(np.ascontiguousarray(
             params.pop(0), dtype=np.int32)).to(device)
@@ -2678,14 +3080,20 @@ def spec_group_key(gcol, cols, params: List, device) -> GroupKey:
     raise ValueError(f"group key kind {gkind}")
 
 
-def _group_outputs(mask, group_spec, cols, params: List,
-                   psums_wide: bool = False) -> Dict[str, torch.Tensor]:
-    gcols, strides, g_pad, gaggs, kmax = group_spec
-    if kmax:
-        raise ValueError("compacted group specs (kmax > 0) are a TPU "
-                         "strategy this port does not take")
-    keys = [spec_group_key(g, cols, params, mask.device) for g in gcols]
-    parts, slots, floats, fslots, extremes, eslots = [], {}, [], {}, [], {}
+@dataclasses.dataclass
+class _GroupLanes:
+    """The lanes a group spec's aggregations read, and where each
+    aggregation's output comes from."""
+    parts: List[torch.Tensor]            # part lanes [n_parts, P]
+    slots: Dict[int, Tuple[int, int]]    # agg i -> (first part row, n)
+    floats: List[torch.Tensor]           # sum lanes [P] (any raw dtype)
+    fslots: Dict[int, int]               # agg i -> float lane
+    extremes: List[tuple]                # (kind, lane, which, card_pad)
+    eslots: Dict[Tuple[int, str], int]   # (agg i, which) -> extreme
+
+
+def _group_lanes(gaggs, cols) -> _GroupLanes:
+    lanes = _GroupLanes([], {}, [], {}, [], {})
     for i, spec in enumerate(gaggs):
         fname, col, source, extra = spec
         strategy = _strategy(spec)
@@ -2693,32 +3101,192 @@ def _group_outputs(mask, group_spec, cols, params: List,
             continue
         if fname in ("sum", "avg") and strategy == "psums":
             pl = cols[f"{col}.parts"]
-            slots[i] = (sum(p.shape[0] for p in parts), pl.shape[0])
-            parts.append(pl)
-        elif fname in ("sum", "avg") and strategy == "csums":
-            lane = cols[f"{col}.vlane" if source == "sv" else f"{col}.raw"]
-            fslots[i] = len(floats)
-            floats.append(lane.to(sum_dtype()))
+            lanes.slots[i] = (sum(p.shape[0] for p in lanes.parts),
+                              pl.shape[0])
+            lanes.parts.append(pl)
+        elif fname in ("sum", "avg") and strategy in ("csums", "vlane") or \
+                fname in ("sum", "avg") and source == "raw" and extra is None:
+            lanes.fslots[i] = len(lanes.floats)
+            lanes.floats.append(cols[f"{col}.vlane" if source == "sv"
+                                     else f"{col}.raw"])
         elif _extremes_of(fname) and (
                 (source == "sv" and strategy == "ids") or
                 (source == "raw" and extra is None)):
             kind = "ids" if source == "sv" else "raw"
             card_pad = extra[1] if kind == "ids" else 0
             for which in _extremes_of(fname):
-                eslots[(i, which)] = len(extremes)
-                extremes.append((kind, cols[f"{col}.{kind}"], which,
-                                 card_pad))
+                lanes.eslots[(i, which)] = len(lanes.extremes)
+                lanes.extremes.append((kind, cols[f"{col}.{kind}"], which,
+                                       card_pad))
         else:
             raise ValueError(f"group aggregation spec {spec}")
+    return lanes
+
+
+def _group_outputs(mask, group_spec, cols, params: List,
+                   n_segs: Optional[int] = None,
+                   seg_matched: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The group-by outputs of one segment, or of a stack of `n_segs`
+    segments (`seg_matched`: K1's matches per segment), under the JAX
+    names. kmax = 0: K3's dense table (group.count, gagg{i}.psums / csums
+    / min / max; over a stack int64 part sums). kmax > 0: the compacted
+    route of pinot_tpu/ops/kernels.py:_group_outputs_compacted."""
+    gcols, strides, g_pad, gaggs, kmax = group_spec
+    keys = [spec_group_key(g, cols, params, mask.device) for g in gcols]
+    lanes = _group_lanes(gaggs, cols)
+    if kmax:
+        return _group_outputs_compacted(mask, keys, strides, g_pad, kmax,
+                                        lanes, n_segs, seg_matched)
     count, psums, csums, matched, tables = dense_group_aggregate(
-        mask, keys, strides, g_pad, parts, floats, extremes,
-        psums_wide=psums_wide)
+        mask, keys, strides, g_pad, lanes.parts,
+        [f.to(sum_dtype()) for f in lanes.floats], lanes.extremes,
+        psums_wide=n_segs is not None)
     outs = {"stats.num_docs_matched": matched, "group.count": count}
-    for i, (s0, n_p) in slots.items():
+    for i, (s0, n_p) in lanes.slots.items():
         outs[f"gagg{i}.psums"] = psums[s0:s0 + n_p]
-    for i, j in fslots.items():
+    for i, j in lanes.fslots.items():
         outs[f"gagg{i}.csums"] = csums[j]
-    for (i, which), e in eslots.items():
+    for (i, which), e in lanes.eslots.items():
+        outs[f"gagg{i}.{which}"] = tables[e]
+    return outs
+
+
+def _group_outputs_compacted(mask, keys, strides, g_pad: int, kmax: int,
+                             lanes: _GroupLanes, n_segs: Optional[int],
+                             seg_matched: Optional[torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+    """pinot_tpu/ops/kernels.py:_group_outputs_compacted (:1042) on the
+    card. A segment's (expanded, for MV keys) rows fall into t blocks of
+    CBLOCK; each keeps r = min(max(ceil(kmax / t), 8), CBLOCK) slots. Up
+    to SORTED_RUNG_R slots: K14 compacts the matched rows, then K15 folds
+    the slots into dense tables addressed by key (g_pad <= DENSE_G_LIMIT)
+    or, after K16 ranks the keys, into tables addressed by rank beside
+    group.rkeys (the ranked layout). Past it, the JAX kernel's sorted rung
+    (_group_outputs_compacted_sorted, :960): its tables, when it does not
+    overflow, are the dense direct-keyed tables over every matched row,
+    so K3 computes them over the mask, and group.overflow is matched >
+    kmax from the match count; when it overflows the escalation ladder
+    discards them. Outputs per segment as JAX's; over a stack, dense
+    tables combined (part sums in int64), ranked ones [S, ...] with each
+    segment's own ranks, group.overflow over the whole stack."""
+    segs = n_segs or 1
+    w_total = group_combos(keys)
+    rows = mask.shape[0] // segs * w_total         # a segment's rows
+    kmax = min(kmax * w_total, rows)               # _expand_mv_group's kmax2
+    t = rows // CBLOCK
+    r = min(max(-(-kmax // t), 8), CBLOCK)
+    if r > SORTED_RUNG_R:
+        return _group_outputs_sorted(mask, keys, strides, g_pad, kmax, lanes,
+                                     n_segs, seg_matched)
+    ids_lanes = [e[1] for e in lanes.extremes if e[0] == "ids"]
+    value_lanes = lanes.floats + [e[1] for e in lanes.extremes
+                                  if e[0] == "raw"]
+    kc, parts, vals, ids, overflow, matched = block_compact(
+        mask, keys, strides, g_pad, r, lanes.parts, value_lanes, ids_lanes)
+    cap = t * r
+    extremes, n_id, n_raw = [], 0, len(lanes.floats)
+    for kind, _lane, which, card_pad in lanes.extremes:
+        if kind == "ids":
+            extremes.append(("ids", ids[n_id], which,
+                             _ext_init("ids", which, card_pad)))
+            n_id += 1
+        else:
+            extremes.append(("raw", vals[n_raw], which, 0))
+            n_raw += 1
+    ranked = g_pad > DENSE_G_LIMIT
+    outs = {"stats.num_docs_matched": matched, "group.overflow": overflow}
+    if ranked:
+        gslot, rkeys, _n = rank_slots(kc, cap, g_pad)
+        t_slots = segs * cap
+        group_route_counts["ranked"] += 1
+    else:
+        gslot, t_slots = kc, g_pad
+        group_route_counts["compacted"] += 1
+    count, psums, csums, tables = slot_tables(
+        gslot, t_slots, cap, parts, vals[:len(lanes.floats)], extremes,
+        psums_wide=n_segs is not None and not ranked)
+
+    def per_segment(x):              # [..., S * cap] -> [S, ..., cap]
+        if not ranked or n_segs is None:
+            return x
+        return x.reshape(x.shape[:-1] + (segs, cap)).movedim(-2, 0)
+
+    if psums.dim() == 3:
+        psums = per_segment(psums)
+        if psums.shape[-3] == 1:                  # one chunk: [.., L, t]
+            psums = psums.squeeze(-3)
+    else:
+        psums = per_segment(psums)
+    prefix = "r" if ranked else ""
+    if ranked:
+        outs["group.rkeys"] = rkeys if n_segs is not None else rkeys[0]
+        outs["group.rcount"] = per_segment(count)
+    else:
+        outs["group.count"] = count
+    for i, (s0, n_p) in lanes.slots.items():
+        outs[f"gagg{i}.{prefix or 'c'}psums"] = psums[..., s0:s0 + n_p, :]
+    for i, j in lanes.fslots.items():
+        outs[f"gagg{i}.{prefix}sum"] = per_segment(csums[j])
+    for (i, which), e in lanes.eslots.items():
+        outs[f"gagg{i}.{prefix}{which}"] = per_segment(tables[e])
+    return outs
+
+
+def _group_outputs_sorted(mask, keys, strides, g_pad: int, kmax: int,
+                          lanes: _GroupLanes, n_segs: Optional[int],
+                          seg_matched: Optional[torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """The sorted rung (r > SORTED_RUNG_R) by K3 over the mask: the
+    matched rows (or MV entry combinations) of a segment, the JAX
+    kernel's `matched`, decide group.overflow against kmax; a stack with
+    MV keys runs K3 once a segment to count them. Part sums come as
+    gagg{i}.cpsums, int32 [L, g_pad], or int32 [C, L, g_pad] where K3
+    runs on C row slices to stay exact (JAX chunks its sorted rows past
+    DENSE_ROWS_LIMIT instead: other chunk bounds, the same sum), and
+    int64 [L, g_pad] over a stack; float sums as gagg{i}.sum."""
+    group_route_counts["sorted"] += 1
+    floats = [f.to(sum_dtype()) for f in lanes.floats]
+    w_total = group_combos(keys)
+    segs = n_segs or 1
+    if n_segs is not None and w_total > 1:
+        p = mask.shape[0] // segs
+        per = [dense_group_aggregate(
+            mask[s * p:(s + 1) * p],
+            [dataclasses.replace(k, lane=k.lane[s * p:(s + 1) * p])
+             for k in keys], strides, g_pad,
+            [pl[:, s * p:(s + 1) * p] for pl in lanes.parts],
+            [f[s * p:(s + 1) * p] for f in floats],
+            [(kind, lane[s * p:(s + 1) * p], which, cp)
+             for kind, lane, which, cp in lanes.extremes])
+            for s in range(segs)]
+        combos = torch.stack([o[0].sum(dtype=torch.int64) for o in per])
+        count = sum(o[0].to(torch.int64) for o in per)
+        psums = sum(o[1].to(torch.int64) for o in per)
+        csums = sum(o[2] for o in per)
+        matched = sum(o[3] for o in per)
+        tables = []
+        for e, (_kind, _lane, which, _cp) in enumerate(lanes.extremes):
+            t = per[0][4][e]
+            for o in per[1:]:
+                t = (torch.minimum if which == "min" else torch.maximum)(
+                    t, o[4][e])
+            tables.append(t)
+    else:
+        count, psums, csums, matched, tables = dense_group_aggregate(
+            mask, keys, strides, g_pad, lanes.parts, floats, lanes.extremes,
+            psums_wide=n_segs is not None, chunk_psums=n_segs is None)
+        if w_total > 1:
+            combos = count.sum(dtype=torch.int64)
+        else:
+            combos = matched if seg_matched is None else seg_matched
+    outs = {"stats.num_docs_matched": matched, "group.count": count,
+            "group.overflow": (combos > kmax).any().to(torch.int32)}
+    for i, (s0, n_p) in lanes.slots.items():
+        outs[f"gagg{i}.cpsums"] = psums[..., s0:s0 + n_p, :]
+    for i, j in lanes.fslots.items():
+        outs[f"gagg{i}.sum"] = csums[j]
+    for (i, which), e in lanes.eslots.items():
         outs[f"gagg{i}.{which}"] = tables[e]
     return outs
 

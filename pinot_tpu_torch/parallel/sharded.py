@@ -73,7 +73,8 @@ from pinot_tpu_torch.query.blocks import ExecutionStats, \
     IntermediateResultsBlock
 from pinot_tpu_torch.common.request import VECTOR_RESULT_COLUMNS
 from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
-    InstancePlanMaker, SegmentPlan, preprocess_request, upsert_mask_active, \
+    InstancePlanMaker, SegmentPlan, drive_group_execution, \
+    preprocess_request, set_group_kmax, upsert_mask_active, \
     with_valid_doc_mask
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.loader import (ImmutableSegment,
@@ -568,16 +569,30 @@ class ShardedQueryExecutor:
                     (VALID_DOC_COLUMN, "vdoc"),)
 
         cols = stack.gather(plan.needed_cols)
-        dev_outs = kernels.run_stacked_kernel(
-            stack.padded_docs, stack.n_real, plan.filter_spec,
-            plan.agg_specs, plan.group_spec, plan.select_spec, cols,
-            tuple(plan.params), stack.device_num_docs(), plan.group_params)
+        total_docs = int(stack.num_docs.sum())
+
+        def run(agg_specs, group_spec, extra_params=()):
+            return execution.pull_group_outputs(kernels.run_stacked_kernel(
+                stack.padded_docs, stack.n_real, plan.filter_spec,
+                agg_specs, group_spec, plan.select_spec, cols,
+                tuple(plan.params), stack.device_num_docs(),
+                tuple(plan.group_params) + tuple(extra_params)
+                if group_spec is not None else ()))
+
         blk = IntermediateResultsBlock()
         if plan.group_spec is not None:
-            outs = execution.pull(execution._nonempty_groups(dev_outs))
-            execution._finish_group_by(plan, outs, blk)
+            # the JAX stack's driver (sharded.py:701-712): the scouts
+            # combine over the stack, kmax is per segment, sized from the
+            # matches over all the stack's docs
+            outs, spec_used = drive_group_execution(
+                run, set_group_kmax(plan.group_spec, stack.padded_docs),
+                stack.padded_docs, total_docs)
+            execution.finish_group_outputs(plan, spec_used, outs, blk)
         else:
-            outs = execution.pull(dev_outs)
+            outs = execution.pull(kernels.run_stacked_kernel(
+                stack.padded_docs, stack.n_real, plan.filter_spec,
+                plan.agg_specs, None, plan.select_spec, cols,
+                tuple(plan.params), stack.device_num_docs()))
             if plan.agg_specs:
                 execution._finish_aggregation(plan, outs, blk)
         matched = int(outs["stats.num_docs_matched"])
@@ -586,7 +601,6 @@ class ShardedQueryExecutor:
 
         n_leaves = execution._count_filter_leaves(plan.filter_spec)
         n_project = len({c for c, _ in plan.needed_cols})
-        total_docs = int(stack.num_docs.sum())
         seg_matched = np.asarray(outs["stats.seg_matched"])
         blk.stats = ExecutionStats(
             num_docs_scanned=matched,

@@ -15,6 +15,7 @@ for up to 8 of them, and one pull.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict, List, Tuple
 
@@ -114,18 +115,27 @@ def _execute_segment_plan(plan) -> IntermediateResultsBlock:
     segment = plan.segment
     t0 = time.perf_counter()
     cols = gather_operands(plan)
-    dev_outs = kernels.run_segment_kernel(
-        segment.padded_docs, plan.filter_spec, plan.agg_specs,
-        plan.group_spec, plan.select_spec, cols, tuple(plan.params),
-        segment.num_docs, segment.device, plan.group_params)
-
     blk = IntermediateResultsBlock()
     if plan.group_spec is not None:
-        outs = pull(_nonempty_groups(dev_outs))
-        _finish_group_by(plan, outs, blk)
+        from pinot_tpu_torch.query.plan import drive_group_execution
+
+        def run(agg_specs, group_spec, extra_params=()):
+            return pull_group_outputs(kernels.run_segment_kernel(
+                segment.padded_docs, plan.filter_spec, agg_specs,
+                group_spec, plan.select_spec, cols, tuple(plan.params),
+                segment.num_docs, segment.device,
+                tuple(plan.group_params) + tuple(extra_params)
+                if group_spec is not None else ()))
+
+        outs, spec_used = drive_group_execution(
+            run, plan.group_spec, segment.padded_docs, segment.num_docs)
+        finish_group_outputs(plan, spec_used, outs, blk)
         matched = int(outs["stats.num_docs_matched"])
     else:
-        outs = pull(dev_outs)
+        outs = pull(kernels.run_segment_kernel(
+            segment.padded_docs, plan.filter_spec, plan.agg_specs, None,
+            plan.select_spec, cols, tuple(plan.params), segment.num_docs,
+            segment.device))
         matched = _finish_block(plan, outs, blk)
     blk.stats = _segment_stats(plan, matched,
                                (time.perf_counter() - t0) * 1e3)
@@ -194,7 +204,7 @@ def _nonempty_groups(outs: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """Select the groups with count > 0 on the device: `group.nz` holds
     their keys, every per-group output keeps only those slots; the stats
-    outputs pass as they are."""
+    outputs and the overflow flag pass as they are."""
     count = outs["group.count"]
     nz = torch.nonzero(count).reshape(-1)
     sel: Dict[str, torch.Tensor] = {
@@ -203,9 +213,51 @@ def _nonempty_groups(outs: Dict[str, torch.Tensor]
     for name, t in outs.items():
         if name.startswith("gagg"):
             sel[name] = t[..., nz]
-        elif name.startswith("stats."):
+        elif name.startswith("stats.") or name == "group.overflow":
             sel[name] = t
     return sel
+
+
+def _ranked_groups(outs: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The ranked layout's [.., cap] tables cut to the most distinct keys
+    any segment holds: ranks past a segment's own count hold nothing."""
+    n = int((outs["group.rcount"] > 0).sum(-1).max())
+    return {name: t[..., :n] if name.startswith(("gagg", "group.r"))
+            else t for name, t in outs.items()}
+
+
+def pull_group_outputs(outs: Dict[str, torch.Tensor]
+                       ) -> Dict[str, np.ndarray]:
+    """A group-by dispatch's outputs on the host: dense tables cut to
+    their non-empty groups on the device, ranked ones to their used
+    ranks; a scout's (no group tables) as they are."""
+    if "group.rkeys" in outs:
+        return pull(_ranked_groups(outs))
+    if "group.count" in outs:
+        return pull(_nonempty_groups(outs))
+    return pull(outs)
+
+
+def finish_group_outputs(plan, spec_used, outs, blk) -> None:
+    """blk.group_map from drive_group_execution's result: empty when the
+    scout matched nothing (spec_used None), else finished under the spec
+    the tables were made with (its remaps decode the keys)."""
+    if spec_used is None:
+        blk.group_map = {}
+        return
+    _finish_group_by(_with_group_spec(plan, spec_used), outs, blk)
+
+
+def _with_group_spec(plan, spec_used):
+    """The plan to finish with: a copy holding the spec the tables were
+    made with (an adaptive remap's), so that the cached plan is never
+    changed."""
+    if spec_used is plan.group_spec:
+        return plan
+    p = copy.copy(plan)
+    p.group_spec = spec_used
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -360,12 +412,20 @@ def _decode_group_values(plan, nz: np.ndarray) -> List[np.ndarray]:
     merge in _assemble_group_map), a join's jcode / jraw keys through the
     dim value table (their codes are its indices already,
     pinot_tpu/query/execution.py:329-333), rawoff keys as id + min, the
-    others through the dictionary."""
+    others through the dictionary; the adaptive remaps first map back
+    to dictIds (idoff: + the offset, idrank: the present id of the rank),
+    as pinot_tpu/query/execution.py:308-345 does."""
     gcols, strides, _g_pad, _specs, _kmax = plan.group_spec
     vtables = plan.group_value_tables or (None,) * len(gcols)
     value_cols = []
     for (c, gkind, off, card), stride, tv in zip(gcols, strides, vtables):
         ids = (nz // stride) % card
+        if gkind == "idoff":
+            ids = ids + off              # re-base the offset remap
+        elif gkind == "idrank":
+            # `off` holds the present ids; only non-empty groups reach
+            # here, so every rank is one of them
+            ids = np.asarray(off)[ids]
         if tv is not None:
             value_cols.append(tv[ids])
         elif gkind == "rawoff":
@@ -429,7 +489,13 @@ def _assemble_group_map(plan, blk, value_cols, per_agg_arrays,
 
 def _finish_group_by(plan, outs, blk) -> None:
     """`outs` holds the non-empty groups only (_nonempty_groups): their
-    keys in `group.nz`, their counts and sums in the JAX output names."""
+    keys in `group.nz`, their counts and sums in the JAX output names
+    (K3's psums / csums, the compacted tables' cpsums, [C, L, nz] chunks
+    added here in int64, and sum); a ranked layout's go to
+    _finish_group_by_ranked."""
+    if "group.rkeys" in outs:
+        _finish_group_by_ranked(plan, outs, blk)
+        return
     gcols, strides, g_pad, agg_specs, kmax = plan.group_spec
     nz = outs["group.nz"]
     counts = outs["group.count"]
@@ -438,9 +504,14 @@ def _finish_group_by(plan, outs, blk) -> None:
     def _sum_array(i, spec):
         """Exact f64 per-group sums from the device partials."""
         fname, col, source, extra = spec
-        if extra[0] == "csums":
+        if f"gagg{i}.csums" in outs:
             return np.asarray(outs[f"gagg{i}.csums"], dtype=np.float64)
-        arr = np.asarray(outs[f"gagg{i}.psums"]).astype(np.int64)
+        if f"gagg{i}.sum" in outs:
+            return np.asarray(outs[f"gagg{i}.sum"], dtype=np.float64)
+        arr = np.asarray(outs[f"gagg{i}.psums"] if f"gagg{i}.psums" in outs
+                         else outs[f"gagg{i}.cpsums"]).astype(np.int64)
+        if arr.ndim == 3:                  # [C, L, nz] chunks
+            arr = arr.sum(axis=0)
         _, min_v = plan.segment.data_source(col).int_part_info()
         shifts = np.left_shift(np.int64(1),
                                7 * np.arange(arr.shape[0], dtype=np.int64))
@@ -462,6 +533,83 @@ def _finish_group_by(plan, outs, blk) -> None:
             per_agg_arrays.append(("sum", _sum_array(i, spec), None))
         elif fname == "avg":
             per_agg_arrays.append(("avg", _sum_array(i, spec), counts))
+        elif fname in ("min", "max"):
+            per_agg_arrays.append((fname, _extreme_array(i, spec, fname),
+                                   None))
+        elif fname == "minmaxrange":
+            per_agg_arrays.append(("minmaxrange",
+                                   _extreme_array(i, spec, "min"),
+                                   _extreme_array(i, spec, "max")))
+        else:
+            raise ValueError(fname)
+
+    _assemble_group_map(plan, blk, value_cols, per_agg_arrays, len(nz))
+
+
+def _finish_group_by_ranked(plan, outs, blk) -> None:
+    """The ranked layout (pinot_tpu/query/execution.py:
+    _finish_group_by_ranked): tables addressed by each segment's group
+    ranks beside group.rkeys ([K], or [S, K] over a stack); every
+    segment's valid (key, partial) entries merge by key here, columnar
+    (np.unique, np.add.at, minimum.at / maximum.at)."""
+    gcols, strides, g_pad, agg_specs, kmax = plan.group_spec
+    rkeys = np.asarray(outs["group.rkeys"])
+    rcount = np.asarray(outs["group.rcount"])
+    single = rkeys.ndim == 1
+    if single:                               # one segment: [S=1, K]
+        rkeys, rcount = rkeys[None], rcount[None]
+    valid = rkeys < g_pad                    # [S, K]
+    nz, inverse = np.unique(rkeys[valid], return_inverse=True)
+    counts_nz = np.zeros(len(nz), np.int64)
+    np.add.at(counts_nz, inverse, rcount[valid].astype(np.int64))
+    value_cols = _decode_group_values(plan, nz)
+
+    def _sum_array(i, spec):
+        fname, col, source, extra = spec
+        if f"gagg{i}.rpsums" in outs:
+            a = np.asarray(outs[f"gagg{i}.rpsums"]).astype(np.int64)
+            if single:                       # [L, K] or [C, L, K]
+                a = (a.sum(axis=0) if a.ndim == 3 else a)[None]
+            elif a.ndim == 4:                # [S, C, L, K]
+                a = a.sum(axis=1)
+            vals = np.moveaxis(a, 1, 2)[valid]          # [M, L]
+            sums = np.zeros((len(nz), vals.shape[1]), np.int64)
+            np.add.at(sums, inverse, vals)
+            _, min_v = plan.segment.data_source(col).int_part_info()
+            shifts = np.left_shift(
+                np.int64(1), 7 * np.arange(sums.shape[1], dtype=np.int64))
+            totals = (sums * shifts[None, :]).sum(1)
+            return (totals + np.int64(min_v) * counts_nz).astype(np.float64)
+        a = np.asarray(outs[f"gagg{i}.rsum"], dtype=np.float64)
+        if a.ndim == 1:
+            a = a[None]
+        sums = np.zeros(len(nz), np.float64)
+        np.add.at(sums, inverse, a[valid])
+        return sums
+
+    def _extreme_array(i, spec, which):
+        a = np.asarray(outs[f"gagg{i}.r{which}"])
+        if a.ndim == 1:
+            a = a[None]
+        red = np.minimum if which == "min" else np.maximum
+        if a.dtype.kind in "iu":             # dictId domain
+            sentinel = spec[3][1] if which == "min" else -1
+            out = np.full(len(nz), sentinel, np.int64)
+            red.at(out, inverse, a[valid].astype(np.int64))
+            return _decode_extreme_ids(plan, spec, out, which)
+        out = np.full(len(nz), np.inf if which == "min" else -np.inf)
+        red.at(out, inverse, a[valid].astype(np.float64))
+        return out
+
+    per_agg_arrays = []
+    for i, spec in enumerate(agg_specs):
+        fname = spec[0]
+        if fname == "count":
+            per_agg_arrays.append(("count", counts_nz, None))
+        elif fname == "sum":
+            per_agg_arrays.append(("sum", _sum_array(i, spec), None))
+        elif fname == "avg":
+            per_agg_arrays.append(("avg", _sum_array(i, spec), counts_nz))
         elif fname in ("min", "max"):
             per_agg_arrays.append((fname, _extreme_array(i, spec, fname),
                                    None))

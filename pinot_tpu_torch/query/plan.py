@@ -37,13 +37,22 @@ on the host twin (query/host_exec.py), as the JAX executor does.
 NotPorted is raised for a request with neither aggregations nor a
 selection; nothing catches it.
 
-Design change from the JAX planner, on purpose: it picks TPU-shaped
-strategies (matrix-unit block compaction, adaptive min/max and histogram
-scouts, the kmax escalation ladder) because scatter is slow on the TPU.
-On Hopper, atomics into device memory are the natural primitive, so this
-planner always emits the dense direct-keyed group spec (kmax = 0), with
-`psums` for integer dictionaries and `csums` for raw / float columns, at
-any g_pad up to the groups limit. The spec tuples keep the JAX grammar.
+Group-by strategy, as the JAX planner's: with `allow_group_compaction`
+(the default) a filtered group-by plans kmax = initial_group_kmax(padded)
+and the executor drives it through drive_group_execution: a min / max
+scout of each dictionary key (K1 + K5), where it pays a histogram scout
+(K4) for the rank remap, then the remapped ("idoff" / "idrank") spec over
+K14 block_compact and K15 slot_tables (K16 rank_slots for the ranked
+layout past DENSE_G_LIMIT, K3 for the sorted rung), up the kmax ladder
+while a block overflows; keys the scout cannot narrow (raw, MV, join)
+go to the compacted kernels and the ladder straight away.
+`allow_group_compaction=False`, and every unfiltered group-by, plan
+kmax = 0: K3's dense direct-keyed table. The port's aggregation
+strategies in a group spec are the JAX planner's under compaction
+(`psums` for integer dictionaries, `csums` for raw and float columns)
+whatever the spec: K3 takes them at any g_pad up to the groups limit,
+where the JAX planner's uncompacted route falls back to its scatter
+strategy ("vals") past its dense limits.
 """
 from __future__ import annotations
 
@@ -521,8 +530,10 @@ def preprocess_request(segments, request):
 class InstancePlanMaker:
     """Builds a SegmentPlan per segment for a BrokerRequest."""
 
-    def __init__(self, num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT):
+    def __init__(self, num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT,
+                 allow_group_compaction: bool = True):
         self.num_groups_limit = num_groups_limit
+        self.allow_group_compaction = allow_group_compaction
         # vector plans per segment since construction: "ivfProbe" (an
         # indexed segment probed) or "ivfExactFallback" (nprobe asked of
         # a segment without an index: an exact scan), the JAX planner's
@@ -667,7 +678,8 @@ class InstancePlanMaker:
     def _plan_group_by(self, plan: SegmentPlan, segment: ImmutableSegment,
                        request: BrokerRequest, needed: Dict) -> None:
         """The JAX planner's group spec (pinot_tpu/query/plan.py:
-        _plan_group_by) with kmax = 0: key kinds "ids", "mvids", "mvin"
+        _plan_group_by), kmax > 0 for a filtered one under compaction:
+        key kinds "ids", "mvids", "mvin"
         (its member table in plan.group_params), "rawoff", and a join's
         dim-qualified keys, "jcode" (its code table in plan.group_params)
         or "jraw" (its SortedKeys with codes there); expression and join
@@ -778,10 +790,16 @@ class InstancePlanMaker:
                 f"{g} potential groups > limit {limit}")
         strides = mixed_radix_strides(cards)
         g_pad = kernels.pow2_bucket(g)
+        # compaction for filtered group-bys: start at ~0.8% of the
+        # segment; the executor escalates on the overflow flag
+        kmax = 0
+        if self.allow_group_compaction and plan.filter_spec is not None \
+                and plan.filter_spec != MATCH_ALL:
+            kmax = initial_group_kmax(segment.padded_docs)
         agg_specs = tuple(
             _agg_device_spec(f, segment, needed, for_group=True)
             for f in plan.functions)
-        plan.group_spec = (tuple(gcols), strides, g_pad, agg_specs, 0)
+        plan.group_spec = (tuple(gcols), strides, g_pad, agg_specs, kmax)
 
     def _plan_vector(self, plan: SegmentPlan, segment: ImmutableSegment,
                      request: BrokerRequest, needed: Dict) -> None:
@@ -957,6 +975,218 @@ def mixed_radix_strides(cards) -> tuple:
     return tuple(reversed(strides))
 
 
+# ---------------------------------------------------------------------------
+# The adaptive compacted group-by (pinot_tpu/query/plan.py:990-1274)
+# ---------------------------------------------------------------------------
+
+#: the hist scout and rank remap run only when every group column's
+#: card_pad fits this (the JAX default of PINOT_TPU_RANK_HIST_CARD)
+RANK_HIST_CARD_LIMIT = 512
+#: within the dense regime the hist rung fires only when every column's
+#: card_pad is at most this ... (PINOT_TPU_DENSE_RANK_HIST_CARD)
+DENSE_RANK_HIST_CARD = 128
+#: ... and the span key space exceeds this (PINOT_TPU_DENSE_RANK_HIST_G)
+DENSE_RANK_HIST_G = 2048
+
+
+def initial_group_kmax(padded: int) -> int:
+    """The first rung: ~0.8% of the segment (r = 64 slots a 8192-row
+    block), at least 1024 rows."""
+    return min(kernels.pow2_bucket(max(padded // 128, 1024)), padded)
+
+
+def set_group_kmax(group_spec: tuple, padded: int) -> tuple:
+    """kmax re-derived for another padded size (a plan made against one
+    segment, run over lanes of another)."""
+    gcols, strides, g_pad, agg_specs, kmax = group_spec
+    if not kmax:
+        return group_spec
+    return (gcols, strides, g_pad, agg_specs, initial_group_kmax(padded))
+
+
+def escalate_group_kmax(group_spec: tuple, padded: int):
+    """The next rung of the kmax ladder (x4, pow2), None at full size."""
+    gcols, strides, g_pad, agg_specs, kmax = group_spec
+    if not kmax or kmax >= padded:
+        return None
+    nk = min(kernels.pow2_bucket(kmax * 4), padded)
+    return (gcols, strides, g_pad, agg_specs, nk)
+
+
+def run_with_group_escalation(run, group_spec, padded: int):
+    """run(group_spec) -> host outs; runs again one rung up while the
+    compacted kernels report group.overflow. Returns (outs, final spec)."""
+    outs = run(group_spec)
+    while group_spec is not None and int(outs.get("group.overflow", 0)) > 0:
+        group_spec = escalate_group_kmax(group_spec, padded)
+        if group_spec is None:
+            raise RuntimeError("group.overflow at full kmax")
+        kernels.group_route_counts["escalation"] += 1
+        outs = run(group_spec)
+    return outs, group_spec
+
+
+def adaptive_phase_a_specs(group_spec) -> Optional[tuple]:
+    """Phase A's scout: masked MIN and MAX of each group column's dictIds
+    (K5), or None when the plan is not eligible (kmax = 0, or a key that
+    is not a dictionary column's ids)."""
+    if group_spec is None or not group_spec[4]:
+        return None
+    specs = []
+    for (c, gkind, _off, card) in group_spec[0]:
+        if gkind != "ids":
+            return None
+        card_pad = kernels.pow2_bucket(card + 1)
+        specs.append(("min", c, "sv", ("ids", card_pad)))
+        specs.append(("max", c, "sv", ("ids", card_pad)))
+    return tuple(specs)
+
+
+def adaptive_hist_specs(group_spec, bounds) -> Optional[tuple]:
+    """Phase A2's conditional scout: matched-id histograms (K4), from
+    which the host takes each column's present ids for the rank remap.
+    It runs to escape the ranked layout (the span key space past
+    DENSE_G_LIMIT, every card_pad within RANK_HIST_CARD_LIMIT), or to
+    shrink a dense span space past DENSE_RANK_HIST_G whose columns all
+    have card_pad <= DENSE_RANK_HIST_CARD; else None."""
+    spans, cards = [], []
+    for (c, _gkind, _off, card), (lo, hi) in zip(group_spec[0], bounds):
+        card_pad = kernels.pow2_bucket(card + 1)
+        if card_pad > RANK_HIST_CARD_LIMIT:
+            return None
+        cards.append(card_pad)
+        spans.append(kernels.pow2_bucket(max(hi - lo + 1, 1), floor=1))
+    g_span = int(np.prod(spans, dtype=np.int64))
+    if kernels.pow2_bucket(g_span) <= kernels.DENSE_G_LIMIT:
+        if g_span <= DENSE_RANK_HIST_G or \
+                any(cp > DENSE_RANK_HIST_CARD for cp in cards):
+            return None
+    return tuple(("hist", c, "sv",
+                  ("hist", kernels.pow2_bucket(card + 1)))
+                 for (c, _gkind, _off, card) in group_spec[0])
+
+
+def _adaptive_kmax(matched: int, padded: int, total_docs: int,
+                   g_pad: int) -> int:
+    """kmax from the scout's selectivity: r = pow2(2 mu + 8), mu the mean
+    matched rows of a CBLOCK-row block; 0 (K3's dense table) for a barely
+    selective filter (r > 128) whose table is dense anyway."""
+    t = max(padded // kernels.CBLOCK, 1)
+    mu = matched * kernels.CBLOCK / max(total_docs, 1)
+    r = kernels.pow2_bucket(max(16, int(2 * mu + 8)))
+    if r > 128 and g_pad <= kernels.DENSE_G_LIMIT:
+        return 0
+    return min(t * r, padded)
+
+
+def adaptive_phase_b_spec(group_spec, scout, matched: int, padded: int,
+                          total_docs: int):
+    """Phase B's spec from the scout: per column ("bounds", lo, hi), the
+    matched id range (the offset remap), or ("present", ids), the matched
+    id set (the rank remap, taken where the present counts bucket below
+    the spans). Returns (kernel spec, finish spec, extra params, empty):
+    the kernel spec's remap columns carry placeholders (their offsets and
+    rank vectors ride as the extra params), the finish spec the offsets
+    and present ids the host decodes with."""
+    gcols, _strides, _g_pad, agg_specs, _kmax = group_spec
+    dims = []                    # (span, n_rank | None, payload)
+    for c, dim in zip(gcols, scout):
+        if dim[0] == "present":
+            present = dim[1]
+            if len(present) == 0:
+                return None, None, (), True
+            span = kernels.pow2_bucket(
+                int(present[-1]) - int(present[0]) + 1, floor=1)
+            n = kernels.pow2_bucket(len(present), floor=1)
+            dims.append((span, n if n < span else None, present))
+        else:
+            lo, hi = dim[1], dim[2]
+            if hi < lo:
+                return None, None, (), True
+            span = kernels.pow2_bucket(hi - lo + 1, floor=1)
+            dims.append((span, None, (lo, hi)))
+    g_span = int(np.prod([d[0] for d in dims], dtype=np.int64))
+    g_rank = int(np.prod([d[1] if d[1] is not None else d[0]
+                          for d in dims], dtype=np.int64))
+    use_rank = kernels.pow2_bucket(g_rank) < kernels.pow2_bucket(g_span)
+    kernel_gcols, finish_gcols, spans, extra = [], [], [], []
+    for c, (span, n, payload) in zip(gcols, dims):
+        card_pad = kernels.pow2_bucket(c[3] + 1)
+        if use_rank and n is not None:
+            present = payload
+            rank = np.zeros(card_pad, np.int32)
+            rank[present] = np.arange(len(present), dtype=np.int32)
+            kernel_gcols.append((c[0], "idrank", 0, n))
+            finish_gcols.append((c[0], "idrank", present, n))
+            spans.append(n)
+            extra.append(rank)
+            continue
+        if isinstance(payload, tuple):
+            lo, hi = payload
+        else:                        # a present set, contiguous enough
+            lo, hi = int(payload[0]), int(payload[-1])
+        kernel_gcols.append((c[0], "idoff", 0, span))
+        finish_gcols.append((c[0], "idoff", lo, span))
+        spans.append(span)
+        extra.append(np.int32(lo))
+    strides = mixed_radix_strides(spans)
+    g_pad = kernels.pow2_bucket(int(np.prod(spans, dtype=np.int64)))
+    kmax = _adaptive_kmax(matched, padded, total_docs, g_pad)
+    kernel_spec = (tuple(kernel_gcols), strides, g_pad, agg_specs, kmax)
+    finish_spec = (tuple(finish_gcols), strides, g_pad, agg_specs, kmax)
+    return kernel_spec, finish_spec, tuple(extra), False
+
+
+def drive_group_execution(run, group_spec, padded: int, total_docs: int):
+    """The execution policy of device group-bys
+    (pinot_tpu/query/plan.py:drive_group_execution).
+
+    `run(agg_specs, group_spec, extra_params)` launches the plan's kernels
+    (extra_params after the plan's own runtime operands) and returns the
+    HOST outputs (one device-to-host pull a dispatch). A filtered group-by
+    over dictionary keys takes the adaptive path: phase A, the min / max
+    scout and the match count; phase A2, matched-id histograms where
+    adaptive_hist_specs judges them worth it; phase B, the group tables
+    over the remapped key space with kmax from the scout's selectivity,
+    up the kmax ladder on overflow. Other plans run their spec up the
+    ladder (kmax = 0 runs once). Returns (outs, spec to finish with);
+    None for the spec when the filter matched nothing (outs then holds
+    phase A's stats)."""
+    counts = kernels.group_route_counts
+    pa = adaptive_phase_a_specs(group_spec) \
+        if padded <= kernels.DENSE_ROWS_LIMIT else None
+    if pa is not None:
+        counts["scout"] += 1
+        ha = run(pa, None, ())
+        bounds = [(int(ha[f"agg{2 * i}.min"]), int(ha[f"agg{2 * i + 1}.max"]))
+                  for i in range(len(pa) // 2)]
+        matched = int(ha["stats.num_docs_matched"])
+        scout = [("bounds", lo, hi) for lo, hi in bounds]
+        if matched > 0:
+            ph = adaptive_hist_specs(group_spec, bounds)
+            if ph is not None:
+                counts["hist"] += 1
+                hh = run(ph, None, ())
+                scout = [("present",
+                          np.nonzero(np.asarray(hh[f"agg{i}"])[: c[3]])[0])
+                         for i, c in enumerate(group_spec[0])]
+        kspec, fspec, extra, empty = adaptive_phase_b_spec(
+            group_spec, scout, matched, padded, total_docs)
+        if empty:
+            return ha, None
+        for kind in {g[1] for g in kspec[0]}:
+            counts[kind] += 1
+        if not kspec[4]:
+            counts["dense_regime"] += 1
+        outs, final = run_with_group_escalation(
+            lambda gs: run((), gs, extra), kspec, padded)
+        if final is not kspec:            # the ladder escalated kmax
+            fspec = fspec[:4] + (final[4],)
+        return outs, fspec
+    return run_with_group_escalation(lambda gs: run((), gs, ()),
+                                     group_spec, padded)
+
+
 #: aggregation base → the JAX planner's device function name
 _DEVICE_FNAMES = {
     "COUNT": "count", "SUM": "sum", "MIN": "min", "MAX": "max",
@@ -970,9 +1200,9 @@ _DEVICE_FNAMES = {
 def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
                      needed: Dict, for_group: bool = False) -> tuple:
     """The JAX planner's device strategy for one aggregation
-    (pinot_tpu/query/plan.py:_agg_device_spec), with the dense group
-    table always taken (kmax = 0), and its refusals (UnsupportedOnDevice)
-    in the same order."""
+    (pinot_tpu/query/plan.py:_agg_device_spec), in a group spec the one
+    it takes under compaction (compact=True) at any size, and its
+    refusals (UnsupportedOnDevice) in the same order."""
     base = f.info.base
     if base == "COUNT" and not f.info.is_mv:
         return ("count", "*", "none", None)

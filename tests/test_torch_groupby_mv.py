@@ -10,8 +10,8 @@ histograms and COUNTMV equal; float64 group sums within rtol 1e-12 (both
 sides add in float64, in different orders). The planner test loads one
 segment written by the JAX SegmentCreator into both packages and
 compares the group spec, aggregation specs, params (the valuein member
-tables), value tables and refusals on the same requests, with the JAX
-planner's group compaction off (the port always takes the dense table).
+tables), value tables and refusals on the same requests, with both
+planners' group compaction off and on (kmax equal either way).
 """
 from __future__ import annotations
 
@@ -262,13 +262,14 @@ def segments(tmp_path_factory):
     return JaxLoader.load(d), ImmutableSegmentLoader.load(d, device="cpu")
 
 
-def _plans(segments, pql):
+def _plans(segments, pql, compact=False):
     jseg, tseg = segments
     jreq = JaxOptimizer().optimize(jax_compile(pql))
     treq = BrokerRequestOptimizer().optimize(compile_pql(pql))
-    jplan = jax_plan.InstancePlanMaker(allow_group_compaction=False) \
+    jplan = jax_plan.InstancePlanMaker(allow_group_compaction=compact) \
         .make_segment_plan(jseg, jreq)
-    return jplan, port_plan.InstancePlanMaker().make_segment_plan(tseg, treq)
+    return jplan, port_plan.InstancePlanMaker(
+        allow_group_compaction=compact).make_segment_plan(tseg, treq)
 
 
 def _same_params(a, b):
@@ -277,9 +278,10 @@ def _same_params(a, b):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
+@pytest.mark.parametrize("compact", [False, True])
 @pytest.mark.parametrize("name", sorted(PLANNED))
-def test_planner_specs_match_jax(segments, name):
-    jplan, tplan = _plans(segments, PLANNED[name])
+def test_planner_specs_match_jax(segments, name, compact):
+    jplan, tplan = _plans(segments, PLANNED[name], compact)
     assert tplan.fast_path_result is None
     assert tplan.filter_spec == jplan.filter_spec
     assert tplan.agg_specs == jplan.agg_specs

@@ -93,6 +93,21 @@ def test_sources_import_no_jax_and_no_pinot_tpu():
     assert offenders == []
 
 
+def test_every_kernel_source_is_built():
+    """Each registered kernel's source (group_compact.cu's K14-K16 among
+    them) is one build.SOURCES compiles, and every shared header is in
+    the hash that keys the build."""
+    from pinot_tpu_torch.ops import build
+    from pinot_tpu_torch.ops import kernels as K
+    built = {os.path.join("pinot_tpu_torch", "ops", "csrc", s)
+             for s in build.SOURCES}
+    assert {k.source for k in K.KERNELS.values()} <= built
+    for name in ("block_compact", "slot_tables", "rank_slots"):
+        assert K.KERNELS[name].source.endswith("group_compact.cu")
+    headers = {p.name for p in build.CSRC.iterdir() if p.suffix == ".cuh"}
+    assert {"common.cuh", "group_key.cuh"} <= headers
+
+
 def test_cuda_entry_point_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the engine would run on it")

@@ -467,9 +467,10 @@ def test_wrappers_reject_bad_operands():
         tk.masked_part_sums(mask.bool(), [cols["r1.parts"]])
     with pytest.raises(ValueError):
         tk.dense_group_aggregate(mask, [cols["a.ids"][:100]], [1], 64)
+    # a compacted spec's idoff key without its runtime offset
     with pytest.raises(ValueError):
         tk.run_segment_kernel(P, ("match_all",), (), (
-            (("a", "ids", 0, 50),), (1,), 64, (), 16), None, cols, (), P,
+            (("a", "idoff", 0, 50),), (1,), 64, (), 16), None, cols, (), P,
             "cpu")
 
 

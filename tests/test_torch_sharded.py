@@ -520,7 +520,8 @@ def test_stacked_lanes_and_plans_match_jax(hetero):
                 "teamID, league TOP 100",
                 "SELECT playerName, runs, position FROM baseballStats WHERE "
                 "teamID IN ('BOS', 'NYA') ORDER BY playerName DESC LIMIT 8"):
-        plan = InstancePlanMaker().make_segment_plan(
+        plan = InstancePlanMaker(allow_group_compaction=False
+                                 ).make_segment_plan(
             pst.plan_segment(), BrokerRequestOptimizer().optimize(
                 compile_pql(pql)))
         jplan = JaxPlanMaker().make_segment_plan(
@@ -528,7 +529,8 @@ def test_stacked_lanes_and_plans_match_jax(hetero):
                 jax_compile_pql(pql)))
         # the same filter, aggregations and selection; the JAX planner
         # picks its compacted group strategy, so both kernels take the
-        # port's dense group spec (kmax = 0, the JAX grammar)
+        # port's dense group spec (its planner's compaction off, kmax = 0;
+        # test_torch_compact.py holds the compacted stacked kernels)
         assert (plan.filter_spec, plan.agg_specs, plan.select_spec,
                 plan.needed_cols) == (jplan.filter_spec,
                                       tuple(jplan.agg_specs),
@@ -601,6 +603,31 @@ def test_ssb_flight_stacked_matches_jax_and_oracle(ssb_engines, q):
         for k, w in want.items():
             assert got[k][0] == w[0], (q, k)
     check(q, got, oracle[q]())
+
+
+@pytest.mark.parametrize("q", ["q2.1", "q2.2", "q2.3", "q3.1", "q3.2",
+                               "q3.3", "q3.4", "q4.1", "q4.2", "q4.3"])
+def test_ssb_group_by_stacked_takes_the_jax_route(ssb_engines, monkeypatch,
+                                                  q):
+    """Compaction on: the stack's final kernel spec equals the JAX
+    stack's (scouts over the stack, kmax per segment), the rows the JAX
+    engine's and the oracle's; compaction off gives the same rows."""
+    from pinot_tpu_torch.query.plan import InstancePlanMaker
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, check
+    from test_torch_compact import _recorder
+    from test_torch_ssb import _rows_match
+    jax_engine, port, oracle = ssb_engines
+    rec = _recorder(monkeypatch)
+    want = canon_response(q, jax_engine.query(SSB_PQLS[q]))
+    got = canon_response(q, port.query(SSB_PQLS[q]))
+    monkeypatch.undo()
+    assert port.last_route == ("stacked", None)
+    assert rec["port"] == rec["jax"] and len(rec["port"]) == 1
+    _rows_match(got, want, 1e-6)
+    check(q, got, oracle[q]())
+    off = QueryEngine(port.segments, device="cpu", mesh=make_mesh(["cpu"]))
+    off.sharded.plan_maker = InstancePlanMaker(allow_group_compaction=False)
+    _rows_match(canon_response(q, off.query(SSB_PQLS[q])), got, 1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -73,3 +73,42 @@ def test_ssb_query_matches_jax_and_oracle(engines, q):
     check(q, got, expected)
     check(q, want, expected)
     assert resp.num_docs_scanned == jax_resp.num_docs_scanned
+
+
+GROUP_QUERIES = [q for q in sorted(SSB_PQLS) if not q.startswith("q1")]
+
+
+def _rows_match(got, want, rel):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k][0] == w[0], k
+        if len(w) > 1:
+            assert got[k][1] == pytest.approx(w[1], rel=rel), k
+
+
+@pytest.mark.parametrize("q", GROUP_QUERIES)
+def test_ssb_group_by_takes_the_jax_route_per_segment(engines, monkeypatch,
+                                                      q):
+    """Compaction on (the planner's default): each segment's final kernel
+    spec (key kinds and cardinalities, g_pad, kmax) equals the JAX
+    engine's; with InstancePlanMaker(allow_group_compaction=False) K3's
+    dense table alone gives the same rows."""
+    from pinot_tpu_torch.ops import kernels as tk
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query.plan import InstancePlanMaker
+    from test_torch_compact import _recorder
+    jax_engine, port, oracle = engines
+    rec = _recorder(monkeypatch)
+    want = canon_response(q, jax_engine.query(SSB_PQLS[q]))
+    got = canon_response(q, port.query(SSB_PQLS[q]))
+    monkeypatch.undo()
+    assert rec["port"] == rec["jax"] and len(rec["port"]) == SEGMENTS
+    _rows_match(got, want, 1e-6)
+    off = QueryEngine(port.segments, device="cpu")
+    off.executor = ServerQueryExecutor(
+        InstancePlanMaker(allow_group_compaction=False))
+    tk.reset_launch_counts()
+    dense = canon_response(q, off.query(SSB_PQLS[q]))
+    assert not tk.group_route_counts            # no scout, no compaction
+    _rows_match(dense, got, 1e-12)
+    check(q, dense, oracle[q]())

@@ -8,7 +8,9 @@ kernel for up to 8 queries); then the upsert table
 baseballStats_REALTIME, ingested, served while it consumes (frozen
 prefix on the card, tail on the host) and masked by validDocIds; and the
 multi-stage plane: joins of lineorderj x part and window functions, stage
-1 -> exchange -> stage 2 in process.
+1 -> exchange -> stage 2 in process; and the JAX bench's SSB path: SSB
+segments built on disk with the nine star-tree cubes, and a 100M-row SSB
+stack synthesized on the card by K17 ssb_synth.
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
@@ -16,15 +18,19 @@ multi-stage plane: joins of lineorderj x part and window functions, stage
                           [--vec-dim 128] [--vec-queries 5]
                           [--batch-repeats 3]
                           [--rt-rows 5000000] [--rt-sealed 1]
+                          [--rt-repeats 3]
                           [--join-rows 60000000] [--join-segments 8]
                           [--join-dim-rows 800000]
+                          [--store-sf 1] [--synth-rows 100000000]
 
 Phases, each printed as one JSON line; any failure ends the run with a
 non-zero exit and no result line:
 
 1. device: the card's name, and its name and power limit from nvidia-smi.
 2. build: nvcc builds the kernels from ops/csrc/ (one process per source,
-   all at once) into build/pinot_tpu_torch/<hash>/.
+   all at once) into build/pinot_tpu_torch/<hash>/; the line also says
+   whether g++ built the host cube loops (native/seglib.cpp, whose numpy
+   fallbacks serve otherwise).
 3. data: the SSB lineorder table at scale factor --sf (6,000,000 rows per
    scale factor) in --segments segments, made from --seed.
 4. kernel check: K1-K3 against their plain PyTorch versions on the card,
@@ -179,6 +185,34 @@ non-zero exit and no result line:
    share a signature (a mixed family: group-by members, a fast path);
    then the p50 of --batch-repeats batched runs beside the sum of the
    members' sequential p50s.
+17a. ssb_store (after 17 on the SSB table): stage 1 of the JAX bench
+   (bench.py:932-997): the SSB table at --store-sf (6,000,000 rows per
+   scale factor, bench.py's seed 3) written by the port's SegmentCreator
+   into --segments directories under build/ with the nine star-tree cubes
+   of tools/datagen.py:SSB_STAR_TREE_CONFIGS, loaded with
+   ImmutableSegmentLoader; launch and path counts from 0, the 13 queries
+   once per segment and once through a stacked engine, each checked
+   against the numpy oracle, with the paths they took (a covering cube
+   answers where the JAX executor takes one: the multi-segment cube, and
+   the stacked plan's cube fast path sends the query per segment); the
+   Q1 families of tools/ssb.py:q1_batches as execute_batch batches, each
+   member against the oracle; cubes must have answered and K1, K2 and the
+   batched K2 launched; then p50s of --repeats per query and path; build
+   and load seconds, cube sizes, the cube path counts.
+17b. ssb_synth: stage 2 of the JAX bench (bench.py:1046-1100): launch
+   counts from 0, --synth-rows rows (bench.py's 100M) in --segments
+   segments synthesized on the card by make_ssb_device_stack (K17
+   ssb_synth, JAX's threefry lanes bit for bit, seed 3), the real rows'
+   ids pulled back for the numpy oracle, the 13 queries once over the
+   stack through ShardedQueryExecutor.execute_stack (the port's lane-
+   override stack, tools/datagen.py:SynthStack), each checked; the counts
+   read (K17 and K1-K3 must have launched). Then K17 against its plain
+   version bit for bit on the last segment whole (padding rows included)
+   and the first 65,536 rows of every segment, the derived and part lanes
+   checked as exact functions of the base ids over the whole stack, K17
+   timed beside its plain version and its bound (integer operations at
+   the SMs' issue rate, or the bytes it writes); p50s of --repeats per
+   query; device and peak bytes.
 18. realtime: the upsert table baseballStats_REALTIME (the quickstart
    schema, rows from tools/baseball.make_columns, upsert FULL on
    (playerName, yearID, teamID, league): 957,120 keys), ingested as the
@@ -195,7 +229,8 @@ non-zero exit and no result line:
    segment, each answer against the numpy oracle of the live rows (the
    latest row per key); every K1 launch carries the vdoc node, the
    frozen prefix runs the kernels and the host twin reads the tail
-   rows only (and the planner's refusals); p50 of --repeats per family,
+   rows only (and the planner's refusals); p50 of --rt-repeats per
+   family (3 by default, a cut of --repeats named in the timing line),
    vdoc uploads and bytes per query. Then it seals too; the sealed set
    runs stacked (every device draw on the stacked route, one K1 with
    the vdoc node over the [S, P] lane, answers the per-segment ones or
@@ -245,7 +280,8 @@ non-zero exit and no result line:
 
 Phases 10-12 run right after the phase they build on (10 and 11 after
 5, 12 after 9; 11b after 11, 12b after 12); 13-15 after 12b; 16 and
-17 after each table's own phases; 19-22 after 17; 18 last.
+17 after each table's own phases; 17a and 17b after the SSB table's 17,
+before 6; 19-22 after 17; 18 last.
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -257,7 +293,8 @@ with the vdoc node on the realtime path; filter_mask[join_raw],
 dense_group_aggregate[jcode] and [jraw], the join phase's launches with
 those nodes; radix_sort_join, radix_sort and window_scan; block_compact,
 slot_tables, rank_slots, radix_sort_rank, dense_group_aggregate[idoff]
-and [idrank], with the case their times come from) and
+and [idrank], with the case their times come from; ssb_synth, the
+synthesis phase's launch) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -2813,6 +2850,10 @@ RT_SEALED_FULL = 2
 #: that the whole script stays inside its time limit with the phases of
 #: the compacted group-by
 RT_SEALED_DEFAULT = 1
+#: timed runs a realtime family's p50 takes by default: 3, not --repeats,
+#: a cut the timing line names (the consuming segment's host tail makes
+#: each run 0.1-1 s), so that the SSB bench phases fit the time limit
+RT_REPEATS_DEFAULT = 3
 RT_FETCH_ROWS = 50_000              # rows per fetch batch of the consumer
 #: the consuming segment's freeze points checked (the frozen prefix
 #: doubles from MutableSegmentImpl.FREEZE_MIN_ROWS)
@@ -3165,13 +3206,13 @@ def run_realtime(base, args):
                              mutable.num_docs >= rows_per_seg):
                 engine = QueryEngine(sealed + [mutable])
                 got, _a, _o = rt_checkpoint(check_at[0], engine, mutable, rt,
-                                            args.repeats)
+                                            args.rt_repeats)
                 launches.update(got)
                 check_at = None
         if consuming:
             engine = QueryEngine(sealed + [mutable])
             got, _a, _o = rt_checkpoint(f"full {mutable.num_docs}", engine,
-                                        mutable, rt, args.repeats)
+                                        mutable, rt, args.rt_repeats)
             launches.update(got)
         # the commit: convert, seal the key map, load on the card, attach
         seg_dir = os.path.join(base, name)
@@ -3252,7 +3293,7 @@ def run_realtime(base, args):
             judged += 1       # a selection's ties: the oracle judged it
         if route == "stacked":
             ts = []
-            for _ in range(args.repeats):
+            for _ in range(args.rt_repeats):
                 t0 = time.perf_counter()
                 st_engine.query(draw.pql)
                 torch.cuda.synchronize()
@@ -3900,6 +3941,288 @@ def run_window(segs, where: str, rows: int, repeats: int):
             m.close()
 
 
+# ---------------------------------------------------------------------------
+# The JAX bench's SSB path: stage 1 from disk with star-tree cubes, stage 2
+# synthesized on the card by K17
+# ---------------------------------------------------------------------------
+
+#: bench.py's seed of both stages (pinot_tpu's build_ssb_segment_dirs and
+#: make_ssb_device_stack calls, :938, :1049)
+BENCH_SEED = 3
+#: bench.py's stage-2 table: 100M rows (big_rows)
+SYNTH_ROWS = 100_000_000
+#: H100 SXM integer instruction rate: each of the 132 SMs issues at most
+#: four warp instructions a clock (128 lanes) at the 1,980 MHz boost
+#: clock, and the compiler spreads integer adds over the INT32 and the FMA
+#: pipes (IADD3 / IMAD), so 128 lanes is the ceiling: the lanes of the
+#: guide's 67 TFLOP/s float32 rate, which counts an FMA as two
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+#: K17's integer operations a threefry2x32 evaluation: 2 key adds, 20
+#: rounds of add, rotate and xor, 5 injections of two adds, the final xor
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 2 + 1
+#: ... a row: 17 evaluations, 8 randint reductions (three %, a multiply
+#: and an add), the float (shift, or, subtract, multiply) and the derived
+#: lanes (five divisions and gathers, d_year's division)
+SYNTH_OPS_PER_ROW = 17 * THREEFRY_OPS + 8 * 5 + 4 + 6
+#: rows at the head of every synthesized segment K17 is checked on, beside
+#: one whole segment with its padding
+SYNTH_CHECK_HEAD = 65_536
+
+
+def run_ssb_store(base, args):
+    """Stage 1 of the JAX bench (bench.py:932-997) on the card: the SSB
+    table at --store-sf (bench.py's seed 3) built by the port's
+    SegmentCreator into --segments directories with the nine star-tree
+    cubes, loaded, and the 13 queries per segment and stacked, checked
+    against the numpy oracle with their cube path counts (launch and path
+    counts from 0); the Q1 families as execute_batch batches, each member
+    against the oracle; then p50s of --repeats. Returns the phase's launch
+    counts."""
+    from pinot_tpu_torch.engine import QueryEngine
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
+    from pinot_tpu_torch.tools.datagen import build_ssb_segment_dirs, \
+        ssb_pools
+    from pinot_tpu_torch.tools.ssb import (Q1_TEMPLATES, SSB_PQLS,
+                                           canon_response, check,
+                                           make_cpu_queries, q1_batches,
+                                           q1_revenue)
+    rows = args.store_sf * ROWS_PER_SF
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dirs, ids, cost = build_ssb_segment_dirs(base, rows, args.segments,
+                                             seed=BENCH_SEED, star_tree=True)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = QueryEngine([ImmutableSegmentLoader.load(d) for d in dirs])
+    load_s = time.perf_counter() - t0
+    st_engine = QueryEngine(engine.segments, mesh=make_mesh())
+    pools = ssb_pools(BENCH_SEED)
+    oracle = make_cpu_queries(pools, ids, cost)
+
+    K.reset_launch_counts()
+    answered = {}
+    for q, pql in SSB_PQLS.items():
+        row = {}
+        for label, eng in (("per_segment", engine), ("stacked", st_engine)):
+            before = dict(eng.executor.path_counts)
+            t = time.perf_counter()
+            resp = eng.query(pql)
+            torch.cuda.synchronize()
+            row[f"{label}_first_ms"] = (time.perf_counter() - t) * 1e3
+            if resp.exceptions:
+                raise AssertionError(f"{q} ({label}): {resp.exceptions}")
+            check(q, canon_response(q, resp), oracle[q]())
+            row[f"{label}_paths"] = {
+                k: v - before.get(k, 0)
+                for k, v in eng.executor.path_counts.items()
+                if v != before.get(k, 0)}
+        row["stacked_route"] = st_engine.last_route[0]
+        answered[q] = row
+    batch_members = 0
+    for flight, lits in q1_batches().items():
+        reqs = [engine.optimizer.optimize(compile_pql(
+            Q1_TEMPLATES[flight].format(**lit))) for lit in lits]
+        blocks = engine.executor.execute_batch(reqs, engine.segments)
+        torch.cuda.synchronize()
+        for lit, req, blk in zip(lits, reqs, blocks):
+            resp = engine.reducer.reduce(req, [blk])
+            check(flight, canon_response(flight, resp),
+                  q1_revenue(pools, ids, flight, lit))
+            batch_members += 1
+    launches = K.launch_counts()
+    cube = {label: eng.executor.path_counts["cube"]
+            for label, eng in (("per_segment", engine),
+                               ("stacked", st_engine))}
+    if not cube["per_segment"] or not cube["stacked"]:
+        raise AssertionError(f"no query took a star-tree cube: {cube}")
+    for name in ("filter_mask", "masked_part_sums",
+                 "masked_part_sums_batched"):
+        if not launches[name]:
+            raise AssertionError(f"{name} never launched on the storage "
+                                 f"path: {launches}")
+    for q, pql in SSB_PQLS.items():
+        row = answered[q]
+        for label, eng in (("per_segment", engine), ("stacked", st_engine)):
+            ts = []
+            for _ in range(args.repeats):
+                t = time.perf_counter()
+                eng.query(pql)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t) * 1e3)
+            row[f"{label}_p50_ms"] = float(np.median(ts))
+            row[f"{label}_samples_ms"] = ts
+        emit({"phase": "ssb_store", "query": q, "check": "pass", **row})
+    cubes = [c.n_groups for c in engine.segments[0].star_trees]
+    emit({"phase": "ssb_store_summary", "scale_factor": args.store_sf,
+          "rows": rows, "segments": args.segments, "seed": BENCH_SEED,
+          "build_seconds": build_s, "load_seconds": load_s,
+          "disk_bytes": sum(os.path.getsize(os.path.join(d, f))
+                            for d in dirs for f in os.listdir(d)),
+          "cubes_per_segment": len(cubes), "cube_groups_segment0": cubes,
+          "cube_path_counts": cube,
+          "path_counts": {"per_segment": dict(engine.executor.path_counts),
+                          "stacked": dict(st_engine.executor.path_counts)},
+          "stacked_routes": dict(st_engine.route_counts),
+          "batch_members": batch_members,
+          "device_bytes": sum(s.device_bytes() for s in engine.segments),
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def synth_check(lanes, stack, keys, tables, dtypes):
+    """K17 against its plain version: bit for bit on the last segment
+    whole (its padding rows too) and the first SYNTH_CHECK_HEAD rows of
+    every segment; the derived and part lanes exact functions of the base
+    ids over the whole stack; then K17's time beside its plain version's
+    and its bound. Returns the kernels-line entry."""
+    from pinot_tpu_torch.ops import synth
+    S, P = stack.n_real, stack.padded_docs
+    device = tables.device
+    head = torch.arange(min(P, SYNTH_CHECK_HEAD), device=device)
+    index = torch.cat([(torch.arange(S, device=device)[:, None] * P +
+                        head).reshape(-1),
+                       torch.arange((S - 1) * P, S * P, device=device)])
+    want = synth.synth_rows_plain(keys, tables, index)
+    parts = stack.gather([("lo_revenue", "parts")])["lo_revenue.parts"]
+    bad = [name for name in synth.SYNTH_LANES if not torch.equal(
+        lanes[f"{name}.ids"].reshape(-1)[index].long(), want[name])]
+    cost = lanes["lo_supplycost.raw"].reshape(-1)[index]
+    if not torch.equal(cost.view(torch.int32),
+                       want["lo_supplycost"].view(torch.int32)):
+        bad.append("lo_supplycost")
+    if not torch.equal(parts.reshape(parts.shape[0], -1)[:, index],
+                       want["parts"]):
+        bad.append("parts")
+    if bad:
+        raise AssertionError(f"ssb_synth disagrees with its plain version "
+                             f"on {bad}")
+
+    def ids(c):
+        return lanes[f"{c}.ids"].long()
+    ymn, brand = ids("d_yearmonthnum"), ids("p_brand1")
+    derived = {"d_year": ymn // 12,
+               "d_yearmonth": tables.ymn_to_ym.long()[ymn],
+               "p_category": brand // 40, "p_mfgr": brand // 200}
+    for side in ("c", "s"):
+        nation = ids(f"{side}_city") // 10
+        derived[f"{side}_nation"] = nation
+        derived[f"{side}_region"] = tables.nation_region.long()[nation]
+    bad = [c for c, v in derived.items() if not torch.equal(ids(c), v)]
+    if not torch.equal(tables.part_table[:, ids("lo_revenue")], parts):
+        bad.append("parts")
+    if bad:
+        raise AssertionError(f"synthesized lanes {bad} are not the functions "
+                             "of their base ids")
+    del derived, ymn, brand
+
+    ms = time_ms(lambda: synth.ssb_synth(keys, tables, S, P, dtypes), reps=3)
+    plain = time_ms(lambda: synth.ssb_synth_plain(keys, tables, S, P,
+                                                  dtypes), reps=1, warmup=0)
+    row_bytes = sum(torch.empty(0, dtype=dtypes[c]).element_size()
+                    for c in synth.SYNTH_LANES) + 4 + parts.shape[0]
+    t_bytes = S * P * row_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = S * P * SYNTH_OPS_PER_ROW / INT32_OPS_PER_S * 1e3
+    b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    emit({"phase": "ssb_synth_check", "kernel": "ssb_synth",
+          "rows_checked": int(index.numel()), "rows": S * P, "ms": ms,
+          "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+          "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+          "bytes_per_row": row_bytes, "ops_per_row": SYNTH_OPS_PER_ROW,
+          "library_ms": None})
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound": b,
+            "library_ms": None}
+
+
+def run_ssb_synth(args):
+    """Stage 2 of the JAX bench (bench.py:1046-1100) on the card: launch
+    counts from 0, --synth-rows rows in --segments segments synthesized by
+    make_ssb_device_stack (K17, seed 3), the ids pulled back for the numpy
+    oracle, the 13 queries once over the stack through
+    ShardedQueryExecutor.execute_stack, each checked, the counts read (K17
+    and K1-K3 must have launched); then K17's check (synth_check) and p50s
+    of --repeats. Returns the launch counts and K17's entry."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.parallel.sharded import ShardedQueryExecutor
+    from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.reduce import BrokerReduceService
+    from pinot_tpu_torch.tools.datagen import SynthStack, \
+        make_ssb_device_stack, ssb_pools, ssb_synth_inputs
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS, canon_response, check, \
+        make_cpu_queries
+    mesh = make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    lanes, num_docs, plan_table, padded = make_ssb_device_stack(
+        args.synth_rows, args.segments, mesh, seed=BENCH_SEED)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    stack = SynthStack(lanes, num_docs, plan_table, padded)
+    t0 = time.perf_counter()
+    per = args.synth_rows // args.segments
+    ids = {name[:-4]: lanes[name][:, :per].cpu().numpy().reshape(-1)
+           for name in lanes if name.endswith(".ids")}
+    cost = lanes["lo_supplycost.raw"][:, :per].cpu().numpy().reshape(
+        -1).astype(np.float64)
+    pull_s = time.perf_counter() - t0
+    oracle = make_cpu_queries(ssb_pools(BENCH_SEED), ids, cost)
+    executor = ShardedQueryExecutor(mesh=mesh)
+    optimizer, reducer = BrokerRequestOptimizer(), BrokerReduceService()
+    requests = {q: optimizer.optimize(compile_pql(pql))
+                for q, pql in SSB_PQLS.items()}
+
+    def run(q):
+        resp = reducer.reduce(requests[q], [executor.execute_stack(
+            requests[q], stack)])
+        torch.cuda.synchronize()
+        return resp
+
+    firsts, oracle_s = {}, 0.0
+    for q in SSB_PQLS:
+        t = time.perf_counter()
+        resp = run(q)
+        firsts[q] = (time.perf_counter() - t) * 1e3
+        if resp.exceptions:
+            raise AssertionError(f"{q}: {resp.exceptions}")
+        t = time.perf_counter()
+        check(q, canon_response(q, resp), oracle[q]())
+        oracle_s += time.perf_counter() - t
+    launches = K.launch_counts()
+    path_peak = torch.cuda.max_memory_allocated()
+    for name in ("ssb_synth", "filter_mask", "masked_part_sums",
+                 "dense_group_aggregate"):
+        if not launches[name]:
+            raise AssertionError(f"{name} never launched on the synthesized "
+                                 f"path: {launches}")
+    del ids, cost, oracle
+    keys, tables, dtypes = ssb_synth_inputs(BENCH_SEED, mesh[0])
+    entry = synth_check(lanes, stack, keys, tables, dtypes)
+    for q in SSB_PQLS:
+        ts = []
+        for _ in range(args.repeats):
+            t = time.perf_counter()
+            run(q)
+            ts.append((time.perf_counter() - t) * 1e3)
+        emit({"phase": "ssb_synth", "query": q, "check": "pass",
+              "route": "stacked", "first_ms": firsts[q],
+              "p50_ms": float(np.median(ts)), "samples_ms": ts})
+    emit({"phase": "ssb_synth_summary", "rows": args.synth_rows,
+          "segments": args.segments, "padded_rows_per_segment": padded,
+          "seed": BENCH_SEED, "synth_seconds": synth_s,
+          "pull_seconds": pull_s, "oracle_seconds": oracle_s,
+          "device_bytes": stack.device_bytes(),
+          "peak_device_bytes": path_peak,
+          "peak_device_bytes_with_check": torch.cuda.max_memory_allocated(),
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches, entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=int, default=10)
@@ -3915,15 +4238,19 @@ def main() -> int:
     ap.add_argument("--batch-repeats", type=int, default=3)
     ap.add_argument("--rt-rows", type=int, default=RT_FLUSH_ROWS)
     ap.add_argument("--rt-sealed", type=int, default=RT_SEALED_DEFAULT)
+    ap.add_argument("--rt-repeats", type=int, default=RT_REPEATS_DEFAULT)
     ap.add_argument("--join-rows", type=int, default=JOIN_FACT_ROWS)
     ap.add_argument("--join-segments", type=int, default=JOIN_SEGMENTS)
     ap.add_argument("--join-dim-rows", type=int, default=JOIN_DIM_ROWS)
+    ap.add_argument("--store-sf", type=int, default=1)
+    ap.add_argument("--synth-rows", type=int, default=SYNTH_ROWS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
+    from pinot_tpu_torch import native
     from pinot_tpu_torch.engine import QueryEngine
     from pinot_tpu_torch.ops import build
     from pinot_tpu_torch.ops import kernels as K
@@ -3950,7 +4277,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds["build"],
           "dir": str(build.build_dir()),
           "libs": {s: str(p) for s, p in libs.items()},
-          "ptxas": build.BUILD_INFO.get("ptxas", {})})
+          "ptxas": build.BUILD_INFO.get("ptxas", {}),
+          "native_seglib": native.lib() is not None})
 
     # -- SSB, in memory ---------------------------------------------------
     rows = args.sf * ROWS_PER_SF
@@ -4047,10 +4375,21 @@ def main() -> int:
     del engine, st_engine, stack, table, oracle
     torch.cuda.empty_cache()
 
-    # -- baseballStats, from disk -----------------------------------------
+    # -- the JAX bench's SSB path: cubes from disk, K17's 100M rows -------
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as base:
+        t0 = time.perf_counter()
+        store_launches = run_ssb_store(base, args)
+        seconds["ssb_store"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    synth_launches, synth_entry = run_ssb_synth(args)
+    seconds["ssb_synth"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # -- baseballStats, from disk -----------------------------------------
     with tempfile.TemporaryDirectory(dir=scratch) as base:
         t0 = time.perf_counter()
         dirs, cols = baseball.build_segment_dirs(
@@ -4247,6 +4586,9 @@ def main() -> int:
         cuts.append(f"realtime: {args.rt_sealed} sealed segment(s) of "
                     f"{args.rt_rows} rows before the consuming one, of "
                     f"the configuration's {RT_SEALED_FULL}")
+    if args.rt_repeats < args.repeats:
+        cuts.append(f"realtime: p50s of {args.rt_repeats} timed runs, not "
+                    f"--repeats {args.repeats}")
     emit({"phase": "timing", "seconds": seconds,
           "total_seconds": time.perf_counter() - t_start, "cuts": cuts})
 
@@ -4257,7 +4599,8 @@ def main() -> int:
 
     def path_launches(name: str) -> int:
         """Launches of `name` on every path run with counts from 0."""
-        return (ssb_launches[name] + bb_launches[name] +
+        return (ssb_launches[name] + store_launches[name] +
+                synth_launches[name] + bb_launches[name] +
                 vec_build_launches[name] + vec_launches["per_segment"][name] +
                 ssb_st_launches[name] + bb_st_launches[name] +
                 vec_launches["stacked"][name] + batch_launches.get(name, 0) +
@@ -4265,6 +4608,16 @@ def main() -> int:
                 gc_launches[name])
 
     for name, info in K.KERNELS.items():
+        if name == "ssb_synth":
+            e = synth_entry
+            line.append({"name": name, "route": "cuda",
+                         "source": info.source, "replaces": info.replaces,
+                         "launches": synth_launches[name],
+                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                         "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                         "bound_by": e["bound"][1],
+                         "library_ms": e["library_ms"]})
+            continue
         if name in COMPACT_KERNELS:
             e = compact_entries[name]
             line.append({"name": name, "route": "cuda",

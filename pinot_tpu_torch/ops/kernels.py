@@ -45,7 +45,11 @@ short fixed sequence of kernels written by hand for Hopper
 - K16 `rank_slots`: the ranked layout's dedup of the slots' keys into
   ranks and the rkeys lane (replaces the sort and rank of
   `_group_outputs_compacted`); past RANK_BITMAP_G_LIMIT keys through K12
-  (`radix_sort_rank`).
+  (`radix_sort_rank`);
+- K17 `ssb_synth`: the SSB lanes of a whole stack drawn on the card, JAX's
+  threefry bits exactly (replaces the device synthesis of
+  pinot_tpu/tools/datagen.py:make_ssb_device_stack; its wrapper and plain
+  version are in ops/synth.py).
 
 Every wrapper checks its operands, allocates its outputs, and launches on
 the current stream. Beside each kernel is its plain PyTorch version: the
@@ -230,6 +234,10 @@ KERNELS: Dict[str, KernelInfo] = {
     "radix_sort_rank": KernelInfo(
         "radix_sort_rank", "pinot_tpu_torch/ops/csrc/sort_window.cu",
         "pinot_tpu/ops/kernels.py:1124", symbol="pinot_radix_sort"),
+    # K17: the device SSB synthesis of the JAX bench (ops/synth.py)
+    "ssb_synth": KernelInfo(
+        "ssb_synth", "pinot_tpu_torch/ops/csrc/ssb_synth.cu",
+        "pinot_tpu/tools/datagen.py:538"),
 }
 #: the batched forms: one launch serves up to MAX_BATCH members of one
 #: plan (the vmap of get_batched_segment_kernel), counted apart
@@ -279,6 +287,9 @@ _ARGTYPES.update({
                     _I, _I, _I, _I, _P, _P, _P, _P],
     "rank_slots": [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 })
+_UIP = ctypes.POINTER(ctypes.c_uint)
+_ARGTYPES["ssb_synth"] = [_UIP, _UIP, _UIP, _PP, _IP, _P, _P, _P, _I, _I, _P,
+                          _I, _P, _I, _LL, _LL, _P]
 _ARGTYPES["radix_sort_join"] = _ARGTYPES["radix_sort"]
 _ARGTYPES["radix_sort_rank"] = _ARGTYPES["radix_sort"]
 _ARGTYPES["masked_select_vector"] = _ARGTYPES["masked_select"]

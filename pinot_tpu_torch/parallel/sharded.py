@@ -25,7 +25,9 @@ queries plan against a union view of segment 0 (`_UnionViewSegment`).
 `NotShardable` remains for sets that cannot stack (differing padded
 sizes or lane shapes, raw group-key ranges that differ) and for
 fast-path plans (metadata, match-all and inverted-index COUNTs, empty
-filters), which the sequential executor serves per segment.
+filters; a covering star-tree cube), which the sequential executor
+serves per segment. `execute_stack` runs a query over a stack built
+elsewhere, such as tools/datagen.py's SSB lanes synthesized on the card.
 
 Vector selections stack too: the embedding blocks as [S, P, dim_pad], an
 IVF index as its assignment lane [S, P], codebooks [S, C_pad, dim_pad]
@@ -210,6 +212,12 @@ class _UnionViewSegment:
     @property
     def column_names(self):
         return self._base.column_names
+
+    @property
+    def star_trees(self):
+        # cubes are per-segment id-domain artifacts: the stacked path
+        # never serves them (its fast path goes per segment)
+        return []
 
     @property
     def valid_doc_ids(self):
@@ -509,9 +517,24 @@ class ShardedQueryExecutor:
         t0 = time.perf_counter()
         # FASTHLL derived rewrite, on a copy (the caller's request stays)
         request = preprocess_request(segments, request)
-        stack = self.stack_for(segments)
+        return self._execute_stack(request, self.stack_for(segments), t0)
+
+    def execute_stack(self, request: BrokerRequest, stack
+                      ) -> IntermediateResultsBlock:
+        """Execute over a stack built elsewhere: an object with the
+        StackedSegments surface the executor reads (segments, the ones
+        plans build against; padded_docs; n_real; num_docs; gather;
+        device_num_docs; union_column; plan_segment), such as the SSB
+        lanes that tools/datagen.py:make_ssb_device_stack synthesizes on
+        the card (tools/datagen.py:SynthStack)."""
+        t0 = time.perf_counter()
+        request = preprocess_request(stack.segments, request)
+        return self._execute_stack(request, stack, t0)
+
+    def _execute_stack(self, request: BrokerRequest, stack, t0: float
+                       ) -> IntermediateResultsBlock:
         # fast paths (metadata, match-all and inverted-index COUNTs, empty
-        # filters) are per-segment host work in each segment's own id
+        # filters, star-tree cubes) are per-segment host work in each segment's own id
         # domain: probe segment 0 and leave them to the sequential
         # executor, which plans per segment
         plan0 = self.plan_maker.make_segment_plan(stack.segments[0],

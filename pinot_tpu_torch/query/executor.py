@@ -8,7 +8,14 @@ UnsupportedOnDevice or GroupsLimitExceeded, the refusals the JAX planner
 makes too, before any kernel launches. Nothing else is caught: not the
 planner's NotPorted, not a join's StageCompileError (the fact key fails
 the integer-key contract), and nothing that plan.execute() raises (a
-build, a launch, a kernel). No star-tree or thread pool yet.
+build, a launch, a kernel). No thread pool yet.
+
+Star-tree cubes are taken where the JAX executor takes them: an
+aggregation over several segments that all carry cubes, none masked by
+upserts, first tries the multi-segment cube (startree/executor.py:
+try_star_tree_execute_multi) before any scan; else each segment tries its
+own covering cube before it plans (try_star_tree_execute), and
+execute_batch does both per member.
 
 Stage 2 of a join: the request carries its JoinContext as `_join_ctx`
 (query/stages/join.py:build_context); preprocess_request's copy keeps
@@ -31,7 +38,9 @@ sequential ladder.
 
 `ServerQueryExecutor.path_counts` counts, per segment of each query since
 the last `reset_path_counts()`, where it ended: "pruned" (the pruner
-dropped it), "fast" (a fast-path plan: metadata, match-all or
+dropped it), "cube" (a star-tree cube answered it, the JAX executor's
+count_path("cube"); the key appears with the first such segment), "fast"
+(a fast-path plan: metadata, match-all or
 inverted-index COUNT, or an empty filter), "scan" (the device kernels)
 or "host" (the host twin: a refused plan, a consuming segment's tail
 among them, as the JAX planner refuses a mutable segment); `tail_docs`
@@ -40,6 +49,7 @@ and `tail_ms` add up the consuming tails' rows and host milliseconds.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.common.request import BrokerRequest, \
@@ -49,9 +59,11 @@ from pinot_tpu_torch.query.blocks import IntermediateResultsBlock
 from pinot_tpu_torch.query.combine import combine_blocks
 from pinot_tpu_torch.query.plan import GroupsLimitExceeded, \
     InstancePlanMaker, SegmentPlan, UnsupportedOnDevice, batch_signature, \
-    preprocess_request
+    preprocess_request, upsert_mask_active
 from pinot_tpu_torch.query.pruner import SegmentPrunerService
 from pinot_tpu_torch.segment.loader import ImmutableSegment
+from pinot_tpu_torch.startree.executor import try_star_tree_execute, \
+    try_star_tree_execute_multi
 
 PATHS = ("pruned", "fast", "scan", "host")
 
@@ -63,7 +75,8 @@ class ServerQueryExecutor:
         self.reset_path_counts()
 
     def reset_path_counts(self) -> None:
-        self.path_counts: Dict[str, int] = dict.fromkeys(PATHS, 0)
+        # "cube" joins the PATHS keys when a star-tree cube first answers
+        self.path_counts: Counter = Counter(dict.fromkeys(PATHS, 0))
         self.tail_docs = 0
         self.tail_ms = 0.0
 
@@ -74,6 +87,11 @@ class ServerQueryExecutor:
         request = preprocess_request(segments, request)
         selected = self.pruner.prune(segments, request)
         self.path_counts["pruned"] += len(segments) - len(selected)
+        blk = self._try_star_tree_multi(request, selected)
+        if blk is not None:
+            blk.stats.num_segments_pruned = len(segments) - len(selected)
+            blk.stats.time_used_ms = (time.perf_counter() - t0) * 1e3
+            return blk
         blocks: List[IntermediateResultsBlock] = []
         extra_parts = extra_matched = 0
         for seg in selected:
@@ -133,7 +151,38 @@ class ServerQueryExecutor:
 
     def _execute_segment(self, segment: ImmutableSegment,
                          request: BrokerRequest) -> IntermediateResultsBlock:
+        blk = self._try_star_tree(segment, request)
+        if blk is not None:
+            return blk
         return self._run_plan(self._plan(segment, request), segment, request)
+
+    def _try_star_tree(self, segment, request: BrokerRequest
+                       ) -> Optional[IntermediateResultsBlock]:
+        """One segment's covering cube answer, or None
+        (pinot_tpu/query/executor.py:415-421)."""
+        if request.is_aggregation and not request.is_selection and \
+                not upsert_mask_active(segment) and \
+                getattr(segment, "star_trees", None):
+            blk = try_star_tree_execute(segment, request)
+            if blk is not None:
+                self.path_counts["cube"] += 1
+                return blk
+        return None
+
+    def _try_star_tree_multi(self, request: BrokerRequest, selected
+                             ) -> Optional[IntermediateResultsBlock]:
+        """The multi-segment cube answer over every selected segment, or
+        None (pinot_tpu/query/executor.py:86-98): more than one segment,
+        each with cubes, none masked."""
+        if request.is_aggregation and not request.is_selection and \
+                len(selected) > 1 and \
+                not any(upsert_mask_active(s) for s in selected) and \
+                all(getattr(s, "star_trees", None) for s in selected):
+            blk = try_star_tree_execute_multi(selected, request)
+            if blk is not None:
+                self.path_counts["cube"] += len(selected)
+                return blk
+        return None
 
     # -- cross-query batched execution --------------------------------------
     def execute_batch(self, requests: List[BrokerRequest],
@@ -160,17 +209,21 @@ class ServerQueryExecutor:
             selected = self.pruner.prune(segments, req)
             self.path_counts["pruned"] += len(segments) - len(selected)
             members.append(_BatchMember(req, selected, len(segments)))
-        # the multi-segment star-tree fast path waits for the port's
-        # star-tree
+        # the multi-segment star-tree fast path per member (as execute
+        # takes it); a member it answers never reaches the segment loop
+        for m in members:
+            m.final = self._try_star_tree_multi(m.request, m.selected)
+        pending = [m for m in members if m.final is None]
         for seg in segments:
             if deadline is not None and time.monotonic() >= deadline:
                 break
-            takers = [m for m in members if id(seg) in m.selected_ids]
+            takers = [m for m in pending if id(seg) in m.selected_ids]
             if takers:
                 self._batch_segment(seg, takers)
                 for m in takers:
                     m.executed += 1
-        return [m.finish(t0) for m in members]
+        return [m.finish(t0) if m.final is None else m.final
+                for m in members]
 
     def _batch_segment(self, seg: ImmutableSegment,
                        takers: List["_BatchMember"]) -> None:
@@ -184,8 +237,10 @@ class ServerQueryExecutor:
             return
         groups: Dict[tuple, list] = {}
         for m in takers:
-            # the per-segment star-tree branch waits for the port's
-            # star-tree
+            blk = self._try_star_tree(seg, m.request)
+            if blk is not None:
+                m.add([blk], 0, 0)
+                continue
             plan = self._plan(seg, m.request)
             sig = None if plan is None else batch_signature(plan)
             if sig is None:
@@ -203,7 +258,8 @@ class ServerQueryExecutor:
 class _BatchMember:
     """One request's blocks and segments in the batched execution loop."""
     __slots__ = ("request", "selected", "selected_ids", "num_pruned",
-                 "blocks", "extra_parts", "extra_matched", "executed")
+                 "blocks", "extra_parts", "extra_matched", "executed",
+                 "final")
 
     def __init__(self, request: BrokerRequest, selected, num_total: int):
         self.request = request
@@ -214,6 +270,8 @@ class _BatchMember:
         self.extra_parts = 0
         self.extra_matched = 0
         self.executed = 0
+        # the multi-segment cube's whole answer, when it gave one
+        self.final: Optional[IntermediateResultsBlock] = None
 
     def add(self, blocks: List[IntermediateResultsBlock], parts: int,
             matched: int) -> None:

@@ -25,8 +25,9 @@ metadata, match-all and inverted-index / sorted-range COUNT fast paths;
 stage 2 of a join (a JoinContext attached as request._join_ctx, query/
 stages/join.py): the join match ANDs into K1 as a member leaf (a
 dictionary fact key) or a join_raw leaf (a raw one), and dim-qualified
-group keys plan as "jcode" / "jraw" K3 keys. Star-tree cubes are not used
-yet.
+group keys plan as "jcode" / "jraw" K3 keys; a covering star-tree cube
+(startree/executor.py) as the JAX planner's fast path, after the metadata
+one (pinot_tpu/query/plan.py:539-549).
 
 Refusals. UnsupportedOnDevice is raised exactly where the JAX planner
 raises it (DISTINCTCOUNT / PERCENTILE in a group-by, an MV metric in a
@@ -74,6 +75,7 @@ from pinot_tpu_torch.query.aggregation import AggregationFunction, \
 from pinot_tpu_torch.query.blocks import ExecutionStats, \
     IntermediateResultsBlock
 from pinot_tpu_torch.segment.loader import ImmutableSegment
+from pinot_tpu_torch.startree.executor import try_star_tree_execute
 
 DEFAULT_NUM_GROUPS_LIMIT = 100_000     # parity: num.groups.limit
 IN_LIST_MEMBER_THRESHOLD = 16          # small IN → compare list, else
@@ -569,6 +571,17 @@ class InstancePlanMaker:
                 request.filter is None and not no_fast and \
                 self._try_metadata_fast_path(plan, segment):
             return plan
+
+        # star-tree: a covering pre-aggregated cube answers the query in
+        # O(groups) host work (startree/executor.py). This hook serves the
+        # stacked path, which plans directly: its fast path sends the query
+        # to the per-segment executor, which checked the cube already
+        if request.is_aggregation and not request.is_selection and \
+                not no_fast and getattr(segment, "star_trees", None):
+            blk = try_star_tree_execute(segment, request)
+            if blk is not None:
+                plan.fast_path_result = blk
+                return plan
 
         filter_spec, params = resolve_filter(request.filter, segment)
         if jctx is not None and filter_spec != EMPTY:

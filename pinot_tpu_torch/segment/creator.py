@@ -5,10 +5,15 @@ byte for byte, apart from the creation time in metadata.json, and, where
 the table config asks for an IVF index on a VECTOR column, the
 `{col}.ivf.*` files and the `ivf.*` custom keys: the codebook is trained
 on the card (index/ivf.py over K10 / K11), whose sums run in another
-order than XLA's. Not in the port yet: star-tree cubes, derived HLL
-columns, column partition metadata, chunked no-dictionary STRING / BYTES
-columns, fixed (table-wide) dictionaries and the v3 single-file layout;
-a schema or table config that asks for one raises.
+order than XLA's. Star-tree cubes (the table config's
+starTreeIndexConfigs) are built at seal from the ids and metric values the
+build holds in memory, as the JAX creator builds them (startree/cube.py:
+build_cube_from_arrays), into the same `startree.<i>.{npz,json}` files;
+a rebuild into the same directory first removes the old ones. Not in the
+port yet: derived HLL columns, column partition metadata, chunked
+no-dictionary STRING / BYTES columns, fixed (table-wide) dictionaries and
+the v3 single-file layout; a schema or table config that asks for one
+raises.
 
 Parity: pinot-core/.../segment/creator/impl/SegmentIndexCreationDriverImpl.java
 (two-pass build: stats pass → dictionary creation → index pass → seal) and
@@ -19,6 +24,7 @@ build prefers — ingestion is columnar end-to-end).
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import time
@@ -38,6 +44,8 @@ from pinot_tpu_torch.segment.fwd import (SVForwardIndexWriter,
                                          write_vec_fwd)
 from pinot_tpu_torch.segment.inverted import InvertedIndexWriter
 from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
+from pinot_tpu_torch.startree.cube import (StarTreeConfig,
+                                           build_cube_from_arrays)
 
 
 class DictionaryEncodedColumn:
@@ -123,10 +131,23 @@ class SegmentCreator:
             columns = self._columnarize(records)
 
         os.makedirs(out_dir, exist_ok=True)
+        # a rebuild into the same dir must not serve a previous build's
+        # pre-aggregations against the new rows
+        for stale in glob.glob(os.path.join(out_dir, "startree.*")):
+            os.remove(stale)
         idx_cfg = self.table_config.indexing_config
         _check_supported(self.schema, idx_cfg)
         num_docs = None
         col_meta: Dict[str, ColumnMetadata] = {}
+
+        # columns the star-tree cubes need, kept in memory through the
+        # build so sealing never re-reads the segment from disk
+        st_configs = [StarTreeConfig.from_json(c) if isinstance(c, dict)
+                      else c for c in idx_cfg.star_tree_configs or []]
+        st_dims = {d for c in st_configs for d in c.dimensions}
+        st_metrics = {m for c in st_configs for m in c.metrics}
+        st_dim_lanes: Dict[str, tuple] = {}
+        st_metric_vals: Dict[str, np.ndarray] = {}
         # IVF drift stats stamped into the metadata's custom map
         ivf_custom: Dict[str, str] = {}
 
@@ -167,6 +188,8 @@ class SegmentCreator:
                     arr = np.asarray(raw.decode(),
                                      dtype=field.data_type.np_dtype)
                 write_raw_fwd(out_dir, name, arr)
+                if name in st_metrics:
+                    st_metric_vals[name] = arr.astype(np.float64)
                 col_meta[name] = ColumnMetadata(
                     name=name, data_type=field.data_type,
                     cardinality=int(len(np.unique(arr))),
@@ -205,6 +228,12 @@ class SegmentCreator:
 
             dictionary.save(out_dir, name)
             card = dictionary.cardinality
+            if field.single_value:
+                if name in st_dims:
+                    st_dim_lanes[name] = (ids, card)
+                if name in st_metrics and field.data_type.is_numeric:
+                    st_metric_vals[name] = np.asarray(
+                        dictionary.values, dtype=np.float64)[ids]
 
             # -- forward index ---------------------------------------------
             if field.single_value:
@@ -278,6 +307,13 @@ class SegmentCreator:
         with open(os.path.join(out_dir, fmt.CREATION_META_FILE), "w") as f:
             json.dump({"creator": "pinot_tpu", "version": fmt.SEGMENT_VERSION},
                       f)
+        n_cubes = 0
+        for config in st_configs:
+            cube = build_cube_from_arrays(config, st_dim_lanes,
+                                          st_metric_vals)
+            if cube is not None:
+                cube.save(out_dir, n_cubes)
+                n_cubes += 1
         # seal: stamp the artifact crc into metadata.json (parity:
         # CrcUtils at the end of SegmentIndexCreationDriverImpl.build)
         from pinot_tpu_torch.segment.integrity import stamp_crc
@@ -328,8 +364,6 @@ class SegmentCreator:
 def _check_supported(schema: Schema, idx_cfg) -> None:
     """Raise on what the JAX creator builds and this one does not yet."""
     missing = []
-    if idx_cfg.star_tree_configs:
-        missing.append("star-tree cubes")
     if (idx_cfg.hll_config or {}).get("columnsToDerive"):
         missing.append("derived HLL columns")
     if idx_cfg.segment_partition_config:

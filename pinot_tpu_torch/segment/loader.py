@@ -26,9 +26,11 @@ so every kernel sees the same static layout the JAX package uses:
 Segments come from disk (`ImmutableSegmentLoader.load`, the directories
 segment/creator.py writes, or the JAX package's creator: the files are
 the same) or are built in memory (tools/datagen.py:
-make_segment_from_arrays). Not read yet: star-tree cubes, chunked
-no-dictionary STRING / BYTES columns, schema-evolution default columns;
-there is no residency ledger.
+make_segment_from_arrays). Star-tree cubes (`startree.<i>.*`, startree/
+cube.py) load with the segment into `seg.star_trees`, host arrays only
+(an unloadable cube is skipped, as the JAX loader skips it). Not read
+yet: chunked no-dictionary STRING / BYTES columns, schema-evolution
+default columns; there is no residency ledger.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from pinot_tpu_torch.segment.fwd import (mv_to_padded, read_mv_fwd,
                                          read_sv_fwd, read_vec_fwd)
 from pinot_tpu_torch.segment.inverted import InvertedIndexReader
 from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
+from pinot_tpu_torch.startree.cube import load_star_trees
 
 
 def padded_size(n: int, block: int = PAD_BLOCK) -> int:
@@ -287,6 +290,9 @@ class ImmutableSegment:
                 ds._segment = self
         self._device: Optional[torch.device] = \
             None if device is None else resolve_device(device)
+        # pre-aggregated cubes (startree/cube.py), host arrays; the
+        # loader fills them from the segment directory
+        self.star_trees: list = []
         # primary-key upsert liveness (realtime/upsert.py:ValidDocIds),
         # attached by the upsert manager or a consuming segment's freeze;
         # its device lane is cached by the bitmap's version
@@ -381,7 +387,7 @@ class ImmutableSegmentLoader:
     Counterpart of pinot_tpu/segment/loader.py:ImmutableSegmentLoader:
     read metadata, then per column its dictionary, forward index (SV
     bit-packed, sorted ranges, MV, raw, VECTOR block) and inverted /
-    bloom / IVF indexes.
+    bloom / IVF indexes, then the star-tree cubes.
     Host arrays only: each device lane uploads on first use, to the
     device the segment is bound to (QueryEngine binds it).
     """
@@ -426,4 +432,6 @@ class ImmutableSegmentLoader:
                 if cm.has_bloom_filter:
                     ds.bloom_filter = BloomFilter.load(seg_dir, name)
             sources[name] = ds
-        return ImmutableSegment(meta, sources, device)
+        seg = ImmutableSegment(meta, sources, device)
+        seg.star_trees = load_star_trees(seg_dir)
+        return seg

@@ -1,7 +1,11 @@
 """Synthetic data generators: in-memory segments for benchmarks and tests.
 
-Counterpart of pinot_tpu/tools/datagen.py: the SSB subset and the join
-tables (`lineorderj` x `part`). Builds
+Counterpart of pinot_tpu/tools/datagen.py: the SSB table in memory, on
+disk through the SegmentCreator (with the nine star-tree cubes of the
+JAX bench) and synthesized on the card by K17 (`make_ssb_device_stack`,
+bit for bit the JAX function's lanes, and `SynthStack`, the stacked
+executor's view of them), and the join tables (`lineorderj` x `part`).
+Builds
 ImmutableSegment objects directly from numpy arrays — no file round-trip.
 All segments of a table share one global dictionary per column.
 `make_segment_from_arrays` is the function that carries data across from
@@ -263,6 +267,242 @@ def make_ssb_segments(total_rows: int, num_segments: int, seed: int = 0
         segments.append(make_segment_from_arrays(
             f"ssb_{i}", "lineorder", dict_part, raw_part))
     return SsbTable(segments, pools, ids, supplycost)
+
+
+def ssb_schema():
+    """Schema for the flat lineorder table (creator/loader path)."""
+    from pinot_tpu_torch.common.schema import Schema, dimension, metric
+    fields = []
+    for col, dt in SSB_TYPES.items():
+        if col.startswith("lo_"):
+            fields.append(metric(col, dt))
+        else:
+            fields.append(dimension(col, dt))
+    return Schema("lineorder", fields)
+
+
+# Star-tree cube configs for the SSB query classes (parity: the reference
+# benchmark's star-tree segment variant, contrib/pinot-druid-benchmark
+# config/; functional dependencies — city→nation→region, brand→category→
+# mfgr — keep the actual group counts far below the dimension product).
+# Split orders put each query class's FILTER dims first: cube rows are
+# sorted by split order, so the executor's prefix descent narrows to
+# contiguous blocks by binary search (the classic split-order guidance —
+# most-filtered dimensions first). A copy of pinot_tpu/tools/datagen.py:
+# SSB_STAR_TREE_CONFIGS.
+SSB_STAR_TREE_CONFIGS = [
+    {"dimensionsSplitOrder": ["s_region", "p_brand1", "d_year",
+                              "p_category"],
+     "metrics": ["lo_revenue"]},                      # Q2.2-2.3
+    # Q2.1's EQ pair (s_region, p_category) leads its own cube so the
+    # prefix descent lands on tens of rows instead of a region-block
+    # residual scan (the chooser ranks by prefix depth, so Q2.2/2.3
+    # keep the brand1-leading cube above)
+    {"dimensionsSplitOrder": ["s_region", "p_category", "p_brand1",
+                              "d_year"],
+     "metrics": ["lo_revenue"]},                      # Q2.1
+    {"dimensionsSplitOrder": ["c_region", "s_region", "c_nation",
+                              "s_nation", "d_year"],
+     "metrics": ["lo_revenue"]},                      # Q3.1
+    {"dimensionsSplitOrder": ["c_nation", "s_nation", "c_city", "s_city",
+                              "d_year"],
+     "metrics": ["lo_revenue"]},                      # Q3.2
+    {"dimensionsSplitOrder": ["c_city", "s_city", "d_year"],
+     "metrics": ["lo_revenue"]},                      # Q3.3
+    {"dimensionsSplitOrder": ["c_region", "s_region", "p_mfgr", "d_year",
+                              "c_nation"],
+     "metrics": ["lo_revenue", "lo_supplycost"]},     # Q4.1
+    {"dimensionsSplitOrder": ["c_region", "s_region", "p_mfgr", "d_year",
+                              "s_nation", "p_category"],
+     "metrics": ["lo_revenue", "lo_supplycost"]},     # Q4.2
+    # Q3.4/Q4.3: cubes whose row counts approach the segment's — useless
+    # for scans, but the exact-prefix descents (c_city IN / region+
+    # nation+category EQ) touch only tens of rows; maxSize raised past
+    # the default cap because the scan-payoff heuristic doesn't apply
+    {"dimensionsSplitOrder": ["c_city", "s_city", "d_yearmonth",
+                              "d_year"],
+     "metrics": ["lo_revenue"], "maxSize": 8_000_000},        # Q3.4
+    {"dimensionsSplitOrder": ["c_region", "s_nation", "p_category",
+                              "d_year", "s_city", "p_brand1"],
+     "metrics": ["lo_revenue", "lo_supplycost"],
+     "maxSize": 12_000_000},                                  # Q4.3
+]
+
+
+def ssb_table_config(star_tree: bool = False):
+    from pinot_tpu_torch.common.table_config import IndexingConfig, \
+        TableConfig
+    return TableConfig("lineorder", indexing_config=IndexingConfig(
+        no_dictionary_columns=sorted(SSB_RAW_COLS),
+        star_tree_configs=list(SSB_STAR_TREE_CONFIGS) if star_tree
+        else []))
+
+
+def build_ssb_segment_dirs(base_dir: str, total_rows: int,
+                           num_segments: int, seed: int = 0,
+                           log=None, star_tree: bool = False
+                           ) -> Tuple[List[str], Dict, np.ndarray]:
+    """Full storage path: rows → SegmentCreator → segment dirs on disk
+    (pinot_tpu/tools/datagen.py:build_ssb_segment_dirs, the same rows,
+    dictionaries and cubes; the JAX function's shared_dictionaries option
+    needs fixed dictionaries, which the port's creator does not build).
+
+    Each segment builds its OWN dictionaries from its own rows — exactly
+    what the reference's per-segment SegmentDictionaryCreator produces —
+    and the stacked executor's stack-time union remap handles the
+    differing id domains. `star_tree=True` builds the nine
+    SSB_STAR_TREE_CONFIGS cubes into each segment.
+    Returns (segment_dirs, ids, supplycost) — ids feed the numpy oracle."""
+    import os
+
+    from pinot_tpu_torch.segment.creator import DictionaryEncodedColumn, \
+        SegmentCreator
+
+    pools = ssb_pools(seed)
+    ids, supplycost = make_ssb_ids(total_rows, seed)
+    schema = ssb_schema()
+    config = ssb_table_config(star_tree=star_tree)
+    per = total_rows // num_segments
+    dirs = []
+    for i in range(num_segments):
+        lo = i * per
+        hi = (i + 1) * per if i < num_segments - 1 else total_rows
+        cols = {}
+        for c in SSB_TYPES:
+            if c in SSB_RAW_COLS:
+                cols[c] = supplycost[lo:hi]
+            else:
+                # dictionary-encoded columnar input: the creator still
+                # builds a PER-SEGMENT dictionary of only this slice's
+                # present values (byte-identical segments to the decoded
+                # path) without hashing row-scale strings
+                cols[c] = DictionaryEncodedColumn(pools[c], ids[c][lo:hi])
+        d = os.path.join(base_dir, f"ssb_{i}")
+        SegmentCreator(schema, config, segment_name=f"ssb_{i}").build(cols, d)
+        dirs.append(d)
+        if log:
+            log(f"datagen: built segment {i + 1}/{num_segments} "
+                f"({hi - lo} rows) via SegmentCreator")
+    return dirs, ids, supplycost
+
+
+#: rows of make_ssb_device_stack's plan table (pinot_tpu/tools/datagen.py)
+BLOCK_ROWS = 16384
+
+
+def make_ssb_device_stack(total_rows: int, num_segments: int, mesh=None,
+                          seed: int = 0):
+    """Stacked SSB lanes synthesized on the mesh's device by K17
+    (ops/synth.py), equal bit for bit to
+    pinot_tpu/tools/datagen.py:make_ssb_device_stack with the same
+    arguments on a mesh of as many devices: the same pools, key chain,
+    `s_total` rounding, `padded_size(per)`, lane names and dtypes
+    (`min_id_dtype(card)`). Returns (lanes, num_docs, plan_table, padded):
+    `lanes` maps "col.ids" / "lo_revenue.parts" / "lo_supplycost.raw" to
+    [S, P] tensors (parts [S, n_parts, P], a view of the port's
+    [n_parts, S, P] stacked lane), `num_docs` is int32 [S] on the device
+    (`per` for each real segment, 0 for padding segments) and
+    `plan_table` a small host SsbTable with the same dictionaries that
+    plans build against. `mesh`: parallel.make_mesh()'s tuple (the card
+    when None)."""
+    import torch
+
+    from pinot_tpu_torch.ops import synth
+    from pinot_tpu_torch.parallel.sharded import make_mesh
+    from pinot_tpu_torch.segment.loader import padded_size
+
+    mesh = make_mesh() if mesh is None else tuple(mesh)
+    per = total_rows // num_segments
+    padded = padded_size(per)
+    s_total = -(-num_segments // len(mesh)) * len(mesh)
+    plan_table = make_ssb_segments(max(BLOCK_ROWS, 2 * padded_size(1)), 1,
+                                   seed=seed)
+    keys, tables, dtypes = ssb_synth_inputs(seed, mesh[0])
+    out = synth.ssb_synth(keys, tables, s_total, padded, dtypes)
+    lanes = {f"{c}.ids": out[c] for c in synth.SYNTH_LANES}
+    lanes["lo_revenue.parts"] = out["parts"].permute(1, 0, 2)
+    lanes["lo_supplycost.raw"] = out["lo_supplycost"]
+    num_docs = torch.zeros(s_total, dtype=torch.int32)
+    num_docs[:num_segments] = per
+    return lanes, num_docs.to(mesh[0]), plan_table, padded
+
+
+def ssb_synth_inputs(seed: int, device):
+    """K17's inputs for `seed` (ops/synth.py), on `device`: (keys, tables,
+    dtypes). The keys are JAX's chain from PRNGKey(seed) with the pools'
+    cardinalities as spans; the tables are the derivation maps and
+    lo_revenue's 7-bit part table over its dictionary (the plan table's,
+    the pool itself); each id lane's dtype is min_id_dtype(card), as the
+    JAX function narrows it."""
+    import torch
+
+    from pinot_tpu_torch.ops import synth
+    from pinot_tpu_torch.segment.loader import int_part_info_for, \
+        int_part_table
+
+    pools = ssb_pools(seed)
+    maps = ssb_derivation_tables(pools)
+    rev = pools["lo_revenue"]
+    n_parts, min_v = int_part_info_for(rev)
+
+    def int8(arr):
+        return torch.from_numpy(np.ascontiguousarray(
+            arr, dtype=np.int8)).to(device)
+
+    tables = synth.SynthTables(
+        int8(maps["ymn_to_ym"]), int8(maps["nation_region"]),
+        int8(int_part_table(rev, n_parts, min_v)[:, :len(rev)]))
+    keys = synth.ssb_synth_keys(
+        seed, [len(pools[c]) for c in synth.SYNTH_DRAWS])
+    dtypes = {c: torch.from_numpy(np.zeros(0, min_id_dtype(len(pools[c])))
+                                  ).dtype for c in synth.SYNTH_LANES}
+    return keys, tables, dtypes
+
+
+class SynthStack:
+    """The stacked executor's view of a synthesized SSB stack
+    (parallel/sharded.py:ShardedQueryExecutor.execute_stack), the port's
+    counterpart of bench.py's lane-override stack (:1067-1090): plans
+    build against `plan_table.segments[0]` (the same global
+    dictionaries) and `gather` hands out make_ssb_device_stack's lanes.
+    The JAX stack also adds replicated dictionary value tables ("vals")
+    on demand; the port's SSB plans read none (their sums are 7-bit part
+    lanes and the raw lo_supplycost lane), so a lane the synthesis did
+    not make raises KeyError."""
+
+    def __init__(self, lanes, num_docs, plan_table, padded: int):
+        self.segments = plan_table.segments
+        self.padded_docs = padded
+        self.n_real = int(num_docs.shape[0])
+        self.num_docs = num_docs.cpu().numpy()
+        self._dev_num_docs = num_docs
+        self._lanes = dict(lanes)
+
+    def gather(self, needed_cols):
+        out = {}
+        for col, kind in needed_cols:
+            key = f"{col}.{kind}"
+            if key not in self._lanes:
+                raise KeyError(f"the synthesized stack has no {key}")
+            lane = self._lanes[key]
+            # the kernels read part lanes as [n_parts, S, P]
+            out[key] = lane.permute(1, 0, 2) if kind == "parts" else lane
+        return out
+
+    def device_num_docs(self):
+        return self._dev_num_docs
+
+    def union_column(self, col: str):
+        return None                 # one set of global dictionaries
+
+    def plan_segment(self):
+        return self.segments[0]
+
+    def device_bytes(self) -> int:
+        """Bytes the synthesized lanes hold on the device (the parts'
+        view counted once)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self._lanes.values())
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,10 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.query.stages.join\n"
         "import pinot_tpu_torch.query.stages.window\n"
         "import pinot_tpu_torch.query.stages.broker\n"
+        "import pinot_tpu_torch.native\n"
+        "import pinot_tpu_torch.startree, pinot_tpu_torch.startree.cube\n"
+        "import pinot_tpu_torch.startree.executor\n"
+        "import pinot_tpu_torch.ops.synth\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or\n"
@@ -94,8 +98,8 @@ def test_sources_import_no_jax_and_no_pinot_tpu():
 
 
 def test_every_kernel_source_is_built():
-    """Each registered kernel's source (group_compact.cu's K14-K16 among
-    them) is one build.SOURCES compiles, and every shared header is in
+    """Each registered kernel's source (group_compact.cu's K14-K16 and
+    ssb_synth.cu's K17 among them) is one build.SOURCES compiles, and every shared header is in
     the hash that keys the build."""
     from pinot_tpu_torch.ops import build
     from pinot_tpu_torch.ops import kernels as K
@@ -104,6 +108,9 @@ def test_every_kernel_source_is_built():
     assert {k.source for k in K.KERNELS.values()} <= built
     for name in ("block_compact", "slot_tables", "rank_slots"):
         assert K.KERNELS[name].source.endswith("group_compact.cu")
+    assert K.KERNELS["ssb_synth"].source.endswith("ssb_synth.cu")
+    assert K.KERNELS["ssb_synth"].replaces == \
+        "pinot_tpu/tools/datagen.py:538"
     headers = {p.name for p in build.CSRC.iterdir() if p.suffix == ".cuh"}
     assert {"common.cuh", "group_key.cuh"} <= headers
 

@@ -161,13 +161,11 @@ def test_port_files_are_byte_identical(tmp_path, n):
         assert pmeta == jmeta
 
 
-@pytest.mark.parametrize("what", ["star-tree", "STRING"])
+@pytest.mark.parametrize("what", ["derived HLL", "STRING"])
 def test_creator_refuses_what_it_does_not_build(tmp_path, what):
     cfg = baseball.make_table_config()
-    if what == "star-tree":
-        cfg.indexing_config.star_tree_configs = [
-            {"dimensionsSplitOrder": ["teamID"], "functionColumnPairs":
-             ["SUM__runs"]}]
+    if what == "derived HLL":
+        cfg.indexing_config.hll_config = {"columnsToDerive": ["playerName"]}
     else:            # a chunked raw string column
         cfg.indexing_config.no_dictionary_columns = ["salary", "teamID"]
     with pytest.raises(NotImplementedError, match=what):

@@ -8,9 +8,13 @@ kernel for up to 8 queries); then the upsert table
 baseballStats_REALTIME, ingested, served while it consumes (frozen
 prefix on the card, tail on the host) and masked by validDocIds; and the
 multi-stage plane: joins of lineorderj x part and window functions, stage
-1 -> exchange -> stage 2 in process; and the JAX bench's SSB path: SSB
-segments built on disk with the nine star-tree cubes, and a 100M-row SSB
-stack synthesized on the card by K17 ssb_synth.
+1 -> exchange -> stage 2; the JAX bench's SSB path: SSB segments built on
+disk with the nine star-tree cubes, and a 100M-row SSB stack synthesized
+on the card by K17 ssb_synth; and the query server: ServerInstances on
+the card answering 16 concurrent TCP clients over the SSB table
+(coalesced batches, the result cache, residency tiers under a byte
+budget), raw-key join members in one batched K1, and a stage-2 server
+fetching a peer's stage-1 block over TCP.
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--repeats 5] [--seed 0]
                           [--bb-rows 10000000] [--bb-segments 4]
@@ -277,11 +281,49 @@ non-zero exit and no result line:
 23. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
    repeats), and the depth cuts made to stay inside the time limit.
+24. server (after 17 on the SSB table): a ServerInstance on the card over
+   the SSB segments (in-memory segments get a content name where the
+   artifact CRC goes, so the result cache keys them), started with
+   start(port=0), first per segment, then with mesh=make_mesh(); the
+   default 2 ms batch window and 4 workers. 16 client threads, each on
+   its own ServerConnection, send InstanceRequest bytes at once: Q1.1-
+   Q1.3 with literals drawn from --seed (one shape a flight: they
+   coalesce), then Q2.1-Q4.3. Every reply is reduced and held to the
+   numpy oracle; p50 / p99 per flight, batchedDispatches (must be > 0),
+   the batch occupancy distribution, single-flight waits, K1's batched
+   launches (counts from 0), then the same round again for the result
+   cache's hits.
+25. server_residency (after 24): an instance whose device_bytes_budget is
+   half the SSB table's ledgered bytes (the lanes the 13 queries read);
+   lanes dropped, segments tracked and warmed through the residency
+   manager (past the budget: the host tier), then the 13 queries over
+   all segments, over the host-tier ones (promotions, demotions) and
+   over the others, every answer against the numpy oracle of its rows;
+   bytes per tier, the ledger, demotions, promotions, p50 by the tiers a
+   reply ran on.
+26. server_kernel_check (after 22, on the first raw-key segment): K1's
+   batched form with the join_raw leaf at 2, 4 and 8 members (J2.1's and
+   J2.3's dim sides and six p_category ones, padded to one Dp) against
+   its plain version and B single launches, bit for bit, timed beside 8
+   single launches, one torch.searchsorted per member and its bound;
+   then join_batch: eight J0-shaped raw-key join members (their own dim
+   filters and quantity bounds; stage 1 through the part table's
+   ServerInstance) in one execute_batch with counts from 0, each against
+   join_oracle, the batched join_raw node launched once a segment a
+   signature.
+27. server_exchange (after 26): J2.1's stage 1 published on the part
+   table's instance (started with start(port=0)) and stage 2 on a second
+   instance over the fact segments, fetching the block over TCP (a
+   source with only the address) and in process (with the registry
+   key): both equal to join_oracle, their stage-2 p50s of 5.
+Stage 1 of every join (phases 20, 26, 27) is an InstanceRequest with
+publish_exchange to the part table's ServerInstance.
 
 Phases 10-12 run right after the phase they build on (10 and 11 after
 5, 12 after 9; 11b after 11, 12b after 12); 13-15 after 12b; 16 and
 17 after each table's own phases; 17a and 17b after the SSB table's 17,
-before 6; 19-22 after 17; 18 last.
+before 6; 24 and 25 after 17 on the SSB table; 19-22, 26 and 27 after
+17; 18 last.
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -294,7 +336,9 @@ dense_group_aggregate[jcode] and [jraw], the join phase's launches with
 those nodes; radix_sort_join, radix_sort and window_scan; block_compact,
 slot_tables, rank_slots, radix_sort_rank, dense_group_aggregate[idoff]
 and [idrank], with the case their times come from; ssb_synth, the
-synthesis phase's launch) and
+synthesis phase's launch; filter_mask_batched[join_raw], the
+join_batch phase's launches, its times from server_kernel_check; the
+server phases' launches count with the batches') and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch, numpy and pinot_tpu_torch only.
 """
@@ -302,11 +346,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2336,9 +2382,10 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
-               singles_of=None, expect=None, library=None):
+               singles_of=None, expect=None, library=None,
+               sizes=BATCH_SIZES):
     """The batched form of kernel `name` on one case at each B of
-    BATCH_SIZES: batched(B), plain(B) and single(b) give outputs (tensors,
+    `sizes`: batched(B), plain(B) and single(b) give outputs (tensors,
     tuples or dicts). Held to its plain version, bit for bit (the outputs
     at the indices of `rtol`, float64 block sums, within that relative
     tolerance), and bit for bit to B single launches (the batched outputs
@@ -2351,7 +2398,7 @@ def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
     expect = expect or {f"{name}_batched": 1}
     rtol = rtol or {}
     err = 0.0
-    for B in BATCH_SIZES:
+    for B in sizes:
         K.reset_launch_counts()
         got = _flat(batched(B))
         torch.cuda.synchronize()
@@ -2377,7 +2424,7 @@ def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
                                      f"differs from {B} single launches")
     b = bound(nbytes(8), ops(8))
     report = {"kernel": f"{name}_batched", "case": case,
-              "batch_sizes": list(BATCH_SIZES), "max_abs_err": err,
+              "batch_sizes": list(sizes), "max_abs_err": err,
               "plain_equal": True, "singles_bit_equal": True,
               "ms": time_ms(lambda: batched(8)),
               "b_single_ms": time_ms(lambda: [single(i) for i in range(8)],
@@ -3483,24 +3530,30 @@ def response_dict(resp, fi: int) -> dict:
             for g in agg["groupByResult"]}
 
 
-def stage1_publish(scan, segments, mgr, xid: str, server: str) -> dict:
-    """A stage-1 scan as a server runs it (pinot_tpu/server/instance.py:
-    599-640): the request through the port's executor, the DataTable
-    published, or a capacity error when the scan matched more rows than
-    the block holds. Returns the source descriptor."""
+_REQUEST_IDS = itertools.count(1)
+
+
+def stage1_publish(server, scan, xid: str, segments=None) -> dict:
+    """A stage-1 scan as the broker dispatches it: an InstanceRequest
+    carrying publish_exchange (and `segments`, its search segments, where
+    given) to the ServerInstance that holds the table, whose epilogue (server/instance.py:_maybe_publish) publishes
+    the DataTable in its exchange and answers with an ack, or with the
+    typed exchangeCapacity error when the scan matched more rows than the
+    block holds. Returns the source descriptor: the in-process registry
+    key and the instance's TCP address."""
     from pinot_tpu_torch.common.datatable import DataTable
-    from pinot_tpu_torch.query.executor import ServerQueryExecutor
-    dt = DataTable.from_block(scan, ServerQueryExecutor().execute(
-        scan, segments))
-    if dt.exceptions:
-        raise AssertionError(f"stage-1 scan {xid}: {dt.exceptions}")
-    rows = dt.num_rows()
-    matched = int(dt.metadata.get("numDocsScanned", "0"))
-    if matched > rows:
-        raise AssertionError(f"stage-1 scan {xid} matched {matched} rows but "
-                             f"the exchange window holds {rows}")
-    mgr.put(xid, dt.to_bytes())
-    return {"server": server, "xkey": mgr.xkey, "id": xid, "rows": rows}
+    from pinot_tpu_torch.common.request import InstanceRequest
+    from pinot_tpu_torch.common.serde import instance_request_to_bytes
+    ack = DataTable.from_bytes(server.handle_request_bytes(
+        instance_request_to_bytes(InstanceRequest(
+            request_id=next(_REQUEST_IDS), query=scan,
+            search_segments=segments, publish_exchange={"id": xid}))))
+    if ack.exceptions:
+        raise AssertionError(f"stage-1 scan {xid}: {ack.exceptions}")
+    return {"server": server.instance_id,
+            "xkey": ack.metadata["exchangeKey"], "id": xid,
+            "rows": int(ack.metadata["exchangeRows"]),
+            "host": "127.0.0.1", "port": server.port}
 
 
 def join_stage2(req, sources, segments, executor):
@@ -3687,8 +3740,9 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
     return entries
 
 
-def run_join(segs, raw_segs, dim_seg, dim, fact, raw_fact, repeats: int):
-    """Stage 1 -> exchange -> stage 2 for J0 and J2.1-J2.3: launch counts
+def run_join(segs, raw_segs, dim_server, dim, fact, raw_fact, repeats: int):
+    """Stage 1 (through `dim_server`, the ServerInstance holding the part
+    table) -> exchange -> stage 2 for J0 and J2.1-J2.3: launch counts
     from 0, each query once per segment (8 segments), stacked and on the
     raw-key segment, each answer equal to join_oracle and to the host
     twin; then the timed repeats. Returns (launches, {query: (request,
@@ -3702,8 +3756,6 @@ def run_join(segs, raw_segs, dim_seg, dim, fact, raw_fact, repeats: int):
     from pinot_tpu_torch.query.executor import ServerQueryExecutor
     from pinot_tpu_torch.query.reduce import BrokerReduceService
     from pinot_tpu_torch.query.stages import broker as stages_broker
-    from pinot_tpu_torch.query.stages import exchange as xmod
-    mgr = xmod.ExchangeManager()
     sharded = ShardedQueryExecutor(mesh=make_mesh())
     paths = {"per_segment": (segs, ServerQueryExecutor()),
              "stacked": (segs, sharded),
@@ -3711,123 +3763,124 @@ def run_join(segs, raw_segs, dim_seg, dim, fact, raw_fact, repeats: int):
              "raw_key_stacked": (raw_segs, sharded)}
     contexts, checked, seconds = {}, {}, collections.Counter()
     path_launches = {}
-    try:
-        K.reset_launch_counts()
-        for q, (pql, dim_filter, fact_filter, gcols) in JOIN_QUERIES.items():
-            req = compile_pql(pql)
-            t = time.perf_counter()
-            src = stage1_publish(stages_broker.dim_scan_request(req),
-                                 [dim_seg], mgr, f"{q}.0", "Server_dim")
-            seconds["stage1"] += time.perf_counter() - t
-            for path, (ss, ex) in paths.items():
-                if path.startswith("raw_key") and \
-                        q not in RAW_KEY_JOIN_QUERIES:
-                    continue
-                before = K.launch_counts()
-                t = time.perf_counter()
-                resp, ctx, r = join_stage2(req, [src], ss, ex)
-                torch.cuda.synchronize()
-                seconds["stage2"] += time.perf_counter() - t
-                path_launches[(q, path)] = {
-                    k: v - before.get(k, 0)
-                    for k, v in K.launch_counts().items()
-                    if v - before.get(k, 0)}
-                checked[(q, path)] = (resp, r, ss)
-                if path == "per_segment":
-                    contexts[q] = (req, ctx, src)
-        launches = K.launch_counts()
+    K.reset_launch_counts()
+    for q, (pql, dim_filter, fact_filter, gcols) in JOIN_QUERIES.items():
+        req = compile_pql(pql)
         t = time.perf_counter()
-        from pinot_tpu_torch.tools import datagen
-        probes = {"fact": datagen.join_probe(dim, fact),
-                  "raw_key": datagen.join_probe(dim, raw_fact)}
-        wants, hosts = {}, {}        # per (query, table): one each
-        for (q, path), (resp, r, ss) in checked.items():
-            pql, dim_filter, fact_filter, gcols = JOIN_QUERIES[q]
-            if resp.exceptions:
-                raise AssertionError(f"{q} {path}: {resp.exceptions}")
-            table = "raw_key" if path.startswith("raw_key") else "fact"
-            if (q, table) not in wants:
-                wants[(q, table)] = join_oracle_dict(
-                    dim, raw_fact if table == "raw_key" else fact,
-                    dim_filter, fact_filter, gcols, probes[table])
-                hosts[(q, table)] = BrokerReduceService().reduce(
-                    r, [combine_blocks(r, [host_exec.execute_host(s, r)
-                                           for s in ss])])
-            want, host = wants[(q, table)], hosts[(q, table)]
-            for fi in range(2):
-                got = response_dict(resp, fi)
-                if got != want[fi] or response_dict(host, fi) != want[fi]:
-                    raise AssertionError(
-                        f"{q} {path}: aggregation {fi} differs from "
-                        f"join_oracle ({len(got)} / {len(want[fi])} groups)")
-            emit({"phase": "join", "query": q, "path": path,
-                  "check": "pass", "groups": len(response_dict(resp, 0)),
-                  "joined_rows": int(sum(response_dict(resp, 1).values())),
-                  "dim_rows": len(contexts[q][1].keys),
-                  "launches": path_launches[(q, path)]})
-        seconds["oracle_and_host_checks"] += time.perf_counter() - t
-        needed = ("filter_mask", "filter_mask[join_raw]", "[jcode]",
-                  "[jraw]", "radix_sort_join", "masked_part_sums")
+        src = stage1_publish(dim_server,
+                             stages_broker.dim_scan_request(req),
+                             f"{q}.0")
+        seconds["stage1"] += time.perf_counter() - t
+        for path, (ss, ex) in paths.items():
+            if path.startswith("raw_key") and \
+                    q not in RAW_KEY_JOIN_QUERIES:
+                continue
+            before = K.launch_counts()
+            t = time.perf_counter()
+            resp, ctx, r = join_stage2(req, [src], ss, ex)
+            torch.cuda.synchronize()
+            seconds["stage2"] += time.perf_counter() - t
+            path_launches[(q, path)] = {
+                k: v - before.get(k, 0)
+                for k, v in K.launch_counts().items()
+                if v - before.get(k, 0)}
+            checked[(q, path)] = (resp, r, ss)
+            if path == "per_segment":
+                contexts[q] = (req, ctx, src)
+    launches = K.launch_counts()
+    t = time.perf_counter()
+    from pinot_tpu_torch.tools import datagen
+    probes = {"fact": datagen.join_probe(dim, fact),
+              "raw_key": datagen.join_probe(dim, raw_fact)}
+    wants, hosts = {}, {}        # per (query, table): one each
+    for (q, path), (resp, r, ss) in checked.items():
+        pql, dim_filter, fact_filter, gcols = JOIN_QUERIES[q]
+        if resp.exceptions:
+            raise AssertionError(f"{q} {path}: {resp.exceptions}")
+        table = "raw_key" if path.startswith("raw_key") else "fact"
+        if (q, table) not in wants:
+            wants[(q, table)] = join_oracle_dict(
+                dim, raw_fact if table == "raw_key" else fact,
+                dim_filter, fact_filter, gcols, probes[table])
+            hosts[(q, table)] = BrokerReduceService().reduce(
+                r, [combine_blocks(r, [host_exec.execute_host(s, r)
+                                       for s in ss])])
+        want, host = wants[(q, table)], hosts[(q, table)]
+        for fi in range(2):
+            got = response_dict(resp, fi)
+            if got != want[fi] or response_dict(host, fi) != want[fi]:
+                raise AssertionError(
+                    f"{q} {path}: aggregation {fi} differs from "
+                    f"join_oracle ({len(got)} / {len(want[fi])} groups)")
+        emit({"phase": "join", "query": q, "path": path,
+              "check": "pass", "groups": len(response_dict(resp, 0)),
+              "joined_rows": int(sum(response_dict(resp, 1).values())),
+              "dim_rows": len(contexts[q][1].keys),
+              "launches": path_launches[(q, path)]})
+    seconds["oracle_and_host_checks"] += time.perf_counter() - t
+    needed = ("filter_mask", "filter_mask[join_raw]", "[jcode]",
+              "[jraw]", "radix_sort_join", "masked_part_sums")
 
-        def launched(counts, k):
-            # a join's group key is evaluated by K14 (the compacted route)
-            # or by K3 (the sorted rung, compaction off)
-            if k.startswith("["):
-                return counts.get(f"block_compact{k}", 0) + \
-                    counts.get(f"dense_group_aggregate{k}", 0)
-            return counts.get(k, 0)
+    def launched(counts, k):
+        # a join's group key is evaluated by K14 (the compacted route)
+        # or by K3 (the sorted rung, compaction off)
+        if k.startswith("["):
+            return counts.get(f"block_compact{k}", 0) + \
+                counts.get(f"dense_group_aggregate{k}", 0)
+        return counts.get(k, 0)
 
-        missing = [k for k in needed if not launched(launches, k)]
-        # the stacked raw-key path: join_raw over the stack's raw lane,
-        # and the jraw key where a dim column groups (J2.1)
-        missing += [f"{q} raw_key_stacked {k}" for q, k in (
-            ("J0", "filter_mask[join_raw]"),
-            ("J2.1", "filter_mask[join_raw]"),
-            ("J2.1", "[jraw]"))
-            if not launched(path_launches[(q, "raw_key_stacked")], k)]
-        if missing:
-            raise AssertionError(f"join kernels never launched: {missing} "
-                                 f"({launches})")
-        # the timed repeats: stage 1 and stage 2 apart, per query and path
-        p50 = {}
-        for q, (req, _ctx, _src) in contexts.items():
-            t1 = []
-            for i in range(repeats):
+    missing = [k for k in needed if not launched(launches, k)]
+    # the stacked raw-key path: join_raw over the stack's raw lane,
+    # and the jraw key where a dim column groups (J2.1)
+    missing += [f"{q} raw_key_stacked {k}" for q, k in (
+        ("J0", "filter_mask[join_raw]"),
+        ("J2.1", "filter_mask[join_raw]"),
+        ("J2.1", "[jraw]"))
+        if not launched(path_launches[(q, "raw_key_stacked")], k)]
+    if missing:
+        raise AssertionError(f"join kernels never launched: {missing} "
+                             f"({launches})")
+    # the timed repeats: stage 1 and stage 2 apart, per query and path
+    p50 = {}
+    for q, (req, _ctx, _src) in contexts.items():
+        t1 = []
+        for i in range(repeats):
+            t = time.perf_counter()
+            src = stage1_publish(dim_server,
+                                 stages_broker.dim_scan_request(req),
+                                 f"{q}.r{i}")
+            t1.append((time.perf_counter() - t) * 1e3)
+        p50[(q, "stage1")] = float(np.median(t1))
+        for path, (ss, ex) in paths.items():
+            if path.startswith("raw_key") and \
+                    q not in RAW_KEY_JOIN_QUERIES:
+                continue
+            t2 = []
+            for _ in range(repeats):
                 t = time.perf_counter()
-                src = stage1_publish(stages_broker.dim_scan_request(req),
-                                     [dim_seg], mgr, f"{q}.r{i}",
-                                     "Server_dim")
-                t1.append((time.perf_counter() - t) * 1e3)
-            p50[(q, "stage1")] = float(np.median(t1))
-            for path, (ss, ex) in paths.items():
-                if path.startswith("raw_key") and \
-                        q not in RAW_KEY_JOIN_QUERIES:
-                    continue
-                t2 = []
-                for _ in range(repeats):
-                    t = time.perf_counter()
-                    join_stage2(req, [src], ss, ex)
-                    torch.cuda.synchronize()
-                    t2.append((time.perf_counter() - t) * 1e3)
-                p50[(q, path)] = float(np.median(t2))
-                emit({"phase": "join", "query": q, "path": path,
-                      "stage1_p50_ms": p50[(q, "stage1")],
-                      "stage2_p50_ms": p50[(q, path)], "samples_ms": t2})
-        stack = sharded.stack_for(segs)
-        report = {"phase": "join_summary", "queries_passed": len(checked),
-                  "segment_device_bytes": sum(s.device_bytes() for s in segs),
-                  "raw_key_device_bytes": sum(s.device_bytes()
-                                              for s in raw_segs),
-                  "dim_device_bytes": dim_seg.device_bytes(),
-                  "stack_device_bytes": stack.device_bytes(),
-                  "peak_device_bytes": torch.cuda.max_memory_allocated(),
-                  "seconds": dict(seconds), "launches": {
-                      k: v for k, v in launches.items() if v}}
-        emit(report)
-        return launches, {q: (req, ctx) for q, (req, ctx, _s) in
-                          contexts.items()}, report
-    finally:
-        mgr.close()
+                join_stage2(req, [src], ss, ex)
+                torch.cuda.synchronize()
+                t2.append((time.perf_counter() - t) * 1e3)
+            p50[(q, path)] = float(np.median(t2))
+            emit({"phase": "join", "query": q, "path": path,
+                  "stage1_p50_ms": p50[(q, "stage1")],
+                  "stage2_p50_ms": p50[(q, path)], "samples_ms": t2})
+    stack = sharded.stack_for(segs)
+    report = {"phase": "join_summary", "queries_passed": len(checked),
+              "segment_device_bytes": sum(s.device_bytes() for s in segs),
+              "raw_key_device_bytes": sum(s.device_bytes()
+                                          for s in raw_segs),
+              "dim_device_bytes": sum(
+                  sdm.segment.device_bytes() for sdm in
+                  dim_server.data_manager.table("part")._segments
+                  .values()),
+              "stack_device_bytes": stack.device_bytes(),
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "seconds": dict(seconds), "launches": {
+                  k: v for k, v in launches.items() if v}}
+    emit(report)
+    return launches, {q: (req, ctx) for q, (req, ctx, _s) in
+                      contexts.items()}, report
 
 
 def window_where(fact) -> tuple:
@@ -3869,10 +3922,11 @@ def _window_invariants(blk, scanned: int, partitioned: bool) -> None:
                              f"{scanned} scanned")
 
 
-def run_window(segs, where: str, rows: int, repeats: int):
-    """W1 and W2: stage 1 (each fact segment a server publishing its
-    scan) -> exchange -> execute_window_stage on the card, launch counts
-    from 0; bit-equal to the numpy twin over the same blocks, with the
+def run_window(fact_server, segs, where: str, rows: int, repeats: int):
+    """W1 and W2: stage 1 (each fact segment's scan published by
+    `fact_server`, the ServerInstance holding them, as one InstanceRequest
+    a segment) -> exchange -> execute_window_stage on the card, launch
+    counts from 0; bit-equal to the numpy twin over the same blocks, with the
     rank / telescoping invariants; then the timed repeats. Returns
     (launches, W1's (request, columns, rows) for the kernel check)."""
     from pinot_tpu_torch.ops import kernels as K
@@ -3881,64 +3935,61 @@ def run_window(segs, where: str, rows: int, repeats: int):
     from pinot_tpu_torch.query.stages import exchange as xmod
     from pinot_tpu_torch.query.stages import join as jmod
     from pinot_tpu_torch.query.stages import window as wmod
-    mgrs = [xmod.ExchangeManager() for _ in segs]
-    try:
-        def stage1(req, tag):
-            scan = stages_broker.window_scan_request(req, req)
-            return [stage1_publish(scan, [s], m, f"{tag}.{i}", f"Server_{i}")
-                    for i, (s, m) in enumerate(zip(segs, mgrs))]
 
-        results = {}
-        K.reset_launch_counts()
-        for w, pql in WINDOW_QUERIES.items():
-            req = compile_pql(pql.format(where=where))
-            sources = stage1(req, w)
-            blk = wmod.execute_window_stage(req, sources)
-            results[w] = (req, sources, blk)
-        torch.cuda.synchronize()
-        launches = K.launch_counts()
-        for name in ("radix_sort", "window_scan"):
-            if not launches[name]:
-                raise AssertionError(f"{name} never launched on the window "
-                                     f"path: {launches}")
-        case = None
-        for w, (req, sources, blk) in results.items():
-            host = wmod.execute_window_stage(req, sources, use_device=False)
-            for a, b in zip(blk.selection_cols, host.selection_cols):
-                if not np.array_equal(np.asarray(a), np.asarray(b)):
-                    raise AssertionError(f"{w}: the card's window differs "
-                                         "from the numpy twin")
-            if blk.selection_columns != host.selection_columns:
-                raise AssertionError(f"{w}: columns differ")
-            _window_invariants(blk, rows, bool(req.windows[0].partition_by))
-            if w == "W1":
-                cols = {}
-                for dt in xmod.fetch_blocks(sorted(
-                        sources, key=lambda s: (s["server"], s["id"])), None):
-                    for c, v in jmod.columns_of(dt).items():
-                        cols.setdefault(c, []).append(np.asarray(v))
-                case = (req, {c: np.concatenate(v) for c, v in cols.items()},
-                        rows)
-        p50 = {}
-        for w, (req, _sources, _blk) in results.items():
-            t1, t2 = [], []
-            for i in range(repeats):
-                t = time.perf_counter()
-                sources = stage1(req, f"{w}.r{i}")
-                t1.append((time.perf_counter() - t) * 1e3)
-                t = time.perf_counter()
-                wmod.execute_window_stage(req, sources)
-                torch.cuda.synchronize()
-                t2.append((time.perf_counter() - t) * 1e3)
-            p50[w] = (float(np.median(t1)), float(np.median(t2)))
-            emit({"phase": "window", "query": w, "check": "pass",
-                  "where": where, "rows": rows, "stage1_p50_ms": p50[w][0],
-                  "stage2_p50_ms": p50[w][1], "stage1_samples_ms": t1,
-                  "stage2_samples_ms": t2})
-        return launches, case
-    finally:
-        for m in mgrs:
-            m.close()
+    def stage1(req, tag):
+        scan = stages_broker.window_scan_request(req, req)
+        return [stage1_publish(fact_server, scan, f"{tag}.{i}",
+                               [s.segment_name])
+                for i, s in enumerate(segs)]
+
+    results = {}
+    K.reset_launch_counts()
+    for w, pql in WINDOW_QUERIES.items():
+        req = compile_pql(pql.format(where=where))
+        sources = stage1(req, w)
+        blk = wmod.execute_window_stage(req, sources)
+        results[w] = (req, sources, blk)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    for name in ("radix_sort", "window_scan"):
+        if not launches[name]:
+            raise AssertionError(f"{name} never launched on the window "
+                                 f"path: {launches}")
+    case = None
+    for w, (req, sources, blk) in results.items():
+        host = wmod.execute_window_stage(req, sources, use_device=False)
+        for a, b in zip(blk.selection_cols, host.selection_cols):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"{w}: the card's window differs "
+                                     "from the numpy twin")
+        if blk.selection_columns != host.selection_columns:
+            raise AssertionError(f"{w}: columns differ")
+        _window_invariants(blk, rows, bool(req.windows[0].partition_by))
+        if w == "W1":
+            cols = {}
+            for dt in xmod.fetch_blocks(sorted(
+                    sources, key=lambda s: (s["server"], s["id"])), None):
+                for c, v in jmod.columns_of(dt).items():
+                    cols.setdefault(c, []).append(np.asarray(v))
+            case = (req, {c: np.concatenate(v) for c, v in cols.items()},
+                    rows)
+    p50 = {}
+    for w, (req, _sources, _blk) in results.items():
+        t1, t2 = [], []
+        for i in range(repeats):
+            t = time.perf_counter()
+            sources = stage1(req, f"{w}.r{i}")
+            t1.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            wmod.execute_window_stage(req, sources)
+            torch.cuda.synchronize()
+            t2.append((time.perf_counter() - t) * 1e3)
+        p50[w] = (float(np.median(t1)), float(np.median(t2)))
+        emit({"phase": "window", "query": w, "check": "pass",
+              "where": where, "rows": rows, "stage1_p50_ms": p50[w][0],
+              "stage2_p50_ms": p50[w][1], "stage1_samples_ms": t1,
+              "stage2_samples_ms": t2})
+    return launches, case
 
 
 # ---------------------------------------------------------------------------
@@ -4223,6 +4274,635 @@ def run_ssb_synth(args):
     return launches, entry
 
 
+# ---------------------------------------------------------------------------
+# The query server: ServerInstance over TCP (phases 24-27)
+# ---------------------------------------------------------------------------
+
+SERVER_CLIENTS = 16                 # client threads, one connection each
+SERVER_WORKERS = 4                  # the scheduler's workers (the default)
+#: the batched join_raw check's member counts
+SERVER_JOIN_BATCH_SIZES = (2, 4, 8)
+#: dim filters of the batched join_raw check's other members (beside
+#: J2.1's and J2.3's dim sides)
+SERVER_JOIN_CATEGORIES = ("MFGR#11", "MFGR#13", "MFGR#21", "MFGR#24",
+                          "MFGR#32", "MFGR#45")
+SERVER_EXCHANGE_REPEATS = 5
+
+
+def stamp_content_names(segments, seed: int, rows: int) -> None:
+    """In-memory segments were never sealed, so they carry no artifact
+    CRC and the result cache would take none of their answers. Their
+    content is a function of the generator's inputs (seed, rows, segment
+    count and index), which name it as exactly as a CRC names a sealed
+    artifact: stamp that name where the CRC goes."""
+    for i, seg in enumerate(segments):
+        if not seg.metadata.crc:
+            seg.metadata.crc = f"ssb:{seed}:{rows}:{len(segments)}:{i}"
+
+
+def server_requests(seed: int):
+    """Each client's requests, [(flight, pql, Q1 literals or None)]: Q1.1,
+    Q1.2 and Q1.3 with literals drawn from --seed (one shape a flight, so
+    concurrent clients coalesce), then Q2.1-Q4.3 as the benchmark writes
+    them."""
+    from pinot_tpu_torch.tools.ssb import Q1_LITERALS, Q1_TEMPLATES, \
+        SSB_PQLS
+    rng = np.random.default_rng([seed, 12])
+    out = []
+    for _c in range(SERVER_CLIENTS):
+        draws = [("q1.1", dict(Q1_LITERALS["q1.1"],
+                               year=int(rng.integers(1992, 1999)))),
+                 ("q1.2", dict(Q1_LITERALS["q1.2"],
+                               ym=199400 + int(rng.integers(1, 13)))),
+                 ("q1.3", dict(Q1_LITERALS["q1.3"],
+                               week=int(rng.integers(1, 9))))]
+        out.append([(f, Q1_TEMPLATES[f].format(**lits), lits)
+                    for f, lits in draws] +
+                   [(q, pql, None) for q, pql in SSB_PQLS.items()
+                    if not q.startswith("q1")])
+    return out
+
+
+def q1_oracle(pools, ids):
+    """fn(flight, literals) -> SUM(lo_revenue) of a Q1 flight at any value
+    of its drawn literal (d_year, d_yearmonthnum or d_weeknuminyear), the
+    others fixed at Q1_LITERALS: one pass a flight over the rows the fixed
+    literals keep, revenue summed per value of the drawn column
+    (float64 sums of integers below 2^53: exact)."""
+    from pinot_tpu_torch.tools.ssb import Q1_LITERALS, _range_ids, _vid
+    rev = pools["lo_revenue"].astype(np.float64)
+    sums = {}
+    for flight, col in (("q1.1", "d_year"), ("q1.2", "d_yearmonthnum"),
+                        ("q1.3", "d_weeknuminyear")):
+        lits = Q1_LITERALS[flight]
+        d_lo, d_hi = _range_ids(pools, "lo_discount", lits["dlo"],
+                                lits["dhi"])
+        disc, qty = ids["lo_discount"], ids["lo_quantity"]
+        mask = (disc >= d_lo) & (disc < d_hi)
+        if flight == "q1.1":
+            mask &= qty < _vid(pools, "lo_quantity", lits["qty"])
+        else:
+            q_lo, q_hi = _range_ids(pools, "lo_quantity", lits["qlo"],
+                                    lits["qhi"])
+            mask &= (qty >= q_lo) & (qty < q_hi)
+            if flight == "q1.3":
+                mask &= ids["d_year"] == _vid(pools, "d_year", lits["year"])
+        sums[flight] = (col, np.bincount(
+            ids[col][mask], weights=rev[ids["lo_revenue"][mask]],
+            minlength=len(pools[col])))
+    drawn = {"q1.1": "year", "q1.2": "ym", "q1.3": "week"}
+
+    def answer(flight, lits):
+        col, s = sums[flight]
+        return float(s[_vid(pools, col, lits[drawn[flight]])])
+    return answer
+
+
+def _client_round(port: int, payloads):
+    """One round: client c sends payloads[c] one after another on its own
+    ServerConnection, all clients released at once. Returns
+    ([[reply bytes]], [[ms]], wall seconds); the ms are the clients' own
+    clocks around each request."""
+    from pinot_tpu_torch.transport.tcp import EventLoopThread, \
+        ServerConnection
+    loop = EventLoopThread()
+    conns = [ServerConnection("127.0.0.1", port) for _ in payloads]
+    replies = [[None] * len(p) for p in payloads]
+    ms = [[0.0] * len(p) for p in payloads]
+    errors = []
+    start = threading.Barrier(len(payloads) + 1)
+
+    def client(c):
+        try:
+            start.wait(60)
+            for i, raw in enumerate(payloads[c]):
+                t = time.perf_counter()
+                replies[c][i] = loop.run(conns[c].request(raw, timeout=300),
+                                         timeout=320)
+                ms[c][i] = (time.perf_counter() - t) * 1e3
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(len(payloads))]
+    try:
+        for t in threads:
+            t.start()
+        start.wait(60)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a server client never finished")
+        if errors:
+            raise AssertionError(f"server clients failed: {errors[:3]}")
+    finally:
+        for c in conns:
+            loop.run(c.close(), timeout=30)
+        loop.stop()
+    return replies, ms, wall
+
+
+def _check_reply(raw, flight, request, want):
+    """A reply's DataTable reduced as the broker reduces it, held to the
+    oracle's answer `want`."""
+    from pinot_tpu_torch.common.datatable import DataTable
+    from pinot_tpu_torch.query.reduce import BrokerReduceService
+    from pinot_tpu_torch.tools.ssb import canon_response, check
+    dt = DataTable.from_bytes(raw)
+    if dt.exceptions:
+        raise AssertionError(f"server {flight}: {dt.exceptions}")
+    check(flight, canon_response(flight, BrokerReduceService().reduce(
+        request, [dt.to_block()])), want)
+    return dt
+
+
+def run_server(segments, table, oracle, args):
+    """Phase server: a ServerInstance on the card over the SSB segments,
+    started with start(port=0), first per segment and then with
+    mesh=make_mesh(), the default 2 ms batch window and 4 workers. 16
+    client threads, each on its own ServerConnection, send their
+    InstanceRequest bytes (server_requests) at once; every reply is held
+    to the numpy oracle. Then the same round again (the result cache's
+    hits). Reports per-flight p50 / p99, batchedDispatches, the batch
+    occupancy distribution, cache hits, and K1's batched launches from
+    launch counts set to 0 before the first round. Fails unless
+    batchedDispatches > 0. Returns the launches of both instances'
+    first rounds."""
+    from pinot_tpu_torch.common.metrics import ServerMeter, ServerTimer
+    from pinot_tpu_torch.common.request import InstanceRequest
+    from pinot_tpu_torch.common.serde import instance_request_to_bytes
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.server import ServerInstance
+    stamp_content_names(segments, args.seed, len(table.ids["d_year"]))
+    t = time.perf_counter()
+    q1 = q1_oracle(table.pools, table.ids)
+    from pinot_tpu_torch.tools.ssb import Q1_LITERALS, q1_revenue
+    for f in ("q1.1", "q1.2", "q1.3"):     # the fast oracle against the
+        lits = Q1_LITERALS[f]               # per-query one, once a flight
+        if abs(q1(f, lits) - q1_revenue(table.pools, table.ids, f, lits)) \
+                > 1e-6 * max(1.0, q1(f, lits)):
+            raise AssertionError(f"the Q1 oracle disagrees on {f}")
+    wants = {}
+    opt = BrokerRequestOptimizer()
+    plan = server_requests(args.seed)
+    requests = [[opt.optimize(compile_pql(pql)) for _f, pql, _l in cl]
+                for cl in plan]
+    for cl in plan:
+        for f, pql, lits in cl:
+            if (f, pql) not in wants:
+                wants[(f, pql)] = q1(f, lits) if lits else oracle[f]()
+    oracle_s = time.perf_counter() - t
+    total = dict.fromkeys(K.launch_counts(), 0)
+    for label, mesh in (("per_segment", None), ("stacked", make_mesh())):
+        srv = ServerInstance(f"ssb_{label}", num_workers=SERVER_WORKERS,
+                             mesh=mesh)
+        tdm = srv.data_manager.table("lineorder", create=True)
+        for seg in segments:
+            tdm.add_segment(seg)
+        try:
+            port = srv.start(port=0)
+            payloads = [[instance_request_to_bytes(InstanceRequest(
+                request_id=next(_REQUEST_IDS), query=r)) for r in cl]
+                for cl in requests]
+            K.reset_launch_counts()
+            replies, ms, wall = _client_round(port, payloads)
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            for k, v in launches.items():
+                total[k] += v
+            t = time.perf_counter()
+            for c, cl in enumerate(plan):
+                for i, (f, pql, _l) in enumerate(cl):
+                    _check_reply(replies[c][i], f, requests[c][i],
+                                 wants[(f, pql)])
+            check_s = time.perf_counter() - t
+            batched = srv.metrics.meter(ServerMeter.BATCHED_DISPATCHES).count
+            occupancy = collections.Counter(
+                int(x) for x in
+                srv.metrics.timer(ServerTimer.BATCH_OCCUPANCY)._samples)
+            hits0 = srv.metrics.meter(ServerMeter.RESULT_CACHE_HITS).count
+            waits0 = srv.metrics.meter(ServerMeter.SINGLE_FLIGHT_WAITS).count
+            again = [[instance_request_to_bytes(InstanceRequest(
+                request_id=next(_REQUEST_IDS), query=r)) for r in cl]
+                for cl in requests]
+            replies2, ms2, wall2 = _client_round(port, again)
+            for c, cl in enumerate(plan):
+                for i, (f, pql, _l) in enumerate(cl):
+                    _check_reply(replies2[c][i], f, requests[c][i],
+                                 wants[(f, pql)])
+            hits = srv.metrics.meter(ServerMeter.RESULT_CACHE_HITS).count
+            flights = sorted({f for f, _p, _l in plan[0]})
+            lat = {f: [ms[c][i] for c, cl in enumerate(plan)
+                       for i, (g, _p, _l) in enumerate(cl) if g == f]
+                   for f in flights}
+            report = {
+                "phase": "server", "path": label,
+                "clients": SERVER_CLIENTS, "workers": SERVER_WORKERS,
+                "batch_window_ms": srv.batch_window_ms,
+                "requests": sum(len(cl) for cl in plan), "check": "pass",
+                "wall_s": wall, "qps": sum(len(cl) for cl in plan) / wall,
+                "p50_ms": {f: float(np.percentile(v, 50))
+                           for f, v in lat.items()},
+                "p99_ms": {f: float(np.percentile(v, 99))
+                           for f, v in lat.items()},
+                "batched_dispatches": batched,
+                "batch_occupancy": dict(sorted(occupancy.items())),
+                "batch_bypass": srv.metrics.meter(
+                    ServerMeter.BATCH_BYPASS).count,
+                "single_flight_waits": waits0,
+                "cache_hits_first_round": hits0,
+                "repeat_round_cache_hits": hits - hits0,
+                "repeat_round_requests": sum(len(cl) for cl in plan),
+                "repeat_round_p50_ms": float(np.median(
+                    [x for row in ms2 for x in row])),
+                "repeat_round_wall_s": wall2,
+                "k1_batched_launches": launches["filter_mask_batched"],
+                "launches": {k: v for k, v in launches.items() if v},
+                "oracle_seconds": oracle_s, "check_seconds": check_s}
+            emit(report)
+            if batched <= 0:
+                raise AssertionError(f"server {label}: no batched dispatch "
+                                     f"({report})")
+        finally:
+            srv.stop()
+    return total
+
+
+def _segment_rows(table, names):
+    """The rows of the SSB segments `names` (ssb_<i>, equal slices in
+    order) as (ids, supplycost) for the numpy oracle."""
+    n = len(table.ids["d_year"])
+    per = n // len(table.segments)
+    parts = []
+    for name in names:
+        i = int(name.rsplit("_", 1)[1])
+        parts.append(slice(i * per, (i + 1) * per
+                           if i < len(table.segments) - 1 else n))
+    ids = {c: np.concatenate([a[s] for s in parts])
+           for c, a in table.ids.items()}
+    return ids, np.concatenate([table.supplycost[s] for s in parts])
+
+
+def residency_watermark(n_segments: int) -> int:
+    """server_residency's deployment setting for admission's
+    promotion-backlog watermark: past its segment count, so that a
+    backlog of hot segments off the card never browns queries out."""
+    return n_segments + 1
+
+
+def run_server_residency(segments, table, oracle, args):
+    """Phase server_residency: a ServerInstance on the card whose
+    device_bytes_budget is half the SSB table's ledgered bytes (the lanes
+    the earlier phases uploaded: ids and part lanes), above what else the
+    ledger holds. The lanes are dropped, each segment tracked and warmed
+    through the residency manager (admission puts the ones past the
+    budget on the host tier). The deployment sets admission's
+    promotion-backlog watermark past the segment count
+    (residency_watermark): under the default one, 4 hot segments
+    off the card brown out every query to a deadline of twice the
+    service-time estimate, and answers come back partial. What the
+    default policy decides on this instance's backlog is read after the
+    attach and after the rounds, beside how many answers took longer
+    than its deadline (reported, not checked). The 13 queries run three
+    times: over every segment, over the segments that landed on the
+    host tier (the queries heat them: promotions, and demotions of the
+    colder ones), over the others. Every answer must equal the numpy
+    oracle of the rows it covers. Reports bytes per tier and the ledger before and
+    after, demotions, promotions, cold hits, and the answer p50 by the
+    tiers its segments ran on (the reply's profile: scan or host). The
+    table's bytes are those of the lanes the 13 queries read, uploaded by
+    one run of each before the lanes are dropped."""
+    import gc
+    from pinot_tpu_torch.common.metrics import MetricsRegistry, ServerMeter
+    from pinot_tpu_torch.common.request import InstanceRequest
+    from pinot_tpu_torch.common.serde import instance_request_to_bytes
+    from pinot_tpu_torch.obs.residency import LEDGER
+    from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.server import ServerInstance
+    from pinot_tpu_torch.server.admission import AdmissionController
+    from pinot_tpu_torch.server.residency_manager import TIERS
+    from pinot_tpu_torch.tools.ssb import SSB_PQLS, make_cpu_queries
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor
+    opt = BrokerRequestOptimizer()
+    # the table's lanes, as the 13 queries read them, on the card
+    warm = ServerQueryExecutor()
+    for pql in SSB_PQLS.values():
+        warm.execute(opt.optimize(compile_pql(pql)), segments)
+    gc.collect()
+    table_name = segments[0].metadata.table_name
+    table_bytes = LEDGER.table_kind_bytes().get((table_name, "scan"), 0)
+    if table_bytes <= 0:
+        raise AssertionError("the SSB table has no ledgered lanes")
+    for seg in segments:
+        seg.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    other = LEDGER.total_bytes()
+    budget = other + table_bytes // 2
+    names = [s.segment_name for s in segments]
+    watermark = residency_watermark(len(names))
+    srv = ServerInstance("ssb_residency", num_workers=SERVER_WORKERS,
+                         device_bytes_budget=budget,
+                         promotion_backlog_watermark=watermark)
+
+    def default_admission() -> dict:
+        """What admission under the default watermark decides now."""
+        ctl = AdmissionController(
+            metrics=MetricsRegistry("server"), estimator=srv.estimator,
+            num_workers=SERVER_WORKERS,
+            backlog_fn=srv.residency.promotion_backlog)
+        t = time.monotonic()
+        d = ctl.admit("lineorder", "probe")
+        ctl.release("probe")
+        return {"promotion_backlog": srv.residency.promotion_backlog(),
+                "watermark": ctl.PROMOTION_BACKLOG_WATERMARK,
+                "brownout": d.brownout, "deadline_ms":
+                None if d.deadline_s is None else (d.deadline_s - t) * 1e3}
+    try:
+        tdm = srv.data_manager.table("lineorder", create=True)
+        for seg in segments:
+            tdm.add_segment(seg)
+            srv.residency.track("lineorder", seg)
+            srv.residency.warm_device(seg.segment_name)
+        attach = {n: srv.residency.tracked(n) for n in names}
+        hosted = [n for n in names if attach[n] != "device"]
+        resident = [n for n in names if attach[n] == "device"]
+        tiers_before = {t: srv.residency.tier_bytes(t) for t in TIERS}
+        ledger_before = LEDGER.total_bytes()
+        emit({"phase": "server_residency_attach", "budget": budget,
+              "table_ledgered_bytes": table_bytes, "other_ledgered_bytes":
+              other, "tiers": attach, "tier_bytes": tiers_before,
+              "ledger": ledger_before,
+              "promotion_backlog": srv.residency.promotion_backlog()})
+        if not hosted or not resident:
+            raise AssertionError(f"the budget split no tiers: {attach}")
+        default_at_attach = default_admission()
+        oracles = {"all": oracle}
+        for label, subset in (("host_at_attach", hosted),
+                              ("device_at_attach", resident)):
+            ids, cost = _segment_rows(table, subset)
+            oracles[label] = make_cpu_queries(table.pools, ids, cost)
+        by_tier = collections.defaultdict(list)
+        rounds = []
+        ledger_peak = ledger_before
+        for label, subset in (("all", None), ("host_at_attach", hosted),
+                              ("device_at_attach", resident)):
+            for q, pql in SSB_PQLS.items():
+                req = opt.optimize(compile_pql(pql))
+                raw = instance_request_to_bytes(InstanceRequest(
+                    request_id=next(_REQUEST_IDS), query=req,
+                    search_segments=subset))
+                t = time.perf_counter()
+                reply = srv.handle_request_bytes(raw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                ledger_peak = max(ledger_peak, LEDGER.total_bytes())
+                dt = _check_reply(reply, q, req, oracles[label][q]())
+                paths = json.loads(dt.metadata["profileInfo"]).get(
+                    "paths", {})
+                kind = ("host" if not paths.get("scan") else
+                        "device" if not paths.get("host") else "mixed")
+                by_tier[kind].append(ms)
+                rounds.append({"round": label, "query": q, "ms": ms,
+                               "tiers": kind, "paths": paths})
+        default_after = default_admission()
+        cut = default_after["deadline_ms"]
+        report = {
+            "phase": "server_residency", "check": "pass",
+            "promotion_backlog_watermark": watermark,
+            "default_admission": {
+                "at_attach": default_at_attach, "after": default_after,
+                "answers_past_its_deadline": None if cut is None else
+                sum(r["ms"] > cut for r in rounds)},
+            "table_ledgered_bytes": table_bytes, "other_ledgered_bytes":
+            other, "device_bytes_budget": budget,
+            "attach_tiers": attach, "tier_bytes_after_attach": tiers_before,
+            "tier_bytes_after": {t: srv.residency.tier_bytes(t)
+                                 for t in TIERS},
+            "final_tiers": {n: srv.residency.tracked(n) for n in names},
+            "ledger_after_attach": ledger_before,
+            "ledger_peak": ledger_peak,
+            "ledger_after": LEDGER.total_bytes(),
+            "demotions": srv.metrics.meter(ServerMeter.RESIDENCY_DEMOTIONS,
+                                           table="host").count,
+            "promotions": srv.metrics.meter(
+                ServerMeter.RESIDENCY_PROMOTIONS, table="lineorder").count,
+            "queries": len(rounds),
+            "p50_ms_by_tiers": {k: float(np.median(v))
+                                for k, v in sorted(by_tier.items())},
+            "answers_by_tiers": {k: len(v)
+                                 for k, v in sorted(by_tier.items())},
+            "rounds": rounds}
+        emit(report)
+        return report
+    finally:
+        srv.stop()
+
+
+def server_kernel_check(raw_seg, dim, j_pqls):
+    """Phase server_kernel_check: K1's batched form with the join_raw
+    leaf on the first raw-key segment, at B = 2, 4 and 8 members: J2.1's
+    and J2.3's dim sides, then dim sides of other p_category filters, all
+    padded to the members' largest Dp (by repeating their largest key, as
+    JoinContext pads), each sorted by K12 once. Held (batch_case) to its
+    plain version (torch.searchsorted per member) and to B single K1
+    launches, bit for bit, masks and counts; launched once a call; timed
+    at B = 8 with the L2 flushed beside 8 single launches, the plain
+    version, one torch.searchsorted per member and its bound (the key
+    lane once, B mask rows, the members' member map or B x Dp keys,
+    whichever route the batch takes, and B counts). The batch's lane is
+    made by its first call and cached (SortedKeys.batch_lane), so the
+    time is the launch's. Returns its report."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.stages import join as jmod
+    spec_join = compile_pql(j_pqls["J2.1"][0]).join
+    filters = [j_pqls["J2.1"][1], j_pqls["J2.3"][1]] + [
+        (lambda d, c=c: d["p_category"] == c) for c in SERVER_JOIN_CATEGORIES]
+    lane = raw_seg.data_source("lo_partkey").device_raw_values()
+    np_dtype = lane.cpu().numpy().dtype
+    sides = []
+    for f in filters:
+        keep = np.asarray(f(dim))
+        ctx = jmod.JoinContext(spec_join,
+                               dim["p_partkey"][keep].astype(np.int64), {})
+        sides.append(ctx.padded_keys(np_dtype))
+    dp = max(len(k) for k in sides)
+    sides = [np.concatenate([k, np.full(dp - len(k), k[-1], k.dtype)])
+             for k in sides]
+    members = [[K.SortedKeys(k)] for k in sides]
+    for m in members:
+        m[0].on(lane.device)             # K12's sorts, before the counts
+    P, n = raw_seg.padded_docs, raw_seg.num_docs
+    spec = ("pred", "join_raw", "lo_partkey", "raw", dp)
+    cols = {"lo_partkey.raw": lane}
+    sks = [m[0].on(lane.device)[0] for m in members]
+    esz = lane.element_size()
+
+    def join_lane_bytes(B):
+        """Bytes of the lane the batched leaf reads for B members: their
+        member map (a byte a key of their range), or their sorted keys
+        (B x Dp)."""
+        bm = K.join_member_map([m[0] for m in members[:B]], lane)
+        return B * dp * esz if bm is None else bm.map.numel()
+
+    def join_ops(B):
+        """A member map: the range test a row, a shift and a mask a
+        member; a probe: 17 compares and a final one a member."""
+        bm = K.join_member_map([m[0] for m in members[:B]], lane)
+        return B * P * 18 if bm is None else 2 * P + 2 * B * P
+    r = batch_case(
+        "filter_mask", "join_raw (raw key) J2.1, J2.3 and 6 category dim "
+        "sides", lambda B: K.filter_mask_batched(P, spec, cols,
+                                                 members[:B], n),
+        lambda B: K.filter_mask_batched_plain(P, spec, cols, members[:B],
+                                              n),
+        lambda b: K.filter_mask(P, spec, cols, members[b], n),
+        lambda B: P * esz + B * P + join_lane_bytes(B) + 4 * B,
+        join_ops, singles_of=(0,),
+        expect={"filter_mask_batched": 1,
+                "filter_mask_batched[join_raw]": 1},
+        library=lambda: [torch.searchsorted(sk, lane) for sk in sks],
+        sizes=SERVER_JOIN_BATCH_SIZES)
+    bm = K.join_member_map([m[0] for m in members], lane)
+    r.update(dp=dp, dim_rows=[int(np.asarray(f(dim)).sum())
+                              for f in filters],
+             key_bytes=esz, rows=n, padded_rows=P,
+             join_route="search" if bm is None else "member_map",
+             member_map_bytes=None if bm is None else int(bm.map.numel()))
+    emit({"phase": "server_kernel_check", **r})
+    return r
+
+
+def run_join_batch(raw_segs, dim_server, dim, raw_fact):
+    """Phase join_batch: raw-key join members in one execute_batch, the
+    JAX executor's batched join_raw path. Eight J0-shaped members (no
+    GROUP BY: the K2 path), each a p_category dim filter and an
+    lo_quantity bound of its own: stage 1 publishes each member's dim
+    scan through the dim server, stage 2 attaches each member's
+    JoinContext, and ServerQueryExecutor.execute_batch runs them over the
+    raw-key segments with launch counts set to 0: members whose plans
+    share a signature (Dp is in it) share one batched K1 a segment, its
+    join_raw leaf probing each member's own keys. Every member must equal
+    join_oracle. Returns the launches."""
+    from pinot_tpu_torch.ops import kernels as K
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query.plan import InstancePlanMaker, \
+        batch_signature
+    from pinot_tpu_torch.query.reduce import BrokerReduceService
+    from pinot_tpu_torch.query.stages import broker as stages_broker
+    from pinot_tpu_torch.query.stages import join as jmod
+    from pinot_tpu_torch.tools import datagen
+    members = []
+    for i, cat in enumerate(SERVER_JOIN_CATEGORIES + ("MFGR#12",
+                                                      "MFGR#15")):
+        qty = 20 + 2 * i
+        pql = (_JOIN_SELECT + f" WHERE part.p_category = '{cat}' AND "
+               f"lineorderj.lo_quantity < {qty}")
+        req = compile_pql(pql)
+        src = stage1_publish(dim_server, stages_broker.dim_scan_request(req),
+                             f"join_batch.{i}")
+        ctx = jmod.build_context(req.join, [src], jmod.fact_partition_info(
+            raw_segs, req.join.fact_key))
+        members.append((cat, qty, req, jmod.attach(req, ctx, raw_segs)))
+    sigs = collections.Counter(
+        batch_signature(InstancePlanMaker().make_segment_plan(
+            raw_segs[0], r)) for _c, _q, _r, r in members)
+    ex = ServerQueryExecutor()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    blocks = ex.execute_batch([r for _c, _q, _r, r in members], raw_segs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = K.launch_counts()
+    probe = datagen.join_probe(dim, raw_fact)
+    for (cat, qty, req, _r), blk in zip(members, blocks):
+        resp = BrokerReduceService().reduce(req, [blk])
+        want = join_oracle_dict(dim, raw_fact,
+                                lambda d, c=cat: d["p_category"] == c,
+                                lambda f, q=qty: f["lo_quantity"] < q, [],
+                                probe)
+        for fi in range(2):
+            if response_dict(resp, fi) != want[fi]:
+                raise AssertionError(f"join_batch {cat} < {qty}: "
+                                     f"aggregation {fi} differs from "
+                                     "join_oracle")
+    chunks = sum(-(-t // K.MAX_BATCH) for t in sigs.values() if t > 1)
+    want_launches = chunks * len(raw_segs)
+    got = launches["filter_mask_batched[join_raw]"]
+    if not chunks or got != want_launches:
+        raise AssertionError(f"join_batch: {got} batched join_raw launches,"
+                             f" expected {want_launches} ({dict(sigs)})")
+    emit({"phase": "join_batch", "members": len(members), "check": "pass",
+          "signatures": len(sigs), "members_per_signature":
+          sorted(sigs.values()), "segments": len(raw_segs), "ms": ms,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def run_server_exchange(fact_server, dim_server, dim, fact):
+    """Phase server_exchange: two ServerInstances in one process. A (the
+    dim server, started with start(port=0)) publishes J2.1's stage-1 dim
+    scan; B (`fact_server`) holds the fact segments and runs stage 2 with
+    A as its exchange source: once with a source that names only A's address (B
+    fetches the block over TCP, an XCHG frame to A's QueryServer) and once
+    with A's registry key (in process). Both answers must equal
+    join_oracle and each other. Reports both stage-2 p50s of
+    SERVER_EXCHANGE_REPEATS (the first, warm-up run apart)."""
+    from pinot_tpu_torch.common.datatable import DataTable
+    from pinot_tpu_torch.common.request import InstanceRequest
+    from pinot_tpu_torch.common.serde import instance_request_to_bytes
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.reduce import BrokerReduceService
+    from pinot_tpu_torch.query.stages import broker as stages_broker
+    from pinot_tpu_torch.tools import datagen
+    pql, dim_filter, fact_filter, gcols = JOIN_QUERIES["J2.1"]
+    req = compile_pql(pql)
+    src = stage1_publish(dim_server, stages_broker.dim_scan_request(req),
+                         "server_exchange.0")
+    tcp = {k: v for k, v in src.items() if k != "xkey"}
+    want = join_oracle_dict(dim, fact, dim_filter, fact_filter, gcols,
+                            datagen.join_probe(dim, fact))
+    out = {}
+    for label, source in (("tcp", tcp), ("in_process", src)):
+        answers, ts = [], []
+        for _ in range(SERVER_EXCHANGE_REPEATS + 1):
+            raw = instance_request_to_bytes(InstanceRequest(
+                request_id=next(_REQUEST_IDS), query=compile_pql(pql),
+                exchange_sources=[source]))
+            t = time.perf_counter()
+            dt = DataTable.from_bytes(
+                fact_server.handle_request_bytes(raw))
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+            if dt.exceptions:
+                raise AssertionError(f"server_exchange {label}: "
+                                     f"{dt.exceptions}")
+            answers.append(BrokerReduceService().reduce(
+                req, [dt.to_block()]))
+        for resp in answers:
+            for fi in range(2):
+                if response_dict(resp, fi) != want[fi]:
+                    raise AssertionError(
+                        f"server_exchange {label}: aggregation {fi} "
+                        "differs from join_oracle")
+        out[label] = {"stage2_p50_ms": float(np.median(ts[1:])),
+                      "first_ms": ts[0], "samples_ms": ts[1:]}
+    report = {"phase": "server_exchange", "query": "J2.1",
+              "check": "pass", "dim_rows": src["rows"],
+              "fact_segments": fact_server.data_manager.num_segments(),
+              **out}
+    emit(report)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=int, default=10)
@@ -4372,7 +5052,18 @@ def main() -> int:
     batch_launches = run_batch("ssb", engine, families, check_member,
                                args.batch_repeats)
     seconds["ssb_batch"] = time.perf_counter() - t0
-    del engine, st_engine, stack, table, oracle
+    # the query server over the same segments: concurrent clients over
+    # TCP, then the residency tiers under a byte budget
+    del st_engine, stack
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    server_launches = run_server(engine.segments, table, oracle, args)
+    seconds["server"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_server_residency(engine.segments, table, oracle,
+                                            args)
+    seconds["server_residency"] = time.perf_counter() - t0
+    del engine, table, oracle
     torch.cuda.empty_cache()
 
     # -- the JAX bench's SSB path: cubes from disk, K17's 100M rows -------
@@ -4544,27 +5235,58 @@ def main() -> int:
         del vec_engine, vec_st_engine
 
     # -- multi-stage: lineorderj x part joins, window functions ----------
+    from pinot_tpu_torch.server import ServerInstance
     with tempfile.TemporaryDirectory(dir=scratch) as base:
         t0 = time.perf_counter()
         jsegs, raw_segs, dim_seg, dim, fact, raw_fact, _ = join_data(base,
                                                                      args)
         seconds["join_data"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        join_launches, join_ctxs, _ = run_join(jsegs, raw_segs, dim_seg,
-                                               dim, fact, raw_fact,
-                                               args.repeats)
-        seconds["join"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        where, wrows = window_where(fact)
-        window_launches, wcase = run_window(jsegs, where, wrows,
-                                            args.repeats)
-        seconds["window"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        stage_entries = join_kernel_check(jsegs[0], raw_segs[0],
-                                          join_ctxs["J2.1"], wcase)
-        seconds["join_kernel_check"] = time.perf_counter() - t0
+        # the part table's server (stage 1 of every join publishes there)
+        # and the fact table's (stage 1 of the windows, stage 2 over TCP)
+        dim_server = ServerInstance("Server_dim",
+                                    num_workers=SERVER_WORKERS)
+        dim_server.data_manager.table("part", create=True).add_segment(
+            dim_seg)
+        dim_server.start(port=0)
+        fact_server = ServerInstance("Server_fact",
+                                     num_workers=SERVER_WORKERS)
+        for seg in jsegs:
+            fact_server.data_manager.table(
+                "lineorderj", create=True).add_segment(seg)
+        try:
+            t0 = time.perf_counter()
+            join_launches, join_ctxs, _ = run_join(
+                jsegs, raw_segs, dim_server, dim, fact, raw_fact,
+                args.repeats)
+            seconds["join"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            where, wrows = window_where(fact)
+            window_launches, wcase = run_window(fact_server, jsegs, where,
+                                                wrows, args.repeats)
+            seconds["window"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stage_entries = join_kernel_check(jsegs[0], raw_segs[0],
+                                              join_ctxs["J2.1"], wcase)
+            seconds["join_kernel_check"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            join_batch_entry = server_kernel_check(raw_segs[0], dim,
+                                                   JOIN_QUERIES)
+            seconds["server_kernel_check"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            join_batch_launches = run_join_batch(raw_segs, dim_server, dim,
+                                                 raw_fact)
+            seconds["join_batch"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            run_server_exchange(fact_server, dim_server,
+                                                  dim, fact)
+            seconds["server_exchange"] = time.perf_counter() - t0
+        finally:
+            dim_server.stop()
+            fact_server.stop()
         del jsegs, raw_segs, dim_seg, dim, fact, raw_fact, join_ctxs, wcase
     torch.cuda.empty_cache()
+    batch_launches = {k: v + server_launches[k] + join_batch_launches[k]
+                      for k, v in batch_launches.items()}
 
     # -- realtime upserts: baseballStats_REALTIME -------------------------
     with tempfile.TemporaryDirectory(dir=scratch) as base:
@@ -4719,6 +5441,19 @@ def main() -> int:
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1], "library_ms": None,
                      "case": e["case"]})
+    # K1's batched join_raw leaf, counted apart: the join_batch phase's
+    # launches (raw-key join members in one execute_batch)
+    e = join_batch_entry
+    line.append({"name": "filter_mask_batched[join_raw]", "route": "cuda",
+                 "source": K.KERNELS["filter_mask"].source,
+                 "replaces": "pinot_tpu/ops/kernels.py:118",
+                 "launches": join_batch_launches[
+                     "filter_mask_batched[join_raw]"],
+                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                 "batch_members": SERVER_JOIN_BATCH_SIZES[-1],
+                 "b_single_ms": e["b_single_ms"]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -74,8 +74,7 @@
 // pushes sk[pos] == key at the key's lower-bound position pos clipped to
 // Dp - 1 (searchsorted): at most 17 probes of the keys, which stay in L2.
 // It is a raw leaf, so only the general instantiation takes it (the
-// narrow one keeps its registers); the batched kernel does not (a batch
-// member with the leaf runs alone).
+// narrow one keeps its registers), in the single and the batched form.
 // The host checks that the stack never holds more than 32 bits.
 //
 // Batched members (the counterpart of the vmap over a query axis in
@@ -88,7 +87,23 @@
 // mask row per member, [B][padded], and the members' match counts. An
 // ivf_probe leaf reads member b's probe ids and ok flags at row b of the
 // [B][nprobe] lanes that the batched K9 wrote (the member takes the place
-// of the segment of the stacked form).
+// of the segment of the stacked form). A join_raw leaf reads the row's key
+// once and tests it against each member's own dim keys (members of one
+// plan share Dp, not their keys) by one of two routes, which the host
+// picks for the batch. Where the members' keys span at most 2^23 values
+// (JOIN_MAP_MAX_SPAN) the node is a join_bits one: its lane is a byte
+// for each key of the batch's range, bit b set where the key is among
+// member b's, so a row costs one byte load for all members (8 MB at
+// most, in L2). Otherwise it stays a join_raw node over the [B][Dp] lane
+// of the members' sorted keys (K12 sorted each member's once for its
+// query), and each member runs the single form's lower-bound probe: up to
+// 17 dependent loads a member, whose keys stay in L2. A probe's loads
+// touch as many cache lines as a warp has threads past the first levels,
+// so 8 members' probes cost no less than 8 single launches; the member
+// map is what makes the batch pay. Bit b of the member's stack takes
+// whether the key is among its keys. Both replace the vmap of
+// _eval_pred's join_raw branch (pinot_tpu/ops/kernels.py:118-130), which
+// sorts each member's keys inside the launch.
 
 #include "common.cuh"
 
@@ -102,7 +117,7 @@ enum Op : int {
   kTrue = 0, kFalse = 1, kEq = 2, kNeq = 3, kRange = 4, kIn = 5,
   kNotIn = 6, kMember = 7, kAnd = 8, kOr = 9,
   kEqRaw = 10, kNeqRaw = 11, kRangeRaw = 12, kInRaw = 13, kNotInRaw = 14,
-  kIvfProbe = 15, kVdoc = 16, kJoinRaw = 17,
+  kIvfProbe = 15, kVdoc = 16, kJoinRaw = 17, kJoinBits = 18,
 };
 
 using pinot::kF32;
@@ -331,6 +346,42 @@ __device__ __forceinline__ void eval_leaf_members(const void* const* lanes, cons
         bits[b] = hit;
       }
       return;
+    }
+    if (op == kJoinBits) {
+      // p[0]: the uint8 [arg] member map over the key range from p[1] (a
+      // constant in the lane's type): bit b of byte off is set iff
+      // base + off is among member b's keys. One load serves every member
+#define PINOT_JOIN_BITS(T)                                                 \
+  {                                                                        \
+    const T v = static_cast<const T*>(lane)[row];                          \
+    const T base = param<T>(p + 1);                                        \
+    const unsigned long long off =                                         \
+        static_cast<unsigned long long>(v) - static_cast<unsigned long long>(base); \
+    const unsigned m = v >= base && off < static_cast<unsigned long long>(arg) \
+                           ? static_cast<const uint8_t*>(lanes[p[0]])[off] : 0u; \
+    _Pragma("unroll") for (int b = 0; b < kMaxMembers; ++b) bits[b] = (m >> b) & 1u; \
+    return;                                                                \
+  }
+      if (elem == kI64) PINOT_JOIN_BITS(long long)
+      PINOT_JOIN_BITS(int32_t)
+#undef PINOT_JOIN_BITS
+    }
+    if (op == kJoinRaw) {
+      // p[0]: the [B][Dp] lane of the members' sorted keys, arg = Dp
+#define PINOT_JOIN_MEMBERS(T)                                              \
+  {                                                                        \
+    const T v = static_cast<const T*>(lane)[row];                          \
+    const T* sk = static_cast<const T*>(lanes[p[0]]);                      \
+    _Pragma("unroll") for (int b = 0; b < kMaxMembers; ++b) {              \
+      if (b >= nb) break;                                                  \
+      const T* skb = sk + static_cast<long long>(b) * arg;                 \
+      bits[b] = skb[pinot::probe_position(skb, arg, v)] == v ? 1u : 0u;    \
+    }                                                                      \
+    return;                                                                \
+  }
+      if (elem == kI64) PINOT_JOIN_MEMBERS(long long)
+      PINOT_JOIN_MEMBERS(int32_t)
+#undef PINOT_JOIN_MEMBERS
     }
     if (op >= kEqRaw) {
 #define PINOT_RAW_MEMBERS(T)                                               \

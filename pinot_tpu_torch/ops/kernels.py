@@ -119,6 +119,7 @@ import collections
 import ctypes
 import dataclasses
 import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -316,7 +317,7 @@ _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 #: program nodes counted apart: K1's upsert liveness leaf and join probe,
 #: K3's join group keys
 KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0)
-KERNELS["filter_mask_batched"].node_launches["vdoc"] = 0
+KERNELS["filter_mask_batched"].node_launches.update(vdoc=0, join_raw=0)
 KERNELS["dense_group_aggregate"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0)
 KERNELS["block_compact"].node_launches.update(
@@ -331,13 +332,30 @@ KERNELS["rank_slots"].node_launches["sort"] = 0
 #: "compacted" (K14 + K15 into dense tables), "ranked" (K14 + K16 + K15),
 #: "sorted" (the sorted rung, K3), "escalation" (a kmax rung climbed)
 group_route_counts: collections.Counter = collections.Counter()
+#: every count above moves under this lock: the server's workers launch
+#: concurrently, and `+=` on a shared int is a read-modify-write
+_COUNT_LOCK = threading.Lock()
+#: guards the lazy load of each kernel's C entry point
+_ENTRY_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
-        k.node_launches = dict.fromkeys(k.node_launches, 0)
-    group_route_counts.clear()
+    with _COUNT_LOCK:
+        for k in KERNELS.values():
+            k.launches = 0
+            k.node_launches = dict.fromkeys(k.node_launches, 0)
+        group_route_counts.clear()
+
+
+def count_route(route: str) -> None:
+    """One more group-by dispatch on `route` (group_route_counts)."""
+    with _COUNT_LOCK:
+        group_route_counts[route] += 1
+
+
+def _count_node(name: str, node: str) -> None:
+    with _COUNT_LOCK:
+        KERNELS[name].node_launches[node] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -353,11 +371,11 @@ def launch_counts() -> Dict[str, int]:
 def _count_nodes(name: str, filter_spec, keys) -> None:
     """One more launch of K1 `name` for each counted node its program
     holds (the vdoc lane, a join_raw leaf)."""
-    nodes = KERNELS[name].node_launches
     if any(k.endswith(".vdoc") for k in keys):
-        nodes["vdoc"] += 1
-    if "join_raw" in nodes and _has_leaf(filter_spec, "join_raw"):
-        nodes["join_raw"] += 1
+        _count_node(name, "vdoc")
+    if "join_raw" in KERNELS[name].node_launches and \
+            _has_leaf(filter_spec, "join_raw"):
+        _count_node(name, "join_raw")
 
 
 def _has_leaf(spec, kind: str) -> bool:
@@ -369,12 +387,14 @@ def _has_leaf(spec, kind: str) -> bool:
 def _c_entry(name: str):
     info = KERNELS[name]
     if info._fn is None:
-        from pinot_tpu_torch.ops import build
-        lib = build.load(info.source.rsplit("/", 1)[-1])
-        fn = getattr(lib, info.symbol or f"pinot_{name}")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        info._fn = fn
+        with _ENTRY_LOCK:
+            if info._fn is None:
+                from pinot_tpu_torch.ops import build
+                lib = build.load(info.source.rsplit("/", 1)[-1])
+                fn = getattr(lib, info.symbol or f"pinot_{name}")
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                info._fn = fn
     return info._fn
 
 
@@ -385,7 +405,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
-    KERNELS[name].launches += 1
+    with _COUNT_LOCK:
+        KERNELS[name].launches += 1
 
 
 def _ptrs(tensors: Sequence[torch.Tensor]):
@@ -438,6 +459,8 @@ _LEAF_OPS = {"eq_id": 2, "neq_id": 3, "range_ids": 4, "in_ids": 5,
              "notin_ids": 6, "member": 7, "eq_raw": 10, "neq_raw": 11,
              "range_raw": 12, "in_raw": 13, "notin_raw": 14,
              "ivf_probe": 15, "vdoc": 16, "join_raw": 17}
+#: a batched join_raw leaf over the members' member map (JoinMemberMap)
+_OP_JOIN_BITS = 18
 #: params each predicate kind takes (an ivf_probe: the query and its norm;
 #: the vdoc liveness leaf none)
 _LEAF_PARAMS = {"range_ids": 2, "range_raw": 2, "ivf_probe": 2, "vdoc": 0}
@@ -492,7 +515,7 @@ def filter_param_count(filter_spec) -> int:
 def compile_filter(filter_spec, params: Sequence,
                    cols: Dict[str, torch.Tensor],
                    probe_lanes: Optional[List[torch.Tensor]] = None,
-                   probe=None) -> Tuple[np.ndarray, int]:
+                   probe=None, join=None) -> Tuple[np.ndarray, int]:
     """Flatten a filter spec and its params into the K1 program.
 
     Returns (buffer int32 [6 * n_nodes + n_param_words], n_nodes). Node =
@@ -504,8 +527,12 @@ def compile_filter(filter_spec, params: Sequence,
     lanes) and appends the probe ids and ok flags to `probe_lanes` (K1's
     lane table continues with them); its two parameter words are their
     lane indices. A join_raw node appends the dim keys sorted on the
-    lane's device (SortedKeys.on: K12 once per device) to `probe_lanes`;
-    its parameter word is their lane index.
+    lane's device (SortedKeys.on: K12 once per device) to `probe_lanes`
+    (or `join(spec, keys)`'s lane: a batch's [B, Dp] keys); its parameter
+    word is their lane index and its arg their count Dp. Where `join`
+    gives a JoinMemberMap the node is a join_bits one: its words the member
+    map's lane index and the range's base in the lane's dtype, its arg
+    the range's span.
     """
     nodes: List[Tuple[int, ...]] = []
     words: List[int] = []
@@ -543,6 +570,7 @@ def compile_filter(filter_spec, params: Sequence,
                 # the row's liveness byte, pushed as it is: no params
                 emit(_LEAF_OPS[kind], lane, off)
                 return
+            code = _LEAF_OPS[kind]
             if kind in ("eq_id", "neq_id"):
                 words.append(int(plist.pop(0)))
             elif kind == "range_ids":
@@ -576,10 +604,16 @@ def compile_filter(filter_spec, params: Sequence,
             elif kind == "join_raw":
                 if probe_lanes is None:
                     raise ValueError("a join_raw filter needs probe_lanes")
-                sk = sorted_keys_for(plist.pop(0), lane_t)
+                keys = plist.pop(0)
+                sk = join(spec, keys) if join else \
+                    sorted_keys_for(keys, lane_t)
                 words.append(len(lanes) + len(probe_lanes))
+                if isinstance(sk, JoinMemberMap):
+                    code = _OP_JOIN_BITS
+                    sk, base = sk.map, sk.base
+                    words.extend(_raw_words([base], lane_t.dtype))
                 probe_lanes.append(sk)
-                arg = int(sk.shape[0])
+                arg = int(sk.shape[-1])
             elif kind in ("eq_raw", "neq_raw"):
                 words.extend(_raw_words(plist.pop(0), lane_t.dtype))
             elif kind == "range_raw":
@@ -591,7 +625,7 @@ def compile_filter(filter_spec, params: Sequence,
                 vals = np.asarray(plist.pop(0)).ravel()
                 words.extend(_raw_words(vals, lane_t.dtype))
                 arg = len(vals)
-            emit(_LEAF_OPS[kind], lane, off, arg, _ELEM[lane_t.dtype],
+            emit(code, lane, off, arg, _ELEM[lane_t.dtype],
                  width)
         else:
             raise ValueError(f"unknown filter node {op}")
@@ -757,6 +791,33 @@ def _batched_probes(filter_spec, params_list, cols) -> List[tuple]:
     return out
 
 
+def _batched_join_keys(filter_spec, params_list, cols) -> List[torch.Tensor]:
+    """Each join_raw node's dim keys for every member, depth first: one
+    [B, Dp] lane whose row b is member b's keys as K12 sorted them
+    (SortedKeys.on, cached per query and device), stacked once per batch
+    (SortedKeys.stacked). Members of one signature share Dp (it is in the
+    spec); their dim sides may differ."""
+    out, pos = [], 0
+
+    def walk(spec) -> None:
+        nonlocal pos
+        if spec[0] in ("and", "or"):
+            for c in spec[1]:
+                walk(c)
+        elif spec[0] == "pred":
+            if spec[1] == "join_raw":
+                lane = cols[_leaf(spec)[1]]
+                probes = [p[pos] for p in params_list]
+                if len({p.keys.shape[0] for p in probes}) != 1:
+                    raise ValueError("the batch's join_raw members have "
+                                     "dim sides of different lengths")
+                out.append(probes[0].batch_lane(probes, lane))
+            pos += filter_param_count(spec)
+
+    walk(filter_spec)
+    return out
+
+
 def compile_filter_batched(filter_spec, params_list,
                            cols: Dict[str, torch.Tensor],
                            probe_lanes: List[torch.Tensor]
@@ -766,15 +827,18 @@ def compile_filter_batched(filter_spec, params_list,
     member's parameter block, all of one length. An ivf_probe node runs
     the batched K9 once for all the members; its lanes ([B, nprobe] ids
     and ok flags, appended to `probe_lanes`) are indexed by the member in
-    the kernel. Raises ValueError where the members' programs differ (in
-    lists of other lengths)."""
+    the kernel. A join_raw node's lane is the members' sorted dim keys,
+    [B, Dp], row b member b's (_batched_join_keys). Raises ValueError where
+    the members' programs differ (in lists of other lengths)."""
     probes = _batched_probes(filter_spec, params_list, cols)
+    joins = _batched_join_keys(filter_spec, params_list, cols)
     bufs = []
     for params in params_list:
         lanes: List[torch.Tensor] = []
-        pending = iter(probes)
+        pending, pending_j = iter(probes), iter(joins)
         buf, n_nodes = compile_filter(filter_spec, params, cols, lanes,
-                                      probe=lambda *_: next(pending))
+                                      probe=lambda *_: next(pending),
+                                      join=lambda *_: next(pending_j))
         bufs.append(buf)
     node_words = _NODE_WORDS * n_nodes
     for buf in bufs[1:]:
@@ -794,15 +858,14 @@ def filter_mask_batched(padded: int, filter_spec,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 for B <= MAX_BATCH members of one plan, one launch: (uint8
     masks [B, padded], int32 [B] matched rows), member b's under
-    params_list[b]. Each lane element is read once for every member."""
+    params_list[b]. Each lane element is read once for every member; a
+    join_raw leaf probes each member's own sorted dim keys with the one
+    key it read."""
     keys = filter_lane_keys(filter_spec)
     device = _mask_device(keys, cols, device)
     n = len(params_list)
     if not 1 <= n <= MAX_BATCH:
         raise ValueError(f"{n} members outside [1, {MAX_BATCH}]")
-    if _has_leaf(filter_spec, "join_raw"):
-        raise ValueError("the batched K1 does not take the join_raw leaf: "
-                         "such members run alone (plan.batch_signature)")
     for key in keys:
         _filter_lane_ok(cols[key], key, padded, device)
     if device.type == "cpu":
@@ -827,7 +890,8 @@ def filter_mask_batched_plain(padded: int, filter_spec,
                               num_docs: int, device=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch batched K1: each member's plain mask, stacked, and
-    its row sums."""
+    its row sums (a join_raw leaf: torch.searchsorted in each member's own
+    dim keys, sorted by torch.sort)."""
     masks = torch.stack([filter_mask_plain(padded, filter_spec, cols, p,
                                            num_docs, device)
                          for p in params_list])
@@ -1308,9 +1372,8 @@ def _key_args(keys: Sequence[GroupKey], strides: Sequence[int]) -> tuple:
 
 def _count_key_nodes(name: str, keys: Sequence[GroupKey]) -> None:
     """One more launch of `name` for each counted key kind it holds."""
-    nodes = KERNELS[name].node_launches
-    for kind in {k.kind for k in keys} & set(nodes):
-        nodes[kind] += 1
+    for kind in {k.kind for k in keys} & set(KERNELS[name].node_launches):
+        _count_node(name, kind)
 
 
 def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
@@ -1696,7 +1759,7 @@ def rank_slots(kc: torch.Tensor, cap: int, g_pad: int,
               for t in (bitmap, prefix, sk, perm)],
             gslot.data_ptr(), rkeys.data_ptr(), n_distinct.data_ptr())
     if sk is not None:
-        KERNELS["rank_slots"].node_launches["sort"] += 1
+        _count_node("rank_slots", "sort")
     return gslot, rkeys, n_distinct
 
 
@@ -2716,6 +2779,43 @@ def radix_sort_plain(keys: Sequence[torch.Tensor],
             [v[perm] for v in payloads])
 
 
+MAX_STACKED_BATCHES = 8   # SortedKeys.batch_lane's cache, per leading member
+#: a batch's join_raw members take a member map (JoinMemberMap) where their
+#: keys span at most this many values: a byte a key, 8 MB at most, which
+#: stays in the H100's 50 MB L2
+JOIN_MAP_MAX_SPAN = 1 << 23
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class JoinMemberMap:
+    """A batch's join_raw members as one member map: map uint8 [span],
+    bit b of byte i set iff base + i is among member b's keys (B <= 8)."""
+    map: torch.Tensor
+    base: int
+
+
+def join_member_map(probes: Sequence["SortedKeys"], lane: torch.Tensor
+                ) -> Optional[JoinMemberMap]:
+    """The members' keys as one member map over the range they span
+    together, on `lane`'s device; None where the range is wider than
+    JOIN_MAP_MAX_SPAN. Built on the host from the keys the members
+    hold there (at most 8 x 65,536 of them), uploaded in one copy."""
+    if len(probes) > MAX_BATCH:
+        raise ValueError(f"{len(probes)} members past {MAX_BATCH}")
+    typed = [p.typed() for p in probes]
+    if typed[0].dtype != _np_of(lane.dtype):
+        raise ValueError(f"join keys {typed[0].dtype} do not match the fact "
+                         f"key lane's {lane.dtype}")
+    lo = min(int(t.min()) for t in typed)
+    span = max(int(t.max()) for t in typed) - lo + 1
+    if span > JOIN_MAP_MAX_SPAN:
+        return None
+    bits = np.zeros(span, dtype=np.uint8)
+    for b, t in enumerate(typed):
+        bits[t.astype(np.int64) - lo] |= np.uint8(1 << b)
+    return JoinMemberMap(torch.from_numpy(bits).to(lane.device), lo)
+
+
 class SortedKeys:
     """A raw-key join's dim keys (and, for a jraw group key, their int32
     group codes) as JoinContext pads them, sorted once on each device by
@@ -2732,11 +2832,13 @@ class SortedKeys:
         self.codes = None if codes is None else \
             np.ascontiguousarray(codes, dtype=np.int32)
         self._on: Dict[str, tuple] = {}   # device -> (keys, codes)
+        # (device, lane dtype, ids of a batch's members) -> (weak refs to
+        # them, their batch_lane), the last few batches this one led
+        self._stacks: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
 
     def _unsorted(self, dev) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        keys = torch.from_numpy(self.keys.astype(
-            np.int64 if self.keys.dtype.itemsize > 4 else np.int32)).to(dev)
+        keys = torch.from_numpy(self.typed()).to(dev)
         return keys, [] if self.codes is None else \
             [torch.from_numpy(self.codes).to(dev)]
 
@@ -2754,6 +2856,36 @@ class SortedKeys:
         out = (sk, sc[0] if sc else None)
         with self._lock:
             return self._on.setdefault(str(dev), out)
+
+    def typed(self) -> np.ndarray:
+        """The keys in the dtype of the lanes they are probed against
+        (int64 past 4 bytes, else int32), on the host."""
+        return self.keys.astype(
+            np.int64 if self.keys.dtype.itemsize > 4 else np.int32)
+
+    def batch_lane(self, probes: Sequence["SortedKeys"],
+                   lane: torch.Tensor):
+        """The lane a batched K1 join_raw node reads for the members
+        `probes` (this one first) over the fact key lane `lane`: their
+        JoinMemberMap (join_member_map) where their keys span a narrow range,
+        else their K12-sorted keys stacked [B, Dp]. Made once per batch and
+        device and cached here, as the coalescer runs one batch once a
+        segment; the cache holds the other members weakly, so it keeps no
+        query's keys alive."""
+        key = (str(lane.device), lane.dtype, tuple(id(p) for p in probes))
+        with self._lock:
+            hit = self._stacks.get(key)
+        if hit is not None and all(r() is p for r, p in zip(hit[0], probes)):
+            return hit[1]
+        out = join_member_map(probes, lane)
+        if out is None:
+            out = torch.stack([sorted_keys_for(p, lane) for p in probes])
+        refs = tuple(weakref.ref(p) for p in probes)
+        with self._lock:
+            if len(self._stacks) >= MAX_STACKED_BATCHES:
+                self._stacks.pop(next(iter(self._stacks)))
+            self._stacks[key] = (refs, out)
+        return out
 
     def plain(self, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(sorted keys, their codes or None) on `device` by a stable
@@ -3210,10 +3342,10 @@ def _group_outputs_compacted(mask, keys, strides, g_pad: int, kmax: int,
     if ranked:
         gslot, rkeys, _n = rank_slots(kc, cap, g_pad)
         t_slots = segs * cap
-        group_route_counts["ranked"] += 1
+        count_route("ranked")
     else:
         gslot, t_slots = kc, g_pad
-        group_route_counts["compacted"] += 1
+        count_route("compacted")
     count, psums, csums, tables = slot_tables(
         gslot, t_slots, cap, parts, vals[:len(lanes.floats)], extremes,
         psums_wide=n_segs is not None and not ranked)
@@ -3256,7 +3388,7 @@ def _group_outputs_sorted(mask, keys, strides, g_pad: int, kmax: int,
     runs on C row slices to stay exact (JAX chunks its sorted rows past
     DENSE_ROWS_LIMIT instead: other chunk bounds, the same sum), and
     int64 [L, g_pad] over a stack; float sums as gagg{i}.sum."""
-    group_route_counts["sorted"] += 1
+    count_route("sorted")
     floats = [f.to(sum_dtype()) for f in lanes.floats]
     w_total = group_combos(keys)
     segs = n_segs or 1

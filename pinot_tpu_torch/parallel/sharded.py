@@ -53,7 +53,9 @@ with the query's one sorted dim side (pinot_tpu/parallel/sharded.py
 plans joins the same way; tests/test_stages.py:211-252).
 
 The mesh is one device in this port (`make_mesh`); stacking over several
-cards (torch.distributed) is later work, as is the residency ledger.
+cards (torch.distributed) is later work. Every stacked lane registers in
+the residency ledger (obs/residency.py, kind "stack", or "vector" /
+"hll" / "vdoc"), released when the stack is collected.
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ import collections
 import dataclasses
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,6 +71,7 @@ import torch
 
 from pinot_tpu_torch.common.device import resolve_device
 from pinot_tpu_torch.common.request import BrokerRequest
+from pinot_tpu_torch.obs import residency
 from pinot_tpu_torch.ops import kernels
 from pinot_tpu_torch.query import combine as combine_mod
 from pinot_tpu_torch.query import execution
@@ -289,6 +293,28 @@ class StackedSegments:
         self._vdoc_host: Optional[np.ndarray] = None
         self.vdoc_uploads = 0
         self.vdoc_upload_bytes = 0
+        # residency: one ledger prefix per stack. Eviction only drops the
+        # executor's reference (in-flight queries keep the lanes alive),
+        # so the entries leave the books when the stack is collected
+        self._ledger_prefix = f"stack:{id(self)}:"
+        weakref.finalize(self, residency.LEDGER.release_prefix,
+                         self._ledger_prefix)
+
+    #: lane kind -> residency ledger kind (the rest are stacked scan lanes)
+    _LEDGER_KINDS = {"vec": "vector", "hllidx": "hll", "hllrank": "hll",
+                     "ivfa": "vector", "ivfc": "vector", "ivfv": "vector",
+                     "vdoc": "vdoc"}
+
+    def _ledger(self, out: torch.Tensor, name: str, lane_kind: str
+                ) -> torch.Tensor:
+        """Register a lane of this stack (replacing its earlier upload)."""
+        residency.LEDGER.register(
+            self._ledger_prefix + name,
+            table=self.segments[0].metadata.table_name or "",
+            segment=f"stack[{self.n_real}]",
+            kind=self._LEDGER_KINDS.get(lane_kind, "stack"),
+            nbytes=out.untyped_storage().nbytes())
+        return out
 
     def union_column(self, col: str) -> Optional[_UnionColumn]:
         """None when every segment shares the column's dictionary; else
@@ -321,8 +347,9 @@ class StackedSegments:
         """int32 [S] live rows per segment, on the stack's device."""
         with self._cache_lock:
             if self._dev_num_docs is None:
-                self._dev_num_docs = torch.from_numpy(
-                    self.num_docs.copy()).to(self.device)
+                self._dev_num_docs = self._ledger(torch.from_numpy(
+                    self.num_docs.copy()).to(self.device), "num_docs",
+                    "num_docs")
             return self._dev_num_docs
 
     def lane(self, col: str, kind: str) -> torch.Tensor:
@@ -346,7 +373,10 @@ class StackedSegments:
             out = torch.from_numpy(np.ascontiguousarray(arrs[0])).to(
                 self.device)
             with self._cache_lock:
-                return self._lanes.setdefault(key, out)
+                if key not in self._lanes:
+                    self._lanes[key] = self._ledger(out, f"{col}.{kind}",
+                                                    kind)
+                return self._lanes[key]
         if kind == "mv":
             w = max(a.shape[1] for a in arrs)
             arrs = [np.pad(a, ((0, 0), (0, w - a.shape[1])),
@@ -369,7 +399,9 @@ class StackedSegments:
             for i, a in enumerate(arrs):
                 out[i].copy_(torch.from_numpy(np.ascontiguousarray(a)))
         with self._cache_lock:
-            return self._lanes.setdefault(key, out)
+            if key not in self._lanes:
+                self._lanes[key] = self._ledger(out, f"{col}.{kind}", kind)
+            return self._lanes[key]
 
     def _union_operand(self, union: _UnionColumn, i: int,
                        kind: str) -> np.ndarray:
@@ -420,7 +452,8 @@ class StackedSegments:
                 host[i] = 0
                 host[i, : s.num_docs] = 1 if vd is None else \
                     vd.valid_mask(0, s.num_docs)
-            lane = torch.from_numpy(host.copy()).to(self.device)
+            lane = self._ledger(torch.from_numpy(host.copy()).to(
+                self.device), "vdoc", "vdoc")
             self._vdoc_host = host
             self._vdoc = (versions, lane)
             self.vdoc_uploads += 1

@@ -26,6 +26,7 @@ from pinot_tpu_torch.common import expression as expr_mod
 from pinot_tpu_torch.common.request import VECTOR_RESULT_COLUMNS
 from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M, HyperLogLog, \
     union_serialized_hlls
+from pinot_tpu_torch.obs import profiler as obs_profiler
 from pinot_tpu_torch.ops import kernels
 from pinot_tpu_torch.query.blocks import ExecutionStats, \
     IntermediateResultsBlock
@@ -85,7 +86,13 @@ def pull(outs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Device tensors → numpy in ONE device→host copy: every output is
     viewed as bytes, the widest elements first (so each output starts at
     a multiple of its element size), concatenated on the device, copied
-    once, and cut back into arrays of the original dtypes and shapes."""
+    once, and cut back into arrays of the original dtypes and shapes.
+    The copy counts as a dispatch on the ambient query profile
+    (obs/profiler.py:profiled_device_get)."""
+    return obs_profiler.profiled_device_get(_pull, outs)
+
+
+def _pull(outs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     if not outs:
         return {}
     names = sorted(outs, key=lambda n: -outs[n].element_size())

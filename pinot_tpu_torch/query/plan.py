@@ -61,6 +61,7 @@ import collections
 import copy
 import dataclasses
 import re as _re
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -478,12 +479,10 @@ def batch_signature(plan: SegmentPlan) -> Optional[tuple]:
     when the plan does not batch (pinot_tpu/query/plan.py:
     batch_signature): fast paths never reach the card, and group-by plans
     run one by one. Plans with equal signatures run the same kernels and
-    differ only in their params."""
+    differ only in their params, a raw-key join's sorted dim side among
+    them (the batched K1 takes the join_raw leaf; Dp is in the spec)."""
     if plan.fast_path_result is not None or plan.group_spec is not None:
         return None
-    if plan.filter_spec is not None and \
-            kernels._has_leaf(plan.filter_spec, "join_raw"):
-        return None       # the batched K1 does not take the join_raw leaf
     return (plan.segment.padded_docs, plan.filter_spec,
             tuple(plan.agg_specs or ()), plan.select_spec,
             tuple(plan.needed_cols))
@@ -539,8 +538,13 @@ class InstancePlanMaker:
         # vector plans per segment since construction: "ivfProbe" (an
         # indexed segment probed) or "ivfExactFallback" (nprobe asked of
         # a segment without an index: an exact scan), the JAX planner's
-        # path counts
+        # path counts (a lock: the server's workers plan concurrently)
         self.path_counts: collections.Counter = collections.Counter()
+        self._count_lock = threading.Lock()
+
+    def _count(self, path: str) -> None:
+        with self._count_lock:
+            self.path_counts[path] += 1
 
     def make_segment_plan(self, segment: ImmutableSegment,
                           request: BrokerRequest) -> SegmentPlan:
@@ -886,11 +890,11 @@ class InstancePlanMaker:
                 plan.params = [q, np.float32(q_norm)] + plan.params
                 for lane in ("ivfa", "ivfc", "ivfv"):
                     needed[(v.column, lane)] = None
-                self.path_counts["ivfProbe"] += 1
+                self._count("ivfProbe")
             else:
                 # nprobe asked of a segment without an index: an exact
                 # scan keeps the answer right (ANN is best effort)
-                self.path_counts["ivfExactFallback"] += 1
+                self._count("ivfExactFallback")
         k = min(kernels.pow2_bucket(v.k, floor=1), segment.padded_docs)
         plan.select_spec = ("vector", k, ((v.column, metric, dim_pad),),
                             tuple(gather))
@@ -1034,7 +1038,7 @@ def run_with_group_escalation(run, group_spec, padded: int):
         group_spec = escalate_group_kmax(group_spec, padded)
         if group_spec is None:
             raise RuntimeError("group.overflow at full kmax")
-        kernels.group_route_counts["escalation"] += 1
+        kernels.count_route("escalation")
         outs = run(group_spec)
     return outs, group_spec
 
@@ -1165,11 +1169,10 @@ def drive_group_execution(run, group_spec, padded: int, total_docs: int):
     ladder (kmax = 0 runs once). Returns (outs, spec to finish with);
     None for the spec when the filter matched nothing (outs then holds
     phase A's stats)."""
-    counts = kernels.group_route_counts
     pa = adaptive_phase_a_specs(group_spec) \
         if padded <= kernels.DENSE_ROWS_LIMIT else None
     if pa is not None:
-        counts["scout"] += 1
+        kernels.count_route("scout")
         ha = run(pa, None, ())
         bounds = [(int(ha[f"agg{2 * i}.min"]), int(ha[f"agg{2 * i + 1}.max"]))
                   for i in range(len(pa) // 2)]
@@ -1178,7 +1181,7 @@ def drive_group_execution(run, group_spec, padded: int, total_docs: int):
         if matched > 0:
             ph = adaptive_hist_specs(group_spec, bounds)
             if ph is not None:
-                counts["hist"] += 1
+                kernels.count_route("hist")
                 hh = run(ph, None, ())
                 scout = [("present",
                           np.nonzero(np.asarray(hh[f"agg{i}"])[: c[3]])[0])
@@ -1188,9 +1191,9 @@ def drive_group_execution(run, group_spec, padded: int, total_docs: int):
         if empty:
             return ha, None
         for kind in {g[1] for g in kspec[0]}:
-            counts[kind] += 1
+            kernels.count_route(kind)
         if not kspec[4]:
-            counts["dense_regime"] += 1
+            kernels.count_route("dense_regime")
         outs, final = run_with_group_escalation(
             lambda gs: run((), gs, extra), kspec, padded)
         if final is not kspec:            # the ladder escalated kmax

@@ -2,8 +2,7 @@
 
 Copy of pinot_tpu/query/stages/join.py. One addition: `sorted_keys`,
 the raw-key probe operand sorted on the card by K12 once per query
-(the JAX kernels sort it inside every launch). The residency ledger is
-left out until the port has its obs layer.
+(the JAX kernels sort it inside every launch).
 
 The JoinContext is built once per server query from the fetched stage-1
 dim blocks (already dim-filtered, already upsert-masked by the normal
@@ -29,6 +28,7 @@ the mode is safe to decide per-server from segment metadata alone.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -83,8 +83,20 @@ class JoinContext:
         # the sorted device probes of a raw fact key (K12 builds each once
         # per device): (key dtype, dim column or None) -> SortedKeys
         self._sorted: Dict[tuple, kernels.SortedKeys] = {}  # tpulint: disable=cache-bound -- one per (fact key dtype, projected dim column): bounded by the join's column list
-        # the residency ledger's entry for the probe tables waits for
-        # the port's obs layer
+        # residency: the probe tables become kernel operands (member and
+        # jcode tables a dispatch, the sorted raw keys once a device);
+        # account them for the context's lifetime, as the JAX context
+        # does: a query holds at most its own dim side, and the finalizer
+        # releases when the stage's plans drop the context
+        from pinot_tpu_torch.obs import residency
+        nbytes = (self.keys.nbytes + self.order.nbytes +
+                  self.skeys.nbytes +
+                  sum(c.nbytes for c in columns.values()
+                      if isinstance(c, np.ndarray)))
+        owner = f"join:{id(self)}"
+        residency.LEDGER.register(owner, table=spec.dim_table or "",
+                                  segment="", kind="join", nbytes=nbytes)
+        weakref.finalize(self, residency.LEDGER.release, owner)
 
     @property
     def empty(self) -> bool:

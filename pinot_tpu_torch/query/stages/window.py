@@ -157,7 +157,6 @@ def padded_lanes(part: np.ndarray, orders: List[np.ndarray],
     for row, a in enumerate([part] + list(orders) + list(sums)):
         lanes[row, :n] = a
     dev = torch.from_numpy(lanes).to(device)
-    # the residency ledger's entry for the lanes waits for the obs layer
     return dev[0], list(dev[1:1 + len(orders)]), list(dev[1 + len(orders):])
 
 
@@ -165,13 +164,21 @@ def _device_window(part: np.ndarray, orders: List[np.ndarray],
                    sums: List[np.ndarray], device):
     """The window on `device`: K12 sorts, K13 numbers and sums
     (ops/kernels.py:run_window_kernel) over the padded lanes; one upload
-    of the lanes, one download of the outputs."""
+    of the lanes, one download of the outputs. The lanes are ledgered
+    (kind "window") for the dispatch's duration."""
+    from pinot_tpu_torch.obs import residency
     from pinot_tpu_torch.ops import kernels
     from pinot_tpu_torch.query.execution import pull
     n = len(part)
     dpart, dorders, dsums = padded_lanes(part, orders, sums, device)
-    outs = pull(kernels.run_window_kernel(dpart, tuple(dorders),
-                                          tuple(dsums), n))
+    owner = f"win:{id(dpart)}"
+    residency.LEDGER.register(owner, table="", segment="", kind="window",
+                              nbytes=dpart.untyped_storage().nbytes())
+    try:
+        outs = pull(kernels.run_window_kernel(dpart, tuple(dorders),
+                                              tuple(dsums), n))
+    finally:
+        residency.LEDGER.release(owner)
     perm = outs["win.perm"][:n].astype(np.int64)
     rn = outs["win.rn"][:n].astype(np.int32)
     run_sums = [outs[f"win.sum{j}"][:n].astype(np.int32)

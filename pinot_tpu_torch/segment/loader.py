@@ -30,11 +30,24 @@ make_segment_from_arrays). Star-tree cubes (`startree.<i>.*`, startree/
 cube.py) load with the segment into `seg.star_trees`, host arrays only
 (an unloadable cube is skipped, as the JAX loader skips it). Not read
 yet: chunked no-dictionary STRING / BYTES columns, schema-evolution
-default columns; there is no residency ledger.
+default columns.
+
+Residency (pinot_tpu/segment/loader.py:341, :528-590): every lane uploads
+through the ledger (obs/residency.py:ledgered_asarray, owner
+`ds:<id>:<lane>`, the vdoc lane `seg:<id>:vdoc`), and a finalizer
+releases a DataSource's entries when it is collected. The residency
+manager (server/residency_manager.py) moves a segment between three
+tiers: `release_device_lanes` copies each resident lane to host memory
+(pinned when the lanes lie on the card) and frees the device ones,
+`warm_device` uploads them again from those copies (or the id / raw /
+MV / vector lanes of a segment never warmed), `release_host_lanes` drops
+the row payloads and host copies for the disk tier and
+`rebind_host_lanes` takes them back from a fresh load of the artifact.
 """
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -130,6 +143,10 @@ class DataSource:
         self.inverted_index: Optional[InvertedIndexReader] = None
         self.bloom_filter: Optional[BloomFilter] = None
         self._dev: Dict[str, torch.Tensor] = {}
+        self._dev_finalizer = None            # set on first device upload
+        # host copies of the lanes a demotion released (pinned memory when
+        # they came from the card): the next warm_device uploads them
+        self._host_lanes: Dict[str, torch.Tensor] = {}
         self._part_info: Optional[tuple] = None
         self._hll_tables: Optional[tuple] = None
 
@@ -256,22 +273,142 @@ class DataSource:
         out[: len(ids)] = ids
         return out
 
+    #: _device key -> its lane kind (host_operand) and ledger kind
+    _LANE_KINDS = {"dict_ids": "ids", "mv_dict_ids": "mv",
+                   "raw_values": "raw", "part_lanes": "parts",
+                   "value_lane": "vlane", "vec_values": "vec",
+                   "ivf_assign": "ivfa", "ivf_centroids": "ivfc",
+                   "ivf_valid": "ivfv", "hll_idx": "hllidx",
+                   "hll_rank": "hllrank"}
+    _LEDGER_KINDS = {"vec_values": "vector", "hll_idx": "hll",
+                     "hll_rank": "hll", "ivf_assign": "vector",
+                     "ivf_centroids": "vector", "ivf_valid": "vector"}
+
     def _device(self, key: str, kind: str) -> torch.Tensor:
         lane = self._dev.get(key)
         if lane is None:
             with self._lane_lock:
                 lane = self._dev.get(key)
                 if lane is None:
-                    device = self._segment.device
-                    lane = torch.from_numpy(
-                        np.ascontiguousarray(self.host_operand(kind))
-                    ).to(device)
-                    self._dev[key] = lane
+                    lane = self._upload(key, kind)
+        return lane
+
+    def _upload(self, key: str, kind: str) -> torch.Tensor:
+        """One lane onto the segment's device through the ledger, from its
+        host copy when a demotion left one (caller holds _lane_lock)."""
+        from pinot_tpu_torch.obs import residency
+        seg = self._segment
+        if self._dev_finalizer is None:
+            # a collected DataSource (a superseded frozen snapshot, a
+            # dropped segment) leaves the books with its lanes
+            self._dev_finalizer = weakref.finalize(
+                self, residency.LEDGER.release_prefix, f"ds:{id(self)}:")
+        where = dict(device=seg.device, owner=f"ds:{id(self)}:{key}",
+                     table=seg.metadata.table_name or "",
+                     segment=seg.segment_name,
+                     kind=self._LEDGER_KINDS.get(key, "scan"))
+        host = self._host_lanes.pop(key, None)
+        if host is not None:
+            lane = residency.ledgered_put(host, non_blocking=True, **where)
+        else:
+            lane = residency.ledgered_asarray(self.host_operand(kind),
+                                              **where)
+        self._dev[key] = lane
         return lane
 
     def release_device(self) -> None:
+        """Drop every device lane, its host copy and its ledger entries
+        (a rebind to another device, a drop); the next use uploads
+        again from the host arrays."""
+        from pinot_tpu_torch.obs import residency
         with self._lane_lock:
             self._dev.clear()
+            self._host_lanes.clear()
+            residency.LEDGER.release_prefix(f"ds:{id(self)}:")
+
+    def demote_device(self) -> None:
+        """The device → host step: each resident lane copied into host
+        memory (pinned when it lies on the card, so the next warm_device
+        is one asynchronous copy), then the device lanes and their ledger
+        entries dropped."""
+        from pinot_tpu_torch.obs import residency
+        with self._lane_lock:
+            for key, lane in self._dev.items():
+                host = lane.cpu()         # the lane itself on the CPU
+                self._host_lanes[key] = host.pin_memory() if lane.is_cuda \
+                    else host
+            self._dev.clear()
+            residency.LEDGER.release_prefix(f"ds:{id(self)}:")
+
+    def warm_device(self) -> None:
+        """Upload the lanes a demotion left in host memory, or, for a
+        column never demoted, its id / raw / MV / vector lane."""
+        with self._lane_lock:
+            keys = list(self._host_lanes) or self._base_lane_keys()
+            for key in keys:
+                if key not in self._dev:
+                    self._upload(key, self._LANE_KINDS[key])
+
+    def _base_lane_keys(self) -> list:
+        if self.dict_ids is not None:
+            return ["dict_ids"]
+        if self.vec_values is not None:
+            return ["vec_values"]
+        if self.raw_values is not None and \
+                self.raw_values.dtype.kind in "iuf":
+            return ["raw_values"]
+        if self.mv_dict_ids is not None:
+            return ["mv_dict_ids"]
+        return []
+
+    def device_bytes_estimate(self) -> int:
+        """Bytes warm_device would put on the device for this column,
+        from shapes alone (nothing is uploaded): the host copies a
+        demotion left, else the base lane (pinot_tpu/segment/loader.py:
+        357, the residency manager's admission charge)."""
+        if self._host_lanes:
+            return sum(t.untyped_storage().nbytes()
+                       for t in self._host_lanes.values())
+        cm = self.metadata
+        keys = self._base_lane_keys()
+        if not keys:
+            return 0
+        if keys[0] == "dict_ids":
+            return padded_size(len(self.dict_ids)) * \
+                min_id_dtype(cm.cardinality).itemsize
+        if keys[0] == "vec_values":
+            return padded_size(len(self.vec_values)) * \
+                vec_dim_pad(cm.vector_dimension) * 4
+        if keys[0] == "raw_values":
+            return padded_size(len(self.raw_values)) * \
+                self.raw_values.dtype.itemsize
+        mv = self.mv_dict_ids
+        return padded_size(mv.shape[0]) * mv.shape[1] * \
+            min_id_dtype(cm.cardinality).itemsize
+
+    def release_host(self) -> None:
+        """Drop the row payloads (forward ids, raw values, MV ids,
+        embeddings, IVF assignments) and the lanes' host copies for the
+        disk tier; dictionaries, inverted and bloom indexes and the IVF
+        codebook stay (pinot_tpu/segment/loader.py:395)."""
+        with self._lane_lock:
+            self.dict_ids = None
+            self.raw_values = None
+            self.mv_dict_ids = None
+            self.vec_values = None
+            self.ivf_assignments = None
+            self._hll_tables = None
+            self._host_lanes.clear()
+
+    def adopt_host(self, fresh: "DataSource") -> None:
+        """Take the row payloads back from a fresh load of the same
+        column (the disk tier's reload), keeping this object."""
+        with self._lane_lock:
+            self.dict_ids = fresh.dict_ids
+            self.raw_values = fresh.raw_values
+            self.mv_dict_ids = fresh.mv_dict_ids
+            self.vec_values = fresh.vec_values
+            self.ivf_assignments = fresh.ivf_assignments
 
     def device_bytes(self) -> int:
         """Bytes this column holds on its device now."""
@@ -290,6 +427,7 @@ class ImmutableSegment:
                 ds._segment = self
         self._device: Optional[torch.device] = \
             None if device is None else resolve_device(device)
+        self._bind_lock = threading.Lock()
         # pre-aggregated cubes (startree/cube.py), host arrays; the
         # loader fills them from the segment directory
         self.star_trees: list = []
@@ -298,6 +436,7 @@ class ImmutableSegment:
         # its device lane is cached by the bitmap's version
         self.valid_doc_ids = None
         self._valid_dev: Optional[Tuple[int, torch.Tensor]] = None
+        self._valid_finalizer = None         # set on first vdoc upload
         self.vdoc_uploads = 0          # vdoc lane uploads since load
         self.vdoc_upload_bytes = 0
 
@@ -314,10 +453,10 @@ class ImmutableSegment:
         device are dropped and re-uploaded on next use."""
         device = resolve_device(device)
         if self._device != device:
-            for ds in self._data_sources.values():
-                ds.release_device()
-            self._valid_dev = None
-            self._device = device
+            with self._bind_lock:     # concurrent first queries bind once
+                if self._device != device:
+                    self.destroy()
+                    self._device = device
         return self
 
     @property
@@ -353,23 +492,38 @@ class ImmutableSegment:
         copied, so a bump in between leaves a lane at least as new as its
         key (the next query re-uploads; a stale mask is never served
         under a newer version). A query reads the lane once, so it sees
-        one version even while the bitmap changes under it."""
+        one version even while the bitmap changes under it. The lane is
+        ledgered as kind "vdoc" (owner `seg:<id>:vdoc`, replaced on each
+        upload)."""
+        from pinot_tpu_torch.obs import residency
         vd = self.valid_doc_ids
         ver = vd.version
         cached = self._valid_dev
         if cached is None or cached[0] != ver:
             host = np.zeros(self.padded_docs, dtype=np.uint8)
             host[: self.num_docs] = vd.valid_mask(0, self.num_docs)
-            cached = (ver, torch.from_numpy(host).to(self.device))
+            if self._valid_finalizer is None:
+                self._valid_finalizer = weakref.finalize(
+                    self, residency.LEDGER.release, f"seg:{id(self)}:vdoc")
+            cached = (ver, residency.ledgered_asarray(
+                host, device=self.device, owner=f"seg:{id(self)}:vdoc",
+                table=self.metadata.table_name or "",
+                segment=self.segment_name, kind="vdoc"))
             self._valid_dev = cached
             self.vdoc_uploads += 1
             self.vdoc_upload_bytes += host.nbytes
         return cached[1]
 
-    def destroy(self) -> None:
-        """Drop every device lane (the vdoc lane too); host arrays stay,
-        and the lanes upload again on next use."""
+    def _drop_valid_lane(self) -> None:
+        from pinot_tpu_torch.obs import residency
         self._valid_dev = None
+        residency.LEDGER.release(f"seg:{id(self)}:vdoc")
+
+    def destroy(self) -> None:
+        """Drop every device lane (the vdoc lane too) and their host
+        copies; host arrays stay, and the lanes upload again on next
+        use."""
+        self._drop_valid_lane()
         for ds in self._data_sources.values():
             ds.release_device()
 
@@ -379,6 +533,75 @@ class ImmutableSegment:
         cached = self._valid_dev
         return sum(ds.device_bytes() for ds in self._data_sources.values()) \
             + (0 if cached is None else cached[1].numel())
+
+    # -- residency tiers (server/residency_manager.py) ----------------------
+    def warm_device(self, columns=None) -> None:
+        """Upload the named columns' lanes (all by default): what a
+        demotion left in host memory, else each column's base lane."""
+        for name in (columns or self.column_names):
+            self.data_source(name).warm_device()
+
+    def device_bytes_estimate(self) -> int:
+        """Bytes a full warm_device (plus the vdoc lane, where a bitmap is
+        attached) would put on the device, from shapes alone: the
+        residency manager's admission charge."""
+        total = sum(ds.device_bytes_estimate()
+                    for ds in self._data_sources.values())
+        if self.valid_doc_ids is not None:
+            total += self.padded_docs
+        return total
+
+    def release_device_lanes(self) -> None:
+        """The device → host demotion: every lane copied to host memory
+        (pinned from the card) and dropped from the device, with its
+        ledger entry; the vdoc lane is dropped (it rebuilds from the
+        bitmap). Host arrays stay; warm_device or the next use uploads
+        again."""
+        self._drop_valid_lane()
+        for ds in self._data_sources.values():
+            ds.demote_device()
+
+    def release_host_lanes(self, columns) -> None:
+        """Drop the named columns' row payloads and lane copies (the host
+        → disk demotion); only columns the artifact restores are named."""
+        for name in columns:
+            ds = self._data_sources.get(name)
+            if ds is not None:
+                ds.release_host()
+
+    def rebind_host_lanes(self, fresh: "ImmutableSegment") -> None:
+        """Take the row payloads back from a fresh load of the same
+        artifact (the disk tier's reload), keeping this object, which the
+        data manager and the caches hold."""
+        for name, ds in self._data_sources.items():
+            src = fresh._data_sources.get(name)
+            if src is not None:
+                ds.adopt_host(src)
+
+
+def segment_host_bytes(seg) -> int:
+    """Host bytes of a segment's row payloads and dictionaries (object
+    string arrays by their encoded payload), as
+    pinot_tpu/segment/loader.py:segment_host_bytes counts them."""
+    def _arr_bytes(arr) -> int:
+        if arr is None or not hasattr(arr, "nbytes"):
+            return 0
+        if getattr(arr, "dtype", None) is not None and arr.dtype.kind == "O":
+            return int(sum(len(str(v).encode("utf-8", "replace"))
+                           for v in arr.ravel()))
+        return int(arr.nbytes)
+
+    total = 0
+    for name in seg.column_names:
+        ds = seg.data_source(name)
+        for arr in (getattr(ds, "dict_ids", None),
+                    getattr(ds, "raw_values", None),
+                    getattr(ds, "mv_dict_ids", None),
+                    getattr(ds, "vec_values", None)):
+            total += _arr_bytes(arr)
+        total += _arr_bytes(getattr(getattr(ds, "dictionary", None),
+                                    "values", None))
+    return total
 
 
 class ImmutableSegmentLoader:

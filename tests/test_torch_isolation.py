@@ -71,6 +71,16 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.startree, pinot_tpu_torch.startree.cube\n"
         "import pinot_tpu_torch.startree.executor\n"
         "import pinot_tpu_torch.ops.synth\n"
+        "import pinot_tpu_torch.obs, pinot_tpu_torch.obs.residency\n"
+        "import pinot_tpu_torch.obs.tracing, pinot_tpu_torch.obs.slowlog\n"
+        "import pinot_tpu_torch.obs.profiler, pinot_tpu_torch.obs.prometheus\n"
+        "import pinot_tpu_torch.transport, pinot_tpu_torch.transport.tcp\n"
+        "import pinot_tpu_torch.tools.join_leaf_bench\n"
+        "import pinot_tpu_torch.server, pinot_tpu_torch.server.instance\n"
+        "import pinot_tpu_torch.server.query_executor\n"
+        "import pinot_tpu_torch.server.residency_manager\n"
+        "import pinot_tpu_torch.server.admission\n"
+        "import pinot_tpu_torch.server.result_cache\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or\n"

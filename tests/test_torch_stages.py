@@ -17,18 +17,21 @@ both packages on the same inputs:
    keys, an unshipped dim column, a missing, multi-value or float fact
    key, and QueryEngine handed a join or a window.
 3. Exchange: put / get / TTL / capacity, a local fetch round trip
-   byte-identical, a source outside the process raising NotPorted,
-   filter_sources, and build_context over published stage-1 blocks
-   (stage 1 through the port's executor) equal to a context built from
-   the arrays.
+   byte-identical, a source outside the process fetched over TCP (a
+   typed ExchangeError where nothing listens), filter_sources,
+   build_context over published stage-1 blocks (stage 1 through the
+   port's executor) equal to a context built from the arrays, and two
+   port ServerInstances exchanging J2.1's dim block over TCP.
 4. Kernels: K1's join_raw leaf (plain) against the JAX `_eval_pred`
    kind join_raw on the same padded keys, int32 and int64 lanes; K3's
    jcode and jraw key terms against `_group_key`; the join's dim-side
    sort (K12 as radix_sort_join) against numpy.
 
-`cuda` tests hold K1's join_raw leaf (single segment and stacked) and
-K3's jcode / jraw keys to their plain versions and the card's join
-answers to the CPU's; they skip where there is no card.
+`cuda` tests hold K1's join_raw leaf (single segment, stacked and
+batched: B members with their own dim sides in one launch, also against
+B single launches) and K3's jcode / jraw keys to their plain versions
+and the card's join answers to the CPU's; they skip where there is no
+card.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ from pinot_tpu_torch.query import host_exec
 from pinot_tpu_torch.query.combine import combine_blocks
 from pinot_tpu_torch.query.executor import ServerQueryExecutor
 from pinot_tpu_torch.query.plan import EMPTY, InstancePlanMaker, \
-    NotPorted, _resolve_join_pred
+    _resolve_join_pred
 from pinot_tpu_torch.query.reduce import BrokerReduceService
 from pinot_tpu_torch.query.stages import broker as stages_broker
 from pinot_tpu_torch.query.stages import exchange as xmod
@@ -386,26 +389,53 @@ def test_join_upsert_mask_never_leaks(request, fixture):
 
 
 def test_join_batch_members_run_alone_with_a_join_raw_leaf(
-        raw_key_fixture, join_fixture):
-    """execute_batch: a raw-key join member (join_raw leaf) takes the
-    sequential ladder; a dictionary-key join member batches through the
-    member leaf; every member equals its own execution."""
-    for segs, dim in ((raw_key_fixture[0], raw_key_fixture[2]),
-                      (join_fixture[0], join_fixture[2])):
+        raw_key_fixture, join_fixture, monkeypatch):
+    """execute_batch: raw-key join members (join_raw leaf) now share one
+    batched K1 per segment, as the JAX executor batches them (its
+    batch_signature lets them); dictionary-key join members batch through
+    the member leaf. Members carry different dim sides (two dim filters),
+    so the batched leaf probes each member's own keys. Every member
+    equals its own execution and the JAX execute_batch's answer on the
+    same requests; on the CPU the batched K1's plain version runs, so the
+    launches are counted at its wrapper: one call a segment, with every
+    member, for the raw key."""
+    seen = []
+    real = tk.filter_mask_batched
+
+    def spy(padded, spec, cols, params_list, *rest, **kw):
+        seen.append((tk._has_leaf(spec, "join_raw"), len(params_list)))
+        return real(padded, spec, cols, params_list, *rest, **kw)
+
+    monkeypatch.setattr(tk, "filter_mask_batched", spy)
+    dim_filters = (None, lambda d: d["p_category"] != "MFGR#13")
+    for raw, (segs, jsegs, dim) in (
+            (True, (raw_key_fixture[0], raw_key_fixture[1],
+                    raw_key_fixture[2])),
+            (False, (join_fixture[0], join_fixture[1], join_fixture[2]))):
         pqls = [("SELECT SUM(lineorderj.lo_revenue), COUNT(*) FROM "
                  "lineorderj JOIN part ON lineorderj.lo_partkey = "
                  f"part.p_partkey WHERE lineorderj.lo_quantity < {q}")
                 for q in (10, 25, 40)]
-        ctx, _ = _contexts(compile_pql(pqls[0]), jax_compile(pqls[0]), dim,
-                           None)
-        reqs = [_attach(compile_pql(p), ctx) for p in pqls]
-        ex = ServerQueryExecutor()
-        blocks = ex.execute_batch(reqs, segs)
+        reqs, jreqs = [], []
+        for i, pql in enumerate(pqls):
+            ctx, jctx = _contexts(compile_pql(pql), jax_compile(pql), dim,
+                                  dim_filters[i % 2])
+            reqs.append(_attach(compile_pql(pql), ctx))
+            jreqs.append(_attach(jax_compile(pql), jctx))
+        seen.clear()
+        blocks = ServerQueryExecutor().execute_batch(reqs, segs)
+        if raw:
+            assert seen == [(True, len(pqls))] * len(segs), seen
+        jblocks = JaxExecutor(use_device=True).execute_batch(jreqs, jsegs)
         red = BrokerReduceService()
-        for req, blk in zip(reqs, blocks):
-            assert red.reduce(req, [blk]).to_json()["aggregationResults"] \
-                == red.reduce(req, [ServerQueryExecutor().execute(
-                    req, segs)]).to_json()["aggregationResults"]
+        for pql, req, blk, jblk in zip(pqls, reqs, blocks, jblocks):
+            got = red.reduce(req, [blk]).to_json()
+            assert got["aggregationResults"] == red.reduce(
+                req, [ServerQueryExecutor().execute(req, segs)]
+            ).to_json()["aggregationResults"]
+            want = JaxReduce().reduce(jax_compile(pql), [jblk]).to_json()
+            for fi in range(2):
+                assert _as_dict(got, fi) == _as_dict(want, fi), (raw, pql)
 
 
 @pytest.mark.parametrize("group_cols", [
@@ -538,13 +568,17 @@ def test_exchange_frame_local_fetch_and_not_ported_remote():
         with pytest.raises(xmod.ExchangeError):
             xmod.fetch_blocks([{"server": "s", "xkey": m.xkey,
                                 "id": "gone"}], None)
+        # a source outside the process goes over TCP: nothing listens on
+        # port 1, so the fetch fails typed (the TCP fetch itself:
+        # test_exchange_fetch_over_tcp_between_two_instances)
         remote = {"server": "peer", "xkey": "elsewhere", "id": "x1.0",
                   "host": "127.0.0.1", "port": 1}
-        with pytest.raises(NotPorted):
-            xmod.fetch_blocks([remote], None)
+        with pytest.raises(xmod.ExchangeError):
+            xmod.fetch_blocks([remote], 2.0)
     finally:
         m.close()
-    with pytest.raises(NotPorted):      # a closed manager leaves the registry
+    # a closed manager leaves the registry: neither local nor addressable
+    with pytest.raises(xmod.ExchangeError, match="neither local"):
         xmod.fetch_blocks([src], None)
 
 
@@ -618,6 +652,69 @@ def test_stage1_publish_and_build_context(join_fixture, tmp_path):
             m.close()
 
 
+def test_exchange_fetch_over_tcp_between_two_instances(join_fixture,
+                                                       tmp_path):
+    """Two port ServerInstances in one process, as two servers: A holds
+    the part table and publishes J2.1's stage-1 dim scan (an
+    InstanceRequest with publish_exchange, answered with an ack); B holds
+    the fact segments and runs stage 2 with A as its exchange source. A
+    source without A's registry key makes B fetch A's block over TCP (an
+    XCHG frame to A's QueryServer); with the key, in process. Both
+    answers equal each other, the JAX executor's and join_oracle."""
+    from pinot_tpu_torch.common.request import InstanceRequest
+    from pinot_tpu_torch.common.serde import instance_request_to_bytes
+    from pinot_tpu_torch.server import ServerInstance
+    segs, jsegs, dim, fact = join_fixture
+    d = str(tmp_path / "part_x")
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    SegmentCreator(datagen.part_dim_schema(),
+                   datagen.join_table_configs()[1],
+                   segment_name="part_x").build(dim, d)
+    a = ServerInstance("server_a", device="cpu")
+    b = ServerInstance("server_b", device="cpu")
+    try:
+        a.data_manager.table("part", create=True).add_segment(
+            ImmutableSegmentLoader.load(d))
+        for seg in segs:
+            b.data_manager.table("lineorderj", create=True).add_segment(seg)
+        port = a.start(port=0)
+        name = "j21_dim_and_fact_filter"
+        pql, dim_filter, fact_filter, group_cols = JOIN_PQLS[name]
+        req = compile_pql(pql)
+        ack = DataTable.from_bytes(a.handle_request_bytes(
+            instance_request_to_bytes(InstanceRequest(
+                request_id=1, query=stages_broker.dim_scan_request(req),
+                publish_exchange={"id": "x7.0"}))))
+        assert not ack.exceptions and ack.num_rows() == 0
+        assert ack.metadata["exchangeId"] == "x7.0"
+        assert int(ack.metadata["exchangeRows"]) == \
+            int((dim["p_mfgr"] == "MFGR#2").sum())
+        tcp = {"server": "server_a", "id": "x7.0", "host": "127.0.0.1",
+               "port": port}
+        local = dict(tcp, xkey=ack.metadata["exchangeKey"])
+        answers = []
+        for src in (tcp, local):
+            dt = DataTable.from_bytes(b.handle_request_bytes(
+                instance_request_to_bytes(InstanceRequest(
+                    request_id=2, query=compile_pql(pql),
+                    exchange_sources=[src]))))
+            assert not dt.exceptions, dt.exceptions
+            answers.append(BrokerReduceService().reduce(
+                req, [dt.to_block()]).to_json())
+        _, jctx = _contexts(req, jax_compile(pql), dim, dim_filter)
+        want = _jax_answer(pql, jctx, jsegs)
+        oracle = _oracle_dict(dim, fact, dim_filter, fact_filter,
+                              group_cols)
+        for got in answers:
+            for fi in range(2):
+                assert _as_dict(got, fi) == _as_dict(want, fi)
+                assert {tuple(str(x) for x in k): v for k, v in
+                        _as_dict(got, fi).items()} == oracle[fi]
+    finally:
+        a.stop()
+        b.stop()
+
+
 def test_window_scan_request_ships_display_and_window_columns():
     req = compile_pql(
         "SELECT d_year, lo_quantity, ROW_NUMBER() OVER (PARTITION BY "
@@ -686,6 +783,167 @@ def test_k1_join_raw_leaf_plain_matches_jax(dtype, P):
         torch.from_numpy(lane).dtype], 1]
     assert buf[6] == 1
     assert torch.equal(probes[0], torch.sort(torch.from_numpy(keys)).values)
+
+
+def _batched_join_members(P, dtype, n, seed):
+    """A raw key lane and n members of one join_raw spec, each with its
+    own dim side (all padded to one Dp, as one signature's members are),
+    ANDed with a range leaf of per-member bounds."""
+    rng = np.random.default_rng(seed)
+    lane, keys0, _ctx = _join_lane(P, P - 777, dtype, seed)
+    members, probes = [], []
+    for b in range(n):
+        # a member's dim side: a random half of keys0's distinct keys
+        uniq = np.unique(keys0)
+        keep = np.sort(rng.choice(uniq, len(uniq) // 2 + b, replace=False))
+        ctx = jmod.JoinContext(
+            compile_pql("SELECT COUNT(*) FROM f JOIN d ON f.k = d.k").join,
+            keep.astype(np.int64), {})
+        keys = ctx.padded_keys(dtype)
+        probes.append(keys)
+        lo = dtype(-2 ** 28 - b * 1000)
+        members.append([tk.SortedKeys(keys), lo, dtype(2 ** 28)])
+    dps = {len(k) for k in probes}
+    assert len(dps) == 1, dps
+    spec = ("and", (("pred", "join_raw", "k", "raw", dps.pop()),
+                    ("pred", "range_raw", "k", "raw", (True, False))))
+    return lane, spec, members, probes
+
+
+@pytest.mark.parametrize("span", [40, tk.JOIN_MAP_MAX_SPAN + 1])
+def test_sorted_keys_batch_lane_cached_per_batch(span):
+    """The batched K1's join lane is made once per batch of members and
+    device and reused: their member map where the members' keys span at
+    most JOIN_MAP_MAX_SPAN values, else their sorted keys stacked [B, Dp].
+    Another batch, or members that died and whose ids came back, make it
+    anew; the cache holds no member."""
+    import gc
+    import weakref
+    rng = np.random.default_rng(7)
+    probes = [tk.SortedKeys(np.sort(rng.integers(-5, span - 5, 16))
+                            .astype(np.int64)) for _ in range(3)]
+    probes[0].keys[[0, -1]] = -5, span - 6     # the batch spans `span`
+    fact = torch.zeros(4, dtype=torch.int64)
+    lane = probes[0].batch_lane(probes, fact)
+    if span <= tk.JOIN_MAP_MAX_SPAN:
+        assert isinstance(lane, tk.JoinMemberMap)
+        assert lane.base == min(int(p.keys.min()) for p in probes)
+        assert tuple(lane.map.shape) == (span,)
+    else:
+        assert torch.equal(lane, torch.stack([p.on("cpu")[0]
+                                              for p in probes]))
+    assert probes[0].batch_lane(list(probes), fact) is lane
+    other = probes[0].batch_lane(probes[:2], fact)
+    assert other is not lane
+    dead = weakref.ref(probes[2])
+    probes.pop()
+    gc.collect()
+    assert dead() is None
+    for _ in range(tk.MAX_STACKED_BATCHES + 1):
+        p = tk.SortedKeys(np.arange(16))
+        probes[0].batch_lane([probes[0], p], fact)
+    assert len(probes[0]._stacks) == tk.MAX_STACKED_BATCHES
+
+
+def test_join_leaf_bench_needs_a_card(monkeypatch, capsys):
+    """The batched join_raw leaf's timing tool refuses to run without a
+    CUDA card (exit 2), before it builds or times anything."""
+    from pinot_tpu_torch.tools import join_leaf_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert join_leaf_bench.main([]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_compile_filter_batched_join_bits_node(dtype):
+    """Members whose keys span a narrow range compile to a join_bits node
+    (op 18): its arg the range's span, its parameter block the member
+    map's lane index and the range's base in the lane's dtype, the same
+    for every member; the lane table ends with the uint8 [span] map."""
+    keys = [np.arange(-40 + b, 60, 3, dtype=dtype)[:16] for b in range(3)]
+    members = [[tk.SortedKeys(k)] for k in keys]
+    cols = {"k.raw": torch.zeros(64, dtype=torch.from_numpy(keys[0]).dtype)}
+    lanes = []
+    buf, n_nodes, words = tk.compile_filter_batched(
+        ("pred", "join_raw", "k", "raw", 16), members, cols, lanes)
+    base_words = tk._raw_words([-40], cols["k.raw"].dtype)
+    assert n_nodes == 1 and len(lanes) == 1
+    mm = tk.join_member_map([m[0] for m in members], cols["k.raw"])
+    assert torch.equal(lanes[0], mm.map)
+    span = int(max(k.max() for k in keys)) + 40 + 1
+    assert list(buf[:6]) == [18, 0, 0, span,
+                             tk._ELEM[cols["k.raw"].dtype], 1]
+    assert words == 1 + len(base_words)
+    for b in range(3):
+        assert list(buf[6 + b * words: 6 + (b + 1) * words]) == \
+            [1] + base_words
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_join_member_map_holds_each_members_keys(dtype):
+    """Bit b of byte i of the member map is set iff base + i is among
+    member b's keys (8 members, negative keys and duplicates included); a
+    key lane of another dtype and a ninth member are refused, and a range
+    past JOIN_MAP_MAX_SPAN takes the search route (None)."""
+    rng = np.random.default_rng(11)
+    keys = [np.sort(rng.integers(-300, 700, 64)).astype(dtype)
+            for _ in range(8)]
+    probes = [tk.SortedKeys(k) for k in keys]
+    fact = torch.zeros(2, dtype=torch.from_numpy(keys[0]).dtype)
+    mm = tk.join_member_map(probes, fact)
+    base = min(int(k.min()) for k in keys)
+    assert mm.base == base and mm.map.dtype == torch.uint8
+    got = mm.map.numpy()
+    for b, k in enumerate(keys):
+        want = np.zeros(got.shape[0], dtype=bool)
+        want[k.astype(np.int64) - base] = True
+        np.testing.assert_array_equal((got >> b) & 1 == 1, want)
+    other = torch.int32 if dtype == np.int64 else torch.int64
+    with pytest.raises(ValueError, match="do not match"):
+        tk.join_member_map(probes, torch.zeros(2, dtype=other))
+    with pytest.raises(ValueError, match="members past"):
+        tk.join_member_map(probes + probes[:1], fact)
+    wide = [tk.SortedKeys(np.array([0, tk.JOIN_MAP_MAX_SPAN], dtype))]
+    assert tk.join_member_map(wide, fact) is None
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_k1_batched_join_raw_leaf_plain_matches_jax(dtype, n):
+    """The batched K1 takes the join_raw leaf: each member's mask (its
+    own dim side, its own range) equals the JAX `_eval_pred` kind
+    join_raw ANDed with the range, and its own single plain K1; the
+    batched program shares the nodes, and its join lane is [B, Dp] with
+    row b member b's keys sorted."""
+    P, num_docs = 16384, 16384 - 777
+    lane, spec, members, probes = _batched_join_members(P, dtype, n, 40)
+    cols = {"k.raw": torch.from_numpy(lane)}
+    masks, matched = tk.filter_mask_batched(P, spec, cols, members,
+                                            num_docs, "cpu")
+    valid = np.arange(P) < num_docs
+    for b, (params, keys) in enumerate(zip(members, probes)):
+        want = np.asarray(jk._eval_pred("join_raw", "raw", len(keys),
+                                        jnp.asarray(lane),
+                                        [jnp.asarray(keys)]))
+        want = want & (lane >= params[1]) & (lane < params[2]) & valid
+        np.testing.assert_array_equal(masks[b].numpy().astype(bool), want)
+        assert int(matched[b]) == int(want.sum())
+        assert torch.equal(masks[b], tk.filter_mask(
+            P, spec, cols, params, num_docs, "cpu"))
+    lanes = []
+    buf, n_nodes, words = tk.compile_filter_batched(spec, members, cols,
+                                                    lanes)
+    assert n_nodes == 3 and len(lanes) == 1
+    assert tuple(lanes[0].shape) == (n, len(probes[0]))
+    for b, keys in enumerate(probes):
+        assert torch.equal(lanes[0][b],
+                           torch.sort(torch.from_numpy(keys)).values)
+    # member b's parameter block: the join lane's index (the same for
+    # every member), then its range constants
+    node_words = 6 * n_nodes
+    for b in range(n):
+        block = buf[node_words + b * words: node_words + (b + 1) * words]
+        assert block[0] == 1
 
 
 def _group_cols(P, num_docs, seed):
@@ -808,6 +1066,70 @@ def test_k1_join_raw_leaf_cuda_matches_plain(cuda_device, dtype):
         P, S, spec, {"k.raw": cols["k.raw"].cpu()}, [probe], docs.cpu())
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bits", "search"])
+@pytest.mark.parametrize("dp", [1, 37, 1000])
+def test_k1_batched_join_raw_leaf_cuda_any_dp(cuda_device, dp, route):
+    """Both routes of the batched leaf on the card, at a Dp that is not a
+    power of two (and Dp = 1), int64 keys with negatives and duplicates:
+    a member map where the members' keys span a narrow range, the sorted
+    keys' probe where they span 2^41. Masks and counts bit-equal to the
+    plain version and to single K1 launches."""
+    P, num_docs = 8192, 8192 - 333
+    rng = np.random.default_rng(dp)
+    lo, hi = (-1000, 3 * dp + 5) if route == "bits" else (-2 ** 40, 2 ** 40)
+    keys = [np.sort(rng.integers(lo, hi, dp)) for _ in range(8)]
+    members = [[tk.SortedKeys(k)] for k in keys]
+    lane = np.where(rng.random(P) < 0.5,
+                    np.concatenate(keys)[rng.integers(0, 8 * dp, P)],
+                    rng.integers(lo, hi, P)).astype(np.int64)
+    spec = ("pred", "join_raw", "k", "raw", dp)
+    host = {"k.raw": torch.from_numpy(lane)}
+    cols = {"k.raw": host["k.raw"].to(cuda_device)}
+    mm = tk.join_member_map([m[0] for m in members], cols["k.raw"])
+    assert (mm is not None) is (route == "bits")
+    masks, matched = tk.filter_mask_batched(P, spec, cols, members,
+                                            num_docs)
+    want, want_matched = tk.filter_mask_batched_plain(
+        P, spec, host, members, num_docs, "cpu")
+    assert torch.equal(masks.cpu(), want)
+    assert torch.equal(matched.cpu(), want_matched)
+    assert int(want_matched.sum()) > 0
+    for b, params in enumerate(members):
+        assert torch.equal(masks[b], tk.filter_mask(P, spec, cols, params,
+                                                    num_docs)), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_k1_batched_join_raw_leaf_cuda(cuda_device, dtype, n):
+    """The batched K1 with the join_raw leaf on the card: one launch for
+    the n members (counted with the node), masks and counts bit-equal to
+    its plain version and to n single K1 launches."""
+    P, num_docs = 16384, 16384 - 777
+    lane, spec, members, _probes = _batched_join_members(P, dtype, n, 50)
+    host = {"k.raw": torch.from_numpy(lane)}
+    cols = {"k.raw": host["k.raw"].to(cuda_device)}
+    for params in members:
+        params[0].on(cuda_device)            # K12's sorts, before counting
+    tk.reset_launch_counts()
+    masks, matched = tk.filter_mask_batched(P, spec, cols, members,
+                                            num_docs)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts["filter_mask_batched"] == 1
+    assert counts["filter_mask_batched[join_raw]"] == 1
+    assert counts["filter_mask"] == 0
+    want, want_matched = tk.filter_mask_batched_plain(
+        P, spec, host, members, num_docs, "cpu")
+    assert torch.equal(masks.cpu(), want)
+    assert torch.equal(matched.cpu(), want_matched)
+    for b, params in enumerate(members):
+        one = tk.filter_mask(P, spec, cols, params, num_docs)
+        assert torch.equal(masks[b], one), b
 
 
 @pytest.mark.cuda

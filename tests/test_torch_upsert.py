@@ -343,8 +343,12 @@ def test_mutable_frozen_tail_boundary_with_straddling_mask():
             cnt, s = ask()
             assert s == cnt, (s, cnt)
             assert 11_000 - len(dead) <= cnt <= 12_000 - len(dead)
+    except BaseException:
+        stop.set()          # a failed query stops the writer early
+        raise
     finally:
-        stop.set()
+        # the writer indexes every row before the final count: stopping
+        # it when the queries end raced its last rows
         t.join(timeout=60)
     assert not t.is_alive()
     cnt, s = ask()

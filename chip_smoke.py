@@ -150,9 +150,10 @@ non-zero exit and no result line:
    draw, train and load seconds, device and disk bytes.
 14. vector_kernel_check: K8 (both metrics), K6's vector kind, K9, K1's
    ivf_probe node, K10 and K11 against their plain versions on segment
-   0's lanes, and K8, K6-vector, K9 and K1 over the stack against their
-   plain stacked versions and S per-segment launches (vector_kernel_check
-   says what must be equal); timed with the L2 flushed, beside their
+   0's lanes (K11 also with every row on one centroid), and K8,
+   K6-vector, K9 and K1 over the stack against their plain stacked
+   versions and S per-segment launches (vector_kernel_check says what
+   must be equal); timed with the L2 flushed, beside their
    bounds (bytes for K8, K6 and K9, operations for K10) and the nearest
    PyTorch call (torch.mv, torch.topk, torch.topk of torch.mv, cdist with
    argmin, index_add_).
@@ -273,11 +274,13 @@ non-zero exit and no result line:
 22. join_kernel_check: K1's member leaf (segment 0, J2.1's dim side) and
    join_raw leaf (the first raw-key segment), K3's jcode and jraw keys (the
    same), K12 as the join build (J2.1's dim keys with their codes) and on
-   W1's 65,536-row lanes, K13 on W1's sorted lanes, each against its
-   plain version on the card (masks, tables, permutations, row numbers
-   and sums bit-equal), timed with the L2 flushed beside its bound and
-   the nearest PyTorch call (a gather, torch.searchsorted, stable
-   torch.sort, torch.cumsum).
+   W1's 65,536-row lanes, K13 on W1's sorted lanes and on 2^24 rows as
+   one partition and as singletons (WINDOW_SCAN_REPEATS launches a case,
+   each checked), each against its plain version on the card (masks,
+   tables, permutations, row numbers and sums bit-equal), timed with the
+   L2 flushed beside its bound and the nearest PyTorch call (a gather,
+   torch.searchsorted, stable torch.sort, torch.cumsum; for K13 also a
+   copy of the same lanes).
 23. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
    repeats), and the depth cuts made to stay inside the time limit.
@@ -363,6 +366,7 @@ SCALAR_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 CSUMS_RTOL = 1e-9               # f64 atomics add in a run-dependent order
 ROWS_PER_SF = 6_000_000
 L2_FLUSH_BYTES = 128 << 20      # > the 50 MB L2: each timed launch is cold
+WINDOW_SCAN_REPEATS = 10        # K13 launches a case, each bit-checked
 SPIN_CYCLES = 2_000_000         # ~1 ms at H100 clocks
 
 
@@ -412,6 +416,41 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, spins: int = 1) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def launch_breakdown(fn, reps: int = 5) -> dict:
+    """{kernel: [mean device µs a launch, launches recorded]} for the
+    kernels fn() launches, under torch.profiler over `reps` calls, the L2
+    flushed before each call as time_ms flushes it (the flush's own uint8
+    fill is left out). The mean is over the launches the profiler
+    recorded, which in a process that has profiled before can be fewer
+    than reps a kernel. {"error": ...} where the profiler fails: the
+    breakdown only explains a time, it checks nothing."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            if not us or not ev.count or "unsigned char" in ev.key or \
+                    not str(ev.device_type).endswith("CUDA"):
+                continue
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].replace("void ", "").strip()[:80]
+            total, n = out.get(name, (0.0, 0))
+            out[name] = (total + us, n + ev.count)
+        return {k: [total / n, n] for k, (total, n) in out.items()}
+    except Exception as e:  # noqa: BLE001 - a diagnostic, never a check
+        return {"error": repr(e)}
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -2019,7 +2058,8 @@ def vector_kernel_check(engine, st_engine, q):
     K10's assignments wherever the best two distances differ by more than
     1e-3 of the best, its distances within 1e-3 + 1e-4 relative; K11's
     counts equal, its centroids within 1e-5 and byte-identical run to
-    run. Returns ({kernel: numbers}, {kernel: stacked numbers})."""
+    run, on the sample's assignments and with every row on one centroid.
+    Returns ({kernel: numbers}, {kernel: stacked numbers})."""
     from pinot_tpu_torch.ops import ivf_kernels as IK
     from pinot_tpu_torch.ops import kernels as K
     seg = engine.segments[0]
@@ -2128,27 +2168,38 @@ def vector_kernel_check(engine, st_engine, q):
         library_ms=time_ms(lambda: torch.cdist(data, cent[:n_cent])
                            .argmin(dim=1), reps=3))
 
-    # K11 on a training sample's shape (its first rows, K10's cells)
+    # K11 on a training sample's shape (its first rows, K10's cells), and
+    # with every row on one centroid (the skew a single block per centroid
+    # would serialise)
     m = min(65536, n)
     sample = data[:m].contiguous()
     a_s, _ = IK.ivf_assign(sample, cent, m, n_cent)
-    new_c, counts = IK.ivf_recenter(sample, a_s, m, cent)
-    again, _ = IK.ivf_recenter(sample, a_s, m, cent)
-    ref_c, ref_n = IK.ivf_recenter_plain(sample, a_s, m, cent)
-    err = float((new_c - ref_c).abs().max())
-    record("ivf_recenter", f"{m} rows x {c_pad} centroids",
-           torch.equal(counts, ref_n) and _bits_equal(new_c, again) and
-           bool(torch.allclose(new_c, ref_c, rtol=1e-5, atol=1e-5)),
-           max_abs_err=err, run_to_run_bytes_equal=_bits_equal(new_c, again))
-    entries["ivf_recenter"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: IK.ivf_recenter(sample, a_s, m, cent)),
-        plain_ms=time_ms(lambda: IK.ivf_recenter_plain(sample, a_s, m,
-                                                       cent), reps=3),
-        bound=bound(m * dim * 4 + m * 4 + 2 * c_pad * dim * 4 + c_pad * 4,
-                    1.0 * m * dim),
-        library_ms=time_ms(lambda: torch.zeros_like(cent).index_add_(
-            0, a_s.long(), sample)))
+    a_one = torch.full_like(a_s, n_cent // 2)
+    for case, a in ((f"{m} rows x {c_pad} centroids", a_s),
+                    (f"{m} rows x {c_pad} centroids, every row on one",
+                     a_one)):
+        new_c, counts = IK.ivf_recenter(sample, a, m, cent)
+        again, _ = IK.ivf_recenter(sample, a, m, cent)
+        ref_c, ref_n = IK.ivf_recenter_plain(sample, a, m, cent)
+        err = float((new_c - ref_c).abs().max())
+        e = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: IK.ivf_recenter(sample, a, m, cent)),
+            plain_ms=time_ms(lambda: IK.ivf_recenter_plain(sample, a, m,
+                                                           cent), reps=3),
+            bound=bound(m * dim * 4 + m * 4 + 2 * c_pad * dim * 4 +
+                        c_pad * 4, 1.0 * m * dim),
+            library_ms=time_ms(lambda: torch.zeros_like(cent).index_add_(
+                0, a.long(), sample)))
+        record("ivf_recenter", case,
+               torch.equal(counts, ref_n) and _bits_equal(new_c, again) and
+               bool(torch.allclose(new_c, ref_c, rtol=1e-5, atol=1e-5)),
+               run_to_run_bytes_equal=_bits_equal(new_c, again),
+               launch_us=launch_breakdown(
+                   lambda: IK.ivf_recenter(sample, a, m, cent)),
+               **{k: v for k, v in e.items() if k != "bound"},
+               bound_ms=e["bound"][0], bound_by=e["bound"][1])
+        entries.setdefault("ivf_recenter", e)
 
     # the stack: one launch over all S segments against S launches
     stack = st_engine.sharded.stack_for(st_engine.segments)
@@ -3615,9 +3666,10 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
     """K1 (member and join_raw leaves), K3 (jcode, jraw), K12 (the join's
     dim side and the window's lanes) and K13 against their plain versions
     on the card, on segment 0's lanes and the raw-key segment's with
-    J2.1's real dim side, and on W1's real window lanes; timed with the L2
-    flushed, beside their bounds and the nearest PyTorch call. Returns
-    {entry name: entry}."""
+    J2.1's real dim side, and on W1's real window lanes (K13 also on 2^24
+    rows, one partition and singletons); timed with the L2 flushed,
+    beside their bounds and the nearest PyTorch call. Returns {entry
+    name: entry}."""
     from pinot_tpu_torch.ops import kernels as K
     req, ctx = j21
     entries = {}
@@ -3717,22 +3769,46 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
     entries["radix_sort"] = dict(max_abs_err=err, ms=r["ms"],
                                  plain_ms=r["plain_ms"], bound=b,
                                  library_ms=r["library_ms"])
-    sp, svals = got[1][0], got[2]
-    rn, run = K.window_scan(sp, svals)
-    rn_p, run_p = K.window_scan_plain(sp, svals)
-    err = int(not (torch.equal(rn, rn_p) and
-                   all(torch.equal(a, b_) for a, b_ in zip(run, run_p))))
-    b = bound(n_pad * 8 * (1 + len(svals)), n_pad * 4 * (1 + len(svals)))
-    r = {"kernel": "window_scan", "case": "w1 sorted lanes", "rows": n_pad,
-         "sum_lanes": len(svals), "max_abs_err": err,
-         "ms": time_ms(lambda: K.window_scan(sp, svals)),
-         "plain_ms": time_ms(lambda: K.window_scan_plain(sp, svals)),
-         "library_ms": time_ms(lambda: torch.cumsum(svals[0], 0)),
-         "bound_ms": b[0], "bound_by": b[1]}
-    emit({"phase": "join_kernel_check", **r})
-    entries["window_scan"] = dict(max_abs_err=err, ms=r["ms"],
-                                  plain_ms=r["plain_ms"], bound=b,
-                                  library_ms=r["library_ms"])
+    # K13 on W1's sorted lanes, then on 2^24 rows as one partition over
+    # every tile (the longest look-back chains) and as singletons; each
+    # case WINDOW_SCAN_REPEATS times, bit-equal to the plain version every
+    # time (a race in the look-back shows only as a wrong bit)
+    rng = np.random.default_rng(13)
+    big = 1 << 24
+    big_v = [torch.from_numpy(rng.integers(-2 ** 30, 2 ** 30, big)
+                              .astype(np.int32)).to(device)]
+    cases = [("w1 sorted lanes", got[1][0], got[2]),
+             ("2^24 rows, one partition",
+              torch.zeros(big, dtype=torch.int32, device=device), big_v),
+             ("2^24 rows, every row its own partition",
+              torch.arange(big, dtype=torch.int32, device=device), big_v)]
+    for case, sp, svals in cases:
+        rows = sp.numel()
+        rn_p, run_p = K.window_scan_plain(sp, svals)
+        err = 0
+        for _ in range(WINDOW_SCAN_REPEATS):
+            rn, run = K.window_scan(sp, svals)
+            err += int(not (torch.equal(rn, rn_p) and all(
+                torch.equal(a, b_) for a, b_ in zip(run, run_p))))
+        b = bound(rows * 8 * (1 + len(svals)), rows * 4 * (1 + len(svals)))
+        r = {"kernel": "window_scan", "case": case, "rows": rows,
+             "sum_lanes": len(svals), "repeats": WINDOW_SCAN_REPEATS,
+             "max_abs_err": err,
+             "ms": time_ms(lambda: K.window_scan(sp, svals)),
+             "plain_ms": time_ms(lambda: K.window_scan_plain(sp, svals)),
+             "library_ms": time_ms(lambda: torch.cumsum(svals[0], 0)),
+             # a copy of the same lanes moves the kernel's bytes: what
+             # the memory gives under time_ms's flush
+             "copy_ms": time_ms(lambda: [t.clone() for t in [sp] + svals]),
+             "launch_us": launch_breakdown(lambda: K.window_scan(sp, svals)),
+             "bound_ms": b[0], "bound_by": b[1]}
+        emit({"phase": "join_kernel_check", **r})
+        if err:
+            raise AssertionError(f"window_scan disagrees on {case} in {err} "
+                                 f"of {WINDOW_SCAN_REPEATS} runs")
+        entries.setdefault("window_scan", dict(
+            max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"], bound=b,
+            library_ms=r["library_ms"]))
     bad = {k: e["max_abs_err"] for k, e in entries.items()
            if e["max_abs_err"]}
     if bad:

@@ -40,23 +40,47 @@
 // below 2^16, their upper bytes never vary; a join's int32 keys below
 // 2^24 skip the top byte.
 //
-// K13: one block of 1,024 threads; thread t owns a contiguous run of
-// ceil(n / 1024) rows. The starts are a max-scan of (new ? i : 0) and the
-// running sums a segmented scan (a start resets the sum), each as a scan
-// of the threads' run aggregates, then one walk of the run. The sums are
-// uint32: the JAX kernel takes a cumsum over the whole array in int32
-// (cs - (cs[start] - v[start])), whose global prefix may pass 2^31 while
-// every partition's sum fits (the host guard bounds each partition only).
-// The difference is the same modulo 2^32 as the partition's own running
-// sum, and unsigned wraparound is defined where signed overflow is not.
+// K13: a single-pass scan over tiles of 2,048 rows with decoupled
+// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", 2016), one block of 256 threads a tile, every
+// quantity of the launch in one pass. The quantities are the row numbers
+// (a segmented count: 1 a row, reset at each partition start, which is
+// i - start(i) + 1) and up to 8 value lanes' running sums, all under the
+// segmented operator Seg / seg_combine. A thread loads 8 consecutive rows
+// of each lane as two 16-byte vectors, works out its rows' start flags once
+// (sp[i] != sp[i - 1]; the first row of a warp takes sp[i - 1] from its
+// neighbour lane or, at lane 0, from memory), reduces its rows, and the
+// block scans the 256 thread aggregates with warp shuffles. The tile then
+// publishes its aggregate, one 64-bit descriptor a quantity: bits 0-31
+// the value, bit 32 "a partition starts in this tile", bits 33-34 the
+// status (empty, aggregate, inclusive), so a reader never sees a status and
+// a value from different writes. A tile whose aggregate holds a start, and
+// tile 0, publish it as inclusive at once: the operator resets there, so
+// nothing before them changes their prefix. One warp a quantity then looks
+// back 32 predecessors at a time, waits (with __nanosleep) until those up
+// to the nearest one that is inclusive or holds a start have published,
+// folds them in order, and publishes the tile's inclusive prefix.
+// Descriptors are stored with st.release and read with ld.acquire at
+// device scope. Tile ids come from an atomic counter, not blockIdx, so a
+// tile only waits on tiles whose blocks already run. The wrapper zeroes the descriptors and the
+// counters (one memset launch, a few KB at W1's size): an epoch tag in the
+// status bits would need scratch that outlives a call, which the server's
+// concurrent workers would share. More than 8 value lanes run as further
+// launches of up to 9 lanes inside the same C call, the row numbers in the
+// first only. The sums are uint32: the JAX kernel takes a cumsum over the
+// whole array in int32 (cs - (cs[start] - v[start])), whose global prefix
+// may pass 2^31 while every partition's sum fits (the host guard bounds
+// each partition only). The difference is the same modulo 2^32 as the
+// partition's own running sum, and unsigned wraparound is defined where
+// signed overflow is not.
 //
-// What bounds them: n <= 65,536 rows (the window cap and the dim cap), so
-// a lane is 256 KB and stays in the 50 MB L2; launch latency and the
-// passes' synchronisation bound K12, not bytes (a pass reads the digit
-// through the permutation, a gather). K13 is one block: its 4 B a row per
-// lane would take a few µs at the memory rate, so it is latency, not
-// bandwidth, that a bigger grid would buy back. Simple first: the
-// speed of both is later work.
+// What bounds them: n <= 65,536 rows on the window path (the window cap
+// and the dim cap), so a lane is 256 KB and stays in the 50 MB L2; launch
+// latency and the passes' synchronisation bound K12, not bytes (a pass
+// reads the digit through the permutation, a gather). K13 reads each input
+// once and writes each output once with 16-byte accesses: at W1's 32 tiles
+// it is bound by launch latency and one tile's look-back, at 2^24 rows by
+// bytes. K12's speed is later work.
 
 #include "common.cuh"
 
@@ -68,8 +92,11 @@ constexpr int kTile = 256;            // rows the scatter block ranks at once
 constexpr int kTileWarps = kTile / 32;
 constexpr int kMaxKeys = 8;
 constexpr int kMaxPayloads = 8;
-constexpr int kScanThreads = 1024;
-constexpr int kMaxScanLanes = 8;
+constexpr int kScanThreads = 256;     // K13: threads of a tile's block
+constexpr int kScanItems = 8;         // consecutive rows a thread
+constexpr int kScanTile = kScanThreads * kScanItems;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kMaxScanQ = 9;          // quantities a launch: rn and 8 lanes
 
 struct KeyLanes {
   const void* ptr[kMaxKeys];
@@ -256,84 +283,207 @@ __device__ __forceinline__ Seg seg_combine(Seg a, Seg b) {
   return Seg{a.flag | b.flag, b.flag ? b.sum : a.sum + b.sum};
 }
 
-// exclusive block scan of one Seg per thread (blockDim.x == 1024) under
-// the associative `op`, with `identity`; `scratch` holds 32 values. Every
-// thread calls it.
-template <typename Op>
-__device__ __forceinline__ Seg block_exclusive_scan(Seg v, Seg identity, Op op, Seg* scratch) {
-  using T = Seg;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T inc = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    T up;
-    up.flag = __shfl_up_sync(0xffffffffu, inc.flag, off);
-    up.sum = __shfl_up_sync(0xffffffffu, inc.sum, off);
-    if (lane >= off) inc = op(up, inc);
-  }
-  __syncthreads();                    // scratch may still be read
-  if (lane == 31) scratch[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    T w = scratch[lane];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      T up;
-      up.flag = __shfl_up_sync(0xffffffffu, w.flag, off);
-      up.sum = __shfl_up_sync(0xffffffffu, w.sum, off);
-      if (lane >= off) w = op(up, w);
-    }
-    scratch[lane] = w;                // inclusive over warps
-  }
-  __syncthreads();
-  T exc;
-  exc.flag = __shfl_up_sync(0xffffffffu, inc.flag, 1);
-  exc.sum = __shfl_up_sync(0xffffffffu, inc.sum, 1);
-  if (lane == 0) exc = identity;
-  if (warp > 0) exc = lane == 0 ? scratch[warp - 1] : op(scratch[warp - 1], exc);
-  return exc;
+__device__ __forceinline__ Seg shfl_up_seg(Seg v, int off) {
+  return Seg{__shfl_up_sync(0xffffffffu, v.flag, off), __shfl_up_sync(0xffffffffu, v.sum, off)};
 }
 
-struct ScanLanes {
-  const int* in[kMaxScanLanes];
-  int* out[kMaxScanLanes];
+__device__ __forceinline__ Seg shfl_down_seg(Seg v, int off) {
+  return Seg{__shfl_down_sync(0xffffffffu, v.flag, off),
+             __shfl_down_sync(0xffffffffu, v.sum, off)};
+}
+
+// the quantities of one launch: in[q] == nullptr is the row numbers (1 a row)
+struct ScanQ {
+  const int* in[kMaxScanQ];
+  int* out[kMaxScanQ];
 };
 
-__global__ void window_scan_kernel(const int* __restrict__ sp, ScanLanes lanes, int n_lanes,
-                                   long long n, int* __restrict__ rn) {
-  __shared__ Seg scratch[32];
-  const long long per = (n + kScanThreads - 1) / kScanThreads;
-  const long long lo = min(static_cast<long long>(threadIdx.x) * per, n);
-  const long long hi = min(lo + per, n);
-  auto is_new = [&](long long i) { return i == 0 || sp[i] != sp[i - 1]; };
-  // the starts: the last start of this run (flag set), carried by a scan
-  // whose operator keeps the later start (Seg.sum holds the row index)
-  Seg agg{0u, 0u};
-  for (long long i = lo; i < hi; ++i)
-    if (is_new(i)) agg = Seg{1u, static_cast<unsigned>(i)};
-  auto later = [](Seg a, Seg b) { return b.flag ? b : a; };
-  Seg carry = block_exclusive_scan(agg, Seg{0u, 0u}, later, scratch);
-  unsigned start = carry.sum;
-  for (long long i = lo; i < hi; ++i) {
-    if (is_new(i)) start = static_cast<unsigned>(i);
-    rn[i] = static_cast<int>(static_cast<unsigned>(i) - start + 1u);
+// a descriptor: value in bits 0-31, start flag in bit 32, status above
+constexpr int kStatusShift = 33;
+constexpr unsigned long long kEmpty = 0ULL, kAggregate = 1ULL, kInclusive = 2ULL;
+
+__device__ __forceinline__ unsigned long long pack_desc(Seg s, unsigned long long status) {
+  return (status << kStatusShift) | (static_cast<unsigned long long>(s.flag & 1u) << 32) | s.sum;
+}
+
+__device__ __forceinline__ Seg unpack_desc(unsigned long long w) {
+  return Seg{static_cast<unsigned>(w >> 32) & 1u, static_cast<unsigned>(w)};
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// rows [row, row + 8) of p, 0 past n: two 16-byte loads where all 8 lie
+// inside and the lanes are 16-byte aligned (row is a multiple of 8)
+__device__ __forceinline__ void load_items(const int* __restrict__ p, long long row, long long n,
+                                           bool vec, unsigned (&x)[kScanItems]) {
+  if (vec && row + kScanItems <= n) {
+    const int4 a = *reinterpret_cast<const int4*>(p + row);
+    const int4 b = *reinterpret_cast<const int4*>(p + row + 4);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k)
+      x[k] = row + k < n ? static_cast<unsigned>(p[row + k]) : 0u;
   }
-  for (int j = 0; j < n_lanes; ++j) {
-    const int* v = lanes.in[j];
-    Seg run{0u, 0u};
-    for (long long i = lo; i < hi; ++i) {
-      if (is_new(i)) run = Seg{1u, 0u};
-      run.sum += static_cast<unsigned>(v[i]);
-    }
-    const Seg in = block_exclusive_scan(run, Seg{0u, 0u}, seg_combine, scratch);
-    unsigned s = in.sum;
-    int* out = lanes.out[j];
-    for (long long i = lo; i < hi; ++i) {
-      if (is_new(i)) s = 0u;
-      s += static_cast<unsigned>(v[i]);
-      out[i] = static_cast<int>(s);
-    }
+}
+
+__device__ __forceinline__ void store_items(int* __restrict__ p, long long row, long long n,
+                                            bool vec, const unsigned (&x)[kScanItems]) {
+  if (vec && row + kScanItems <= n) {
+    *reinterpret_cast<int4*>(p + row) = make_int4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<int4*>(p + row + 4) = make_int4(x[4], x[5], x[6], x[7]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k)
+      if (row + k < n) p[row + k] = static_cast<int>(x[k]);
   }
+}
+
+// The exclusive prefix of tile `tile` for one quantity: the fold, oldest
+// first, of its predecessors' descriptors back to the nearest that is
+// inclusive or holds a start. Every lane of the warp calls it; lane 0's
+// result is the prefix.
+__device__ __forceinline__ Seg look_back(const unsigned long long* desc, long long tile, int nq,
+                                         int q) {
+  const int lane = threadIdx.x & 31;
+  Seg run{0u, 0u};                    // the fold of the tiles after `pred`
+  for (long long pred = tile - 1;; pred -= 32) {
+    const long long t = pred - lane;
+    const unsigned long long* at = desc + (t >= 0 ? t * nq + q : 0);
+    unsigned long long w = t >= 0 ? load_acquire(at) : (kInclusive << kStatusShift);
+    // wait until every lane up to the nearest stop has published
+    unsigned stops;
+    for (int spins = 0;; ++spins) {
+      const unsigned long long status = w >> kStatusShift;
+      const unsigned empty = __ballot_sync(0xffffffffu, status == kEmpty);
+      stops = __ballot_sync(0xffffffffu,
+                            status == kInclusive || (status == kAggregate && ((w >> 32) & 1ULL)));
+      if (!empty || (stops && __ffs(stops) < __ffs(empty))) break;
+      __nanosleep(spins < 4 ? 32 << spins : 512);
+      if (status == kEmpty) w = load_acquire(at);
+    }
+    const int first = stops ? __ffs(stops) - 1 : 32;   // nearest stopping lane
+    Seg x = lane <= first ? unpack_desc(w) : Seg{0u, 0u};
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const Seg older = shfl_down_seg(x, off);
+      if (lane + off < 32) x = seg_combine(older, x);
+    }
+    run = seg_combine(x, run);        // lane 0's x: the window, oldest first
+    if (stops) return run;
+  }
+}
+
+template <int NQ>
+__global__ void __launch_bounds__(kScanThreads)
+    window_scan_kernel(const int* __restrict__ sp, ScanQ q, long long n, int vec,
+                       unsigned long long* __restrict__ desc, unsigned* __restrict__ next_tile) {
+  __shared__ unsigned tile_id;
+  __shared__ Seg warp_total[kScanWarps][NQ];
+  __shared__ Seg tile_prefix[NQ];
+  if (threadIdx.x == 0) tile_id = atomicAdd(next_tile, 1u);
+  __syncthreads();
+  const long long tile = tile_id;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row0 = tile * kScanTile + static_cast<long long>(threadIdx.x) * kScanItems;
+
+  // the start flags of this thread's rows, bit k for row0 + k
+  unsigned s[kScanItems];
+  load_items(sp, row0, n, vec, s);
+  unsigned prev = __shfl_up_sync(0xffffffffu, s[kScanItems - 1], 1);
+  if (lane == 0 && row0 > 0 && row0 < n) prev = static_cast<unsigned>(sp[row0 - 1]);
+  unsigned flags = 0u;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    const long long i = row0 + k;
+    const unsigned before = k ? s[k - 1] : prev;
+    if (i < n && (i == 0 || s[k] != before)) flags |= 1u << k;
+  }
+
+  // each quantity's values and this thread's aggregate, then the warp scan
+  unsigned v[NQ][kScanItems];
+  Seg inc[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    if (q.in[j]) {
+      load_items(q.in[j], row0, n, vec, v[j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kScanItems; ++k) v[j][k] = 1u;
+    }
+    Seg a{0u, 0u};
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k)
+      a = (flags >> k) & 1u ? Seg{1u, v[j][k]} : Seg{a.flag, a.sum + v[j][k]};
+    Seg x = a;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const Seg up = shfl_up_seg(x, off);
+      if (lane >= off) x = seg_combine(up, x);
+    }
+    if (lane == 31) warp_total[warp][j] = x;
+    // this thread's exclusive prefix inside its warp
+    const Seg left = shfl_up_seg(x, 1);
+    inc[j] = lane ? left : Seg{0u, 0u};
+  }
+  __syncthreads();
+
+  // the tile's aggregates; thread j publishes quantity j's
+  Seg thread_prefix[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    Seg before{0u, 0u}, all{0u, 0u};
+#pragma unroll
+    for (int w = 0; w < kScanWarps; ++w) {
+      if (w == warp) before = all;
+      all = seg_combine(all, warp_total[w][j]);
+    }
+    thread_prefix[j] = seg_combine(before, inc[j]);
+    if (threadIdx.x == j)
+      store_release(desc + tile * NQ + j,
+                    pack_desc(all, tile == 0 || all.flag ? kInclusive : kAggregate));
+  }
+
+  // the look-back, warp w for quantities w, w + 8
+  for (int j = warp; j < NQ; j += kScanWarps) {
+    Seg all{0u, 0u};
+    for (int w = 0; w < kScanWarps; ++w) all = seg_combine(all, warp_total[w][j]);
+    Seg pre{0u, 0u};
+    if (tile > 0) {
+      pre = look_back(desc, tile, NQ, j);
+      if (lane == 0 && !all.flag)
+        store_release(desc + tile * NQ + j, pack_desc(seg_combine(pre, all), kInclusive));
+    }
+    if (lane == 0) tile_prefix[j] = pre;
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    Seg run = seg_combine(tile_prefix[j], thread_prefix[j]);
+    unsigned out[kScanItems];
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      run = (flags >> k) & 1u ? Seg{1u, v[j][k]} : Seg{run.flag, run.sum + v[j][k]};
+      out[k] = run.sum;
+    }
+    store_items(q.out[j], row0, n, vec, out);
+  }
+}
+
+template <int NQ>
+void launch_scan(const int* sp, const ScanQ& q, long long n, int vec, unsigned long long* desc,
+                 unsigned* next_tile, int tiles, cudaStream_t s) {
+  window_scan_kernel<NQ><<<tiles, kScanThreads, 0, s>>>(sp, q, n, vec, desc, next_tile);
 }
 
 }  // namespace
@@ -404,19 +554,57 @@ extern "C" int pinot_radix_sort(const void* const* key_ptrs, const int* key_elem
   return static_cast<int>(cudaGetLastError());
 }
 
+// Words (64-bit) of zeroed scratch pinot_window_scan takes for n rows and
+// n_vals value lanes: per launch of up to 9 quantities, a tile counter and
+// a descriptor a tile and quantity.
+extern "C" long long pinot_window_scan_scratch_words(long long n, int n_vals) {
+  const long long tiles = (n + kScanTile - 1) / kScanTile;
+  long long words = 0;
+  for (int lo = 0; lo < n_vals + 1; lo += kMaxScanQ) {
+    const int nq = n_vals + 1 - lo < kMaxScanQ ? n_vals + 1 - lo : kMaxScanQ;
+    words += 1 + tiles * nq;
+  }
+  return words;
+}
+
 // sp: the sorted partition lane, int32 [n]; values: n_vals int32 lanes in
 // the same order. Writes rn int32 [n] (1-based row number within the
 // partition) and outs (each lane's running sum within its partition, in
-// int32 with wraparound).
+// int32 with wraparound). scratch: pinot_window_scan_scratch_words 64-bit
+// words, all zero.
 extern "C" int pinot_window_scan(const int* sp, const int* const* values, int n_vals,
-                                 long long n, int* rn, int* const* outs, void* stream) {
-  if (n < 1 || n > (1LL << 30) || n_vals < 0 || n_vals > kMaxScanLanes) return -1;
-  ScanLanes lanes{};
-  for (int j = 0; j < n_vals; ++j) {
-    lanes.in[j] = values[j];
-    lanes.out[j] = outs[j];
+                                 long long n, int* rn, int* const* outs,
+                                 unsigned long long* scratch, void* stream) {
+  if (n < 1 || n > (1LL << 30) || n_vals < 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = (n + kScanTile - 1) / kScanTile;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  bool vec = aligned(sp) && aligned(rn);
+  for (int j = 0; j < n_vals; ++j) vec = vec && aligned(values[j]) && aligned(outs[j]);
+  unsigned long long* at = scratch;
+  for (int lo = 0; lo < n_vals + 1; lo += kMaxScanQ) {
+    const int nq = n_vals + 1 - lo < kMaxScanQ ? n_vals + 1 - lo : kMaxScanQ;
+    ScanQ q{};
+    for (int j = 0; j < nq; ++j) {
+      const int g = lo + j;           // 0: the row numbers, g: value lane g - 1
+      q.in[j] = g ? values[g - 1] : nullptr;
+      q.out[j] = g ? outs[g - 1] : rn;
+    }
+    unsigned* next_tile = reinterpret_cast<unsigned*>(at);
+    unsigned long long* desc = at + 1;
+    const int t = static_cast<int>(tiles), v = vec ? 1 : 0;
+    switch (nq) {
+      case 1: launch_scan<1>(sp, q, n, v, desc, next_tile, t, s); break;
+      case 2: launch_scan<2>(sp, q, n, v, desc, next_tile, t, s); break;
+      case 3: launch_scan<3>(sp, q, n, v, desc, next_tile, t, s); break;
+      case 4: launch_scan<4>(sp, q, n, v, desc, next_tile, t, s); break;
+      case 5: launch_scan<5>(sp, q, n, v, desc, next_tile, t, s); break;
+      case 6: launch_scan<6>(sp, q, n, v, desc, next_tile, t, s); break;
+      case 7: launch_scan<7>(sp, q, n, v, desc, next_tile, t, s); break;
+      case 8: launch_scan<8>(sp, q, n, v, desc, next_tile, t, s); break;
+      default: launch_scan<9>(sp, q, n, v, desc, next_tile, t, s); break;
+    }
+    at += 1 + tiles * nq;
   }
-  window_scan_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(sp, lanes,
-                                                                                n_vals, n, rn);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,10 @@ jitted kernels: assign (`build_ivf_assign_kernel`, :26), one Lloyd step
   centroid of every row (ties to the lower id) and the squared distance
   to it, clamped to >= 0, 0 on padding rows;
 - the train step is K10 then K11 `ivf_recenter` (ops/csrc/ivf_recenter.cu):
-  each centroid becomes the mean of its assigned rows, summed in row
-  order with no atomics, or keeps its prior where no row is assigned;
+  each centroid becomes the mean of its assigned rows, summed in an order
+  the assignments alone fix (pieces of 64 rows in row order, then the
+  pieces in order) with no float atomics, or keeps its prior where no row
+  is assigned;
 - the probe select is K9 (`kernels.ivf_select_probes`).
 
 Beside each kernel is its plain PyTorch version, which the wrapper runs
@@ -23,12 +25,14 @@ kernel's.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
 
 from pinot_tpu_torch.ops import kernels
-from pinot_tpu_torch.ops.kernels import _check_vec, _launch
+from pinot_tpu_torch.ops.kernels import _check_vec, _launch, \
+    _scratch_words
 
 
 def _check_block(data: torch.Tensor, centroids: torch.Tensor) -> int:
@@ -98,9 +102,14 @@ def ivf_recenter(data: torch.Tensor, assign: torch.Tensor, n_rows: int,
         return ivf_recenter_plain(data, assign, n_rows, centroids)
     out = torch.empty_like(centroids)
     counts = torch.empty(c_pad, dtype=torch.int32, device=device)
+    # the row order by centroid, its offsets and the pieces' partial sums
+    scratch = torch.empty(_scratch_words(
+        "ivf_recenter.cu", "pinot_ivf_recenter_scratch_words",
+        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], int(n_rows),
+        dim_pad, c_pad), dtype=torch.int32, device=device)
     _launch("ivf_recenter", device, data.data_ptr(), assign.data_ptr(),
             int(n_rows), dim_pad, centroids.data_ptr(), c_pad,
-            out.data_ptr(), counts.data_ptr())
+            out.data_ptr(), counts.data_ptr(), scratch.data_ptr())
     return out, counts
 
 

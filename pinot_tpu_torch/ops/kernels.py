@@ -277,9 +277,9 @@ _ARGTYPES = {
     "vector_scores": [_P, _LL, _I, _P, _F, _I, _P, _P],
     "ivf_probe_select": [_P, _P, _I, _I, _I, _P, _F, _I, _I, _P, _P, _P],
     "ivf_assign": [_P, _LL, _I, _P, _I, _I, _LL, _P, _P, _P, _P],
-    "ivf_recenter": [_P, _P, _LL, _I, _P, _I, _P, _P, _P],
+    "ivf_recenter": [_P, _P, _LL, _I, _P, _I, _P, _P, _P, _P],
     "radix_sort": [_PP, _IP, _I, _PP, _I, _LL, _LL, _PP, _PP, _P, _P, _P],
-    "window_scan": [_P, _PP, _I, _LL, _P, _PP, _P],
+    "window_scan": [_P, _PP, _I, _LL, _P, _PP, _P, _P],
 }
 _ARGTYPES.update({
     "block_compact": [_P, *_KEY_ARGTYPES, _PP, _I, _PP, _IP, _I, _PP, _IP,
@@ -407,6 +407,16 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
     with _COUNT_LOCK:
         KERNELS[name].launches += 1
+
+
+def _scratch_words(source: str, symbol: str, argtypes, *args) -> int:
+    """What a kernel's C sizing function (`symbol` in `source`'s library)
+    says its scratch takes for these arguments."""
+    from pinot_tpu_torch.ops import build
+    fn = getattr(build.load(source), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
 
 
 def _ptrs(tensors: Sequence[torch.Tensor]):
@@ -2177,11 +2187,9 @@ def select_scratch_words(padded: int, k: int, n_words: int,
     """int32 words of scratch K6 needs for n_segs segments of `padded`
     rows, as masked_select.cu decides them (its tile size and merge
     passes live there only)."""
-    from pinot_tpu_torch.ops import build
-    fn = build.load("masked_select.cu").pinot_masked_select_scratch_words
-    fn.argtypes = [_LL, _I, _I, _I]
-    fn.restype = ctypes.c_longlong
-    return int(fn(padded, k, n_words, n_segs))
+    return _scratch_words("masked_select.cu",
+                          "pinot_masked_select_scratch_words",
+                          [_LL, _I, _I, _I], padded, k, n_words, n_segs)
 
 
 def masked_select(select_spec, cols: Dict[str, torch.Tensor],
@@ -2708,7 +2716,6 @@ def hll_registers_batched_plain(hists: torch.Tensor, idx: torch.Tensor,
 
 MAX_SORT_KEYS = 8                # sort_window.cu: key lanes, payload lanes
 MAX_SORT_PAYLOADS = 8
-MAX_SCAN_LANES = 8               # sort_window.cu: value lanes a K13 launch
 
 
 def _check_sort_lanes(keys, payloads, n: int, device) -> None:
@@ -2747,13 +2754,10 @@ def radix_sort(keys: Sequence[torch.Tensor],
     perm = torch.empty(n, dtype=torch.int32, device=device)
     key_outs = [torch.empty_like(k) for k in keys]
     pay_outs = [torch.empty_like(v) for v in payloads]
-    from pinot_tpu_torch.ops import build
-    words_fn = build.load("sort_window.cu").pinot_radix_sort_scratch_words
-    words_fn.argtypes = [_LL, _I]
-    words_fn.restype = ctypes.c_longlong
+    words = _scratch_words("sort_window.cu", "pinot_radix_sort_scratch_words",
+                           [_LL, _I], n, len(keys))
     # int64 elements: the scratch's first words hold 64-bit OR / AND masks
-    scratch = torch.empty((int(words_fn(n, len(keys))) + 1) // 2,
-                          dtype=torch.int64, device=device)
+    scratch = torch.empty((words + 1) // 2, dtype=torch.int64, device=device)
     _launch(counter, device, _ptrs(keys), _ints([_ELEM[k.dtype] for k in keys]),
             len(keys), _ptrs(payloads), len(payloads), n, valid,
             _ptrs(key_outs), _ptrs(pay_outs), perm.data_ptr(),
@@ -2924,11 +2928,12 @@ def window_scan(sp: torch.Tensor, values: Sequence[torch.Tensor] = ()
         return window_scan_plain(sp, values)
     rn = torch.empty(n, dtype=torch.int32, device=device)
     outs = [torch.empty_like(v) for v in values]
-    for lo in range(0, max(len(values), 1), MAX_SCAN_LANES):
-        chunk = list(values)[lo:lo + MAX_SCAN_LANES]
-        _launch("window_scan", device, sp.data_ptr(), _ptrs(chunk),
-                len(chunk), n, rn.data_ptr(),
-                _ptrs(outs[lo:lo + MAX_SCAN_LANES]))
+    # the tile counters and the look-back descriptors start at zero
+    scratch = torch.zeros(_scratch_words(
+        "sort_window.cu", "pinot_window_scan_scratch_words", [_LL, _I], n,
+        len(values)), dtype=torch.int64, device=device)
+    _launch("window_scan", device, sp.data_ptr(), _ptrs(values), len(values),
+            n, rn.data_ptr(), _ptrs(outs), scratch.data_ptr())
     return rn, outs
 
 

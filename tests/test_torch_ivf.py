@@ -11,7 +11,9 @@ tests/test_ivf.py (DIM 16, 2 segments of 2,048 rows, 16 centroids): the
 JAX-built directories load into the port and its probed answers equal the
 JAX engine's bit for bit, per segment and stacked; the port's own creator
 trains byte-identical codebooks run after run. (c) `cuda` tests hold K10
-and K11 to their plain versions on the card and skip where there is none.
+and K11 to their plain versions on the card (K11 also with every row on
+one centroid, empty centroids and Zipf-skewed assignments, at dim_pad 1 to
+4,096 and c_pad 8 to 4,096) and skip where there is none.
 """
 from __future__ import annotations
 
@@ -438,6 +440,54 @@ def test_ivf_kernels_cuda_match_plain(cuda_device, shape):
     want_c, want_n = ik.ivf_recenter_plain(d, assign, n - 3, cen)
     assert torch.equal(counts, want_n)
     assert torch.allclose(new_c, want_c, rtol=CENT_RTOL, atol=CENT_ATOL)
+
+
+def _recenter_case(kind: str, m_pad: int, dim_pad: int, c_pad: int,
+                   seed: int):
+    """Rows, assignments and a prior for K11: every live row on one
+    centroid; only even centroids assigned (the odd ones keep their
+    prior); or Zipf-skewed (s = 1.3) ids. The 37 padding rows past n_rows
+    carry random ids that must count nowhere."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((m_pad, dim_pad)).astype(np.float32)
+    prior = rng.standard_normal((c_pad, dim_pad)).astype(np.float32)
+    if kind == "one":
+        assign = np.full(m_pad, c_pad // 3, np.int64)
+    elif kind == "even":
+        assign = rng.integers(0, c_pad // 2, m_pad) * 2
+    else:
+        assign = np.minimum(rng.zipf(1.3, m_pad) - 1, c_pad - 1)
+    n_rows = m_pad - 37
+    assign[n_rows:] = rng.integers(0, c_pad, m_pad - n_rows)
+    return data, assign.astype(np.int32), n_rows, prior
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_pad", [8, 256, 4096])
+@pytest.mark.parametrize("dim_pad", [1, 128, 4096])
+@pytest.mark.parametrize("kind", ["one", "even", "zipf"])
+def test_ivf_recenter_cuda_shapes(cuda_device, kind, dim_pad, c_pad):
+    """K11 on skewed and sparse assignments: counts equal, the codebook
+    bit-equal run to run, within rtol / atol 1e-5 of the plain version,
+    and centroids with no row keep their prior bits."""
+    m_pad = 65536 if dim_pad < 4096 else 8192
+    data, assign, n_rows, prior = _recenter_case(kind, m_pad, dim_pad, c_pad,
+                                                 seed=dim_pad + c_pad)
+    d = torch.from_numpy(data).to(cuda_device)
+    a = torch.from_numpy(assign).to(cuda_device)
+    cen = torch.from_numpy(prior).to(cuda_device)
+    new_c, counts = ik.ivf_recenter(d, a, n_rows, cen)
+    again, again_n = ik.ivf_recenter(d, a, n_rows, cen)
+    assert torch.equal(new_c.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(counts, again_n)
+    want_c, want_n = ik.ivf_recenter_plain(d, a, n_rows, cen)
+    assert torch.equal(counts, want_n)
+    assert torch.equal(counts.cpu(), torch.from_numpy(np.bincount(
+        assign[:n_rows], minlength=c_pad).astype(np.int32)))
+    assert torch.allclose(new_c, want_c, rtol=CENT_RTOL, atol=CENT_ATOL)
+    empty = counts == 0
+    assert torch.equal(new_c[empty].view(torch.int32),
+                       cen[empty].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -839,8 +839,10 @@ def test_sorted_keys_batch_lane_cached_per_batch(span):
     probes.pop()
     gc.collect()
     assert dead() is None
-    for _ in range(tk.MAX_STACKED_BATCHES + 1):
-        p = tk.SortedKeys(np.arange(16))
+    # the new members stay alive, so no two batches share a member's id
+    members = [tk.SortedKeys(np.arange(16))
+               for _ in range(tk.MAX_STACKED_BATCHES + 1)]
+    for p in members:
         probes[0].batch_lane([probes[0], p], fact)
     assert len(probes[0]._stacks) == tk.MAX_STACKED_BATCHES
 

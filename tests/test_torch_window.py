@@ -8,7 +8,10 @@
    keys), heavy ties, rows past num_rows; and one case whose global
    int32 prefix passes 2^31 while every partition's sum fits. K12 alone
    against numpy's stable lexsort (int32 and int64 keys, negatives,
-   payloads, valid_rows), K13 alone against a numpy reference.
+   payloads, valid_rows), K13 alone against a numpy reference, and
+   K13's plain version against the JAX kernel on one partition, all
+   singletons, starts at the 2,048-row tile edges +- 1 and a prefix past
+   2^31.
 2. The window stage: the port's execute_window (plain versions on the
    CPU, and the numpy twin) against the JAX execute_window(use_device=
    True) and its twin, bit-identical on every output column: integer
@@ -17,8 +20,10 @@
    mixed frames, the row cap); execute_window_stage over blocks
    published in two ExchangeManagers.
 
-`cuda` tests hold K12 and K13 to their plain versions on the card and
-the card's window stage to the CPU's; they skip where there is no card.
+`cuda` tests hold K12 and K13 to their plain versions on the card (K13
+at 1 to 2^22 + 3 rows, four partition patterns, 0 / 1 / 8 / 9 lanes, 20
+repeats a case) and the card's window stage to the CPU's; they skip
+where there is no card.
 """
 from __future__ import annotations
 
@@ -142,6 +147,60 @@ def test_radix_sort_plain_is_a_stable_lexsort(dtype, valid):
     np.testing.assert_array_equal(s1.numpy(), k1[want])
     np.testing.assert_array_equal(sp.numpy(), pay[want])
     assert perm.dtype == torch.int32
+
+
+SCAN_TILE = 2048          # sort_window.cu: rows of one K13 tile
+SCAN_PATTERNS = ("one", "singletons", "tile_edges", "random")
+
+
+def _scan_case(n, pattern, n_lanes, seed):
+    """A sorted partition lane sp int32 [n] of one pattern (one partition
+    over every row; every row its own; starts at each 2,048-row tile edge
+    and one row either side; random sorted codes) and n_lanes value lanes.
+    Lane 0 holds values in [2^29, 2^30): its whole-array prefix passes
+    2^31 from the 5th row; the others are signed in [-2^30, 2^30)."""
+    rng = np.random.default_rng(seed)
+    if pattern == "one":
+        sp = np.zeros(n, np.int32)
+    elif pattern == "singletons":
+        sp = np.arange(n, dtype=np.int32)
+    elif pattern == "tile_edges":
+        new = np.zeros(n, bool)
+        for edge in range(0, n + SCAN_TILE, SCAN_TILE):
+            new[[i for i in (edge - 1, edge, edge + 1) if 0 <= i < n]] = True
+        sp = np.cumsum(new).astype(np.int32)
+    else:
+        sp = np.sort(rng.integers(0, max(1, n // 50), n)).astype(np.int32)
+    vals = [rng.integers(2 ** 29, 2 ** 30, n).astype(np.int32) if j == 0
+            else rng.integers(-2 ** 30, 2 ** 30, n).astype(np.int32)
+            for j in range(n_lanes)]
+    return sp, vals
+
+
+@pytest.mark.parametrize("n", [2047, 2048, 2049])
+@pytest.mark.parametrize("pattern", SCAN_PATTERNS[:3] + ("prefix_past_2_31",))
+def test_window_scan_plain_matches_jax_on_edge_shapes(n, pattern):
+    """K13's plain version against the JAX build_window_kernel's rn and
+    sums on sp lanes that are sorted already (the JAX sort keeps them in
+    place): one partition, all singletons, starts at the 2,048-row tile
+    edges +- 1, and a whole-array prefix past 2^31 with every partition's
+    own sum inside int32. These are the shapes the `cuda` test holds K13
+    to this plain version on."""
+    if pattern == "prefix_past_2_31":
+        sp = np.repeat(np.arange(n // 4 + 1, dtype=np.int32), 4)[:n]
+        vals = [np.full(n, 2 ** 29, np.int32),
+                np.random.default_rng(n).integers(-2 ** 20, 2 ** 20, n)
+                .astype(np.int32)]
+        assert int(vals[0].astype(np.int64).sum()) >= 2 ** 31
+    else:
+        sp, vals = _scan_case(n, pattern, 2, seed=n)
+    want = _jax_window(sp, [], vals, n)
+    np.testing.assert_array_equal(want["win.perm"], np.arange(n))
+    rn, run = tk.window_scan_plain(torch.from_numpy(sp),
+                                   [torch.from_numpy(v) for v in vals])
+    np.testing.assert_array_equal(rn.numpy(), want["win.rn"])
+    for j, r in enumerate(run):
+        np.testing.assert_array_equal(r.numpy(), want[f"win.sum{j}"])
 
 
 def test_window_scan_plain_matches_numpy():
@@ -382,19 +441,23 @@ def test_radix_sort_cuda_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_window_scan_cuda_matches_plain(cuda_device):
-    rng = np.random.default_rng(15)
-    for n in (1, 1000, 65536):
-        sp = np.sort(rng.integers(0, 30, n)).astype(np.int32)
-        vals = [rng.integers(-2 ** 30, 2 ** 30, n).astype(np.int32)
-                for _ in range(9)]               # two launches of lanes
-        outs = {}
-        for dev in ("cpu", cuda_device):
-            rn, run = tk.window_scan(torch.from_numpy(sp).to(dev),
-                                     [torch.from_numpy(v).to(dev)
-                                      for v in vals])
-            outs[str(dev)] = [rn.cpu()] + [r.cpu() for r in run]
-        for a, b in zip(outs["cpu"], outs[str(cuda_device)]):
+@pytest.mark.parametrize("n_lanes", [0, 1, 8, 9])   # 9: two launches' worth
+@pytest.mark.parametrize("pattern", SCAN_PATTERNS)
+@pytest.mark.parametrize("n", [1, 31, 2047, 2048, 2049, 65536, 2 ** 22 + 3])
+def test_window_scan_cuda_matches_plain(cuda_device, n, pattern, n_lanes):
+    """K13 bit-equal to its plain version on each of 20 repeats: a race in
+    the look-back shows only as a wrong bit, so every case runs again."""
+    sp, vals = _scan_case(n, pattern, n_lanes, seed=n + n_lanes)
+    tsp = torch.from_numpy(sp).to(cuda_device)
+    tvals = [torch.from_numpy(v).to(cuda_device) for v in vals]
+    rn_p, run_p = tk.window_scan_plain(tsp, tvals)
+    for _ in range(20):
+        tk.reset_launch_counts()
+        rn, run = tk.window_scan(tsp, tvals)
+        assert tk.launch_counts()["window_scan"] == 1
+        assert torch.equal(rn, rn_p)
+        assert len(run) == n_lanes
+        for a, b in zip(run, run_p):
             assert torch.equal(a, b)
 
 

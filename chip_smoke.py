@@ -361,13 +361,12 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
-SCALAR_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+from pinot_tpu_torch.tools.timing import (HBM_BYTES_PER_S, bound,
+                                         launch_breakdown, time_ms)
+
 CSUMS_RTOL = 1e-9               # f64 atomics add in a run-dependent order
 ROWS_PER_SF = 6_000_000
-L2_FLUSH_BYTES = 128 << 20      # > the 50 MB L2: each timed launch is cold
 WINDOW_SCAN_REPEATS = 10        # K13 launches a case, each bit-checked
-SPIN_CYCLES = 2_000_000         # ~1 ms at H100 clocks
 
 
 #: the kernels of the SSB and baseballStats paths (K1-K7)
@@ -378,6 +377,10 @@ TABLE_KERNELS = ("filter_mask", "masked_part_sums", "dense_group_aggregate",
 VECTOR_KERNELS = ("vector_scores", "masked_select_vector", "ivf_probe_select",
                   "ivf_assign", "ivf_recenter")
 VEC_RECALL_GATE, VEC_SCAN_GATE = 0.95, 0.15   # scripts/vec_ann_bench.py
+#: K9 over a full codebook: the most centroids a segment may hold (4 *
+#: sqrt(N) cells of a 2.5M-row segment pad to it)
+PROBE_CODEBOOK = 8192
+VEC_KERNEL_REPEATS = 5          # K8 batched / K9 launches a case, each checked
 
 
 def emit(obj) -> None:
@@ -392,71 +395,21 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2, spins: int = 1) -> float:
-    """Mean device time of fn() over reps calls, L2 flushed before each.
-
-    A spin of about `spins` milliseconds on the card precedes each call,
-    so the host enqueues the call while the card is still busy and the
-    events bracket the device work, not the wrapper's Python (a call that
-    launches S kernels takes S spins). A call that waits for the card
-    itself (the plain versions' boolean indexing) still counts its host
-    time."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES * spins)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
-def launch_breakdown(fn, reps: int = 5) -> dict:
-    """{kernel: [mean device µs a launch, launches recorded]} for the
-    kernels fn() launches, under torch.profiler over `reps` calls, the L2
-    flushed before each call as time_ms flushes it (the flush's own uint8
-    fill is left out). The mean is over the launches the profiler
-    recorded, which in a process that has profiled before can be fewer
-    than reps a kernel. {"error": ...} where the profiler fails: the
-    breakdown only explains a time, it checks nothing."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+def no_host_sync(fn, what: str) -> None:
+    """fn() once more under torch.cuda.set_sync_debug_mode("error"), after
+    a first call builds and loads its kernel: a wrapper that waits for the
+    card raises there, and this check fails with it."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0)
-            if not us or not ev.count or "unsigned char" in ev.key or \
-                    not str(ev.device_type).endswith("CUDA"):
-                continue
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].replace("void ", "").strip()[:80]
-            total, n = out.get(name, (0.0, 0))
-            out[name] = (total + us, n + ev.count)
-        return {k: [total / n, n] for k, (total, n) in out.items()}
-    except Exception as e:  # noqa: BLE001 - a diagnostic, never a check
-        return {"error": repr(e)}
-
-
-def bound(nbytes: float, ops: float) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{what} waited for the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit({"phase": "sync_check", "call": what, "host_sync": False})
 
 
 def plan_operands(seg, pql):
@@ -2049,12 +2002,16 @@ def _topk_equal(got, want) -> bool:
         set(got) == set(want)
 
 
-def vector_kernel_check(engine, st_engine, q):
+def vector_kernel_check(engine, st_engine, q, seed: int = 0):
     """Phase vector_kernel_check: K8, K6's vector kind, K9 (with K1's
     ivf_probe node), K10 and K11 against their plain versions on segment
-    0's lanes, and K8, K6-vector, K9 and K1 over the stack against their
-    plain stacked versions and S per-segment launches. Bit-equal: K8's
-    scores, K6's docids / scores / count, K9's probe lists, K1's masks;
+    0's lanes, K9 also over a PROBE_CODEBOOK x dim codebook drawn from
+    `seed` (at nprobe 1, 16 and all of it, VEC_KERNEL_REPEATS launches
+    each), and K8, K6-vector, K9 and K1 over the stack against their
+    plain stacked versions and S per-segment launches. K8 and K9 with a
+    numpy query run once under the sync debug mode (no_host_sync), and
+    their kernels' own device times come from launch_breakdown. Bit-equal:
+    K8's scores, K6's docids / scores / count, K9's probe lists, K1's masks;
     K10's assignments wherever the best two distances differ by more than
     1e-3 of the best, its distances within 1e-3 + 1e-4 relative; K11's
     counts equal, its centroids within 1e-5 and byte-identical run to
@@ -2095,6 +2052,13 @@ def vector_kernel_check(engine, st_engine, q):
                                                        "cosine"), reps=3),
         bound=bound(k8_bytes, 4.0 * P * dim),
         library_ms=time_ms(lambda: torch.mv(mat, qt)))
+    no_host_sync(lambda: K.vector_scores(mat, qp, qn, "cosine"),
+                 "vector_scores")
+    record("vector_scores", "cosine timed", True,
+           **{k: v for k, v in entries["vector_scores"].items()
+              if k != "bound"},
+           launch_us=launch_breakdown(
+               lambda: K.vector_scores(mat, qp, qn, "cosine")))
 
     # K6's vector kind on K8's cosine scores, every valid row matched
     mask = K.filter_mask(P, ("match_all",), {}, [], n, mat.device)
@@ -2130,6 +2094,44 @@ def vector_kernel_check(engine, st_engine, q):
             cent, cvalid, qp, qn, "cosine", 16), reps=3),
         bound=bound(c_pad * dim * 4 + c_pad + 16 * 5, 4.0 * c_pad * dim),
         library_ms=time_ms(lambda: torch.topk(torch.mv(cent, qt), 16)))
+    no_host_sync(lambda: K.ivf_select_probes(cent, cvalid, qp, qn, "cosine",
+                                             16), "ivf_probe_select")
+    record("ivf_probe_select", f"{c_pad} x {dim} nprobe=16 timed", True,
+           **{k: v for k, v in entries["ivf_probe_select"].items()
+              if k != "bound"},
+           launch_us=launch_breakdown(lambda: K.ivf_select_probes(
+               cent, cvalid, qp, qn, "cosine", 16)))
+    # K9 over a full codebook (a cluster of 8 CTAs), drawn from the seed
+    rng = np.random.default_rng(seed)
+    big = torch.from_numpy(rng.standard_normal((PROBE_CODEBOOK, dim))
+                           .astype(np.float32)).to(mat.device)
+    big_valid = torch.from_numpy(rng.random(PROBE_CODEBOOK) < 0.9).to(
+        mat.device)
+    for metric in ("cosine", "dot"):
+        for nprobe in (1, 16, PROBE_CODEBOOK):
+            want = K.ivf_select_probes_plain(big, big_valid, qp, qn, metric,
+                                             nprobe)
+            equal = all(
+                all(torch.equal(g, w) for g, w in zip(K.ivf_select_probes(
+                    big, big_valid, qp, qn, metric, nprobe), want))
+                for _ in range(VEC_KERNEL_REPEATS))
+            record("ivf_probe_select",
+                   f"{PROBE_CODEBOOK} x {dim} {metric} nprobe={nprobe}",
+                   equal, repeats=VEC_KERNEL_REPEATS,
+                   live_centroids=int(big_valid.sum()))
+    b = bound(PROBE_CODEBOOK * dim * 4 + PROBE_CODEBOOK + 16 * 5,
+              4.0 * PROBE_CODEBOOK * dim)
+    record("ivf_probe_select", f"{PROBE_CODEBOOK} x {dim} nprobe=16 timed",
+           True,
+           ms=time_ms(lambda: K.ivf_select_probes(big, big_valid, qp, qn,
+                                                  "cosine", 16)),
+           plain_ms=time_ms(lambda: K.ivf_select_probes_plain(
+               big, big_valid, qp, qn, "cosine", 16), reps=3),
+           library_ms=time_ms(lambda: torch.topk(torch.mv(big, qt), 16)),
+           bound_ms=b[0], bound_by=b[1],
+           launch_us=launch_breakdown(lambda: K.ivf_select_probes(
+               big, big_valid, qp, qn, "cosine", 16)))
+    del big, big_valid
     probe = ("pred", "ivf_probe", "emb", "ivf", (16, "cosine"))
     pcols = {"emb.ivfa": ivfa, "emb.ivfc": cent, "emb.ivfv": cvalid}
     got = K.filter_mask(P, probe, pcols, [qp, qn], n)
@@ -2434,14 +2436,15 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
                singles_of=None, expect=None, library=None,
-               sizes=BATCH_SIZES):
+               sizes=BATCH_SIZES, repeats: int = 1):
     """The batched form of kernel `name` on one case at each B of
     `sizes`: batched(B), plain(B) and single(b) give outputs (tensors,
     tuples or dicts). Held to its plain version, bit for bit (the outputs
     at the indices of `rtol`, float64 block sums, within that relative
     tolerance), and bit for bit to B single launches (the batched outputs
-    at `singles_of`, all by default); launched once per call (`expect`:
-    the launches one call makes, {name_batched: 1} by default). Timed at
+    at `singles_of`, all by default), in each of `repeats` launches;
+    launched once per call (`expect`: the launches one call makes,
+    {name_batched: 1} by default). Timed at
     B = 8 with the L2 flushed: the batched launch, 8 single launches, the
     plain version and `library` beside the bound of nbytes(8) bytes and
     ops(8) operations. Returns its report."""
@@ -2458,16 +2461,19 @@ def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
             raise AssertionError(f"{name} {case} B={B}: launches {launched}"
                                  f", expected {expect}")
         ref = _flat(plain(B))
-        for i, (g, r) in enumerate(zip(got, ref)):
-            if i in rtol:
-                d = (g - r).abs()
-                err = max(err, float(d.max()))
-                ok = bool((d <= rtol[i] * r.abs().clamp_min(1.0)).all())
-            else:
-                ok = _same_bits(g, r)
-            if not ok:
-                raise AssertionError(f"{name} {case} B={B}: output {i} "
-                                     "differs from the plain version")
+        for rep in range(repeats):
+            if rep:
+                got = _flat(batched(B))
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if i in rtol:
+                    d = (g - r).abs()
+                    err = max(err, float(d.max()))
+                    ok = bool((d <= rtol[i] * r.abs().clamp_min(1.0)).all())
+                else:
+                    ok = _same_bits(g, r)
+                if not ok:
+                    raise AssertionError(f"{name} {case} B={B}: output {i} "
+                                         "differs from the plain version")
         singles = [_flat(single(b)) for b in range(B)]
         for j, i in enumerate(singles_of or range(len(got))):
             if not _same_bits(got[i], torch.stack([s[j] for s in singles])):
@@ -2475,7 +2481,8 @@ def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
                                      f"differs from {B} single launches")
     b = bound(nbytes(8), ops(8))
     report = {"kernel": f"{name}_batched", "case": case,
-              "batch_sizes": list(sizes), "max_abs_err": err,
+              "batch_sizes": list(sizes), "repeats": repeats,
+              "max_abs_err": err,
               "plain_equal": True, "singles_bit_equal": True,
               "ms": time_ms(lambda: batched(8)),
               "b_single_ms": time_ms(lambda: [single(i) for i in range(8)],
@@ -2681,7 +2688,10 @@ def batch_kernel_check_bb(seg):
 
 def batch_kernel_check_vec(seg, queries):
     """Phase batch_kernel_check on a vector segment, 8 query vectors: K8
-    under both metrics (beside torch.mm of the 8 queries), K9 at nprobe 4
+    under both metrics at every B of 1..8 (VEC_KERNEL_REPEATS launches
+    each; timed at B = 1, 2, 4 and 8 beside torch.mm of the same B and B
+    single launches, its kernel's own device time at 8 from
+    launch_breakdown, and once under the sync debug mode), K9 at nprobe 4
     and 16, K1's ivf_probe node (K9 in front) and K6's vector kind over
     the 8 members' scores and probe masks."""
     from pinot_tpu_torch.ops import kernels as K
@@ -2704,9 +2714,28 @@ def batch_kernel_check_vec(seg, queries):
             lambda b: K.vector_scores(mat, qs[b], norms[b], metric),
             lambda B: mat.numel() * 4 + B * P * 4 + B * dim * 4,
             lambda B: (2 * B + 2 * (metric == "cosine")) * P * dim,
-            library=lambda: torch.mm(mat, qmat.T))
+            library=lambda: torch.mm(mat, qmat.T),
+            sizes=tuple(range(1, K.MAX_BATCH + 1)),
+            repeats=VEC_KERNEL_REPEATS)
         if metric == "cosine":
             entries["vector_scores"] = r
+    for B in (1, 2, 4, 8):
+        b = bound(mat.numel() * 4 + B * P * 4 + B * dim * 4,
+                  (2 * B + 2) * P * dim)
+        emit({"phase": "batch_kernel_check",
+              "kernel": "vector_scores_batched",
+              "case": f"vecbench cosine B={B}",
+              "ms": time_ms(lambda: K.vector_scores_batched(
+                  mat, qs[:B], norms[:B], "cosine")),
+              "b_single_ms": time_ms(lambda: [K.vector_scores(
+                  mat, qs[i], norms[i], "cosine") for i in range(B)],
+                  spins=B),
+              "library_ms": time_ms(lambda: torch.mm(mat, qmat[:B].T)),
+              "bound_ms": b[0], "bound_by": b[1],
+              "launch_us": launch_breakdown(lambda: K.vector_scores_batched(
+                  mat, qs[:B], norms[:B], "cosine")) if B == 8 else None})
+    no_host_sync(lambda: K.vector_scores_batched(mat, qs, norms, "cosine"),
+                 "vector_scores_batched")
     c_pad = cent.shape[0]
     for nprobe in (4, 16):
         r = batch_case(
@@ -2720,9 +2749,16 @@ def batch_kernel_check_vec(seg, queries):
                                           "cosine", nprobe),
             lambda B: cent.numel() * 4 + c_pad + B * dim * 4 +
             5 * B * nprobe,
-            lambda B: B * (2 * c_pad * dim + c_pad * c_pad))
+            lambda B: 4.0 * B * c_pad * dim)
         if nprobe == 16:
             entries["ivf_probe_select"] = r
+    emit({"phase": "batch_kernel_check", "kernel": "ivf_probe_select_batched",
+          "case": "vecbench nprobe=16 B=8",
+          "launch_us": launch_breakdown(lambda: K.ivf_select_probes_batched(
+              cent, cvalid, qs, norms, "cosine", 16))})
+    no_host_sync(lambda: K.ivf_select_probes_batched(cent, cvalid, qs, norms,
+                                                     "cosine", 16),
+                 "ivf_probe_select_batched")
     spec = ("pred", "ivf_probe", "emb", "ivf", (16, "cosine"))
     cols = {"emb.ivfa": ds.device_ivf_assign(), "emb.ivfc": cent,
             "emb.ivfv": cvalid}
@@ -5277,7 +5313,7 @@ def main() -> int:
         queries = draws.queries(args.vec_queries)
         t0 = time.perf_counter()
         vec_entries, vec_stacked = vector_kernel_check(
-            vec_engine, vec_st_engine, queries[0])
+            vec_engine, vec_st_engine, queries[0], args.seed)
         entries.update(vec_entries)
         stacked_entries.update(vec_stacked)
         seconds["vector_kernel_check"] = time.perf_counter() - t0

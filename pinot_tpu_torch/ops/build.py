@@ -25,9 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pinot_tpu_torch"
 SOURCES = ("filter_mask.cu", "masked_part_sums.cu", "dense_group_aggregate.cu",
            "masked_histogram.cu", "masked_reduce.cu", "masked_select.cu",
-           "hll_registers.cu", "vector_scores.cu", "ivf_assign.cu",
-           "ivf_recenter.cu", "sort_window.cu", "group_compact.cu",
-           "ssb_synth.cu")
+           "hll_registers.cu", "vector_scores.cu", "ivf_probe_select.cu",
+           "ivf_assign.cu", "ivf_recenter.cu", "sort_window.cu",
+           "group_compact.cu", "ssb_synth.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -55,6 +55,37 @@ __device__ __forceinline__ float warp_tree(float v, int L) {
   return v;
 }
 
+// The reduce-scatter form of warp_tree for N sums a lane (N a power of
+// two), over the L lanes of a row (aligned groups of L lanes, L a power of
+// two <= 32). At offset O the lane keeps the half of its sums selected by
+// lane bit O (sums 2i + bit), sends the other half to lane ^ O and adds
+// that lane's copy of the half it kept: the same pairing as warp_tree, the
+// subtree of the lanes with bit O clear beside the one with it set, so
+// every sum is warp_tree's bit for bit (float addition is commutative).
+// Once a lane holds one sum, the remaining offsets are warp_tree's own.
+// Afterwards a lane holds N / K sums, K = min(N, L): its sum t is the one
+// that started at index (lane & (K - 1)) + t * K, and the lanes at and
+// past K hold copies of the first K lanes' sums. Each offset costs N / 2
+// shuffles while N > 1, where N separate butterflies cost N each.
+template <int N, int L, int O = 1>
+__device__ __forceinline__ void warp_tree_scatter(float* v, int li) {
+  if constexpr (O < L) {
+    if constexpr (N > 1) {
+      const bool hi = (li & O) != 0;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float even = v[2 * i], odd = v[2 * i + 1];
+        const float got = __shfl_xor_sync(0xffffffffu, hi ? even : odd, O);
+        v[i] = __fadd_rn(hi ? odd : even, got);
+      }
+      warp_tree_scatter<N / 2, L, O * 2>(v, li);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], O));
+      warp_tree_scatter<1, L, O * 2>(v, li);
+    }
+  }
+}
+
 // _vector_scores from a row's dot and squared-norm trees: the dot, or
 // under cosine dot / (sqrt(norm2) * q_norm), -inf where that is not > 0.
 __device__ __forceinline__ float vec_score(float dot, float norm2, float q_norm, bool cosine) {
@@ -72,4 +103,60 @@ __device__ __forceinline__ int score_key(float s) {
   return k < -0x7fffffff ? -0x7fffffff : k;
 }
 
+// The batched entries of K8 (vector_scores.cu) and K9 (ivf_probe_select.cu)
+// take up to kMaxMembers queries; their norms are passed by value.
+constexpr int kMaxMembers = 8;
+
+struct QNorms {
+  float v[kMaxMembers];
+};
+
+inline bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// Lane li's E elements of row r (zeros when r < 0).
+template <int E>
+__device__ __forceinline__ void load_lane(const float* __restrict__ mat, long long r, int dim_pad,
+                                          int li, float* m) {
+  if (r < 0) {
+#pragma unroll
+    for (int i = 0; i < E; ++i) m[i] = 0.f;
+    return;
+  }
+  const float* p = mat + r * dim_pad + static_cast<long long>(li) * E;
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < E / 4; ++j) {
+      const float4 v = reinterpret_cast<const float4*>(p)[j];
+      m[4 * j] = v.x;
+      m[4 * j + 1] = v.y;
+      m[4 * j + 2] = v.z;
+      m[4 * j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) m[i] = p[i];
+  }
+}
+
 }  // namespace pinot
+
+// (L lanes a row, E elements a lane) by dim_pad, and the metric: sets rc
+// to CALL(L, E, cosine), or returns -1 for a dim_pad that is not a power of
+// two <= kMaxVecDim.
+#define PINOT_VEC_DISPATCH_DIM(DIM, CALL)                                     \
+  switch (DIM) {                                                              \
+    case 1: rc = cosine ? CALL(1, 1, true) : CALL(1, 1, false); break;         \
+    case 2: rc = cosine ? CALL(2, 1, true) : CALL(2, 1, false); break;         \
+    case 4: rc = cosine ? CALL(4, 1, true) : CALL(4, 1, false); break;         \
+    case 8: rc = cosine ? CALL(8, 1, true) : CALL(8, 1, false); break;         \
+    case 16: rc = cosine ? CALL(16, 1, true) : CALL(16, 1, false); break;      \
+    case 32: rc = cosine ? CALL(32, 1, true) : CALL(32, 1, false); break;      \
+    case 64: rc = cosine ? CALL(32, 2, true) : CALL(32, 2, false); break;      \
+    case 128: rc = cosine ? CALL(32, 4, true) : CALL(32, 4, false); break;     \
+    case 256: rc = cosine ? CALL(32, 8, true) : CALL(32, 8, false); break;     \
+    case 512: rc = cosine ? CALL(32, 16, true) : CALL(32, 16, false); break;   \
+    case 1024: rc = cosine ? CALL(32, 32, true) : CALL(32, 32, false); break;  \
+    case 2048: rc = cosine ? CALL(32, 64, true) : CALL(32, 64, false); break;  \
+    case 4096: rc = cosine ? CALL(32, 128, true) : CALL(32, 128, false); break; \
+    default: return -1;                                                       \
+  }

@@ -202,7 +202,7 @@ KERNELS: Dict[str, KernelInfo] = {
         "masked_select_vector", "pinot_tpu_torch/ops/csrc/masked_select.cu",
         "pinot_tpu/ops/kernels.py:1482", symbol="pinot_masked_select"),
     "ivf_probe_select": KernelInfo(
-        "ivf_probe_select", "pinot_tpu_torch/ops/csrc/vector_scores.cu",
+        "ivf_probe_select", "pinot_tpu_torch/ops/csrc/ivf_probe_select.cu",
         "pinot_tpu/ops/kernels.py:140"),
     "ivf_assign": KernelInfo(
         "ivf_assign", "pinot_tpu_torch/ops/csrc/ivf_assign.cu",
@@ -2427,7 +2427,7 @@ def vector_topk_batched_plain(scores: torch.Tensor, masks: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 MAX_VEC_DIM = 4096               # common/schema.py:MAX_VECTOR_DIMENSION
-MAX_CENTROIDS = 8192             # vector_scores.cu keeps K9's keys in 32 KB
+MAX_CENTROIDS = 8192             # K9: a cluster of 8 CTAs, 1,024 a CTA
 _METRICS = ("cosine", "dot")
 
 
@@ -2442,13 +2442,37 @@ def vec_tree_sum_plain(x):
     return x[..., 0]
 
 
-def _query(q, dim_pad: int, device) -> torch.Tensor:
-    qt = torch.as_tensor(np.ascontiguousarray(q, dtype=np.float32)) \
-        if not isinstance(q, torch.Tensor) else q
+def _host_query(q, dim_pad: int) -> torch.Tensor:
+    """A query vector as f32 [dim_pad] where it lies (numpy and sequences
+    on the host)."""
+    qt = q if isinstance(q, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32))
     if qt.dtype != torch.float32 or qt.shape != (dim_pad,):
         raise ValueError(f"query vector must be float32 [{dim_pad}], got "
                          f"{qt.dtype} {tuple(qt.shape)}")
-    return qt.to(device).contiguous()
+    return qt
+
+
+def _upload(t: torch.Tensor, device) -> torch.Tensor:
+    """`t` on `device`, contiguous, without a host wait for the card: a
+    tensor there passes through; a host tensor goes up with
+    non_blocking=True, which the CUDA runtime stages from pageable memory
+    at once without waiting for the stream (a blocking copy ends in a
+    stream synchronise). Staging a query costs 8-15 µs of host time
+    where pinning it first costs 35-50 µs (tools/vector_kernel_bench.py,
+    `query_upload`), and a query uploads 3-4 times a segment."""
+    device = torch.device(device)
+    if t.device == device:
+        return t.contiguous()
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.contiguous().to(device, non_blocking=True)
+    return t.to(device).contiguous()
+
+
+def _query(q, dim_pad: int, device) -> torch.Tensor:
+    """The zero-padded query f32 [dim_pad] on `device`, uploaded without a
+    host wait (_upload)."""
+    return _upload(_host_query(q, dim_pad), device)
 
 
 def _check_vec(mat: torch.Tensor, what: str, ndims: Tuple[int, ...]) -> int:
@@ -2472,7 +2496,8 @@ def vector_scores(mat: torch.Tensor, q, q_norm, metric: str
     dim_pad], zero-padded) to the zero-padded query `q` (f32 [dim_pad]),
     as pinot_tpu/ops/kernels.py:_vector_scores computes it, bit for bit:
     "dot" = tree(mat * q); "cosine" = dot / (sqrt(tree(mat * mat)) *
-    q_norm), -inf where that denominator is not > 0."""
+    q_norm), -inf where that denominator is not > 0. `q` may lie on the
+    card or be a host array: it goes up without a host wait (_upload)."""
     dim_pad = _check_vec(mat, "vector lane", (2,))
     if metric not in _METRICS:
         raise ValueError(f"metric {metric}")
@@ -2489,7 +2514,8 @@ def vector_scores(mat: torch.Tensor, q, q_norm, metric: str
 
 def vector_scores_plain(mat: torch.Tensor, q, q_norm, metric: str
                         ) -> torch.Tensor:
-    """Plain PyTorch K8: the products, the tree, the cosine quotient."""
+    """Plain PyTorch K8: the products, the tree, the cosine quotient, each
+    rounded once as the kernel rounds them."""
     qt = _query(q, mat.shape[-1], mat.device)
     dot = vec_tree_sum_plain(mat * qt)
     if metric != "cosine":
@@ -2516,7 +2542,11 @@ def ivf_select_probes(centroids: torch.Tensor, cvalid: torch.Tensor, q,
     codebook (centroids f32 [C_pad, dim_pad], cvalid bool [C_pad]) or of a
     stack of them ([S, C_pad, dim_pad], [S, C_pad]): the nprobe live
     centroids of highest score, ties to the lower id, ok[i] = i < the
-    live count (pinot_tpu/ops/kernels.py:ivf_select_probes)."""
+    live count (pinot_tpu/ops/kernels.py:ivf_select_probes). One launch:
+    a thread-block cluster per codebook (up to 8 CTAs of 1,024
+    centroids), each CTA sorting its tile's (key, ~id) words and ranking
+    its best against the other tiles' through distributed shared memory;
+    `q` goes up without a host wait."""
     dim_pad = _check_vec(centroids, "codebook lane", (2, 3))
     c_pad, device = centroids.shape[-2], centroids.device
     if cvalid.device != device or cvalid.dtype != torch.bool or \
@@ -2547,7 +2577,8 @@ def ivf_select_probes_plain(centroids: torch.Tensor, cvalid: torch.Tensor,
                             q, q_norm, metric: str, nprobe: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K9: K8's scores of the centroids, their keys, a
-    stable sort by key descending (ties keep the lower id)."""
+    stable sort by key descending (ties keep the lower id): the order of
+    the kernel's (key, ~id) words."""
     dim_pad = centroids.shape[-1]
     score = vector_scores_plain(centroids.reshape(-1, dim_pad), q, q_norm,
                                 metric).reshape(centroids.shape[:-1])
@@ -2563,12 +2594,18 @@ def ivf_select_probes_plain(centroids: torch.Tensor, cvalid: torch.Tensor,
 def _queries(qs, q_norms, dim_pad: int, device
              ) -> Tuple[torch.Tensor, List[float]]:
     """B <= MAX_BATCH zero-padded queries as f32 [B, dim_pad] on `device`,
-    and their norms as float32 values."""
+    and their norms as float32 values, without a host wait: host queries
+    go up as one [B, dim_pad] copy."""
     n = len(qs)
     if not 1 <= n <= MAX_BATCH or len(q_norms) != n:
         raise ValueError(f"{n} queries / {len(q_norms)} norms, expected "
                          f"1..{MAX_BATCH} of each")
-    q = torch.stack([_query(x, dim_pad, device) for x in qs])
+    host = [_host_query(x, dim_pad) for x in qs]
+    if all(t.device.type == "cpu" for t in host):
+        # stacked on the host, one [B, dim_pad] copy up
+        q = _upload(torch.stack(host), device)
+    else:
+        q = torch.stack([_upload(t, device) for t in host])
     return q, [float(np.float32(v)) for v in q_norms]
 
 
@@ -2577,7 +2614,9 @@ def vector_scores_batched(mat: torch.Tensor, qs, q_norms, metric: str
     """K8 for B <= MAX_BATCH queries, one launch: f32 [B, rows], row b
     bit for bit vector_scores(mat, qs[b], q_norms[b], metric). Each row
     of `mat` is read once for every query, and under cosine its norm tree
-    runs once."""
+    runs once; one reduce-scatter butterfly over the (row, member) sums
+    takes the place of a butterfly per sum. Host queries go up as one
+    [B, dim_pad] copy without a host wait."""
     dim_pad = _check_vec(mat, "vector lane", (2,))
     if metric not in _METRICS:
         raise ValueError(f"metric {metric}")
@@ -2595,7 +2634,9 @@ def vector_scores_batched(mat: torch.Tensor, qs, q_norms, metric: str
 
 def vector_scores_batched_plain(mat: torch.Tensor, qs, q_norms,
                                 metric: str) -> torch.Tensor:
-    """Plain PyTorch batched K8: each query's plain scores, stacked."""
+    """Plain PyTorch batched K8: each query's plain scores, stacked (the
+    reduce-scatter adds the tree's own pairs, so the kernel's bits are
+    these)."""
     return torch.stack([vector_scores_plain(mat, q, qn, metric)
                         for q, qn in zip(qs, q_norms)])
 
@@ -2606,7 +2647,7 @@ def ivf_select_probes_batched(centroids: torch.Tensor, cvalid: torch.Tensor,
     """K9 for B <= MAX_BATCH queries over one codebook (centroids f32
     [C_pad, dim_pad], cvalid bool [C_pad]), one launch: (ids int32 [B,
     nprobe], ok bool [B, nprobe]), row b ivf_select_probes(..., qs[b],
-    q_norms[b], ...)."""
+    q_norms[b], ...): a cluster per member."""
     dim_pad = _check_vec(centroids, "codebook lane", (2,))
     c_pad, device = centroids.shape[0], centroids.device
     if cvalid.device != device or cvalid.dtype != torch.bool or \

@@ -7,10 +7,12 @@ segment of the join table) and 8 members, each with its own sorted dim
 keys, for a few (Dp, key span) cases: a span of 2,000,000 keys (the
 batch takes the member-map route) and one of 2^31 - 1 (the sorted keys'
 probe). For B = 2, 4 and 8 members it checks the batched launch bit for
-bit against its plain version and B single K1 launches, then times, with
-the L2 flushed before each run, the batched launch, B single launches and
-B torch.searchsorted calls. Prints one JSON line a case (and writes them
-all to --out); exits 1 on a mismatch and 2 without a card.
+bit against its plain version and B single K1 launches, then times with
+tools/timing.py:time_ms (the L2 flushed and the card kept busy before
+each run, so the device time is counted) the batched launch, B single
+launches and B torch.searchsorted calls. Prints one JSON line a case
+(and writes them all to --out); exits 1 on a mismatch and 2 without a
+card.
 """
 from __future__ import annotations
 
@@ -21,35 +23,16 @@ import sys
 import numpy as np
 import torch
 
+from pinot_tpu_torch.tools.timing import time_ms
+
 ROWS = 7_503_872
 CASES = ((4096, 2_000_000), (65536, 2_000_000), (65536, 2 ** 31 - 1))
 SIZES = (2, 4, 8)
 
 
-def _timer(device, repeats: int):
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-
-    def time_ms(fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(repeats):
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            total += start.elapsed_time(end)
-        return total / repeats
-    return time_ms
-
-
 def run(repeats: int = 10, seed: int = 0):
     from pinot_tpu_torch.ops import kernels as K
     device = torch.device("cuda")
-    time_ms = _timer(device, repeats)
     rng = np.random.default_rng(seed)
     n = ROWS - 100
     lane = torch.from_numpy(rng.integers(0, 2_000_000, ROWS)
@@ -77,11 +60,12 @@ def run(repeats: int = 10, seed: int = 0):
                 "dp": dp, "span": span, "members": B, "route": route,
                 "equal": ok,
                 "batched_ms": time_ms(lambda: K.filter_mask_batched(
-                    ROWS, spec, cols, batch, n)),
+                    ROWS, spec, cols, batch, n), repeats),
                 "singles_ms": time_ms(lambda: [K.filter_mask(
-                    ROWS, spec, cols, m, n) for m in batch]),
+                    ROWS, spec, cols, m, n) for m in batch], repeats,
+                    spins=B),
                 "searchsorted_ms": time_ms(lambda: [torch.searchsorted(
-                    sk, lane) for sk in sks])}
+                    sk, lane) for sk in sks], repeats, spins=B)}
 
 
 def main(argv=None) -> int:

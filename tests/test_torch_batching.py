@@ -41,7 +41,8 @@ from pinot_tpu.ops import kernels as jk
 from pinot_tpu_torch.ops import kernels as tk
 from test_torch_kernels import _in_list, _lanes, _member, _near, \
     _torch_cols
-from test_torch_vector import _contract_case, _draw, _to_port
+from test_torch_vector import K8_MEMBER_SLOTS, _contract_case, _draw, \
+    _scatter_scores_model, _to_port
 
 SHAPES = jk.CONTRACT_SHAPE_BUCKETS           # (8192, 16384)
 BATCH_SIZES = (2, 3, 5, 8)
@@ -622,6 +623,60 @@ def test_structural_edits_change_the_plan_shape_key(a, b):
 
 
 # ---------------------------------------------------------------------------
+# (c2) the batched K8's add order (test_torch_vector's numpy lanes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("U", [1, 2, 4])
+@pytest.mark.parametrize("dim_pad", [1 << i for i in range(13)])
+def test_k8_batched_reduce_scatter_order_equals_vec_tree_sum(dim_pad, U):
+    """The batched K8's add order (its lane subtrees, then one
+    reduce-scatter butterfly over the (row, member) sums) gives JAX's
+    vec_tree_sum bit for bit, for every member count 1..8: random rows at
+    three scales, zero rows, and +-huge rows whose products overflow to
+    inf and whose sums meet inf - inf."""
+    rng = np.random.default_rng([dim_pad, U])
+    rows = 4 * U + 3
+    mat = (rng.standard_normal((rows, dim_pad)) *
+           rng.choice([1e-3, 1.0, 1e4], (rows, 1))).astype(np.float32)
+    mat[1] = 0.0
+    mat[2] = np.float32(3e38) * rng.choice([-1.0, 1.0], dim_pad)
+    mat[rows - 1] = np.float32(-3e38)
+    qs = rng.standard_normal((K8_MEMBER_SLOTS, dim_pad)).astype(np.float32)
+    qs[3] = np.float32(2e38)
+    with np.errstate(over="ignore", invalid="ignore"):
+        want = [_bits(jk.vec_tree_sum(jnp.asarray(mat * q))) for q in qs]
+        want_norm = _bits(jk.vec_tree_sum(jnp.asarray(mat * mat)))
+    for B in range(1, K8_MEMBER_SLOTS + 1):
+        dot, norm2 = _scatter_scores_model(mat, qs[:B], U)
+        for b in range(B):
+            np.testing.assert_array_equal(_bits(dot[b]), want[b])
+        np.testing.assert_array_equal(_bits(norm2), want_norm)
+
+
+def test_queries_upload_values_on_the_cpu():
+    """_queries: numpy, list and host-tensor queries stack to the same f32
+    [B, dim_pad] values (one host stack), norms rounded to float32; a
+    wrong width or count raises."""
+    rng = np.random.default_rng(5)
+    qs = [rng.standard_normal(16).astype(np.float32) for _ in range(5)]
+    mixed = [qs[0], qs[1].astype(np.float64), list(qs[2]),
+             torch.from_numpy(qs[3].copy()), qs[4]]
+    q, norms = tk._queries(mixed, [1.0, np.float64(0.1), 2, np.float32(3),
+                                   4], 16, torch.device("cpu"))
+    assert q.dtype == torch.float32 and q.shape == (5, 16)
+    assert q.device.type == "cpu" and q.is_contiguous()
+    np.testing.assert_array_equal(q.numpy(), np.stack(qs))
+    assert norms == [1.0, float(np.float32(0.1)), 2.0, 3.0, 4.0]
+    with pytest.raises(ValueError, match="float32"):
+        tk._queries([qs[0][:8]], [1.0], 16, torch.device("cpu"))
+    with pytest.raises(ValueError, match="queries"):
+        tk._queries(qs * 2, [1.0] * 10, 16, torch.device("cpu"))
+    with pytest.raises(ValueError, match="queries"):
+        tk._queries(qs, [1.0], 16, torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
 # (d) the batched kernels on the card
 # ---------------------------------------------------------------------------
 
@@ -701,27 +756,39 @@ def test_batched_kernels_cuda(cuda_device, name, n):
             assert torch.equal(got[k][b], v), (b, k)
 
 
+#: launches of each batched K8 case on the card, each held to the same
+#: bits
+K8_BATCHED_REPEATS = 20
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["cosine", "dot"])
-@pytest.mark.parametrize("dim_pad", [16, 128, 4096])
+@pytest.mark.parametrize("dim_pad", [1, 4, 16, 128, 1024, 4096])
 def test_vector_scores_batched_cuda(cuda_device, metric, dim_pad):
-    """K8 and K9 for 8 queries, the queries past 48 KB of shared memory
-    at 4096 dims: bit for bit 8 single launches and the plain version."""
-    rng = np.random.default_rng(dim_pad)
-    rows = 3000 if dim_pad < 4096 else 700
-    mat = rng.standard_normal((rows, dim_pad)).astype(np.float32)
+    """K8's reduce-scatter at B = 1..8 over 70,001 rows (a multiple of no
+    tile), zero-norm rows among them, the queries past 48 KB of shared
+    memory at 4096 dims: bit for bit its plain version and B single
+    launches, in each of 20 launches; and K9 for 8 queries, each equal to
+    its single launch."""
+    rows = 70_001
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(dim_pad)
+    mat = torch.randn(rows, dim_pad, generator=gen, device=cuda_device)
     mat[3] = 0.0
+    mat[rows - 1] = 0.0
+    rng = np.random.default_rng(dim_pad)
     qs = [rng.standard_normal(dim_pad).astype(np.float32) for _ in range(8)]
     norms = [np.float32(np.sqrt(tk.vec_tree_sum_plain(q * q))) for q in qs]
-    m = torch.from_numpy(mat).to(cuda_device)
-    got = tk.vector_scores_batched(m, qs, norms, metric).cpu()
-    plain = tk.vector_scores_batched_plain(torch.from_numpy(mat), qs, norms,
-                                           metric)
-    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
-    for b in range(8):
-        one = tk.vector_scores(m, qs[b], norms[b], metric).cpu()
-        assert torch.equal(got[b].view(torch.int32), one.view(torch.int32))
-    cent = torch.from_numpy(mat[:64].copy()).to(cuda_device)
+    singles = torch.stack([tk.vector_scores(mat, qs[b], norms[b], metric)
+                           for b in range(8)]).view(torch.int32)
+    for B in range(1, 9):
+        plain = tk.vector_scores_batched_plain(mat, qs[:B], norms[:B],
+                                               metric).view(torch.int32)
+        assert torch.equal(plain, singles[:B]), B
+        for _ in range(K8_BATCHED_REPEATS):
+            got = tk.vector_scores_batched(mat, qs[:B], norms[:B], metric)
+            assert torch.equal(got.view(torch.int32), plain), B
+    cent = mat[:64].contiguous()
     cvalid = torch.from_numpy(rng.random(64) < 0.8).to(cuda_device)
     ids, ok = tk.ivf_select_probes_batched(cent, cvalid, qs, norms, metric,
                                            5)

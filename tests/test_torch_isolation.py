@@ -76,6 +76,9 @@ def test_imports_pull_in_no_jax_and_no_pinot_tpu():
         "import pinot_tpu_torch.obs.profiler, pinot_tpu_torch.obs.prometheus\n"
         "import pinot_tpu_torch.transport, pinot_tpu_torch.transport.tcp\n"
         "import pinot_tpu_torch.tools.join_leaf_bench\n"
+        "import pinot_tpu_torch.tools.timing\n"
+        "import pinot_tpu_torch.tools.vector_kernel_bench\n"
+        "import pinot_tpu_torch.tools.vector_e2e_bench\n"
         "import pinot_tpu_torch.server, pinot_tpu_torch.server.instance\n"
         "import pinot_tpu_torch.server.query_executor\n"
         "import pinot_tpu_torch.server.residency_manager\n"

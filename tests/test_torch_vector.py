@@ -126,6 +126,188 @@ def test_ivf_select_probes_bit_equal(metric, nprobe):
         assert torch.equal(one_ids, ids[s]) and torch.equal(one_ok, ok[s])
 
 
+def _probe_codebook(c_pad: int, dim_pad: int, live: str, seed: int):
+    """A codebook with ties 1,024 ids apart (across what are separate
+    tiles of K9's cluster) and next to each other, and its liveness:
+    "mixed" (70% live), "few" (10 live, fewer than nprobe 16) or "none"
+    (no live centroid: every key INT32_MIN, ids by id)."""
+    rng = np.random.default_rng([c_pad, dim_pad, seed])
+    cent = rng.standard_normal((c_pad, dim_pad)).astype(np.float32)
+    for c in range(1024 + 5, c_pad, 1024):
+        cent[c] = cent[5]
+    if c_pad > 9:
+        cent[9] = cent[8]
+    cvalid = rng.random(c_pad) < 0.7
+    if live == "few":
+        cvalid[:] = False
+        cvalid[rng.choice(c_pad, min(10, c_pad), replace=False)] = True
+    elif live == "none":
+        cvalid[:] = False
+    q = rng.standard_normal(dim_pad).astype(np.float32)
+    q_norm = np.float32(np.sqrt(tk.vec_tree_sum_plain(q * q)))
+    return cent, cvalid, q, q_norm
+
+
+@pytest.mark.parametrize("live", ["mixed", "few"])
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+@pytest.mark.parametrize("nprobe", [1, 16, 8192])
+def test_ivf_select_probes_full_codebook_equals_jax(nprobe, metric, live):
+    """The plain K9 over MAX_CENTROIDS (8,192 x 16) equals the JAX
+    ivf_select_probes: ties across 1,024-id tiles go to the lower id,
+    dead centroids rank after the live ones by id, ok marks the live
+    count, at nprobe 1, 16 and the whole codebook."""
+    cent, cvalid, q, q_norm = _probe_codebook(tk.MAX_CENTROIDS, 16, live, 0)
+    want_ids, want_ok = jk.ivf_select_probes(
+        jnp.asarray(cent), jnp.asarray(cvalid), jnp.asarray(q),
+        jnp.float32(q_norm), metric, nprobe)
+    ids, ok = tk.ivf_select_probes(torch.from_numpy(cent),
+                                   torch.from_numpy(cvalid), q, q_norm,
+                                   metric, nprobe)
+    np.testing.assert_array_equal(ids.numpy(), _jax_np(want_ids))
+    np.testing.assert_array_equal(ok.numpy(), _jax_np(want_ok))
+    if live == "few":
+        assert int(ok.sum()) == min(10, nprobe)
+
+
+def test_query_upload_values_on_the_cpu():
+    """_query: a numpy array, a float64 array or a list becomes the same
+    f32 [dim_pad] values; a tensor already on the device passes through
+    untouched; a wrong width or dtype raises."""
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal(16).astype(np.float32)
+    cpu = torch.device("cpu")
+    for given in (q, q.astype(np.float64), list(q)):
+        got = tk._query(given, 16, cpu)
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(), q)
+    qt = torch.from_numpy(q)
+    assert tk._query(qt, 16, cpu).data_ptr() == qt.data_ptr()
+    with pytest.raises(ValueError, match="float32"):
+        tk._query(q[:8], 16, cpu)
+    with pytest.raises(ValueError, match="float32"):
+        tk._query(qt.double(), 16, cpu)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' add order, as numpy float32 lanes
+# ---------------------------------------------------------------------------
+
+#: vec_tree.cuh's kMaxMembers: the batched K8's member slots
+K8_MEMBER_SLOTS = 8
+
+
+def _lane_tree(leaves: np.ndarray) -> np.ndarray:
+    """vec_tree.cuh:lane_tree over the last axis, literally: a binary
+    counter over the leaves, leaf i closing one subtree per trailing one
+    bit of i."""
+    partial = []
+    for i in range(leaves.shape[-1]):
+        v = leaves[..., i]
+        b = i
+        while b & 1:
+            v = partial.pop() + v
+            b >>= 1
+        partial.append(v)
+    return partial[0]
+
+
+def _warp_tree_scatter(v: np.ndarray, L: int) -> np.ndarray:
+    """vec_tree.cuh:warp_tree_scatter over lanes: v [..., L lanes, N sums]
+    to [..., L, N / min(N, L)]. At offset o lane x keeps its sums 2i +
+    bit (bit = x & o) and adds lane x ^ o's copy of them, the subtree of
+    the lane with bit o clear first (float addition is commutative and
+    the card's NaNs are canonical, so the card's order of the two gives
+    these bits); once a lane holds one sum, lane x adds lane x ^ o's."""
+    lanes = np.arange(L)
+    o = 1
+    while o < L:
+        lo, hi = lanes & ~o, lanes | o
+        n = v.shape[-1]
+        if n > 1:
+            bit = ((lanes & o) != 0).astype(np.int64)
+            idx = 2 * np.arange(n // 2)[None, :] + bit[:, None]   # [L, n/2]
+            left = np.take_along_axis(v[..., lo, :], np.broadcast_to(
+                idx, v.shape[:-2] + idx.shape), axis=-1)
+            right = np.take_along_axis(v[..., hi, :], np.broadcast_to(
+                idx, v.shape[:-2] + idx.shape), axis=-1)
+            v = left + right
+        else:
+            v = v[..., lo, :] + v[..., hi, :]
+        o <<= 1
+    return v
+
+
+def _scatter_scores_model(mat: np.ndarray, qs: np.ndarray, U: int,
+                          slots: int = K8_MEMBER_SLOTS):
+    """The dot and squared-norm sums of each (member, row) as the lanes of
+    the batched K8 (`slots` member slots) and of K9 (one slot) hold them:
+    a row over L = min(32, dim_pad) lanes of E elements, U rows a pass,
+    the products' subtrees a lane (lane_tree), the U x slots dots (sum j
+    = b * U + u, member slots past B zero) and the U norms reduced by
+    warp_tree_scatter, and each lane's sum t read back as the kernels
+    read it: dot j = (x & (K - 1)) + t * K, its row's norm at t % TN.
+    Returns (dot [B, rows], norm2 [rows])."""
+    rows, dim_pad = mat.shape
+    B = qs.shape[0]
+    L = min(32, dim_pad)
+    E = dim_pad // L
+    V = U * slots
+    K, KN = min(V, L), min(U, L)
+    T, TN = V // K, U // KN
+    G = -(-rows // U)
+    m = np.zeros((G * U, dim_pad), np.float32)
+    m[:rows] = mat
+    m = m.reshape(G, U, L, E)                                  # [G, U, L, E]
+    q = np.zeros((slots, dim_pad), np.float32)
+    q[:B] = qs
+    q = q.reshape(slots, L, E)
+    with np.errstate(over="ignore", invalid="ignore"):
+        prod = m[:, None] * q[None, :, None]                   # [G, slots, U, L, E]
+        dots = _lane_tree(prod)                                # [G, slots, U, L]
+        dots = dots.reshape(G, V, L).transpose(0, 2, 1)        # [G, L, V]
+        dots = _warp_tree_scatter(dots, L)                     # [G, L, T]
+        norms = _lane_tree(m * m).transpose(0, 2, 1)           # [G, L, U]
+        norms = _warp_tree_scatter(norms, L)                   # [G, L, TN]
+    assert dots.shape == (G, L, T) and norms.shape == (G, L, TN)
+    dot = np.full((B, G * U), np.nan, np.float32)
+    norm2 = np.full(G * U, np.nan, np.float32)
+    for x in range(L):
+        for t in range(T):
+            j = (x & (K - 1)) + t * K
+            b, u = divmod(j, U)
+            if x >= K:
+                # a copy of lane x & (K - 1)'s sum, never stored
+                np.testing.assert_array_equal(
+                    dots[:, x, t].view(np.int32),
+                    dots[:, x & (K - 1), t].view(np.int32))
+                continue
+            if b < B:
+                dot[b, u::U] = dots[:, x, t]
+            norm2[u::U] = norms[:, x, t % TN]
+    return dot[:, :rows], norm2[:rows]
+
+@pytest.mark.parametrize("dim_pad", [1 << i for i in range(13)])
+def test_k9_scoring_order_equals_vec_tree_sum(dim_pad):
+    """K9's scoring (one query, U = 1..16 rows a lane group, their dot
+    and norm butterflies as one reduce-scatter each) gives JAX's
+    vec_tree_sum bit for bit: random rows at three scales, zero rows and
+    +-huge rows."""
+    rng = np.random.default_rng(dim_pad)
+    rows = 37
+    mat = (rng.standard_normal((rows, dim_pad)) *
+           rng.choice([1e-3, 1.0, 1e4], (rows, 1))).astype(np.float32)
+    mat[1] = 0.0
+    mat[2] = np.float32(3e38) * rng.choice([-1.0, 1.0], dim_pad)
+    q = rng.standard_normal((1, dim_pad)).astype(np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        want = _bits(jk.vec_tree_sum(jnp.asarray(mat * q[0])))
+        want_norm = _bits(jk.vec_tree_sum(jnp.asarray(mat * mat)))
+    for U in (1, 2, 4, 8, 16):
+        dot, norm2 = _scatter_scores_model(mat, q, U, slots=1)
+        np.testing.assert_array_equal(_bits(dot[0]), want)
+        np.testing.assert_array_equal(_bits(norm2), want_norm)
+
+
 def _contract_case(name: str):
     for case in jk.contract_cases():
         if case[0] == name:
@@ -439,24 +621,138 @@ def test_vector_scores_cuda_bit_equal_plain(cuda_device, metric, dim_pad):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+#: launches of each K9 case on the card: a race between the cluster's
+#: CTAs shows only as a wrong id now and then
+K9_REPEATS = 20
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["cosine", "dot"])
-def test_ivf_select_probes_cuda_equal_plain(cuda_device, metric):
-    rng = np.random.default_rng(2)
-    cent = torch.from_numpy(rng.standard_normal((4, 256, 128))
-                            .astype(np.float32))
-    cent[:, 9] = cent[:, 3]
-    cvalid = torch.from_numpy(rng.random((4, 256)) < 0.8)
-    q = rng.standard_normal(128).astype(np.float32)
-    q_norm = np.float32(np.sqrt(tk.vec_tree_sum_plain(q * q)))
-    for nprobe in (1, 16, 256):
-        got = tk.ivf_select_probes(cent.to(cuda_device),
-                                   cvalid.to(cuda_device), q, q_norm,
-                                   metric, nprobe)
-        want = tk.ivf_select_probes_plain(cent, cvalid, q, q_norm, metric,
-                                          nprobe)
-        assert torch.equal(got[0].cpu(), want[0])
-        assert torch.equal(got[1].cpu(), want[1])
+@pytest.mark.parametrize("c_pad,dim_pad", [(1, 128), (256, 128), (1024, 128),
+                                           (8192, 128), (2048, 1),
+                                           (1500, 4), (2048, 4096)])
+def test_ivf_select_probes_cuda_equal_plain(cuda_device, c_pad, dim_pad,
+                                            metric):
+    """K9's cluster ranking (1 CTA up to 1,024 centroids, 8 at 8,192; an
+    odd 1,500 in 2 tiles of 750) at 128 dims and at the widths' extremes
+    (a lane a row, 128 floats a lane): single, stacked and batched B =
+    1..8, ties across tiles, a codebook with no live centroid (the
+    "mixed" and "none" ones of _probe_codebook), nprobe 1, 16 and C_pad,
+    each launch repeated K9_REPEATS times against the plain version."""
+    for live in ("mixed", "none"):
+        books = [_probe_codebook(c_pad, dim_pad, live, seed)
+                 for seed in range(8)]
+        cent, cvalid, q, q_norm = books[0]
+        host = (torch.from_numpy(cent), torch.from_numpy(cvalid))
+        card = tuple(t.to(cuda_device) for t in host)
+        st_host = (torch.from_numpy(np.stack([b[0] for b in books[:3]])),
+                   torch.from_numpy(np.stack([b[1] for b in books[:3]])))
+        st_card = tuple(t.to(cuda_device) for t in st_host)
+        qs, norms = [b[2] for b in books], [b[3] for b in books]
+        for nprobe in sorted({1, min(16, c_pad), c_pad}):
+            cases = [
+                (tk.ivf_select_probes_plain(*host, q, q_norm, metric,
+                                            nprobe),
+                 lambda: tk.ivf_select_probes(*card, q, q_norm, metric,
+                                              nprobe)),
+                (tk.ivf_select_probes_plain(*st_host, q, q_norm, metric,
+                                            nprobe),
+                 lambda: tk.ivf_select_probes(*st_card, q, q_norm, metric,
+                                              nprobe))]
+            for B in range(1, 9):
+                cases.append((
+                    tk.ivf_select_probes_batched_plain(
+                        *host, qs[:B], norms[:B], metric, nprobe),
+                    lambda B=B: tk.ivf_select_probes_batched(
+                        *card, qs[:B], norms[:B], metric, nprobe)))
+            for want, launch in cases:
+                for _ in range(K9_REPEATS):
+                    ids, ok = launch()
+                    assert torch.equal(ids.cpu(), want[0]), \
+                        (live, nprobe, ids.shape)
+                    assert torch.equal(ok.cpu(), want[1]), \
+                        (live, nprobe, ok.shape)
+
+
+@pytest.mark.cuda
+def test_vector_wrappers_no_host_sync(cuda_device):
+    """K8 and K9, single, stacked and batched, take numpy queries (as the
+    planner passes them) without a host wait: they run under
+    torch.cuda.set_sync_debug_mode("error"), and their outputs equal the
+    plain versions'."""
+    mat, q, q_norm = _vec_operands(70001, 128, seed=7)
+    cent, cvalid, _q, _n = _probe_codebook(8192, 128, "mixed", 2)
+    rng = np.random.default_rng(8)
+    qs = [rng.standard_normal(128).astype(np.float32) for _ in range(8)]
+    norms = [np.float32(np.sqrt(tk.vec_tree_sum_plain(x * x))) for x in qs]
+    m = torch.from_numpy(mat).to(cuda_device)
+    c, v = (torch.from_numpy(cent).to(cuda_device),
+            torch.from_numpy(cvalid).to(cuda_device))
+    sc, sv = c.reshape(4, 2048, 128), v.reshape(4, 2048)
+    calls = {
+        "vector_scores": lambda: tk.vector_scores(m, q, q_norm, "cosine"),
+        "vector_scores_batched": lambda: tk.vector_scores_batched(
+            m, qs, norms, "cosine"),
+        "ivf_select_probes": lambda: tk.ivf_select_probes(
+            c, v, q, q_norm, "cosine", 16),
+        "ivf_select_probes stacked": lambda: tk.ivf_select_probes(
+            sc, sv, q, q_norm, "dot", 16),
+        "ivf_select_probes_batched": lambda: tk.ivf_select_probes_batched(
+            c, v, qs, norms, "cosine", 16)}
+    plain = {
+        "vector_scores": lambda: tk.vector_scores_plain(m, q, q_norm,
+                                                        "cosine"),
+        "vector_scores_batched": lambda: tk.vector_scores_batched_plain(
+            m, qs, norms, "cosine"),
+        "ivf_select_probes": lambda: tk.ivf_select_probes_plain(
+            c, v, q, q_norm, "cosine", 16),
+        "ivf_select_probes stacked": lambda: tk.ivf_select_probes_plain(
+            sc, sv, q, q_norm, "dot", 16),
+        "ivf_select_probes_batched": lambda:
+        tk.ivf_select_probes_batched_plain(c, v, qs, norms, "cosine", 16)}
+    for name, call in calls.items():
+        call()                          # built and loaded outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = plain[name]()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g.view(torch.int32) if g.is_floating_point()
+                               else g,
+                               w.view(torch.int32) if w.is_floating_point()
+                               else w), name
+
+
+@pytest.mark.parametrize("tool", ["vector_kernel_bench", "vector_e2e_bench"])
+def test_vector_bench_tools_need_a_card(monkeypatch, capsys, tool):
+    """The vector timing tools refuse to run without a CUDA card (exit
+    2), before they build or time anything."""
+    import importlib
+    mod = importlib.import_module(f"pinot_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main([]) == 2
+    assert "CUDA" in capsys.readouterr().err
+
+
+def test_one_yardstick_for_chip_smoke_and_the_benches():
+    """chip_smoke.py and the bench tools time with tools/timing.py, and its
+    bound is the larger of the byte time and the operation time."""
+    import chip_smoke
+    from pinot_tpu_torch.tools import join_leaf_bench, timing
+    from pinot_tpu_torch.tools import vector_kernel_bench
+    assert chip_smoke.time_ms is timing.time_ms
+    assert chip_smoke.launch_breakdown is timing.launch_breakdown
+    assert chip_smoke.bound is timing.bound
+    assert join_leaf_bench.time_ms is timing.time_ms
+    assert os.path.samefile(vector_kernel_bench.T.__file__, timing.__file__)
+    assert timing.bound(timing.HBM_BYTES_PER_S, 1.0) == \
+        (pytest.approx(1e3), "bytes")
+    assert timing.bound(1.0, timing.SCALAR_OPS_PER_S * 2) == \
+        (pytest.approx(2e3), "operations")
 
 
 @pytest.mark.cuda

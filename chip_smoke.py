@@ -22,7 +22,7 @@ fetching a peer's stage-1 block over TCP.
                           [--vec-dim 128] [--vec-queries 5]
                           [--batch-repeats 3]
                           [--rt-rows 5000000] [--rt-sealed 1]
-                          [--rt-repeats 3]
+                          [--rt-repeats 1]
                           [--join-rows 60000000] [--join-segments 8]
                           [--join-dim-rows 800000]
                           [--store-sf 1] [--synth-rows 100000000]
@@ -78,7 +78,11 @@ non-zero exit and no result line:
    gathered column bit-equal; timed beside its bound, the plain version
    and, where one PyTorch call does the same (torch.nonzero for limit,
    torch.topk on the masked int64 key (word, docid) for one key word),
-   that call.
+   that call. Each case launches SORT_SELECT_REPEATS times on the route
+   its key word count picks (kernels.select_route: select for at most
+   one word); then ordertk salary at k = 2048 and 65,536 over a stack of
+   8 copies of the segment beside topk per segment and 8 launches, and
+   once under the sync debug mode.
 9. baseball: launch and path counts set to 0, the aggregation, group-by,
    HAVING, selection, two-key ORDER BY and MV group-by draws of the
    QueryGenerator mix (the reference seeds), the fixed queries and
@@ -150,7 +154,9 @@ non-zero exit and no result line:
    draw, train and load seconds, device and disk bytes.
 14. vector_kernel_check: K8 (both metrics), K6's vector kind, K9, K1's
    ivf_probe node, K10 and K11 against their plain versions on segment
-   0's lanes (K11 also with every row on one centroid), and K8,
+   0's lanes (K11 also with every row on one centroid; K6 at k = 16 and
+   65,536, SORT_SELECT_REPEATS launches each on the select route, and
+   once under the sync debug mode), and K8,
    K6-vector, K9 and K1 over the stack against their plain stacked
    versions and S per-segment launches (vector_kernel_check says what
    must be equal); timed with the L2 flushed, beside their
@@ -276,7 +282,10 @@ non-zero exit and no result line:
    same), K12 as the join build (J2.1's dim keys with their codes) and on
    W1's 65,536-row lanes, K13 on W1's sorted lanes and on 2^24 rows as
    one partition and as singletons (WINDOW_SCAN_REPEATS launches a case,
-   each checked), each against its plain version on the card (masks,
+   each checked; K12 SORT_SELECT_REPEATS launches a case, each on the
+   cluster route, with launch_breakdown's device time, and W1's once
+   under the sync debug mode), each against its plain version on the card
+   (masks,
    tables, permutations, row numbers and sums bit-equal), timed with the
    L2 flushed beside its bound and the nearest PyTorch call (a gather,
    torch.searchsorted, stable torch.sort, torch.cumsum; for K13 also a
@@ -327,6 +336,10 @@ Phases 10-12 run right after the phase they build on (10 and 11 after
 17 after each table's own phases; 17a and 17b after the SSB table's 17,
 before 6; 24 and 25 after 17 on the SSB table; 19-22, 26 and 27 after
 17; 18 last.
+Before them, the routes line: K12's cluster-route launches on the window,
+the join's dim side and K16's sort route, and K6's select-route launches
+on every path, each of which must be above 0; the kernels line gives
+each K12 and K6 entry's launches by route (route_launches).
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -367,6 +380,9 @@ from pinot_tpu_torch.tools.timing import (HBM_BYTES_PER_S, bound,
 CSUMS_RTOL = 1e-9               # f64 atomics add in a run-dependent order
 ROWS_PER_SF = 6_000_000
 WINDOW_SCAN_REPEATS = 10        # K13 launches a case, each bit-checked
+SORT_SELECT_REPEATS = 10        # K12 / K6 launches a case, each bit-checked
+#: the launch-count keys of K12's and K6's routes
+ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]")
 
 
 #: the kernels of the SSB and baseballStats paths (K1-K7)
@@ -410,6 +426,21 @@ def no_host_sync(fn, what: str) -> None:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     emit({"phase": "sync_check", "call": what, "host_sync": False})
+
+
+def routed(fn, name: str):
+    """fn() once with the launch counts from 0: (its result, the route it
+    took, the counted node of kernel `name` that launched once)."""
+    from pinot_tpu_torch.ops import kernels as K
+    K.reset_launch_counts()
+    out = fn()
+    counts = K.launch_counts()
+    taken = [node for node in K.KERNELS[name].node_launches
+             if counts[f"{name}[{node}]"] == 1]
+    if counts[name] != 1 or len(taken) != 1:
+        raise AssertionError(f"{name}: not one launch on one route: "
+                             f"{ {k: v for k, v in counts.items() if v} }")
+    return out, taken[0]
 
 
 def plan_operands(seg, pql):
@@ -895,8 +926,12 @@ def _select_library(spec, cols, mask, words):
 
 def select_kernel_check(seg):
     """K6 against its plain version on one baseballStats segment, every
-    select kind, k and mask; returns the kernels-line entry (ordertk on
-    salary, k = 2048, yearID >= 2000: the fixed query's kind)."""
+    select kind, k and mask, SORT_SELECT_REPEATS launches each on the
+    route its key word count picks (select_route); then ordertk on salary
+    (yearID >= 2000) over a stack of 8 copies of the segment beside topk
+    per segment, and once under the sync debug mode. Returns the
+    kernels-line entry (ordertk on salary, k = 2048, yearID >= 2000: the
+    fixed query's kind)."""
     from pinot_tpu_torch.ops import kernels as K
     P, n = seg.padded_docs, seg.num_docs
     device = seg.device
@@ -933,22 +968,29 @@ def select_kernel_check(seg):
             matched = int(mask.sum())
             for k in (k for k in SELECT_KS if k <= P):
                 sk = (spec[0], k, spec[2], spec[3])
-                got = K.masked_select(sk, cols, mask)
                 ref = K.selection_outputs_plain(sk, cols, mask)
-                equal = set(got) == set(ref) and all(
-                    got[x].dtype == ref[x].dtype and torch.equal(
-                        got[x].reshape(-1).view(torch.uint8),
-                        ref[x].reshape(-1).view(torch.uint8))
-                    for x in ref)
-                if not equal:
-                    raise AssertionError(f"masked_select disagrees: {case}, "
-                                         f"{mask_name}, k={k}")
+                for _ in range(SORT_SELECT_REPEATS):
+                    got, route = routed(lambda: K.masked_select(sk, cols,
+                                                                mask),
+                                        "masked_select")
+                    equal = set(got) == set(ref) and all(
+                        got[x].dtype == ref[x].dtype and torch.equal(
+                            got[x].reshape(-1).view(torch.uint8),
+                            ref[x].reshape(-1).view(torch.uint8))
+                        for x in ref)
+                    if not equal:
+                        raise AssertionError(f"masked_select disagrees: "
+                                             f"{case}, {mask_name}, k={k}")
+                if route != K.select_route(len(words)):
+                    raise AssertionError(f"masked_select took {route} on "
+                                         f"{case}")
                 lib = _select_library(sk, cols, mask, words)
                 b = bound(P + matched * key_bytes + k * (4 + 2 * row_bytes)
                           + 4, 0)
                 r = {"kernel": "masked_select", "case": case,
                      "kind": spec[0], "mask": mask_name, "k": k,
                      "matched": matched, "key_words": len(words),
+                     "route": route, "repeats": SORT_SELECT_REPEATS,
                      "equal": equal, "max_abs_err": 0,
                      "ms": time_ms(lambda: K.masked_select(sk, cols, mask),
                                    reps=5),
@@ -962,8 +1004,56 @@ def select_kernel_check(seg):
                     entry = dict(max_abs_err=0, ms=r["ms"],
                                  plain_ms=r["plain_ms"], bound=b,
                                  library_ms=r["library_ms"])
+                    r["launch_us"] = launch_breakdown(
+                        lambda: K.masked_select(sk, cols, mask))
     for r in report:
         emit({"phase": "select_kernel_check", **r})
+    # the fixed query's selection over a stack of 8 copies of the segment
+    spec, cols = specs["ordertk salary"]
+    mask = masks["yearID >= 2000"]
+    S = 8
+    flat = {name: torch.cat([lane] * S) for name, lane in cols.items()
+            if lane.shape[0] == P}
+    smask = torch.cat([mask] * S)
+    words = K.select_key_words(spec, flat)
+    keys = torch.where(smask.bool(), (words[0].long() + 2 ** 31) << 31 |
+                       torch.arange(P, device=device).repeat(S),
+                       torch.iinfo(torch.int64).max).reshape(S, P)
+    for k in (2048, 65536):
+        sk = (spec[0], k, spec[2], spec[3])
+        ref = K.selection_outputs_plain(sk, flat, smask, S)
+        for _ in range(SORT_SELECT_REPEATS):
+            got, route = routed(lambda: K.masked_select(sk, flat, smask, S),
+                                "masked_select")
+            if route != "select" or not all(
+                    torch.equal(got[x].reshape(-1).view(torch.uint8),
+                                ref[x].reshape(-1).view(torch.uint8))
+                    for x in ref):
+                raise AssertionError(f"stacked masked_select disagrees at "
+                                     f"k={k} ({route})")
+        matched = int(smask.sum())
+        row_bytes = sum(cols[K.gather_lane_key(c, src)][0].numel() *
+                        cols[K.gather_lane_key(c, src)].element_size()
+                        for c, src in spec[3])
+        b = bound(S * P + matched * 4 + S * k * (4 + 2 * row_bytes) + 4 * S,
+                  0)
+        emit({"phase": "select_kernel_check", "kernel": "masked_select",
+              "case": f"ordertk salary stacked S={S}", "k": k,
+              "matched": matched, "route": route,
+              "repeats": SORT_SELECT_REPEATS, "equal": True,
+              "ms": time_ms(lambda: K.masked_select(sk, flat, smask, S),
+                            reps=5),
+              "s_sequential_ms": time_ms(lambda: [
+                  K.masked_select(sk, cols, mask) for _ in range(S)],
+                  reps=3, spins=S),
+              "library_ms": time_ms(lambda: torch.topk(
+                  keys, k, dim=1, largest=False, sorted=True), reps=5),
+              "bound_ms": b[0], "bound_by": b[1],
+              "launch_us": launch_breakdown(
+                  lambda: K.masked_select(sk, flat, smask, S))})
+    del flat, smask, keys
+    no_host_sync(lambda: K.masked_select(
+        (spec[0], 2048, spec[2], spec[3]), cols, mask), "masked_select")
     return {"masked_select": entry}
 
 
@@ -1166,6 +1256,19 @@ def stacked_kernel_check(st_engine, pqls):
                         flat[K.gather_lane_key(c, src)].element_size()
                         for c, src in spec[3])
         n_match = int(matched.sum())
+        _out, route = routed(lambda: K.masked_select(spec, flat, mask, S),
+                             "masked_select")
+        if route != K.select_route(len(words)):
+            raise AssertionError(f"stacked masked_select took {route}")
+        library = None
+        if len(words) == 1:          # topk per segment over (word, docid)
+            keys = torch.where(
+                mask.bool(), (words[0].long() + 2 ** 31) << 31 |
+                torch.arange(P, device=mask.device).repeat(S),
+                torch.iinfo(torch.int64).max).reshape(S, P)
+            library = time_ms(lambda: torch.topk(keys, k, dim=1,
+                                                 largest=False), reps=5)
+            del keys
         record("masked_select", case, equal,
                time_ms(lambda: K.masked_select(spec, flat, mask, S),
                        reps=5),
@@ -1178,6 +1281,9 @@ def stacked_kernel_check(st_engine, pqls):
                bound(S * P + n_match * key_bytes +
                      S * k * (4 + 2 * row_bytes) + 4 * S, 0),
                kind=spec[0], k=k, key_words=len(words), matched=n_match,
+               route=route, library_ms=library,
+               launch_us=launch_breakdown(
+                   lambda: K.masked_select(spec, flat, mask, S)),
                scratch_bytes=4 * K.select_scratch_words(P, k, len(words),
                                                         S))
 
@@ -1739,11 +1845,21 @@ def compact_kernel_check(seg, cases):
                     raise AssertionError(f"rank_slots ({route}) disagrees "
                                          f"on {label}")
                 if route == "sort":
-                    # K12 alone on the keys, as the sort route runs it
-                    perm, (sk,), _ = K.radix_sort([kc],
-                                                  counter="radix_sort_rank")
+                    # K12 alone on the keys, as the sort route runs it,
+                    # SORT_SELECT_REPEATS times
                     pperm, (psk,), _ = K.radix_sort_plain([kc])
-                    ok12 = _equal(perm, pperm) and _equal(sk, psk)
+                    ok12, k12_route = True, None
+                    for _ in range(SORT_SELECT_REPEATS):
+                        (perm, (sk,), _), k12_route = routed(
+                            lambda: K.radix_sort([kc],
+                                                 counter="radix_sort_rank"),
+                            "radix_sort_rank")
+                        ok12 = ok12 and _equal(perm, pperm) and \
+                            _equal(sk, psk)
+                    if kc.numel() <= K.SORT_CLUSTER_ROWS and \
+                            k12_route != "cluster":
+                        raise AssertionError(f"radix_sort_rank took "
+                                             f"{k12_route}")
                     entries["radix_sort_rank"] = dict(
                         max_abs_err=0 if ok12 else 1,
                         ms=time_ms(lambda: K.radix_sort(
@@ -1752,6 +1868,16 @@ def compact_kernel_check(seg, cases):
                         bound=bound(4 * cap * 3, cap),
                         library_ms=time_ms(lambda: torch.sort(
                             kc, stable=True)), case=label)
+                    e12 = entries["radix_sort_rank"]
+                    emit({"phase": "group_compact_check", "case": label,
+                          "kernel": "radix_sort_rank", "rows": kc.numel(),
+                          "route": k12_route, "equal": ok12,
+                          "repeats": SORT_SELECT_REPEATS,
+                          **{k: v for k, v in e12.items() if k != "bound"},
+                          "bound_ms": e12["bound"][0],
+                          "launch_us": launch_breakdown(
+                              lambda: K.radix_sort(
+                                  [kc], counter="radix_sort_rank"))})
                     if not ok12:
                         raise AssertionError("radix_sort_rank disagrees")
                 else:
@@ -2060,23 +2186,35 @@ def vector_kernel_check(engine, st_engine, q, seed: int = 0):
            launch_us=launch_breakdown(
                lambda: K.vector_scores(mat, qp, qn, "cosine")))
 
-    # K6's vector kind on K8's cosine scores, every valid row matched
+    # K6's vector kind on K8's cosine scores, every valid row matched, at
+    # k = 16 and 65,536, SORT_SELECT_REPEATS launches each on the select
+    # route
     mask = K.filter_mask(P, ("match_all",), {}, [], n, mat.device)
     scores = K.vector_scores(mat, qp, qn, "cosine")
-    got = K.vector_topk(scores, mask, 16)
-    ref = K.vector_topk_plain(scores, mask, 16)
-    record("masked_select_vector", "cosine k=16", _topk_equal(got, ref),
-           count=int(got["sel.count"]))
-    masked = torch.where(mask.bool(), scores, float("-inf"))
-    entries["masked_select_vector"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: K.vector_topk(scores, mask, 16)),
-        plain_ms=time_ms(lambda: K.vector_topk_plain(scores, mask, 16),
-                         reps=3),
-        bound=bound(P + P * 4 + 16 * 8, P), library_ms=time_ms(
-            lambda: torch.topk(torch.where(mask.bool(), scores,
-                                           float("-inf")), 16)))
-    del masked
+    for k in (16, 65536):
+        ref = K.vector_topk_plain(scores, mask, k)
+        equal = True
+        for _ in range(SORT_SELECT_REPEATS):
+            got, route = routed(lambda: K.vector_topk(scores, mask, k),
+                                "masked_select_vector")
+            equal = equal and _topk_equal(got, ref) and route == "select"
+        e = dict(max_abs_err=0.0,
+                 ms=time_ms(lambda: K.vector_topk(scores, mask, k)),
+                 plain_ms=time_ms(lambda: K.vector_topk_plain(scores, mask,
+                                                              k), reps=3),
+                 bound=bound(P + P * 4 + k * 8, P), library_ms=time_ms(
+                     lambda: torch.topk(torch.where(
+                         mask.bool(), scores, float("-inf")), k)))
+        record("masked_select_vector", f"cosine k={k}", equal,
+               count=int(got["sel.count"]), route=route,
+               repeats=SORT_SELECT_REPEATS,
+               **{x: v for x, v in e.items() if x != "bound"},
+               bound_ms=e["bound"][0], bound_by=e["bound"][1],
+               launch_us=launch_breakdown(
+                   lambda: K.vector_topk(scores, mask, k)))
+        entries.setdefault("masked_select_vector", e)
+    no_host_sync(lambda: K.vector_topk(scores, mask, 16),
+                 "masked_select_vector")
 
     # K9 (nprobe 16) and K1's ivf_probe node (its K9 inside)
     for metric in ("cosine", "dot"):
@@ -2236,12 +2374,18 @@ def vector_kernel_check(engine, st_engine, q, seed: int = 0):
         torch.equal(got["sel.docids"][i],
                     K.vector_topk(seg_scores[i], seg_masks[i], 16)
                     ["sel.docids"]) for i in range(S))
+    _out, route = routed(lambda: K.vector_topk(seq, smask, 16, n_segs=S),
+                         "masked_select_vector")
     st = dict(ms=time_ms(lambda: K.vector_topk(seq, smask, 16, n_segs=S)),
               s_sequential_ms=time_ms(lambda: [
                   K.vector_topk(seg_scores[i], seg_masks[i], 16)
                   for i in range(S)], spins=S),
               bound_ms=bound(S * P * 5 + S * 16 * 8, S * P)[0])
-    record("masked_select_vector", f"stacked S={S}", equal, **st)
+    record("masked_select_vector", f"stacked S={S}",
+           equal and route == "select", route=route,
+           library_ms=time_ms(lambda: torch.topk(torch.where(
+               smask.bool(), seq, float("-inf")).reshape(S, P), 16, dim=1)),
+           **st)
     stacked["masked_select_vector"] = st
     scent, scv = flat["emb.ivfc"], flat["emb.ivfv"]
     ids, ok = K.ivf_select_probes(scent, scv, qp, qn, "cosine", 16)
@@ -2456,7 +2600,10 @@ def batch_case(name, case, batched, plain, single, nbytes, ops, rtol=None,
         K.reset_launch_counts()
         got = _flat(batched(B))
         torch.cuda.synchronize()
-        launched = {k: v for k, v in K.launch_counts().items() if v}
+        # a K12 / K6 launch counts under its route too: phase routes and
+        # the kernel checks read those
+        launched = {k: v for k, v in K.launch_counts().items()
+                    if v and not k.endswith(ROUTE_NODES)}
         if launched != expect:
             raise AssertionError(f"{name} {case} B={B}: launches {launched}"
                                  f", expected {expect}")
@@ -2984,10 +3131,12 @@ RT_SEALED_FULL = 2
 #: that the whole script stays inside its time limit with the phases of
 #: the compacted group-by
 RT_SEALED_DEFAULT = 1
-#: timed runs a realtime family's p50 takes by default: 3, not --repeats,
+#: timed runs a realtime family's p50 takes by default: 1, not --repeats,
 #: a cut the timing line names (the consuming segment's host tail makes
-#: each run 0.1-1 s), so that the SSB bench phases fit the time limit
-RT_REPEATS_DEFAULT = 3
+#: each run 0.1-1 s), so that the script fits its time limit on a slow
+#: host (the realtime phase took 300-447 s of host work, the whole run
+#: 963-1,179 s with 3)
+RT_REPEATS_DEFAULT = 1
 RT_FETCH_ROWS = 50_000              # rows per fetch batch of the consumer
 #: the consuming segment's freeze points checked (the frozen prefix
 #: doubles from MutableSegmentImpl.FREEZE_MIN_ROWS)
@@ -3758,14 +3907,22 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
     keys_p, codes_p = ctx.padded_key_codes("p_brand1", np.int32)
     kt = torch.from_numpy(keys_p).to(device)
     ct = torch.from_numpy(codes_p).to(device)
-    got = K.radix_sort([kt], [ct], counter="radix_sort_join")
     ref = K.radix_sort_plain([kt], [ct])
-    err = int(not (torch.equal(got[1][0], ref[1][0]) and
-                   torch.equal(got[2][0], ref[2][0])))
+    err = 0
+    for _ in range(SORT_SELECT_REPEATS):
+        got, join_route = routed(lambda: K.radix_sort(
+            [kt], [ct], counter="radix_sort_join"), "radix_sort_join")
+        err += int(not (torch.equal(got[1][0], ref[1][0]) and
+                        torch.equal(got[2][0], ref[2][0])))
     dp = kt.numel()
+    if dp <= K.SORT_CLUSTER_ROWS and join_route != "cluster":
+        raise AssertionError(f"radix_sort_join took {join_route}")
     b = bound(dp * 8 + dp * 12, dp * 8 * 3)
     r = {"kernel": "radix_sort_join", "case": "j2.1 dim side",
          "rows": dp, "dim_rows": len(ctx.keys), "max_abs_err": err,
+         "route": join_route, "repeats": SORT_SELECT_REPEATS,
+         "launch_us": launch_breakdown(lambda: K.radix_sort(
+             [kt], [ct], counter="radix_sort_join")),
          "ms": time_ms(lambda: K.radix_sort([kt], [ct],
                                             counter="radix_sort_join")),
          "plain_ms": time_ms(lambda: K.radix_sort_plain([kt], [ct])),
@@ -3782,11 +3939,17 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
         *wmod.window_lanes(wreq, columns, n), device)
     n_pad = part.numel()
     keys = [part] + orders
-    got = K.radix_sort(keys, sums, n)
     ref = K.radix_sort_plain(keys, sums, n)
-    err = int(not all(torch.equal(a, b_) for a, b_ in
-                      zip([got[0]] + got[1] + got[2],
-                          [ref[0]] + ref[1] + ref[2])))
+    err = 0
+    for _ in range(SORT_SELECT_REPEATS):
+        got, w1_route = routed(lambda: K.radix_sort(keys, sums, n),
+                               "radix_sort")
+        err += int(not all(torch.equal(a, b_) for a, b_ in
+                           zip([got[0]] + got[1] + got[2],
+                               [ref[0]] + ref[1] + ref[2])))
+    if n_pad <= K.SORT_CLUSTER_ROWS and w1_route != "cluster":
+        raise AssertionError(f"radix_sort took {w1_route} on W1")
+    no_host_sync(lambda: K.radix_sort(keys, sums, n), "radix_sort")
     # one stable torch.sort of the (partition, order key) pair as int64
     composite = (part.long() << 32) | (orders[0].long() & 0xFFFFFFFF)
     # the key and value lanes read once, the permutation, sorted keys and
@@ -3796,7 +3959,9 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
               n_pad * 3 * 4 * len(keys))
     r = {"kernel": "radix_sort", "case": "w1 lanes", "rows": n,
          "n_pad": n_pad, "order_keys": len(orders), "sum_lanes": len(sums),
-         "max_abs_err": err,
+         "max_abs_err": err, "route": w1_route,
+         "repeats": SORT_SELECT_REPEATS,
+         "launch_us": launch_breakdown(lambda: K.radix_sort(keys, sums, n)),
          "ms": time_ms(lambda: K.radix_sort(keys, sums, n)),
          "plain_ms": time_ms(lambda: K.radix_sort_plain(keys, sums, n)),
          "library_ms": time_ms(lambda: torch.sort(composite, stable=True)),
@@ -5067,6 +5232,7 @@ def main() -> int:
     libs = build.build_all()
     seconds["build"] = time.perf_counter() - t0
     emit({"phase": "build", "seconds": seconds["build"],
+          "source_seconds": build.BUILD_INFO.get("source_seconds", {}),
           "dir": str(build.build_dir()),
           "libs": {s: str(p) for s, p in libs.items()},
           "ptxas": build.BUILD_INFO.get("ptxas", {}),
@@ -5441,6 +5607,39 @@ def main() -> int:
                 rt_launches.get(name, 0) + stage_launches.get(name, 0) +
                 gc_launches[name])
 
+    # K12's and K6's routes on the main path: the window, the join's dim
+    # side and K16's sort route each sorted in one cluster launch, and the
+    # one-word selections took the select route
+    routes = {"radix_sort[cluster]": stage_launches.get(
+                  "radix_sort[cluster]", 0),
+              "radix_sort_join[cluster]": join_launches.get(
+                  "radix_sort_join[cluster]", 0),
+              "radix_sort_rank[cluster]": path_launches(
+                  "radix_sort_rank[cluster]"),
+              "masked_select[select]": path_launches("masked_select[select]"),
+              "masked_select_vector[select]": path_launches(
+                  "masked_select_vector[select]")}
+    emit({"phase": "routes", "launches": routes,
+          "passes_route": {k: path_launches(f"{k}[passes]")
+                           for k in ("radix_sort", "radix_sort_join",
+                                     "radix_sort_rank")},
+          "tile_route": path_launches("masked_select[tile]")})
+    missing = [k for k, v in routes.items() if not v]
+    if missing:
+        raise AssertionError(f"the main path never took {missing}")
+
+    def route_launches(name: str):
+        """{route: launches} of a kernel counted by route, else None."""
+        nodes = [n for n in K.KERNELS[name].node_launches
+                 if n in ("cluster", "passes", "select", "tile")]
+        if not nodes:
+            return None
+        if name.endswith("_batched"):
+            return {n: batch_launches.get(f"{name}[{n}]", 0) for n in nodes}
+        if name in STAGE_KERNELS:
+            return {n: stage_launches.get(f"{name}[{n}]", 0) for n in nodes}
+        return {n: path_launches(f"{name}[{n}]") for n in nodes}
+
     for name, info in K.KERNELS.items():
         if name == "ssb_synth":
             e = synth_entry
@@ -5566,6 +5765,11 @@ def main() -> int:
                  "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                  "batch_members": SERVER_JOIN_BATCH_SIZES[-1],
                  "b_single_ms": e["b_single_ms"]})
+    for entry in line:
+        by_route = route_launches(entry["name"]) \
+            if entry["name"] in K.KERNELS else None
+        if by_route is not None:
+            entry["route_launches"] = by_route
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

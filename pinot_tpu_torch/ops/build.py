@@ -34,8 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _targets: Dict[str, Path] = {}
-#: what the last build in this process did: seconds, library paths, and
-#: ptxas' register / shared-memory report per source
+#: what the last build in this process did: seconds, each source's
+#: seconds from the start (its nvcc running beside the others), library
+#: paths, and ptxas' register, shared-memory and spill report per source
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -79,11 +80,24 @@ def build_all() -> Dict[str, Path]:
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, lib)
+    logs, done = {}, {}
+
+    def wait(src, proc):
+        logs[src] = proc.communicate()[0]
+        done[src] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(src, proc))
+               for src, (proc, _tmp, _lib) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     ptxas = {}
     failed = []
     for src, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        ptxas[src] = [ln for ln in log.splitlines() if "ptxas info" in ln]
+        log = logs[src]
+        ptxas[src] = [ln.strip() for ln in log.splitlines()
+                      if "ptxas info" in ln or "spill" in ln]
         if proc.returncode != 0:
             failed.append(f"{src} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
@@ -92,7 +106,8 @@ def build_all() -> Dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      built=sorted(procs), dir=str(out_dir),
+                      built=sorted(procs), source_seconds=done,
+                      dir=str(out_dir),
                       libs={s: str(p) for s, p in targets.items()},
                       ptxas=ptxas)
     return targets

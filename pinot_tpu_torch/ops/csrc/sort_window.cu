@@ -18,27 +18,33 @@
 // perm[i] from its key lane, and the last step gathers the keys and
 // payloads through the final permutation, which is also the window's
 // `perm` (the sorted iota). Passes run from the least significant byte of
-// the last key lane to the most significant byte of the first; rows at or
-// past `valid_rows` then move behind all others in one more pass of a
-// one-bit digit (the JAX kernel's `invalid` key). Stability supplies the
-// iota tie-break of the JAX sort.
+// the last key lane to the most significant byte of the first, skipping a
+// byte that has one value in every row (window partition codes are below
+// 2^16, a join's int32 keys below 2^24); rows at or past `valid_rows` then
+// move behind all others in one more pass of a one-bit digit (the JAX
+// kernel's `invalid` key). Stability supplies the iota tie-break of the
+// JAX sort. What bounds K12 is the chain of dependent passes, not bytes: at
+// most 65,536 rows on every path that sorts in a query (the window cap, the
+// dim cap, K14's slots of one segment), 256 KB a lane, all in L2.
 //
-// One pass: a per-block histogram of 256 digits over a chunk of 4,096 rows
-// (shared atomics: counts do not depend on order), one block scanning the
-// counts digit-major, block-minor (so a block's rows of digit d land after
-// every earlier block's), and a stable scatter. Stability inside a block:
-// the block walks its chunk in tiles of 256 rows in order; inside a tile,
-// __match_any_sync groups a warp's lanes by digit, a lane's rank is the
-// number of its peers in lower lanes, and each warp's per-digit counts in
-// shared memory give the rows of earlier warps. An atomicAdd on a bin
-// counter would not be stable, and the window's answers would then differ
-// from the numpy twin's np.lexsort.
-//
-// Skipped passes: a first launch ORs and ANDs every key lane's flipped
-// bits; a pass whose byte is the same in every row is a permutation copy
-// (its histogram and scan return at once). Window partition codes are
-// below 2^16, their upper bytes never vary; a join's int32 keys below
-// 2^24 skip the top byte.
+// Two routes, chosen by the caller (ops/kernels.py:radix_sort):
+// - "cluster", n <= 65,536: the whole sort in one launch of one
+//   thread-block cluster of up to 8 CTAs (cluster_sort.cuh), the final
+//   gather of the permutation, keys and payloads in the same launch; no
+//   global scratch, no memset.
+// - "passes", any n up to 2^30 (a stack of S segments' K16 slots can pass
+//   65,536): one launch ORs and ANDs every key lane, then each pass is a
+//   per-block histogram of 256 digits over a chunk of 4,096 rows (shared
+//   atomics: counts do not depend on order), one block scanning the counts
+//   digit-major, block-minor (a block's rows of digit d land after every
+//   earlier block's), and a stable scatter; a pass whose byte does not
+//   vary is a permutation copy. Stability inside a scatter block: the block
+//   walks its chunk in tiles of 256 rows in order; inside a tile,
+//   __match_any_sync groups a warp's lanes by digit, a lane's rank is the
+//   number of its peers in lower lanes, and each warp's per-digit counts in
+//   shared memory give the rows of earlier warps. An atomicAdd on a bin
+//   counter would not be stable, and the window's answers would then differ
+//   from the numpy twin's np.lexsort.
 //
 // K13: a single-pass scan over tiles of 2,048 rows with decoupled
 // look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
@@ -74,14 +80,11 @@
 // partition's own running sum, and unsigned wraparound is defined where
 // signed overflow is not.
 //
-// What bounds them: n <= 65,536 rows on the window path (the window cap
-// and the dim cap), so a lane is 256 KB and stays in the 50 MB L2; launch
-// latency and the passes' synchronisation bound K12, not bytes (a pass
-// reads the digit through the permutation, a gather). K13 reads each input
-// once and writes each output once with 16-byte accesses: at W1's 32 tiles
-// it is bound by launch latency and one tile's look-back, at 2^24 rows by
-// bytes. K12's speed is later work.
+// What bounds K13: it reads each input once and writes each output once
+// with 16-byte accesses: at W1's 32 tiles it is bound by launch latency and
+// one tile's look-back, at 2^24 rows by bytes.
 
+#include "cluster_sort.cuh"
 #include "common.cuh"
 
 namespace {
@@ -265,6 +268,69 @@ __global__ void gather_keys_kernel(KeyLanes keys, int n_keys, KeyOuts outs, PayL
         static_cast<int*>(outs.ptr[k])[i] = static_cast<const int*>(keys.ptr[k])[p];
     }
     for (int j = 0; j < n_pay; ++j) pay.out[j][i] = pay.in[j][p];
+  }
+}
+
+// K12's key lanes as cluster_sort reads them (the descriptors in shared
+// memory: indexing the parameter struct by a lane number would copy it to
+// local memory in every thread)
+struct LaneKeys {
+  const KeyLanes* k;
+  int n;
+  __device__ __forceinline__ int lanes() const { return n; }
+  __device__ __forceinline__ bool wide(int l) const { return k->wide[l] != 0; }
+  __device__ __forceinline__ unsigned long long bits(int l, unsigned row) const {
+    return key_bits(*k, l, row);
+  }
+};
+
+// The cluster route: one cluster sorts all n <= 65,536 rows, then each
+// CTA writes its positions' permutation entries, keys and payloads.
+__global__ void __launch_bounds__(pinot::kSortThreads, 1)
+    radix_cluster_kernel(KeyLanes keys_p, int n_keys, PayLanes pay_p, int n_pay, KeyOuts outs_p,
+                         int n, int valid_rows, int* __restrict__ perm_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  pinot::SortSmem& sm = *reinterpret_cast<pinot::SortSmem*>(smem);
+  __shared__ KeyLanes keys;
+  __shared__ PayLanes pay;
+  __shared__ KeyOuts outs;
+  if (threadIdx.x == 0) {
+    keys = keys_p;
+    pay = pay_p;
+    outs = outs_p;
+  }
+  __syncthreads();
+  const pinot::SortRange r = pinot::cluster_sort(sm, LaneKeys{&keys, n_keys}, n, valid_rows);
+  // a thread's 8 positions at once, so each lane's 8 gathers are in flight
+  // together; packed keys are rebuilt from shared memory, not gathered
+  unsigned p[pinot::kSortItems];
+#pragma unroll
+  for (int s = 0; s < pinot::kSortItems; ++s) {
+    const int i = r.lo + threadIdx.x + s * pinot::kSortThreads;
+    p[s] = i < r.hi ? r.row(i) : 0u;
+    if (i < r.hi) perm_out[i] = static_cast<int>(p[s]);
+  }
+  for (int k = 0; k < n_keys; ++k) {
+#pragma unroll
+    for (int s = 0; s < pinot::kSortItems; ++s) {
+      const int i = r.lo + threadIdx.x + s * pinot::kSortThreads;
+      if (i >= r.hi) continue;
+      if (keys.wide[k])
+        static_cast<long long*>(outs.ptr[k])[i] =
+            r.packed ? static_cast<long long>(r.bits(k, i) ^ 0x8000000000000000ULL)
+                     : __ldg(static_cast<const long long*>(keys.ptr[k]) + p[s]);
+      else
+        static_cast<int*>(outs.ptr[k])[i] =
+            r.packed ? static_cast<int>(static_cast<unsigned>(r.bits(k, i)) ^ 0x80000000u)
+                     : __ldg(static_cast<const int*>(keys.ptr[k]) + p[s]);
+    }
+  }
+  for (int j = 0; j < n_pay; ++j) {
+#pragma unroll
+    for (int s = 0; s < pinot::kSortItems; ++s) {
+      const int i = r.lo + threadIdx.x + s * pinot::kSortThreads;
+      if (i < r.hi) pay.out[j][i] = __ldg(pay.in[j] + p[s]);
+    }
   }
 }
 
@@ -488,26 +554,34 @@ void launch_scan(const int* sp, const ScanQ& q, long long n, int vec, unsigned l
 
 }  // namespace
 
-// Words of int32 scratch pinot_radix_sort takes for n rows and n_keys key
-// lanes: the OR / AND words of each key, two permutations, the counts and
-// the offsets.
+// Words of int32 scratch pinot_radix_sort's "passes" route takes for n
+// rows and n_keys key lanes: the OR / AND words of each key, two
+// permutations, the counts and the offsets. The "cluster" route takes
+// none.
 extern "C" long long pinot_radix_sort_scratch_words(long long n, int n_keys) {
   const long long blocks = (n + kChunk - 1) / kChunk;
   return 4LL * n_keys + 2 * n + 2LL * kRadix * blocks;
 }
 
+// The most rows the "cluster" route sorts.
+extern "C" long long pinot_radix_sort_cluster_rows() { return pinot::kSortMaxRows; }
+
 // keys: n_keys lanes of n rows, most significant first, elem pinot::kI32
 // or kI64; payloads: n_pay int32 lanes. Rows at or past valid_rows sort
 // after every other row. Writes perm_out int32 [n] (the sorted input row
-// indices), key_outs (each in its key's type) and pay_outs. scratch:
+// indices), key_outs (each in its key's type) and pay_outs. route 1
+// ("cluster", n <= pinot_radix_sort_cluster_rows()): one launch, scratch
+// unused; route 0 ("passes"): scratch holds
 // pinot_radix_sort_scratch_words int32 words, 8-byte aligned.
 extern "C" int pinot_radix_sort(const void* const* key_ptrs, const int* key_elems, int n_keys,
                                 const int* const* pay_ptrs, int n_pay, long long n,
                                 long long valid_rows, void* const* key_outs,
-                                int* const* pay_outs, int* perm_out, int* scratch,
+                                int* const* pay_outs, int* perm_out, int* scratch, int route,
                                 void* stream) {
   if (n_keys < 1 || n_keys > kMaxKeys || n_pay < 0 || n_pay > kMaxPayloads || n < 1 ||
-      n > (1LL << 30) || reinterpret_cast<uintptr_t>(scratch) % 8 != 0)
+      n > (1LL << 30) || (route != 0 && route != 1) ||
+      (route == 1 && n > pinot::kSortMaxRows) ||
+      (route == 0 && (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 8 != 0)))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   KeyLanes keys{};
@@ -515,6 +589,36 @@ extern "C" int pinot_radix_sort(const void* const* key_ptrs, const int* key_elem
     if (key_elems[k] != pinot::kI32 && key_elems[k] != pinot::kI64) return -1;
     keys.ptr[k] = key_ptrs[k];
     keys.wide[k] = key_elems[k] == pinot::kI64 ? 1 : 0;
+  }
+  PayLanes pay{};
+  for (int j = 0; j < n_pay; ++j) {
+    pay.in[j] = pay_ptrs[j];
+    pay.out[j] = pay_outs[j];
+  }
+  KeyOuts outs{};
+  for (int k = 0; k < n_keys; ++k) outs.ptr[k] = key_outs[k];
+  if (route == 1) {
+    const int valid = static_cast<int>(valid_rows < 0 ? 0 : valid_rows < n ? valid_rows : n);
+    const size_t smem = sizeof(pinot::SortSmem);
+    cudaError_t rc = cudaFuncSetAttribute(
+        radix_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    const int ctas = pinot::sort_ctas(n);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(pinot::kSortThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    rc = cudaLaunchKernelEx(&cfg, radix_cluster_kernel, keys, n_keys, pay, n_pay, outs,
+                            static_cast<int>(n), valid, perm_out);
+    return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
   }
   const int blocks = static_cast<int>((n + kChunk - 1) / kChunk);
   unsigned long long* varying = reinterpret_cast<unsigned long long*>(scratch);
@@ -542,13 +646,6 @@ extern "C" int pinot_radix_sort(const void* const* key_ptrs, const int* key_elem
   for (int k = n_keys - 1; k >= 0; --k)
     for (int shift = 0; shift < (keys.wide[k] ? 64 : 32); shift += 8) pass(k, shift);
   if (valid_rows < n) pass(-1, 0);
-  PayLanes pay{};
-  for (int j = 0; j < n_pay; ++j) {
-    pay.in[j] = pay_ptrs[j];
-    pay.out[j] = pay_outs[j];
-  }
-  KeyOuts outs{};
-  for (int k = 0; k < n_keys; ++k) outs.ptr[k] = key_outs[k];
   gather_keys_kernel<<<grid, pinot::kThreads, 0, s>>>(keys, n_keys, outs, pay, n_pay, pa, n,
                                                       perm_out);
   return static_cast<int>(cudaGetLastError());

@@ -272,13 +272,14 @@ _ARGTYPES = {
     "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P,
                       _P, _P],
     "masked_select": [_P, _LL, _I, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
-                      _PP, _IP, _PP, _I, _I, _P, _LL, _P, _P, _P],
+                      _PP, _IP, _PP, _I, _I, _P, _LL, _P, _P, _I, _P],
     "hll_registers": [_P, _P, _P, _I, _I, _P, _P],
     "vector_scores": [_P, _LL, _I, _P, _F, _I, _P, _P],
     "ivf_probe_select": [_P, _P, _I, _I, _I, _P, _F, _I, _I, _P, _P, _P],
     "ivf_assign": [_P, _LL, _I, _P, _I, _I, _LL, _P, _P, _P, _P],
     "ivf_recenter": [_P, _P, _LL, _I, _P, _I, _P, _P, _P, _P],
-    "radix_sort": [_PP, _IP, _I, _PP, _I, _LL, _LL, _PP, _PP, _P, _P, _P],
+    "radix_sort": [_PP, _IP, _I, _PP, _I, _LL, _LL, _PP, _PP, _P, _P, _I,
+                   _P],
     "window_scan": [_P, _PP, _I, _LL, _P, _PP, _P, _P],
 }
 _ARGTYPES.update({
@@ -305,7 +306,7 @@ _ARGTYPES.update({
                               _P, _P, _P, _P, _P],
     "masked_select_batched": [_P, _LL, _I, _I, _PP, _LLP, _IP, _IP, _IP,
                               _IP, _I, _I, _PP, _LLP, _IP, _PP, _I, _I, _P,
-                              _LL, _P, _P, _P],
+                              _LL, _P, _P, _I, _P],
     "hll_registers_batched": [_P, _P, _P, _I, _I, _I, _P, _P],
     "vector_scores_batched": [_P, _LL, _I, _P, _FP, _I, _I, _P, _P],
     "ivf_probe_select_batched": [_P, _P, _I, _I, _I, _P, _FP, _I, _I, _I,
@@ -323,6 +324,13 @@ KERNELS["dense_group_aggregate"].node_launches.update(
 KERNELS["block_compact"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0)
 KERNELS["rank_slots"].node_launches["sort"] = 0
+#: the routes of K12 (SORT_ROUTES) and K6 (SELECT_ROUTES), counted apart
+for _name in ("radix_sort", "radix_sort_join", "radix_sort_rank"):
+    KERNELS[_name].node_launches.update(cluster=0, passes=0)
+for _name in ("masked_select", "masked_select_vector", "masked_select_batched",
+              "masked_select_vector_batched"):
+    KERNELS[_name].node_launches.update(select=0, tile=0)
+del _name
 
 
 #: the group-by route of each dispatch (query/plan.py:
@@ -2055,6 +2063,16 @@ _PACK, _ID, _MONO, _MONO_CLAMP = 0, 1, 2, 3
 _MAX_SELECT_TERMS = 8
 _MAX_SELECT_WORDS = 8
 _MAX_GATHERS = 32
+#: K6's routes (masked_select.cu): "select" thresholds the one key word by
+#: radix select and sorts only the k chosen rows; "tile" sorts every tile
+#: and merges the lists, for two or more key words
+SELECT_ROUTES = ("tile", "select")
+SELECT_ROUTE_MAX_WORDS = 1
+
+
+def select_route(n_words: int) -> str:
+    """K6's route for a selection of n_words key words."""
+    return "select" if n_words <= SELECT_ROUTE_MAX_WORDS else "tile"
 
 
 def monotone_keys_plain(lane: torch.Tensor, asc: bool) -> List[torch.Tensor]:
@@ -2183,13 +2201,16 @@ def _select_terms(select_spec, cols) -> List[Tuple[torch.Tensor, int, int,
 
 
 def select_scratch_words(padded: int, k: int, n_words: int,
-                         n_segs: int = 1) -> int:
+                         n_segs: int = 1, route: Optional[str] = None) -> int:
     """int32 words of scratch K6 needs for n_segs segments of `padded`
-    rows, as masked_select.cu decides them (its tile size and merge
-    passes live there only)."""
+    rows on `route` (select_route(n_words) by default), as
+    masked_select.cu decides them (its tile size, merge passes and
+    selection state live there only)."""
+    route = route or select_route(n_words)
     return _scratch_words("masked_select.cu",
                           "pinot_masked_select_scratch_words",
-                          [_LL, _I, _I, _I], padded, k, n_words, n_segs)
+                          [_LL, _I, _I, _I, _I], padded, k, n_words, n_segs,
+                          SELECT_ROUTES.index(route))
 
 
 def masked_select(select_spec, cols: Dict[str, torch.Tensor],
@@ -2270,7 +2291,8 @@ def _masked_select(select_spec, cols, mask, n_segs=None,
                    ) -> Dict[str, torch.Tensor]:
     """K6 for kinds limit / order / ordertk / ordermk; the gathered
     columns named in `zero_invalid` hold zeros after the valid rows, and
-    the launch counts under `counter`.
+    the launch counts under `counter`, and under `counter`[route] for its
+    route (select_route of the key word count).
 
     With `member_keys` (a batch of B members of one plan, one launch
     counted under counter + "_batched"): `mask` is uint8 [B, P], one row
@@ -2324,10 +2346,11 @@ def _masked_select(select_spec, cols, mask, n_segs=None,
                                             out[f"sel.{col}"], 0)
         return out
     lead = (segs,) if batched or n_segs is not None else ()
-    scratch_words = select_scratch_words(padded, k, n_words, segs)
+    route = select_route(n_words)
+    scratch_words = select_scratch_words(padded, k, n_words, segs, route)
     scratch = torch.empty(scratch_words, dtype=torch.int32, device=device)
     docids = torch.empty(lead + (k,), dtype=torch.int32, device=device)
-    count = torch.zeros(lead, dtype=torch.int32, device=device)
+    count = torch.empty(lead, dtype=torch.int32, device=device)
     outs = [torch.empty(lead + (k,) + tuple(g.shape[1:]), dtype=g.dtype,
                         device=device) for g in gathers]
     zero_bits = sum(1 << g for g, (col, _src) in enumerate(gather_cols)
@@ -2340,16 +2363,19 @@ def _masked_select(select_spec, cols, mask, n_segs=None,
                    for g in gathers]),
             _ptrs(outs), len(gathers), ctypes.c_int32(zero_bits).value,
             scratch.data_ptr(), scratch_words, docids.data_ptr(),
-            count.data_ptr())
+            count.data_ptr(), SELECT_ROUTES.index(route))
     if batched:
         def strides(lanes):          # rows between members: own P, shared 0
             return _longs([padded if id(t) in own else 0 for t in lanes])
-        _launch(f"{counter}_batched", device, mask.data_ptr(), padded, segs,
+        name = f"{counter}_batched"
+        _launch(name, device, mask.data_ptr(), padded, segs,
                 int(k), _ptrs(term_lanes), strides(term_lanes), *term_args,
                 _ptrs(gathers), strides(gathers), *tail)
     else:
-        _launch(counter, device, mask.data_ptr(), padded, segs, int(k),
+        name = counter
+        _launch(name, device, mask.data_ptr(), padded, segs, int(k),
                 _ptrs(term_lanes), *term_args, _ptrs(gathers), *tail)
+    _count_node(name, route)
     res = {"sel.docids": docids, "sel.count": count}
     for (col, _source), o in zip(gather_cols, outs):
         res[f"sel.{col}"] = o
@@ -2757,6 +2783,11 @@ def hll_registers_batched_plain(hists: torch.Tensor, idx: torch.Tensor,
 
 MAX_SORT_KEYS = 8                # sort_window.cu: key lanes, payload lanes
 MAX_SORT_PAYLOADS = 8
+#: K12's routes (sort_window.cu): "passes" launches a histogram, a scan
+#: and a scatter a byte; "cluster" sorts up to SORT_CLUSTER_ROWS rows in
+#: one launch of one thread-block cluster (cluster_sort.cuh)
+SORT_ROUTES = ("passes", "cluster")
+SORT_CLUSTER_ROWS = 1 << 16
 
 
 def _check_sort_lanes(keys, payloads, n: int, device) -> None:
@@ -2775,7 +2806,8 @@ def _check_sort_lanes(keys, payloads, n: int, device) -> None:
 def radix_sort(keys: Sequence[torch.Tensor],
                payloads: Sequence[torch.Tensor] = (),
                valid_rows: Optional[int] = None,
-               counter: str = "radix_sort"
+               counter: str = "radix_sort",
+               route: Optional[str] = None
                ) -> Tuple[torch.Tensor, List[torch.Tensor],
                           List[torch.Tensor]]:
     """K12: a stable sort of n rows by int32 / int64 key lanes (most
@@ -2783,26 +2815,39 @@ def radix_sort(keys: Sequence[torch.Tensor],
     every other row, ties in input order: (perm int32 [n], the input row
     of each sorted position; the keys sorted; the int32 payload lanes
     carried). The launch counts under `counter` ("radix_sort_join" for a
-    join's dim side)."""
+    join's dim side) and under `counter`[route]; `route` (SORT_ROUTES) is
+    "cluster" up to SORT_CLUSTER_ROWS rows and "passes" above by
+    default."""
     keys, payloads = list(keys), list(payloads)
     if not keys:
         raise ValueError("radix_sort needs a key lane")
     n, device = keys[0].shape[0], keys[0].device
     _check_sort_lanes(keys, payloads, n, device)
     valid = n if valid_rows is None else max(0, min(int(valid_rows), n))
+    route = route or ("cluster" if n <= SORT_CLUSTER_ROWS else "passes")
+    if route not in SORT_ROUTES or (route == "cluster" and
+                                    n > SORT_CLUSTER_ROWS):
+        raise ValueError(f"sort route {route} for {n} rows")
     if device.type == "cpu":
         return radix_sort_plain(keys, payloads, valid)
     perm = torch.empty(n, dtype=torch.int32, device=device)
     key_outs = [torch.empty_like(k) for k in keys]
     pay_outs = [torch.empty_like(v) for v in payloads]
-    words = _scratch_words("sort_window.cu", "pinot_radix_sort_scratch_words",
-                           [_LL, _I], n, len(keys))
-    # int64 elements: the scratch's first words hold 64-bit OR / AND masks
-    scratch = torch.empty((words + 1) // 2, dtype=torch.int64, device=device)
+    scratch = None
+    if route == "passes":
+        words = _scratch_words("sort_window.cu",
+                               "pinot_radix_sort_scratch_words", [_LL, _I], n,
+                               len(keys))
+        # int64 elements: the scratch's first words hold 64-bit OR / AND
+        # masks
+        scratch = torch.empty((words + 1) // 2, dtype=torch.int64,
+                              device=device)
     _launch(counter, device, _ptrs(keys), _ints([_ELEM[k.dtype] for k in keys]),
             len(keys), _ptrs(payloads), len(payloads), n, valid,
             _ptrs(key_outs), _ptrs(pay_outs), perm.data_ptr(),
-            scratch.data_ptr())
+            None if scratch is None else scratch.data_ptr(),
+            SORT_ROUTES.index(route))
+    _count_node(counter, route)
     return perm, key_outs, pay_outs
 
 

@@ -20,6 +20,7 @@ version on the card, k = 65,536 included, and skip where there is none.
 from __future__ import annotations
 
 import ctypes
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -243,6 +244,276 @@ def test_kernel_terms_match_plain_key_words(lanes, kind, key, asc):
 
 
 # ---------------------------------------------------------------------------
+# A numpy model of K6's select route against the JAX _selection_outputs
+# ---------------------------------------------------------------------------
+
+#: masked_select.cu's select route: rows a thread and a tile take, and the
+#: (shift, bits) of the threshold's three digit passes
+SEL_ITEMS, SEL_TILE = 16, 4096
+SEL_DIGITS = ((21, 11), (10, 11), (0, 10))
+
+
+def select_model(words, hits, k, seed=0):
+    """K6's select route for one segment as masked_select.cu computes it.
+    words: the one key word a row in unsigned order (uint32 [P], None for
+    "limit"); hits: bool [P]. The threshold by digit passes (the bucket of
+    the k-th row, `below`, the early ends), the count pass's per-tile ties
+    and their exclusive prefix, the write pass (rows below lt_bound in an
+    arbitrary order drawn from `seed`, tied rows at below + their rank by
+    docid: tile prefix, thread prefix, then the thread's own order), and
+    the sort of the candidates by (word, docid). Returns (docids int32
+    [k], the match count, the threshold's path: "limit", "all" matched
+    rows, a "bucket" the k-th row closes, or a "tie" at T)."""
+    P = hits.shape[0]
+    m = int(hits.sum())
+    t_eq = below = 0
+    if words is None:
+        lt_bound, need_eq, path = 0, min(k, m), "limit"
+    elif m <= k:
+        lt_bound, need_eq, below, path = 1 << 32, 0, m, "all"
+    else:
+        want, prefix = k, 0
+        for shift, bits in SEL_DIGITS:
+            inb = hits.copy()
+            if shift + bits < 32:
+                inb &= (words >> np.uint32(shift + bits)) == prefix
+            d = (words[inb] >> np.uint32(shift)) & np.uint32((1 << bits) - 1)
+            h = np.bincount(d.astype(np.int64), minlength=1 << bits)
+            cum = np.cumsum(h)
+            assert cum[-1] >= want
+            b = int(np.searchsorted(cum, want))    # cum[b - 1] < want
+            before = int(cum[b] - h[b])
+            below, want = below + before, want - before
+            bucket = (prefix << bits) | b
+            if h[b] == want:                       # the k-th row closes it
+                lt_bound, need_eq, below = (bucket + 1) << shift, 0, k
+                path = "bucket"
+                break
+            if shift == 0:                         # T: ties at the k-th
+                lt_bound, t_eq, need_eq, path = bucket, bucket, want, "tie"
+                break
+            prefix = bucket
+    w = np.zeros(P, np.uint64) if words is None else words.astype(np.uint64)
+    lt = hits & (w < lt_bound)
+    eq = hits & ~lt & (w == t_eq) if need_eq else np.zeros(P, bool)
+    assert int(lt.sum()) == below
+    # the count pass and the write pass
+    doc = np.arange(P)
+    tiles = -(-P // SEL_TILE)
+    tile_eq = np.bincount(doc[eq] // SEL_TILE, minlength=tiles)
+    tile_pre = np.cumsum(tile_eq) - tile_eq
+    thread = doc // SEL_ITEMS
+    thread_eq = np.bincount(thread[eq], minlength=thread.max() + 1)
+    thread_in_tile = np.cumsum(thread_eq) - thread_eq
+    first_thread = (np.arange(thread.max() + 1) * SEL_ITEMS // SEL_TILE) * \
+        (SEL_TILE // SEL_ITEMS)
+    thread_pre = thread_in_tile - thread_in_tile[first_thread]
+    own = np.cumsum(eq) - eq - np.concatenate([[0], np.cumsum(eq)])[
+        thread * SEL_ITEMS]                        # earlier rows of a thread
+    rank = tile_pre[doc // SEL_TILE] + thread_pre[thread] + own
+    c = min(k, m)
+    cand_w = np.full(c, -1, np.int64)
+    cand_d = np.full(c, -1, np.int64)
+    lt_rows = np.random.default_rng(seed).permutation(doc[lt])
+    cand_w[:below], cand_d[:below] = w[lt_rows], lt_rows
+    take = eq & (rank < need_eq)
+    cand_w[below + rank[take]], cand_d[below + rank[take]] = w[take], doc[take]
+    assert (cand_d >= 0).all()
+    if words is not None:                          # the sort launch
+        order = np.lexsort((cand_d, cand_w))
+        cand_d = cand_d[order]
+    docids = np.full(k, -1, np.int32)
+    docids[:c] = cand_d
+    return docids, m, path
+
+
+def _words_u32(word: torch.Tensor) -> np.ndarray:
+    return word.numpy().view(np.uint32) ^ np.uint32(1 << 31)
+
+
+def _jax_select(spec, cols, mask, params=None):
+    out = jk._selection_outputs(
+        spec, {n: jnp.asarray(v) for n, v in cols.items()}, jnp.asarray(mask),
+        None if params is None else [jnp.asarray(p) for p in params])
+    return np.asarray(out["sel.docids"]), int(out.get(
+        "sel.count", np.asarray(mask).sum()))
+
+
+SEL_P = 5 * SEL_TILE + 123
+SEL_BIG_P = (1 << 16) + 3 * SEL_TILE + 5
+
+
+def _select_case(name):
+    """(spec, cols, masks, k values, P) of one model case: the key lanes
+    made from a seed, the masks that decide the threshold's path."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    big = name.startswith("k=65536")
+    P = SEL_BIG_P if big else SEL_P
+    everyone = np.ones(P, bool)
+    half = rng.random(P) < 0.5
+    few = np.zeros(P, bool)
+    few[rng.choice(P, 40, replace=False)] = True
+    none = np.zeros(P, bool)
+    ks = (1, 16, 2048)
+    if name == "order, every row tied":
+        cols = {"a.ids": np.full(P, 3, np.int16)}
+        spec = ("order", 0, (("a", True, 9, "sv"),), ())
+        masks = (everyone, half)
+    elif name == "order, ties straddle the k-th row":
+        cols = {"a.ids": rng.integers(0, 4, P).astype(np.int8),
+                "b.ids": rng.integers(0, 3, P).astype(np.int8)}
+        spec = ("order", 0, (("a", False, 5, "sv"), ("b", True, 3, "sv")),
+                ())
+        masks = (everyone, half, few)
+        ks = (1, 16, 2048, 5000)
+    elif name in ("ordertk, NaN and +-0.0", "ordertk desc, NaN and +-0.0"):
+        nan_neg = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+        pool = np.array([0.0, -0.0, np.nan, nan_neg, np.inf, -np.inf, 1.5,
+                         -1.5, 1e-30], np.float32)
+        lane = rng.choice(pool, P).astype(np.float32)
+        normal = rng.random(P) < 0.5
+        lane[normal] = rng.standard_normal(int(normal.sum()))
+        cols = {"f.raw": lane}
+        spec = ("ordertk", 0, (("f", "desc" not in name, 0, "raw"),), ())
+        masks = (everyone, half, few)
+    elif name in ("ordertk, clamped at INT32_MAX - 1",
+                  "ordertk desc, clamped at INT32_MAX - 1"):
+        pool = np.array([I32_MAX, I32_MAX - 1, I32_MAX - 2, I32_MIN,
+                         I32_MIN + 1, 0], np.int32)
+        cols = {"r.raw": rng.choice(pool, P).astype(np.int32)}
+        spec = ("ordertk", 0, (("r", "desc" not in name, 0, "raw"),), ())
+        masks = (everyone, half, few)
+    elif name == "ordertk, matches < k, no match":
+        cols = {"r.raw": rng.integers(-2**31, 2**31 - 1, P).astype(np.int32)}
+        spec = ("ordertk", 0, (("r", True, 0, "raw"),), ())
+        masks = (few, none)
+        ks = (1, 2048)
+    elif name == "limit":
+        cols = {}
+        spec = ("limit", 0, (), ())
+        masks = (everyone, half, few, none)
+    elif name == "k=65536 order":
+        cols = {"a.ids": rng.integers(0, 40, P).astype(np.int8)}
+        spec = ("order", 0, (("a", True, 41, "sv"),), ())
+        masks = (everyone, half, few)
+        ks = (1 << 16,)
+    elif name == "k=65536 ordertk":
+        cols = {"f.raw": rng.standard_normal(P).astype(np.float32)}
+        spec = ("ordertk", 0, (("f", False, 0, "raw"),), ())
+        masks = (everyone, half)
+        ks = (1 << 16,)
+    elif name == "k=65536 limit":
+        cols, spec = {}, ("limit", 0, (), ())
+        masks = (everyone, half, few)
+        ks = (1 << 16,)
+    else:
+        raise KeyError(name)
+    return spec, cols, masks, ks
+
+
+SELECT_MODEL_CASES = (
+    "order, every row tied", "order, ties straddle the k-th row",
+    "ordertk, NaN and +-0.0", "ordertk desc, NaN and +-0.0",
+    "ordertk, clamped at INT32_MAX - 1",
+    "ordertk desc, clamped at INT32_MAX - 1",
+    "ordertk, matches < k, no match", "limit", "k=65536 order",
+    "k=65536 ordertk", "k=65536 limit")
+
+
+@pytest.mark.parametrize("name", SELECT_MODEL_CASES)
+def test_select_model_equals_jax(name):
+    """The select route's threshold, tie compaction and candidate sort
+    give the JAX _selection_outputs' docids and count, for "order",
+    "ordertk" and "limit" over every mask and k of the case."""
+    spec, cols, masks, ks = _select_case(name)
+    tcols = {n: torch.from_numpy(v) for n, v in cols.items()}
+    paths = set()
+    for mask in masks:
+        for k in ks:
+            sk = (spec[0], k) + spec[2:]
+            words = tk.select_key_words(sk, tcols)
+            assert len(words) <= tk.SELECT_ROUTE_MAX_WORDS
+            got = select_model(_words_u32(words[0]) if words else None,
+                               mask, k, seed=k)
+            want = _jax_select(sk, cols, mask)
+            np.testing.assert_array_equal(got[0], want[0],
+                                          err_msg=f"{name} k={k}")
+            assert got[1] == int(mask.sum())
+            paths.add(got[2])
+    # each case takes the threshold path it is there for
+    want_path = {"order, every row tied": "tie",
+                 "order, ties straddle the k-th row": "tie",
+                 "ordertk, matches < k, no match": "all", "limit": "limit",
+                 "k=65536 limit": "limit"}.get(name)
+    assert want_path is None or want_path in paths, paths
+
+
+def _vec_case(metric, seed):
+    """Vectors of 16 floats: random rows, all +0.0 and all -0.0 rows (DOT
+    scores of +-0.0, COSINE -inf), rows holding a NaN, and duplicated rows
+    (tied scores)."""
+    rng = np.random.default_rng(seed)
+    mat = rng.standard_normal((SEL_P, 16)).astype(np.float32)
+    mat[rng.random(SEL_P) < 0.05] = 0.0
+    mat[rng.random(SEL_P) < 0.05] = -0.0
+    mat[rng.random(SEL_P) < 0.02, 3] = np.nan
+    dup = rng.random(SEL_P) < 0.2
+    mat[dup] = mat[0]
+    q = np.abs(rng.standard_normal(16)).astype(np.float32)
+    q_norm = np.float32(np.sqrt(np.sum(q.astype(np.float64) ** 2)))
+    return mat, q, q_norm
+
+
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+def test_select_model_equals_jax_vector_kind(metric):
+    """The vector kind: K6's word is ~monotone(score) clamped, over the
+    JAX scores; the model's top k equals the JAX vector branch's, with
+    +-0.0, -inf, NaN and tied scores."""
+    mat, q, q_norm = _vec_case(metric, seed=len(metric))
+    scores = np.array(jk._vector_scores(jnp.asarray(mat), jnp.asarray(q),
+                                          jnp.asarray(q_norm), metric))
+    spec_words = tk._score_spec(16, ())
+    rng = np.random.default_rng(5)
+    for mask in (np.ones(SEL_P, bool), rng.random(SEL_P) < 0.3,
+                 np.zeros(SEL_P, bool)):
+        for k in (1, 16, 2048):
+            words = tk.select_key_words(
+                (spec_words[0], k) + spec_words[2:],
+                {"$score.raw": torch.from_numpy(scores)})
+            got = select_model(_words_u32(words[0]), mask, k, seed=k)
+            want, _n = _jax_select(("vector", k, (("emb", metric, 16),), ()),
+                                   {"emb.vec": mat}, mask, [q, q_norm])
+            np.testing.assert_array_equal(got[0], want, err_msg=f"k={k}")
+
+
+def test_select_model_stacked_segments_with_different_counts():
+    """Three segments back to back with 0, 40 and ~10,000 matches: the
+    model per segment equals the JAX function per segment and the port's
+    stacked plain version (tied dictId keys, k = 16 and 2048)."""
+    rng = np.random.default_rng(9)
+    S = 3
+    ids = rng.integers(0, 6, S * SEL_P).astype(np.int8)
+    mask = np.zeros(S * SEL_P, bool)
+    mask[SEL_P + rng.choice(SEL_P, 40, replace=False)] = True
+    mask[2 * SEL_P:] = rng.random(SEL_P) < 0.5
+    for k in (16, 2048):
+        spec = ("order", k, (("a", False, 7, "sv"),), ())
+        stacked = tk.selection_outputs_plain(
+            spec, {"a.ids": torch.from_numpy(ids)},
+            torch.from_numpy(mask.astype(np.uint8)), n_segs=S)
+        for s in range(S):
+            seg = slice(s * SEL_P, (s + 1) * SEL_P)
+            words = tk.select_key_words(spec, {"a.ids": torch.from_numpy(
+                np.ascontiguousarray(ids[seg]))})
+            got = select_model(_words_u32(words[0]), mask[seg], k, seed=s)
+            want = _jax_select(spec, {"a.ids": ids[seg]}, mask[seg])
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(
+                got[0], stacked["sel.docids"][s].numpy())
+            assert got[1] == int(stacked["sel.count"][s])
+
+
+# ---------------------------------------------------------------------------
 # Through QueryEngine: the port on the CPU against the JAX engine
 # ---------------------------------------------------------------------------
 
@@ -444,9 +715,11 @@ def test_masked_select_cuda_edge_values(cuda_device, kind, key):
 
 @pytest.mark.cuda
 def test_select_scratch_covers_every_pass(cuda_device):
-    # the merge passes of an odd list count write more entries than the
-    # tile pass: the scratch K6 asks for holds two sets of the largest;
-    # a tile's entries fit 64 KB of shared memory
+    # the tile route: the merge passes of an odd list count write more
+    # entries than the tile pass, so the scratch K6 asks for holds two
+    # sets of the largest; a tile's entries fit 64 KB of shared memory.
+    # The select route: each segment's state and 2,048-bin histogram, a
+    # tie count a 4,096-row tile, and k candidates' words and docids.
     from pinot_tpu_torch.ops import build
     lib = build.load("masked_select.cu")
     lib.pinot_masked_select_tile_rows.restype = ctypes.c_int
@@ -462,8 +735,16 @@ def test_select_scratch_covers_every_pass(cuda_device):
             while n > 1:
                 length, n = min(k, 2 * length), (n + 1) // 2
                 passes.append(n * length)
-            assert tk.select_scratch_words(padded, k, n_words) == \
+            assert tk.select_scratch_words(padded, k, n_words,
+                                           route="tile") == \
                 2 * (n_words + 1) * max(passes)
+            for segs in (1, 3):
+                assert tk.select_scratch_words(padded, k, n_words, segs,
+                                               route="select") == \
+                    segs * (16 + 2048 + -(-padded // 4096) + 2 * k)
+            assert tk.select_scratch_words(padded, k, n_words) == \
+                tk.select_scratch_words(padded, k, n_words,
+                                        route=tk.select_route(n_words))
 
 
 @pytest.mark.cuda
@@ -486,3 +767,148 @@ def test_masked_select_cuda_k65536(cuda_device):
                                          ("r", False, 0, "raw")),
                       (("f", "raw"),))):
             _cuda_check(lanes, mask, spec, cuda_device)
+
+
+SELECT_CUDA_REPEATS = 20   # a race between blocks shows only as a wrong row
+
+
+def _cuda_outputs_equal(got, want):
+    return set(got) == set(want) and all(
+        got[n].dtype == w.dtype and torch.equal(
+            got[n].cpu().reshape(-1).view(torch.uint8),
+            w.cpu().reshape(-1).view(torch.uint8)) for n, w in want.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SELECT_MODEL_CASES)
+def test_masked_select_cuda_select_route(cuda_device, name):
+    """The select route on the model's cases (every row tied, ties
+    straddling the k-th row, NaN / +-0.0, the INT32_MAX - 1 clamp,
+    matches < k, no match, k = 1 to 65,536) equal to the plain version
+    in each of 20 repeats, counted under masked_select[select]."""
+    spec, cols, masks, ks = _select_case(name)
+    gather = tuple((n.split(".")[0], "sv" if n.endswith(".ids") else "raw")
+                   for n in cols)
+    tcols = {n: torch.from_numpy(v).to(cuda_device) for n, v in cols.items()}
+    for mask in masks:
+        m = torch.from_numpy(mask.astype(np.uint8)).to(cuda_device)
+        for k in ks:
+            sk = (spec[0], k, spec[2], gather)
+            want = tk.selection_outputs_plain(sk, tcols, m)
+            for _ in range(SELECT_CUDA_REPEATS):
+                tk.reset_launch_counts()
+                got = tk.masked_select(sk, tcols, m)
+                assert tk.launch_counts()["masked_select[select]"] == 1
+                assert _cuda_outputs_equal(got, want), (name, k)
+
+
+@pytest.mark.cuda
+def test_masked_select_cuda_routes_by_word_count(cuda_device, lanes):
+    """One key word or none takes the select route, two or more the
+    tile route, and both equal the plain version."""
+    for kind, key, asc in _case_ids():
+        cols = {k: torch.from_numpy(v).to(cuda_device)
+                for k, v in lanes.items()}
+        spec = (kind, 16, _order(kind, key, asc), GATHER)
+        route = tk.select_route(len(tk.select_key_words(spec, cols)))
+        m = torch.from_numpy(_masks(lanes, "i8.ids")["sparse"].astype(
+            np.uint8)).to(cuda_device)
+        tk.reset_launch_counts()
+        got = tk.masked_select(spec, cols, m)
+        counts = tk.launch_counts()
+        assert counts[f"masked_select[{route}]"] == 1 and \
+            counts["masked_select"] == 1, (kind, key)
+        assert _cuda_outputs_equal(got, tk.selection_outputs_plain(
+            spec, cols, m)), (kind, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["limit", "order", "ordertk", "vector"])
+def test_masked_select_cuda_stacked_and_batched(cuda_device, kind):
+    """Stacked segments with different match counts (0, 40, about half)
+    and batched members (B = 1 to 8, each its own mask; the vector kind
+    with its own scores) equal to the plain stacked / batched versions in
+    each of 20 repeats, on the select route."""
+    rng = np.random.default_rng(len(kind))
+    P, S = SEL_P, 3
+    ids = torch.from_numpy(rng.integers(0, 6, S * P).astype(np.int8)).to(
+        cuda_device)
+    raw = torch.from_numpy(rng.standard_normal(S * P).astype(np.float32)).to(
+        cuda_device)
+    mask = np.zeros(S * P, bool)
+    mask[P + rng.choice(P, 40, replace=False)] = True
+    mask[2 * P:] = rng.random(P) < 0.5
+    smask = torch.from_numpy(mask.astype(np.uint8)).to(cuda_device)
+    order = {"limit": (), "order": (("a", False, 7, "sv"),),
+             "ordertk": (("f", True, 0, "raw"),)}
+    gather = (("a", "sv"), ("f", "raw"))
+    cols = {"a.ids": ids, "f.raw": raw}
+    for k in (16, 2048):
+        if kind == "vector":
+            stacked = lambda: tk.vector_topk(raw, smask, k, cols, gather,
+                                             n_segs=S)    # noqa: E731
+            plain = tk.vector_topk_plain(raw, smask, k, cols, gather, S)
+            counter = "masked_select_vector"
+        else:
+            spec = (kind, k, order[kind], gather)
+            stacked = lambda: tk.masked_select(spec, cols, smask,
+                                               S)         # noqa: E731
+            plain = tk.selection_outputs_plain(spec, cols, smask, S)
+            counter = "masked_select"
+        for _ in range(SELECT_CUDA_REPEATS):
+            tk.reset_launch_counts()
+            assert _cuda_outputs_equal(stacked(), plain), (kind, k)
+            assert tk.launch_counts()[f"{counter}[select]"] == 1
+        one = {n: t[:P] for n, t in cols.items()}
+        for B in range(1, 9):
+            bm = torch.from_numpy((rng.random((B, P)) < (0.5, 0.001, 0.0, 1.0)
+                                   [B % 4]).astype(np.uint8)).to(cuda_device)
+            if kind == "vector":
+                sc = torch.from_numpy(rng.standard_normal((B, P)).astype(
+                    np.float32)).to(cuda_device)
+                batched = lambda: tk.vector_topk_batched(
+                    sc, bm, k, one, gather)               # noqa: E731
+                plain = tk.vector_topk_batched_plain(sc, bm, k, one, gather)
+            else:
+                spec = (kind, k, order[kind], gather)
+                batched = lambda: tk.masked_select_batched(
+                    spec, one, bm)                        # noqa: E731
+                plain = tk.selection_outputs_batched_plain(spec, one, bm)
+            for _ in range(SELECT_CUDA_REPEATS):
+                tk.reset_launch_counts()
+                assert _cuda_outputs_equal(batched(), plain), (kind, k, B)
+                assert tk.launch_counts()[f"{counter}_batched[select]"] == 1
+
+
+@pytest.mark.cuda
+def test_masked_select_cuda_no_host_sync(cuda_device, lanes):
+    """K6 on both routes, single, stacked and batched, waits for nothing
+    under torch.cuda.set_sync_debug_mode("error")."""
+    cols = {k: torch.from_numpy(v).to(cuda_device) for k, v in lanes.items()}
+    m = torch.from_numpy(_masks(lanes, "i8.ids")["ties"].astype(
+        np.uint8)).to(cuda_device)
+    flat = {k: torch.cat([v, v]) for k, v in cols.items()}
+    bm = torch.stack([m, m.flip(0)])
+    scores = cols["rf32.raw"]
+    specs = [("order", 16, _order("order", ("i8",), False), GATHER),
+             ("limit", 2048, (), GATHER),
+             ("ordermk", 16, _order("ordermk", ("i8", "rf64"), True),
+              GATHER)]
+    calls = []
+    for spec in specs:
+        calls += [lambda spec=spec: tk.masked_select(spec, cols, m),
+                  lambda spec=spec: tk.masked_select(spec, flat, m.repeat(2),
+                                                     2),
+                  lambda spec=spec: tk.masked_select_batched(spec, cols, bm)]
+    calls += [lambda: tk.vector_topk(scores, m, 16),
+              lambda: tk.vector_topk_batched(scores.repeat(2).reshape(2, P),
+                                             bm, 16)]
+    for call in calls:
+        want = call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert _cuda_outputs_equal(got, want)

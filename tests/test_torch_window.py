@@ -20,10 +20,16 @@
    mixed frames, the row cap); execute_window_stage over blocks
    published in two ExchangeManagers.
 
-`cuda` tests hold K12 and K13 to their plain versions on the card (K13
-at 1 to 2^22 + 3 rows, four partition patterns, 0 / 1 / 8 / 9 lanes, 20
-repeats a case) and the card's window stage to the CPU's; they skip
-where there is no card.
+K12's cluster route as a numpy model (cluster_sort.cuh's per-CTA counts,
+digit-major / CTA-minor offsets and warp-by-warp stable ranks) against
+np.lexsort and the JAX window kernel's permutation: 1 to 65,536 rows,
+int32 and int64, 1-8 key lanes, all-equal keys, valid_rows < n.
+
+`cuda` tests hold K12 on both routes (1 to 65,537 rows, 0 / 1 / 8
+payloads, 20 repeats a case, the route counters, no host wait) and K13
+(1 to 2^22 + 3 rows, four partition patterns, 0 / 1 / 8 / 9 lanes, 20
+repeats a case) to their plain versions on the card, and the card's
+window stage to the CPU's; they skip where there is no card.
 """
 from __future__ import annotations
 
@@ -147,6 +153,221 @@ def test_radix_sort_plain_is_a_stable_lexsort(dtype, valid):
     np.testing.assert_array_equal(s1.numpy(), k1[want])
     np.testing.assert_array_equal(sp.numpy(), pay[want])
     assert perm.dtype == torch.int32
+
+
+#: cluster_sort.cuh: threads of a CTA (32 warps), rows a lane holds in a
+#: pass, CTAs of a cluster
+SORT_THREADS, SORT_ITEMS, SORT_MAX_CTAS = 1024, 8, 8
+SORT_WARPS = SORT_THREADS // 32
+
+
+def _sort_ctas(n):
+    c = 1
+    while c < SORT_MAX_CTAS and c * SORT_THREADS < n:
+        c <<= 1
+    return c
+
+
+def _flipped_bits(lane):
+    """A key lane's bits with the sign flipped, as uint64 (unsigned order
+    equals the signed order)."""
+    if lane.dtype == np.int64:
+        return lane.view(np.uint64) ^ np.uint64(1 << 63)
+    return (lane.view(np.uint32) ^ np.uint32(1 << 31)).astype(np.uint64)
+
+
+def _cluster_pass(perm, digit, chunk, warp_rows):
+    """One pass of cluster_sort.cuh as the kernel computes it: each
+    position's (CTA, warp, step, lane), per-warp counts turned into offsets
+    within the CTA, per-CTA counts summed over the cluster digit-major and
+    CTA-minor, a warp's running count over its steps and a lane's peers in
+    lower lanes (__match_any_sync). Returns the permutation after the
+    pass."""
+    n = perm.shape[0]
+    n_ctas = -(-n // chunk)
+    pos = np.arange(n)
+    cta = pos // chunk
+    warp = (pos - cta * chunk) // warp_rows
+    gwarp = cta * SORT_WARPS + warp                 # a warp of the cluster
+    group = pos // 32                               # one step of one warp
+    assert (((pos - cta * chunk) % warp_rows) // 32 < SORT_ITEMS).all()
+    d = digit[perm].astype(np.int64)
+    # per-warp counts -> offsets inside the CTA, per-CTA counts
+    wc = np.zeros((n_ctas * SORT_WARPS, 256), np.int64)
+    np.add.at(wc, (gwarp, d), 1)
+    wc = wc.reshape(n_ctas, SORT_WARPS, 256)
+    warp_off = np.cumsum(wc, axis=1) - wc
+    cta_count = wc.sum(axis=1)                      # [n_ctas, 256]
+    total = cta_count.sum(axis=0)
+    before = np.cumsum(cta_count, axis=0) - cta_count
+    base = (np.cumsum(total) - total)[None, :] + before
+    # a warp's running count of each digit over its earlier steps
+    steps = np.zeros((group.max() + 1, 256), np.int64)
+    np.add.at(steps, (group, d), 1)
+    run = np.cumsum(steps, axis=0) - steps          # over every earlier step
+    warp_start = (cta * chunk + warp * warp_rows) // 32   # the warp's 1st
+    running = run[group, d] - run[warp_start, d]
+    # peers in lower lanes of the same step
+    pad = np.full(((n + 31) // 32) * 32, -1, np.int64)
+    pad[:n] = d
+    g = pad.reshape(-1, 32)
+    eq = (g[:, :, None] == g[:, None, :]) & \
+        np.tril(np.ones((32, 32), bool), -1)[None, :, :]
+    lower = eq.sum(axis=2).reshape(-1)[:n]
+    dest = base[cta, d] + warp_off[cta, warp, d] + running + lower
+    assert np.array_equal(np.sort(dest), pos), "not a permutation"
+    out = np.empty_like(perm)
+    out[dest] = perm
+    return out
+
+
+def _runs(v):
+    """The runs of consecutive set bits of v, lowest first: (shift, len)."""
+    out, t = [], 0
+    while v:
+        while not (v >> t) & 1:
+            t += 1
+        n = 0
+        while (v >> (t + n)) & 1:
+            n += 1
+        out.append((t, n))
+        v &= ~(((1 << n) - 1) << t)
+        t += n
+    return out
+
+
+def cluster_sort_model(lanes, valid_rows=None):
+    """numpy model of K12's cluster route (cluster_sort.cuh): the bits
+    that vary over the cluster (each CTA's OR / AND, combined); where
+    they and the valid bit above them number at most 64, each row's
+    varying bits packed into a 64-bit key (the last lane's lowest, runs of
+    consecutive bits kept together) and one _cluster_pass per 8 bits of
+    it; else one pass per varying byte, the least significant of the last
+    lane first, then the one-bit valid pass. Returns (perm, passes run,
+    packed, the byte passes it would take unpacked)."""
+    n = lanes[0].shape[0]
+    assert n <= SORT_MAX_CTAS * SORT_THREADS * SORT_ITEMS
+    n_ctas = _sort_ctas(n)
+    chunk = (-(-n // n_ctas) + 31) & ~31
+    warp_rows = (-(-chunk // SORT_WARPS) + 31) & ~31
+    assert warp_rows <= 32 * SORT_ITEMS
+    bits = [_flipped_bits(lane) for lane in lanes]
+    valid = valid_rows is not None and valid_rows < n
+    iota = np.arange(n)
+    cut = valid_rows if valid else n
+
+    def or_and(b, rows):
+        o, a = np.uint64(0), ~np.uint64(0)
+        for c in range(n_ctas):                      # each CTA's words
+            part = b[c * chunk:(c + 1) * chunk][rows[c * chunk:(c + 1) *
+                                                     chunk]]
+            if part.size:
+                o |= np.bitwise_or.reduce(part)
+                a &= np.bitwise_and.reduce(part)
+        return int(o), int(a)
+
+    groups = [[or_and(b, iota < cut), or_and(b, iota >= cut)] for b in bits]
+    # split: the rows past valid_rows share one key, so only the valid
+    # rows' bits are packed
+    split = valid and all(g[1][0] == g[1][1] for g in groups)
+    runs, byte_passes, pos = [], [], 0
+    for lane in reversed(range(len(lanes))):
+        (vo, va), (io, ia) = groups[lane]
+        every = (vo | io) & ~(va & ia)
+        varies = vo & ~va if split else every
+        width = 64 if lanes[lane].dtype == np.int64 else 32
+        byte_passes += [(lane, sh) for sh in range(0, width, 8)
+                        if (every >> sh) & 0xFF]
+        for shift, length in _runs(varies):
+            runs.append((lane, shift, length, pos))
+            pos += length
+    if valid:
+        byte_passes.append((-1, 0))
+        valid_bit, pos = pos, pos + 1
+    packed = pos <= 64
+    perm = np.arange(n, dtype=np.int64)
+    if packed:
+        key = np.zeros(n, np.uint64)
+        for lane, shift, length, at in runs:
+            mask = np.uint64((1 << length) - 1)
+            key |= ((bits[lane] >> np.uint64(shift)) & mask) << np.uint64(at)
+        if split:
+            key[cut:] = 0
+        if valid:
+            key |= (iota >= valid_rows).astype(np.uint64) << np.uint64(
+                valid_bit)
+        passes = -(-pos // 8)
+        for j in range(passes):
+            digit = (key >> np.uint64(8 * j)) & np.uint64(0xFF)
+            perm = _cluster_pass(perm, digit, chunk, warp_rows)
+        return perm, passes, packed, len(byte_passes)
+    for lane, shift in byte_passes:
+        digit = (iota >= valid_rows).astype(np.uint64) if lane < 0 else \
+            (bits[lane] >> np.uint64(shift)) & np.uint64(0xFF)
+        perm = _cluster_pass(perm, digit, chunk, warp_rows)
+    return perm, len(byte_passes), packed, len(byte_passes)
+
+
+def _sort_lanes(n, dtype, n_lanes, seed, equal=False):
+    """n_lanes key lanes: the last (least significant) over a wide range,
+    the others over narrow ones (ties), negatives included."""
+    rng = np.random.default_rng(seed)
+    wide = 2 ** 40 if dtype == np.int64 else 2 ** 30
+    lanes = []
+    for j in range(n_lanes):
+        if equal:
+            lanes.append(np.full(n, -7, dtype))
+            continue
+        r = wide if j == n_lanes - 1 else (3, 100, 70000)[j % 3]
+        lanes.append(rng.integers(-r, r, n).astype(dtype))
+    return lanes
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [1, 4095, 8192, 8193, 19584, 32768, 65536])
+def test_cluster_sort_model_is_a_stable_lexsort(n, dtype):
+    """K12's cluster pass (per-CTA counts, digit-major / CTA-minor
+    offsets, a warp-by-warp stable rank) gives np.lexsort's permutation:
+    1, 2 and 8 key lanes, all-equal keys, valid_rows < n."""
+    for n_lanes, equal, valid in ((1, False, None), (2, False, n - n // 3),
+                                  (8, False, None), (3, True, n // 2)):
+        lanes = _sort_lanes(n, dtype, n_lanes, seed=n + n_lanes, equal=equal)
+        perm, passes, packed, _bytes = cluster_sort_model(lanes, valid)
+        keys = [np.arange(n)] + lanes[::-1]
+        if valid is not None:
+            keys.append(np.arange(n) >= valid)
+        np.testing.assert_array_equal(perm, np.lexsort(tuple(keys)))
+        if equal:          # no bit varies: only the valid bit's pass runs
+            assert packed and passes == (valid is not None and valid < n)
+        if valid is not None and valid < n:   # padding rows of one key
+            lanes = [np.concatenate([x[:valid], np.full(n - valid, x[0])])
+                     for x in lanes]
+            perm, _p, _k, _b = cluster_sort_model(lanes, valid)
+            keys = [np.arange(n)] + lanes[::-1] + [np.arange(n) >= valid]
+            np.testing.assert_array_equal(perm, np.lexsort(tuple(keys)))
+        if n_lanes == 8 and n > 1:    # 8 lanes of varying bytes: unpacked
+            assert not packed
+        got = tk.radix_sort_plain([torch.from_numpy(x) for x in lanes], [],
+                                  valid)[0]
+        np.testing.assert_array_equal(got.numpy(), perm)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 8193, 19584, 65536])
+def test_cluster_sort_model_equals_the_jax_window_sort(n):
+    """The model over the window's lanes (partition codes, an ASC and a
+    DESC ~code order key, rows past num_rows) is the JAX window kernel's
+    win.perm."""
+    num_rows = max(1, n - n // 5)
+    part, orders, sums = _window_lanes(n, num_rows, 2, 1, seed=n)
+    perm, passes, packed, byte_passes = cluster_sort_model(
+        [part] + orders, num_rows)
+    want = _jax_window(part, orders, sums, num_rows)["win.perm"]
+    np.testing.assert_array_equal(perm, want)
+    # the padding rows share one key: 13 partition codes (4 bits), an ASC
+    # code and a DESC ~code of 8 values (3 bits each) and the valid bit,
+    # 11 bits in 2 passes, where whole bytes (the ~code lane against the
+    # padding's 0 varies in all 4) take 7
+    assert packed and (n < 5 or (passes, byte_passes) == (2, 7))
 
 
 SCAN_TILE = 2048          # sort_window.cu: rows of one K13 tile
@@ -409,6 +630,7 @@ def test_window_kernel_cuda_matches_plain(cuda_device, n_pad, num_rows,
     got = _port_window(part, orders, sums, num_rows, cuda_device)
     counts = tk.launch_counts()
     assert counts["radix_sort"] == 1 and counts["window_scan"] == 1
+    assert counts["radix_sort[cluster]"] == 1
     _assert_bits(got, _port_window(part, orders, sums, num_rows))
 
 
@@ -438,6 +660,90 @@ def test_radix_sort_cuda_matches_plain(cuda_device, dtype):
             outs[str(dev)] = [perm.cpu()] + [t.cpu() for t in sk + sp]
         for a, b in zip(outs["cpu"], outs[str(cuda_device)]):
             assert torch.equal(a, b)
+
+
+SORT_CUDA_REPEATS = 20    # a race between CTAs shows only as a wrong row
+
+
+def _route_lanes(n, dtype, seed):
+    """Two key lanes whose high bytes never vary (a narrow lane of codes
+    and one below 2^20, negatives included) and 8 payload lanes."""
+    rng = np.random.default_rng(seed)
+    keys = [rng.integers(0, 13, n).astype(dtype),
+            rng.integers(-2 ** 20, 2 ** 20, n).astype(dtype)]
+    pay = [rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)
+           for _ in range(8)]
+    return keys, pay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [1, 2, 4096, 8193, 65535, 65536, 65537])
+def test_radix_sort_cuda_routes_match_plain(cuda_device, n, dtype):
+    """K12 on both routes ("cluster" up to 65,536 rows, "passes" at any
+    n) equal to its plain version: 0, 1 and 8 payloads, valid_rows < n
+    (the rows past it of any keys, and all zeros), keys whose high bytes
+    never vary; every case 20 times, and the route counters name the
+    route that ran."""
+    base_keys, pay = _route_lanes(n, dtype, seed=n)
+    tpay = [torch.from_numpy(p).to(cuda_device) for p in pay]
+    routes = ("cluster", "passes") if n <= tk.SORT_CLUSTER_ROWS else \
+        ("passes",)
+    for n_pay, valid, pad in ((0, None, False), (1, n - n // 3, False),
+                              (8, n // 2, False), (2, n - n // 3, True)):
+        # pad: the rows past valid_rows zeros, as the window pads them
+        keys = [np.where(np.arange(n) < valid, k, 0).astype(dtype)
+                for k in base_keys] if pad else base_keys
+        tkeys = [torch.from_numpy(k).to(cuda_device) for k in keys]
+        want = tk.radix_sort_plain([torch.from_numpy(k) for k in keys],
+                                   [torch.from_numpy(p)
+                                    for p in pay[:n_pay]], valid)
+        want = [want[0]] + want[1] + want[2]
+        for route in routes:
+            for _ in range(SORT_CUDA_REPEATS):
+                tk.reset_launch_counts()
+                perm, sk, sp = tk.radix_sort(tkeys, tpay[:n_pay], valid,
+                                             route=route)
+                counts = tk.launch_counts()
+                assert counts["radix_sort"] == 1
+                assert counts[f"radix_sort[{route}]"] == 1
+                for g, w in zip([perm] + sk + sp, want):
+                    assert torch.equal(g.cpu(), w), (route, n_pay, valid)
+    tkeys = [torch.from_numpy(k).to(cuda_device) for k in base_keys]
+    with pytest.raises(ValueError):
+        tk.radix_sort(tkeys, route="cluster") if n > tk.SORT_CLUSTER_ROWS \
+            else tk.radix_sort(tkeys, route="bitonic")
+
+
+@pytest.mark.cuda
+def test_radix_sort_cuda_cluster_limit_and_no_host_sync(cuda_device):
+    """The cluster route's row limit is the C source's, and the window,
+    join and rank-sort calls of K12 wait for nothing under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import ctypes
+    from pinot_tpu_torch.ops import build
+    fn = build.load("sort_window.cu").pinot_radix_sort_cluster_rows
+    fn.restype = ctypes.c_longlong
+    assert fn() == tk.SORT_CLUSTER_ROWS
+    part, orders, sums = _window_lanes(65536, 49183, 2, 2, seed=3)
+    t = [torch.from_numpy(a).to(cuda_device) for a in [part] + orders + sums]
+    calls = {
+        "radix_sort": lambda: tk.radix_sort(t[:3], t[3:], 49183),
+        "radix_sort_join": lambda: tk.radix_sort(
+            t[1:2], t[3:4], counter="radix_sort_join"),
+        "radix_sort_rank": lambda: tk.radix_sort(
+            t[:2], counter="radix_sort_rank")}
+    for name, call in calls.items():
+        want = call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for g, w in zip([got[0]] + got[1] + got[2],
+                        [want[0]] + want[1] + want[2]):
+            assert torch.equal(g, w), name
 
 
 @pytest.mark.cuda

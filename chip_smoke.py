@@ -21,7 +21,7 @@ fetching a peer's stage-1 block over TCP.
                           [--vec-rows 10000000] [--vec-segments 4]
                           [--vec-dim 128] [--vec-queries 5]
                           [--batch-repeats 3]
-                          [--rt-rows 5000000] [--rt-sealed 1]
+                          [--rt-rows 600000] [--rt-sealed 1]
                           [--rt-repeats 1]
                           [--join-rows 60000000] [--join-segments 8]
                           [--join-dim-rows 800000]
@@ -152,7 +152,9 @@ non-zero exit and no result line:
    a segment trained on the card (launch counts from 0: K10 and K11 must
    launch), loaded with from_dirs and its lanes put on the card; build,
    draw, train and load seconds, device and disk bytes.
-14. vector_kernel_check: K8 (both metrics), K6's vector kind, K9, K1's
+14. vector_kernel_check: K8 (both metrics, one query: the batched
+   kernel's one-slot form, VEC_KERNEL_REPEATS launches each; timed beside
+   torch.mv), K6's vector kind, K9, K1's
    ivf_probe node, K10 and K11 against their plain versions on segment
    0's lanes (K11 also with every row on one centroid; K6 at k = 16 and
    65,536, SORT_SELECT_REPEATS launches each on the select route, and
@@ -227,10 +229,12 @@ non-zero exit and no result line:
 18. realtime: the upsert table baseballStats_REALTIME (the quickstart
    schema, rows from tools/baseball.make_columns, upsert FULL on
    (playerName, yearID, teamID, league): 957,120 keys), ingested as the
-   LLC consumer does in fetch batches of 50,000 rows (index_rows, then
-   apply_batch); each segment seals at --rt-rows (Apache Pinot's default
-   flush threshold, 5,000,000): convert, seal, load on the card,
-   attach_or_fold. --rt-sealed segments seal (1 by default, a depth
+   LLC consumer does in fetch batches of 50,000 rows (a twentieth of
+   --rt-rows where that is fewer: 30,000 by default; index_rows, then
+   apply_batch); each segment seals at --rt-rows (600,000 by default,
+   a depth cut named in the timing and realtime_summary lines; Apache
+   Pinot's default flush threshold is 5,000,000): convert, seal, load on
+   the card, attach_or_fold. --rt-sealed segments seal (1 by default, a depth
    cut named in the timing line that keeps the run inside its limit; 2
    is the configuration's); the consuming one is
    checked after each of its last three freeze points (rebuild and lane
@@ -263,10 +267,10 @@ non-zero exit and no result line:
    source, attached) per segment, stacked (ShardedQueryExecutor) and, for
    J0, J2.1 and J2.3, on the raw-key segments per segment and stacked;
    every answer equal to join_oracle and to the host twin; K1 with its
-   join_raw node, K3 with jcode and jraw keys, K2 and K12
-   (radix_sort_join) must have launched, and the raw-key stacked path
-   must have launched the join_raw node and, grouped by a dim column,
-   the jraw key.
+   join_raw node on the bitmap route, K3 with jcode and jraw keys, K2 and
+   K12 (radix_sort_join) must have launched, and the raw-key stacked
+   path must have launched the join_raw node (J2.1's on the bitmap
+   route) and, grouped by a dim column, the jraw key.
    Then --repeats timed runs: stage 1 and stage 2 p50 per query and path.
 21. window: W1 (PARTITION BY d_year ORDER BY lo_revenue DESC, ROW_NUMBER
    and SUM(lo_quantity)) and W2 (ORDER BY d_year, lo_revenue, no
@@ -278,7 +282,13 @@ non-zero exit and no result line:
    the rank / telescoping invariants of scripts/join_smoke.py:178-193;
    p50 of --repeats, stage 1 and stage 2 apart.
 22. join_kernel_check: K1's member leaf (segment 0, J2.1's dim side) and
-   join_raw leaf (the first raw-key segment), K3's jcode and jraw keys (the
+   join_raw leaf (the first raw-key segment) on both routes,
+   JOIN_K1_REPEATS launches each bit-checked against the plain version's
+   searchsorted and asserted on its route: the bitmap over J2.1's dim
+   keys (with the bitmap's build time, and its coarse level's shift), the
+   probe over the same keys and lane scaled by 2^26 into
+   int64 (past JOIN_BITMAP_MAX_SPAN; the same mask), each timed beside
+   torch.isin and torch.searchsorted; K3's jcode and jraw keys (the
    same), K12 as the join build (J2.1's dim keys with their codes) and on
    W1's 65,536-row lanes, K13 on W1's sorted lanes and on 2^24 rows as
    one partition and as singletons (WINDOW_SCAN_REPEATS launches a case,
@@ -287,8 +297,10 @@ non-zero exit and no result line:
    under the sync debug mode), each against its plain version on the card
    (masks,
    tables, permutations, row numbers and sums bit-equal), timed with the
-   L2 flushed beside its bound and the nearest PyTorch call (a gather,
-   torch.searchsorted, stable torch.sort, torch.cumsum; for K13 also a
+   L2 flushed beside its bound and the nearest PyTorch call (for K1's
+   member leaf a gather; for K3's jcode and jraw keys none computes the
+   function, so their key terms alone, a gather and torch.searchsorted,
+   as key_term_ms; stable torch.sort, torch.cumsum; for K13 also a
    copy of the same lanes).
 23. timing: wall seconds per phase and per part of phase 9 (first runs
    on the card, first runs on the host twin, oracle checks, timed
@@ -337,9 +349,11 @@ Phases 10-12 run right after the phase they build on (10 and 11 after
 before 6; 24 and 25 after 17 on the SSB table; 19-22, 26 and 27 after
 17; 18 last.
 Before them, the routes line: K12's cluster-route launches on the window,
-the join's dim side and K16's sort route, and K6's select-route launches
-on every path, each of which must be above 0; the kernels line gives
-each K12 and K6 entry's launches by route (route_launches).
+the join's dim side and K16's sort route, K6's select-route launches
+and K1's join_raw bitmap-route launches on every path, each of which
+must be above 0 (and K1's probe-route launches, which the join tables'
+keys never need); the kernels line gives each K12, K6 and K1 entry's
+launches by route (route_launches).
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -347,7 +361,8 @@ stacked, and the batches; the stacked paths' launches, the stacked
 launch's time, S per-segment launches' time and the stacked bound beside
 them; for a batched kernel, its time at 8 members beside 8 single
 launches; filter_mask[vdoc] and filter_mask_batched[vdoc], K1's launches
-with the vdoc node on the realtime path; filter_mask[join_raw],
+with the vdoc node on the realtime path; filter_mask[bitmap] and
+filter_mask[probe], K1's join_raw leaf by route, and
 dense_group_aggregate[jcode] and [jraw], the join phase's launches with
 those nodes; radix_sort_join, radix_sort and window_scan; block_compact,
 slot_tables, rank_slots, radix_sort_rank, dense_group_aggregate[idoff]
@@ -381,8 +396,10 @@ CSUMS_RTOL = 1e-9               # f64 atomics add in a run-dependent order
 ROWS_PER_SF = 6_000_000
 WINDOW_SCAN_REPEATS = 10        # K13 launches a case, each bit-checked
 SORT_SELECT_REPEATS = 10        # K12 / K6 launches a case, each bit-checked
-#: the launch-count keys of K12's and K6's routes
-ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]")
+JOIN_K1_REPEATS = 10            # K1 join_raw launches a route, each checked
+#: the launch-count keys of K12's, K6's and K1's join_raw routes
+ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]", "[bitmap]",
+               "[probe]")
 
 
 #: the kernels of the SSB and baseballStats paths (K1-K7)
@@ -2164,12 +2181,17 @@ def vector_kernel_check(engine, st_engine, q, seed: int = 0):
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {case}: {r}")
 
-    # K8 on segment 0, both metrics
+    # K8 on segment 0, both metrics: one query, the batched kernel's
+    # one-slot form, VEC_KERNEL_REPEATS launches each bit-checked
     for metric in ("cosine", "dot"):
-        got = K.vector_scores(mat, qp, qn, metric)
         ref = K.vector_scores_plain(mat, qp, qn, metric)
-        record("vector_scores", metric, _bits_equal(got, ref),
-               max_abs_err=_score_err(got, ref))
+        equal, err = True, 0.0
+        for _ in range(VEC_KERNEL_REPEATS):
+            got = K.vector_scores(mat, qp, qn, metric)
+            equal = equal and _bits_equal(got, ref)
+            err = max(err, _score_err(got, ref))
+        record("vector_scores", metric, equal, max_abs_err=err,
+               repeats=VEC_KERNEL_REPEATS)
     k8_bytes = P * dim * 4 + P * 4
     entries["vector_scores"] = dict(
         max_abs_err=0.0,
@@ -2183,6 +2205,10 @@ def vector_kernel_check(engine, st_engine, q, seed: int = 0):
     record("vector_scores", "cosine timed", True,
            **{k: v for k, v in entries["vector_scores"].items()
               if k != "bound"},
+           over_mv=entries["vector_scores"]["ms"] /
+           entries["vector_scores"]["library_ms"],
+           bound_share=entries["vector_scores"]["bound"][0] /
+           entries["vector_scores"]["ms"],
            launch_us=launch_breakdown(
                lambda: K.vector_scores(mat, qp, qn, "cosine")))
 
@@ -3123,6 +3149,15 @@ def vec_batch_families(engine, queries, oracle, exact, rows):
 RT_PK = ("playerName", "yearID", "teamID", "league")
 #: Apache Pinot's StreamConfig.DEFAULT_FLUSH_THRESHOLD_ROWS
 RT_FLUSH_ROWS = 5_000_000
+#: the rows a realtime segment takes by default (--rt-rows): 600,000, a
+#: depth cut of RT_FLUSH_ROWS that the timing and realtime_summary lines
+#: name. Ingest is host work (index_rows and apply_batch in Python,
+#: 45,000-60,000 rows/s): 10M rows took 269 of the phase's 344 s and the
+#: whole run 844-1,179 s, 3M rows 106 of 153 s in a run of 845 s; the
+#: phase's kernels (K1 with the vdoc node, per segment, stacked and
+#: batched) run and are checked at any size, and the consuming segment
+#: still meets its last three freeze points (2^17 to 2^19 rows)
+RT_ROWS_DEFAULT = 600_000
 #: sealed segments of the realtime configuration (PERF.md §4: 3 x
 #: 5,000,000 rows); --rt-sealed below it is a depth cut that the timing
 #: line names
@@ -3805,15 +3840,26 @@ def join_stage2(req, sources, segments, executor):
     return resp, ctx, r
 
 
-def _join_k1_check(name, P, n, spec, cols, params, library):
+def _join_k1_check(name, P, n, spec, cols, params, libraries, route=None):
     """K1 over one join program (member or join_raw leaf) against its
     plain version, timed beside the bound (the key lane read once, the
-    mask written once, the member bits or sorted keys read once) and the
-    nearest PyTorch call."""
+    mask written once, the member bits, bitmap or sorted keys read once)
+    and the PyTorch calls `libraries` ({name: fn}, the first the entry's
+    library_ms). With `route` ("bitmap" / "probe", a join_raw leaf), each
+    of JOIN_K1_REPEATS launches is bit-checked against the plain version's
+    searchsorted yardstick and must take that route."""
     from pinot_tpu_torch.ops import kernels as K
-    got = K.filter_mask(P, spec, cols, params, n)
     ref = K.filter_mask_plain(P, spec, cols, params, n)
-    err = int((got.int() - ref.int()).abs().max())
+    err = 0
+    for _ in range(JOIN_K1_REPEATS if route else 1):
+        K.reset_launch_counts()
+        got = K.filter_mask(P, spec, cols, params, n)
+        taken = [r for r in K.JOIN_ROUTES
+                 if K.launch_counts()[f"filter_mask[{r}]"]]
+        if route and taken != [route]:
+            raise AssertionError(f"filter_mask {name} took {taken}, not "
+                                 f"{route}")
+        err = max(err, int((got.int() - ref.int()).abs().max()))
     keys = K.filter_lane_keys(spec)
     probes = []
     K.compile_filter(spec, params, cols, probes)
@@ -3822,20 +3868,26 @@ def _join_k1_check(name, P, n, spec, cols, params, library):
         sum(np.asarray(p).size // 8 for p in params
             if isinstance(p, np.ndarray) and p.dtype == bool)
     b = bound(nbytes, P * 18 * len(keys))
+    lib_ms = {k: time_ms(fn) for k, fn in libraries.items()}
     # a 2^21-entry member table takes the host milliseconds to pack into
     # the program: a longer spin keeps that host work out of the events
     r = {"kernel": "filter_mask", "case": name, "matched": int(ref.sum()),
-         "max_abs_err": err,
+         "max_abs_err": err, "route": route,
+         "repeats": JOIN_K1_REPEATS if route else 1,
          "ms": time_ms(lambda: K.filter_mask(P, spec, cols, params, n),
                        spins=20),
          "plain_ms": time_ms(lambda: K.filter_mask_plain(P, spec, cols,
                                                          params, n)),
-         "library_ms": time_ms(library), "bound_ms": b[0], "bound_by": b[1]}
+         "library_ms": next(iter(lib_ms.values())),
+         "libraries_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
+         "launch_us": launch_breakdown(
+             lambda: K.filter_mask(P, spec, cols, params, n))}
     emit({"phase": "join_kernel_check", **r})
     if err:
         raise AssertionError(f"filter_mask {name} disagrees: {err}")
     return dict(max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
-                bound=b, library_ms=r["library_ms"])
+                bound=b, library_ms=r["library_ms"], libraries_ms=lib_ms,
+                mask=ref)
 
 
 def _join_plan(seg, req, ctx):
@@ -3866,14 +3918,54 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
     entries["filter_mask[member]"] = _join_k1_check(
         "j2.1 member (dictionary key)", seg.padded_docs, seg.num_docs,
         plan.filter_spec, cols, plan.params,
-        lambda: member[ids.long()])
+        {"gather": lambda: member[ids.long()]})
+    entries["filter_mask[member]"].pop("mask")
+    # the join_raw leaf on the raw-key segment: the bitmap route over
+    # J2.1's dim keys, then the probe route over the same keys and lane
+    # scaled into int64 past JOIN_BITMAP_MAX_SPAN (the same matches)
     raw_plan, raw_cols = _join_plan(raw_seg, req, ctx)
     lane = raw_cols["lo_partkey.raw"]
-    sk = raw_plan.params[0].on(lane.device)[0]
-    entries["filter_mask[join_raw]"] = _join_k1_check(
-        "j2.1 join_raw (raw key)", raw_seg.padded_docs, raw_seg.num_docs,
-        raw_plan.filter_spec, raw_cols, raw_plan.params,
-        lambda: torch.searchsorted(sk, lane))
+    probe = raw_plan.params[0]
+    if raw_plan.filter_spec[:2] != ("pred", "join_raw"):
+        raise AssertionError(f"J2.1's raw-key program is not one join_raw "
+                             f"leaf: {raw_plan.filter_spec}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = K.SortedKeys(probe.keys)
+    fresh.bitmap(lane)
+    torch.cuda.synchronize()
+    bitmap_build_ms = (time.perf_counter() - t0) * 1e3
+    sk = probe.on(lane.device)[0]
+    dim_keys = torch.from_numpy(probe.typed()).to(device)
+    span = probe.bitmap_span()
+    entries["filter_mask[bitmap]"] = bm = _join_k1_check(
+        "j2.1 join_raw bitmap (raw key)", raw_seg.padded_docs,
+        raw_seg.num_docs, raw_plan.filter_spec, raw_cols, raw_plan.params,
+        {"isin": lambda: torch.isin(lane, dim_keys),
+         "searchsorted": lambda: torch.searchsorted(sk, lane)}, "bitmap")
+    bm.update(span=span, bitmap_build_ms=bitmap_build_ms,
+              coarse_shift=K.join_bitmap_shift(span[1]))
+    emit({"phase": "join_kernel_check", "kernel": "filter_mask",
+          "case": "j2.1 join_raw bitmap build", "span": span,
+          "coarse_shift": bm["coarse_shift"],
+          "bitmap_build_ms": bitmap_build_ms,
+          "faster_than": {k: bm["ms"] < v
+                          for k, v in bm["libraries_ms"].items()}})
+    scale = K.JOIN_BITMAP_MAX_SPAN
+    wide = K.SortedKeys(probe.keys.astype(np.int64) * scale)
+    wide_cols = {"lo_partkey.raw": lane.long() * scale}
+    wide_sk = wide.on(device)[0]
+    wide_keys = torch.from_numpy(wide.typed()).to(device)
+    wide_lane = wide_cols["lo_partkey.raw"]
+    entries["filter_mask[probe]"] = pr = _join_k1_check(
+        "j2.1 join_raw probe (keys x 2^26, int64)", raw_seg.padded_docs,
+        raw_seg.num_docs, raw_plan.filter_spec, wide_cols, [wide],
+        {"isin": lambda: torch.isin(wide_lane, wide_keys),
+         "searchsorted": lambda: torch.searchsorted(wide_sk, wide_lane)},
+        "probe")
+    if not torch.equal(pr.pop("mask"), bm.pop("mask")):
+        raise AssertionError("the scaled keys' probe and the bitmap differ")
+    del wide_cols, wide_lane
     # K3: jcode on segment 0, jraw on the raw-key segment, J2.1's keys
     for name, (p, c, sg) in {"jcode": (plan, cols, seg),
                              "jraw": (raw_plan, raw_cols, raw_seg)}.items():
@@ -3893,16 +3985,20 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
         r, err, ms, plain, b = k3_check(sg.padded_docs, p, c, mask,
                                         extra_bytes=tbytes)
         r["table_entries_read"] = touched
+        # no one PyTorch call computes K3's masked, grouped tables: the
+        # key term alone (a gather of codes, the search of the sorted dim
+        # keys) is timed beside them as key_term_ms
         if name == "jcode":
             lib = lambda: jkey.table[jkey.lane.long()]    # noqa: E731
         else:
             lib = lambda: torch.searchsorted(jkey.table, jkey.lane)  # noqa
-        r["library_ms"] = time_ms(lib)
+        r["library_ms"] = None
+        r["key_term_ms"] = time_ms(lib)
         emit({"phase": "join_kernel_check", "kernel": "dense_group_aggregate",
               "case": f"j2.1 {name}", **r})
         entries[f"dense_group_aggregate[{name}]"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound=b,
-            library_ms=r["library_ms"])
+            library_ms=None, key_term_ms=r["key_term_ms"])
     # K12 as the join build: J2.1's dim keys (int32) with their codes
     keys_p, codes_p = ctx.padded_key_codes("p_brand1", np.int32)
     kt = torch.from_numpy(keys_p).to(device)
@@ -4095,8 +4191,8 @@ def run_join(segs, raw_segs, dim_server, dim, fact, raw_fact, repeats: int):
               "dim_rows": len(contexts[q][1].keys),
               "launches": path_launches[(q, path)]})
     seconds["oracle_and_host_checks"] += time.perf_counter() - t
-    needed = ("filter_mask", "filter_mask[join_raw]", "[jcode]",
-              "[jraw]", "radix_sort_join", "masked_part_sums")
+    needed = ("filter_mask", "filter_mask[join_raw]", "filter_mask[bitmap]",
+              "[jcode]", "[jraw]", "radix_sort_join", "masked_part_sums")
 
     def launched(counts, k):
         # a join's group key is evaluated by K14 (the compacted route)
@@ -4107,11 +4203,13 @@ def run_join(segs, raw_segs, dim_server, dim, fact, raw_fact, repeats: int):
         return counts.get(k, 0)
 
     missing = [k for k in needed if not launched(launches, k)]
-    # the stacked raw-key path: join_raw over the stack's raw lane,
-    # and the jraw key where a dim column groups (J2.1)
+    # the stacked raw-key path: join_raw over the stack's raw lane (on
+    # the bitmap route, as per segment), and the jraw key where a dim
+    # column groups (J2.1)
     missing += [f"{q} raw_key_stacked {k}" for q, k in (
         ("J0", "filter_mask[join_raw]"),
         ("J2.1", "filter_mask[join_raw]"),
+        ("J2.1", "filter_mask[bitmap]"),
         ("J2.1", "[jraw]"))
         if not launched(path_launches[(q, "raw_key_stacked")], k)]
     if missing:
@@ -5193,7 +5291,7 @@ def main() -> int:
     ap.add_argument("--vec-dim", type=int, default=128)
     ap.add_argument("--vec-queries", type=int, default=5)
     ap.add_argument("--batch-repeats", type=int, default=3)
-    ap.add_argument("--rt-rows", type=int, default=RT_FLUSH_ROWS)
+    ap.add_argument("--rt-rows", type=int, default=RT_ROWS_DEFAULT)
     ap.add_argument("--rt-sealed", type=int, default=RT_SEALED_DEFAULT)
     ap.add_argument("--rt-repeats", type=int, default=RT_REPEATS_DEFAULT)
     ap.add_argument("--join-rows", type=int, default=JOIN_FACT_ROWS)
@@ -5567,6 +5665,17 @@ def main() -> int:
                       for k, v in batch_launches.items()}
 
     # -- realtime upserts: baseballStats_REALTIME -------------------------
+    cuts = []
+    if args.rt_rows < RT_FLUSH_ROWS:
+        cuts.append(f"realtime: segments of {args.rt_rows} rows, not the "
+                    f"configuration's flush threshold of {RT_FLUSH_ROWS}")
+    if args.rt_sealed < RT_SEALED_FULL:
+        cuts.append(f"realtime: {args.rt_sealed} sealed segment(s) of "
+                    f"{args.rt_rows} rows before the consuming one, of "
+                    f"the configuration's {RT_SEALED_FULL}")
+    if args.rt_repeats < args.repeats:
+        cuts.append(f"realtime: p50s of {args.rt_repeats} timed runs, not "
+                    f"--repeats {args.repeats}")
     with tempfile.TemporaryDirectory(dir=scratch) as base:
         t0 = time.perf_counter()
         rt_launches, launches, rt_summary = run_realtime(base, args)
@@ -5575,20 +5684,13 @@ def main() -> int:
         seconds["realtime"] = time.perf_counter() - t0
         emit({"phase": "realtime_summary", **rt_summary,
               "seconds": seconds["realtime"],
-              "peak_device_bytes": torch.cuda.max_memory_allocated()})
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "cuts": cuts})
     unused = [k for k, v in batch_launches.items()
               if k.endswith("_batched") and not v]
     if unused:
         raise AssertionError(f"batched kernels never launched by the batch "
                              f"phases: {unused}")
-    cuts = []
-    if args.rt_sealed < RT_SEALED_FULL:
-        cuts.append(f"realtime: {args.rt_sealed} sealed segment(s) of "
-                    f"{args.rt_rows} rows before the consuming one, of "
-                    f"the configuration's {RT_SEALED_FULL}")
-    if args.rt_repeats < args.repeats:
-        cuts.append(f"realtime: p50s of {args.rt_repeats} timed runs, not "
-                    f"--repeats {args.repeats}")
     emit({"phase": "timing", "seconds": seconds,
           "total_seconds": time.perf_counter() - t_start, "cuts": cuts})
 
@@ -5618,12 +5720,14 @@ def main() -> int:
                   "radix_sort_rank[cluster]"),
               "masked_select[select]": path_launches("masked_select[select]"),
               "masked_select_vector[select]": path_launches(
-                  "masked_select_vector[select]")}
+                  "masked_select_vector[select]"),
+              "filter_mask[bitmap]": path_launches("filter_mask[bitmap]")}
     emit({"phase": "routes", "launches": routes,
           "passes_route": {k: path_launches(f"{k}[passes]")
                            for k in ("radix_sort", "radix_sort_join",
                                      "radix_sort_rank")},
-          "tile_route": path_launches("masked_select[tile]")})
+          "tile_route": path_launches("masked_select[tile]"),
+          "probe_route": path_launches("filter_mask[probe]")})
     missing = [k for k, v in routes.items() if not v]
     if missing:
         raise AssertionError(f"the main path never took {missing}")
@@ -5631,7 +5735,8 @@ def main() -> int:
     def route_launches(name: str):
         """{route: launches} of a kernel counted by route, else None."""
         nodes = [n for n in K.KERNELS[name].node_launches
-                 if n in ("cluster", "passes", "select", "tile")]
+                 if n in ("cluster", "passes", "select", "tile", "bitmap",
+                          "probe")]
         if not nodes:
             return None
         if name.endswith("_batched"):
@@ -5727,8 +5832,12 @@ def main() -> int:
     source = {"filter_mask": K.KERNELS["filter_mask"].source,
               "dense_group_aggregate":
               K.KERNELS["dense_group_aggregate"].source}
+    # K1's join_raw leaf by route (the bitmap on the join phase's part
+    # keys; the probe where keys span past JOIN_BITMAP_MAX_SPAN, checked
+    # in join_kernel_check on J2.1's keys scaled into int64)
     for name, replaces in (
-            ("filter_mask[join_raw]", "pinot_tpu/ops/kernels.py:118"),
+            ("filter_mask[bitmap]", "pinot_tpu/ops/kernels.py:118"),
+            ("filter_mask[probe]", "pinot_tpu/ops/kernels.py:118"),
             ("dense_group_aggregate[jcode]", "pinot_tpu/ops/kernels.py:740"),
             ("dense_group_aggregate[jraw]", "pinot_tpu/ops/kernels.py:752")):
         e = stage_entries[name]
@@ -5739,7 +5848,9 @@ def main() -> int:
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
-                     "library_ms": e["library_ms"]})
+                     "library_ms": e["library_ms"],
+                     **{k: e[k] for k in ("libraries_ms", "key_term_ms")
+                        if k in e}})
     # K3's adaptive remap keys, counted apart: every path's launches
     for remap, replaces in (("idoff", "pinot_tpu/ops/kernels.py:711"),
                             ("idrank", "pinot_tpu/ops/kernels.py:720")):

@@ -75,6 +75,31 @@
 // Dp - 1 (searchsorted): at most 17 probes of the keys, which stay in L2.
 // It is a raw leaf, so only the general instantiation takes it (the
 // narrow one keeps its registers), in the single and the batched form.
+// Where the dim keys span at most 2^26 values (JOIN_BITMAP_MAX_SPAN) the
+// single and stacked forms take a join_bitmap node in its place: its
+// lane is the uint32 words of a bitmap over [base, base + span), bit
+// (k - base) & 31 of word (k - base) >> 5 set iff k is a dim key (the
+// host builds it once a query and device from the keys: 8 MB at most,
+// in L2); a second lane holds its coarse level, a bit for each 2^shift
+// keys, at most kJoinSmemBytes. Its parameter words are the two lanes'
+// indices, shift and base in the lane's type; arg is the span. A row
+// costs one bit test where the probe costs up to 17 dependent loads,
+// whose addresses spread a warp over 32 cache lines past the first
+// levels, so the probe waits on L2 latency and not on bytes.
+// A program that is one join_bitmap node over one segment (J2.1's
+// raw-key fact side) runs join_bitmap_kernel instead of the interpreter:
+// a thread reads four keys as 16 bytes (two int64 keys a load), the next
+// four in flight while it tests these, and stores their four mask bytes
+// as one word. The bitmap's coarse level is staged in each block's
+// shared memory, two blocks of 1,024 threads an SM, and a row reads the
+// bitmap in L2 only where its coarse bit is set (at shift 0 the coarse
+// level is the bitmap and nothing is read from L2): a warp's 128 random
+// bit tests from L2 cost an L2 sector each, 240 MB of L2 reads over
+// J2.1's 7.5M rows, where its part keys (5.6M values of span, shift 3)
+// leave about 4% of the rows a coarse bit. The probe stays in the
+// interpreter: the same four-rows-a-thread shape with its four
+// lower-bound searches in step took 234.3 us at J2.1's shape against
+// the interpreter's 234.2 (PERF.md), waiting on L2 either way.
 // The host checks that the stack never holds more than 32 bits.
 //
 // Batched members (the counterpart of the vmap over a query axis in
@@ -117,8 +142,14 @@ enum Op : int {
   kTrue = 0, kFalse = 1, kEq = 2, kNeq = 3, kRange = 4, kIn = 5,
   kNotIn = 6, kMember = 7, kAnd = 8, kOr = 9,
   kEqRaw = 10, kNeqRaw = 11, kRangeRaw = 12, kInRaw = 13, kNotInRaw = 14,
-  kIvfProbe = 15, kVdoc = 16, kJoinRaw = 17, kJoinBits = 18,
+  kIvfProbe = 15, kVdoc = 16, kJoinRaw = 17, kJoinBits = 18, kJoinBitmap = 19,
 };
+
+// join_bitmap_kernel's blocks, two an SM: each stages a bitmap's coarse
+// level of at most kJoinSmemBytes in shared memory (2 x (110 + 1) KB of
+// the SM's 228)
+constexpr int kJoinThreads = 1024;
+constexpr int kJoinSmemBytes = 110 * 1024;
 
 using pinot::kF32;
 using pinot::kI32;
@@ -210,6 +241,29 @@ __device__ __forceinline__ unsigned eval_join(const void* const* lanes, const vo
   const int32_t* sk = static_cast<const int32_t*>(lanes[p[0]]);
   const int32_t v = static_cast<const int32_t*>(lane)[row];
   return sk[pinot::probe_position(sk, arg, v)] == v;
+}
+
+// join_bitmap: key v is in the bitmap `bits` over [base, base + span)
+template <typename T>
+__device__ __forceinline__ unsigned bitmap_hit(const unsigned* bits, T base, long long span, T v) {
+  const unsigned long long off =
+      static_cast<unsigned long long>(v) - static_cast<unsigned long long>(base);
+  return v >= base && off < static_cast<unsigned long long>(span)
+             ? (bits[off >> 5] >> (off & 31)) & 1u
+             : 0u;
+}
+
+// join_bitmap: p[0] indexes the lane table's bitmap words (p[1] its
+// coarse level, p[2] the shift: join_bitmap_kernel's), p[3] (one or two
+// words) holds base in the lane's type, arg is the span
+__device__ __forceinline__ unsigned eval_join_bitmap(const void* const* lanes, const void* lane,
+                                                     int elem, long long row, const int* p,
+                                                     int arg) {
+  const unsigned* bits = static_cast<const unsigned*>(lanes[p[0]]);
+  if (elem == kI64)
+    return bitmap_hit(bits, param<long long>(p + 3), arg,
+                      static_cast<const long long*>(lane)[row]);
+  return bitmap_hit(bits, param<int32_t>(p + 3), arg, static_cast<const int32_t*>(lane)[row]);
 }
 
 __device__ __forceinline__ unsigned eval_leaf(const void* lane, int op, int elem,
@@ -310,6 +364,8 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
                       ? eval_probe(s_lanes, lane, node[4], row, seg, params + node[2], arg)
                   : op == kJoinRaw
                       ? eval_join(s_lanes, lane, node[4], row, params + node[2], arg)
+                  : op == kJoinBitmap
+                      ? eval_join_bitmap(s_lanes, lane, node[4], row, params + node[2], arg)
                       : eval_leaf(lane, op, node[4], node[5], row, params + node[2], arg);
           else
             bit = eval_id(op, read_id(lane, node[4], row), params + node[2], arg);
@@ -323,6 +379,98 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
   if constexpr (kStacked) flush();
 }
 
+
+// Four keys from row r (r % 4 == 0, the lane 16-byte aligned).
+__device__ __forceinline__ void load_keys(const int32_t* lane, long long r, int32_t (&k)[4]) {
+  const int4 v = *reinterpret_cast<const int4*>(lane + r);
+  k[0] = v.x;
+  k[1] = v.y;
+  k[2] = v.z;
+  k[3] = v.w;
+}
+__device__ __forceinline__ void load_keys(const long long* lane, long long r, long long (&k)[4]) {
+  const longlong2 a = *reinterpret_cast<const longlong2*>(lane + r);
+  const longlong2 b = *reinterpret_cast<const longlong2*>(lane + r + 2);
+  k[0] = a.x;
+  k[1] = a.y;
+  k[2] = b.x;
+  k[3] = b.y;
+}
+
+// A program of one join_bitmap node over one segment: mask bytes of four
+// rows a thread and step, stored as one word. The node and its
+// parameters are read from the program on the card (every thread the
+// same words). The bitmap's coarse level is staged in shared memory
+// while each thread's first keys load; a key whose coarse bit is set
+// reads its bit of the bitmap (at shift 0 the coarse bit is the answer).
+template <typename T>
+__global__ void __launch_bounds__(kJoinThreads, 2)
+    join_bitmap_kernel(Lanes lanes, const int* __restrict__ prog, long long padded,
+                       long long num_docs, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned s_coarse[];
+  const int* p = prog + kNodeWords;
+  const T* keys = static_cast<const T*>(lanes.ptr[prog[1]]);
+  const int span = prog[3];
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x * 4;
+  long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  T k[4] = {};
+  if (r < padded) load_keys(keys, r, k);
+  const unsigned* bits = static_cast<const unsigned*>(lanes.ptr[p[0]]);
+  const uint4* coarse = static_cast<const uint4*>(lanes.ptr[p[1]]);
+  const int shift = p[2];
+  const T base = param<T>(p + 3);
+  const int n4 = (((span - 1) >> shift) + 128) >> 7;   // padded to 4 words
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    reinterpret_cast<uint4*>(s_coarse)[i] = coarse[i];
+  __syncthreads();
+  for (; r < padded; r += step) {
+    T next[4] = {};
+    if (r + step < padded) load_keys(keys, r + step, next);
+    unsigned word = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned long long off =
+          static_cast<unsigned long long>(k[j]) - static_cast<unsigned long long>(base);
+      const unsigned long long c = off >> shift;
+      unsigned hit = k[j] >= base && off < static_cast<unsigned long long>(span)
+                         ? (s_coarse[c >> 5] >> (c & 31)) & 1u
+                         : 0u;
+      if (hit && shift > 0) hit = (bits[off >> 5] >> (off & 31)) & 1u;
+      if (r + j < num_docs) word |= hit << (8 * j);
+    }
+    *reinterpret_cast<unsigned*>(out + r) = word;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) k[j] = next[j];
+  }
+}
+
+// Launches join_bitmap_kernel<T>: one full wave of blocks, at most the
+// rows' quads.
+template <typename T>
+cudaError_t launch_join_bitmap(const Lanes& lanes, const int* prog, long long padded,
+                               long long num_docs, int smem_bytes, uint8_t* out,
+                               cudaStream_t stream) {
+  const auto kernel = join_bitmap_kernel<T>;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return rc;
+  }
+  int device = 0, sms = 132, per_sm = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kJoinThreads, smem) !=
+          cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  const long long quads = padded / 4;
+  long long blocks = (quads + kJoinThreads - 1) / kJoinThreads;
+  if (blocks > static_cast<long long>(sms) * per_sm) blocks = static_cast<long long>(sms) * per_sm;
+  kernel<<<static_cast<int>(blocks < 1 ? 1 : blocks), kJoinThreads, smem, stream>>>(
+      lanes, prog, padded, num_docs, out);
+  return cudaGetLastError();
+}
 
 constexpr int kMaxMembers = 8;
 
@@ -510,19 +658,35 @@ __global__ void filter_mask_batched_kernel(Lanes lanes, const int* __restrict__ 
 // general: the program has a raw leaf or a leaf over an MV lane.
 // seg_docs: int32 [padded / seg_rows] live rows per segment, with
 // seg_matched int32 [padded / seg_rows], zeroed; or both null for one
-// segment of num_docs live rows.
+// segment of num_docs live rows. leaf_smem: 0, or where the program is
+// one join_bitmap node over one segment (its key lane and the mask
+// 16-byte aligned) the bytes of the bitmap's coarse level, at most
+// kJoinSmemBytes, which join_bitmap_kernel stages in shared memory;
+// leaf_elem is then its key type (kI32 / kI64).
 extern "C" int pinot_filter_mask(const void* const* lane_ptrs, int n_lanes,
                                  const int* prog, int n_nodes, int n_words,
                                  int general, long long padded,
                                  long long seg_rows, const int* seg_docs,
                                  long long num_docs, void* out,
-                                 int* seg_matched, void* stream) {
+                                 int* seg_matched, int leaf_elem, int leaf_smem,
+                                 void* stream) {
   if (n_lanes < 0 || n_lanes > kMaxLanes || n_nodes < 1 || seg_rows < 1 ||
       seg_rows % pinot::kThreads != 0 || padded % seg_rows != 0 ||
       (seg_docs == nullptr) != (seg_matched == nullptr))
     return -1;
   Lanes lanes{};
   for (int i = 0; i < n_lanes; ++i) lanes.ptr[i] = lane_ptrs[i];
+  if (leaf_smem != 0) {
+    if (n_nodes != 1 || seg_docs != nullptr || (leaf_elem != kI32 && leaf_elem != kI64) ||
+        leaf_smem < 0 || leaf_smem > kJoinSmemBytes)
+      return -1;
+    uint8_t* o = static_cast<uint8_t*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(
+        leaf_elem == kI64
+            ? launch_join_bitmap<long long>(lanes, prog, padded, num_docs, leaf_smem, o, s)
+            : launch_join_bitmap<int32_t>(lanes, prog, padded, num_docs, leaf_smem, o, s));
+  }
   const int staged = n_words <= kMaxSmemWords ? 1 : 0;
   const size_t smem = staged ? static_cast<size_t>(n_words) * sizeof(int) : 0;
   const bool stacked = seg_docs != nullptr;

@@ -155,10 +155,12 @@ __device__ void sort_words_desc(unsigned long long* w, int n) {
 // Cluster (s, b) of gridDim.x CTAs: codebook s for query b. CTA `me`
 // takes centroids [me * tile, min(c_pad, (me + 1) * tile)), its words
 // padded with zeros (below every centroid's word) to tile_pad. A row over
-// L lanes of E elements, U rows a lane group in flight: each lane's
+// L lanes of E elements, U rows a lane group in flight, scored by K8's
+// step (vec_tree.cuh:score_rows with one query slot): each lane's
 // subtrees of the U rows' products and squares, then warp_tree_scatter
 // over the U rows (the same pairs as warp_tree's butterflies), so lane x
-// < K ends with rows (x & (K - 1)) + t * K and scores them.
+// < min(U, L) ends with rows (x & (min(U, L) - 1)) + t * min(U, L) and
+// scores them.
 template <int L, int E, bool kCos>
 __global__ void __launch_bounds__(ProbeShape<E>::kThreads)
     probe_select_kernel(const float* __restrict__ cent, const uint8_t* __restrict__ cvalid,
@@ -167,10 +169,7 @@ __global__ void __launch_bounds__(ProbeShape<E>::kThreads)
                         uint8_t* __restrict__ ok) {
   constexpr int kDim = L * E;
   constexpr int U = ProbeShape<E>::kRows;
-  constexpr int K = U < L ? U : L;       // lanes that end with distinct rows
-  constexpr int T = U / K;               // rows a lane ends with
   constexpr int rpw = 32 / L;            // rows per warp and unrolled step
-  constexpr bool kRegQ = E <= 16;        // the query slice in registers
   cg::cluster_group cluster = cg::this_cluster();
   const int me = static_cast<int>(cluster.block_rank());
   const int n_ctas = static_cast<int>(cluster.num_blocks());
@@ -192,9 +191,6 @@ __global__ void __launch_bounds__(ProbeShape<E>::kThreads)
   __syncthreads();
   const int lane = threadIdx.x & 31, sub = lane / L, li = lane % L;
   const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  const float* qv = qs + li * E;
-  float qr[kRegQ ? E : 1];
-  if constexpr (kRegQ) pinot::load_lane<E>(qv, 0, 0, 0, qr);
   // r0 is warp-uniform, so every lane reaches every shuffle
   for (int r0 = lo + warp * rpw * U; r0 < hi; r0 += n_warps * rpw * U) {
     float m[U][E];
@@ -203,27 +199,10 @@ __global__ void __launch_bounds__(ProbeShape<E>::kThreads)
       const int r = r0 + u * rpw + sub;
       pinot::load_lane<E>(mat, r < hi ? r : -1, kDim, li, m[u]);
     }
-    float dot[U], norm2[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      dot[u] = pinot::lane_tree<E>([&](int i) {
-        if constexpr (kRegQ) return __fmul_rn(m[u][i], qr[i]);
-        else return __fmul_rn(m[u][i], qv[i]);
-      });
-      norm2[u] = 0.f;
-      if constexpr (kCos)
-        norm2[u] = pinot::lane_tree<E>([&](int i) { return __fmul_rn(m[u][i], m[u][i]); });
-    }
-    pinot::warp_tree_scatter<U, L>(dot, li);
-    if constexpr (kCos) pinot::warp_tree_scatter<U, L>(norm2, li);
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int r = r0 + ((li & (K - 1)) + t * K) * rpw + sub;
-      if (li < K && r < hi) {
-        const float score = pinot::vec_score(dot[t], norm2[t], q_norm, kCos);
-        words[r - lo] = probe_word(valid[r] ? pinot::score_key(score) : INT_MIN, r);
-      }
-    }
+    pinot::score_rows<L, E, U, 1, kCos>(m, qs, &q_norm, 1, li, [&](int, int u, float score) {
+      const int r = r0 + u * rpw + sub;
+      if (r < hi) words[r - lo] = probe_word(valid[r] ? pinot::score_key(score) : INT_MIN, r);
+    });
   }
   __syncthreads();
   sort_words_desc(words, tile_pad);

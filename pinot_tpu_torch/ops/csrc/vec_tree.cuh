@@ -138,6 +138,82 @@ __device__ __forceinline__ void load_lane(const float* __restrict__ mat, long lo
   }
 }
 
+// The (member, row) sums of score_rows: U rows a lane group and M query
+// slots give V = U * M dots a lane starts with; after the reduce-scatter
+// the K lanes li < K hold distinct ones, T a lane, and TN of the U norms.
+template <int L, int U, int M>
+struct RowScoreShape {
+  static constexpr int V = U * M;
+  static constexpr int K = V < L ? V : L;
+  static constexpr int T = V / K;
+  static constexpr int TN = U < L ? 1 : U / L;
+};
+
+// The scores of U rows against nq <= M queries (nq warp-uniform, so
+// every lane reaches every shuffle): K8's and K9's one scoring step.
+// m[u] holds lane li's E elements of row u (zeros past the end), qs the
+// queries' [nq][L * E] floats in shared memory, q_norms[b] query b's
+// norm. Each lane sums its slice of every (member, row) product, and of
+// every row's square under cosine, as its subtree (the query slice in
+// registers up to 16 elements; past that one member at a time, its sums
+// placed by compile-time selects, so the tree's code of a 4,096-wide row
+// appears once); then one warp_tree_scatter over the U x M dots (sum j =
+// b * U + u; slots past nq hold zeros) and one over the U norms replace a
+// butterfly a sum. A lane li < K scores each sum it ends with (the
+// cosine's root and division once a (member, row)) and calls emit(b, u,
+// score) for members b < nq.
+template <int L, int E, int U, int M, bool kCos, typename Emit>
+__device__ __forceinline__ void score_rows(float (&m)[U][E], const float* qs,
+                                           const float* q_norms, int nq, int li, Emit emit) {
+  using S = RowScoreShape<L, U, M>;
+  constexpr int kDim = L * E;
+  float norm2[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    norm2[u] = 0.f;
+    if constexpr (kCos) norm2[u] = lane_tree<E>([&](int i) { return __fmul_rn(m[u][i], m[u][i]); });
+  }
+  float acc[S::V];
+  if constexpr (E <= 16) {
+#pragma unroll
+    for (int b = 0; b < M; ++b) {
+      if (b < nq) {
+        float qr[E];
+        load_lane<E>(qs + b * kDim + li * E, 0, 0, 0, qr);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          acc[b * U + u] = lane_tree<E>([&](int i) { return __fmul_rn(m[u][i], qr[i]); });
+      } else {
+#pragma unroll
+        for (int u = 0; u < U; ++u) acc[b * U + u] = 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < S::V; ++j) acc[j] = 0.f;
+#pragma unroll 1
+    for (int b = 0; b < nq; ++b) {
+      const float* qv = qs + b * kDim + li * E;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float d = lane_tree<E>([&](int i) { return __fmul_rn(m[u][i], qv[i]); });
+#pragma unroll
+        for (int j = 0; j < S::V; ++j)
+          if (j == b * U + u) acc[j] = d;
+      }
+    }
+  }
+  warp_tree_scatter<S::V, L>(acc, li);
+  if constexpr (kCos) warp_tree_scatter<U, L>(norm2, li);
+#pragma unroll
+  for (int t = 0; t < S::T; ++t) {
+    const int j = (li & (S::K - 1)) + t * S::K;
+    const int b = M == 1 ? 0 : j / U, u = M == 1 ? j : j % U;
+    if (li < S::K && b < nq)
+      emit(b, u, vec_score(acc[t], norm2[t % S::TN], M == 1 ? q_norms[0] : q_norms[b], kCos));
+  }
+}
+
 }  // namespace pinot
 
 // (L lanes a row, E elements a lane) by dim_pad, and the metric: sets rc

@@ -119,6 +119,7 @@ import collections
 import ctypes
 import dataclasses
 import threading
+import time
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -262,7 +263,8 @@ _F = ctypes.c_float
 _KEY_ARGTYPES = [_PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _PP, _PP,
                  _IP, _I]
 _ARGTYPES = {
-    "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _P],
+    "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _I,
+                    _I, _P],
     "masked_part_sums": [_P, _PP, _I, _LL, _LL, _P, _P],
     "dense_group_aggregate": [
         _P, *_KEY_ARGTYPES, _PP, _I, _PP, _I,
@@ -315,9 +317,11 @@ _ARGTYPES.update({
 _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 
 
-#: program nodes counted apart: K1's upsert liveness leaf and join probe,
-#: K3's join group keys
-KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0)
+#: program nodes counted apart: K1's upsert liveness leaf and join probe
+#: (and, for the single and stacked K1, the join leaf's route: "bitmap" or
+#: "probe", JOIN_ROUTES), K3's join group keys
+KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0, bitmap=0,
+                                            probe=0)
 KERNELS["filter_mask_batched"].node_launches.update(vdoc=0, join_raw=0)
 KERNELS["dense_group_aggregate"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0)
@@ -479,6 +483,12 @@ _LEAF_OPS = {"eq_id": 2, "neq_id": 3, "range_ids": 4, "in_ids": 5,
              "ivf_probe": 15, "vdoc": 16, "join_raw": 17}
 #: a batched join_raw leaf over the members' member map (JoinMemberMap)
 _OP_JOIN_BITS = 18
+#: a single or stacked join_raw leaf over its keys' bitmap (JoinBitmap)
+_OP_JOIN_BITMAP = 19
+#: the routes of the single and stacked join_raw leaf: a bitmap of the dim
+#: keys where they span at most JOIN_BITMAP_MAX_SPAN values, else the
+#: lower-bound probe of their K12-sorted keys
+JOIN_ROUTES = ("bitmap", "probe")
 #: params each predicate kind takes (an ivf_probe: the query and its norm;
 #: the vdoc liveness leaf none)
 _LEAF_PARAMS = {"range_ids": 2, "range_raw": 2, "ivf_probe": 2, "vdoc": 0}
@@ -547,10 +557,14 @@ def compile_filter(filter_spec, params: Sequence,
     lane indices. A join_raw node appends the dim keys sorted on the
     lane's device (SortedKeys.on: K12 once per device) to `probe_lanes`
     (or `join(spec, keys)`'s lane: a batch's [B, Dp] keys); its parameter
-    word is their lane index and its arg their count Dp. Where `join`
-    gives a JoinMemberMap the node is a join_bits one: its words the member
-    map's lane index and the range's base in the lane's dtype, its arg
-    the range's span.
+    word is their lane index and its arg their count Dp. Without `join`,
+    where the keys span at most JOIN_BITMAP_MAX_SPAN values, the node is a
+    join_bitmap one over their bitmap (SortedKeys.bitmap, built once per
+    device): its words the lane indices of the bitmap and of its coarse
+    level, the coarse level's shift and base in the lane's dtype, its arg
+    the span. Where `join` gives a JoinMemberMap the node is a join_bits
+    one: its words the member map's lane index and the range's base in the
+    lane's dtype, its arg the range's span.
     """
     nodes: List[Tuple[int, ...]] = []
     words: List[int] = []
@@ -623,6 +637,15 @@ def compile_filter(filter_spec, params: Sequence,
                 if probe_lanes is None:
                     raise ValueError("a join_raw filter needs probe_lanes")
                 keys = plist.pop(0)
+                bitmap = None if join else keys.bitmap(lane_t)
+                if bitmap is not None:
+                    code = _OP_JOIN_BITMAP
+                    first = len(lanes) + len(probe_lanes)
+                    words.extend([first, first + 1, bitmap.shift])
+                    words.extend(_raw_words([bitmap.base], lane_t.dtype))
+                    probe_lanes.extend([bitmap.words, bitmap.coarse])
+                    emit(code, lane, off, bitmap.span, _ELEM[lane_t.dtype])
+                    return
                 sk = join(spec, keys) if join else \
                     sorted_keys_for(keys, lane_t)
                 words.append(len(lanes) + len(probe_lanes))
@@ -710,7 +733,7 @@ def filter_mask(padded: int, filter_spec, cols: Dict[str, torch.Tensor],
         _filter_lane_ok(cols[key], key, padded, device)
     if device.type == "cpu":
         return filter_mask_plain(padded, filter_spec, cols, params, num_docs,
-                                 device)
+                                 device, routed=True)
     return _launch_filter(filter_spec, cols, params, keys, device, padded,
                           padded, None, int(num_docs), None)
 
@@ -731,13 +754,32 @@ def _launch_filter(filter_spec, cols, params, keys, device, rows: int,
     out = torch.empty(rows, dtype=torch.uint8, device=device)
     if general is None:
         general = _general(keys)
+    leaf = _join_bitmap_leaf(buf, n_nodes, lanes, seg_docs is None)
     _launch("filter_mask", device, _ptrs(lanes), len(lanes),
             prog.data_ptr(), n_nodes, int(buf.shape[0]), int(general),
             rows, seg_rows, None if seg_docs is None else seg_docs.data_ptr(),
             num_docs, out.data_ptr(),
-            None if matched is None else matched.data_ptr())
+            None if matched is None else matched.data_ptr(), *leaf)
     _count_nodes("filter_mask", filter_spec, keys)
+    ops = set(buf[:_NODE_WORDS * n_nodes:_NODE_WORDS].tolist())
+    for route, op in zip(JOIN_ROUTES, (_OP_JOIN_BITMAP,
+                                       _LEAF_OPS["join_raw"])):
+        if op in ops:
+            _count_node("filter_mask", route)
     return out
+
+
+def _join_bitmap_leaf(buf: np.ndarray, n_nodes: int, lanes,
+                      one_segment: bool) -> Tuple[int, int]:
+    """K1's (leaf_elem, leaf_smem) for a program: where it is one
+    join_bitmap node over one segment whose key lane is 16-byte aligned,
+    its key type code and the bytes of its bitmap's coarse level, which
+    the kernel's four-rows-a-thread form stages in shared memory; else
+    (0, 0), the program's interpreter."""
+    if n_nodes != 1 or not one_segment or int(buf[0]) != _OP_JOIN_BITMAP \
+            or lanes[0].data_ptr() % 16:
+        return 0, 0
+    return int(buf[4]), lanes[int(buf[_NODE_WORDS + 1])].numel() * 4
 
 
 def _check_seg_docs(seg_docs: torch.Tensor, n_segs: int, device) -> None:
@@ -765,7 +807,8 @@ def filter_mask_stacked(padded: int, n_segs: int, filter_spec,
         raise ValueError(f"{padded} rows is not a multiple of {BLOCK}")
     if device.type == "cpu":
         return filter_mask_stacked_plain(padded, n_segs, filter_spec, cols,
-                                         params, seg_docs, device)
+                                         params, seg_docs, device,
+                                         routed=True)
     matched = torch.zeros(n_segs, dtype=torch.int32, device=device)
     return _launch_filter(filter_spec, cols, params, keys, device, rows,
                           padded, seg_docs, 0, matched), matched
@@ -918,29 +961,36 @@ def filter_mask_batched_plain(padded: int, filter_spec,
 
 def filter_mask_stacked_plain(padded: int, n_segs: int, filter_spec,
                               cols: Dict[str, torch.Tensor], params: Sequence,
-                              seg_docs: torch.Tensor, device=None
+                              seg_docs: torch.Tensor, device=None,
+                              routed: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch stacked K1: the filter tree over the flat lanes, each
     segment's rows past its seg_docs masked off, and the per-segment row
-    sums."""
+    sums (`routed`: as filter_mask_plain)."""
     device = _mask_device(filter_lane_keys(filter_spec), cols, device)
     row = torch.arange(padded, device=device)
     valid = (row[None, :] < seg_docs.long()[:, None]).reshape(-1)
-    mask = _filter_plain(filter_spec, cols, params, valid, device)
+    mask = _filter_plain(filter_spec, cols, params, valid, device, routed)
     return mask, mask.reshape(n_segs, padded).sum(dim=1, dtype=torch.int32)
 
 
 def filter_mask_plain(padded: int, filter_spec,
                       cols: Dict[str, torch.Tensor], params: Sequence,
-                      num_docs: int, device=None) -> torch.Tensor:
-    """Plain PyTorch K1: the filter tree evaluated with tensor ops."""
+                      num_docs: int, device=None, routed: bool = False
+                      ) -> torch.Tensor:
+    """Plain PyTorch K1: the filter tree evaluated with tensor ops. A
+    join_raw leaf searches its sorted keys (torch.searchsorted), the
+    yardstick the kernel's routes are held to; `routed` takes the
+    kernel's route instead, the bitmap where the keys span at most
+    JOIN_BITMAP_MAX_SPAN values (join_bitmap_plain), as filter_mask does
+    on the CPU."""
     device = _mask_device(filter_lane_keys(filter_spec), cols, device)
     valid = torch.arange(padded, device=device) < int(num_docs)
-    return _filter_plain(filter_spec, cols, params, valid, device)
+    return _filter_plain(filter_spec, cols, params, valid, device, routed)
 
 
 def _filter_plain(filter_spec, cols, params, valid: torch.Tensor,
-                  device) -> torch.Tensor:
+                  device, routed: bool = False) -> torch.Tensor:
     """The filter tree over the lanes with tensor ops, AND `valid`."""
     plist = list(params)
 
@@ -967,7 +1017,11 @@ def _filter_plain(filter_spec, cols, params, valid: torch.Tensor,
         if kind == "vdoc":
             return lane.bool()
         if kind == "join_raw":
-            sk = sorted_keys_for(plist.pop(0), lane, plain=True)
+            probe = plist.pop(0)
+            span = probe.bitmap_span() if routed else None
+            if span is not None:
+                return join_bitmap_plain(probe, lane, *span)
+            sk = sorted_keys_for(probe, lane, plain=True)
             return sk[torch.searchsorted(sk, lane).clamp_max(
                 sk.shape[0] - 1)] == lane
         if kind not in _RAW_KINDS:
@@ -2906,6 +2960,88 @@ def join_member_map(probes: Sequence["SortedKeys"], lane: torch.Tensor
     return JoinMemberMap(torch.from_numpy(bits).to(lane.device), lo)
 
 
+#: K1's single and stacked join_raw leaf tests a bit of a bitmap of the dim
+#: keys (JoinBitmap) where they span at most this many values: 8 MB of
+#: words at most, which stay in the H100's 50 MB L2 beside the key lane;
+#: wider key sets keep the probe of their K12-sorted keys. J2.1's part
+#: keys span 5.6M values, 700 KB
+JOIN_BITMAP_MAX_SPAN = 1 << 26
+#: the coarse level of a bitmap, a bit for each 2^shift keys, has at most
+#: this many bytes, so that a lone join leaf stages it in each block's
+#: shared memory (two blocks of 1,024 threads an SM; filter_mask.cu
+#: kJoinSmemBytes). Up to 901,120 keys of span it is the bitmap itself
+#: (shift 0); J2.1's part keys span 5.6M values, shift 3: a row whose
+#: coarse bit is clear (all but ~4% at J2.1) never reads the 700 KB
+#: bitmap in L2, where each row's bit would cost an L2 sector of its own
+JOIN_BITMAP_SMEM_BYTES = 110 * 1024
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class JoinBitmap:
+    """A join_raw leaf's dim keys as a bitmap over [base, base + span):
+    words int32 [n] (n a multiple of 4, uint32 bits), bit (k - base) & 31
+    of word (k - base) >> 5 set iff key k is among them; and its coarse
+    level `coarse`, the same layout for the offsets (k - base) >> shift
+    (bit c set iff a key lies in [c << shift, (c + 1) << shift)), shift the
+    least that keeps it within JOIN_BITMAP_SMEM_BYTES."""
+    words: torch.Tensor
+    coarse: torch.Tensor
+    shift: int
+    base: int
+    span: int
+
+
+def _bitmap_word_count(span: int, shift: int = 0) -> int:
+    """Words of a bitmap with a bit for each 2^shift of `span` values,
+    padded to a multiple of 4 (16-byte rows for the kernel's copies)."""
+    return -(-(((span - 1) >> shift) + 1) // 128) * 4
+
+
+def join_bitmap_shift(span: int) -> int:
+    """The least shift whose coarse level of `span` keys fits
+    JOIN_BITMAP_SMEM_BYTES."""
+    shift = 0
+    while _bitmap_word_count(span, shift) * 4 > JOIN_BITMAP_SMEM_BYTES:
+        shift += 1
+    return shift
+
+
+def join_bitmap_words(keys: np.ndarray, base: int, span: int,
+                      shift: int = 0) -> np.ndarray:
+    """The words (int32, a multiple of 4) of a bitmap with a bit for each
+    2^shift of the `span` values from `base`, set where one of the integer
+    keys falls, built on the host (the padding's repeats of the largest
+    key set its bit once more): the JoinBitmap words at shift 0, its
+    coarse level at its shift."""
+    off = np.unique((keys.astype(np.int64) - base) >> shift)
+    words = np.zeros(_bitmap_word_count(span, shift), dtype=np.uint32)
+    np.bitwise_or.at(words, off >> 5,
+                     np.left_shift(np.uint32(1), (off & 31).astype(np.uint32)))
+    return words.view(np.int32)
+
+
+def join_bitmap_plain(probe: "SortedKeys", lane: torch.Tensor, base: int,
+                      span: int) -> torch.Tensor:
+    """Plain PyTorch bitmap route of the join_raw leaf: the bitmap of the
+    probe's keys built with torch ops (an OR of one bit a key, as a sum of
+    the distinct bits of each word), then each row's bit: bool [rows]."""
+    keys = torch.from_numpy(probe.typed()).to(lane.device)
+    if keys.dtype != lane.dtype:
+        raise ValueError(f"join keys {keys.dtype} do not match the fact key "
+                         f"lane's {lane.dtype}")
+    off = torch.unique(keys.long() - base)
+    words = torch.zeros(_bitmap_word_count(span), dtype=torch.int64,
+                        device=lane.device)
+    words.index_add_(0, off >> 5, torch.ones_like(off) << (off & 31))
+    lo = torch.tensor(base, dtype=lane.dtype, device=lane.device)
+    hi = torch.tensor(base + span - 1, dtype=lane.dtype, device=lane.device)
+    inside = (lane >= lo) & (lane <= hi)
+    # the offset of a row inside the range; 0 outside, where no
+    # subtraction could overflow the lane's dtype
+    at = (torch.where(inside, lane, lo) - lo).long()
+    return inside & ((words[at >> 5] >> (at & 31)) & 1).bool()
+
+
 class SortedKeys:
     """A raw-key join's dim keys (and, for a jraw group key, their int32
     group codes) as JoinContext pads them, sorted once on each device by
@@ -2922,6 +3058,14 @@ class SortedKeys:
         self.codes = None if codes is None else \
             np.ascontiguousarray(codes, dtype=np.int32)
         self._on: Dict[str, tuple] = {}   # device -> (keys, codes)
+        typed = self.typed()
+        base = int(typed.min())
+        #: (base, span) of the keys' bitmap (bitmap_span)
+        self._span = (base, int(typed.max()) - base + 1)
+        self._dtype = typed.dtype
+        self._bitmaps: Dict[str, JoinBitmap] = {}   # device -> bitmap
+        #: host seconds of the last bitmap build and upload (bitmap)
+        self.bitmap_seconds: Optional[float] = None
         # (device, lane dtype, ids of a batch's members) -> (weak refs to
         # them, their batch_lane), the last few batches this one led
         self._stacks: Dict[tuple, tuple] = {}
@@ -2952,6 +3096,40 @@ class SortedKeys:
         (int64 past 4 bytes, else int32), on the host."""
         return self.keys.astype(
             np.int64 if self.keys.dtype.itemsize > 4 else np.int32)
+
+    def bitmap_span(self) -> Optional[Tuple[int, int]]:
+        """(base, span) of the keys' bitmap: their smallest key and the
+        values from it to the largest; None past JOIN_BITMAP_MAX_SPAN."""
+        return self._span if self._span[1] <= JOIN_BITMAP_MAX_SPAN else None
+
+    def bitmap(self, lane: torch.Tensor) -> Optional[JoinBitmap]:
+        """The keys' JoinBitmap on `lane`'s device for K1's single and
+        stacked join_raw leaf, both levels built on the host
+        (join_bitmap_words) and uploaded once per device without a host
+        wait, then cached (the host seconds of the build and upload in
+        bitmap_seconds); None where the keys span more than
+        JOIN_BITMAP_MAX_SPAN values, which keeps the probe."""
+        if self._dtype != _np_of(lane.dtype):
+            raise ValueError(f"join keys {self._dtype} do not match the "
+                             f"fact key lane's {lane.dtype}")
+        span = self.bitmap_span()
+        if span is None:
+            return None
+        dev = str(lane.device)
+        with self._lock:
+            hit = self._bitmaps.get(dev)
+        if hit is not None:
+            return hit
+        typed = self.typed()
+        t0 = time.perf_counter()
+        shift = join_bitmap_shift(span[1])
+        words, coarse = (
+            _upload(torch.from_numpy(join_bitmap_words(typed, *span, s)),
+                    lane.device) for s in (0, shift))
+        out = JoinBitmap(words, coarse, shift, *span)
+        with self._lock:
+            self.bitmap_seconds = time.perf_counter() - t0
+            return self._bitmaps.setdefault(dev, out)
 
     def batch_lane(self, probes: Sequence["SortedKeys"],
                    lane: torch.Tensor):
@@ -3324,6 +3502,9 @@ class _GroupLanes:
     fslots: Dict[int, int]               # agg i -> float lane
     extremes: List[tuple]                # (kind, lane, which, card_pad)
     eslots: Dict[Tuple[int, str], int]   # (agg i, which) -> extreme
+    #: aggs of the "vals" strategy: their float lanes' sums are named
+    #: gagg{i}.sum, as the JAX scatter fallback names them
+    vals: set = dataclasses.field(default_factory=set)
 
 
 def _group_lanes(gaggs, cols) -> _GroupLanes:
@@ -3343,6 +3524,16 @@ def _group_lanes(gaggs, cols) -> _GroupLanes:
             lanes.fslots[i] = len(lanes.floats)
             lanes.floats.append(cols[f"{col}.vlane" if source == "sv"
                                      else f"{col}.raw"])
+        elif fname in ("sum", "avg") and strategy == "vals":
+            # the JAX planner's ("vals", card_pad) past its dense limits
+            # (pinot_tpu/ops/kernels.py:_group_outputs' scatter fallback
+            # sums vals[ids] by group): the decoded values fold as K3's
+            # float sums
+            lanes.fslots[i] = len(lanes.floats)
+            lanes.vals.add(i)
+            lanes.floats.append(
+                cols[f"{col}.vals"][cols[f"{col}.ids"].long()]
+                if source == "sv" else cols[f"{col}.raw"])
         elif _extremes_of(fname) and (
                 (source == "sv" and strategy == "ids") or
                 (source == "raw" and extra is None)):
@@ -3380,7 +3571,7 @@ def _group_outputs(mask, group_spec, cols, params: List,
     for i, (s0, n_p) in lanes.slots.items():
         outs[f"gagg{i}.psums"] = psums[s0:s0 + n_p]
     for i, j in lanes.fslots.items():
-        outs[f"gagg{i}.csums"] = csums[j]
+        outs[f"gagg{i}.{'sum' if i in lanes.vals else 'csums'}"] = csums[j]
     for (i, which), e in lanes.eslots.items():
         outs[f"gagg{i}.{which}"] = tables[e]
     return outs

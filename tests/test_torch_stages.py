@@ -785,6 +785,120 @@ def test_k1_join_raw_leaf_plain_matches_jax(dtype, P):
     assert torch.equal(probes[0], torch.sort(torch.from_numpy(keys)).values)
 
 
+#: the join_raw leaf's edge cases: (dim keys as offsets from a base, the
+#: base per dtype) drawn by _bitmap_case; the route each must take
+BITMAP_CASES = {
+    "one_key": "bitmap",         # a dim side of one key (padded by it)
+    "narrow": "bitmap",          # J2.1's shape: 32,240 of 800,000 keys
+    "negative": "bitmap",        # keys on both sides of 0
+    "staged_edge": "bitmap",     # the largest bitmap staged in shared memory
+    "past_staged": "bitmap",     # one word past it: read from L2
+    "max_span": "bitmap",        # exactly JOIN_BITMAP_MAX_SPAN values
+    "past_max_span": "probe",    # one value more
+    "extremes": "probe",         # the dtype's smallest and largest keys
+}
+
+
+def _bitmap_case(case: str, dtype, P: int, seed: int):
+    """(key lane [P] in dtype, dim keys padded as JoinContext pads them:
+    the largest repeated to a power of two) for a BITMAP_CASES case. The
+    lane holds every key, each key +- 1, the keys just outside [min,
+    max], the dtype's extremes, and random values around the range; an
+    int64 case sits past 2^31 (its base 2^40 + 7, or negative)."""
+    rng = np.random.default_rng([seed, list(BITMAP_CASES).index(case)])
+    info = np.iinfo(dtype)
+    staged_span = tk.JOIN_BITMAP_SMEM_BYTES * 8
+    span = {"one_key": 1, "narrow": 800_000, "negative": 10_001,
+            "staged_edge": staged_span, "past_staged": staged_span + 32,
+            "max_span": tk.JOIN_BITMAP_MAX_SPAN,
+            "past_max_span": tk.JOIN_BITMAP_MAX_SPAN + 1}.get(case)
+    if case == "extremes":
+        keys = np.concatenate([[info.min, info.min + 1, info.max - 1,
+                                info.max], rng.integers(-1000, 1000, 60)])
+    else:
+        base = -5_000 if case == "negative" else (
+            2 ** 40 + 7 if dtype == np.int64 else 11)
+        n = 1 if span == 1 else min(32_240, span)
+        offs = rng.choice(span, n, replace=False) if span > 2 else \
+            np.arange(n)
+        offs[:2 if span > 1 else 1] = [0, span - 1][:2 if span > 1 else 1]
+        keys = base + offs.astype(np.int64)
+    keys = np.unique(keys).astype(dtype)
+    lo, hi = int(keys.min()), int(keys.max())
+    near = np.concatenate([keys, keys.astype(np.int64) - 1,
+                           keys.astype(np.int64) + 1,
+                           [lo - 1, hi + 1, info.min, info.max],
+                           rng.integers(max(lo - 2, info.min),
+                                        min(hi + 3, info.max), P)])
+    near = np.clip(near, info.min, info.max).astype(dtype)
+    lane = rng.permutation(near)[:P]
+    d_pad = 1 << max(3, (len(keys) - 1).bit_length())
+    padded = np.full(d_pad, keys.max(), dtype)
+    padded[:len(keys)] = rng.permutation(keys)
+    return lane, padded
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", list(BITMAP_CASES))
+def test_k1_join_bitmap_route_plain_matches_jax(case, dtype):
+    """The join_raw leaf's plain bitmap route (the CPU's: filter_mask on a
+    host lane) against the JAX branch (_eval_pred kind join_raw, a sort
+    and searchsorted) at each edge: one key, the smallest and largest
+    keys, the values just outside the range, negative keys, int64 keys
+    past 2^31, the padding's repeats of the largest key, the largest
+    staged bitmap and one word past it, exactly JOIN_BITMAP_MAX_SPAN
+    values; past it (and at the dtype's extremes) the probe route. The
+    program K1 runs holds the route's node, and the bitmap's host-built
+    words hold exactly the keys' bits, its coarse level (at most
+    JOIN_BITMAP_SMEM_BYTES: the bitmap itself up to the staged edge, a
+    bit for each 2^shift keys past it) the bits of their offsets >>
+    shift."""
+    P, num_docs = 1 << 16, (1 << 16) - 999
+    lane, keys = _bitmap_case(case, dtype, P, 7)
+    want = np.asarray(jk._eval_pred("join_raw", "raw", len(keys),
+                                    jnp.asarray(lane), [jnp.asarray(keys)]))
+    want = want & (np.arange(P) < num_docs)
+    spec = ("pred", "join_raw", "k", "raw", len(keys))
+    cols = {"k.raw": torch.from_numpy(lane)}
+    probe = tk.SortedKeys(keys)
+    got = tk.filter_mask(P, spec, cols, [probe], num_docs, "cpu")
+    np.testing.assert_array_equal(got.numpy().astype(bool), want)
+    yardstick = tk.filter_mask_plain(P, spec, cols, [probe], num_docs,
+                                     "cpu")
+    assert torch.equal(got, yardstick)
+    route = BITMAP_CASES[case]
+    assert (probe.bitmap_span() is not None) == (route == "bitmap")
+    probes = []
+    buf, n_nodes = tk.compile_filter(spec, [probe], cols, probes)
+    assert n_nodes == 1
+    if route == "bitmap":
+        base, span = probe.bitmap_span()
+        assert buf[0] == 19 and buf[3] == span
+        assert base == int(keys.min()) and span == int(keys.max()) - base + 1
+        shift = int(buf[8])
+        assert shift == {"staged_edge": 0, "past_staged": 1,
+                         "max_span": 7}.get(case, shift)
+        assert buf[6:8].tolist() == [1, 2] and len(probes) == 2
+        off = np.unique(keys.astype(np.int64) - base)
+        for words, o, n in ((probes[0], off, span),
+                            (probes[1], np.unique(off >> shift),
+                             ((span - 1) >> shift) + 1)):
+            bits = np.unpackbits(words.numpy().view(np.uint8),
+                                 bitorder="little")
+            assert len(bits) % 128 == 0 and len(bits) >= n
+            want_bits = np.zeros(len(bits), np.uint8)
+            want_bits[o] = 1
+            np.testing.assert_array_equal(bits, want_bits)
+        assert probes[1].numel() * 4 <= tk.JOIN_BITMAP_SMEM_BYTES
+        # the least shift: one less would not fit
+        assert shift == 0 or -(-(((span - 1) >> (shift - 1)) + 1) // 128) \
+            * 16 > tk.JOIN_BITMAP_SMEM_BYTES
+        hit = tk.join_bitmap_plain(probe, cols["k.raw"], base, span)
+        np.testing.assert_array_equal(hit.numpy(), np.isin(lane, keys))
+    else:
+        assert buf[0] == 17 and buf[3] == len(keys)
+
+
 def _batched_join_members(P, dtype, n, seed):
     """A raw key lane and n members of one join_raw spec, each with its
     own dim side (all padded to one Dp, as one signature's members are),
@@ -1068,6 +1182,57 @@ def test_k1_join_raw_leaf_cuda_matches_plain(cuda_device, dtype):
         P, S, spec, {"k.raw": cols["k.raw"].cpu()}, [probe], docs.cpu())
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+#: launches of each K1 join_raw route case on the card: a race or a lost
+#: row of a thread's four shows only as a wrong byte now and then
+K1_JOIN_REPEATS = 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", list(BITMAP_CASES))
+def test_k1_join_raw_routes_cuda_match_plain(cuda_device, case, dtype):
+    """Both routes of the single join_raw leaf on the card at each edge
+    case of BITMAP_CASES: K1_JOIN_REPEATS launches of the lone leaf (on
+    the bitmap route the four-rows-a-thread kernel, its coarse level in
+    shared memory: the bitmap itself up to the staged edge, a bit for
+    each 2^shift keys past it) and of the leaf under an AND (the
+    program's interpreter), each bit-equal to the plain version's
+    searchsorted and counted on the case's route, and the stacked form
+    over three segments the same way."""
+    P, num_docs = 1 << 20, (1 << 20) - 999
+    lane, keys = _bitmap_case(case, dtype, P, 8)
+    route = BITMAP_CASES[case]
+    other = "probe" if route == "bitmap" else "bitmap"
+    info = np.iinfo(dtype)
+    spec = ("pred", "join_raw", "k", "raw", len(keys))
+    both = ("and", (spec, ("pred", "range_raw", "k", "raw", (True, True))))
+    probe = tk.SortedKeys(keys)
+    cols = {"k.raw": torch.from_numpy(lane).to(cuda_device)}
+    for sp, ps in ((spec, [probe]),
+                   (both, [probe, dtype(info.min), dtype(info.max - 1)])):
+        want = tk.filter_mask_plain(P, sp, cols, ps, num_docs)
+        tk.reset_launch_counts()
+        for _ in range(K1_JOIN_REPEATS):
+            assert torch.equal(tk.filter_mask(P, sp, cols, ps, num_docs),
+                               want)
+        counts = tk.launch_counts()
+        assert counts["filter_mask"] == K1_JOIN_REPEATS
+        assert counts[f"filter_mask[{route}]"] == K1_JOIN_REPEATS
+        assert counts[f"filter_mask[{other}]"] == 0
+    S = 3
+    flat = np.concatenate([lane] + [_bitmap_case(case, dtype, P, 9 + s)[0]
+                                    for s in range(S - 1)])
+    cols = {"k.raw": torch.from_numpy(flat).to(cuda_device)}
+    docs = torch.tensor([num_docs, P - 5000, P], dtype=torch.int32,
+                        device=cuda_device)
+    want = tk.filter_mask_stacked_plain(P, S, spec, cols, [probe], docs)
+    tk.reset_launch_counts()
+    for _ in range(K1_JOIN_REPEATS):
+        got = tk.filter_mask_stacked(P, S, spec, cols, [probe], docs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert tk.launch_counts()[f"filter_mask[{route}]"] == K1_JOIN_REPEATS
 
 
 @pytest.mark.cuda

@@ -308,6 +308,41 @@ def test_k9_scoring_order_equals_vec_tree_sum(dim_pad):
         np.testing.assert_array_equal(_bits(norm2), want_norm)
 
 
+def _k8_rows_unroll(dim_pad: int) -> int:
+    """vector_scores.cu:rows_unroll: K8's rows a lane group and pass."""
+    e = max(1, dim_pad // 32)
+    return 4 if e <= 4 else (2 if e <= 16 else 1)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+@pytest.mark.parametrize("dim_pad", [16, 128])
+def test_k8_single_query_scores_equal_jax_contract(dim_pad, metric):
+    """One query takes the batched K8 kernel with one member slot (M = 1:
+    the U rows' dot and norm butterflies as one reduce-scatter each, then
+    vec_tree.cuh:vec_score): that order of rounded operations gives the
+    JAX _vector_scores / vec_tree_sum contract bit for bit, and so does
+    the single-query plain version, at 16 and 128 dims (zero rows, tied
+    rows, rows at three scales)."""
+    rng = np.random.default_rng([dim_pad, 16])
+    mat, q, q_norm = _vec_operands(4099, dim_pad, seed=dim_pad + 16)
+    mat *= rng.choice([1e-3, 1.0, 1e4], (mat.shape[0], 1)).astype(np.float32)
+    want = _bits(jk._vector_scores(jnp.asarray(mat), jnp.asarray(q),
+                                   jnp.float32(q_norm), metric))
+    dot, norm2 = _scatter_scores_model(mat, q[None], _k8_rows_unroll(dim_pad),
+                                       slots=1)
+    dot = dot[0]
+    if metric == "cosine":
+        with np.errstate(divide="ignore", invalid="ignore"):
+            denom = np.sqrt(norm2) * np.float32(q_norm)
+            got = np.where(denom > 0, dot / denom,
+                           np.float32(-np.inf)).astype(np.float32)
+    else:
+        got = dot
+    np.testing.assert_array_equal(_bits(got), want)
+    plain = tk.vector_scores(torch.from_numpy(mat), q, q_norm, metric)
+    np.testing.assert_array_equal(_bits(plain.numpy()), want)
+
+
 def _contract_case(name: str):
     for case in jk.contract_cases():
         if case[0] == name:
@@ -619,6 +654,33 @@ def test_vector_scores_cuda_bit_equal_plain(cuda_device, metric, dim_pad):
     got = tk.vector_scores(m, q, q_norm, metric)
     want = tk.vector_scores_plain(m, q, q_norm, metric)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+#: launches of each single-query K8 case on the card
+K8_REPEATS = 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+@pytest.mark.parametrize("dim_pad", [1 << i for i in range(13)])
+def test_vector_scores_cuda_one_slot_every_width(cuda_device, metric,
+                                                 dim_pad):
+    """One query takes the batched K8 kernel's one-slot form at every
+    dim_pad its dispatch takes (at 4,096 dims one query's 16 KB of shared
+    memory needs no opt-in): K8_REPEATS launches in a fresh count, each
+    bit-equal to the plain version, all counted as vector_scores and none
+    as vector_scores_batched."""
+    rows = 70001 if dim_pad <= 128 else 4099
+    mat, q, q_norm = _vec_operands(rows, dim_pad, seed=dim_pad + 1)
+    m = torch.from_numpy(mat).to(cuda_device)
+    want = tk.vector_scores_plain(m, q, q_norm, metric).view(torch.int32)
+    tk.reset_launch_counts()
+    for _ in range(K8_REPEATS):
+        got = tk.vector_scores(m, q, q_norm, metric)
+        assert torch.equal(got.view(torch.int32), want)
+    counts = tk.launch_counts()
+    assert counts["vector_scores"] == K8_REPEATS
+    assert counts["vector_scores_batched"] == 0
 
 
 #: launches of each K9 case on the card: a race between the cluster's

@@ -41,6 +41,12 @@ non-zero exit and no result line:
    on the lanes and parameters the SSB plans give them on segment 0
    (integer outputs equal, float64 sums within CSUMS_RTOL), timed with
    CUDA events and an L2 flush before each launch, beside their bounds.
+   K1 on every SSB filter on the route the wrapper picks (the wide one,
+   which every SSB program must take) and on the row route forced,
+   K1_ROUTE_REPEATS launches each, bit-checked; Q1.1 timed on both
+   routes (and the wide one after a clean, read-only flush), with
+   launch_breakdown's device time of the kernel and of the row route's
+   program copy.
    K3 runs on every group-by query (planned with compaction off: its
    dense direct-keyed route), and where its table fits a block's
    shared memory, also with the shared tables forced on and forced off.
@@ -105,7 +111,8 @@ non-zero exit and no result line:
    the stack's flat rows, each against its plain stacked version and
    against S per-segment launches on the same lanes; timed as one stacked
    launch, as S sequential launches and beside the stacked bound; K1's
-   vdoc node over an [S, P] liveness lane the same way.
+   vdoc node over an [S, P] liveness lane the same way; K1 (mask and
+   seg_matched) on both routes, the row route timed beside the wide one.
 11. ssb_stacked: the 13 queries through QueryEngine(segments,
    mesh=make_mesh()): each must take the stacked route, launch each
    kernel it uses once (counts set to 0 before each query, read after),
@@ -118,7 +125,9 @@ non-zero exit and no result line:
    block_compact and K15 slot_tables against their plain versions
    (integers equal, float64 sums within CSUMS_RTOL), timed with the L2
    flushed beside their bounds and torch.nonzero + index_select (K14),
-   index_add_ (K15). Then SSB Q2.1-Q4.3, per segment and stacked, with
+   index_add_ (K15). K14 on its warp route (which these cases must take)
+   and its block route forced, K14_REPEATS launches each, every output
+   checked, both timed. Then SSB Q2.1-Q4.3, per segment and stacked, with
    compaction on and off (a second engine whose executor is
    ServerQueryExecutor(InstancePlanMaker(allow_group_compaction=False));
    the stacked engine's plan maker swapped, so the stack is shared):
@@ -352,8 +361,13 @@ Before them, the routes line: K12's cluster-route launches on the window,
 the join's dim side and K16's sort route, K6's select-route launches
 and K1's join_raw bitmap-route launches on every path, each of which
 must be above 0 (and K1's probe-route launches, which the join tables'
-keys never need); the kernels line gives each K12, K6 and K1 entry's
-launches by route (route_launches).
+keys never need); K1's wide-route and K14's warp-route launches on the
+SSB paths (per segment, stacked, compacted, the cubes' segments, the
+synthesized stack, the server), which must be above 0, while their row
+and block routes must take none of those launches; the kernels line
+gives each K12, K6, K1 and K14 entry's launches by route
+(route_launches), and K1's and K14's old routes re-timed in the same run
+(ms_rows, stacked_ms_rows, ms_block).
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -397,9 +411,10 @@ ROWS_PER_SF = 6_000_000
 WINDOW_SCAN_REPEATS = 10        # K13 launches a case, each bit-checked
 SORT_SELECT_REPEATS = 10        # K12 / K6 launches a case, each bit-checked
 JOIN_K1_REPEATS = 10            # K1 join_raw launches a route, each checked
-#: the launch-count keys of K12's, K6's and K1's join_raw routes
+#: the launch-count keys of K12's, K6's, K1's join_raw, K1's and K14's
+#: routes
 ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]", "[bitmap]",
-               "[probe]")
+               "[probe]", "[wide]", "[rows]", "[leaf]", "[warp]", "[block]")
 
 
 #: the kernels of the SSB and baseballStats paths (K1-K7)
@@ -554,49 +569,99 @@ def k3_check(P, plan, cols, mask, extra_bytes: int = 0):
     return report, max(int_err, f_err), ms["default"], plain, b
 
 
+#: K1 launches a route takes in the route checks, each bit-checked
+K1_ROUTE_REPEATS = 3
+
+
+def k1_routes_check(P, n, spec, cols, params, ref, seg_docs=None,
+                    n_segs=None):
+    """K1 on one program, single (or stacked, with seg_docs over n_segs
+    segments) on the route the wrapper picks and on the row route forced,
+    K1_ROUTE_REPEATS launches each: the masks (and the stacked form's
+    seg_matched, `ref` then (mask, matched)) against the plain version's.
+    Returns {"route": the picked route, "max_abs_err": ...}."""
+    from pinot_tpu_torch.ops import kernels as K
+    err, picked = 0, None
+    for route in (None, "rows"):
+        for _ in range(K1_ROUTE_REPEATS):
+            K.reset_launch_counts()
+            if seg_docs is None:
+                got = K.filter_mask(P, spec, cols, params, n, route=route)
+                e = int((got.int() - ref.int()).abs().max())
+            else:
+                got, m = K.filter_mask_stacked(P, n_segs, spec, cols, params,
+                                               seg_docs, route=route)
+                e = max(int((got.int() - ref[0].int()).abs().max()),
+                        int((m - ref[1]).abs().max()))
+            counts = K.launch_counts()
+            taken = [r for r in K.FILTER_ROUTES if counts[f"filter_mask[{r}]"]]
+            if len(taken) != 1 or (route and taken != [route]):
+                raise AssertionError(f"K1 took {taken}, asked {route}")
+            if route is None:
+                picked = taken[0]
+            err = max(err, e)
+    return {"route": picked, "max_abs_err": err}
+
+
 def kernel_check(seg, pqls):
     """Each kernel against its plain version on segment 0's lanes."""
     from pinot_tpu_torch.ops import kernels as K
     P, n = seg.padded_docs, seg.num_docs
     report, entries = [], {}
 
-    # K1 on every SSB filter, plus the kinds SSB does not use
-    k1_err = 0
-    for q, pql in pqls.items():
-        plan, cols = plan_operands(seg, pql)
-        got = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
-        ref = K.filter_mask_plain(P, plan.filter_spec, cols, plan.params, n)
-        err = int((got.int() - ref.int()).abs().max())
-        report.append({"kernel": "filter_mask", "case": q,
-                       "matched": int(ref.sum()), "max_abs_err": err})
-        k1_err = max(k1_err, err)
-    _, cols = plan_operands(seg, pqls["q4.3"])
+    # K1 on every SSB filter, plus the kinds SSB does not use: the route
+    # the wrapper picks (the wide one for every SSB program) and the row
+    # route forced, each bit-equal to the plain version
+    _, extra_cols = plan_operands(seg, pqls["q4.3"])
     member = np.zeros(1024, bool)
     member[::3] = True
     extra = ("or", (("and", (("pred", "neq_id", "s_city", "sv", None),
                              ("pred", "member", "p_brand1", "sv", 1024))),
                     ("pred", "notin_ids", "c_region", "sv", 4)))
     extra_params = [np.int32(7), member, np.array([0, 1, 2, -1], np.int32)]
-    got = K.filter_mask(P, extra, cols, extra_params, n)
-    ref = K.filter_mask_plain(P, extra, cols, extra_params, n)
-    err = int((got.int() - ref.int()).abs().max())
-    report.append({"kernel": "filter_mask", "case": "neq/member/notin",
-                   "matched": int(ref.sum()), "max_abs_err": err})
-    k1_err = max(k1_err, err)
+    k1_err = 0
+    for q, pql in list(pqls.items()) + [("neq/member/notin", None)]:
+        if pql is None:
+            spec, params, cols = extra, extra_params, extra_cols
+        else:
+            plan, cols = plan_operands(seg, pql)
+            spec, params = plan.filter_spec, plan.params
+        ref = K.filter_mask_plain(P, spec, cols, params, n)
+        r = k1_routes_check(P, n, spec, cols, params, ref)
+        report.append({"kernel": "filter_mask", "case": q,
+                       "matched": int(ref.sum()), **r})
+        k1_err = max(k1_err, r["max_abs_err"])
+        if pql is not None and r["route"] != "wide":
+            raise AssertionError(f"K1 {q} took the {r['route']} route")
 
-    # K1 and K2 timed on Q1.1 (three id lanes, three part lanes)
+    # K1 and K2 timed on Q1.1 (three id lanes, three part lanes): the wide
+    # route beside the row route re-timed in the same run, and the device
+    # time of each launch's kernel and program copy
     plan, cols = plan_operands(seg, pqls["q1.1"])
     lanes = {k: cols[k] for k in K.filter_lane_keys(plan.filter_spec)}
     mask = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
     matched = int(mask.sum())
     k1_bytes = sum(t.numel() * t.element_size() for t in lanes.values()) + P
+    k1_args = (P, plan.filter_spec, cols, plan.params, n)
+    # a 5 ms spin keeps any host work of the wrapper out of the events:
+    # with 1 ms the wide route read 23.0-23.7 µs in three runs, 43.7 in one
     entries["filter_mask"] = dict(
         max_abs_err=k1_err,
-        ms=time_ms(lambda: K.filter_mask(P, plan.filter_spec, cols,
-                                         plan.params, n)),
-        plain_ms=time_ms(lambda: K.filter_mask_plain(
-            P, plan.filter_spec, cols, plan.params, n)),
-        bound=bound(k1_bytes, P * 2 * len(lanes)), library_ms=None)
+        ms=time_ms(lambda: K.filter_mask(*k1_args), spins=5),
+        ms_rows=time_ms(lambda: K.filter_mask(*k1_args, route="rows"),
+                        spins=5),
+        ms_clean=time_ms(lambda: K.filter_mask(*k1_args), clean=True,
+                         spins=5),
+        plain_ms=time_ms(lambda: K.filter_mask_plain(*k1_args)),
+        bound=bound(k1_bytes, P * 2 * len(lanes)), library_ms=None,
+        launch_us=launch_breakdown(lambda: K.filter_mask(*k1_args)),
+        launch_us_rows=launch_breakdown(
+            lambda: K.filter_mask(*k1_args, route="rows")))
+    emit({"phase": "kernel_check", "kernel": "filter_mask", "case": "q1.1",
+          "matched": matched,
+          **{k: v for k, v in entries["filter_mask"].items()
+             if k != "bound"}, "bound_ms": entries["filter_mask"]["bound"][0],
+          "bound_by": entries["filter_mask"]["bound"][1]})
     parts = [cols["lo_revenue.parts"]]
     L = parts[0].shape[0]
     got = K.masked_part_sums(mask, parts)
@@ -686,17 +751,20 @@ def bb_kernel_check(seg, raw_seg):
 
     for case, pql in BB_K1_PQLS.items():
         plan, cols = plan_operands(seg, pql)
-        got = K.filter_mask(P, plan.filter_spec, cols, plan.params, n)
         ref = K.filter_mask_plain(P, plan.filter_spec, cols, plan.params, n)
-        err = int((got.int() - ref.int()).abs().max())
+        r = k1_routes_check(P, n, plan.filter_spec, cols, plan.params, ref)
+        err = r["max_abs_err"]
         lanes = [cols[k] for k in K.filter_lane_keys(plan.filter_spec)]
         b = bound(sum(t.numel() * t.element_size() for t in lanes) + P,
                   P * 2 * sum(t.numel() // P for t in lanes))
         report.append({
             "kernel": "filter_mask", "case": f"baseball {case}",
-            "matched": int(ref.sum()), "max_abs_err": err,
+            "matched": int(ref.sum()), **r,
+            "row_bytes": sum(K._row_bytes(t) for t in lanes),
             "ms": time_ms(lambda: K.filter_mask(
                 P, plan.filter_spec, cols, plan.params, n)),
+            "ms_rows": time_ms(lambda: K.filter_mask(
+                P, plan.filter_spec, cols, plan.params, n, route="rows")),
             "plain_ms": time_ms(lambda: K.filter_mask_plain(
                 P, plan.filter_spec, cols, plan.params, n)),
             "bound_ms": b[0], "bound_by": b[1]})
@@ -1135,7 +1203,9 @@ def stacked_kernel_check(st_engine, pqls):
             raise AssertionError(f"stacked {name} disagrees on {case}")
         out.setdefault(name, dict(ms=ms, s_sequential_ms=seq_ms,
                                   plain_ms=plain_ms, bound_ms=b[0],
-                                  bound_by=b[1], case=case))
+                                  bound_by=b[1], case=case,
+                                  **{k: v for k, v in extra.items()
+                                     if k.startswith("ms_")}))
 
     # K1 and K2 on Q1.1 (three id lanes, three part lanes)
     plan, flat, per, mask, matched = operands(pqls["q1.1"])
@@ -1143,9 +1213,15 @@ def stacked_kernel_check(st_engine, pqls):
         P, S, plan.filter_spec, flat, plan.params, docs)
     seq = [K.filter_mask(P, plan.filter_spec, c, plan.params, sg.num_docs)
            for sg, c in zip(segs, per)]
+    # both routes, K1_ROUTE_REPEATS launches each (mask and seg_matched)
+    k1r = k1_routes_check(P, 0, plan.filter_spec, flat, plan.params,
+                          (ref_mask, ref_matched), docs, S)
     equal = torch.equal(mask, ref_mask) and \
         torch.equal(matched, ref_matched) and torch.equal(torch.cat(seq),
-                                                         mask)
+                                                         mask) and \
+        k1r["max_abs_err"] == 0
+    if k1r["route"] != "wide":
+        raise AssertionError(f"the stacked K1 took {k1r['route']}")
     keys = K.filter_lane_keys(plan.filter_spec)
     n_match = int(matched.sum())
     lane_bytes = sum(flat[k].numel() * flat[k].element_size() for k in keys)
@@ -1158,7 +1234,13 @@ def stacked_kernel_check(st_engine, pqls):
            time_ms(lambda: K.filter_mask_stacked_plain(
                P, S, plan.filter_spec, flat, plan.params, docs), reps=3),
            bound(lane_bytes + S * P + 4 * S, S * P * 2 * len(keys)),
-           matched=n_match)
+           matched=n_match, route=k1r["route"],
+           ms_rows=time_ms(lambda: K.filter_mask_stacked(
+               P, S, plan.filter_spec, flat, plan.params, docs,
+               route="rows")),
+           ms_s_sequential_rows=time_ms(lambda: [K.filter_mask(
+               P, plan.filter_spec, c, plan.params, sg.num_docs,
+               route="rows") for sg, c in zip(segs, per)], spins=S))
     # K1's vdoc node over the stack's [S, P] liveness lane
     vspec = with_valid_doc_mask(plan.filter_spec)
     vkey = f"{VALID_DOC_COLUMN}.vdoc"
@@ -1174,10 +1256,13 @@ def stacked_kernel_check(st_engine, pqls):
         raise AssertionError("the stacked K1 launched without the vdoc node")
     ref_mask, ref_matched = K.filter_mask_stacked_plain(
         P, S, vspec, vflat, plan.params, docs)
+    k1r = k1_routes_check(P, 0, vspec, vflat, plan.params,
+                          (ref_mask, ref_matched), docs, S)
     equal = torch.equal(vmask, ref_mask) and \
         torch.equal(vmatched, ref_matched) and torch.equal(torch.cat([
             K.filter_mask(P, vspec, c, plan.params, sg.num_docs)
-            for sg, c in zip(segs, vper)]), vmask)
+            for sg, c in zip(segs, vper)]), vmask) and \
+        k1r["max_abs_err"] == 0
     record("filter_mask[vdoc]", "q1.1 with a bitmap", equal,
            time_ms(lambda: K.filter_mask_stacked(P, S, vspec, vflat,
                                                  plan.params, docs)),
@@ -1188,7 +1273,10 @@ def stacked_kernel_check(st_engine, pqls):
                P, S, vspec, vflat, plan.params, docs), reps=3),
            bound(lane_bytes + 2 * S * P + 4 * S,
                  S * P * 2 * (len(keys) + 1)),
-           matched=int(vmatched.sum()), unmasked_matched=n_match)
+           matched=int(vmatched.sum()), unmasked_matched=n_match,
+           route=k1r["route"],
+           ms_rows=time_ms(lambda: K.filter_mask_stacked(
+               P, S, vspec, vflat, plan.params, docs, route="rows")))
     parts = [flat["lo_revenue.parts"]]
     L = parts[0].shape[0]
     got = K.masked_part_sums(mask, parts, seg_rows=P)
@@ -1699,6 +1787,9 @@ CROWDED_SEGMENTS = 2
 #: timed runs a path of the on / off comparison takes at most (four
 #: paths a case)
 GROUP_COMPACT_REPEATS = 3
+#: K14 launches a route takes in compact_kernel_check, each checked: a
+#: race in the warp scan shows only as a wrong slot
+K14_REPEATS = 10
 
 
 def bb_compact_draws(oracle):
@@ -1801,8 +1892,19 @@ def compact_kernel_check(seg, cases):
                                       if e[0] == "raw"]
         a14 = (mask, keys, strides, g_pad, r, lanes.parts, value_lanes,
                ids_lanes)
-        got, ref = K.block_compact(*a14), K.block_compact_plain(*a14)
-        ok14 = all(_equal(a, b) for a, b in zip(got, ref))
+        ref = K.block_compact_plain(*a14)
+        # the warp route (every case here has single-value keys) and the
+        # block route forced, K14_REPEATS launches each, every output of
+        # each launch against the plain version's
+        route14 = K.compact_route(mask, keys, r)
+        if route14 != "warp":
+            raise AssertionError(f"block_compact {label} took {route14}")
+        ok14 = True
+        for route in K.COMPACT_ROUTES:
+            for _ in range(K14_REPEATS):
+                got = K.block_compact(*a14, route=route)
+                ok14 = ok14 and all(_equal(a, b) for a, b in zip(got, ref))
+        got = K.block_compact(*a14)
         kc, parts_c, vals_c, ids_c, _ovf, _m = got
         cap = t * r
         taken = int((kc < g_pad).sum())
@@ -1818,17 +1920,28 @@ def compact_kernel_check(seg, cases):
             idx = torch.nonzero(mask).view(-1)
             return [v.index_select(0, idx) for v in idx_lanes]
 
+        # a 5 ms spin, as K1 Q1.1's: with 1 ms the warp route read 86.6 µs
+        # in one run (21.7-23.1 otherwise, 18.2 after a clean flush)
         e14 = dict(max_abs_err=0 if ok14 else 1,
-                   ms=time_ms(lambda: K.block_compact(*a14)),
+                   ms=time_ms(lambda: K.block_compact(*a14), spins=5),
+                   ms_block=time_ms(lambda: K.block_compact(
+                       *a14, route="block"), spins=5),
+                   ms_clean=time_ms(lambda: K.block_compact(*a14),
+                                    clean=True, spins=5),
                    plain_ms=time_ms(lambda: K.block_compact_plain(*a14),
                                     reps=3),
                    bound=bound(P + taken * row_bytes + cap * slot_bytes,
                                P * w),
-                   library_ms=time_ms(library14), case=label)
+                   library_ms=time_ms(library14), case=label,
+                   route=route14)
         emit({"phase": "group_compact_check", "case": label,
               "kernel": "block_compact", "g_pad": g_pad, "kmax": kmax,
               "r": r, "cap": cap, "slots_taken": taken,
               "overflow": int(got[4]), "equal": ok14,
+              "repeats": K14_REPEATS,
+              "launch_us": launch_breakdown(lambda: K.block_compact(*a14)),
+              "launch_us_block": launch_breakdown(
+                  lambda: K.block_compact(*a14, route="block")),
               **{k: v for k, v in e14.items() if k != "bound"},
               "bound_ms": e14["bound"][0], "bound_by": e14["bound"][1]})
         if not ok14:
@@ -3054,7 +3167,9 @@ def run_batch(table, engine, families, check, repeats: int):
                         raise AssertionError(f"{table} {fam}: {k} launched "
                                              f"{v} times over {seq_scans} "
                                              "plans")
-                    if chunks:
+                    # K1's and K14's launch routes are the single
+                    # forms' own: the batched kernels count none
+                    if chunks and _batched_name(k) in launches:
                         want[_batched_name(k)] = per_plan * chunks
                     if alone:
                         want[k] = per_plan * alone
@@ -3196,9 +3311,10 @@ def liveness_lane(n_rows: int, num_docs, seed: int) -> torch.Tensor:
 def vdoc_check(seg, plan, cols, case: str, seed: int):
     """K1 with the vdoc node ANDed into a plan's filter (the planner's
     with_valid_doc_mask) over a liveness lane: bit-equal to the plain
-    version in both instantiations; timed beside the same K1 without the
-    node, the general instantiation, the plain version and the bound (the
-    unmasked K1's bytes and one byte a row more). Returns its entry."""
+    version in both instantiations and on both routes; timed beside the
+    row route, the same K1 without the node, the general instantiation,
+    the plain version and the bound (the unmasked K1's bytes and one byte
+    a row more). Returns its entry."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
         with_valid_doc_mask
@@ -3209,9 +3325,9 @@ def vdoc_check(seg, plan, cols, case: str, seed: int):
     keys = K.filter_lane_keys(spec)
     device = cols[keys[0]].device
 
-    def wide():
+    def general(route=None):
         return K._launch_filter(spec, cols, plan.params, keys, device, P, P,
-                                None, n, None, general=True)
+                                None, n, None, general=True, route=route)
 
     K.reset_launch_counts()
     got = K.filter_mask(P, spec, cols, plan.params, n)
@@ -3219,8 +3335,10 @@ def vdoc_check(seg, plan, cols, case: str, seed: int):
     if K.launch_counts()["filter_mask[vdoc]"] != 1:
         raise AssertionError(f"vdoc {case}: the node was not launched")
     ref = K.filter_mask_plain(P, spec, cols, plan.params, n)
-    err = max(int((got.int() - ref.int()).abs().max()),
-              int((wide().int() - ref.int()).abs().max()))
+    err = max([int((got.int() - ref.int()).abs().max())] +
+              [int((g.int() - ref.int()).abs().max()) for g in (
+                  general(), general("rows"), K.filter_mask(
+                      P, spec, cols, plan.params, n, route="rows"))])
     lane_bytes = sum(cols[k].numel() * cols[k].element_size() for k in keys)
     b = bound(lane_bytes + P, P * 2 * len(keys))
     r = {"kernel": "filter_mask[vdoc]", "case": case,
@@ -3229,7 +3347,10 @@ def vdoc_check(seg, plan, cols, case: str, seed: int):
                            n).sum()),
          "max_abs_err": err,
          "ms": time_ms(lambda: K.filter_mask(P, spec, cols, plan.params, n)),
-         "ms_general": time_ms(wide),
+         "ms_rows": time_ms(lambda: K.filter_mask(P, spec, cols,
+                                                  plan.params, n,
+                                                  route="rows")),
+         "ms_general": time_ms(general),
          "ms_without_node": time_ms(lambda: K.filter_mask(
              P, plan.filter_spec, cols, plan.params, n)),
          "plain_ms": time_ms(lambda: K.filter_mask_plain(
@@ -3238,8 +3359,8 @@ def vdoc_check(seg, plan, cols, case: str, seed: int):
     emit({"phase": "kernel_check", **r})
     if err:
         raise AssertionError(f"filter_mask[vdoc] {case} disagrees: {err}")
-    return dict(max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
-                bound=b, library_ms=None)
+    return dict(max_abs_err=err, ms=r["ms"], ms_rows=r["ms_rows"],
+                plain_ms=r["plain_ms"], bound=b, library_ms=None)
 
 
 def _rt_rows(cols) -> list:
@@ -5409,6 +5530,7 @@ def main() -> int:
         raise AssertionError(f"the crowded filter never escalated: {routes}")
     gc_launches = {k: v + launches[k] for k, v in gc_launches.items()}
     gc_routes.update(routes)
+    ssb_gc_launches = dict(gc_launches)     # the SSB tables' compaction
     del sorted_segs, sorted_off, off_engine
     seconds["group_compact"] = time.perf_counter() - t0
     emit({"phase": "ssb_stacked_summary", "segments": stack.n_real,
@@ -5722,21 +5844,38 @@ def main() -> int:
               "masked_select_vector[select]": path_launches(
                   "masked_select_vector[select]"),
               "filter_mask[bitmap]": path_launches("filter_mask[bitmap]")}
+    # K1's and K14's routes on the SSB paths (per segment, stacked, the
+    # compacted group-bys, the cubes' segments, the synthesized stack, the
+    # server): every launch on the wide / warp route
+    ssb_paths = (ssb_launches, ssb_st_launches, ssb_gc_launches,
+                 store_launches, synth_launches, server_launches)
+    ssb_routes = {k: sum(p.get(k, 0) for p in ssb_paths) for k in (
+        "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
+        "block_compact[warp]", "block_compact[block]")}
+    routes.update({k: ssb_routes[k] for k in ("filter_mask[wide]",
+                                              "block_compact[warp]")})
     emit({"phase": "routes", "launches": routes,
           "passes_route": {k: path_launches(f"{k}[passes]")
                            for k in ("radix_sort", "radix_sort_join",
                                      "radix_sort_rank")},
           "tile_route": path_launches("masked_select[tile]"),
-          "probe_route": path_launches("filter_mask[probe]")})
+          "probe_route": path_launches("filter_mask[probe]"),
+          "ssb_routes": ssb_routes,
+          "all_paths": {k: path_launches(k) for k in (
+              "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
+              "block_compact[warp]", "block_compact[block]")}})
     missing = [k for k, v in routes.items() if not v]
     if missing:
         raise AssertionError(f"the main path never took {missing}")
+    old_route = {k: v for k, v in ssb_routes.items()
+                 if k in ("filter_mask[rows]", "block_compact[block]") and v}
+    if old_route:
+        raise AssertionError(f"SSB launches on the old routes: {old_route}")
 
     def route_launches(name: str):
         """{route: launches} of a kernel counted by route, else None."""
         nodes = [n for n in K.KERNELS[name].node_launches
-                 if n in ("cluster", "passes", "select", "tile", "bitmap",
-                          "probe")]
+                 if f"[{n}]" in ROUTE_NODES]
         if not nodes:
             return None
         if name.endswith("_batched"):
@@ -5764,7 +5903,8 @@ def main() -> int:
                          "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                          "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                          "bound_by": e["bound"][1],
-                         "library_ms": e["library_ms"], "case": e["case"]})
+                         "library_ms": e["library_ms"], "case": e["case"],
+                         **{k: e[k] for k in ("ms_block",) if k in e}})
             continue
         if name in STAGE_KERNELS:
             e = stage_entries[name]
@@ -5805,7 +5945,11 @@ def main() -> int:
                      "stacked_launches": st_launches,
                      "stacked_ms": st["ms"],
                      "stacked_s_sequential_ms": st["s_sequential_ms"],
-                     "stacked_bound_ms": st["bound_ms"]})
+                     "stacked_bound_ms": st["bound_ms"],
+                     # K1's row route, re-timed beside the wide one
+                     **{k: e[k] for k in ("ms_rows",) if k in e},
+                     **{f"stacked_{k}": st[k] for k in (
+                         "ms_rows", "ms_s_sequential_rows") if k in st}})
     # K1's vdoc node, counted apart: the realtime phase's launches (per
     # segment, frozen prefixes and stacked; then batched)
     source = K.KERNELS["filter_mask"].source
@@ -5816,7 +5960,9 @@ def main() -> int:
                  "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                  "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                  "bound_by": e["bound"][1], "library_ms": None,
+                 "ms_rows": e["ms_rows"],
                  "stacked_ms": st["ms"],
+                 "stacked_ms_rows": st["ms_rows"],
                  "stacked_s_sequential_ms": st["s_sequential_ms"],
                  "stacked_bound_ms": st["bound_ms"]})
     e = batch_entries["filter_mask[vdoc]"]

@@ -24,11 +24,12 @@
 // handful of compares per row; at 3.35 TB/s the reads and the write are
 // the whole cost.
 //
-// What the design does about it: the host flattens the filter tree into a
-// postfix program plus its parameters (one small int32 buffer, one copy to
-// the card per dispatch). Each block stages that buffer in shared memory,
-// so in-lists and member bitsets are read from shared memory, never from
-// device memory per row. One thread evaluates one row at a time over a
+// What the design does about it (the row route; the wide route below):
+// the host flattens the filter tree into a postfix program plus its
+// parameters (one small int32 buffer, one copy to the card per dispatch).
+// Each block stages that buffer in shared memory, so in-lists and member
+// bitsets are read from shared memory, never from device memory per row.
+// One thread evaluates one row at a time over a
 // grid-stride loop: neighbouring threads read neighbouring elements of
 // each lane (coalesced), and the program runs on a bit stack in one
 // register. A leaf's lane is read only when that leaf is evaluated. The
@@ -101,6 +102,40 @@
 // lower-bound searches in step took 234.3 us at J2.1's shape against
 // the interpreter's 234.2 (PERF.md), waiting on L2 either way.
 // The host checks that the stack never holds more than 32 bits.
+//
+// The wide route (filter_wide_kernel), which the host takes where every
+// leaf lane is 16-byte aligned, the rows are a multiple of 16, the
+// program's distinct leaf lanes take at most kWideRowBytes bytes a row,
+// its stack at most kWideDepth levels and the program fits shared memory
+// (ops/kernels.py:filter_route); else the row route, the kernel above.
+// The row kernel has one load of one byte outstanding a thread (a leaf
+// reads its id when the interpreter reaches it and uses it at once),
+// about 2 KB in flight an SM where HBM wants ~18 KB, and it interprets
+// the program once a row: it ran at ~9x its bound. On the wide route:
+// - each block step takes 8,192 rows, and the block copies the next
+//   step's rows of every leaf lane into shared memory with 16-byte
+//   cp.async copies (neighbouring threads on neighbouring chunks) while
+//   it evaluates this one: 8,192 x the lanes' bytes a row in flight a
+//   block;
+// - a thread evaluates 32 rows (16 of each half of the step), and the
+//   node loop runs once for them. A leaf's result is a level, one bit a
+//   row, row r at bit 8 (r % 4) + r / 4; the stack is kWideDepth levels
+//   in registers, and AND / OR fold levels, so a node costs a few
+//   instructions for 32 rows;
+// - a dictId leaf over an int8 lane (SSB's) compares four ids a word:
+//   eq / neq / in / notin find the bytes equal to a constant without a
+//   carry crossing bytes, range tests (id - lo) mod 256 < hi - lo on ids
+//   biased to unsigned; the flags of word w (bit 7 of each byte) land in
+//   the level with one shift, and word w of the mask is
+//   (level >> w) & 0x01010101, the 32 mask bytes two 16-byte stores;
+// - other leaves (int16 / int32 ids, raw, MV, ivf_probe, join) evaluate
+//   row by row from the staged rows with the evaluators above;
+// - a program of at most kInlineWords words comes in the launch's
+//   parameters (a __grid_constant__ struct), not as a copy to the card;
+// - the stacked form keeps the per-block seg_matched flush: a step's rows
+//   never straddle two segments (seg_rows is a multiple of 8,192).
+// What bounds it is still bytes: the row kernel's program copy and its
+// interpretation once a row are gone (PERF.md has the times).
 //
 // Batched members (the counterpart of the vmap over a query axis in
 // pinot_tpu/ops/kernels.py:get_batched_segment_kernel, :1672): up to 8
@@ -377,6 +412,414 @@ __global__ void filter_mask_kernel(Lanes lanes, const int* __restrict__ prog,
     if constexpr (kStacked) count += static_cast<int>(stack & 1u);
   }
   if constexpr (kStacked) flush();
+}
+
+// -- the wide route ---------------------------------------------------------
+
+constexpr int kWideRows = 32;                          // rows a thread
+constexpr int kWideTile = kWideRows * pinot::kThreads;   // rows a block step
+constexpr int kWideRowBytes = 8;      // leaf lanes' bytes a row, at most
+constexpr int kWideDepth = 8;         // stack levels, at most
+constexpr int kInlineWords = 256;     // program words in the parameter buffer
+constexpr unsigned kHigh = 0x80808080u;  // bit 7 of each byte
+
+// The wide route's launch parameters: the bytes a row of each leaf lane
+// (lanes 0 .. n_row_lanes - 1 of the lane table; the rest are read by
+// index, not by row) and, for a program of at most kInlineWords words,
+// the program itself.
+struct WideArgs {
+  int n_row_lanes;
+  int row_bytes[kMaxLanes];
+  int n_inline;                       // words in `words`; 0: `prog` on the card
+  int words[kInlineWords];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A level is one bit for each of a thread's 32 rows, row r at bit
+// 8 (r % 4) + r / 4: the flags of the four rows of a 4-byte word w (bit 7
+// of each byte) land at bits w, 8 + w, 16 + w, 24 + w with one shift, and
+// word w of the mask is (level >> w) & 0x01010101.
+__device__ __forceinline__ int level_bit(int r) { return 8 * (r & 3) + (r >> 2); }
+
+// bit 7 of each byte of w that is nonzero (no carry crosses a byte)
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & kHigh;
+}
+
+// a thread's 32 staged bytes of a one-byte lane (rows 0-15 at lo, 16-31
+// at hi) as 8 words
+__device__ __forceinline__ void load_words(const uint8_t* lo, const uint8_t* hi,
+                                           unsigned (&w)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(lo);
+  const uint4 b = *reinterpret_cast<const uint4*>(hi);
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+
+__device__ __forceinline__ unsigned pack_flags(const unsigned (&f)[8]) {
+  unsigned lvl = 0u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) lvl |= f[k] >> (7 - k);
+  return lvl;
+}
+
+// A dictId leaf over an int8 SV lane, four rows a word: eq / neq / in /
+// notin compare bytes with a constant (a constant outside int8 matches no
+// id); range [lo, hi) clips to the int8 domain, biases the bytes to
+// unsigned and tests (u - lo) mod 256 < hi - lo byte by byte. As eval_id.
+__device__ __forceinline__ unsigned i8_level(int op, const uint8_t* lo, const uint8_t* hi,
+                                             const int* p, int arg) {
+  unsigned w[8], f[8];
+  load_words(lo, hi, w);
+  if (op == kRange) {
+    const int lo = max(p[0], -128), hi = min(p[1], 128);
+    const unsigned all = lo >= hi ? 0u : hi - lo == 256 ? kHigh : 1u;
+    if (all != 1u) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f[k] = all;
+      return pack_flags(f);
+    }
+    const unsigned l4 = static_cast<unsigned>(lo + 128) * 0x01010101u;
+    const unsigned e4 = static_cast<unsigned>(256 - (hi - lo)) * 0x01010101u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const unsigned u = w[k] ^ kHigh;                // int8 -> biased uint8
+      const unsigned d = ((u | kHigh) - (l4 & ~kHigh)) ^ ((u ^ ~l4) & kHigh);  // u - lo
+      const unsigned s = (d & ~kHigh) + (e4 & ~kHigh);
+      // d + (256 - (hi - lo)) carries out of a byte iff d >= hi - lo: the
+      // carry out of bit 7 is the majority of d's, e4's and s's bit 7
+      const unsigned ge = ((d & e4) | ((d | e4) & s)) & kHigh;
+      f[k] = ge ^ kHigh;
+    }
+    return pack_flags(f);
+  }
+  const int n = op == kEq || op == kNeq ? 1 : arg;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) f[k] = 0u;
+  for (int i = 0; i < n; ++i) {
+    const int c = p[i];
+    if (c < -128 || c > 127) continue;
+    const unsigned c4 = static_cast<unsigned>(c & 0xff) * 0x01010101u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] |= nonzero_bytes(w[k] ^ c4) ^ kHigh;
+  }
+  if (op == kNeq || op == kNotIn) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] ^= kHigh;
+  }
+  return pack_flags(f);
+}
+
+// the vdoc leaf: each row's liveness byte != 0
+__device__ __forceinline__ unsigned live_level(const uint8_t* lo, const uint8_t* hi) {
+  unsigned w[8], f[8];
+  load_words(lo, hi, w);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) f[k] = nonzero_bytes(w[k]);
+  return pack_flags(f);
+}
+
+// fn(id) over a thread's 32 staged ids of type T (rows 0-15 at lo, 16-31
+// at hi), as a level
+template <typename T, typename F>
+__device__ __forceinline__ unsigned ids_level(const uint8_t* lo, const uint8_t* hi, F fn) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // ids a 16-byte word
+  unsigned lvl = 0u;
+#pragma unroll
+  for (int c = 0; c < kWideRows / kPer; ++c) {
+    const int half = c / (16 / kPer);
+    const uint4 q = reinterpret_cast<const uint4*>(half ? hi : lo)[c % (16 / kPer)];
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const unsigned word = w[i * static_cast<int>(sizeof(T)) / 4];
+      const int sh = (i * static_cast<int>(sizeof(T)) % 4) * 8;
+      int v;
+      if constexpr (sizeof(T) == 1)
+        v = static_cast<int8_t>(word >> sh);
+      else if constexpr (sizeof(T) == 2)
+        v = static_cast<int16_t>(word >> sh);
+      else
+        v = static_cast<int>(word);
+      lvl |= static_cast<unsigned>(fn(v)) << level_bit(c * kPer + i);
+    }
+  }
+  return lvl;
+}
+
+// A dictId leaf over an SV lane of type T, row by row: eval_id's kinds,
+// the compare of each kind outside the unrolled rows
+template <typename T>
+__device__ __forceinline__ unsigned id_level_t(int op, const uint8_t* lo, const uint8_t* hi,
+                                               const int* p, int arg) {
+  switch (op) {
+    case kEq: {
+      const int c = p[0];
+      return ids_level<T>(lo, hi, [c](int v) { return v == c; });
+    }
+    case kNeq: {
+      const int c = p[0];
+      return ids_level<T>(lo, hi, [c](int v) { return v != c; });
+    }
+    case kRange: {
+      const int a = p[0], b = p[1];
+      return ids_level<T>(lo, hi, [a, b](int v) { return v >= a && v < b; });
+    }
+    case kIn:
+    case kNotIn: {
+      unsigned lvl = 0u;
+      for (int i = 0; i < arg; ++i) {
+        const int c = p[i];
+        lvl |= ids_level<T>(lo, hi, [c](int v) { return v == c; });
+      }
+      return op == kIn ? lvl : ~lvl;
+    }
+    default:  // kMember: bitset over [0, card_pad), index clipped
+      return ids_level<T>(lo, hi, [p, arg](int v) {
+        const int idx = min(max(v, 0), arg - 1);
+        return (static_cast<unsigned>(p[idx >> 5]) >> (idx & 31)) & 1u;
+      });
+  }
+}
+
+__device__ __forceinline__ unsigned id_level(int op, int elem, const uint8_t* lo,
+                                             const uint8_t* hi, const int* p, int arg) {
+  if (elem == pinot::kI8) {
+    if (op != kMember) return i8_level(op, lo, hi, p, arg);
+    return id_level_t<int8_t>(op, lo, hi, p, arg);
+  }
+  if (elem == pinot::kI16) return id_level_t<int16_t>(op, lo, hi, p, arg);
+  return id_level_t<int32_t>(op, lo, hi, p, arg);
+}
+
+// kGeneral and kStacked as filter_mask_kernel's. Each block step takes
+// kWideTile rows; thread t owns rows [16 t, 16 t + 16) of the step's first
+// half and the same of its second (its rows 0-15 and 16-31), so that a
+// warp's stores of its mask bytes, and its reads of an int8 lane from
+// shared memory, cover contiguous bytes. The staging area holds two
+// steps, lane l's rows at s_off[l] in row order (kWideTile x its bytes a
+// row); the block copies a step's rows with 16-byte cp.async copies,
+// neighbouring threads on neighbouring chunks, while it evaluates the
+// step before (one __syncthreads a step). The program's stack is
+// kWideDepth levels in registers, the top at `sp` (the same in every
+// thread): a leaf writes level sp, an AND / OR of k children combines
+// levels sp - k .. sp - 1 into level sp - k.
+template <bool kGeneral, bool kStacked>
+__global__ void __launch_bounds__(pinot::kThreads, 1)
+    filter_wide_kernel(Lanes lanes, const __grid_constant__ WideArgs wa,
+                       const int* __restrict__ prog, int n_nodes, int n_words,
+                       long long padded, long long seg_rows,
+                       const int* __restrict__ seg_docs, long long num_docs,
+                       uint8_t* __restrict__ out, int* __restrict__ seg_matched) {
+  extern __shared__ __align__(16) uint8_t wsmem[];
+  __shared__ int scratch[32];
+  __shared__ const void* s_lanes[kMaxLanes];
+  __shared__ int s_off[kMaxLanes], s_rb[kMaxLanes], s_stage;
+  if (threadIdx.x < kMaxLanes) {
+#pragma unroll
+    for (int i = 0; i < kMaxLanes; ++i)
+      if (threadIdx.x == i) s_lanes[i] = lanes.ptr[i];
+  }
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int l = 0; l < wa.n_row_lanes; ++l) {
+      s_off[l] = off;
+      s_rb[l] = wa.row_bytes[l];
+      off += kWideTile * wa.row_bytes[l];
+    }
+    s_stage = off;
+  }
+  int* buf = reinterpret_cast<int*>(wsmem);
+  for (int i = threadIdx.x; i < n_words; i += blockDim.x)
+    buf[i] = wa.n_inline ? wa.words[i] : prog[i];
+  __syncthreads();
+  uint8_t* const stages = wsmem + ((n_words * 4 + 15) & ~15);
+  const int stage_bytes = s_stage, n_row_lanes = wa.n_row_lanes;
+  const int* params = buf + kNodeWords * n_nodes;
+  const long long n_tiles = (padded + kWideTile - 1) / kWideTile;
+
+  // the rows of block step `tile` of every leaf lane into stage s, as
+  // one group: thread t copies 16-byte chunks t, t + 256, ... of each
+  // lane's rows
+  auto issue = [&](long long tile, int s) {
+    if (tile < n_tiles) {
+      const long long first = tile * kWideTile;
+      const long long rows = min(static_cast<long long>(kWideTile), padded - first);
+      uint8_t* st = stages + s * stage_bytes;
+      for (int l = 0; l < n_row_lanes; ++l) {
+        const int rb = s_rb[l];
+        const uint8_t* src = static_cast<const uint8_t*>(s_lanes[l]) + first * rb;
+        uint8_t* dst = st + s_off[l];
+        const int chunks = static_cast<int>(rows * rb / 16);
+        for (int c = threadIdx.x; c < chunks; c += pinot::kThreads)
+          cp_async16(dst + 16 * c, src + 16 * c);
+      }
+    }
+    cp_async_commit();
+  };
+
+  long long seg = kStacked ? -1 : 0, live_end = num_docs;
+  int count = 0;
+  // block-uniform: every thread of the block calls it at the same point
+  auto flush = [&]() {
+    const int c = pinot::block_sum(count, scratch);
+    if (threadIdx.x == 0 && c != 0) atomicAdd(seg_matched + seg, c);
+    count = 0;
+  };
+
+  int cur = 0;
+  issue(blockIdx.x, cur);
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    cp_async_wait<0>();                 // this thread's copies of `tile`
+    // ... and every other thread's; every thread is done with the stage
+    // the next copies overwrite
+    __syncthreads();
+    issue(tile + gridDim.x, cur ^ 1);
+    if constexpr (kStacked) {
+      const long long s = tile * kWideTile / seg_rows;
+      if (s != seg) {
+        if (seg >= 0) flush();
+        seg = s;
+        live_end = s * seg_rows + seg_docs[s];
+      }
+    }
+    // this thread's two halves: rows row0 + [0, 16) and row0 + kHalf + [0, 16)
+    constexpr int kHalf = kWideTile / 2;
+    const long long row0 = tile * kWideTile + threadIdx.x * 16;
+    if (row0 < padded) {
+      unsigned res = 0u;
+      if (row0 < live_end) {
+        const uint8_t* st = stages + cur * stage_bytes;
+        unsigned lv[kWideDepth];
+#pragma unroll
+        for (int i = 0; i < kWideDepth; ++i) lv[i] = 0u;
+        int sp = 0;
+        for (int n = 0; n < n_nodes; ++n) {
+          const int* node = buf + kNodeWords * n;
+          const int op = node[0], arg = node[3];
+          unsigned v;
+          if (op == kAnd || op == kOr) {
+            sp -= arg;
+            v = op == kAnd ? ~0u : 0u;
+#pragma unroll
+            for (int i = 0; i < kWideDepth; ++i)
+              if (i >= sp && i < sp + arg) v = op == kAnd ? v & lv[i] : v | lv[i];
+          } else if (op == kTrue) {
+            v = ~0u;
+          } else if (op == kFalse) {
+            v = 0u;
+          } else {
+            const int lane = node[1], elem = node[4], width = node[5], rb = s_rb[lane];
+            const uint8_t* lo = st + s_off[lane] + threadIdx.x * 16 * rb;
+            const uint8_t* hi = lo + kHalf * rb;
+            const int* p = params + node[2];
+            if (op == kVdoc) {
+              v = live_level(lo, hi);
+            } else if (!kGeneral || (op < kEqRaw && width == 1)) {
+              v = id_level(op, elem, lo, hi, p, arg);
+            } else {
+              v = 0u;
+#pragma unroll 4
+              for (int r = 0; r < kWideRows; ++r) {
+                const uint8_t* rows = r < 16 ? lo : hi;
+                const int i = r & 15;
+                unsigned bit;
+                if (op == kIvfProbe)
+                  bit = eval_probe(s_lanes, rows, elem, i, seg, p, arg);
+                else if (op == kJoinRaw)
+                  bit = eval_join(s_lanes, rows, elem, i, p, arg);
+                else if (op == kJoinBitmap)
+                  bit = eval_join_bitmap(s_lanes, rows, elem, i, p, arg);
+                else
+                  bit = eval_leaf(rows, op, elem, width, i, p, arg);
+                v |= bit << level_bit(r);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kWideDepth; ++i)
+            if (i == sp) lv[i] = v;
+          ++sp;
+        }
+        res = lv[0];
+        if (row0 + kHalf + 16 > live_end) {   // rows past the live ones
+          unsigned keep = 0u;
+          for (int r = 0; r < kWideRows; ++r)
+            if (row0 + (r < 16 ? r : kHalf + r - 16) < live_end) keep |= 1u << level_bit(r);
+          res &= keep;
+        }
+      }
+      uint4 o;
+      o.x = res & 0x01010101u;
+      o.y = (res >> 1) & 0x01010101u;
+      o.z = (res >> 2) & 0x01010101u;
+      o.w = (res >> 3) & 0x01010101u;
+      *reinterpret_cast<uint4*>(out + row0) = o;
+      if (row0 + kHalf < padded) {
+        o.x = (res >> 4) & 0x01010101u;
+        o.y = (res >> 5) & 0x01010101u;
+        o.z = (res >> 6) & 0x01010101u;
+        o.w = (res >> 7) & 0x01010101u;
+        *reinterpret_cast<uint4*>(out + row0 + kHalf) = o;
+      }
+      if constexpr (kStacked) count += __popc(res);
+    }
+    cur ^= 1;
+  }
+  cp_async_wait<0>();
+  if constexpr (kStacked) {
+    if (seg >= 0) flush();
+  }
+}
+
+// The stack depth a program reaches (its nodes in host memory), as
+// compile_filter counts it.
+int program_depth(const int* prog, int n_nodes) {
+  int depth = 0, most = 0;
+  for (int n = 0; n < n_nodes; ++n) {
+    const int op = prog[kNodeWords * n];
+    depth += 1 - (op == kAnd || op == kOr ? prog[kNodeWords * n + 3] : 0);
+    most = depth > most ? depth : most;
+  }
+  return most;
+}
+
+// Launches filter_wide_kernel: one full wave of blocks at the occupancy
+// its registers and shared memory (the program and two staging steps)
+// allow, at most the rows' block steps.
+cudaError_t launch_wide(bool general, bool stacked, const Lanes& lanes, const WideArgs& wa,
+                        const int* prog, int n_nodes, int n_words, long long padded,
+                        long long seg_rows, const int* seg_docs, long long num_docs,
+                        uint8_t* out, int* seg_matched, cudaStream_t stream) {
+  int row_bytes = 0;
+  for (int l = 0; l < wa.n_row_lanes; ++l) row_bytes += wa.row_bytes[l];
+  const size_t smem = static_cast<size_t>((n_words * 4 + 15) & ~15) +
+                      2 * static_cast<size_t>(kWideTile) * row_bytes;
+  const auto kernel = general ? (stacked ? filter_wide_kernel<true, true>
+                                         : filter_wide_kernel<true, false>)
+                              : (stacked ? filter_wide_kernel<false, true>
+                                         : filter_wide_kernel<false, false>);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return rc;
+  }
+  kernel<<<pinot::grid_for(kernel, (padded + kWideRows - 1) / kWideRows, smem), pinot::kThreads,
+           smem, stream>>>(
+      lanes, wa, prog, n_nodes, n_words, padded, seg_rows, seg_docs, num_docs, out,
+      seg_matched);
+  return cudaGetLastError();
 }
 
 
@@ -662,20 +1105,51 @@ __global__ void filter_mask_batched_kernel(Lanes lanes, const int* __restrict__ 
 // one join_bitmap node over one segment (its key lane and the mask
 // 16-byte aligned) the bytes of the bitmap's coarse level, at most
 // kJoinSmemBytes, which join_bitmap_kernel stages in shared memory;
-// leaf_elem is then its key type (kI32 / kI64).
+// leaf_elem is then its key type (kI32 / kI64). wide: 1 takes the wide
+// route (filter_wide_kernel) over the leaf lanes 0 .. n_row_lanes - 1,
+// row_bytes each a row; host_prog is the program in host memory, passed
+// in the launch's parameters where it has at most kInlineWords words
+// (prog, the program on the card, may then be null).
 extern "C" int pinot_filter_mask(const void* const* lane_ptrs, int n_lanes,
                                  const int* prog, int n_nodes, int n_words,
                                  int general, long long padded,
                                  long long seg_rows, const int* seg_docs,
                                  long long num_docs, void* out,
                                  int* seg_matched, int leaf_elem, int leaf_smem,
-                                 void* stream) {
+                                 int wide, const int* host_prog, const int* row_bytes,
+                                 int n_row_lanes, void* stream) {
   if (n_lanes < 0 || n_lanes > kMaxLanes || n_nodes < 1 || seg_rows < 1 ||
       seg_rows % pinot::kThreads != 0 || padded % seg_rows != 0 ||
       (seg_docs == nullptr) != (seg_matched == nullptr))
     return -1;
   Lanes lanes{};
   for (int i = 0; i < n_lanes; ++i) lanes.ptr[i] = lane_ptrs[i];
+  if (wide) {
+    WideArgs wa{};
+    wa.n_row_lanes = n_row_lanes;
+    int total = 0;
+    if (n_row_lanes < 0 || n_row_lanes > n_lanes || padded % 16 != 0 ||
+        (seg_docs != nullptr && seg_rows % kWideTile != 0) || n_words > kMaxSmemWords ||
+        leaf_smem != 0 || host_prog == nullptr ||
+        program_depth(host_prog, n_nodes) > kWideDepth)
+      return -1;
+    for (int l = 0; l < n_row_lanes; ++l) {
+      if (row_bytes[l] < 1 || reinterpret_cast<uintptr_t>(lane_ptrs[l]) % 16 != 0) return -1;
+      wa.row_bytes[l] = row_bytes[l];
+      total += row_bytes[l];
+    }
+    if (total > kWideRowBytes || reinterpret_cast<uintptr_t>(out) % 16 != 0) return -1;
+    if (n_words <= kInlineWords) {
+      wa.n_inline = n_words;
+      for (int i = 0; i < n_words; ++i) wa.words[i] = host_prog[i];
+    } else if (prog == nullptr) {
+      return -1;
+    }
+    return static_cast<int>(launch_wide(general != 0, seg_docs != nullptr, lanes, wa, prog,
+                                        n_nodes, n_words, padded, seg_rows, seg_docs, num_docs,
+                                        static_cast<uint8_t*>(out), seg_matched,
+                                        static_cast<cudaStream_t>(stream)));
+  }
   if (leaf_smem != 0) {
     if (n_nodes != 1 || seg_docs != nullptr || (leaf_elem != kI32 && leaf_elem != kI64) ||
         leaf_smem < 0 || leaf_smem > kJoinSmemBytes)

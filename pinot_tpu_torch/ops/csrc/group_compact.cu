@@ -9,7 +9,9 @@
 // K14: the rows (of each segment, or of each row of a [S, P] stack) in
 // blocks of 2,048; a matched row's slot is block * r + its rank among the
 // block's matched rows, in row order; ranks at or past r are dropped and
-// raise `overflow`. For MV keys the rows are _expand_mv_group's: P * W
+// raise `overflow`. Two routes, which the host picks (ops/kernels.py:
+// compact_route): the warp route below for keys without an MV key, the
+// block route for MV keys. For MV keys the rows are _expand_mv_group's: P * W
 // expanded rows (doc-major, entry combination minor, first MV key
 // fastest), walked in the kernel and never written; a combination whose
 // entry is padding or outside its member table is not matched, and the
@@ -19,10 +21,10 @@
 // lanes) and each int32 dictId (id min / max lanes) of its row; unused
 // slots get key g_pad and zeros. It also counts the matched docs, once
 // each (the plan's numDocsScanned). JAX carries keys and ids in 7-bit planes
-// only to feed its matrix unit; here they are words. A block's ranks come
-// from a warp ballot and popcount, then a scan of the 8 warps' counts in
-// shared memory, 256 rows at a time in row order, so every slot holds the
-// row JAX's one-hot matmul puts there.
+// only to feed its matrix unit; here they are words. On the block route a
+// block's ranks come from a warp ballot and popcount, then a scan of the 8
+// warps' counts in shared memory, 256 rows at a time in row order, so
+// every slot holds the row JAX's one-hot matmul puts there.
 //
 // K15: count, part sums, float64 sums and min / max over the slots,
 // addressed by gslot (a key for the dense layout, a rank for the ranked
@@ -50,8 +52,8 @@
 // key ids, parts and values, and writes cap slots; K15 reads the slots and
 // writes the tables; K16 reads the keys twice and writes gslot and rkeys.
 // For a selective filter (cap ~ P / 100) K14's mask read is most of it.
-// The design keeps the row order with one ballot a warp and no sort, and
-// reads a row's lanes only when it takes a slot.
+// The design keeps the row order with a scan and no sort, and reads a
+// row's lanes only when it takes a slot.
 
 #include "group_key.cuh"
 
@@ -140,6 +142,140 @@ __global__ void block_compact_kernel(const uint8_t* __restrict__ mask, KeyLanes 
   }
   const int total = pinot::block_sum(local, scratch);
   if (threadIdx.x == 0 && total != 0) atomicAdd(matched, total);
+}
+
+// K14's warp route, for keys without an MV key (a row is matched iff its
+// mask byte is nonzero) and r <= kWarpSlots: one warp a 2,048-row block,
+// no block barrier in the loop. block_compact_kernel above walks a block
+// in 8 steps of 256 rows, each reading one mask byte a thread between two
+// __syncthreads (~2 KB in flight an SM; 57x its bound at SSB Q2.1). Here
+// lane l reads 16-byte words l, l + 32, l + 64, l + 96 of the block's
+// mask (rows [16 w, 16 w + 16) of word w), all four at once, 64 bytes a
+// thread in flight. Each round of 32 words (512 rows in row order) counts
+// its nonzero bytes a lane, and a __shfl_up_sync scan gives each lane the
+// rank of its first matched row; the lane writes the rows of ranks below
+// r, in row order, into its warp's list in shared memory. Then the warp's
+// lanes take the r slots in turn (slot s: lane s % 32), so the gathers of
+// the matched rows' keys, parts, values and ids and the slot writes are
+// spread over the warp and coalesced, and slots past the matches get key
+// g_pad and zeros. At SSB Q2.1 (16 matched rows a block) the warps of the
+// whole mask are resident at once, and the time is each warp's chain of
+// device-memory waits: the mask, then the gathers, which the first
+// kGatherParts part loads join so that they wait once with the key's.
+// The key and lane tables are read in place from the launch's parameters,
+// with no copy to shared memory and no barrier before the first load.
+constexpr int kWarpSlots = 256;        // ops/kernels.py:SORTED_RUNG_R
+constexpr int kGatherParts = 4;        // part loads a slot issues together
+
+// the bytes of w that are nonzero, as bit 7 of each byte
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+}
+
+__global__ void __launch_bounds__(pinot::kThreads)
+    block_compact_warp_kernel(const uint8_t* __restrict__ mask,
+                              const __grid_constant__ KeyLanes keys, int n_keys,
+                              const __grid_constant__ CompactLanes lanes, int n_parts,
+                              int n_vals, int n_ids, long long n_blocks, int g_pad, int r,
+                              int* __restrict__ keys_out, int8_t* __restrict__ parts_out,
+                              double* __restrict__ vals_out, int* __restrict__ ids_out,
+                              int* __restrict__ overflow, int* __restrict__ matched) {
+  // keys and lanes: a __grid_constant__ struct indexed at run time is
+  // read in place, with no local copy
+  __shared__ int docs[kWarps][kWarpSlots];   // a warp's matched rows by rank
+  __shared__ int warp_matched[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long cap = n_blocks * r;
+  int* list = docs[warp];
+  int local = 0;                        // matched rows (docs) of this warp
+  for (long long b = static_cast<long long>(blockIdx.x) * kWarps + warp; b < n_blocks;
+       b += static_cast<long long>(gridDim.x) * kWarps) {
+    const uint4* m = reinterpret_cast<const uint4*>(mask + b * kCBlock);
+    uint4 q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] = m[k * 32 + lane];
+    unsigned nz[16];                    // round k's word i: nz[4 k + i]
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      nz[4 * k] = nonzero_bytes(q[k].x);
+      nz[4 * k + 1] = nonzero_bytes(q[k].y);
+      nz[4 * k + 2] = nonzero_bytes(q[k].z);
+      nz[4 * k + 3] = nonzero_bytes(q[k].w);
+    }
+    int first[4];                       // each round's first rank of the lane
+    int running = 0;                    // matched rows of the earlier rounds
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int cnt = __popc(nz[4 * k]) + __popc(nz[4 * k + 1]) + __popc(nz[4 * k + 2]) +
+                      __popc(nz[4 * k + 3]);
+      int incl = cnt;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      first[k] = running + incl - cnt;
+      running += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    // the lane's matched rows by rank, in row order, those below r listed
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int rank = first[k];
+      const int row0 = (k * 32 + lane) * 16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned bits = nz[4 * k + i];
+        if (bits != 0u && rank < r) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if ((bits >> (8 * j + 7)) & 1u) {
+              if (rank < r) list[rank] = row0 + 4 * i + j;
+              ++rank;
+            }
+          }
+        }
+      }
+    }
+    local += running;
+    __syncwarp();
+    const int taken = min(running, r);
+    for (int s = lane; s < r; s += 32) {
+      const long long slot = b * r + s;
+      if (s < taken) {
+        const long long doc = b * kCBlock + list[s];
+        // the first kGatherParts parts' loads in flight with the key's
+        int part[kGatherParts];
+#pragma unroll
+        for (int l = 0; l < kGatherParts; ++l)
+          if (l < n_parts) part[l] = lanes.part[l][doc];
+        keys_out[slot] = min(max(pinot::sv_key(keys, n_keys, doc), 0), g_pad - 1);
+#pragma unroll
+        for (int l = 0; l < kGatherParts; ++l)
+          if (l < n_parts) parts_out[l * cap + slot] = static_cast<int8_t>(part[l]);
+        for (int l = kGatherParts; l < n_parts; ++l)
+          parts_out[l * cap + slot] = lanes.part[l][doc];
+        for (int v = 0; v < n_vals; ++v)
+          vals_out[v * cap + slot] = pinot::read_value(lanes.val[v], lanes.val_elem[v], doc);
+        for (int i = 0; i < n_ids; ++i)
+          ids_out[i * cap + slot] = pinot::read_id(lanes.id[i], lanes.id_elem[i], doc);
+      } else {
+        keys_out[slot] = g_pad;
+        for (int l = 0; l < n_parts; ++l) parts_out[l * cap + slot] = 0;
+        for (int v = 0; v < n_vals; ++v) vals_out[v * cap + slot] = 0.0;
+        for (int i = 0; i < n_ids; ++i) ids_out[i * cap + slot] = 0;
+      }
+    }
+    if (lane == 0 && running > r) atomicExch(overflow, 1);
+    __syncwarp();                       // the list is rewritten next
+  }
+  if (lane == 0) warp_matched[warp] = local;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += warp_matched[w];
+    if (total != 0) atomicAdd(matched, total);
+  }
 }
 
 enum ExtMode : int { kIdMin = 0, kIdMax = 1, kRawMin = 2, kRawMax = 3 };
@@ -377,9 +513,10 @@ extern "C" int pinot_block_compact(
     int n_keys, const void* const* part_ptrs, int n_parts, const void* const* val_ptrs,
     const int* val_elems, int n_vals, const void* const* id_ptrs, const int* id_elems,
     int n_ids, long long n_rows, int g_pad, int r, void* keys_out, void* parts_out,
-    void* vals_out, void* ids_out, void* overflow, void* matched, void* stream) {
+    void* vals_out, void* ids_out, void* overflow, void* matched, int warp, void* stream) {
   if (n_parts < 0 || n_parts > kMaxParts || n_vals < 0 || n_vals > kMaxVals || n_ids < 0 ||
-      n_ids > kMaxIds || g_pad < 1 || r < 1 || r > kCBlock || n_rows % kCBlock != 0)
+      n_ids > kMaxIds || g_pad < 1 || r < 1 || r > kCBlock || n_rows % kCBlock != 0 ||
+      (warp && (r > kWarpSlots || reinterpret_cast<uintptr_t>(mask) % 16 != 0)))
     return -1;
   KeyLanes keys;
   int n_mv = 0;
@@ -399,6 +536,16 @@ extern "C" int pinot_block_compact(
     lanes.id_elem[i] = id_elems[i];
   }
   const long long n_blocks = n_rows / kCBlock;
+  if (warp) {
+    if (n_mv != 0) return -1;
+    const int grid = pinot::grid_for(block_compact_warp_kernel, n_blocks * 32, 0);
+    block_compact_warp_kernel<<<grid, pinot::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(mask), keys, n_keys, lanes, n_parts, n_vals, n_ids, n_blocks,
+        g_pad, r, static_cast<int*>(keys_out), static_cast<int8_t*>(parts_out),
+        static_cast<double*>(vals_out), static_cast<int*>(ids_out), static_cast<int*>(overflow),
+        static_cast<int*>(matched));
+    return static_cast<int>(cudaGetLastError());
+  }
   const int grid = pinot::grid_for(block_compact_kernel, n_blocks * pinot::kThreads, 0);
   block_compact_kernel<<<grid, pinot::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), keys, n_keys, static_cast<int>(w_total), lanes, n_parts,

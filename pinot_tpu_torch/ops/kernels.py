@@ -7,7 +7,8 @@ short fixed sequence of kernels written by hand for Hopper
 (ops/csrc/*.cu, built by ops/build.py):
 
 - K1 `filter_mask`: the filter tree → uint8 row mask
-  (replaces `_eval_filter` / `_eval_pred`);
+  (replaces `_eval_filter` / `_eval_pred`); routes (FILTER_ROUTES,
+  filter_route): "wide" (32 rows a thread) or "rows" (a row a thread);
 - K2 `masked_part_sums`: exact sums of bit-sliced part lanes + the match
   count (replaces `_part_sums` and the masked count);
 - K3 `dense_group_aggregate`: mixed-radix group key → per-group count,
@@ -38,7 +39,8 @@ short fixed sequence of kernels written by hand for Hopper
 - K14 `block_compact`: a filtered group-by's matched rows moved to r
   slots a 2,048-row block, in row order, with their group key and metric
   values (replaces `_block_compact` and the lane registry of
-  `_group_outputs_compacted`);
+  `_group_outputs_compacted`); routes (COMPACT_ROUTES, compact_route):
+  "warp" (a warp a block) or "block" (MV keys);
 - K15 `slot_tables`: count, part sums, float64 sums and min / max over
   the slots, by key (dense) or by rank (ranked) (replaces
   `_slot_sum_tables` and the compacted scatter min / max);
@@ -264,7 +266,7 @@ _KEY_ARGTYPES = [_PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _PP, _PP,
                  _IP, _I]
 _ARGTYPES = {
     "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _I,
-                    _I, _P],
+                    _I, _I, _P, _IP, _I, _P],
     "masked_part_sums": [_P, _PP, _I, _LL, _LL, _P, _P],
     "dense_group_aggregate": [
         _P, *_KEY_ARGTYPES, _PP, _I, _PP, _I,
@@ -286,7 +288,7 @@ _ARGTYPES = {
 }
 _ARGTYPES.update({
     "block_compact": [_P, *_KEY_ARGTYPES, _PP, _I, _PP, _IP, _I, _PP, _IP,
-                      _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                      _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "slot_tables": [_P, _LL, _LL, _LL, _PP, _I, _PP, _I, _PP, _IP, _IP, _PP,
                     _I, _I, _I, _I, _P, _P, _P, _P],
     "rank_slots": [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -319,14 +321,15 @@ _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 
 #: program nodes counted apart: K1's upsert liveness leaf and join probe
 #: (and, for the single and stacked K1, the join leaf's route: "bitmap" or
-#: "probe", JOIN_ROUTES), K3's join group keys
+#: "probe", JOIN_ROUTES, and the launch's route, FILTER_ROUTES), K3's join
+#: group keys, K14's key kinds and route (COMPACT_ROUTES)
 KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0, bitmap=0,
-                                            probe=0)
+                                            probe=0, wide=0, rows=0, leaf=0)
 KERNELS["filter_mask_batched"].node_launches.update(vdoc=0, join_raw=0)
 KERNELS["dense_group_aggregate"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0)
 KERNELS["block_compact"].node_launches.update(
-    jcode=0, jraw=0, idoff=0, idrank=0)
+    jcode=0, jraw=0, idoff=0, idrank=0, warp=0, block=0)
 KERNELS["rank_slots"].node_launches["sort"] = 0
 #: the routes of K12 (SORT_ROUTES) and K6 (SELECT_ROUTES), counted apart
 for _name in ("radix_sort", "radix_sort_join", "radix_sort_rank"):
@@ -497,6 +500,22 @@ _RAW_KINDS = ("eq_raw", "neq_raw", "range_raw", "in_raw", "notin_raw",
 _NODE_WORDS = 6              # {op, lane, param offset, arg, elem, width}
 _MAX_FILTER_LANES = 16
 _MAX_STACK = 32
+#: the routes of the single and stacked K1 launch: "wide" (32 rows a
+#: thread, the leaf lanes staged by 16-byte copies, filter_mask.cu:
+#: filter_wide_kernel) where filter_route allows it, else "rows" (a row a
+#: thread); "leaf" is a lone join_bitmap leaf's own kernel
+FILTER_ROUTES = ("wide", "rows", "leaf")
+WIDE_ROWS = 32               # rows a thread on the wide route
+#: the wide route's budget: the program's distinct leaf lanes at most this
+#: many bytes a row (their element size x width, summed), so that two
+#: block steps of 8,192 rows stay within 128 KB of shared memory, and its
+#: stack at most WIDE_DEPTH levels (registers, filter_mask.cu:kWideDepth)
+WIDE_ROW_BYTES = 8
+WIDE_DEPTH = 8
+#: programs of at most this many words ride in the wide launch's
+#: parameters (filter_mask.cu:kInlineWords); longer ones are copied
+FILTER_INLINE_WORDS = 256
+_MAX_STAGED_WORDS = 12 * 1024   # filter_mask.cu:kMaxSmemWords
 
 
 def _leaf(spec) -> Tuple[str, str]:
@@ -722,11 +741,13 @@ def _mask_device(keys, cols, device) -> torch.device:
 
 def filter_mask(padded: int, filter_spec, cols: Dict[str, torch.Tensor],
                 params: Sequence, num_docs: int,
-                device=None) -> torch.Tensor:
+                device=None, route: Optional[str] = None) -> torch.Tensor:
     """uint8 [padded] mask: filter_spec over the lanes, AND row < num_docs.
 
     The mask lies on the lanes' device; `device` names it when the filter
-    reads no lane (match_all / empty)."""
+    reads no lane (match_all / empty). On the card `route` forces "wide"
+    or "rows" (FILTER_ROUTES); None takes the lone join_bitmap leaf's
+    kernel where it applies, else filter_route's choice."""
     keys = filter_lane_keys(filter_spec)
     device = _mask_device(keys, cols, device)
     for key in keys:
@@ -735,37 +756,95 @@ def filter_mask(padded: int, filter_spec, cols: Dict[str, torch.Tensor],
         return filter_mask_plain(padded, filter_spec, cols, params, num_docs,
                                  device, routed=True)
     return _launch_filter(filter_spec, cols, params, keys, device, padded,
-                          padded, None, int(num_docs), None)
+                          padded, None, int(num_docs), None, route=route)
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    """A leaf lane's bytes a row: its element size x its width."""
+    return t.element_size() * (t.shape[1] if t.dim() == 2 else 1)
+
+
+def program_depth(buf: np.ndarray, n_nodes: int) -> int:
+    """The most stack levels a K1 program holds at once."""
+    nodes = buf[:_NODE_WORDS * n_nodes].reshape(n_nodes, _NODE_WORDS)
+    pops = np.where(np.isin(nodes[:, 0], (_OP_AND, _OP_OR)), nodes[:, 3], 0)
+    return int(np.cumsum(1 - pops.astype(np.int64)).max())
+
+
+def filter_route(lanes: Sequence[torch.Tensor], rows: int, buf: np.ndarray,
+                 n_nodes: int) -> str:
+    """K1's route for a program (compile_filter's buffer and node count)
+    over these leaf lanes (lanes indexed by row; probe tables are not):
+    "wide" where every lane is 16-byte aligned, the rows are a multiple of
+    16, the lanes take at most WIDE_ROW_BYTES bytes a row, the program
+    fits shared memory, its stack WIDE_DEPTH registers and it holds no
+    join_raw probe (whose lower-bound searches wait on L2 row after row:
+    2.2x slower 32 rows a thread than a row a thread on the H100,
+    PERF.md); else "rows". A host choice by shape, never by a failure."""
+    ops = buf[:_NODE_WORDS * n_nodes:_NODE_WORDS]
+    if rows % 16 or buf.shape[0] > _MAX_STAGED_WORDS or \
+            program_depth(buf, n_nodes) > WIDE_DEPTH or \
+            _LEAF_OPS["join_raw"] in ops or \
+            any(t.data_ptr() % 16 for t in lanes) or \
+            sum(_row_bytes(t) for t in lanes) > WIDE_ROW_BYTES:
+        return "rows"
+    return "wide"
 
 
 def _launch_filter(filter_spec, cols, params, keys, device, rows: int,
                    seg_rows: int, seg_docs: Optional[torch.Tensor],
                    num_docs: int, matched: Optional[torch.Tensor],
-                   general: Optional[bool] = None) -> torch.Tensor:
+                   general: Optional[bool] = None,
+                   route: Optional[str] = None) -> torch.Tensor:
     """K1 over `rows` rows in segments of seg_rows: the uint8 mask, and
     each segment's matches added into `matched` when given. `general`
     picks the instantiation; None picks by the program (_general), the
-    only choice the query path makes."""
+    only choice the query path makes. `route` forces "wide" or "rows";
+    None picks (the lone join_bitmap leaf, else filter_route)."""
+    if route not in (None, "wide", "rows"):
+        raise ValueError(f"K1 route {route!r}: one of wide, rows or None")
     probes: List[torch.Tensor] = []
     buf, n_nodes = compile_filter(filter_spec, params, cols, probes)
-    lanes = [cols[k] for k in keys] + probes
-    # the one H2D copy, from pinned memory so the host does not wait
-    prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
+    row_lanes = [cols[k] for k in keys]
+    lanes = row_lanes + probes
     out = torch.empty(rows, dtype=torch.uint8, device=device)
     if general is None:
         general = _general(keys)
-    leaf = _join_bitmap_leaf(buf, n_nodes, lanes, seg_docs is None)
+    n_words = int(buf.shape[0])
+    leaf = _join_bitmap_leaf(buf, n_nodes, lanes, seg_docs is None) \
+        if route is None else (0, 0)
+    picked = filter_route(row_lanes, rows, buf, n_nodes)
+    if leaf != (0, 0):
+        route = "leaf"
+    elif route is None:
+        route = picked
+    elif route == "wide" and picked != "wide":
+        raise ValueError("K1's wide route does not take this program "
+                         "(lane alignment, rows, bytes a row, depth or a "
+                         "join_raw probe)")
+    inline = route == "wide" and n_words <= FILTER_INLINE_WORDS
+    # the program goes to the card as one H2D copy from pinned memory (so
+    # the host does not wait), unless it rides in the wide launch's
+    # parameters
+    prog = None if inline else \
+        torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
+    wide = route == "wide"
     _launch("filter_mask", device, _ptrs(lanes), len(lanes),
-            prog.data_ptr(), n_nodes, int(buf.shape[0]), int(general),
-            rows, seg_rows, None if seg_docs is None else seg_docs.data_ptr(),
+            None if prog is None else prog.data_ptr(), n_nodes, n_words,
+            int(general), rows, seg_rows,
+            None if seg_docs is None else seg_docs.data_ptr(),
             num_docs, out.data_ptr(),
-            None if matched is None else matched.data_ptr(), *leaf)
+            None if matched is None else matched.data_ptr(), *leaf,
+            int(wide), buf.ctypes.data if wide else None,
+            _ints([_row_bytes(t) for t in row_lanes]) if wide else None,
+            len(row_lanes))
     _count_nodes("filter_mask", filter_spec, keys)
+    _count_node("filter_mask", route)
     ops = set(buf[:_NODE_WORDS * n_nodes:_NODE_WORDS].tolist())
-    for route, op in zip(JOIN_ROUTES, (_OP_JOIN_BITMAP,
-                                       _LEAF_OPS["join_raw"])):
+    for join_route, op in zip(JOIN_ROUTES, (_OP_JOIN_BITMAP,
+                                            _LEAF_OPS["join_raw"])):
         if op in ops:
-            _count_node("filter_mask", route)
+            _count_node("filter_mask", join_route)
     return out
 
 
@@ -791,12 +870,14 @@ def _check_seg_docs(seg_docs: torch.Tensor, n_segs: int, device) -> None:
 
 def filter_mask_stacked(padded: int, n_segs: int, filter_spec,
                         cols: Dict[str, torch.Tensor], params: Sequence,
-                        seg_docs: torch.Tensor, device=None
+                        seg_docs: torch.Tensor, device=None,
+                        route: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 over a stack of n_segs segments of `padded` rows each, the lanes
     [n_segs * padded] (flat views of [S, P] stacks): (uint8 mask [S * P],
     int32 [S] matched rows per segment). Row r is live iff r % padded <
-    seg_docs[r // padded] (`seg_docs`: int32 [S] on the lanes' device)."""
+    seg_docs[r // padded] (`seg_docs`: int32 [S] on the lanes' device).
+    `route` as filter_mask's."""
     keys = filter_lane_keys(filter_spec)
     device = _mask_device(keys, cols, device)
     rows = n_segs * padded
@@ -811,7 +892,7 @@ def filter_mask_stacked(padded: int, n_segs: int, filter_spec,
                                          routed=True)
     matched = torch.zeros(n_segs, dtype=torch.int32, device=device)
     return _launch_filter(filter_spec, cols, params, keys, device, rows,
-                          padded, seg_docs, 0, matched), matched
+                          padded, seg_docs, 0, matched, route=route), matched
 
 
 MAX_BATCH = 8        # members a batched launch serves (filter_mask.cu)
@@ -1589,14 +1670,33 @@ def _check_compact_lanes(part_lanes, value_lanes, id_lanes, padded: int,
     return rows
 
 
+#: the routes of K14: "warp" (one warp a CBLOCK block, group_compact.cu:
+#: block_compact_warp_kernel) where compact_route allows it, else "block"
+#: (a thread block a CBLOCK block, the MV keys' expanded rows)
+COMPACT_ROUTES = ("warp", "block")
+
+
+def compact_route(mask: torch.Tensor, keys: Sequence, r: int) -> str:
+    """K14's route: "warp" where no key is an MV key (a row is matched iff
+    its mask byte is nonzero), r <= SORTED_RUNG_R (the warp's list of
+    matched rows) and the mask is 16-byte aligned; else "block"."""
+    if any(_as_key(k).kind in _MV_KEY_KINDS for k in keys) or \
+            r > SORTED_RUNG_R or mask.data_ptr() % 16:
+        return "block"
+    return "warp"
+
+
 def block_compact(mask: torch.Tensor, key_lanes: Sequence,
                   strides: Sequence[int], g_pad: int, r: int,
                   part_lanes: Sequence[torch.Tensor] = (),
                   value_lanes: Sequence[torch.Tensor] = (),
-                  id_lanes: Sequence[torch.Tensor] = ()):
+                  id_lanes: Sequence[torch.Tensor] = (),
+                  route: Optional[str] = None):
     """K14: the matched rows (MV keys: _expand_mv_group's P * W_total
     expanded rows, walked and never written) in blocks of CBLOCK, each
-    block's first r matched rows in row order moved to its r slots.
+    block's first r matched rows in row order moved to its r slots. On
+    the card `route` forces "warp" or "block" (COMPACT_ROUTES); None takes
+    compact_route's choice.
 
     Returns (keys int32 [cap], the clipped group key of each slot and
     g_pad for an unused one; parts int8 [L, cap]; values float64 [V,
@@ -1623,6 +1723,12 @@ def block_compact(mask: torch.Tensor, key_lanes: Sequence,
     if device.type == "cpu":
         return block_compact_plain(mask, keys, strides, g_pad, r,
                                    part_lanes, value_lanes, id_lanes)
+    picked = compact_route(mask, keys, r)
+    if route is None:
+        route = picked
+    elif route not in COMPACT_ROUTES or (route == "warp" and picked != route):
+        raise ValueError(f"K14 route {route!r} does not take these keys "
+                         f"(compact_route: {picked})")
     cap = n_rows // CBLOCK * r
     keys_out = torch.empty(cap, dtype=torch.int32, device=device)
     parts = torch.empty(len(rows), cap, dtype=torch.int8, device=device)
@@ -1637,8 +1743,9 @@ def block_compact(mask: torch.Tensor, key_lanes: Sequence,
             _ints([_ELEM[v.dtype] for v in id_lanes]), len(id_lanes),
             n_rows, int(g_pad), int(r), keys_out.data_ptr(),
             parts.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-            flags[0].data_ptr(), flags[1].data_ptr())
+            flags[0].data_ptr(), flags[1].data_ptr(), int(route == "warp"))
     _count_key_nodes("block_compact", keys)
+    _count_node("block_compact", route)
     return keys_out, parts, vals, ids, flags[0], flags[1]
 
 

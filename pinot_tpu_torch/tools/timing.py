@@ -16,7 +16,8 @@ L2_FLUSH_BYTES = 128 << 20      # > the 50 MB L2: each timed launch is cold
 SPIN_CYCLES = 2_000_000         # ~1 ms at H100 clocks
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2, spins: int = 1) -> float:
+def time_ms(fn, reps: int = 10, warmup: int = 2, spins: int = 1,
+            clean: bool = False) -> float:
     """Mean device time of fn() over reps calls, L2 flushed before each.
 
     A spin of about `spins` milliseconds on the card precedes each call,
@@ -24,13 +25,19 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, spins: int = 1) -> float:
     events bracket the device work, not the wrapper's Python (a call that
     launches S kernels takes S spins). A call that waits for the card
     itself (the plain versions' boolean indexing) still counts its host
-    time."""
+    time. The flush writes L2_FLUSH_BYTES, which leaves the L2 full of
+    dirty lines whose write-backs the timed call pays as it evicts them;
+    `clean` flushes by reading them instead (a sum), so the call evicts
+    clean lines."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.sum(dtype=torch.int64)
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES * spins)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

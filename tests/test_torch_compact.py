@@ -689,6 +689,189 @@ def test_join_group_by_compacted(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# K14 at the block edges, and its warp route's rank walk
+# ---------------------------------------------------------------------------
+
+#: one CBLOCK block each: how many of its rows match, and where
+BLOCK_PATTERNS = ("none", "r-1", "r", "r+1", "last64", "every", "sparse",
+                  "r+1 late")
+COMPACT_RS = (8, 16, 64, 256)
+
+
+def _pattern_mask(r: int, seed: int, values: bool = False) -> np.ndarray:
+    """uint8 mask of one CBLOCK block a pattern: 0, r - 1, r and r + 1
+    matched rows anywhere, rows only among the block's last 64, every
+    row, 1%, r + 1 in the second half. `values`: matched bytes take any
+    nonzero value, not only 1."""
+    rng = np.random.default_rng(seed)
+    B = jk.CBLOCK
+    mask = np.zeros(len(BLOCK_PATTERNS) * B, np.uint8)
+    for i, pat in enumerate(BLOCK_PATTERNS):
+        blk = mask[i * B:(i + 1) * B]
+        if pat in ("r-1", "r", "r+1"):
+            blk[rng.choice(B, r + BLOCK_PATTERNS.index(pat) - 2,
+                           replace=False)] = 1
+        elif pat == "last64":
+            blk[B - 64:] = rng.random(64) < 0.5
+        elif pat == "every":
+            blk[:] = 1
+        elif pat == "sparse":
+            blk[:] = rng.random(B) < 0.01
+        elif pat == "r+1 late":
+            blk[B // 2 + rng.choice(B // 2, r + 1, replace=False)] = 1
+    if values:
+        mask[mask != 0] = rng.integers(1, 256, int((mask != 0).sum()))
+    return mask
+
+
+def _compact_lanes(P: int, seed: int):
+    """Two key lanes (int8 card 30, int16 card 300: keys below 9,000, two
+    7-bit planes), two int8 part rows, a float64 value lane and an int32
+    id lane (below 2^14, two planes)."""
+    rng = np.random.default_rng(seed)
+    return {"g0": rng.integers(0, 30, P).astype(np.int8),
+            "g1": rng.integers(0, 300, P).astype(np.int16),
+            "parts": rng.integers(0, 128, (2, P)).astype(np.int8),
+            "vals": rng.random(P) * 1e6,
+            "ids": rng.integers(0, 1 << 14, P).astype(np.int32)}
+
+
+def _compact_args(mask, lanes, r, device="cpu"):
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in lanes.items()}
+    return (torch.from_numpy(mask).to(device), [t["g0"], t["g1"]],
+            (300, 1), 16384, r, [t["parts"]], [t["vals"]], [t["ids"]])
+
+
+@pytest.mark.parametrize("r", COMPACT_RS)
+def test_block_compact_plain_matches_jax_at_block_edges(r):
+    """block_compact_plain against JAX _block_compact over the lane
+    registry _group_outputs_compacted builds (the key and the ids as 7-bit
+    planes, the part rows, the float lanes), slot by slot."""
+    mask = _pattern_mask(r, seed=r)
+    P = mask.shape[0]
+    lanes = _compact_lanes(P, seed=r + 1)
+    key = lanes["g0"].astype(np.int32) * 300 + lanes["g1"]
+    ints = [(key >> 7 * b) & 0x7F for b in range(2)] + \
+        list(lanes["parts"]) + [(lanes["ids"] >> 7 * b) & 0x7F
+                                for b in range(2)]
+    ci, cf, valid, overflow = jk._block_compact(
+        jnp.asarray(mask != 0), [jnp.asarray(v) for v in ints],
+        [jnp.asarray(lanes["vals"])], r)
+    ci, cf, valid = np.asarray(ci), np.asarray(cf), np.asarray(valid)
+    kc, parts, vals, ids, ovf, matched = tk.block_compact_plain(
+        *_compact_args(mask, lanes, r))
+    kc = kc.numpy()
+    np.testing.assert_array_equal(kc < 16384, valid)
+    np.testing.assert_array_equal(kc[valid], (ci[:, 0] | ci[:, 1] << 7)[valid])
+    assert (kc[~valid] == 16384).all()
+    np.testing.assert_array_equal(parts.numpy().T, ci[:, 2:4])
+    np.testing.assert_array_equal(ids.numpy()[0], ci[:, 4] | ci[:, 5] << 7)
+    np.testing.assert_array_equal(vals.numpy()[0], cf[:, 0])
+    assert int(ovf) == int(overflow) == 1
+    assert int(matched) == int((mask != 0).sum())
+
+
+@pytest.mark.parametrize("r", COMPACT_RS[:3])
+def test_compacted_group_by_at_block_edges_matches_jax(r):
+    """The same masks through the whole compacted group-by: the port's
+    run_segment_kernel against the JAX kernel (_group_outputs_compacted
+    at r slots a block), output by output."""
+    mask = _pattern_mask(r, seed=10 + r)
+    P = mask.shape[0]
+    lanes = _compact_lanes(P, seed=r)
+    cols = {"sel.ids": mask.astype(np.int8) & 1, "g0.ids": lanes["g0"],
+            "g1.ids": lanes["g1"], "m0.parts": lanes["parts"],
+            "v0.vlane": lanes["vals"].astype(np.float32),
+            "d0.ids": lanes["ids"]}
+    filt = ("pred", "eq_id", "sel", "sv", None)
+    group = ((("g0", "ids", 0, 30), ("g1", "ids", 0, 300)), (300, 1), 16384,
+             (("count", "*", "sv", None), ("sum", "m0", "sv", ("psums", 2)),
+              ("min", "d0", "sv", ("ids", 16384)),
+              ("sum", "v0", "sv", ("csums",))), P // jk.CBLOCK * r)
+    want = _jax_run(P, filt, group, cols, [np.int32(1)], P)
+    got = _port_run(P, filt, group, _tcols(cols), [np.int32(1)], P, "cpu")
+    assert_outputs_equal(got, want)
+    assert int(got["group.overflow"]) == 1
+
+
+def _nonzero_bytes(words: np.ndarray) -> np.ndarray:
+    """group_compact.cu:nonzero_bytes: bit 7 of each byte set iff the
+    byte is nonzero."""
+    w = words.astype(np.uint64)
+    lo = np.uint64(0x7F7F7F7F)
+    return (((w & lo) + lo) | w) & np.uint64(0x80808080)
+
+
+def warp_compact_model(mask: np.ndarray, r: int):
+    """numpy mirror of group_compact.cu:block_compact_warp_kernel's walk:
+    a CBLOCK block in 4 rounds of 32 lanes, lane l of round k reading
+    rows [16 (32 k + l), + 16) as four words; a lane's count is the
+    popcount of its words' nonzero_bytes, its first rank the earlier
+    rounds' total plus the lanes before it in the round (an inclusive
+    scan less its own count); its matched rows, in row order, take the
+    ranks from there and those below r go into the warp's list. Returns
+    (the listed row of each block's slot, -1 where unused [n_blocks, r],
+    overflow, matched)."""
+    B = jk.CBLOCK
+    nb = mask.shape[0] // B
+    slots = np.full((nb, r), -1, np.int64)
+    overflow = 0
+    for b in range(nb):
+        nz = _nonzero_bytes(mask[b * B:(b + 1) * B].view("<u4")
+                            ).reshape(4, 32, 4)           # round, lane, word
+        hit = np.stack([(nz >> np.uint64(8 * i + 7)) & np.uint64(1)
+                        for i in range(4)], axis=-1).reshape(4, 32, 16)
+        cnt = hit.sum(axis=2).astype(np.int64)
+        incl = np.cumsum(cnt, axis=1)
+        running = 0
+        for k in range(4):
+            for lane in range(32):
+                rank = running + incl[k, lane] - cnt[k, lane]
+                for i in np.flatnonzero(hit[k, lane]):
+                    if rank < r:
+                        slots[b, rank] = (k * 32 + lane) * 16 + i
+                    rank += 1
+            running += incl[k, 31]
+        overflow |= int(running > r)
+    return slots, overflow, int((mask != 0).sum())
+
+
+@pytest.mark.parametrize("values", [False, True])
+@pytest.mark.parametrize("r", COMPACT_RS)
+def test_warp_route_model_matches_plain(r, values):
+    """The warp route's rank walk puts every block's first r matched rows
+    in row order, as block_compact_plain does: a key lane that names each
+    row's place in its block reads them back."""
+    mask = _pattern_mask(r, seed=20 + r, values=values)
+    P = mask.shape[0]
+    place = torch.from_numpy((np.arange(P) % jk.CBLOCK).astype(np.int32))
+    kc, _p, _v, _i, ovf, matched = tk.block_compact_plain(
+        torch.from_numpy(mask), [place], (1,), jk.CBLOCK, r)
+    slots, overflow, n = warp_compact_model(mask, r)
+    want = np.where(slots >= 0, slots, jk.CBLOCK).reshape(-1)
+    np.testing.assert_array_equal(kc.numpy(), want)
+    assert (int(ovf), int(matched)) == (overflow, n)
+
+
+def test_compact_route_picks_warp_for_single_value_keys():
+    P = 8192
+    mask = torch.zeros(P, dtype=torch.uint8)
+    ids = torch.zeros(P, dtype=torch.int8)
+    assert tk.compact_route(mask, [ids], 64) == "warp"
+    assert tk.compact_route(mask, [tk.GroupKey("idoff", ids, 30, 3),
+                                   tk.GroupKey("idrank", ids, 30, 0,
+                                               table=torch.zeros(
+                                                   32, dtype=torch.int32))],
+                            tk.SORTED_RUNG_R) == "warp"
+    assert tk.compact_route(mask, [ids], tk.SORTED_RUNG_R + 1) == "block"
+    mv = tk.GroupKey("mvids", torch.zeros(P, 1, dtype=torch.int8), 5)
+    assert tk.compact_route(mask, [ids, mv], 64) == "block"
+    unaligned = torch.zeros(P + 16, dtype=torch.uint8)[1:P + 1]
+    assert tk.compact_route(unaligned, [ids], 64) == "block"
+
+
+# ---------------------------------------------------------------------------
 # On the card: K14, K15, K16 and K3's remap keys against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -791,3 +974,48 @@ def test_stacked_compacted_cuda_match_plain(cuda_device):
                 torch.testing.assert_close(g, w, rtol=1e-9, atol=0)
             else:
                 assert torch.equal(g, w), k
+
+
+#: K14 launches a case takes on each route: a race shows only as a wrong
+#: bit
+COMPACT_REPEATS = 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", [False, True])
+@pytest.mark.parametrize("route", ["warp", "block"])
+@pytest.mark.parametrize("r", COMPACT_RS)
+def test_block_compact_cuda_routes_match_plain(cuda_device, r, route,
+                                               values):
+    mask = _pattern_mask(r, seed=30 + r, values=values)
+    lanes = _compact_lanes(mask.shape[0], seed=r)
+    args = _compact_args(mask, lanes, r, cuda_device)
+    want = tk.block_compact_plain(*args)
+    tk.reset_launch_counts()
+    for _ in range(COMPACT_REPEATS):
+        got = tk.block_compact(*args, route=route)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert tk.launch_counts()[f"block_compact[{route}]"] == COMPACT_REPEATS
+
+
+@pytest.mark.cuda
+def test_block_compact_cuda_mv_keys_keep_the_block_route(cuda_device):
+    P = 8192
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy((rng.random(P) < 0.02).astype(np.uint8))
+    mv = rng.integers(0, 6, (P, 3)).astype(np.int8)      # 5: padding
+    key = tk.GroupKey("mvids", torch.from_numpy(mv), 5)
+    args = (mask, [key], (1,), 8, 64)
+    want = tk.block_compact_plain(*args)
+    card = (mask.to(cuda_device),
+            [tk.GroupKey("mvids", key.lane.to(cuda_device), 5)], (1,), 8, 64)
+    with pytest.raises(ValueError):
+        tk.block_compact(*card, route="warp")
+    tk.reset_launch_counts()
+    got = tk.block_compact(*card)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert tk.launch_counts()["block_compact[block]"] == 1

@@ -223,72 +223,199 @@ def _jax_filter(P, spec, cols, params, num_docs):
                          jnp.int32(num_docs)))
 
 
-def _interpret_program(P, spec, cols, params, num_docs) -> np.ndarray:
-    """numpy mirror of filter_mask.cu's per-row loop over the program."""
-    tcols = _torch_cols(cols)
-    buf, n_nodes = tk.compile_filter(spec, params, tcols)
-    lane_keys = tk.filter_lane_keys(spec)
+def _program(spec, cols, params):
+    """K1's host-built program: (nodes [n, 6] as lists, parameter words,
+    lane keys)."""
+    buf, n_nodes = tk.compile_filter(spec, params, _torch_cols(cols))
     w = tk._NODE_WORDS
-    nodes = buf[: w * n_nodes].reshape(n_nodes, w)
-    prm = buf[w * n_nodes:]
+    return (buf[: w * n_nodes].reshape(n_nodes, w).tolist(),
+            buf[w * n_nodes:], tk.filter_lane_keys(spec))
+
+
+def _leaf_rows(node, prm, lane_keys, cols, rows) -> np.ndarray:
+    """bool [rows]: one leaf node over each row, as filter_mask.cu's
+    evaluators (eval_id / eval_raw / the vdoc byte) compute it."""
+    op, lane, off, arg, elem, width = node
     elem_np = {code: tk._np_of(dt) for dt, code in tk._ELEM.items()}
     ops = tk._LEAF_OPS
+    if op == tk._OP_TRUE:
+        return np.ones(rows, bool)
+    if op == tk._OP_FALSE:
+        return np.zeros(rows, bool)
+    if op == ops["vdoc"]:
+        return cols[lane_keys[lane]] != 0
+    if op >= ops["eq_raw"]:
+        dt = elem_np[elem]
+        v = cols[lane_keys[lane]]
+        assert v.dtype == dt and width == 1
+        nw = dt.itemsize // 4
+
+        def const(i):
+            return np.ascontiguousarray(
+                prm[off + i * nw: off + (i + 1) * nw]).view(dt)[0]
+
+        if op == ops["eq_raw"]:
+            return v == const(0)
+        if op == ops["neq_raw"]:
+            return v != const(0)
+        if op == ops["range_raw"]:
+            lo, hi = const(0), const(1)
+            return ((v >= lo) if arg & 1 else (v > lo)) & \
+                ((v <= hi) if arg & 2 else (v < hi))
+        bit = np.isin(v, [const(i) for i in range(arg)])
+        return ~bit if op == ops["notin_raw"] else bit
+    v = cols[lane_keys[lane]].astype(np.int64).reshape(rows, width)
+    if op == ops["eq_id"]:
+        bit = v == prm[off]
+    elif op == ops["neq_id"]:
+        bit = v != prm[off]
+    elif op == ops["range_ids"]:
+        bit = (v >= prm[off]) & (v < prm[off + 1])
+    elif op in (ops["in_ids"], ops["notin_ids"]):
+        bit = np.isin(v, prm[off:off + arg])
+        if op == ops["notin_ids"]:
+            bit = ~bit
+    else:
+        idx = np.clip(v, 0, arg - 1)
+        words = prm[off + (idx >> 5)].astype(np.uint32)
+        bit = ((words >> (idx & 31).astype(np.uint32)) & 1) == 1
+    return bit.any(axis=1)
+
+
+def _pop_push(stack, node):
+    """An AND / OR node on per-row bit stacks: pop arg bits, push one."""
+    op, arg = node[0], node[3]
+    m = np.uint64((1 << arg) - 1)
+    kids = stack & m
+    stack = stack >> np.uint64(arg)
+    bit = (kids == m) if op == tk._OP_AND else (kids != 0)
+    return (stack << np.uint64(1)) | bit.astype(np.uint64)
+
+
+def _interpret_program(P, spec, cols, params, num_docs) -> np.ndarray:
+    """numpy mirror of filter_mask.cu's per-row loop over the program."""
+    nodes, prm, lane_keys = _program(spec, cols, params)
     stack = np.zeros(P, dtype=np.uint64)
-    for op, lane, off, arg, elem, width in nodes.tolist():
-        if op in (tk._OP_AND, tk._OP_OR):
-            m = np.uint64((1 << arg) - 1)
-            kids = stack & m
-            stack >>= np.uint64(arg)
-            bit = (kids == m) if op == tk._OP_AND else (kids != 0)
-        elif op == tk._OP_TRUE:
-            bit = np.ones(P, bool)
-        elif op == tk._OP_FALSE:
-            bit = np.zeros(P, bool)
-        elif op == ops["vdoc"]:
-            bit = cols[lane_keys[lane]] != 0
-        elif op >= ops["eq_raw"]:
-            dt = elem_np[elem]
-            v = cols[lane_keys[lane]]
-            assert v.dtype == dt and width == 1
-            nw = dt.itemsize // 4
-
-            def const(i, off=off, nw=nw, dt=dt):
-                return np.ascontiguousarray(
-                    prm[off + i * nw: off + (i + 1) * nw]).view(dt)[0]
-
-            if op == ops["eq_raw"]:
-                bit = v == const(0)
-            elif op == ops["neq_raw"]:
-                bit = v != const(0)
-            elif op == ops["range_raw"]:
-                lo, hi = const(0), const(1)
-                bit = ((v >= lo) if arg & 1 else (v > lo)) & \
-                    ((v <= hi) if arg & 2 else (v < hi))
-            else:
-                bit = np.isin(v, [const(i) for i in range(arg)])
-                if op == ops["notin_raw"]:
-                    bit = ~bit
-        else:
-            v = cols[lane_keys[lane]].astype(np.int64).reshape(P, width)
-            if op == ops["eq_id"]:
-                bit = v == prm[off]
-            elif op == ops["neq_id"]:
-                bit = v != prm[off]
-            elif op == ops["range_ids"]:
-                bit = (v >= prm[off]) & (v < prm[off + 1])
-            elif op in (ops["in_ids"], ops["notin_ids"]):
-                bit = np.isin(v, prm[off:off + arg])
-                if op == ops["notin_ids"]:
-                    bit = ~bit
-            else:
-                idx = np.clip(v, 0, arg - 1)
-                words = prm[off + (idx >> 5)].astype(np.uint32)
-                bit = ((words >> (idx & 31).astype(np.uint32)) & 1) == 1
-            bit = bit.any(axis=1)
+    for node in nodes:
+        if node[0] in (tk._OP_AND, tk._OP_OR):
+            stack = _pop_push(stack, node)
+            continue
+        bit = _leaf_rows(node, prm, lane_keys, cols, P)
         stack = (stack << np.uint64(1)) | bit.astype(np.uint64)
     out = (stack & np.uint64(1)).astype(np.uint8)
     out[num_docs:] = 0
     return out
+
+
+_HIGH = np.uint64(0x80808080)          # bit 7 of each byte of a word
+_LOW7 = np.uint64(0x7F7F7F7F)
+_WORD = np.uint64(0xFFFFFFFF)
+
+
+def _level_bit(r):
+    """Row r of a wide run's 32 at bit 8 (r % 4) + r / 4 of a level."""
+    return 8 * (r & 3) + (r >> 2)
+
+
+def _nonzero_bytes(w):
+    """filter_mask.cu:nonzero_bytes on uint64-held 32-bit words."""
+    return (((w & _LOW7) + _LOW7) | w) & _HIGH
+
+
+def _pack_flags(f):
+    """[runs, 8] words of byte flags (bit 7) → [runs] levels: word k's
+    flags shifted right by 7 - k."""
+    return np.bitwise_or.reduce(
+        f >> (np.uint64(7) - np.arange(8, dtype=np.uint64)), axis=1)
+
+
+def _i8_level(node, prm, lane):
+    """filter_mask.cu:i8_level on [runs, 8] words of an int8 lane."""
+    op, _lane, off, arg = node[:4]
+    ops = tk._LEAF_OPS
+    w = lane.view("<u4").astype(np.uint64).reshape(-1, 8)
+    if op == ops["range_ids"]:
+        lo, hi = max(int(prm[off]), -128), min(int(prm[off + 1]), 128)
+        if lo >= hi or hi - lo == 256:
+            return _pack_flags(np.full_like(w, 0 if lo >= hi else _HIGH))
+        l4 = np.uint64((lo + 128) * 0x01010101)
+        e4 = np.uint64((256 - (hi - lo)) * 0x01010101)
+        u = w ^ _HIGH
+        d = (((u | _HIGH) - (l4 & _LOW7)) & _WORD) ^ \
+            ((u ^ (~l4 & _WORD)) & _HIGH)
+        sm = (d & _LOW7) + (e4 & _LOW7)
+        ge = ((d & e4) | ((d | e4) & sm)) & _HIGH
+        return _pack_flags(ge ^ _HIGH)
+    f = np.zeros_like(w)
+    for c in prm[off:off + (1 if op in (ops["eq_id"], ops["neq_id"])
+                            else arg)].tolist():
+        if -128 <= c <= 127:
+            f |= _nonzero_bytes(w ^ np.uint64((c & 0xFF) * 0x01010101)) ^ \
+                _HIGH
+    if op in (ops["neq_id"], ops["notin_ids"]):
+        f ^= _HIGH
+    return _pack_flags(f)
+
+
+def _interpret_wide(rows, spec, cols, params, seg_rows, seg_docs):
+    """numpy mirror of filter_mask.cu:filter_wide_kernel: runs of 32 rows
+    (a thread's: two halves of 16 rows, 4,096 rows apart, of an 8,192-row
+    block step), each leaf's runs as 32-bit levels, row r at bit
+    8 (r % 4) + r / 4 (int8 dictId leaves but member and the vdoc byte
+    through the kernel's byte-parallel arithmetic, the others row by
+    row); the stack as levels in slots, a leaf writing slot sp, an AND /
+    OR of k children folding slots sp - k .. sp - 1; the result level
+    masked by the run's live rows (a run never straddles two segments),
+    word w of its mask (level >> w) & 0x01010101, popcounted into
+    seg_matched. Returns (uint8 mask [rows], int32 matched per segment)."""
+    nodes, prm, lane_keys = _program(spec, cols, params)
+    # a block step of 8,192 rows: thread t's rows 0-15 are the step's rows
+    # 16 t .. 16 t + 15, its rows 16-31 the same of the step's second half
+    tile = 32 * 256
+    assert rows % tile == 0
+    half = np.arange(16)
+    own = np.concatenate([np.concatenate([16 * t + half, tile // 2 + 16 * t
+                                          + half]) for t in range(256)])
+    order = (np.arange(rows // tile)[:, None] * tile + own).reshape(-1)
+    cols = {k: np.ascontiguousarray(cols[k][order]) for k in lane_keys}
+    runs = rows // tk.WIDE_ROWS
+    bit = np.array([_level_bit(r) for r in range(tk.WIDE_ROWS)],
+                   dtype=np.uint64)
+    slots = np.zeros((runs, tk.WIDE_DEPTH), dtype=np.uint64)
+    sp = 0
+    for node in nodes:
+        op, lane, arg, elem, width = node[0], node[1], node[3], node[4], \
+            node[5]
+        if op in (tk._OP_AND, tk._OP_OR):
+            sp -= arg
+            fold = np.bitwise_and if op == tk._OP_AND else np.bitwise_or
+            v = fold.reduce(slots[:, sp:sp + arg], axis=1)
+        elif op == tk._LEAF_OPS["vdoc"]:
+            v = _pack_flags(_nonzero_bytes(cols[lane_keys[lane]].astype(
+                np.uint8).view("<u4").astype(np.uint64).reshape(-1, 8)))
+        elif op in tk._LEAF_OPS.values() and op < tk._LEAF_OPS["eq_raw"] \
+                and op != tk._LEAF_OPS["member"] and width == 1 and \
+                elem == tk._ELEM[torch.int8]:
+            v = _i8_level(node, prm, cols[lane_keys[lane]])
+        else:
+            b = _leaf_rows(node, prm, lane_keys, cols, rows)
+            v = np.bitwise_or.reduce(b.reshape(runs, tk.WIDE_ROWS).astype(
+                np.uint64) << bit, axis=1)
+        slots[:, sp] = v & _WORD
+        sp += 1
+    res = slots[:, 0]
+    row = order.reshape(runs, tk.WIDE_ROWS)       # each run's rows
+    seg = row[:, 0] // seg_rows
+    live = row < (seg * seg_rows + np.asarray(seg_docs, np.int64)[seg]
+                  )[:, None]
+    res &= np.bitwise_or.reduce(live.astype(np.uint64) << bit, axis=1)
+    words = (res[:, None] >> np.arange(8, dtype=np.uint64)) & \
+        np.uint64(0x01010101)
+    out = np.empty(rows, np.uint8)
+    out[order] = words.astype("<u4").view(np.uint8).reshape(rows)
+    matched = np.bincount(seg, weights=[bin(int(x)).count("1") for x in res],
+                          minlength=rows // seg_rows).astype(np.int32)
+    return out, matched
 
 
 @pytest.mark.parametrize("P", SHAPES)
@@ -310,6 +437,146 @@ def test_filter_mask_plain_matches_jax(P, docs, name):
     np.testing.assert_array_equal(
         _interpret_program(P, spec, cols, params, num_docs).astype(bool),
         want)
+
+
+#: K1's wide route (32 rows a thread): id lanes int8 / int16 / int32,
+#: in-lists, member bitsets, nesting, the vdoc byte, an MV lane and a raw
+#: float64 lane (the general instantiation's per-row evaluators)
+WIDE_FILTERS = ("eq_int8", "neq_int16", "range_int32", "in_int8",
+                "notin_int16", "member_int32", "nested", "vdoc_and_eq",
+                "eq_mv_w3", "range_raw_f64")
+#: live rows around the wide route's run edges (32 rows): none, one, half
+#: a run and one more, a run and one more, one short of the segment, all
+WIDE_TAILS = ("0", "1", "15", "16", "17", "31", "32", "33", "P-1", "P")
+
+
+def _tail(P: int, tail: str) -> int:
+    return {"P-1": P - 1, "P": P}.get(tail) if tail.startswith("P") \
+        else int(tail)
+
+
+@pytest.mark.parametrize("tail", WIDE_TAILS)
+@pytest.mark.parametrize("name", WIDE_FILTERS)
+def test_wide_route_mirror_matches_jax(name, tail):
+    P = SHAPES[0]
+    spec, params = FILTERS[name]
+    num_docs = _tail(P, tail)
+    cols = _lanes(P, num_docs, seed=P + len(name) + num_docs)
+    want = _jax_filter(P, spec, cols, params, num_docs)
+    got, matched = _interpret_wide(P, spec, cols, params, P, [num_docs])
+    np.testing.assert_array_equal(got.astype(bool), want)
+    assert matched.tolist() == [int(want.sum())]
+    lanes = [torch.from_numpy(np.ascontiguousarray(cols[k])).clone()
+             for k in tk.filter_lane_keys(spec)]
+    buf, n_nodes = tk.compile_filter(spec, params, _torch_cols(cols))
+    assert tk.filter_route(lanes, P, buf, n_nodes) == "wide"
+
+
+@pytest.mark.parametrize("name", ["nested", "eq_int8", "vdoc_and_eq",
+                                  "eq_mv_w3"])
+def test_wide_route_mirror_stacked_matches_jax(name):
+    """Four segments stacked; the second and third end mid-run (5,003
+    and 17 live rows), the last holds none: each segment's mask and
+    match count against JAX over that segment alone."""
+    P = SHAPES[0]
+    spec, params = FILTERS[name]
+    docs = [P, 5003, 17, 0]
+    segs = [_lanes(P, d, seed=40 + i) for i, d in enumerate(docs)]
+    keys = tk.filter_lane_keys(spec)
+    flat = {k: np.concatenate([c[k] for c in segs]) for k in keys}
+    got, matched = _interpret_wide(len(docs) * P, spec, flat, params, P,
+                                   docs)
+    for i, d in enumerate(docs):
+        want = _jax_filter(P, spec, segs[i], params, d)
+        np.testing.assert_array_equal(got[i * P:(i + 1) * P].astype(bool),
+                                      want)
+        assert int(matched[i]) == int(want.sum())
+
+
+#: int8 programs at the edges of the wide route's byte arithmetic, over a
+#: lane of every int8 value: constants outside int8, empty, inverted and
+#: full ranges, negative ids
+I8_EDGES = {
+    "range_all": [np.int32(-200), np.int32(300)],
+    "range_int8": [np.int32(-128), np.int32(128)],
+    "range_empty": [np.int32(5), np.int32(5)],
+    "range_inverted": [np.int32(10), np.int32(3)],
+    "range_negative": [np.int32(-5), np.int32(7)],
+    "range_top": [np.int32(127), np.int32(1000)],
+    "range_bottom": [np.int32(-1000), np.int32(-127)],
+    "eq_outside": [np.int32(200)],
+    "eq_min": [np.int32(-128)],
+    "neq_outside": [np.int32(-129)],
+    "in_outside": [np.array([-129, 5, 300, -128], np.int32)],
+    "notin_ends": [np.array([127, -1], np.int32)],
+}
+
+
+def _i8_edge(name):
+    kind = {"range": "range_ids", "eq": "eq_id", "neq": "neq_id",
+            "in": "in_ids", "notin": "notin_ids"}[name.split("_")[0]]
+    params = I8_EDGES[name]
+    extra = len(params[0]) if kind in ("in_ids", "notin_ids") else None
+    cols = {"e.ids": np.random.default_rng(77).integers(
+        -128, 128, SHAPES[0]).astype(np.int8)}
+    return _pred(kind, "e", extra), params, cols
+
+
+@pytest.mark.parametrize("name", sorted(I8_EDGES))
+def test_wide_int8_arithmetic_matches_jax(name):
+    P = SHAPES[0]
+    spec, params, cols = _i8_edge(name)
+    want = _jax_filter(P, spec, cols, params, P - 5)
+    got, matched = _interpret_wide(P, spec, cols, params, P, [P - 5])
+    np.testing.assert_array_equal(got.astype(bool), want)
+    assert int(matched[0]) == int(want.sum())
+
+
+def test_filter_route_picks_wide_by_lanes():
+    P = 8192
+    cols = {k: torch.from_numpy(np.ascontiguousarray(v)).clone()
+            for k, v in _lanes(P, P, seed=0).items()}
+    eq = tk.compile_filter(_pred("eq_id", "a"), [np.int32(1)], cols)
+    ssb = [cols["a.ids"], cols["h15.ids"], cols["b.ids"]]  # 4 bytes a row
+    assert all(t.data_ptr() % 16 == 0 for t in ssb)
+    assert tk.filter_route(ssb, P, *eq) == "wide"
+    assert tk.filter_route([], P, *tk.compile_filter(("match_all",), [],
+                                                     cols)) == "wide"
+    # an unaligned view of the same rows
+    unaligned = torch.zeros(P + 16, dtype=torch.int8)[1:P + 1]
+    assert tk.filter_route([unaligned] + ssb[1:], P, *eq) == "rows"
+    # the budget: 8 bytes a row take the route, 9 do not
+    assert tk.filter_route([cols["ri64.raw"]], P, *eq) == "wide"
+    assert tk.filter_route([cols["ri64.raw"], cols["a.ids"]], P, *eq) == \
+        "rows"
+    # an MV lane counts its width: int8 x 3
+    mixed = [cols["m3.mv"], cols["rf32.raw"], cols["a.ids"]]
+    assert tk.filter_route(mixed, P, *eq) == "wide"
+    assert tk.filter_route(mixed + [cols["b.ids"]], P, *eq) == "rows"
+    # rows past a multiple of 16
+    assert tk.filter_route([t[:P - 16] for t in ssb], P - 16, *eq) == "wide"
+    assert tk.filter_route([t[:P - 8] for t in ssb], P - 8, *eq) == "rows"
+    # a stack of 8 levels takes the route, of 9 it does not
+    leaf = _pred("eq_id", "a")
+    for n_or, depth in ((4, 8), (5, 9)):
+        deep = ("and", ((("or", (leaf, leaf)),) * n_or +
+                        (("and", (leaf,) * 4),)))
+        buf, n_nodes = tk.compile_filter(
+            deep, [np.int32(1)] * (2 * n_or + 4), cols)
+        assert tk.program_depth(buf, n_nodes) == depth
+        assert tk.filter_route(ssb, P, buf, n_nodes) == \
+            ("wide" if depth <= tk.WIDE_DEPTH else "rows")
+    # a program past shared memory: an in-list of 12,288 ids
+    big = np.arange(tk._MAX_STAGED_WORDS, dtype=np.int32)
+    assert tk.filter_route(ssb, P, *tk.compile_filter(
+        _pred("in_ids", "c", big.size), [big], cols)) == "rows"
+    # a join_raw probe stays on the row route
+    dim = np.array([1, 5, 9, 13], np.int32)
+    buf, n_nodes = tk.compile_filter(
+        ("pred", "join_raw", "ri32", "raw", 4), [tk.SortedKeys(dim)], cols,
+        probe_lanes=[], join=lambda *_: torch.from_numpy(dim))
+    assert buf[0] == tk._LEAF_OPS["join_raw"]
+    assert tk.filter_route([cols["ri32.raw"]], P, buf, n_nodes) == "rows"
 
 
 def test_compile_filter_limits():
@@ -495,6 +762,100 @@ def test_filter_mask_cuda_matches_plain(cuda_device, name):
     got = tk.filter_mask(P, spec, cols, params, P - 777, cuda_device)
     want = tk.filter_mask_plain(P, spec, cols, params, P - 777, cuda_device)
     assert torch.equal(got, want)
+
+
+#: launches a case takes on each route: a race shows only as a wrong bit
+ROUTE_REPEATS = 20
+
+
+def _filter_routes_case(cuda_device, P, spec, cols, params, num_docs,
+                        route):
+    """K1 forced onto `route` ROUTE_REPEATS times, each launch bit-equal
+    to the plain version and counted on that route; a program the wide
+    route does not take raises there."""
+    keys = tk.filter_lane_keys(spec)
+    if route == "wide" and tk.filter_route(
+            [cols[k] for k in keys], P, *tk.compile_filter(
+                spec, params, cols, [])) != "wide":
+        with pytest.raises(ValueError):
+            tk.filter_mask(P, spec, cols, params, num_docs, cuda_device,
+                           route=route)
+        return
+    want = tk.filter_mask_plain(P, spec, cols, params, num_docs, cuda_device)
+    tk.reset_launch_counts()
+    for _ in range(ROUTE_REPEATS):
+        got = tk.filter_mask(P, spec, cols, params, num_docs, cuda_device,
+                             route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    counts = tk.launch_counts()
+    assert counts[f"filter_mask[{route}]"] == ROUTE_REPEATS == \
+        counts["filter_mask"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wide", "rows"])
+@pytest.mark.parametrize("name", sorted(FILTERS))
+def test_filter_mask_cuda_routes_match_plain(cuda_device, name, route):
+    P = SHAPES[-1]
+    spec, params = FILTERS[name]
+    cols = _torch_cols(_lanes(P, P - 777, seed=3), cuda_device)
+    _filter_routes_case(cuda_device, P, spec, cols, params, P - 777, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wide", "rows"])
+@pytest.mark.parametrize("name", sorted(I8_EDGES))
+def test_filter_mask_cuda_int8_edges_match_plain(cuda_device, name, route):
+    P = SHAPES[0]
+    spec, params, cols = _i8_edge(name)
+    _filter_routes_case(cuda_device, P, spec, _torch_cols(cols, cuda_device),
+                        params, P - 5, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wide", "rows"])
+@pytest.mark.parametrize("tail", WIDE_TAILS)
+@pytest.mark.parametrize("name", WIDE_FILTERS)
+def test_filter_mask_cuda_tails_match_plain(cuda_device, name, tail, route):
+    P = SHAPES[0]
+    spec, params = FILTERS[name]
+    num_docs = _tail(P, tail)
+    cols = _torch_cols(_lanes(P, num_docs, seed=num_docs), cuda_device)
+    _filter_routes_case(cuda_device, P, spec, cols, params, num_docs, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wide", "rows"])
+@pytest.mark.parametrize("name", WIDE_FILTERS)
+def test_filter_mask_stacked_cuda_routes_match_single(cuda_device, name,
+                                                      route):
+    """The stacked K1 on each route against its plain version and against
+    S single launches on the same route: masks and seg_matched equal,
+    segments ending mid-run among them."""
+    P = SHAPES[-1]
+    spec, params = FILTERS[name]
+    docs = [P, 5003, 17, 0, P - 777]
+    segs = [_lanes(P, d, seed=50 + i) for i, d in enumerate(docs)]
+    keys = tk.filter_lane_keys(spec)
+    flat = _torch_cols({k: np.concatenate([c[k] for c in segs])
+                        for k in keys}, cuda_device)
+    per = [_torch_cols({k: c[k] for k in keys}, cuda_device) for c in segs]
+    seg_docs = torch.tensor(docs, dtype=torch.int32, device=cuda_device)
+    S = len(docs)
+    want, want_m = tk.filter_mask_stacked_plain(P, S, spec, flat, params,
+                                                seg_docs)
+    tk.reset_launch_counts()
+    for _ in range(ROUTE_REPEATS):
+        mask, matched = tk.filter_mask_stacked(P, S, spec, flat, params,
+                                               seg_docs, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(mask, want) and torch.equal(matched, want_m)
+    assert tk.launch_counts()[f"filter_mask[{route}]"] == ROUTE_REPEATS
+    single = torch.cat([tk.filter_mask(P, spec, c, params, d, cuda_device,
+                                       route=route)
+                        for c, d in zip(per, docs)])
+    assert torch.equal(single, want)
 
 
 @pytest.mark.cuda

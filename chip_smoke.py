@@ -403,18 +403,20 @@ import time
 import numpy as np
 import torch
 
-from pinot_tpu_torch.tools.timing import (HBM_BYTES_PER_S, bound,
-                                         launch_breakdown, time_ms)
+from pinot_tpu_torch.tools.timing import (HBM_BYTES_PER_S, TF32_OPS_PER_S,
+                                         bound, launch_breakdown, time_ms)
 
 CSUMS_RTOL = 1e-9               # f64 atomics add in a run-dependent order
 ROWS_PER_SF = 6_000_000
 WINDOW_SCAN_REPEATS = 10        # K13 launches a case, each bit-checked
 SORT_SELECT_REPEATS = 10        # K12 / K6 launches a case, each bit-checked
 JOIN_K1_REPEATS = 10            # K1 join_raw launches a route, each checked
-#: the launch-count keys of K12's, K6's, K1's join_raw, K1's and K14's
-#: routes
+K1_BATCH_REPEATS = 10           # batched K1 launches a case and route, checked
+#: the launch-count keys of K12's, K6's, K1's join_raw, K1's, K14's and
+#: K10's routes
 ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]", "[bitmap]",
-               "[probe]", "[wide]", "[rows]", "[leaf]", "[warp]", "[block]")
+               "[probe]", "[wide]", "[rows]", "[leaf]", "[warp]", "[block]",
+               "[tensor]", "[simt]")
 
 
 #: the kernels of the SSB and baseballStats paths (K1-K7)
@@ -2194,8 +2196,9 @@ def run_group_compact(label, on_engine, off_engine, st_engine, cases,
 def vec_data(base, args):
     """Phase vec_data: draw and seal the vector table with the port's
     SegmentCreator (IVF codebooks trained on the card: K10 and K11, their
-    launches counted from 0), load it with from_dirs and put its lanes on
-    the card. Returns (engine, draws, launches)."""
+    launches counted from 0; every K10 launch on its tensor route), load
+    it with from_dirs and put its lanes on the card. Returns (engine,
+    draws, launches, the seal's IVF training seconds)."""
     from pinot_tpu_torch.engine import QueryEngine
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.tools import vecdata
@@ -2208,6 +2211,9 @@ def vec_data(base, args):
     launches = K.launch_counts()
     if not launches["ivf_assign"] or not launches["ivf_recenter"]:
         raise AssertionError(f"IVF training left the card: {launches}")
+    if launches["ivf_assign[tensor]"] != launches["ivf_assign"]:
+        raise AssertionError(f"IVF training left K10's tensor route: "
+                             f"{launches}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = QueryEngine.from_dirs(dirs)                  # on the card
@@ -2233,7 +2239,7 @@ def vec_data(base, args):
           "disk_bytes": sum(os.path.getsize(os.path.join(d, f))
                             for d in dirs for f in os.listdir(d)),
           "launches": {k: v for k, v in launches.items() if v}})
-    return engine, draws, launches
+    return engine, draws, launches, secs["train"]
 
 
 def _query(q, dim: int):
@@ -2258,7 +2264,20 @@ def _topk_equal(got, want) -> bool:
         set(got) == set(want)
 
 
-def vector_kernel_check(engine, st_engine, q, seed: int = 0):
+def engine_rows(engine) -> int:
+    return sum(s.num_docs for s in engine.segments)
+
+
+def k10_settled(IK, data, cent, n: int, n_cent: int) -> dict:
+    """The rows K10's tensor route settled by a second candidate's dot
+    and by a scan of every live centroid, in one launch."""
+    stats = torch.zeros(2, dtype=torch.int32, device=data.device)
+    IK.ivf_assign(data, cent, n, n_cent, route="tensor", stats=stats)
+    two, scanned = stats.tolist()
+    return {"settled_by_two_dots": two, "settled_by_scan": scanned}
+
+
+def vector_kernel_check(engine, st_engine, q, seed: int = 0, train=None):
     """Phase vector_kernel_check: K8, K6's vector kind, K9 (with K1's
     ivf_probe node), K10 and K11 against their plain versions on segment
     0's lanes, K9 also over a PROBE_CODEBOOK x dim codebook drawn from
@@ -2268,11 +2287,20 @@ def vector_kernel_check(engine, st_engine, q, seed: int = 0):
     numpy query run once under the sync debug mode (no_host_sync), and
     their kernels' own device times come from launch_breakdown. Bit-equal:
     K8's scores, K6's docids / scores / count, K9's probe lists, K1's masks;
-    K10's assignments wherever the best two distances differ by more than
-    1e-3 of the best, its distances within 1e-3 + 1e-4 relative; K11's
+    K10's assignments on each route (IVF_ASSIGN_ROUTES) wherever the best
+    two distances differ by more than 1e-3 of the best, its distances
+    within 1e-3 + 1e-4 relative and byte-identical run to run, the two
+    routes' outputs bit for bit equal, and the rows the tensor route
+    settled by two dots or by a scan; K10 timed on both routes
+    on segment 0, on three codebooks of copied centroids (near ties) and
+    the Lloyd sample (beside the 3xTF32 and the f32
+    operation bounds), a 2^20-row sweep chunk and the train step; the
+    simt route alone at dim_pad 4; K11's
     counts equal, its centroids within 1e-5 and byte-identical run to
     run, on the sample's assignments and with every row on one centroid.
-    Returns ({kernel: numbers}, {kernel: stacked numbers})."""
+    `train`: (the seal's IVF training seconds, vec_data's launches), for
+    K10's estimated share of them. Returns ({kernel: numbers}, {kernel:
+    stacked numbers})."""
     from pinot_tpu_torch.ops import ivf_kernels as IK
     from pinot_tpu_torch.ops import kernels as K
     seg = engine.segments[0]
@@ -2421,9 +2449,10 @@ def vector_kernel_check(engine, st_engine, q, seed: int = 0):
            bound_ms=bound(P * ivfa.element_size() + P +
                           c_pad * dim * 4, P * 16)[0])
 
-    # K10 over segment 0's rows against its codebook
+    # K10 over segment 0's rows against its codebook, on each route (the
+    # tensor route is the main path's), then the Lloyd step's shape, a
+    # sweep chunk, and the simt route alone at dim_pad 4
     data = mat[:n]
-    assign, dist = IK.ivf_assign(data, cent, n, n_cent)
     ref_a, ref_d = IK.ivf_assign_plain(data, cent, n, n_cent)
     d2 = (K.vec_tree_sum_plain(data * data)[:, None] -
           2.0 * (data @ cent[:n_cent].T) +
@@ -2431,21 +2460,118 @@ def vector_kernel_check(engine, st_engine, q, seed: int = 0):
     two = torch.topk(d2, 2, dim=1, largest=False).values
     sure = (two[:, 1] - two[:, 0]) > 1e-3 * two[:, 0].abs().clamp_min(1.0)
     del d2, two
-    mismatched = int(((assign != ref_a) & sure).sum())
-    record("ivf_assign", f"{n} rows x {n_cent} centroids", mismatched == 0 and
-           bool(torch.allclose(dist, ref_d, rtol=1e-4, atol=1e-3)),
-           mismatched_sure=mismatched, unsure_rows=int((~sure).sum()),
-           differ_unsure=int(((assign != ref_a) & ~sure).sum()),
-           max_abs_err=float((dist - ref_d).abs().max()))
     flops = 2.0 * n * n_cent * dim
+    k10_bytes = n * dim * 4 + n_cent * dim * 4 + n * 8
+    k10_bounds = {"tensor": bound(k10_bytes, 3 * flops, TF32_OPS_PER_S),
+                  "simt": bound(k10_bytes, flops)}
+    k10, outs = {}, {}
+    for route in IK.IVF_ASSIGN_ROUTES:
+        assign, dist = IK.ivf_assign(data, cent, n, n_cent, route=route)
+        again, dist_again = IK.ivf_assign(data, cent, n, n_cent, route=route)
+        outs[route] = (assign, dist)
+        same = torch.equal(assign, again) and _bits_equal(dist, dist_again)
+        mismatched = int(((assign != ref_a) & sure).sum())
+        err = float((dist - ref_d).abs().max())
+        record("ivf_assign", f"{n} rows x {n_cent} centroids, {route}",
+               mismatched == 0 and same and bool(torch.allclose(
+                   dist, ref_d, rtol=1e-4, atol=1e-3)), route=route,
+               mismatched_sure=mismatched, unsure_rows=int((~sure).sum()),
+               differ_unsure=int(((assign != ref_a) & ~sure).sum()),
+               max_abs_err=err, run_to_run_bytes_equal=same)
+        k10[route] = dict(
+            max_abs_err=err, bound=k10_bounds[route],
+            ms=time_ms(lambda: IK.ivf_assign(data, cent, n, n_cent,
+                                             route=route), reps=5))
+    # the tensor route settles each row in the simt route's arithmetic:
+    # one dot, two where a second candidate lies within the rounding
+    # margin, a scan of every live centroid where a third does too
+    settled = k10_settled(IK, data, cent, n, n_cent)
+    record("ivf_assign", "tensor against simt, bit for bit",
+           torch.equal(outs["tensor"][0], outs["simt"][0]) and
+           _bits_equal(outs["tensor"][1], outs["simt"][1]),
+           rows_differing=int((outs["tensor"][0] != outs["simt"][0]).sum()),
+           rows=n, **settled)
+    del outs
+    # near ties: the live centroids copied in groups of two or three (over
+    # the whole codebook or its first 1/16), so that every row near a
+    # group settles by two dots or by a scan; both routes timed
+    for copies, part in ((2, 1), (3, 16), (3, 1)):
+        ids = torch.arange(n_cent, device=cent.device)
+        src = torch.where(ids < n_cent // part, ids - ids % copies, ids)
+        tie = cent.clone()
+        tie[:n_cent] = cent[src]
+        got = {r: IK.ivf_assign(data, tie, n, n_cent, route=r)
+               for r in IK.IVF_ASSIGN_ROUTES}
+        record("ivf_assign", f"near ties: groups of {copies} over 1/{part} "
+               "of the codebook, tensor against simt",
+               torch.equal(got["tensor"][0], got["simt"][0]) and
+               _bits_equal(got["tensor"][1], got["simt"][1]),
+               rows=n, **k10_settled(IK, data, tie, n, n_cent),
+               **{f"ms_{r}": time_ms(lambda: IK.ivf_assign(
+                   data, tie, n, n_cent, route=r), reps=3)
+                  for r in IK.IVF_ASSIGN_ROUTES})
+        del got, tie
+    k10_plain_ms = time_ms(lambda: IK.ivf_assign_plain(data, cent, n,
+                                                       n_cent), reps=3)
+    k10_library_ms = time_ms(lambda: torch.cdist(data, cent[:n_cent])
+                             .argmin(dim=1), reps=3)
+    for route in IK.IVF_ASSIGN_ROUTES:
+        k10[route].update(plain_ms=k10_plain_ms, library_ms=k10_library_ms)
+        entries[f"ivf_assign[{route}]"] = k10[route]
+    m = min(65536, n)
+    sample = data[:m].contiguous()
+    chunk = data[:min(n, 1 << 20)]
+    lloyd = {route: time_ms(lambda: IK.ivf_assign(sample, cent, m, n_cent,
+                                                  route=route))
+             for route in IK.IVF_ASSIGN_ROUTES}
+    sweep_ms = time_ms(lambda: IK.ivf_assign(chunk, cent, chunk.shape[0],
+                                             n_cent), reps=5)
+    step_ms = time_ms(lambda: IK.ivf_train_step(sample, cent, m, n_cent))
     entries["ivf_assign"] = dict(
-        max_abs_err=float((dist - ref_d).abs().max()),
-        ms=time_ms(lambda: IK.ivf_assign(data, cent, n, n_cent), reps=5),
-        plain_ms=time_ms(lambda: IK.ivf_assign_plain(data, cent, n, n_cent),
-                         reps=3),
-        bound=bound(n * dim * 4 + n_cent * dim * 4 + n * 8, flops),
-        library_ms=time_ms(lambda: torch.cdist(data, cent[:n_cent])
-                           .argmin(dim=1), reps=3))
+        max_abs_err=k10["tensor"]["max_abs_err"], ms=k10["tensor"]["ms"],
+        plain_ms=k10_plain_ms, bound=k10_bounds["tensor"],
+        library_ms=k10_library_ms, ms_simt=k10["simt"]["ms"],
+        bound_ms_simt=k10_bounds["simt"][0],
+        bound_by_simt=k10_bounds["simt"][1],
+        sample_ms=lloyd["tensor"], sample_ms_simt=lloyd["simt"],
+        sample_bound_ms=bound(m * dim * 4 + n_cent * dim * 4 + m * 8,
+                              6.0 * m * n_cent * dim, TF32_OPS_PER_S)[0],
+        train_step_ms=step_ms, sweep_chunk_rows=int(chunk.shape[0]),
+        sweep_chunk_ms=sweep_ms, rows=n, **settled)
+    record("ivf_assign", f"{n} rows x {n_cent} centroids timed", True,
+           **{k: v for k, v in entries["ivf_assign"].items()
+              if k != "bound"},
+           bound_ms=k10_bounds["tensor"][0],
+           bound_by=k10_bounds["tensor"][1],
+           launch_us=launch_breakdown(lambda: IK.ivf_assign(
+               data, cent, n, n_cent)))
+    if train is not None:
+        # K10's share of the seal's IVF training: its Lloyd launches at the
+        # sample's time, its sweep at the chunk's time a row
+        train_s, build = train
+        steps = build["ivf_recenter"]
+        k10_s = (steps * lloyd["tensor"] + sweep_ms * engine_rows(engine) /
+                 chunk.shape[0]) / 1e3
+        record("ivf_assign", "share of the IVF training seconds", True,
+               train_seconds=train_s, lloyd_launches=steps,
+               sweep_launches=build["ivf_assign"] - steps,
+               sweep_rows=engine_rows(engine),
+               k10_seconds_estimate=k10_s, k10_share=k10_s / train_s)
+    # the simt route alone: dim_pad 4 (pad_dim's smallest widths)
+    rng4 = np.random.default_rng(seed + 4)
+    small = torch.from_numpy(rng4.standard_normal((70001, 4)).astype(
+        np.float32) * 23).to(mat.device)
+    small_c = torch.from_numpy(rng4.standard_normal((8, 4)).astype(
+        np.float32) * 23).to(mat.device)
+    K.reset_launch_counts()
+    got_a, got_d = IK.ivf_assign(small, small_c, 70001 - 3, 7)
+    route4 = "simt" if K.launch_counts()["ivf_assign[simt]"] == 1 else None
+    want_a, want_d = IK.ivf_assign_plain(small, small_c, 70001 - 3, 7)
+    record("ivf_assign", "70,001 rows x 7 centroids at dim_pad 4",
+           route4 == "simt" and torch.equal(got_a, want_a) and
+           bool(torch.allclose(got_d, want_d, rtol=1e-4, atol=1e-3)),
+           route=route4, max_abs_err=float((got_d - want_d).abs().max()))
+    del small, small_c
 
     # K11 on a training sample's shape (its first rows, K10's cells), and
     # with every row on one centroid (the skew a single block per centroid
@@ -2790,10 +2916,15 @@ def _family_operands(seg, pqls):
     return spec, plans[0][1], [list(p.params) for p, _c in plans]
 
 
-def _filter_case(seg, case, pqls, expect=None, live=None):
+def _filter_case(seg, case, pqls, expect=None, live=None, route=None):
     """batch_case for K1 over a family's filter (ANDed with the vdoc node
-    over the liveness lane `live`, where given); returns (report, [8, P]
-    masks)."""
+    over the liveness lane `live`, where given), K1_BATCH_REPEATS launches
+    at each B; then the route the 8 members take (`route`: the one they
+    must take), the other route forced on them where it can run the
+    program (K1_BATCH_REPEATS launches held to the plain version, and
+    timed: ms_rows or ms_wide), the picked route timed with the L2 flushed
+    clean and at B = 2 and 5 beside B single launches. Returns (report,
+    [8, P] masks)."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
         with_valid_doc_mask
@@ -2811,8 +2942,47 @@ def _filter_case(seg, case, pqls, expect=None, live=None):
         lambda B: K.filter_mask_batched_plain(P, spec, cols, params[:B], n),
         lambda b: K.filter_mask(P, spec, cols, params[b], n),
         lambda B: lane_bytes + B * P + 4 * B,
-        lambda B: B * P * 2 * widths, singles_of=(0,), expect=expect)
-    return r, K.filter_mask_batched(P, spec, cols, params, n)[0]
+        lambda B: B * P * 2 * widths, singles_of=(0,), expect=expect,
+        repeats=K1_BATCH_REPEATS)
+    K.reset_launch_counts()
+    masks = K.filter_mask_batched(P, spec, cols, params, n)[0]
+    counts = K.launch_counts()
+    taken = [x for x in ("wide", "rows") if counts[f"filter_mask_batched[{x}]"]]
+    if route is not None and taken != [route]:
+        raise AssertionError(f"filter_mask_batched {case}: route {taken}, "
+                             f"expected {route}")
+    want = K.filter_mask_batched_plain(P, spec, cols, params, n)
+    # the route not picked, forced, where it can run the program
+    buf, n_nodes, _w = K.compile_filter_batched(spec, params, cols, [])
+    other = "rows" if taken == ["wide"] else "wide" if \
+        K.batched_wide_takes([cols[k] for k in keys], P, buf, n_nodes) \
+        else None
+    for _ in range(K1_BATCH_REPEATS if other else 0):
+        got = K.filter_mask_batched(P, spec, cols, params, n, route=other)
+        if not all(_same_bits(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"filter_mask_batched {case}: the forced "
+                                 f"{other} route differs from the plain "
+                                 "version")
+    extra = {
+        "batched_route": taken[0], "forced_repeats": K1_BATCH_REPEATS,
+        "ms_clean": time_ms(lambda: K.filter_mask_batched(
+            P, spec, cols, params, n), clean=True, spins=4),
+        "ms_by_members": {B: time_ms(lambda: K.filter_mask_batched(
+            P, spec, cols, params[:B], n)) for B in BATCH_SIZES[:-1]},
+        "b_single_ms_by_members": {B: time_ms(lambda: [K.filter_mask(
+            P, spec, cols, params[b], n) for b in range(B)], spins=B)
+            for B in BATCH_SIZES[:-1]},
+        "bound_ms_by_members": {B: bound(lane_bytes + B * P + 4 * B,
+                                         B * P * 2 * widths)[0]
+                                for B in BATCH_SIZES[:-1]}}
+    if other:
+        extra[f"ms_{other}"] = time_ms(lambda: K.filter_mask_batched(
+            P, spec, cols, params, n, route=other))
+    r.update(extra)
+    emit({"phase": "batch_kernel_check", "kernel": "filter_mask_batched",
+          "case": case, "ms": r["ms"], "b_single_ms": r["b_single_ms"],
+          "bound_ms": r["bound_ms"], **extra})
+    return r, masks
 
 
 def batch_kernel_check_ssb(seg):
@@ -2825,12 +2995,12 @@ def batch_kernel_check_ssb(seg):
             for lits in q1_batches()["q1.1"]]
     entries = {}
     entries["filter_mask"], masks = _filter_case(seg, "ssb q1.1 family",
-                                                 pqls)
+                                                 pqls, route="wide")
     # K1's vdoc node: the family over one shared liveness lane
     entries["filter_mask[vdoc]"], _m = _filter_case(
         seg, "ssb q1.1 family with a bitmap", pqls,
         expect={"filter_mask_batched": 1, "filter_mask_batched[vdoc]": 1},
-        live=liveness_lane(P, seg.num_docs, 2))
+        live=liveness_lane(P, seg.num_docs, 2), route="wide")
     parts = [plan_operands(seg, pqls[0])[1]["lo_revenue.parts"]]
     L = parts[0].shape[0]
     union, matched = int(masks.any(0).sum()), int(masks.sum())
@@ -2869,9 +3039,9 @@ def batch_kernel_check_bb(seg):
     entries = {}
     for case in ("raw", "mv"):
         _filter_case(seg, f"baseball {case} family",
-                     BB_BATCH_FILTERS[case])
+                     BB_BATCH_FILTERS[case], route="rows")
     _r, masks = _filter_case(seg, "baseball dictId family",
-                             BB_BATCH_FILTERS["dictId"])
+                             BB_BATCH_FILTERS["dictId"], route="wide")
     # K1's vdoc node on a baseballStats filter (one member)
     plan, cols = plan_operands(seg, BB_AGG_PQL)
     vdoc_check(seg, plan, cols, "baseball yearID >= 2000 with a bitmap", 4)
@@ -3167,13 +3337,20 @@ def run_batch(table, engine, families, check, repeats: int):
                         raise AssertionError(f"{table} {fam}: {k} launched "
                                              f"{v} times over {seq_scans} "
                                              "plans")
-                    # K1's and K14's launch routes are the single
-                    # forms' own: the batched kernels count none
-                    if chunks and _batched_name(k) in launches:
+                    # a launch route is each form's own (K1's batched
+                    # form picks by filter_batched_route): checked below
+                    if chunks and _batched_name(k) in launches and \
+                            not k.endswith(ROUTE_NODES):
                         want[_batched_name(k)] = per_plan * chunks
                     if alone:
                         want[k] = per_plan * alone
-            got_l = {k: v for k, v in launches.items() if v}
+            got_l = {k: v for k, v in launches.items() if v and not (
+                "_batched[" in k and k.endswith(ROUTE_NODES))}
+            batched_k1 = launches["filter_mask_batched"]
+            if launches["filter_mask_batched[wide]"] + \
+                    launches["filter_mask_batched[rows]"] != batched_k1:
+                raise AssertionError(f"{table} {fam}: batched K1 launches "
+                                     f"without a route: {launches}")
             if got_l != want:
                 raise AssertionError(f"{table} {fam}: batched launches "
                                      f"{got_l}, expected {want} (the "
@@ -3194,6 +3371,9 @@ def run_batch(table, engine, families, check, repeats: int):
             seq_p50.append(float(np.median(st)))
         emit({"phase": "batch", "table": table, "family": fam,
               "members": len(pqls), "check": "pass",
+              "k1_batched_routes": {
+                  r: launches[f"filter_mask_batched[{r}]"]
+                  for r in ("wide", "rows")},
               "first_ms": first_ms, "p50_ms": float(np.median(ts)),
               "sequential_p50_sum_ms": float(np.sum(seq_p50)),
               "sequential_p50_ms": seq_p50, "paths": paths,
@@ -5018,6 +5198,9 @@ def run_server(segments, table, oracle, args):
                     [x for row in ms2 for x in row])),
                 "repeat_round_wall_s": wall2,
                 "k1_batched_launches": launches["filter_mask_batched"],
+                "k1_batched_routes": {
+                    r: launches[f"filter_mask_batched[{r}]"]
+                    for r in ("wide", "rows")},
                 "launches": {k: v for k, v in launches.items() if v},
                 "oracle_seconds": oracle_s, "check_seconds": check_s}
             emit(report)
@@ -5549,6 +5732,7 @@ def main() -> int:
     families, check_member = ssb_batch_families(table)
     batch_launches = run_batch("ssb", engine, families, check_member,
                                args.batch_repeats)
+    ssb_batch_launches = dict(batch_launches)
     seconds["ssb_batch"] = time.perf_counter() - t0
     # the query server over the same segments: concurrent clients over
     # TCP, then the residency tiers under a byte budget
@@ -5693,13 +5877,15 @@ def main() -> int:
     # -- VECTOR_SIMILARITY, from disk -------------------------------------
     with tempfile.TemporaryDirectory(dir=scratch) as base:
         t0 = time.perf_counter()
-        vec_engine, draws, vec_build_launches = vec_data(base, args)
+        vec_engine, draws, vec_build_launches, train_s = vec_data(base,
+                                                                  args)
         seconds["vec_data"] = time.perf_counter() - t0
         vec_st_engine = QueryEngine(vec_engine.segments, mesh=make_mesh())
         queries = draws.queries(args.vec_queries)
         t0 = time.perf_counter()
         vec_entries, vec_stacked = vector_kernel_check(
-            vec_engine, vec_st_engine, queries[0], args.seed)
+            vec_engine, vec_st_engine, queries[0], args.seed,
+            train=(train_s, vec_build_launches))
         entries.update(vec_entries)
         stacked_entries.update(vec_stacked)
         seconds["vector_kernel_check"] = time.perf_counter() - t0
@@ -5844,16 +6030,22 @@ def main() -> int:
               "masked_select_vector[select]": path_launches(
                   "masked_select_vector[select]"),
               "filter_mask[bitmap]": path_launches("filter_mask[bitmap]")}
-    # K1's and K14's routes on the SSB paths (per segment, stacked, the
-    # compacted group-bys, the cubes' segments, the synthesized stack, the
-    # server): every launch on the wide / warp route
+    # K1's, its batched form's and K14's routes on the SSB paths (per
+    # segment, stacked, the compacted group-bys, the cubes' segments, the
+    # synthesized stack, the batch phase, the server): every launch on the
+    # wide / warp route
     ssb_paths = (ssb_launches, ssb_st_launches, ssb_gc_launches,
-                 store_launches, synth_launches, server_launches)
+                 store_launches, synth_launches, ssb_batch_launches,
+                 server_launches)
     ssb_routes = {k: sum(p.get(k, 0) for p in ssb_paths) for k in (
         "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
+        "filter_mask_batched[wide]", "filter_mask_batched[rows]",
         "block_compact[warp]", "block_compact[block]")}
     routes.update({k: ssb_routes[k] for k in ("filter_mask[wide]",
+                                              "filter_mask_batched[wide]",
                                               "block_compact[warp]")})
+    # K10's route in the vector table's IVF training and sweep
+    routes["ivf_assign[tensor]"] = vec_build_launches["ivf_assign[tensor]"]
     emit({"phase": "routes", "launches": routes,
           "passes_route": {k: path_launches(f"{k}[passes]")
                            for k in ("radix_sort", "radix_sort_join",
@@ -5861,16 +6053,31 @@ def main() -> int:
           "tile_route": path_launches("masked_select[tile]"),
           "probe_route": path_launches("filter_mask[probe]"),
           "ssb_routes": ssb_routes,
+          "ssb_batch_phase_k1_batched": {
+              r: ssb_batch_launches[f"filter_mask_batched[{r}]"]
+              for r in ("wide", "rows")},
+          "server_phase_k1_batched": {
+              r: server_launches[f"filter_mask_batched[{r}]"]
+              for r in ("wide", "rows")},
+          "ivf_assign_vec_data": {
+              r: vec_build_launches[f"ivf_assign[{r}]"]
+              for r in ("tensor", "simt")},
           "all_paths": {k: path_launches(k) for k in (
               "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
+              "filter_mask_batched[wide]", "filter_mask_batched[rows]",
+              "ivf_assign[tensor]", "ivf_assign[simt]",
               "block_compact[warp]", "block_compact[block]")}})
     missing = [k for k, v in routes.items() if not v]
     if missing:
         raise AssertionError(f"the main path never took {missing}")
     old_route = {k: v for k, v in ssb_routes.items()
-                 if k in ("filter_mask[rows]", "block_compact[block]") and v}
+                 if k in ("filter_mask[rows]", "filter_mask_batched[rows]",
+                          "block_compact[block]") and v}
+    if vec_build_launches["ivf_assign[simt]"]:
+        old_route["ivf_assign[simt] (vec_data)"] = \
+            vec_build_launches["ivf_assign[simt]"]
     if old_route:
-        raise AssertionError(f"SSB launches on the old routes: {old_route}")
+        raise AssertionError(f"main-path launches on the old routes: {old_route}")
 
     def route_launches(name: str):
         """{route: launches} of a kernel counted by route, else None."""
@@ -5928,6 +6135,13 @@ def main() -> int:
                          "library_ms": e["library_ms"],
                          "batch_members": BATCH_SIZES[-1],
                          "b_single_ms": e["b_single_ms"],
+                         # K1's batched routes: the one picked, the row
+                         # kernel forced, the clean flush, B = 2 and 5
+                         **{k: e[k] for k in (
+                             "batched_route", "ms_rows", "ms_wide",
+                             "ms_clean", "ms_by_members",
+                             "b_single_ms_by_members", "bound_ms_by_members")
+                            if k in e},
                          "stacked_launches": None, "stacked_ms": None,
                          "stacked_s_sequential_ms": None,
                          "stacked_bound_ms": None})
@@ -5946,10 +6160,42 @@ def main() -> int:
                      "stacked_ms": st["ms"],
                      "stacked_s_sequential_ms": st["s_sequential_ms"],
                      "stacked_bound_ms": st["bound_ms"],
-                     # K1's row route, re-timed beside the wide one
-                     **{k: e[k] for k in ("ms_rows",) if k in e},
+                     # K1's row route, re-timed beside the wide one; K10's
+                     # simt route and Lloyd sample beside the tensor one
+                     **{k: e[k] for k in (
+                         "ms_rows", "ms_simt", "bound_ms_simt",
+                         "bound_by_simt", "sample_ms", "sample_ms_simt",
+                         "sample_bound_ms", "train_step_ms",
+                         "sweep_chunk_rows", "sweep_chunk_ms", "rows",
+                         "settled_by_two_dots", "settled_by_scan")
+                        if k in e},
                      **{f"stacked_{k}": st[k] for k in (
                          "ms_rows", "ms_s_sequential_rows") if k in st}})
+    # the routes of K1's batched form (the SSB Q1.1 family at 8 members,
+    # each route forced) and of K10 (segment 0 of vecbench), counted apart
+    e = batch_entries["filter_mask"]
+    for r, ms in (("wide", e["ms"]), ("rows", e["ms_rows"])):
+        name = f"filter_mask_batched[{r}]"
+        line.append({"name": name, "route": "cuda",
+                     "source": K.KERNELS["filter_mask"].source,
+                     "replaces": "pinot_tpu/ops/kernels.py:1672",
+                     "launches": path_launches(name),
+                     "max_abs_err": e["max_abs_err"], "ms": ms,
+                     "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                     "bound_by": e["bound_by"], "library_ms": None,
+                     "batch_members": BATCH_SIZES[-1],
+                     "b_single_ms": e["b_single_ms"]})
+    for r in ("tensor", "simt"):
+        name = f"ivf_assign[{r}]"
+        e = entries[name]
+        line.append({"name": name, "route": "cuda",
+                     "source": K.KERNELS["ivf_assign"].source,
+                     "replaces": K.KERNELS["ivf_assign"].replaces,
+                     "launches": path_launches(name),
+                     "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                     "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                     "bound_by": e["bound"][1],
+                     "library_ms": e["library_ms"]})
     # K1's vdoc node, counted apart: the realtime phase's launches (per
     # segment, frozen prefixes and stacked; then batched)
     source = K.KERNELS["filter_mask"].source

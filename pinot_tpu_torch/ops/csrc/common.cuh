@@ -88,6 +88,24 @@ __device__ __forceinline__ int probe_position(const T* sk, int n, T v) {
   return lo < n ? lo : n - 1;
 }
 
+// 16 bytes from global src into shared dst without a register (cp.async,
+// cached in L2 only), or 16 zero bytes where !valid; a group of them is
+// closed by cp_async_commit and waited for by cp_async_wait<N> (at most N
+// groups of this thread left in flight).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);

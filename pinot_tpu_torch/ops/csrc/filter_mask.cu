@@ -130,6 +130,12 @@
 //   (level >> w) & 0x01010101, the 32 mask bytes two 16-byte stores;
 // - other leaves (int16 / int32 ids, raw, MV, ivf_probe, join) evaluate
 //   row by row from the staged rows with the evaluators above;
+// - a program that is an AND tree of int8 dictId and vdoc leaves (SSB
+//   Q1's, WideArgs::and_tree, found on the host) skips the stack: the
+//   leaves' byte flags are ANDed and packed into a level once
+//   (and_tree_level), three packs and the stack's selects fewer on Q1.1;
+//   it took 7% off the single Q1.1 and 14% off the batch at 8 members
+//   (PERF.md, tools/ssb_kernel_bench.py);
 // - a program of at most kInlineWords words comes in the launch's
 //   parameters (a __grid_constant__ struct), not as a copy to the card;
 // - the stacked form keeps the per-block seg_matched flush: a step's rows
@@ -141,11 +147,38 @@
 // pinot_tpu/ops/kernels.py:get_batched_segment_kernel, :1672): up to 8
 // queries of one compiled plan share the program's nodes and differ only
 // in their parameters; member b's parameter block follows member b - 1's.
-// One thread still evaluates one row, for every member: each leaf reads
-// its lane element once and compares it with each member's constants, and
-// each member keeps its own bit stack in a register. The outputs are one
-// mask row per member, [B][padded], and the members' match counts. An
-// ivf_probe leaf reads member b's probe ids and ok flags at row b of the
+// The outputs are one mask row per member, [B][padded], and the members'
+// match counts. What bounds a batch: bytes, the lanes read once and B mask
+// rows written (SSB Q1.1 at 8 members: 82.5 MB, 24.6 us). Two routes, the
+// single form's two (ops/kernels.py:filter_batched_route picks on the
+// host, by shape):
+// - wide (filter_wide_kernel<.., kBatched>), where the single form's wide
+//   route takes the program's lanes and the program holds no ivf_probe,
+//   join, raw or MV leaf (raw and MV leaves evaluate row by row here, once
+//   a member, and at 8 members the row kernel, which reads a row once for
+//   all of them, was the faster on both; a forced wide route runs them):
+//   each block step stages the step's rows of every leaf lane
+//   in shared memory once (the single route's cp.async staging, double
+//   buffered), then evaluates the program over them once per member with
+//   that member's parameter block, 32 rows a thread as levels, and stores
+//   member b's 32 mask bytes as two 16-byte words at out + b * padded. The
+//   lanes leave device memory once for all members and a thread holds one
+//   member's stack at a time, the single route's register budget; the
+//   batch adds B evaluations from shared memory, a few instructions a row
+//   and member. Counts go per warp (__reduce_add_sync) into a shared
+//   counter a member, added to matched once a block. The nodes and every
+//   member's block ride in the launch's parameters up to kInlineWords
+//   words (no copy to the card). Member-outer and not member-inner (one
+//   pass over the nodes with B stacks of levels): member-inner would keep
+//   B x kWideDepth levels live, 64 registers at 8 members, for no fewer
+//   compares, since each member's constants differ;
+// - rows (filter_mask_batched_kernel), the first design and the only one for
+//   ivf_probe and join members: one thread evaluates one row for every
+//   member: each leaf reads its lane element once and compares it with
+//   each member's constants, and each member keeps its own bit stack in a
+//   register. One byte load is outstanding a thread and the program is
+//   interpreted once a row, which held it at 16x its bound on Q1.1.
+// An ivf_probe leaf reads member b's probe ids and ok flags at row b of the
 // [B][nprobe] lanes that the batched K9 wrote (the member takes the place
 // of the segment of the stacked form). A join_raw leaf reads the row's key
 // once and tests it against each member's own dim keys (members of one
@@ -172,6 +205,7 @@ namespace {
 constexpr int kMaxLanes = 16;
 constexpr int kMaxSmemWords = 12 * 1024;   // 48 KB: no opt-in needed
 constexpr int kNodeWords = 6;
+constexpr int kMaxMembers = 8;      // members of a batched launch
 
 enum Op : int {
   kTrue = 0, kFalse = 1, kEq = 2, kNeq = 3, kRange = 4, kIn = 5,
@@ -431,20 +465,9 @@ struct WideArgs {
   int n_row_lanes;
   int row_bytes[kMaxLanes];
   int n_inline;                       // words in `words`; 0: `prog` on the card
+  int and_tree;                       // the program is an AND tree (and_tree_level)
   int words[kInlineWords];
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // A level is one bit for each of a thread's 32 rows, row r at bit
 // 8 (r % 4) + r / 4: the flags of the four rows of a 4-byte word w (bit 7
@@ -478,17 +501,17 @@ __device__ __forceinline__ unsigned pack_flags(const unsigned (&f)[8]) {
 // notin compare bytes with a constant (a constant outside int8 matches no
 // id); range [lo, hi) clips to the int8 domain, biases the bytes to
 // unsigned and tests (u - lo) mod 256 < hi - lo byte by byte. As eval_id.
-__device__ __forceinline__ unsigned i8_level(int op, const uint8_t* lo, const uint8_t* hi,
-                                             const int* p, int arg) {
-  unsigned w[8], f[8];
-  load_words(lo, hi, w);
+// i8_flags leaves each row's result in bit 7 of its byte of the 8 words
+// (kHigh), i8_level packs them into a level.
+__device__ __forceinline__ void i8_flags(int op, const unsigned (&w)[8], const int* p, int arg,
+                                         unsigned (&f)[8]) {
   if (op == kRange) {
     const int lo = max(p[0], -128), hi = min(p[1], 128);
     const unsigned all = lo >= hi ? 0u : hi - lo == 256 ? kHigh : 1u;
     if (all != 1u) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) f[k] = all;
-      return pack_flags(f);
+      return;
     }
     const unsigned l4 = static_cast<unsigned>(lo + 128) * 0x01010101u;
     const unsigned e4 = static_cast<unsigned>(256 - (hi - lo)) * 0x01010101u;
@@ -502,7 +525,7 @@ __device__ __forceinline__ unsigned i8_level(int op, const uint8_t* lo, const ui
       const unsigned ge = ((d & e4) | ((d | e4) & s)) & kHigh;
       f[k] = ge ^ kHigh;
     }
-    return pack_flags(f);
+    return;
   }
   const int n = op == kEq || op == kNeq ? 1 : arg;
 #pragma unroll
@@ -518,6 +541,13 @@ __device__ __forceinline__ unsigned i8_level(int op, const uint8_t* lo, const ui
 #pragma unroll
     for (int k = 0; k < 8; ++k) f[k] ^= kHigh;
   }
+}
+
+__device__ __forceinline__ unsigned i8_level(int op, const uint8_t* lo, const uint8_t* hi,
+                                             const int* p, int arg) {
+  unsigned w[8], f[8];
+  load_words(lo, hi, w);
+  i8_flags(op, w, p, arg, f);
   return pack_flags(f);
 }
 
@@ -603,22 +633,126 @@ __device__ __forceinline__ unsigned id_level(int op, int elem, const uint8_t* lo
   return id_level_t<int32_t>(op, lo, hi, p, arg);
 }
 
-// kGeneral and kStacked as filter_mask_kernel's. Each block step takes
-// kWideTile rows; thread t owns rows [16 t, 16 t + 16) of the step's first
-// half and the same of its second (its rows 0-15 and 16-31), so that a
-// warp's stores of its mask bytes, and its reads of an int8 lane from
-// shared memory, cover contiguous bytes. The staging area holds two
-// steps, lane l's rows at s_off[l] in row order (kWideTile x its bytes a
-// row); the block copies a step's rows with 16-byte cp.async copies,
-// neighbouring threads on neighbouring chunks, while it evaluates the
-// step before (one __syncthreads a step). The program's stack is
-// kWideDepth levels in registers, the top at `sp` (the same in every
-// thread): a leaf writes level sp, an AND / OR of k children combines
-// levels sp - k .. sp - 1 into level sp - k.
-template <bool kGeneral, bool kStacked>
+// The program over a thread's 32 staged rows of one block step, as a level
+// (row r at level_bit(r)), with the parameters at `params`: the node loop
+// of filter_wide_kernel. The stack is kWideDepth levels in registers, the
+// top at `sp` (the same in every thread): a leaf writes level sp, an AND /
+// OR of k children combines levels sp - k .. sp - 1 into level sp - k.
+// `seg` indexes an ivf_probe node's [S][nprobe] lanes.
+template <bool kGeneral>
+__device__ __forceinline__ unsigned wide_level(const int* buf, int n_nodes,
+                                               const int* params, const uint8_t* st,
+                                               const int* s_off, const int* s_rb,
+                                               const void* const* s_lanes, long long seg) {
+  constexpr int kHalf = kWideTile / 2;
+  unsigned lv[kWideDepth];
+#pragma unroll
+  for (int i = 0; i < kWideDepth; ++i) lv[i] = 0u;
+  int sp = 0;
+  for (int n = 0; n < n_nodes; ++n) {
+    const int* node = buf + kNodeWords * n;
+    const int op = node[0], arg = node[3];
+    unsigned v;
+    if (op == kAnd || op == kOr) {
+      sp -= arg;
+      v = op == kAnd ? ~0u : 0u;
+#pragma unroll
+      for (int i = 0; i < kWideDepth; ++i)
+        if (i >= sp && i < sp + arg) v = op == kAnd ? v & lv[i] : v | lv[i];
+    } else if (op == kTrue) {
+      v = ~0u;
+    } else if (op == kFalse) {
+      v = 0u;
+    } else {
+      const int lane = node[1], elem = node[4], width = node[5], rb = s_rb[lane];
+      const uint8_t* lo = st + s_off[lane] + threadIdx.x * 16 * rb;
+      const uint8_t* hi = lo + kHalf * rb;
+      const int* p = params + node[2];
+      if (op == kVdoc) {
+        v = live_level(lo, hi);
+      } else if (!kGeneral || (op < kEqRaw && width == 1)) {
+        v = id_level(op, elem, lo, hi, p, arg);
+      } else {
+        v = 0u;
+#pragma unroll 4
+        for (int r = 0; r < kWideRows; ++r) {
+          const uint8_t* rows = r < 16 ? lo : hi;
+          const int i = r & 15;
+          unsigned bit;
+          if (op == kIvfProbe)
+            bit = eval_probe(s_lanes, rows, elem, i, seg, p, arg);
+          else if (op == kJoinRaw)
+            bit = eval_join(s_lanes, rows, elem, i, p, arg);
+          else if (op == kJoinBitmap)
+            bit = eval_join_bitmap(s_lanes, rows, elem, i, p, arg);
+          else
+            bit = eval_leaf(rows, op, elem, width, i, p, arg);
+          v |= bit << level_bit(r);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWideDepth; ++i)
+      if (i == sp) lv[i] = v;
+    ++sp;
+  }
+  return lv[0];
+}
+
+// An AND tree of int8 dictId leaves (eq / neq / range / in / notin), vdoc
+// leaves, true and false (WideArgs::and_tree, the SSB Q1 programs): the
+// AND of every leaf's byte flags over a thread's 32 staged rows, packed
+// into a level once, with no stack and no level a leaf.
+__device__ __forceinline__ unsigned and_tree_level(const int* buf, int n_nodes,
+                                                   const int* params, const uint8_t* st,
+                                                   const int* s_off) {
+  constexpr int kHalf = kWideTile / 2;
+  unsigned f[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) f[k] = kHigh;
+  for (int n = 0; n < n_nodes; ++n) {
+    const int* node = buf + kNodeWords * n;
+    const int op = node[0];
+    if (op == kAnd || op == kTrue) continue;
+    unsigned g[8];
+    if (op == kFalse) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) g[k] = 0u;
+    } else {
+      const uint8_t* lo = st + s_off[node[1]] + threadIdx.x * 16;   // a byte a row
+      unsigned w[8];
+      load_words(lo, lo + kHalf, w);
+      if (op == kVdoc) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) g[k] = nonzero_bytes(w[k]);
+      } else {
+        i8_flags(op, w, params + node[2], node[3], g);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] &= g[k];
+  }
+  return pack_flags(f);
+}
+
+// kGeneral and kStacked as filter_mask_kernel's; kBatched: nb members of
+// one plan over one segment, member b's parameter block pw words after
+// member b - 1's, its mask row at out + b * padded and its matches added
+// into seg_matched[b]. Each block step takes kWideTile rows; thread t owns
+// rows [16 t, 16 t + 16) of the step's first half and the same of its
+// second (its rows 0-15 and 16-31), so that a warp's stores of its mask
+// bytes, and its reads of an int8 lane from shared memory, cover
+// contiguous bytes. The staging area holds two steps, lane l's rows at
+// s_off[l] in row order (kWideTile x its bytes a row); the block copies a
+// step's rows with 16-byte cp.async copies, neighbouring threads on
+// neighbouring chunks, while it evaluates the step before (one
+// __syncthreads a step). A batch evaluates the staged step once for each
+// member (wide_level), so the lanes are read from device memory once for
+// all of them and a thread holds one member's stack at a time.
+template <bool kGeneral, bool kStacked, bool kBatched>
 __global__ void __launch_bounds__(pinot::kThreads, 1)
     filter_wide_kernel(Lanes lanes, const __grid_constant__ WideArgs wa,
-                       const int* __restrict__ prog, int n_nodes, int n_words,
+                       const int* __restrict__ prog, int n_nodes, int n_words, int nb, int pw,
                        long long padded, long long seg_rows,
                        const int* __restrict__ seg_docs, long long num_docs,
                        uint8_t* __restrict__ out, int* __restrict__ seg_matched) {
@@ -626,11 +760,13 @@ __global__ void __launch_bounds__(pinot::kThreads, 1)
   __shared__ int scratch[32];
   __shared__ const void* s_lanes[kMaxLanes];
   __shared__ int s_off[kMaxLanes], s_rb[kMaxLanes], s_stage;
+  __shared__ int s_count[kMaxMembers];    // a batch's matches, this block's
   if (threadIdx.x < kMaxLanes) {
 #pragma unroll
     for (int i = 0; i < kMaxLanes; ++i)
       if (threadIdx.x == i) s_lanes[i] = lanes.ptr[i];
   }
+  if (threadIdx.x < kMaxMembers) s_count[threadIdx.x] = 0;
   if (threadIdx.x == 0) {
     int off = 0;
     for (int l = 0; l < wa.n_row_lanes; ++l) {
@@ -663,10 +799,10 @@ __global__ void __launch_bounds__(pinot::kThreads, 1)
         uint8_t* dst = st + s_off[l];
         const int chunks = static_cast<int>(rows * rb / 16);
         for (int c = threadIdx.x; c < chunks; c += pinot::kThreads)
-          cp_async16(dst + 16 * c, src + 16 * c);
+          pinot::cp_async16(dst + 16 * c, src + 16 * c);
       }
     }
-    cp_async_commit();
+    pinot::cp_async_commit();
   };
 
   long long seg = kStacked ? -1 : 0, live_end = num_docs;
@@ -681,7 +817,7 @@ __global__ void __launch_bounds__(pinot::kThreads, 1)
   int cur = 0;
   issue(blockIdx.x, cur);
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    cp_async_wait<0>();                 // this thread's copies of `tile`
+    pinot::cp_async_wait<0>();          // this thread's copies of `tile`
     // ... and every other thread's; every thread is done with the stage
     // the next copies overwrite
     __syncthreads();
@@ -697,89 +833,57 @@ __global__ void __launch_bounds__(pinot::kThreads, 1)
     // this thread's two halves: rows row0 + [0, 16) and row0 + kHalf + [0, 16)
     constexpr int kHalf = kWideTile / 2;
     const long long row0 = tile * kWideTile + threadIdx.x * 16;
-    if (row0 < padded) {
+    const bool live = row0 < padded && row0 < live_end;
+    unsigned keep = ~0u;                // the rows before live_end
+    if (live && row0 + kHalf + 16 > live_end) {
+      keep = 0u;
+      for (int r = 0; r < kWideRows; ++r)
+        if (row0 + (r < 16 ? r : kHalf + r - 16) < live_end) keep |= 1u << level_bit(r);
+    }
+    const uint8_t* st = stages + cur * stage_bytes;
+    for (int b = 0; b < (kBatched ? nb : 1); ++b) {
       unsigned res = 0u;
-      if (row0 < live_end) {
-        const uint8_t* st = stages + cur * stage_bytes;
-        unsigned lv[kWideDepth];
-#pragma unroll
-        for (int i = 0; i < kWideDepth; ++i) lv[i] = 0u;
-        int sp = 0;
-        for (int n = 0; n < n_nodes; ++n) {
-          const int* node = buf + kNodeWords * n;
-          const int op = node[0], arg = node[3];
-          unsigned v;
-          if (op == kAnd || op == kOr) {
-            sp -= arg;
-            v = op == kAnd ? ~0u : 0u;
-#pragma unroll
-            for (int i = 0; i < kWideDepth; ++i)
-              if (i >= sp && i < sp + arg) v = op == kAnd ? v & lv[i] : v | lv[i];
-          } else if (op == kTrue) {
-            v = ~0u;
-          } else if (op == kFalse) {
-            v = 0u;
-          } else {
-            const int lane = node[1], elem = node[4], width = node[5], rb = s_rb[lane];
-            const uint8_t* lo = st + s_off[lane] + threadIdx.x * 16 * rb;
-            const uint8_t* hi = lo + kHalf * rb;
-            const int* p = params + node[2];
-            if (op == kVdoc) {
-              v = live_level(lo, hi);
-            } else if (!kGeneral || (op < kEqRaw && width == 1)) {
-              v = id_level(op, elem, lo, hi, p, arg);
-            } else {
-              v = 0u;
-#pragma unroll 4
-              for (int r = 0; r < kWideRows; ++r) {
-                const uint8_t* rows = r < 16 ? lo : hi;
-                const int i = r & 15;
-                unsigned bit;
-                if (op == kIvfProbe)
-                  bit = eval_probe(s_lanes, rows, elem, i, seg, p, arg);
-                else if (op == kJoinRaw)
-                  bit = eval_join(s_lanes, rows, elem, i, p, arg);
-                else if (op == kJoinBitmap)
-                  bit = eval_join_bitmap(s_lanes, rows, elem, i, p, arg);
-                else
-                  bit = eval_leaf(rows, op, elem, width, i, p, arg);
-                v |= bit << level_bit(r);
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kWideDepth; ++i)
-            if (i == sp) lv[i] = v;
-          ++sp;
-        }
-        res = lv[0];
-        if (row0 + kHalf + 16 > live_end) {   // rows past the live ones
-          unsigned keep = 0u;
-          for (int r = 0; r < kWideRows; ++r)
-            if (row0 + (r < 16 ? r : kHalf + r - 16) < live_end) keep |= 1u << level_bit(r);
-          res &= keep;
-        }
+      if (live) {
+        if (wa.and_tree)
+          res = and_tree_level(buf, n_nodes, params + b * pw, st, s_off) & keep;
+        else
+          res = wide_level<kGeneral>(buf, n_nodes, params + b * pw, st, s_off, s_rb, s_lanes,
+                                     kBatched ? b : seg) &
+                keep;
       }
-      uint4 o;
-      o.x = res & 0x01010101u;
-      o.y = (res >> 1) & 0x01010101u;
-      o.z = (res >> 2) & 0x01010101u;
-      o.w = (res >> 3) & 0x01010101u;
-      *reinterpret_cast<uint4*>(out + row0) = o;
-      if (row0 + kHalf < padded) {
-        o.x = (res >> 4) & 0x01010101u;
-        o.y = (res >> 5) & 0x01010101u;
-        o.z = (res >> 6) & 0x01010101u;
-        o.w = (res >> 7) & 0x01010101u;
-        *reinterpret_cast<uint4*>(out + row0 + kHalf) = o;
+      if (row0 < padded) {
+        uint8_t* o = out + b * padded + row0;
+        uint4 w;
+        w.x = res & 0x01010101u;
+        w.y = (res >> 1) & 0x01010101u;
+        w.z = (res >> 2) & 0x01010101u;
+        w.w = (res >> 3) & 0x01010101u;
+        *reinterpret_cast<uint4*>(o) = w;
+        if (row0 + kHalf < padded) {
+          w.x = (res >> 4) & 0x01010101u;
+          w.y = (res >> 5) & 0x01010101u;
+          w.z = (res >> 6) & 0x01010101u;
+          w.w = (res >> 7) & 0x01010101u;
+          *reinterpret_cast<uint4*>(o + kHalf) = w;
+        }
       }
       if constexpr (kStacked) count += __popc(res);
+      if constexpr (kBatched) {
+        // the warp's matches of member b, one shared atomic a warp
+        const int c = static_cast<int>(__reduce_add_sync(0xffffffffu, __popc(res)));
+        if ((threadIdx.x & 31) == 0 && c != 0) atomicAdd(s_count + b, c);
+      }
     }
     cur ^= 1;
   }
-  cp_async_wait<0>();
+  pinot::cp_async_wait<0>();
   if constexpr (kStacked) {
     if (seg >= 0) flush();
+  }
+  if constexpr (kBatched) {
+    __syncthreads();
+    if (threadIdx.x < nb && s_count[threadIdx.x] != 0)
+      atomicAdd(seg_matched + threadIdx.x, s_count[threadIdx.x]);
   }
 }
 
@@ -795,21 +899,63 @@ int program_depth(const int* prog, int n_nodes) {
   return most;
 }
 
+// The wide route's launch parameters for a program in host memory over the
+// leaf lanes 0 .. n_row_lanes - 1, row_bytes each a row; false where the
+// route cannot take it (lanes or out not 16-byte aligned, rows not a
+// multiple of 16, more than kWideRowBytes a row, a stack deeper than
+// kWideDepth, a program past shared memory or, with prog null, past
+// kInlineWords words). A program of at most kInlineWords words rides in the
+// parameters; and_tree says whether and_tree_level can evaluate it.
+bool wide_args(const void* const* lane_ptrs, int n_lanes, const int* host_prog, int n_nodes,
+               int n_words, const int* prog, const int* row_bytes, int n_row_lanes,
+               long long padded, const void* out, WideArgs& wa) {
+  if (n_row_lanes < 0 || n_row_lanes > n_lanes || padded % 16 != 0 || n_words > kMaxSmemWords ||
+      host_prog == nullptr || program_depth(host_prog, n_nodes) > kWideDepth ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return false;
+  wa.n_row_lanes = n_row_lanes;
+  int total = 0;
+  for (int l = 0; l < n_row_lanes; ++l) {
+    if (row_bytes[l] < 1 || reinterpret_cast<uintptr_t>(lane_ptrs[l]) % 16 != 0) return false;
+    wa.row_bytes[l] = row_bytes[l];
+    total += row_bytes[l];
+  }
+  if (total > kWideRowBytes) return false;
+  wa.and_tree = 1;
+  for (int n = 0; n < n_nodes; ++n) {
+    const int* node = host_prog + kNodeWords * n;
+    const int op = node[0];
+    const bool i8 = (op == kEq || op == kNeq || op == kRange || op == kIn || op == kNotIn) &&
+                    node[4] == pinot::kI8 && node[5] == 1;
+    if (!(i8 || op == kVdoc || op == kAnd || op == kTrue || op == kFalse)) wa.and_tree = 0;
+  }
+  if (n_words <= kInlineWords) {
+    wa.n_inline = n_words;
+    for (int i = 0; i < n_words; ++i) wa.words[i] = host_prog[i];
+  } else if (prog == nullptr) {
+    return false;
+  }
+  return true;
+}
+
 // Launches filter_wide_kernel: one full wave of blocks at the occupancy
 // its registers and shared memory (the program and two staging steps)
 // allow, at most the rows' block steps.
-cudaError_t launch_wide(bool general, bool stacked, const Lanes& lanes, const WideArgs& wa,
-                        const int* prog, int n_nodes, int n_words, long long padded,
-                        long long seg_rows, const int* seg_docs, long long num_docs,
-                        uint8_t* out, int* seg_matched, cudaStream_t stream) {
+cudaError_t launch_wide(bool general, bool stacked, bool batched, const Lanes& lanes,
+                        const WideArgs& wa, const int* prog, int n_nodes, int n_words, int nb,
+                        int pw, long long padded, long long seg_rows, const int* seg_docs,
+                        long long num_docs, uint8_t* out, int* seg_matched, cudaStream_t stream) {
   int row_bytes = 0;
   for (int l = 0; l < wa.n_row_lanes; ++l) row_bytes += wa.row_bytes[l];
   const size_t smem = static_cast<size_t>((n_words * 4 + 15) & ~15) +
                       2 * static_cast<size_t>(kWideTile) * row_bytes;
-  const auto kernel = general ? (stacked ? filter_wide_kernel<true, true>
-                                         : filter_wide_kernel<true, false>)
-                              : (stacked ? filter_wide_kernel<false, true>
-                                         : filter_wide_kernel<false, false>);
+  const auto kernel =
+      batched ? (general ? filter_wide_kernel<true, false, true>
+                         : filter_wide_kernel<false, false, true>)
+      : general ? (stacked ? filter_wide_kernel<true, true, false>
+                           : filter_wide_kernel<true, false, false>)
+                : (stacked ? filter_wide_kernel<false, true, false>
+                           : filter_wide_kernel<false, false, false>);
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -817,7 +963,7 @@ cudaError_t launch_wide(bool general, bool stacked, const Lanes& lanes, const Wi
   }
   kernel<<<pinot::grid_for(kernel, (padded + kWideRows - 1) / kWideRows, smem), pinot::kThreads,
            smem, stream>>>(
-      lanes, wa, prog, n_nodes, n_words, padded, seg_rows, seg_docs, num_docs, out,
+      lanes, wa, prog, n_nodes, n_words, nb, pw, padded, seg_rows, seg_docs, num_docs, out,
       seg_matched);
   return cudaGetLastError();
 }
@@ -914,8 +1060,6 @@ cudaError_t launch_join_bitmap(const Lanes& lanes, const int* prog, long long pa
       lanes, prog, padded, num_docs, out);
   return cudaGetLastError();
 }
-
-constexpr int kMaxMembers = 8;
 
 // One leaf for every member: the lane element (a [width] row for an MV
 // lane) is read once; member b's constants are at p + b * pw.
@@ -1126,29 +1270,14 @@ extern "C" int pinot_filter_mask(const void* const* lane_ptrs, int n_lanes,
   for (int i = 0; i < n_lanes; ++i) lanes.ptr[i] = lane_ptrs[i];
   if (wide) {
     WideArgs wa{};
-    wa.n_row_lanes = n_row_lanes;
-    int total = 0;
-    if (n_row_lanes < 0 || n_row_lanes > n_lanes || padded % 16 != 0 ||
-        (seg_docs != nullptr && seg_rows % kWideTile != 0) || n_words > kMaxSmemWords ||
-        leaf_smem != 0 || host_prog == nullptr ||
-        program_depth(host_prog, n_nodes) > kWideDepth)
+    if ((seg_docs != nullptr && seg_rows % kWideTile != 0) || leaf_smem != 0 ||
+        !wide_args(lane_ptrs, n_lanes, host_prog, n_nodes, n_words, prog, row_bytes,
+                   n_row_lanes, padded, out, wa))
       return -1;
-    for (int l = 0; l < n_row_lanes; ++l) {
-      if (row_bytes[l] < 1 || reinterpret_cast<uintptr_t>(lane_ptrs[l]) % 16 != 0) return -1;
-      wa.row_bytes[l] = row_bytes[l];
-      total += row_bytes[l];
-    }
-    if (total > kWideRowBytes || reinterpret_cast<uintptr_t>(out) % 16 != 0) return -1;
-    if (n_words <= kInlineWords) {
-      wa.n_inline = n_words;
-      for (int i = 0; i < n_words; ++i) wa.words[i] = host_prog[i];
-    } else if (prog == nullptr) {
-      return -1;
-    }
-    return static_cast<int>(launch_wide(general != 0, seg_docs != nullptr, lanes, wa, prog,
-                                        n_nodes, n_words, padded, seg_rows, seg_docs, num_docs,
-                                        static_cast<uint8_t*>(out), seg_matched,
-                                        static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch_wide(general != 0, seg_docs != nullptr, false, lanes, wa,
+                                        prog, n_nodes, n_words, 1, 0, padded, seg_rows,
+                                        seg_docs, num_docs, static_cast<uint8_t*>(out),
+                                        seg_matched, static_cast<cudaStream_t>(stream)));
   }
   if (leaf_smem != 0) {
     if (n_nodes != 1 || seg_docs != nullptr || (leaf_elem != kI32 && leaf_elem != kI64) ||
@@ -1177,11 +1306,16 @@ extern "C" int pinot_filter_mask(const void* const* lane_ptrs, int n_lanes,
 
 // prog: the nodes, then n_members parameter blocks of param_words words
 // each; out uint8 [n_members][padded], matched int32 [n_members], zeroed.
+// wide: 1 takes the wide route (filter_wide_kernel, every member over the
+// same staged rows) as pinot_filter_mask's wide does, host_prog the whole
+// buffer in host memory; it takes no ivf_probe or join node (the host
+// keeps those programs on the row kernel).
 extern "C" int pinot_filter_mask_batched(const void* const* lane_ptrs, int n_lanes,
                                          const int* prog, int n_nodes, int param_words,
                                          int n_members, int general, long long padded,
-                                         long long num_docs, void* out, int* matched,
-                                         void* stream) {
+                                         long long num_docs, void* out, int* matched, int wide,
+                                         const int* host_prog, const int* row_bytes,
+                                         int n_row_lanes, void* stream) {
   if (n_lanes < 0 || n_lanes > kMaxLanes || n_nodes < 1 || param_words < 0 ||
       n_members < 1 || n_members > kMaxMembers || padded < 1)
     return -1;
@@ -1189,6 +1323,21 @@ extern "C" int pinot_filter_mask_batched(const void* const* lane_ptrs, int n_lan
   for (int i = 0; i < n_lanes; ++i) lanes.ptr[i] = lane_ptrs[i];
   const long long words = static_cast<long long>(kNodeWords) * n_nodes +
                           static_cast<long long>(param_words) * n_members;
+  if (wide) {
+    WideArgs wa{};
+    if (words > kMaxSmemWords ||
+        !wide_args(lane_ptrs, n_lanes, host_prog, n_nodes, static_cast<int>(words), prog,
+                   row_bytes, n_row_lanes, padded, out, wa))
+      return -1;
+    for (int n = 0; n < n_nodes; ++n) {
+      const int op = host_prog[kNodeWords * n];
+      if (op == kIvfProbe || op == kJoinRaw || op == kJoinBits || op == kJoinBitmap) return -1;
+    }
+    return static_cast<int>(launch_wide(general != 0, false, true, lanes, wa, prog, n_nodes,
+                                        static_cast<int>(words), n_members, param_words, padded,
+                                        padded, nullptr, num_docs, static_cast<uint8_t*>(out),
+                                        matched, static_cast<cudaStream_t>(stream)));
+  }
   const int staged = words <= kMaxSmemWords ? 1 : 0;
   const size_t smem = staged ? static_cast<size_t>(words) * sizeof(int) : 0;
   const auto kernel = general ? filter_mask_batched_kernel<true>

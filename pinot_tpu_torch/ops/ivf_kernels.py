@@ -7,7 +7,9 @@ jitted kernels: assign (`build_ivf_assign_kernel`, :26), one Lloyd step
 
 - assign is K10 `ivf_assign` (ops/csrc/ivf_assign.cu): the nearest live
   centroid of every row (ties to the lower id) and the squared distance
-  to it, clamped to >= 0, 0 on padding rows;
+  to it, clamped to >= 0, 0 on padding rows; routes (IVF_ASSIGN_ROUTES,
+  ivf_assign_route): "tensor" (the cross term in 3xTF32 on the tensor
+  cores) or "simt" (f32 on the CUDA cores, the only one below 8 dims);
 - the train step is K10 then K11 `ivf_recenter` (ops/csrc/ivf_recenter.cu):
   each centroid becomes the mean of its assigned rows, summed in an order
   the assignments alone fix (pieces of 64 rows in row order, then the
@@ -26,7 +28,7 @@ kernel's.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,15 +47,51 @@ def _check_block(data: torch.Tensor, centroids: torch.Tensor) -> int:
     return dim_pad
 
 
+#: K10's routes: "tensor" (assign_tc_kernel: mma.sync in 3xTF32) where
+#: ivf_assign_route allows it, else "simt" (assign_kernel: f32 FMAs)
+IVF_ASSIGN_ROUTES = ("tensor", "simt")
+#: the tensor route's k-step: dim_pad below it stays on the simt route
+TENSOR_MIN_DIM = 8
+
+
+def ivf_assign_route(data: torch.Tensor, centroids: torch.Tensor) -> str:
+    """K10's route for these operands: "tensor" where dim_pad is at least
+    TENSOR_MIN_DIM and both matrices start 16-byte aligned (its cp.async
+    copies), else "simt". A host choice by shape, never by a failure."""
+    if data.shape[1] < TENSOR_MIN_DIM or data.data_ptr() % 16 or \
+            centroids.data_ptr() % 16:
+        return "simt"
+    return "tensor"
+
+
 def ivf_assign(data: torch.Tensor, centroids: torch.Tensor, n_rows: int,
-               n_centroids: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               n_centroids: int, route: Optional[str] = None,
+               stats: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: (assign int32 [n], dist f32 [n]) for data f32 [n, dim_pad]
     against centroids f32 [c_pad, dim_pad], of which the first
-    n_centroids are live; rows at or past n_rows are padding (dist 0)."""
+    n_centroids are live; rows at or past n_rows are padding (dist 0). On
+    the card `route` forces "tensor" or "simt" (None: ivf_assign_route's
+    choice); "tensor" raises where that route cannot take the operands.
+    `stats`, an int32 [2] on the card, gains what the tensor route's
+    settling cost: the rows it settled with a second candidate's dot and
+    the rows it settled by a scan of every live centroid."""
+    if route not in (None, *IVF_ASSIGN_ROUTES):
+        raise ValueError(f"K10 route {route!r}: one of tensor, simt or None")
+    if stats is not None and (stats.dtype != torch.int32 or
+                              stats.shape != (2,) or
+                              stats.device != data.device):
+        raise ValueError(f"stats must be an int32 [2] on {data.device}")
     dim_pad = _check_block(data, centroids)
     n, c_pad = data.shape[0], centroids.shape[0]
     if not 0 <= n_centroids <= c_pad or not 0 <= n_rows <= n:
         raise ValueError(f"n_centroids {n_centroids} / n_rows {n_rows}")
+    picked = ivf_assign_route(data, centroids)
+    if route is None:
+        route = picked
+    elif route == "tensor" and picked != "tensor":
+        raise ValueError(f"K10's tensor route does not take dim_pad "
+                         f"{dim_pad} or unaligned operands")
     device = data.device
     if device.type == "cpu":
         return ivf_assign_plain(data, centroids, n_rows, n_centroids)
@@ -62,7 +100,10 @@ def ivf_assign(data: torch.Tensor, centroids: torch.Tensor, n_rows: int,
     scratch = torch.empty(n + c_pad, dtype=torch.float32, device=device)
     _launch("ivf_assign", device, data.data_ptr(), n, dim_pad,
             centroids.data_ptr(), c_pad, int(n_centroids), int(n_rows),
-            scratch.data_ptr(), assign.data_ptr(), dist.data_ptr())
+            scratch.data_ptr(), assign.data_ptr(), dist.data_ptr(),
+            int(route == "tensor"),
+            None if stats is None else stats.data_ptr())
+    kernels._count_node("ivf_assign", route)
     return assign, dist
 
 

@@ -8,7 +8,8 @@ short fixed sequence of kernels written by hand for Hopper
 
 - K1 `filter_mask`: the filter tree → uint8 row mask
   (replaces `_eval_filter` / `_eval_pred`); routes (FILTER_ROUTES,
-  filter_route): "wide" (32 rows a thread) or "rows" (a row a thread);
+  filter_route; the batched form's filter_batched_route): "wide" (32 rows
+  a thread) or "rows" (a row a thread);
 - K2 `masked_part_sums`: exact sums of bit-sliced part lanes + the match
   count (replaces `_part_sums` and the masked count);
 - K3 `dense_group_aggregate`: mixed-radix group key → per-group count,
@@ -280,7 +281,7 @@ _ARGTYPES = {
     "hll_registers": [_P, _P, _P, _I, _I, _P, _P],
     "vector_scores": [_P, _LL, _I, _P, _F, _I, _P, _P],
     "ivf_probe_select": [_P, _P, _I, _I, _I, _P, _F, _I, _I, _P, _P, _P],
-    "ivf_assign": [_P, _LL, _I, _P, _I, _I, _LL, _P, _P, _P, _P],
+    "ivf_assign": [_P, _LL, _I, _P, _I, _I, _LL, _P, _P, _P, _I, _P, _P],
     "ivf_recenter": [_P, _P, _LL, _I, _P, _I, _P, _P, _P, _P],
     "radix_sort": [_PP, _IP, _I, _PP, _I, _LL, _LL, _PP, _PP, _P, _P, _I,
                    _P],
@@ -302,7 +303,7 @@ _ARGTYPES["masked_select_vector"] = _ARGTYPES["masked_select"]
 _FP = ctypes.POINTER(_F)
 _ARGTYPES.update({
     "filter_mask_batched": [_PP, _I, _P, _I, _I, _I, _I, _LL, _LL, _P, _P,
-                            _P],
+                            _I, _P, _IP, _I, _P],
     "masked_part_sums_batched": [_P, _PP, _I, _LL, _LL, _I, _P, _P],
     "masked_histogram_batched": [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P,
                                  _P],
@@ -321,11 +322,14 @@ _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 
 #: program nodes counted apart: K1's upsert liveness leaf and join probe
 #: (and, for the single and stacked K1, the join leaf's route: "bitmap" or
-#: "probe", JOIN_ROUTES, and the launch's route, FILTER_ROUTES), K3's join
+#: "probe", JOIN_ROUTES), the launch's route of K1 (FILTER_ROUTES; the
+#: batched form's "wide" or "rows") and K10 (IVF_ASSIGN_ROUTES), K3's join
 #: group keys, K14's key kinds and route (COMPACT_ROUTES)
 KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0, bitmap=0,
                                             probe=0, wide=0, rows=0, leaf=0)
-KERNELS["filter_mask_batched"].node_launches.update(vdoc=0, join_raw=0)
+KERNELS["filter_mask_batched"].node_launches.update(vdoc=0, join_raw=0,
+                                                    wide=0, rows=0)
+KERNELS["ivf_assign"].node_launches.update(tensor=0, simt=0)
 KERNELS["dense_group_aggregate"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0)
 KERNELS["block_compact"].node_launches.update(
@@ -994,15 +998,52 @@ def compile_filter_batched(filter_spec, params_list,
             int(bufs[0].shape[0]) - node_words)
 
 
+#: ops the batched form's wide route does not take: its members' ivf_probe
+#: lists and join keys stay on the row kernel (batched_wide_takes)
+_BATCHED_ROWS_OPS = (_LEAF_OPS["ivf_probe"], _LEAF_OPS["join_raw"],
+                     _OP_JOIN_BITS, _OP_JOIN_BITMAP)
+
+
+def batched_wide_takes(lanes: Sequence[torch.Tensor], rows: int,
+                       buf: np.ndarray, n_nodes: int) -> bool:
+    """Whether the batched K1's wide route can run compile_filter_batched's
+    buffer (the nodes and every member's parameter block) over these leaf
+    lanes: where filter_route takes the buffer (the lanes 16-byte
+    aligned, rows a multiple of 16, at most WIDE_ROW_BYTES a row, a stack
+    of at most WIDE_DEPTH, the buffer within shared memory) and the
+    program holds no ivf_probe or join node."""
+    ops = buf[:_NODE_WORDS * n_nodes:_NODE_WORDS]
+    return not np.isin(ops, _BATCHED_ROWS_OPS).any() and \
+        filter_route(lanes, rows, buf, n_nodes) == "wide"
+
+
+def filter_batched_route(lanes: Sequence[torch.Tensor], rows: int,
+                         buf: np.ndarray, n_nodes: int, general: bool
+                         ) -> str:
+    """The batched K1's route: "wide" where batched_wide_takes the program
+    and it holds no raw or MV leaf (`general`, _general's); else "rows".
+    Raw and MV leaves evaluate row by row on the wide route, once per
+    member, where the row kernel reads a row once for all members: at 8
+    members the row kernel was the faster on both (PERF.md). A host choice
+    by shape, never by a failure."""
+    return "wide" if not general and batched_wide_takes(
+        lanes, rows, buf, n_nodes) else "rows"
+
+
 def filter_mask_batched(padded: int, filter_spec,
                         cols: Dict[str, torch.Tensor], params_list,
-                        num_docs: int, device=None
+                        num_docs: int, device=None,
+                        route: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 for B <= MAX_BATCH members of one plan, one launch: (uint8
     masks [B, padded], int32 [B] matched rows), member b's under
     params_list[b]. Each lane element is read once for every member; a
     join_raw leaf probes each member's own sorted dim keys with the one
-    key it read."""
+    key it read. On the card `route` forces "wide" or "rows" (None:
+    filter_batched_route's choice); "wide" raises where that route cannot
+    take the program (batched_wide_takes)."""
+    if route not in (None, "wide", "rows"):
+        raise ValueError(f"K1 route {route!r}: one of wide, rows or None")
     keys = filter_lane_keys(filter_spec)
     device = _mask_device(keys, cols, device)
     n = len(params_list)
@@ -1010,20 +1051,43 @@ def filter_mask_batched(padded: int, filter_spec,
         raise ValueError(f"{n} members outside [1, {MAX_BATCH}]")
     for key in keys:
         _filter_lane_ok(cols[key], key, padded, device)
-    if device.type == "cpu":
+    # the plain version on the CPU; a forced wide route is checked there too
+    if device.type == "cpu" and route != "wide":
         return filter_mask_batched_plain(padded, filter_spec, cols,
                                          params_list, num_docs, device)
     probes: List[torch.Tensor] = []
     buf, n_nodes, words = compile_filter_batched(filter_spec, params_list,
                                                  cols, probes)
-    lanes = [cols[k] for k in keys] + probes
-    prog = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
+    row_lanes = [cols[k] for k in keys]
+    lanes = row_lanes + probes
+    general = _general(keys)
+    if route is None:
+        route = filter_batched_route(row_lanes, padded, buf, n_nodes,
+                                     general)
+    elif route == "wide" and not batched_wide_takes(row_lanes, padded, buf,
+                                                    n_nodes):
+        raise ValueError("the batched K1's wide route does not take this "
+                         "program (lane alignment, rows, bytes a row, "
+                         "depth, shared memory, or an ivf_probe or join "
+                         "node)")
+    if device.type == "cpu":
+        return filter_mask_batched_plain(padded, filter_spec, cols,
+                                         params_list, num_docs, device)
+    wide = route == "wide"
+    # the nodes and the members' blocks ride in the wide launch's
+    # parameters where they fit; else one H2D copy from pinned memory
+    prog = None if wide and buf.shape[0] <= FILTER_INLINE_WORDS else \
+        torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
     out = torch.empty(n, padded, dtype=torch.uint8, device=device)
     matched = torch.zeros(n, dtype=torch.int32, device=device)
     _launch("filter_mask_batched", device, _ptrs(lanes), len(lanes),
-            prog.data_ptr(), n_nodes, words, n, int(_general(keys)), padded,
-            int(num_docs), out.data_ptr(), matched.data_ptr())
+            None if prog is None else prog.data_ptr(), n_nodes, words, n,
+            int(general), padded, int(num_docs), out.data_ptr(),
+            matched.data_ptr(), int(wide), buf.ctypes.data if wide else None,
+            _ints([_row_bytes(t) for t in row_lanes]) if wide else None,
+            len(row_lanes))
     _count_nodes("filter_mask_batched", filter_spec, keys)
+    _count_node("filter_mask_batched", route)
     return out, matched
 
 

@@ -10,7 +10,8 @@ each call, as chip_smoke times K1 Q1.1) beside launch_breakdown's device
 time a launch. K1 on Q1.1 (with the host's time a call: calls issued
 back to back, then one synchronize) and on programs of zero, one and
 three lanes (the last over four copies of the segment): the fixed cost
-of a launch against its cost a row. K14 on Q2.1 at r = 64, with an
+of a launch against its cost a row; its batched form on the Q1.1 family
+of the batch phase at 8 and 2 members. K14 on Q2.1 at r = 64, with an
 empty mask (the mask walk alone), without the part lanes, with one key
 and at r = 8. The routes' checks and their times beside the old routes
 are chip_smoke.py's. Prints one JSON line a case (and writes them to
@@ -59,7 +60,7 @@ def run() -> list:
     from pinot_tpu_torch.query.execution import gather_operands
     from pinot_tpu_torch.query.plan import InstancePlanMaker
     from pinot_tpu_torch.tools.datagen import make_ssb_segments
-    from pinot_tpu_torch.tools.ssb import SSB_PQLS
+    from pinot_tpu_torch.tools.ssb import Q1_TEMPLATES, SSB_PQLS, q1_batches
     from pinot_tpu_torch.tools.timing import launch_breakdown, time_ms
     lines = []
 
@@ -91,6 +92,12 @@ def run() -> list:
     case("filter_mask", "q1.1 over 4 copies of the segment",
          lambda: K.filter_mask(4 * P, plan.filter_spec, four, plan.params,
                                4 * n))
+    spec, fcols, params = cs._family_operands(
+        seg, [Q1_TEMPLATES["q1.1"].format(**lits)
+              for lits in q1_batches()["q1.1"]])
+    for B in (8, 2):
+        case("filter_mask_batched", f"q1.1 family, {B} members",
+             lambda: K.filter_mask_batched(P, spec, fcols, params[:B], n))
 
     # K14's warp route on Q2.1's operands, part by part
     plan = InstancePlanMaker().make_segment_plan(

@@ -12,6 +12,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12         # H100 SXM TF32 on the tensor cores, dense
 L2_FLUSH_BYTES = 128 << 20      # > the 50 MB L2: each timed launch is cold
 SPIN_CYCLES = 2_000_000         # ~1 ms at H100 clocks
 
@@ -85,9 +86,11 @@ def launch_breakdown(fn, reps: int = 5) -> dict:
         return {"error": repr(e)}
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = SCALAR_OPS_PER_S) -> tuple:
     """(ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the operations over the scalar f32 rate."""
+    memory rate and the operations over their rate (the scalar f32 one
+    unless given: TF32_OPS_PER_S for products on the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

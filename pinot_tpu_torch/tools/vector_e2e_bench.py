@@ -64,7 +64,7 @@ def main(argv=None) -> int:
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as base:
         t0 = time.perf_counter()
-        engine, draws, _ = cs.vec_data(base, opts)
+        engine, draws, *_ = cs.vec_data(base, opts)
         seconds["vec_data"] = time.perf_counter() - t0
         st_engine = QueryEngine(engine.segments, mesh=make_mesh())
         queries = draws.queries(opts.vec_queries)

@@ -39,8 +39,8 @@ import torch
 
 from pinot_tpu.ops import kernels as jk
 from pinot_tpu_torch.ops import kernels as tk
-from test_torch_kernels import _in_list, _lanes, _member, _near, \
-    _torch_cols
+from test_torch_kernels import _batched_route_case, _in_list, \
+    _interpret_wide, _lanes, _member, _near, _raw, _torch_cols, ssb_q1_family
 from test_torch_vector import K8_MEMBER_SLOTS, _contract_case, _draw, \
     _scatter_scores_model, _to_port
 
@@ -263,6 +263,58 @@ def test_members_that_disagree_raise_before_launching():
     assert tk.stack_param_leaves([(1, np.zeros(3)), (2, np.ones(3))])[1] \
         .shape == (2, 3)
     assert tk.MAX_BATCH == 8
+
+
+@pytest.fixture(scope="module")
+def ssb_family():
+    return ssb_q1_family()
+
+
+@pytest.mark.parametrize("B", (1, 2, 5, 8))
+def test_batched_wide_program_packing(ssb_family, B):
+    """The batched wide route's program: compile_filter_batched's buffer
+    is the members' common nodes, then B parameter blocks of one length,
+    member b's block its own compile_filter's parameter words; the SSB
+    Q1.1 family's fits FILTER_INLINE_WORDS at every B (it rides in the
+    launch's parameters), and each member's nodes and block through the
+    numpy mirror of filter_wide_kernel give that member's plain mask."""
+    spec, cols, members, P, n = ssb_family
+    probes = []
+    buf, n_nodes, words = tk.compile_filter_batched(spec, members[:B], cols,
+                                                    probes)
+    node_words = tk._NODE_WORDS * n_nodes
+    assert buf.dtype == np.int32 and buf.shape[0] == node_words + B * words
+    assert buf.shape[0] <= tk.FILTER_INLINE_WORDS
+    keys = tk.filter_lane_keys(spec)
+    host = {k: cols[k].numpy() for k in keys}
+    nodes = buf[:node_words].reshape(n_nodes, tk._NODE_WORDS).tolist()
+    for b in range(B):
+        one, one_nodes = tk.compile_filter(spec, members[b], cols)
+        assert one_nodes == n_nodes
+        np.testing.assert_array_equal(buf[:node_words], one[:node_words])
+        block = buf[node_words + b * words: node_words + (b + 1) * words]
+        np.testing.assert_array_equal(block, one[node_words:])
+        got, matched = _interpret_wide(P, spec, host, members[b], P, [n],
+                                       program=(nodes, block, keys))
+        want = tk.filter_mask_plain(P, spec, cols, members[b], n)
+        np.testing.assert_array_equal(got, want.numpy())
+        assert int(matched[0]) == int(want.sum())
+
+
+def test_batched_wide_program_past_the_inline_words():
+    """Members whose blocks overflow FILTER_INLINE_WORDS (in-lists of 40
+    ids) still take the wide route: their buffer goes to the card as a
+    copy, the route is the same."""
+    P = SHAPES[0]
+    cols = _torch_cols(_lanes(P, P, seed=2))
+    spec = ("and", (_pred("in_ids", "b", extra=40), _pred("eq_id", "a")))
+    members = [[_in_list(list(range(b, 40 * 20 + b, 20)), 40), np.int32(b)]
+               for b in range(8)]
+    probes = []
+    buf, n_nodes, _w = tk.compile_filter_batched(spec, members, cols, probes)
+    assert buf.shape[0] > tk.FILTER_INLINE_WORDS
+    assert tk.filter_batched_route([cols["b.ids"], cols["a.ids"]], P, buf,
+                                   n_nodes, False) == "wide"
 
 
 # ---------------------------------------------------------------------------
@@ -729,18 +781,25 @@ def test_batched_kernels_cuda(cuda_device, name, n):
     launched = {k: v for k, v in tk.launch_counts().items() if v}
     # each launch of one member's plan is one batched launch per chunk
     # ("filter_mask[vdoc]", a launch whose program holds the vdoc node,
-    # becomes "filter_mask_batched[vdoc]"; the single K1's launch route,
-    # "filter_mask[wide]", has no batched count)
+    # becomes "filter_mask_batched[vdoc]"); K1's launch route is each
+    # form's own ("filter_mask[wide]" / "[rows]" of the single form,
+    # filter_batched_route's of the batched one), checked apart
     chunks = -(-n // tk.MAX_BATCH)
     names = tk.launch_counts()
+    routes = ("[wide]", "[rows]", "[leaf]")
 
     def batched_name(k):
         base, bracket, node = k.partition("[")
         return f"{base}_batched{bracket}{node}"
 
-    assert launched == {batched_name(k): v * chunks
-                        for k, v in single.items()
-                        if batched_name(k) in names}, (launched, single)
+    assert {k: v for k, v in launched.items()
+            if not k.endswith(routes)} == {
+        batched_name(k): v * chunks for k, v in single.items()
+        if batched_name(k) in names and not k.endswith(routes)}, \
+        (launched, single)
+    if "filter_mask_batched" in launched:
+        assert sum(launched.get(f"filter_mask_batched{r}", 0)
+                   for r in routes) == launched["filter_mask_batched"]
     want = tk.run_segment_kernel_batched(P, filt, aggs, select, host,
                                          members, num_docs)
     assert set(got) == set(want)
@@ -757,6 +816,70 @@ def test_batched_kernels_cuda(cuda_device, name, n):
                                     params, num_docs)
         for k, v in one.items():
             assert torch.equal(got[k][b], v), (b, k)
+
+
+#: launches of each batched K1 case and route on the card, each held to
+#: the same bits
+K1_BATCHED_REPEATS = 20
+#: batched K1 programs the wide route takes, and the route picked: the SSB
+#: Q1.1 family (alone and ANDed with the vdoc node) and blocks past the
+#: inline words "wide"; raw and MV leaves (the general instantiation's
+#: row-by-row evaluators) "rows", the wide route forced on them
+K1_WIDE_FAMILIES = {"ssb_q1.1": "wide", "ssb_q1.1_vdoc": "wide",
+                    "raw_mixed": "rows", "mv": "rows",
+                    "in_lists_past_inline": "wide"}
+
+
+def _k1_family(name: str, ssb):
+    """(P, filter spec, host lanes, 8 members' params, num_docs)."""
+    if name.startswith("ssb"):
+        P, spec, cols, members = _batched_route_case(name, ssb)
+        return P, spec, cols, members, P - 777
+    P = SHAPES[-1]
+    cols = _torch_cols(_lanes(P, P - 777, seed=5))
+    if name == "raw_mixed":
+        spec = ("and", (_raw("range_raw", "rf32", (True, False)),
+                        _pred("eq_id", "a")))
+        members = [[_near("rf32", b), _near("rf32", 30 + b), np.int32(b)]
+                   for b in range(8)]
+    elif name == "mv":
+        spec = ("or", (_pred("eq_id", "m3", "mv"),
+                       _pred("in_ids", "a", extra=2)))
+        members = [[np.int32(b), _in_list([b, 40 - b], 2)] for b in range(8)]
+    else:
+        spec = ("and", (_pred("in_ids", "b", extra=40), _pred("eq_id", "a")))
+        members = [[_in_list(list(range(b, 40 * 20 + b, 20)), 40),
+                    np.int32(b)] for b in range(8)]
+    return P, spec, cols, members, P - 777
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K1_WIDE_FAMILIES)
+def test_filter_mask_batched_wide_cuda(cuda_device, ssb_family, name):
+    """The batched K1 on both routes at B = 1..8: the route picked is the
+    family's, and each of K1_BATCHED_REPEATS launches a route is bit for
+    bit the plain version (masks and counts) and B single launches."""
+    P, spec, host, members, n = _k1_family(name, ssb_family)
+    card = {k: v.to(cuda_device) for k, v in host.items()}
+    singles = torch.stack([tk.filter_mask(P, spec, card, members[b], n)
+                           for b in range(8)])
+    for B in range(1, 9):
+        plain_m, plain_n = tk.filter_mask_batched_plain(P, spec, host,
+                                                        members[:B], n)
+        assert torch.equal(plain_m, singles[:B].cpu()), B
+        for route in (None, "wide", "rows"):
+            for _ in range(K1_BATCHED_REPEATS if route else 1):
+                tk.reset_launch_counts()
+                m, c = tk.filter_mask_batched(P, spec, card, members[:B], n,
+                                              route=route)
+                torch.cuda.synchronize()
+                counts = tk.launch_counts()
+                assert counts["filter_mask_batched"] == 1
+                picked = route or K1_WIDE_FAMILIES[name]
+                assert counts[f"filter_mask_batched[{picked}]"] == 1
+                assert torch.equal(m, singles[:B]), (B, route)
+                assert torch.equal(m.cpu(), plain_m), (B, route)
+                assert torch.equal(c.cpu(), plain_n), (B, route)
 
 
 #: launches of each batched K8 case on the card, each held to the same

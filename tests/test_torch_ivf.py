@@ -10,10 +10,14 @@ cross-backend bit contract, the JAX module says so). (b) Twins of
 tests/test_ivf.py (DIM 16, 2 segments of 2,048 rows, 16 centroids): the
 JAX-built directories load into the port and its probed answers equal the
 JAX engine's bit for bit, per segment and stacked; the port's own creator
-trains byte-identical codebooks run after run. (c) `cuda` tests hold K10
-and K11 to their plain versions on the card (K11 also with every row on
-one centroid, empty centroids and Zipf-skewed assignments, at dim_pad 1 to
-4,096 and c_pad 8 to 4,096) and skip where there is none.
+trains byte-identical codebooks run after run. K10's tensor route's
+3xTF32 split is emulated in numpy against chip_smoke's K10 check (and one
+TF32 pass against it), and its route choice is held on the CPU. (c) `cuda`
+tests hold K10 and K11 to their plain versions on the card (K10 on both
+routes at ragged rows, c_pad 8 to 8,192, dim_pad 4 to 512, dead and
+duplicated centroids; K11 also with every row on one centroid, empty
+centroids and Zipf-skewed assignments, at dim_pad 1 to 4,096 and c_pad 8
+to 4,096) and skip where there is none.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from pinot_tpu_torch.parallel import NotShardable, ShardedQueryExecutor, \
 from pinot_tpu_torch.pql.parser import compile_pql
 from pinot_tpu_torch.segment.creator import SegmentCreator
 from pinot_tpu_torch.segment.loader import ImmutableSegmentLoader
+from pinot_tpu_torch.tools import vecdata
 
 DIM = 16
 N_CENTROIDS = 16
@@ -121,6 +126,123 @@ def test_ivf_probe_select_kernel_matches_jax():
                               torch.from_numpy(cvalid), q, q_norm, "dot", 8)
     for key in ("ivf.probe", "ivf.probe_ok"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+
+
+#: chip_smoke's K10 check: assignments equal wherever the best two exact
+#: distances differ by more than 1e-3 of the best (at least 1e-3), distances
+#: within rtol 1e-4 / atol 1e-3
+SURE_GAP, K10_RTOL, K10_ATOL = 1e-3, 1e-4, 1e-3
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, ties away from
+    zero, as f32."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _tf32_cross(x: np.ndarray, cen: np.ndarray, passes: int) -> np.ndarray:
+    """The tensor route's cross term, emulated: x and cen split into hi =
+    tf32(v) and lo = tf32(v - hi); each 8-dim k-step's products (lo*hi +
+    hi*lo + hi*hi for 3 passes, hi*hi for one) summed exactly (TF32
+    products are exact in f32) and rounded to f32, then added into an f32
+    accumulator with round to nearest."""
+    xh, ch = _tf32(x), _tf32(cen)
+    xl, cl = _tf32(x - xh), _tf32(cen - ch)
+    acc = np.zeros((x.shape[0], cen.shape[0]), np.float32)
+    for k in range(0, x.shape[1], 8):
+        s = slice(k, k + 8)
+        part = xh[:, s].astype(np.float64) @ ch[:, s].T.astype(np.float64)
+        if passes == 3:
+            part += xl[:, s].astype(np.float64) @ ch[:, s].T
+            part += xh[:, s].astype(np.float64) @ cl[:, s].T
+        acc = acc + part.astype(np.float32)
+    return acc
+
+
+def test_3xtf32_split_meets_the_k10_check():
+    """vecdata rows (128 dims, |x|^2 ~ 2,048) against a codebook of the
+    256 centres and a near copy of each (+ N(0, 0.01) a dim), so that most
+    rows' best two centroids lie 0.01-0.1 apart in d2 of ~11: the 3xTF32
+    split gives the f32 plain version's assignment on every sure row, and
+    distances within the check's tolerance of the exact (float64) ones;
+    one TF32 pass (hi*hi) misses both. The f32 plain version itself
+    misses the tolerance against the exact distances at this scale (its
+    summation order), so the split's distances and the plain's part by
+    more than it: the tensor route ranks with the split and settles each
+    row (its best, and its near ties) in the plain version's order."""
+    draws = vecdata.VecDraws(rows=10_000, segments=1)
+    x = draws.segment(0)["emb"].astype(np.float32)
+    base = draws.centers.astype(np.float32)
+    cen = np.concatenate([base, base + np.random.default_rng(7)
+                          .standard_normal(base.shape).astype(np.float32)
+                          * np.float32(0.01)])
+    n, c = x.shape[0], cen.shape[0]
+    ref_a, ref_d = ik.ivf_assign_plain(torch.from_numpy(x),
+                                       torch.from_numpy(cen), n, c)
+    ref_a, ref_d = ref_a.numpy(), ref_d.numpy()
+    rn = tk.vec_tree_sum_plain(torch.from_numpy(x * x)).numpy()
+    cn = tk.vec_tree_sum_plain(torch.from_numpy(cen * cen)).numpy()
+    d2x = rn[:, None].astype(np.float64) - 2 * (
+        x.astype(np.float64) @ cen.T.astype(np.float64)) + cn[None, :]
+    two = np.sort(d2x, axis=1)[:, :2]
+    sure = two[:, 1] - two[:, 0] > SURE_GAP * np.maximum(np.abs(two[:, 0]),
+                                                         1.0)
+    exact = np.maximum(two[:, 0], 0.0)
+    assert 0.5 * n < sure.sum() < n                  # near ties, mostly sure
+    plain_err = np.abs(ref_d - exact).max()
+    assert not np.allclose(ref_d, exact, rtol=K10_RTOL, atol=K10_ATOL)
+    for passes in (3, 1):
+        cross = _tf32_cross(x, cen, passes)
+        d2 = (rn[:, None] - np.float32(2) * cross) + cn[None, :]
+        assign, dist = d2.argmin(axis=1), np.maximum(d2.min(axis=1), 0)
+        mismatched = int(((assign != ref_a) & sure).sum())
+        near = np.allclose(dist, exact, rtol=K10_RTOL, atol=K10_ATOL)
+        if passes == 3:
+            assert mismatched == 0 and near
+            assert np.abs(dist - exact).max() < plain_err
+        else:
+            assert mismatched > 0.1 * sure.sum() and not near
+
+
+def test_ivf_assign_route_choice():
+    """K10's route (ivf_assign_route): "tensor" from TENSOR_MIN_DIM dims
+    on 16-byte aligned matrices, else "simt"; route="tensor" raises where
+    it does not apply, on every device; an unknown route raises."""
+    def mats(dim, offset=0):
+        flat = torch.randn(64 * dim + offset)
+        return flat[offset:].view(64, dim), torch.randn(8, dim)
+
+    assert ik.ivf_assign_route(*mats(4)) == "simt"
+    assert ik.ivf_assign_route(*mats(ik.TENSOR_MIN_DIM)) == "tensor"
+    assert ik.ivf_assign_route(*mats(128)) == "tensor"
+    assert ik.ivf_assign_route(*mats(128, offset=1)) == "simt"
+    data, cen = mats(8)
+    want = ik.ivf_assign_plain(data, cen, 60, 7)
+    for route in (None, "tensor", "simt"):
+        got = ik.ivf_assign(data, cen, 60, 7, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="tensor route"):
+        ik.ivf_assign(*mats(4), 60, 7, route="tensor")
+    with pytest.raises(ValueError, match="tensor route"):
+        ik.ivf_assign(*mats(128, offset=1), 60, 7, route="tensor")
+    with pytest.raises(ValueError, match="route"):
+        ik.ivf_assign(data, cen, 60, 7, route="mma")
+
+
+def test_ivf_assign_stats_checked():
+    """K10's settling counters (`stats`) must be an int32 [2] on the rows'
+    device; the plain version leaves them as they are."""
+    data, cen = torch.randn(64, 8), torch.randn(8, 8)
+    for bad in (torch.zeros(2, dtype=torch.int64),
+                torch.zeros(3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="stats"):
+            ik.ivf_assign(data, cen, 60, 7, stats=bad)
+    stats = torch.zeros(2, dtype=torch.int32)
+    got = ik.ivf_assign(data, cen, 60, 7, stats=stats)
+    want = ik.ivf_assign_plain(data, cen, 60, 7)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert stats.tolist() == [0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +562,104 @@ def test_ivf_kernels_cuda_match_plain(cuda_device, shape):
     want_c, want_n = ik.ivf_recenter_plain(d, assign, n - 3, cen)
     assert torch.equal(counts, want_n)
     assert torch.allclose(new_c, want_c, rtol=CENT_RTOL, atol=CENT_ATOL)
+
+
+#: K10 on the card: (rows, c_pad, live centroids, dim_pad, duplicated
+#: centroids): ragged rows, c_pad 8 to 8,192, dim_pad 4 (the simt route
+#: only) to 512, dead centroids past the live ones
+K10_CUDA_CASES = [(4099, 8, 8, 4, False), (10007, 8, 5, 8, False),
+                  (131, 1024, 1024, 16, False), (30011, 64, 64, 32, True),
+                  (70001, 512, 509, 64, True), (65613, 256, 200, 128, True),
+                  (20001, 8192, 8000, 512, False)]
+K10_REPEATS = 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K10_CUDA_CASES)
+def test_ivf_assign_routes_cuda(cuda_device, case):
+    """K10's routes against the plain version with chip_smoke's check
+    (assignments equal wherever sure, distances within rtol 1e-4 / atol
+    1e-3), K10_REPEATS launches a route bit for bit equal, no row on the
+    higher id of two equal centroids (ties to the lower id), and the two
+    routes' outputs bit for bit equal (the tensor route settles every row
+    in the simt route's arithmetic). Rows lie around the live centroids
+    at the vecdata scale (|x|^2 ~ 2,048)."""
+    n, c_pad, n_cent, dim, dup = case
+    rng = np.random.default_rng(n + c_pad + dim)
+    scale = np.float32(np.sqrt(128 / dim))
+    centers = rng.standard_normal((c_pad, dim)).astype(np.float32) * \
+        np.float32(4) * scale
+    twins = [(k - 3, k) for k in range(3, n_cent, 5)] if dup else []
+    for j, k in twins:
+        centers[k] = centers[j]
+    data = (centers[rng.integers(0, n_cent, n)] +
+            rng.standard_normal((n, dim)).astype(np.float32) *
+            np.float32(0.3) * scale)
+    d = torch.from_numpy(data).to(cuda_device)
+    cen = torch.from_numpy(centers).to(cuda_device)
+    n_rows = n - 3
+    ref_a, ref_d = ik.ivf_assign_plain(d, cen, n_rows, n_cent)
+    d64, c64 = d.double(), cen[:n_cent].double()
+    d2 = (d64 * d64).sum(1)[:, None] - 2 * d64 @ c64.T + \
+        (c64 * c64).sum(1)[None, :]
+    two = torch.topk(d2, min(2, n_cent), dim=1, largest=False).values
+    sure = (two[:, 1] - two[:, 0]) > SURE_GAP * two[:, 0].abs().clamp_min(1)
+    del d2, d64
+    routes = ("simt", "tensor") if dim >= ik.TENSOR_MIN_DIM else ("simt",)
+    assert ik.ivf_assign_route(d, cen) == routes[-1]
+    if dim < ik.TENSOR_MIN_DIM:
+        with pytest.raises(ValueError, match="tensor route"):
+            ik.ivf_assign(d, cen, n_rows, n_cent, route="tensor")
+    outs = {}
+    for route in routes:
+        tk.reset_launch_counts()
+        runs = [ik.ivf_assign(d, cen, n_rows, n_cent, route=route)
+                for _ in range(K10_REPEATS)]
+        torch.cuda.synchronize()
+        assert tk.launch_counts()[f"ivf_assign[{route}]"] == K10_REPEATS
+        a, dist = runs[0]
+        for a2, dist2 in runs[1:]:
+            assert torch.equal(a, a2) and torch.equal(
+                dist.view(torch.int32), dist2.view(torch.int32)), route
+        assert int(((a != ref_a) & sure).sum()) == 0, route
+        assert torch.allclose(dist, ref_d, rtol=K10_RTOL, atol=K10_ATOL), \
+            (route, float((dist - ref_d).abs().max()))
+        assert int(a.max()) < n_cent and bool((dist[n_rows:] == 0).all())
+        for _j, k in twins:
+            assert int((a == k).sum()) == 0, (route, k)
+        outs[route] = runs[0]
+    if len(outs) == 2:
+        assert torch.equal(outs["tensor"][0], outs["simt"][0])
+        assert torch.equal(outs["tensor"][1].view(torch.int32),
+                           outs["simt"][1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies", [1, 2, 3])
+def test_ivf_assign_settle_counts_cuda(cuda_device, copies):
+    """The tensor route's settling counters on well-separated clusters
+    whose centres come in groups of `copies` equal centroids: no row needs
+    more than its best dot where they are single, every row two dots where
+    they are pairs, and every row a scan where they are triples; the
+    outputs equal the simt route's, and the counters add up over calls."""
+    n, groups, dim = 20011, 40, 128
+    rng = np.random.default_rng(copies)
+    centers = np.repeat(rng.standard_normal((groups, dim)).astype(
+        np.float32) * np.float32(4), copies, axis=0)
+    data = (centers[rng.integers(0, len(centers), n)] +
+            rng.standard_normal((n, dim)).astype(np.float32) *
+            np.float32(0.3))
+    d = torch.from_numpy(data).to(cuda_device)
+    cen = torch.from_numpy(centers).to(cuda_device)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got = ik.ivf_assign(d, cen, n, len(centers), route="tensor", stats=stats)
+    want = ik.ivf_assign(d, cen, n, len(centers), route="simt", stats=stats)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    expect = {1: [0, 0], 2: [n, 0], 3: [0, n]}[copies]
+    assert stats.tolist() == expect
+    ik.ivf_assign(d, cen, n, len(centers), route="tensor", stats=stats)
+    assert stats.tolist() == [2 * v for v in expect]
 
 
 def _recenter_case(kind: str, m_pad: int, dim_pad: int, c_pad: int,

@@ -357,7 +357,8 @@ def _i8_level(node, prm, lane):
     return _pack_flags(f)
 
 
-def _interpret_wide(rows, spec, cols, params, seg_rows, seg_docs):
+def _interpret_wide(rows, spec, cols, params, seg_rows, seg_docs,
+                    program=None):
     """numpy mirror of filter_mask.cu:filter_wide_kernel: runs of 32 rows
     (a thread's: two halves of 16 rows, 4,096 rows apart, of an 8,192-row
     block step), each leaf's runs as 32-bit levels, row r at bit
@@ -367,8 +368,10 @@ def _interpret_wide(rows, spec, cols, params, seg_rows, seg_docs):
     OR of k children folding slots sp - k .. sp - 1; the result level
     masked by the run's live rows (a run never straddles two segments),
     word w of its mask (level >> w) & 0x01010101, popcounted into
-    seg_matched. Returns (uint8 mask [rows], int32 matched per segment)."""
-    nodes, prm, lane_keys = _program(spec, cols, params)
+    seg_matched. `program` (nodes, parameter words, lane keys) stands in
+    for compile_filter's (a batched member's nodes and its own block).
+    Returns (uint8 mask [rows], int32 matched per segment)."""
+    nodes, prm, lane_keys = program or _program(spec, cols, params)
     # a block step of 8,192 rows: thread t's rows 0-15 are the step's rows
     # 16 t .. 16 t + 15, its rows 16-31 the same of the step's second half
     tile = 32 * 256
@@ -577,6 +580,137 @@ def test_filter_route_picks_wide_by_lanes():
         probe_lanes=[], join=lambda *_: torch.from_numpy(dim))
     assert buf[0] == tk._LEAF_OPS["join_raw"]
     assert tk.filter_route([cols["ri32.raw"]], P, buf, n_nodes) == "rows"
+
+
+def ssb_q1_family(rows: int = 20_000):
+    """(spec, leaf lanes, the 8 members' params, P, num_docs) of the SSB
+    Q1.1 family (tools/ssb.py:q1_batches) over a one-segment SSB table,
+    planned as the engine plans it: the batch phase's batched K1 program."""
+    from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer
+    from pinot_tpu_torch.pql.parser import compile_pql
+    from pinot_tpu_torch.query.execution import gather_operands
+    from pinot_tpu_torch.query.plan import InstancePlanMaker
+    from pinot_tpu_torch.tools.datagen import make_ssb_segments
+    from pinot_tpu_torch.tools.ssb import Q1_TEMPLATES, q1_batches
+    seg = make_ssb_segments(rows, 1, seed=0).segments[0].to("cpu")
+    opt, maker = BrokerRequestOptimizer(), InstancePlanMaker()
+    plans = [maker.make_segment_plan(seg, opt.optimize(compile_pql(
+        Q1_TEMPLATES["q1.1"].format(**lits)))) for lits in
+        q1_batches()["q1.1"]]
+    spec = plans[0].filter_spec
+    assert all(p.filter_spec == spec for p in plans)
+    cols = gather_operands(plans[0])
+    return (spec, {k: cols[k] for k in tk.filter_lane_keys(spec)},
+            [list(p.params) for p in plans], seg.padded_docs, seg.num_docs)
+
+
+@pytest.fixture(scope="module")
+def ssb_family():
+    return ssb_q1_family()
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """The same rows one byte past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() * t.element_size() + 16, dtype=torch.uint8)
+    out = buf[1:1 + t.numel() * t.element_size()].view(t.dtype)
+    out.copy_(t)
+    return out
+
+
+#: the batched K1's route for each program (filter_batched_route) and
+#: whether a forced "wide" may run it (batched_wide_takes): the SSB Q1.1
+#: family and it ANDed with the vdoc node take "wide"; a raw and an MV leaf
+#: (row by row on the wide route, once a member) "rows", forcible; members'
+#: join keys (a member map or their sorted keys), a stack of 9 levels, 9
+#: bytes a row, lanes off a 16-byte boundary and rows not a multiple of 16
+#: "rows", not forcible
+BATCHED_ROUTE_CASES = {"ssb_q1.1": ("wide", True),
+                       "ssb_q1.1_vdoc": ("wide", True),
+                       "raw_mv": ("rows", True),
+                       "join_bits": ("rows", False),
+                       "join_raw": ("rows", False),
+                       "depth_9": ("rows", False), "bytes_9": ("rows", False),
+                       "misaligned": ("rows", False),
+                       "rows_not_16": ("rows", False)}
+
+
+def _batched_route_case(name, ssb):
+    """(rows, spec, cols, members) of a BATCHED_ROUTE_CASES program."""
+    spec, cols, members, P, _n = ssb
+    if name == "ssb_q1.1":
+        return P, spec, cols, members
+    if name == "ssb_q1.1_vdoc":
+        from pinot_tpu_torch.query.plan import VALID_DOC_COLUMN, \
+            with_valid_doc_mask
+        live = torch.from_numpy((np.random.default_rng(2).random(P) < 0.8)
+                                .astype(np.uint8))
+        return P, with_valid_doc_mask(spec), dict(
+            cols, **{f"{VALID_DOC_COLUMN}.vdoc": live}), members
+    if name == "misaligned":
+        return P, spec, {k: _shifted(v) for k, v in cols.items()}, members
+    if name == "rows_not_16":
+        return P - 8, spec, {k: v[:P - 8].clone() for k, v in cols.items()}, \
+            members
+    R = 8192
+    lanes = {k: torch.from_numpy(np.ascontiguousarray(v)).clone()
+             for k, v in _lanes(R, R, seed=0).items()}
+    if name in ("join_bits", "join_raw"):
+        pool = RAW_POOLS["ri32"]
+        wide = np.array([-2**30, 0, 1, 2**30], np.int32)   # past 2^23
+        keys = [tk.SortedKeys(np.sort(np.asarray(
+            [pool[b], pool[b + 9], pool[b + 20], pool[40]] if
+            name == "join_bits" else wide + b, np.int32))) for b in range(8)]
+        return R, ("pred", "join_raw", "ri32", "raw", 4), lanes, \
+            [[k] for k in keys]
+    if name == "raw_mv":
+        return R, ("and", (_raw("range_raw", "rf32", (True, False)),
+                           _mv("eq_id", "m3"))), lanes, \
+            [[_near("rf32", b), _near("rf32", 30 + b), np.int32(b % 10)]
+             for b in range(8)]
+    if name == "depth_9":
+        leaf = _pred("eq_id", "a")
+        deep = ("and", ((("or", (leaf, leaf)),) * 5 + (("and", (leaf,) * 4),)))
+        return R, deep, lanes, [[np.int32(b + i) for i in range(14)]
+                                for b in range(8)]
+    # bytes_9: an int64 raw lane and an int8 id lane
+    return R, ("and", (_raw("eq_raw", "ri64"), _pred("eq_id", "a"))), lanes, \
+        [[RAW_POOLS["ri64"][b], np.int32(b)] for b in range(8)]
+
+
+@pytest.mark.parametrize("name", sorted(BATCHED_ROUTE_CASES))
+def test_filter_batched_route(ssb_family, name):
+    """filter_batched_route and batched_wide_takes over
+    compile_filter_batched's buffer at 8 members, and route="wide" on the
+    CPU: checked, then the plain version (equal to
+    filter_mask_batched_plain), or ValueError where the wide route does
+    not take the program."""
+    rows, spec, cols, members = _batched_route_case(name, ssb_family)
+    probes = []
+    buf, n_nodes, words = tk.compile_filter_batched(spec, members, cols,
+                                                    probes)
+    assert buf.shape[0] == tk._NODE_WORDS * n_nodes + 8 * words
+    if name.startswith("join"):
+        assert buf[0] == {"join_bits": tk._OP_JOIN_BITS,
+                          "join_raw": tk._LEAF_OPS["join_raw"]}[name]
+    keys = tk.filter_lane_keys(spec)
+    want, forcible = BATCHED_ROUTE_CASES[name]
+    lanes = [cols[k] for k in keys]
+    assert tk.filter_batched_route(lanes, rows, buf, n_nodes,
+                                   tk._general(keys)) == want
+    assert tk.batched_wide_takes(lanes, rows, buf, n_nodes) == forcible
+    if forcible:
+        got = tk.filter_mask_batched(rows, spec, cols, members, rows - 77,
+                                     route="wide")
+        plain = tk.filter_mask_batched_plain(rows, spec, cols, members,
+                                             rows - 77)
+        assert all(torch.equal(g, p) for g, p in zip(got, plain))
+    else:
+        with pytest.raises(ValueError, match="wide route"):
+            tk.filter_mask_batched(rows, spec, cols, members, rows,
+                                   route="wide")
+    with pytest.raises(ValueError, match="route"):
+        tk.filter_mask_batched(rows, spec, cols, members, rows,
+                               route="lanes")
 
 
 def test_compile_filter_limits():

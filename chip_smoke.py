@@ -48,8 +48,11 @@ non-zero exit and no result line:
    launch_breakdown's device time of the kernel and of the row route's
    program copy.
    K3 runs on every group-by query (planned with compaction off: its
-   dense direct-keyed route), and where its table fits a block's
-   shared memory, also with the shared tables forced on and forced off.
+   dense direct-keyed route) on the fold route the wrapper picks and on
+   every route forced that takes its table (smem, global),
+   FOLD_CHECK_REPEATS launches each, every output checked, the picked
+   call timed (ms) and each route forced (ms_by_route), with
+   launch_breakdown's device time of the picked call (launch_us).
    K1's vdoc node: Q1.1 ANDed with a liveness lane (a third of the rows
    superseded), bit-equal in both instantiations, timed beside the same
    K1 without the node and the general instantiation.
@@ -127,7 +130,8 @@ non-zero exit and no result line:
    flushed beside their bounds and torch.nonzero + index_select (K14),
    index_add_ (K15). K14 on its warp route (which these cases must take)
    and its block route forced, K14_REPEATS launches each, every output
-   checked, both timed. Then SSB Q2.1-Q4.3, per segment and stacked, with
+   checked, both timed; K3 and K15 on every fold route that takes their
+   tables, as in phase 4. Then SSB Q2.1-Q4.3, per segment and stacked, with
    compaction on and off (a second engine whose executor is
    ServerQueryExecutor(InstancePlanMaker(allow_group_compaction=False));
    the stacked engine's plan maker swapped, so the stack is shared):
@@ -364,10 +368,14 @@ must be above 0 (and K1's probe-route launches, which the join tables'
 keys never need); K1's wide-route and K14's warp-route launches on the
 SSB paths (per segment, stacked, compacted, the cubes' segments, the
 synthesized stack, the server), which must be above 0, while their row
-and block routes must take none of those launches; the kernels line
-gives each K12, K6, K1 and K14 entry's launches by route
-(route_launches), and K1's and K14's old routes re-timed in the same run
-(ms_rows, stacked_ms_rows, ms_block).
+and block routes must take none of those launches; K3's and K15's fold
+routes on each SSB path (ssb_fold_routes), where K3 must have taken smem
+only (every SSB dense table fits one block) and K3 and K15 smem at least
+once; the kernels line
+gives each K12, K6, K1, K14, K3 and K15 entry's launches by route
+(route_launches), K1's and K14's old routes re-timed in the same run
+(ms_rows, stacked_ms_rows, ms_block), and K3's and K15's time on each
+fold route (fold_route, ms_by_route, launch_us).
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -412,11 +420,14 @@ WINDOW_SCAN_REPEATS = 10        # K13 launches a case, each bit-checked
 SORT_SELECT_REPEATS = 10        # K12 / K6 launches a case, each bit-checked
 JOIN_K1_REPEATS = 10            # K1 join_raw launches a route, each checked
 K1_BATCH_REPEATS = 10           # batched K1 launches a case and route, checked
+FOLD_CHECK_REPEATS = 10         # K3 / K15 launches a route, each bit-checked
+#: the launch-count keys of K3's and K15's fold routes
+FOLD_NODES = ("smem", "global")
 #: the launch-count keys of K12's, K6's, K1's join_raw, K1's, K14's and
 #: K10's routes
 ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]", "[bitmap]",
                "[probe]", "[wide]", "[rows]", "[leaf]", "[warp]", "[block]",
-               "[tensor]", "[simt]")
+               "[tensor]", "[simt]", "[smem]", "[global]")
 
 
 #: the kernels of the SSB and baseballStats paths (K1-K7)
@@ -462,14 +473,15 @@ def no_host_sync(fn, what: str) -> None:
     emit({"phase": "sync_check", "call": what, "host_sync": False})
 
 
-def routed(fn, name: str):
+def routed(fn, name: str, nodes=None):
     """fn() once with the launch counts from 0: (its result, the route it
-    took, the counted node of kernel `name` that launched once)."""
+    took, the counted node of kernel `name` (among `nodes`, default all)
+    that launched once)."""
     from pinot_tpu_torch.ops import kernels as K
     K.reset_launch_counts()
     out = fn()
     counts = K.launch_counts()
-    taken = [node for node in K.KERNELS[name].node_launches
+    taken = [node for node in (nodes or K.KERNELS[name].node_launches)
              if counts[f"{name}[{node}]"] == 1]
     if counts[name] != 1 or len(taken) != 1:
         raise AssertionError(f"{name}: not one launch on one route: "
@@ -510,12 +522,62 @@ def group_operands(plan, cols):
     return keys, strides, g_pad, parts, floats, extremes
 
 
+def fold_routes(name: str, t_slots: int, parts, n_sums: int, ext,
+                wide: bool = False, w_total: int = 1, chunks: int = 1):
+    """The routes of K3 / K15 (`name`) that take a table of these lanes on
+    the card: each of FOLD_ROUTES that fold_route lets a check force."""
+    from pinot_tpu_torch.ops import kernels as K
+    n_raw = sum(e[0] == "raw" for e in ext)
+    caps = K.fold_caps(name, "cuda")
+    out = []
+    for route in K.FOLD_ROUTES:
+        try:
+            K.fold_route(t_slots, parts, n_sums, len(ext) - n_raw, n_raw,
+                         caps, wide, w_total, chunks, route=route)
+        except ValueError:
+            continue
+        out.append(route)
+    return out
+
+
+def fold_check(name: str, fn, ref, routes, equal, repeats=None):
+    """K3 / K15 (`name`) as the main path calls it (fn(None): the route the
+    wrapper picks) and on each of `routes` forced, FOLD_CHECK_REPEATS
+    launches each, every output held to the plain version's `ref` by
+    `equal(got, ref)` -> (ints equal, float err, floats ok); the picked
+    call and each route forced timed. Returns (picked route, the picked
+    call's ms, {route: ms forced}, ints equal, float err, floats ok)."""
+    out, picked = routed(fn, name, FOLD_NODES)
+    ints_ok, f_err, f_ok = equal(out, ref)
+    for route in (None, *routes):
+        for _ in range(repeats or FOLD_CHECK_REPEATS):
+            i, e, o = equal(fn(route), ref)
+            ints_ok, f_err, f_ok = ints_ok and i, max(f_err, e), f_ok and o
+    ms = {route: time_ms(lambda: fn(route)) for route in routes}
+    return picked, time_ms(lambda: fn(None)), ms, ints_ok, f_err, f_ok
+
+
+def k3_equal(got, ref):
+    """K3's outputs against the plain version's: (counts, part sums,
+    matched and min / max tables equal, the csums' largest error, csums
+    within CSUMS_RTOL)."""
+    ints = all(torch.equal(a.long(), b.long()) for a, b in
+               ((got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3]))) and \
+        all(torch.equal(a, b) for a, b in zip(got[4], ref[4]))
+    if not got[2].numel():
+        return ints, 0.0, True
+    diff = (got[2] - ref[2]).abs()
+    return ints, float(diff.max()), bool(
+        (diff <= CSUMS_RTOL * ref[2].abs().clamp_min(1.0)).all())
+
+
 def k3_check(P, plan, cols, mask, extra_bytes: int = 0):
-    """K3 against its plain version on one group-by plan, with the
-    shared-memory tables as the wrapper chooses them and, where the table
-    fits a block's shared memory, forced on and forced off: (report, ms,
-    plain ms, bound). `extra_bytes`: inputs the bound reads once beside
-    the lanes (a join key's code table or sorted keys)."""
+    """K3 against its plain version on one group-by plan: the route the
+    wrapper picks and every route forced that takes the table,
+    FOLD_CHECK_REPEATS launches each, all timed, with launch_breakdown of
+    the picked route: (report, err, ms, plain ms, bound). `extra_bytes`: inputs the bound
+    reads once beside the lanes (a join key's code table or sorted
+    keys)."""
     from pinot_tpu_torch.ops import kernels as K
     keys, strides, g_pad, parts, floats, ext = group_operands(plan, cols)
     args = (mask, keys, strides, g_pad, parts, floats, ext)
@@ -525,50 +587,46 @@ def k3_check(P, plan, cols, mask, extra_bytes: int = 0):
     n_raw = sum(e[0] == "raw" for e in ext)
     table = g_pad * (4 * (1 + n_l + len(ext) - n_raw) +
                      8 * (len(floats) + n_raw))
-    smem_room = getattr(torch.cuda.get_device_properties(0),
-                        "shared_memory_per_block_optin", 227 << 10) - 2048
-    variants = {"default": K.K3_SMEM_SLOTS}
-    if table <= smem_room:
-        variants.update(smem_on=K.INT32_MAX, smem_off=0)
-    int_err, f_err, f_ok, ext_equal = 0, 0.0, True, True
-    for slots in variants.values():
-        got = K.dense_group_aggregate(*args, smem_slots=slots)
-        int_err = max([int_err] + [
-            int((a.long() - b.long()).abs().max()) for a, b in
-            ((got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3]))
-            if a.numel()])
-        # min / max are order-free: equal, sentinels and NaN-free data alike
-        ext_equal &= all(torch.equal(a, b) for a, b in zip(got[4], ref[4]))
-        if floats:
-            diff = (got[2] - ref[2]).abs()
-            f_err = max(f_err, float(diff.max()))
-            f_ok &= bool((diff <= CSUMS_RTOL *
-                          ref[2].abs().clamp_min(1.0)).all())
+    routes = fold_routes("dense_group_aggregate", g_pad, n_l, len(floats),
+                         ext, w_total=K.group_combos(keys))
+
+    def run(route=None):
+        return K.dense_group_aggregate(*args, route=route)
+
+    picked, ms_picked, ms, ints_ok, f_err, f_ok = fold_check(
+        "dense_group_aggregate", run, ref, routes, k3_equal)
     matched = int(mask.sum())
-    if int_err != 0 or not f_ok or not ext_equal:
-        raise AssertionError(f"dense_group_aggregate disagrees: int "
-                             f"{int_err}, csums {f_err}, extremes equal "
-                             f"{ext_equal}")
+    if not ints_ok or not f_ok:
+        raise AssertionError(f"dense_group_aggregate disagrees on a route: "
+                             f"ints equal {ints_ok}, csums {f_err}")
     # each input read once: the mask, the matched rows' key entries (a [W]
     # row per MV key) and metric lanes; the table written once
     row_bytes = sum(k.lane.element_size() * k.width for k in keys) + n_l + \
         8 * len(floats) + sum(e[1].element_size() for e in ext)
-    ms = {v: time_ms(lambda: K.dense_group_aggregate(*args, smem_slots=s))
-          for v, s in variants.items()}
     plain = time_ms(lambda: K.dense_group_aggregate_plain(*args))
     b = bound(P + matched * row_bytes + table + extra_bytes,
               combos * (2 * len(keys) + 1 + n_l + len(floats) + len(ext)))
     report = {"g_pad": g_pad, "key_kinds": [k.kind for k in keys],
               "table_bytes": table, "matched": matched, "combos": combos,
-              "max_abs_err_int": int_err, "max_abs_err_csums": f_err,
+              "max_abs_err_int": 0, "max_abs_err_csums": f_err,
               "part_lanes": n_l, "float_lanes": len(floats),
-              "extremes": len(ext), "extremes_equal": ext_equal,
+              "extremes": len(ext), "extremes_equal": ints_ok,
               "csums_rtol": CSUMS_RTOL if floats else None,
-              "smem_slots": K.K3_SMEM_SLOTS, "ms": ms["default"],
-              "ms_smem_on": ms.get("smem_on"),
-              "ms_smem_off": ms.get("smem_off"), "plain_ms": plain,
-              "bound_ms": b[0], "bound_by": b[1]}
-    return report, max(int_err, f_err), ms["default"], plain, b
+              "route": picked, "routes_checked": routes,
+              "repeats": FOLD_CHECK_REPEATS, "ms": ms_picked,
+              "ms_by_route": ms, "launch_us": launch_breakdown(run),
+              "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1]}
+    return report, f_err, ms_picked, plain, b
+
+
+#: the keys a K3 / K15 entry of the kernels line takes from its check
+FOLD_KEYS = ("fold_route", "ms_by_route", "launch_us")
+
+
+def fold_keys(report) -> dict:
+    """The fold route's entries of a K3 / K15 check's report."""
+    return {"fold_route": report["route"], **{
+        k: report[k] for k in FOLD_KEYS[1:]}}
 
 
 #: K1 launches a route takes in the route checks, each bit-checked
@@ -693,7 +751,7 @@ def kernel_check(seg, pqls):
         if q == "q4.3":
             entries["dense_group_aggregate"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound=b,
-                library_ms=None)
+                library_ms=None, **fold_keys(r))
     for r in report:
         emit({"phase": "kernel_check", **r})
     if k1_err or k2_err:
@@ -1307,26 +1365,26 @@ def stacked_kernel_check(st_engine, pqls):
         seq_args = [(m,) + group_operands(plan, c) for m, c in
                     zip(seg_masks(mask), per)]
         seq = [K.dense_group_aggregate(*a) for a in seq_args]
-        ints_equal = all(torch.equal(a, b) for a, b in
-                         ((got[0], ref[0]), (got[1], ref[1]),
-                          (got[3], ref[3]))) and \
-            all(torch.equal(a, b) for a, b in zip(got[4], ref[4])) and \
+        n_l = sum(p.shape[0] for p in kparts)
+
+        def run(route=None):
+            return K.dense_group_aggregate(*args, route=route,
+                                           psums_wide=True)
+
+        # every route that takes the stack's table, each launch checked
+        routes = fold_routes("dense_group_aggregate", g_pad, n_l,
+                             len(floats), ext, wide=True)
+        picked, ms_picked, ms_routes, ints_equal, f_err, f_ok = fold_check(
+            "dense_group_aggregate", run, ref, routes, k3_equal)
+        ints_equal = ints_equal and \
             torch.equal(got[1], sum(o[1].long() for o in seq)) and \
             torch.equal(got[0], sum(o[0] for o in seq))
-        f_err, f_ok = 0.0, True
-        if floats:
-            diff = (got[2] - ref[2]).abs()
-            f_err = float(diff.max())
-            f_ok = bool((diff <= CSUMS_RTOL *
-                         ref[2].abs().clamp_min(1.0)).all())
-        n_l = sum(p.shape[0] for p in kparts)
         n_match = int(matched.sum())
         row_bytes = sum(k.lane.element_size() for k in keys) + n_l + \
             8 * len(floats)
         table = g_pad * (4 + 8 * n_l + 8 * len(floats))
         record("dense_group_aggregate", q, ints_equal and f_ok,
-               time_ms(lambda: K.dense_group_aggregate(*args,
-                                                       psums_wide=True)),
+               ms_picked,
                time_ms(lambda: [K.dense_group_aggregate(*a)
                                 for a in seq_args], spins=S),
                time_ms(lambda: K.dense_group_aggregate_plain(
@@ -1337,7 +1395,10 @@ def stacked_kernel_check(st_engine, pqls):
                float_lanes=len(floats), psums_table_bytes=8 * n_l * g_pad,
                per_segment_psums_bytes=4 * S * n_l * g_pad,
                max_abs_err_csums=f_err,
-               csums_rtol=CSUMS_RTOL if floats else None)
+               csums_rtol=CSUMS_RTOL if floats else None,
+               route=picked, routes_checked=routes,
+               repeats=FOLD_CHECK_REPEATS, ms_by_route=ms_routes,
+               launch_us=launch_breakdown(run))
 
     # K6: a top k per segment, [S, k]
     for case, pql in SSB_SELECT_PQLS.items():
@@ -1878,7 +1939,7 @@ def compact_kernel_check(seg, cases):
             for kind in {g[1] for g in gcols} & {"idoff", "idrank"}:
                 entries.setdefault(f"dense_group_aggregate[{kind}]", dict(
                     max_abs_err=err3, ms=ms3, plain_ms=plain3, bound=b3,
-                    library_ms=None, case=label))
+                    library_ms=None, case=label, **fold_keys(r3)))
         if not kmax:
             continue
         keys = [K.spec_group_key(g, cols, list(params), seg.device)
@@ -2029,14 +2090,27 @@ def compact_kernel_check(seg, cases):
                 n_raw += 1
         a15 = (gslot, t_slots, cap, parts_c, vals_c[:len(lanes.floats)],
                ext15)
-        got15, ref15 = K.slot_tables(*a15), K.slot_tables_plain(*a15)
-        int_ok = _equal(got15[0], ref15[0]) and _equal(got15[1], ref15[1]) \
-            and all(_equal(a, b) for a, b in zip(got15[3], ref15[3]))
-        f_err = float((got15[2] - ref15[2]).abs().max()) \
-            if got15[2].numel() else 0.0
-        f_ok = bool(((got15[2] - ref15[2]).abs() <= CSUMS_RTOL *
-                     ref15[2].abs().clamp_min(1.0)).all())
+        ref15 = K.slot_tables_plain(*a15)
         n_l = parts_c.shape[0]
+        routes15 = fold_routes("slot_tables", t_slots, n_l, len(lanes.floats),
+                               ext15, chunks=K._psums_chunks(
+                                   cap, K.DENSE_ROWS_LIMIT))
+
+        def run15(route=None):
+            return K.slot_tables(*a15, route=route)
+
+        def equal15(got, ref):
+            ints = _equal(got[0], ref[0]) and _equal(got[1], ref[1]) and \
+                all(_equal(a, b) for a, b in zip(got[3], ref[3]))
+            if not got[2].numel():
+                return ints, 0.0, True
+            diff = (got[2] - ref[2]).abs()
+            return ints, float(diff.max()), bool(
+                (diff <= CSUMS_RTOL * ref[2].abs().clamp_min(1.0)).all())
+
+        picked15, ms15_picked, ms15, int_ok, f_err, f_ok = fold_check(
+            "slot_tables", run15, ref15, routes15, equal15)
+        got15 = run15()
         in_bytes = cap * (4 + n_l + 8 * len(lanes.floats) +
                           sum(e[1].element_size() for e in ext15))
         out_bytes = t_slots * (4 + got15[1].element_size() * got15[1].numel()
@@ -2050,17 +2124,22 @@ def compact_kernel_check(seg, cases):
                                device=gslot.device).index_add_(
                 0, g, parts_c[0].int() if n_l else valid.int())
 
+        r15 = {"route": picked15, "ms_by_route": ms15,
+               "launch_us": launch_breakdown(run15)}
         e15 = dict(max_abs_err=f_err if int_ok else 1.0,
-                   ms=time_ms(lambda: K.slot_tables(*a15)),
+                   ms=ms15_picked,
                    plain_ms=time_ms(lambda: K.slot_tables_plain(*a15),
                                     reps=3),
                    bound=bound(in_bytes + out_bytes, cap * (1 + n_l)),
-                   library_ms=time_ms(library15), case=label)
+                   library_ms=time_ms(library15), case=label,
+                   **fold_keys(r15))
         emit({"phase": "group_compact_check", "case": label,
               "kernel": "slot_tables", "t_slots": t_slots, "cap": cap,
               "layout": "ranked" if ranked else "dense",
+              "valid_slots": int(valid.sum()),
               "ints_equal": int_ok, "csums_max_abs_err": f_err,
-              "csums_rtol": CSUMS_RTOL,
+              "csums_rtol": CSUMS_RTOL, "routes_checked": routes15,
+              "repeats": FOLD_CHECK_REPEATS,
               **{k: v for k, v in e15.items() if k != "bound"},
               "bound_ms": e15["bound"][0], "bound_by": e15["bound"][1]})
         if not int_ok or not f_ok:
@@ -4299,7 +4378,7 @@ def join_kernel_check(seg, raw_seg, j21, window_case):
               "case": f"j2.1 {name}", **r})
         entries[f"dense_group_aggregate[{name}]"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound=b,
-            library_ms=None, key_term_ms=r["key_term_ms"])
+            library_ms=None, key_term_ms=r["key_term_ms"], **fold_keys(r))
     # K12 as the join build: J2.1's dim keys (int32) with their codes
     keys_p, codes_p = ctx.padded_key_codes("p_brand1", np.int32)
     kt = torch.from_numpy(keys_p).to(device)
@@ -6037,13 +6116,22 @@ def main() -> int:
     ssb_paths = (ssb_launches, ssb_st_launches, ssb_gc_launches,
                  store_launches, synth_launches, ssb_batch_launches,
                  server_launches)
+    fold_nodes = [f"{k}[{r}]" for k in ("dense_group_aggregate",
+                                        "slot_tables") for r in FOLD_NODES]
     ssb_routes = {k: sum(p.get(k, 0) for p in ssb_paths) for k in (
         "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
         "filter_mask_batched[wide]", "filter_mask_batched[rows]",
-        "block_compact[warp]", "block_compact[block]")}
-    routes.update({k: ssb_routes[k] for k in ("filter_mask[wide]",
-                                              "filter_mask_batched[wide]",
-                                              "block_compact[warp]")})
+        "block_compact[warp]", "block_compact[block]", *fold_nodes)}
+    # K3's and K15's fold routes on each SSB path: the picked ones only
+    ssb_fold_routes = {
+        path: {k: v for k in fold_nodes if (v := launches.get(k, 0))}
+        for path, launches in zip(
+            ("per_segment", "stacked", "compacted", "cubes_segments",
+             "synthesized", "batch", "server"), ssb_paths)}
+    routes.update({k: ssb_routes[k] for k in (
+        "filter_mask[wide]", "filter_mask_batched[wide]",
+        "block_compact[warp]", "dense_group_aggregate[smem]",
+        "slot_tables[smem]")})
     # K10's route in the vector table's IVF training and sweep
     routes["ivf_assign[tensor]"] = vec_build_launches["ivf_assign[tensor]"]
     emit({"phase": "routes", "launches": routes,
@@ -6062,17 +6150,25 @@ def main() -> int:
           "ivf_assign_vec_data": {
               r: vec_build_launches[f"ivf_assign[{r}]"]
               for r in ("tensor", "simt")},
+          "ssb_fold_routes": ssb_fold_routes,
           "all_paths": {k: path_launches(k) for k in (
               "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
               "filter_mask_batched[wide]", "filter_mask_batched[rows]",
               "ivf_assign[tensor]", "ivf_assign[simt]",
-              "block_compact[warp]", "block_compact[block]")}})
+              "block_compact[warp]", "block_compact[block]",
+              *fold_nodes)}})
     missing = [k for k, v in routes.items() if not v]
     if missing:
         raise AssertionError(f"the main path never took {missing}")
     old_route = {k: v for k, v in ssb_routes.items()
                  if k in ("filter_mask[rows]", "filter_mask_batched[rows]",
                           "block_compact[block]") and v}
+    # every SSB path's dense K3 table fits one block: K3 there on smem only
+    k3_global = {path: n for path, launches in ssb_fold_routes.items()
+                 if (n := launches.get("dense_group_aggregate[global]"))}
+    if k3_global:
+        raise AssertionError(f"K3 off the smem route on SSB paths: "
+                             f"{k3_global}")
     if vec_build_launches["ivf_assign[simt]"]:
         old_route["ivf_assign[simt] (vec_data)"] = \
             vec_build_launches["ivf_assign[simt]"]
@@ -6111,7 +6207,8 @@ def main() -> int:
                          "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                          "bound_by": e["bound"][1],
                          "library_ms": e["library_ms"], "case": e["case"],
-                         **{k: e[k] for k in ("ms_block",) if k in e}})
+                         **{k: e[k] for k in ("ms_block",) + FOLD_KEYS
+                            if k in e}})
             continue
         if name in STAGE_KERNELS:
             e = stage_entries[name]
@@ -6163,7 +6260,7 @@ def main() -> int:
                      # K1's row route, re-timed beside the wide one; K10's
                      # simt route and Lloyd sample beside the tensor one
                      **{k: e[k] for k in (
-                         "ms_rows", "ms_simt", "bound_ms_simt",
+                         *FOLD_KEYS, "ms_rows", "ms_simt", "bound_ms_simt",
                          "bound_by_simt", "sample_ms", "sample_ms_simt",
                          "sample_bound_ms", "train_step_ms",
                          "sweep_chunk_rows", "sweep_chunk_ms", "rows",
@@ -6241,8 +6338,8 @@ def main() -> int:
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1],
                      "library_ms": e["library_ms"],
-                     **{k: e[k] for k in ("libraries_ms", "key_term_ms")
-                        if k in e}})
+                     **{k: e[k] for k in ("libraries_ms", "key_term_ms",
+                                          *FOLD_KEYS) if k in e}})
     # K3's adaptive remap keys, counted apart: every path's launches
     for remap, replaces in (("idoff", "pinot_tpu/ops/kernels.py:711"),
                             ("idrank", "pinot_tpu/ops/kernels.py:720")):
@@ -6254,7 +6351,7 @@ def main() -> int:
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                      "bound_by": e["bound"][1], "library_ms": None,
-                     "case": e["case"]})
+                     "case": e["case"], **{k: e[k] for k in FOLD_KEYS}})
     # K1's batched join_raw leaf, counted apart: the join_batch phase's
     # launches (raw-key join members in one execute_batch)
     e = join_batch_entry

@@ -148,6 +148,27 @@ __device__ __forceinline__ void atomic_extreme(int* addr, int v, bool is_min) {
   }
 }
 
+// Lets `kernel` launch with `smem` bytes of dynamic shared memory: its
+// limit is set to all the room a block may take (the opt-in memory less
+// the kernel's static shared memory), the same value from every thread,
+// so that concurrent launches of other sizes never race on it (a limit
+// set to one call's size can fall under another's launch between its set
+// and its launch: cudaErrorInvalidValue). Returns that error where `smem`
+// passes the room.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t smem) {
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes attr{};
+  const cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc != cudaSuccess) return rc;
+  const long long room = static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
+  if (static_cast<long long>(smem) > room) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(room));
+}
+
 inline int grid_for(long long rows) {
   int device = 0, sms = 132;
   cudaGetDevice(&device);

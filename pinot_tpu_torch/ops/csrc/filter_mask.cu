@@ -957,8 +957,7 @@ cudaError_t launch_wide(bool general, bool stacked, bool batched, const Lanes& l
                 : (stacked ? filter_wide_kernel<false, true, false>
                            : filter_wide_kernel<false, false, false>);
   if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t rc = pinot::allow_dynamic_smem(kernel, smem);
     if (rc != cudaSuccess) return rc;
   }
   kernel<<<pinot::grid_for(kernel, (padded + kWideRows - 1) / kWideRows, smem), pinot::kThreads,
@@ -1042,8 +1041,7 @@ cudaError_t launch_join_bitmap(const Lanes& lanes, const int* prog, long long pa
   const auto kernel = join_bitmap_kernel<T>;
   const size_t smem = static_cast<size_t>(smem_bytes);
   if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t rc = pinot::allow_dynamic_smem(kernel, smem);
     if (rc != cudaSuccess) return rc;
   }
   int device = 0, sms = 132, per_sm = 1;

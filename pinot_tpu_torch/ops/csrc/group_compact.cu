@@ -31,11 +31,15 @@
 // one; gslot >= t_slots drops the slot). Part sums are int32 and exact,
 // one table per `chunk_slots` slots of a segment's cap (JAX's
 // DENSE_ROWS_LIMIT macro-chunks, :1157-1167), or one int64 table over a
-// stack (`psums_wide`, 64-bit atomics); float64 sums use atomicAdd, in a
-// run-dependent order, so they are held to a tolerance; id min / max are
-// int32 atomics, raw ones compare-and-swap loops (atomic_extreme). Tables
-// of at most `smem_slots` slots that fit are folded per block in shared
-// memory and merged once per touched slot, as K3 does.
+// stack (`psums_wide`); float64 sums in a run-dependent order, held to a
+// tolerance; extremes equal. Two launches: slot_init_kernel writes the
+// device tables' starting values; slot_fold_kernel reads gslot 32
+// consecutive slots a warp, drops the invalid ones by predicate and folds
+// the valid ones (group_fold.cuh, which K3 shares) into a block's shared
+// table (`smem`) or the device tables (`global`). No list: where few of a
+// segment's slots are valid (most SSB tables), a list kernel, its counter
+// and one more dependent load cost more than the idle lanes; where a
+// quarter are (Q2.1), listing won by ~3 µs (PERF.md §6).
 //
 // K16: the ranked layout's dedup. For each valid slot, gslot is the rank
 // of its key among the distinct valid keys of its segment, ascending, and
@@ -55,12 +59,13 @@
 // The design keeps the row order with a scan and no sort, and reads a
 // row's lanes only when it takes a slot.
 
+#include "group_fold.cuh"
 #include "group_key.cuh"
 
 namespace {
 
 using pinot::KeyLanes;
-using pinot::atomic_extreme;
+namespace fold = pinot::fold;
 
 constexpr int kCBlock = 2048;          // ops/kernels.py:CBLOCK
 constexpr int kMaxParts = 16;
@@ -278,117 +283,53 @@ __global__ void __launch_bounds__(pinot::kThreads)
   }
 }
 
-enum ExtMode : int { kIdMin = 0, kIdMax = 1, kRawMin = 2, kRawMax = 3 };
-
-__host__ __device__ __forceinline__ bool is_raw(int mode) { return mode == kRawMin || mode == kRawMax; }
-
 struct SlotLanes {
   const int8_t* part[kMaxParts];
   const double* sum[kMaxVals];
   const void* ext[kMaxExt];    // int32 ids (id modes) or float64 values
-  int ext_mode[kMaxExt];
-  int ext_init[kMaxExt];       // id tables: the sentinel the table starts at
-  int ext_slot[kMaxExt];       // index among the id tables or the raw ones
-  void* ext_out[kMaxExt];      // int32 or float64 [t_slots]
 };
 
-__global__ void slot_tables_kernel(const int* __restrict__ gslot, long long n_slots,
-                                   long long cap, long long chunk_slots, SlotLanes lanes_p,
-                                   int n_parts, int n_sums, int n_ext, int n_raw, int t_slots,
-                                   int use_smem, int psums_wide, int* __restrict__ count,
-                                   void* __restrict__ psums_out, double* __restrict__ csums) {
-  int* const psums = psums_wide ? nullptr : static_cast<int*>(psums_out);
-  unsigned long long* const psums64 =
-      psums_wide ? static_cast<unsigned long long*>(psums_out) : nullptr;
-  extern __shared__ __align__(8) unsigned char smem[];
-  __shared__ SlotLanes lanes;
-  if (threadIdx.x == 0) lanes = lanes_p;
-  __syncthreads();
+struct SlotLoad {
+  const SlotLanes& r;
+  long long i;
+  __device__ int part(int l) const { return r.part[l][i]; }
+  __device__ double sum(int j) const { return r.sum[j][i]; }
+  __device__ int id(int e) const { return static_cast<const int*>(r.ext[e])[i]; }
+  __device__ double raw(int e) const { return static_cast<const double*>(r.ext[e])[i]; }
+};
 
-  int* t_count = count;
-  int* t_psums = psums;
-  double* t_csums = csums;
-  int* t_idext = nullptr;
-  double* t_rawext = nullptr;
-  if (use_smem) {   // one chunk, int32 part sums: the caller checked
-    double* d = reinterpret_cast<double*>(smem);
-    t_csums = d;
-    t_rawext = d + static_cast<long long>(n_sums) * t_slots;
-    int* i = reinterpret_cast<int*>(t_rawext + static_cast<long long>(n_raw) * t_slots);
-    t_count = i;
-    t_psums = i + t_slots;
-    t_idext = t_psums + static_cast<long long>(n_parts) * t_slots;
-    for (int s = threadIdx.x; s < t_slots; s += blockDim.x) {
-      t_count[s] = 0;
-      for (int l = 0; l < n_parts; ++l) t_psums[l * t_slots + s] = 0;
-      for (int j = 0; j < n_sums; ++j) t_csums[j * t_slots + s] = 0.0;
-      for (int e = 0; e < n_ext; ++e) {
-        const int m = lanes.ext_mode[e], at = lanes.ext_slot[e] * t_slots + s;
-        if (is_raw(m))
-          t_rawext[at] = m == kRawMin ? INFINITY : -INFINITY;
-        else
-          t_idext[at] = lanes.ext_init[e];
-      }
-    }
-    __syncthreads();
-  }
+// The device tables' starting values, the first of K15's two launches.
+__global__ void __launch_bounds__(pinot::kThreads)
+    slot_init_kernel(const __grid_constant__ fold::Tables t, int chunks) {
+  fold::init_tables(t, chunks);
+}
 
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n_slots;
-       i += step) {
-    const int g = gslot[i];
-    if (g < 0 || g >= t_slots) continue;              // the drop slot
-    atomicAdd(t_count + g, 1);
-    const long long chunk = (i % cap) / chunk_slots;   // 0 when use_smem
-    for (int l = 0; l < n_parts; ++l) {
-      const int p = lanes.part[l][i];
-      if (p == 0) continue;
-      if (psums64 && !use_smem)
-        atomicAdd(psums64 + static_cast<long long>(l) * t_slots + g,
-                  static_cast<unsigned long long>(p));
-      else
-        atomicAdd(t_psums + (chunk * n_parts + l) * t_slots + g, p);
-    }
-    for (int j = 0; j < n_sums; ++j)
-      atomicAdd(t_csums + static_cast<long long>(j) * t_slots + g, lanes.sum[j][i]);
-    for (int e = 0; e < n_ext; ++e) {
-      const int m = lanes.ext_mode[e];
-      const long long at = use_smem ? static_cast<long long>(lanes.ext_slot[e]) * t_slots + g : g;
-      if (is_raw(m))
-        atomic_extreme((use_smem ? t_rawext : static_cast<double*>(lanes.ext_out[e])) + at,
-                       static_cast<const double*>(lanes.ext[e])[i], m == kRawMin);
-      else
-        atomic_extreme((use_smem ? t_idext : static_cast<int*>(lanes.ext_out[e])) + at,
-                       static_cast<const int*>(lanes.ext[e])[i], m == kIdMin);
-    }
+// K15's fold: every slot, 32 consecutive ones a warp (one coalesced read
+// of gslot), the invalid ones (gslot outside [0, t_slots)) dropped by
+// predicate; each valid lane reads its part, sum and extreme lanes, then
+// the warp folds (group_fold.cuh). A warp with no valid slot issues no
+// more than its gslot read.
+__global__ void __launch_bounds__(fold::kFoldThreads, 2)
+    slot_fold_kernel(const int* __restrict__ gslot, long long n_slots, long long cap,
+                     long long chunk_slots, const __grid_constant__ SlotLanes lanes,
+                     const __grid_constant__ fold::Tables t, int route, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double scratch[fold::kWarps * 32];
+  const fold::Ctx c = fold::begin(t, route, S, smem, scratch);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool one_chunk = t.wide || chunk_slots >= cap;   // no 64-bit division a slot
+  const long long stride = static_cast<long long>(gridDim.x) * fold::kWarps * 32;
+  for (long long b0 = (static_cast<long long>(blockIdx.x) * fold::kWarps + warp) * 32;
+       b0 < n_slots; b0 += stride) {
+    const long long i = b0 + lane;
+    const int key = i < n_slots ? gslot[i] : -1;
+    const bool valid = key >= 0 && key < t.t_slots;
+    const SlotLoad ld{lanes, i};
+    const fold::Vals v = fold::load_vals(t, valid, ld);
+    const int chunk = valid && !one_chunk ? static_cast<int>((i % cap) / chunk_slots) : 0;
+    fold::warp_fold(t, c, valid, key, chunk, v, ld);
   }
-
-  if (use_smem) {   // merge the slots this block touched
-    __syncthreads();
-    for (int s = threadIdx.x; s < t_slots; s += blockDim.x) {
-      const int c = t_count[s];
-      if (c == 0) continue;
-      atomicAdd(count + s, c);
-      for (int l = 0; l < n_parts; ++l) {
-        const int p = t_psums[l * t_slots + s];
-        if (p == 0) continue;
-        if (psums64)
-          atomicAdd(psums64 + static_cast<long long>(l) * t_slots + s,
-                    static_cast<unsigned long long>(static_cast<unsigned>(p)));
-        else
-          atomicAdd(psums + static_cast<long long>(l) * t_slots + s, p);
-      }
-      for (int j = 0; j < n_sums; ++j)
-        atomicAdd(csums + static_cast<long long>(j) * t_slots + s, t_csums[j * t_slots + s]);
-      for (int e = 0; e < n_ext; ++e) {
-        const int m = lanes.ext_mode[e], at = lanes.ext_slot[e] * t_slots + s;
-        if (is_raw(m))
-          atomic_extreme(static_cast<double*>(lanes.ext_out[e]) + s, t_rawext[at], m == kRawMin);
-        else
-          atomic_extreme(static_cast<int*>(lanes.ext_out[e]) + s, t_idext[at], m == kIdMin);
-      }
-    }
-  }
+  fold::end(t, c);
 }
 
 // Block-wide exclusive int scan over kScanThreads threads; *total gets the
@@ -555,52 +496,57 @@ extern "C" int pinot_block_compact(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Route codes (ops/kernels.py:FOLD_ROUTES): 0 global, 1 smem.
+// `bound_items` > 0: a wide launch's shared int32 part sums, the slots a
+// block may fold at most (ops/kernels.py:FOLD_BOUND_ITEMS).
 extern "C" int pinot_slot_tables(
     const void* gslot, long long n_slots, long long cap, long long chunk_slots,
     const void* const* part_ptrs, int n_parts, const void* const* sum_ptrs, int n_sums,
     const void* const* ext_ptrs, const int* ext_modes, const int* ext_inits,
-    void* const* ext_outs, int n_ext, int t_slots, int smem_slots, int psums_wide, void* count,
-    void* psums, void* csums, void* stream) {
+    void* const* ext_outs, int n_ext, int t_slots, int route, long long bound_items,
+    int psums_wide, void* count, void* psums, void* csums, void* stream) {
   if (n_parts < 0 || n_parts > kMaxParts || n_sums < 0 || n_sums > kMaxVals || n_ext < 0 ||
-      n_ext > kMaxExt || t_slots < 1 || cap < 1 || chunk_slots < 1)
+      n_ext > kMaxExt || t_slots < 1 || cap < 1 || chunk_slots < 1 || route < fold::kGlobal ||
+      route > fold::kSmem || bound_items < 0)
     return -1;
   SlotLanes lanes{};
   for (int l = 0; l < n_parts; ++l) lanes.part[l] = static_cast<const int8_t*>(part_ptrs[l]);
   for (int j = 0; j < n_sums; ++j) lanes.sum[j] = static_cast<const double*>(sum_ptrs[j]);
-  int n_raw = 0;
-  for (int e = 0; e < n_ext; ++e) {
-    if (ext_modes[e] < kIdMin || ext_modes[e] > kRawMax) return -1;
-    lanes.ext[e] = ext_ptrs[e];
-    lanes.ext_mode[e] = ext_modes[e];
-    lanes.ext_init[e] = ext_inits[e];
-    lanes.ext_slot[e] = is_raw(ext_modes[e]) ? n_raw++ : e - n_raw;
-    lanes.ext_out[e] = ext_outs[e];
+  fold::Tables t{};
+  t.count = static_cast<int*>(count);
+  t.psums = psums_wide ? nullptr : static_cast<int*>(psums);
+  t.psums64 = psums_wide ? static_cast<unsigned long long*>(psums) : nullptr;
+  t.csums = static_cast<double*>(csums);
+  t.n_parts = n_parts;
+  t.n_sums = n_sums;
+  t.t_slots = t_slots;
+  t.wide = psums_wide;
+  if (!fold::set_ext(&t, n_ext, ext_modes, ext_inits, ext_outs)) return -1;
+  for (int e = 0; e < n_ext; ++e) lanes.ext[e] = ext_ptrs[e];
+  const long long chunks = psums_wide ? 1 : (cap + chunk_slots - 1) / chunk_slots;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the device tables' starting values, then the fold: on `smem` a
+  // block's shared table (one int32 chunk a slot's table: the sums of a
+  // segment's cap, or a stack's wide ones, which each block keeps below
+  // 2^31: at most bound_items plus its last pass of kFoldThreads slots)
+  fold::Shape sh;
+  if (route == fold::kSmem) {
+    if (chunks != 1 || (bound_items > 0 && fold::kFoldThreads > bound_items)) return -2;
+    sh = fold::shared_shape(slot_fold_kernel, t, n_slots, bound_items, n_slots / 32 + 1);
+    if (sh.ctas == 0) return -2;
+  } else {
+    sh.ctas = fold::global_ctas(slot_fold_kernel, n_slots / 32 + 1);
   }
-  // shared tables: float64 sums and raw extremes, then int32 count, part
-  // sums and id extremes; only for one chunk whose int32 sums stay exact
-  const long long table_bytes = static_cast<long long>(t_slots) *
-      (8LL * (n_sums + n_raw) + 4LL * (1 + n_parts + n_ext - n_raw));
-  int device = 0, optin = 0;
-  cudaFuncAttributes attr{};
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  cudaFuncGetAttributes(&attr, slot_tables_kernel);
-  const long long room = static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
-  const int use_smem = t_slots <= smem_slots && table_bytes <= room &&
-                       n_slots <= chunk_slots && 127LL * n_slots < (1LL << 31) ? 1 : 0;
-  const size_t smem = use_smem ? static_cast<size_t>(table_bytes) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        slot_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  const int grid = pinot::grid_for(slot_tables_kernel, n_slots, smem);
-  slot_tables_kernel<<<grid, pinot::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(gslot), n_slots, cap, chunk_slots, lanes, n_parts, n_sums, n_ext,
-      n_raw, t_slots, use_smem, psums_wide, static_cast<int*>(count), psums,
-      static_cast<double*>(csums));
+  slot_init_kernel<<<pinot::grid_for(slot_init_kernel, t_slots, 0), pinot::kThreads, 0, s>>>(
+      t, static_cast<int>(chunks));
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  slot_fold_kernel<<<sh.ctas, fold::kFoldThreads, sh.smem, s>>>(
+      static_cast<const int*>(gslot), n_slots, cap, chunk_slots, lanes, t, route, sh.S);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int pinot_slot_tables_caps(int* out) { return fold::caps(slot_fold_kernel, out); }
 
 // K16 by either route. The bitmap route (sk == nullptr): `bitmap`
 // (uint32 [S, words], zeroed) and `prefix` (int32 [S, words]) are the

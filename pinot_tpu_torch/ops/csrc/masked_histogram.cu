@@ -87,9 +87,7 @@ int launch(const void* mask, const void* ids, int elem, long long padded,
   const int use_smem = card_pad <= kMaxSmemBins ? 1 : 0;
   const size_t smem = use_smem ? static_cast<size_t>(card_pad) * sizeof(int) : 0;
   if (smem + sizeof(int) * 32 > 48 * 1024) {   // the static scratch counts too
-    const cudaError_t rc = cudaFuncSetAttribute(
-        masked_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t rc = pinot::allow_dynamic_smem(masked_histogram_kernel, smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   const int wave = pinot::grid_for(masked_histogram_kernel, padded, smem);

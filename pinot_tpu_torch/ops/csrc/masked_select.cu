@@ -992,8 +992,7 @@ int launch(const void* mask, long long seg_rows, int n_segs, int k, const void**
   if (rc != cudaSuccess) return static_cast<int>(rc);
   // the dynamic tile plus the static descriptors may pass the default 48 KB
   const size_t smem = static_cast<size_t>(tile) * width * sizeof(uint32_t);
-  rc = cudaFuncSetAttribute(
-      select_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  rc = pinot::allow_dynamic_smem(select_tile_kernel, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   uint32_t* src = static_cast<uint32_t*>(scratch);
   uint32_t* dst = src + list_words;

@@ -232,9 +232,7 @@ extern "C" int pinot_ssb_synth(const unsigned* keys, const unsigned* spans,
   a.padded = padded;
   const size_t smem = static_cast<size_t>(n_parts) * rev_card + n_ymn + n_nation;
   if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        ssb_synth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t rc = pinot::allow_dynamic_smem(ssb_synth_kernel, smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   const int grid = pinot::grid_for(ssb_synth_kernel, s_total * padded, smem);

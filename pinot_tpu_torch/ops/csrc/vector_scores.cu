@@ -97,8 +97,7 @@ cudaError_t launch_scores_batched(const float* mat, long long rows, const float*
   // past 48 KB with the static s_norms the launch needs the opt-in (3
   // queries of 4,096 floats are 48 KB of dynamic memory exactly)
   if (smem + M * sizeof(float) > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t rc = pinot::allow_dynamic_smem(kernel, smem);
     if (rc != cudaSuccess) return rc;
   }
   const long long per_warp = static_cast<long long>(32 / L) * rows_unroll<E>();

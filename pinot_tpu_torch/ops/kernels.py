@@ -272,7 +272,7 @@ _ARGTYPES = {
     "dense_group_aggregate": [
         _P, *_KEY_ARGTYPES, _PP, _I, _PP, _I,
         _PP, _IP, _IP, _IP, _PP, _I,
-        _LL, _I, _I, _I, _P, _P, _P, _P, _P],
+        _LL, _I, _I, _LL, _I, _P, _P, _P, _P, _P, _P],
     "masked_histogram": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
     "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P,
                       _P, _P],
@@ -291,7 +291,7 @@ _ARGTYPES.update({
     "block_compact": [_P, *_KEY_ARGTYPES, _PP, _I, _PP, _IP, _I, _PP, _IP,
                       _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "slot_tables": [_P, _LL, _LL, _LL, _PP, _I, _PP, _I, _PP, _IP, _IP, _PP,
-                    _I, _I, _I, _I, _P, _P, _P, _P],
+                    _I, _I, _I, _LL, _I, _P, _P, _P, _P],
     "rank_slots": [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 })
 _UIP = ctypes.POINTER(ctypes.c_uint)
@@ -332,6 +332,13 @@ KERNELS["filter_mask_batched"].node_launches.update(vdoc=0, join_raw=0,
 KERNELS["ivf_assign"].node_launches.update(tensor=0, simt=0)
 KERNELS["dense_group_aggregate"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0)
+#: the routes of K3 and K15's group-table fold (csrc/group_fold.cuh):
+#: "smem" (a block's table in shared memory), "global" (the device
+#: tables); fold_route picks by fit. Counted apart from K3's key kinds.
+FOLD_ROUTES = ("smem", "global")
+for _name in ("dense_group_aggregate", "slot_tables"):
+    KERNELS[_name].node_launches.update(
+        dict.fromkeys(FOLD_ROUTES, 0))
 KERNELS["block_compact"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0, warp=0, block=0)
 KERNELS["rank_slots"].node_launches["sort"] = 0
@@ -1341,11 +1348,122 @@ _MAX_FLOATS = 8
 _MAX_EXT = 16
 _EXT_MODES = {("ids", "min"): 0, ("ids", "max"): 1, ("raw", "min"): 2,
               ("raw", "max"): 3}
-#: K3 folds into per-block shared-memory tables up to this many slots
-#: (when they fit), into the device table above it. Set from chip_smoke's
-#: K3 cases timed with the tables forced on and off (PERF.md): on the H100
-#: on won at 32 and 256 slots, tied at 1024 and lost 2.6-3.8x at 8192.
-K3_SMEM_SLOTS = 256
+_FOLD_CODES = {"global": 0, "smem": 1}
+#: a wide launch's shared int32 part sums: the items (rows x W_total, or
+#: slots) a block folds at most before its last pass of FOLD_THREADS, half
+#: of 2^31 / 127, so that with that pass it stays inside the bound
+FOLD_BOUND_ITEMS = (INT32_MAX // 127) // 2
+#: threads a block of the fold kernels, the items of a block's pass
+#: (group_fold.cuh:kFoldThreads)
+FOLD_THREADS = 512
+#: {(kernel, device index): (shared bytes a block may take, SMs)}, asked
+#: of the card once
+_FOLD_CAPS: Dict[Tuple[str, int], Tuple[int, int]] = {}
+
+
+def fold_caps(name: str, device) -> Tuple[int, int]:
+    """(dynamic shared bytes a block of kernel `name`'s fold may take,
+    SMs), from the card."""
+    device = torch.device(device)
+    key = (name, device.index or 0)
+    if key not in _FOLD_CAPS:
+        from pinot_tpu_torch.ops import build
+        fn = getattr(build.load(KERNELS[name].source.rsplit("/", 1)[-1]),
+                     f"pinot_{name}_caps")
+        fn.argtypes = [_IP]
+        fn.restype = ctypes.c_int
+        out = (_I * 2)()
+        with torch.cuda.device(device):
+            rc = fn(out)
+        if rc != 0:
+            raise RuntimeError(f"{name}: fold caps failed (CUDA error {rc})")
+        _FOLD_CAPS[key] = (int(out[0]), int(out[1]))
+    return _FOLD_CAPS[key]
+
+
+def fold_slice_bytes(slots: int, n_parts: int, n_sums: int, n_id: int,
+                     n_raw: int) -> int:
+    """Shared bytes of a block's fold table of `slots` slots (rounded up to 32):
+    float64 sums and raw extremes, int32 count, part sums and id extremes
+    (group_fold.cuh:slice_bytes)."""
+    s = -(-slots // 32) * 32
+    return s * (8 * (n_sums + n_raw) + 4 * (1 + n_parts + n_id))
+
+
+def fold_route(t_slots: int, n_parts: int, n_sums: int, n_id: int,
+               n_raw: int, caps: Tuple[int, int], wide: bool = False,
+               w_total: int = 1, chunks: int = 1,
+               items: Optional[int] = None,
+               route: Optional[str] = None) -> str:
+    """The route of a group-table fold: "smem" where the table fits one
+    block's shared memory (`caps`: fold_caps), with one int32 part-sum
+    chunk, a wide launch's pass (FOLD_THREADS docs x W_total) inside
+    FOLD_BOUND_ITEMS, and `items` (the rows x W_total or slots the launch
+    reads) enough for a wave of blocks of a table's worth each (fewer, and
+    zeroing and merging their tables would outweigh the fold); else
+    "global". `route` forces one (ValueError where smem cannot take the
+    table; the items rule does not bind a forced smem)."""
+    room, sms = caps
+    size = fold_slice_bytes(t_slots, n_parts, n_sums, n_id, n_raw)
+    smem = chunks == 1 and size <= room and not (
+        wide and n_parts and FOLD_THREADS * w_total > FOLD_BOUND_ITEMS)
+    if route is None:
+        return "smem" if smem and (items is None or
+                                   items >= t_slots * sms) else "global"
+    if route == "global" or (route == "smem" and smem):
+        return route
+    raise ValueError(f"fold route {route!r} does not take {t_slots} slots "
+                     f"({size} bytes, room {room}, {chunks} chunks, wide "
+                     f"{wide})")
+
+
+def fold_bound(wide: bool, n_parts: int) -> int:
+    """The items a block of a shared-table fold may fold at most
+    (FOLD_BOUND_ITEMS where a wide launch's int32 part sums need it, else
+    0: no bound), as the C entry points take it."""
+    return FOLD_BOUND_ITEMS if wide and n_parts else 0
+
+
+def fold_layout(t_slots: int, psums_shape: Tuple[int, ...], wide: bool,
+                n_sums: int, ext_kinds: Sequence[str],
+                list_len: Optional[int] = None
+                ) -> List[Tuple[str, int, torch.dtype, Tuple[int, ...]]]:
+    """The tables a fold writes, as (name, first int64 word, dtype, shape)
+    of one buffer: count int32 [T], psums (int64 when wide, else int32)
+    `psums_shape`, csums float64 [J, T], one int32 (ids) or float64 (raw)
+    [T] table per extreme, and with `list_len` (K3) the list's length
+    (the matched docs, int32) and the list of matched rows, int32
+    [list_len]; each starts on an 8-byte word."""
+    regions = [("count", torch.int32, (t_slots,)),
+               ("psums", torch.int64 if wide else torch.int32, psums_shape),
+               ("csums", torch.float64, (n_sums, t_slots))]
+    regions += [(f"ext{e}", torch.int32 if kind == "ids" else torch.float64,
+                 (t_slots,)) for e, kind in enumerate(ext_kinds)]
+    if list_len is not None:
+        regions += [("matched", torch.int32, ()),
+                    ("list", torch.int32, (list_len,))]
+    out, at = [], 0
+    for name, dtype, shape in regions:
+        out.append((name, at, dtype, shape))
+        nbytes = int(np.prod(shape, dtype=np.int64)) * \
+            torch.empty((), dtype=dtype).element_size()
+        at += -(-nbytes // 8)
+    out.append(("end", at, torch.int64, ()))
+    return out
+
+
+def _fold_tables(device, layout) -> Dict[str, torch.Tensor]:
+    """One uninitialised int64 buffer (the kernel's first launch writes
+    the tables' starting values) and the views fold_layout places in
+    it."""
+    buf = torch.empty(max(layout[-1][1], 1), dtype=torch.int64,
+                      device=device)
+    views = {}
+    for (name, at, dtype, shape), (_n, nxt, _d, _s) in zip(layout,
+                                                            layout[1:]):
+        n = int(np.prod(shape, dtype=np.int64))
+        views[name] = buf[at:nxt].view(dtype)[:n].view(shape)
+    return views
 
 
 def _ext_init(kind: str, which: str, card_pad: int):
@@ -1479,7 +1597,7 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
                           part_lanes: Sequence[torch.Tensor] = (),
                           float_lanes: Sequence[torch.Tensor] = (),
                           extremes: Sequence[tuple] = (),
-                          smem_slots: int = K3_SMEM_SLOTS,
+                          route: Optional[str] = None,
                           psums_wide: bool = False,
                           chunk_psums: bool = False):
     """Dense group table over key = clip(Σ term_c · stride_c, 0, g_pad-1).
@@ -1489,8 +1607,9 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     their entries. `extremes`: ((kind, lane, which, card_pad), ...), kind
     "ids" (an id lane, int32 table starting at card_pad for min / -1 for
     max) or "raw" (an int32/int64/float32/float64 lane, float64 table
-    starting at ±inf), which ∈ {"min", "max"}. `smem_slots`: the largest
-    g_pad the kernel folds in shared memory (0: never).
+    starting at ±inf), which ∈ {"min", "max"}. On the card `route`
+    forces one of FOLD_ROUTES; None takes fold_route's choice. A launch
+    counts under dense_group_aggregate[<route>].
 
     Returns (count int32 [g_pad], psums int32 [L, g_pad], csums float64
     [J, g_pad], matched int32 scalar (docs, once each), [one table per
@@ -1531,25 +1650,25 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
     if w_total > MAX_DOC_COMBOS:
         raise ValueError(f"{w_total} MV entry combinations per doc > "
                          f"{MAX_DOC_COMBOS}: int32 group tables overflow")
+    if route not in (None,) + FOLD_ROUTES:
+        raise ValueError(f"K3 route {route!r}: one of {FOLD_ROUTES} or None")
     step = k3_rows_per_launch(w_total, psums_wide)
     if padded > step:
         return _k3_slices(mask, keys, strides, g_pad, rows, float_lanes,
-                          extremes, smem_slots, step, psums_wide,
-                          chunk_psums)
+                          extremes, route, step, psums_wide, chunk_psums)
     if device.type == "cpu":
         return dense_group_aggregate_plain(mask, keys, strides, g_pad,
                                            part_lanes, float_lanes,
                                            extremes, psums_wide)
-    count = torch.zeros(g_pad, dtype=torch.int32, device=device)
-    psums = torch.zeros(len(rows), g_pad, dtype=torch.int64 if psums_wide
-                        else torch.int32, device=device)
-    csums = torch.zeros(len(float_lanes), g_pad, dtype=torch.float64,
-                        device=device)
-    matched = torch.zeros((), dtype=torch.int32, device=device)
-    ext_tables = [torch.full((g_pad,), _ext_init(kind, which, cp),
-                             dtype=torch.int32 if kind == "ids"
-                             else torch.float64, device=device)
-                  for kind, _lane, which, cp in extremes]
+    n_raw = sum(e[0] == "raw" for e in extremes)
+    route = fold_route(
+        g_pad, len(rows), len(float_lanes), len(extremes) - n_raw, n_raw,
+        fold_caps("dense_group_aggregate", device), psums_wide, w_total,
+        items=padded * w_total, route=route)
+    t = _fold_tables(device, fold_layout(
+        g_pad, (len(rows), g_pad), psums_wide, len(float_lanes),
+        [e[0] for e in extremes], padded))
+    ext_tables = [t[f"ext{e}"] for e in range(len(extremes))]
     _launch("dense_group_aggregate", device, mask.data_ptr(),
             *_key_args(keys, strides), _ptrs(rows), len(rows),
             _ptrs(float_lanes), len(float_lanes),
@@ -1559,10 +1678,13 @@ def dense_group_aggregate(mask: torch.Tensor, key_lanes: Sequence,
             _ints([_ext_init(e[0], e[2], e[3]) if e[0] == "ids" else 0
                    for e in extremes]),
             _ptrs(ext_tables), len(extremes), padded, int(g_pad),
-            int(smem_slots), int(psums_wide), count.data_ptr(),
-            psums.data_ptr(), csums.data_ptr(), matched.data_ptr())
+            _FOLD_CODES[route], fold_bound(psums_wide, len(rows)),
+            int(psums_wide), t["count"].data_ptr(), t["psums"].data_ptr(),
+            t["csums"].data_ptr(), t["matched"].data_ptr(),
+            t["list"].data_ptr())
     _count_key_nodes("dense_group_aggregate", keys)
-    return count, psums, csums, matched, ext_tables
+    _count_node("dense_group_aggregate", route)
+    return t["count"], t["psums"], t["csums"], t["matched"], ext_tables
 
 
 def _ptrs_or_null(ts):
@@ -1594,7 +1716,7 @@ def _count_key_nodes(name: str, keys: Sequence[GroupKey]) -> None:
 
 
 def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
-               smem_slots, step, psums_wide=False, chunk_psums=False):
+               route, step, psums_wide=False, chunk_psums=False):
     """K3 over row slices of `step` rows, the slices' tables added
     (counts and part sums in int64, min / max tables by min / max), or
     with `chunk_psums` the part sums stacked [C, L, g_pad]."""
@@ -1607,7 +1729,7 @@ def _k3_slices(mask, keys, strides, g_pad, rows, float_lanes, extremes,
             [r[s:e].unsqueeze(0) for r in rows],
             [f[s:e] for f in float_lanes],
             [(kind, lane[s:e], which, cp)
-             for kind, lane, which, cp in extremes], smem_slots,
+             for kind, lane, which, cp in extremes], route,
             psums_wide))
     count = sum(o[0].to(torch.int64) for o in outs)
     psums = torch.stack([o[1] for o in outs]) if chunk_psums else \
@@ -1856,7 +1978,7 @@ def slot_tables(gslot: torch.Tensor, t_slots: int, cap: int,
                 parts: torch.Tensor, sums: torch.Tensor,
                 extremes: Sequence[tuple] = (),
                 chunk_slots: Optional[int] = None, psums_wide: bool = False,
-                smem_slots: int = K3_SMEM_SLOTS):
+                route: Optional[str] = None):
     """K15: tables over compacted slots. `gslot` int32 [n] addresses a
     table slot (gslot >= t_slots drops it); `cap` is a segment's slots
     (n a multiple of it); `parts` int8 [L, n] and `sums` float64 [J, n]
@@ -1869,7 +1991,9 @@ def slot_tables(gslot: torch.Tensor, t_slots: int, cap: int,
     [one table per extreme]): psums int32 [C, L, t_slots], one table per
     `chunk_slots` (DENSE_ROWS_LIMIT) slots of each segment's cap, so that
     each stays exact, or with `psums_wide` (a stack's dense table) int64
-    [L, t_slots]."""
+    [L, t_slots]. On the card `route` forces one of FOLD_ROUTES; None
+    takes fold_route's choice. A launch counts under
+    slot_tables[<route>]."""
     n, device = gslot.shape[0], gslot.device
     chunk_slots = DENSE_ROWS_LIMIT if chunk_slots is None else chunk_slots
     _check_lane(gslot, "gslot", n, device, (torch.int32,))
@@ -1890,31 +2014,34 @@ def slot_tables(gslot: torch.Tensor, t_slots: int, cap: int,
         raise ValueError(f"{parts.shape[0]} part / {sums.shape[0]} sum / "
                          f"{len(extremes)} extreme lanes, t_slots {t_slots}, "
                          f"cap {cap} of {n} slots")
+    if route not in (None,) + FOLD_ROUTES:
+        raise ValueError(f"K15 route {route!r}: one of {FOLD_ROUTES} or None")
     if device.type == "cpu":
         return slot_tables_plain(gslot, t_slots, cap, parts, sums, extremes,
                                  chunk_slots, psums_wide)
     n_parts = parts.shape[0]
-    count = torch.zeros(t_slots, dtype=torch.int32, device=device)
-    psums = torch.zeros((n_parts, t_slots) if psums_wide else
-                        (_psums_chunks(cap, chunk_slots), n_parts, t_slots),
-                        dtype=torch.int64 if psums_wide else torch.int32,
-                        device=device)
-    csums = torch.zeros(sums.shape[0], t_slots, dtype=torch.float64,
-                        device=device)
-    tables = [torch.full((t_slots,), init if kind == "ids" else
-                         _ext_init(kind, which, 0),
-                         dtype=torch.int32 if kind == "ids"
-                         else torch.float64, device=device)
-              for kind, _lane, which, init in extremes]
+    chunks = 1 if psums_wide else _psums_chunks(cap, chunk_slots)
+    n_raw = sum(e[0] == "raw" for e in extremes)
+    route = fold_route(
+        t_slots, n_parts, sums.shape[0], len(extremes) - n_raw, n_raw,
+        fold_caps("slot_tables", device), psums_wide, chunks=chunks,
+        items=n, route=route)
+    t = _fold_tables(device, fold_layout(
+        t_slots, (n_parts, t_slots) if psums_wide else
+        (chunks, n_parts, t_slots), psums_wide, sums.shape[0],
+        [e[0] for e in extremes]))
+    tables = [t[f"ext{e}"] for e in range(len(extremes))]
     _launch("slot_tables", device, gslot.data_ptr(), n, int(cap),
             int(chunk_slots), _ptrs(list(parts)), n_parts, _ptrs(list(sums)),
             sums.shape[0], _ptrs([e[1] for e in extremes]),
             _ints([_EXT_MODES[(e[0], e[2])] for e in extremes]),
             _ints([e[3] if e[0] == "ids" else 0 for e in extremes]),
-            _ptrs(tables), len(extremes), int(t_slots), int(smem_slots),
-            int(psums_wide), count.data_ptr(), psums.data_ptr(),
-            csums.data_ptr())
-    return count, psums, csums, tables
+            _ptrs(tables), len(extremes), int(t_slots), _FOLD_CODES[route],
+            fold_bound(psums_wide, n_parts), int(psums_wide),
+            t["count"].data_ptr(), t["psums"].data_ptr(),
+            t["csums"].data_ptr())
+    _count_node("slot_tables", route)
+    return t["count"], t["psums"], t["csums"], tables
 
 
 def slot_tables_plain(gslot, t_slots: int, cap: int, parts, sums,

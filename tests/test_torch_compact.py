@@ -871,6 +871,41 @@ def test_compact_route_picks_warp_for_single_value_keys():
     assert tk.compact_route(unaligned, [ids], 64) == "block"
 
 
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("t_slots", [32, 256, 512, 8192])
+def test_slot_tables_plain_matches_jax_by_table_size(t_slots, hot):
+    """K15's plain version against JAX's _slot_sum_tables at every table
+    size the fold's routes cover (one hot slot, or spread, with dropped
+    slots): counts and part sums equal, float sums within rtol 1e-12; its
+    min / max against numpy's."""
+    rng = np.random.default_rng(t_slots + hot)
+    n = 12_288
+    gslot = rng.integers(0, t_slots + 1, n).astype(np.int32)  # t_slots: drop
+    if hot:
+        gslot[rng.random(n) < 0.8] = t_slots - 1
+    parts = rng.integers(0, 128, (2, n)).astype(np.int8)
+    vals = rng.random((1, n)) * 1e3
+    ids = rng.integers(0, 50, n).astype(np.int32)
+    ti, tf, tc = jk._slot_sum_tables(
+        jnp.asarray(gslot), t_slots, jnp.asarray(parts.T.astype(np.int32)),
+        jnp.asarray(vals.T), jnp.asarray(gslot < t_slots))
+    count, psums, csums, (idmin, rawmax) = tk.slot_tables_plain(
+        torch.from_numpy(gslot), t_slots, n, torch.from_numpy(parts),
+        torch.from_numpy(vals),
+        (("ids", torch.from_numpy(ids), "min", 64),
+         ("raw", torch.from_numpy(vals[0]), "max", 0)))
+    np.testing.assert_array_equal(count.numpy(), np.asarray(tc))
+    np.testing.assert_array_equal(psums[0].numpy(), np.asarray(ti))
+    np.testing.assert_allclose(csums.numpy(), np.asarray(tf), rtol=1e-12)
+    ok = gslot < t_slots
+    want_min = np.full(t_slots, 64, np.int32)
+    np.minimum.at(want_min, gslot[ok], ids[ok])
+    want_max = np.full(t_slots, -np.inf)
+    np.maximum.at(want_max, gslot[ok], vals[0][ok])
+    np.testing.assert_array_equal(idmin.numpy(), want_min)
+    np.testing.assert_array_equal(rawmax.numpy(), want_max)
+
+
 # ---------------------------------------------------------------------------
 # On the card: K14, K15, K16 and K3's remap keys against their plain versions
 # ---------------------------------------------------------------------------
@@ -951,6 +986,90 @@ def test_slot_tables_cuda_chunks_match_plain(cuda_device, wide):
     torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-9, atol=0)
     for g, w in zip(got[3], want[3]):
         assert torch.equal(g.cpu(), w)
+
+
+#: K15 launches a case takes on each route: a race in a fold shows only
+#: as a wrong bit
+FOLD_REPEATS = 20
+#: (slots, t_slots, cap, hot share, psums_wide, chunk_slots, offset) of
+#: the K15 fold cases: Q2.1's dense 512-slot table, one hot slot, a table
+#: past one block's shared memory (the device route), a stack's int64
+#: sums, several int32 chunks (the device route) and a gslot that starts
+#: off a 16-byte boundary (scalar reads)
+SLOT_FOLD_CASES = {
+    "dense512": (234_496, 512, 234_496, 0.0, False, None, 0),
+    "hot": (65_536, 512, 65_536, 1.0, False, None, 0),
+    "past_one_block": (65_536, 40_000, 65_536, 0.0, False, None, 0),
+    "wide": (3 * 65_536, 512, 65_536, 0.2, True, None, 0),
+    "chunks": (3 * 4096, 300, 4096, 0.2, False, 1024, 0),
+    "unaligned": (10_001, 256, 10_001, 0.1, False, None, 1),
+}
+
+
+def _slot_fold_case(name, device):
+    n, t, cap, hot, wide, chunk, off = SLOT_FOLD_CASES[name]
+    rng = np.random.default_rng(len(name))
+    g = rng.integers(0, t + t // 2, n).astype(np.int32)   # past t: dropped
+    g[rng.random(n) < hot] = 7
+    g[rng.random(n) < 0.05] = -1
+    gslot = torch.from_numpy(np.concatenate([np.zeros(off, np.int32), g]))
+    gslot = gslot.to(device)[off:]
+    parts = torch.from_numpy(rng.integers(0, 128, (2, n)).astype(np.int8))
+    sums = torch.from_numpy(rng.random((1, n)) * 1e6)
+    ids = torch.from_numpy(rng.integers(0, 50, n).astype(np.int32))
+    raw = rng.random(n)
+    raw[rng.integers(0, n, 2)] = np.nan
+    raw = torch.from_numpy(raw)
+    parts, sums, ids, raw = (x.to(device) for x in (parts, sums, ids, raw))
+    ext = (("ids", ids, "min", 64), ("ids", ids, "max", -1),
+           ("raw", raw, "max", 0), ("raw", raw, "min", 0))
+    return (gslot, t, cap, parts, sums, ext, chunk, wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SLOT_FOLD_CASES))
+def test_slot_tables_cuda_routes_match_plain(cuda_device, name):
+    """K15 on the route it picks and on every route forced that takes the
+    table, FOLD_REPEATS launches each, against its plain version: counts,
+    part sums and extremes bit for bit (the slots a NaN lands in NaN),
+    float sums within rtol 1e-9."""
+    args = _slot_fold_case(name, cuda_device)
+    gslot, t, cap, parts, sums, ext, chunk, wide = args
+    want = tk.slot_tables_plain(*args)
+    valid = (gslot >= 0) & (gslot < t)
+    nan = []
+    for kind, lane, _w, _i in ext:
+        n = torch.zeros(t, dtype=torch.bool, device=cuda_device)
+        if kind == "raw":
+            n[gslot[valid & torch.isnan(lane)].long()] = True
+        nan.append(n)
+    chunks = 1 if wide else -(-cap // (chunk or tk.DENSE_ROWS_LIMIT))
+    caps = tk.fold_caps("slot_tables", cuda_device)
+    routes = []
+    for route in tk.FOLD_ROUTES:
+        try:
+            tk.fold_route(t, 2, 1, 2, 2, caps, wide, chunks=chunks,
+                          route=route)
+        except ValueError:
+            continue
+        routes.append(route)
+    if name == "past_one_block":
+        assert routes == ["global"]
+    tk.reset_launch_counts()
+    for route in (None, *routes):
+        for _ in range(FOLD_REPEATS):
+            got = tk.slot_tables(*args, route=route)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), route
+            assert torch.equal(got[1], want[1]), route
+            torch.testing.assert_close(got[2], want[2], rtol=1e-9, atol=0)
+            for a, b, n in zip(got[3], want[3], nan):
+                assert torch.equal(torch.isnan(a) if a.is_floating_point()
+                                   else torch.zeros_like(n), n), route
+                assert torch.equal(a[~n], b[~n]), route
+    counts = tk.launch_counts()
+    for route in routes:
+        assert counts[f"slot_tables[{route}]"] >= FOLD_REPEATS
 
 
 @pytest.mark.cuda

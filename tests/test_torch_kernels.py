@@ -992,6 +992,29 @@ def test_filter_mask_stacked_cuda_routes_match_single(cuda_device, name,
     assert torch.equal(single, want)
 
 
+#: K3 / K15 launches a case takes on each route: a race in a fold shows
+#: only as a wrong bit
+FOLD_REPEATS = 20
+
+
+def _fold_routes(t_slots, parts, floats, ext, device, wide=False, w_total=1,
+                 chunks=1):
+    """The fold routes that take a table of these lanes on `device`
+    (fold_route's forced choice)."""
+    n_raw = sum(e[0] == "raw" for e in ext)
+    caps = tk.fold_caps("dense_group_aggregate", device)
+    out = []
+    for route in tk.FOLD_ROUTES:
+        try:
+            tk.fold_route(t_slots, len(tk._part_rows(parts)), len(floats),
+                          len(ext) - n_raw, n_raw, caps, wide, w_total,
+                          chunks, route=route)
+        except ValueError:
+            continue
+        out.append(route)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_pad", sorted(GROUPS))
 def test_sums_cuda_match_plain(cuda_device, g_pad):
@@ -1010,16 +1033,18 @@ def test_sums_cuda_match_plain(cuda_device, g_pad):
            ("raw", cols["ri64.raw"], "max", 0))
     want = tk.dense_group_aggregate_plain(mask, keys, strides, g_pad, parts,
                                           [cols["x.raw"]], ext)
-    # shared-memory tables never, as the wrapper chooses, and wherever
-    # they fit
-    for smem_slots in (0, tk.K3_SMEM_SLOTS, tk.INT32_MAX):
-        got = tk.dense_group_aggregate(mask, keys, strides, g_pad, parts,
-                                       [cols["x.raw"]], ext,
-                                       smem_slots=smem_slots)
-        for a, b in ((got[0], want[0]), (got[1], want[1]),
-                     (got[3], want[3]), *zip(got[4], want[4])):
-            assert torch.equal(a, b), smem_slots
-        torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+    # the route the wrapper picks, and every route forced that takes the
+    # table, FOLD_REPEATS launches each
+    for route in (None, *_fold_routes(g_pad, parts, [cols["x.raw"]], ext,
+                                      cuda_device)):
+        for _ in range(FOLD_REPEATS):
+            got = tk.dense_group_aggregate(mask, keys, strides, g_pad, parts,
+                                           [cols["x.raw"]], ext, route=route)
+            torch.cuda.synchronize()
+            for a, b in ((got[0], want[0]), (got[1], want[1]),
+                         (got[3], want[3]), *zip(got[4], want[4])):
+                assert torch.equal(a, b), route
+            torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
 
 
 @pytest.mark.cuda
@@ -1110,6 +1135,173 @@ def key_case(name: str, seed: int = 0):
             jk.pow2_bucket(int(np.prod(cards))), KEY_AGGS, 0), members
 
 
+#: K3's table sizes around the fold's routes (one block's shared table
+#: past the old 256-slot limit, the device's); a g_pad below
+#: the keys' range clips them into the last slot, a hot slot
+FOLD_G_PADS = (32, 256, 512, 8192)
+#: key columns of each kind K3 takes; the remaps and the join code carry
+#: their runtime operand (fold_key_case)
+FOLD_KEY_CASES = dict(
+    KEY_CASES, ids=(("g7", "ids", 0, 7), ("b", "ids", 0, 1000)),
+    idoff=(("b", "idoff", 0, 1000),), idrank=(("a", "idrank", 0, 50),),
+    jcode=(("b", "jcode", 0, 1000), ("g3", "ids", 0, 3)))
+
+
+def fold_key_case(name: str, g_pad: int, seed: int = 0):
+    """(group spec at `g_pad`, its runtime operands in key order)."""
+    from pinot_tpu.query.plan import mixed_radix_strides
+    gcols = FOLD_KEY_CASES[name]
+    rng = np.random.default_rng(seed)
+    params = []
+    for i, (_c, kind, _off, card) in enumerate(gcols):
+        if kind == "mvin":
+            params.append(_member(card, seed + i))
+        elif kind == "idoff":
+            params.append(np.int32(100))
+        elif kind in ("idrank", "jcode"):
+            params.append(rng.integers(0, 300, jk.pow2_bucket(card))
+                          .astype(np.int32))
+    return (gcols, mixed_radix_strides([g[3] for g in gcols]), g_pad,
+            KEY_AGGS, 0), params
+
+
+@pytest.mark.parametrize("g_pad", FOLD_G_PADS)
+@pytest.mark.parametrize("case", sorted(FOLD_KEY_CASES))
+def test_k3_plain_matches_jax_by_table_size(case, g_pad):
+    """K3's plain version against JAX's dense group tables at every table
+    size the fold's routes cover, every key kind: counts, part sums and
+    extremes equal, float sums within rtol 1e-12."""
+    P, num_docs = SHAPES[0], SHAPES[0] - 777
+    spec, params = FILTERS["nested"]
+    cols = _key_lanes(P, num_docs, seed=g_pad + len(case))
+    group, extra = fold_key_case(case, g_pad, seed=len(case))
+    want = _jax_outs(P, spec, list(params) + extra, (), group, cols,
+                     num_docs)
+    got = tk.run_segment_kernel(P, spec, (), group, None, _torch_cols(cols),
+                                params, num_docs, "cpu", list(extra))
+    assert set(got) == set(want)
+    for k in want:
+        if k.endswith(".csums"):
+            np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-12,
+                                       atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k].numpy(), want[k],
+                                          err_msg=k)
+
+
+#: fold_caps of an H100 (227 KB a block less the kernel's static shared
+#: memory, 132 SMs)
+H100_CAPS = (232_448 - 10_752, 132)
+
+
+@pytest.mark.parametrize("t_slots,lanes,caps,kw,want", [
+    # Q2.1's table (3 part lanes): one block's shared memory
+    (8192, (3, 0, 0, 0), H100_CAPS, {}, "smem"),
+    # K15's 512 slots with sums and extremes
+    (512, (2, 1, 1, 1), H100_CAPS, {}, "smem"),
+    # past one block's shared memory: the device tables
+    (16384, (3, 1, 0, 0), H100_CAPS, {}, "global"),
+    (65536, (3, 1, 0, 0), H100_CAPS, {}, "global"),
+    (131072, (3, 0, 0, 0), H100_CAPS, {}, "global"),
+    # a card whose blocks take 48 KB: Q2.1's 128 KB table does not fit
+    (8192, (3, 0, 0, 0), (48 * 1024, 132), {}, "global"),
+    # Q3.2's 524,288 slots, Q4.3's 2M
+    (524288, (3, 0, 0, 0), H100_CAPS, {}, "global"),
+    (2097152, (3, 1, 0, 0), H100_CAPS, {}, "global"),
+    # several int32 part-sum chunks, or a wide launch whose pass of 512
+    # docs x W_total could pass the int32 bound of a block's shared sums
+    (512, (2, 0, 0, 0), H100_CAPS, {"chunks": 2}, "global"),
+    (512, (2, 0, 0, 0), H100_CAPS, {"wide": True, "w_total": 8}, "smem"),
+    (512, (2, 0, 0, 0), H100_CAPS, {"wide": True, "w_total": 1 << 15},
+     "global"),
+    (512, (0, 1, 0, 0), H100_CAPS, {"wide": True, "w_total": 1 << 15},
+     "smem"),
+    # too few items read for a wave of blocks of a table's worth each:
+    # zeroing and merging would outweigh the fold
+    (8192, (3, 0, 0, 0), H100_CAPS, {"items": 7_503_872}, "smem"),
+    (8192, (3, 0, 0, 0), H100_CAPS, {"items": 8192 * 131}, "global"),
+    (8192, (3, 0, 0, 0), H100_CAPS, {"items": 8192 * 8}, "global"),
+    (19584, (2, 1, 1, 1), H100_CAPS, {"items": 19584}, "global"),
+    (8192, (3, 0, 0, 0), H100_CAPS, {"items": 8192 * 132}, "smem"),
+    # forced routes take the table whatever the items
+    (512, (2, 0, 0, 0), H100_CAPS, {"route": "smem", "items": 1}, "smem"),
+    (512, (2, 0, 0, 0), H100_CAPS, {"route": "cluster"}, ValueError),
+    (512, (2, 0, 0, 0), H100_CAPS, {"route": "global"}, "global"),
+    (512, (2, 0, 0, 0), H100_CAPS, {"route": "legacy"}, ValueError),
+    (65536, (3, 1, 0, 0), H100_CAPS, {"route": "smem"}, ValueError),
+    (524288, (3, 0, 0, 0), H100_CAPS, {"route": "global"}, "global"),
+    (512, (2, 0, 0, 0), H100_CAPS, {"route": "smem", "chunks": 3},
+     ValueError),
+])
+def test_fold_route_picks_by_fit(t_slots, lanes, caps, kw, want):
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            tk.fold_route(t_slots, *lanes, caps, **kw)
+        return
+    assert tk.fold_route(t_slots, *lanes, caps, **kw) == want
+
+
+def test_fold_slice_bytes_is_the_kernels_layout():
+    # float64 sums and raw extremes, int32 count / parts / id extremes;
+    # slots rounded up to 32
+    assert tk.fold_slice_bytes(512, 3, 0, 0, 0) == 512 * 16
+    assert tk.fold_slice_bytes(100, 2, 1, 1, 1) == 128 * (16 + 16)
+    assert tk.fold_slice_bytes(1, 0, 0, 0, 0) == 32 * 4
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("with_list", [False, True])
+def test_fold_tables_are_views_of_one_buffer(wide, with_list):
+    T, L, J = 1000, 3, 2
+    kinds = ["ids", "raw", "ids"]
+    psums_shape = (L, T) if wide else (2, L, T)
+    layout = tk.fold_layout(T, psums_shape, wide, J, kinds,
+                            4097 if with_list else None)
+    scratch = ["matched", "list"] if with_list else []
+    names = [r[0] for r in layout]
+    assert names == ["count", "psums", "csums", "ext0", "ext1", "ext2",
+                     *scratch, "end"]
+    t = tk._fold_tables("cpu", layout)
+    want = {"count": (torch.int32, (T,)),
+            "psums": (torch.int64 if wide else torch.int32, psums_shape),
+            "csums": (torch.float64, (J, T)),
+            "ext0": (torch.int32, (T,)), "ext1": (torch.float64, (T,)),
+            "ext2": (torch.int32, (T,))}
+    if with_list:
+        want.update(matched=(torch.int32, ()), list=(torch.int32, (4097,)))
+    assert {k: (v.dtype, tuple(v.shape)) for k, v in t.items()} == want
+    # one storage, every view on an 8-byte word, no two overlapping
+    storage = {v.untyped_storage().data_ptr() for v in t.values()}
+    assert len(storage) == 1
+    spans = sorted((v.data_ptr(), v.data_ptr() + v.numel() *
+                    v.element_size()) for v in t.values())
+    assert all(a % 8 == 0 for a, _ in spans)
+    assert all(b <= c for (_, b), (c, _) in zip(spans, spans[1:]))
+    for i, v in enumerate(t.values()):
+        v.fill_(i + 1)
+    for i, v in enumerate(t.values()):
+        assert bool((v == i + 1).all())
+
+
+def test_fold_wrappers_reject_bad_routes():
+    P = 8192
+    cols = _torch_cols(_lanes(P, P, seed=0))
+    mask = tk.filter_mask(P, ("match_all",), cols, [], P, "cpu")
+    with pytest.raises(ValueError):
+        tk.dense_group_aggregate(mask, [cols["a.ids"]], [1], 64,
+                                 route="shared")
+    gslot = torch.zeros(64, dtype=torch.int32)
+    parts = torch.zeros(1, 64, dtype=torch.int8)
+    sums = torch.zeros(0, 64, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tk.slot_tables(gslot, 8, 64, parts, sums, route="smem_slots")
+    # the routes a forced K3 / K15 takes count apart from K3's key kinds
+    for name in ("dense_group_aggregate", "slot_tables"):
+        nodes = tk.KERNELS[name].node_launches
+        assert set(tk.FOLD_ROUTES) <= set(nodes)
+    assert not set(tk.FOLD_ROUTES) & set(tk._KEY_KINDS)
+
+
 #: MV aggregations: the entry histogram (countmv, distinctcount, sum,
 #: percentile) and the entry min / max, over int8 (m1, m3) and int16 (m16)
 #: MV lanes
@@ -1151,14 +1343,17 @@ def test_group_key_kinds_cuda_match_plain(cuda_device, case):
            ("raw", cols["rf64.raw"], "max", 0))
     want = tk.dense_group_aggregate_plain(mask, keys, group[1], group[2],
                                           parts, [cols["x.raw"]], ext)
-    for smem_slots in (0, tk.INT32_MAX):
-        got = tk.dense_group_aggregate(mask, keys, group[1], group[2],
-                                       parts, [cols["x.raw"]], ext,
-                                       smem_slots=smem_slots)
-        for a, b in ((got[0], want[0]), (got[1], want[1]),
-                     (got[3], want[3]), *zip(got[4], want[4])):
-            assert torch.equal(a, b), (case, smem_slots)
-        torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+    for route in (None, *_fold_routes(group[2], parts, [cols["x.raw"]],
+                                      ext, cuda_device)):
+        for _ in range(FOLD_REPEATS):
+            got = tk.dense_group_aggregate(mask, keys, group[1], group[2],
+                                           parts, [cols["x.raw"]], ext,
+                                           route=route)
+            torch.cuda.synchronize()
+            for a, b in ((got[0], want[0]), (got[1], want[1]),
+                         (got[3], want[3]), *zip(got[4], want[4])):
+                assert torch.equal(a, b), (case, route)
+            torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
 
 
 @pytest.mark.cuda
@@ -1189,6 +1384,85 @@ def test_k3_row_slices_cuda_match_plain(cuda_device, monkeypatch, case):
     for a, b in zip(got[4], want[4]):
         assert torch.equal(a, b), case
     torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+
+
+def _k3_fold_case(name: str, device):
+    """(K3 arguments, psums_wide) of the fold cases: one hot key (every
+    row in one group, a NaN among the raw values), a table past one
+    block's shared memory (the device route), MV keys past kWalkCombos
+    (one doc's walk split over units) and the stacked int64 part sums."""
+    rng = np.random.default_rng(len(name))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    if name == "walk_split":
+        P, W = 256, tk.MAX_GROUP_COMBOS + 64
+        mv = rng.integers(0, 101, (P, W)).astype(np.int8)   # 100: padding
+        mask = t((rng.random(P) < 0.5).astype(np.uint8))
+        key = tk.GroupKey("mvids", t(mv), card=100)
+        parts = t(rng.integers(0, 128, (1, P)).astype(np.int8))
+        return (mask, [key], [1], 128, [parts], [], ()), False
+    P = 1 << 16
+    mask = t((rng.random(P) < 0.7).astype(np.uint8))
+    parts = t(rng.integers(0, 128, (2, P)).astype(np.int8))
+    vals = rng.random(P) * 1e6
+    ids = t(rng.integers(0, 50, P).astype(np.int8))
+    raw = rng.integers(-10**9, 10**9, P).astype(np.float64)
+    if name == "hot":
+        raw[rng.integers(0, P, 3)] = np.nan
+        key, g_pad = np.zeros(P, np.int32), 64
+    elif name == "past_one_block":
+        key, g_pad = rng.integers(0, 40000, P).astype(np.int32), 32768
+    else:                                           # wide_stack
+        key, g_pad = rng.integers(0, 300, P).astype(np.int32), 512
+    ext = (("ids", ids, "min", 64), ("ids", ids, "max", 64),
+           ("raw", t(raw), "max", 0), ("raw", t(raw), "min", 0))
+    return (mask, [t(key)], [1], g_pad, [parts], [t(vals)], ext), \
+        name == "wide_stack"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hot", "past_one_block", "walk_split",
+                                  "wide_stack"])
+def test_k3_fold_routes_cuda_match_plain(cuda_device, name):
+    """Every route that takes the table, FOLD_REPEATS launches each, against
+    the plain version: counts, part sums and extremes bit for bit (a NaN
+    wins its group's min and max), float sums within rtol 1e-12."""
+    args, wide = _k3_fold_case(name, cuda_device)
+    want = tk.dense_group_aggregate_plain(*args, psums_wide=wide)
+    # the slots a matched NaN lands in (one id key, stride 1)
+    nan = []
+    for kind, lane, _w, _c in args[6]:
+        if kind == "ids":
+            nan.append(None)
+            continue
+        hit = args[0].bool() & torch.isnan(lane)
+        n = torch.zeros(args[3], dtype=torch.bool, device=cuda_device)
+        n[args[1][0][hit].long().clamp(0, args[3] - 1)] = True
+        nan.append(n)
+    if name == "hot":
+        assert all(bool(n.any()) for n in nan if n is not None)
+    routes = _fold_routes(args[3], args[4], args[5], args[6], cuda_device,
+                          wide, tk.group_combos(args[1]))
+    if name == "past_one_block":
+        assert routes == ["global"]
+    tk.reset_launch_counts()
+    for route in (None, *routes):
+        for _ in range(FOLD_REPEATS):
+            got = tk.dense_group_aggregate(*args, route=route,
+                                           psums_wide=wide)
+            torch.cuda.synchronize()
+            for a, b in ((got[0], want[0]), (got[1], want[1]),
+                         (got[3], want[3])):
+                assert torch.equal(a.long(), b.long()), route
+            for a, b, n in zip(got[4], want[4], nan):
+                if n is None:
+                    assert torch.equal(a, b), route
+                else:
+                    assert torch.equal(torch.isnan(a), n), route
+                    assert torch.equal(a[~n], b[~n]), route
+            torch.testing.assert_close(got[2], want[2], rtol=1e-12, atol=0)
+    counts = tk.launch_counts()
+    for route in routes:
+        assert counts[f"dense_group_aggregate[{route}]"] >= FOLD_REPEATS
 
 
 @pytest.mark.cuda

@@ -49,6 +49,10 @@ from pinot_tpu_torch.transport.tcp import EventLoopThread, ServerConnection
 TABLE = "baseballStats"
 #: metadata that differs between two runs of one query
 VOLATILE = ("timeUsedMs", "profileInfo", "traceInfo")
+#: a query timeout (ms) that no CPU run reaches: the two instances time
+#: their queries apart, so under a loaded machine a 15 s default could
+#: flag one side alone with QueryTimeoutError
+NO_TIMEOUT_MS = 600_000.0
 
 
 def same_value(a, b) -> bool:
@@ -168,6 +172,8 @@ def servers(tmp_path_factory):
     from pinot_tpu.segment.loader import ImmutableSegmentLoader as JaxLoader
     port = ServerInstance("server_0", device="cpu")
     jax = JaxServerInstance("server_0")
+    port.executor.default_timeout_ms = NO_TIMEOUT_MS
+    jax.executor.default_timeout_ms = NO_TIMEOUT_MS
     for d in dirs:
         port.data_manager.table(TABLE, create=True).add_segment(
             ImmutableSegmentLoader.load(d))
@@ -278,8 +284,10 @@ def test_instance_executor_records_sharded_and_fallback_paths(tmp_path):
         jseg, _cols = build_segment(d, n=2048, seed=70 + i, name=f"path_{i}")
         tdm.add_segment(ImmutableSegmentLoader.load(d))
         jtdm.add_segment(jseg)
-    ex = InstanceQueryExecutor(dm, mesh=make_mesh(["cpu"]), device="cpu")
-    jex = JaxInstanceExecutor(jdm, mesh=jax_make_mesh())
+    ex = InstanceQueryExecutor(dm, mesh=make_mesh(["cpu"]), device="cpu",
+                               default_timeout_ms=NO_TIMEOUT_MS)
+    jex = JaxInstanceExecutor(jdm, mesh=jax_make_mesh(),
+                              default_timeout_ms=NO_TIMEOUT_MS)
     pql = ("SELECT COUNT(*), SUM(runs) FROM baseballStats "
            "WHERE yearID >= 1990")
 
@@ -304,6 +312,11 @@ def test_instance_executor_records_sharded_and_fallback_paths(tmp_path):
                               "cons_path")
     mseg.index_row(row)
     jmseg.index_row(row)
+    # each segment stamps its wall clock's millisecond at index_row, and
+    # the replies carry it as minConsumingFreshnessTimeMs: give both the
+    # same instant, or a millisecond boundary between the two calls (a
+    # few percent of runs, more on a loaded machine) parts them
+    mseg.last_indexed_time_ms = jmseg.last_indexed_time_ms
     tdm.add_segment(mseg)
     jtdm.add_segment(jmseg)
     dt = ask()

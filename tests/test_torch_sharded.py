@@ -689,10 +689,9 @@ def test_stacked_k3_wide_psums_cuda_past_int32(cuda_device):
     mask = torch.ones(rows, dtype=torch.uint8, device=cuda_device)
     key = torch.zeros(rows, dtype=torch.int8, device=cuda_device)
     parts = torch.full((1, rows), 127, dtype=torch.int8, device=cuda_device)
-    for slots in (0, K.K3_SMEM_SLOTS):
+    for route in K.FOLD_ROUTES:
         count, psums, _c, matched, _t = K.dense_group_aggregate(
-            mask, [key], [1], 8, [parts], smem_slots=slots,
-            psums_wide=True)
+            mask, [key], [1], 8, [parts], route=route, psums_wide=True)
         assert psums.dtype == torch.int64
         assert int(psums[0, 0]) == 127 * rows and int(count[0]) == rows
         assert int(matched) == rows

@@ -56,6 +56,13 @@ non-zero exit and no result line:
    K1's vdoc node: Q1.1 ANDed with a liveness lane (a third of the rows
    superseded), bit-equal in both instantiations, timed beside the same
    K1 without the node and the general instantiation.
+   K2 (and every K2 and K5 case of phases 7, 10 and 16) by word_check:
+   the route the wrapper picks (vector: the lanes are 16-byte aligned)
+   and each of WORD_NODES forced, WORD_CHECK_REPEATS launches each, then
+   each once on the mask with its matched bytes 2-255 (weighted_mask),
+   every output bit-equal to the plain version's (K5's block sums within
+   CSUMS_RTOL and bit-equal to the first launch's); the route reported,
+   each route forced timed (ms_by_route).
 5. ssb: launch counts set to 0, the 13 queries run once through
    QueryEngine on the card and are checked against the numpy oracle, the
    counts read (K1-K3 must have launched); then --repeats timed runs per
@@ -371,11 +378,14 @@ synthesized stack, the server), which must be above 0, while their row
 and block routes must take none of those launches; K3's and K15's fold
 routes on each SSB path (ssb_fold_routes), where K3 must have taken smem
 only (every SSB dense table fits one block) and K3 and K15 smem at least
-once; the kernels line
-gives each K12, K6, K1, K14, K3 and K15 entry's launches by route
-(route_launches), K1's and K14's old routes re-timed in the same run
-(ms_rows, stacked_ms_rows, ms_block), and K3's and K15's time on each
-fold route (fold_route, ms_by_route, launch_us).
+once; K2's and K5's routes on every path (word_routes), where the
+single K2 and K5 and the batched K2 must have taken vector and no launch
+bytes; the kernels line
+gives each K12, K6, K1, K14, K3, K15, K2 and K5 entry's launches by
+route (route_launches), K1's and K14's old routes re-timed in the same
+run (ms_rows, stacked_ms_rows, ms_block), K3's and K15's time on each
+fold route (fold_route, ms_by_route, launch_us), and K2's and K5's
+route and time on each route (word_route, ms_by_route).
 The last three lines are the card's name and power limit, the kernels
 JSON line (launches over every path: SSB and baseballStats per segment
 and stacked, the vector table's build, its queries per segment and
@@ -421,13 +431,17 @@ SORT_SELECT_REPEATS = 10        # K12 / K6 launches a case, each bit-checked
 JOIN_K1_REPEATS = 10            # K1 join_raw launches a route, each checked
 K1_BATCH_REPEATS = 10           # batched K1 launches a case and route, checked
 FOLD_CHECK_REPEATS = 10         # K3 / K15 launches a route, each bit-checked
+WORD_CHECK_REPEATS = 10         # K2 / K5 launches a case and route, checked
+#: the launch-count keys of K2's and K5's routes (kernels.WORD_ROUTES)
+WORD_NODES = ("vector", "bytes")
 #: the launch-count keys of K3's and K15's fold routes
 FOLD_NODES = ("smem", "global")
-#: the launch-count keys of K12's, K6's, K1's join_raw, K1's, K14's and
-#: K10's routes
+#: the launch-count keys of K12's, K6's, K1's join_raw, K1's, K14's,
+#: K10's, K3's / K15's and K2's / K5's routes
 ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]", "[bitmap]",
                "[probe]", "[wide]", "[rows]", "[leaf]", "[warp]", "[block]",
-               "[tensor]", "[simt]", "[smem]", "[global]")
+               "[tensor]", "[simt]", "[smem]", "[global]", "[vector]",
+               "[bytes]")
 
 
 #: the kernels of the SSB and baseballStats paths (K1-K7)
@@ -555,6 +569,54 @@ def fold_check(name: str, fn, ref, routes, equal, repeats=None):
             ints_ok, f_err, f_ok = ints_ok and i, max(f_err, e), f_ok and o
     ms = {route: time_ms(lambda: fn(route)) for route in routes}
     return picked, time_ms(lambda: fn(None)), ms, ints_ok, f_err, f_ok
+
+
+def weighted_mask(mask: torch.Tensor) -> torch.Tensor:
+    """`mask` with each matched byte replaced by 2-255 (by row): any
+    nonzero byte is a match, so K2 and K5 must answer as on `mask`."""
+    w = torch.arange(mask.numel(), device=mask.device) % 254 + 2
+    return mask * w.to(torch.uint8).reshape(mask.shape)
+
+
+def word_equal(got, ref, first=None) -> bool:
+    """K2's sums (a tensor) or K5's outputs (a dict) against the plain
+    version's `ref`: integers and min / max bit for bit, K5's block sums
+    within CSUMS_RTOL and, where `first` is given, bit for bit the first
+    launch's."""
+    if not isinstance(ref, dict):
+        return _same_bits(got, ref)
+    ok = all(_same_bits(got[k], ref[k]) for k in ("min", "max", "count"))
+    if "sums" in ref:
+        ok = ok and bool(((got["sums"] - ref["sums"]).abs() <= CSUMS_RTOL *
+                          ref["sums"].abs().clamp_min(1.0)).all())
+        if first is not None:
+            ok = ok and _same_bits(got["sums"], first["sums"])
+    return ok
+
+
+def word_check(name: str, run, ref, mask) -> dict:
+    """K2 / K5 (`name`: the single or batched form's counter) as the main
+    path calls it (run(None, mask): the route the wrapper picks) and on
+    each of WORD_NODES forced, WORD_CHECK_REPEATS launches each, then
+    once each on weighted_mask(mask); every output held to the plain
+    version's `ref` by word_equal, K5's block sums also bit for bit the
+    first launch's. Raises where one differs. Returns the picked route,
+    the routes checked and each forced route's time."""
+    first, picked = routed(lambda: run(None, mask), name, WORD_NODES)
+    ok = word_equal(first, ref, first)
+    wmask = weighted_mask(mask)
+    for route in (None, *WORD_NODES):
+        for _ in range(WORD_CHECK_REPEATS):
+            ok = ok and word_equal(run(route, mask), ref, first)
+        ok = ok and word_equal(run(route, wmask), ref, first)
+    if not ok:
+        raise AssertionError(f"{name}: a route differs from the plain "
+                             "version, or a launch's block sums from the "
+                             "first's")
+    return {"route": picked, "routes_checked": list(WORD_NODES),
+            "repeats": WORD_CHECK_REPEATS, "weighted_mask_equal": True,
+            "ms_by_route": {r: time_ms(lambda: run(r, mask))
+                            for r in WORD_NODES}}
 
 
 def k3_equal(got, ref):
@@ -724,17 +786,22 @@ def kernel_check(seg, pqls):
           "bound_by": entries["filter_mask"]["bound"][1]})
     parts = [cols["lo_revenue.parts"]]
     L = parts[0].shape[0]
-    got = K.masked_part_sums(mask, parts)
     ref = K.masked_part_sums_plain(mask, parts)
+    # the picked route and each route forced, and a mask of bytes 2-255
+    k2r = word_check("masked_part_sums", lambda route, m: K.masked_part_sums(
+        m, parts, route=route), ref, mask)
+    got = K.masked_part_sums(mask, parts)
     k2_err = int((got.long() - ref.long()).abs().max())
     report.append({"kernel": "masked_part_sums", "case": "q1.1",
-                   "matched": matched, "max_abs_err": k2_err})
+                   "matched": matched, "max_abs_err": k2_err, **k2r})
     entries["masked_part_sums"] = dict(
         max_abs_err=k2_err,
         ms=time_ms(lambda: K.masked_part_sums(mask, parts)),
         plain_ms=time_ms(lambda: K.masked_part_sums_plain(mask, parts)),
         bound=bound(P + matched * L + 4 * (L + 1), P + matched * L),
-        library_ms=None)
+        library_ms=None, word_route=k2r["route"],
+        ms_by_route=k2r["ms_by_route"],
+        launch_us=launch_breakdown(lambda: K.masked_part_sums(mask, parts)))
     # K1's vdoc node: Q1.1 with an upsert bitmap
     entries["filter_mask[vdoc]"] = vdoc_check(seg, plan, cols,
                                               "ssb q1.1 with a bitmap", 1)
@@ -845,13 +912,15 @@ def bb_kernel_check(seg, raw_seg):
     matched = int(mask.sum())
     parts = [cols["runs.parts"], cols["hits.parts"]]
     L = sum(p.shape[0] for p in parts)
-    got = K.masked_part_sums(mask, parts)
     ref = K.masked_part_sums_plain(mask, parts)
+    k2r = word_check("masked_part_sums", lambda route, m: K.masked_part_sums(
+        m, parts, route=route), ref, mask)
+    got = K.masked_part_sums(mask, parts)
     err = int((got.long() - ref.long()).abs().max())
     b = bound(P + matched * L + 4 * (L + 1), P + matched * L)
     report.append({
         "kernel": "masked_part_sums", "case": "baseball runs, hits",
-        "part_lanes": L, "matched": matched, "max_abs_err": err,
+        "part_lanes": L, "matched": matched, "max_abs_err": err, **k2r,
         "ms": time_ms(lambda: K.masked_part_sums(mask, parts)),
         "plain_ms": time_ms(lambda: K.masked_part_sums_plain(mask, parts)),
         "bound_ms": b[0], "bound_by": b[1]})
@@ -890,8 +959,10 @@ def bb_kernel_check(seg, raw_seg):
             ("salary", "raw", lanes["salary"], 0, True),
             ("runs ids", "ids", lanes["runs"], K.pow2_bucket(
                 seg.data_source("runs").metadata.cardinality + 1), False)):
-        got = K.masked_reduce(mask, lane, kind, card_pad, want_sum)
         ref = K.masked_reduce_plain(mask, lane, kind, card_pad, want_sum)
+        k5r = word_check("masked_reduce", lambda route, m: K.masked_reduce(
+            m, lane, kind, card_pad, want_sum, route=route), ref, mask)
+        got = K.masked_reduce(mask, lane, kind, card_pad, want_sum)
         equal = all(got[k].dtype == ref[k].dtype and torch.equal(got[k],
                                                                  ref[k])
                     for k in ("min", "max", "count"))
@@ -906,7 +977,7 @@ def bb_kernel_check(seg, raw_seg):
         r = {"kernel": "masked_reduce", "case": f"baseball {case}",
              "matched": matched, "min_max_count_equal": equal,
              "max_abs_err_sums": s_err,
-             "sums_rtol": CSUMS_RTOL if want_sum else None,
+             "sums_rtol": CSUMS_RTOL if want_sum else None, **k5r,
              "ms": time_ms(lambda: K.masked_reduce(mask, lane, kind,
                                                    card_pad, want_sum)),
              "plain_ms": time_ms(lambda: K.masked_reduce_plain(
@@ -918,7 +989,10 @@ def bb_kernel_check(seg, raw_seg):
         if case == "salary":
             entries["masked_reduce"] = dict(
                 max_abs_err=s_err, ms=r["ms"], plain_ms=r["plain_ms"],
-                bound=b, library_ms=None)
+                bound=b, library_ms=None, word_route=k5r["route"],
+                ms_by_route=k5r["ms_by_route"],
+                launch_us=launch_breakdown(lambda: K.masked_reduce(
+                    mask, lane, kind, card_pad, want_sum)))
     report.extend(mv_kernel_check(seg, mask))
     report.extend(hll_kernel_check(seg, mask, entries))
     for r in report:
@@ -976,8 +1050,10 @@ def mv_kernel_check(seg, mask):
             if not equal:
                 raise AssertionError("masked_histogram disagrees on MV "
                                      "position")
-        got = K.masked_reduce(mask, lane, "ids", card_pad, card=card)
         ref = K.masked_reduce_plain(mask, lane, "ids", card_pad, card=card)
+        k5r = word_check("masked_reduce", lambda route, m: K.masked_reduce(
+            m, lane, "ids", card_pad, card=card, route=route), ref, mask)
+        got = K.masked_reduce(mask, lane, "ids", card_pad, card=card)
         equal = all(got[k].dtype == ref[k].dtype and torch.equal(got[k],
                                                                  ref[k])
                     for k in ("min", "max", "count"))
@@ -985,6 +1061,7 @@ def mv_kernel_check(seg, mask):
         report.append({
             "kernel": "masked_reduce", "case": f"baseball MV {case}",
             "width": W, "matched": matched, "min_max_count_equal": equal,
+            **k5r,
             "min": int(got["min"]), "max": int(got["max"]),
             "ms": time_ms(lambda: K.masked_reduce(mask, lane, "ids",
                                                   card_pad, card=card)),
@@ -1339,8 +1416,11 @@ def stacked_kernel_check(st_engine, pqls):
                P, S, vspec, vflat, plan.params, docs, route="rows")))
     parts = [flat["lo_revenue.parts"]]
     L = parts[0].shape[0]
+    ref = K.masked_part_sums_plain(mask, parts, P)
+    k2r = word_check("masked_part_sums", lambda route, m: K.masked_part_sums(
+        m, parts, seg_rows=P, route=route), ref, mask)
     got = K.masked_part_sums(mask, parts, seg_rows=P)
-    equal = torch.equal(got, K.masked_part_sums_plain(mask, parts, P)) and \
+    equal = torch.equal(got, ref) and \
         torch.equal(got, torch.stack([
             K.masked_part_sums(m, [c["lo_revenue.parts"]])
             for m, c in zip(seg_masks(mask), per)]))
@@ -1352,7 +1432,7 @@ def stacked_kernel_check(st_engine, pqls):
                    reps=3),
            bound(S * P + n_match * L + 4 * S * (L + 1), S * P + n_match * L),
            matched=n_match, part_lanes=L,
-           total_parts_sum=int(got[:, :L].long().sum()))
+           total_parts_sum=int(got[:, :L].long().sum()), **k2r)
 
     # K3 over the whole stack: int64 part sums, float64 csums
     for q in STACKED_K3_QUERIES:
@@ -1494,8 +1574,10 @@ def stacked_kernel_check(st_engine, pqls):
            time_ms(lambda: K.hll_registers_plain(hist, idx, rank, m)),
            bound(12 * card_pad + 4 * m, card_pad), registers=m)
     lane = flat["lo_supplycost.raw"]
-    got = K.masked_reduce(mask, lane, "raw", 0, True)
     ref = K.masked_reduce_plain(mask, lane, "raw", 0, True)
+    k5r = word_check("masked_reduce", lambda route, m: K.masked_reduce(
+        m, lane, "raw", 0, True, route=route), ref, mask)
+    got = K.masked_reduce(mask, lane, "raw", 0, True)
     seg_lanes = [c["lo_supplycost.raw"] for c in per]
     seq = [K.masked_reduce(mm, ln, "raw", 0, True)
            for mm, ln in zip(seg_masks(mask), seg_lanes)]
@@ -1518,7 +1600,7 @@ def stacked_kernel_check(st_engine, pqls):
            time_ms(lambda: K.masked_reduce_plain(mask, lane, "raw", 0,
                                                  True)),
            bound(S * P + n_match * 8 + (S * P // K.BLOCK) * 8 + 24,
-                 3 * n_match), matched=n_match)
+                 3 * n_match), matched=n_match, **k5r)
     return out
 
 
@@ -1588,7 +1670,9 @@ def run_ssb_stacked(st_engine, seq_results, oracle, repeats: int):
         n_keys = len(group_by.columns) if group_by else 1
         limits = {"masked_reduce": dispatches * n_keys,
                   "masked_histogram": dispatches * n_keys}
-        if any(v > limits.get(k, dispatches) for k, v in counts.items()) \
+        # a launch's route key ("<kernel>[<route>]") under its kernel's
+        if any(v > limits.get(k.split("[")[0], dispatches)
+               for k, v in counts.items()) \
                 or not counts["filter_mask"]:
             raise AssertionError(f"{q}: stacked launches {counts} over "
                                  f"{dispatches} dispatches")
@@ -1942,7 +2026,8 @@ def compact_kernel_check(seg, cases):
                     library_ms=None, case=label, **fold_keys(r3)))
         if not kmax:
             continue
-        keys = [K.spec_group_key(g, cols, list(params), seg.device)
+        key_params = list(params)        # popped in key order
+        keys = [K.spec_group_key(g, cols, key_params, seg.device)
                 for g in gcols]
         lanes = K._group_lanes(gaggs, cols)
         w = K.group_combos(keys)
@@ -3083,14 +3168,28 @@ def batch_kernel_check_ssb(seg):
     parts = [plan_operands(seg, pqls[0])[1]["lo_revenue.parts"]]
     L = parts[0].shape[0]
     union, matched = int(masks.any(0).sum()), int(masks.sum())
-    entries["masked_part_sums"] = batch_case(
+    entries["masked_part_sums"] = word_batch_check(batch_case(
         "masked_part_sums", "ssb q1.1 family, lo_revenue",
         lambda B: K.masked_part_sums_batched(masks[:B], parts),
         lambda B: K.masked_part_sums_batched_plain(masks[:B], parts),
         lambda b: K.masked_part_sums(masks[b], parts),
         lambda B: B * P + union * L + 4 * B * (L + 1),
-        lambda B: B * P + matched * L)
+        lambda B: B * P + matched * L, repeats=WORD_CHECK_REPEATS),
+        "masked_part_sums", lambda route, m: K.masked_part_sums_batched(
+            m, parts, route=route),
+        K.masked_part_sums_batched_plain(masks, parts), masks)
     return entries
+
+
+def word_batch_check(report, name, run, ref, masks):
+    """word_check on a batched K2 / K5 case at 8 members (run(route,
+    masks), ref its plain outputs); its route and forced times join
+    batch_case's `report`, which it returns."""
+    w = word_check(f"{name}_batched", run, ref, masks)
+    report.update(word_route=w["route"], ms_by_route=w["ms_by_route"])
+    emit({"phase": "batch_kernel_check", "kernel": f"{name}_batched",
+          "case": report["case"], **w})
+    return report
 
 
 #: the baseballStats families of the batched K1 cases (8 members each)
@@ -3129,12 +3228,16 @@ def batch_kernel_check_bb(seg):
     cols = plan_operands(seg, BB_AGG_PQL)[1]
     parts = [cols["runs.parts"], cols["hits.parts"]]
     L = sum(p.shape[0] for p in parts)
-    batch_case("masked_part_sums", "baseball runs, hits",
-               lambda B: K.masked_part_sums_batched(masks[:B], parts),
-               lambda B: K.masked_part_sums_batched_plain(masks[:B], parts),
-               lambda b: K.masked_part_sums(masks[b], parts),
-               lambda B: B * P + n_union * L + 4 * B * (L + 1),
-               lambda B: B * P + matched * L)
+    word_batch_check(batch_case(
+        "masked_part_sums", "baseball runs, hits",
+        lambda B: K.masked_part_sums_batched(masks[:B], parts),
+        lambda B: K.masked_part_sums_batched_plain(masks[:B], parts),
+        lambda b: K.masked_part_sums(masks[b], parts),
+        lambda B: B * P + n_union * L + 4 * B * (L + 1),
+        lambda B: B * P + matched * L, repeats=WORD_CHECK_REPEATS),
+        "masked_part_sums", lambda route, m: K.masked_part_sums_batched(
+            m, parts, route=route),
+        K.masked_part_sums_batched_plain(masks, parts), masks)
 
     ds = seg.data_source("teamID")
     ids = ds.device_dict_ids()
@@ -3179,7 +3282,13 @@ def batch_kernel_check_bb(seg):
             lambda B: B * P + n_union * width * lane.element_size() +
             B * out_bytes,
             lambda B: matched * width * (3 if want_sum else 2),
-            rtol={3: CSUMS_RTOL} if want_sum else None)
+            rtol={3: CSUMS_RTOL} if want_sum else None,
+            repeats=WORD_CHECK_REPEATS)
+        word_batch_check(
+            r, "masked_reduce", lambda route, m: K.masked_reduce_batched(
+                m, lane, kind, cp, want_sum, card, route=route),
+            K.masked_reduce_batched_plain(masks, lane, kind, cp, want_sum,
+                                          card), masks)
         if case == "salary":
             entries["masked_reduce"] = r
 
@@ -6134,6 +6243,16 @@ def main() -> int:
         "slot_tables[smem]")})
     # K10's route in the vector table's IVF training and sweep
     routes["ivf_assign[tensor]"] = vec_build_launches["ivf_assign[tensor]"]
+    # K2's and K5's routes on every path, single and batched: the main
+    # path hands them lanes on 16-byte boundaries, so every launch reads
+    # 16-byte words
+    word_routes = {f"{k}[{r}]": path_launches(f"{k}[{r}]")
+                   for k in ("masked_part_sums", "masked_reduce",
+                             "masked_part_sums_batched",
+                             "masked_reduce_batched") for r in WORD_NODES}
+    routes.update({k: word_routes[k] for k in (
+        "masked_part_sums[vector]", "masked_reduce[vector]",
+        "masked_part_sums_batched[vector]")})
     emit({"phase": "routes", "launches": routes,
           "passes_route": {k: path_launches(f"{k}[passes]")
                            for k in ("radix_sort", "radix_sort_join",
@@ -6151,6 +6270,7 @@ def main() -> int:
               r: vec_build_launches[f"ivf_assign[{r}]"]
               for r in ("tensor", "simt")},
           "ssb_fold_routes": ssb_fold_routes,
+          "word_routes": word_routes,
           "all_paths": {k: path_launches(k) for k in (
               "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
               "filter_mask_batched[wide]", "filter_mask_batched[rows]",
@@ -6172,8 +6292,11 @@ def main() -> int:
     if vec_build_launches["ivf_assign[simt]"]:
         old_route["ivf_assign[simt] (vec_data)"] = \
             vec_build_launches["ivf_assign[simt]"]
+    old_route.update({k: v for k, v in word_routes.items()
+                      if k.endswith("[bytes]") and v})
     if old_route:
-        raise AssertionError(f"main-path launches on the old routes: {old_route}")
+        raise AssertionError(f"main-path launches on the old routes (or, "
+                             f"for K2 / K5, off 16-byte words): {old_route}")
 
     def route_launches(name: str):
         """{route: launches} of a kernel counted by route, else None."""
@@ -6235,7 +6358,8 @@ def main() -> int:
                          # K1's batched routes: the one picked, the row
                          # kernel forced, the clean flush, B = 2 and 5
                          **{k: e[k] for k in (
-                             "batched_route", "ms_rows", "ms_wide",
+                             "batched_route", "word_route", "ms_by_route",
+                             "ms_rows", "ms_wide",
                              "ms_clean", "ms_by_members",
                              "b_single_ms_by_members", "bound_ms_by_members")
                             if k in e},
@@ -6260,14 +6384,16 @@ def main() -> int:
                      # K1's row route, re-timed beside the wide one; K10's
                      # simt route and Lloyd sample beside the tensor one
                      **{k: e[k] for k in (
-                         *FOLD_KEYS, "ms_rows", "ms_simt", "bound_ms_simt",
+                         *FOLD_KEYS, "word_route", "ms_rows", "ms_simt",
+                         "bound_ms_simt",
                          "bound_by_simt", "sample_ms", "sample_ms_simt",
                          "sample_bound_ms", "train_step_ms",
                          "sweep_chunk_rows", "sweep_chunk_ms", "rows",
                          "settled_by_two_dots", "settled_by_scan")
                         if k in e},
                      **{f"stacked_{k}": st[k] for k in (
-                         "ms_rows", "ms_s_sequential_rows") if k in st}})
+                         "ms_rows", "ms_s_sequential_rows", "ms_by_route")
+                        if k in st}})
     # the routes of K1's batched form (the SSB Q1.1 family at 8 members,
     # each route forced) and of K10 (segment 0 of vecbench), counted apart
     e = batch_entries["filter_mask"]

@@ -106,6 +106,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// 16 bytes at p as one word: a single 16-byte load where `vec` (p is
+// 16-byte aligned), else 16 byte loads assembled in the same order, so
+// the two routes of a kernel compute on the same words.
+__device__ __forceinline__ uint4 load16(const void* p, bool vec) {
+  if (vec) return __ldg(static_cast<const uint4*>(p));
+  const uint8_t* b = static_cast<const uint8_t*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = static_cast<uint32_t>(b[4 * i]) | (static_cast<uint32_t>(b[4 * i + 1]) << 8) |
+           (static_cast<uint32_t>(b[4 * i + 2]) << 16) |
+           (static_cast<uint32_t>(b[4 * i + 3]) << 24);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The 16 rows of a 16-byte mask word as 16 bits, bit r set where byte r
+// is nonzero (any nonzero byte is a match, as mask.bool() reads it).
+__device__ __forceinline__ unsigned match_bits(const uint4& m) {
+  const uint32_t c[4] = {m.x, m.y, m.z, m.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)   // 0x01 a matched byte, gathered to 4 bits
+    bits |= (((__vcmpne4(c[i], 0u) & 0x01010101u) * 0x01020408u) >> 24) << (4 * i);
+  return bits;
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);

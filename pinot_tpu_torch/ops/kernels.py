@@ -11,7 +11,9 @@ short fixed sequence of kernels written by hand for Hopper
   filter_route; the batched form's filter_batched_route): "wide" (32 rows
   a thread) or "rows" (a row a thread);
 - K2 `masked_part_sums`: exact sums of bit-sliced part lanes + the match
-  count (replaces `_part_sums` and the masked count);
+  count (replaces `_part_sums` and the masked count); routes
+  (WORD_ROUTES, word_route, shared with K5): "vector" (16-byte words) or
+  "bytes" (an operand off a 16-byte boundary);
 - K3 `dense_group_aggregate`: mixed-radix group key → per-group count,
   int32 part sums, float64 sums and min / max (replaces `_group_key` kinds
   "ids", "rawoff", "jcode", "jraw", "idoff" and "idrank",
@@ -24,7 +26,7 @@ short fixed sequence of kernels written by hand for Hopper
   histogram branch of `_agg_outputs`);
 - K5 `masked_reduce`: one lane's match count, min / max and per-block
   float64 sums (replaces `_chunked_float_sum` and the id / MV / raw
-  min-max branches of `_agg_outputs`);
+  min-max branches of `_agg_outputs`); routes as K2's;
 - K6 `masked_select`: the first k matched rows by (key words, docid), the
   match count and the gathered columns (replaces `_selection_outputs`
   with `_monotone_int32_keys`, kinds limit / order / ordertk / ordermk);
@@ -268,14 +270,14 @@ _KEY_ARGTYPES = [_PP, _IP, _IP, _IP, _IP, _IP, _LLP, _PP, _IP, _PP, _PP,
 _ARGTYPES = {
     "filter_mask": [_PP, _I, _P, _I, _I, _I, _LL, _LL, _P, _LL, _P, _P, _I,
                     _I, _I, _P, _IP, _I, _P],
-    "masked_part_sums": [_P, _PP, _I, _LL, _LL, _P, _P],
+    "masked_part_sums": [_P, _PP, _I, _LL, _LL, _I, _P, _P],
     "dense_group_aggregate": [
         _P, *_KEY_ARGTYPES, _PP, _I, _PP, _I,
         _PP, _IP, _IP, _IP, _PP, _I,
         _LL, _I, _I, _LL, _I, _P, _P, _P, _P, _P, _P],
     "masked_histogram": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
-    "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P,
-                      _P, _P],
+    "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _P, _P, _P,
+                      _P, _P, _P],
     "masked_select": [_P, _LL, _I, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
                       _PP, _IP, _PP, _I, _I, _P, _LL, _P, _P, _I, _P],
     "hll_registers": [_P, _P, _P, _I, _I, _P, _P],
@@ -304,11 +306,11 @@ _FP = ctypes.POINTER(_F)
 _ARGTYPES.update({
     "filter_mask_batched": [_PP, _I, _P, _I, _I, _I, _I, _LL, _LL, _P, _P,
                             _I, _P, _IP, _I, _P],
-    "masked_part_sums_batched": [_P, _PP, _I, _LL, _LL, _I, _P, _P],
+    "masked_part_sums_batched": [_P, _PP, _I, _LL, _LL, _I, _I, _P, _P],
     "masked_histogram_batched": [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P,
                                  _P],
-    "masked_reduce_batched": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _P,
-                              _P, _P, _P, _P, _P],
+    "masked_reduce_batched": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I,
+                              _P, _P, _P, _P, _P, _P],
     "masked_select_batched": [_P, _LL, _I, _I, _PP, _LLP, _IP, _IP, _IP,
                               _IP, _I, _I, _PP, _LLP, _IP, _PP, _I, _I, _P,
                               _LL, _P, _P, _I, _P],
@@ -323,8 +325,9 @@ _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 #: program nodes counted apart: K1's upsert liveness leaf and join probe
 #: (and, for the single and stacked K1, the join leaf's route: "bitmap" or
 #: "probe", JOIN_ROUTES), the launch's route of K1 (FILTER_ROUTES; the
-#: batched form's "wide" or "rows") and K10 (IVF_ASSIGN_ROUTES), K3's join
-#: group keys, K14's key kinds and route (COMPACT_ROUTES)
+#: batched form's "wide" or "rows"), K2 and K5 (WORD_ROUTES) and K10
+#: (IVF_ASSIGN_ROUTES), K3's join group keys, K14's key kinds and route
+#: (COMPACT_ROUTES)
 KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0, bitmap=0,
                                             probe=0, wide=0, rows=0, leaf=0)
 KERNELS["filter_mask_batched"].node_launches.update(vdoc=0, join_raw=0,
@@ -342,6 +345,11 @@ for _name in ("dense_group_aggregate", "slot_tables"):
 KERNELS["block_compact"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0, warp=0, block=0)
 KERNELS["rank_slots"].node_launches["sort"] = 0
+#: the routes of K2 and K5, every form (WORD_ROUTES, word_route)
+WORD_ROUTES = ("vector", "bytes")
+for _name in ("masked_part_sums", "masked_part_sums_batched", "masked_reduce",
+              "masked_reduce_batched"):
+    KERNELS[_name].node_launches.update(dict.fromkeys(WORD_ROUTES, 0))
 #: the routes of K12 (SORT_ROUTES) and K6 (SELECT_ROUTES), counted apart
 for _name in ("radix_sort", "radix_sort_join", "radix_sort_rank"):
     KERNELS[_name].node_launches.update(cluster=0, passes=0)
@@ -1264,9 +1272,33 @@ def part_sum_range(rows: int) -> int:
     return per * unit
 
 
+def word_route(operands: Sequence[torch.Tensor],
+               route: Optional[str] = None) -> str:
+    """K2's and K5's route for these operands (the masks and lanes the
+    kernel reads): "vector" (16-byte words) where every one starts on a
+    16-byte boundary, else "bytes" (the same words from byte loads). A
+    forced `route` is checked: "vector" raises ValueError on an operand
+    off the boundary."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    if route is None:
+        return "vector" if aligned else "bytes"
+    if route not in WORD_ROUTES:
+        raise ValueError(f"route {route!r} not in {WORD_ROUTES}")
+    if route == "vector" and not aligned:
+        raise ValueError("the vector route reads 16-byte words: an operand "
+                         "is off a 16-byte boundary")
+    return route
+
+
+def _launch_routed(name: str, route: str, device, *args) -> None:
+    _launch(name, device, *args)
+    _count_node(name, route)
+
+
 def masked_part_sums(mask: torch.Tensor,
                      part_lanes: Sequence[torch.Tensor],
-                     seg_rows: Optional[int] = None) -> torch.Tensor:
+                     seg_rows: Optional[int] = None,
+                     route: Optional[str] = None) -> torch.Tensor:
     """int32 [L + 1]: the masked sum of each int8 part lane (L = all rows
     of all the [n_parts, P] blocks, in order), then the match count.
 
@@ -1274,7 +1306,7 @@ def masked_part_sums(mask: torch.Tensor,
     * P passes 2^31: int32 [R, L + 1], one such row per range of
     part_sum_range(segment rows) rows, segment by segment, each exact (the
     JAX `partsT` / `_part_sums` partials; the host adds the rows in
-    int64)."""
+    int64). `route` forces one of WORD_ROUTES (word_route picks)."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
     rows = _part_lane_rows(part_lanes, padded, device)
@@ -1283,13 +1315,15 @@ def masked_part_sums(mask: torch.Tensor,
         raise ValueError(f"{padded} rows do not split into segments of "
                          f"{seg} (a multiple of 256)")
     per = part_sum_range(seg)
+    route = word_route([mask, *rows], route)
     if device.type == "cpu":
         out = masked_part_sums_plain(mask, part_lanes, per)
     else:
         out = torch.zeros(padded // per, len(rows) + 1, dtype=torch.int32,
                           device=device)
-        _launch("masked_part_sums", device, mask.data_ptr(), _ptrs(rows),
-                len(rows), padded, per, out.data_ptr())
+        _launch_routed("masked_part_sums", route, device, mask.data_ptr(),
+                       _ptrs(rows), len(rows), padded, per,
+                       int(route == "vector"), out.data_ptr())
     return out[0] if seg_rows is None and per == padded else out
 
 
@@ -1308,25 +1342,27 @@ def masked_part_sums_plain(mask: torch.Tensor,
 
 
 def masked_part_sums_batched(masks: torch.Tensor,
-                             part_lanes: Sequence[torch.Tensor]
-                             ) -> torch.Tensor:
+                             part_lanes: Sequence[torch.Tensor],
+                             route: Optional[str] = None) -> torch.Tensor:
     """K2 for B members, one launch: int32 [B, L + 1], member b's sums
     under masks[b]; past 127 * P >= 2^31, [B, R, L + 1] with one exact row
     per range of part_sum_range(P) rows, as masked_part_sums gives one
-    member."""
+    member. `route` as masked_part_sums takes it."""
     n, padded = _check_masks(masks)
     device = masks.device
     rows = _part_lane_rows(part_lanes, padded, device)
     if padded % 256:
         raise ValueError(f"{padded} rows is not a multiple of 256")
     per = part_sum_range(padded)
+    route = word_route([masks, *rows], route)
     if device.type == "cpu":
         out = masked_part_sums_batched_plain(masks, part_lanes, per)
     else:
         out = torch.zeros(n, padded // per, len(rows) + 1,
                           dtype=torch.int32, device=device)
-        _launch("masked_part_sums_batched", device, masks.data_ptr(),
-                _ptrs(rows), len(rows), padded, per, n, out.data_ptr())
+        _launch_routed("masked_part_sums_batched", route, device,
+                       masks.data_ptr(), _ptrs(rows), len(rows), padded, per,
+                       n, int(route == "vector"), out.data_ptr())
     return out[:, 0] if per == padded else out
 
 
@@ -2279,7 +2315,8 @@ def masked_entry_histogram_batched_plain(masks: torch.Tensor,
 
 def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
                   card_pad: int = 0, want_sum: bool = False,
-                  card: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                  card: Optional[int] = None,
+                  route: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """One pass over `lane` under the mask.
 
     kind "ids" (a dictId lane): {"min", "max"} int32 scalars with the JAX
@@ -2289,11 +2326,13 @@ def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
     the JAX dtype (float32 for a float32 lane, else float64; ±inf when
     nothing matched). Both: "count" int32 scalar, matched rows; with
     want_sum (single-value lanes), "sums" float64 [P / 8192], the masked
-    sum of each row block."""
+    sum of each row block. `route` forces one of WORD_ROUTES (word_route
+    picks)."""
     padded, device = mask.shape[0], mask.device
     _check_mask(mask)
     is_mv = _check_reduce(lane, kind, card_pad, want_sum, card, padded,
                           device)
+    route = word_route([mask, lane], route)
     if device.type == "cpu":
         return masked_reduce_plain(mask, lane, kind, card_pad, want_sum,
                                    card)
@@ -2306,13 +2345,15 @@ def masked_reduce(mask: torch.Tensor, lane: torch.Tensor, kind: str,
     if want_sum:
         out["sums"] = torch.empty(padded // BLOCK, dtype=torch.float64,
                                   device=device)
-    _launch("masked_reduce", device, mask.data_ptr(), lane.data_ptr(),
-            _ELEM[lane.dtype], lane.shape[1] if is_mv else 1,
-            int(card) if is_mv else INT32_MAX, int(kind == "ids"),
-            int(card_pad), int(want_sum), padded, state.data_ptr(),
-            out["sums"].data_ptr() if want_sum else None,
-            out["min"].data_ptr(), out["max"].data_ptr(),
-            out["count"].data_ptr())
+    _launch_routed("masked_reduce", route, device, mask.data_ptr(),
+                   lane.data_ptr(), _ELEM[lane.dtype],
+                   lane.shape[1] if is_mv else 1,
+                   int(card) if is_mv else INT32_MAX, int(kind == "ids"),
+                   int(card_pad), int(want_sum), padded,
+                   int(route == "vector"), state.data_ptr(),
+                   out["sums"].data_ptr() if want_sum else None,
+                   out["min"].data_ptr(), out["max"].data_ptr(),
+                   out["count"].data_ptr())
     return out
 
 
@@ -2362,15 +2403,18 @@ def masked_reduce_plain(mask: torch.Tensor, lane: torch.Tensor, kind: str,
 def masked_reduce_batched(masks: torch.Tensor, lane: torch.Tensor,
                           kind: str, card_pad: int = 0,
                           want_sum: bool = False,
-                          card: Optional[int] = None
+                          card: Optional[int] = None,
+                          route: Optional[str] = None
                           ) -> Dict[str, torch.Tensor]:
     """K5 for B members, one launch: masked_reduce's outputs with a
     leading member axis ("min", "max", "count" [B]; "sums" float64 [B, P
-    / 8192]), each member's block sums in its own launch's order."""
+    / 8192]), each member's block sums in its own launch's order. `route`
+    as masked_reduce takes it."""
     n, padded = _check_masks(masks)
     device = masks.device
     is_mv = _check_reduce(lane, kind, card_pad, want_sum, card, padded,
                           device)
+    route = word_route([masks, lane], route)
     if device.type == "cpu":
         return masked_reduce_batched_plain(masks, lane, kind, card_pad,
                                            want_sum, card)
@@ -2383,13 +2427,15 @@ def masked_reduce_batched(masks: torch.Tensor, lane: torch.Tensor,
     if want_sum:
         out["sums"] = torch.empty(n, padded // BLOCK, dtype=torch.float64,
                                   device=device)
-    _launch("masked_reduce_batched", device, masks.data_ptr(),
-            lane.data_ptr(), _ELEM[lane.dtype], lane.shape[1] if is_mv else 1,
-            int(card) if is_mv else INT32_MAX, int(kind == "ids"),
-            int(card_pad), int(want_sum), padded, n, state.data_ptr(),
-            out["sums"].data_ptr() if want_sum else None,
-            out["min"].data_ptr(), out["max"].data_ptr(),
-            out["count"].data_ptr())
+    _launch_routed("masked_reduce_batched", route, device, masks.data_ptr(),
+                   lane.data_ptr(), _ELEM[lane.dtype],
+                   lane.shape[1] if is_mv else 1,
+                   int(card) if is_mv else INT32_MAX, int(kind == "ids"),
+                   int(card_pad), int(want_sum), padded, n,
+                   int(route == "vector"), state.data_ptr(),
+                   out["sums"].data_ptr() if want_sum else None,
+                   out["min"].data_ptr(), out["max"].data_ptr(),
+                   out["count"].data_ptr())
     return out
 
 

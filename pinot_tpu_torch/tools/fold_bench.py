@@ -146,7 +146,8 @@ def slot_operands(seg, pql):
     if not kmax:
         return None
     params = list(plan.group_params) + list(extra)
-    keys = [K.spec_group_key(g, cols, list(params), seg.device)
+    key_params = list(params)            # popped in key order
+    keys = [K.spec_group_key(g, cols, key_params, seg.device)
             for g in gcols]
     lanes = K._group_lanes(gaggs, cols)
     w = K.group_combos(keys)

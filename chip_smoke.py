@@ -78,14 +78,20 @@ non-zero exit and no result line:
 7. bb_kernel_check: K1 (raw and MV programs), K2 (runs and hits part
    lanes), K3 (sums and min / max; MV keys over position alone, position
    x league and valuein(position, ...) x league with count, SUM(hits)
-   and MIN(runs); raw keys on the raw-key segment), K4 (ids, and MV
-   entries of position), K5 (ids, raw, and MV entries of position and of
-   an int16 MV lane built for the check) and K7 (HLL registers of
-   playerName and teamID) against their plain versions on segment 0's
-   lanes (min / max, counts, part sums, histograms and registers equal;
-   float64 sums within CSUMS_RTOL), timed beside their bounds and, where
-   one PyTorch call does the same, that call (torch.bincount for K4,
-   scatter_reduce amax for K7); K3 as in phase 4.
+   and MIN(runs); raw keys on the raw-key segment), K4 (ids of teamID,
+   playerName, average, an int16 lane of 10,000 ids and an int32 lane of
+   100,000 ids built for the check, the last past a block's shared
+   memory, so on the global table route, and MV entries of
+   position; every word and table route forced, HIST_CHECK_REPEATS
+   launches each and once on a mask of bytes 2-255), K5 (ids, raw, and
+   MV entries of position and of an int16 MV lane built for the check)
+   and K4's fused HLL form (the histogram and the registers of playerName
+   and teamID in one launch, every route) against their plain versions
+   on segment 0's lanes (min / max, counts, part sums, histograms and
+   registers equal; float64 sums within CSUMS_RTOL), timed beside their
+   bounds and, where one PyTorch call does the same, that call
+   (torch.bincount for K4, torch.bincount then scatter_reduce amax for
+   the fused form); K3 as in phase 4.
 8. select_kernel_check: K6 against its plain version on segment 0's lanes
    for each select kind (limit; order on runs, hits and on the heavily
    tied league; ordertk on salary; ordermk on teamID, salary and on int64
@@ -117,8 +123,8 @@ non-zero exit and no result line:
    by parallel.ShardedQueryExecutor): the stacked K1 (mask and
    per-segment matches, Q1.1), K2 (one exact row per segment), K3 (int64
    part sums and csums over the whole stack, Q2.1, Q3.2, Q4.3), K6 (a top
-   k per segment, two selections over lineorder) and K4, K5 and K7 over
-   the stack's flat rows, each against its plain stacked version and
+   k per segment, two selections over lineorder) and K4 (every route),
+   its fused HLL form and K5 over the stack's flat rows, each against its plain stacked version and
    against S per-segment launches on the same lanes; timed as one stacked
    launch, as S sequential launches and beside the stacked bound; K1's
    vdoc node over an [S, P] liveness lane the same way; K1 (mask and
@@ -199,8 +205,8 @@ non-zero exit and no result line:
    axis) at 2, 5 and 8 members: K1 over the SSB Q1.1 family, the
    baseballStats raw, MV and dictId families and the vecbench ivf_probe
    node; K2, K4 (ids and MV entries), K5 (raw with block sums, ids, MV
-   entries), K6 (each kind of SELECT_PQLS) and K7 over the dictId
-   family's masks; K8 (both metrics), K9 and K6's vector kind over 8
+   entries), K6 (each kind of SELECT_PQLS) and K4's fused HLL form over
+   the dictId family's masks (K4's every route forced); K8 (both metrics), K9 and K6's vector kind over 8
    query vectors. Each against its plain batched version (as the single
    checks hold it), bit for bit against as many single launches, and
    launched once a call; timed at 8 members with the L2 flushed beside
@@ -432,22 +438,25 @@ JOIN_K1_REPEATS = 10            # K1 join_raw launches a route, each checked
 K1_BATCH_REPEATS = 10           # batched K1 launches a case and route, checked
 FOLD_CHECK_REPEATS = 10         # K3 / K15 launches a route, each bit-checked
 WORD_CHECK_REPEATS = 10         # K2 / K5 launches a case and route, checked
+HIST_CHECK_REPEATS = 10         # K4 launches a case and route pair, checked
 #: the launch-count keys of K2's and K5's routes (kernels.WORD_ROUTES)
 WORD_NODES = ("vector", "bytes")
-#: the launch-count keys of K3's and K15's fold routes
+#: the launch-count keys of K3's and K15's fold routes, and of K4's table
+#: routes
 FOLD_NODES = ("smem", "global")
 #: the launch-count keys of K12's, K6's, K1's join_raw, K1's, K14's,
 #: K10's, K3's / K15's and K2's / K5's routes
 ROUTE_NODES = ("[cluster]", "[passes]", "[select]", "[tile]", "[bitmap]",
                "[probe]", "[wide]", "[rows]", "[leaf]", "[warp]", "[block]",
                "[tensor]", "[simt]", "[smem]", "[global]", "[vector]",
-               "[bytes]")
+               "[bytes]", "[hll]")
 
 
-#: the kernels of the SSB and baseballStats paths (K1-K7)
+#: the kernels of the SSB and baseballStats paths (K1-K6, and K4's fused
+#: HLL form, counted as its launches' "hll" node)
 TABLE_KERNELS = ("filter_mask", "masked_part_sums", "dense_group_aggregate",
                  "masked_histogram", "masked_reduce", "masked_select",
-                 "hll_registers")
+                 "masked_histogram[hll]")
 #: the vector path's kernels (K8, K6's vector kind, K9, K10, K11)
 VECTOR_KERNELS = ("vector_scores", "masked_select_vector", "ivf_probe_select",
                   "ivf_assign", "ivf_recenter")
@@ -617,6 +626,60 @@ def word_check(name: str, run, ref, mask) -> dict:
             "repeats": WORD_CHECK_REPEATS, "weighted_mask_equal": True,
             "ms_by_route": {r: time_ms(lambda: run(r, mask))
                             for r in WORD_NODES}}
+
+
+def hist_routes(masks, lane, card_pad: int) -> list:
+    """The (word route, table route) pairs a forced K4 takes on these
+    operands: each of WORD_NODES that word_route lets a check force (a
+    batch whose rows a member are off 16 bytes reads bytes) by each of
+    FOLD_NODES that hist_table does."""
+    from pinot_tpu_torch.ops import kernels as K
+    rows = masks.shape[-1]
+    aligned = masks.dim() == 1 or masks.shape[0] == 1 or rows % 16 == 0
+    words = [r for r in WORD_NODES if r == "bytes" or K.word_route(
+        [masks, lane], aligned=aligned) == "vector"]
+    tables = []
+    for t in FOLD_NODES:
+        try:
+            K.hist_table(card_pad, K.hist_room(masks.device), t)
+        except ValueError:
+            continue
+        tables.append(t)
+    return [(w, t) for w in words for t in tables]
+
+
+def hist_check(name: str, run, ref, masks, lane, card_pad: int) -> dict:
+    """K4 (`name`: the single or batched form's counter; run(route, table,
+    masks) a call, both None as the main path calls it) against the plain
+    version's `ref` bit for bit: the picked routes and every pair of
+    hist_routes forced, HIST_CHECK_REPEATS launches each, then once each
+    on weighted_mask(masks). Raises where one differs. Returns the picked
+    routes, each forced pair's time (L2 flushed dirty) and the picked
+    call's time with a clean flush."""
+    from pinot_tpu_torch.ops import kernels as K
+    routes = hist_routes(masks, lane, card_pad)
+    first, word = routed(lambda: run(None, None, masks), name, WORD_NODES)
+    counts = K.launch_counts()
+    table = [t for t in FOLD_NODES if counts[f"{name}[{t}]"]]
+    ok = _flat_equal(first, ref) and len(table) == 1
+    wmask = weighted_mask(masks)
+    for route, tab in [(None, None), *routes]:
+        for _ in range(HIST_CHECK_REPEATS):
+            ok = ok and _flat_equal(run(route, tab, masks), ref)
+        ok = ok and _flat_equal(run(route, tab, wmask), ref)
+    if not ok:
+        raise AssertionError(f"{name}: a route differs from the plain "
+                             f"version ({routes})")
+    return {"word_route": word, "table_route": table[0],
+            "routes_checked": [f"{w}/{t}" for w, t in routes],
+            "repeats": HIST_CHECK_REPEATS, "weighted_mask_equal": True,
+            "ms_by_route": {f"{w}/{t}": time_ms(lambda: run(w, t, masks))
+                            for w, t in routes},
+            "ms_clean": time_ms(lambda: run(None, None, masks), clean=True)}
+
+
+def _flat_equal(got, ref) -> bool:
+    return all(_same_bits(g, r) for g, r in zip(_flat(got), _flat(ref)))
 
 
 def k3_equal(got, ref):
@@ -869,9 +932,9 @@ BB_AGG_PQL = "SELECT SUM(runs), AVG(hits) FROM baseballStats WHERE " \
 
 def bb_kernel_check(seg, raw_seg):
     """K1 raw / MV programs, K2, K3 (MV, valuein and, on the raw-key
-    segment, raw keys), K4 (ids and MV entries), K5 (ids, raw and MV
-    entries) and K7 against their plain versions on one baseballStats
-    segment's lanes."""
+    segment, raw keys), K4 (ids and MV entries, every route), K5 (ids,
+    raw and MV entries) and K4's fused HLL form against their plain
+    versions on one baseballStats segment's lanes."""
     from pinot_tpu_torch.ops import kernels as K
     P, n = seg.padded_docs, seg.num_docs
     report, entries = [], {}
@@ -930,17 +993,24 @@ def bb_kernel_check(seg, raw_seg):
              for c in ("teamID", "playerName", "average", "runs")}
     lanes["salary"] = seg.data_source("salary").device_raw_values()
     mask_f = mask.to(torch.float32)
-    for col in ("teamID", "playerName", "average"):
+    wide_cards = {"int16 x 10,000 ids": 10_000, "int32 x 100,000 ids": 100_000}
+    for col, card in wide_cards.items():
+        lanes[col] = wide_id_lane(seg, card)
+    for col in ("teamID", "playerName", "average", *wide_cards):
         ids = lanes[col]
-        card_pad = K.pow2_bucket(seg.data_source(col).metadata.cardinality
-                                 + 1)
+        card_pad = K.pow2_bucket(wide_cards[col] + 1) if col in wide_cards \
+            else K.pow2_bucket(seg.data_source(col).metadata.cardinality + 1)
         got = K.masked_histogram(mask, ids, card_pad)
         ref = K.masked_histogram_plain(mask, ids, card_pad)
         err = int((got.long() - ref.long()).abs().max())
+        k4r = hist_check("masked_histogram", lambda r, t, m: K.
+                         masked_histogram(m, ids, card_pad, route=r,
+                                          table=t), ref, mask, ids, card_pad)
         ids_long = ids.long()
         b = bound(P + matched * ids.element_size() + 4 * card_pad, matched)
         r = {"kernel": "masked_histogram", "case": f"baseball {col}",
              "card_pad": card_pad, "matched": matched, "max_abs_err": err,
+             **k4r,
              "ms": time_ms(lambda: K.masked_histogram(mask, ids, card_pad)),
              "plain_ms": time_ms(lambda: K.masked_histogram_plain(
                  mask, ids, card_pad)),
@@ -953,7 +1023,13 @@ def bb_kernel_check(seg, raw_seg):
         if col == "teamID":
             entries["masked_histogram"] = dict(
                 max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
-                bound=b, library_ms=r["library_ms"])
+                bound=b, library_ms=r["library_ms"],
+                word_route=k4r["word_route"], ms_by_route=k4r["ms_by_route"],
+                ms_clean=k4r["ms_clean"], table_route=k4r["table_route"])
+        want = "global" if col.startswith("int32") else "smem"
+        if k4r["table_route"] != want:
+            raise AssertionError(f"masked_histogram took "
+                                 f"{k4r['table_route']} on {col}")
 
     for case, kind, lane, card_pad, want_sum in (
             ("salary", "raw", lanes["salary"], 0, True),
@@ -1000,6 +1076,20 @@ def bb_kernel_check(seg, raw_seg):
     return entries
 
 
+def wide_id_lane(seg, card: int) -> torch.Tensor:
+    """An id lane of `card` ids (int16, or int32 past 32,767) on segment
+    `seg`'s rows, uniform, padding rows 0, built as mv_lanes builds its
+    int16 lane: at 10,000 ids K4 keeps a 64 KB table a block in shared
+    memory; at 100,000 the table passes a block's shared memory and K4
+    takes "global"."""
+    P, n = seg.padded_docs, seg.num_docs
+    rng = np.random.default_rng(11)
+    lane = np.zeros(P, np.int16 if card <= 32_767 else np.int32)
+    lane[:n] = rng.integers(0, card, n)
+    return torch.from_numpy(lane).to(
+        seg.data_source("teamID").device_dict_ids().device)
+
+
 def mv_lanes(seg):
     """position's MV lane and an int16 MV lane built for the check:
     playerName's ids, 1-3 entries per row like position (padding entries
@@ -1031,6 +1121,10 @@ def mv_kernel_check(seg, mask):
             got = K.masked_entry_histogram(mask, lane, card_pad, card)
             ref = K.masked_entry_histogram_plain(mask, lane, card_pad, card)
             equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+            k4r = hist_check(
+                "masked_histogram", lambda r, t, m: K.masked_entry_histogram(
+                    m, lane, card_pad, card, route=r, table=t), ref, mask,
+                lane, card_pad)
             flat = lane.reshape(-1).long()
             weight = (mask.bool()[:, None] & (lane < card)).reshape(-1) \
                 .to(torch.float32)
@@ -1040,6 +1134,7 @@ def mv_kernel_check(seg, mask):
                 "kernel": "masked_histogram", "case": f"baseball MV {case}",
                 "card_pad": card_pad, "width": W, "matched": matched,
                 "entries": int(ref[1]), "equal": equal, "max_abs_err": 0,
+                **k4r,
                 "ms": time_ms(lambda: K.masked_entry_histogram(
                     mask, lane, card_pad, card)),
                 "plain_ms": time_ms(lambda: K.masked_entry_histogram_plain(
@@ -1074,42 +1169,60 @@ def mv_kernel_check(seg, mask):
 
 
 def hll_kernel_check(seg, mask, entries):
-    """K7 on playerName and teamID, after K4 on the same mask; the
-    kernels-line entry is playerName's."""
+    """The fused K4 (histogram and HLL registers in one launch) on
+    playerName and teamID against its plain version, every route; the
+    kernels-line entry (masked_histogram[hll]) is playerName's. The
+    library call is torch.bincount, then scatter_reduce's amax."""
     from pinot_tpu_torch.ops import kernels as K
     from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
     m = 1 << DEFAULT_LOG2M
     report = []
+    mask_f = mask.to(torch.float32)
     for col in ("playerName", "teamID"):
         ds = seg.data_source(col)
         card = ds.metadata.cardinality
         card_pad = K.pow2_bucket(card + 1)
-        hist = K.masked_histogram(mask, ds.device_dict_ids(), card_pad)
+        ids = ds.device_dict_ids()
         idx, rank = ds.device_hll_idx(), ds.device_hll_rank()
-        got = K.hll_registers(hist, idx, rank, m)
-        ref = K.hll_registers_plain(hist, idx, rank, m)
-        equal = torch.equal(got, ref)
-        idx_long = idx.long()
-        zeros = torch.zeros(m, dtype=torch.int32, device=hist.device)
-        b = bound(12 * card_pad + 4 * m, card_pad)
-        r = {"kernel": "hll_registers", "case": f"baseball {col}",
+        got = K.masked_histogram_hll(mask, ids, card_pad, idx, rank, m)
+        ref = K.masked_histogram_hll_plain(mask, ids, card_pad, idx, rank, m)
+        equal = _flat_equal(got, ref)
+        k4r = hist_check("masked_histogram", lambda r, t, mm: K.
+                         masked_histogram_hll(mm, ids, card_pad, idx, rank,
+                                              m, route=r, table=t), ref,
+                         mask, ids, card_pad)
+        ids_long, idx_long = ids.long(), idx.long()
+        zeros = torch.zeros(m, dtype=torch.int32, device=mask.device)
+
+        def library():
+            hist = torch.bincount(ids_long, weights=mask_f,
+                                  minlength=card_pad)
+            return zeros.scatter_reduce(0, idx_long, torch.where(
+                hist[:card_pad] > 0, rank, 0), "amax")
+        matched = int(mask.sum())
+        b = bound(mask.numel() + matched * ids.element_size() +
+                  4 * card_pad + 8 * card_pad + 4 * m, matched + card_pad)
+        r = {"kernel": "masked_histogram[hll]", "case": f"baseball {col}",
              "card": card, "card_pad": card_pad, "registers": m,
-             "nonzero_registers": int((got > 0).sum()), "equal": equal,
-             "max_abs_err": int((got - ref).abs().max()),
-             "ms": time_ms(lambda: K.hll_registers(hist, idx, rank, m)),
-             "plain_ms": time_ms(lambda: K.hll_registers_plain(
-                 hist, idx, rank, m)),
-             "library_ms": time_ms(lambda: zeros.scatter_reduce(
-                 0, idx_long, torch.where(hist > 0, rank, 0), "amax")),
+             "nonzero_registers": int((got[1] > 0).sum()), "equal": equal,
+             "max_abs_err": int((got[1] - ref[1]).abs().max()), **k4r,
+             "ms": time_ms(lambda: K.masked_histogram_hll(
+                 mask, ids, card_pad, idx, rank, m)),
+             "plain_ms": time_ms(lambda: K.masked_histogram_hll_plain(
+                 mask, ids, card_pad, idx, rank, m)),
+             "library_ms": time_ms(library),
              "bound_ms": b[0], "bound_by": b[1]}
         report.append(r)
         if not equal:
-            raise AssertionError(f"hll_registers disagrees on {col}")
+            raise AssertionError(f"masked_histogram[hll] disagrees on {col}")
         if col == "playerName":
-            entries["hll_registers"] = dict(
+            entries["masked_histogram[hll]"] = dict(
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound=b,
-                library_ms=r["library_ms"])
+                library_ms=r["library_ms"], ms_clean=k4r["ms_clean"],
+                ms_by_route=k4r["ms_by_route"],
+                word_route=k4r["word_route"],
+                table_route=k4r["table_route"])
     return report
 
 
@@ -1301,7 +1414,8 @@ def stacked_kernel_check(st_engine, pqls):
     stacked versions on the SSB stack, and against S per-segment launches
     of the sequential path: K1 (mask and per-segment matches), K2 (one
     row per segment), K3 (int64 part sums, csums, over the whole stack),
-    K6 (per-segment top k), and K4, K5, K7 over the flat rows. Each timed
+    K6 (per-segment top k), and K4 (its fused HLL form too) and K5 over
+    the flat rows. Each timed
     as one stacked launch, as S sequential launches, and beside the
     stacked launch's bound. Returns {kernel: stacked numbers}."""
     from pinot_tpu_torch.ops import kernels as K
@@ -1535,7 +1649,8 @@ def stacked_kernel_check(st_engine, pqls):
                scratch_bytes=4 * K.select_scratch_words(P, k, len(words),
                                                         S))
 
-    # K4, K7 and K5 over the flat rows of the stack (Q4.3's mask)
+    # K4, its fused HLL form and K5 over the flat rows of the stack (Q4.3's
+    # mask)
     plan, flat, per, mask, matched = operands(pqls["q4.3"])
     n_match = int(matched.sum())
     ds0 = segs[0].data_source("c_city")
@@ -1544,8 +1659,10 @@ def stacked_kernel_check(st_engine, pqls):
                        P)["c_city.ids"]
     seg_ids = [sg.data_source("c_city").device_dict_ids() for sg in segs]
     hist = K.masked_histogram(mask, ids, card_pad)
-    equal = torch.equal(hist, K.masked_histogram_plain(mask, ids,
-                                                       card_pad)) and \
+    ref = K.masked_histogram_plain(mask, ids, card_pad)
+    k4r = hist_check("masked_histogram", lambda r, t, m: K.masked_histogram(
+        m, ids, card_pad, route=r, table=t), ref, mask, ids, card_pad)
+    equal = torch.equal(hist, ref) and \
         torch.equal(hist, sum(K.masked_histogram(m, i, card_pad) for m, i in
                               zip(seg_masks(mask), seg_ids)))
     record("masked_histogram", "c_city, q4.3 mask", equal,
@@ -1554,25 +1671,35 @@ def stacked_kernel_check(st_engine, pqls):
                             zip(seg_masks(mask), seg_ids)], spins=S),
            time_ms(lambda: K.masked_histogram_plain(mask, ids, card_pad)),
            bound(S * P + n_match * ids.element_size() + 4 * card_pad,
-                 n_match), matched=n_match, card_pad=card_pad)
+                 n_match), matched=n_match, card_pad=card_pad, **k4r)
     from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
     m = 1 << DEFAULT_LOG2M
     idx, rank = stack.lane("c_city", "hllidx"), stack.lane("c_city",
                                                            "hllrank")
-    regs = K.hll_registers(hist, idx, rank, m)
-    seg_regs = [K.hll_registers(K.masked_histogram(mm, i, card_pad),
-                                sg.data_source("c_city").device_hll_idx(),
-                                sg.data_source("c_city").device_hll_rank(),
-                                m)
-                for mm, i, sg in zip(seg_masks(mask), seg_ids, segs)]
-    equal = torch.equal(regs, K.hll_registers_plain(hist, idx, rank, m)) \
-        and torch.equal(regs, torch.stack(seg_regs).amax(dim=0))
-    record("hll_registers", "c_city, q4.3 mask", equal,
-           time_ms(lambda: K.hll_registers(hist, idx, rank, m)),
-           time_ms(lambda: [K.hll_registers(hist, idx, rank, m)
-                            for _ in range(S)], spins=S),
-           time_ms(lambda: K.hll_registers_plain(hist, idx, rank, m)),
-           bound(12 * card_pad + 4 * m, card_pad), registers=m)
+    hist, regs = K.masked_histogram_hll(mask, ids, card_pad, idx, rank, m)
+    ref = K.masked_histogram_hll_plain(mask, ids, card_pad, idx, rank, m)
+    k4r = hist_check("masked_histogram", lambda r, t, mm: K.
+                     masked_histogram_hll(mm, ids, card_pad, idx, rank, m,
+                                          route=r, table=t), ref, mask, ids,
+                     card_pad)
+    seg_regs = [K.masked_histogram_hll(
+        mm, i, card_pad, sg.data_source("c_city").device_hll_idx(),
+        sg.data_source("c_city").device_hll_rank(), m)[1]
+        for mm, i, sg in zip(seg_masks(mask), seg_ids, segs)]
+    equal = _flat_equal((hist, regs), ref) and \
+        torch.equal(regs, torch.stack(seg_regs).amax(dim=0))
+    record("masked_histogram[hll]", "c_city, q4.3 mask", equal,
+           time_ms(lambda: K.masked_histogram_hll(mask, ids, card_pad, idx,
+                                                  rank, m)),
+           time_ms(lambda: [K.masked_histogram_hll(
+               mm, i, card_pad, sg.data_source("c_city").device_hll_idx(),
+               sg.data_source("c_city").device_hll_rank(), m)
+               for mm, i, sg in zip(seg_masks(mask), seg_ids, segs)],
+               spins=S),
+           time_ms(lambda: K.masked_histogram_hll_plain(mask, ids, card_pad,
+                                                        idx, rank, m)),
+           bound(S * P + n_match * ids.element_size() + 16 * card_pad +
+                 4 * m, n_match + card_pad), registers=m, **k4r)
     lane = flat["lo_supplycost.raw"]
     ref = K.masked_reduce_plain(mask, lane, "raw", 0, True)
     k5r = word_check("masked_reduce", lambda route, m: K.masked_reduce(
@@ -3181,6 +3308,34 @@ def batch_kernel_check_ssb(seg):
     return entries
 
 
+def batched_hll_library(masks, ids, card_pad, idx, rank, m):
+    """The batched fused K4's function in two PyTorch calls: one
+    torch.bincount over the members' offset ids, one scatter_reduce amax
+    into the members' offset registers."""
+    B = masks.shape[0]
+    off = torch.arange(B, device=ids.device)[:, None]
+    hist = torch.bincount((off * card_pad + ids.long()[None]).reshape(-1),
+                          weights=masks.reshape(-1).to(torch.float32),
+                          minlength=B * card_pad)
+    vals = torch.where(hist > 0, rank.repeat(B), 0)
+    regs = torch.zeros(B * m, dtype=torch.int32, device=ids.device)
+    return regs.scatter_reduce(0, (off * m + idx.long()[None]).reshape(-1),
+                               vals, "amax")
+
+
+def hist_batch_check(report, run, ref, masks, lane, card_pad):
+    """hist_check on a batched K4 case at 8 members (run(route, table,
+    masks), ref its plain outputs); its routes and forced times join
+    batch_case's `report`, which it returns."""
+    h = hist_check("masked_histogram_batched", run, ref, masks, lane,
+                   card_pad)
+    report.update(word_route=h["word_route"], table_route=h["table_route"],
+                  ms_by_route=h["ms_by_route"], ms_clean=h["ms_clean"])
+    emit({"phase": "batch_kernel_check", "kernel": "masked_histogram_batched",
+          "case": report["case"], **h})
+    return report
+
+
 def word_batch_check(report, name, run, ref, masks):
     """word_check on a batched K2 / K5 case at 8 members (run(route,
     masks), ref its plain outputs); its route and forced times join
@@ -3209,8 +3364,8 @@ def batch_kernel_check_bb(seg):
     """Phase batch_kernel_check on a baseballStats segment: K1 (raw, MV
     and dictId programs), and over the dictId family's masks K2 (runs,
     hits), K4 (teamID ids, position entries), K5 (salary with block sums,
-    runs ids, position entries), K6 (each kind of SELECT_PQLS) and K7
-    (playerName)."""
+    runs ids, position entries), K6 (each kind of SELECT_PQLS) and K4's
+    fused HLL form (playerName)."""
     from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
     from pinot_tpu_torch.ops import kernels as K
     P = seg.padded_docs
@@ -3242,17 +3397,21 @@ def batch_kernel_check_bb(seg):
     ds = seg.data_source("teamID")
     ids = ds.device_dict_ids()
     card_pad = K.pow2_bucket(ds.metadata.cardinality + 1)
-    entries["masked_histogram"] = batch_case(
+    entries["masked_histogram"] = hist_batch_check(batch_case(
         "masked_histogram", "baseball teamID",
         lambda B: K.masked_histogram_batched(masks[:B], ids, card_pad),
         lambda B: K.masked_histogram_batched_plain(masks[:B], ids, card_pad),
         lambda b: K.masked_histogram(masks[b], ids, card_pad),
         lambda B: B * P + n_union * ids.element_size() + 4 * B * card_pad,
-        lambda B: matched)
+        lambda B: matched, repeats=HIST_CHECK_REPEATS),
+        lambda r, t, m: K.masked_histogram_batched(m, ids, card_pad, route=r,
+                                                   table=t),
+        K.masked_histogram_batched_plain(masks, ids, card_pad), masks, ids,
+        card_pad)
     pos, pcard = mv_lanes(seg)["position"]
     ppad = K.pow2_bucket(pcard + 1)
     W = pos.shape[1]
-    batch_case(
+    hist_batch_check(batch_case(
         "masked_histogram", "baseball MV position",
         lambda B: K.masked_entry_histogram_batched(masks[:B], pos, ppad,
                                                    pcard),
@@ -3260,7 +3419,11 @@ def batch_kernel_check_bb(seg):
                                                          ppad, pcard),
         lambda b: K.masked_entry_histogram(masks[b], pos, ppad, pcard),
         lambda B: B * P + n_union * W * pos.element_size() + 4 * B * ppad,
-        lambda B: matched * W)
+        lambda B: matched * W, repeats=HIST_CHECK_REPEATS),
+        lambda r, t, m: K.masked_entry_histogram_batched(
+            m, pos, ppad, pcard, route=r, table=t),
+        K.masked_entry_histogram_batched_plain(masks, pos, ppad, pcard),
+        masks, pos, ppad)
 
     salary = seg.data_source("salary").device_raw_values()
     runs = seg.data_source("runs")
@@ -3318,15 +3481,25 @@ def batch_kernel_check_bb(seg):
     m = 1 << DEFAULT_LOG2M
     pn = seg.data_source("playerName")
     pn_pad = K.pow2_bucket(pn.metadata.cardinality + 1)
-    hists = K.masked_histogram_batched(masks, pn.device_dict_ids(), pn_pad)
+    pn_ids = pn.device_dict_ids()
     idx, rank = pn.device_hll_idx(), pn.device_hll_rank()
-    entries["hll_registers"] = batch_case(
-        "hll_registers", "baseball playerName",
-        lambda B: K.hll_registers_batched(hists[:B], idx, rank, m),
-        lambda B: K.hll_registers_batched_plain(hists[:B], idx, rank, m),
-        lambda b: K.hll_registers(hists[b], idx, rank, m),
-        lambda B: 4 * B * pn_pad + 8 * pn_pad + 4 * B * m,
-        lambda B: B * pn_pad)
+    entries["masked_histogram[hll]"] = hist_batch_check(batch_case(
+        "masked_histogram", "baseball playerName, HLL",
+        lambda B: K.masked_histogram_hll_batched(masks[:B], pn_ids, pn_pad,
+                                                 idx, rank, m),
+        lambda B: K.masked_histogram_hll_batched_plain(masks[:B], pn_ids,
+                                                       pn_pad, idx, rank, m),
+        lambda b: K.masked_histogram_hll(masks[b], pn_ids, pn_pad, idx, rank,
+                                         m),
+        lambda B: B * P + n_union * pn_ids.element_size() +
+        4 * B * pn_pad + 8 * pn_pad + 4 * B * m,
+        lambda B: matched + B * pn_pad, repeats=HIST_CHECK_REPEATS,
+        library=lambda: batched_hll_library(masks, pn_ids, pn_pad, idx,
+                                            rank, m)),
+        lambda r, t, mm: K.masked_histogram_hll_batched(
+            mm, pn_ids, pn_pad, idx, rank, m, route=r, table=t),
+        K.masked_histogram_hll_batched_plain(masks, pn_ids, pn_pad, idx,
+                                             rank, m), masks, pn_ids, pn_pad)
     return entries
 
 
@@ -6243,16 +6416,22 @@ def main() -> int:
         "slot_tables[smem]")})
     # K10's route in the vector table's IVF training and sweep
     routes["ivf_assign[tensor]"] = vec_build_launches["ivf_assign[tensor]"]
-    # K2's and K5's routes on every path, single and batched: the main
-    # path hands them lanes on 16-byte boundaries, so every launch reads
-    # 16-byte words
+    # K2's, K4's and K5's routes on every path, single and batched: the
+    # main path hands them lanes on 16-byte boundaries, so every launch
+    # reads 16-byte words
     word_routes = {f"{k}[{r}]": path_launches(f"{k}[{r}]")
                    for k in ("masked_part_sums", "masked_reduce",
-                             "masked_part_sums_batched",
-                             "masked_reduce_batched") for r in WORD_NODES}
+                             "masked_histogram", "masked_part_sums_batched",
+                             "masked_reduce_batched",
+                             "masked_histogram_batched") for r in WORD_NODES}
     routes.update({k: word_routes[k] for k in (
         "masked_part_sums[vector]", "masked_reduce[vector]",
-        "masked_part_sums_batched[vector]")})
+        "masked_histogram[vector]", "masked_part_sums_batched[vector]")})
+    # K4's table routes and fused HLL launches on every path
+    hist_routes_taken = {f"{k}[{r}]": path_launches(f"{k}[{r}]")
+                         for k in ("masked_histogram",
+                                   "masked_histogram_batched")
+                         for r in (*FOLD_NODES, "hll")}
     emit({"phase": "routes", "launches": routes,
           "passes_route": {k: path_launches(f"{k}[passes]")
                            for k in ("radix_sort", "radix_sort_join",
@@ -6271,6 +6450,7 @@ def main() -> int:
               for r in ("tensor", "simt")},
           "ssb_fold_routes": ssb_fold_routes,
           "word_routes": word_routes,
+          "hist_routes": hist_routes_taken,
           "all_paths": {k: path_launches(k) for k in (
               "filter_mask[wide]", "filter_mask[rows]", "filter_mask[leaf]",
               "filter_mask_batched[wide]", "filter_mask_batched[rows]",
@@ -6296,7 +6476,8 @@ def main() -> int:
                       if k.endswith("[bytes]") and v})
     if old_route:
         raise AssertionError(f"main-path launches on the old routes (or, "
-                             f"for K2 / K5, off 16-byte words): {old_route}")
+                             f"for K2 / K4 / K5, off 16-byte words): "
+                             f"{old_route}")
 
     def route_launches(name: str):
         """{route: launches} of a kernel counted by route, else None."""
@@ -6358,7 +6539,8 @@ def main() -> int:
                          # K1's batched routes: the one picked, the row
                          # kernel forced, the clean flush, B = 2 and 5
                          **{k: e[k] for k in (
-                             "batched_route", "word_route", "ms_by_route",
+                             "batched_route", "word_route", "table_route",
+                             "ms_by_route",
                              "ms_rows", "ms_wide",
                              "ms_clean", "ms_by_members",
                              "b_single_ms_by_members", "bound_ms_by_members")
@@ -6384,7 +6566,8 @@ def main() -> int:
                      # K1's row route, re-timed beside the wide one; K10's
                      # simt route and Lloyd sample beside the tensor one
                      **{k: e[k] for k in (
-                         *FOLD_KEYS, "word_route", "ms_rows", "ms_simt",
+                         *FOLD_KEYS, "word_route", "table_route", "ms_clean",
+                         "ms_rows", "ms_simt",
                          "bound_ms_simt",
                          "bound_by_simt", "sample_ms", "sample_ms_simt",
                          "sample_bound_ms", "train_step_ms",
@@ -6394,6 +6577,36 @@ def main() -> int:
                      **{f"stacked_{k}": st[k] for k in (
                          "ms_rows", "ms_s_sequential_rows", "ms_by_route")
                         if k in st}})
+    # K4's fused HLL form (K7 folded into K4's launch), counted apart: its
+    # launches on every path, single, stacked and batched
+    source = K.KERNELS["masked_histogram"].source
+    e, st = entries["masked_histogram[hll]"], \
+        stacked_entries["masked_histogram[hll]"]
+    line.append({"name": "masked_histogram[hll]", "route": "cuda",
+                 "source": source, "replaces": "pinot_tpu/ops/kernels.py:620",
+                 "launches": path_launches("masked_histogram[hll]"),
+                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                 "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                 "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+                 **{k: e[k] for k in ("word_route", "table_route", "ms_clean",
+                                      "ms_by_route")},
+                 "stacked_launches": ssb_st_launches["masked_histogram[hll]"] +
+                 bb_st_launches["masked_histogram[hll]"],
+                 "stacked_ms": st["ms"],
+                 "stacked_s_sequential_ms": st["s_sequential_ms"],
+                 "stacked_bound_ms": st["bound_ms"]})
+    e = batch_entries["masked_histogram[hll]"]
+    line.append({"name": "masked_histogram_batched[hll]", "route": "cuda",
+                 "source": source, "replaces": "pinot_tpu/ops/kernels.py:1672",
+                 "launches": batch_launches.get(
+                     "masked_histogram_batched[hll]", 0),
+                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                 "batch_members": BATCH_SIZES[-1],
+                 "b_single_ms": e["b_single_ms"],
+                 **{k: e[k] for k in ("word_route", "table_route", "ms_clean",
+                                      "ms_by_route")}})
     # the routes of K1's batched form (the SSB Q1.1 family at 8 members,
     # each route forced) and of K10 (segment 0 of vecbench), counted apart
     e = batch_entries["filter_mask"]

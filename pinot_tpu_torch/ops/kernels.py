@@ -12,8 +12,8 @@ short fixed sequence of kernels written by hand for Hopper
   a thread) or "rows" (a row a thread);
 - K2 `masked_part_sums`: exact sums of bit-sliced part lanes + the match
   count (replaces `_part_sums` and the masked count); routes
-  (WORD_ROUTES, word_route, shared with K5): "vector" (16-byte words) or
-  "bytes" (an operand off a 16-byte boundary);
+  (WORD_ROUTES, word_route, shared with K4 and K5): "vector" (16-byte
+  words) or "bytes" (an operand off a 16-byte boundary);
 - K3 `dense_group_aggregate`: mixed-radix group key → per-group count,
   int32 part sums, float64 sums and min / max (replaces `_group_key` kinds
   "ids", "rawoff", "jcode", "jraw", "idoff" and "idrank",
@@ -22,17 +22,18 @@ short fixed sequence of kernels written by hand for Hopper
   `_dense_group_float_sums`, `_dense_group_extreme` and the scatter
   fallback for count / sum / avg / min / max);
 - K4 `masked_histogram`: dictId counts of the matched rows, or of their
-  MV entries (replaces `_histogram` / `_mxu_histogram` and the MV
-  histogram branch of `_agg_outputs`);
+  MV entries, and in its fused form (`masked_histogram_hll`) the
+  HyperLogLog registers of the ids present from the per-dictId (index,
+  rank) tables (replaces `_histogram` / `_mxu_histogram` and the MV
+  histogram and "hll" branches of `_agg_outputs`); routes as K2's, and
+  table routes (HIST_TABLES, hist_table): "smem" (a block's tables in
+  shared memory) or "global" (the device table);
 - K5 `masked_reduce`: one lane's match count, min / max and per-block
   float64 sums (replaces `_chunked_float_sum` and the id / MV / raw
   min-max branches of `_agg_outputs`); routes as K2's;
 - K6 `masked_select`: the first k matched rows by (key words, docid), the
   match count and the gathered columns (replaces `_selection_outputs`
   with `_monotone_int32_keys`, kinds limit / order / ordertk / ordermk);
-- K7 `hll_registers`: HyperLogLog registers from K4's histogram and the
-  per-dictId (index, rank) tables (replaces the "hll" branch of
-  `_agg_outputs`);
 - K12 `radix_sort`: a stable sort of int32 / int64 key lanes carrying
   int32 payload lanes (replaces the lax.sort of `build_window_kernel`, and
   as `radix_sort_join` the sorts of a raw-key join's dim side in the
@@ -86,8 +87,8 @@ where the JAX planner does and NotPorted where the port has no kernel):
           ("sum" | "avg", col, "sv", ("parts", card_pad)) → K2;
           (fname, col, "sv", ("hist", card_pad)) → K4, fname ∈ {sum, avg,
             distinctcount, percentile, hist (an expression over col)};
-          ("hll", col, "sv", ("hll", card_pad, m)) → K4, then K7 over the
-            {col}.hllidx / {col}.hllrank tables;
+          ("hll", col, "sv", ("hll", card_pad, m)) → K4's fused form over
+            the {col}.hllidx / {col}.hllrank tables;
           (fname, col, "mv", (card_pad, card)) over {col}.mv [P, W] → K4's
             entry histogram, fname ∈ {sum, avg, percentile, distinctcount,
             countmv}, or K5 over the entries, fname ∈ {min, max,
@@ -196,9 +197,6 @@ KERNELS: Dict[str, KernelInfo] = {
     "masked_select": KernelInfo(
         "masked_select", "pinot_tpu_torch/ops/csrc/masked_select.cu",
         "pinot_tpu/ops/kernels.py:1479"),
-    "hll_registers": KernelInfo(
-        "hll_registers", "pinot_tpu_torch/ops/csrc/hll_registers.cu",
-        "pinot_tpu/ops/kernels.py:620"),
     "vector_scores": KernelInfo(
         "vector_scores", "pinot_tpu_torch/ops/csrc/vector_scores.cu",
         "pinot_tpu/ops/kernels.py:1430"),
@@ -250,7 +248,7 @@ KERNELS: Dict[str, KernelInfo] = {
 #: plan (the vmap of get_batched_segment_kernel), counted apart
 for _name in ("filter_mask", "masked_part_sums", "masked_histogram",
               "masked_reduce", "masked_select", "masked_select_vector",
-              "hll_registers", "vector_scores", "ivf_probe_select"):
+              "vector_scores", "ivf_probe_select"):
     KERNELS[f"{_name}_batched"] = KernelInfo(
         f"{_name}_batched", KERNELS[_name].source,
         "pinot_tpu/ops/kernels.py:1672",
@@ -275,12 +273,12 @@ _ARGTYPES = {
         _P, *_KEY_ARGTYPES, _PP, _I, _PP, _I,
         _PP, _IP, _IP, _IP, _PP, _I,
         _LL, _I, _I, _LL, _I, _P, _P, _P, _P, _P, _P],
-    "masked_histogram": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
+    "masked_histogram": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _I, _I, _P,
+                         _P, _I, _P, _P],
     "masked_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _P, _P, _P,
                       _P, _P, _P],
     "masked_select": [_P, _LL, _I, _I, _PP, _IP, _IP, _IP, _IP, _I, _I,
                       _PP, _IP, _PP, _I, _I, _P, _LL, _P, _P, _I, _P],
-    "hll_registers": [_P, _P, _P, _I, _I, _P, _P],
     "vector_scores": [_P, _LL, _I, _P, _F, _I, _P, _P],
     "ivf_probe_select": [_P, _P, _I, _I, _I, _P, _F, _I, _I, _P, _P, _P],
     "ivf_assign": [_P, _LL, _I, _P, _I, _I, _LL, _P, _P, _P, _I, _P, _P],
@@ -308,13 +306,12 @@ _ARGTYPES.update({
                             _I, _P, _IP, _I, _P],
     "masked_part_sums_batched": [_P, _PP, _I, _LL, _LL, _I, _I, _P, _P],
     "masked_histogram_batched": [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P,
-                                 _P],
+                                 _I, _I, _P, _P, _I, _P, _P],
     "masked_reduce_batched": [_P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I,
                               _P, _P, _P, _P, _P, _P],
     "masked_select_batched": [_P, _LL, _I, _I, _PP, _LLP, _IP, _IP, _IP,
                               _IP, _I, _I, _PP, _LLP, _IP, _PP, _I, _I, _P,
                               _LL, _P, _P, _I, _P],
-    "hll_registers_batched": [_P, _P, _P, _I, _I, _I, _P, _P],
     "vector_scores_batched": [_P, _LL, _I, _P, _FP, _I, _I, _P, _P],
     "ivf_probe_select_batched": [_P, _P, _I, _I, _I, _P, _FP, _I, _I, _I,
                                  _P, _P, _P],
@@ -325,7 +322,7 @@ _ARGTYPES["masked_select_vector_batched"] = _ARGTYPES["masked_select_batched"]
 #: program nodes counted apart: K1's upsert liveness leaf and join probe
 #: (and, for the single and stacked K1, the join leaf's route: "bitmap" or
 #: "probe", JOIN_ROUTES), the launch's route of K1 (FILTER_ROUTES; the
-#: batched form's "wide" or "rows"), K2 and K5 (WORD_ROUTES) and K10
+#: batched form's "wide" or "rows"), K2, K4 and K5 (WORD_ROUTES) and K10
 #: (IVF_ASSIGN_ROUTES), K3's join group keys, K14's key kinds and route
 #: (COMPACT_ROUTES)
 KERNELS["filter_mask"].node_launches.update(vdoc=0, join_raw=0, bitmap=0,
@@ -345,11 +342,19 @@ for _name in ("dense_group_aggregate", "slot_tables"):
 KERNELS["block_compact"].node_launches.update(
     jcode=0, jraw=0, idoff=0, idrank=0, warp=0, block=0)
 KERNELS["rank_slots"].node_launches["sort"] = 0
-#: the routes of K2 and K5, every form (WORD_ROUTES, word_route)
+#: the routes of K2, K4 and K5, every form (WORD_ROUTES, word_route)
 WORD_ROUTES = ("vector", "bytes")
 for _name in ("masked_part_sums", "masked_part_sums_batched", "masked_reduce",
-              "masked_reduce_batched"):
+              "masked_reduce_batched", "masked_histogram",
+              "masked_histogram_batched"):
     KERNELS[_name].node_launches.update(dict.fromkeys(WORD_ROUTES, 0))
+#: K4's table routes (masked_histogram.cu): "smem" (a block's tables in
+#: shared memory, flushed at its end) or "global" (the device table);
+#: hist_table picks. "hll" counts the fused form's launches.
+HIST_TABLES = ("smem", "global")
+for _name in ("masked_histogram", "masked_histogram_batched"):
+    KERNELS[_name].node_launches.update(dict.fromkeys(HIST_TABLES, 0),
+                                        hll=0)
 #: the routes of K12 (SORT_ROUTES) and K6 (SELECT_ROUTES), counted apart
 for _name in ("radix_sort", "radix_sort_join", "radix_sort_rank"):
     KERNELS[_name].node_launches.update(cluster=0, passes=0)
@@ -1273,13 +1278,14 @@ def part_sum_range(rows: int) -> int:
 
 
 def word_route(operands: Sequence[torch.Tensor],
-               route: Optional[str] = None) -> str:
-    """K2's and K5's route for these operands (the masks and lanes the
-    kernel reads): "vector" (16-byte words) where every one starts on a
-    16-byte boundary, else "bytes" (the same words from byte loads). A
+               route: Optional[str] = None, aligned: bool = True) -> str:
+    """K2's, K4's and K5's route for these operands (the masks and lanes
+    the kernel reads): "vector" (16-byte words) where every one starts on
+    a 16-byte boundary (and `aligned`: the caller's own condition on the
+    words inside them), else "bytes" (the same words from byte loads). A
     forced `route` is checked: "vector" raises ValueError on an operand
     off the boundary."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    aligned = aligned and all(t.data_ptr() % 16 == 0 for t in operands)
     if route is None:
         return "vector" if aligned else "bytes"
     if route not in WORD_ROUTES:
@@ -2188,26 +2194,130 @@ def rank_slots_plain(kc, cap: int, g_pad: int):
 
 
 # ---------------------------------------------------------------------------
-# K4 masked_histogram
+# K4 masked_histogram (and its fused HLL form)
 # ---------------------------------------------------------------------------
 
+#: HyperLogLog registers the fused form takes (2^13: log2m up to 13)
+MAX_HLL_REGISTERS = 8192
+#: {device index: dynamic shared bytes K4's tables may take a block},
+#: asked of the card once
+_HIST_ROOM: Dict[int, int] = {}
 
-def masked_histogram(mask: torch.Tensor, ids: torch.Tensor,
-                     card_pad: int) -> torch.Tensor:
-    """int32 [card_pad]: how many matched rows hold each dictId (ids
-    outside [0, card_pad) count nowhere)."""
-    padded, device = mask.shape[0], mask.device
-    _check_mask(mask)
-    _check_lane(ids, "id lane", padded, device, _ID_DTYPES)
+
+def hist_room(device) -> int:
+    """Dynamic shared bytes K4's tables may take a block, from the
+    card."""
+    device = torch.device(device)
+    key = device.index or 0
+    if key not in _HIST_ROOM:
+        from pinot_tpu_torch.ops import build
+        fn = getattr(build.load("masked_histogram.cu"),
+                     "pinot_masked_histogram_room")
+        fn.argtypes = [_IP]
+        fn.restype = ctypes.c_int
+        out = (_I * 1)()
+        with torch.cuda.device(device):
+            rc = fn(out)
+        if rc != 0:
+            raise RuntimeError(f"masked_histogram: room failed (CUDA error "
+                               f"{rc})")
+        _HIST_ROOM[key] = int(out[0])
+    return _HIST_ROOM[key]
+
+
+def hist_table(card_pad: int, room: int, table: Optional[str] = None) -> str:
+    """K4's table route for `card_pad` bins with `room` shared bytes a
+    block (hist_room): "smem" where one table of int32 bins fits, else
+    "global". A forced `table` is checked: "smem" raises ValueError where
+    the table does not fit."""
+    fits = 4 * card_pad <= room
+    if table is None:
+        return "smem" if fits else "global"
+    if table not in HIST_TABLES:
+        raise ValueError(f"table {table!r} not in {HIST_TABLES}")
+    if table == "smem" and not fits:
+        raise ValueError(f"{card_pad} bins do not fit a block's shared "
+                         f"memory ({room} bytes)")
+    return table
+
+
+def _check_hll(idx: torch.Tensor, rank: torch.Tensor, card_pad: int, m: int,
+               device) -> None:
+    for name, t in (("hll index table", idx), ("hll rank table", rank)):
+        _check_lane(t, name, card_pad, device, (torch.int32,))
+    if not 1 <= m <= MAX_HLL_REGISTERS:
+        raise ValueError(f"{m} registers outside [1, {MAX_HLL_REGISTERS}]")
+
+
+def _check_card_pad(card_pad: int) -> None:
     if not 1 <= card_pad <= INT32_MAX:
         raise ValueError(f"card_pad {card_pad}")
+
+
+def _histogram_launch(name: str, masks: torch.Tensor, lane: torch.Tensor,
+                      card_pad: int, limit: int, want_total: bool, hll,
+                      route: Optional[str], table: Optional[str]):
+    """K4 over masks [B, P] (`name`: "masked_histogram" for one unbatched
+    mask, else the batched entry): (hist int32 [B, card_pad], total int32
+    [B] or None, registers int32 [B, m] or None), views of one zeroed
+    buffer; `hll` is (idx, rank, m) for the fused form. The routes are
+    checked on the CPU too, then the plain versions answer."""
+    n, padded = masks.shape
+    device = masks.device
+    width = lane.shape[1] if lane.dim() == 2 else 1
+    route = word_route([masks, lane], route,
+                       aligned=n == 1 or padded % 16 == 0)
     if device.type == "cpu":
-        return masked_histogram_plain(mask, ids, card_pad)
-    out = torch.zeros(card_pad, dtype=torch.int32, device=device)
-    _launch("masked_histogram", device, mask.data_ptr(), ids.data_ptr(),
-            _ELEM[ids.dtype], padded, 1, int(card_pad), int(card_pad),
-            out.data_ptr(), None)
-    return out
+        if table is not None and table not in HIST_TABLES:
+            raise ValueError(f"table {table!r} not in {HIST_TABLES}")
+        if lane.dim() == 2:
+            outs = [masked_entry_histogram_plain(m, lane, card_pad, limit)
+                    for m in masks]
+            hist = torch.stack([o[0] for o in outs])
+            total = torch.stack([o[1] for o in outs])
+        else:
+            hist, total = masked_histogram_batched_plain(masks, lane,
+                                                         card_pad), None
+        regs = None if hll is None else torch.stack(
+            [hll_registers_plain(h, *hll) for h in hist])
+        return hist, total if want_total else None, regs
+    table = hist_table(card_pad, hist_room(device), table)
+    m = 0 if hll is None else hll[2]
+    size = n * (card_pad + want_total + m)
+    buf = torch.zeros(size, dtype=torch.int32, device=device)
+    hist = buf[:n * card_pad].view(n, card_pad)
+    total = buf[n * card_pad:n * (card_pad + 1)] if want_total else None
+    regs = buf[size - n * m:].view(n, m) if hll is not None else None
+    idx, rank = hll[:2] if hll is not None else (None, None)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (total, idx, rank, regs)]
+    members = () if name == "masked_histogram" else (n,)
+    _launch(name, device, masks.data_ptr(), lane.data_ptr(),
+            _ELEM[lane.dtype], padded, width, int(limit), int(card_pad),
+            *members, hist.data_ptr(), ptrs[0], int(route == "vector"),
+            int(table == "smem"), ptrs[1], ptrs[2], int(m), ptrs[3])
+    with _COUNT_LOCK:
+        nodes = KERNELS[name].node_launches
+        nodes[route] += 1
+        nodes[table] += 1
+        if hll is not None:
+            nodes["hll"] += 1
+    return hist, total, regs
+
+
+def masked_histogram(mask: torch.Tensor, ids: torch.Tensor, card_pad: int,
+                     route: Optional[str] = None,
+                     table: Optional[str] = None) -> torch.Tensor:
+    """int32 [card_pad]: how many matched rows hold each dictId (ids
+    outside [0, card_pad) count nowhere). `route` forces one of
+    WORD_ROUTES (word_route picks), `table` one of HIST_TABLES
+    (hist_table picks)."""
+    padded = mask.shape[0]
+    _check_mask(mask)
+    _check_lane(ids, "id lane", padded, mask.device, _ID_DTYPES)
+    _check_card_pad(card_pad)
+    return _histogram_launch("masked_histogram", mask[None], ids, card_pad,
+                             card_pad, False, None, route, table)[0][0]
 
 
 def masked_histogram_plain(mask: torch.Tensor, ids: torch.Tensor,
@@ -2218,25 +2328,66 @@ def masked_histogram_plain(mask: torch.Tensor, ids: torch.Tensor,
     return torch.bincount(v[keep], minlength=card_pad).to(torch.int32)
 
 
+def masked_histogram_hll(mask: torch.Tensor, ids: torch.Tensor,
+                         card_pad: int, idx: torch.Tensor,
+                         rank: torch.Tensor, m: int,
+                         route: Optional[str] = None,
+                         table: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 fused with the HLL registers, one launch: (int32 [card_pad]
+    counts as masked_histogram gives them, int32 [m] registers: reg[r] =
+    max rank[d] over the dictIds d present with idx[d] == r, 0 where
+    none, as the JAX `_agg_outputs` "hll" branch scatter-maxes them).
+    `route` and `table` as masked_histogram takes them."""
+    padded, device = mask.shape[0], mask.device
+    _check_mask(mask)
+    _check_lane(ids, "id lane", padded, device, _ID_DTYPES)
+    _check_card_pad(card_pad)
+    _check_hll(idx, rank, card_pad, m, device)
+    hist, _t, regs = _histogram_launch("masked_histogram", mask[None], ids,
+                                       card_pad, card_pad, False,
+                                       (idx, rank, m), route, table)
+    return hist[0], regs[0]
+
+
+def masked_histogram_hll_plain(mask: torch.Tensor, ids: torch.Tensor,
+                               card_pad: int, idx: torch.Tensor,
+                               rank: torch.Tensor, m: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch fused K4: the plain histogram, then the plain
+    registers over it."""
+    hist = masked_histogram_plain(mask, ids, card_pad)
+    return hist, hll_registers_plain(hist, idx, rank, m)
+
+
+def hll_registers_plain(hist: torch.Tensor, idx: torch.Tensor,
+                        rank: torch.Tensor, m: int) -> torch.Tensor:
+    """The plain registers of the fused form: scatter_reduce_ amax of the
+    ranks of the ids with hist > 0."""
+    vals = torch.where(hist > 0, rank, 0)
+    keep = (idx >= 0) & (idx < m)
+    out = torch.zeros(m, dtype=torch.int32, device=hist.device)
+    return out.scatter_reduce_(0, idx[keep].long(), vals[keep], "amax")
+
+
 def masked_entry_histogram(mask: torch.Tensor, mv: torch.Tensor,
-                           card_pad: int, card: int
+                           card_pad: int, card: int,
+                           route: Optional[str] = None,
+                           table: Optional[str] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 over an MV lane [P, W]: (int32 [card_pad] counts of the matched
     rows' entries by dictId, int32 scalar count of those entries);
-    padding entries (id >= card) count nowhere."""
-    padded, device = mask.shape[0], mask.device
+    padding entries (id >= card) count nowhere. `route` and `table` as
+    masked_histogram takes them."""
+    padded = mask.shape[0]
     _check_mask(mask)
-    _check_lane(mv, "MV id lane", padded, device, _ID_DTYPES, 2)
+    _check_lane(mv, "MV id lane", padded, mask.device, _ID_DTYPES, 2)
     if not 0 <= card < card_pad <= INT32_MAX:
         raise ValueError(f"card {card} / card_pad {card_pad}")
-    if device.type == "cpu":
-        return masked_entry_histogram_plain(mask, mv, card_pad, card)
-    out = torch.zeros(card_pad, dtype=torch.int32, device=device)
-    total = torch.zeros((), dtype=torch.int32, device=device)
-    _launch("masked_histogram", device, mask.data_ptr(), mv.data_ptr(),
-            _ELEM[mv.dtype], padded, mv.shape[1], int(card), int(card_pad),
-            out.data_ptr(), total.data_ptr())
-    return out, total
+    hist, total, _r = _histogram_launch("masked_histogram", mask[None], mv,
+                                        card_pad, card, True, None, route,
+                                        table)
+    return hist[0], total[0]
 
 
 def masked_entry_histogram_plain(mask: torch.Tensor, mv: torch.Tensor,
@@ -2251,21 +2402,17 @@ def masked_entry_histogram_plain(mask: torch.Tensor, mv: torch.Tensor,
 
 
 def masked_histogram_batched(masks: torch.Tensor, ids: torch.Tensor,
-                             card_pad: int) -> torch.Tensor:
+                             card_pad: int, route: Optional[str] = None,
+                             table: Optional[str] = None) -> torch.Tensor:
     """K4 for B members, one launch: int32 [B, card_pad], member b's
-    counts under masks[b]."""
-    n, padded = _check_masks(masks)
-    device = masks.device
-    _check_lane(ids, "id lane", padded, device, _ID_DTYPES)
-    if not 1 <= card_pad <= INT32_MAX:
-        raise ValueError(f"card_pad {card_pad}")
-    if device.type == "cpu":
-        return masked_histogram_batched_plain(masks, ids, card_pad)
-    out = torch.zeros(n, card_pad, dtype=torch.int32, device=device)
-    _launch("masked_histogram_batched", device, masks.data_ptr(),
-            ids.data_ptr(), _ELEM[ids.dtype], padded, 1, int(card_pad),
-            int(card_pad), n, out.data_ptr(), None)
-    return out
+    counts under masks[b]. `route` and `table` as masked_histogram takes
+    them."""
+    _n, padded = _check_masks(masks)
+    _check_lane(ids, "id lane", padded, masks.device, _ID_DTYPES)
+    _check_card_pad(card_pad)
+    return _histogram_launch("masked_histogram_batched", masks, ids,
+                             card_pad, card_pad, False, None, route,
+                             table)[0]
 
 
 def masked_histogram_batched_plain(masks: torch.Tensor, ids: torch.Tensor,
@@ -2275,25 +2422,52 @@ def masked_histogram_batched_plain(masks: torch.Tensor, ids: torch.Tensor,
                         for m in masks])
 
 
+def masked_histogram_hll_batched(masks: torch.Tensor, ids: torch.Tensor,
+                                 card_pad: int, idx: torch.Tensor,
+                                 rank: torch.Tensor, m: int,
+                                 route: Optional[str] = None,
+                                 table: Optional[str] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused K4 for B members, one launch: (int32 [B, card_pad]
+    counts, int32 [B, m] registers), member b's under masks[b]."""
+    _n, padded = _check_masks(masks)
+    device = masks.device
+    _check_lane(ids, "id lane", padded, device, _ID_DTYPES)
+    _check_card_pad(card_pad)
+    _check_hll(idx, rank, card_pad, m, device)
+    hist, _t, regs = _histogram_launch("masked_histogram_batched", masks,
+                                       ids, card_pad, card_pad, False,
+                                       (idx, rank, m), route, table)
+    return hist, regs
+
+
+def masked_histogram_hll_batched_plain(masks: torch.Tensor,
+                                       ids: torch.Tensor, card_pad: int,
+                                       idx: torch.Tensor, rank: torch.Tensor,
+                                       m: int
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch batched fused K4: each member's, stacked."""
+    outs = [masked_histogram_hll_plain(mm, ids, card_pad, idx, rank, m)
+            for mm in masks]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1]
+                                                           for o in outs])
+
+
 def masked_entry_histogram_batched(masks: torch.Tensor, mv: torch.Tensor,
-                                   card_pad: int, card: int
+                                   card_pad: int, card: int,
+                                   route: Optional[str] = None,
+                                   table: Optional[str] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 over an MV lane for B members, one launch: (int32 [B, card_pad]
     entry counts, int32 [B] entries counted)."""
-    n, padded = _check_masks(masks)
-    device = masks.device
-    _check_lane(mv, "MV id lane", padded, device, _ID_DTYPES, 2)
+    _n, padded = _check_masks(masks)
+    _check_lane(mv, "MV id lane", padded, masks.device, _ID_DTYPES, 2)
     if not 0 <= card < card_pad <= INT32_MAX:
         raise ValueError(f"card {card} / card_pad {card_pad}")
-    if device.type == "cpu":
-        return masked_entry_histogram_batched_plain(masks, mv, card_pad,
-                                                    card)
-    out = torch.zeros(n, card_pad, dtype=torch.int32, device=device)
-    total = torch.zeros(n, dtype=torch.int32, device=device)
-    _launch("masked_histogram_batched", device, masks.data_ptr(),
-            mv.data_ptr(), _ELEM[mv.dtype], padded, mv.shape[1], int(card),
-            int(card_pad), n, out.data_ptr(), total.data_ptr())
-    return out, total
+    hist, total, _r = _histogram_launch("masked_histogram_batched", masks,
+                                        mv, card_pad, card, True, None,
+                                        route, table)
+    return hist, total
 
 
 def masked_entry_histogram_batched_plain(masks: torch.Tensor,
@@ -3108,74 +3282,6 @@ def ivf_select_probes_batched_plain(centroids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K7 hll_registers
-# ---------------------------------------------------------------------------
-
-MAX_HLL_REGISTERS = 8192         # hll_registers.cu keeps them in 32 KB
-
-
-def hll_registers(hist: torch.Tensor, idx: torch.Tensor, rank: torch.Tensor,
-                  m: int) -> torch.Tensor:
-    """int32 [m] HyperLogLog registers: reg[idx[d]] = max rank[d] over the
-    dictIds d with hist[d] > 0 (0 where none), as the JAX `_agg_outputs`
-    "hll" branch scatter-maxes them."""
-    device = hist.device
-    card_pad = hist.shape[0]
-    for name, t in (("hist", hist), ("hll index table", idx),
-                    ("hll rank table", rank)):
-        _check_lane(t, name, card_pad, device, (torch.int32,))
-    if not 1 <= m <= MAX_HLL_REGISTERS:
-        raise ValueError(f"{m} registers outside [1, {MAX_HLL_REGISTERS}]")
-    if device.type == "cpu":
-        return hll_registers_plain(hist, idx, rank, m)
-    out = torch.zeros(m, dtype=torch.int32, device=device)
-    _launch("hll_registers", device, hist.data_ptr(), idx.data_ptr(),
-            rank.data_ptr(), card_pad, int(m), out.data_ptr())
-    return out
-
-
-def hll_registers_plain(hist: torch.Tensor, idx: torch.Tensor,
-                        rank: torch.Tensor, m: int) -> torch.Tensor:
-    """Plain PyTorch K7: scatter_reduce_ amax of the present ranks."""
-    vals = torch.where(hist > 0, rank, 0)
-    keep = (idx >= 0) & (idx < m)
-    out = torch.zeros(m, dtype=torch.int32, device=hist.device)
-    return out.scatter_reduce_(0, idx[keep].long(), vals[keep], "amax")
-
-
-def hll_registers_batched(hists: torch.Tensor, idx: torch.Tensor,
-                          rank: torch.Tensor, m: int) -> torch.Tensor:
-    """K7 for B members, one launch: int32 [B, m], member b's registers
-    from its histogram row hists[b] (int32 [B, card_pad], K4's)."""
-    device = hists.device
-    if hists.dim() != 2 or not 1 <= hists.shape[0] <= MAX_BATCH:
-        raise ValueError(f"histograms have shape {tuple(hists.shape)}, "
-                         f"expected [B <= {MAX_BATCH}, card_pad]")
-    n, card_pad = hists.shape
-    for name, t in (("hist", hists[0]), ("hll index table", idx),
-                    ("hll rank table", rank)):
-        _check_lane(t, name, card_pad, device, (torch.int32,))
-    if not hists.is_contiguous():
-        raise ValueError("histograms are not contiguous")
-    if not 1 <= m <= MAX_HLL_REGISTERS:
-        raise ValueError(f"{m} registers outside [1, {MAX_HLL_REGISTERS}]")
-    if device.type == "cpu":
-        return hll_registers_batched_plain(hists, idx, rank, m)
-    out = torch.zeros(n, m, dtype=torch.int32, device=device)
-    _launch("hll_registers_batched", device, hists.data_ptr(),
-            idx.data_ptr(), rank.data_ptr(), card_pad, int(m), n,
-            out.data_ptr())
-    return out
-
-
-def hll_registers_batched_plain(hists: torch.Tensor, idx: torch.Tensor,
-                                rank: torch.Tensor, m: int) -> torch.Tensor:
-    """Plain PyTorch batched K7: each member's registers, stacked."""
-    return torch.stack([hll_registers_plain(h, idx, rank, m)
-                        for h in hists])
-
-
-# ---------------------------------------------------------------------------
 # K12 radix_sort, K13 window_scan
 # ---------------------------------------------------------------------------
 
@@ -3605,8 +3711,8 @@ def run_segment_kernel(padded: int, filter_spec, agg_specs, group_spec,
                        select_spec, cols: Dict[str, torch.Tensor], params,
                        num_docs: int, device=None, group_params=()
                        ) -> Dict[str, torch.Tensor]:
-    """One segment plan: K1, then K3 (group-by), or K2, K4, K5 and K7 as
-    the aggregations need them, and K6 for a selection.
+    """One segment plan: K1, then K3 (group-by), or K2, K4 and K5 as the
+    aggregations need them, and K6 for a selection.
 
     Returns the device outputs under the JAX package's names
     (stats.num_docs_matched, agg{i}, agg{i}.parts, agg{i}.count,
@@ -3775,7 +3881,7 @@ def run_segment_kernel_batched(padded: int, filter_spec, agg_specs,
 
 def _run_batch_chunk(padded, filter_spec, agg_specs, select_spec, cols,
                      params_list, num_docs, device):
-    """K1, then K2 / K4 / K5 / K7 and K6 (K9 and K8 in front where the
+    """K1, then K2 / K4 / K5 and K6 (K9 and K8 in front where the
     plan probes or scores vectors), each launched once for the chunk."""
     if cols:
         device = next(iter(cols.values())).device
@@ -4086,7 +4192,9 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
                  ) -> Dict[str, torch.Tensor]:
     # one K5 per lane and one K4 per (lane, card_pad), shared by the
     # aggregations that read them; K2 runs for part lanes, or for the match
-    # count when no K5 gives it; K7 runs per HLL aggregation on its K4.
+    # count when no K5 gives it. An HLL aggregation takes the fused K4
+    # (histogram and registers in one launch) once per (lane, card_pad,
+    # m), and its histogram serves that lane's other K4 aggregations.
     # seg_rows (a stack of segments of that many rows): K2 writes one row
     # of part sums per segment and K5's block sums take a segment axis,
     # the JAX "stack" outputs; everything else combines over the stack.
@@ -4097,7 +4205,8 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
     hist_fn = masked_histogram_batched if batched else masked_histogram
     entry_fn = masked_entry_histogram_batched if batched else \
         masked_entry_histogram
-    hll_fn = hll_registers_batched if batched else hll_registers
+    hll_fn = masked_histogram_hll_batched if batched else \
+        masked_histogram_hll
     reduce_args: Dict[str, tuple] = {}
     for spec in agg_specs:
         req = _reduce_request(spec)
@@ -4122,11 +4231,26 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
         count = next(iter(reduced.values()))["count"]
     outs = {"stats.num_docs_matched": count}
     hists: Dict[tuple, torch.Tensor] = {}
+    fused: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+    hll_m: Dict[tuple, int] = {}
+    for fname, col, source, extra in agg_specs:
+        if fname == "hll" and source == "sv":
+            hll_m.setdefault((col, extra[1]), extra[2])
+
+    def hll(col: str, card_pad: int, m: int):
+        fk = (col, card_pad, m)
+        if fk not in fused:
+            fused[fk] = hll_fn(mask, cols[f"{col}.ids"], card_pad,
+                               cols[f"{col}.hllidx"], cols[f"{col}.hllrank"],
+                               m)
+            hists.setdefault((col, card_pad), fused[fk][0])
+        return fused[fk]
 
     def histogram(col: str, card_pad: int) -> torch.Tensor:
         hk = (col, card_pad)
         if hk not in hists:
-            hists[hk] = hist_fn(mask, cols[f"{col}.ids"], card_pad)
+            hists[hk] = hll(col, card_pad, hll_m[hk])[0] if hk in hll_m \
+                else hist_fn(mask, cols[f"{col}.ids"], card_pad)
         return hists[hk]
 
     off = 0
@@ -4147,9 +4271,7 @@ def _agg_outputs(mask, agg_specs, cols, seg_rows: Optional[int] = None
             outs[f"agg{i}"] = histogram(col, extra[1])
         elif fname == "hll" and source == "sv":
             _strategy_name, card_pad, m = extra
-            outs[f"agg{i}.hll"] = hll_fn(
-                histogram(col, card_pad), cols[f"{col}.hllidx"],
-                cols[f"{col}.hllrank"], m)
+            outs[f"agg{i}.hll"] = hll(col, card_pad, m)[1]
         elif source == "mv" and fname in _MV_HIST_FNAMES:
             card_pad, card = extra
             hk = (col, card_pad, "mv")

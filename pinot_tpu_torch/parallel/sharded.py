@@ -10,7 +10,7 @@ all_gather (`get_sharded_kernel`). Here the stack lives on one card as
 row space: K1 masks each segment's rows past its doc count and counts
 its matches, K2 writes one exact row of part sums per segment, K3 folds
 every segment into one group table (int64 part sums), K6 keeps a top k
-per segment, and K4 / K5 / K7 run over the flat rows unchanged. The
+per segment, and K4 / K5 run over the flat rows unchanged. The
 combine of `get_sharded_kernel` thus happens inside those launches
 (ops/kernels.py:run_stacked_kernel), and the host finishes one block per
 query with the single-segment finishers, where the sequential path

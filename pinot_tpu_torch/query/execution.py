@@ -1,7 +1,7 @@
 """Segment plan execution: run the device kernels, finish results host-side.
 
 Counterpart of pinot_tpu/query/execution.py. One dispatch per segment
-(K1, then K3, or K2 with K4 / K5 / K7, and K6 for a selection; K9 ahead
+(K1, then K3, or K2 with K4 / K5, and K6 for a selection; K9 ahead
 of K1 for an IVF probe and K8 ahead of K6 for a vector selection:
 ops/kernels.py:run_segment_kernel) and one device→host pull: for a
 group-by only the non-empty groups cross, picked out on the device first,
@@ -345,7 +345,7 @@ def _finish_aggregation(plan, outs, blk) -> None:
         if fname in ("count", "countmv"):
             inters.append(int(outs[f"agg{i}"]))
         elif fname == "hll":
-            # K7's registers → the HyperLogLog intermediate every combine
+            # the fused K4's registers → the HyperLogLog intermediate every combine
             # and reduce layer merges by register max
             regs = np.asarray(outs[f"agg{i}.hll"]).astype(np.uint8)
             inters.append(HyperLogLog(DEFAULT_LOG2M, regs))

@@ -1272,8 +1272,9 @@ def _agg_device_spec(f: AggregationFunction, segment: ImmutableSegment,
             return (fname, col, "sv", ("ids", card_pad))
         if base in ("DISTINCTCOUNTHLL", "DISTINCTCOUNTRAWHLL") and \
                 not f.info.is_mv:
-            # K4's histogram, then K7 scatter-maxes the present ids'
-            # (register, rank) tables: the host sketch's registers.
+            # the fused K4: the histogram's present ids scatter-max
+            # their (register, rank) tables in the same launch, giving
+            # the host sketch's registers.
             # FASTHLL keeps the histogram path, as in JAX.
             from pinot_tpu_torch.common.sketches import DEFAULT_LOG2M
             needed[(col, "ids")] = None

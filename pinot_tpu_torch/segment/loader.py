@@ -195,7 +195,8 @@ class DataSource:
     def device_hll_idx(self) -> torch.Tensor:
         """Per-dictId HLL register-index table [card_pad] int32, built
         from the dictionary values with the host HyperLogLog's own hashing
-        (sketches.hll_tables), so K7's registers equal the host sketch."""
+        (sketches.hll_tables), so the fused K4's registers equal the host
+        sketch."""
         return self._device("hll_idx", "hllidx")
 
     def device_hll_rank(self) -> torch.Tensor:

@@ -927,7 +927,7 @@ def mv_group_by_draws(oracle: Oracle, n: int = N_MV_GROUP,
 
 
 #: one query per device shape of the aggregation / group-by planner that
-#: the generator's families miss: device HLL (K7), the MV entry histogram
+#: the generator's families miss: device HLL (the fused K4), the MV entry histogram
 #: (K4), expression aggregations and keys (one with colliding keys), MV
 #: and valuein keys (K3), and an MV expression aggregation the JAX planner
 #: refuses (the host twin answers it)
@@ -1134,8 +1134,8 @@ def batch_draws(oracle: Oracle) -> Dict[str, List[Draw]]:
     """Families of same-shape queries with varied literals, for
     execute_batch: the JAX tests' BATCH_PQLS (tests/test_batching.py:123),
     a min / max / average family (K5 over raw and id lanes), a selection
-    family (ORDER BY salary, K6's ordertk), a DISTINCTCOUNTHLL family (K4
-    and K7), and a mixed batch: two of BATCH_PQLS, a member whose literal
+    family (ORDER BY salary, K6's ordertk), a DISTINCTCOUNTHLL family (the
+    fused K4), and a mixed batch: two of BATCH_PQLS, a member whose literal
     no dictionary holds (a fast path) and two group-bys, which run one by
     one."""
     o = oracle

@@ -1,9 +1,9 @@
-"""Device HLL (K7 over K4's histogram) against the JAX package and the
-host sketch.
+"""Device HLL (the fused K4: the histogram and the registers of the ids
+present, in one launch) against the JAX package and the host sketch.
 
 The loader's per-dictId (register index, rank) tables equal the JAX
-loader's; K7's plain version, run through run_segment_kernel on the same
-lanes, gives registers bit-equal to the JAX `_agg_outputs` "hll" branch;
+loader's; the fused K4's plain version, run through run_segment_kernel
+on the same lanes, gives registers bit-equal to the JAX `_agg_outputs` "hll" branch;
 a segment's registers equal HyperLogLog.from_values over the values its
 matched rows hold, and registers merged across segments (the combine's
 register max) equal one sketch of the union; DISTINCTCOUNTHLL and
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from fixtures import build_segment
 from pinot_tpu.engine import QueryEngine as JaxQueryEngine
@@ -76,8 +77,10 @@ def test_hll_registers_equal_the_host_sketch():
     cols = _torch_cols(_hll_cols(P, num_docs, seed=4))
     spec, params = FILTERS["nested"]
     mask = tk.filter_mask(P, spec, cols, params, num_docs, "cpu")
-    hist = tk.masked_histogram(mask, cols["b.ids"], 1024)
-    regs = tk.hll_registers(hist, cols["b.hllidx"], cols["b.hllrank"], M)
+    hist, regs = tk.masked_histogram_hll(mask, cols["b.ids"], 1024,
+                                         cols["b.hllidx"], cols["b.hllrank"],
+                                         M)
+    assert torch.equal(hist, tk.masked_histogram(mask, cols["b.ids"], 1024))
     ids = cols["b.ids"].numpy()[mask.numpy().astype(bool)]
     want = HyperLogLog.from_values(values[np.unique(ids)])
     np.testing.assert_array_equal(regs.numpy().astype(np.uint8),
@@ -97,7 +100,7 @@ def engines(tmp_path_factory):
 
 
 def test_segment_registers_merge_to_the_union_sketch(engines):
-    """Each segment's K7 registers are its matched values' sketch; the
+    """Each segment's fused-K4 registers are its matched values' sketch; the
     executor's combine (register max) gives the sketch of the union."""
     _jax, port, parts = engines
     from pinot_tpu_torch.pql.optimizer import BrokerRequestOptimizer

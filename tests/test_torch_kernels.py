@@ -14,8 +14,8 @@ different orders). K1's host-built program is also run through a numpy
 interpreter of the CUDA kernel's evaluation loop. Tests marked `cuda`
 hold each CUDA kernel to its plain version and skip where there is no
 card: K1-K5 as above, K3 over every group key kind (MV, valuein, raw),
-K4 and K5 over MV entries and K7's HLL registers. The lanes and cases of
-the last three are shared with test_torch_groupby_mv.py and
+K4 and K5 over MV entries and the fused K4's HLL registers. The lanes
+and cases of the last three are shared with test_torch_groupby_mv.py and
 test_torch_hll.py, which hold the plain versions to JAX.
 """
 from __future__ import annotations
@@ -1054,8 +1054,8 @@ def test_histogram_and_reduce_cuda_match_plain(cuda_device, name):
     spec, params = FILTERS[name]
     cols = _torch_cols(_lanes(P, P - 777, seed=5), cuda_device)
     mask = tk.filter_mask(P, spec, cols, params, P - 777, cuda_device)
-    # shared-memory tables up to 16384 bins (64 KB, opted in above 48
-    # KB), device-memory atomics above; ids >= card_pad count nowhere
+    # the table route hist_table picks (shared memory or the device
+    # table, by card_pad against the rows); ids >= card_pad count nowhere
     for col, card_pad in (("h15", 16), ("b", 1024), ("c", 16384),
                           ("c", 65536)):
         assert torch.equal(
@@ -1077,7 +1077,7 @@ def test_histogram_and_reduce_cuda_match_plain(cuda_device, name):
 
 # ---------------------------------------------------------------------------
 # Group key kinds (K3), MV entry histograms (K4) and min / max (K5), HLL
-# registers (K7): the lanes and cases test_torch_groupby_mv.py and
+# registers (the fused K4): the lanes and cases test_torch_groupby_mv.py and
 # test_torch_hll.py hold against JAX, and the card tests below against the
 # plain versions
 # ---------------------------------------------------------------------------
@@ -1513,8 +1513,7 @@ def test_mv_histogram_reduce_and_hll_cuda_match_plain(cuda_device, name):
         for k in ("min", "max", "count"):
             assert got[k].dtype == want[k].dtype
             assert torch.equal(got[k], want[k]), (col, k)
-    hist = tk.masked_histogram(mask, cols["b.ids"], 1024)
-    got = tk.hll_registers(hist, cols["b.hllidx"], cols["b.hllrank"], 4096)
-    want = tk.hll_registers_plain(hist, cols["b.hllidx"], cols["b.hllrank"],
-                                  4096)
-    assert torch.equal(got, want)
+    args = (cols["b.ids"], 1024, cols["b.hllidx"], cols["b.hllrank"], 4096)
+    got = tk.masked_histogram_hll(mask, *args)
+    want = tk.masked_histogram_hll_plain(mask, *args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

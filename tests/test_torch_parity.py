@@ -17,7 +17,14 @@ kernel takes the arrays and sorts them inside the launch. join_raw_probe
 runs at a narrow key span (K1's bitmap route) and a wide one (its
 probe route).
 
-A `cuda` test holds group_scatter on the card to the CPU's answer.
+The three cases that hold K4 and its fused HLL form, `agg_float_hist`
+(a DISTINCTCOUNT histogram beside raw and decoded-value sums and id
+extremes), `agg_mv` (the MV entry histogram, COUNTMV's total and the
+entry min) and `agg_hll` (the fused histogram and registers), run the
+same way; their dictionaries' HLL tables come from the loader.
+
+A `cuda` test holds group_scatter on the card to the CPU's answer, and
+one the three K4 cases.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from pinot_tpu.ops import kernels as jk
 from pinot_tpu_torch.ops import kernels as tk
+from pinot_tpu_torch.segment.loader import hll_tables_padded
 
 #: float sums: the JAX scatter and K3 add float64 values in other orders
 FLOAT_RTOL = 1e-12
@@ -79,6 +87,35 @@ def _join_raw_probe_operands(P: int, seed: int, span: str):
     assert cols == {"k0.raw": ("int32", ("P",))}
     return ({"k0.raw": lane}, (keys, keys, codes), [tk.SortedKeys(keys)],
             [tk.SortedKeys(keys, codes)])
+
+
+def _histogram_case_operands(name: str, P: int, seed: int):
+    """The lanes of agg_float_hist, agg_mv or agg_hll as the registry
+    gives their shapes (ids over 50-entry dictionaries padded to 64, MV
+    rows of 1-4 entries padded with the cardinality, the HLL tables of
+    50 strings), and the eq_id literal where the filter takes one."""
+    _n, _f, _a, _g, _s, cols, params = _case(name)
+    rng = np.random.default_rng([seed, P])
+    lanes = {}
+    for key, (dt, shape) in cols.items():
+        if key.endswith(".ids"):
+            lanes[key] = rng.integers(0, 50, P).astype(dt)
+        elif key.endswith(".mv"):
+            mv = rng.integers(0, 50, (P, shape[1])).astype(dt)
+            width = rng.integers(1, shape[1] + 1, P)
+            mv[np.arange(shape[1])[None, :] >= width[:, None]] = 50
+            lanes[key] = mv
+        elif key.endswith((".raw", ".vlane")):
+            lanes[key] = rng.standard_normal(P).astype(dt)
+    if "v0.hllidx" in cols:
+        idx, rank = hll_tables_padded(np.array([f"v{i:02d}"
+                                                for i in range(50)]))
+        lanes["v0.hllidx"], lanes["v0.hllrank"] = idx, rank
+    assert {k: (str(v.dtype), v.shape) for k, v in lanes.items()} == \
+        {k: (dt, tuple(P if d == "P" else d for d in shape))
+         for k, (dt, shape) in cols.items()}
+    lits = tuple(np.int32(7) for _ in params)
+    return lanes, lits, list(lits), ()
 
 
 def _compare(jax_out, port_out) -> None:
@@ -139,6 +176,22 @@ def test_join_raw_probe_case_equals_jax(P, seed, span):
     assert 0 < int(got["stats.num_docs_matched"]) < P - 100
 
 
+@pytest.mark.parametrize("name", ["agg_float_hist", "agg_mv", "agg_hll"])
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("P", jk.CONTRACT_SHAPE_BUCKETS)
+def test_histogram_case_equals_jax(P, seed, name):
+    """K4's registry cases: the histogram (JAX's one-hot matrix products
+    at card_pad 64), the MV entry histogram with COUNTMV's total and the
+    fused HLL registers, key by key against JAX."""
+    lanes, jax_params, params, group_params = _histogram_case_operands(
+        name, P, seed)
+    want, got = _run_both(name, P, lanes, jax_params, params, group_params)
+    _compare(want, got)
+    if name == "agg_hll":
+        assert got["agg0.hll"].dtype == torch.int32
+        assert int((got["agg0.hll"] > 0).sum()) > 0
+
+
 def test_group_vals_spec_with_card_pad():
     """The planner's form of the spec, ("vals", card_pad), takes the same
     route as the registry's ("vals",): equal outputs."""
@@ -172,6 +225,28 @@ def test_group_scatter_case_cuda_equals_cpu(P):
     _compare(want, got)
     cpu = _run_both("group_scatter", P, lanes, jax_params, params,
                     group_params)[1]
+    for key in cpu:
+        if cpu[key].dtype.is_floating_point:
+            torch.testing.assert_close(got[key].cpu(), cpu[key],
+                                       rtol=FLOAT_RTOL, atol=0)
+        else:
+            assert torch.equal(got[key].cpu(), cpu[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["agg_float_hist", "agg_mv", "agg_hll"])
+@pytest.mark.parametrize("P", jk.CONTRACT_SHAPE_BUCKETS)
+def test_histogram_case_cuda_equals_cpu(P, name):
+    """K4's registry cases on the card against the CPU's plain answer and
+    JAX's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    lanes, jax_params, params, group_params = _histogram_case_operands(
+        name, P, 5)
+    want, got = _run_both(name, P, lanes, jax_params, params, group_params,
+                          device="cuda")
+    _compare(want, got)
+    cpu = _run_both(name, P, lanes, jax_params, params, group_params)[1]
     for key in cpu:
         if cpu[key].dtype.is_floating_point:
             torch.testing.assert_close(got[key].cpu(), cpu[key],
